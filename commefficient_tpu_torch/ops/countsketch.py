@@ -1,0 +1,463 @@
+"""Count Sketch — the port of ``commefficient_tpu/ops/countsketch.py``.
+
+The geometry and hashes are the reference's, integer for integer (pinned by
+tests/test_torch_countsketch.py), because the BANDED layout is semantics,
+not an optimization: chunk q of m coordinates hashes its within-chunk
+offsets into a window of V = band * stride buckets starting at q * stride,
+so neighbouring windows overlap and each coordinate collides within ~V
+buckets. The reference's module docstring records that other layouts change
+training (the feedback loop diverges with disjoint pools), so the port keeps
+this one and does not swap in csvec's classic layout. Before any row layout,
+one seed-derived permutation of ``sblock``-sized blocks scrambles the
+vector; each row then riffles it by a distinct prime factor.
+
+The matmul-path entry points (``sketch_vec``, ``estimate_all`` and what is
+built on them) run through ``ops/cuda/countsketch.py``: the CUDA kernels on
+a CUDA tensor, their plain PyTorch versions on a CPU tensor. The scramble
+stays outside the kernels as a torch gather, as the reference keeps it
+outside its Pallas kernels. The gather/scatter paths (``estimate_at``,
+``sketch_sparse``) are plain tensor code in the reference too.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from commefficient_tpu_torch.ops.cuda.countsketch import (
+    estimate_median,
+    median_rows,
+    sketch_rows,
+)
+from commefficient_tpu_torch.ops.topk import topk_sparsify
+
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B9
+_MASK32 = 0xFFFFFFFF
+_MERSENNE_P = 2**31 - 1
+
+
+# -- hashes ------------------------------------------------------------------
+
+
+def _poly4_eval(x: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
+    """((c0 x^3 + c1 x^2 + c2 x + c3) mod p) for uint64 x < p — Horner with
+    every intermediate < 2^62, exact in uint64 (host reference)."""
+    if x.size and int(x.max()) >= _MERSENNE_P:
+        raise ValueError(
+            f"poly4 hash input {int(x.max())} >= p=2^31-1; the 4-universal "
+            "family is only defined over GF(p) — use hash_family='fmix32' "
+            "at this scale"
+        )
+    p = np.uint64(_MERSENNE_P)
+    acc = np.zeros_like(x) + coeffs[0]
+    for a in coeffs[1:]:
+        acc = (acc * x + a) % p
+    return acc
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): split c in 16-bit halves
+    so no intermediate leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def mix32(x: torch.Tensor, key: int) -> torch.Tensor:
+    """murmur3 fmix32 with a key fold on int64 tensors holding uint32
+    values — bit-identical to the reference's ``_mix32``."""
+    x = (x ^ (int(key) & _MASK32)) & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _M2)
+    return x ^ (x >> 16)
+
+
+def poly4(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """The degree-3 Mersenne-31 polynomial on int64 tensors (x < p):
+    bit-identical to the host ``_poly4_eval``."""
+    acc = torch.full_like(x, int(coeffs[0]))
+    for a in coeffs[1:]:
+        acc = (acc * x + int(a)) % _MERSENNE_P
+    return acc
+
+
+def _mix32_np(x: np.ndarray, key: int) -> np.ndarray:
+    x = x.astype(np.uint32) ^ np.uint32(key)
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(_M1)
+        x ^= x >> np.uint32(13)
+        x *= np.uint32(_M2)
+        x ^= x >> np.uint32(16)
+    return x
+
+
+# -- geometry ----------------------------------------------------------------
+
+
+def _is_prime(n: int) -> bool:
+    if n < 2:
+        return False
+    i = 2
+    while i * i <= n:
+        if n % i == 0:
+            return False
+        i += 1
+    return True
+
+
+def _next_prime_geq(n: int) -> int:
+    n = max(n, 2)
+    while not _is_prime(n):
+        n += 1
+    return n
+
+
+def _ceil_mult(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+@functools.lru_cache(maxsize=None)
+def _riffle_factors(d: int, m: int, r: int) -> tuple:
+    """Per-row riffle factors (distinct primes with pairwise distinct padded
+    lattice spacings) — the reference's rule, see its docstring."""
+    nc0 = max(1, -(-d // m))
+
+    def lattice(f: int) -> int:
+        return -(-nc0 // f)
+
+    def pick(target: int, fs: list, used_g: set) -> int:
+        f = _next_prime_geq(max(2, target))
+        for _ in range(10_000):
+            if f not in fs and lattice(f) not in used_g:
+                return f
+            f = _next_prime_geq(f + 1)
+            if lattice(f) <= 1 and 1 in used_g:
+                break
+        f = _next_prime_geq(max(2, target))
+        while f in fs:
+            f = _next_prime_geq(f + 1)
+        return f
+
+    fs = [1]
+    used_g = {lattice(1)}
+    if r == 1:
+        return tuple(fs)
+    if nc0 >= m:
+        targets = [max(2, int(round(m ** 0.5)))]
+        g = 2
+        for _ in range(2, r):
+            targets.append(max(2, nc0 // g))
+            g = _next_prime_geq(g + 1)
+    else:
+        targets = [
+            max(2, int(round(nc0 ** (row / max(r - 1, 1)))))
+            for row in range(1, r)
+        ]
+    for t in targets:
+        if 0.5 < (m * t) / d < 1.0:
+            t = nc0
+        f = pick(t, fs, used_g)
+        fs.append(f)
+        used_g.add(lattice(f))
+    return tuple(fs)
+
+
+@functools.lru_cache(maxsize=None)
+def _scramble_perms(d_eff: int, block: int, seed: int):
+    """(sperm, inv_sperm) over the d_eff/block blocks (seed-derived)."""
+    nb = d_eff // block
+    key = (seed * 2654435761) & _MASK32
+    sperm = np.argsort(_mix32_np(np.arange(nb, dtype=np.uint32), key),
+                       kind="stable").astype(np.int32)
+    inv = np.empty_like(sperm)
+    inv[sperm] = np.arange(nb, dtype=np.int32)
+    return sperm, inv
+
+
+# kernel row parameters, one int64 row per sketch row (csrc/countsketch.cu)
+RP_KEY_SLOT, RP_KEY_SIGN, RP_CSLOT, RP_CSIGN = 0, 1, 2, 6
+RP_F, RP_G, RP_M, RP_S, RP_V, RP_NC, RP_ROWLEN, RP_PTR, RP_OFF = range(10, 19)
+RP_COUNT = 20
+
+
+@dataclass(frozen=True)
+class CountSketch:
+    """Static spec of a Count Sketch: the reference's fields that shape the
+    layout (its ``dtype``/``table_dtype`` are float32 here, and its
+    ``backend`` is the tensor's device). ``c`` is a TARGET column count;
+    ``c_actual`` is the realized table width."""
+
+    d: int
+    c: int
+    r: int
+    num_blocks: int = 1
+    seed: int = 42
+    m: Optional[int] = None
+    scramble_block: Optional[int] = None
+    band: int = 16
+    hash_family: str = "fmix32"
+
+    def __post_init__(self):
+        if self.hash_family not in ("fmix32", "poly4"):
+            raise ValueError(f"hash_family must be fmix32|poly4, got "
+                             f"{self.hash_family!r}")
+        if self.num_blocks != 1:
+            raise ValueError("num_blocks > 1 is not ported (ROADMAP A7)")
+
+    @property
+    def sblock(self) -> int:
+        if self.scramble_block is not None:
+            if (not isinstance(self.scramble_block, (int, np.integer))
+                    or isinstance(self.scramble_block, bool)):
+                raise TypeError(
+                    f"scramble_block must be an int (got "
+                    f"{self.scramble_block!r}); it is layout arithmetic")
+            return int(self.scramble_block)
+        return min(64, max(8, self.chunk_m // 64))
+
+    @property
+    def d_eff(self) -> int:
+        b = self.sblock
+        return _ceil_mult(self.d, b) if b else self.d
+
+    @property
+    def chunk_m(self) -> int:
+        if self.m is not None:
+            return min(self.m, _ceil_mult(self.d, 8))
+        m = 512
+        while m < 32768 and self.d / m > self.c / 256:
+            m *= 2
+        return min(m, _ceil_mult(self.d, 8))
+
+    @property
+    def nc(self) -> int:
+        return max(self._nc_row(r) for r in range(self.r))
+
+    def _factor(self, row: int) -> int:
+        return _riffle_factors(self.d, self.chunk_m, self.r)[row]
+
+    def _L_row(self, row: int) -> int:
+        return _ceil_mult(self.d_eff, self.chunk_m * self._factor(row))
+
+    def _nc_row(self, row: int) -> int:
+        return self._L_row(row) // self.chunk_m
+
+    def u_row(self, row: int) -> int:
+        return max(1, min(self.band or 1, self._nc_row(row)))
+
+    def s_row(self, row: int) -> int:
+        raw = max(1, round(self.c / (self._nc_row(row) + self.u_row(row) - 1)))
+        return max(8, round(raw / 8) * 8)
+
+    def V_row(self, row: int) -> int:
+        return self.u_row(row) * self.s_row(row)
+
+    @property
+    def s(self) -> int:
+        return self.s_row(0)
+
+    @property
+    def c_actual(self) -> int:
+        return max((self._nc_row(r) + self.u_row(r) - 1) * self.s_row(r)
+                   for r in range(self.r))
+
+    @property
+    def table_shape(self) -> tuple:
+        return (self.r, self.c_actual)
+
+    # -- per-row hash ingredients -------------------------------------------
+    def _row_key(self, row: int) -> int:
+        x = (row ^ self.seed) & _MASK32
+        for _ in range(2):
+            x = ((x ^ (x >> 16)) * _M1) & _MASK32
+        return x ^ _GOLDEN
+
+    def _poly4_coeffs(self, row: int, purpose: int) -> np.ndarray:
+        """[4] uint64 in [1, p): purpose 0 = bucket slots, 1 = signs."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([int(self.seed) & 0x7FFFFFFF, row, purpose]))
+        return rng.integers(1, _MERSENNE_P, size=4).astype(np.uint64)
+
+    def slot_hash(self, row: int, off: torch.Tensor) -> torch.Tensor:
+        """In-window bucket of within-chunk offsets ``off`` (int64)."""
+        if self.hash_family == "poly4":
+            h = poly4(off, self._poly4_coeffs(row, 0))
+        else:
+            h = mix32(off, self._row_key(row))
+        return h % self.V_row(row)
+
+    def sign_bits(self, row: int, spos: torch.Tensor) -> torch.Tensor:
+        """Sign bit (1 = negative) of scrambled positions ``spos``."""
+        if self.hash_family == "poly4":
+            h = poly4(spos, self._poly4_coeffs(row, 1))
+        else:
+            h = mix32(spos, self._row_key(row) ^ _GOLDEN)
+        return h & 1
+
+    def scrambled_cols_signs(self, row: int, spos: torch.Tensor):
+        """(column int64, sign f32) of scrambled positions ``spos``: riffle
+        -> chunk/offset -> ``chunk * s + slot(offset)``."""
+        f, L, m = self._factor(row), self._L_row(row), self.chunk_m
+        G = L // f
+        pos = (spos % G) * f + spos // G
+        slots = self.slot_hash(row, torch.arange(m, device=spos.device))
+        cols = (pos // m) * self.s_row(row) + slots[pos % m]
+        sign = 1.0 - 2.0 * self.sign_bits(row, spos).to(torch.float32)
+        return cols, sign
+
+    def kernel_row_params(self) -> np.ndarray:
+        """[r, RP_COUNT] int64 per-row constants for the CUDA kernels; the
+        CSR bases assume ``csr_tables`` concatenated row after row."""
+        P = np.zeros((self.r, RP_COUNT), np.int64)
+        ptr_base = 0
+        for row in range(self.r):
+            f, L = self._factor(row), self._L_row(row)
+            u, s = self.u_row(row), self.s_row(row)
+            key = self._row_key(row)
+            P[row, RP_KEY_SLOT] = key
+            P[row, RP_KEY_SIGN] = key ^ _GOLDEN
+            P[row, RP_CSLOT:RP_CSLOT + 4] = self._poly4_coeffs(row, 0)
+            P[row, RP_CSIGN:RP_CSIGN + 4] = self._poly4_coeffs(row, 1)
+            P[row, RP_F], P[row, RP_G], P[row, RP_M] = f, L // f, self.chunk_m
+            P[row, RP_S], P[row, RP_V] = s, u * s
+            P[row, RP_NC] = L // self.chunk_m
+            P[row, RP_ROWLEN] = (L // self.chunk_m + u - 1) * s
+            P[row, RP_PTR], P[row, RP_OFF] = ptr_base, row * self.chunk_m
+            ptr_base += u * s + 1
+        return P
+
+    def csr_tables(self, device) -> tuple:
+        """(ptr int32 [sum_r (V_r + 1)], off int32 [r * m]): per row, the
+        within-chunk offsets grouped by slot (ascending offsets within a
+        slot) and the slot -> start pointers — the inverse of the slot hash
+        that the sketch kernel gathers through."""
+        ptrs, offs = [], []
+        m = self.chunk_m
+        for row in range(self.r):
+            slots = self.slot_hash(row, torch.arange(m, device=device))
+            offs.append(torch.argsort(slots, stable=True))
+            counts = torch.bincount(slots, minlength=self.V_row(row))
+            ptrs.append(torch.cat([counts.new_zeros(1),
+                                   torch.cumsum(counts, 0)]))
+        return (torch.cat(ptrs).to(torch.int32).contiguous(),
+                torch.cat(offs).to(torch.int32).contiguous())
+
+
+def _check_poly4_field(spec: CountSketch) -> None:
+    """poly4 is defined over GF(2^31 - 1): every hashed position must be
+    below p (the reference's pallas-backend guard)."""
+    if spec.hash_family != "poly4":
+        return
+    worst = max(spec._L_row(r) for r in range(spec.r))
+    if worst >= _MERSENNE_P:
+        raise ValueError(
+            f"poly4 layout position bound {worst} >= p=2^31-1; the "
+            "4-universal family is only defined over GF(p) — use "
+            "hash_family='fmix32' at this scale")
+
+
+@functools.lru_cache(maxsize=16)
+def _perm(d_eff: int, block: int, seed: int, inverse: bool,
+          device: str) -> torch.Tensor:
+    sperm, inv = _scramble_perms(d_eff, block, seed)
+    return torch.from_numpy((inv if inverse else sperm).astype(np.int64)).to(
+        device)
+
+
+def _scramble(spec: CountSketch, v: torch.Tensor) -> torch.Tensor:
+    """[d] -> [d_eff] scrambled (block-permuted) vector."""
+    b = spec.sblock
+    if not b:
+        return v
+    vp = torch.nn.functional.pad(v, (0, spec.d_eff - spec.d))
+    idx = _perm(spec.d_eff, b, spec.seed, False, str(v.device))
+    return vp.reshape(-1, b)[idx].reshape(spec.d_eff)
+
+
+def _unscramble(spec: CountSketch, v_s: torch.Tensor) -> torch.Tensor:
+    """[d_eff] scrambled -> [d] original order."""
+    b = spec.sblock
+    if not b:
+        return v_s[: spec.d]
+    idx = _perm(spec.d_eff, b, spec.seed, True, str(v_s.device))
+    return v_s.reshape(-1, b)[idx].reshape(spec.d_eff)[: spec.d]
+
+
+def _scrambled_pos(spec: CountSketch, idx: torch.Tensor) -> torch.Tensor:
+    """Original coordinate index -> its position in scrambled space."""
+    b = spec.sblock
+    if not b:
+        return idx
+    inv = _perm(spec.d_eff, b, spec.seed, True, str(idx.device))
+    return inv[idx // b] * b + idx % b
+
+
+# -- entry points --------------------------------------------------------------
+
+
+def sketch_vec(spec: CountSketch, v: torch.Tensor) -> torch.Tensor:
+    """Sketch a dense [d] vector into an [r, c_actual] f32 table. Linear:
+    ``sketch_vec(a + b) == sketch_vec(a) + sketch_vec(b)`` up to f32
+    summation order."""
+    _check_poly4_field(spec)
+    return sketch_rows(spec, _scramble(spec, v.to(torch.float32)))
+
+
+def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
+    """Median-of-rows estimates for all d coordinates (the fused gather +
+    median in scrambled space, then one unscramble)."""
+    _check_poly4_field(spec)
+    return _unscramble(spec, estimate_median(spec, table.to(torch.float32)))
+
+
+def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):
+    """(column, sign) of ORIGINAL coordinates ``idx`` for one row."""
+    return spec.scrambled_cols_signs(row, _scrambled_pos(spec, idx.long()))
+
+
+def estimate_at(spec: CountSketch, table: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """Median-of-rows point estimates for a subset of coordinates (the
+    gather path; the median goes through the standalone median kernel)."""
+    ests = []
+    for row in range(spec.r):
+        cols, sign = _row_cols_signs(spec, idx, row)
+        ests.append(table[row, cols].to(torch.float32) * sign)
+    return median_rows(torch.stack(ests).contiguous())
+
+
+def sketch_sparse(spec: CountSketch, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """Sketch a k-sparse vector given as (indices [k], values [k]); repeats
+    accumulate. Same hash mapping as ``sketch_vec`` of the dense vector."""
+    vals = vals.to(torch.float32)
+    table = torch.zeros(spec.table_shape, dtype=torch.float32,
+                        device=vals.device)
+    for row in range(spec.r):
+        cols, sign = _row_cols_signs(spec, idx, row)
+        table[row].index_add_(0, cols, vals * sign)
+    return table
+
+
+def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):
+    """Top-k heavy hitters by |estimate| as (indices [k], values [k]), in
+    ``lax.top_k`` order (ties go to the lower index)."""
+    est = estimate_all(spec, table)
+    vals, idx = topk_sparsify(est, k)
+    return idx, vals
+
+
+def unsketch(spec: CountSketch, table: torch.Tensor, k: int) -> torch.Tensor:
+    """``unsketch_sparse`` as a dense [d] vector with k nonzeros."""
+    idx, vals = unsketch_sparse(spec, table, k)
+    out = torch.zeros(spec.d, dtype=vals.dtype, device=vals.device)
+    out[idx] = vals
+    return out
