@@ -19,16 +19,27 @@ phase prints one line (or a few) and raises on failure, so the script exits
    events (median of 21 samples of 10 back-to-back calls, warm L2) beside
    its plain version, the PyTorch library call where one exists, and the
    bound from bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s;
+   K4 (``estimate_at``) is held to its plain version exactly at three
+   geometries (every coordinate of the main path, where it must also equal
+   K2 unscrambled; 50,000 coordinates of it; a 100 MB table at 31M
+   coordinates), both hash families, and timed at each;
 3. agreement: a small ResNet-9 FetchSGD session on the card against the
    same session on the CPU (the plain path that the CPU tests hold against
-   the JAX package);
-4. main path: ``cv_train.main`` with the FetchSGD flags, ResNet-9 at full
+   the JAX package), for the dense decode and for the sharded decode with
+   the threshold top-k, and the card's sharded decode against its dense
+   threshold decode (atol 1e-6);
+4. replay: two sharded server updates from one state at full width are
+   bit-identical;
+5. main paths: ``cv_train.main`` with the FetchSGD flags, ResNet-9 at full
    width on the synthetic CIFAR-10 stand-in, 5 rounds and one evaluation,
    with the kernels' launch counters set to 0 just before and read just
-   after; then one ``uncompressed`` round.
+   after: first the dense decode, then the sharded decode
+   (``--topk_method threshold --sketch_decode sharded``, one device);
+   then one ``uncompressed`` round.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
-kernel, and ``{"ok": true, "device": {...}}``.
+kernel (``launches`` summed over both main paths, ``launches_by_path``
+beside it), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,10 +51,12 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/countsketch.cu"
 PALLAS = "commefficient_tpu/ops/pallas/countsketch_kernels.py"
+DECODE_PALLAS = "commefficient_tpu/ops/pallas/decode_kernels.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 GEOMETRY = dict(d=6_573_130, c=500_000, r=5, band=16, seed=42)
@@ -52,6 +65,7 @@ MAIN_ARGS = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
              "--error_type", "virtual", "--sketch_backend", "pallas",
              "--num_workers", "8", "--num_devices", "1",
              "--local_batch_size", "64"]
+SHARDED_FLAGS = ["--topk_method", "threshold", "--sketch_decode", "sharded"]
 MAIN_ROUNDS = 5
 
 
@@ -207,6 +221,88 @@ def agreement_phase(torch, np, dev):
     and convolutions in another order, and a near-tie at the k-th place may
     pick another coordinate, so params agree within 1e-3 of how far they
     moved and losses within rtol 1e-4."""
+    l_dev, p0, p_dev, _ = _width8_session(torch, np, dev.type)
+    l_cpu, _, p_cpu, _ = _width8_session(torch, np, "cpu")
+    moved = float(torch.linalg.vector_norm(p_cpu - p0))
+    diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    phase("agreement", D=p0.numel(), losses_card=l_dev, losses_cpu=l_cpu,
+          loss_max_rel_err=loss_rel, params_diff_over_moved=diff / moved)
+    check(moved > 0, "agreement: params did not move")
+    check(loss_rel <= 1e-4, f"agreement: loss rel err {loss_rel} > 1e-4")
+    check(diff <= 1e-3 * moved,
+          f"agreement: |p_card - p_cpu| = {diff} > 1e-3 * {moved}")
+
+
+def k4_phase(torch, cs, kern, dev):
+    """Holds K4 (``estimate_at``) against its plain version, exactly, for
+    both hash families at three geometries: (i) the main path, every
+    coordinate of the ResNet-9 geometry (and there also against K2
+    unscrambled); (ii) 50,000 random coordinates of it (the dampening and
+    k-scale shape); (iii) a table over the reference's single-block VMEM
+    guard, r = 5, c = 5,000,000, d = 124,000,000, at 31,000,000 random
+    coordinates (one shard of a four-card decode). Times them at the main
+    path's family (fmix32). Returns the ``kernels`` entry without
+    ``launches``."""
+    geometries = {
+        "i_main_all_coords": (GEOMETRY, None),
+        "ii_main_50k_coords": (GEOMETRY, 50_000),
+        "iii_table_100MB_31M_coords": (dict(d=124_000_000, c=5_000_000, r=5,
+                                            band=16, seed=42), 31_000_000),
+    }
+    timings, worst = {}, 0.0
+    for family in ("fmix32", "poly4"):
+        for name, (geo, n) in geometries.items():
+            spec = cs.CountSketch(hash_family=family, **geo)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            table = torch.randn(spec.table_shape, generator=gen, device=dev)
+            idx = (torch.arange(spec.d, device=dev) if n is None else
+                   torch.randperm(spec.d, generator=gen, device=dev)[:n])
+            got = kern.estimate_at(spec, table, idx)
+            want = kern.estimate_at_torch(spec, table, idx)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want),
+                  f"K4 {family} {name}: max err {err} (expected exact)")
+            fields = {}
+            if n is None:
+                full = cs._unscramble(spec, kern.estimate_median(spec, table))
+                check(torch.equal(got, full), f"K4 {family}: estimate_at of "
+                      "every coordinate differs from K2 unscrambled")
+                fields["equals_k2_unscrambled"] = True
+            phase("k4", family=family, geometry=name, n=idx.numel(),
+                  table_bytes=4 * table.numel(), max_abs_err=err, **fields)
+            if family == "fmix32":
+                nn = idx.numel()
+                r, c = spec.table_shape
+                perm = 4 * (spec.d_eff // spec.sblock)
+                b, by = bound(8 * nn + 4 * nn + min(4 * r * c, 32 * r * nn)
+                              + min(perm, 32 * nn),
+                              r * nn + r * (r - 1) * nn)
+                light = nn > 10_000_000  # the plain version is slow there
+                timings[name] = dict(
+                    n=nn, max_abs_err=err,
+                    ms=cuda_ms(torch, lambda: kern.estimate_at(spec, table,
+                                                               idx)),
+                    plain_ms=cuda_ms(
+                        torch, lambda: kern.estimate_at_torch(spec, table,
+                                                              idx),
+                        samples=5 if light else 21, calls=2 if light else 10),
+                    bound_ms=b, bound_by=by)
+                phase("timing", kernel="cs_estimate_at", geometry=name,
+                      **timings[name])
+            worst = max(worst, err)
+            del table, idx, got, want
+    main = timings["i_main_all_coords"]
+    return dict(replaces=f"{DECODE_PALLAS}:164 and :227", max_abs_err=worst,
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, geometries=timings)
+
+
+def _width8_session(torch, np, where, **cfg_kw):
+    """(losses, p0, final params) of three FetchSGD rounds of a width-8
+    ResNet-9 in float32 on ``where``, from fixed params and batches."""
     from commefficient_tpu_torch.data import (CIFAR10_MEAN, CIFAR10_STD,
                                               normalizer)
     from commefficient_tpu_torch.models import (classification_loss,
@@ -224,27 +320,124 @@ def agreement_phase(torch, np, dev):
     batches = [{"x": rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8),
                 "y": rng.integers(0, 10, (2, 8)).astype(np.int32)}
                for _ in range(3)]
-    out = {}
-    for where in (dev.type, "cpu"):
-        cfg = Config(mode="sketch", k=2000, num_rows=5, num_cols=20_000,
-                     virtual_momentum=0.9, error_type="virtual",
-                     num_workers=2, num_clients=4, local_batch_size=8,
-                     compute_dtype="float32", device=where)
+    cfg = Config(mode="sketch", k=2000, num_rows=5, num_cols=20_000,
+                 virtual_momentum=0.9, error_type="virtual", num_workers=2,
+                 num_clients=4, local_batch_size=8, compute_dtype="float32",
+                 device=where, **cfg_kw)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*degenerate")
         sess = FederatedSession(cfg, params, loss_fn)
-        p0 = sess.state.params_vec.cpu().clone()
-        losses = [float(sess.train_round(None, b, 0.2)["loss"])
-                  for b in batches]
-        out[where] = (losses, p0, sess.state.params_vec.cpu())
-    (l_dev, p0, p_dev), (l_cpu, _, p_cpu) = out[dev.type], out["cpu"]
+    p0 = sess.state.params_vec.cpu().clone()
+    losses = [float(sess.train_round(None, b, 0.2)["loss"]) for b in batches]
+    return losses, p0, sess.state.params_vec.cpu(), sess.sketch_decode_resolved
+
+
+def sharded_agreement_phase(torch, np, dev):
+    """The sharded decode (threshold top-k, one device) on the card against
+    the same session on the CPU, under the agreement phase's tolerance;
+    then against the card's dense threshold decode, which the reference
+    pins equal to its sharded decode at atol 1e-6."""
+    sharded = dict(topk_method="threshold", sketch_decode="sharded")
+    l_dev, p0, p_dev, dec = _width8_session(torch, np, dev.type, **sharded)
+    l_cpu, _, p_cpu, _ = _width8_session(torch, np, "cpu", **sharded)
+    l_dense, _, p_dense, dec_dense = _width8_session(
+        torch, np, dev.type, topk_method="threshold", sketch_decode="dense")
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
-    phase("agreement", D=p0.numel(), losses_card=l_dev, losses_cpu=l_cpu,
-          loss_max_rel_err=loss_rel, params_diff_over_moved=diff / moved)
-    check(moved > 0, "agreement: params did not move")
-    check(loss_rel <= 1e-4, f"agreement: loss rel err {loss_rel} > 1e-4")
+    dense_err = float((p_dev - p_dense).abs().max())
+    dense_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_dense))
+    phase("agreement_sharded", decode=dec, losses_card=l_dev,
+          losses_cpu=l_cpu, loss_max_rel_err=loss_rel,
+          params_diff_over_moved=diff / moved,
+          vs_card_dense_params_max_abs_err=dense_err,
+          vs_card_dense_loss_max_rel_err=dense_loss_rel)
+    check(dec == "sharded" and dec_dense == "dense", "agreement: decodes")
+    check(moved > 0, "agreement (sharded): params did not move")
+    check(loss_rel <= 1e-4, f"agreement (sharded): loss rel err {loss_rel}")
     check(diff <= 1e-3 * moved,
-          f"agreement: |p_card - p_cpu| = {diff} > 1e-3 * {moved}")
+          f"agreement (sharded): |p_card - p_cpu| = {diff} > 1e-3 * {moved}")
+    check(dense_err <= 1e-6 and dense_loss_rel <= 1e-6,
+          f"sharded vs dense decode on the card: params {dense_err}, "
+          f"loss {dense_loss_rel}")
+
+
+def replay_phase(torch, cs, dev):
+    """Two sharded server updates from the same state at the main path's
+    geometry and k are bit-identical (table, candidates, params): no step
+    of the decode depends on float-atomic order. The aggregate sketches a
+    vector with 30,000 nonzeros, so fewer than k coordinates estimate
+    nonzero and the candidate buffer carries (0, 0.0) pads, and one of
+    them is a large value at coordinate 0, where every pad's clipped index
+    lands: the error feedback's scatter and the apply then add the pads'
+    0.0 onto a real candidate."""
+    from commefficient_tpu_torch.compress import get_compressor
+    from commefficient_tpu_torch.parallel.mesh import SingleWorker
+    from commefficient_tpu_torch.parallel.round import apply_update
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(MAIN_ARGS + SHARDED_FLAGS)
+    spec = cs.CountSketch(**GEOMETRY)
+    comp = get_compressor(cfg, d=spec.d, spec=spec)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    v = torch.zeros(spec.d, device=dev)
+    hot = torch.randperm(spec.d, generator=gen, device=dev)[:30_000]
+    v[hot] = torch.randn(hot.numel(), generator=gen, device=dev)
+    v[0] = 100.0
+    agg = cs.sketch_vec(spec, v)
+    mom, err = torch.zeros_like(agg), torch.zeros_like(agg)
+    params = torch.randn(spec.d, generator=gen, device=dev)
+    outs = []
+    for _ in range(2):
+        g_idx, g_val, new_m, new_e = comp.server_update_sharded(
+            mom, err, agg, 0.1, group=SingleWorker(), d=spec.d)
+        outs.append((g_idx, g_val, new_m, new_e,
+                     apply_update(params, ("sparse", (g_idx, g_val)))))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    g_idx, g_val = outs[0][:2]
+    pads = int((g_val == 0).sum())
+    at_pad = bool(((g_idx == 0) & (g_val != 0)).any())
+    phase("replay", bit_identical=same, candidates=g_idx.numel(),
+          selected=g_idx.numel() - pads, pads=pads,
+          real_candidate_at_pad_index=at_pad)
+    check(same, "replay: two sharded server updates from one state differ")
+    check(pads > 0 and at_pad, "replay: the pads did not meet a real "
+          "candidate, so the check proved less than it should")
+
+
+def sharded_main_path_phase(kern, cv_train, dataset_dir, dense_bytes):
+    """``cv_train.main`` with the sharded decode for MAIN_ROUNDS rounds:
+    K4 once a round, K2 never, K1 twice a round (the encode, and the
+    error-feedback re-sketch, which ``sketch_sparse`` runs through K1)."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*degenerate")
+        out = cv_train.main(MAIN_ARGS + SHARDED_FLAGS + [
+            "--max_rounds", str(MAIN_ROUNDS), "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    phase("main_path_sharded", decode=out["sketch_decode"],
+          D=out["grad_size"], rounds=len(hist),
+          round_ms=[round(h["ms"], 3) for h in hist], losses=losses,
+          val_loss=out["loss"], val_acc=out.get("accuracy"),
+          param_delta_norm=out["param_delta_norm"],
+          bytes_per_round=out["bytes_per_round"], launches=launches)
+    check(out["sketch_decode"] == "sharded", "sharded main path: decode")
+    check(out["grad_size"] == GEOMETRY["d"], "sharded main path: D")
+    check(len(hist) == MAIN_ROUNDS, "sharded main path: rounds")
+    check(all(math.isfinite(x) for x in losses),
+          "sharded main path: loss not finite")
+    check(math.isfinite(out["loss"]), "sharded main path: eval loss")
+    check(out["param_delta_norm"] > 0, "sharded main path: params still")
+    check(out["bytes_per_round"] == dense_bytes,
+          "sharded main path: bytes per round differ from the dense path's")
+    for name, want in (("estimate_at", MAIN_ROUNDS), ("estimate_median", 0),
+                       ("sketch_rows", 2 * MAIN_ROUNDS)):
+        check(launches[name] == want, f"sharded main path: {name} launched "
+              f"{launches[name]} times, expected {want}")
+    return launches
 
 
 def main_path_phase(kern, cv_train, dataset_dir):
@@ -272,7 +465,7 @@ def main_path_phase(kern, cv_train, dataset_dir):
     check(launches["estimate_median"] == MAIN_ROUNDS,
           f"main path: K2 launched {launches['estimate_median']} times, "
           f"expected 1 per round")
-    return launches
+    return launches, out["bytes_per_round"]
 
 
 def uncompressed_phase(kern, cv_train, dataset_dir):
@@ -317,17 +510,24 @@ def main() -> int:
           nvcc_s=build.build_seconds, library=build.library_path().name)
 
     entries = kernels_phase(torch, cs, kern, dev)
+    entries["cs_estimate_at"] = k4_phase(torch, cs, kern, dev)
     agreement_phase(torch, np, dev)
+    sharded_agreement_phase(torch, np, dev)
+    replay_phase(torch, cs, dev)
     # a path with no CIFAR-10 pickles: the synthetic stand-in
     dataset_dir = os.path.join(ROOT, "build", "no_dataset")
-    launches = main_path_phase(kern, cv_train, dataset_dir)
+    dense, dense_bytes = main_path_phase(kern, cv_train, dataset_dir)
+    sharded = sharded_main_path_phase(kern, cv_train, dataset_dir,
+                                      dense_bytes)
     uncompressed_phase(kern, cv_train, dataset_dir)
 
+    wrapper = {"cs_sketch_rows": "sketch_rows",
+               "cs_estimate_median": "estimate_median",
+               "median_rows": "median_rows", "cs_estimate_at": "estimate_at"}
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    launches=launches[{"cs_sketch_rows": "sketch_rows",
-                                       "cs_estimate_median":
-                                           "estimate_median",
-                                       "median_rows": "median_rows"}[name]],
+                    launches=dense[wrapper[name]] + sharded[wrapper[name]],
+                    launches_by_path={"dense": dense[wrapper[name]],
+                                      "sharded": sharded[wrapper[name]]},
                     **e)
                for name, e in entries.items()]
     print(card)

@@ -1,11 +1,14 @@
 """Compressor base class — the protocol every mode implements (the
-reference's ``compress/base.py``, the single-device dense-decode subset).
+reference's ``compress/base.py``, the subset the port runs).
 
 A compressor owns one mode's algebra: what a device encodes before the
 aggregate (``device_encode``, LINEAR so the sum of encodings is the
 encoding of the sum), and the server's momentum/error update that extracts
-the applied delta (``server_update``). State leaves are dense ``[D]``
-vectors or ``[r, c]`` sketch tables, or ``None`` where absent.
+the applied delta: ``server_update`` (every device decodes the whole
+vector) or, for modes with ``supports_sharded_decode``,
+``server_update_sharded`` (each device of the worker group decodes its
+slice). State leaves are dense ``[D]`` vectors or ``[r, c]`` sketch
+tables, or ``None`` where absent.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from commefficient_tpu_torch.ops.countsketch import unsketch
-from commefficient_tpu_torch.ops.topk import topk_dense
+from commefficient_tpu_torch.ops.countsketch import unsketch, unsketch_dense
+from commefficient_tpu_torch.ops.topk import topk_dense, topk_threshold_dense
 
 KIND_DENSE = "dense"
 KIND_TABLE = "table"
@@ -27,16 +30,28 @@ class Compressor:
     name: str = "?"
     allowed_error_types: Tuple[str, ...] = ("none",)
     needs_sketch_spec: bool = False
+    # True -> the class implements server_update_sharded(), which the
+    # round runs when use_sharded_decode() says so
+    supports_sharded_decode: bool = False
     # True -> the applied delta is dense, so do_topk_down's downlink top-k
     # is meaningful (a sketch delta already has <= k nonzeros)
     dense_delta: bool = True
+    # momentum_dampening=None (AUTO) resolves to this
+    default_dampening: bool = False
 
     def __init__(self, cfg, d: int, spec=None):
         self.cfg = cfg
         self.d = d
         self.spec = spec
-        self.topk = topk_dense
-        self.unsketch = unsketch
+        # the top-k selection (cfg.topk_method): exact sorts, threshold
+        # bisects a magnitude threshold and keeps at most k
+        if cfg.topk_method == "threshold":
+            self.topk = topk_threshold_dense
+            self.unsketch = unsketch_dense
+        else:
+            self.topk = topk_dense
+            self.unsketch = unsketch
+        self._dampen: Optional[bool] = None
 
     def validate(self) -> None:
         if self.cfg.error_type not in self.allowed_error_types:
@@ -44,6 +59,34 @@ class Compressor:
                 f"(mode={self.name}, error_type={self.cfg.error_type}) is "
                 "not a reference-supported combination; allowed: "
                 f"{self.allowed_error_types}")
+
+    def resolved_dampening(self) -> bool:
+        """``cfg.momentum_dampening`` with AUTO (None) resolved for this
+        mode; the mode's warnings are given once, at the first call."""
+        if self._dampen is None:
+            md = self.cfg.momentum_dampening
+            self._dampen = md if md is not None else self.default_dampening
+            self._dampening_warnings(self._dampen)
+        return self._dampen
+
+    def _dampening_warnings(self, dampen: bool) -> None:
+        pass
+
+    def use_sharded_decode(self, workers: int) -> bool:
+        """``cfg.sketch_decode`` resolved for a worker group of ``workers``
+        devices: ``dense`` (or no capability) -> False, ``sharded`` ->
+        True, ``auto`` -> sharded exactly when there is more than one
+        worker device and the threshold top-k is selected (the sharded
+        selection is built on ``topk_threshold_sharded``; exact top-k keeps
+        the dense decode and its tie rule)."""
+        if not self.supports_sharded_decode:
+            return False
+        decode = self.cfg.sketch_decode
+        if decode == "dense":
+            return False
+        if decode == "sharded":
+            return True
+        return workers > 1 and self.cfg.topk_method == "threshold"
 
     def server_state_kinds(self) -> Tuple[Optional[str], Optional[str]]:
         """(momentum_kind, error_kind)."""
@@ -70,6 +113,16 @@ class Compressor:
     def server_update(self, momentum, error, agg, lr: float):
         """``-> (delta, new_momentum, new_error)``; ``delta`` is the APPLIED
         update (``w -= delta``), ``agg`` the averaged encoded aggregate."""
+        raise NotImplementedError
+
+    def server_update_sharded(self, momentum, error, agg, lr: float, *,
+                              group, d: int):
+        """The server update decoded slice by slice over ``group``: every
+        input is replicated, each rank extracts from its ``ceil(d/size)``
+        coordinates, and the candidates are exchanged. Returns ``(idx,
+        val, new_momentum, new_error)``, idx/val the replicated gathered
+        candidate buffers (``val == 0`` on padding); the round applies
+        ``params[idx] -= val``."""
         raise NotImplementedError
 
     def upload_floats(self) -> int:

@@ -7,14 +7,23 @@ from commefficient_tpu_torch.ops.countsketch import (
     sketch_sparse,
     sketch_vec,
     unsketch,
+    unsketch_dense,
     unsketch_sparse,
 )
 from commefficient_tpu_torch.ops.param_utils import (
     clip_by_global_norm,
     ravel_params,
 )
-from commefficient_tpu_torch.ops.topk import topk_dense, topk_sparsify
+from commefficient_tpu_torch.ops.topk import (
+    compact_nonzero,
+    topk_dense,
+    topk_sparsify,
+    topk_threshold_dense,
+    topk_threshold_sharded,
+)
 
-__all__ = ["CountSketch", "clip_by_global_norm", "estimate_all",
-           "estimate_at", "ravel_params", "sketch_sparse", "sketch_vec",
-           "topk_dense", "topk_sparsify", "unsketch", "unsketch_sparse"]
+__all__ = ["CountSketch", "clip_by_global_norm", "compact_nonzero",
+           "estimate_all", "estimate_at", "ravel_params", "sketch_sparse",
+           "sketch_vec", "topk_dense", "topk_sparsify",
+           "topk_threshold_dense", "topk_threshold_sharded", "unsketch",
+           "unsketch_dense", "unsketch_sparse"]

@@ -11,12 +11,14 @@ this one and does not swap in csvec's classic layout. Before any row layout,
 one seed-derived permutation of ``sblock``-sized blocks scrambles the
 vector; each row then riffles it by a distinct prime factor.
 
-The matmul-path entry points (``sketch_vec``, ``estimate_all`` and what is
-built on them) run through ``ops/cuda/countsketch.py``: the CUDA kernels on
-a CUDA tensor, their plain PyTorch versions on a CPU tensor. The scramble
-stays outside the kernels as a torch gather, as the reference keeps it
-outside its Pallas kernels. The gather/scatter paths (``estimate_at``,
-``sketch_sparse``) are plain tensor code in the reference too.
+The entry points (``sketch_vec``, ``estimate_all``, ``estimate_at`` and
+what is built on them) run through ``ops/cuda/countsketch.py``: the CUDA
+kernels on a CUDA tensor, their plain PyTorch versions on a CPU tensor.
+For ``sketch_vec`` and ``estimate_all`` the scramble stays outside the
+kernels as a torch gather, as the reference keeps it outside its Pallas
+kernels; ``estimate_at``'s kernel does the scramble lookup itself.
+``sketch_sparse`` scatters its pairs into a [d] vector and sketches that,
+so no table bucket is summed by float atomics.
 """
 
 from __future__ import annotations
@@ -29,11 +31,16 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.ops.cuda.countsketch import (
+    estimate_at as estimate_at_kernel,
+)
+from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_median,
-    median_rows,
     sketch_rows,
 )
-from commefficient_tpu_torch.ops.topk import topk_sparsify
+from commefficient_tpu_torch.ops.topk import (
+    topk_sparsify,
+    topk_threshold_dense,
+)
 
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
@@ -193,7 +200,10 @@ class CountSketch:
     """Static spec of a Count Sketch: the reference's fields that shape the
     layout (its ``dtype``/``table_dtype`` are float32 here, and its
     ``backend`` is the tensor's device). ``c`` is a TARGET column count;
-    ``c_actual`` is the realized table width."""
+    ``c_actual`` is the realized table width. The derived geometry
+    integers are computed once per spec and cached on it (the kernel
+    wrappers read them on every launch; recomputing ``c_actual`` costs
+    ~0.1 ms of Python)."""
 
     d: int
     c: int
@@ -212,7 +222,7 @@ class CountSketch:
         if self.num_blocks != 1:
             raise ValueError("num_blocks > 1 is not ported (ROADMAP A7)")
 
-    @property
+    @functools.cached_property
     def sblock(self) -> int:
         if self.scramble_block is not None:
             if (not isinstance(self.scramble_block, (int, np.integer))
@@ -223,12 +233,12 @@ class CountSketch:
             return int(self.scramble_block)
         return min(64, max(8, self.chunk_m // 64))
 
-    @property
+    @functools.cached_property
     def d_eff(self) -> int:
         b = self.sblock
         return _ceil_mult(self.d, b) if b else self.d
 
-    @property
+    @functools.cached_property
     def chunk_m(self) -> int:
         if self.m is not None:
             return min(self.m, _ceil_mult(self.d, 8))
@@ -237,7 +247,7 @@ class CountSketch:
             m *= 2
         return min(m, _ceil_mult(self.d, 8))
 
-    @property
+    @functools.cached_property
     def nc(self) -> int:
         return max(self._nc_row(r) for r in range(self.r))
 
@@ -264,12 +274,12 @@ class CountSketch:
     def s(self) -> int:
         return self.s_row(0)
 
-    @property
+    @functools.cached_property
     def c_actual(self) -> int:
         return max((self._nc_row(r) + self.u_row(r) - 1) * self.s_row(r)
                    for r in range(self.r))
 
-    @property
+    @functools.cached_property
     def table_shape(self) -> tuple:
         return (self.r, self.c_actual)
 
@@ -301,6 +311,21 @@ class CountSketch:
         else:
             h = mix32(spos, self._row_key(row) ^ _GOLDEN)
         return h & 1
+
+    def inverse_block_perm(self) -> Optional[np.ndarray]:
+        """[d_eff / sblock] int32: the scrambled block of each original
+        block (None when the spec does not scramble)."""
+        b = self.sblock
+        return _scramble_perms(self.d_eff, b, self.seed)[1] if b else None
+
+    def scrambled_pos(self, idx: torch.Tensor) -> torch.Tensor:
+        """Original coordinates (int64) -> their positions in scrambled
+        space."""
+        b = self.sblock
+        if not b:
+            return idx
+        inv = _perm(self.d_eff, b, self.seed, True, str(idx.device))
+        return inv[idx // b] * b + idx % b
 
     def scrambled_cols_signs(self, row: int, spos: torch.Tensor):
         """(column int64, sign f32) of scrambled positions ``spos``: riffle
@@ -391,15 +416,6 @@ def _unscramble(spec: CountSketch, v_s: torch.Tensor) -> torch.Tensor:
     return v_s.reshape(-1, b)[idx].reshape(spec.d_eff)[: spec.d]
 
 
-def _scrambled_pos(spec: CountSketch, idx: torch.Tensor) -> torch.Tensor:
-    """Original coordinate index -> its position in scrambled space."""
-    b = spec.sblock
-    if not b:
-        return idx
-    inv = _perm(spec.d_eff, b, spec.seed, True, str(idx.device))
-    return inv[idx // b] * b + idx % b
-
-
 # -- entry points --------------------------------------------------------------
 
 
@@ -420,31 +436,31 @@ def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
 
 def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):
     """(column, sign) of ORIGINAL coordinates ``idx`` for one row."""
-    return spec.scrambled_cols_signs(row, _scrambled_pos(spec, idx.long()))
+    return spec.scrambled_cols_signs(row, spec.scrambled_pos(idx.long()))
 
 
 def estimate_at(spec: CountSketch, table: torch.Tensor,
                 idx: torch.Tensor) -> torch.Tensor:
-    """Median-of-rows point estimates for a subset of coordinates (the
-    gather path; the median goes through the standalone median kernel)."""
-    ests = []
-    for row in range(spec.r):
-        cols, sign = _row_cols_signs(spec, idx, row)
-        ests.append(table[row, cols].to(torch.float32) * sign)
-    return median_rows(torch.stack(ests).contiguous())
+    """Median-of-rows point estimates at original coordinates ``idx``
+    (the fused scramble + gather + median, K4 on a CUDA tensor)."""
+    _check_poly4_field(spec)
+    return estimate_at_kernel(spec, table.to(torch.float32),
+                              idx.to(torch.int64).contiguous())
 
 
 def sketch_sparse(spec: CountSketch, idx: torch.Tensor,
                   vals: torch.Tensor) -> torch.Tensor:
     """Sketch a k-sparse vector given as (indices [k], values [k]); repeats
-    accumulate. Same hash mapping as ``sketch_vec`` of the dense vector."""
-    vals = vals.to(torch.float32)
-    table = torch.zeros(spec.table_shape, dtype=torch.float32,
-                        device=vals.device)
-    for row in range(spec.r):
-        cols, sign = _row_cols_signs(spec, idx, row)
-        table[row].index_add_(0, cols, vals * sign)
-    return table
+    accumulate. The pairs are added into a zero [d] vector, which is then
+    sketched by ``sketch_vec``: the table's buckets are summed by K1 in its
+    fixed order, so the result does not depend on float-atomic order. On
+    the card the only order-dependent step is that [d] scatter, which is
+    exact whenever each coordinate carries at most one nonzero value: the
+    (idx, val) buffers of ``compact_nonzero`` hold distinct coordinates
+    plus ``(i, 0.0)`` pads, and adding 0.0 is exact in any order."""
+    dense = torch.zeros(spec.d, dtype=torch.float32, device=vals.device)
+    dense.index_add_(0, idx.to(torch.int64), vals.to(torch.float32))
+    return sketch_vec(spec, dense)
 
 
 def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):
@@ -461,3 +477,11 @@ def unsketch(spec: CountSketch, table: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.zeros(spec.d, dtype=vals.dtype, device=vals.device)
     out[idx] = vals
     return out
+
+
+def unsketch_dense(spec: CountSketch, table: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """Heavy hitters as a dense [d] vector with AT MOST k nonzeros, by the
+    bisected magnitude threshold (``topk_threshold_dense``) rather than a
+    sort: ties at the threshold are dropped, not broken."""
+    return topk_threshold_dense(estimate_all(spec, table), k)

@@ -4,6 +4,8 @@ does (``build.load_library``)."""
 
 from commefficient_tpu_torch.ops.cuda.countsketch import (
     KERNELS,
+    estimate_at,
+    estimate_at_torch,
     estimate_median,
     estimate_median_torch,
     launch_counts,
@@ -14,6 +16,7 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
     sketch_rows_torch,
 )
 
-__all__ = ["KERNELS", "estimate_median", "estimate_median_torch",
-           "launch_counts", "median_rows", "median_rows_torch",
-           "reset_launch_counts", "sketch_rows", "sketch_rows_torch"]
+__all__ = ["KERNELS", "estimate_at", "estimate_at_torch", "estimate_median",
+           "estimate_median_torch", "launch_counts", "median_rows",
+           "median_rows_torch", "reset_launch_counts", "sketch_rows",
+           "sketch_rows_torch"]

@@ -11,8 +11,9 @@ output with ``torch.empty``, and then:
 calls), so a run can show that its main path went through the kernels.
 
 The wrappers read the spec through its methods (``kernel_row_params``,
-``csr_tables``, ``scrambled_cols_signs``), so this module needs nothing
-from ``ops/countsketch.py``, which imports it.
+``csr_tables``, ``scrambled_cols_signs``, ``scrambled_pos``,
+``inverse_block_perm``), so this module needs nothing from
+``ops/countsketch.py``, which imports it.
 """
 
 from __future__ import annotations
@@ -159,6 +160,78 @@ def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
 estimate_median.launches = 0
 
 
+# -- K4: point estimates at a coordinate subset -----------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _inverse_perm(spec, device: str):
+    """The inverse block permutation as int32 on ``device`` (None when the
+    spec does not scramble), kept alive here while K4 may read it."""
+    inv = spec.inverse_block_perm()
+    return None if inv is None else torch.from_numpy(inv).to(device)
+
+
+def _check_index(name: str, idx: torch.Tensor) -> None:
+    if idx.dtype != torch.int64:
+        raise TypeError(f"{name}: expected int64 indices, got {idx.dtype}")
+    if idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 1-D index tensor, "
+                         f"got shape {tuple(idx.shape)}")
+
+
+def estimate_at_torch(spec, table: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: per row, the signed bucket of each ORIGINAL
+    coordinate (scramble, riffle, chunk and slot), then the median
+    network."""
+    spos = spec.scrambled_pos(idx)
+    ests = []
+    for row in range(spec.r):
+        cols, sign = spec.scrambled_cols_signs(row, spos)
+        ests.append(table[row][cols] * sign)
+    return _median_network(ests)
+
+
+def estimate_at(spec, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[r, c_actual] f32 table, [n] int64 original coordinates in [0, d)
+    -> [n] f32 median-of-rows estimates (K4). A coordinate out of range
+    raises: at once on the CPU, and on the card as a device-side assert
+    that surfaces at the next synchronisation."""
+    if table.dtype == torch.bfloat16:
+        raise TypeError("estimate_at: bf16 tables are not ported; bf16 "
+                        "table storage comes with ROADMAP A10")
+    _check("estimate_at table", table, spec.table_shape)
+    _check_index("estimate_at idx", idx)
+    if idx.device != table.device:
+        raise ValueError(f"estimate_at: idx on {idx.device}, table on "
+                         f"{table.device}")
+    if table.device.type == "cpu":
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= spec.d):
+            raise ValueError(f"estimate_at: indices must lie in [0, "
+                             f"{spec.d})")
+        return estimate_at_torch(spec, table, idx)
+    _check_rows(spec.r)
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    rows, _, _ = _kernel_geometry(spec, str(table.device))
+    inv = _inverse_perm(spec, str(table.device))
+    out = torch.empty(idx.numel(), dtype=torch.float32, device=table.device)
+    err = torch.zeros((), dtype=torch.int32, device=table.device)
+    _launch(lib.cs_estimate_at, table.data_ptr(), spec.c_actual,
+            idx.data_ptr(), idx.numel(), spec.d,
+            None if inv is None else inv.data_ptr(), spec.sblock,
+            out.data_ptr(), err.data_ptr(), rows, spec.r,
+            _FAMILY[spec.hash_family], _stream())
+    estimate_at.launches += 1
+    torch._assert_async(err == 0, f"estimate_at: an index lies outside "
+                                  f"[0, {spec.d})")
+    return out
+
+
+estimate_at.launches = 0
+
+
 # -- K3: median over rows ---------------------------------------------------------
 
 
@@ -214,7 +287,7 @@ def hash_bits_cuda(spec, row: int, x: torch.Tensor, which: str) -> np.ndarray:
     return out.cpu().numpy().view(np.uint32)
 
 
-KERNELS = (sketch_rows, estimate_median, median_rows)
+KERNELS = (sketch_rows, estimate_median, median_rows, estimate_at)
 
 
 def reset_launch_counts() -> None:

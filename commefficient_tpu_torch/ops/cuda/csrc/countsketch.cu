@@ -1,5 +1,6 @@
 // CountSketch kernels for Hopper (sm_90a): the CUDA C++ replacements of the
-// Pallas TPU kernels in commefficient_tpu/ops/pallas/countsketch_kernels.py.
+// Pallas TPU kernels in commefficient_tpu/ops/pallas/countsketch_kernels.py
+// and commefficient_tpu/ops/pallas/decode_kernels.py.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (commefficient_tpu_torch/ops/cuda/build.py). Every entry point
@@ -180,6 +181,63 @@ __global__ void cs_estimate_median_kernel(const float* __restrict__ table, long 
 }
 
 // ---------------------------------------------------------------------------
+// K4 cs_estimate_at
+//
+// Replaces: estimate_at_pallas (commefficient_tpu/ops/pallas/decode_kernels.py
+// :132), both of its branches: the single-block kernel (pallas_call at :164)
+// and the blockwise one (pallas_call at :227). The median-of-rows point
+// estimate at n ORIGINAL coordinates idx[0..n): the sharded decode's slice
+// estimate and the momentum dampening's estimate at the update's support.
+//
+// Bound on the H100: bytes. It reads 8n bytes of int64 indices, writes 4n
+// bytes, and reads min(4*r*c_actual, 32*r*n) bytes of table (one 32-byte
+// sector per scattered read when n << c) plus min(4*d_eff/sblock, 32n) of
+// the inverse block permutation; at ResNet-9 (n = D) that is ~89 MB.
+//
+// Design: K2 with an index array in front. One thread per coordinate: the
+// scramble lookup runs in the kernel (spos = inv_perm[x / sblock] * sblock
+// + x % sblock, the reference's _scrambled_pos, which its Pallas kernel
+// keeps outside as an XLA gather), then per row the riffle, chunk and
+// offset, the column chunk * s + slot(offset) and sign(spos), one table
+// read, and the median in registers. The TPU's VMEM budget (one resident
+// block, or column blocks streamed through VMEM with an [r, TS] scratch
+// carried across the grid) has no counterpart here: the table is read in
+// place from global memory (L2-resident at 10 MB), so one kernel serves
+// both branches, with no atomics and nothing shared between blocks. Each
+// value is one signed table entry and the median is K2's network, so the
+// result is bit-identical to the plain gather version. An index outside
+// [0, d) writes NaN and sets *err, which the wrapper turns into an error.
+// ---------------------------------------------------------------------------
+template <int R>
+__global__ void cs_estimate_at_kernel(const float* __restrict__ table, long long c_actual,
+                                      const long long* __restrict__ idx, long long n,
+                                      unsigned long long d, const int* __restrict__ inv_perm,
+                                      uint32_t sblock, float* __restrict__ out,
+                                      int* __restrict__ err, const __grid_constant__ CsRows P,
+                                      int family) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const unsigned long long x = (unsigned long long)__ldg(idx + t);
+  if (x >= d) {
+    *err = 1;
+    out[t] = __int_as_float(0x7fc00000);
+    return;
+  }
+  const uint32_t xi = (uint32_t)x;
+  const uint32_t i = sblock ? (uint32_t)__ldg(inv_perm + xi / sblock) * sblock + xi % sblock : xi;
+  float e[R];
+#pragma unroll
+  for (int row = 0; row < R; ++row) {
+    const long long* g = P.v[row];
+    const uint32_t f = (uint32_t)g[RP_F], G = (uint32_t)g[RP_G], m = (uint32_t)g[RP_M];
+    const uint32_t p = (i % G) * f + i / G;
+    const long long col = (long long)(p / m) * g[RP_S] + cs_slot(g, family, p % m);
+    e[row] = __ldg(table + row * c_actual + col) * cs_sign(g, family, i);
+  }
+  out[t] = cs_median<R>(e);
+}
+
+// ---------------------------------------------------------------------------
 // K3 cs_median_rows
 //
 // Replaces: median_rows_pallas (countsketch_kernels.py:317, pallas_call at
@@ -261,6 +319,35 @@ int cs_estimate_median(const float* table, long long c_actual, float* out, long 
     case 8: cs_estimate_median_kernel<8><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+int cs_estimate_at(const float* table, long long c_actual, const long long* idx, long long n,
+                   long long d, const int* inv_perm, long long sblock, float* out, int* err,
+                   const long long* rows, int r, int family, void* stream) {
+  CsRows P;
+  const int rc = cs_load_rows(&P, rows, r);
+  if (rc) return rc;
+  if (n <= 0) return 0;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned long long dd = (unsigned long long)d;
+  const uint32_t b = (uint32_t)sblock;
+#define CS_K4(R)                                                                              \
+  cs_estimate_at_kernel<R><<<blocks, kThreads, 0, st>>>(table, c_actual, idx, n, dd, inv_perm, \
+                                                        b, out, err, P, family)
+  switch (r) {
+    case 1: CS_K4(1); break;
+    case 2: CS_K4(2); break;
+    case 3: CS_K4(3); break;
+    case 4: CS_K4(4); break;
+    case 5: CS_K4(5); break;
+    case 6: CS_K4(6); break;
+    case 7: CS_K4(7); break;
+    case 8: CS_K4(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CS_K4
   return (int)cudaGetLastError();
 }
 

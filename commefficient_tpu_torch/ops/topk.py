@@ -1,16 +1,26 @@
-"""Top-k sparsification (the reference's ``ops/topk.py``, exact path).
+"""Top-k sparsification (the reference's ``ops/topk.py``).
 
-``torch.topk`` on |v| with ``jax.lax.top_k``'s tie rule: among equal
-magnitudes the lower index is taken, and the result is ordered by
-descending magnitude, lower index first. ``torch.topk`` alone breaks ties
-in no stated order, which would let the two packages select different
-coordinates when magnitudes tie at the k-th place (ROADMAP C hazard 3).
-The reference leaves top-k to XLA; it is not a Pallas kernel.
+Two selections, as in the reference:
+
+* exact: ``torch.topk`` on |v| with ``jax.lax.top_k``'s tie rule: among
+  equal magnitudes the lower index is taken, and the result is ordered by
+  descending magnitude, lower index first. ``torch.topk`` alone breaks ties
+  in no stated order, which would let the two packages select different
+  coordinates when magnitudes tie at the k-th place (ROADMAP C hazard 3).
+* threshold: a bisection on a magnitude threshold that selects AT MOST k
+  entries, with no sort and no scatter; its sharded form needs only two
+  scalar collectives per step, so a vector split over the worker group is
+  top-k'ed without ever being gathered. Every step stays on the device:
+  the loop runs a fixed number of steps and never reads a value back.
+
+The reference leaves both to XLA; neither is a Pallas kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+THRESHOLD_ITERS = 32  # the reference's bisection steps
 
 
 def topk_sparsify(v: torch.Tensor, k: int):
@@ -32,3 +42,65 @@ def topk_dense(v: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.zeros_like(v)
     out[idx] = vals
     return out
+
+
+def _threshold_select(v: torch.Tensor, k: int, count, hi0: torch.Tensor,
+                      iters: int) -> torch.Tensor:
+    """The reference's bisection: ``count(t)`` is the number of entries
+    with ``|v| >= t`` (over the whole group for the sharded form). After
+    ``iters`` steps ``hi`` is the smallest tested threshold whose count is
+    <= k. ``mid = 0.5 * (lo + hi)`` in f32, ``lo`` starts at ``hi0 * 0.0``
+    (NaN-propagating like the reference's), and when more than k entries
+    tie at the max no threshold selects <= k: the tied set is dropped
+    (``hi = inf``), which keeps the at-most-k contract."""
+    mag = torch.abs(v)
+    lo, hi = hi0 * 0.0, hi0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_many = count(mid) > k
+        lo = torch.where(too_many, mid, lo)
+        hi = torch.where(too_many, hi, mid)
+    hi = torch.where(count(hi) > k, torch.full_like(hi, float("inf")), hi)
+    # (mag > 0) guards the all-zero vector, where hi stays 0
+    return v * ((mag >= hi) & (mag > 0))
+
+
+def topk_threshold_dense(v: torch.Tensor, k: int,
+                         iters: int = THRESHOLD_ITERS) -> torch.Tensor:
+    """Dense top-<=k of flat v by magnitude: ``v`` where ``|v| >= t`` for
+    the smallest tested ``t`` that selects at most k entries, else 0.
+    Exact ties at the threshold are dropped rather than broken."""
+    mag = torch.abs(v)
+    return _threshold_select(v, k, lambda t: torch.sum(mag >= t),
+                             torch.max(mag), iters)
+
+
+def topk_threshold_sharded(v_local: torch.Tensor, k: int, group,
+                           iters: int = THRESHOLD_ITERS) -> torch.Tensor:
+    """``topk_threshold_dense`` of a vector split over ``group``
+    (``parallel.mesh``): each rank holds its slice and gets back its slice
+    of the global selection. One scalar ``all_reduce_max`` for the start
+    and one scalar ``all_reduce_sum`` of the count per step."""
+    mag = torch.abs(v_local)
+    return _threshold_select(
+        v_local, k, lambda t: group.all_reduce_sum(torch.sum(mag >= t)),
+        group.all_reduce_max(torch.max(mag)), iters)
+
+
+def compact_nonzero(v: torch.Tensor, k: int):
+    """Compact an at-most-k-sparse [n] vector into fixed-size ``(idx [kb]
+    int64, val [kb])`` buffers, ``kb = min(k, n)``: positions ascending,
+    padded with ``(0, 0.0)``. A cumsum over the nonzero mask gives each
+    nonzero its slot and ``searchsorted`` inverts it (no sort, no scatter).
+    Consumers rely on the padding: a scatter-add of a pad adds 0.0, and
+    masks taken from ``val != 0`` drop the pads. With more than k nonzeros
+    the first kb by position are kept."""
+    n = v.shape[0]
+    kb = min(int(k), n)
+    csum = torch.cumsum((v != 0).to(torch.int64), 0)
+    slots = torch.arange(1, kb + 1, dtype=torch.int64, device=v.device)
+    idx = torch.clamp(torch.searchsorted(csum, slots, side="left"), max=n - 1)
+    valid = slots <= csum[-1]
+    return (torch.where(valid, idx, 0),
+            torch.where(valid, v[idx], torch.zeros((), dtype=v.dtype,
+                                                   device=v.device)))

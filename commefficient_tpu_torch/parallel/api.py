@@ -1,13 +1,15 @@
 """FederatedSession, FedModel, FedOptimizer — the reference's public API
-(``parallel/api.py``), single-device subset.
+(``parallel/api.py``), the subset the port runs.
 
-``FederatedSession`` owns the state and the round; ``FedModel`` is the
-callable facade (``fed_model(client_ids, batch)`` runs one round at the
-optimizer's lr) and ``FedOptimizer`` the schedule clock (``step()``).
+``FederatedSession`` owns the worker group, the state and the round;
+``FedModel`` is the callable facade (``fed_model(client_ids, batch)`` runs
+one round at the optimizer's lr) and ``FedOptimizer`` the schedule clock
+(``step()``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -17,6 +19,7 @@ from commefficient_tpu_torch import resolve_device
 from commefficient_tpu_torch.compress import compressor_class, get_compressor
 from commefficient_tpu_torch.ops.countsketch import CountSketch
 from commefficient_tpu_torch.ops.param_utils import ravel_params
+from commefficient_tpu_torch.parallel.mesh import local_rank, make_worker_group
 from commefficient_tpu_torch.parallel.round import (
     build_eval_fn,
     build_round_fn,
@@ -30,13 +33,20 @@ def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 class FederatedSession:
-    """Owns the device, the CountSketch spec, the compressor, the round and
-    the ``FedState``. ``params`` is a nested dict of arrays/tensors keyed
-    like the reference's flax params (``ravel_pytree`` order)."""
+    """Owns the worker group, the device, the CountSketch spec, the
+    compressor, the round and the ``FedState``. ``params`` is a nested dict
+    of arrays/tensors keyed like the reference's flax params
+    (``ravel_pytree`` order). With ``num_devices > 1`` the session is one
+    rank of the group (``parallel/mesh.py``) on ``cuda:LOCAL_RANK``; every
+    rank holds the same state."""
 
     def __init__(self, cfg, params: Any, loss_fn: Callable):
         self.cfg = cfg
+        self.group = make_worker_group(cfg)
         self.device = resolve_device(cfg.device)
+        if self.device.type == "cuda" and self.group.size > 1:
+            self.device = torch.device("cuda", local_rank())
+            torch.cuda.set_device(self.device)
         vec, unravel = ravel_params(params)
         self.unravel = unravel
         self.grad_size = int(vec.numel())
@@ -48,20 +58,42 @@ class FederatedSession:
                 band=cfg.sketch_band, hash_family=cfg.hash_family)
         self.compressor = get_compressor(cfg, d=self.grad_size,
                                          spec=self.spec)
+        # which server decode the round runs (cfg.sketch_decode resolved
+        # for this group; build_round_fn makes the same call)
+        self.sketch_decode_resolved = (
+            "sharded" if self.compressor.use_sharded_decode(self.group.size)
+            else "dense")
+        if cfg.sketch_decode == "sharded" and self.group.size == 1:
+            warnings.warn(
+                "sketch_decode='sharded' on a 1-device worker group is the "
+                "degenerate case: the one 'shard' decodes the FULL "
+                "coordinate range through estimate_at, and the candidate "
+                "exchange has no one to exchange with. The sharded decode "
+                "only pays when the worker group is real; 'auto' picks "
+                "dense here for exactly that reason.", stacklevel=2)
         self.state = init_state(self.compressor, vec.to(self.device))
         self.round_fn = build_round_fn(cfg, loss_fn, unravel,
-                                       self.compressor)
+                                       self.compressor, self.group)
         self.eval_fn = build_eval_fn(loss_fn, unravel)
 
+    def local_clients(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's slice ``[p*w_loc, (p+1)*w_loc)`` of a round's
+        ``[W, ...]`` host batch."""
+        w_loc = self.cfg.num_workers // self.group.size
+        lo = self.group.rank * w_loc
+        return {k: np.asarray(v)[lo:lo + w_loc] for k, v in batch.items()}
+
     def train_round(self, client_ids, batch: Dict[str, Any], lr: float):
-        """One round on ``batch`` ({k: [W, B, ...]} host arrays). Returns the
+        """One round on ``batch`` ({k: [W, B, ...]} host arrays, the same
+        on every rank; each rank computes its own clients). Returns the
         round's metrics as 0-d device tensors (``loss`` = mean client
-        loss). ``client_ids`` name the participants; no per-client state
-        is kept in this slice."""
+        loss over all W). ``client_ids`` name the participants; no
+        per-client state is kept in this slice."""
         del client_ids
         lr = float(np.float32(lr))  # the reference's f32 lr
         self.state, metrics = self.round_fn(
-            self.state, _to_device(batch, self.device), lr)
+            self.state, _to_device(self.local_clients(batch), self.device),
+            lr)
         return metrics
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:

@@ -8,6 +8,12 @@ and ``--max_rounds``. The FetchSGD main path on one H100:
       --num_rows 5 --num_cols 500000 --virtual_momentum 0.9 \\
       --error_type virtual --sketch_backend pallas --num_workers 8 \\
       --num_devices 1 --local_batch_size 64
+
+The sharded server decode adds ``--topk_method threshold --sketch_decode
+sharded``; one process per card runs it over N cards:
+
+  torchrun --nproc_per_node N -m commefficient_tpu_torch.train.cv_train \\
+      ... --num_devices N
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from commefficient_tpu_torch.models import (
     resnet9_apply,
 )
 from commefficient_tpu_torch.parallel import FederatedSession
+from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import Config, parse_args
 
@@ -84,34 +91,47 @@ class _CvHooks(WorkloadHooks):
 
 def main(argv=None, eval_batch_size: int = 512, **overrides):
     """Train and evaluate. Returns the final val metrics plus ``history``
-    (per-round step/lr/loss/ms), ``grad_size``, ``bytes_per_round`` and
-    ``param_delta_norm`` (how far the run moved the params)."""
+    (per-round step/lr/loss/ms), ``grad_size``, ``bytes_per_round``,
+    ``param_delta_norm`` (how far the run moved the params) and
+    ``sketch_decode`` (the server decode the session ran). Under
+    ``torchrun`` with ``--num_devices N`` each process is one rank of the
+    worker group; rank 0 alone evaluates and prints, and the other ranks'
+    val metrics are empty."""
     cfg = parse_args(argv, **overrides)
+    with distributed_from_env(cfg):
+        return _train(cfg, eval_batch_size)
+
+
+def _train(cfg: Config, eval_batch_size: int):
     train, test, real, params, loss_fn, augment = build_model_and_data(cfg)
-    print(f"dataset={cfg.dataset_name} (real={real}) model={cfg.model} "
-          f"mode={cfg.mode} clients={train.num_clients} "
-          f"workers={cfg.num_workers} device={cfg.device}")
-    if not real:
-        print("WARNING: real dataset not found on disk — synthetic stand-in "
-              "(pipeline-correct; metrics are not paper numbers)")
     session = FederatedSession(cfg, params, loss_fn)
+    say = print if session.group.rank == 0 else (lambda *a, **k: None)
+    say(f"dataset={cfg.dataset_name} (real={real}) model={cfg.model} "
+        f"mode={cfg.mode} clients={train.num_clients} "
+        f"workers={cfg.num_workers} devices={session.group.size} "
+        f"device={session.device} decode={session.sketch_decode_resolved}")
+    if not real:
+        say("WARNING: real dataset not found on disk — synthetic stand-in "
+            "(pipeline-correct; metrics are not paper numbers)")
     sampler = FedSampler(train, num_workers=cfg.num_workers,
                          local_batch_size=cfg.local_batch_size,
                          seed=cfg.seed, augment=augment)
     bpr = session.bytes_per_round()
-    print(f"grad_size D={session.grad_size}  upload/client/round="
-          f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
+    say(f"grad_size D={session.grad_size}  upload/client/round="
+        f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     p0 = session.state.params_vec.clone()
     val, history = run_train_loop(
         cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
         on_round=lambda r: print(
             f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
             f"ms={r['ms']:.2f}", flush=True))
-    print(f"final: val_loss={val['loss']:.4f} "
-          f"val_acc={val.get('accuracy', 0):.4f}")
+    if val:
+        say(f"final: val_loss={val['loss']:.4f} "
+            f"val_acc={val.get('accuracy', 0):.4f}")
     moved = torch.linalg.vector_norm(session.state.params_vec - p0)
     return {**val, "history": history, "grad_size": session.grad_size,
-            "bytes_per_round": bpr, "param_delta_norm": float(moved)}
+            "bytes_per_round": bpr, "param_delta_norm": float(moved),
+            "sketch_decode": session.sketch_decode_resolved}
 
 
 if __name__ == "__main__":

@@ -10,9 +10,16 @@ times N rounds phase by phase with CUDA events:
 
 * ``grads``: the W per-client forward/backward passes and their sum;
 * ``encode``: ``device_encode`` (for sketch: the scramble and K1);
-* ``server``: ``server_update`` (sketch: the table algebra, K2 and the
-  unscramble, top-k, the K1 re-sketch of the extracted update);
-* ``apply``: ``w -= delta``.
+* ``server``: the server decode. Dense (sketch): the table algebra, K2
+  and the unscramble, top-k, the K1 re-sketch of the extracted update.
+  Sharded (``--topk_method threshold --sketch_decode sharded``): the
+  table algebra, K4 over this rank's slice, the threshold bisection, the
+  compaction, the error feedback's re-sketch, the candidate exchange;
+* ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter.
+
+With the sharded decode the server phase is also broken down by step
+(``k4_estimate``, ``bisection``, ``compaction``, ``ef_resketch``,
+``exchange_apply``), each timed alone on the last round's state.
 
 One more round runs under ``torch.profiler``; its device time is summed by
 kernel and by kind, and set against the round's wall time to give the
@@ -33,8 +40,17 @@ import torch
 from commefficient_tpu_torch.data import FedSampler
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.api import _to_device
+from commefficient_tpu_torch.ops.collectives import all_gather_pairs
+from commefficient_tpu_torch.ops.countsketch import estimate_at, sketch_sparse
+from commefficient_tpu_torch.ops.topk import (
+    compact_nonzero,
+    topk_threshold_sharded,
+)
 from commefficient_tpu_torch.parallel.round import (
+    aggregate,
+    apply_update,
     make_grad_one,
+    resolve_aggregation,
     server_phase,
     sum_client_grads,
 )
@@ -57,19 +73,68 @@ KINDS = (("countsketch", r"\bcs_\w+_kernel"),
 
 def _phased_round(session, grad_one, batch, lr, events):
     """One round, the same steps as ``round_fn``, with an event recorded
-    after each phase."""
-    comp, state = session.compressor, session.state
+    after each phase. Returns ``(loss, agg)``."""
+    cfg, comp, group = session.cfg, session.compressor, session.group
+    state = session.state
+    plan = resolve_aggregation(cfg, comp, group.size)
     events[0].record()
-    local, loss_sum, _ = sum_client_grads(grad_one, state.params_vec, batch)
+    local, loss_sum, aux = sum_client_grads(grad_one, state.params_vec, batch)
     events[1].record()
-    agg = comp.device_encode(local) / session.cfg.num_workers
+    agg, loss, _ = aggregate(cfg, comp, group, local, loss_sum, aux)
     events[2].record()
-    delta, new_m, new_e = server_phase(session.cfg, comp, state, agg, lr)
+    update, new_m, new_e = server_phase(cfg, comp, plan, group, state, agg,
+                                        lr)
     events[3].record()
-    session.state = replace(state, params_vec=state.params_vec - delta,
+    session.state = replace(state,
+                            params_vec=apply_update(state.params_vec, update),
                             momentum=new_m, error=new_e, step=state.step + 1)
     events[4].record()
-    return loss_sum
+    return loss, agg
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _sharded_breakdown(session, agg, lr):
+    """The sharded decode's server phase step by step on the session's
+    state and the last round's aggregate (error_type virtual, the main
+    path's): K4 over this rank's slice, the threshold bisection, the
+    compaction, the error feedback's slice re-sketch with its sum over the
+    group, and the candidate exchange with the k-sparse apply."""
+    cfg, comp, group, st = (session.cfg, session.compressor, session.group,
+                            session.state)
+    spec, d = session.spec, session.grad_size
+    S = -(-d // group.size)
+    my, idx_c, in_range = comp._slice_coords(group.rank, S, d, agg.device)
+    rho = cfg.virtual_momentum
+    m = rho * st.momentum + agg if rho > 0 else agg
+    e = st.error + lr * m
+    est = estimate_at(spec, e, idx_c) * in_range
+    upd = topk_threshold_sharded(est, cfg.k, group)
+    loc, val = compact_nonzero(upd, cfg.k)
+    gidx = torch.clamp(my * S + loc, max=d - 1)
+    return {
+        "k4_estimate": _event_ms(
+            lambda: estimate_at(spec, e, idx_c) * in_range),
+        "bisection": _event_ms(
+            lambda: topk_threshold_sharded(est, cfg.k, group)),
+        "compaction": _event_ms(lambda: compact_nonzero(upd, cfg.k)),
+        "ef_resketch": _event_ms(lambda: group.all_reduce_sum(
+            sketch_sparse(spec, idx_c[loc], val))),
+        "exchange_apply": _event_ms(lambda: apply_update(
+            st.params_vec, ("sparse", all_gather_pairs(gidx, val, group)))),
+    }
 
 
 def _kind(name: str) -> str:
@@ -94,15 +159,23 @@ def main(argv=None):
     with torch.no_grad():
         times = {p: [] for p in PHASES}
         for step in range(2 + ns.rounds):
-            batch = _to_device(sampler.sample_round(step)[1], session.device)
+            batch = _to_device(session.local_clients(
+                sampler.sample_round(step)[1]), session.device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            float(_phased_round(session, grad_one, batch, lr, ev))
+            loss, agg = _phased_round(session, grad_one, batch, lr, ev)
+            float(loss)
             if step >= 2:
                 for i, p in enumerate(PHASES):
                     times[p].append(ev[i].elapsed_time(ev[i + 1]))
         phase_ms = {p: statistics.median(v) for p, v in times.items()}
         print("phase medians over", ns.rounds, "rounds (ms):",
               json.dumps(phase_ms), flush=True)
+        server_steps = None
+        if (session.sketch_decode_resolved == "sharded"
+                and cfg.error_type == "virtual"):
+            server_steps = _sharded_breakdown(session, agg, lr)
+            print("sharded server phase by step (ms):",
+                  json.dumps(server_steps), flush=True)
 
         batch = sampler.sample_round(99)[1]  # train_round copies it over
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -124,7 +197,9 @@ def main(argv=None):
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {_kind(name):11s}  {name[:90]}")
-    summary = {"phase_ms": phase_ms, "profiled_round_wall_ms": wall_ms,
+    summary = {"decode": session.sketch_decode_resolved,
+               "phase_ms": phase_ms, "server_steps_ms": server_steps,
+               "profiled_round_wall_ms": wall_ms,
                "device_kernel_ms": device_ms,
                "device_busy_share": device_ms / wall_ms if wall_ms else None,
                "device_ms_by_kind": by_kind,

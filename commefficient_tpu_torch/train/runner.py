@@ -56,7 +56,10 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     """Run the epochs; returns ``(final val metrics, per-round history)``.
     History rows are ``{"step", "lr", "loss", "ms"}``, ``ms`` the host wall
     time of the round up to its loss read-back (which waits for the
-    device)."""
+    device). In a worker group every rank draws the same rounds (same
+    sampler seed) and trains; rank 0 alone evaluates and prints, and the
+    other ranks return empty val metrics."""
+    main = session.group.rank == 0
     steps_per_epoch = sampler.steps_per_epoch()
     lr_fn = partial(piecewise_linear_lr, steps_per_epoch=steps_per_epoch,
                     pivot_epoch=cfg.pivot_epoch, num_epochs=cfg.num_epochs,
@@ -81,16 +84,17 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             row = {"step": s, "lr": lr, "loss": loss,
                    "ms": 1e3 * (time.perf_counter() - t0)}
             history.append(row)
-            if on_round is not None:
+            if on_round is not None and main:
                 on_round(row)
             hooks.accumulate(acc, loss, metrics)
             rounds += 1
         train_time = time.perf_counter() - t_epoch
-        t_val = time.perf_counter()
-        val = hooks.evaluate()
-        table.append(hooks.epoch_row(
-            epoch=epoch, lr=lr, acc=acc, val=val, train_time=train_time,
-            val_time=time.perf_counter() - t_val, rounds=max(rounds, 1)))
+        if main:
+            t_val = time.perf_counter()
+            val = hooks.evaluate()
+            table.append(hooks.epoch_row(
+                epoch=epoch, lr=lr, acc=acc, val=val, train_time=train_time,
+                val_time=time.perf_counter() - t_val, rounds=max(rounds, 1)))
         if cfg.max_rounds and len(history) >= cfg.max_rounds:
             break
     return val, history

@@ -62,8 +62,12 @@ class Config:
     error_type: str = "none"
     error_decay: float = 1.0
     # None = AUTO (False for sketch: FetchSGD Alg 1 does not mask sketched
-    # momentum); the port refuses True for sketch (ROADMAP A7)
+    # momentum)
     momentum_dampening: Optional[bool] = None
+    # momentum_dampening=True with mode=sketch re-sketches noisy momentum
+    # estimates every round; the reference gates it as divergent at paper
+    # scale and keeps it for parity experiments behind this opt-in
+    allow_unstable_sketch_dampening: bool = False
 
     # --- federation shape ---
     num_clients: int = 16
@@ -142,10 +146,19 @@ class Config:
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"{blocker}; leave it at {default!r}"
                 )
-        if self.num_devices != 1:
+        if self.num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got "
+                             f"{self.num_devices}")
+        if self.topk_method not in ("exact", "threshold", "approx"):
             raise ValueError(
-                f"num_devices={self.num_devices}: the port runs one device "
-                "(ROADMAP A9 brings torch.distributed and the sharded decode)"
+                "topk_method must be exact|threshold|approx, got "
+                f"{self.topk_method!r}"
+            )
+        if self.topk_method == "approx":
+            raise ValueError(
+                "topk_method='approx' is not ported yet: 'exact' "
+                "(torch.topk with lax.top_k's tie rule) and 'threshold' "
+                "run (ROADMAP A7 lists the approximate selection)"
             )
         if self.sketch_decode not in ("auto", "dense", "sharded"):
             raise ValueError(
@@ -153,22 +166,20 @@ class Config:
                 f"{self.sketch_decode!r}"
             )
         if self.sketch_decode == "sharded":
-            raise ValueError(
-                "sketch_decode='sharded' is not ported yet: it needs the "
-                "estimate_at kernel (ROADMAP B4/B5) and a multi-GPU mesh "
-                "(ROADMAP A9); 'auto' is the dense decode on one device"
-            )
-        if self.topk_method not in ("exact", "threshold", "approx"):
-            raise ValueError(
-                "topk_method must be exact|threshold|approx, got "
-                f"{self.topk_method!r}"
-            )
-        if self.topk_method != "exact":
-            raise ValueError(
-                f"topk_method={self.topk_method!r} is not ported yet: only "
-                "'exact' (torch.topk with lax.top_k's tie rule) runs "
-                "(ROADMAP A7 lists the threshold/approx selections)"
-            )
+            if self.mode != "sketch":
+                raise ValueError(
+                    "sketch_decode='sharded' is the sketch server-decode "
+                    f"strategy; mode={self.mode!r} has no sketch decode. "
+                    "Leave sketch_decode='auto' (a no-op for other modes)."
+                )
+            if self.topk_method != "threshold":
+                raise ValueError(
+                    "sketch_decode='sharded' extracts the global top-<=k "
+                    "with the sharded threshold selection (scalar-only "
+                    "collectives); set topk_method='threshold', or leave "
+                    "sketch_decode='auto' to keep "
+                    f"topk_method={self.topk_method!r} on the dense decode"
+                )
         if self.num_blocks != 1:
             raise ValueError(
                 f"num_blocks={self.num_blocks} is not ported yet: the "
@@ -207,11 +218,15 @@ class Config:
                 "fuse_clients=True is not ported yet: the port computes the "
                 "per-client gradients one client at a time (ROADMAP A7)"
             )
-        if self.mode == "sketch" and self.momentum_dampening:
+        if (self.mode == "sketch" and self.momentum_dampening is True
+                and not self.allow_unstable_sketch_dampening):
             raise ValueError(
-                "momentum_dampening=True with mode='sketch' is not ported: "
-                "it needs estimate_at + sketch_sparse dampening (ROADMAP A7), "
-                "and the reference gates it as divergent"
+                "momentum_dampening=True with mode='sketch' is a known-"
+                "divergent combination (it re-sketches NOISY momentum "
+                "estimates each round). FetchSGD Alg 1 does not mask "
+                "sketched momentum: use momentum_dampening=None/False, or "
+                "set allow_unstable_sketch_dampening=True for parity "
+                "experiments."
             )
         if self.error_decay != 1.0 and self.error_type != "virtual":
             raise ValueError(
@@ -238,7 +253,10 @@ class Config:
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda|cpu, got {self.device!r}")
         if self.num_workers % self.num_devices != 0:
-            raise ValueError("num_workers must be divisible by num_devices")
+            raise ValueError(
+                "num_workers must be divisible by num_devices "
+                f"({self.num_workers} % {self.num_devices} != 0): each "
+                "device computes num_workers / num_devices clients")
         if self.num_clients < self.num_workers:
             raise ValueError("num_clients must be >= num_workers")
         if self.max_rounds < 0:

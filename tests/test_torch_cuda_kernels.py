@@ -103,6 +103,62 @@ def test_estimate_median_matches_plain_exactly(dev, d, c, r, band, m, family):
     assert torch.equal(got, kern.estimate_median_torch(spec, table))
 
 
+ESTIMATE_AT_GEOMETRIES = [
+    # (d, c, r, seed, n): tests/test_decode_blockwise.py's three — a table
+    # over the reference's 12 MiB single-block guard, its forced many-block
+    # geometry, and a single-block one
+    (1_200_003, 1_100_000, 3, 11, 4096),
+    (50_011, 8_000, 5, 7, 1025),
+    (10_000, 2_000, 5, 7, 513),
+]
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,seed,n", ESTIMATE_AT_GEOMETRIES)
+def test_estimate_at_matches_plain_exactly(dev, d, c, r, seed, n, family):
+    spec = cs.CountSketch(d=d, c=c, r=r, seed=seed, hash_family=family)
+    table = _vec(r * spec.c_actual, seed, dev).reshape(spec.table_shape)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randperm(d, generator=g, device=dev)[:n]
+    idx[:5] = 0  # repeated pads, as in a gathered candidate buffer
+    n0 = kern.estimate_at.launches
+    got = kern.estimate_at(spec, table, idx)
+    assert kern.estimate_at.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, kern.estimate_at_torch(spec, table, idx))
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+def test_estimate_at_every_coordinate_is_k2_unscrambled(dev, family):
+    spec = cs.CountSketch(d=6_573_130, c=500_000, r=5, hash_family=family)
+    table = _vec(5 * spec.c_actual, 6, dev).reshape(spec.table_shape)
+    got = kern.estimate_at(spec, table, torch.arange(spec.d, device=dev))
+    want = cs._unscramble(spec, kern.estimate_median(spec, table))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_sketch_sparse_replays_bit_for_bit(dev):
+    """The error feedback's sparse sketch on the card: a candidate buffer
+    of distinct coordinates plus (i, 0.0) pads, one of them on a real
+    candidate, sketches to the same table every time (K1 sums the
+    buckets in a fixed order; the [d] scatter adds only 0.0 in collision)
+    and agrees with the plain CPU path up to summation order."""
+    spec = cs.CountSketch(d=6_573_130, c=500_000, r=5)
+    g = torch.Generator(device=dev).manual_seed(9)
+    idx = torch.randperm(spec.d, generator=g, device=dev)[:50_000]
+    vals = torch.randn(50_000, generator=g, device=dev)
+    idx[-20_000:], vals[-20_000:] = idx[0], 0.0  # pads on a real candidate
+    n0 = kern.sketch_rows.launches
+    a = cs.sketch_sparse(spec, idx, vals)
+    b = cs.sketch_sparse(spec, idx, vals)
+    assert kern.sketch_rows.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = cs.sketch_sparse(spec, idx.cpu(), vals.cpu())
+    torch.testing.assert_close(a.cpu(), want, rtol=0, atol=_table_tol(want))
+
+
 @pytest.mark.parametrize("r", range(1, 9))
 def test_median_rows_matches_plain_exactly(dev, r):
     x = _vec(r * 100_003, r, dev).reshape(r, 100_003)
@@ -140,3 +196,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kern.median_rows(torch.zeros(10, 3, device=dev).t())
     with pytest.raises(ValueError, match="rows"):
         kern.median_rows(torch.zeros(9, 3, device=dev))
+    table = torch.zeros(spec.table_shape, device=dev)
+    with pytest.raises(TypeError, match="int64"):
+        kern.estimate_at(spec, table, torch.zeros(3, dtype=torch.int32,
+                                                  device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.estimate_at(spec, table, torch.zeros(3, 2, dtype=torch.int64,
+                                                  device=dev)[:, 0])

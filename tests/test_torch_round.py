@@ -118,9 +118,9 @@ def test_schedule_matches_reference():
 
 @pytest.mark.parametrize("flag,value,item", [
     ("mode", "true_topk", "A7"),
-    ("num_devices", "2", "A9"),
-    ("sketch_decode", "sharded", "B4"),
-    ("topk_method", "threshold", "A7"),
+    ("topk_method", "approx", "A7"),
+    ("fuse_clients", "true", "A7"),
+    ("compute_dtype", "bfloat16", "A10"),
     ("num_blocks", "2", "A7"),
     ("sketch_table_dtype", "bfloat16", "A10"),
     ("sketch_fused_bwd", "true", "A10"),
