@@ -9,8 +9,10 @@ It drives only ``commefficient_tpu_torch`` and imports nothing of JAX. Each
 phase prints one line (or a few) and raises on failure, so the script exits
 0 only if every phase passed:
 
-1. environment: the card's name and power limit, and the time ``nvcc``
-   takes to build the kernels from ``ops/cuda/csrc/``;
+1. environment: the card's name and power limit, the time ``nvcc``
+   takes to build the kernels from ``ops/cuda/csrc/``, and each kernel's
+   registers, static shared memory and spills from the build's ptxas
+   report;
 2. kernels, at the ResNet-9 FetchSGD geometry (D = 6,573,130, r = 5,
    c = 500,000), for the fmix32 and poly4 hash families: every kernel held
    against its plain PyTorch version on the card (device hash bits exact,
@@ -18,11 +20,16 @@ phase prints one line (or a few) and raises on failure, so the script exits
    medians exact, two K1 launches bit-identical), then timed with CUDA
    events (median of 21 samples of 10 back-to-back calls, warm L2) beside
    its plain version, the PyTorch library call where one exists, and the
-   bound from bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s;
+   bound from bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s; K1 is
+   also timed as its gather kernel (one thread per column, the design
+   before the tile kernel), K2 is the in-call control;
    K4 (``estimate_at``) is held to its plain version exactly at three
    geometries (every coordinate of the main path, where it must also equal
    K2 unscrambled; 50,000 coordinates of it; a 100 MB table at 31M
-   coordinates), both hash families, and timed at each;
+   coordinates), both hash families, and timed at each; its range form
+   (``estimate_at_range``, the sharded decode's) is held exactly to the
+   explicit-index form at the clipped indices, at every coordinate (i) and
+   at the last rank's slice of a four-way split, and timed at (i);
 3. agreement: a small ResNet-9 FetchSGD session on the card against the
    same session on the CPU (the plain path that the CPU tests hold against
    the JAX package), for the dense decode and for the sharded decode with
@@ -33,9 +40,10 @@ phase prints one line (or a few) and raises on failure, so the script exits
 5. main paths: ``cv_train.main`` with the FetchSGD flags, ResNet-9 at full
    width on the synthetic CIFAR-10 stand-in, 5 rounds and one evaluation,
    with the kernels' launch counters set to 0 just before and read just
-   after: first the dense decode, then the sharded decode
-   (``--topk_method threshold --sketch_decode sharded``, one device);
-   then one ``uncompressed`` round.
+   after: first the dense decode (K1 twice a round, K2 once), then the
+   sharded decode (``--topk_method threshold --sketch_decode sharded``,
+   one device: K1 twice a round, K4's range form once, K2 never); then
+   one ``uncompressed`` round.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
 kernel (``launches`` summed over both main paths, ``launches_by_path``
@@ -115,7 +123,7 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def kernels_phase(torch, cs, kern, dev):
+def kernels_phase(torch, cs, kern, build, index_math, dev):
     """Holds K1-K3 against their plain versions for both hash families,
     and times them at the main path's family (fmix32). Returns the
     ``kernels`` entries without ``launches``."""
@@ -174,8 +182,19 @@ def kernels_phase(torch, cs, kern, dev):
             continue
 
         r, c, d_eff = spec.r, spec.c_actual, spec.d_eff
-        ptr, off = kern._kernel_geometry(spec, str(v_s.device))[1:]
+        rows, ptr, off, tile = kern._kernel_geometry(spec, str(v_s.device))[:4]
         csr_bytes = 4 * (ptr.numel() + off.numel())
+        lib = build.load_library()
+
+        def k1_gather():  # K1's gather kernel: tile width 0
+            table = torch.empty(spec.table_shape, device=dev)
+            kern._launch(lib.cs_sketch_rows, v_s.data_ptr(), d_eff,
+                         ptr.data_ptr(), off.data_ptr(), table.data_ptr(), c,
+                         rows, r, 0, 0, kern._stream())
+            return table
+
+        check(torch.equal(k1_gather(), t_k), "K1: the tile and gather "
+              "kernels' tables differ")
         # K1's library yardstick: ONE index_add_ of all rows into the
         # flattened table (signed sources and flat columns precomputed)
         flat_cols = torch.cat([row * c + cols for row, (cols, _)
@@ -188,12 +207,17 @@ def kernels_phase(torch, cs, kern, dev):
         b2, by2 = bound(4 * r * c + 4 * d_eff, r * d_eff
                         + r * (r - 1) * d_eff)
         b3, by3 = bound(4 * r * d_eff + 4 * d_eff, r * (r - 1) * d_eff)
+        smem1 = max(index_math.sketch_smem_bytes(
+            spec.chunk_m, spec.V_row(row), tile * spec.s_row(row))
+            for row in range(r))
         entries["cs_sketch_rows"] = dict(
             replaces=f"{PALLAS}:221", max_abs_err=err1,
             ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
             plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(spec,
                                                                    v_s)),
-            bound_ms=b1, bound_by=by1, library_ms=lib1)
+            bound_ms=b1, bound_by=by1, library_ms=lib1,
+            gather_kernel_ms=cuda_ms(torch, k1_gather),
+            tile_strides=tile, dynamic_smem_bytes=smem1)
         entries["cs_estimate_median"] = dict(
             replaces=f"{PALLAS}:306", max_abs_err=err2,
             ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t_k)),
@@ -209,7 +233,8 @@ def kernels_phase(torch, cs, kern, dev):
         for name, e in entries.items():
             phase("timing", kernel=name, ms=e["ms"], plain_ms=e["plain_ms"],
                   library_ms=e["library_ms"], bound_ms=e["bound_ms"],
-                  bound_by=e["bound_by"])
+                  bound_by=e["bound_by"], **{k: e[k] for k in (
+                      "gather_kernel_ms", "tile_strides") if k in e})
         del flat_cols, flat_src, flat_table, stack
     return entries
 
@@ -241,8 +266,12 @@ def k4_phase(torch, cs, kern, dev):
     unscrambled); (ii) 50,000 random coordinates of it (the dampening and
     k-scale shape); (iii) a table over the reference's single-block VMEM
     guard, r = 5, c = 5,000,000, d = 124,000,000, at 31,000,000 random
-    coordinates (one shard of a four-card decode). Times them at the main
-    path's family (fmix32). Returns the ``kernels`` entry without
+    coordinates (one shard of a four-card decode). At (i) K4's range form
+    (``estimate_at_range``, no index array) is held exactly to the
+    explicit-index form at the same clipped indices, at every coordinate
+    and at the last rank's slice of a four-way split (the clip at d - 1
+    bites). Times them at the main path's family (fmix32); the range form
+    at (i) is "i_range". Returns the ``kernels`` entry without
     ``launches``."""
     geometries = {
         "i_main_all_coords": (GEOMETRY, None),
@@ -270,6 +299,18 @@ def k4_phase(torch, cs, kern, dev):
                 check(torch.equal(got, full), f"K4 {family}: estimate_at of "
                       "every coordinate differs from K2 unscrambled")
                 fields["equals_k2_unscrambled"] = True
+                S = -(-spec.d // 4)
+                for start, cnt in ((0, spec.d), (3 * S, S)):
+                    rng_out = kern.estimate_at_range(spec, table, start, cnt)
+                    explicit = kern.estimate_at(spec, table, torch.clamp(
+                        start + torch.arange(cnt, device=dev),
+                        max=spec.d - 1))
+                    torch.cuda.synchronize()
+                    check(torch.equal(rng_out, explicit),
+                          f"K4 range form {family} start={start} n={cnt}: "
+                          "differs from the explicit-index form")
+                fields["range_form_equals_explicit"] = "all coords, last " \
+                    "rank of 4"
             phase("k4", family=family, geometry=name, n=idx.numel(),
                   table_bytes=4 * table.numel(), max_abs_err=err, **fields)
             if family == "fmix32":
@@ -291,9 +332,26 @@ def k4_phase(torch, cs, kern, dev):
                     bound_ms=b, bound_by=by)
                 phase("timing", kernel="cs_estimate_at", geometry=name,
                       **timings[name])
+                if n is None:
+                    plan = kern._range_plan(spec, 0, nn, str(dev))
+                    b, by = bound(4 * nn + 4 * r * c + perm
+                                  + 4 * plan["blocks"].numel(),
+                                  r * nn + r * (r - 1) * nn)
+                    timings["i_range"] = dict(
+                        n=nn, max_abs_err=err,
+                        ms=cuda_ms(torch, lambda: kern.estimate_at_range(
+                            spec, table, 0, nn)),
+                        plain_ms=cuda_ms(
+                            torch, lambda: kern.estimate_at_range_torch(
+                                spec, table, 0, nn)),
+                        bound_ms=b, bound_by=by,
+                        staged_rows=list(plan["staged"]),
+                        dynamic_smem_bytes=4 * sum(plan["wlen"]))
+                    phase("timing", kernel="cs_estimate_at (range form)",
+                          geometry="i_range", **timings["i_range"])
             worst = max(worst, err)
             del table, idx, got, want
-    main = timings["i_main_all_coords"]
+    main = timings["i_range"]  # the sharded main path's form and shape
     return dict(replaces=f"{DECODE_PALLAS}:164 and :227", max_abs_err=worst,
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -408,7 +466,8 @@ def replay_phase(torch, cs, dev):
 
 def sharded_main_path_phase(kern, cv_train, dataset_dir, dense_bytes):
     """``cv_train.main`` with the sharded decode for MAIN_ROUNDS rounds:
-    K4 once a round, K2 never, K1 twice a round (the encode, and the
+    K4's range form once a round (its explicit-index form never, with the
+    dampening off), K2 never, K1 twice a round (the encode, and the
     error-feedback re-sketch, which ``sketch_sparse`` runs through K1)."""
     kern.reset_launch_counts()
     with warnings.catch_warnings():
@@ -433,7 +492,8 @@ def sharded_main_path_phase(kern, cv_train, dataset_dir, dense_bytes):
     check(out["param_delta_norm"] > 0, "sharded main path: params still")
     check(out["bytes_per_round"] == dense_bytes,
           "sharded main path: bytes per round differ from the dense path's")
-    for name, want in (("estimate_at", MAIN_ROUNDS), ("estimate_median", 0),
+    for name, want in (("estimate_at_range", MAIN_ROUNDS), ("estimate_at", 0),
+                       ("estimate_median", 0),
                        ("sketch_rows", 2 * MAIN_ROUNDS)):
         check(launches[name] == want, f"sharded main path: {name} launched "
               f"{launches[name]} times, expected {want}")
@@ -496,7 +556,7 @@ def main() -> int:
 
     from commefficient_tpu_torch import resolve_device
     from commefficient_tpu_torch.ops import countsketch as cs
-    from commefficient_tpu_torch.ops.cuda import build
+    from commefficient_tpu_torch.ops.cuda import build, index_math
     from commefficient_tpu_torch.ops.cuda import countsketch as kern
     from commefficient_tpu_torch.train import cv_train
 
@@ -508,8 +568,13 @@ def main() -> int:
           cuda=torch.version.cuda, gpu=repr(torch.cuda.get_device_name(0)),
           build_s=round(time.perf_counter() - t0, 3),
           nvcc_s=build.build_seconds, library=build.library_path().name)
+    report = build.ptxas_report(build.library_path().with_suffix(".log"))
+    phase("ptxas", kernels=json.dumps({
+        name: f"{v['registers']} regs, {v['smem_static_bytes']} B smem, "
+              f"{v['spill_stores_bytes']}/{v['spill_loads_bytes']} B spills"
+        for name, v in report.items()}))
 
-    entries = kernels_phase(torch, cs, kern, dev)
+    entries = kernels_phase(torch, cs, kern, build, index_math, dev)
     entries["cs_estimate_at"] = k4_phase(torch, cs, kern, dev)
     agreement_phase(torch, np, dev)
     sharded_agreement_phase(torch, np, dev)
@@ -521,13 +586,18 @@ def main() -> int:
                                       dense_bytes)
     uncompressed_phase(kern, cv_train, dataset_dir)
 
-    wrapper = {"cs_sketch_rows": "sketch_rows",
-               "cs_estimate_median": "estimate_median",
-               "median_rows": "median_rows", "cs_estimate_at": "estimate_at"}
+    wrappers = {"cs_sketch_rows": ("sketch_rows",),
+                "cs_estimate_median": ("estimate_median",),
+                "median_rows": ("median_rows",),
+                "cs_estimate_at": ("estimate_at", "estimate_at_range")}
+
+    def count(launches, name):
+        return sum(launches[w] for w in wrappers[name])
+
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    launches=dense[wrapper[name]] + sharded[wrapper[name]],
-                    launches_by_path={"dense": dense[wrapper[name]],
-                                      "sharded": sharded[wrapper[name]]},
+                    launches=count(dense, name) + count(sharded, name),
+                    launches_by_path={"dense": count(dense, name),
+                                      "sharded": count(sharded, name)},
                     **e)
                for name, e in entries.items()]
     print(card)

@@ -13,10 +13,11 @@ Two decodes of the same algebra. The dense one (``server_update``) runs
 the whole extraction on every device. The sharded one
 (``server_update_sharded``) keeps the tables replicated and splits only
 the EXTRACTION: each rank of the worker group estimates its slice of the
-coordinates (``estimate_at``, K4), the global top-<=k threshold costs two
-scalar collectives per bisection step, each rank compacts its <= k
-selected entries into a fixed buffer, and one ~size*k pair all_gather
-replaces the full-[D] decode. The zero-heavy-hitter error feedback sums
+coordinates (``estimate_at_range``, K4's range form: the slice is a
+coordinate range, so no index array is built), the global top-<=k
+threshold costs two scalar collectives per bisection step, each rank
+compacts its <= k selected entries into a fixed buffer, and one ~size*k
+pair all_gather replaces the full-[D] decode. The zero-heavy-hitter error feedback sums
 the ranks' slice sketches (linearity), and the round applies the gathered
 pairs as a k-sparse scatter: no [D] estimate, delta or re-sketch exists.
 """
@@ -32,6 +33,7 @@ from commefficient_tpu_torch.compress.registry import register
 from commefficient_tpu_torch.ops.collectives import all_gather_pairs
 from commefficient_tpu_torch.ops.countsketch import (
     estimate_at,
+    estimate_at_range,
     sketch_sparse,
     sketch_vec,
 )
@@ -111,66 +113,61 @@ class SketchCompressor(Compressor):
         dampen = self.resolved_dampening()
         rho = cfg.virtual_momentum
         S = -(-d // group.size)
-        my, idx_c, in_range = self._slice_coords(group.rank, S, d,
-                                                 agg.device)
+        start, in_range = self._slice_coords(group.rank, S, d, agg.device)
         agg, momentum, error = map(self._up, (agg, momentum, error))
         m = rho * momentum + agg if rho > 0 else agg
-        sel, upd, e = self._slice_extract(m, error, lr, idx_c, in_range,
-                                          group)
+        sel, upd, e = self._slice_extract(m, error, lr, start, in_range,
+                                          group, d)
         if dampen and rho > 0:
             # each rank estimates m at ITS selected coordinates; the sum of
             # the slice sketches is the sketch of the masked momentum. The
             # mask is the UNSCALED selection's support (lr may be 0).
             loc_d, upd_val = compact_nonzero(upd, cfg.k)
-            hh_gidx = torch.clamp(my * S + loc_d, max=d - 1)
+            hh_gidx = torch.clamp(start + loc_d, max=d - 1)
             m_at_hh = torch.where(upd_val != 0,
-                                  self._shard_estimate_at(spec, m, hh_gidx),
-                                  0.0)
+                                  estimate_at(spec, m, hh_gidx), 0.0)
             m = m - group.all_reduce_sum(sketch_sparse(spec, hh_gidx,
                                                        m_at_hh))
         new_m = m if rho > 0 else momentum
         # this rank's <= k selected entries, compacted; pads clip into
         # range with val 0.0, which the apply scatter adds as a no-op
         loc, val = compact_nonzero(sel, cfg.k)
-        gidx = torch.clamp(my * S + loc, max=d - 1)
+        gidx = torch.clamp(start + loc, max=d - 1)
         g_idx, g_val = all_gather_pairs(gidx, val, group)
         return g_idx, g_val, self._down(new_m), self._down(e)
 
     @staticmethod
     def _slice_coords(rank: int, S: int, d: int, device):
-        """``(my, idx_c, in_range)``: this rank's index, its clipped global
-        coordinate slice ``min(my*S + arange(S), d - 1)``, and the f32 mask
-        of the coordinates that lie inside [0, d)."""
-        idx = rank * S + torch.arange(S, dtype=torch.int64, device=device)
-        return rank, torch.clamp(idx, max=d - 1), (idx < d).to(torch.float32)
+        """``(start, in_range)``: the first global coordinate of this
+        rank's slice ``min(start + arange(S), d - 1)``, and the f32 mask of
+        the slice's coordinates that lie inside [0, d)."""
+        start = rank * S
+        return start, (torch.arange(start, start + S, device=device)
+                       < d).to(torch.float32)
 
-    def _slice_extract(self, m, error, lr, idx_c, in_range, group):
-        """Estimate this rank's slice, select the global top-<=k
-        (``topk_threshold_sharded``) and run the zero-HH error feedback
-        (the sum over ranks of the slice sketches of the selection is the
-        sketch of the whole extracted update). Returns ``(sel, upd,
-        new_error)``: ``sel`` the applied slice (lr-scaled without error
-        feedback), ``upd`` the unscaled selection."""
+    def _slice_extract(self, m, error, lr, start, in_range, group, d):
+        """Estimate this rank's slice (``estimate_at_range`` over
+        ``in_range.numel()`` coordinates from ``start``), select the
+        global top-<=k (``topk_threshold_sharded``) and run the zero-HH
+        error feedback (the sum over ranks of the slice sketches of the
+        selection is the sketch of the whole extracted update). Returns
+        ``(sel, upd, new_error)``: ``sel`` the applied slice (lr-scaled
+        without error feedback), ``upd`` the unscaled selection."""
         cfg, spec = self.cfg, self.spec
+        S = in_range.numel()
         if cfg.error_type == "virtual":
             e = error + lr * m
-            est = self._shard_estimate_at(spec, e, idx_c) * in_range
+            est = estimate_at_range(spec, e, start, S) * in_range
             upd = topk_threshold_sharded(est, cfg.k, group)
             loc, val = compact_nonzero(upd, cfg.k)
-            e = e - group.all_reduce_sum(sketch_sparse(spec, idx_c[loc], val))
+            gidx = torch.clamp(start + loc, max=d - 1)
+            e = e - group.all_reduce_sum(sketch_sparse(spec, gidx, val))
             if cfg.error_decay != 1.0:
                 e = cfg.error_decay * e
             return upd, upd, e
-        est = self._shard_estimate_at(spec, m, idx_c) * in_range
+        est = estimate_at_range(spec, m, start, S) * in_range
         upd = topk_threshold_sharded(est, cfg.k, group)
         return lr * upd, upd, error
-
-    @staticmethod
-    def _shard_estimate_at(spec, table, idx):
-        """The sharded decode's point estimate: ``estimate_at``, the port's
-        one realization (K4 on the card, for both of the reference's
-        Pallas branches)."""
-        return estimate_at(spec, table, idx)
 
     def upload_floats(self) -> int:
         """The REALIZED table size ``r * c_actual``; warns when the blocked

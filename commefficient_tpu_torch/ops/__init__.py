@@ -4,6 +4,7 @@ from commefficient_tpu_torch.ops.countsketch import (
     CountSketch,
     estimate_all,
     estimate_at,
+    estimate_at_range,
     sketch_sparse,
     sketch_vec,
     unsketch,
@@ -23,7 +24,8 @@ from commefficient_tpu_torch.ops.topk import (
 )
 
 __all__ = ["CountSketch", "clip_by_global_norm", "compact_nonzero",
-           "estimate_all", "estimate_at", "ravel_params", "sketch_sparse",
+           "estimate_all", "estimate_at", "estimate_at_range", "ravel_params",
+           "sketch_sparse",
            "sketch_vec", "topk_dense", "topk_sparsify",
            "topk_threshold_dense", "topk_threshold_sharded", "unsketch",
            "unsketch_dense", "unsketch_sparse"]

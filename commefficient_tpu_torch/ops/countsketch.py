@@ -16,7 +16,8 @@ what is built on them) run through ``ops/cuda/countsketch.py``: the CUDA
 kernels on a CUDA tensor, their plain PyTorch versions on a CPU tensor.
 For ``sketch_vec`` and ``estimate_all`` the scramble stays outside the
 kernels as a torch gather, as the reference keeps it outside its Pallas
-kernels; ``estimate_at``'s kernel does the scramble lookup itself.
+kernels; ``estimate_at``'s kernel does the scramble lookup itself, and
+``estimate_at_range`` walks a coordinate range in scrambled order.
 ``sketch_sparse`` scatters its pairs into a [d] vector and sketches that,
 so no table bucket is summed by float atomics.
 """
@@ -34,9 +35,13 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_at as estimate_at_kernel,
 )
 from commefficient_tpu_torch.ops.cuda.countsketch import (
+    estimate_at_range as estimate_at_range_kernel,
+)
+from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_median,
     sketch_rows,
 )
+from commefficient_tpu_torch.ops.cuda.index_math import fast_divisor
 from commefficient_tpu_torch.ops.topk import (
     topk_sparsify,
     topk_threshold_dense,
@@ -192,7 +197,11 @@ def _scramble_perms(d_eff: int, block: int, seed: int):
 # kernel row parameters, one int64 row per sketch row (csrc/countsketch.cu)
 RP_KEY_SLOT, RP_KEY_SIGN, RP_CSLOT, RP_CSIGN = 0, 1, 2, 6
 RP_F, RP_G, RP_M, RP_S, RP_V, RP_NC, RP_ROWLEN, RP_PTR, RP_OFF = range(10, 19)
-RP_COUNT = 20
+RP_SBLOCK = 19
+# (multiplier, shift) pairs of index_math.fast_divisor, in this order
+RP_DIV = 20
+DIVISORS = ("G", "f", "m", "V", "s", "mq1", "mq", "sblock")
+RP_COUNT = RP_DIV + 2 * len(DIVISORS)
 
 
 @dataclass(frozen=True)
@@ -338,6 +347,20 @@ class CountSketch:
         sign = 1.0 - 2.0 * self.sign_bits(row, spos).to(torch.float32)
         return cols, sign
 
+    def kernel_divisors(self, row: int) -> dict:
+        """``{name: (divisor, largest dividend)}`` for every runtime
+        division of the CUDA kernels at ``row`` (``DIVISORS`` order):
+        G, f and m divide riffled or scrambled positions (< L), V a 32-bit
+        hash, s a column bound, ``mq1 = m div f + 1`` and ``mq = max(m div
+        f, 1)`` a stage slot (< m), sblock an original coordinate."""
+        f, L, m = self._factor(row), self._L_row(row), self.chunk_m
+        s, mq = self.s_row(row), m // f
+        return {"G": (L // f, L - 1), "f": (f, L - 1), "m": (m, L - 1),
+                "V": (self.V_row(row), 2**32 - 1),
+                "s": (s, self.c_actual + s), "mq1": (mq + 1, m - 1),
+                "mq": (max(mq, 1), m - 1),
+                "sblock": (self.sblock or 1, self.d_eff - 1)}
+
     def kernel_row_params(self) -> np.ndarray:
         """[r, RP_COUNT] int64 per-row constants for the CUDA kernels; the
         CSR bases assume ``csr_tables`` concatenated row after row."""
@@ -356,6 +379,11 @@ class CountSketch:
             P[row, RP_NC] = L // self.chunk_m
             P[row, RP_ROWLEN] = (L // self.chunk_m + u - 1) * s
             P[row, RP_PTR], P[row, RP_OFF] = ptr_base, row * self.chunk_m
+            P[row, RP_SBLOCK] = self.sblock
+            divs = self.kernel_divisors(row)
+            for k, name in enumerate(DIVISORS):
+                P[row, RP_DIV + 2 * k:RP_DIV + 2 * k + 2] = fast_divisor(
+                    *divs[name])
             ptr_base += u * s + 1
         return P
 
@@ -446,6 +474,15 @@ def estimate_at(spec: CountSketch, table: torch.Tensor,
     _check_poly4_field(spec)
     return estimate_at_kernel(spec, table.to(torch.float32),
                               idx.to(torch.int64).contiguous())
+
+
+def estimate_at_range(spec: CountSketch, table: torch.Tensor, start: int,
+                      n: int) -> torch.Tensor:
+    """``estimate_at`` at the clipped coordinate range ``min(start +
+    arange(n), d - 1)``, with no index array (K4's range form on a CUDA
+    tensor): the sharded decode's slice estimate."""
+    _check_poly4_field(spec)
+    return estimate_at_range_kernel(spec, table.to(torch.float32), start, n)
 
 
 def sketch_sparse(spec: CountSketch, idx: torch.Tensor,

@@ -13,7 +13,9 @@ calls), so a run can show that its main path went through the kernels.
 The wrappers read the spec through its methods (``kernel_row_params``,
 ``csr_tables``, ``scrambled_cols_signs``, ``scrambled_pos``,
 ``inverse_block_perm``), so this module needs nothing from
-``ops/countsketch.py``, which imports it.
+``ops/countsketch.py``, which imports it. The host-side plans of the
+kernels' index arithmetic (K1's tile width, K4's range-form block order
+and table windows) come from ``index_math``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import functools
 
 import numpy as np
 import torch
+
+from commefficient_tpu_torch.ops.cuda import index_math
 
 _FAMILY = {"fmix32": 0, "poly4": 1}
 MAX_ROWS = 8  # CS_MAX_ROWS in csrc/countsketch.cu
@@ -57,17 +61,19 @@ def _stream() -> int:
 
 @functools.lru_cache(maxsize=8)
 def _kernel_geometry(spec, device: str):
-    """(row params as a ctypes int64 array, CSR ptr, CSR offsets) for the
-    kernels: built once per (spec, device) from the same hash functions as
-    the plain versions, and kept alive here while the kernels may read
-    them."""
-    params = spec.kernel_row_params()
+    """(row params as a ctypes int64 array, CSR ptr, CSR offsets, K1's tile
+    width in strides) for the kernels: built once per (spec, device) from
+    the same hash functions as the plain versions, and kept alive here
+    while the kernels may read them."""
     if max(spec._L_row(r) for r in range(spec.r)) >= 2**32:
         raise ValueError("the CUDA kernels index the padded layout in "
                          "uint32; this spec's layout exceeds 2^32")
+    params = spec.kernel_row_params()
     rows = (ctypes.c_longlong * params.size)(*params.reshape(-1).tolist())
     ptr, off = spec.csr_tables(device)
-    return rows, ptr, off
+    tile = index_math.sketch_tile_strides(
+        [(spec.chunk_m, spec.s_row(r), spec.V_row(r)) for r in range(spec.r)])
+    return rows, ptr, off, tile
 
 
 @functools.lru_cache(maxsize=2)
@@ -115,12 +121,12 @@ def sketch_rows(spec, v_s: torch.Tensor) -> torch.Tensor:
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    rows, ptr, off = _kernel_geometry(spec, str(v_s.device))
+    rows, ptr, off, tile = _kernel_geometry(spec, str(v_s.device))
     table = torch.empty(spec.table_shape, dtype=torch.float32,
                         device=v_s.device)
     _launch(lib.cs_sketch_rows, v_s.data_ptr(), spec.d_eff, ptr.data_ptr(),
             off.data_ptr(), table.data_ptr(), spec.c_actual, rows, spec.r,
-            _FAMILY[spec.hash_family], _stream())
+            _FAMILY[spec.hash_family], tile, _stream())
     sketch_rows.launches += 1
     return table
 
@@ -148,7 +154,7 @@ def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    rows, _, _ = _kernel_geometry(spec, str(table.device))
+    rows = _kernel_geometry(spec, str(table.device))[0]
     out = torch.empty(spec.d_eff, dtype=torch.float32, device=table.device)
     _launch(lib.cs_estimate_median, table.data_ptr(), spec.c_actual,
             out.data_ptr(), spec.d_eff, rows, spec.r,
@@ -213,16 +219,18 @@ def estimate_at(spec, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check_rows(spec.r)
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
-    lib = load_library()
-    rows, _, _ = _kernel_geometry(spec, str(table.device))
-    inv = _inverse_perm(spec, str(table.device))
     out = torch.empty(idx.numel(), dtype=torch.float32, device=table.device)
+    if idx.numel() == 0:
+        return out
+    lib = load_library()
+    rows = _kernel_geometry(spec, str(table.device))[0]
+    inv = _inverse_perm(spec, str(table.device))
     err = torch.zeros((), dtype=torch.int32, device=table.device)
     _launch(lib.cs_estimate_at, table.data_ptr(), spec.c_actual,
             idx.data_ptr(), idx.numel(), spec.d,
-            None if inv is None else inv.data_ptr(), spec.sblock,
-            out.data_ptr(), err.data_ptr(), rows, spec.r,
-            _FAMILY[spec.hash_family], _stream())
+            None if inv is None else inv.data_ptr(), out.data_ptr(),
+            err.data_ptr(), rows, spec.r, _FAMILY[spec.hash_family],
+            _stream())
     estimate_at.launches += 1
     torch._assert_async(err == 0, f"estimate_at: an index lies outside "
                                   f"[0, {spec.d})")
@@ -230,6 +238,81 @@ def estimate_at(spec, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 estimate_at.launches = 0
+
+
+def estimate_at_range_torch(spec, table: torch.Tensor, start: int,
+                            n: int) -> torch.Tensor:
+    """Plain version of K4's range form: the arbitrary-index plain version
+    at the explicit clipped indices."""
+    idx = torch.clamp(start + torch.arange(n, device=table.device),
+                      max=spec.d - 1)
+    return estimate_at_torch(spec, table, idx)
+
+
+@functools.lru_cache(maxsize=8)
+def _range_plan(spec, start: int, n: int, device: str):
+    """The range form's host plan for one (spec, slice): the slice's
+    scramble blocks in scrambled order and, per CUDA block, the table
+    windows it reads (``index_math``), with the rows whose windows go to
+    shared memory. Built once per slice (the sharded decode asks for the
+    same slice every round) and kept alive here while the kernel may read
+    it."""
+    b = spec.sblock or 64  # no scramble: walk blocks of 64 in place
+    inv = spec.inverse_block_perm()
+    blocks = index_math.range_block_list(inv, b, start, n, spec.d)
+    per_block = max(1, index_math.K4R_COORDS // b)
+    geo = [(spec._factor(r), spec._L_row(r) // spec._factor(r),
+            spec.chunk_m, spec.s_row(r), spec.V_row(r))
+           for r in range(spec.r)]
+    wstart, wlen = index_math.range_windows(blocks, inv, b, start, n,
+                                            spec.d, geo, per_block)
+    staged = index_math.range_staged_rows(wlen,
+                                          index_math.K4R_SMEM_BUDGET)
+    woff, wl, used = [0] * spec.r, [0] * spec.r, 0
+    for row in staged:
+        woff[row], wl[row] = used, int(wlen[row])
+        used += int(wlen[row])
+    xa, xb = index_math.range_span(start, n, spec.d)
+    return dict(
+        b=b, blocks=torch.from_numpy(blocks).to(device), per_block=per_block,
+        wstart=torch.from_numpy(wstart.astype(np.int32)).to(device),
+        woff=(ctypes.c_int * spec.r)(*woff), wlen=(ctypes.c_int * spec.r)(*wl),
+        staged=tuple(staged), xa=xa, xb=xb)
+
+
+def estimate_at_range(spec, table: torch.Tensor, start: int,
+                      n: int) -> torch.Tensor:
+    """[r, c_actual] f32 table -> [n] f32 median-of-rows estimates at the
+    original coordinates ``min(start + arange(n), d - 1)`` (K4's range
+    form; no index array is built or read)."""
+    _check("estimate_at_range table", table, spec.table_shape)
+    if start < 0 or n < 0:
+        raise ValueError(f"estimate_at_range: start {start} and n {n} must "
+                         f"be >= 0")
+    if table.device.type == "cpu":
+        return estimate_at_range_torch(spec, table, start, n)
+    _check_rows(spec.r)
+    out = torch.empty(n, dtype=torch.float32, device=table.device)
+    if n == 0:
+        return out
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    rows = _kernel_geometry(spec, str(table.device))[0]
+    inv = _inverse_perm(spec, str(table.device))
+    plan = _range_plan(spec, start, n, str(table.device))
+    _launch(lib.cs_estimate_range, table.data_ptr(), spec.c_actual, start,
+            n, spec.d, plan["xa"], plan["xb"], plan["b"],
+            None if inv is None else inv.data_ptr(),
+            plan["blocks"].data_ptr(), plan["blocks"].numel(),
+            plan["per_block"], plan["wstart"].data_ptr(), plan["woff"],
+            plan["wlen"], out.data_ptr(), rows, spec.r,
+            _FAMILY[spec.hash_family], _stream())
+    estimate_at_range.launches += 1
+    return out
+
+
+estimate_at_range.launches = 0
 
 
 # -- K3: median over rows ---------------------------------------------------------
@@ -287,7 +370,8 @@ def hash_bits_cuda(spec, row: int, x: torch.Tensor, which: str) -> np.ndarray:
     return out.cpu().numpy().view(np.uint32)
 
 
-KERNELS = (sketch_rows, estimate_median, median_rows, estimate_at)
+KERNELS = (sketch_rows, estimate_median, median_rows, estimate_at,
+           estimate_at_range)
 
 
 def reset_launch_counts() -> None:

@@ -13,7 +13,8 @@ times N rounds phase by phase with CUDA events:
 * ``server``: the server decode. Dense (sketch): the table algebra, K2
   and the unscramble, top-k, the K1 re-sketch of the extracted update.
   Sharded (``--topk_method threshold --sketch_decode sharded``): the
-  table algebra, K4 over this rank's slice, the threshold bisection, the
+  table algebra, K4's range form over this rank's slice, the threshold
+  bisection, the
   compaction, the error feedback's re-sketch, the candidate exchange;
 * ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter.
 
@@ -41,7 +42,10 @@ from commefficient_tpu_torch.data import FedSampler
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.api import _to_device
 from commefficient_tpu_torch.ops.collectives import all_gather_pairs
-from commefficient_tpu_torch.ops.countsketch import estimate_at, sketch_sparse
+from commefficient_tpu_torch.ops.countsketch import (
+    estimate_at_range,
+    sketch_sparse,
+)
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
     topk_threshold_sharded,
@@ -116,22 +120,22 @@ def _sharded_breakdown(session, agg, lr):
                             session.state)
     spec, d = session.spec, session.grad_size
     S = -(-d // group.size)
-    my, idx_c, in_range = comp._slice_coords(group.rank, S, d, agg.device)
+    start, in_range = comp._slice_coords(group.rank, S, d, agg.device)
     rho = cfg.virtual_momentum
     m = rho * st.momentum + agg if rho > 0 else agg
     e = st.error + lr * m
-    est = estimate_at(spec, e, idx_c) * in_range
+    est = estimate_at_range(spec, e, start, S) * in_range
     upd = topk_threshold_sharded(est, cfg.k, group)
     loc, val = compact_nonzero(upd, cfg.k)
-    gidx = torch.clamp(my * S + loc, max=d - 1)
+    gidx = torch.clamp(start + loc, max=d - 1)
     return {
         "k4_estimate": _event_ms(
-            lambda: estimate_at(spec, e, idx_c) * in_range),
+            lambda: estimate_at_range(spec, e, start, S) * in_range),
         "bisection": _event_ms(
             lambda: topk_threshold_sharded(est, cfg.k, group)),
         "compaction": _event_ms(lambda: compact_nonzero(upd, cfg.k)),
         "ef_resketch": _event_ms(lambda: group.all_reduce_sum(
-            sketch_sparse(spec, idx_c[loc], val))),
+            sketch_sparse(spec, gidx, val))),
         "exchange_apply": _event_ms(lambda: apply_update(
             st.params_vec, ("sparse", all_gather_pairs(gidx, val, group)))),
     }

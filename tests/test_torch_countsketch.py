@@ -194,6 +194,38 @@ def test_estimate_at_and_sketch_sparse_match_reference():
     np.testing.assert_array_equal(e_port, e_ref)
 
 
+RANGE_GEOMETRIES = [
+    # (d, c, r, seed): tests/test_decode_blockwise.py's — a table over the
+    # reference's 12 MiB single-block guard, its many-block geometry, and
+    # a single-block one
+    (1_200_003, 1_100_000, 3, 11),
+    (50_011, 8_000, 5, 7),
+    (10_000, 2_000, 5, 7),
+]
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,seed", RANGE_GEOMETRIES)
+def test_estimate_at_range_matches_reference(d, c, r, seed, family):
+    """The range form (the sharded decode's slice estimate) equals the
+    reference's ``estimate_at`` at the clipped coordinates ``min(start +
+    arange(n), d - 1)``, exactly: at the first rank's slice of a four-way
+    split, at a slice that starts and ends inside scramble blocks, and at
+    the last rank's slice, where the clip at d - 1 bites."""
+    s_ref, s_port = specs(d, c, r, family=family, seed=seed)
+    table = np.random.default_rng(seed).normal(
+        size=s_ref.table_shape).astype(np.float32)
+    S, b = -(-d // 4), s_port.sblock
+    for start, n in ((0, S), ((d // 2 // b) * b + b // 3, 5 * b + 7),
+                     (3 * S, S)):
+        idx = np.minimum(start + np.arange(n), d - 1).astype(np.uint32)
+        want = np.asarray(ref.estimate_at(s_ref, jnp.asarray(table),
+                                          jnp.asarray(idx)))
+        got = port.estimate_at_range(s_port, torch.from_numpy(table), start,
+                                     n).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 7])
 def test_median_rows_matches_pallas(r):
     x = np.random.default_rng(5).normal(size=(r, 3001)).astype(np.float32)

@@ -13,7 +13,9 @@ machine, which has none. From the repository root there:
 Tolerances: hash bits, estimates and medians exact (one bucket per row, a
 sign flip and a compare-exchange network: no float reduction); tables
 ``atol = 1e-5 * max|table|``, since the kernel sums each bucket in (chunk,
-offset) order and the plain ``index_add_`` in position order.
+offset) order and the plain ``index_add_`` in position order. K1's tile
+kernel and its gather kernel sum in the same order and must agree bit for
+bit.
 """
 
 import numpy as np
@@ -31,6 +33,14 @@ GEOMETRIES = [
     (20_011, 4_000, 3, 16, 512),
     (212, 512, 4, 16, None),
     (1_200_003, 48_000, 8, 8, None),
+]
+K1_EDGE_GEOMETRIES = [
+    # K1's tile edges: r = 8 and band 8 with a table width that is not a
+    # multiple of the tile (32 strides), one whose rows end mid-tile, and
+    # m = 32768, where the gather kernel runs
+    (300_007, 20_000, 8, 8, 1024),
+    (77_777, 9_000, 6, 16, 2048),
+    (3_000_000, 40_000, 5, 16, None),
 ]
 
 
@@ -75,7 +85,7 @@ def test_device_hashes_bit_equal_host(dev, family):
 
 
 @pytest.mark.parametrize("family", ["fmix32", "poly4"])
-@pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES)
+@pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES + K1_EDGE_GEOMETRIES)
 def test_sketch_rows_matches_plain_and_is_deterministic(dev, d, c, r, band, m,
                                                         family):
     spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
@@ -89,6 +99,33 @@ def test_sketch_rows_matches_plain_and_is_deterministic(dev, d, c, r, band, m,
     assert got.shape == want.shape == spec.table_shape
     torch.testing.assert_close(got, want, rtol=0, atol=_table_tol(want))
     assert torch.equal(got, again)  # no atomics: bit-identical replays
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES + K1_EDGE_GEOMETRIES)
+def test_sketch_tile_kernel_equals_gather_kernel(dev, d, c, r, band, m,
+                                                 family):
+    """The tile kernel (the main path's) and the gather kernel sum every
+    bucket in the same order: bit-equal tables wherever the tile kernel
+    runs."""
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
+    v_s = cs._scramble(spec, _vec(d, 5, dev))
+    rows, ptr, off, tile = kern._kernel_geometry(spec, str(dev))[:4]
+    if spec.chunk_m > 8192:
+        assert tile == 0  # the gather kernel's geometry
+    tables = []
+    for w in (tile, 0):
+        t = torch.empty(spec.table_shape, device=dev)
+        kern._launch(load_library().cs_sketch_rows, v_s.data_ptr(),
+                     spec.d_eff, ptr.data_ptr(), off.data_ptr(),
+                     t.data_ptr(), spec.c_actual, rows, spec.r,
+                     kern._FAMILY[family], w, kern._stream())
+        tables.append(t)
+    torch.cuda.synchronize()
+    assert torch.equal(tables[0], tables[1])
+    assert torch.equal(tables[0], kern.sketch_rows(spec, v_s))
 
 
 @pytest.mark.parametrize("family", ["fmix32", "poly4"])
@@ -136,6 +173,32 @@ def test_estimate_at_every_coordinate_is_k2_unscrambled(dev, family):
     want = cs._unscramble(spec, kern.estimate_median(spec, table))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,seed,n", ESTIMATE_AT_GEOMETRIES + [
+    (6_573_130, 500_000, 5, 42, None)])
+def test_estimate_at_range_matches_plain_and_k2(dev, d, c, r, seed, n,
+                                                family):
+    """K4's range form, exactly, against its plain version and against K2
+    unscrambled, at n = 0, n = 1, a ragged n starting inside a scramble
+    block, every coordinate, and the last rank's slice of a four-way
+    split (clipped at d - 1)."""
+    spec = cs.CountSketch(d=d, c=c, r=r, seed=seed, hash_family=family)
+    table = _vec(r * spec.c_actual, seed, dev).reshape(spec.table_shape)
+    full = cs._unscramble(spec, kern.estimate_median(spec, table))
+    S = -(-d // 4)
+    for start, cnt in ((5, 0), (d - 1, 1), (spec.sblock // 2 + 1, 3001),
+                       (0, d), (3 * S, S)):
+        n0 = kern.estimate_at_range.launches
+        got = kern.estimate_at_range(spec, table, start, cnt)
+        assert kern.estimate_at_range.launches == n0 + (cnt > 0)
+        torch.cuda.synchronize()
+        assert got.shape == (cnt,)
+        assert torch.equal(got, kern.estimate_at_range_torch(spec, table,
+                                                             start, cnt))
+        idx = torch.clamp(start + torch.arange(cnt, device=dev), max=d - 1)
+        assert torch.equal(got, full[idx])
 
 
 def test_sketch_sparse_replays_bit_for_bit(dev):
@@ -203,3 +266,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kern.estimate_at(spec, table, torch.zeros(3, 2, dtype=torch.int64,
                                                   device=dev)[:, 0])
+    with pytest.raises(ValueError, match=">= 0"):
+        kern.estimate_at_range(spec, table, -1, 3)
+    with pytest.raises(TypeError, match="float32"):
+        kern.estimate_at_range(spec, table.double(), 0, 3)
