@@ -22,11 +22,15 @@ phase prints one line (or a few) and raises on failure, so the script exits
    its plain version, the PyTorch library call where one exists, and the
    bound from bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s; K1 is
    also timed as its gather kernel (one thread per column, the design
-   before the tile kernel), K2 is the in-call control;
+   before the tile kernel); K2 (every coordinate's estimate in original
+   order, the unscramble fused) is also held exactly to K4's range form
+   at every coordinate and timed beside it at n = D (the design before it,
+   the old K2 and then the torch unscramble, is timed by
+   ``ops/cuda/k2_attribution.py``); K3 unscrambled must equal K2;
    K4 (``estimate_at``) is held to its plain version exactly at three
    geometries (every coordinate of the main path, where it must also equal
-   K2 unscrambled; 50,000 coordinates of it; a 100 MB table at 31M
-   coordinates), both hash families, and timed at each; its range form
+   K2; 50,000 coordinates of it; a 100 MB table at 31M coordinates), both
+   hash families, and timed at each; its range form
    (``estimate_at_range``, the sharded decode's) is held exactly to the
    explicit-index form at the clipped indices, at every coordinate (i) and
    at the last rank's slice of a four-way split, and timed at (i);
@@ -40,7 +44,8 @@ phase prints one line (or a few) and raises on failure, so the script exits
 5. main paths: ``cv_train.main`` with the FetchSGD flags, ResNet-9 at full
    width on the synthetic CIFAR-10 stand-in, 5 rounds and one evaluation,
    with the kernels' launch counters set to 0 just before and read just
-   after: first the dense decode (K1 twice a round, K2 once), then the
+   after: first the dense decode (K1 twice a round, K2 once and no other
+   estimate kernel: K2 writes the estimates in original order), then the
    sharded decode (``--topk_method threshold --sketch_decode sharded``,
    one device: K1 twice a round, K4's range form once, K2 never); then
    one ``uncompressed`` round.
@@ -158,13 +163,19 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
         tol1 = 1e-5 * max(1.0, float(t_p.abs().max()))
         check(err1 <= tol1, f"K1 {family}: max err {err1} > {tol1}")
         check(torch.equal(t_k, t_k2), f"K1 {family}: two launches differ")
-        # K2, on the kernel's own table (the main path's input)
+        # K2, on the kernel's own table (the main path's input): [d] in
+        # original order, exactly the plain version and K4's range form
         e_k = kern.estimate_median(spec, t_k)
         e_p = kern.estimate_median_torch(spec, t_k)
+        e_r = kern.estimate_at_range(spec, t_k, 0, spec.d)
         torch.cuda.synchronize()
+        check(e_k.shape == (spec.d,), f"K2 {family}: shape {e_k.shape}")
         err2 = float((e_k - e_p).abs().max())
-        check(err2 == 0.0, f"K2 {family}: max err {err2} (expected exact)")
-        # K3 on the [r, d_eff] stack of per-row estimates
+        check(torch.equal(e_k, e_p),
+              f"K2 {family}: max err {err2} (expected exact)")
+        check(torch.equal(e_k, e_r), f"K2 {family}: differs from K4's range "
+              "form at every coordinate")
+        # K3 on the [r, d_eff] stack of per-row estimates (scrambled order)
         maps = kern._plain_maps(spec, str(v_s.device))
         stack = torch.stack([t_k[row][cols] * sign
                              for row, (cols, sign) in enumerate(maps)])
@@ -173,11 +184,13 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
         torch.cuda.synchronize()
         err3 = float((m_k - m_p).abs().max())
         check(err3 == 0.0, f"K3 {family}: max err {err3} (expected exact)")
-        check(torch.equal(m_k, e_k), f"K3 {family}: median of the per-row "
-              "estimates differs from K2's fused estimate")
+        check(torch.equal(cs._unscramble(spec, m_k), e_k),
+              f"K3 {family}: the median of the per-row estimates, "
+              "unscrambled, differs from K2")
         phase("kernels", family=family, k1_max_abs_err=err1, k1_tol=tol1,
               k1_bit_identical_rerun=True, k2_max_abs_err=err2,
-              k3_max_abs_err=err3, hash_bits="exact")
+              k2_equals_k4_range_form=True, k3_max_abs_err=err3,
+              hash_bits="exact")
         if family != "fmix32":
             continue
 
@@ -204,8 +217,14 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
         lib1 = cuda_ms(torch, lambda: flat_table.index_add_(0, flat_cols,
                                                             flat_src))
         b1, by1 = bound(4 * d_eff + 4 * r * c + csr_bytes, r * d_eff)
-        b2, by2 = bound(4 * r * c + 4 * d_eff, r * d_eff
-                        + r * (r - 1) * d_eff)
+        # K2's function reads the table and the block permutation once and
+        # writes the [d] estimates; the packed sign bits and the slot tables
+        # are this design's lookup data (the hashes they replace need no
+        # bytes), so they are reported beside the bound, not in it
+        plan2 = kern._k2_plan(spec, str(dev))
+        d = spec.d
+        b2, by2 = bound(4 * r * c + 4 * plan2["perm"].numel() + 4 * d,
+                        r * d + r * (r - 1) * d)
         b3, by3 = bound(4 * r * d_eff + 4 * d_eff, r * (r - 1) * d_eff)
         smem1 = max(index_math.sketch_smem_bytes(
             spec.chunk_m, spec.V_row(row), tile * spec.s_row(row))
@@ -223,7 +242,14 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
             ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t_k)),
             plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
                 spec, t_k)),
-            bound_ms=b2, bound_by=by2, library_ms=None)
+            bound_ms=b2, bound_by=by2, library_ms=None,
+            k4_range_form_ms=cuda_ms(torch, lambda: kern.estimate_at_range(
+                spec, t_k, 0, d)),
+            staged_rows=list(plan2["staged"]),
+            slot_tables_in_smem=plan2["slot_smem"],
+            dynamic_smem_bytes=plan2["smem_bytes"],
+            sign_bits_bytes=4 * plan2["signs"].numel(),
+            slot_table_bytes=4 * plan2["slots"].numel())
         entries["median_rows"] = dict(
             replaces=f"{PALLAS}:341", max_abs_err=err3,
             ms=cuda_ms(torch, lambda: kern.median_rows(stack)),
@@ -234,7 +260,8 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
             phase("timing", kernel=name, ms=e["ms"], plain_ms=e["plain_ms"],
                   library_ms=e["library_ms"], bound_ms=e["bound_ms"],
                   bound_by=e["bound_by"], **{k: e[k] for k in (
-                      "gather_kernel_ms", "tile_strides") if k in e})
+                      "gather_kernel_ms", "tile_strides",
+                      "k4_range_form_ms") if k in e})
         del flat_cols, flat_src, flat_table, stack
     return entries
 
@@ -295,10 +322,10 @@ def k4_phase(torch, cs, kern, dev):
                   f"K4 {family} {name}: max err {err} (expected exact)")
             fields = {}
             if n is None:
-                full = cs._unscramble(spec, kern.estimate_median(spec, table))
+                full = kern.estimate_median(spec, table)
                 check(torch.equal(got, full), f"K4 {family}: estimate_at of "
-                      "every coordinate differs from K2 unscrambled")
-                fields["equals_k2_unscrambled"] = True
+                      "every coordinate differs from K2")
+                fields["equals_k2"] = True
                 S = -(-spec.d // 4)
                 for start, cnt in ((0, spec.d), (3 * S, S)):
                     rng_out = kern.estimate_at_range(spec, table, start, cnt)
@@ -525,6 +552,9 @@ def main_path_phase(kern, cv_train, dataset_dir):
     check(launches["estimate_median"] == MAIN_ROUNDS,
           f"main path: K2 launched {launches['estimate_median']} times, "
           f"expected 1 per round")
+    for name in ("estimate_at", "estimate_at_range", "median_rows"):
+        check(launches[name] == 0, f"main path: {name} launched "
+              f"{launches[name]} times, expected 0 (K2 does its work)")
     return launches, out["bytes_per_round"]
 
 
@@ -563,11 +593,12 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    build.load_library()
+    build.load_library()  # one nvcc for the one source
     phase("environment", card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, gpu=repr(torch.cuda.get_device_name(0)),
           build_s=round(time.perf_counter() - t0, 3),
-          nvcc_s=build.build_seconds, library=build.library_path().name)
+          nvcc_s=json.dumps(build.build_seconds),
+          library=build.library_path().name)
     report = build.ptxas_report(build.library_path().with_suffix(".log"))
     phase("ptxas", kernels=json.dumps({
         name: f"{v['registers']} regs, {v['smem_static_bytes']} B smem, "

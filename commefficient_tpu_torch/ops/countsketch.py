@@ -14,9 +14,10 @@ vector; each row then riffles it by a distinct prime factor.
 The entry points (``sketch_vec``, ``estimate_all``, ``estimate_at`` and
 what is built on them) run through ``ops/cuda/countsketch.py``: the CUDA
 kernels on a CUDA tensor, their plain PyTorch versions on a CPU tensor.
-For ``sketch_vec`` and ``estimate_all`` the scramble stays outside the
-kernels as a torch gather, as the reference keeps it outside its Pallas
-kernels; ``estimate_at``'s kernel does the scramble lookup itself, and
+For ``sketch_vec`` the scramble stays outside the kernel as a torch
+gather, as the reference keeps it outside its Pallas kernels;
+``estimate_all``'s kernel writes its estimates in original order itself
+(the unscramble fused), ``estimate_at``'s does the scramble lookup, and
 ``estimate_at_range`` walks a coordinate range in scrambled order.
 ``sketch_sparse`` scatters its pairs into a [d] vector and sketches that,
 so no table bucket is summed by float atomics.
@@ -456,10 +457,10 @@ def sketch_vec(spec: CountSketch, v: torch.Tensor) -> torch.Tensor:
 
 
 def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
-    """Median-of-rows estimates for all d coordinates (the fused gather +
-    median in scrambled space, then one unscramble)."""
+    """Median-of-rows estimates for all d coordinates, in original order
+    (the gather, the median and the unscramble in one kernel, K2)."""
     _check_poly4_field(spec)
-    return _unscramble(spec, estimate_median(spec, table.to(torch.float32)))
+    return estimate_median(spec, table.to(torch.float32))
 
 
 def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):

@@ -22,14 +22,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("countsketch.cu",)
-HEADERS = ("hash.cuh",)
+HEADERS = ("common.cuh", "hash.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of this process's last build, None if cached
+build_seconds = {}  # library name -> wall time of this process's nvcc run
 
 
 def _nvcc() -> str:
@@ -54,7 +54,6 @@ def compile_library(sources=SOURCES, name: str = "cs") -> Path:
     build of the same sources and flags exists; returns its path. The
     ptxas report (registers, shared memory, spills per kernel) is kept in
     the ``.log`` beside it."""
-    global build_seconds
     out = library_path(sources, name)
     if out.exists():
         return out
@@ -64,7 +63,7 @@ def compile_library(sources=SOURCES, name: str = "cs") -> Path:
            *[str(CSRC / s) for s in sources]]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_seconds = time.perf_counter() - t0
+    build_seconds[name] = time.perf_counter() - t0
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
@@ -83,7 +82,9 @@ def load_library() -> ctypes.CDLL:
             sigs = {
                 "cs_sketch_rows": [P, I64, P, P, P, I64, P, I32, I32, I32,
                                    P],
-                "cs_estimate_median": [P, I64, P, I64, P, I32, I32, P],
+                "cs_estimate_median": [P, I64, P, I64, I64, P, I64, I64, I64,
+                                       P, I64, I32, P, I64, P, I32, P, P,
+                                       P, I32, P],
                 "cs_estimate_at": [P, I64, P, I64, I64, P, P, P, P, I32,
                                    I32, P],
                 "cs_estimate_range": [P, I64, I64, I64, I64, I64, I64, I64,
@@ -102,16 +103,18 @@ def load_library() -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """``_Z21cs_estimate_at_kernelILi5EEv...`` -> ``cs_estimate_at_kernel<5>``
-    (the name and integer template arguments of an Itanium-mangled
-    function)."""
+    (the name and integer or bool template arguments of an Itanium-mangled
+    function; ``Lb1E`` reads ``true``)."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     n = int(m.group(1))
     name = mangled[m.end():m.end() + n]
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + n:])
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[m.end() + n:])
     if args:
-        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+        vals = [v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([ib])(-?\d+)E", args.group(1))]
+        name += "<" + ",".join(vals) + ">"
     return name
 
 
@@ -143,19 +146,73 @@ def ptxas_report(log: Path) -> dict:
     return out
 
 
-def sass_counts(lib: Path) -> dict:
-    """``{kernel: SASS instructions}`` of a built library (``cuobjdump
-    -sass``, NOPs not counted)."""
+def _sass(lib: Path) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, check=True)
+    return parse_sass(res.stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """``{kernel: [SASS instruction lines]}`` from ``cuobjdump -sass``
+    output (NOPs dropped), with each label line (``.L_x_N:``) kept in place
+    as ``("label", name)``."""
     out, cur = {}, None
-    for line in res.stdout.splitlines():
+    for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = _kernel_name(m.group(1))
-            out[cur] = 0
-        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line) \
+            cur = out.setdefault(_kernel_name(m.group(1)), [])
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur.append(("label", m.group(1)))
+        elif re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line) \
                 and " NOP" not in line:
-            out[cur] += 1
+            cur.append(line)
+    return out
+
+
+def sass_counts(lib: Path) -> dict:
+    """``{kernel: SASS instructions}`` of a built library (NOPs not
+    counted)."""
+    return {k: sum(isinstance(x, str) for x in v)
+            for k, v in _sass(lib).items()}
+
+
+def sass_store_loop_counts(lib: Path) -> dict:
+    """``{kernel: SASS instructions}`` of the innermost loop (a backward
+    branch to a label) that holds a global store, per kernel of a built
+    library: for a kernel whose threads loop over their coordinates, the
+    static instructions per coordinate. None where no loop stores."""
+    return store_loop_counts(_sass(lib))
+
+
+def store_loop_counts(sass: dict) -> dict:
+    """``sass_store_loop_counts`` of ``parse_sass`` output."""
+    out = {}
+    for name, body in sass.items():
+        labels, ins = {}, []
+        for x in body:
+            if isinstance(x, tuple):
+                labels[x[1]] = len(ins)
+            else:
+                m = re.search(r"/\*([0-9a-f]{4,})\*/", x)
+                labels[int(m.group(1), 16)] = len(ins)
+                ins.append(x)
+        best = None
+        for end, line in enumerate(ins):
+            # a branch target is a label or an address
+            m = re.search(r"BRA(?:\.\S+)?\s+`?\(?(\.L_x_\d+|0x[0-9a-f]+)", line)
+            if not m:
+                continue
+            t = m.group(1)
+            start = labels.get(int(t, 16) if t.startswith("0x") else t)
+            if start is None or start > end:
+                continue
+            if any(re.search(r"\bSTG\b|\bSTG\.", x) for x in ins[start:end + 1]):
+                size = end - start + 1
+                best = size if best is None else min(best, size)
+        out[name] = best
     return out

@@ -134,19 +134,86 @@ def sketch_rows(spec, v_s: torch.Tensor) -> torch.Tensor:
 sketch_rows.launches = 0
 
 
-# -- K2: fused estimate + median ----------------------------------------------
+# -- K2: every coordinate's estimate, in original order -------------------------
 
 
 def estimate_median_torch(spec, table: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: a gather per row plus the median network."""
+    """Plain version of K2: a gather per row plus the median network, in
+    scrambled space, then the unscramble."""
+    from commefficient_tpu_torch.ops.countsketch import _unscramble
+
     maps = _plain_maps(spec, str(table.device))
-    return _median_network(table[row][cols] * sign
-                           for row, (cols, sign) in enumerate(maps))
+    return _unscramble(spec, _median_network(
+        table[row][cols] * sign for row, (cols, sign) in enumerate(maps)))
+
+
+SIGN_WORDS_PER_STEP = 1 << 20  # words packed per step (bounds the temporaries)
+
+
+def packed_sign_bits(spec, device) -> torch.Tensor:
+    """[r, ceil(d_eff / 32)] int32: bit t of word w of a row is the sign bit
+    (1 = negative) of scrambled position 32 w + t (``spec.sign_bits``); the
+    bits past d_eff are 0. Built on ``device`` in plain torch."""
+    nw = -(-spec.d_eff // 32)
+    out = torch.empty(spec.r, nw, dtype=torch.int32, device=device)
+    weight = torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
+        32, device=device)
+    for row in range(spec.r):
+        for w0 in range(0, nw, SIGN_WORDS_PER_STEP):
+            w1 = min(nw, w0 + SIGN_WORDS_PER_STEP)
+            pos = torch.arange(32 * w0, 32 * w1, device=device)
+            bits = spec.sign_bits(row, pos) * (pos < spec.d_eff)
+            words = (bits.view(-1, 32) * weight).sum(1)  # < 2^32
+            out[row, w0:w1] = torch.where(words >= 2**31, words - 2**32,
+                                          words).to(torch.int32)
+    return out
+
+
+def _row_geo(spec) -> list:
+    """``[(f, G, m, s, V), ...]`` per row, for ``index_math``'s windows."""
+    return [(spec._factor(r), spec._L_row(r) // spec._factor(r),
+             spec.chunk_m, spec.s_row(r), spec.V_row(r))
+            for r in range(spec.r)]
+
+
+@functools.lru_cache(maxsize=8)
+def _k2_plan(spec, device: str):
+    """K2's host plan, built once per spec and kept alive here while the
+    kernel may read it: tiles of ``index_math.K2_COORDS`` scrambled
+    positions (whole scramble blocks) with their table windows (K4's range
+    plan at every coordinate) and staged rows, the forward block
+    permutation, the slot tables [r, m] and the packed sign bits."""
+    b = spec.sblock or 64  # no scramble: tiles of blocks of 64 in place
+    inv = spec.inverse_block_perm()
+    # every block, sorted by scrambled position: the forward permutation
+    blocks = index_math.range_block_list(inv, b, 0, spec.d, spec.d)
+    per_block = max(1, index_math.K2_COORDS // b)
+    wstart, wlen = index_math.range_windows(blocks, inv, b, 0, spec.d,
+                                            spec.d, _row_geo(spec), per_block)
+    staged = index_math.k2_staged_rows(wlen, index_math.K2_WINDOW_BUDGET)
+    woff, wl = [0] * spec.r, [0] * spec.r
+    for row in staged:
+        woff[row], wl[row] = sum(wl[:row]), int(wlen[row])
+    m = spec.chunk_m
+    slots = torch.stack([spec.slot_hash(row, torch.arange(m))
+                         for row in range(spec.r)]).to(torch.int32)
+    slot_smem = index_math.k2_slots_in_smem(
+        spec.r, m, max(spec.V_row(r) for r in range(spec.r)))
+    return dict(
+        b=b, per_tile=per_block * b, ntiles=int(wstart.shape[0]),
+        perm=torch.from_numpy(blocks).to(device) if spec.sblock else None,
+        wstart=torch.from_numpy(wstart.astype(np.int32)).to(device),
+        wlen_all=wlen, staged=staged, woff=(ctypes.c_int * spec.r)(*woff),
+        wlen=(ctypes.c_int * spec.r)(*wl), slots=slots.to(device),
+        slot_smem=slot_smem, signs=packed_sign_bits(spec, device),
+        smem_bytes=index_math.k2_smem_bytes(spec.r, m, slot_smem, per_block,
+                                            sum(wl)))
 
 
 def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
-    """[r, c_actual] table -> [d_eff] median-of-rows estimates in
-    scrambled space (K2)."""
+    """[r, c_actual] table -> [d] median-of-rows estimates in ORIGINAL
+    coordinate order (K2: the estimate, the median and the unscramble in
+    one launch)."""
     _check("estimate_median table", table, spec.table_shape)
     if table.device.type == "cpu":
         return estimate_median_torch(spec, table)
@@ -154,11 +221,18 @@ def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    rows = _kernel_geometry(spec, str(table.device))[0]
-    out = torch.empty(spec.d_eff, dtype=torch.float32, device=table.device)
+    dev = str(table.device)
+    rows = _kernel_geometry(spec, dev)[0]
+    plan = _k2_plan(spec, dev)
+    out = torch.empty(spec.d, dtype=torch.float32, device=table.device)
     _launch(lib.cs_estimate_median, table.data_ptr(), spec.c_actual,
-            out.data_ptr(), spec.d_eff, rows, spec.r,
-            _FAMILY[spec.hash_family], _stream())
+            out.data_ptr(), spec.d, spec.d_eff,
+            None if plan["perm"] is None else plan["perm"].data_ptr(),
+            plan["b"], plan["per_tile"], plan["ntiles"],
+            plan["slots"].data_ptr(), spec.chunk_m, int(plan["slot_smem"]),
+            plan["signs"].data_ptr(), plan["signs"].shape[1],
+            plan["wstart"].data_ptr(), len(plan["staged"]), plan["woff"],
+            plan["wlen"], rows, spec.r, _stream())
     estimate_median.launches += 1
     return out
 
@@ -261,11 +335,8 @@ def _range_plan(spec, start: int, n: int, device: str):
     inv = spec.inverse_block_perm()
     blocks = index_math.range_block_list(inv, b, start, n, spec.d)
     per_block = max(1, index_math.K4R_COORDS // b)
-    geo = [(spec._factor(r), spec._L_row(r) // spec._factor(r),
-            spec.chunk_m, spec.s_row(r), spec.V_row(r))
-           for r in range(spec.r)]
     wstart, wlen = index_math.range_windows(blocks, inv, b, start, n,
-                                            spec.d, geo, per_block)
+                                            spec.d, _row_geo(spec), per_block)
     staged = index_math.range_staged_rows(wlen,
                                           index_math.K4R_SMEM_BUDGET)
     woff, wl, used = [0] * spec.r, [0] * spec.r, 0

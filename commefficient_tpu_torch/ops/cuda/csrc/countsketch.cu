@@ -21,50 +21,12 @@
 // thread and summed in a fixed order, so a table is bit-identical from run
 // to run (the reference pins bit-exact replay of resumed/rolled-back runs).
 //
-// Runtime divisions in the redesigned kernels (K1's tiles, K4) go through
-// cs_udiv: a multiplier and shift per divisor, computed on the host by
+// Runtime divisions in the redesigned kernels (K1's tiles, K2, K4) go through
+// cs_udiv (common.cuh): a multiplier and shift per divisor, computed on the host by
 // index_math.fast_divisor and exact for every dividend the kernel admits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
-
+#include "common.cuh"
 #include "hash.cuh"
-
-#define CS_MAX_ROWS 8
-
-// Per-row constants, one row of CS_NP int64 each (filled by
-// CountSketch.kernel_row_params on the host, same order).
-enum {
-  RP_KEY_SLOT = 0,   // fmix32 key of the slot hash
-  RP_KEY_SIGN = 1,   // fmix32 key of the sign hash
-  RP_CSLOT = 2,      // 4 poly4 coefficients of the slot hash
-  RP_CSIGN = 6,      // 4 poly4 coefficients of the sign hash
-  RP_F = 10,         // riffle factor f
-  RP_G = 11,         // G = L / f
-  RP_M = 12,         // chunk size m
-  RP_S = 13,         // stride s
-  RP_V = 14,         // window V = u * s
-  RP_NC = 15,        // chunks nc = L / m
-  RP_ROWLEN = 16,    // realized row length (nc + u - 1) * s
-  RP_PTR = 17,       // this row's base in the CSR slot pointers
-  RP_OFF = 18,       // this row's base in the CSR offsets
-  RP_SBLOCK = 19,    // scramble block (0: no scramble), the same in every row
-  // (multiplier, shift) of each divisor, CountSketch.DIVISORS order
-  RP_DIV_G = 20,
-  RP_DIV_F = 22,
-  RP_DIV_M = 24,
-  RP_DIV_V = 26,
-  RP_DIV_S = 28,
-  RP_DIV_MQ1 = 30,   // m div f + 1
-  RP_DIV_MQ = 32,    // max(m div f, 1)
-  RP_DIV_SBLOCK = 34,
-  CS_NP = 36
-};
-
-struct CsRows {
-  long long v[CS_MAX_ROWS][CS_NP];
-};
 
 __device__ __forceinline__ uint32_t cs_slot(const long long* g, int family, uint32_t off) {
   const uint32_t h = family ? cs_poly4(off, g + RP_CSLOT) : cs_mix32(off, (uint32_t)g[RP_KEY_SLOT]);
@@ -79,16 +41,6 @@ __device__ __forceinline__ float cs_sign(const long long* g, int family, uint32_
   return (cs_sign_hash(g, family, spos) & 1u) ? -1.0f : 1.0f;
 }
 
-// n div d for the divisor whose (multiplier, shift) pair starts at g[which]:
-// (n * mul) >> shift with a 32-bit mul, or the high word of n * mul with a
-// 64-bit mul when shift is 64 (index_math.fast_divisor, which also proves
-// exactness up to the divisor's largest dividend).
-__device__ __forceinline__ uint32_t cs_udiv(uint32_t n, const long long* g, int which) {
-  const uint32_t sh = (uint32_t)g[which + 1];
-  if (sh == 64) return (uint32_t)__umul64hi((unsigned long long)n, (unsigned long long)g[which]);
-  return (uint32_t)(((unsigned long long)n * (uint32_t)g[which]) >> sh);
-}
-
 // The column of scrambled position i in row g, in 32-bit arithmetic
 // (col < c_actual < 2^32) with the divisions by G, m and V by multiplier.
 __device__ __forceinline__ uint32_t cs_col(const long long* g, int family, uint32_t i) {
@@ -100,35 +52,6 @@ __device__ __forceinline__ uint32_t cs_col(const long long* g, int family, uint3
   const uint32_t h = family ? cs_poly4(o, g + RP_CSLOT) : cs_mix32(o, (uint32_t)g[RP_KEY_SLOT]);
   return q * (uint32_t)g[RP_S] + (h - cs_udiv(h, g, RP_DIV_V) * (uint32_t)g[RP_V]);
 }
-
-// min/max that propagate NaN like torch.minimum / jnp.minimum (fminf would
-// hide a diverged estimate).
-__device__ __forceinline__ float cs_min(float a, float b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ float cs_max(float a, float b) { return (a > b || a != a) ? a : b; }
-
-// Median of R values by the all-pairs compare-exchange network of
-// median_rows_pallas (countsketch_kernels.py:329-339): exact middle element
-// for odd R, 0.5 * (a + b) of the middle two for even R.
-template <int R>
-__device__ __forceinline__ float cs_median(float* e) {
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-#pragma unroll
-    for (int b = a + 1; b < R; ++b) {
-      const float lo = cs_min(e[a], e[b]);
-      const float hi = cs_max(e[a], e[b]);
-      e[a] = lo;
-      e[b] = hi;
-    }
-  }
-  if constexpr (R % 2) {
-    return e[R / 2];
-  } else {
-    return 0.5f * (e[R / 2 - 1] + e[R / 2]);
-  }
-}
-
-__host__ __device__ __forceinline__ uint32_t cs_align16(uint32_t bytes) { return (bytes + 15u) & ~15u; }
 
 // ---------------------------------------------------------------------------
 // K1 cs_sketch_rows
@@ -357,39 +280,143 @@ __global__ void cs_sketch_gather_kernel(const float* __restrict__ v_s, uint32_t 
 // ---------------------------------------------------------------------------
 // K2 cs_estimate_median
 //
-// Replaces: _estimate_row (countsketch_kernels.py:260, pallas_call at :306)
-// and median_rows_pallas (:317, pallas_call at :341) as composed by
-// estimate_all_pallas (:352). For each scrambled position, the median of its
-// r signed bucket values, written to [d_eff]; the [r, d_eff] stack of
-// per-row estimates never exists.
+// Replaces: estimate_all_pallas (countsketch_kernels.py:352) as a whole:
+// _estimate_row (:260, pallas_call at :306), median_rows_pallas (:317,
+// pallas_call at :341) and the unscramble that ends it. For every original
+// coordinate x < d, the median of its r signed bucket values, written to
+// out[x]: neither the [r, d_eff] stack of per-row estimates nor the
+// scrambled [d_eff] vector exists.
 //
-// Bound on the H100: bytes. It reads the 4*r*c_actual-byte table (10 MB,
-// L2-resident) and writes 4*d_eff bytes (26 MB).
+// Bound on the H100: bytes. It reads the 4*r*c_actual-byte table (10 MB at
+// ResNet-9, L2-resident), the packed sign bits (r*d_eff/8 bytes, 4.1 MB),
+// the block permutation and the slot tables, and writes 4*d bytes (26 MB).
 //
-// Design: a gather with no reduction at all: one thread owns one position
-// i and reads exactly one bucket per row (col = (p div m) * s + slot(p mod
-// m)), times its sign, then takes the median in registers by the same
-// compare-exchange network as the TPU kernel. This is estimate_at(spec,
-// table, arange(d)), which the reference pins equal to its matmul path; no
-// atomics, and the result is bit-identical to the plain gather version.
+// Design. Each value is one signed table entry and the median is the
+// compare-exchange network, so the result is bit-identical to the plain
+// gather version and to K4's range form at every coordinate. What costs
+// time is scattered table reads and per-coordinate instructions, so:
+//  * the walk: a block takes tiles of per_tile consecutive scrambled
+//    positions (4096 on the main path, 64 scramble blocks of 64),
+//    consecutive threads on consecutive positions; persistent blocks, as
+//    many as fit the card, stride over the tiles;
+//  * staged windows: in a row with a small riffle factor a tile's
+//    positions meet one narrow table window (index_math.range_windows, the
+//    walk of K4's range form at every coordinate), which the block copies
+//    into shared memory with coalesced loads before the tile. Rows 0 and 1
+//    (f = 1 and 7 on the main path) are staged when their windows fit
+//    (NS = 2, else 0, fixed at compile time so no row pays for both
+//    paths); the others read the table in place, one 32-byte L2 sector a
+//    coordinate, which no walk makes local for all rows at once;
+//  * per tile, not per coordinate: each row's (i0 div G, i0 mod G) at the
+//    tile's first position, so a coordinate's riffle needs a division only
+//    where the tile crosses a multiple of G (never on the main path); and
+//    the tile's scramble blocks as offsets x - i in shared memory;
+//  * slot tables: slot(o) for every offset o < m and every row, copied
+//    into shared memory as uint16 once per block (40 KB on the main path),
+//    so no slot hash and no mod V runs in the kernel; where they do not
+//    fit (SLOT_SMEM false: m = 32768, or V >= 65536) they are read in
+//    place;
+//  * packed sign bits: one bit per scrambled position and row, built once
+//    per spec on the host side; a warp's 32 positions share one word per
+//    row, so no sign hash runs either, and the kernel is the same for
+//    both hash families;
+//  * divisions by m and b as shifts where they are powers of two (the main
+//    path's 4096 and 64), else by the host's multipliers;
+//  * the unscramble, fused: position i of scramble block i div b holds
+//    coordinate perm[i div b] * b + i mod b, so a warp writes its 32
+//    estimates to one run of 128 bytes of out; positions at or past d are
+//    the padding and are skipped. A spec that does not scramble (perm
+//    null) writes in place.
+// What bounds it (ops/cuda/k2_attribution.py, at ResNet-9): a third is the
+// three unstaged rows' L2 sectors; two thirds is the rest: the loop over
+// a tile's coordinates (354 static SASS instructions at r = 5), the
+// per-tile staging and barriers, and a tail (1605 tiles on 264 resident
+// blocks: the seventh round is 8% full).
 // ---------------------------------------------------------------------------
-template <int R>
-__global__ void cs_estimate_median_kernel(const float* __restrict__ table, long long c_actual,
-                                          float* __restrict__ out, uint32_t d_eff,
-                                          const __grid_constant__ CsRows P,
-                                          int family) {
-  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d_eff) return;
-  float e[R];
-#pragma unroll
-  for (int row = 0; row < R; ++row) {
-    const long long* g = P.v[row];
-    const uint32_t f = (uint32_t)g[RP_F], G = (uint32_t)g[RP_G], m = (uint32_t)g[RP_M];
-    const uint32_t p = (i % G) * f + i / G;
-    const long long col = (long long)(p / m) * g[RP_S] + cs_slot(g, family, p % m);
-    e[row] = __ldg(table + row * c_actual + col) * cs_sign(g, family, i);
+static const int kThreadsK2 = 1024;
+
+// n div d for a divisor d that is 2^shift (shift >= 0), else by d's
+// multiplier pair at g[which].
+__device__ __forceinline__ uint32_t cs_div_pow2_or(uint32_t n, int shift, const long long* g,
+                                                   int which) {
+  return shift >= 0 ? n >> shift : cs_udiv(n, g, which);
+}
+
+template <int R, int NS, bool SLOT_SMEM>
+__global__ void __launch_bounds__(kThreadsK2, 2)
+    cs_estimate_median_kernel(const float* __restrict__ table, uint32_t c_actual,
+                              float* __restrict__ out, uint32_t d, uint32_t d_eff,
+                              const int* __restrict__ perm, uint32_t b, int b_shift,
+                              uint32_t per_tile, uint32_t ntiles,
+                              const int* __restrict__ slots, uint32_t m, int m_shift,
+                              const uint32_t* __restrict__ signs, uint32_t nw,
+                              const int* __restrict__ wstart, const CsWindows W,
+                              const __grid_constant__ CsRows P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int wbase[CS_MAX_ROWS];  // the row's window offset minus its first column
+  __shared__ uint2 rif[CS_MAX_ROWS];  // (i0 div G, i0 mod G) of the tile's first position
+  const uint32_t per_block = per_tile / b;  // scramble blocks a tile
+  uint16_t* slot_s = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* xoff = reinterpret_cast<uint32_t*>(smem + (SLOT_SMEM ? cs_align16(2 * R * m) : 0));
+  float* win = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xoff) +
+                                        cs_align16(4 * per_block));
+  if constexpr (SLOT_SMEM) {
+    for (uint32_t t = threadIdx.x; t < R * m; t += kThreadsK2) slot_s[t] = (uint16_t)__ldg(slots + t);
   }
-  out[i] = cs_median<R>(e);
+  for (uint32_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const uint32_t i0 = tile * per_tile;
+    __syncthreads();  // every read of the previous tile's shared memory is done
+#pragma unroll
+    for (int row = 0; row < NS; ++row) {
+      const uint32_t w0 = (uint32_t)__ldg(wstart + (size_t)tile * R + row);
+      const float* trow = table + (size_t)row * c_actual;
+      for (int c = threadIdx.x; c < W.wlen[row]; c += kThreadsK2)
+        win[W.woff[row] + c] = w0 + c < c_actual ? __ldg(trow + w0 + c) : 0.0f;
+      if (threadIdx.x == 0) wbase[row] = W.woff[row] - (int)w0;
+    }
+    if (threadIdx.x < R) {
+      const long long* g = P.v[threadIdx.x];
+      const uint32_t hi = cs_udiv(i0, g, RP_DIV_G);
+      rif[threadIdx.x] = make_uint2(hi, i0 - hi * (uint32_t)g[RP_G]);
+    }
+    if (perm) {  // x - i of each scramble block, mod 2^32
+      const uint32_t sb0 = tile * per_block;
+      const uint32_t n = min(per_block, d_eff / b - sb0);
+      for (uint32_t j = threadIdx.x; j < n; j += kThreadsK2)
+        xoff[j] = ((uint32_t)__ldg(perm + sb0 + j) - (sb0 + j)) * b;
+    }
+    __syncthreads();
+    const uint32_t i_end = d_eff - i0 < per_tile ? d_eff : i0 + per_tile;
+#pragma unroll 1
+    for (uint32_t i = i0 + threadIdx.x; i < i_end; i += kThreadsK2) {
+      const uint32_t k = i - i0;
+      const uint32_t x = perm ? i + xoff[cs_div_pow2_or(k, b_shift, P.v[0], RP_DIV_SBLOCK)] : i;
+      if (x >= d) continue;  // the padding past d
+      float e[R];
+#pragma unroll
+      for (int row = 0; row < R; ++row) {
+        const long long* g = P.v[row];
+        const uint32_t G = (uint32_t)g[RP_G];
+        const uint2 t = rif[row];
+        uint32_t hi = t.x, r = t.y + k;
+        if (r >= G) {  // the tile crosses a multiple of G
+          hi = cs_udiv(i, g, RP_DIV_G);
+          r = i - hi * G;
+        }
+        const uint32_t p = r * (uint32_t)g[RP_F] + hi;
+        const uint32_t q = cs_div_pow2_or(p, m_shift, g, RP_DIV_M);
+        const uint32_t o = p - q * m;
+        const uint32_t slot = SLOT_SMEM ? (uint32_t)slot_s[row * m + o]
+                                        : (uint32_t)__ldg(slots + row * m + o);
+        const uint32_t col = q * (uint32_t)g[RP_S] + slot;
+        const float v = row < NS ? win[wbase[row] + (int)col]
+                                 : __ldg(table + (size_t)row * c_actual + col);
+        const uint32_t word = __ldg(signs + (size_t)row * nw + (i >> 5));
+        e[row] = v * (((word >> (i & 31u)) & 1u) ? -1.0f : 1.0f);
+      }
+      out[x] = cs_median<R>(e);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -464,13 +491,6 @@ __global__ void __launch_bounds__(256)
   }
   __stcs(out + t, cs_median<R>(e));
 }
-
-// Shared-memory windows of the range form: rows with wlen 0 read the table
-// in place.
-struct CsWindows {
-  int woff[CS_MAX_ROWS];  // the row's window offset in shared memory, floats
-  int wlen[CS_MAX_ROWS];  // its length, floats
-};
 
 static const int kThreadsK4r = 1024;
 
@@ -564,13 +584,6 @@ __global__ void cs_hash_bits_kernel(const uint32_t* __restrict__ x, uint32_t* __
 
 static const int kThreads = 256;
 
-static int cs_load_rows(CsRows* P, const long long* rows, int r) {
-  if (r < 1 || r > CS_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  memset(P, 0, sizeof(CsRows));
-  memcpy(P->v, rows, sizeof(long long) * CS_NP * (size_t)r);
-  return 0;
-}
-
 extern "C" {
 
 // tile_strides W > 0 selects the tile kernel (W strides per block), 0 the
@@ -619,25 +632,75 @@ int cs_sketch_rows(const float* v_s, long long d_eff, const int* csr_ptr, const 
   return (int)cudaGetLastError();
 }
 
-int cs_estimate_median(const float* table, long long c_actual, float* out, long long d_eff,
-                       const long long* rows, int r, int family, void* stream) {
+// K2 over the host-built plan (ops/cuda/countsketch.py _k2_plan): the
+// forward block permutation perm (null: no scramble) of blocks of b
+// positions; ntiles tiles of per_tile positions (whole blocks) with their
+// window starts wstart [ntiles, r]; rows 0..ns-1 staged, placed by
+// woff/wlen; the slot tables slots [r, m] int32, copied to shared memory
+// as uint16 when slot_smem; the packed sign bits signs [r, nw]. The
+// persistent grid is sized once per instantiation and device
+// (cs_persistent_grid).
+int cs_estimate_median(const float* table, long long c_actual, float* out, long long d,
+                       long long d_eff, const int* perm, long long b, long long per_tile,
+                       long long ntiles, const int* slots, long long m, int slot_smem,
+                       const int* signs, long long nw, const int* wstart, int ns,
+                       const int* woff, const int* wlen, const long long* rows, int r,
+                       void* stream) {
   CsRows P;
   const int rc = cs_load_rows(&P, rows, r);
   if (rc) return rc;
-  const unsigned blocks = (unsigned)((d_eff + kThreads - 1) / kThreads);
+  if (ntiles <= 0) return 0;
+  if (!(ns == 0 || (ns == 2 && r >= 2))) return (int)cudaErrorInvalidValue;
+  CsWindows W;
+  memset(&W, 0, sizeof(W));
+  int wfloats = 0;
+  for (int row = 0; row < ns; ++row) {
+    W.woff[row] = woff[row];
+    W.wlen[row] = wlen[row];
+    if (woff[row] + wlen[row] > wfloats) wfloats = woff[row] + wlen[row];
+  }
+  const uint32_t mm = (uint32_t)m, bb = (uint32_t)b;
+  const int smem = (slot_smem ? (int)cs_align16(2u * (uint32_t)r * mm) : 0) +
+                   (int)cs_align16(4u * (uint32_t)(per_tile / b)) + 4 * wfloats;
+  const int m_shift = (mm & (mm - 1)) == 0 ? __builtin_ctz(mm) : -1;
+  const int b_shift = (bb & (bb - 1)) == 0 ? __builtin_ctz(bb) : -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t n = (uint32_t)d_eff;
+  cudaError_t e = cudaSuccess;
+  long long grid = 0;
+#define CS_K2(R, NS, S)                                                                        \
+  e = cs_persistent_grid(cs_estimate_median_kernel<R, NS, S>, kThreadsK2, smem, &grid);        \
+  if (e != cudaSuccess) return (int)e;                                                         \
+  cs_estimate_median_kernel<R, NS, S><<<(unsigned)(grid < ntiles ? grid : ntiles), kThreadsK2, \
+                                        smem, st>>>(                                           \
+      table, (uint32_t)c_actual, out, (uint32_t)d, (uint32_t)d_eff, perm, bb, b_shift,         \
+      (uint32_t)per_tile, (uint32_t)ntiles, slots, mm, m_shift, (const uint32_t*)signs,        \
+      (uint32_t)nw, wstart, W, P)
+#define CS_K2S(R, NS)     \
+  if (slot_smem) {        \
+    CS_K2(R, NS, true);   \
+  } else {                \
+    CS_K2(R, NS, false);  \
+  }
+#define CS_K2R(R)         \
+  if (ns == 2) {          \
+    CS_K2S(R, 2);         \
+  } else {                \
+    CS_K2S(R, 0);         \
+  }
   switch (r) {
-    case 1: cs_estimate_median_kernel<1><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 2: cs_estimate_median_kernel<2><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 3: cs_estimate_median_kernel<3><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 4: cs_estimate_median_kernel<4><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 5: cs_estimate_median_kernel<5><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 6: cs_estimate_median_kernel<6><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 7: cs_estimate_median_kernel<7><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
-    case 8: cs_estimate_median_kernel<8><<<blocks, kThreads, 0, st>>>(table, c_actual, out, n, P, family); break;
+    case 1: CS_K2S(1, 0); break;
+    case 2: CS_K2R(2); break;
+    case 3: CS_K2R(3); break;
+    case 4: CS_K2R(4); break;
+    case 5: CS_K2R(5); break;
+    case 6: CS_K2R(6); break;
+    case 7: CS_K2R(7); break;
+    case 8: CS_K2R(8); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CS_K2R
+#undef CS_K2S
+#undef CS_K2
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,10 @@ mirrors of the kernels' own index loops, on the CPU):
   tile block needs);
 * K4's range form: ``range_block_list`` orders a coordinate slice's
   scramble blocks by scrambled position, and ``range_windows`` finds, per
-  row and per CUDA block, the table window that the block reads.
+  row and per CUDA block, the table window that the block reads;
+* K2, the walk over every coordinate: the range form's plan at
+  ``(start, n) = (0, d)``, tiles of ``K2_COORDS`` positions, and whether
+  the slot tables go to shared memory (``k2_slots_in_smem``).
 """
 
 from __future__ import annotations
@@ -162,3 +165,36 @@ def range_staged_rows(wlen, budget: int) -> list:
             staged.append(row)
             used += 4 * int(wlen[row])
     return sorted(staged)
+
+
+# -- K2: the walk over every coordinate -----------------------------------------
+
+K2_COORDS = 4096  # scrambled positions per K2 tile (rounded to scramble blocks)
+K2_WINDOW_BUDGET = 48 * 1024  # shared memory for K2's staged table windows
+K2_SLOT_BUDGET = 64 * 1024  # shared memory for K2's uint16 slot tables
+
+
+def k2_slots_in_smem(r: int, m: int, v_max: int) -> bool:
+    """Whether K2 copies the ``[r, m]`` slot tables into shared memory as
+    uint16: every slot must fit 16 bits (``V < 2^16``) and the tables
+    ``K2_SLOT_BUDGET`` bytes; otherwise the kernel reads them in place."""
+    return v_max < 1 << 16 and 2 * r * m <= K2_SLOT_BUDGET
+
+
+def k2_staged_rows(wlen, budget: int) -> tuple:
+    """The rows whose table windows K2 stages: rows 0 and 1 (the narrowest
+    riffles) when both windows fit ``budget`` bytes together, else none
+    (the kernel fixes the count at compile time)."""
+    if len(wlen) >= 2 and 4 * (int(wlen[0]) + int(wlen[1])) <= budget:
+        return (0, 1)
+    return ()
+
+
+def k2_smem_bytes(r: int, m: int, slot_smem: bool, blocks_per_tile: int,
+                  window_floats: int) -> int:
+    """Dynamic shared memory of one K2 block: the uint16 slot tables when
+    they are staged, the tile's scramble-block offsets (uint32), then the
+    f32 windows, each part padded to 16 bytes. Same layout as
+    ``cs_estimate_median`` in ``csrc/countsketch.cu``."""
+    return ((_align16(2 * r * m) if slot_smem else 0)
+            + _align16(4 * blocks_per_tile) + 4 * window_floats)

@@ -11,16 +11,19 @@ times N rounds phase by phase with CUDA events:
 * ``grads``: the W per-client forward/backward passes and their sum;
 * ``encode``: ``device_encode`` (for sketch: the scramble and K1);
 * ``server``: the server decode. Dense (sketch): the table algebra, K2
-  and the unscramble, top-k, the K1 re-sketch of the extracted update.
+  (the estimates in original order), top-k, the K1 re-sketch of the
+  extracted update.
   Sharded (``--topk_method threshold --sketch_decode sharded``): the
   table algebra, K4's range form over this rank's slice, the threshold
   bisection, the
   compaction, the error feedback's re-sketch, the candidate exchange;
 * ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter.
 
-With the sharded decode the server phase is also broken down by step
-(``k4_estimate``, ``bisection``, ``compaction``, ``ef_resketch``,
-``exchange_apply``), each timed alone on the last round's state.
+The server phase is also broken down by step, each timed alone on the
+last round's state (error_type virtual, the main path's): for the dense
+decode ``estimate_all``, ``topk``, ``ef_resketch`` and ``rest``; for the
+sharded decode ``k4_estimate``, ``bisection``, ``compaction``,
+``ef_resketch`` and ``exchange_apply``.
 
 One more round runs under ``torch.profiler``; its device time is summed by
 kernel and by kind, and set against the round's wall time to give the
@@ -43,8 +46,10 @@ from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.api import _to_device
 from commefficient_tpu_torch.ops.collectives import all_gather_pairs
 from commefficient_tpu_torch.ops.countsketch import (
+    estimate_all,
     estimate_at_range,
     sketch_sparse,
+    sketch_vec,
 )
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
@@ -108,6 +113,32 @@ def _event_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _dense_breakdown(session, agg, lr):
+    """The dense decode's server phase step by step on the session's state
+    and the last round's aggregate (error_type virtual, the main path's):
+    the estimates of every coordinate (K2), the top-k with its scatter into
+    [D], the error feedback's re-sketch of the extracted update (K1) with
+    its subtraction, and the rest, the momentum and error table
+    algebra."""
+    cfg, comp, spec, st = (session.cfg, session.compressor, session.spec,
+                           session.state)
+    rho = cfg.virtual_momentum
+
+    def algebra():
+        m = rho * st.momentum + agg if rho > 0 else agg
+        return st.error + lr * m
+
+    e = algebra()
+    est = estimate_all(spec, e)
+    upd = comp.topk(est, cfg.k)
+    return {
+        "estimate_all": _event_ms(lambda: estimate_all(spec, e)),
+        "topk": _event_ms(lambda: comp.topk(est, cfg.k)),
+        "ef_resketch": _event_ms(lambda: e - sketch_vec(spec, upd)),
+        "rest": _event_ms(algebra),
+    }
 
 
 def _sharded_breakdown(session, agg, lr):
@@ -175,10 +206,11 @@ def main(argv=None):
         print("phase medians over", ns.rounds, "rounds (ms):",
               json.dumps(phase_ms), flush=True)
         server_steps = None
-        if (session.sketch_decode_resolved == "sharded"
-                and cfg.error_type == "virtual"):
-            server_steps = _sharded_breakdown(session, agg, lr)
-            print("sharded server phase by step (ms):",
+        if cfg.mode == "sketch" and cfg.error_type == "virtual":
+            decode = session.sketch_decode_resolved
+            server_steps = (_sharded_breakdown if decode == "sharded"
+                            else _dense_breakdown)(session, agg, lr)
+            print(f"{decode} server phase by step (ms):",
                   json.dumps(server_steps), flush=True)
 
         batch = sampler.sample_round(99)[1]  # train_round copies it over

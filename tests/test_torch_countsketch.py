@@ -194,6 +194,29 @@ def test_estimate_at_and_sketch_sparse_match_reference():
     np.testing.assert_array_equal(e_port, e_ref)
 
 
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,sb", [(20_011, 4_000, 3, None),
+                                      (20_011, 4_000, 3, 0),
+                                      (9_001, 2_000, 5, 8)])
+def test_estimate_all_matches_reference_in_original_order(d, c, r, sb,
+                                                          family):
+    """``estimate_all`` is K2 alone now (the unscramble fused); its plain
+    path, the gather, the median and the unscramble, equals the
+    reference's ``estimate_all`` exactly from the same table, with the
+    scramble, without it, and with a scramble block of 8."""
+    s_ref = ref.CountSketch(d=d, c=c, r=r, seed=7, scramble_block=sb,
+                            hash_family=family, backend="pallas")
+    s_port = port.CountSketch(d=d, c=c, r=r, seed=7, scramble_block=sb,
+                              hash_family=family)
+    assert s_port.sblock == s_ref.sblock and s_port.d_eff == s_ref.d_eff
+    table = np.random.default_rng(d + r).normal(
+        size=s_ref.table_shape).astype(np.float32)
+    want = np.asarray(ref.estimate_all(s_ref, jnp.asarray(table)))
+    got = port.estimate_all(s_port, torch.from_numpy(table))
+    assert got.shape == (d,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 RANGE_GEOMETRIES = [
     # (d, c, r, seed): tests/test_decode_blockwise.py's — a table over the
     # reference's 12 MiB single-block guard, its many-block geometry, and

@@ -131,12 +131,46 @@ def test_sketch_tile_kernel_equals_gather_kernel(dev, d, c, r, band, m,
 @pytest.mark.parametrize("family", ["fmix32", "poly4"])
 @pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES)
 def test_estimate_median_matches_plain_exactly(dev, d, c, r, band, m, family):
+    """K2 writes every coordinate's estimate in original order ([d]),
+    exactly the plain version's (the gather, the median, the
+    unscramble)."""
     spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
     table = _vec(r * spec.c_actual, 2, dev).reshape(spec.table_shape)
     n0 = kern.estimate_median.launches
     got = kern.estimate_median(spec, table)
     assert kern.estimate_median.launches == n0 + 1
     torch.cuda.synchronize()
+    assert got.shape == (d,)
+    assert torch.equal(got, kern.estimate_median_torch(spec, table))
+
+
+K2_EDGE_GEOMETRIES = [
+    # (d, c, r, band, m, scramble_block): no scramble (in-place writes, a
+    # ragged last tile), a scramble block of 8, m = 32768, where the slot
+    # tables are read in place, and m = 1000 with a scramble block of 15,
+    # where the divisions by m and b are not shifts
+    (20_011, 4_000, 3, 16, 512, 0),
+    (50_011, 8_000, 5, 16, None, 0),
+    (77_777, 9_000, 6, 16, 2048, 8),
+    (3_000_000, 40_000, 5, 16, None, None),
+    (20_011, 4_000, 3, 16, 1000, None),  # m = 1000, sblock 15
+]
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,band,m,sb", K2_EDGE_GEOMETRIES + [
+    g + (None,) for g in GEOMETRIES])
+def test_estimate_median_equals_k4_range_form_at_every_coordinate(
+        dev, d, c, r, band, m, sb, family):
+    """K2 and K4's range form at (0, d) walk the same tiles and read the
+    same signed buckets: bit-equal, and both equal the plain version."""
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, scramble_block=sb,
+                          hash_family=family)
+    table = _vec(r * spec.c_actual, 8, dev).reshape(spec.table_shape)
+    got = kern.estimate_median(spec, table)
+    rng = kern.estimate_at_range(spec, table, 0, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rng)
     assert torch.equal(got, kern.estimate_median_torch(spec, table))
 
 
@@ -170,7 +204,7 @@ def test_estimate_at_every_coordinate_is_k2_unscrambled(dev, family):
     spec = cs.CountSketch(d=6_573_130, c=500_000, r=5, hash_family=family)
     table = _vec(5 * spec.c_actual, 6, dev).reshape(spec.table_shape)
     got = kern.estimate_at(spec, table, torch.arange(spec.d, device=dev))
-    want = cs._unscramble(spec, kern.estimate_median(spec, table))
+    want = kern.estimate_median(spec, table)  # in original order
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -181,12 +215,12 @@ def test_estimate_at_every_coordinate_is_k2_unscrambled(dev, family):
 def test_estimate_at_range_matches_plain_and_k2(dev, d, c, r, seed, n,
                                                 family):
     """K4's range form, exactly, against its plain version and against K2
-    unscrambled, at n = 0, n = 1, a ragged n starting inside a scramble
+    (every coordinate, in original order), at n = 0, n = 1, a ragged n starting inside a scramble
     block, every coordinate, and the last rank's slice of a four-way
     split (clipped at d - 1)."""
     spec = cs.CountSketch(d=d, c=c, r=r, seed=seed, hash_family=family)
     table = _vec(r * spec.c_actual, seed, dev).reshape(spec.table_shape)
-    full = cs._unscramble(spec, kern.estimate_median(spec, table))
+    full = kern.estimate_median(spec, table)
     S = -(-d // 4)
     for start, cnt in ((5, 0), (d - 1, 1), (spec.sblock // 2 + 1, 3001),
                        (0, d), (3 * S, S)):

@@ -12,11 +12,19 @@ planned on the host in ``ops/cuda/index_math.py``, or mirrored here:
   reading neighbouring positions); a float32 replay of the walk equals
   the gather kernel's summation order bit for bit;
 * K4's range form: the scramble blocks of a slice in scrambled order, and
-  the table windows that each CUDA block reads.
+  the table windows that each CUDA block reads;
+* a mirror of K2's walk over every coordinate: the staged windows hold
+  every column a tile reads, the fused unscramble writes each coordinate
+  below d exactly once and skips the padding, and a float32 replay equals
+  the plain version bit for bit; K2's slot tables and packed sign bits
+  against the spec's hashes (and the sign bits against the JAX
+  reference's in-kernel sign hash).
 
-No card, no JAX: exact integer comparisons, and the plain versions as the
-float reference.
+No card: exact integer comparisons, and the plain versions as the float
+reference. Only the sign-bit test imports the JAX reference.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -356,6 +364,169 @@ def test_range_plan_on_the_main_path_stages_the_narrow_rows():
     assert plan["blocks"].numel() == spec.d_eff // spec.sblock
 
 
+# -- K2: the walk over every coordinate ---------------------------------------
+
+K2_SPECS = [
+    # (d, c, r, band, m, scramble_block): the main path, the small
+    # geometries of tests/test_torch_cuda_kernels.py, two without the
+    # scramble (one of them a d that is not a multiple of the tile), and
+    # one whose divisions by m and b cannot be shifts
+    (6_573_130, 500_000, 5, 16, None, None),
+    (20_011, 4_000, 3, 16, 512, None),
+    (212, 512, 4, 16, None, None),
+    (1_200_003, 48_000, 8, 8, None, None),
+    (20_011, 4_000, 3, 16, 512, 0),
+    (50_011, 8_000, 5, 16, None, 0),
+    # m = 1000 and a scramble block of 15: neither is a power of two
+    (20_011, 4_000, 3, 16, 1000, None),
+]
+
+
+def _k2_spec(d, c, r, band, m, sb, family="fmix32"):
+    return cs.CountSketch(d=d, c=c, r=r, band=band, m=m, scramble_block=sb,
+                          hash_family=family)
+
+
+def k2_walk(spec, plan):
+    """Mirror of ``cs_estimate_median_kernel``'s index arithmetic with the
+    kernel's own divisions (``udiv`` with the row parameters): per tile,
+    each row's ``(i0 div G, i0 mod G)`` and the scramble blocks' offsets
+    ``x - i``; per position, the riffle from those (a division only where
+    the tile crosses a multiple of G). Returns ``(tile, i, x, cols [r,
+    n])`` for every scrambled position ``i < d_eff`` the tiles walk, ``x``
+    the original coordinate it is written to."""
+    P = spec.kernel_row_params()
+
+    def div(n, row, name):
+        k = cs.RP_DIV + 2 * cs.DIVISORS.index(name)
+        return index_math.udiv(n, int(P[row, k]), int(P[row, k + 1]))
+
+    per_tile, ntiles, m, b = (plan["per_tile"], plan["ntiles"],
+                              spec.chunk_m, plan["b"])
+    i = np.arange(min(ntiles * per_tile, spec.d_eff), dtype=np.int64)
+    tile = i // per_tile
+    i0, k = tile * per_tile, i % per_tile
+    x = i
+    if plan["perm"] is not None:
+        sb = (i0 // per_tile) * (per_tile // b) + div(k, 0, "sblock")
+        perm = plan["perm"].numpy().astype(np.int64)
+        x = (i + ((perm[sb] - sb) * b) % 2**32) % 2**32  # uint32 wrap
+    slots = plan["slots"].numpy().astype(np.int64)
+    cols = np.empty((spec.r, i.size), np.int64)
+    for row in range(spec.r):
+        f, G, s = (int(P[row, c]) for c in (cs.RP_F, cs.RP_G, cs.RP_S))
+        hi0 = div(i0, row, "G")
+        hi, r = hi0, i0 - hi0 * G + k
+        cross = r >= G  # the tile crosses a multiple of G here
+        hi = np.where(cross, div(i, row, "G"), hi)
+        r = np.where(cross, i - hi * G, r)
+        p = r * f + hi
+        q = p >> (m.bit_length() - 1) if m & (m - 1) == 0 else div(p, row, "m")
+        cols[row] = q * s + slots[row, p - q * m]
+    return tile, i, x, cols
+
+
+@pytest.mark.parametrize("geo", K2_SPECS, ids=lambda g: f"d{g[0]}_sb{g[5]}")
+def test_k2_walk_stays_in_its_windows_and_unscrambles_once(geo):
+    spec = _k2_spec(*geo)
+    plan = kern._k2_plan(spec, "cpu")
+    assert plan["ntiles"] * plan["per_tile"] >= spec.d_eff
+    assert (plan["perm"] is None) == (not spec.sblock)
+    tile, i, x, cols = k2_walk(spec, plan)
+    assert i.size == spec.d_eff  # every scrambled position, once
+    keep = x < spec.d  # the kernel skips the padding past d
+    assert int((~keep).sum()) == spec.d_eff - spec.d
+    np.testing.assert_array_equal(np.sort(x[keep]), np.arange(spec.d))
+    # the column each position reads is the plain version's
+    spos = spec.scrambled_pos(torch.from_numpy(x[keep]))
+    np.testing.assert_array_equal(spos.numpy(), i[keep])
+    wstart = plan["wstart"].numpy().astype(np.int64)
+    wlen_all = plan["wlen_all"]
+    for row in range(spec.r):
+        np.testing.assert_array_equal(
+            cols[row, keep], spec.scrambled_cols_signs(row, spos)[0].numpy())
+        rel = cols[row, keep] - wstart[tile[keep], row]
+        assert rel.min() >= 0 and rel.max() < wlen_all[row], row
+        if row in plan["staged"]:
+            assert rel.max() < plan["wlen"][row]
+            assert plan["woff"][row] + plan["wlen"][row] <= \
+                index_math.K2_WINDOW_BUDGET // 4
+    assert plan["smem_bytes"] <= index_math.K1_SMEM_LIMIT // 2
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("geo", K2_SPECS[1:], ids=lambda g: f"d{g[0]}_sb{g[5]}")
+def test_k2_replay_equals_plain_version_bit_for_bit(geo, family):
+    """float32 replay of the kernel: the mirrored columns, the packed sign
+    bits, the median network, written at x; equal to the plain version
+    (the gather, the median, the unscramble)."""
+    spec = _k2_spec(*geo, family=family)
+    plan = kern._k2_plan(spec, "cpu")
+    table = torch.from_numpy(np.random.default_rng(geo[0]).normal(
+        size=spec.table_shape).astype(np.float32))
+    _, i, x, cols = k2_walk(spec, plan)
+    keep = x < spec.d
+    words = plan["signs"].numpy().view(np.uint32).astype(np.int64)
+    ests = []
+    for row in range(spec.r):
+        neg = (words[row, i >> 5] >> (i & 31)) & 1
+        v = table[row][torch.from_numpy(cols[row])]
+        ests.append(v * torch.from_numpy(1.0 - 2.0 * neg).float())
+    med = kern._median_network(ests)
+    out = torch.empty(spec.d)
+    out[torch.from_numpy(x[keep])] = med[torch.from_numpy(keep)]
+    assert torch.equal(out, kern.estimate_median_torch(spec, table))
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+def test_k2_slot_tables_equal_the_slot_hash(family):
+    for geo in K2_SPECS:
+        spec = _k2_spec(*geo, family=family)
+        plan = kern._k2_plan(spec, "cpu")
+        for row in range(spec.r):
+            want = spec.slot_hash(row, torch.arange(spec.chunk_m))
+            np.testing.assert_array_equal(plan["slots"][row].numpy(), want)
+        if plan["slot_smem"]:  # uint16 in shared memory loses nothing
+            assert int(plan["slots"].max()) < 2**16
+    main = kern._k2_plan(_k2_spec(*K2_SPECS[0], family=family), "cpu")
+    assert main["slot_smem"] and main["staged"] == (0, 1)
+    assert main["smem_bytes"] == 2 * 5 * 4096 + 4 * 64 + 4 * sum(main["wlen"])
+    # m = 32768 (the 124M geometry) or V >= 2^16: read in place
+    assert not index_math.k2_slots_in_smem(5, 32768, 4992)
+    assert not index_math.k2_slots_in_smem(1, 512, 2**16)
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+def test_packed_sign_bits_equal_the_sign_hash_and_the_reference(family):
+    from commefficient_tpu.ops import countsketch as ref
+    from commefficient_tpu.ops.pallas.countsketch_kernels import _row_hashes
+    import jax.numpy as jnp
+
+    d, c, r = 20_011, 4_000, 3
+    spec = cs.CountSketch(d=d, c=c, r=r, m=512, hash_family=family)
+    ref_spec = ref.CountSketch(d=d, c=c, r=r, m=512, hash_family=family,
+                               backend="pallas")
+    words = kern.packed_sign_bits(spec, "cpu")
+    assert words.shape == (r, -(-spec.d_eff // 32))
+    w = words.numpy().view(np.uint32).astype(np.int64)
+    pos = np.arange(w.shape[1] * 32)
+    rng = np.random.default_rng(1)
+    at = np.sort(rng.choice(spec.d_eff, size=2000, replace=False))
+    for row in range(r):
+        bits = (w[row, pos >> 5] >> (pos & 31)) & 1
+        want = spec.sign_bits(row, torch.arange(spec.d_eff)).numpy()
+        np.testing.assert_array_equal(bits[:spec.d_eff], want)
+        assert not bits[spec.d_eff:].any()
+        # the reference's sign_fn takes a riffled position p and maps it
+        # back to its scrambled position: p(i) for i gives i's sign
+        f, L = spec._factor(row), spec._L_row(row)
+        G = L // f
+        p = (at % G) * f + at // G
+        sign = np.asarray(_row_hashes(ref_spec, row)[1](
+            jnp.asarray(p.astype(np.uint32))))
+        np.testing.assert_array_equal(sign, 1.0 - 2.0 * bits[at])
+
+
 # -- the build report ---------------------------------------------------------
 
 
@@ -383,3 +554,50 @@ def test_ptxas_report_and_kernel_names(tmp_path):
         "cs_hash_bits_kernel": {"registers": 10, "smem_static_bytes": 0,
                                 "spill_stores_bytes": 0,
                                 "spill_loads_bytes": 0}}
+
+
+def test_sass_counts_and_the_per_coordinate_loop():
+    """``cuobjdump -sass`` text: NOPs are not counted, and the innermost
+    loop (a backward branch to a label) that holds a global store is a
+    walk kernel's per-coordinate body."""
+    text = (
+        "\t\tFunction : _Z14k2_walk_kernelILi15EEvPKf\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        ".L_x_1:\n"
+        "        /*0010*/                   S2R R0, SR_TID.X ;\n"
+        ".L_x_2:\n"
+        "        /*0020*/                   IADD3 R0, R0, 1, RZ ;\n"
+        "        /*0030*/                   STG.E desc[UR4][R2.64], R5 ;\n"
+        "        /*0040*/              @P0 BRA `(.L_x_2) ;\n"
+        "        /*0050*/                   NOP ;\n"
+        "        /*0060*/              @P1 BRA `(.L_x_1) ;\n"
+        "        /*0070*/                   EXIT ;\n"
+        "\t\tFunction : _Z13k2_old_kernelPKf\n"
+        "        /*0000*/                   STG.E desc[UR4][R2.64], R5 ;\n"
+        "        /*0010*/                   EXIT ;\n"
+        "\t\tFunction : _Z25cs_estimate_median_kernelILi5ELb1EEvPKf\n"
+        "        /*0000*/                   S2R R0, SR_TID.X ;\n"
+        "        /*0010*/                   STG.E desc[UR4][R2.64], R5 ;\n"
+        "        /*0020*/                   IADD3 R0, R0, 1, RZ ;\n"
+        "        /*0030*/              @P0 BRA 0x10 ;\n"
+        "        /*0040*/                   BRA 0x40;\n")
+    sass = build.parse_sass(text)
+    assert {k: sum(isinstance(x, str) for x in v) for k, v in sass.items()} \
+        == {"k2_walk_kernel<15>": 7, "k2_old_kernel": 2,
+            "cs_estimate_median_kernel<5,true>": 5}
+    assert build.store_loop_counts(sass) == {
+        "k2_walk_kernel<15>": 3, "k2_old_kernel": None,
+        "cs_estimate_median_kernel<5,true>": 3}
+
+
+def test_library_key_covers_every_header_the_sources_include():
+    """Every header a kernel source includes is hashed into the library's
+    name, so editing a header rebuilds every library that includes it."""
+    srcs = sorted(build.CSRC.glob("*.cu"))
+    assert srcs
+    included = set()
+    for src in srcs:
+        included |= set(re.findall(r'#include "([^"]+)"', src.read_text()))
+    assert included <= set(build.HEADERS)
+    for header in build.HEADERS:
+        assert (build.CSRC / header).is_file()
