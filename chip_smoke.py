@@ -48,11 +48,24 @@ phase prints one line (or a few) and raises on failure, so the script exits
    estimate kernel: K2 writes the estimates in original order), then the
    sharded decode (``--topk_method threshold --sketch_decode sharded``,
    one device: K1 twice a round, K4's range form once, K2 never); then
-   one ``uncompressed`` round.
+   one ``uncompressed`` round;
+6. the paper's other modes: each of ``true_topk``, ``local_topk`` (100
+   clients, both client banks on the card), ``fedavg`` (two local steps)
+   and ``powersgd`` (rank 4), and ``sketch`` with local momentum, first
+   on the card against the CPU at width 8 (the agreement phase's
+   tolerances; the card on cuDNN's deterministic algorithms, so the
+   comparison does not change from run to run), then through
+   ``cv_train.main`` at full width for 5 rounds, with the counters set to
+   0 just before and read just after: no CountSketch kernel on the four
+   modes' paths, K1 twice and K2 once a round with local momentum; each
+   checks its bytes per round against the mode's formula;
+7. one line of round times, printed and not checked: ``uncompressed``
+   with ``--fuse_clients`` (one flattened-batch gradient) beside the
+   per-client round.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
-kernel (``launches`` summed over both main paths, ``launches_by_path``
-beside it), and ``{"ok": true, "device": {...}}``.
+kernel (``launches`` summed over every path, ``launches_by_path`` beside
+it), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,6 +93,29 @@ MAIN_ARGS = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
              "--local_batch_size", "64"]
 SHARDED_FLAGS = ["--topk_method", "threshold", "--sketch_decode", "sharded"]
 MAIN_ROUNDS = 5
+D_FULL = GEOMETRY["d"]
+# the paper's other modes at full width: path -> (flags over MAIN_ARGS,
+# upload floats, download floats per client per round)
+MODE_PATHS = {
+    "true_topk": (["--mode", "true_topk"], D_FULL, D_FULL),
+    "local_topk": (["--mode", "local_topk", "--error_type", "local",
+                    "--local_momentum", "0.9", "--num_clients", "100"],
+                   2 * 50_000, D_FULL),
+    "fedavg": (["--mode", "fedavg", "--error_type", "none",
+                "--num_local_iters", "2"], D_FULL, D_FULL),
+    # the [2564, 2564] matricization: 4 * (2564 + 2564) floats down
+    "powersgd": (["--mode", "powersgd", "--powersgd_rank", "4"], D_FULL,
+                 4 * (2564 + 2564)),
+}
+# the same modes at width 8: path -> lr (their settings are
+# agreement_probe.MODES). powersgd runs at lr 0.05: at 0.2 its rank-4
+# power iteration on the near-rank-1 width-8 gradients is ill-conditioned
+# (on the CPU alone a 1e-7 relative change of the initial params moves
+# its 3-round params by ~1e-3 of their movement for some seeds, the
+# tolerance itself; python -m commefficient_tpu_torch.train.
+# agreement_probe measures it)
+W8_LRS = {"true_topk": 0.2, "local_topk": 0.2, "fedavg": 0.2,
+          "powersgd": 0.05, "sketch_local_momentum": 0.2}
 
 
 def phase(name: str, **fields) -> None:
@@ -266,24 +302,37 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
     return entries
 
 
-def agreement_phase(torch, np, dev):
+def agreement_phase(torch, dev, name="agreement", lr=0.2,
+                    deterministic=False, **cfg_kw):
     """Three FetchSGD rounds of a width-8 ResNet-9 in float32 on the card
-    and on the CPU from the same params and batches. The CPU path is the
-    one the CPU tests hold against the JAX package; the card sums buckets
-    and convolutions in another order, and a near-tie at the k-th place may
-    pick another coordinate, so params agree within 1e-3 of how far they
-    moved and losses within rtol 1e-4."""
-    l_dev, p0, p_dev, _ = _width8_session(torch, np, dev.type)
-    l_cpu, _, p_cpu, _ = _width8_session(torch, np, "cpu")
+    and on the CPU from the same params and batches (``cfg_kw`` over the
+    sketch session's settings: another mode, local momentum). The CPU path
+    is the one the CPU tests hold against the JAX package; the card sums
+    buckets, convolutions and products in another order, and a near-tie at
+    the k-th place may pick another coordinate, so params agree within
+    1e-3 of how far they moved and losses within rtol 1e-4.
+    ``deterministic`` runs the card's cuDNN on deterministic algorithms
+    (the default ones may sum a weight gradient with atomics, so two runs
+    of one session on the card differ in the last bits, and a rare
+    near-tie then goes one way or the other from run to run)."""
+    from commefficient_tpu_torch.train.agreement_probe import width8_session
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic or prev
+    try:
+        l_dev, p0, p_dev, _ = width8_session(dev.type, lr=lr, **cfg_kw)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    l_cpu, _, p_cpu, _ = width8_session("cpu", lr=lr, **cfg_kw)
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
-    phase("agreement", D=p0.numel(), losses_card=l_dev, losses_cpu=l_cpu,
+    phase(name, D=p0.numel(), lr=lr, losses_card=l_dev, losses_cpu=l_cpu,
           loss_max_rel_err=loss_rel, params_diff_over_moved=diff / moved)
-    check(moved > 0, "agreement: params did not move")
-    check(loss_rel <= 1e-4, f"agreement: loss rel err {loss_rel} > 1e-4")
+    check(moved > 0, f"{name}: params did not move")
+    check(loss_rel <= 1e-4, f"{name}: loss rel err {loss_rel} > 1e-4")
     check(diff <= 1e-3 * moved,
-          f"agreement: |p_card - p_cpu| = {diff} > 1e-3 * {moved}")
+          f"{name}: |p_card - p_cpu| = {diff} > 1e-3 * {moved}")
 
 
 def k4_phase(torch, cs, kern, dev):
@@ -385,48 +434,18 @@ def k4_phase(torch, cs, kern, dev):
                 library_ms=None, geometries=timings)
 
 
-def _width8_session(torch, np, where, **cfg_kw):
-    """(losses, p0, final params) of three FetchSGD rounds of a width-8
-    ResNet-9 in float32 on ``where``, from fixed params and batches."""
-    from commefficient_tpu_torch.data import (CIFAR10_MEAN, CIFAR10_STD,
-                                              normalizer)
-    from commefficient_tpu_torch.models import (classification_loss,
-                                                init_resnet9, resnet9_apply)
-    from commefficient_tpu_torch.parallel import FederatedSession
-    from commefficient_tpu_torch.utils.config import Config
-
-    def apply32(p, x):
-        return resnet9_apply(p, x, dtype=torch.float32)
-
-    loss_fn = classification_loss(apply32, prep=normalizer(CIFAR10_MEAN,
-                                                           CIFAR10_STD))
-    params = init_resnet9(3, width=8)
-    rng = np.random.default_rng(3)
-    batches = [{"x": rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8),
-                "y": rng.integers(0, 10, (2, 8)).astype(np.int32)}
-               for _ in range(3)]
-    cfg = Config(mode="sketch", k=2000, num_rows=5, num_cols=20_000,
-                 virtual_momentum=0.9, error_type="virtual", num_workers=2,
-                 num_clients=4, local_batch_size=8, compute_dtype="float32",
-                 device=where, **cfg_kw)
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message=".*degenerate")
-        sess = FederatedSession(cfg, params, loss_fn)
-    p0 = sess.state.params_vec.cpu().clone()
-    losses = [float(sess.train_round(None, b, 0.2)["loss"]) for b in batches]
-    return losses, p0, sess.state.params_vec.cpu(), sess.sketch_decode_resolved
-
-
-def sharded_agreement_phase(torch, np, dev):
+def sharded_agreement_phase(torch, dev):
     """The sharded decode (threshold top-k, one device) on the card against
     the same session on the CPU, under the agreement phase's tolerance;
     then against the card's dense threshold decode, which the reference
     pins equal to its sharded decode at atol 1e-6."""
+    from commefficient_tpu_torch.train.agreement_probe import width8_session
+
     sharded = dict(topk_method="threshold", sketch_decode="sharded")
-    l_dev, p0, p_dev, dec = _width8_session(torch, np, dev.type, **sharded)
-    l_cpu, _, p_cpu, _ = _width8_session(torch, np, "cpu", **sharded)
-    l_dense, _, p_dense, dec_dense = _width8_session(
-        torch, np, dev.type, topk_method="threshold", sketch_decode="dense")
+    l_dev, p0, p_dev, dec = width8_session(dev.type, **sharded)
+    l_cpu, _, p_cpu, _ = width8_session("cpu", **sharded)
+    l_dense, _, p_dense, dec_dense = width8_session(
+        dev.type, topk_method="threshold", sketch_decode="dense")
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
@@ -474,8 +493,8 @@ def replay_phase(torch, cs, dev):
     params = torch.randn(spec.d, generator=gen, device=dev)
     outs = []
     for _ in range(2):
-        g_idx, g_val, new_m, new_e = comp.server_update_sharded(
-            mom, err, agg, 0.1, group=SingleWorker(), d=spec.d)
+        g_idx, g_val, new_m, new_e, _ = comp.server_update_sharded(
+            mom, err, None, agg, 0.1, 0, group=SingleWorker(), d=spec.d)
         outs.append((g_idx, g_val, new_m, new_e,
                      apply_update(params, ("sparse", (g_idx, g_val)))))
     torch.cuda.synchronize()
@@ -574,6 +593,93 @@ def uncompressed_phase(kern, cv_train, dataset_dir):
           "uncompressed round: loss not finite or params did not move")
 
 
+def mode_path_phase(kern, cv_train, dataset_dir, name, flags, up, down):
+    """``cv_train.main`` for MAIN_ROUNDS full-width rounds of one of the
+    other modes (``flags`` over MAIN_ARGS), the counters set to 0 just
+    before and read just after: loss finite, params moved, bytes per
+    client per round ``up`` and ``down`` floats, and no CountSketch kernel
+    launched (none is on these paths)."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*dampening=AUTO")
+        out = cv_train.main(MAIN_ARGS + flags + [
+            "--max_rounds", str(MAIN_ROUNDS), "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    bpr = out["bytes_per_round"]
+    phase(f"mode_{name}", D=out["grad_size"], rounds=len(hist),
+          round_ms=[round(h["ms"], 3) for h in hist], losses=losses,
+          val_loss=out["loss"], param_delta_norm=out["param_delta_norm"],
+          bytes_per_round=bpr, launches=launches)
+    check(out["grad_size"] == D_FULL, f"{name}: D")
+    check(len(hist) == MAIN_ROUNDS, f"{name}: rounds")
+    check(all(math.isfinite(x) for x in losses), f"{name}: loss not finite")
+    check(math.isfinite(out["loss"]), f"{name}: eval loss not finite")
+    check(out["param_delta_norm"] > 0, f"{name}: params did not move")
+    check(bpr == {"upload_floats": up, "download_floats": down,
+                  "upload_bytes": 4 * up, "download_bytes": 4 * down},
+          f"{name}: bytes per round {bpr}, expected {up} up, {down} down")
+    check(not any(launches.values()), f"{name}: a CountSketch kernel "
+          f"launched on a path that has none: {launches}")
+    return launches
+
+
+def sketch_local_momentum_phase(kern, cv_train, dataset_dir, dense_bytes):
+    """The dense FetchSGD path with local momentum (a [16, D] velocity
+    bank on the card), MAIN_ROUNDS rounds: K1 twice and K2 once a round,
+    as on the main path, and its bytes per round."""
+    kern.reset_launch_counts()
+    out = cv_train.main(MAIN_ARGS + ["--local_momentum", "0.9",
+                                     "--max_rounds", str(MAIN_ROUNDS),
+                                     "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    phase("sketch_local_momentum", D=out["grad_size"], rounds=len(hist),
+          round_ms=[round(h["ms"], 3) for h in hist], losses=losses,
+          val_loss=out["loss"], param_delta_norm=out["param_delta_norm"],
+          launches=launches)
+    check(len(hist) == MAIN_ROUNDS, "sketch + local momentum: rounds")
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(
+        out["loss"]), "sketch + local momentum: loss not finite")
+    check(out["param_delta_norm"] > 0, "sketch + local momentum: params")
+    check(out["bytes_per_round"] == dense_bytes,
+          "sketch + local momentum: bytes per round")
+    for name, want in (("sketch_rows", 2 * MAIN_ROUNDS),
+                       ("estimate_median", MAIN_ROUNDS), ("estimate_at", 0),
+                       ("estimate_at_range", 0), ("median_rows", 0)):
+        check(launches[name] == want, f"sketch + local momentum: {name} "
+              f"launched {launches[name]} times, expected {want}")
+    return launches
+
+
+def fused_timing_phase(cv_train, dataset_dir, rounds: int = 5):
+    """Round times of full-width ``uncompressed`` (virtual momentum 0.9,
+    8 clients of 64 images) with the per-client loop and with
+    ``--fuse_clients``, one run each: printed, not checked (the CPU tests
+    hold the two equal)."""
+    args = list(MAIN_ARGS)
+    args[args.index("sketch")] = "uncompressed"
+    for flag in ("--error_type", "--k", "--num_rows", "--num_cols"):
+        i = args.index(flag)
+        del args[i:i + 2]
+    ms = {}
+    for name, extra in (("per_client", []),
+                        ("fused", ["--fuse_clients", "true"])):
+        out = cv_train.main(args + extra + ["--max_rounds", str(rounds),
+                                            "--dataset_dir", dataset_dir])
+        ms[name] = [h["ms"] for h in out["history"]]
+        check(all(math.isfinite(h["loss"]) for h in out["history"]),
+              f"fused timing ({name}): loss not finite")
+    phase("fused_timing", per_client_round_ms=[round(t, 3) for t in
+                                               ms["per_client"]],
+          fused_round_ms=[round(t, 3) for t in ms["fused"]],
+          per_client_median_after_first=statistics.median(
+              ms["per_client"][1:]),
+          fused_median_after_first=statistics.median(ms["fused"][1:]))
+
+
 def main() -> int:
     import torch
 
@@ -582,8 +688,6 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
-
     from commefficient_tpu_torch import resolve_device
     from commefficient_tpu_torch.ops import countsketch as cs
     from commefficient_tpu_torch.ops.cuda import build, index_math
@@ -607,8 +711,8 @@ def main() -> int:
 
     entries = kernels_phase(torch, cs, kern, build, index_math, dev)
     entries["cs_estimate_at"] = k4_phase(torch, cs, kern, dev)
-    agreement_phase(torch, np, dev)
-    sharded_agreement_phase(torch, np, dev)
+    agreement_phase(torch, dev)
+    sharded_agreement_phase(torch, dev)
     replay_phase(torch, cs, dev)
     # a path with no CIFAR-10 pickles: the synthetic stand-in
     dataset_dir = os.path.join(ROOT, "build", "no_dataset")
@@ -616,6 +720,18 @@ def main() -> int:
     sharded = sharded_main_path_phase(kern, cv_train, dataset_dir,
                                       dense_bytes)
     uncompressed_phase(kern, cv_train, dataset_dir)
+    paths = {"dense": dense, "sharded": sharded}
+    from commefficient_tpu_torch.train.agreement_probe import MODES
+
+    for name, lr in W8_LRS.items():
+        agreement_phase(torch, dev, name=f"agreement_{name}", lr=lr,
+                        deterministic=True, **MODES[name])
+    for name, (flags, up, down) in MODE_PATHS.items():
+        paths[name] = mode_path_phase(kern, cv_train, dataset_dir, name,
+                                      flags, up, down)
+    paths["sketch_local_momentum"] = sketch_local_momentum_phase(
+        kern, cv_train, dataset_dir, dense_bytes)
+    fused_timing_phase(cv_train, dataset_dir)
 
     wrappers = {"cs_sketch_rows": ("sketch_rows",),
                 "cs_estimate_median": ("estimate_median",),
@@ -626,9 +742,9 @@ def main() -> int:
         return sum(launches[w] for w in wrappers[name])
 
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    launches=count(dense, name) + count(sharded, name),
-                    launches_by_path={"dense": count(dense, name),
-                                      "sharded": count(sharded, name)},
+                    launches=sum(count(p, name) for p in paths.values()),
+                    launches_by_path={path: count(p, name)
+                                      for path, p in paths.items()},
                     **e)
                for name, e in entries.items()]
     print(card)

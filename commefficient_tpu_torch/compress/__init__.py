@@ -1,6 +1,14 @@
-"""Compression modes of the port, behind the reference's registry."""
+"""Compression modes of the port, behind the reference's registry: the
+reference's six (``uncompressed``, ``fedavg``, ``sketch``, ``true_topk``,
+``local_topk``, ``powersgd``)."""
 
-from commefficient_tpu_torch.compress import dense, sketch  # noqa: F401  (register)
+from commefficient_tpu_torch.compress import (  # noqa: F401  (register)
+    dense,
+    local_topk,
+    powersgd,
+    sketch,
+    true_topk,
+)
 from commefficient_tpu_torch.compress.registry import (
     available_modes,
     compressor_class,

@@ -1,14 +1,23 @@
 """Compressor base class — the protocol every mode implements (the
 reference's ``compress/base.py``, the subset the port runs).
 
-A compressor owns one mode's algebra: what a device encodes before the
-aggregate (``device_encode``, LINEAR so the sum of encodings is the
-encoding of the sum), and the server's momentum/error update that extracts
-the applied delta: ``server_update`` (every device decodes the whole
-vector) or, for modes with ``supports_sharded_decode``,
-``server_update_sharded`` (each device of the worker group decodes its
-slice). State leaves are dense ``[D]`` vectors or ``[r, c]`` sketch
-tables, or ``None`` where absent.
+A compressor owns one mode's algebra:
+
+* per client: the gradient rule (``client_grad``; fedavg runs local SGD
+  steps) and the transmit rule after local momentum (``client_transmit``;
+  local_topk runs its local error feedback and top-k there);
+* per device: what it encodes before the aggregate (``device_encode``,
+  LINEAR so the sum of encodings is the encoding of the sum);
+* at the server: the momentum/error update that extracts the applied
+  delta, ``server_update`` (every device decodes the whole vector) or, for
+  modes with ``supports_sharded_decode``, ``server_update_sharded`` (each
+  device of the worker group decodes its slice).
+
+Nonlinear steps (top-k, Gram-Schmidt, medians) sit per client before the
+device sum or at the server after the aggregate, never between
+``device_encode`` and the sum. State leaves are dense ``[D]`` vectors,
+``[r, c]`` sketch tables or the compressor's private ``extra`` (powersgd's
+warm-start ``Q``), ``None`` where absent.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ class Compressor:
     # True -> the class implements server_update_sharded(), which the
     # round runs when use_sharded_decode() says so
     supports_sharded_decode: bool = False
+    # True -> the fused flattened-batch gradient is the same math for this
+    # mode (nothing per-client in its transmit rule)
+    supports_fused_clients: bool = False
     # True -> the applied delta is dense, so do_topk_down's downlink top-k
     # is meaningful (a sketch delta already has <= k nonzeros)
     dense_delta: bool = True
@@ -93,7 +105,8 @@ class Compressor:
         return (KIND_DENSE if self.cfg.virtual_momentum > 0 else None, None)
 
     def init_server_state(self, device):
-        """(momentum, error) leaves; ``None`` where absent."""
+        """(momentum, error, extra) leaves; ``None`` where absent.
+        ``extra`` is compressor-private warm state (powersgd's Q)."""
 
         def alloc(kind):
             if kind == KIND_DENSE:
@@ -104,25 +117,42 @@ class Compressor:
             return None
 
         m_kind, e_kind = self.server_state_kinds()
-        return alloc(m_kind), alloc(e_kind)
+        return alloc(m_kind), alloc(e_kind), self.init_extra_state(device)
+
+    def init_extra_state(self, device):
+        return None
+
+    def client_grad(self, grad_one, params_vec, batch, lr: float):
+        """Per-client gradient rule: ``-> (g [D], loss, aux)``. Default:
+        one gradient pass; fedavg runs its local SGD steps."""
+        return grad_one(params_vec, batch)
+
+    def client_transmit(self, u, err_row, lr: float):
+        """Per-client transmit rule after local momentum: ``-> (transmit
+        [D], new_vel [D], new_err_row)``. Default: the dense update, the
+        client's error row untouched."""
+        return u, u, err_row
 
     def device_encode(self, local_sum: torch.Tensor):
         """LINEAR encode of the device's summed transmit. Default: identity."""
         return local_sum
 
-    def server_update(self, momentum, error, agg, lr: float):
-        """``-> (delta, new_momentum, new_error)``; ``delta`` is the APPLIED
-        update (``w -= delta``), ``agg`` the averaged encoded aggregate."""
+    def server_update(self, momentum, error, extra, agg, lr: float,
+                      step: int):
+        """``-> (delta, new_momentum, new_error, new_extra)``; ``delta`` is
+        the APPLIED update (``w -= delta``), ``agg`` the averaged encoded
+        aggregate, ``step`` the round counter (powersgd's fresh ``Q``
+        without warm start derives from it)."""
         raise NotImplementedError
 
-    def server_update_sharded(self, momentum, error, agg, lr: float, *,
-                              group, d: int):
+    def server_update_sharded(self, momentum, error, extra, agg, lr: float,
+                              step: int, *, group, d: int):
         """The server update decoded slice by slice over ``group``: every
         input is replicated, each rank extracts from its ``ceil(d/size)``
         coordinates, and the candidates are exchanged. Returns ``(idx,
-        val, new_momentum, new_error)``, idx/val the replicated gathered
-        candidate buffers (``val == 0`` on padding); the round applies
-        ``params[idx] -= val``."""
+        val, new_momentum, new_error, new_extra)``, idx/val the replicated
+        gathered candidate buffers (``val == 0`` on padding); the round
+        applies ``params[idx] -= val``."""
         raise NotImplementedError
 
     def upload_floats(self) -> int:

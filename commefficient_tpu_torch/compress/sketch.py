@@ -48,6 +48,7 @@ class SketchCompressor(Compressor):
     allowed_error_types = ("none", "virtual")
     needs_sketch_spec = True
     supports_sharded_decode = True
+    supports_fused_clients = True
     dense_delta = False  # the unsketched delta already has <= k nonzeros
 
     # tables are stored f32 in this slice (bf16 storage is ROADMAP A10), so
@@ -80,7 +81,8 @@ class SketchCompressor(Compressor):
     def device_encode(self, local_sum):
         return sketch_vec(self.spec, local_sum)
 
-    def server_update(self, momentum, error, agg, lr: float):
+    def server_update(self, momentum, error, extra, agg, lr: float,
+                      step: int):
         cfg, spec = self.cfg, self.spec
         dampen = self.resolved_dampening()
         rho = cfg.virtual_momentum
@@ -105,10 +107,10 @@ class SketchCompressor(Compressor):
                                   0.0)
             m = m - sketch_sparse(spec, hh_idx, m_at_hh)
         new_m = m if rho > 0 else momentum
-        return delta, self._down(new_m), self._down(e)
+        return delta, self._down(new_m), self._down(e), extra
 
-    def server_update_sharded(self, momentum, error, agg, lr: float, *,
-                              group, d: int):
+    def server_update_sharded(self, momentum, error, extra, agg, lr: float,
+                              step: int, *, group, d: int):
         cfg, spec = self.cfg, self.spec
         dampen = self.resolved_dampening()
         rho = cfg.virtual_momentum
@@ -134,7 +136,7 @@ class SketchCompressor(Compressor):
         loc, val = compact_nonzero(sel, cfg.k)
         gidx = torch.clamp(start + loc, max=d - 1)
         g_idx, g_val = all_gather_pairs(gidx, val, group)
-        return g_idx, g_val, self._down(new_m), self._down(e)
+        return g_idx, g_val, self._down(new_m), self._down(e), extra
 
     @staticmethod
     def _slice_coords(rank: int, S: int, d: int, device):

@@ -1,8 +1,9 @@
-"""Weight carrier between the reference's flax params and the port.
+"""Weight and state carrier between the reference and the port.
 
 JAX's PRNG cannot be reproduced in torch, so parity tests initialize the
-reference model, export its params as numpy, and load them here. The flat
-order is ``ravel_pytree``'s (ops/param_utils.py), so the round trip is
+reference model (and state drawn from its PRNG, such as powersgd's
+warm-start ``Q``), export it as numpy, and load it here. The flat order is
+``ravel_pytree``'s (ops/param_utils.py), so the round trip is
 bit-identical. Nothing here imports JAX: the caller converts to numpy.
 """
 
@@ -14,6 +15,11 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.ops.param_utils import tree_leaves
+from commefficient_tpu_torch.parallel.round import FedState
+
+# the reference's FedState leaves, in its field order
+STATE_LEAVES = ("params_vec", "momentum", "error", "client_vel",
+                "client_err", "step", "comp")
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> torch.Tensor:
@@ -40,4 +46,42 @@ def params_to_jax(vec: torch.Tensor, like: Dict[str, Any]) -> Dict[str, Any]:
         off += n
     if off != flat.size:
         raise ValueError(f"vector has {flat.size} entries, the tree {off}")
+    return out
+
+
+def _absent(leaf) -> bool:
+    """The reference marks an absent leaf with ``()``; numpy turns that
+    into an empty array."""
+    return leaf is None or np.size(leaf) == 0
+
+
+def state_from_jax(leaves: Dict[str, Any], device="cpu") -> FedState:
+    """The reference's ``FedState`` leaves as numpy (``{name: array | ()}``
+    over ``STATE_LEAVES``) -> the port's ``FedState`` on ``device``: f32
+    tensors, ``None`` where the reference holds ``()``, ``step`` an int."""
+    out = {}
+    for name in STATE_LEAVES:
+        leaf = leaves[name]
+        if name == "step":
+            out[name] = int(np.asarray(leaf))
+        elif _absent(leaf):
+            out[name] = None
+        else:
+            out[name] = torch.from_numpy(
+                np.array(leaf, np.float32)).to(device)
+    return FedState(**out)
+
+
+def state_to_jax(state: FedState) -> Dict[str, Any]:
+    """Inverse of ``state_from_jax``: ``{name: numpy array | ()}``, the
+    step a numpy int32 as the reference keeps it."""
+    out = {}
+    for name in STATE_LEAVES:
+        leaf = getattr(state, name)
+        if name == "step":
+            out[name] = np.int32(leaf)
+        elif leaf is None:
+            out[name] = ()
+        else:
+            out[name] = leaf.detach().to("cpu", torch.float32).numpy()
     return out

@@ -32,6 +32,18 @@ def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def microbatched(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A sampler's ``[W, L*B, ...]`` round batch in the ``[W, L, B, ...]``
+    layout of fedavg's ``L = cfg.round_microbatches`` local steps (the
+    reference's convention); other modes' batches as they are."""
+    L = cfg.round_microbatches
+    if not L:
+        return batch
+    arrays = {k: np.asarray(v) for k, v in batch.items()}
+    return {k: a.reshape((a.shape[0], L, a.shape[1] // L) + a.shape[2:])
+            for k, a in arrays.items()}
+
+
 class FederatedSession:
     """Owns the worker group, the device, the CountSketch spec, the
     compressor, the round and the ``FedState``. ``params`` is a nested dict
@@ -71,7 +83,7 @@ class FederatedSession:
                 "exchange has no one to exchange with. The sharded decode "
                 "only pays when the worker group is real; 'auto' picks "
                 "dense here for exactly that reason.", stacklevel=2)
-        self.state = init_state(self.compressor, vec.to(self.device))
+        self.state = init_state(cfg, self.compressor, vec.to(self.device))
         self.round_fn = build_round_fn(cfg, loss_fn, unravel,
                                        self.compressor, self.group)
         self.eval_fn = build_eval_fn(loss_fn, unravel)
@@ -84,16 +96,26 @@ class FederatedSession:
         return {k: np.asarray(v)[lo:lo + w_loc] for k, v in batch.items()}
 
     def train_round(self, client_ids, batch: Dict[str, Any], lr: float):
-        """One round on ``batch`` ({k: [W, B, ...]} host arrays, the same
-        on every rank; each rank computes its own clients). Returns the
-        round's metrics as 0-d device tensors (``loss`` = mean client
-        loss over all W). ``client_ids`` name the participants; no
-        per-client state is kept in this slice."""
-        del client_ids
+        """One round on ``batch`` ({k: [W, B, ...]} host arrays, for fedavg
+        ``[W, L, B, ...]`` (``microbatched``); the same on every rank, and
+        each rank computes its own clients). ``client_ids`` ([W] ints) name
+        the participants; modes with client state (local momentum, local
+        error feedback) need them and raise without, the others may pass
+        ``None``. Returns the round's metrics as 0-d device tensors
+        (``loss`` = mean client loss over all W)."""
+        ids = None
+        if client_ids is not None:
+            host = np.asarray(client_ids, dtype=np.int64)
+            if (host.shape != (self.cfg.num_workers,) or host.min() < 0
+                    or host.max() >= self.cfg.num_clients):
+                raise ValueError(
+                    f"client_ids must be {self.cfg.num_workers} ids in "
+                    f"[0, {self.cfg.num_clients}), got {host.tolist()}")
+            ids = torch.from_numpy(host).to(self.device)
         lr = float(np.float32(lr))  # the reference's f32 lr
         self.state, metrics = self.round_fn(
-            self.state, _to_device(self.local_clients(batch), self.device),
-            lr)
+            self.state, ids,
+            _to_device(self.local_clients(batch), self.device), lr)
         return metrics
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:

@@ -2,24 +2,38 @@
 the port runs).
 
 A round over a worker group of ``Wd`` devices (``parallel/mesh.py``), one
-process per device: rank ``p`` computes the gradients of its clients
-``[p*w_loc, (p+1)*w_loc)`` of the W participants (``w_loc = W / Wd``, the
-reference's ``P(WORKERS)`` split; weight decay and the global-norm clip
-per client) -> their sum -> the compressor's LINEAR ``device_encode`` ->
-the sum over the group, divided by W (the reference's psum / W; an
-identity sum on one device) -> the server phase, replicated on every rank:
-either the dense decode (``server_update`` -> ``w -= delta``) or the
-sharded decode (``server_update_sharded`` -> ``w[idx] -= val``, the dense
-delta never formed).
+process per device: rank ``p`` computes its clients ``[p*w_loc,
+(p+1)*w_loc)`` of the W participants (``w_loc = W / Wd``, the reference's
+``P(WORKERS)`` split). Per client, in client order: the compressor's
+gradient rule (weight decay and the global-norm clip per gradient; fedavg
+runs local SGD steps), local momentum ``u = lm * vel + g``, and the
+compressor's transmit rule (local_topk: local error feedback and top-k);
+the transmits are summed. Then the compressor's LINEAR ``device_encode``,
+the sum over the group divided by W (the reference's psum / W), and the
+server phase, replicated on every rank: the dense decode
+(``server_update`` -> ``w -= delta``) or the sharded decode
+(``server_update_sharded`` -> ``w[idx] -= val``).
+
+Per-client state (``client_vel`` with local momentum, ``client_err`` with
+local error feedback) lives in ``[num_clients, D]`` banks on the device,
+the same on every rank: a round reads the cohort's rows by client id, and
+the new rows of every rank are all-gathered and written back in place, so
+the banks stay identical across the group (the reference's replicated
+banks).
+
+When nothing per client is configured (``fused_clients``), one gradient of
+the device's flattened batch, times ``w_loc``, replaces the per-client
+loop: the same sum of per-client mean gradients when the clients' batches
+have equal sizes.
 
 The reference ``vmap``s the clients and sums the stack; here clients run
-one after another and their gradients are summed in client order.
+one after another and are summed in client order.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -29,12 +43,16 @@ from commefficient_tpu_torch.ops.param_utils import clip_by_global_norm
 
 @dataclass
 class FedState:
-    """Server state, replicated on every rank. Absent leaves are ``None``."""
+    """Server and client state, replicated on every rank. Absent leaves
+    are ``None``."""
 
     params_vec: torch.Tensor  # [D]
     momentum: Optional[torch.Tensor] = None  # [D] | [r, c] | None
     error: Optional[torch.Tensor] = None  # [D] | [r, c] | None
+    client_vel: Optional[torch.Tensor] = None  # [num_clients, D] | None
+    client_err: Optional[torch.Tensor] = None  # [num_clients, D] | None
     step: int = 0
+    comp: Any = None  # compressor-private warm state (powersgd's Q) | None
 
 
 class AggregationPlan(NamedTuple):
@@ -49,11 +67,32 @@ def resolve_aggregation(cfg, comp, Wd: int) -> AggregationPlan:
     return AggregationPlan(sharded_decode=comp.use_sharded_decode(Wd))
 
 
-def init_state(comp, params_vec: torch.Tensor) -> FedState:
-    """Allocate exactly the state the (mode, error_type, momentum)
-    combination needs (shapes from the compressor)."""
-    momentum, error = comp.init_server_state(params_vec.device)
-    return FedState(params_vec.to(torch.float32), momentum, error, 0)
+def fused_clients(cfg, comp) -> bool:
+    """The reference's gate for the flattened-batch gradient: asked for,
+    the same math for the mode, and nothing per client (no local momentum,
+    no local error, no per-gradient clip, no DP noise)."""
+    return bool(cfg.fuse_clients and comp.supports_fused_clients
+                and cfg.local_momentum == 0 and cfg.error_type != "local"
+                and cfg.max_grad_norm is None
+                and cfg.dp_noise_multiplier == 0)
+
+
+def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
+    """Allocate exactly the state the (mode, error_type, momenta)
+    combination needs: server leaves from the compressor, the client banks
+    from the config (velocity with local momentum, error with local error
+    feedback), all on ``params_vec``'s device."""
+    dev = params_vec.device
+    momentum, error, extra = comp.init_server_state(dev)
+
+    def bank(needed: bool):
+        return (torch.zeros(cfg.num_clients, comp.d, dtype=torch.float32,
+                            device=dev) if needed else None)
+
+    return FedState(params_vec.to(torch.float32), momentum, error,
+                    bank(cfg.local_momentum > 0),
+                    bank(cfg.error_type == "local"),
+                    0, extra)
 
 
 def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
@@ -76,20 +115,60 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
     return grad_one
 
 
-def sum_client_grads(grad_one, params_vec, batch: Dict[str, torch.Tensor]):
-    """(sum of per-client grads [D], loss sum, aux sums) over the clients
-    of ``batch`` ({k: [w, B, ...]}), in client order."""
-    W = next(iter(batch.values())).shape[0]
-    g_sum = loss_sum = aux_sum = None
-    for w in range(W):
-        g, loss, aux = grad_one(params_vec, {k: v[w] for k, v in batch.items()})
-        if g_sum is None:
-            g_sum, loss_sum, aux_sum = g, loss, dict(aux)
-        else:
-            g_sum = g_sum + g
-            loss_sum = loss_sum + loss
-            aux_sum = {k: aux_sum[k] + v for k, v in aux.items()}
-    return g_sum, loss_sum, aux_sum
+def make_per_client(cfg, comp, grad_one):
+    """``per_client(params_vec, batch, vel_row, err_row, lr) -> (transmit,
+    new_vel, new_err, loss, aux)``: the compressor's gradient rule, local
+    momentum, then its transmit rule. Rows are ``None`` where the bank is
+    absent."""
+    lm = cfg.local_momentum
+
+    def per_client(params_vec, batch, vel, err, lr: float):
+        g, loss, aux = comp.client_grad(grad_one, params_vec, batch, lr)
+        u = lm * vel + g if lm > 0 else g
+        transmit, new_vel, new_err = comp.client_transmit(u, err, lr)
+        return transmit, new_vel, new_err, loss, aux
+
+    return per_client
+
+
+def _add(total, x):
+    return x if total is None else total + x
+
+
+def fused_grad_sum(grad_one, params_vec, batch: Dict[str, torch.Tensor]):
+    """``(w * g, w * loss, aux)``: the fused clients' stand-in for the sum
+    of the ``w`` per-client gradients of ``batch`` ({k: [w, B, ...]}), one
+    gradient of the flattened ``[w * B, ...]`` batch."""
+    w = next(iter(batch.values())).shape[0]
+    flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in batch.items()}
+    g, loss, aux = grad_one(params_vec, flat)
+    return w * g, w * loss, aux
+
+
+def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
+                     lr: float):
+    """The per-client loop: ``(transmit sum [D], loss sum, aux sums,
+    new_vel_rows [w, D] | None, new_err_rows [w, D] | None)`` over the
+    clients of ``batch`` ({k: [w, ...]}), in client order; a rows argument
+    is ``None`` where its bank is absent."""
+    w = next(iter(batch.values())).shape[0]
+    t_sum = loss_sum = aux_sum = None
+    vels, errs = [], []
+    for i in range(w):
+        t, vel, err, loss, aux = per_client(
+            params_vec, {k: v[i] for k, v in batch.items()},
+            None if vel_rows is None else vel_rows[i],
+            None if err_rows is None else err_rows[i], lr)
+        t_sum, loss_sum = _add(t_sum, t), _add(loss_sum, loss)
+        aux_sum = aux if aux_sum is None else {k: aux_sum[k] + v
+                                               for k, v in aux.items()}
+        if vel_rows is not None:
+            vels.append(vel)
+        if err_rows is not None:
+            errs.append(err)
+    return (t_sum, loss_sum, aux_sum,
+            None if vel_rows is None else torch.stack(vels),
+            None if err_rows is None else torch.stack(errs))
 
 
 def aggregate(cfg, comp, group, local, loss_sum, aux):
@@ -108,18 +187,18 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
     """The server half of a round: the compressor's momentum/error algebra
     and extraction (dense or sharded decode), then, for the dense decode,
     the optional downlink top-k. Returns ``(update, new_momentum,
-    new_error)`` for ``apply_update``: ``("dense", delta)`` or
+    new_error, new_comp)`` for ``apply_update``: ``("dense", delta)`` or
     ``("sparse", (idx, val))``."""
     if plan.sharded_decode:
-        g_idx, g_val, new_m, new_e = comp.server_update_sharded(
-            state.momentum, state.error, agg, lr, group=group,
-            d=state.params_vec.numel())
-        return ("sparse", (g_idx, g_val)), new_m, new_e
-    delta, new_m, new_e = comp.server_update(state.momentum, state.error,
-                                             agg, lr)
+        g_idx, g_val, new_m, new_e, new_c = comp.server_update_sharded(
+            state.momentum, state.error, state.comp, agg, lr, state.step,
+            group=group, d=state.params_vec.numel())
+        return ("sparse", (g_idx, g_val)), new_m, new_e, new_c
+    delta, new_m, new_e, new_c = comp.server_update(
+        state.momentum, state.error, state.comp, agg, lr, state.step)
     if cfg.do_topk_down and comp.dense_delta:
         delta = comp.topk(delta, cfg.k)
-    return ("dense", delta), new_m, new_e
+    return ("dense", delta), new_m, new_e, new_c
 
 
 def apply_update(params_vec: torch.Tensor, update) -> torch.Tensor:
@@ -135,22 +214,63 @@ def apply_update(params_vec: torch.Tensor, update) -> torch.Tensor:
     return params_vec.index_add(0, g_idx, -g_val)
 
 
+def write_rows(group, bank, client_ids, rows) -> None:
+    """Write every rank's new rows (this rank's ``rows [w_loc, D]``,
+    all-gathered in rank order to the cohort's ``[W, D]``) into ``bank`` at
+    ``client_ids``, in place: no round copies a ``[num_clients, D]``
+    bank. Nothing when the bank is absent."""
+    if bank is not None:
+        bank.index_copy_(0, client_ids, group.all_gather(rows))
+
+
 def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
-    """``round_fn(state, batch, lr) -> (new_state, metrics)``; ``batch``
-    holds this rank's clients."""
+    """``round_fn(state, client_ids, batch, lr, mark=None) -> (new_state,
+    metrics)``. ``client_ids`` is the cohort's ``[W]`` int64 tensor on the
+    state's device (required with client state, else may be ``None``),
+    ``batch`` holds this rank's clients. ``mark(i)``, when given, is called
+    as phase ``i`` begins (0: the client gradients and transmits, 1: the
+    encode and aggregate, 2: the server, 3: the apply and the banks'
+    write-back) and at the end (4)."""
+    comp.resolved_dampening()  # the mode's warnings, once, at build time
     grad_one = make_grad_one(cfg, loss_fn, unravel)
+    per_client = make_per_client(cfg, comp, grad_one)
     plan = resolve_aggregation(cfg, comp, group.size)
+    fused = fused_clients(cfg, comp)
+    w_loc = cfg.num_workers // group.size
+    lo = group.rank * w_loc
 
     @torch.no_grad()
-    def round_fn(state: FedState, batch, lr: float):
-        local, loss_sum, aux = sum_client_grads(grad_one, state.params_vec,
-                                                batch)
+    def round_fn(state: FedState, client_ids, batch, lr: float, mark=None):
+        mark = mark or (lambda i: None)
+        mark(0)
+        banks = (state.client_vel, state.client_err)
+        stateful = any(b is not None for b in banks)
+        if stateful and client_ids is None:
+            raise ValueError(
+                f"mode={cfg.mode!r} keeps per-client state (local_momentum"
+                f"={cfg.local_momentum}, error_type={cfg.error_type!r}): "
+                "train_round needs the cohort's client_ids")
+        if fused:
+            local, loss_sum, aux = fused_grad_sum(grad_one, state.params_vec,
+                                                  batch)
+        else:
+            mine = client_ids[lo:lo + w_loc] if stateful else None
+            rows = [None if b is None else b[mine] for b in banks]
+            local, loss_sum, aux, new_vel, new_err = client_transmits(
+                per_client, state.params_vec, batch, *rows, lr)
+        mark(1)
         agg, loss, aux = aggregate(cfg, comp, group, local, loss_sum, aux)
-        update, new_m, new_e = server_phase(cfg, comp, plan, group, state,
-                                            agg, lr)
-        new_state = replace(state,
-                            params_vec=apply_update(state.params_vec, update),
-                            momentum=new_m, error=new_e, step=state.step + 1)
+        mark(2)
+        update, new_m, new_e, new_c = server_phase(cfg, comp, plan, group,
+                                                   state, agg, lr)
+        mark(3)
+        new_state = replace(
+            state, params_vec=apply_update(state.params_vec, update),
+            momentum=new_m, error=new_e, comp=new_c, step=state.step + 1)
+        if stateful:  # the banks carry over, updated in place
+            write_rows(group, state.client_vel, client_ids, new_vel)
+            write_rows(group, state.client_err, client_ids, new_err)
+        mark(4)
         return new_state, {"loss": loss, **aux}
 
     return round_fn

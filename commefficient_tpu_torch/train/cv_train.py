@@ -14,6 +14,19 @@ sharded``; one process per card runs it over N cards:
 
   torchrun --nproc_per_node N -m commefficient_tpu_torch.train.cv_train \\
       ... --num_devices N
+
+The paper's other modes take the same flags with their own:
+
+  --mode true_topk --k 50000 --virtual_momentum 0.9 --error_type virtual
+  --mode local_topk --k 50000 --error_type local --local_momentum 0.9 \\
+      --num_clients 100
+  --mode fedavg --num_local_iters 2 [--local_lr 0.1]
+  --mode powersgd --powersgd_rank 4 --virtual_momentum 0.9 \\
+      --error_type virtual
+  --mode uncompressed --virtual_momentum 0.9 --fuse_clients true
+
+(fedavg's sampler draws ``num_local_iters * local_batch_size`` samples a
+client, split into that many local steps.)
 """
 
 from __future__ import annotations
@@ -114,7 +127,7 @@ def _train(cfg: Config, eval_batch_size: int):
         say("WARNING: real dataset not found on disk — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
     sampler = FedSampler(train, num_workers=cfg.num_workers,
-                         local_batch_size=cfg.local_batch_size,
+                         local_batch_size=cfg.sampler_batch_size,
                          seed=cfg.seed, augment=augment)
     bpr = session.bytes_per_round()
     say(f"grad_size D={session.grad_size}  upload/client/round="

@@ -6,25 +6,41 @@
 Builds the model, data and session as ``cv_train`` does, with the FetchSGD
 main path's flags unless others are given (ResNet-9 at full width, r=5,
 c=500,000, k=50,000, 8 clients of 64 images), runs two warm-up rounds, then
-times N rounds phase by phase with CUDA events:
+times N rounds of the session's own round function phase by phase with
+CUDA events (``build_round_fn``'s ``mark``):
 
-* ``grads``: the W per-client forward/backward passes and their sum;
-* ``encode``: ``device_encode`` (for sketch: the scramble and K1);
-* ``server``: the server decode. Dense (sketch): the table algebra, K2
-  (the estimates in original order), top-k, the K1 re-sketch of the
-  extracted update.
-  Sharded (``--topk_method threshold --sketch_decode sharded``): the
-  table algebra, K4's range form over this rank's slice, the threshold
-  bisection, the
-  compaction, the error feedback's re-sketch, the candidate exchange;
-* ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter.
+* ``grads``: the W clients' gradients (fedavg: their local SGD steps),
+  local momentum and transmits (local_topk: error feedback and top-k),
+  summed; or the fused clients' one flattened-batch gradient;
+* ``encode``: ``device_encode`` (for sketch: the scramble and K1) and the
+  sum over the worker group;
+* ``server``: the compressor's server update. Dense sketch decode: the
+  table algebra, K2 (the estimates in original order), top-k, the K1
+  re-sketch of the extracted update. Sharded (``--topk_method threshold
+  --sketch_decode sharded``): the table algebra, K4's range form over
+  this rank's slice, the threshold bisection, the compaction, the error
+  feedback's re-sketch, the candidate exchange;
+* ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter,
+  and the client banks' write-back.
 
-The server phase is also broken down by step, each timed alone on the
-last round's state (error_type virtual, the main path's): for the dense
-decode ``estimate_all``, ``topk``, ``ef_resketch`` and ``rest``; for the
-sharded decode ``k4_estimate``, ``bisection``, ``compaction``,
-``ef_resketch`` and ``exchange_apply``.
+The phase of a mode's own work is also broken down by step, each step
+timed alone (CUDA events around one call, median of 5; host launch gaps
+count) on the state after the timed rounds:
 
+* sketch with ``error_type virtual``, dense decode: ``estimate_all``,
+  ``topk``, ``ef_resketch``, ``rest``; sharded decode: ``k4_estimate``,
+  ``bisection``, ``compaction``, ``ef_resketch``, ``exchange_apply``;
+* true_topk: ``topk`` and ``rest`` (the momentum and error algebra);
+* powersgd: ``products`` (``M @ Q`` and ``M^T @ P_hat``),
+  ``gram_schmidt`` and ``rest`` (the algebra, the padding and the rank-r
+  reconstruction);
+* local_topk, inside the grads phase: ``client_transmit`` (the W clients'
+  error feedback, top-k and masking) and the rest of the phase;
+* fedavg, inside the grads phase: ``local_steps`` (the W clients' local
+  SGD steps and their deltas) and the rest of the phase.
+
+The server steps use the aggregate of one more batch (its clients'
+gradients as one flattened batch; only its kind and size matter here).
 One more round runs under ``torch.profiler``; its device time is summed by
 kernel and by kind, and set against the round's wall time to give the
 device's busy share. The last line of the output is a JSON summary.
@@ -37,13 +53,12 @@ import json
 import re
 import statistics
 import time
-from dataclasses import replace
 
+import numpy as np
 import torch
 
+from commefficient_tpu_torch.compress.powersgd import gram_schmidt
 from commefficient_tpu_torch.data import FedSampler
-from commefficient_tpu_torch.parallel import FederatedSession
-from commefficient_tpu_torch.parallel.api import _to_device
 from commefficient_tpu_torch.ops.collectives import all_gather_pairs
 from commefficient_tpu_torch.ops.countsketch import (
     estimate_all,
@@ -55,13 +70,13 @@ from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
     topk_threshold_sharded,
 )
+from commefficient_tpu_torch.parallel import FederatedSession
+from commefficient_tpu_torch.parallel.api import _to_device, microbatched
 from commefficient_tpu_torch.parallel.round import (
     aggregate,
     apply_update,
+    fused_grad_sum,
     make_grad_one,
-    resolve_aggregation,
-    server_phase,
-    sum_client_grads,
 )
 from commefficient_tpu_torch.train.cv_train import build_model_and_data
 from commefficient_tpu_torch.utils.config import parse_args
@@ -80,27 +95,6 @@ KINDS = (("countsketch", r"\bcs_\w+_kernel"),
          ("other", r""))
 
 
-def _phased_round(session, grad_one, batch, lr, events):
-    """One round, the same steps as ``round_fn``, with an event recorded
-    after each phase. Returns ``(loss, agg)``."""
-    cfg, comp, group = session.cfg, session.compressor, session.group
-    state = session.state
-    plan = resolve_aggregation(cfg, comp, group.size)
-    events[0].record()
-    local, loss_sum, aux = sum_client_grads(grad_one, state.params_vec, batch)
-    events[1].record()
-    agg, loss, _ = aggregate(cfg, comp, group, local, loss_sum, aux)
-    events[2].record()
-    update, new_m, new_e = server_phase(cfg, comp, plan, group, state, agg,
-                                        lr)
-    events[3].record()
-    session.state = replace(state,
-                            params_vec=apply_update(state.params_vec, update),
-                            momentum=new_m, error=new_e, step=state.step + 1)
-    events[4].record()
-    return loss, agg
-
-
 def _event_ms(fn, reps: int = 5) -> float:
     """Median device time of ``fn`` over ``reps`` calls, by CUDA events."""
     times = []
@@ -116,12 +110,11 @@ def _event_ms(fn, reps: int = 5) -> float:
 
 
 def _dense_breakdown(session, agg, lr):
-    """The dense decode's server phase step by step on the session's state
-    and the last round's aggregate (error_type virtual, the main path's):
-    the estimates of every coordinate (K2), the top-k with its scatter into
-    [D], the error feedback's re-sketch of the extracted update (K1) with
-    its subtraction, and the rest, the momentum and error table
-    algebra."""
+    """The dense sketch decode's server phase step by step (error_type
+    virtual, the main path's): the estimates of every coordinate (K2), the
+    top-k with its scatter into [D], the error feedback's re-sketch of the
+    extracted update (K1) with its subtraction, and the rest, the momentum
+    and error table algebra."""
     cfg, comp, spec, st = (session.cfg, session.compressor, session.spec,
                            session.state)
     rho = cfg.virtual_momentum
@@ -142,9 +135,8 @@ def _dense_breakdown(session, agg, lr):
 
 
 def _sharded_breakdown(session, agg, lr):
-    """The sharded decode's server phase step by step on the session's
-    state and the last round's aggregate (error_type virtual, the main
-    path's): K4 over this rank's slice, the threshold bisection, the
+    """The sharded sketch decode's server phase step by step (error_type
+    virtual): K4 over this rank's slice, the threshold bisection, the
     compaction, the error feedback's slice re-sketch with its sum over the
     group, and the candidate exchange with the k-sparse apply."""
     cfg, comp, group, st = (session.cfg, session.compressor, session.group,
@@ -172,6 +164,86 @@ def _sharded_breakdown(session, agg, lr):
     }
 
 
+def _true_topk_breakdown(session, agg, lr):
+    """true_topk's server phase: the top-k of the error-fed accumulator
+    (with its scatter into [D]), and the rest, the momentum and error
+    algebra and the error's subtraction."""
+    cfg, comp, st = session.cfg, session.compressor, session.state
+    rho, virtual = cfg.virtual_momentum, cfg.error_type == "virtual"
+
+    def algebra():
+        m = rho * st.momentum + agg
+        return st.error + lr * m if virtual else m
+
+    e = algebra()
+    upd = comp.topk(e, cfg.k)
+    return {"topk": _event_ms(lambda: comp.topk(e, cfg.k)),
+            "rest": _event_ms(lambda: (algebra(), e - upd))}
+
+
+def _powersgd_breakdown(session, agg, lr):
+    """powersgd's server phase: the two products ``M @ Q`` and ``M^T @
+    P_hat``, Gram-Schmidt, and the rest (the momentum and error algebra,
+    the padding to [n, m], the rank-r reconstruction and the error's
+    subtraction)."""
+    cfg, comp, st = session.cfg, session.compressor, session.state
+    rho, virtual = cfg.virtual_momentum, cfg.error_type == "virtual"
+    Q = st.comp if cfg.powersgd_warm_start else comp._fresh_q(st.step,
+                                                              agg.device)
+
+    def matricize():
+        m = rho * st.momentum + agg
+        e = st.error + lr * m if virtual else m
+        M = torch.nn.functional.pad(e, (0, comp.n * comp.m - comp.d))
+        return e, M.reshape(comp.n, comp.m)
+
+    e, M = matricize()
+    P = M @ Q
+    P_hat = gram_schmidt(P)
+    Q_new = M.T @ P_hat
+
+    def rest():
+        matricize()
+        return e - (P_hat @ Q_new.T).reshape(-1)[: comp.d]
+
+    return {"products": _event_ms(lambda: (M @ Q, M.T @ P_hat)),
+            "gram_schmidt": _event_ms(lambda: gram_schmidt(P)),
+            "rest": _event_ms(rest)}
+
+
+def _client_breakdown(session, grad_one, batch, ids, lr, grads_ms):
+    """The grads phase of the modes with their own per-client work, on
+    this rank's clients: local_topk's ``client_transmit`` (its error
+    feedback, top-k and momentum masking, on each client's gradient and
+    bank rows), fedavg's ``local_steps`` (each client's local SGD steps
+    and delta), each summed over the clients, and the rest of the
+    measured phase."""
+    cfg, comp, st = session.cfg, session.compressor, session.state
+    w_loc = next(iter(batch.values())).shape[0]
+    lo = session.group.rank * w_loc
+    clients = [{k: v[i] for k, v in batch.items()} for i in range(w_loc)]
+    if cfg.mode == "fedavg":
+        name = "local_steps"
+        ms = sum(_event_ms(lambda b=b: comp.client_grad(
+            grad_one, st.params_vec, b, lr)) for b in clients)
+    else:
+        name = "client_transmit"
+        ms = 0.0
+        for i, b in enumerate(clients):
+            g = grad_one(st.params_vec, b)[0]
+            cid = ids[lo + i]
+            vel = None if st.client_vel is None else st.client_vel[cid]
+            err = None if st.client_err is None else st.client_err[cid]
+            u = cfg.local_momentum * vel + g if vel is not None else g
+            ms += _event_ms(lambda u=u, err=err: comp.client_transmit(
+                u, err, lr))
+    return {name: ms, "rest_of_grads": grads_ms - ms}
+
+
+SERVER_BREAKDOWNS = {"true_topk": _true_topk_breakdown,
+                     "powersgd": _powersgd_breakdown}
+
+
 def _kind(name: str) -> str:
     return next(k for k, pat in KINDS if re.search(pat, name, re.I))
 
@@ -186,40 +258,62 @@ def main(argv=None):
     if session.device.type != "cuda":
         raise RuntimeError("profile_round times the card; run it with "
                            "--device cuda on a machine with a GPU")
+    dev = session.device
     sampler = FedSampler(train, num_workers=cfg.num_workers,
-                         local_batch_size=cfg.local_batch_size,
+                         local_batch_size=cfg.sampler_batch_size,
                          seed=cfg.seed, augment=augment)
-    grad_one = make_grad_one(cfg, loss_fn, session.unravel)
+
+    def draw(step):
+        ids, batch = sampler.sample_round(step)
+        local = session.local_clients(microbatched(cfg, batch))
+        return (torch.as_tensor(ids.astype(np.int64), device=dev),
+                _to_device(local, dev))
+
     lr = 0.1  # a mid-schedule lr; the work per round does not depend on it
     with torch.no_grad():
         times = {p: [] for p in PHASES}
         for step in range(2 + ns.rounds):
-            batch = _to_device(session.local_clients(
-                sampler.sample_round(step)[1]), session.device)
+            ids, batch = draw(step)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            loss, agg = _phased_round(session, grad_one, batch, lr, ev)
-            float(loss)
+            session.state, metrics = session.round_fn(
+                session.state, ids, batch, lr, mark=lambda i: ev[i].record())
+            float(metrics["loss"])
             if step >= 2:
                 for i, p in enumerate(PHASES):
                     times[p].append(ev[i].elapsed_time(ev[i + 1]))
         phase_ms = {p: statistics.median(v) for p, v in times.items()}
-        print("phase medians over", ns.rounds, "rounds (ms):",
-              json.dumps(phase_ms), flush=True)
-        server_steps = None
-        if cfg.mode == "sketch" and cfg.error_type == "virtual":
-            decode = session.sketch_decode_resolved
-            server_steps = (_sharded_breakdown if decode == "sharded"
-                            else _dense_breakdown)(session, agg, lr)
-            print(f"{decode} server phase by step (ms):",
-                  json.dumps(server_steps), flush=True)
+        print(f"mode={cfg.mode} phase medians over", ns.rounds,
+              "rounds (ms):", json.dumps(phase_ms), flush=True)
 
-        batch = sampler.sample_round(99)[1]  # train_round copies it over
+        ids, batch = draw(2 + ns.rounds)
+        grad_one = make_grad_one(cfg, loss_fn, session.unravel)
+        grads_steps = None
+        if cfg.mode in ("local_topk", "fedavg"):
+            grads_steps = _client_breakdown(session, grad_one, batch, ids, lr,
+                                            phase_ms["grads"])
+            print("grads phase by step (ms):", json.dumps(grads_steps),
+                  flush=True)
+        server_steps = None
+        breakdown = SERVER_BREAKDOWNS.get(cfg.mode)
+        if cfg.mode == "sketch" and cfg.error_type == "virtual":
+            breakdown = (_sharded_breakdown
+                         if session.sketch_decode_resolved == "sharded"
+                         else _dense_breakdown)
+        if breakdown is not None:
+            flat = fused_grad_sum(grad_one, session.state.params_vec, batch)
+            agg = aggregate(cfg, session.compressor, session.group, *flat)[0]
+            server_steps = breakdown(session, agg, lr)
+            print("server phase by step (ms):", json.dumps(server_steps),
+                  flush=True)
+
+        ids, batch = sampler.sample_round(99)  # train_round copies them over
+        batch = microbatched(cfg, batch)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            session.train_round(None, batch, lr)
+            session.train_round(ids, batch, lr)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
@@ -233,8 +327,11 @@ def main(argv=None):
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {_kind(name):11s}  {name[:90]}")
-    summary = {"decode": session.sketch_decode_resolved,
-               "phase_ms": phase_ms, "server_steps_ms": server_steps,
+    summary = {"mode": cfg.mode, "decode": session.sketch_decode_resolved,
+               "fused_clients": cfg.fuse_clients,
+               "phase_ms": phase_ms, "grads_steps_ms": grads_steps,
+               "server_steps_ms": server_steps,
+               "bytes_per_round": session.bytes_per_round(),
                "profiled_round_wall_ms": wall_ms,
                "device_kernel_ms": device_ms,
                "device_busy_share": device_ms / wall_ms if wall_ms else None,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import time
 from functools import partial
 
+from commefficient_tpu_torch.parallel.api import microbatched
 from commefficient_tpu_torch.utils.schedule import piecewise_linear_lr
 
 
@@ -77,6 +78,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             if cfg.max_rounds and s >= cfg.max_rounds:
                 break
             client_ids, batch = sampler.sample_round(s)
+            batch = microbatched(cfg, batch)
             lr = float(lr_fn(s))
             t0 = time.perf_counter()
             metrics = session.train_round(client_ids, batch, lr)

@@ -20,15 +20,14 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-# the modes this slice ports; the reference registers six
-MODES = ("uncompressed", "sketch")
-REFERENCE_MODES = ("uncompressed", "sketch", "true_topk", "local_topk",
-                   "fedavg", "powersgd")
+# the reference's six modes, all ported (the compress/ registry)
+MODES = ("uncompressed", "sketch", "true_topk", "local_topk", "fedavg",
+         "powersgd")
 ERROR_TYPES = ("none", "local", "virtual")
+CLIENT_STORES = ("device", "host", "mmap")
 
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "local_momentum": "per-client momentum banks (ROADMAP A7)",
     "dp_noise_multiplier": "worker-side DP noise (ROADMAP A8; hazard C.4)",
     "sketch_fused_bwd": "the sketch-fused backward (ROADMAP A10)",
     "telemetry_level": "telemetry/ diagnostics (ROADMAP A12)",
@@ -56,9 +55,17 @@ class Config:
     num_blocks: int = 1
     do_topk_down: bool = False  # top-k compress the downlink too
 
+    # --- powersgd (compress/powersgd.py; PowerSGD, arXiv:1905.13727) ---
+    # rank r of the warm-started power iteration on the [n, m]
+    # matricization of the flat update; the downlink is r*(n+m) floats
+    powersgd_rank: int = 4
+    # carry Q across rounds in FedState.comp (the paper's warm start);
+    # False draws a fresh Gaussian Q from (seed, step) every round
+    powersgd_warm_start: bool = True
+
     # --- momentum / error feedback ---
     virtual_momentum: float = 0.0  # server-side momentum factor rho
-    local_momentum: float = 0.0
+    local_momentum: float = 0.0  # per-client momentum factor
     error_type: str = "none"
     error_decay: float = 1.0
     # None = AUTO (False for sketch: FetchSGD Alg 1 does not mask sketched
@@ -76,6 +83,12 @@ class Config:
     local_batch_size: int = 8
     iid: bool = True
 
+    # --- fedavg ---
+    num_local_iters: int = 1
+    # None: local SGD steps run at the round's server lr, so the applied
+    # delta is the averaged local weight delta (true FedAvg)
+    local_lr: Optional[float] = None
+
     # --- optimization ---
     lr_scale: float = 0.4
     pivot_epoch: int = 5
@@ -89,7 +102,13 @@ class Config:
     dataset_dir: str = "./data"
     synthetic_variant: str = "flat"
     compute_dtype: str = "mixed"  # mixed (bf16 model compute) | float32
+    # one flattened-batch gradient per device in place of the per-client
+    # loop: the same math when nothing per-client is configured (the
+    # round's gate, parallel/round.py ``fused_clients``)
     fuse_clients: bool = False
+    # where the [num_clients, D] client banks live; "device" only (the
+    # hosted stores are ROADMAP A11)
+    client_store: str = "device"
 
     # --- CountSketch ---
     sketch_dtype: str = "float32"
@@ -125,15 +144,8 @@ class Config:
     max_rounds: int = 0  # > 0: stop after this many rounds, then evaluate
 
     def __post_init__(self):
-        if self.mode not in REFERENCE_MODES:
-            raise ValueError(
-                f"mode must be one of {REFERENCE_MODES}, got {self.mode!r}"
-            )
         if self.mode not in MODES:
-            raise ValueError(
-                f"mode={self.mode!r} is not ported yet: the port runs "
-                f"{MODES} (ROADMAP A7 ports the remaining compressors)"
-            )
+            raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
         if self.error_type not in ERROR_TYPES:
             raise ValueError(
                 f"error_type must be one of {ERROR_TYPES}, got "
@@ -158,7 +170,7 @@ class Config:
             raise ValueError(
                 "topk_method='approx' is not ported yet: 'exact' "
                 "(torch.topk with lax.top_k's tie rule) and 'threshold' "
-                "run (ROADMAP A7 lists the approximate selection)"
+                "run (ROADMAP A15 lists the approximate selection)"
             )
         if self.sketch_decode not in ("auto", "dense", "sharded"):
             raise ValueError(
@@ -183,7 +195,7 @@ class Config:
         if self.num_blocks != 1:
             raise ValueError(
                 f"num_blocks={self.num_blocks} is not ported yet: the "
-                "blockwise gather estimate is listed under ROADMAP A7"
+                "blockwise gather estimate is listed under ROADMAP A15"
             )
         for name in ("sketch_dtype", "sketch_table_dtype"):
             v = getattr(self, name)
@@ -213,11 +225,33 @@ class Config:
                 "compute_dtype='bfloat16' is not ported yet (a no-op for "
                 "ResNet-9 in the reference; it matters for GPT-2, ROADMAP A10)"
             )
-        if self.fuse_clients:
+        if self.client_store not in CLIENT_STORES:
+            raise ValueError(f"client_store must be one of {CLIENT_STORES},"
+                             f" got {self.client_store!r}")
+        if self.client_store != "device":
             raise ValueError(
-                "fuse_clients=True is not ported yet: the port computes the "
-                "per-client gradients one client at a time (ROADMAP A7)"
-            )
+                f"client_store={self.client_store!r} is not ported yet: the "
+                "[num_clients, D] client banks live on the device; the "
+                "host and mmap stores are clientstore/ (ROADMAP A11)")
+        if self.mode == "powersgd":
+            if self.powersgd_rank < 1:
+                raise ValueError(
+                    f"powersgd_rank must be >= 1, got {self.powersgd_rank}")
+            if self.do_topk_down:
+                raise ValueError(
+                    "do_topk_down with mode='powersgd' is contradictory: "
+                    "the downlink is already the factored rank-r pair "
+                    "(r*(n+m) floats); top-k'ing the reconstructed delta "
+                    "would only un-compress it. Drop one of the two flags.")
+            if self.momentum_dampening is True:
+                raise ValueError(
+                    "momentum_dampening is undefined for mode='powersgd': "
+                    "dampening zeroes momentum at EXTRACTED COORDINATES, "
+                    "and a rank-r subspace update has no coordinate "
+                    "selection to mask. Use momentum_dampening=None/False.")
+        if self.num_local_iters < 1:
+            raise ValueError(
+                f"num_local_iters must be >= 1, got {self.num_local_iters}")
         if (self.mode == "sketch" and self.momentum_dampening is True
                 and not self.allow_unstable_sketch_dampening):
             raise ValueError(
@@ -261,6 +295,20 @@ class Config:
             raise ValueError("num_clients must be >= num_workers")
         if self.max_rounds < 0:
             raise ValueError(f"max_rounds must be >= 0, got {self.max_rounds}")
+
+    @property
+    def sampler_batch_size(self) -> int:
+        """Samples the sampler draws per client per round: a fedavg round
+        batch carries ``round_microbatches`` microbatches of
+        ``local_batch_size`` each."""
+        return self.local_batch_size * (self.round_microbatches or 1)
+
+    @property
+    def round_microbatches(self) -> int:
+        """Microbatches per client per round: ``num_local_iters`` for
+        fedavg's ``[W, L, B, ...]`` batch convention, else 0 (flat
+        ``[W, B, ...]`` batches)."""
+        return self.num_local_iters if self.mode == "fedavg" else 0
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

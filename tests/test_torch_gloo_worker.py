@@ -10,8 +10,8 @@ and compare what the ranks write with the JAX package. It imports only the
 port (no JAX), so a rank starts in about as long as torch takes to import.
 
 The job file names the work: ``cases``, each a set of ``Config`` keywords
-for a four-round TinyMLP session fed the batches and initial params of the
-input file; ``topk``, vectors whose ``topk_threshold_sharded`` selection
+for a four-round TinyMLP session fed the client ids, batches and initial
+params of the input file (fedavg's batches split into its local steps); ``topk``, vectors whose ``topk_threshold_sharded`` selection
 the ranks compute half each; ``ties``, a sharded server update on a table
 whose estimates tie at the max for more than k coordinates.
 """
@@ -43,6 +43,7 @@ def _params(npz):
 def run_cases(job, npz, out):
     from commefficient_tpu_torch.models import classification_loss
     from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.parallel.api import microbatched
     from commefficient_tpu_torch.utils.config import Config
 
     for name, kw in job["cases"].items():
@@ -50,13 +51,14 @@ def run_cases(job, npz, out):
                                 classification_loss(tinymlp))
         losses = []
         for r in range(npz["x"].shape[0]):
-            batch = {"x": npz["x"][r], "y": npz["y"][r]}
-            losses.append(float(sess.train_round(None, batch,
+            batch = microbatched(sess.cfg, {"x": npz["x"][r],
+                                            "y": npz["y"][r]})
+            losses.append(float(sess.train_round(npz["ids"][r], batch,
                                                  job["lr"])["loss"]))
         out[f"{name}/losses"] = np.asarray(losses)
         out[f"{name}/params"] = sess.state.params_vec.numpy()
         out[f"{name}/decode"] = np.asarray(sess.sketch_decode_resolved)
-        for leaf in ("momentum", "error"):
+        for leaf in ("momentum", "error", "client_vel", "client_err"):
             t = getattr(sess.state, leaf)
             if t is not None:
                 out[f"{name}/{leaf}"] = t.numpy()
@@ -82,9 +84,9 @@ def run_ties(job, npz, out, group):
     spec = CountSketch(d=t["d"], c=t["c"], r=t["r"], seed=0)
     cfg = Config(**t["config"], device="cpu")
     comp = get_compressor(cfg, d=t["d"], spec=spec)
-    g_idx, g_val, _, _ = comp.server_update_sharded(
-        None, None, torch.from_numpy(npz["ties/table"]), 0.1, group=group,
-        d=t["d"])
+    g_idx, g_val, _, _, _ = comp.server_update_sharded(
+        None, None, None, torch.from_numpy(npz["ties/table"]), 0.1, 0,
+        group=group, d=t["d"])
     out["ties/idx"], out["ties/val"] = g_idx.numpy(), g_val.numpy()
 
 

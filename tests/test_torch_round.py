@@ -117,11 +117,11 @@ def test_schedule_matches_reference():
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("mode", "true_topk", "A7"),
-    ("topk_method", "approx", "A7"),
-    ("fuse_clients", "true", "A7"),
+    ("client_store", "host", "A11"),
+    ("topk_method", "approx", "A15"),
+    ("resume", "true", "A8"),
     ("compute_dtype", "bfloat16", "A10"),
-    ("num_blocks", "2", "A7"),
+    ("num_blocks", "2", "A15"),
     ("sketch_table_dtype", "bfloat16", "A10"),
     ("sketch_fused_bwd", "true", "A10"),
     ("availability", "bernoulli", "A8"),
@@ -169,18 +169,31 @@ def _write_cifar_pickles(root, n_per_batch=8, seed=0):
             pickle.dump(raw, f)
 
 
-@pytest.mark.parametrize("mode", ["sketch"])
+# mode -> (its flags, its upload bytes per client per round)
+SMOKE_MODES = {
+    "sketch": (["--k", "5000", "--virtual_momentum", "0.9", "--error_type",
+                "virtual", "--sketch_backend", "pallas",
+                "--local_batch_size", "10"], 4 * 5 * 505_440),
+    "local_topk": (["--k", "5000", "--error_type", "local",
+                    "--local_momentum", "0.9", "--local_batch_size", "10"],
+                   4 * 2 * 5000),
+    # the sampler draws 2 x 5 a client: two local steps of 5
+    "fedavg": (["--num_local_iters", "2", "--local_batch_size", "5"],
+               4 * 6_573_130),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SMOKE_MODES))
 def test_cv_train_main_smoke_on_cpu(tmp_path, mode):
-    """Two full-width ResNet-9 FetchSGD rounds through the entry point a
-    user calls, on the plain CPU path, reading a tiny CIFAR-10 pickle set
-    (40 training images: 2 rounds of 2 clients x 10)."""
+    """Two full-width ResNet-9 rounds through the entry point a user
+    calls, on the plain CPU path, reading a tiny CIFAR-10 pickle set (40
+    training images: 2 rounds of 2 clients x 10)."""
+    flags, upload_bytes = SMOKE_MODES[mode]
     _write_cifar_pickles(str(tmp_path))
     out = __import__("commefficient_tpu_torch.train.cv_train",
                      fromlist=["main"]).main([
-        "--mode", mode, "--k", "5000", "--virtual_momentum", "0.9",
-        "--error_type", "virtual", "--sketch_backend", "pallas",
-        "--num_clients", "4", "--num_workers", "2", "--local_batch_size",
-        "10", "--num_epochs", "1", "--compute_dtype", "float32",
+        "--mode", mode, *flags, "--num_clients", "4", "--num_workers", "2",
+        "--num_epochs", "1", "--compute_dtype", "float32",
         "--dataset_dir", str(tmp_path), "--device", "cpu"],
         eval_batch_size=8)
     assert out["grad_size"] == 6_573_130
@@ -188,4 +201,4 @@ def test_cv_train_main_smoke_on_cpu(tmp_path, mode):
     assert all(np.isfinite(r["loss"]) for r in out["history"])
     assert out["param_delta_norm"] > 0
     assert np.isfinite(out["loss"]) and 0.0 <= out["accuracy"] <= 1.0
-    assert out["bytes_per_round"]["upload_bytes"] == 4 * 5 * 505_440
+    assert out["bytes_per_round"]["upload_bytes"] == upload_bytes

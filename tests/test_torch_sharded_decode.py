@@ -18,7 +18,9 @@ mode, its sessions on the virtual CPU mesh of tests/conftest.py):
   a small budget as tests/test_decode_blockwise.py does): bit for bit;
 * ``topk_threshold_dense``, ``topk_threshold_sharded`` (two gloo ranks)
   and ``compact_nonzero``: bit for bit, the degenerate tie included;
-* ``sketch_sparse`` at ``atol 1e-6`` (summation order only).
+* ``sketch_sparse`` at ``atol 1e-6`` (summation order only);
+* ``local_topk`` (client banks) and ``fedavg`` on two gloo ranks against
+  the reference's 2-device mesh, the ranks' banks bit for bit equal.
 """
 
 import json
@@ -72,6 +74,13 @@ TOPK_VECTORS = {  # name -> (vector, k)
     "degenerate": (np.where(np.arange(4000) % 64 == 0, 1.0, 0.0), 30),
     "zero": (np.zeros(4000), 10),
     "k_above_n": (np.random.default_rng(2).normal(size=100), 500),
+}
+# the client-state modes on two ranks (tests/test_torch_compressors.py
+# holds them at one device)
+CLIENT_STATE_CASES = {
+    "local_topk_two_ranks": dict(mode="local_topk", error_type="local",
+                                 local_momentum=0.9, k=30),
+    "fedavg_two_ranks": dict(mode="fedavg", num_local_iters=2),
 }
 TIES = dict(d=4096, c=32768, r=3,
             config=dict(mode="sketch", error_type="none", k=30, num_rows=3,
@@ -134,12 +143,24 @@ def _ref_run(rounds, kw):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_round, "shard_map",
                    _decode_without_vma_check(ref_round.shard_map))
-        sess = RefSession(RefConfig(**kw), params, loss_ref)
-        losses = [float(sess.train_round(ids, b, LR)["loss"])
+        cfg = RefConfig(**kw)
+        sess = RefSession(cfg, params, loss_ref)
+        losses = [float(sess.train_round(ids, _split(cfg, b), LR)["loss"])
                   for ids, b in batches]
     st = sess.state
     return dict(losses=np.asarray(losses), params=np.asarray(st.params_vec),
-                momentum=np.asarray(st.momentum), error=np.asarray(st.error))
+                momentum=np.asarray(st.momentum), error=np.asarray(st.error),
+                client_vel=np.asarray(st.client_vel),
+                client_err=np.asarray(st.client_err))
+
+
+def _split(cfg, batch):
+    """fedavg's ``[W, L, B/L, ...]`` layout, as tests/test_round.py's
+    ``_run`` gives it to the reference."""
+    L = cfg.round_microbatches
+    return batch if not L else {
+        k: v.reshape((v.shape[0], L, v.shape[1] // L) + v.shape[2:])
+        for k, v in batch.items()}
 
 
 def _port_run(rounds, kw):
@@ -157,11 +178,12 @@ def _port_run(rounds, kw):
     return out
 
 
-def _assert_twin(got, want, tables=True):
+def _assert_twin(got, want, tables=True,
+                 leaves=("momentum", "error")):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
     np.testing.assert_allclose(got["params"], want["params"], rtol=0,
                                atol=1e-5)
-    for leaf in ("momentum", "error") if tables else ():
+    for leaf in leaves if tables else ():
         if want[leaf].size:  # an absent reference leaf is ()
             np.testing.assert_allclose(
                 got[leaf], want[leaf], rtol=0,
@@ -179,6 +201,7 @@ def gloo_ranks(rounds, tmp_path_factory):
     arrays = {f"{layer}/{leaf}": np.asarray(params["params"][layer][leaf])
               for layer in ("Dense_0", "Dense_1") for leaf in ("kernel",
                                                                "bias")}
+    arrays["ids"] = np.stack([ids for ids, _ in batches])
     arrays["x"] = np.stack([b["x"] for _, b in batches])
     arrays["y"] = np.stack([b["y"] for _, b in batches])
     for name, (v, _) in TOPK_VECTORS.items():
@@ -190,6 +213,8 @@ def gloo_ranks(rounds, tmp_path_factory):
     # sketch_decode='auto' resolves to the sharded decode on two devices
     cases["golden_sketch_threshold"] = {**two,
                                         **GOLDEN_CONFIGS["sketch_threshold"]}
+    cases.update({name: {**two, **case}
+                  for name, case in CLIENT_STATE_CASES.items()})
     job = {"lr": LR, "cases": cases,
            "topk": {name: k for name, (_, k) in TOPK_VECTORS.items()},
            "ties": TIES}
@@ -245,6 +270,21 @@ def test_sharded_decode_twins_two_gloo_ranks(rounds, gloo_ranks, name):
     got = _rank_case(gloo_ranks, name)
     assert str(got["decode"]) == "sharded"
     _assert_twin(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(CLIENT_STATE_CASES))
+def test_client_state_modes_two_gloo_ranks(rounds, gloo_ranks, name):
+    """Each rank computes its 4 of the 8 clients; the new bank rows of
+    both ranks are all-gathered, so the banks (compared bit for bit
+    between the ranks by ``_rank_case``) match the reference's
+    replicated ones."""
+    want = _ref_run(rounds, {**BASE, "num_devices": 2,
+                             **CLIENT_STATE_CASES[name]})
+    got = _rank_case(gloo_ranks, name)
+    _assert_twin(got, want, leaves=("momentum", "error", "client_vel",
+                                    "client_err"))
+    if name.startswith("local_topk"):
+        assert np.abs(got["client_vel"]).max() > 0
 
 
 @pytest.mark.parametrize("name", ["sketch", "sketch_threshold"])
@@ -430,11 +470,11 @@ def test_degenerate_topk_ties_drop_identically(gloo_ranks):
         comp = get_compressor(cfg, d=TIES["d"], spec=spec)
         t = torch.from_numpy(table)
         if decode == "dense":
-            delta, _, _ = comp.server_update(None, None, t, 0.1)
+            delta, _, _, _ = comp.server_update(None, None, None, t, 0.1, 0)
             assert float(delta.abs().max()) == 0.0
         else:
-            g_idx, g_val, _, _ = comp.server_update_sharded(
-                None, None, t, 0.1, group=make_worker_group(cfg),
+            g_idx, g_val, _, _, _ = comp.server_update_sharded(
+                None, None, None, t, 0.1, 0, group=make_worker_group(cfg),
                 d=TIES["d"])
             assert g_idx.shape == (30,) and float(g_val.abs().max()) == 0.0
     for out in gloo_ranks:
