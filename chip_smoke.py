@@ -61,11 +61,37 @@ phase prints one line (or a few) and raises on failure, so the script exits
    checks its bytes per round against the mode's formula;
 7. one line of round times, printed and not checked: ``uncompressed``
    with ``--fuse_clients`` (one flattened-batch gradient) beside the
-   per-client round.
+   per-client round;
+8. kernels, the bf16 forms (``bf16_kernels``), at the ResNet-9 geometry
+   and at GPT-2's (D = 124,444,417, r = 5, c = 5,000,000: m = 8192): K1
+   with its operands rounded to bf16, its table stored in bf16, or both,
+   each bit-equal to the f32 kernel on rounded input or with its table
+   rounded, and within one bf16 ulp of each entry of its plain version;
+   K2 on an f32 table read as bf16 and on a bf16 table, and K4 (both
+   forms) on a bf16 table, exactly their plain versions; at GPT-2's
+   geometry also the f32 K1 and K2, K2 in its ``<5, 0, false>``
+   instantiation (no staged window, the slot tables read in place),
+   which no ResNet-9 path runs. Each is timed beside its plain version,
+   its bound and, for K1, one ``index_add_``;
+9. the GPT-2 main path (``gpt2_main_path``): ``gpt2_train.main`` with
+   BASELINE #4's flags for 5 rounds at full GPT-2-small width, with the
+   counters set to 0 just before and read just after: D, exact bytes (a
+   100,013,760 B table up, 497,777,668 B down), K1 10 and K2 5 launches,
+   finite loss, nll and ppl, an MC accuracy in [0, 1], a sample decode,
+   moved params, no envelope warning, and the round time (median of
+   rounds 2-5);
+10. ``gpt2_bf16_tables``: the same for 3 rounds with ``--sketch_table_dtype
+    bfloat16 --sketch_dtype bfloat16``: a 50,006,880 B upload and K1's and
+    K2's bf16 forms; ``sharded_bf16_tables``: the ResNet-9 sharded decode
+    for 3 rounds with bf16 tables (K1 storing bf16, K4's range form on
+    the f32 algebra's table);
+11. ``agreement_gpt2``: three FetchSGD rounds of ``gpt2_tiny`` in float32
+    on the card against the CPU, under the agreement phase's tolerances.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
-kernel (``launches`` summed over every path, ``launches_by_path`` beside
-it), and ``{"ok": true, "device": {...}}``.
+kernel and every bf16 form (``launches`` summed over every path,
+``launches_by_path`` beside it, ``geometries`` with the other geometry's
+numbers), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -116,6 +142,41 @@ MODE_PATHS = {
 # agreement_probe measures it)
 W8_LRS = {"true_topk": 0.2, "local_topk": 0.2, "fedavg": 0.2,
           "powersgd": 0.05, "sketch_local_momentum": 0.2}
+# GPT-2 small on PersonaChat (BASELINE config #4), the [5, 5,000,688] table
+GPT2_GEOMETRY = dict(d=124_444_417, c=5_000_000, r=5, band=16, seed=42)
+GPT2_ARGS = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
+             "--num_cols", "5000000", "--virtual_momentum", "0.9",
+             "--error_type", "virtual", "--compute_dtype", "bfloat16",
+             "--num_workers", "8", "--num_devices", "1"]
+GPT2_BYTES = {"upload_floats": 25_003_440, "download_floats": 124_444_417,
+              "upload_bytes": 100_013_760, "download_bytes": 497_777_668}
+BF16_ROUNDS = 3
+AGREEMENT_GPT2 = dict(seed=3, lr=0.2)  # agreement_probe --modes gpt2_tiny
+# the kernels' type variants: JSON entry -> [(wrapper, form)] it counts
+FORMS = {
+    "cs_sketch_rows": [("sketch_rows", "f32")],
+    "cs_sketch_rows[bf16_operand]": [("sketch_rows", "bf16_operand")],
+    "cs_sketch_rows[bf16_table]": [("sketch_rows", "bf16_table")],
+    "cs_sketch_rows[bf16_operand_bf16_table]": [
+        ("sketch_rows", "bf16_operand_bf16_table")],
+    "cs_estimate_median": [("estimate_median", "f32")],
+    "cs_estimate_median[f32_table_bf16_operand]": [
+        ("estimate_median", "f32_table_bf16_operand")],
+    "cs_estimate_median[bf16_table]": [("estimate_median", "bf16_table")],
+    "median_rows": [("median_rows", "f32")],
+    "cs_estimate_at": [("estimate_at", "f32"), ("estimate_at_range", "f32")],
+    "cs_estimate_at[bf16_table]": [("estimate_at", "bf16_table"),
+                                   ("estimate_at_range", "bf16_table")],
+}
+# the geometry of each bf16 form's main path (its top-level numbers)
+FORM_MAIN_GEOMETRY = {
+    "cs_sketch_rows[bf16_operand]": "gpt2",
+    "cs_sketch_rows[bf16_table]": "resnet9",
+    "cs_sketch_rows[bf16_operand_bf16_table]": "gpt2",
+    "cs_estimate_median[f32_table_bf16_operand]": "gpt2",
+    "cs_estimate_median[bf16_table]": "gpt2",
+    "cs_estimate_at[bf16_table]": "resnet9",
+}
 
 
 def phase(name: str, **fields) -> None:
@@ -239,7 +300,7 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
             table = torch.empty(spec.table_shape, device=dev)
             kern._launch(lib.cs_sketch_rows, v_s.data_ptr(), d_eff,
                          ptr.data_ptr(), off.data_ptr(), table.data_ptr(), c,
-                         rows, r, 0, 0, kern._stream())
+                         rows, r, 0, 0, 0, 0, kern._stream())
             return table
 
         check(torch.equal(k1_gather(), t_k), "K1: the tile and gather "
@@ -303,7 +364,7 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
 
 
 def agreement_phase(torch, dev, name="agreement", lr=0.2,
-                    deterministic=False, **cfg_kw):
+                    deterministic=False, session=None, **cfg_kw):
     """Three FetchSGD rounds of a width-8 ResNet-9 in float32 on the card
     and on the CPU from the same params and batches (``cfg_kw`` over the
     sketch session's settings: another mode, local momentum). The CPU path
@@ -314,16 +375,19 @@ def agreement_phase(torch, dev, name="agreement", lr=0.2,
     ``deterministic`` runs the card's cuDNN on deterministic algorithms
     (the default ones may sum a weight gradient with atomics, so two runs
     of one session on the card differ in the last bits, and a rare
-    near-tie then goes one way or the other from run to run)."""
+    near-tie then goes one way or the other from run to run).
+    ``session`` is another session of ``agreement_probe`` (its
+    ``gpt2_tiny_session``)."""
     from commefficient_tpu_torch.train.agreement_probe import width8_session
 
+    session = session or width8_session
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic or prev
     try:
-        l_dev, p0, p_dev, _ = width8_session(dev.type, lr=lr, **cfg_kw)
+        l_dev, p0, p_dev, _ = session(dev.type, lr=lr, **cfg_kw)
     finally:
         torch.backends.cudnn.deterministic = prev
-    l_cpu, _, p_cpu, _ = width8_session("cpu", lr=lr, **cfg_kw)
+    l_cpu, _, p_cpu, _ = session("cpu", lr=lr, **cfg_kw)
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
@@ -543,7 +607,7 @@ def sharded_main_path_phase(kern, cv_train, dataset_dir, dense_bytes):
                        ("sketch_rows", 2 * MAIN_ROUNDS)):
         check(launches[name] == want, f"sharded main path: {name} launched "
               f"{launches[name]} times, expected {want}")
-    return launches
+    return kern.form_counts()
 
 
 def main_path_phase(kern, cv_train, dataset_dir):
@@ -574,7 +638,7 @@ def main_path_phase(kern, cv_train, dataset_dir):
     for name in ("estimate_at", "estimate_at_range", "median_rows"):
         check(launches[name] == 0, f"main path: {name} launched "
               f"{launches[name]} times, expected 0 (K2 does its work)")
-    return launches, out["bytes_per_round"]
+    return kern.form_counts(), out["bytes_per_round"]
 
 
 def uncompressed_phase(kern, cv_train, dataset_dir):
@@ -622,7 +686,7 @@ def mode_path_phase(kern, cv_train, dataset_dir, name, flags, up, down):
           f"{name}: bytes per round {bpr}, expected {up} up, {down} down")
     check(not any(launches.values()), f"{name}: a CountSketch kernel "
           f"launched on a path that has none: {launches}")
-    return launches
+    return kern.form_counts()
 
 
 def sketch_local_momentum_phase(kern, cv_train, dataset_dir, dense_bytes):
@@ -651,7 +715,7 @@ def sketch_local_momentum_phase(kern, cv_train, dataset_dir, dense_bytes):
                        ("estimate_at_range", 0), ("median_rows", 0)):
         check(launches[name] == want, f"sketch + local momentum: {name} "
               f"launched {launches[name]} times, expected {want}")
-    return launches
+    return kern.form_counts()
 
 
 def fused_timing_phase(cv_train, dataset_dir, rounds: int = 5):
@@ -678,6 +742,230 @@ def fused_timing_phase(cv_train, dataset_dir, rounds: int = 5):
           per_client_median_after_first=statistics.median(
               ms["per_client"][1:]),
           fused_median_after_first=statistics.median(ms["fused"][1:]))
+
+
+
+def bf16_kernels_phase(torch, cs, kern, dev):
+    """The bf16 forms of K1, K2 and K4, and the f32 K1 and K2 at GPT-2's
+    geometry (K2 there in ``<5, 0, false>``): each held against its plain
+    version and timed (CUDA events; the plain versions at GPT-2's
+    geometry with 5 samples of 2 calls). Returns ``{entry: {geometry:
+    numbers}}`` for the ``kernels`` line."""
+    BF, F32 = torch.bfloat16, torch.float32
+    k1_forms = {"bf16_operand": (BF, F32), "bf16_table": (F32, BF),
+                "bf16_operand_bf16_table": (BF, BF)}
+    k2_forms = {"f32_table_bf16_operand": (F32, BF), "bf16_table": (BF, F32)}
+    out = {}
+
+    def put(entry, geo, **row):
+        out.setdefault(entry, {})[geo] = row
+        phase("timing", kernel=entry, geometry=geo, **row)
+
+    for geo_name, geo in (("resnet9", GEOMETRY), ("gpt2", GPT2_GEOMETRY)):
+        big = geo_name == "gpt2"
+        light = dict(samples=5, calls=2) if big else {}
+        spec = cs.CountSketch(**geo)
+        r, c, d, d_eff = spec.r, spec.c_actual, spec.d, spec.d_eff
+        gen = torch.Generator(device=dev).manual_seed(0)
+        v_s = cs._scramble(spec, torch.randn(d, generator=gen, device=dev))
+        rows, ptr, off, tile = kern._kernel_geometry(spec, str(dev))[:4]
+        csr = 4 * (ptr.numel() + off.numel())
+        maps = kern._plain_maps(spec, str(dev))
+        flat_cols = torch.cat([row * c + cols for row, (cols, _)
+                               in enumerate(maps)])
+        flat_src = torch.cat([v_s * sign for _, sign in maps])
+        flat_table = torch.zeros(r * c, device=dev)
+        lib1 = cuda_ms(torch, lambda: flat_table.index_add_(0, flat_cols,
+                                                            flat_src),
+                       **light)
+        del flat_cols, flat_src, flat_table
+        plan = kern._k2_plan(spec, str(dev))
+        perm = 4 * plan["perm"].numel()
+        t32 = kern.sketch_rows(spec, v_s)
+        if big:  # the f32 forms at GPT-2's geometry
+            want = kern.sketch_rows_torch(spec, v_s)
+            torch.cuda.synchronize()
+            err = float((t32 - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            check(err <= tol, f"K1 at GPT-2: max err {err} > {tol}")
+            del want
+            b, by = bound(4 * d_eff + 4 * r * c + csr, r * d_eff)
+            put("cs_sketch_rows", "gpt2", max_abs_err=err,
+                ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
+                plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
+                    spec, v_s), **light),
+                bound_ms=b, bound_by=by, library_ms=lib1, tile_strides=tile)
+            check(plan["staged"] == () and not plan["slot_smem"],
+                  "K2 at GPT-2's geometry: expected no staged window and "
+                  "the slot tables in place (<5, 0, false>)")
+            e_k = kern.estimate_median(spec, t32)
+            e_p = kern.estimate_median_torch(spec, t32)
+            torch.cuda.synchronize()
+            check(torch.equal(e_k, e_p), "K2 <5, 0, false> at GPT-2: "
+                  f"max err {float((e_k - e_p).abs().max())}")
+            del e_k, e_p
+            b, by = bound(4 * r * c + perm + 4 * d, r * d + r * (r - 1) * d)
+            put("cs_estimate_median", "gpt2", max_abs_err=0.0,
+                ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t32)),
+                plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
+                    spec, t32), **light),
+                bound_ms=b, bound_by=by, library_ms=None,
+                instantiation="<5,0,false>",
+                dynamic_smem_bytes=plan["smem_bytes"])
+        for form, (operand, tdt) in k1_forms.items():
+            got = kern.sketch_rows(spec, v_s, operand, tdt)
+            x = v_s.to(BF).float() if operand == BF else v_s
+            check(torch.equal(got, kern.sketch_rows(spec, x).to(tdt)),
+                  f"K1 {form} {geo_name}: differs from the f32 kernel on "
+                  "rounded input or with its table rounded")
+            want = kern.sketch_rows_torch(spec, v_s, operand, tdt).float()
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            if tdt == BF:
+                ok = bool((diff <= 2.0**-7 * want.abs()
+                           + 1e-6 * float(want.abs().max())).all())
+            else:
+                ok = err <= 1e-5 * max(1.0, float(want.abs().max()))
+            check(ok, f"K1 {form} {geo_name}: max err {err} against the "
+                  "plain version")
+            del got, want, diff, x
+            b, by = bound(4 * d_eff + tdt.itemsize * r * c + csr, r * d_eff)
+            put(f"cs_sketch_rows[{form}]", geo_name, max_abs_err=err,
+                ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s,
+                                                           operand, tdt)),
+                plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
+                    spec, v_s, operand, tdt), **light),
+                bound_ms=b, bound_by=by, library_ms=lib1,
+                bit_equal_to_f32_kernel=True)
+        for form, (tdt, operand) in k2_forms.items():
+            t = t32.to(tdt)
+            got = kern.estimate_median(spec, t, operand)
+            want = kern.estimate_median_torch(spec, t, operand)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K2 {form} {geo_name}: max err "
+                  f"{float((got - want).abs().max())} (expected exact)")
+            check(torch.equal(got, kern.estimate_median(
+                spec, t32.to(BF).float())), f"K2 {form} {geo_name}: "
+                "differs from the f32 form on the rounded table")
+            del got, want
+            b, by = bound(tdt.itemsize * r * c + perm + 4 * d,
+                          r * d + r * (r - 1) * d)
+            put(f"cs_estimate_median[{form}]", geo_name, max_abs_err=0.0,
+                ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t,
+                                                               operand)),
+                plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
+                    spec, t, operand), **light),
+                bound_ms=b, bound_by=by, library_ms=None,
+                staged_rows=list(kern._k2_plan(spec, str(dev),
+                                               tdt.itemsize)["staged"]))
+        if not big:  # K4 on a bf16 table, both forms, every coordinate
+            t = t32.to(BF)
+            idx = torch.arange(d, device=dev)
+            a_k = kern.estimate_at(spec, t, idx)
+            r_k = kern.estimate_at_range(spec, t, 0, d)
+            want = kern.estimate_at_torch(spec, t, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(a_k, want) and torch.equal(r_k, want),
+                  "K4 on a bf16 table: differs from the plain version")
+            check(torch.equal(r_k, kern.estimate_at_range(spec, t.float(), 0,
+                                                          d)),
+                  "K4 on a bf16 table: differs from the widened f32 table")
+            rplan = kern._range_plan(spec, 0, d, str(dev), 2)
+            b, by = bound(4 * d + 2 * r * c + perm
+                          + 4 * rplan["blocks"].numel(),
+                          r * d + r * (r - 1) * d)
+            put("cs_estimate_at[bf16_table]", "resnet9", max_abs_err=0.0,
+                ms=cuda_ms(torch, lambda: kern.estimate_at_range(spec, t, 0,
+                                                                 d)),
+                plain_ms=cuda_ms(torch, lambda: kern.estimate_at_range_torch(
+                    spec, t, 0, d)),
+                bound_ms=b, bound_by=by, library_ms=None,
+                form="range, n = D",
+                arbitrary_index_ms=cuda_ms(torch, lambda: kern.estimate_at(
+                    spec, t, idx)),
+                staged_rows=list(rplan["staged"]))
+            del a_k, r_k, want, idx
+        del v_s, t32, maps
+        kern._plain_maps.cache_clear()  # ~7.5 GB at GPT-2's geometry
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt2_path_phase(kern, gpt2_train, dataset_dir, name, flags, rounds,
+                    bytes_per_round, want_forms):
+    """``gpt2_train.main`` with BASELINE #4's flags (``flags`` over them)
+    for ``rounds`` rounds at full GPT-2-small width, the counters set to 0
+    just before and read just after: D, the exact bytes per client, the
+    kernels' launches by form (``want_forms``), finite losses, nll and
+    ppl, an MC accuracy in [0, 1], a sample decode, moved params and no
+    envelope warning; prints the round time (median after the first)."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = gpt2_train.main(GPT2_ARGS + flags + [
+            "--max_rounds", str(rounds), "--dataset_dir", dataset_dir])
+    forms = kern.form_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    envelope = [str(w.message) for w in rec if "envelope" in str(w.message)]
+    prompt, gen = out["samples"][-1]
+    ms = [h["ms"] for h in hist]
+    phase(name, D=out["grad_size"], bytes_per_round=out["bytes_per_round"],
+          rounds=len(hist), round_ms=[round(t, 3) for t in ms],
+          round_ms_median_after_first=statistics.median(ms[1:]),
+          losses=losses, val_nll=out["nll"], val_ppl=out["ppl"],
+          val_mc_acc=out["mc_accuracy"],
+          param_delta_norm=out["param_delta_norm"],
+          sample_generated=gen.tolist(), launches=forms,
+          envelope_warnings=len(envelope))
+    check(out["grad_size"] == GPT2_GEOMETRY["d"], f"{name}: D")
+    check(len(hist) == rounds, f"{name}: rounds")
+    check(all(math.isfinite(x) for x in losses), f"{name}: loss not finite")
+    check(math.isfinite(out["nll"]) and math.isfinite(out["ppl"]),
+          f"{name}: nll or ppl not finite")
+    check(0.0 <= out["mc_accuracy"] <= 1.0, f"{name}: MC accuracy")
+    check(out["param_delta_norm"] > 0, f"{name}: params did not move")
+    check(len(prompt) > 0 and len(gen) > 0, f"{name}: no sample decode")
+    check(out["bytes_per_round"] == bytes_per_round,
+          f"{name}: bytes per round {out['bytes_per_round']}")
+    check(not envelope, f"{name}: envelope warning {envelope}")
+    got = {w: f for w, f in forms.items() if f}
+    check(got == want_forms, f"{name}: launches {got}, expected {want_forms}")
+    return forms
+
+
+def sharded_bf16_phase(kern, cv_train, dataset_dir):
+    """The ResNet-9 sharded decode (one card) for BF16_ROUNDS rounds with
+    bf16 tables: K1 storing bf16 twice a round (the encode and the error
+    feedback's slice sketch, whose group sum travels in bf16), K4's range
+    form once, on the f32 table the server algebra works on."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*degenerate")
+        out = cv_train.main(MAIN_ARGS + SHARDED_FLAGS + [
+            "--sketch_table_dtype", "bfloat16", "--max_rounds",
+            str(BF16_ROUNDS), "--dataset_dir", dataset_dir])
+    forms = kern.form_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    bpr = out["bytes_per_round"]
+    phase("sharded_bf16_tables", decode=out["sketch_decode"],
+          D=out["grad_size"], rounds=len(hist),
+          round_ms=[round(h["ms"], 3) for h in hist], losses=losses,
+          val_loss=out["loss"], param_delta_norm=out["param_delta_norm"],
+          bytes_per_round=bpr, launches=forms)
+    check(out["sketch_decode"] == "sharded", "sharded bf16: decode")
+    check(len(hist) == BF16_ROUNDS, "sharded bf16: rounds")
+    check(all(math.isfinite(x) for x in losses), "sharded bf16: loss")
+    check(out["param_delta_norm"] > 0, "sharded bf16: params did not move")
+    check(bpr["upload_bytes"] == 2 * 5 * 505_440
+          and bpr["download_bytes"] == 4 * D_FULL,
+          f"sharded bf16: bytes per round {bpr}")
+    got = {w: f for w, f in forms.items() if f}
+    want = {"sketch_rows": {"bf16_table": 2 * BF16_ROUNDS},
+            "estimate_at_range": {"f32": BF16_ROUNDS}}
+    check(got == want, f"sharded bf16: launches {got}, expected {want}")
+    return forms
 
 
 def main() -> int:
@@ -733,13 +1021,43 @@ def main() -> int:
         kern, cv_train, dataset_dir, dense_bytes)
     fused_timing_phase(cv_train, dataset_dir)
 
-    wrappers = {"cs_sketch_rows": ("sketch_rows",),
-                "cs_estimate_median": ("estimate_median",),
-                "median_rows": ("median_rows",),
-                "cs_estimate_at": ("estimate_at", "estimate_at_range")}
+    # the GPT-2 workload and the bf16 forms
+    from commefficient_tpu_torch.train import gpt2_train
+    from commefficient_tpu_torch.train.agreement_probe import (
+        gpt2_tiny_session,
+    )
 
-    def count(launches, name):
-        return sum(launches[w] for w in wrappers[name])
+    by_geometry = bf16_kernels_phase(torch, cs, kern, dev)
+    paths["gpt2"] = gpt2_path_phase(
+        kern, gpt2_train, dataset_dir, "gpt2_main_path", [], MAIN_ROUNDS,
+        GPT2_BYTES, {"sketch_rows": {"f32": 2 * MAIN_ROUNDS},
+                     "estimate_median": {"f32": MAIN_ROUNDS}})
+    paths["gpt2_bf16_tables"] = gpt2_path_phase(
+        kern, gpt2_train, dataset_dir, "gpt2_bf16_tables",
+        ["--sketch_table_dtype", "bfloat16", "--sketch_dtype", "bfloat16"],
+        BF16_ROUNDS, {**GPT2_BYTES, "upload_bytes": 50_006_880},
+        {"sketch_rows": {"bf16_operand_bf16_table": BF16_ROUNDS,
+                         "bf16_operand": BF16_ROUNDS},
+         "estimate_median": {"f32_table_bf16_operand": BF16_ROUNDS}})
+    paths["sharded_bf16_tables"] = sharded_bf16_phase(kern, cv_train,
+                                                      dataset_dir)
+    agreement_phase(torch, dev, name="agreement_gpt2", deterministic=True,
+                    session=gpt2_tiny_session, **AGREEMENT_GPT2)
+
+    for name, geos in by_geometry.items():
+        if name in entries:  # an f32 kernel's GPT-2 numbers
+            entries[name]["geometries"] = dict(
+                entries[name].get("geometries", {}), **geos)
+            continue
+        main = geos[FORM_MAIN_GEOMETRY[name]]
+        entries[name] = dict(
+            replaces=entries[name.split("[")[0]]["replaces"],
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            main_geometry=FORM_MAIN_GEOMETRY[name], geometries=geos)
+
+    def count(forms, name):
+        return sum(forms[w].get(f, 0) for w, f in FORMS[name])
 
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     launches=sum(count(p, name) for p in paths.values()),

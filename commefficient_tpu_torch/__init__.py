@@ -1,9 +1,11 @@
 """commefficient_tpu_torch — the PyTorch / CUDA port of ``commefficient_tpu``.
 
 The JAX package beside this one is the reference: this package runs the same
-FetchSGD round (same config names, same flat parameter order, same CountSketch
-layout and hashes) on an NVIDIA H100, with the Pallas TPU kernels of the main
-path replaced by hand-written CUDA C++ kernels (``ops/cuda/``).
+federated rounds (same config names, same flat parameter order, same
+CountSketch layout and hashes) for ResNet-9 on CIFAR-10 (``train/cv_train``)
+and GPT-2 on PersonaChat (``train/gpt2_train``) on an NVIDIA H100, with the
+Pallas TPU kernels replaced by hand-written CUDA C++ kernels (``ops/cuda/``),
+in their f32 and bf16 forms.
 
 Rules this package keeps (tests/test_torch_isolation.py pins the first):
 

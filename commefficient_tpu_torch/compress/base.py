@@ -111,9 +111,9 @@ class Compressor:
         def alloc(kind):
             if kind == KIND_DENSE:
                 return torch.zeros(self.d, dtype=torch.float32, device=device)
-            if kind == KIND_TABLE:
-                return torch.zeros(self.spec.table_shape, dtype=torch.float32,
-                                   device=device)
+            if kind == KIND_TABLE:  # in the spec's storage type
+                return torch.zeros(self.spec.table_shape,
+                                   dtype=self.spec.table_dtype, device=device)
             return None
 
         m_kind, e_kind = self.server_state_kinds()

@@ -20,11 +20,21 @@ compacts its <= k selected entries into a fixed buffer, and one ~size*k
 pair all_gather replaces the full-[D] decode. The zero-heavy-hitter error feedback sums
 the ranks' slice sketches (linearity), and the round applies the gathered
 pairs as a k-sparse scatter: no [D] estimate, delta or re-sketch exists.
+
+bf16 tables (``sketch_table_dtype``): the tables are STORED, summed over
+the group and carried in ``spec.table_dtype``, while every piece of server
+algebra upcasts them to f32 first (``_up``) and rounds only what it stores
+back (``_down``): "bf16 tables, f32 accumulation". The error feedback's
+re-sketch of the extracted update accumulates into an f32 table
+(``_spec_acc``), with the operand still rounded to ``spec.dtype``; the
+sharded decode's slice sketches travel in the storage type, as the
+reference's psum payload does.
 """
 
 from __future__ import annotations
 
 import warnings
+from dataclasses import replace
 
 import torch
 
@@ -51,15 +61,22 @@ class SketchCompressor(Compressor):
     supports_fused_clients = True
     dense_delta = False  # the unsketched delta already has <= k nonzeros
 
-    # tables are stored f32 in this slice (bf16 storage is ROADMAP A10), so
-    # the reference's "f32 algebra on upcast tables" casts are no-ops here
+    # the f32 algebra on upcast tables; both casts are no-ops for the f32
+    # default
     @staticmethod
     def _up(table):
         return None if table is None else table.to(torch.float32)
 
-    @staticmethod
-    def _down(table):
-        return None if table is None else table.to(torch.float32)
+    def _down(self, table):
+        return None if table is None else table.to(self.spec.table_dtype)
+
+    @property
+    def _spec_acc(self):
+        """The spec with f32 storage: the interior re-sketch of the error
+        feedback accumulates at f32, so only stored state and the group
+        sum's payload pay the bf16 rounding (equal to ``spec`` for the f32
+        default)."""
+        return replace(self.spec, table_dtype=torch.float32)
 
     def _dampening_warnings(self, dampen: bool) -> None:
         if dampen:
@@ -91,7 +108,8 @@ class SketchCompressor(Compressor):
         if cfg.error_type == "virtual":
             e = error + lr * m
             update = self.unsketch(spec, e, cfg.k)  # dense, <= k nonzeros
-            e = e - sketch_vec(spec, update)  # zero the extracted HH
+            # zero the extracted HH; the re-sketch accumulates at f32
+            e = e - sketch_vec(self._spec_acc, update)
             if cfg.error_decay != 1.0:
                 e = cfg.error_decay * e
             delta = update
@@ -128,8 +146,8 @@ class SketchCompressor(Compressor):
             hh_gidx = torch.clamp(start + loc_d, max=d - 1)
             m_at_hh = torch.where(upd_val != 0,
                                   estimate_at(spec, m, hh_gidx), 0.0)
-            m = m - group.all_reduce_sum(sketch_sparse(spec, hh_gidx,
-                                                       m_at_hh))
+            m = m - group.all_reduce_sum(sketch_sparse(
+                spec, hh_gidx, m_at_hh, table_dtype=spec.table_dtype))
         new_m = m if rho > 0 else momentum
         # this rank's <= k selected entries, compacted; pads clip into
         # range with val 0.0, which the apply scatter adds as a no-op
@@ -163,7 +181,10 @@ class SketchCompressor(Compressor):
             upd = topk_threshold_sharded(est, cfg.k, group)
             loc, val = compact_nonzero(upd, cfg.k)
             gidx = torch.clamp(start + loc, max=d - 1)
-            e = e - group.all_reduce_sum(sketch_sparse(spec, gidx, val))
+            # the group sum's payload is in the storage type (the
+            # reference's psum); the subtraction promotes back to f32
+            e = e - group.all_reduce_sum(sketch_sparse(
+                spec, gidx, val, table_dtype=spec.table_dtype))
             if cfg.error_decay != 1.0:
                 e = cfg.error_decay * e
             return upd, upd, e
@@ -182,3 +203,7 @@ class SketchCompressor(Compressor):
                 f"num_rows*num_cols ({self.cfg.num_rows * self.cfg.num_cols})"
                 " by >25%: raise num_cols or chunk size m.", stacklevel=2)
         return up
+
+    def upload_bytes_per_float(self) -> int:
+        """2 when the tables, the upload, are stored bfloat16, else 4."""
+        return self.spec.table_dtype.itemsize

@@ -7,7 +7,7 @@ indices (pinned by tests/test_torch_round.py). Host-side numpy throughout.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -15,7 +15,10 @@ import numpy as np
 class FedDataset:
     """In-memory dataset partitioned over ``num_clients`` virtual clients,
     IID (global shuffle, even split) or pathologically non-IID (sorted by
-    label, ``SHARDS_PER_CLIENT`` contiguous label shards each)."""
+    label, ``SHARDS_PER_CLIENT`` contiguous label shards each), or, for a
+    naturally federated dataset (PersonaChat: one persona a client), by
+    an explicit ``client_indices`` map. Arrays may have any trailing
+    shape (PersonaChat's ``[N, candidates, T]``)."""
 
     SHARDS_PER_CLIENT = 2
 
@@ -26,6 +29,7 @@ class FedDataset:
         *,
         iid: bool = True,
         seed: int = 42,
+        client_indices: Optional[List[np.ndarray]] = None,
     ):
         lengths = {k: len(v) for k, v in data.items()}
         if len(set(lengths.values())) != 1:
@@ -34,8 +38,13 @@ class FedDataset:
         self.n = next(iter(lengths.values()))
         self.num_clients = num_clients
         self.seed = seed
-        self.client_indices = (self._iid_split() if iid
-                               else self._non_iid_split())
+        if client_indices is not None:
+            self.client_indices = [np.asarray(ix, np.int64)
+                                   for ix in client_indices]
+            self.num_clients = len(self.client_indices)
+        else:
+            self.client_indices = (self._iid_split() if iid
+                                   else self._non_iid_split())
 
     def _iid_split(self) -> List[np.ndarray]:
         rng = np.random.default_rng(self.seed)

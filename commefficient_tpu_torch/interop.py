@@ -58,7 +58,8 @@ def _absent(leaf) -> bool:
 def state_from_jax(leaves: Dict[str, Any], device="cpu") -> FedState:
     """The reference's ``FedState`` leaves as numpy (``{name: array | ()}``
     over ``STATE_LEAVES``) -> the port's ``FedState`` on ``device``: f32
-    tensors, ``None`` where the reference holds ``()``, ``step`` an int."""
+    tensors (bf16 where the reference stores bf16 tables), ``None`` where
+    the reference holds ``()``, ``step`` an int."""
     out = {}
     for name in STATE_LEAVES:
         leaf = leaves[name]
@@ -67,8 +68,10 @@ def state_from_jax(leaves: Dict[str, Any], device="cpu") -> FedState:
         elif _absent(leaf):
             out[name] = None
         else:
-            out[name] = torch.from_numpy(
-                np.array(leaf, np.float32)).to(device)
+            t = torch.from_numpy(np.array(leaf, np.float32)).to(device)
+            if np.asarray(leaf).dtype.name == "bfloat16":
+                t = t.to(torch.bfloat16)  # exact: the values are bf16
+            out[name] = t
     return FedState(**out)
 
 

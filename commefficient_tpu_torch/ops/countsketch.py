@@ -21,12 +21,20 @@ gather, as the reference keeps it outside its Pallas kernels;
 ``estimate_at_range`` walks a coordinate range in scrambled order.
 ``sketch_sparse`` scatters its pairs into a [d] vector and sketches that,
 so no table bucket is summed by float atomics.
+
+The bf16 forms follow the reference's einsum backend: ``spec.dtype``
+(the operand) rounds each signed value to bf16 before the f32 sums of
+``sketch_vec`` and each f32 table entry before ``estimate_all``'s
+estimate; ``spec.table_dtype`` (the storage) rounds only the finished
+table; ``estimate_at`` widens a bf16 table and never rounds; and
+``sketch_sparse`` never rounds its f32 values (the reference scatters
+them in f32), taking its storage type from the caller.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -205,15 +213,26 @@ DIVISORS = ("G", "f", "m", "V", "s", "mq1", "mq", "sblock")
 RP_COUNT = RP_DIV + 2 * len(DIVISORS)
 
 
+SKETCH_DTYPES = (torch.float32, torch.bfloat16)
+
+
 @dataclass(frozen=True)
 class CountSketch:
-    """Static spec of a Count Sketch: the reference's fields that shape the
-    layout (its ``dtype``/``table_dtype`` are float32 here, and its
-    ``backend`` is the tensor's device). ``c`` is a TARGET column count;
-    ``c_actual`` is the realized table width. The derived geometry
+    """Static spec of a Count Sketch: the reference's fields (its
+    ``backend`` is the tensor's device here). ``c`` is a TARGET column
+    count; ``c_actual`` is the realized table width. The derived geometry
     integers are computed once per spec and cached on it (the kernel
     wrappers read them on every launch; recomputing ``c_actual`` costs
-    ~0.1 ms of Python)."""
+    ~0.1 ms of Python).
+
+    ``dtype`` is the OPERAND type: bfloat16 rounds each signed value to
+    bf16 before the f32 accumulation of ``sketch_vec``, and each table
+    entry to bf16 before ``estimate_all``'s estimate (the reference's
+    einsum operands). ``table_dtype`` is the STORAGE type of the tables
+    ``sketch_vec`` returns (the sums stay f32; only the final table is
+    rounded). Neither shapes the layout, so neither takes part in
+    equality: specs that differ only in them share every cached geometry
+    and kernel plan."""
 
     d: int
     c: int
@@ -224,11 +243,17 @@ class CountSketch:
     scramble_block: Optional[int] = None
     band: int = 16
     hash_family: str = "fmix32"
+    dtype: torch.dtype = field(default=torch.float32, compare=False)
+    table_dtype: torch.dtype = field(default=torch.float32, compare=False)
 
     def __post_init__(self):
         if self.hash_family not in ("fmix32", "poly4"):
             raise ValueError(f"hash_family must be fmix32|poly4, got "
                              f"{self.hash_family!r}")
+        for name in ("dtype", "table_dtype"):
+            if getattr(self, name) not in SKETCH_DTYPES:
+                raise ValueError(f"{name} must be torch.float32 or "
+                                 f"torch.bfloat16, got {getattr(self, name)}")
         if self.num_blocks != 1:
             raise ValueError("num_blocks > 1 is not ported (ROADMAP A7)")
 
@@ -448,19 +473,32 @@ def _unscramble(spec: CountSketch, v_s: torch.Tensor) -> torch.Tensor:
 # -- entry points --------------------------------------------------------------
 
 
+def _table(t: torch.Tensor) -> torch.Tensor:
+    """A table as the kernels take it: f32 or bf16 (any other float type
+    goes to f32), contiguous."""
+    if t.dtype not in SKETCH_DTYPES:
+        t = t.to(torch.float32)
+    return t.contiguous()
+
+
 def sketch_vec(spec: CountSketch, v: torch.Tensor) -> torch.Tensor:
-    """Sketch a dense [d] vector into an [r, c_actual] f32 table. Linear:
-    ``sketch_vec(a + b) == sketch_vec(a) + sketch_vec(b)`` up to f32
-    summation order."""
+    """Sketch a dense [d] vector into an [r, c_actual] table of
+    ``spec.table_dtype``, its signed values rounded to ``spec.dtype`` and
+    summed in f32 (K1). Linear: ``sketch_vec(a + b) == sketch_vec(a) +
+    sketch_vec(b)`` up to f32 summation order (and, for bf16 tables, the
+    rounding of the three tables)."""
     _check_poly4_field(spec)
-    return sketch_rows(spec, _scramble(spec, v.to(torch.float32)))
+    return sketch_rows(spec, _scramble(spec, v.to(torch.float32)),
+                       operand=spec.dtype, table_dtype=spec.table_dtype)
 
 
 def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
     """Median-of-rows estimates for all d coordinates, in original order
-    (the gather, the median and the unscramble in one kernel, K2)."""
+    (the gather, the median and the unscramble in one kernel, K2), each
+    table entry read as ``spec.dtype`` (a bf16 table widens; an f32 table
+    rounds to bf16 when the operand type is bf16)."""
     _check_poly4_field(spec)
-    return estimate_median(spec, table.to(torch.float32))
+    return estimate_median(spec, _table(table), operand=spec.dtype)
 
 
 def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):
@@ -471,9 +509,11 @@ def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):
 def estimate_at(spec: CountSketch, table: torch.Tensor,
                 idx: torch.Tensor) -> torch.Tensor:
     """Median-of-rows point estimates at original coordinates ``idx``
-    (the fused scramble + gather + median, K4 on a CUDA tensor)."""
+    (the fused scramble + gather + median, K4 on a CUDA tensor). A bf16
+    table is widened at the read and never rounded to ``spec.dtype``, as
+    the reference's gather path reads it."""
     _check_poly4_field(spec)
-    return estimate_at_kernel(spec, table.to(torch.float32),
+    return estimate_at_kernel(spec, _table(table),
                               idx.to(torch.int64).contiguous())
 
 
@@ -483,22 +523,27 @@ def estimate_at_range(spec: CountSketch, table: torch.Tensor, start: int,
     arange(n), d - 1)``, with no index array (K4's range form on a CUDA
     tensor): the sharded decode's slice estimate."""
     _check_poly4_field(spec)
-    return estimate_at_range_kernel(spec, table.to(torch.float32), start, n)
+    return estimate_at_range_kernel(spec, _table(table), start, n)
 
 
-def sketch_sparse(spec: CountSketch, idx: torch.Tensor,
-                  vals: torch.Tensor) -> torch.Tensor:
+def sketch_sparse(spec: CountSketch, idx: torch.Tensor, vals: torch.Tensor,
+                  table_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Sketch a k-sparse vector given as (indices [k], values [k]); repeats
     accumulate. The pairs are added into a zero [d] vector, which is then
-    sketched by ``sketch_vec``: the table's buckets are summed by K1 in its
-    fixed order, so the result does not depend on float-atomic order. On
-    the card the only order-dependent step is that [d] scatter, which is
-    exact whenever each coordinate carries at most one nonzero value: the
-    (idx, val) buffers of ``compact_nonzero`` hold distinct coordinates
-    plus ``(i, 0.0)`` pads, and adding 0.0 is exact in any order."""
+    sketched by K1 in f32 (never rounded to ``spec.dtype``: the
+    reference scatters f32 values) into a ``table_dtype`` table (the
+    reference's cast of the f32 result): the table's buckets are summed by
+    K1 in its fixed order, so the result does not depend on float-atomic
+    order. On the card the only order-dependent step is that [d] scatter,
+    which is exact whenever each coordinate carries at most one nonzero
+    value: the (idx, val) buffers of ``compact_nonzero`` hold distinct
+    coordinates plus ``(i, 0.0)`` pads, and adding 0.0 is exact in any
+    order."""
+    _check_poly4_field(spec)
     dense = torch.zeros(spec.d, dtype=torch.float32, device=vals.device)
     dense.index_add_(0, idx.to(torch.int64), vals.to(torch.float32))
-    return sketch_vec(spec, dense)
+    return sketch_rows(spec, _scramble(spec, dense), operand=torch.float32,
+                       table_dtype=table_dtype)
 
 
 def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):

@@ -81,15 +81,15 @@ def load_library() -> ctypes.CDLL:
             P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             sigs = {
                 "cs_sketch_rows": [P, I64, P, P, P, I64, P, I32, I32, I32,
-                                   P],
+                                   I32, I32, P],
                 "cs_estimate_median": [P, I64, P, I64, I64, P, I64, I64, I64,
                                        P, I64, I32, P, I64, P, I32, P, P,
-                                       P, I32, P],
+                                       P, I32, I32, P],
                 "cs_estimate_at": [P, I64, P, I64, I64, P, P, P, P, I32,
-                                   I32, P],
+                                   I32, I32, P],
                 "cs_estimate_range": [P, I64, I64, I64, I64, I64, I64, I64,
                                       P, P, I32, I32, P, P, P, P, P, I32,
-                                      I32, P],
+                                      I32, I32, P],
                 "cs_median_rows": [P, I64, I32, P, P],
                 "cs_hash_bits": [P, P, I64, P, I32, I32, P],
             }
@@ -101,20 +101,45 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
+def _template_args(s: str):
+    """The template arguments at the start of a mangled tail ``I...E``:
+    integers, bools (``Lb1E`` reads ``true``), ``float`` and named types
+    (``13__nv_bfloat16``); None for anything else."""
+    if not s.startswith("I"):
+        return None
+    i, vals = 1, []
+    while i < len(s) and s[i] != "E":
+        m = re.match(r"L([ib])(-?\d+)E", s[i:])
+        if m:
+            t, v = m.groups()
+            vals.append(v if t == "i" else ("true" if v == "1" else "false"))
+            i += m.end()
+            continue
+        if s[i] == "f":
+            vals.append("float")
+            i += 1
+            continue
+        m = re.match(r"\d+", s[i:])
+        if not m:
+            return None
+        n, start = int(m.group()), i + m.end()
+        vals.append(s[start:start + n])
+        i = start + n
+    return vals
+
+
 def _kernel_name(mangled: str) -> str:
-    """``_Z21cs_estimate_at_kernelILi5EEv...`` -> ``cs_estimate_at_kernel<5>``
-    (the name and integer or bool template arguments of an Itanium-mangled
-    function; ``Lb1E`` reads ``true``)."""
+    """``_Z21cs_estimate_at_kernelILi5EfEv...`` ->
+    ``cs_estimate_at_kernel<5,float>`` (the name and template arguments of
+    an Itanium-mangled function)."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     n = int(m.group(1))
     name = mangled[m.end():m.end() + n]
-    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[m.end() + n:])
+    args = _template_args(mangled[m.end() + n:])
     if args:
-        vals = [v if t == "i" else ("true" if v == "1" else "false")
-                for t, v in re.findall(r"L([ib])(-?\d+)E", args.group(1))]
-        name += "<" + ",".join(vals) + ">"
+        name += "<" + ",".join(args) + ">"
     return name
 
 

@@ -32,9 +32,14 @@ _FAMILY = {"fmix32": 0, "poly4": 1}
 MAX_ROWS = 8  # CS_MAX_ROWS in csrc/countsketch.cu
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple,
+           dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: expected {want}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
@@ -57,6 +62,23 @@ def _launch(fn, *args) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _check_dtype(name: str, dtype: torch.dtype) -> None:
+    if dtype not in TABLE_DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {dtype}")
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 values to bf16 (nearest, ties to even) and widen back."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _count(wrapper, form: str) -> None:
+    """One launch of ``wrapper``'s kernel in ``form`` (its type
+    variant)."""
+    wrapper.launches += 1
+    wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -102,49 +124,103 @@ def _median_network(rows) -> torch.Tensor:
 # -- K1: sketch rows ------------------------------------------------------------
 
 
-def sketch_rows_torch(spec, v_s: torch.Tensor) -> torch.Tensor:
+def sketch_rows_torch(spec, v_s: torch.Tensor, operand=torch.float32,
+                      table_dtype=torch.float32) -> torch.Tensor:
     """Plain version of K1: an ``index_add_`` scatter per row over the
-    precomputed columns and signs of every scrambled position."""
+    precomputed columns and signs of every scrambled position, each signed
+    value rounded to ``operand`` first, the sums f32, the table rounded to
+    ``table_dtype`` at the end."""
     table = torch.zeros(spec.table_shape, dtype=torch.float32,
                         device=v_s.device)
     for row, (cols, sign) in enumerate(_plain_maps(spec, str(v_s.device))):
-        table[row].index_add_(0, cols, v_s * sign)
-    return table
+        src = v_s * sign
+        if operand == torch.bfloat16:
+            src = _bf16_round(src)
+        table[row].index_add_(0, cols, src)
+    return table.to(table_dtype)
 
 
-def sketch_rows(spec, v_s: torch.Tensor) -> torch.Tensor:
-    """[d_eff] scrambled vector -> [r, c_actual] f32 table (K1)."""
+def k1_form(operand: torch.dtype, table_dtype: torch.dtype) -> str:
+    """The name of K1's type variant: ``f32``, ``bf16_operand``,
+    ``bf16_table`` or ``bf16_operand_bf16_table``."""
+    parts = [name for name, dt in (("bf16_operand", operand),
+                                   ("bf16_table", table_dtype))
+             if dt == torch.bfloat16]
+    return "_".join(parts) or "f32"
+
+
+def sketch_rows(spec, v_s: torch.Tensor, operand=torch.float32,
+                table_dtype=torch.float32) -> torch.Tensor:
+    """[d_eff] f32 scrambled vector -> [r, c_actual] table of
+    ``table_dtype`` (K1): each signed value rounded to ``operand`` (f32:
+    as it is; bf16: to nearest, ties to even), the sums in f32, the final
+    table rounded to ``table_dtype``."""
     _check("sketch_rows v_s", v_s, (spec.d_eff,))
+    _check_dtype("operand", operand)
+    _check_dtype("table_dtype", table_dtype)
     if v_s.device.type == "cpu":
-        return sketch_rows_torch(spec, v_s)
+        return sketch_rows_torch(spec, v_s, operand, table_dtype)
     _check_rows(spec.r)
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
     rows, ptr, off, tile = _kernel_geometry(spec, str(v_s.device))
-    table = torch.empty(spec.table_shape, dtype=torch.float32,
+    form = k1_form(operand, table_dtype)
+    if tile == 0 and form != "f32":
+        raise ValueError(
+            f"sketch_rows: K1's gather kernel (chunk size m = "
+            f"{spec.chunk_m} has no tile kernel) takes f32 only, not the "
+            f"{form} form")
+    table = torch.empty(spec.table_shape, dtype=table_dtype,
                         device=v_s.device)
     _launch(lib.cs_sketch_rows, v_s.data_ptr(), spec.d_eff, ptr.data_ptr(),
             off.data_ptr(), table.data_ptr(), spec.c_actual, rows, spec.r,
-            _FAMILY[spec.hash_family], tile, _stream())
-    sketch_rows.launches += 1
+            _FAMILY[spec.hash_family], tile,
+            int(operand == torch.bfloat16),
+            int(table_dtype == torch.bfloat16), _stream())
+    _count(sketch_rows, form)
     return table
 
 
 sketch_rows.launches = 0
+sketch_rows.forms = {}
 
 
 # -- K2: every coordinate's estimate, in original order -------------------------
 
 
-def estimate_median_torch(spec, table: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: a gather per row plus the median network, in
-    scrambled space, then the unscramble."""
+def _read_table(table: torch.Tensor, operand) -> torch.Tensor:
+    """The table as K2 reads it: widened to f32, each entry rounded to
+    ``operand`` (a no-op for a bf16 table or an f32 operand)."""
+    t = table.to(torch.float32)
+    if operand == torch.bfloat16 and table.dtype == torch.float32:
+        t = _bf16_round(t)
+    return t
+
+
+def estimate_median_torch(spec, table: torch.Tensor,
+                          operand=torch.float32) -> torch.Tensor:
+    """Plain version of K2: a gather per row of the table read as
+    ``operand`` plus the median network, in scrambled space, then the
+    unscramble."""
     from commefficient_tpu_torch.ops.countsketch import _unscramble
 
+    t = _read_table(table, operand)
     maps = _plain_maps(spec, str(table.device))
     return _unscramble(spec, _median_network(
-        table[row][cols] * sign for row, (cols, sign) in enumerate(maps)))
+        t[row][cols] * sign for row, (cols, sign) in enumerate(maps)))
+
+
+def k2_form(table_dtype: torch.dtype, operand: torch.dtype) -> str:
+    """The name of K2's type variant: ``f32``, ``f32_table_bf16_operand``
+    (each f32 entry rounded to bf16 at the read) or ``bf16_table`` (each
+    entry widened at the read; the operand type changes nothing)."""
+    if table_dtype == torch.bfloat16:
+        return "bf16_table"
+    return "f32_table_bf16_operand" if operand == torch.bfloat16 else "f32"
+
+
+K2_TABLE_KIND = {"f32": 0, "f32_table_bf16_operand": 1, "bf16_table": 2}
 
 
 SIGN_WORDS_PER_STEP = 1 << 20  # words packed per step (bounds the temporaries)
@@ -177,12 +253,14 @@ def _row_geo(spec) -> list:
 
 
 @functools.lru_cache(maxsize=8)
-def _k2_plan(spec, device: str):
+def _k2_plan(spec, device: str, itemsize: int = 4):
     """K2's host plan, built once per spec and kept alive here while the
     kernel may read it: tiles of ``index_math.K2_COORDS`` scrambled
     positions (whole scramble blocks) with their table windows (K4's range
     plan at every coordinate) and staged rows, the forward block
-    permutation, the slot tables [r, m] and the packed sign bits."""
+    permutation, the slot tables [r, m] and the packed sign bits. The
+    windows are staged in the table's type (``itemsize`` bytes an
+    entry), and the budget counts their bytes."""
     b = spec.sblock or 64  # no scramble: tiles of blocks of 64 in place
     inv = spec.inverse_block_perm()
     # every block, sorted by scrambled position: the forward permutation
@@ -190,7 +268,8 @@ def _k2_plan(spec, device: str):
     per_block = max(1, index_math.K2_COORDS // b)
     wstart, wlen = index_math.range_windows(blocks, inv, b, 0, spec.d,
                                             spec.d, _row_geo(spec), per_block)
-    staged = index_math.k2_staged_rows(wlen, index_math.K2_WINDOW_BUDGET)
+    staged = index_math.k2_staged_rows(wlen, index_math.K2_WINDOW_BUDGET,
+                                       itemsize)
     woff, wl = [0] * spec.r, [0] * spec.r
     for row in staged:
         woff[row], wl[row] = sum(wl[:row]), int(wlen[row])
@@ -207,23 +286,27 @@ def _k2_plan(spec, device: str):
         wlen=(ctypes.c_int * spec.r)(*wl), slots=slots.to(device),
         slot_smem=slot_smem, signs=packed_sign_bits(spec, device),
         smem_bytes=index_math.k2_smem_bytes(spec.r, m, slot_smem, per_block,
-                                            sum(wl)))
+                                            sum(wl), itemsize))
 
 
-def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
-    """[r, c_actual] table -> [d] median-of-rows estimates in ORIGINAL
-    coordinate order (K2: the estimate, the median and the unscramble in
-    one launch)."""
-    _check("estimate_median table", table, spec.table_shape)
+def estimate_median(spec, table: torch.Tensor,
+                    operand=torch.float32) -> torch.Tensor:
+    """[r, c_actual] f32 or bf16 table -> [d] f32 median-of-rows estimates
+    in ORIGINAL coordinate order (K2: the estimate, the median and the
+    unscramble in one launch), each entry read as ``operand``: a bf16
+    table widens; an f32 table rounds to bf16 when ``operand`` is bf16."""
+    _check("estimate_median table", table, spec.table_shape, TABLE_DTYPES)
+    _check_dtype("operand", operand)
     if table.device.type == "cpu":
-        return estimate_median_torch(spec, table)
+        return estimate_median_torch(spec, table, operand)
     _check_rows(spec.r)
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
     dev = str(table.device)
     rows = _kernel_geometry(spec, dev)[0]
-    plan = _k2_plan(spec, dev)
+    plan = _k2_plan(spec, dev, table.element_size())
+    form = k2_form(table.dtype, operand)
     out = torch.empty(spec.d, dtype=torch.float32, device=table.device)
     _launch(lib.cs_estimate_median, table.data_ptr(), spec.c_actual,
             out.data_ptr(), spec.d, spec.d_eff,
@@ -232,12 +315,13 @@ def estimate_median(spec, table: torch.Tensor) -> torch.Tensor:
             plan["slots"].data_ptr(), spec.chunk_m, int(plan["slot_smem"]),
             plan["signs"].data_ptr(), plan["signs"].shape[1],
             plan["wstart"].data_ptr(), len(plan["staged"]), plan["woff"],
-            plan["wlen"], rows, spec.r, _stream())
-    estimate_median.launches += 1
+            plan["wlen"], rows, spec.r, K2_TABLE_KIND[form], _stream())
+    _count(estimate_median, form)
     return out
 
 
 estimate_median.launches = 0
+estimate_median.forms = {}
 
 
 # -- K4: point estimates at a coordinate subset -----------------------------------
@@ -262,25 +346,27 @@ def _check_index(name: str, idx: torch.Tensor) -> None:
 def estimate_at_torch(spec, table: torch.Tensor,
                       idx: torch.Tensor) -> torch.Tensor:
     """Plain version of K4: per row, the signed bucket of each ORIGINAL
-    coordinate (scramble, riffle, chunk and slot), then the median
-    network."""
+    coordinate (scramble, riffle, chunk and slot), widened to f32, then
+    the median network."""
     spos = spec.scrambled_pos(idx)
     ests = []
     for row in range(spec.r):
         cols, sign = spec.scrambled_cols_signs(row, spos)
-        ests.append(table[row][cols] * sign)
+        ests.append(table[row][cols].to(torch.float32) * sign)
     return _median_network(ests)
 
 
+def k4_form(table_dtype: torch.dtype) -> str:
+    return "bf16_table" if table_dtype == torch.bfloat16 else "f32"
+
+
 def estimate_at(spec, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[r, c_actual] f32 table, [n] int64 original coordinates in [0, d)
-    -> [n] f32 median-of-rows estimates (K4). A coordinate out of range
-    raises: at once on the CPU, and on the card as a device-side assert
-    that surfaces at the next synchronisation."""
-    if table.dtype == torch.bfloat16:
-        raise TypeError("estimate_at: bf16 tables are not ported; bf16 "
-                        "table storage comes with ROADMAP A10")
-    _check("estimate_at table", table, spec.table_shape)
+    """[r, c_actual] f32 or bf16 table, [n] int64 original coordinates in
+    [0, d) -> [n] f32 median-of-rows estimates (K4; a bf16 entry is
+    widened at the read, never rounded further). A coordinate out of
+    range raises: at once on the CPU, and on the card as a device-side
+    assert that surfaces at the next synchronisation."""
+    _check("estimate_at table", table, spec.table_shape, TABLE_DTYPES)
     _check_index("estimate_at idx", idx)
     if idx.device != table.device:
         raise ValueError(f"estimate_at: idx on {idx.device}, table on "
@@ -304,14 +390,15 @@ def estimate_at(spec, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             idx.data_ptr(), idx.numel(), spec.d,
             None if inv is None else inv.data_ptr(), out.data_ptr(),
             err.data_ptr(), rows, spec.r, _FAMILY[spec.hash_family],
-            _stream())
-    estimate_at.launches += 1
+            int(table.dtype == torch.bfloat16), _stream())
+    _count(estimate_at, k4_form(table.dtype))
     torch._assert_async(err == 0, f"estimate_at: an index lies outside "
                                   f"[0, {spec.d})")
     return out
 
 
 estimate_at.launches = 0
+estimate_at.forms = {}
 
 
 def estimate_at_range_torch(spec, table: torch.Tensor, start: int,
@@ -324,21 +411,21 @@ def estimate_at_range_torch(spec, table: torch.Tensor, start: int,
 
 
 @functools.lru_cache(maxsize=8)
-def _range_plan(spec, start: int, n: int, device: str):
+def _range_plan(spec, start: int, n: int, device: str, itemsize: int = 4):
     """The range form's host plan for one (spec, slice): the slice's
     scramble blocks in scrambled order and, per CUDA block, the table
     windows it reads (``index_math``), with the rows whose windows go to
     shared memory. Built once per slice (the sharded decode asks for the
     same slice every round) and kept alive here while the kernel may read
-    it."""
+    it. Windows are staged in the table's type (``itemsize`` bytes)."""
     b = spec.sblock or 64  # no scramble: walk blocks of 64 in place
     inv = spec.inverse_block_perm()
     blocks = index_math.range_block_list(inv, b, start, n, spec.d)
     per_block = max(1, index_math.K4R_COORDS // b)
     wstart, wlen = index_math.range_windows(blocks, inv, b, start, n,
                                             spec.d, _row_geo(spec), per_block)
-    staged = index_math.range_staged_rows(wlen,
-                                          index_math.K4R_SMEM_BUDGET)
+    staged = index_math.range_staged_rows(wlen, index_math.K4R_SMEM_BUDGET,
+                                          itemsize)
     woff, wl, used = [0] * spec.r, [0] * spec.r, 0
     for row in staged:
         woff[row], wl[row] = used, int(wlen[row])
@@ -353,10 +440,11 @@ def _range_plan(spec, start: int, n: int, device: str):
 
 def estimate_at_range(spec, table: torch.Tensor, start: int,
                       n: int) -> torch.Tensor:
-    """[r, c_actual] f32 table -> [n] f32 median-of-rows estimates at the
-    original coordinates ``min(start + arange(n), d - 1)`` (K4's range
-    form; no index array is built or read)."""
-    _check("estimate_at_range table", table, spec.table_shape)
+    """[r, c_actual] f32 or bf16 table -> [n] f32 median-of-rows
+    estimates at the original coordinates ``min(start + arange(n), d -
+    1)`` (K4's range form; no index array is built or read; a bf16 entry
+    is widened at the read)."""
+    _check("estimate_at_range table", table, spec.table_shape, TABLE_DTYPES)
     if start < 0 or n < 0:
         raise ValueError(f"estimate_at_range: start {start} and n {n} must "
                          f"be >= 0")
@@ -371,19 +459,22 @@ def estimate_at_range(spec, table: torch.Tensor, start: int,
     lib = load_library()
     rows = _kernel_geometry(spec, str(table.device))[0]
     inv = _inverse_perm(spec, str(table.device))
-    plan = _range_plan(spec, start, n, str(table.device))
+    plan = _range_plan(spec, start, n, str(table.device),
+                       table.element_size())
     _launch(lib.cs_estimate_range, table.data_ptr(), spec.c_actual, start,
             n, spec.d, plan["xa"], plan["xb"], plan["b"],
             None if inv is None else inv.data_ptr(),
             plan["blocks"].data_ptr(), plan["blocks"].numel(),
             plan["per_block"], plan["wstart"].data_ptr(), plan["woff"],
             plan["wlen"], out.data_ptr(), rows, spec.r,
-            _FAMILY[spec.hash_family], _stream())
-    estimate_at_range.launches += 1
+            _FAMILY[spec.hash_family], int(table.dtype == torch.bfloat16),
+            _stream())
+    _count(estimate_at_range, k4_form(table.dtype))
     return out
 
 
 estimate_at_range.launches = 0
+estimate_at_range.forms = {}
 
 
 # -- K3: median over rows ---------------------------------------------------------
@@ -408,11 +499,12 @@ def median_rows(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
     _launch(lib.cs_median_rows, x.data_ptr(), x.shape[1], x.shape[0],
             out.data_ptr(), _stream())
-    median_rows.launches += 1
+    _count(median_rows, "f32")
     return out
 
 
 median_rows.launches = 0
+median_rows.forms = {}
 
 
 # -- hash check ---------------------------------------------------------------------
@@ -448,7 +540,15 @@ KERNELS = (sketch_rows, estimate_median, median_rows, estimate_at,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.forms = {}
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def form_counts() -> dict:
+    """``{wrapper: {form: launches}}`` since the last reset: the type
+    variants (``k1_form``, ``k2_form``, ``k4_form``) each kernel ran
+    in."""
+    return {k.__name__: dict(k.forms) for k in KERNELS}

@@ -3,11 +3,13 @@
 // and the persistent grid of a kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <mutex>
+#include <type_traits>
 
 #define CS_MAX_ROWS 8
 
@@ -45,10 +47,10 @@ struct CsRows {
 };
 
 // Shared-memory windows of K2 and K4's range form: rows with wlen 0 read
-// the table in place.
+// the table in place. Windows hold the table's stored type.
 struct CsWindows {
-  int woff[CS_MAX_ROWS];  // the row's window offset in shared memory, floats
-  int wlen[CS_MAX_ROWS];  // its length, floats
+  int woff[CS_MAX_ROWS];  // the row's window offset in shared memory, entries
+  int wlen[CS_MAX_ROWS];  // its length, entries
 };
 
 static inline int cs_load_rows(CsRows* P, const long long* rows, int r) {
@@ -96,6 +98,28 @@ __device__ __forceinline__ float cs_median(float* e) {
 }
 
 __host__ __device__ __forceinline__ uint32_t cs_align16(uint32_t bytes) { return (bytes + 15u) & ~15u; }
+
+// Table entries of either storage type (f32 or bf16): a read-only load in
+// the stored type, its value widened to f32 (exact), the stored type's zero,
+// and an f32 value rounded to bf16 (to nearest, ties to even) and widened
+// back.
+__device__ __forceinline__ float cs_ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 cs_ldg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ float cs_f32(float v) { return v; }
+__device__ __forceinline__ float cs_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T cs_zero() {
+  if constexpr (std::is_same<T, float>::value) {
+    return 0.0f;
+  } else {
+    return __ushort_as_bfloat16((unsigned short)0);
+  }
+}
+__device__ __forceinline__ float cs_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // The persistent grid of kernel fn at `threads` threads and `smem` bytes of
 // dynamic shared memory on the current device: as many blocks as fit the

@@ -104,9 +104,22 @@ __device__ __forceinline__ uint32_t cs_col(const long long* g, int family, uint3
 // (ops/cuda/k1_attribution.py times one row's tiles alone beside all five
 // rows, and the tile widths).
 //
+// The bf16 forms (the reference's spec.dtype and spec.table_dtype,
+// _sketch_row's operand rounding at countsketch_kernels.py:188-191 and
+// sketch_vec_pallas's table cast at :244-252), two independent template
+// switches of the tile kernel: ROUND rounds each loaded value to bf16
+// (__float2bfloat16_rn, then widened) on the staging load, which equals
+// rounding the signed value, since rounding to nearest is symmetric; T is
+// the table's type, the f32 tile sums rounded to bf16 at the final write
+// only. The sums stay f32 in shared memory, in the same order, so each
+// form equals the f32 kernel on rounded input or with its table rounded,
+// bit for bit. A bf16 table halves the bytes written (the bound's 4*r*c
+// becomes 2*r*c); the rounding costs an instruction a value.
+//
 // cs_sketch_gather_kernel: one thread per column, reading v_s in place.
 // Kept for geometries whose tile does not fit (m above 8192, or shared
-// memory); the host picks (index_math.sketch_tile_strides).
+// memory); the host picks (index_math.sketch_tile_strides). It is f32
+// only: no path of the port runs it, and it refuses the bf16 forms.
 // ---------------------------------------------------------------------------
 static const int kThreadsK1 = 512;
 
@@ -121,7 +134,7 @@ __host__ __device__ __forceinline__ uint32_t cs_tile_smem(uint32_t m, uint32_t V
 // Load one chunk's values for this thread's E staging slots into v, with
 // their sign bits in neg (bit x: slot x is negative); only slots whose CSR
 // position lies in [e_lo, e_hi), the entries that reach the tile.
-template <int E>
+template <int E, bool ROUND>
 __device__ __forceinline__ void cs_load_chunk(const float* __restrict__ v_s, uint32_t d_eff,
                                               const long long* g, int family, uint32_t q,
                                               const uint32_t* rj, const uint32_t* pos,
@@ -143,18 +156,28 @@ __device__ __forceinline__ void cs_load_chunk(const float* __restrict__ v_s, uin
       }
       const uint32_t i = a * G + cw + (rj[x] >> 16);
       if (i < d_eff) {
-        v[x] = __ldg(v_s + i);
+        v[x] = ROUND ? cs_round_bf16(__ldg(v_s + i)) : __ldg(v_s + i);
         neg |= (cs_sign_hash(g, family, i) & 1u) << x;
       }
     }
   }
 }
 
-template <int E>
+// Four consecutive f32 sums to the table, in its type.
+__device__ __forceinline__ void cs_store4(float* out, uint32_t c4, float4 a) {
+  reinterpret_cast<float4*>(out)[c4] = a;
+}
+__device__ __forceinline__ void cs_store4(__nv_bfloat16* out, uint32_t c4, float4 a) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * c4;
+  o[0] = __floats2bfloat162_rn(a.x, a.y);
+  o[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+
+template <int E, bool ROUND, typename T>
 __global__ void __launch_bounds__(kThreadsK1, E <= 8 ? 2 : 1)
     cs_sketch_tiles_kernel(const float* __restrict__ v_s, uint32_t d_eff,
                            const int* __restrict__ csr_ptr, const int* __restrict__ csr_off,
-                           float* __restrict__ table, uint32_t c_actual,
+                           T* __restrict__ table, uint32_t c_actual,
                            const __grid_constant__ CsRows P, int family, uint32_t W) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int row = blockIdx.y;
@@ -164,7 +187,7 @@ __global__ void __launch_bounds__(kThreadsK1, E <= 8 ? 2 : 1)
   const uint32_t j0 = blockIdx.x * W * s;
   if (j0 >= c_actual) return;
   const uint32_t ncols = min(W * s, c_actual - j0);  // a multiple of 8
-  float* out = table + (size_t)row * c_actual + j0;
+  T* out = table + (size_t)row * c_actual + j0;
   uint16_t* ptr_s = reinterpret_cast<uint16_t*>(smem);
   float* stage = reinterpret_cast<float*>(smem + cs_align16(2 * (V + 4)));
   float4* acc = reinterpret_cast<float4*>(smem + cs_align16(2 * (V + 4)) + cs_align16(4 * m));
@@ -211,7 +234,7 @@ __global__ void __launch_bounds__(kThreadsK1, E <= 8 ? 2 : 1)
     __syncthreads();  // the stage overwrites pos_s from here on
     float v[E];
     uint32_t neg;
-    cs_load_chunk<E>(v_s, d_eff, g, family, q_lo, rj, pos, e_lo, e_hi, v, neg);
+    cs_load_chunk<E, ROUND>(v_s, d_eff, g, family, q_lo, rj, pos, e_lo, e_hi, v, neg);
     for (uint32_t q = q_lo; q <= q_hi; ++q) {
 #pragma unroll
       for (int x = 0; x < E; ++x)
@@ -222,7 +245,7 @@ __global__ void __launch_bounds__(kThreadsK1, E <= 8 ? 2 : 1)
       const uint32_t g_hi = min(ncols, w0 + V - j0) / 4;
       if (q < q_hi) {
         range(q + 1, e_lo, e_hi);
-        cs_load_chunk<E>(v_s, d_eff, g, family, q + 1, rj, pos, e_lo, e_hi, v, neg);
+        cs_load_chunk<E, ROUND>(v_s, d_eff, g, family, q + 1, rj, pos, e_lo, e_hi, v, neg);
       }
       for (uint32_t c4 = g_lo + ((threadIdx.x - g_lo) & (kThreadsK1 - 1)); c4 < g_hi;
            c4 += kThreadsK1) {
@@ -241,8 +264,7 @@ __global__ void __launch_bounds__(kThreadsK1, E <= 8 ? 2 : 1)
       __syncthreads();  // the stage is free for chunk q + 1
     }
   }
-  for (uint32_t c4 = threadIdx.x; c4 < ngroups; c4 += kThreadsK1)
-    reinterpret_cast<float4*>(out)[c4] = acc[c4];
+  for (uint32_t c4 = threadIdx.x; c4 < ngroups; c4 += kThreadsK1) cs_store4(out, c4, acc[c4]);
 }
 
 __global__ void cs_sketch_gather_kernel(const float* __restrict__ v_s, uint32_t d_eff,
@@ -332,8 +354,22 @@ __global__ void cs_sketch_gather_kernel(const float* __restrict__ v_s, uint32_t 
 // a tile's coordinates (354 static SASS instructions at r = 5), the
 // per-tile staging and barriers, and a tail (1605 tiles on 264 resident
 // blocks: the seventh round is 8% full).
+//
+// The table types (TK, the reference's _estimate_row reading its window
+// as spec.dtype at countsketch_kernels.py:292-294): 0, an f32 table read
+// as it is; 1, an f32 table with each entry rounded to bf16 at the read
+// (spec.dtype bfloat16); 2, a bf16 table, each entry widened at the read.
+// Windows are staged in the stored type, so a bf16 table stages twice the
+// entries in the same budget (index_math.k2_staged_rows counts bytes). At
+// the GPT-2 geometry (m = 8192, V = 5248) neither rows 0-1's windows nor
+// the slot tables fit (NS = 0, SLOT_SMEM false): every row reads the table
+// in place and the slot tables from global memory (L2).
 // ---------------------------------------------------------------------------
 static const int kThreadsK2 = 1024;
+
+// The stored type of K2's table kind TK.
+template <int TK>
+using CsTable = typename std::conditional<TK == 2, __nv_bfloat16, float>::type;
 
 // n div d for a divisor d that is 2^shift (shift >= 0), else by d's
 // multiplier pair at g[which].
@@ -342,9 +378,9 @@ __device__ __forceinline__ uint32_t cs_div_pow2_or(uint32_t n, int shift, const 
   return shift >= 0 ? n >> shift : cs_udiv(n, g, which);
 }
 
-template <int R, int NS, bool SLOT_SMEM>
+template <int R, int NS, bool SLOT_SMEM, int TK>
 __global__ void __launch_bounds__(kThreadsK2, 2)
-    cs_estimate_median_kernel(const float* __restrict__ table, uint32_t c_actual,
+    cs_estimate_median_kernel(const CsTable<TK>* __restrict__ table, uint32_t c_actual,
                               float* __restrict__ out, uint32_t d, uint32_t d_eff,
                               const int* __restrict__ perm, uint32_t b, int b_shift,
                               uint32_t per_tile, uint32_t ntiles,
@@ -358,8 +394,8 @@ __global__ void __launch_bounds__(kThreadsK2, 2)
   const uint32_t per_block = per_tile / b;  // scramble blocks a tile
   uint16_t* slot_s = reinterpret_cast<uint16_t*>(smem);
   uint32_t* xoff = reinterpret_cast<uint32_t*>(smem + (SLOT_SMEM ? cs_align16(2 * R * m) : 0));
-  float* win = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xoff) +
-                                        cs_align16(4 * per_block));
+  using T = CsTable<TK>;
+  T* win = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(xoff) + cs_align16(4 * per_block));
   if constexpr (SLOT_SMEM) {
     for (uint32_t t = threadIdx.x; t < R * m; t += kThreadsK2) slot_s[t] = (uint16_t)__ldg(slots + t);
   }
@@ -369,9 +405,9 @@ __global__ void __launch_bounds__(kThreadsK2, 2)
 #pragma unroll
     for (int row = 0; row < NS; ++row) {
       const uint32_t w0 = (uint32_t)__ldg(wstart + (size_t)tile * R + row);
-      const float* trow = table + (size_t)row * c_actual;
+      const T* trow = table + (size_t)row * c_actual;
       for (int c = threadIdx.x; c < W.wlen[row]; c += kThreadsK2)
-        win[W.woff[row] + c] = w0 + c < c_actual ? __ldg(trow + w0 + c) : 0.0f;
+        win[W.woff[row] + c] = w0 + c < c_actual ? cs_ldg(trow + w0 + c) : cs_zero<T>();
       if (threadIdx.x == 0) wbase[row] = W.woff[row] - (int)w0;
     }
     if (threadIdx.x < R) {
@@ -409,8 +445,9 @@ __global__ void __launch_bounds__(kThreadsK2, 2)
         const uint32_t slot = SLOT_SMEM ? (uint32_t)slot_s[row * m + o]
                                         : (uint32_t)__ldg(slots + row * m + o);
         const uint32_t col = q * (uint32_t)g[RP_S] + slot;
-        const float v = row < NS ? win[wbase[row] + (int)col]
-                                 : __ldg(table + (size_t)row * c_actual + col);
+        float v = cs_f32(row < NS ? win[wbase[row] + (int)col]
+                                  : cs_ldg(table + (size_t)row * c_actual + col));
+        if constexpr (TK == 1) v = cs_round_bf16(v);
         const uint32_t word = __ldg(signs + (size_t)row * nw + (i >> 5));
         e[row] = v * (((word >> (i & 31u)) & 1u) ? -1.0f : 1.0f);
       }
@@ -460,10 +497,16 @@ __global__ void __launch_bounds__(kThreadsK2, 2)
 // where the scrambled order still makes L1 hits of many reads). Outputs go
 // out in runs of sblock floats (out[x - start]); the clipped tail past
 // d - 1 repeats d - 1's estimate.
+//
+// Both forms take the table in either stored type T: a bf16 table (the
+// reference's spec.table_dtype) is widened to f32 at the read and never
+// rounded to spec.dtype (decode_kernels.py:146-149, :160), and the range
+// form stages its windows in bf16, twice the entries in the same budget.
+// No whole-table f32 copy is made: the table's bytes halve.
 // ---------------------------------------------------------------------------
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(256)
-    cs_estimate_at_kernel(const float* __restrict__ table, uint32_t c_actual,
+    cs_estimate_at_kernel(const T* __restrict__ table, uint32_t c_actual,
                           const long long* __restrict__ idx, long long n, unsigned long long d,
                           const int* __restrict__ inv_perm, float* __restrict__ out,
                           int* __restrict__ err, const __grid_constant__ CsRows P, int family) {
@@ -487,30 +530,32 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int row = 0; row < R; ++row) {
     const long long* g = P.v[row];
-    e[row] = __ldg(table + (size_t)row * c_actual + cs_col(g, family, i)) * cs_sign(g, family, i);
+    e[row] = cs_f32(cs_ldg(table + (size_t)row * c_actual + cs_col(g, family, i))) *
+             cs_sign(g, family, i);
   }
   __stcs(out + t, cs_median<R>(e));
 }
 
 static const int kThreadsK4r = 1024;
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreadsK4r)
-    cs_estimate_range_kernel(const float* __restrict__ table, uint32_t c_actual, long long start,
+    cs_estimate_range_kernel(const T* __restrict__ table, uint32_t c_actual, long long start,
                              long long n, uint32_t d, uint32_t xa, uint32_t xb, uint32_t b,
                              const int* __restrict__ inv_perm, const int* __restrict__ blocks,
                              int nlist, int per_block, const int* __restrict__ wstart,
                              const CsWindows W, float* __restrict__ out,
                              const __grid_constant__ CsRows P, int family) {
-  extern __shared__ __align__(16) float win[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* win = reinterpret_cast<T*>(smem);
   uint32_t w0[R];
 #pragma unroll
   for (int row = 0; row < R; ++row) {
     w0[row] = (uint32_t)__ldg(wstart + (size_t)blockIdx.x * R + row);
     if (W.wlen[row]) {
-      const float* trow = table + (size_t)row * c_actual;
+      const T* trow = table + (size_t)row * c_actual;
       for (int c = threadIdx.x; c < W.wlen[row]; c += kThreadsK4r)
-        win[W.woff[row] + c] = w0[row] + c < c_actual ? __ldg(trow + w0[row] + c) : 0.0f;
+        win[W.woff[row] + c] = w0[row] + c < c_actual ? cs_ldg(trow + w0[row] + c) : cs_zero<T>();
     }
   }
   __syncthreads();
@@ -528,8 +573,8 @@ __global__ void __launch_bounds__(kThreadsK4r)
       for (int row = 0; row < R; ++row) {
         const long long* g = P.v[row];
         const uint32_t col = cs_col(g, family, i);
-        const float v = W.wlen[row] ? win[W.woff[row] + (col - w0[row])]
-                                    : __ldg(table + (size_t)row * c_actual + col);
+        const float v = cs_f32(W.wlen[row] ? win[W.woff[row] + (col - w0[row])]
+                                           : cs_ldg(table + (size_t)row * c_actual + col));
         e[row] = v * cs_sign(g, family, i);
       }
       const float med = cs_median<R>(e);
@@ -587,18 +632,20 @@ static const int kThreads = 256;
 extern "C" {
 
 // tile_strides W > 0 selects the tile kernel (W strides per block), 0 the
-// gather kernel.
+// gather kernel (f32 only). round_operand rounds each value to bf16;
+// bf16_table writes a bf16 table (else f32).
 int cs_sketch_rows(const float* v_s, long long d_eff, const int* csr_ptr, const int* csr_off,
-                   float* table, long long c_actual, const long long* rows, int r, int family,
-                   int tile_strides, void* stream) {
+                   void* table, long long c_actual, const long long* rows, int r, int family,
+                   int tile_strides, int round_operand, int bf16_table, void* stream) {
   CsRows P;
   const int rc = cs_load_rows(&P, rows, r);
   if (rc) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   if (tile_strides <= 0) {
+    if (round_operand || bf16_table) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((c_actual + kThreads - 1) / kThreads), (unsigned)r);
     cs_sketch_gather_kernel<<<grid, kThreads, 0, st>>>(v_s, (uint32_t)d_eff, csr_ptr, csr_off,
-                                                       table, c_actual, P, family);
+                                                       (float*)table, c_actual, P, family);
     return (int)cudaGetLastError();
   }
   const uint32_t W = (uint32_t)tile_strides;
@@ -615,19 +662,34 @@ int cs_sketch_rows(const float* v_s, long long d_eff, const int* csr_ptr, const 
   }
   const dim3 grid((unsigned)tiles, (unsigned)r);
   cudaError_t e = cudaSuccess;
-#define CS_K1(E)                                                                              \
-  e = cudaFuncSetAttribute(cs_sketch_tiles_kernel<E>,                                         \
+#define CS_K1(E, RND, T)                                                                      \
+  e = cudaFuncSetAttribute(cs_sketch_tiles_kernel<E, RND, T>,                                 \
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);           \
   if (e != cudaSuccess) return (int)e;                                                        \
-  cs_sketch_tiles_kernel<E><<<grid, kThreadsK1, smem, st>>>(                                  \
-      v_s, (uint32_t)d_eff, csr_ptr, csr_off, table, (uint32_t)c_actual, P, family, W)
+  cs_sketch_tiles_kernel<E, RND, T><<<grid, kThreadsK1, smem, st>>>(                          \
+      v_s, (uint32_t)d_eff, csr_ptr, csr_off, (T*)table, (uint32_t)c_actual, P, family, W)
+#define CS_K1F(E)                                                                             \
+  if (round_operand) {                                                                        \
+    if (bf16_table) {                                                                         \
+      CS_K1(E, true, __nv_bfloat16);                                                          \
+    } else {                                                                                  \
+      CS_K1(E, true, float);                                                                  \
+    }                                                                                         \
+  } else {                                                                                    \
+    if (bf16_table) {                                                                         \
+      CS_K1(E, false, __nv_bfloat16);                                                         \
+    } else {                                                                                  \
+      CS_K1(E, false, float);                                                                 \
+    }                                                                                         \
+  }
   const uint32_t per = (m_max + kThreadsK1 - 1) / kThreadsK1;
-  if (per <= 1) { CS_K1(1); }
-  else if (per <= 2) { CS_K1(2); }
-  else if (per <= 4) { CS_K1(4); }
-  else if (per <= 8) { CS_K1(8); }
-  else if (per <= 16) { CS_K1(16); }
+  if (per <= 1) { CS_K1F(1); }
+  else if (per <= 2) { CS_K1F(2); }
+  else if (per <= 4) { CS_K1F(4); }
+  else if (per <= 8) { CS_K1F(8); }
+  else if (per <= 16) { CS_K1F(16); }
   else return (int)cudaErrorInvalidValue;
+#undef CS_K1F
 #undef CS_K1
   return (int)cudaGetLastError();
 }
@@ -639,18 +701,20 @@ int cs_sketch_rows(const float* v_s, long long d_eff, const int* csr_ptr, const 
 // woff/wlen; the slot tables slots [r, m] int32, copied to shared memory
 // as uint16 when slot_smem; the packed sign bits signs [r, nw]. The
 // persistent grid is sized once per instantiation and device
-// (cs_persistent_grid).
-int cs_estimate_median(const float* table, long long c_actual, float* out, long long d,
+// (cs_persistent_grid). table_kind: 0 an f32 table, 1 an f32 table read
+// rounded to bf16, 2 a bf16 table; woff/wlen count entries of its type.
+int cs_estimate_median(const void* table, long long c_actual, float* out, long long d,
                        long long d_eff, const int* perm, long long b, long long per_tile,
                        long long ntiles, const int* slots, long long m, int slot_smem,
                        const int* signs, long long nw, const int* wstart, int ns,
                        const int* woff, const int* wlen, const long long* rows, int r,
-                       void* stream) {
+                       int table_kind, void* stream) {
   CsRows P;
   const int rc = cs_load_rows(&P, rows, r);
   if (rc) return rc;
   if (ntiles <= 0) return 0;
   if (!(ns == 0 || (ns == 2 && r >= 2))) return (int)cudaErrorInvalidValue;
+  if (table_kind < 0 || table_kind > 2) return (int)cudaErrorInvalidValue;
   CsWindows W;
   memset(&W, 0, sizeof(W));
   int wfloats = 0;
@@ -661,52 +725,63 @@ int cs_estimate_median(const float* table, long long c_actual, float* out, long 
   }
   const uint32_t mm = (uint32_t)m, bb = (uint32_t)b;
   const int smem = (slot_smem ? (int)cs_align16(2u * (uint32_t)r * mm) : 0) +
-                   (int)cs_align16(4u * (uint32_t)(per_tile / b)) + 4 * wfloats;
+                   (int)cs_align16(4u * (uint32_t)(per_tile / b)) +
+                   (table_kind == 2 ? 2 : 4) * wfloats;
   const int m_shift = (mm & (mm - 1)) == 0 ? __builtin_ctz(mm) : -1;
   const int b_shift = (bb & (bb - 1)) == 0 ? __builtin_ctz(bb) : -1;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
   long long grid = 0;
-#define CS_K2(R, NS, S)                                                                        \
-  e = cs_persistent_grid(cs_estimate_median_kernel<R, NS, S>, kThreadsK2, smem, &grid);        \
+#define CS_K2(R, NS, S, TK)                                                                    \
+  e = cs_persistent_grid(cs_estimate_median_kernel<R, NS, S, TK>, kThreadsK2, smem, &grid);    \
   if (e != cudaSuccess) return (int)e;                                                         \
-  cs_estimate_median_kernel<R, NS, S><<<(unsigned)(grid < ntiles ? grid : ntiles), kThreadsK2, \
-                                        smem, st>>>(                                           \
-      table, (uint32_t)c_actual, out, (uint32_t)d, (uint32_t)d_eff, perm, bb, b_shift,         \
-      (uint32_t)per_tile, (uint32_t)ntiles, slots, mm, m_shift, (const uint32_t*)signs,        \
-      (uint32_t)nw, wstart, W, P)
-#define CS_K2S(R, NS)     \
-  if (slot_smem) {        \
-    CS_K2(R, NS, true);   \
-  } else {                \
-    CS_K2(R, NS, false);  \
+  cs_estimate_median_kernel<R, NS, S, TK><<<(unsigned)(grid < ntiles ? grid : ntiles),         \
+                                            kThreadsK2, smem, st>>>(                           \
+      (const CsTable<TK>*)table, (uint32_t)c_actual, out, (uint32_t)d, (uint32_t)d_eff, perm,  \
+      bb, b_shift, (uint32_t)per_tile, (uint32_t)ntiles, slots, mm, m_shift,                   \
+      (const uint32_t*)signs, (uint32_t)nw, wstart, W, P)
+#define CS_K2S(R, NS, TK)    \
+  if (slot_smem) {           \
+    CS_K2(R, NS, true, TK);  \
+  } else {                   \
+    CS_K2(R, NS, false, TK); \
   }
-#define CS_K2R(R)         \
-  if (ns == 2) {          \
-    CS_K2S(R, 2);         \
-  } else {                \
-    CS_K2S(R, 0);         \
+#define CS_K2R(R, TK)      \
+  if (ns == 2) {           \
+    CS_K2S(R, 2, TK);      \
+  } else {                 \
+    CS_K2S(R, 0, TK);      \
   }
-  switch (r) {
-    case 1: CS_K2S(1, 0); break;
-    case 2: CS_K2R(2); break;
-    case 3: CS_K2R(3); break;
-    case 4: CS_K2R(4); break;
-    case 5: CS_K2R(5); break;
-    case 6: CS_K2R(6); break;
-    case 7: CS_K2R(7); break;
-    case 8: CS_K2R(8); break;
-    default: return (int)cudaErrorInvalidValue;
+#define CS_K2T(TK)                          \
+  switch (r) {                              \
+    case 1: CS_K2S(1, 0, TK); break;        \
+    case 2: CS_K2R(2, TK); break;           \
+    case 3: CS_K2R(3, TK); break;           \
+    case 4: CS_K2R(4, TK); break;           \
+    case 5: CS_K2R(5, TK); break;           \
+    case 6: CS_K2R(6, TK); break;           \
+    case 7: CS_K2R(7, TK); break;           \
+    case 8: CS_K2R(8, TK); break;           \
+    default: return (int)cudaErrorInvalidValue; \
   }
+  if (table_kind == 0) {
+    CS_K2T(0);
+  } else if (table_kind == 1) {
+    CS_K2T(1);
+  } else {
+    CS_K2T(2);
+  }
+#undef CS_K2T
 #undef CS_K2R
 #undef CS_K2S
 #undef CS_K2
   return (int)cudaGetLastError();
 }
 
-int cs_estimate_at(const float* table, long long c_actual, const long long* idx, long long n,
+// bf16_table: the table is bf16 (else f32), widened at the read.
+int cs_estimate_at(const void* table, long long c_actual, const long long* idx, long long n,
                    long long d, const int* inv_perm, float* out, int* err,
-                   const long long* rows, int r, int family, void* stream) {
+                   const long long* rows, int r, int family, int bf16_table, void* stream) {
   CsRows P;
   const int rc = cs_load_rows(&P, rows, r);
   if (rc) return rc;
@@ -715,32 +790,40 @@ int cs_estimate_at(const float* table, long long c_actual, const long long* idx,
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned long long dd = (unsigned long long)d;
   const uint32_t c = (uint32_t)c_actual;
-#define CS_K4(R)                                                                          \
-  cs_estimate_at_kernel<R><<<blocks, kThreads, 0, st>>>(table, c, idx, n, dd, inv_perm, out, \
-                                                        err, P, family)
-  switch (r) {
-    case 1: CS_K4(1); break;
-    case 2: CS_K4(2); break;
-    case 3: CS_K4(3); break;
-    case 4: CS_K4(4); break;
-    case 5: CS_K4(5); break;
-    case 6: CS_K4(6); break;
-    case 7: CS_K4(7); break;
-    case 8: CS_K4(8); break;
-    default: return (int)cudaErrorInvalidValue;
+#define CS_K4(R, T)                                                                      \
+  cs_estimate_at_kernel<R, T><<<blocks, kThreads, 0, st>>>((const T*)table, c, idx, n, dd,  \
+                                                           inv_perm, out, err, P, family)
+#define CS_K4T(T)                                \
+  switch (r) {                                   \
+    case 1: CS_K4(1, T); break;                  \
+    case 2: CS_K4(2, T); break;                  \
+    case 3: CS_K4(3, T); break;                  \
+    case 4: CS_K4(4, T); break;                  \
+    case 5: CS_K4(5, T); break;                  \
+    case 6: CS_K4(6, T); break;                  \
+    case 7: CS_K4(7, T); break;                  \
+    case 8: CS_K4(8, T); break;                  \
+    default: return (int)cudaErrorInvalidValue; \
   }
+  if (bf16_table) {
+    CS_K4T(__nv_bfloat16);
+  } else {
+    CS_K4T(float);
+  }
+#undef CS_K4T
 #undef CS_K4
   return (int)cudaGetLastError();
 }
 
 // The range form over the host-built block list (nlist original scramble
 // blocks of b positions, per_block of them per CUDA block) and per-block
-// window starts wstart [nblk, r]; woff/wlen [r] place the staged windows.
-int cs_estimate_range(const float* table, long long c_actual, long long start, long long n,
+// window starts wstart [nblk, r]; woff/wlen [r] place the staged windows,
+// in entries of the table's type (bf16_table: bf16, else f32).
+int cs_estimate_range(const void* table, long long c_actual, long long start, long long n,
                       long long d, long long xa, long long xb, long long b, const int* inv_perm,
                       const int* blocks, int nlist, int per_block, const int* wstart,
                       const int* woff, const int* wlen, float* out, const long long* rows,
-                      int r, int family, void* stream) {
+                      int r, int family, int bf16_table, void* stream) {
   CsRows P;
   const int rc = cs_load_rows(&P, rows, r);
   if (rc) return rc;
@@ -753,28 +836,35 @@ int cs_estimate_range(const float* table, long long c_actual, long long start, l
     W.wlen[row] = wlen[row];
     if (woff[row] + wlen[row] > smem) smem = woff[row] + wlen[row];
   }
-  smem *= (int)sizeof(float);
+  smem *= bf16_table ? 2 : 4;
   const unsigned grid = (unsigned)((nlist + per_block - 1) / per_block);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
-#define CS_K4R(R)                                                                             \
-  e = cudaFuncSetAttribute(cs_estimate_range_kernel<R>,                                       \
+#define CS_K4R(R, T)                                                                          \
+  e = cudaFuncSetAttribute(cs_estimate_range_kernel<R, T>,                                    \
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                \
   if (e != cudaSuccess) return (int)e;                                                        \
-  cs_estimate_range_kernel<R><<<grid, kThreadsK4r, smem, st>>>(                               \
-      table, (uint32_t)c_actual, start, n, (uint32_t)d, (uint32_t)xa, (uint32_t)xb,           \
+  cs_estimate_range_kernel<R, T><<<grid, kThreadsK4r, smem, st>>>(                            \
+      (const T*)table, (uint32_t)c_actual, start, n, (uint32_t)d, (uint32_t)xa, (uint32_t)xb, \
       (uint32_t)b, inv_perm, blocks, nlist, per_block, wstart, W, out, P, family)
-  switch (r) {
-    case 1: CS_K4R(1); break;
-    case 2: CS_K4R(2); break;
-    case 3: CS_K4R(3); break;
-    case 4: CS_K4R(4); break;
-    case 5: CS_K4R(5); break;
-    case 6: CS_K4R(6); break;
-    case 7: CS_K4R(7); break;
-    case 8: CS_K4R(8); break;
-    default: return (int)cudaErrorInvalidValue;
+#define CS_K4RT(T)                               \
+  switch (r) {                                   \
+    case 1: CS_K4R(1, T); break;                 \
+    case 2: CS_K4R(2, T); break;                 \
+    case 3: CS_K4R(3, T); break;                 \
+    case 4: CS_K4R(4, T); break;                 \
+    case 5: CS_K4R(5, T); break;                 \
+    case 6: CS_K4R(6, T); break;                 \
+    case 7: CS_K4R(7, T); break;                 \
+    case 8: CS_K4R(8, T); break;                 \
+    default: return (int)cudaErrorInvalidValue; \
   }
+  if (bf16_table) {
+    CS_K4RT(__nv_bfloat16);
+  } else {
+    CS_K4RT(float);
+  }
+#undef CS_K4RT
 #undef CS_K4R
   return (int)cudaGetLastError();
 }

@@ -155,15 +155,15 @@ def range_windows(blocks, inv_perm, b: int, start: int, n: int, d: int,
     return wstart, wlen
 
 
-def range_staged_rows(wlen, budget: int) -> list:
+def range_staged_rows(wlen, budget: int, itemsize: int = 4) -> list:
     """Rows whose windows go to shared memory: narrowest first while their
-    f32 windows fit ``budget`` bytes in all. The others read the table in
-    place."""
+    windows, ``itemsize`` bytes an entry (the table's type), fit
+    ``budget`` bytes in all. The others read the table in place."""
     staged, used = [], 0
     for row in sorted(range(len(wlen)), key=lambda r: wlen[r]):
-        if used + 4 * int(wlen[row]) <= budget:
+        if used + itemsize * int(wlen[row]) <= budget:
             staged.append(row)
-            used += 4 * int(wlen[row])
+            used += itemsize * int(wlen[row])
     return sorted(staged)
 
 
@@ -181,20 +181,22 @@ def k2_slots_in_smem(r: int, m: int, v_max: int) -> bool:
     return v_max < 1 << 16 and 2 * r * m <= K2_SLOT_BUDGET
 
 
-def k2_staged_rows(wlen, budget: int) -> tuple:
+def k2_staged_rows(wlen, budget: int, itemsize: int = 4) -> tuple:
     """The rows whose table windows K2 stages: rows 0 and 1 (the narrowest
-    riffles) when both windows fit ``budget`` bytes together, else none
-    (the kernel fixes the count at compile time)."""
-    if len(wlen) >= 2 and 4 * (int(wlen[0]) + int(wlen[1])) <= budget:
+    riffles) when both windows, ``itemsize`` bytes an entry (the table's
+    type), fit ``budget`` bytes together, else none (the kernel fixes the
+    count at compile time)."""
+    if len(wlen) >= 2 and itemsize * (int(wlen[0]) + int(wlen[1])) <= budget:
         return (0, 1)
     return ()
 
 
 def k2_smem_bytes(r: int, m: int, slot_smem: bool, blocks_per_tile: int,
-                  window_floats: int) -> int:
+                  window_entries: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of one K2 block: the uint16 slot tables when
     they are staged, the tile's scramble-block offsets (uint32), then the
-    f32 windows, each part padded to 16 bytes. Same layout as
-    ``cs_estimate_median`` in ``csrc/countsketch.cu``."""
+    windows in the table's type (``itemsize`` bytes an entry), each part
+    padded to 16 bytes. Same layout as ``cs_estimate_median`` in
+    ``csrc/countsketch.cu``."""
     return ((_align16(2 * r * m) if slot_smem else 0)
-            + _align16(4 * blocks_per_tile) + 4 * window_floats)
+            + _align16(4 * blocks_per_tile) + itemsize * window_entries)

@@ -74,7 +74,7 @@ def main() -> dict:
         out = torch.empty((r, spec.c_actual), device=dev)
         kern._launch(lib.cs_sketch_rows, v_s.data_ptr(), spec.d_eff,
                      ptr.data_ptr(), off.data_ptr(), out.data_ptr(),
-                     spec.c_actual, prm, r, 0, w, kern._stream())
+                     spec.c_actual, prm, r, 0, w, 0, 0, kern._stream())
         return out
 
     want = kern.sketch_rows(spec, v_s)

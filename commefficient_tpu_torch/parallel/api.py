@@ -19,17 +19,56 @@ from commefficient_tpu_torch import resolve_device
 from commefficient_tpu_torch.compress import compressor_class, get_compressor
 from commefficient_tpu_torch.ops.countsketch import CountSketch
 from commefficient_tpu_torch.ops.param_utils import ravel_params
+from commefficient_tpu_torch.parallel.envelope import (
+    predicted_dc_max,
+    stable_dc_bound,
+)
 from commefficient_tpu_torch.parallel.mesh import local_rank, make_worker_group
 from commefficient_tpu_torch.parallel.round import (
     build_eval_fn,
     build_round_fn,
     init_state,
+    mask_classification,
 )
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def envelope_warning(d: int, c_actual: int,
+                     error_decay: float) -> Optional[str]:
+    """The reference session's d/c warning, or None: a realized ``d /
+    c_actual`` above ``stable_dc_bound(error_decay)`` is outside the
+    fitted stable envelope of the error feedback (``parallel/
+    envelope.py``). The suggested ``num_cols`` pads the realized target by
+    5%, enough that following it clears the check (the realized width
+    deviates a few percent from the request)."""
+    bound = stable_dc_bound(error_decay)
+    if d <= bound * c_actual:
+        return None
+    suggest = -(-(int(d / bound) + 1) * 21 // 20)
+    decay_note = "" if error_decay < 0.95 else (
+        " or lower error_decay (gamma=0.9 moves the fitted cliff to d/c "
+        f"~{predicted_dc_max(0.9):.0f})")
+    return (
+        f"sketch mode at realized d/c = {d / c_actual:.1f} (c_actual="
+        f"{c_actual:,}) is OUTSIDE the stable envelope for error_decay="
+        f"{error_decay:g}: the fitted error-bank model (parallel/"
+        f"envelope.py) puts the cliff at d/c ~"
+        f"{predicted_dc_max(error_decay):.0f} for this gamma (warning "
+        f"threshold {bound:.0f}, the last measured-stable point). Raise "
+        f"num_cols to >= {suggest:,}{decay_note}.")
+
+
+def _sum_key(k: str) -> bool:
+    """Eval metrics that are already masked sums over a batch (summed
+    across batches as they are); any other key is a per-batch mean."""
+    return k in ("loss_sum", "correct", "count") or k.endswith(
+        ("_sum", "_count"))
 
 
 def microbatched(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -50,9 +89,12 @@ class FederatedSession:
     of arrays/tensors keyed like the reference's flax params
     (``ravel_pytree`` order). With ``num_devices > 1`` the session is one
     rank of the group (``parallel/mesh.py``) on ``cuda:LOCAL_RANK``; every
-    rank holds the same state."""
+    rank holds the same state. ``mask_batch(batch, row_mask)`` masks an
+    eval batch's padded rows (``mask_classification``, or ``mask_gpt2``
+    for the GPT-2 batch)."""
 
-    def __init__(self, cfg, params: Any, loss_fn: Callable):
+    def __init__(self, cfg, params: Any, loss_fn: Callable,
+                 mask_batch: Callable = mask_classification):
         self.cfg = cfg
         self.group = make_worker_group(cfg)
         self.device = resolve_device(cfg.device)
@@ -67,7 +109,13 @@ class FederatedSession:
             self.spec = CountSketch(
                 d=self.grad_size, c=cfg.num_cols, r=cfg.num_rows,
                 num_blocks=cfg.num_blocks, seed=cfg.seed, m=cfg.sketch_m,
-                band=cfg.sketch_band, hash_family=cfg.hash_family)
+                band=cfg.sketch_band, hash_family=cfg.hash_family,
+                dtype=_DTYPES[cfg.sketch_dtype],
+                table_dtype=_DTYPES[cfg.sketch_table_dtype])
+            msg = envelope_warning(self.grad_size, self.spec.c_actual,
+                                   cfg.error_decay)
+            if msg:
+                warnings.warn(msg, stacklevel=2)
         self.compressor = get_compressor(cfg, d=self.grad_size,
                                          spec=self.spec)
         # which server decode the round runs (cfg.sketch_decode resolved
@@ -86,7 +134,7 @@ class FederatedSession:
         self.state = init_state(cfg, self.compressor, vec.to(self.device))
         self.round_fn = build_round_fn(cfg, loss_fn, unravel,
                                        self.compressor, self.group)
-        self.eval_fn = build_eval_fn(loss_fn, unravel)
+        self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
 
     def local_clients(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's slice ``[p*w_loc, (p+1)*w_loc)`` of a round's
@@ -119,20 +167,29 @@ class FederatedSession:
         return metrics
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:
-        """Mean loss and accuracy over eval batches (padded rows masked)."""
+        """Metrics over eval batches (padded rows masked): ``loss`` (the
+        mean over valid rows), ``accuracy`` (``correct / count``), the raw
+        totals of every other sum-style key (``*_sum``, ``*_count``: the
+        GPT-2 token-weighted ``lm_loss_sum`` / ``token_count``), and the
+        row-weighted mean of any other key (the reference's rule)."""
         totals: Dict[str, float] = {}
         n = 0.0
         pv = self.state.params_vec
         for b in batches:
+            valid = float(np.asarray(b["_valid"]))
             out = self.eval_fn(pv, _to_device(b, self.device))
             for k, v in out.items():
-                totals[k] = totals.get(k, 0.0) + float(v)
-            n += float(np.asarray(b["_valid"]))
+                w = 1.0 if _sum_key(k) else valid
+                totals[k] = totals.get(k, 0.0) + w * float(v)
+            n += valid
         if n == 0:
             return {"loss": float("nan")}
         result = {"loss": totals.get("loss_sum", 0.0) / n}
         if totals.get("count", 0.0) > 0:
             result["accuracy"] = totals.get("correct", 0.0) / totals["count"]
+        for k, v in totals.items():
+            if k not in ("loss_sum", "correct", "count"):
+                result[k] = v if _sum_key(k) else v / n
         return result
 
     @property

@@ -38,7 +38,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from commefficient_tpu_torch.models.losses import IGNORE_INDEX
-from commefficient_tpu_torch.ops.param_utils import clip_by_global_norm
+from commefficient_tpu_torch.ops.param_utils import (
+    clip_by_global_norm,
+    tree_leaves,
+)
 
 
 @dataclass
@@ -98,15 +101,21 @@ def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
 def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
     """``(params_vec, batch) -> (flat grad [D], loss, aux)`` with weight
     decay and the global-norm clip, in the reference's order. The loss
-    reads its parameters as views of the flat vector, so the gradient comes
-    out in the reference's coordinate order."""
+    reads its parameters as views of the flat vector, each view a leaf of
+    the graph, and the leaves' gradients are concatenated in ravel order
+    (the transpose of ``ravel_pytree``): one [D] write. Differentiating
+    the flat vector through its views instead would give every view's
+    backward a zero-filled [D] buffer to add (150 leaves of 498 MB at
+    GPT-2 scale)."""
 
     def grad_one(params_vec, batch):
-        p = params_vec.detach().requires_grad_(True)
+        tree = unravel(params_vec.detach())
+        leaves = [t.requires_grad_(True) for _, t in tree_leaves(tree)]
         with torch.enable_grad():
-            loss, aux = loss_fn(unravel(p), batch)
-            (g,) = torch.autograd.grad(loss, p)
-        g = g.to(torch.float32)
+            loss, aux = loss_fn(tree, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = torch.cat([(torch.zeros_like(t) if gi is None else gi).reshape(-1)
+                       for t, gi in zip(leaves, grads)]).to(torch.float32)
         if cfg.weight_decay:
             g = g + cfg.weight_decay * params_vec
         g = clip_by_global_norm(g, cfg.max_grad_norm)
@@ -276,15 +285,28 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     return round_fn
 
 
+def _ignore_where(keep, labels):
+    return torch.where(keep, labels, torch.full_like(labels, IGNORE_INDEX))
+
+
 def mask_classification(batch, row_mask):
-    y = torch.where(row_mask, batch["y"],
-                    torch.full_like(batch["y"], IGNORE_INDEX))
-    return {**batch, "y": y}
+    return {**batch, "y": _ignore_where(row_mask, batch["y"])}
 
 
-def build_eval_fn(loss_fn: Callable, unravel: Callable):
+def mask_gpt2(batch, row_mask):
+    """The GPT-2 batch's padded rows: their MC label and every LM label to
+    IGNORE_INDEX."""
+    return {**batch,
+            "mc_labels": _ignore_where(row_mask, batch["mc_labels"]),
+            "lm_labels": _ignore_where(row_mask[:, None, None],
+                                       batch["lm_labels"])}
+
+
+def build_eval_fn(loss_fn: Callable, unravel: Callable,
+                  mask_batch: Callable = mask_classification):
     """``eval_step(params_vec, batch-with-_valid) -> metric sums``: padded
-    tail rows are masked to IGNORE_INDEX."""
+    tail rows are masked to IGNORE_INDEX by ``mask_batch(batch,
+    row_mask)``."""
 
     @torch.no_grad()
     def eval_step(params_vec, batch):
@@ -292,7 +314,7 @@ def build_eval_fn(loss_fn: Callable, unravel: Callable):
         valid = int(batch.pop("_valid"))
         n = next(iter(batch.values())).shape[0]
         row_mask = torch.arange(n, device=params_vec.device) < valid
-        loss, aux = loss_fn(unravel(params_vec), mask_classification(batch, row_mask))
+        loss, aux = loss_fn(unravel(params_vec), mask_batch(batch, row_mask))
         return {"loss_sum": loss * valid, **aux}
 
     return eval_step

@@ -4,8 +4,10 @@
         [--lrs 0.2,0.05] [--modes true_topk,...] [--device cuda|cpu]
 
 ``chip_smoke.py`` holds the card against the CPU with three rounds of a
-width-8 ResNet-9 from fixed params and batches (``width8_session``): the
-card's params must land within 1e-3 of how far the CPU's moved. A
+width-8 ResNet-9 from fixed params and batches (``width8_session``), and
+of FetchSGD on ``gpt2_tiny`` (``gpt2_tiny_session``, the mode
+``gpt2_tiny``): the card's params must land within 1e-3 of how far the
+CPU's moved. A
 discrete near-tie (the k-th place of a top-k, a max-pool, a Gram–Schmidt
 column near the subspace) can go one way on one device and the other way
 on the other, and three rounds carry it on. This script measures how
@@ -24,6 +26,7 @@ The last line is a JSON summary.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import warnings
 
@@ -31,13 +34,18 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch import resolve_device
-from commefficient_tpu_torch.data import CIFAR10_MEAN, CIFAR10_STD, normalizer
+from commefficient_tpu_torch.data import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
+    FedSampler,
+    normalizer,
+)
 from commefficient_tpu_torch.models import (
     classification_loss,
     init_resnet9,
     resnet9_apply,
 )
-from commefficient_tpu_torch.parallel import FederatedSession
+from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.api import microbatched
 from commefficient_tpu_torch.utils.config import Config
 
@@ -91,22 +99,61 @@ def width8_session(where: str, seed: int = 3, lr: float = 0.2,
     return losses, p0, sess.state.params_vec.cpu(), sess.sketch_decode_resolved
 
 
+# the gpt2_tiny session's FetchSGD settings
+SKETCH_GPT2_TINY = dict(mode="sketch", k=500, num_rows=5, num_cols=20_000,
+                        virtual_momentum=0.9, error_type="virtual",
+                        model="gpt2_tiny", dataset_name="personachat",
+                        max_seq_len=32, max_grad_norm=1.0)
+
+
+def gpt2_tiny_session(where: str, seed: int = 3, lr: float = 0.2,
+                      perturb: float = 0.0, **cfg_kw):
+    """(losses, p0, final params, decode) of three FetchSGD rounds at
+    ``lr`` of ``gpt2_tiny`` in float32 on ``where``: params from
+    ``init_gpt2(seed)``, 2 clients of 2 dialogs a round from the
+    synthetic PersonaChat's sampler (seed ``seed``); ``perturb`` as in
+    ``width8_session``."""
+    from commefficient_tpu_torch.train.gpt2_train import build_model_and_data
+
+    cfg = Config(**{**SKETCH_GPT2_TINY, **cfg_kw}, num_workers=2,
+                 num_clients=4, local_batch_size=2, compute_dtype="float32",
+                 seed=seed, dataset_dir="/nonexistent", device=where)
+    train, _, _, _, _, params, loss_fn = build_model_and_data(cfg)
+    sess = FederatedSession(cfg, params, loss_fn, mask_batch=mask_gpt2)
+    if perturb:
+        gen = torch.Generator().manual_seed(seed)
+        noise = torch.randn(sess.grad_size, generator=gen)
+        sess.state.params_vec = sess.state.params_vec * (
+            1 + perturb * noise.to(sess.device))
+    p0 = sess.state.params_vec.cpu().clone()
+    sampler = FedSampler(train, num_workers=2, local_batch_size=2, seed=seed)
+    losses = [float(sess.train_round(*sampler.sample_round(r), lr)["loss"])
+              for r in range(3)]
+    return losses, p0, sess.state.params_vec.cpu(), sess.sketch_decode_resolved
+
+
+def _session(mode: str):
+    """The session function of a probe mode, with the mode's settings."""
+    if mode == "gpt2_tiny":
+        return gpt2_tiny_session
+    return functools.partial(width8_session, **MODES[mode])
+
+
 def _ratio(p, ref, p0) -> float:
     return float(torch.linalg.vector_norm(p - ref)
                  / torch.linalg.vector_norm(ref - p0))
 
 
-def _probe(mode_kw, seed, lr, card: bool):
-    _, p0, cpu, _ = width8_session("cpu", seed, lr, **mode_kw)
-    _, _, pert, _ = width8_session("cpu", seed, lr, perturb=1e-7, **mode_kw)
+def _probe(session, seed, lr, card: bool):
+    _, p0, cpu, _ = session("cpu", seed, lr)
+    _, _, pert, _ = session("cpu", seed, lr, perturb=1e-7)
     out = {"cpu_perturbed": _ratio(pert, cpu, p0)}
     if card:
-        runs = [width8_session("cuda", seed, lr, **mode_kw)[2]
-                for _ in range(2)]
+        runs = [session("cuda", seed, lr)[2] for _ in range(2)]
         prev = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            det = width8_session("cuda", seed, lr, **mode_kw)[2]
+            det = session("cuda", seed, lr)[2]
         finally:
             torch.backends.cudnn.deterministic = prev
         out.update(card=_ratio(runs[0], cpu, p0),
@@ -119,7 +166,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", default="3-10")
     ap.add_argument("--lrs", default="0.2,0.05")
-    ap.add_argument("--modes", default=",".join(MODES))
+    ap.add_argument("--modes", default=",".join([*MODES, "gpt2_tiny"]))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ns = ap.parse_args(argv)
     card = ns.device == "cuda"
@@ -130,7 +177,8 @@ def main(argv=None):
     results = {}
     for mode in ns.modes.split(","):
         for lr in (float(x) for x in ns.lrs.split(",")):
-            rows = [_probe(MODES[mode], seed, lr, card) for seed in seeds]
+            rows = [_probe(_session(mode), seed, lr, card)
+                    for seed in seeds]
             results[f"{mode}@{lr}"] = rows
             for key in rows[0]:
                 vals = [r[key] for r in rows]

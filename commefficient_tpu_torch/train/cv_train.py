@@ -66,7 +66,8 @@ def build_model_and_data(cfg: Config, width: int = 64):
     apply = functools.partial(resnet9_apply,
                               dtype=model_dtype(cfg.compute_dtype))
     loss_fn = classification_loss(
-        apply, prep=normalizer(CIFAR10_MEAN, CIFAR10_STD))
+        apply, prep=normalizer(CIFAR10_MEAN, CIFAR10_STD),
+        compute_dtype=cfg.compute_dtype)
     return train, test, real, params, loss_fn, augment_batch
 
 
@@ -111,6 +112,10 @@ def main(argv=None, eval_batch_size: int = 512, **overrides):
     worker group; rank 0 alone evaluates and prints, and the other ranks'
     val metrics are empty."""
     cfg = parse_args(argv, **overrides)
+    if cfg.model != "resnet9":
+        raise ValueError(f"cv_train trains resnet9, got model={cfg.model!r} "
+                         "(GPT-2: python -m commefficient_tpu_torch.train."
+                         "gpt2_train)")
     with distributed_from_env(cfg):
         return _train(cfg, eval_batch_size)
 

@@ -5,9 +5,12 @@
 
 Builds the model, data and session as ``cv_train`` does, with the FetchSGD
 main path's flags unless others are given (ResNet-9 at full width, r=5,
-c=500,000, k=50,000, 8 clients of 64 images), runs two warm-up rounds, then
-times N rounds of the session's own round function phase by phase with
-CUDA events (``build_round_fn``'s ``mark``):
+c=500,000, k=50,000, 8 clients of 64 images), or, with ``--model gpt2``
+(or ``gpt2_tiny``), as ``gpt2_train`` does, with BASELINE #4's flags over
+its defaults (GPT-2 small, r=5, c=5,000,000, k=50,000, ``--compute_dtype
+bfloat16``, 8 clients of 4 dialogs of 2 candidates of 256 tokens); runs two
+warm-up rounds, then times N rounds of the session's own round function
+phase by phase with CUDA events (``build_round_fn``'s ``mark``):
 
 * ``grads``: the W clients' gradients (fedavg: their local SGD steps),
   local momentum and transmits (local_topk: error feedback and top-k),
@@ -78,7 +81,8 @@ from commefficient_tpu_torch.parallel.round import (
     fused_grad_sum,
     make_grad_one,
 )
-from commefficient_tpu_torch.train.cv_train import build_model_and_data
+from commefficient_tpu_torch.parallel.round import mask_gpt2
+from commefficient_tpu_torch.train import cv_train, gpt2_train
 from commefficient_tpu_torch.utils.config import parse_args
 
 MAIN_PATH = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
@@ -86,12 +90,17 @@ MAIN_PATH = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
              "--error_type", "virtual", "--sketch_backend", "pallas",
              "--num_workers", "8", "--num_devices", "1",
              "--local_batch_size", "64"]
+GPT2_PATH = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
+             "--num_cols", "5000000", "--virtual_momentum", "0.9",
+             "--error_type", "virtual", "--compute_dtype", "bfloat16",
+             "--num_workers", "8", "--num_devices", "1"]
 PHASES = ("grads", "encode", "server", "apply")
 # device kernels by kind, first match wins
 KINDS = (("countsketch", r"\bcs_\w+_kernel"),
          ("topk", r"topk|sort|radix|bitonic|select"),
          ("conv_gemm", r"conv|gemm|cudnn|xmma|cutlass|wgrad|dgrad|fprop"),
          ("norm", r"norm"),
+         ("softmax", r"softmax"),
          ("other", r""))
 
 
@@ -129,7 +138,8 @@ def _dense_breakdown(session, agg, lr):
     return {
         "estimate_all": _event_ms(lambda: estimate_all(spec, e)),
         "topk": _event_ms(lambda: comp.topk(est, cfg.k)),
-        "ef_resketch": _event_ms(lambda: e - sketch_vec(spec, upd)),
+        "ef_resketch": _event_ms(lambda: e - sketch_vec(comp._spec_acc,
+                                                        upd)),
         "rest": _event_ms(algebra),
     }
 
@@ -158,7 +168,7 @@ def _sharded_breakdown(session, agg, lr):
             lambda: topk_threshold_sharded(est, cfg.k, group)),
         "compaction": _event_ms(lambda: compact_nonzero(upd, cfg.k)),
         "ef_resketch": _event_ms(lambda: group.all_reduce_sum(
-            sketch_sparse(spec, gidx, val))),
+            sketch_sparse(spec, gidx, val, table_dtype=spec.table_dtype))),
         "exchange_apply": _event_ms(lambda: apply_update(
             st.params_vec, ("sparse", all_gather_pairs(gidx, val, group)))),
     }
@@ -251,10 +261,21 @@ def _kind(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--model", default="resnet9")
     ns, rest = ap.parse_known_args(argv)
-    cfg = parse_args(MAIN_PATH + rest)
-    train, _, _, params, loss_fn, augment = build_model_and_data(cfg)
-    session = FederatedSession(cfg, params, loss_fn)
+    if ns.model.startswith("gpt2"):
+        cfg = parse_args(GPT2_PATH + rest, defaults=gpt2_train.DEFAULTS,
+                         model=ns.model)
+        train, _, _, _, _, params, loss_fn = gpt2_train.build_model_and_data(
+            cfg)
+        augment, mask = None, mask_gpt2
+    else:
+        cfg = parse_args(MAIN_PATH + rest, model=ns.model)
+        train, _, _, params, loss_fn, augment = (
+            cv_train.build_model_and_data(cfg))
+        mask = None
+    session = FederatedSession(cfg, params, loss_fn,
+                               **({"mask_batch": mask} if mask else {}))
     if session.device.type != "cuda":
         raise RuntimeError("profile_round times the card; run it with "
                            "--device cuda on a machine with a GPU")
@@ -327,7 +348,9 @@ def main(argv=None):
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {_kind(name):11s}  {name[:90]}")
-    summary = {"mode": cfg.mode, "decode": session.sketch_decode_resolved,
+    summary = {"model": cfg.model, "mode": cfg.mode,
+               "decode": session.sketch_decode_resolved,
+               "grad_size": session.grad_size,
                "fused_clients": cfg.fuse_clients,
                "phase_ms": phase_ms, "grads_steps_ms": grads_steps,
                "server_steps_ms": server_steps,

@@ -51,6 +51,10 @@ class WorkloadHooks:
                   rounds) -> dict:
         raise NotImplementedError
 
+    def on_epoch_end(self, epoch: int, val: dict) -> None:
+        """Called on rank 0 after each epoch's evaluation (GPT-2: a sample
+        generation)."""
+
 
 def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                    on_round=None):
@@ -97,6 +101,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             table.append(hooks.epoch_row(
                 epoch=epoch, lr=lr, acc=acc, val=val, train_time=train_time,
                 val_time=time.perf_counter() - t_val, rounds=max(rounds, 1)))
+            hooks.on_epoch_end(epoch, val)
         if cfg.max_rounds and len(history) >= cfg.max_rounds:
             break
     return val, history

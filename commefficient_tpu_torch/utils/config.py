@@ -1,11 +1,13 @@
 """Typed configuration — the port's own copy of the reference's ``Config``.
 
-Field names, defaults and CLI flags are the reference's
-(``commefficient_tpu/utils/config.py``) for every knob this slice of the
-port runs, so a command line moves between the two packages unchanged. A
-knob the port does not run yet keeps its reference name and default and is
-REFUSED at construction with a ``ValueError`` naming the blocker and the
-ROADMAP item that lifts it — nothing runs quietly with a setting ignored.
+Every field of the reference's ``Config`` (``commefficient_tpu/utils/
+config.py``) is here, with its name, type, default and CLI flag, so a
+reference command line parses unchanged. A knob the port does not run yet
+is REFUSED at construction, unless at its default, with a ``ValueError``
+naming the blocker and the ROADMAP item that lifts it (``_UNPORTED``) —
+nothing runs quietly with a setting ignored. The defaults of the refused
+knobs that switch something on in the reference (``perf_audit``,
+``run_report``, ``device_data``) are no-ops here.
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -29,7 +31,7 @@ CLIENT_STORES = ("device", "host", "mmap")
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
     "dp_noise_multiplier": "worker-side DP noise (ROADMAP A8; hazard C.4)",
-    "sketch_fused_bwd": "the sketch-fused backward (ROADMAP A10)",
+    "sketch_fused_bwd": "the sketch-fused backward (ROADMAP A10b)",
     "telemetry_level": "telemetry/ diagnostics (ROADMAP A12)",
     "availability": "fedsim participation masks (ROADMAP A8)",
     "chaos": "fedsim chaos plans (ROADMAP A8)",
@@ -39,7 +41,57 @@ _UNPORTED = {
     "resume": "checkpoint/resume (ROADMAP A8)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
     "pipeline_depth": "the pipelined round engine (ROADMAP A11)",
+    "label_noise": "the FEMNIST stand-in's label noise (ROADMAP A13)",
+    "num_classes": "the other datasets' class counts (ROADMAP A13)",
+    "device_data": "the device-resident training set (ROADMAP A13)",
+    "device_data_max_mb": "the device-resident training set (ROADMAP A13)",
+    "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
+    "client_store_path": "the hosted client stores (ROADMAP A11)",
+    "offload_client_state": "the hosted client stores (ROADMAP A11)",
+    "fsdp": "FSDP (ROADMAP A9)",
+    "aggregate": "sparse aggregation (ROADMAP A9)",
+    "overlap_collectives": "collective overlap (ROADMAP A9)",
+    "model_axis": "tensor parallelism (ROADMAP A17)",
+    "seq_axis": "sequence parallelism (ROADMAP A17)",
+    "num_hosts": "multihost/ (ROADMAP A11)",
+    "distributed": "multihost/ (ROADMAP A11)",
+    "distributed_connect_retries": "multihost/ (ROADMAP A11)",
+    "flight_window": "the flight recorder (ROADMAP A12)",
+    "max_retraces": "the retrace sentinel (ROADMAP A12)",
+    "perf_audit": "the compiled-round audit (ROADMAP A12)",
+    "run_report": "the run report (ROADMAP A12)",
+    "dropout_prob": "fedsim participation masks (ROADMAP A8)",
+    "availability_period": "fedsim participation masks (ROADMAP A8)",
+    "num_cohorts": "fedsim participation masks (ROADMAP A8)",
+    "arrival_rate": "fedsim participation masks (ROADMAP A8)",
+    "scan_rounds": "the scan round engine (ROADMAP A11)",
+    "async_buffer": "asyncfed/ (ROADMAP A11)",
+    "async_concurrency": "asyncfed/ (ROADMAP A11)",
+    "staleness_exponent": "asyncfed/ (ROADMAP A11)",
+    "async_double_buffer": "asyncfed/ (ROADMAP A11)",
+    "budget_mb": "the control/ compression ladder (ROADMAP A11)",
+    "control_schedule": "the control/ compression ladder (ROADMAP A11)",
+    "control_ef_up": "the control/ compression ladder (ROADMAP A11)",
+    "control_ef_down": "the control/ compression ladder (ROADMAP A11)",
+    "control_fidelity_max": "the control/ compression ladder (ROADMAP A11)",
+    "control_hysteresis": "the control/ compression ladder (ROADMAP A11)",
+    "control_staleness_hi": "the control/ compression ladder (ROADMAP A11)",
+    "control_staleness_lo": "the control/ compression ladder (ROADMAP A11)",
+    "control_fill_hi": "the control/ compression ladder (ROADMAP A11)",
+    "control_fill_lo": "the control/ compression ladder (ROADMAP A11)",
+    "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
+    "max_recoveries": "resilience/ rollback (ROADMAP A11)",
+    "preempt_signals": "resilience/ preemption (ROADMAP A11)",
+    "checkpoint_dir": "checkpoint/resume (ROADMAP A8)",
+    "tensorboard": "utils/logging (ROADMAP A12)",
+    "logdir": "utils/logging (ROADMAP A12)",
+    "profile_dir": "the profiler capture (ROADMAP A12)",
+    "profile_rounds": "the profiler capture (ROADMAP A12)",
 }
+MODELS = ("resnet9", "gpt2", "gpt2_tiny")
+# the dataset each model trains on (cv_train: resnet9, gpt2_train: GPT-2)
+MODEL_DATASET = {"resnet9": "cifar10", "gpt2": "personachat",
+                 "gpt2_tiny": "personachat"}
 
 
 @dataclass(frozen=True)
@@ -101,7 +153,18 @@ class Config:
     dataset_name: str = "cifar10"
     dataset_dir: str = "./data"
     synthetic_variant: str = "flat"
-    compute_dtype: str = "mixed"  # mixed (bf16 model compute) | float32
+
+    # --- GPT-2 workload (gpt2_train) ---
+    model_checkpoint: str = "gpt2"  # a directory holding pytorch_model.bin
+    num_candidates: int = 2
+    max_history: int = 2
+    lm_coef: float = 1.0
+    mc_coef: float = 1.0
+    max_seq_len: int = 256
+    # mixed: bf16 model compute over f32 params; bfloat16: also the params
+    # cast at the loss boundary (GPT-2's embeddings, residual stream and
+    # tied head run bf16); float32: f32 throughout
+    compute_dtype: str = "mixed"
     # one flattened-batch gradient per device in place of the per-client
     # loop: the same math when nothing per-client is configured (the
     # round's gate, parallel/round.py ``fused_clients``)
@@ -111,7 +174,13 @@ class Config:
     client_store: str = "device"
 
     # --- CountSketch ---
+    # the sketch's OPERAND type: bfloat16 rounds each signed value to bf16
+    # before the f32 accumulation, and each table entry to bf16 before the
+    # estimate (the reference's einsum operand dtype)
     sketch_dtype: str = "float32"
+    # the tables' STORAGE type: bfloat16 stores the [r, c] tables (the
+    # upload, the server's momentum and error) in bf16, while every sum
+    # and the server algebra stay f32
     sketch_table_dtype: str = "float32"
     sketch_band: int = 16
     sketch_m: Optional[int] = None
@@ -136,6 +205,52 @@ class Config:
     resume: bool = False
     recover_policy: str = "none"
     pipeline_depth: int = 0
+    label_noise: float = 0.06
+    num_classes: Optional[int] = None
+    device_data: bool = True
+    device_data_max_mb: int = 512
+    client_store_cache_rows: int = 0
+    client_store_path: str = ""
+    offload_client_state: bool = False
+    fsdp: bool = False
+    aggregate: str = "auto"
+    overlap_collectives: str = "none"
+    model_axis: int = 1
+    seq_axis: int = 1
+    num_hosts: int = 1
+    distributed: bool = False
+    distributed_connect_retries: int = 3
+    flight_window: int = 16
+    max_retraces: Optional[int] = None
+    perf_audit: bool = True
+    run_report: bool = True
+    dropout_prob: float = 0.0
+    availability_period: int = 64
+    num_cohorts: int = 4
+    arrival_rate: float = 1.0
+    scan_rounds: int = 0
+    async_buffer: int = 0
+    async_concurrency: int = 1
+    staleness_exponent: float = 0.0
+    async_double_buffer: bool = False
+    budget_mb: float = 0.0
+    control_schedule: str = ""
+    control_ef_up: float = 0.15
+    control_ef_down: float = 0.0
+    control_fidelity_max: float = 0.0
+    control_hysteresis: int = 8
+    control_staleness_hi: float = 2.0
+    control_staleness_lo: float = 0.5
+    control_fill_hi: float = 1.0
+    control_fill_lo: float = 0.25
+    snapshot_every: int = 16
+    max_recoveries: int = 2
+    preempt_signals: bool = False
+    checkpoint_dir: str = ""
+    tensorboard: bool = False
+    logdir: str = "runs"
+    profile_dir: str = ""
+    profile_rounds: str = ""
 
     seed: int = 42
 
@@ -201,11 +316,6 @@ class Config:
             v = getattr(self, name)
             if v not in ("float32", "bfloat16"):
                 raise ValueError(f"{name} must be float32|bfloat16, got {v!r}")
-            if v != "float32":
-                raise ValueError(
-                    f"{name}={v!r} is not ported yet: bf16 sketch storage "
-                    "and operands come with the GPT-2 path (ROADMAP A10)"
-                )
         if self.hash_family not in ("fmix32", "poly4"):
             raise ValueError(
                 f"hash_family must be fmix32|poly4, got {self.hash_family!r}"
@@ -219,11 +329,6 @@ class Config:
             raise ValueError(
                 "compute_dtype must be mixed|float32|bfloat16, got "
                 f"{self.compute_dtype!r}"
-            )
-        if self.compute_dtype == "bfloat16":
-            raise ValueError(
-                "compute_dtype='bfloat16' is not ported yet (a no-op for "
-                "ResNet-9 in the reference; it matters for GPT-2, ROADMAP A10)"
             )
         if self.client_store not in CLIENT_STORES:
             raise ValueError(f"client_store must be one of {CLIENT_STORES},"
@@ -268,16 +373,24 @@ class Config:
                 f"(error_type='virtual'); with error_type={self.error_type!r}"
                 " it would be a silent no-op"
             )
-        if self.model != "resnet9":
+        if self.model not in MODELS:
             raise ValueError(
                 f"model={self.model!r} is not ported yet: the port runs "
-                "resnet9 (ROADMAP A10/A13 port GPT-2 and FixupResNet-50)"
-            )
-        if self.dataset_name != "cifar10":
+                f"{MODELS} (ROADMAP A13 ports FixupResNet-50)")
+        if self.dataset_name != MODEL_DATASET[self.model]:
             raise ValueError(
-                f"dataset_name={self.dataset_name!r} is not ported yet: the "
-                "port runs cifar10 (ROADMAP A13 ports the other datasets)"
-            )
+                f"dataset_name={self.dataset_name!r} with model="
+                f"{self.model!r}: the port trains {self.model} on "
+                f"{MODEL_DATASET[self.model]} (ROADMAP A13 ports the other "
+                "datasets)")
+        if self.num_candidates < 1 or self.max_history < 0:
+            raise ValueError(
+                f"num_candidates must be >= 1 and max_history >= 0, got "
+                f"{self.num_candidates} and {self.max_history}")
+        if self.max_seq_len < 2:
+            raise ValueError(
+                f"max_seq_len must be >= 2 (the next-token shift), got "
+                f"{self.max_seq_len}")
         if self.synthetic_variant not in ("flat", "concentrated",
                                           "concentrated_v2"):
             raise ValueError(

@@ -442,3 +442,58 @@ def test_state_round_trips_through_interop():
             assert back[name] == ()
         else:
             np.testing.assert_array_equal(back[name], leaves[name])
+
+
+# -- bf16 tables (tests/test_countsketch_bf16.py's session cases) ---------------
+
+BF16 = dict(mode="sketch", error_type="virtual", virtual_momentum=0.9, k=40,
+            num_rows=3, num_cols=256, topk_method="threshold",
+            sketch_table_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("operand", ["float32", "bfloat16"])
+def test_bf16_tables_twin_matches_reference(setup, operand):
+    """Four rounds with bf16 tables (and bf16 operands) against the
+    reference: the same bytes (2 per upload float), bf16 state tables,
+    losses ``rtol 1e-4``, params ``atol 1e-5`` and the tables ``atol
+    2^-7 * max|table|``, two bf16 ulps at the largest entry
+    (tests/test_torch_gpt2.py gives the reason)."""
+    kw = {**ONE, **BF16, "sketch_dtype": operand}
+    ref_b = RefSession(RefConfig(**{**kw, "sketch_table_dtype": "float32"}),
+                       setup[1], setup[2]).bytes_per_round()
+    want, got = _twin(setup, kw)
+    assert got["momentum"].dtype == np.float32  # state_to_jax widens
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+    np.testing.assert_allclose(got["params_vec"], want["params_vec"],
+                               rtol=0, atol=1e-5)
+    for name in ("momentum", "error"):
+        w = np.asarray(want[name], np.float32)
+        np.testing.assert_allclose(got[name], w, rtol=0,
+                                   atol=2.0**-7 * np.abs(w).max())
+    sess = _port_session(kw, setup[1])
+    assert sess.state.momentum.dtype == sess.state.error.dtype == \
+        torch.bfloat16
+    assert sess.compressor.upload_bytes_per_float() == 2
+    b16 = sess.bytes_per_round()
+    assert b16["upload_floats"] == ref_b["upload_floats"]
+    assert 2 * b16["upload_bytes"] == ref_b["upload_bytes"]
+
+
+def test_bf16_sharded_decode_matches_dense_decode(setup):
+    """The sharded decode under bf16 tables against the dense decode under
+    the same tables (the reference's test and its bound, ``5e-3 *
+    max|params|``: both pay the same storage rounding; only where a bf16
+    boundary meets the k-sparse extraction can they part)."""
+
+    def run(decode):
+        with contextlib.ExitStack() as stack:
+            if decode == "sharded":
+                stack.enter_context(pytest.warns(UserWarning,
+                                                 match="degenerate"))
+            sess, _ = _port_run(setup, {**BF16, "sketch_decode": decode},
+                                n_rounds=3, lr=0.2)
+        return _final(sess)
+
+    p_dense, p_shard = run("dense"), run("sharded")
+    scale = max(np.abs(p_dense).max(), 1.0)
+    np.testing.assert_allclose(p_shard, p_dense, rtol=0, atol=5e-3 * scale)

@@ -275,3 +275,90 @@ def test_wrappers_check_their_inputs():
         estimate_median(s, torch.zeros(s.table_shape, dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         median_rows(torch.zeros(10, 3).t())
+
+
+# -- the bf16 forms (tests/test_countsketch_bf16.py's cases) ---------------------
+
+BF16_D, BF16_C, BF16_R = 10_000, 2_000, 5
+BF16_FORMS = [  # (table dtype, operand dtype)
+    ("float32", "bfloat16"), ("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+]
+
+
+def _bf16_specs(table, operand):
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    geo = dict(d=BF16_D, c=BF16_C, r=BF16_R, seed=7)
+    return (ref.CountSketch(**geo, dtype=jd[operand], table_dtype=jd[table]),
+            port.CountSketch(**geo, dtype=td[operand], table_dtype=td[table]))
+
+
+@pytest.mark.parametrize("table,operand", BF16_FORMS)
+def test_bf16_plain_ops_match_reference_einsum_backend(table, operand):
+    """The plain versions of the bf16 forms against the reference's einsum
+    backend: the sketch (operands rounded to bf16 before the f32 sums, the
+    table rounded at the end) to one bf16 ulp of each entry (the two sum
+    in another fp32 order, which can put a sum on either side of a bf16
+    rounding boundary; floor 1e-6 * max for sums that cancel), and the
+    f32-table form at the f32 bound; the estimates from the reference's
+    own table exactly (one entry per row, read as the operand type: a bf16
+    table widens, an f32 table rounds when the operand is bf16);
+    ``estimate_at`` only widens; ``sketch_sparse`` never rounds."""
+    s_ref, s_port = _bf16_specs(table, operand)
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=BF16_D).astype(np.float32)
+    t_ref = np.array(ref.sketch_vec(s_ref, jnp.asarray(v)), np.float32)
+    t_port = port.sketch_vec(s_port, torch.from_numpy(v))
+    assert t_port.dtype == s_port.table_dtype
+    got = t_port.float().numpy()
+    if table == "bfloat16":
+        bound = 2.0**-7 * np.abs(t_ref) + 1e-6 * np.abs(t_ref).max()
+        assert np.all(np.abs(got - t_ref) <= bound)
+    else:
+        np.testing.assert_allclose(got, t_ref, rtol=0,
+                                   atol=3e-6 * np.abs(t_ref).max())
+    # the same table through both estimates: exact
+    tab = torch.from_numpy(t_ref).to(s_port.table_dtype)
+    e_ref = np.asarray(ref.estimate_all(
+        s_ref, jnp.asarray(t_ref).astype(s_ref.table_dtype)))
+    np.testing.assert_array_equal(port.estimate_all(s_port, tab).numpy(),
+                                  e_ref)
+    idx = rng.choice(BF16_D, size=300, replace=False).astype(np.int64)
+    a_ref = np.asarray(ref.estimate_at(
+        s_ref, jnp.asarray(t_ref).astype(s_ref.table_dtype),
+        jnp.asarray(idx, jnp.uint32)))
+    np.testing.assert_array_equal(
+        port.estimate_at(s_port, tab, torch.from_numpy(idx)).numpy(), a_ref)
+    vals = rng.normal(size=300).astype(np.float32)
+    sp_ref = np.asarray(ref.sketch_sparse(s_ref, jnp.asarray(
+        idx, jnp.uint32), jnp.asarray(vals)))
+    sp_port = port.sketch_sparse(s_port, torch.from_numpy(idx),
+                                 torch.from_numpy(vals))
+    assert sp_port.dtype == torch.float32
+    np.testing.assert_allclose(sp_port.numpy(), sp_ref, rtol=0,
+                               atol=3e-6 * np.abs(sp_ref).max())
+
+
+def test_bf16_linearity_zero_and_roundtrip():
+    """The reference's bf16 properties through the port: linearity within
+    the rounding of three bf16 tables (2e-2 * max, the reference's
+    bound), a zero vector sketches to exact zeros, and planted heavy
+    hitters come back to a few percent (bf16 ulp at 100 is 0.5)."""
+    _, spec = _bf16_specs("bfloat16", "float32")
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.normal(size=BF16_D).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=BF16_D).astype(np.float32))
+    ta, tb, tab = (port.sketch_vec(spec, x) for x in (a, b, a + b))
+    assert ta.dtype == tb.dtype == tab.dtype == torch.bfloat16
+    rhs = tab.float()
+    torch.testing.assert_close(ta.float() + tb.float(), rhs, rtol=0,
+                               atol=2e-2 * float(rhs.abs().max()))
+    assert torch.all(port.sketch_vec(spec, torch.zeros(BF16_D)) == 0)
+    v = rng.normal(0, 1.0, size=BF16_D).astype(np.float32)
+    hh = rng.choice(BF16_D, size=10, replace=False)
+    v[hh] += 100.0 * rng.choice([-1.0, 1.0], size=10)
+    est = port.estimate_all(spec, port.sketch_vec(spec, torch.from_numpy(v)))
+    assert est.dtype == torch.float32
+    top = torch.argsort(-est.abs())[:32]
+    assert set(hh.tolist()) <= set(top.tolist())
+    np.testing.assert_allclose(est.numpy()[hh], v[hh], rtol=5e-2)

@@ -16,6 +16,13 @@ sign flip and a compare-exchange network: no float reduction); tables
 offset) order and the plain ``index_add_`` in position order. K1's tile
 kernel and its gather kernel sum in the same order and must agree bit for
 bit.
+
+The bf16 forms: K1's are bit-equal to the f32 kernel on bf16-rounded input
+(bf16 operand) and to the f32 kernel's table rounded to bf16 (bf16
+table), and within one bf16 ulp of each entry of the plain version (the
+f32 sums differ in order, which can put a sum on either side of a bf16
+rounding boundary; floor 1e-6 * max for sums that cancel); K2's and
+K4's are exact against their plain versions, as the f32 forms are.
 """
 
 import numpy as np
@@ -121,7 +128,7 @@ def test_sketch_tile_kernel_equals_gather_kernel(dev, d, c, r, band, m,
         kern._launch(load_library().cs_sketch_rows, v_s.data_ptr(),
                      spec.d_eff, ptr.data_ptr(), off.data_ptr(),
                      t.data_ptr(), spec.c_actual, rows, spec.r,
-                     kern._FAMILY[family], w, kern._stream())
+                     kern._FAMILY[family], w, 0, 0, kern._stream())
         tables.append(t)
     torch.cuda.synchronize()
     assert torch.equal(tables[0], tables[1])
@@ -304,3 +311,127 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kern.estimate_at_range(spec, table, -1, 3)
     with pytest.raises(TypeError, match="float32"):
         kern.estimate_at_range(spec, table.double(), 0, 3)
+
+
+# -- the bf16 forms ------------------------------------------------------------
+
+BF16_GEOMETRIES = [GEOMETRIES[0], GEOMETRIES[1], GEOMETRIES[3],
+                   K1_EDGE_GEOMETRIES[0]]
+BF = torch.bfloat16
+K1_FORMS = {"bf16_operand": (BF, torch.float32),
+            "bf16_table": (torch.float32, BF),
+            "bf16_operand_bf16_table": (BF, BF)}
+
+
+def _assert_k1_form(spec, v_s, form):
+    """K1 in ``form`` against the f32 kernel (bit-equal) and the plain
+    version (one bf16 ulp of each entry, or the f32 table bound)."""
+    operand, table_dtype = K1_FORMS[form]
+    n0 = kern.sketch_rows.forms.get(form, 0)
+    got = kern.sketch_rows(spec, v_s, operand, table_dtype)
+    assert kern.sketch_rows.forms[form] == n0 + 1
+    assert got.dtype == table_dtype and got.shape == spec.table_shape
+    x = v_s.to(BF).float() if operand == BF else v_s
+    assert torch.equal(got, kern.sketch_rows(spec, x).to(table_dtype))
+    assert torch.equal(got, kern.sketch_rows(spec, v_s, operand,
+                                             table_dtype))
+    want = kern.sketch_rows_torch(spec, v_s, operand, table_dtype).float()
+    g = got.float()
+    if table_dtype == BF:
+        bound = 2.0**-7 * want.abs() + 1e-6 * float(want.abs().max())
+        assert bool(((g - want).abs() <= bound).all())
+    else:
+        torch.testing.assert_close(g, want, rtol=0, atol=_table_tol(want))
+
+
+@pytest.mark.parametrize("form", sorted(K1_FORMS))
+@pytest.mark.parametrize("d,c,r,band,m", BF16_GEOMETRIES)
+def test_sketch_rows_bf16_forms(dev, d, c, r, band, m, form):
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m)
+    _assert_k1_form(spec, cs._scramble(spec, _vec(d, 2, dev)), form)
+
+
+K2_FORMS = {"f32_table_bf16_operand": (torch.float32, BF),
+            "bf16_table": (BF, torch.float32)}
+
+
+def _assert_k2_form(spec, table, form):
+    table_dtype, operand = K2_FORMS[form]
+    t = table.to(table_dtype)
+    n0 = kern.estimate_median.forms.get(form, 0)
+    got = kern.estimate_median(spec, t, operand)
+    assert kern.estimate_median.forms[form] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (spec.d,)
+    assert torch.equal(got, kern.estimate_median_torch(spec, t, operand))
+    # the same as the f32 form on the table rounded to bf16
+    assert torch.equal(got, kern.estimate_median(spec, table.to(BF).float()))
+
+
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("d,c,r,band,m", BF16_GEOMETRIES)
+def test_estimate_median_bf16_forms_match_plain_exactly(dev, d, c, r, band,
+                                                        m, form):
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn(spec.table_shape, generator=gen, device=dev)
+    _assert_k2_form(spec, table, form)
+
+
+@pytest.mark.parametrize("d,c,r,band,m", BF16_GEOMETRIES)
+def test_estimate_at_bf16_table_matches_plain_exactly(dev, d, c, r, band, m):
+    """K4, both forms, on a bf16 table: widened at the read, never rounded
+    further, so equal to the f32 kernel on the widened table."""
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    table = torch.randn(spec.table_shape, generator=gen, device=dev).to(BF)
+    idx = torch.randperm(d, generator=gen, device=dev)[:5000]
+    got = kern.estimate_at(spec, table, idx)
+    assert torch.equal(got, kern.estimate_at_torch(spec, table, idx))
+    assert torch.equal(got, kern.estimate_at(spec, table.float(), idx))
+    S = -(-d // 4)
+    for start, n in ((0, d), (3 * S, S)):
+        n0 = kern.estimate_at_range.forms.get("bf16_table", 0)
+        rng = kern.estimate_at_range(spec, table, start, n)
+        assert kern.estimate_at_range.forms["bf16_table"] == n0 + 1
+        assert torch.equal(rng, kern.estimate_at_range_torch(spec, table,
+                                                             start, n))
+        assert torch.equal(rng, kern.estimate_at_range(spec, table.float(),
+                                                       start, n))
+
+
+def test_gpt2_geometry_k1_and_k2_all_forms(dev):
+    """The GPT-2 path's geometry (D = 124,444,417, r = 5, c = 5,000,000:
+    m = 8192, V = 5248): K1's tile kernel at 16 values a thread in every
+    form, and K2 in the instantiation no ResNet-9 path runs, no staged
+    window and the slot tables read in place (``<5, 0, false>``), in every
+    form, each against its plain version."""
+    spec = cs.CountSketch(d=124_444_417, c=5_000_000, r=5)
+    plan = kern._k2_plan(spec, str(dev))
+    assert spec.chunk_m == 8192 and plan["staged"] == ()
+    assert plan["slot_smem"] is False
+    assert kern._k2_plan(spec, str(dev), 2)["staged"] == ()  # bf16 windows
+    try:
+        v_s = cs._scramble(spec, _vec(spec.d, 6, dev))
+        t = kern.sketch_rows(spec, v_s)
+        want = kern.sketch_rows_torch(spec, v_s)
+        torch.testing.assert_close(t, want, rtol=0, atol=_table_tol(want))
+        del want
+        for form in K1_FORMS:
+            _assert_k1_form(spec, v_s, form)
+        del v_s
+        assert torch.equal(kern.estimate_median(spec, t),
+                           kern.estimate_median_torch(spec, t))
+        for form in K2_FORMS:
+            _assert_k2_form(spec, t, form)
+    finally:
+        kern._plain_maps.cache_clear()  # ~7.5 GB of columns and signs
+
+
+def test_bf16_forms_refuse_the_gather_kernel(dev):
+    """K1's gather kernel (m = 32768, no tile kernel) is f32 only."""
+    spec = cs.CountSketch(*K1_EDGE_GEOMETRIES[2][:3], band=16)
+    assert kern._kernel_geometry(spec, str(dev))[3] == 0
+    v_s = torch.zeros(spec.d_eff, device=dev)
+    for operand, table_dtype in K1_FORMS.values():
+        with pytest.raises(ValueError, match="gather kernel"):
+            kern.sketch_rows(spec, v_s, operand, table_dtype)

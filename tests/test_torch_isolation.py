@@ -48,7 +48,13 @@ def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for must in ("chip_smoke.py", "commefficient_tpu_torch/__init__.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
-                 "commefficient_tpu_torch/train/cv_train.py"):
+                 "commefficient_tpu_torch/train/cv_train.py",
+                 "commefficient_tpu_torch/train/gpt2_train.py",
+                 "commefficient_tpu_torch/models/gpt2.py",
+                 "commefficient_tpu_torch/models/generate.py",
+                 "commefficient_tpu_torch/models/hf_gpt2.py",
+                 "commefficient_tpu_torch/data/personachat.py",
+                 "commefficient_tpu_torch/parallel/envelope.py"):
         assert must in names
     assert _forbidden("commefficient_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("flax")

@@ -601,3 +601,18 @@ def test_library_key_covers_every_header_the_sources_include():
     assert included <= set(build.HEADERS)
     for header in build.HEADERS:
         assert (build.CSRC / header).is_file()
+
+
+def test_kernel_names_with_type_arguments():
+    """The bf16 forms' instantiations keep their type arguments apart in
+    the build report (``float``, ``__nv_bfloat16``, bools, ints)."""
+    assert build._kernel_name(
+        "_Z22cs_sketch_tiles_kernelILi16ELb1E13__nv_bfloat16EvPKfj") == \
+        "cs_sketch_tiles_kernel<16,true,__nv_bfloat16>"
+    assert build._kernel_name("_Z21cs_estimate_at_kernelILi5EfEvPKT0_j") \
+        == "cs_estimate_at_kernel<5,float>"
+    assert build._kernel_name(
+        "_Z25cs_estimate_median_kernelILi5ELi0ELb0ELi2EEvPKT_") == \
+        "cs_estimate_median_kernel<5,0,false,2>"
+    assert build._kernel_name("_Z19cs_hash_bits_kernelPKj") == \
+        "cs_hash_bits_kernel"

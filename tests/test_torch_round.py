@@ -120,10 +120,12 @@ def test_schedule_matches_reference():
     ("client_store", "host", "A11"),
     ("topk_method", "approx", "A15"),
     ("resume", "true", "A8"),
-    ("compute_dtype", "bfloat16", "A10"),
+    ("fsdp", "true", "A9"),
     ("num_blocks", "2", "A15"),
-    ("sketch_table_dtype", "bfloat16", "A10"),
+    ("label_noise", "0.1", "A13"),
     ("sketch_fused_bwd", "true", "A10"),
+    ("model_axis", "2", "A17"),
+    ("logdir", "elsewhere", "A12"),
     ("availability", "bernoulli", "A8"),
     ("telemetry_level", "1", "A12"),
     ("ladder", "k=10,5", "A11"),
@@ -142,11 +144,82 @@ def test_config_flags_and_defaults_follow_reference():
         if name in ("device", "max_rounds"):
             continue  # the port's own
         assert getattr(Config(), name) == ref_fields[name], name
+    # and the other way round: every reference field exists in the port,
+    # under its name, type and default, so a reference command line parses
+    for name, field in Ref.__dataclass_fields__.items():
+        assert name in Config.__dataclass_fields__, name
+        assert str(Config.__dataclass_fields__[name].type) == str(
+            field.type), name
     cfg = parse_args(["--mode", "sketch", "--k", "7", "--virtual_momentum",
                       "0.9", "--error_type", "virtual", "--sketch_backend",
                       "pallas", "--max_grad_norm", "none", "--device", "cpu"])
     assert (cfg.mode, cfg.k, cfg.sketch_backend, cfg.max_grad_norm,
             cfg.device) == ("sketch", 7, "pallas", None, "cpu")
+
+
+def _wide_params():
+    """tests/test_round.py's ``Wide`` (Dense(8192) -> Dense(4) on 256
+    inputs, d ~ 2.1M): realized sketch widths track the request."""
+    z = np.zeros
+    return {"params": {
+        "Dense_0": {"bias": z(8192, np.float32),
+                    "kernel": z((256, 8192), np.float32)},
+        "Dense_1": {"bias": z(4, np.float32),
+                    "kernel": z((8192, 4), np.float32)}}}
+
+
+def _envelope_warnings(**cfg_kw):
+    import warnings as _w
+
+    kw = dict(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+              k=16, num_rows=3, **{**BASE, "num_devices": 1}, device="cpu")
+    with _w.catch_warnings(record=True) as rec:
+        _w.simplefilter("always")
+        FederatedSession(Config(**{**kw, **cfg_kw}), _wide_params(),
+                         classification_loss(torch_tinymlp))
+    return [str(x.message) for x in rec if "envelope" in str(x.message)]
+
+
+def test_envelope_warning_suggestion_converges():
+    """The d/c envelope warning's 'Raise num_cols to >=' advice clears the
+    realized-width check when followed (the reference's test)."""
+    import re
+
+    first = _envelope_warnings(num_cols=20_000)  # d/c ~ 100
+    assert first, "expected the envelope warning to fire"
+    suggest = int(re.search(r"Raise num_cols to >= ([\d,]+)", first[0])
+                  .group(1).replace(",", ""))
+    assert not _envelope_warnings(num_cols=suggest)
+
+
+def test_envelope_warning_gamma_dependent():
+    """error_decay widens the envelope: a d/c ~30 that warns undecayed
+    passes at gamma 0.9 (the reference's test)."""
+    from jax.flatten_util import ravel_pytree
+
+    d = ravel_pytree(_wide_params())[0].size
+    assert _envelope_warnings(num_cols=int(d / 30), error_decay=1.0)
+    assert not _envelope_warnings(num_cols=int(d / 30), error_decay=0.9)
+
+
+def test_envelope_matches_reference_and_brackets_gpt2_baseline():
+    """The port's envelope is the reference's function for every gamma,
+    and BASELINE #4 (GPT-2, D = 124,444,417, 5 rows) sits inside it at
+    num_cols 5,000,000 (d/c 24.9 < 25) and outside at 4,900,000."""
+    from commefficient_tpu.parallel import envelope as ref_env
+    from commefficient_tpu_torch.ops.countsketch import CountSketch
+    from commefficient_tpu_torch.parallel import envelope
+    from commefficient_tpu_torch.parallel.api import envelope_warning
+
+    for g in (1.0, 0.95, 0.9, 0.85, 0.5, 0.0):
+        assert envelope.stable_dc_bound(g) == ref_env.stable_dc_bound(g)
+        assert envelope.predicted_dc_max(g) == ref_env.predicted_dc_max(g)
+    D = 124_444_417
+    spec = CountSketch(d=D, c=5_000_000, r=5)
+    assert spec.c_actual == 5_000_688
+    assert envelope_warning(D, spec.c_actual, 1.0) is None
+    narrow = CountSketch(d=D, c=4_900_000, r=5).c_actual
+    assert "OUTSIDE the stable envelope" in envelope_warning(D, narrow, 1.0)
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
