@@ -86,7 +86,35 @@ phase prints one line (or a few) and raises on failure, so the script exits
     for 3 rounds with bf16 tables (K1 storing bf16, K4's range form on
     the f32 algebra's table);
 11. ``agreement_gpt2``: three FetchSGD rounds of ``gpt2_tiny`` in float32
-    on the card against the CPU, under the agreement phase's tolerances.
+    on the card against the CPU, under the agreement phase's tolerances;
+12. K1's segment form (``cs_sketch_segment``, the sketch-fused backward's
+    kernel) held against its plain version (K1's f32 tolerance) into a
+    table that already holds values, two launches bit-identical, at
+    ResNet-9's geometry (its largest and smallest leaves, and all 26
+    leaves of a round, whose sum must equal K1 of the whole vector) and
+    GPT-2's (``wte``, 38.6M values, and a 768-value bias), timed beside
+    its plain version, one ``index_add_`` per row and its bound;
+13. ``fused_bwd``: ResNet-9 at full width with ``--fuse_clients true
+    --sketch_fused_bwd true`` for 5 rounds (K1's segment form once a leaf
+    a round), its params within ``5e-5 * max(|p|, 1)`` of the dense-grad
+    fused run at seed ``FUSED_BWD_SEED`` (both on deterministic cuDNN;
+    ``train/fused_bwd_probe.py`` measured the seeds), its momentum table
+    within 1e-5 of max|table|, and two fused tables from one state
+    bit-identical;
+    ``gpt2_fused_bwd``: GPT-2 with ``--max_grad_norm none --fuse_clients
+    true`` for 2 rounds with and without the fused backward, each run's
+    round ms and peak ``max_memory_allocated``;
+14. ``fedsim``: the ResNet-9 sketch path with bernoulli participation at
+    0.3 and ``straggler@0.1`` for 5 rounds, its participation printed,
+    and the width-8 card-against-CPU agreement with the same flags;
+15. ``dp``: ResNet-9 ``uncompressed`` with ``--max_grad_norm 1.0
+    --dp_noise_multiplier 0.5`` for 3 rounds, and the card's noise draw
+    (the round's, recovered from a client's gradient) within the CPU
+    statistics test's bounds;
+16. ``resume``: on deterministic cuDNN, 8 ResNet-9 sketch rounds straight
+    against 4, a checkpoint, a fresh session restored from it and 4 more,
+    every FedState leaf bit-equal; the checkpoint's bytes and its save
+    and restore ms.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
 kernel and every bf16 form (``launches`` summed over every path,
@@ -167,6 +195,7 @@ FORMS = {
     "cs_estimate_at": [("estimate_at", "f32"), ("estimate_at_range", "f32")],
     "cs_estimate_at[bf16_table]": [("estimate_at", "bf16_table"),
                                    ("estimate_at_range", "bf16_table")],
+    "cs_sketch_segment": [("sketch_segment", "f32")],
 }
 # the geometry of each bf16 form's main path (its top-level numbers)
 FORM_MAIN_GEOMETRY = {
@@ -390,7 +419,9 @@ def agreement_phase(torch, dev, name="agreement", lr=0.2,
     l_cpu, _, p_cpu, _ = session("cpu", lr=lr, **cfg_kw)
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    # a round where every client drops (fedsim) has loss 0 on both
+    loss_rel = max(abs(a - b) / abs(b) if b else abs(a - b)
+                   for a, b in zip(l_dev, l_cpu))
     phase(name, D=p0.numel(), lr=lr, losses_card=l_dev, losses_cpu=l_cpu,
           loss_max_rel_err=loss_rel, params_diff_over_moved=diff / moved)
     check(moved > 0, f"{name}: params did not move")
@@ -968,6 +999,418 @@ def sharded_bf16_phase(kern, cv_train, dataset_dir):
     return forms
 
 
+# -- the fused backward, fedsim, DP, checkpoint/resume ----------------------
+
+
+FUSED_FLAGS = ["--fuse_clients", "true"]
+SEGMENT_REPLACES = ("commefficient_tpu/ops/countsketch.py:898 "
+                    "(sketch_segment, an XLA scatter through sketch_sparse; "
+                    "no Pallas kernel)")
+FEDSIM_FLAGS = ["--availability", "bernoulli", "--dropout_prob", "0.3",
+                "--chaos", "straggler@0.1"]
+DP_FLAGS = ["--max_grad_norm", "1.0", "--dp_noise_multiplier", "0.5"]
+RESUME_ROUNDS = 4
+# the fused_bwd phase's seed. The two runs' tables differ only in the
+# order of their f32 sums (~2e-7 of max|table|), but at seed 42 that
+# swaps two groups of coordinates sharing one |estimate| at the exact
+# top-k's k-th place in rounds 3 and 4, and 64 params end 9.7e-5 apart;
+# seeds 1-12 stay within 7.5e-9 for five rounds (python -m
+# commefficient_tpu_torch.train.fused_bwd_probe --seeds 42,1-12)
+FUSED_BWD_SEED = 1
+
+
+def dp_stats_ok(x) -> bool:
+    """The CPU statistics test's bounds (tests/test_torch_fedsim.py): mean
+    within 5 / sqrt(n) of 0 and std within 5 / sqrt(2 n) of 1."""
+    n = x.numel()
+    x = x.double()
+    return (abs(float(x.mean())) <= 5 / n ** 0.5
+            and abs(float(x.std()) - 1.0) <= 5 / (2 * n) ** 0.5)
+
+
+def leaf_layout(shapes) -> list:
+    """(offset, size) of every leaf of a tree of shapes in the flat
+    layout (ravel order)."""
+    from commefficient_tpu_torch.ops.param_utils import tree_leaves
+
+    out, off = [], 0
+    for _, shape in tree_leaves(shapes):
+        out.append((off, math.prod(shape)))
+        off += math.prod(shape)
+    return out
+
+
+def segment_phase(torch, cs, kern, dev):
+    """K1's segment form held against its plain version (atol ``1e-5 *
+    max|table|``, K1's f32 tolerance: the order of the sums differs) into
+    a table that already holds values, two launches bit-identical, at
+    ResNet-9's geometry (its largest and smallest leaves, and every leaf
+    of a round, whose tables summed must equal K1 of the whole vector)
+    and at GPT-2's (``wte``, 38.6M values, and a 768-value bias). Timed by
+    CUDA events beside the plain version, one ``index_add_`` per row of
+    precomputed signed values (the library call), and the bound: the leaf
+    read once plus the table entries it touches read and written once.
+    Returns the ``kernels`` entry without ``launches``."""
+    from commefficient_tpu_torch.data.personachat import SPECIAL_TOKENS
+    from commefficient_tpu_torch.models import init_resnet9
+    from commefficient_tpu_torch.models.gpt2 import gpt2_shapes
+    from commefficient_tpu_torch.ops.param_utils import tree_leaves
+    from commefficient_tpu_torch.train import gpt2_train
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    r9 = leaf_layout({p: tuple(t.shape) for p, t in tree_leaves(
+        init_resnet9(42))})
+    gcfg = gpt2_train.gpt2_config(
+        parse_args(GPT2_ARGS, defaults=gpt2_train.DEFAULTS),
+        50257 + len(SPECIAL_TOKENS))
+    g2 = leaf_layout(gpt2_shapes(gcfg))
+    check(sum(n for _, n in r9) == GEOMETRY["d"], "segment: ResNet-9 D")
+    check(sum(n for _, n in g2) == GPT2_GEOMETRY["d"], "segment: GPT-2 D")
+    wte = max(g2, key=lambda x: x[1])
+    bias = next(x for x in g2 if x[1] == 768)
+    cases = {"resnet9_largest_leaf": (GEOMETRY, max(r9, key=lambda x: x[1])),
+             "resnet9_smallest_leaf": (GEOMETRY, min(r9, key=lambda x: x[1])),
+             "resnet9_round": (GEOMETRY, None),
+             "gpt2_wte": (GPT2_GEOMETRY, wte),
+             "gpt2_bias_768": (GPT2_GEOMETRY, bias)}
+    rows, worst = {}, 0.0
+    for name, (geo, leaf) in cases.items():
+        spec = cs.CountSketch(**geo)
+        big = geo is GPT2_GEOMETRY
+        light = dict(samples=5, calls=2) if big or leaf is None else {}
+        gen = torch.Generator(device=dev).manual_seed(3)
+        segs = r9 if leaf is None else [leaf]
+        v = torch.randn(spec.d, generator=gen, device=dev)
+        base = torch.randn(spec.table_shape, generator=gen, device=dev)
+
+        def run(fn, table):
+            for off, n in segs:
+                fn(spec, off, v[off:off + n], table)
+            return table
+
+        got = run(kern.sketch_segment, base.clone())
+        again = run(kern.sketch_segment, base.clone())
+        want = run(kern.sketch_segment_torch, base.clone())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(torch.equal(got, again), f"segment {name}: two launches differ")
+        check(err <= tol, f"segment {name}: max err {err} > {tol}")
+        if leaf is None:
+            whole = base + kern.sketch_rows(spec, cs._scramble(spec, v))
+            e2 = float((got - whole).abs().max())
+            check(e2 <= tol, f"segment {name}: the leaves' tables differ "
+                  f"from K1 of the whole vector by {e2}")
+        # the library call: one index_add_ per row, signed values and
+        # columns precomputed; the bound counts the entries touched
+        lo, hi = segs[0][0], segs[-1][0] + segs[-1][1]
+        spos = spec.scrambled_pos(torch.arange(lo, hi, device=dev))
+        maps = [spec.scrambled_cols_signs(row, spos) for row in range(spec.r)]
+        src = [v[lo:hi] * sign for _, sign in maps]
+        touched = sum(int(torch.unique(cols).numel()) for cols, _ in maps)
+        table = base.clone()
+
+        def library():
+            for row, (cols, _) in enumerate(maps):
+                table[row].index_add_(0, cols, src[row])
+
+        b, by = bound(4 * (hi - lo) + 8 * touched, spec.r * (hi - lo))
+        rows[name] = dict(
+            n=hi - lo, leaves=len(segs), max_abs_err=err, tol=tol,
+            ms=cuda_ms(torch, lambda: run(kern.sketch_segment, table),
+                       **light),
+            plain_ms=cuda_ms(torch, lambda: run(kern.sketch_segment_torch,
+                                                table),
+                             **(dict(samples=3, calls=1) if big or leaf
+                                is None else {})),
+            bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, library,
+                                                        **light),
+            touched_entries=touched)
+        phase("timing", kernel="cs_sketch_segment", geometry=name,
+              **rows[name])
+        worst = max(worst, err)
+        del v, base, got, again, want, maps, src, spos, table
+        torch.cuda.empty_cache()
+    main = rows["resnet9_round"]  # the fused backward's work of a round
+    return dict(replaces=SEGMENT_REPLACES, max_abs_err=worst,
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                main_geometry="resnet9_round", geometries=rows)
+
+
+def load_state(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)[
+        "fed_state"]
+
+
+def fused_bwd_phase(torch, kern, cv_train, dataset_dir, work):
+    """ResNet-9 at full width, ``--fuse_clients true --sketch_fused_bwd
+    true`` (dense decode), MAIN_ROUNDS rounds, the counters set to 0 just
+    before and read just after: K1's segment form once a leaf a round,
+    K1 twice a round (the weight-decay sketch of the params, the error
+    feedback's re-sketch), K2 once; params within ``5e-5 * max(|p|, 1)``
+    of the same run with the dense-grad fused gradient (each run's state
+    read from its end-of-training checkpoint; both runs on deterministic
+    cuDNN at FUSED_BWD_SEED, so their cotangents are the same bits and
+    only the sketch's order of sums differs), their momentum tables
+    within 1e-5 of max|table|; and the fused gradient table computed
+    twice from one state on deterministic cuDNN, bit-identical. Prints
+    both runs' round ms."""
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.parallel.round import (
+        leaf_offsets,
+        make_sketch_grad_one,
+    )
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same cotangents
+    try:
+        for name, flags in (("dense_grad", FUSED_FLAGS),
+                            ("fused_bwd", FUSED_FLAGS + [
+                                "--sketch_fused_bwd", "true"])):
+            ck = os.path.join(work, f"fused_{name}")
+            kern.reset_launch_counts()
+            out = cv_train.main(MAIN_ARGS + flags + [
+                "--seed", str(FUSED_BWD_SEED), "--max_rounds",
+                str(MAIN_ROUNDS), "--dataset_dir", dataset_dir,
+                "--checkpoint_dir", ck])
+            runs[name] = dict(out=out, forms=kern.form_counts(),
+                              launches=kern.launch_counts(),
+                              state=load_state(os.path.join(
+                                  ck, f"step_{MAIN_ROUNDS}.pt")))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    cfg = parse_args(MAIN_ARGS + FUSED_FLAGS + ["--sketch_fused_bwd", "true",
+                                                "--seed", str(FUSED_BWD_SEED)])
+    train, _, _, params, loss_fn, _ = cv_train.build_model_and_data(cfg)
+    sess = FederatedSession(cfg, params, loss_fn)
+    n_leaves = len(leaf_offsets(sess.unravel, sess.grad_size))
+    grad_table = make_sketch_grad_one(cfg, loss_fn, sess.unravel, sess.spec,
+                                      sess.grad_size)
+    from commefficient_tpu_torch.data import FedSampler
+
+    _, batch = FedSampler(train, num_workers=8, local_batch_size=64,
+                          seed=cfg.seed).sample_round(0)
+    flat = {k: torch.from_numpy(v.reshape((-1,) + v.shape[2:])).to(
+        sess.device) for k, v in batch.items()}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t1 = grad_table(sess.state.params_vec, flat)[0]
+        t2 = grad_table(sess.state.params_vec, flat)[0]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    p_d = runs["dense_grad"]["state"]["params_vec"]
+    p_f = runs["fused_bwd"]["state"]["params_vec"]
+    err = float((p_f - p_d).abs().max())
+    tol = 5e-5 * max(1.0, float(p_d.abs().max()))
+    over = int(((p_f - p_d).abs() > tol).sum())
+    m_d = runs["dense_grad"]["state"]["momentum"]
+    m_err = float((runs["fused_bwd"]["state"]["momentum"] - m_d).abs().max()
+                  ) / max(float(m_d.abs().max()), 1e-30)
+    ms = {k: [h["ms"] for h in r["out"]["history"]] for k, r in runs.items()}
+    launches = runs["fused_bwd"]["launches"]
+    phase("fused_bwd", leaves=n_leaves, params_max_abs_err=err,
+          params_tol=tol, coords_over_tol=over, seed=FUSED_BWD_SEED,
+          momentum_table_max_err_over_max=m_err,
+          params_moved=runs["dense_grad"]["out"]["param_delta_norm"],
+          rerun_tables_bit_identical=torch.equal(t1, t2),
+          fused_round_ms=[round(t, 3) for t in ms["fused_bwd"]],
+          dense_grad_round_ms=[round(t, 3) for t in ms["dense_grad"]],
+          fused_median_after_first=statistics.median(ms["fused_bwd"][1:]),
+          dense_grad_median_after_first=statistics.median(
+              ms["dense_grad"][1:]),
+          launches=launches,
+          dense_grad_launches=runs["dense_grad"]["launches"])
+    check(err <= tol, f"fused_bwd: params differ by {err} > {tol}")
+    check(m_err <= 1e-5, f"fused_bwd: momentum tables differ by {m_err} "
+          "of their max (K1's f32 tolerance is 1e-5)")
+    check(torch.equal(t1, t2), "fused_bwd: two fused tables from one state "
+          "differ")
+    for h in runs["fused_bwd"]["out"]["history"]:
+        check(math.isfinite(h["loss"]), "fused_bwd: loss not finite")
+    for name, want in (("sketch_segment", n_leaves * MAIN_ROUNDS),
+                       ("sketch_rows", 2 * MAIN_ROUNDS),
+                       ("estimate_median", MAIN_ROUNDS)):
+        check(launches[name] == want, f"fused_bwd: {name} launched "
+              f"{launches[name]} times, expected {want}")
+    check(runs["dense_grad"]["launches"]["sketch_segment"] == 0,
+          "fused_bwd: the dense-grad run launched the segment form")
+    del sess, t1, t2
+    torch.cuda.empty_cache()
+    return runs["fused_bwd"]["forms"]
+
+
+def gpt2_fused_bwd_phase(torch, kern, gpt2_train, dataset_dir, rounds=2):
+    """GPT-2 small at full width, ``--max_grad_norm none --fuse_clients
+    true``, ``rounds`` rounds with and without ``--sketch_fused_bwd
+    true``: each run's round ms and ``torch.cuda.max_memory_allocated``
+    (the peak reset just before it); the fused run launches K1's segment
+    form once a leaf a round. Printed, not held to a limit."""
+    out, forms = {}, None
+    for name, extra in (("dense_grad", []),
+                        ("fused_bwd", ["--sketch_fused_bwd", "true"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset_launch_counts()
+        res = gpt2_train.main(GPT2_ARGS + ["--max_grad_norm", "none"]
+                              + FUSED_FLAGS + extra + [
+            "--max_rounds", str(rounds), "--dataset_dir", dataset_dir])
+        launches = kern.launch_counts()
+        ms = [h["ms"] for h in res["history"]]
+        out[name] = dict(
+            round_ms=[round(t, 3) for t in ms],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=launches)
+        check(all(math.isfinite(h["loss"]) for h in res["history"]),
+              f"gpt2_fused_bwd {name}: loss not finite")
+        check(res["param_delta_norm"] > 0, f"gpt2_fused_bwd {name}: params")
+        if name == "fused_bwd":
+            forms = kern.form_counts()
+            seg = launches["sketch_segment"]
+            check(seg > 0 and seg % rounds == 0,
+                  f"gpt2_fused_bwd: segment launches {seg}")
+    phase("gpt2_fused_bwd", **{f"{k}_{f}": v for k, r in out.items()
+                               for f, v in r.items()})
+    return forms
+
+
+def fedsim_phase(torch, kern, cv_train, dataset_dir, dev):
+    """ResNet-9 sketch (dense decode) with bernoulli participation at 0.3
+    and a straggler plan, MAIN_ROUNDS rounds with the participation
+    printed; then the width-8 card-against-CPU agreement with the same
+    fedsim flags on deterministic cuDNN."""
+    kern.reset_launch_counts()
+    out = cv_train.main(MAIN_ARGS + FEDSIM_FLAGS + [
+        "--max_rounds", str(MAIN_ROUNDS), "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    rate = [h["fedsim/participation_rate"] for h in hist]
+    phase("fedsim", rounds=len(hist), participation_rate=rate,
+          dropped=[h["fedsim/dropped"] for h in hist],
+          straggler_excluded=[h["fedsim/straggler_excluded"] for h in hist],
+          round_ms=[round(h["ms"], 3) for h in hist],
+          losses=[h["loss"] for h in hist], launches=launches)
+    check(len(hist) == MAIN_ROUNDS, "fedsim: rounds")
+    check(all(math.isfinite(h["loss"]) for h in hist), "fedsim: loss")
+    check(out["param_delta_norm"] > 0, "fedsim: params did not move")
+    check(min(rate) < 1.0, "fedsim: no client ever dropped")
+    check(launches["sketch_rows"] == 2 * MAIN_ROUNDS
+          and launches["estimate_median"] == MAIN_ROUNDS,
+          f"fedsim: launches {launches}")
+    forms = kern.form_counts()
+    agreement_phase(torch, dev, name="agreement_fedsim",
+                    deterministic=True, availability="bernoulli",
+                    dropout_prob=0.3, chaos="straggler@0.1")
+    return forms
+
+
+def dp_phase(torch, cv_train, dataset_dir, rounds=3):
+    """ResNet-9 ``uncompressed`` with ``--max_grad_norm 1.0
+    --dp_noise_multiplier 0.5`` for ``rounds`` rounds through
+    ``cv_train.main``; then on the card one client's gradient with and
+    without the noise from one state (deterministic cuDNN): their
+    difference over sigma is the draw ``dp_noise`` gives for the key, and
+    its mean and std lie within the CPU statistics test's bounds."""
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.parallel.round import dp_noise, make_grad_one
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    args = list(MAIN_ARGS)
+    args[args.index("sketch")] = "uncompressed"
+    for flag in ("--error_type", "--k", "--num_rows", "--num_cols"):
+        i = args.index(flag)
+        del args[i:i + 2]
+    out = cv_train.main(args + DP_FLAGS + ["--max_rounds", str(rounds),
+                                           "--dataset_dir", dataset_dir])
+    hist = out["history"]
+    cfg = parse_args(args + DP_FLAGS)
+    train, _, _, params, loss_fn, _ = cv_train.build_model_and_data(cfg)
+    sess = FederatedSession(cfg, params, loss_fn)
+    _, batch = FedSampler(train, num_workers=8, local_batch_size=64,
+                          seed=cfg.seed).sample_round(0)
+    b0 = {k: torch.from_numpy(v[0]).to(sess.device) for k, v in batch.items()}
+    key = (7, 3)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        noisy = make_grad_one(cfg, loss_fn, sess.unravel)(
+            sess.state.params_vec, b0, key)[0]
+        clean = make_grad_one(cfg.replace(dp_noise_multiplier=0.0), loss_fn,
+                              sess.unravel)(sess.state.params_vec, b0)[0]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    sigma = cfg.dp_noise_multiplier * cfg.max_grad_norm
+    drawn = (noisy - clean) / sigma
+    want = dp_noise(cfg.seed, key, sess.grad_size, sess.device)
+    err = float((drawn - want).abs().max())
+    x = want.double()
+    phase("dp", rounds=len(hist), losses=[h["loss"] for h in hist],
+          round_ms=[round(h["ms"], 3) for h in hist],
+          param_delta_norm=out["param_delta_norm"], noise_n=want.numel(),
+          noise_mean=float(x.mean()), noise_std=float(x.std()),
+          in_round_draw_max_abs_err=err)
+    check(all(math.isfinite(h["loss"]) for h in hist), "dp: loss")
+    check(out["param_delta_norm"] > 0, "dp: params did not move")
+    check(dp_stats_ok(want), "dp: the card's draw is outside the bounds")
+    check(err <= 1e-4, f"dp: the round's noise differs from its key's draw "
+          f"by {err}")
+    check(torch.equal(want, dp_noise(cfg.seed, key, sess.grad_size,
+                                     sess.device)), "dp: draws not "
+          "reproducible")
+
+
+def resume_phase(torch, kern, cv_train, dataset_dir, work):
+    """ResNet-9 sketch (dense decode) on deterministic cuDNN: 2 *
+    RESUME_ROUNDS rounds straight, against RESUME_ROUNDS rounds with a
+    checkpoint, then a fresh session restored from it for RESUME_ROUNDS
+    more (``--resume``), through ``cv_train.main``; every FedState leaf of
+    the two end-of-training checkpoints bit-equal. Prints the checkpoint's
+    bytes and its save and restore ms."""
+    n = 2 * RESUME_ROUNDS
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = os.path.join(work, "straight"), os.path.join(work, "resumed")
+        kern.reset_launch_counts()
+        cv_train.main(MAIN_ARGS + ["--max_rounds", str(n), "--dataset_dir",
+                                   dataset_dir, "--checkpoint_dir", a])
+        first = cv_train.main(MAIN_ARGS + [
+            "--max_rounds", str(RESUME_ROUNDS), "--dataset_dir", dataset_dir,
+            "--checkpoint_dir", b, "--checkpoint_every",
+            str(RESUME_ROUNDS)])
+        second = cv_train.main(MAIN_ARGS + [
+            "--max_rounds", str(n), "--dataset_dir", dataset_dir,
+            "--checkpoint_dir", b, "--checkpoint_every", str(RESUME_ROUNDS),
+            "--resume", "true"])
+        forms = kern.form_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    sa = load_state(os.path.join(a, f"step_{n}.pt"))
+    sb = load_state(os.path.join(b, f"step_{n}.pt"))
+    same = {k: (sa[k] is None and sb[k] is None) or bool(
+        torch.is_tensor(sa[k]) and torch.equal(sa[k], sb[k]))
+        or sa[k] == sb[k] for k in sa}
+    ck = second["checkpoint"]
+    phase("resume", rounds_straight=n, resumed_from=ck["resumed_from"],
+          leaves_bit_equal=json.dumps(same),
+          checkpoint_bytes=first["checkpoint"]["bytes"],
+          save_ms=first["checkpoint"]["save_ms"],
+          restore_ms=ck["restore_ms"],
+          resumed_rounds=len(second["history"]))
+    check(ck["resumed_from"] == RESUME_ROUNDS, "resume: did not resume")
+    check(len(second["history"]) == RESUME_ROUNDS, "resume: rounds")
+    check(all(same.values()), f"resume: leaves differ from the straight "
+          f"run: {same}")
+    return forms
+
+
 def main() -> int:
     import torch
 
@@ -1043,6 +1486,22 @@ def main() -> int:
                                                       dataset_dir)
     agreement_phase(torch, dev, name="agreement_gpt2", deterministic=True,
                     session=gpt2_tiny_session, **AGREEMENT_GPT2)
+
+    # the fused backward, fedsim, DP, checkpoint/resume
+    import tempfile
+
+    entries["cs_sketch_segment"] = segment_phase(torch, cs, kern, dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        paths["fused_bwd"] = fused_bwd_phase(torch, kern, cv_train,
+                                             dataset_dir, work)
+        paths["gpt2_fused_bwd"] = gpt2_fused_bwd_phase(torch, kern,
+                                                       gpt2_train,
+                                                       dataset_dir)
+        paths["fedsim"] = fedsim_phase(torch, kern, cv_train, dataset_dir,
+                                       dev)
+        dp_phase(torch, cv_train, dataset_dir)
+        paths["resume"] = resume_phase(torch, kern, cv_train, dataset_dir,
+                                       work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

@@ -45,6 +45,10 @@ class Compressor:
     # True -> the fused flattened-batch gradient is the same math for this
     # mode (nothing per-client in its transmit rule)
     supports_fused_clients: bool = False
+    # True -> the class implements encode_grad_table(), so the fused path
+    # may produce its gradient directly as a sketch table
+    # (cfg.sketch_fused_bwd; parallel/round.py make_sketch_grad_one)
+    supports_fused_backward: bool = False
     # True -> the applied delta is dense, so do_topk_down's downlink top-k
     # is meaningful (a sketch delta already has <= k nonzeros)
     dense_delta: bool = True
@@ -122,10 +126,12 @@ class Compressor:
     def init_extra_state(self, device):
         return None
 
-    def client_grad(self, grad_one, params_vec, batch, lr: float):
+    def client_grad(self, grad_one, params_vec, batch, noise_key,
+                    lr: float):
         """Per-client gradient rule: ``-> (g [D], loss, aux)``. Default:
-        one gradient pass; fedavg runs its local SGD steps."""
-        return grad_one(params_vec, batch)
+        one gradient pass; fedavg runs its local SGD steps. ``noise_key``
+        keys the client's DP draw (None without DP)."""
+        return grad_one(params_vec, batch, noise_key)
 
     def client_transmit(self, u, err_row, lr: float):
         """Per-client transmit rule after local momentum: ``-> (transmit
@@ -136,6 +142,12 @@ class Compressor:
     def device_encode(self, local_sum: torch.Tensor):
         """LINEAR encode of the device's summed transmit. Default: identity."""
         return local_sum
+
+    def encode_grad_table(self, table: torch.Tensor):
+        """``device_encode``'s twin for the sketch-fused backward, whose
+        summed transmit arrives already as an f32 table (modes with
+        ``supports_fused_backward``)."""
+        raise NotImplementedError
 
     def server_update(self, momentum, error, extra, agg, lr: float,
                       step: int):

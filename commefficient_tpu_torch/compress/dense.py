@@ -59,7 +59,8 @@ class FedAvgCompressor(_DenseServerMixin, Compressor):
     supports_fused_clients = False  # local SGD is per client by nature
     dense_delta = True
 
-    def client_grad(self, grad_one, params_vec, batches, lr: float):
+    def client_grad(self, grad_one, params_vec, batches, noise_key,
+                    lr: float):
         """``num_local_iters`` SGD steps on the client's microbatches
         (``{k: [L, B, ...]}``), in order; returns the weight delta in
         gradient scale, the mean loss and the mean aux over the steps. The
@@ -75,7 +76,9 @@ class FedAvgCompressor(_DenseServerMixin, Compressor):
         L = next(iter(batches.values())).shape[0]
         p, losses, auxes = params_vec, [], []
         for it in range(L):
-            g, loss, aux = grad_one(p, {k: v[it] for k, v in batches.items()})
+            g, loss, aux = grad_one(
+                p, {k: v[it] for k, v in batches.items()},
+                None if noise_key is None else (*noise_key, it))
             p = p - llr * g
             losses.append(loss)
             auxes.append(aux)

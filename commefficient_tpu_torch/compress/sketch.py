@@ -59,6 +59,7 @@ class SketchCompressor(Compressor):
     needs_sketch_spec = True
     supports_sharded_decode = True
     supports_fused_clients = True
+    supports_fused_backward = True
     dense_delta = False  # the unsketched delta already has <= k nonzeros
 
     # the f32 algebra on upcast tables; both casts are no-ops for the f32
@@ -97,6 +98,12 @@ class SketchCompressor(Compressor):
 
     def device_encode(self, local_sum):
         return sketch_vec(self.spec, local_sum)
+
+    def encode_grad_table(self, table):
+        """The sketch-fused backward's encode: the device's summed
+        transmit is already an f32 table (the taps' segment sketches);
+        only the storage cast of the group sum's payload remains."""
+        return self._down(table)
 
     def server_update(self, momentum, error, extra, agg, lr: float,
                       step: int):

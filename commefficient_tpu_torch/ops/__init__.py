@@ -2,9 +2,11 @@
 
 from commefficient_tpu_torch.ops.countsketch import (
     CountSketch,
+    SketchGradTap,
     estimate_all,
     estimate_at,
     estimate_at_range,
+    sketch_segment,
     sketch_sparse,
     sketch_vec,
     unsketch,
@@ -23,9 +25,9 @@ from commefficient_tpu_torch.ops.topk import (
     topk_threshold_sharded,
 )
 
-__all__ = ["CountSketch", "clip_by_global_norm", "compact_nonzero",
-           "estimate_all", "estimate_at", "estimate_at_range", "ravel_params",
-           "sketch_sparse",
-           "sketch_vec", "topk_dense", "topk_sparsify",
+__all__ = ["CountSketch", "SketchGradTap", "clip_by_global_norm",
+           "compact_nonzero", "estimate_all", "estimate_at",
+           "estimate_at_range", "ravel_params", "sketch_segment",
+           "sketch_sparse", "sketch_vec", "topk_dense", "topk_sparsify",
            "topk_threshold_dense", "topk_threshold_sharded", "unsketch",
            "unsketch_dense", "unsketch_sparse"]

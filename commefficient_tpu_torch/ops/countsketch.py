@@ -50,6 +50,9 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_median,
     sketch_rows,
 )
+from commefficient_tpu_torch.ops.cuda.countsketch import (
+    sketch_segment as sketch_segment_kernel,
+)
 from commefficient_tpu_torch.ops.cuda.index_math import fast_divisor
 from commefficient_tpu_torch.ops.topk import (
     topk_sparsify,
@@ -544,6 +547,50 @@ def sketch_sparse(spec: CountSketch, idx: torch.Tensor, vals: torch.Tensor,
     dense.index_add_(0, idx.to(torch.int64), vals.to(torch.float32))
     return sketch_rows(spec, _scramble(spec, dense), operand=torch.float32,
                        table_dtype=table_dtype)
+
+
+def sketch_segment(spec: CountSketch, offset: int, vals: torch.Tensor,
+                   table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sketch the contiguous original-order segment ``[offset, offset +
+    n)`` given its values (any shape; raveled) into an f32 table: added
+    into ``table`` in place when given (f32 ``[r, c_actual]``), else into
+    a new zero table. The values are f32 and never rounded to
+    ``spec.dtype``, as the reference's ``sketch_segment`` scatters them.
+    By linearity the sum of every leaf's segment sketch is the sketch of
+    the whole flat vector, which never has to exist (K1's segment form on
+    a CUDA tensor: no ``[d]`` buffer, no float atomics)."""
+    _check_poly4_field(spec)
+    flat = vals.reshape(-1).to(torch.float32).contiguous()
+    if table is None:
+        table = torch.zeros(spec.table_shape, dtype=torch.float32,
+                            device=flat.device)
+    return sketch_segment_kernel(spec, int(offset), flat, table)
+
+
+class SketchGradTap(torch.autograd.Function):
+    """``SketchGradTap.apply(leaf, table, spec, offset)``: the identity on
+    ``leaf`` whose backward adds the segment sketch of the leaf's cotangent
+    (``sketch_segment`` at the leaf's ravel offset) into ``table``'s own
+    storage, and gives ``leaf`` its cotangent only if the leaf requires a
+    gradient (the reference's ``sketch_grad_tap``, whose backward returns
+    that sketch as the table's cotangent). Thread every parameter leaf
+    through a tap sharing one zero f32 ``table`` that requires a gradient
+    and run the backward with respect to it (``torch.autograd.grad(loss,
+    [table], allow_unused=True)``: no tap returns a gradient for it): the
+    taps add, in the fixed order of autograd's backward, the sketch of the
+    whole flat gradient into the one table, while the parameters
+    themselves are not differentiated, so the flat ``[D]`` gradient is
+    never formed and no table a leaf is allocated."""
+
+    @staticmethod
+    def forward(ctx, leaf, table, spec, offset):
+        ctx.spec, ctx.offset, ctx.table = spec, int(offset), table
+        return leaf.view_as(leaf)
+
+    @staticmethod
+    def backward(ctx, ct):
+        sketch_segment(ctx.spec, ctx.offset, ct, ctx.table.detach())
+        return (ct if ctx.needs_input_grad[0] else None), None, None, None
 
 
 def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):

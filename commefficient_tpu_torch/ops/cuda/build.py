@@ -82,6 +82,8 @@ def load_library() -> ctypes.CDLL:
             sigs = {
                 "cs_sketch_rows": [P, I64, P, P, P, I64, P, I32, I32, I32,
                                    I32, I32, P],
+                "cs_sketch_segment": [P, I64, I64, P, I64, P, P, P, I64, P,
+                                      I64, P, I32, I32, P],
                 "cs_estimate_median": [P, I64, P, I64, I64, P, I64, I64, I64,
                                        P, I64, I32, P, I64, P, I32, P, P,
                                        P, I32, I32, P],

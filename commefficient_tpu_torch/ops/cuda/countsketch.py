@@ -186,6 +186,125 @@ sketch_rows.launches = 0
 sketch_rows.forms = {}
 
 
+# -- K1's segment form: one leaf's values into an existing table -------------
+
+
+def sketch_segment_torch(spec, offset: int, vals: torch.Tensor,
+                         table: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's segment form: per row, one ``index_add_`` of
+    the signed values at the columns of the original coordinates
+    ``[offset, offset + n)``, into ``table`` in place."""
+    spos = spec.scrambled_pos(offset + torch.arange(vals.numel(),
+                                                    device=vals.device))
+    for row in range(spec.r):
+        cols, sign = spec.scrambled_cols_signs(row, spos)
+        table[row].index_add_(0, cols, vals * sign)
+    return table
+
+
+SEGMENT_PLAN_STEP = 1 << 22  # positions a step of the chunk-mask build
+
+
+@functools.lru_cache(maxsize=8)
+def _forward_perm(spec, device: str):
+    """The forward block permutation (scrambled block -> original block)
+    as int32 on ``device``, None when the spec does not scramble."""
+    inv = spec.inverse_block_perm()
+    if inv is None:
+        return None
+    fwd = np.empty_like(inv)
+    fwd[inv] = np.arange(inv.size, dtype=inv.dtype)
+    return torch.from_numpy(fwd).to(device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _segment_plan(spec, offset: int, n: int, device: str):
+    """The chunk mask of one segment: ``[r, words]`` int32, bit q of a row
+    set where chunk q of that row holds a scrambled position of a scramble
+    block that meets ``[offset, offset + n)`` (whole blocks: a superset,
+    the kernel's predicate does the rest). Built on ``device`` in steps of
+    ``SEGMENT_PLAN_STEP`` positions, once per (spec, segment): the
+    sketch-fused backward asks for the same segments every round."""
+    b = spec.sblock
+    nc = max(spec._nc_row(row) for row in range(spec.r))
+    flags = torch.zeros(spec.r, -(-nc // 32) * 32, dtype=torch.bool,
+                        device=device)
+    if b:
+        inv = torch.from_numpy(spec.inverse_block_perm().astype(
+            np.int64)).to(device)
+        lo, hi = offset // b, (offset + n - 1) // b + 1
+    else:
+        lo, hi = offset, offset + n
+    step = max(1, SEGMENT_PLAN_STEP // (b or 1))
+    for u0 in range(lo, hi, step):
+        u = torch.arange(u0, min(hi, u0 + step), device=device)
+        spos = ((inv[u] * b)[:, None] + torch.arange(b, device=device)
+                ).reshape(-1) if b else u
+        for row in range(spec.r):
+            f, G = spec._factor(row), spec._L_row(row) // spec._factor(row)
+            flags[row, ((spos % G) * f + spos // G) // spec.chunk_m] = True
+    weight = torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
+        32, device=device)
+    words = (flags.view(spec.r, -1, 32).to(torch.int64) * weight).sum(2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(
+        torch.int32).contiguous()
+
+
+def prepare_segments(spec, segments, device) -> None:
+    """Build K1's segment-form plans (the chunk masks, the forward block
+    permutation, the kernel geometry) of every ``(offset, n)`` segment on
+    a CUDA ``device`` ahead of their first launch, so no backward pass
+    builds them between its own allocations; nothing on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    dev = str(device)
+    _kernel_geometry(spec, dev)
+    _forward_perm(spec, dev)
+    for offset, n in segments:
+        _segment_plan(spec, int(offset), int(n), dev)
+
+
+def sketch_segment(spec, offset: int, vals: torch.Tensor,
+                   table: torch.Tensor) -> torch.Tensor:
+    """Add the ``n`` f32 ``vals`` of original coordinates ``[offset,
+    offset + n)`` into the f32 ``[r, c_actual]`` ``table``, in place, and
+    return it (K1's segment form: no ``[d]`` buffer, no float atomics, so
+    two launches on the same inputs give bit-identical tables)."""
+    n = vals.numel()
+    _check("sketch_segment vals", vals, (n,))
+    _check("sketch_segment table", table, spec.table_shape)
+    if vals.device != table.device:
+        raise ValueError(f"sketch_segment: vals on {vals.device}, table on "
+                         f"{table.device}")
+    if offset < 0 or offset + n > spec.d:
+        raise ValueError(f"sketch_segment: [{offset}, {offset + n}) is not "
+                         f"inside [0, {spec.d})")
+    if n == 0:
+        return table
+    if vals.device.type == "cpu":
+        return sketch_segment_torch(spec, offset, vals, table)
+    _check_rows(spec.r)
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    dev = str(vals.device)
+    rows, ptr, off, _ = _kernel_geometry(spec, dev)
+    perm = _forward_perm(spec, dev)
+    mask = _segment_plan(spec, offset, n, dev)
+    _launch(lib.cs_sketch_segment, vals.data_ptr(), offset, n,
+            None if perm is None else perm.data_ptr(), spec.d_eff,
+            ptr.data_ptr(), off.data_ptr(), mask.data_ptr(), mask.shape[1],
+            table.data_ptr(), spec.c_actual, rows, spec.r,
+            _FAMILY[spec.hash_family], _stream())
+    _count(sketch_segment, "f32")
+    return table
+
+
+sketch_segment.launches = 0
+sketch_segment.forms = {}
+
+
 # -- K2: every coordinate's estimate, in original order -------------------------
 
 
@@ -533,8 +652,8 @@ def hash_bits_cuda(spec, row: int, x: torch.Tensor, which: str) -> np.ndarray:
     return out.cpu().numpy().view(np.uint32)
 
 
-KERNELS = (sketch_rows, estimate_median, median_rows, estimate_at,
-           estimate_at_range)
+KERNELS = (sketch_rows, sketch_segment, estimate_median, median_rows,
+           estimate_at, estimate_at_range)
 
 
 def reset_launch_counts() -> None:

@@ -35,6 +35,18 @@ def tree_leaves(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def tree_with_leaves(tree: Tree, leaves) -> Tree:
+    """``tree``'s nested dict structure holding ``leaves`` (in
+    ``tree_leaves`` order) in place of its own."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
+                for k in sorted(node)}
+
+    return build(tree)
+
+
 def make_unravel(shapes: List[Tuple[str, tuple]]) -> Callable[[torch.Tensor],
                                                                 Tree]:
     """``vec [D] -> nested dict of VIEWS`` for the (path, shape) layout in

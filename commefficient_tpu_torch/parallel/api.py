@@ -17,6 +17,7 @@ import torch
 
 from commefficient_tpu_torch import resolve_device
 from commefficient_tpu_torch.compress import compressor_class, get_compressor
+from commefficient_tpu_torch.fedsim import build_environment
 from commefficient_tpu_torch.ops.countsketch import CountSketch
 from commefficient_tpu_torch.ops.param_utils import ravel_params
 from commefficient_tpu_torch.parallel.envelope import (
@@ -132,6 +133,10 @@ class FederatedSession:
                 "only pays when the worker group is real; 'auto' picks "
                 "dense here for exactly that reason.", stacklevel=2)
         self.state = init_state(cfg, self.compressor, vec.to(self.device))
+        # the fedsim environment (None unless cfg.fedsim_enabled): round
+        # state.step's masks, a pure function of (seed, step), so a
+        # restored step realizes what the unbroken run realized
+        self.fedsim_env = build_environment(cfg)
         self.round_fn = build_round_fn(cfg, loss_fn, unravel,
                                        self.compressor, self.group)
         self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
@@ -143,14 +148,30 @@ class FederatedSession:
         lo = self.group.rank * w_loc
         return {k: np.asarray(v)[lo:lo + w_loc] for k, v in batch.items()}
 
-    def train_round(self, client_ids, batch: Dict[str, Any], lr: float):
+    def train_round(self, client_ids, batch: Dict[str, Any], lr: float,
+                    env=None):
         """One round on ``batch`` ({k: [W, B, ...]} host arrays, for fedavg
         ``[W, L, B, ...]`` (``microbatched``); the same on every rank, and
         each rank computes its own clients). ``client_ids`` ([W] ints) name
         the participants; modes with client state (local momentum, local
         error feedback) need them and raise without, the others may pass
         ``None``. Returns the round's metrics as 0-d device tensors
-        (``loss`` = mean client loss over all W)."""
+        (``loss`` = mean client loss over all W, over the live clients
+        under fedsim), plus the ``fedsim/*`` host scalars under fedsim.
+
+        ``env`` (a ``fedsim.RoundEnv``) overrides the session
+        environment's draw for this round (tests drive explicit masks
+        through it); by default a fedsim session realizes round
+        ``state.step``'s environment. An ``env`` for a session built
+        without fedsim raises."""
+        if env is None and self.fedsim_env is not None:
+            env = self.fedsim_env.round_env(self.state.step)
+        elif env is not None and self.fedsim_env is None:
+            raise ValueError(
+                "env= passed but this session was built without fedsim "
+                "(cfg.fedsim_enabled is False, so the round masks "
+                "nothing); construct the Config with availability/chaos "
+                "set to drive masked rounds")
         ids = None
         if client_ids is not None:
             host = np.asarray(client_ids, dtype=np.int64)
@@ -163,8 +184,8 @@ class FederatedSession:
         lr = float(np.float32(lr))  # the reference's f32 lr
         self.state, metrics = self.round_fn(
             self.state, ids,
-            _to_device(self.local_clients(batch), self.device), lr)
-        return metrics
+            _to_device(self.local_clients(batch), self.device), lr, env=env)
+        return {**metrics, **env.stats} if env is not None else metrics
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:
         """Metrics over eval batches (padded rows masked): ``loss`` (the

@@ -26,6 +26,24 @@ the device's flattened batch, times ``w_loc``, replaces the per-client
 loop: the same sum of per-client mean gradients when the clients' batches
 have equal sizes.
 
+With ``sketch_fused_bwd`` (mode sketch, fused clients) that one gradient
+is produced directly as a table (``make_sketch_grad_one``): every
+parameter leaf goes through a ``SketchGradTap`` and the loss is
+differentiated with respect to a zero table, so the flat ``[D]`` gradient
+never exists.
+
+fedsim (``cfg.fedsim_enabled``): the round takes the cohort's ``RoundEnv``
+(live and corruption masks over the W slots, the live count); each rank
+applies its slice of the masks per client (corruption, then the live mask,
+by ``torch.where``: a dropped client sends nothing, a corrupted live one a
+NaN payload), and the server renormalizes by ``W / max(live_count, 1)``;
+a round where every client drops changes nothing but the step.
+
+Worker-side DP (``dp_noise_multiplier``): after the clip, each client's
+gradient gets Gaussian noise from a ``torch.Generator`` seeded by
+``dp_seed(seed, step, client id)``, so a resumed round draws what the
+unbroken run drew.
+
 The reference ``vmap``s the clients and sums the stack; here clients run
 one after another and are summed in client order.
 """
@@ -35,12 +53,16 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from commefficient_tpu_torch.models.losses import IGNORE_INDEX
+from commefficient_tpu_torch.ops.countsketch import SketchGradTap, sketch_vec
+from commefficient_tpu_torch.ops.cuda.countsketch import prepare_segments
 from commefficient_tpu_torch.ops.param_utils import (
     clip_by_global_norm,
     tree_leaves,
+    tree_with_leaves,
 )
 
 
@@ -73,11 +95,13 @@ def resolve_aggregation(cfg, comp, Wd: int) -> AggregationPlan:
 def fused_clients(cfg, comp) -> bool:
     """The reference's gate for the flattened-batch gradient: asked for,
     the same math for the mode, and nothing per client (no local momentum,
-    no local error, no per-gradient clip, no DP noise)."""
+    no local error, no per-gradient clip, no DP noise, no fedsim
+    masking)."""
     return bool(cfg.fuse_clients and comp.supports_fused_clients
                 and cfg.local_momentum == 0 and cfg.error_type != "local"
                 and cfg.max_grad_norm is None
-                and cfg.dp_noise_multiplier == 0)
+                and cfg.dp_noise_multiplier == 0
+                and not cfg.fedsim_enabled)
 
 
 def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
@@ -98,9 +122,34 @@ def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
                     0, extra)
 
 
+DP_STREAM = 0xD9  # the DP draws' stream tag in dp_seed
+
+
+def dp_seed(seed: int, *key: int) -> int:
+    """The seed of one DP draw's ``torch.Generator``: the first 64-bit word
+    of numpy's ``SeedSequence([seed, DP_STREAM, *key])``, ``key`` being
+    ``(step, client id)`` (fedavg appends the local step). A pure function
+    of the run's seed and the round, so a resumed round draws what the
+    unbroken run drew."""
+    ss = np.random.SeedSequence([int(seed) & 0x7FFFFFFF, DP_STREAM,
+                                 *map(int, key)])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def dp_noise(seed: int, key, d: int, device) -> torch.Tensor:
+    """The standard normal ``[d]`` f32 draw of DP key ``key`` on
+    ``device``. The card and the CPU draw differently, and neither draws
+    JAX's threefry normals: parity with the reference is statistical."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(dp_seed(seed, *key))
+    return torch.randn(d, generator=gen, device=device, dtype=torch.float32)
+
+
 def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
-    """``(params_vec, batch) -> (flat grad [D], loss, aux)`` with weight
-    decay and the global-norm clip, in the reference's order. The loss
+    """``(params_vec, batch, noise_key=None) -> (flat grad [D], loss,
+    aux)`` with weight decay, the global-norm clip and worker-side DP
+    noise (``dp_noise`` of ``noise_key`` times ``dp_noise_multiplier *
+    max_grad_norm``), in the reference's order. The loss
     reads its parameters as views of the flat vector, each view a leaf of
     the graph, and the leaves' gradients are concatenated in ravel order
     (the transpose of ``ravel_pytree``): one [D] write. Differentiating
@@ -108,7 +157,10 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
     backward a zero-filled [D] buffer to add (150 leaves of 498 MB at
     GPT-2 scale)."""
 
-    def grad_one(params_vec, batch):
+    sigma = (cfg.dp_noise_multiplier * cfg.max_grad_norm
+             if cfg.dp_noise_multiplier > 0 else 0.0)
+
+    def grad_one(params_vec, batch, noise_key=None):
         tree = unravel(params_vec.detach())
         leaves = [t.requires_grad_(True) for _, t in tree_leaves(tree)]
         with torch.enable_grad():
@@ -119,22 +171,99 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
         if cfg.weight_decay:
             g = g + cfg.weight_decay * params_vec
         g = clip_by_global_norm(g, cfg.max_grad_norm)
+        if sigma:
+            if noise_key is None:
+                raise ValueError("DP noise needs the draw's key (step, "
+                                 "client id)")
+            g = g + sigma * dp_noise(cfg.seed, noise_key, g.numel(),
+                                     g.device)
         return g, loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return grad_one
 
 
+def leaf_offsets(unravel: Callable, d: int):
+    """The (offset, size) of every parameter leaf in the flat ``[D]``
+    layout, in ravel order (the static segments of the fused backward)."""
+    out, off = [], 0
+    for _, t in tree_leaves(unravel(torch.zeros(d, device="meta"))):
+        out.append((off, t.numel()))
+        off += t.numel()
+    return out
+
+
+def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
+                         d: int):
+    """The sketch-fused twin of ``make_grad_one`` for the fused
+    flattened-batch path: ``(params_vec, batch) -> (gradient table [r,
+    c_actual] f32, loss, aux)``.
+
+    Every parameter leaf goes through a ``SketchGradTap`` sharing one zero
+    f32 table, and the loss is differentiated with respect to that table:
+    each tap's backward adds its leaf's cotangent's sketch into the table
+    where autograd produces it (K1's segment form at the leaf's ravel
+    offset: one table, not one a leaf), in the fixed order of autograd's
+    backward, so the table ends as the sketch of the whole flat gradient.
+    The parameters are not differentiated, so the flat ``[D]`` gradient
+    (``make_grad_one``'s ``torch.cat``) never exists. Weight decay joins
+    by linearity as
+    ``weight_decay * sketch_vec(spec_f32, params_vec)`` (K1 on the params
+    vector, which exists anyway), ``spec_f32`` the spec with f32 table
+    storage (the reference's ``spec._replace(table_dtype=float32)``).
+    Config refuses every per-client setting (clip, DP, local momentum,
+    fedsim) with it."""
+    segments = leaf_offsets(unravel, d)
+    offsets = [off for off, _ in segments]
+    spec_f32 = replace(spec, table_dtype=torch.float32)
+
+    def grad_one_table(params_vec, batch):
+        prepare_segments(spec, segments, params_vec.device)
+        tree = unravel(params_vec.detach())
+        leaves = [t for _, t in tree_leaves(tree)]
+        acc = torch.zeros(spec.table_shape, dtype=torch.float32,
+                          device=params_vec.device, requires_grad=True)
+        with torch.enable_grad():
+            tapped = [SketchGradTap.apply(t, acc, spec, off)
+                      for t, off in zip(leaves, offsets)]
+            loss, aux = loss_fn(tree_with_leaves(tree, tapped), batch)
+            torch.autograd.grad(loss, [acc], allow_unused=True)
+        table = acc.detach()
+        if cfg.weight_decay:
+            table = table + cfg.weight_decay * sketch_vec(spec_f32,
+                                                          params_vec)
+        return table, loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return grad_one_table
+
+
 def make_per_client(cfg, comp, grad_one):
-    """``per_client(params_vec, batch, vel_row, err_row, lr) -> (transmit,
-    new_vel, new_err, loss, aux)``: the compressor's gradient rule, local
-    momentum, then its transmit rule. Rows are ``None`` where the bank is
-    absent."""
+    """``per_client(params_vec, batch, vel_row, err_row, lr, noise_key=None,
+    live=None, corrupt=None) -> (transmit, new_vel, new_err, loss, aux)``:
+    the compressor's gradient rule, local momentum, then its transmit rule.
+    Rows are ``None`` where the bank is absent. ``live``/``corrupt``
+    (0-d f32 tensors, fedsim): corruption first, then the live mask, both
+    by ``torch.where`` (a zero mask blocks even a corrupted NaN, where a
+    product would let it through); the loss and aux are multiplied by the
+    mask, and a masked client's velocity and error rows carry forward
+    unchanged (the reference's order)."""
     lm = cfg.local_momentum
 
-    def per_client(params_vec, batch, vel, err, lr: float):
-        g, loss, aux = comp.client_grad(grad_one, params_vec, batch, lr)
+    def per_client(params_vec, batch, vel, err, lr: float, noise_key=None,
+                   live=None, corrupt=None):
+        g, loss, aux = comp.client_grad(grad_one, params_vec, batch,
+                                        noise_key, lr)
         u = lm * vel + g if lm > 0 else g
         transmit, new_vel, new_err = comp.client_transmit(u, err, lr)
+        if live is not None:
+            on = live > 0
+            transmit = torch.where(corrupt > 0, float("nan"), transmit)
+            transmit = torch.where(on, transmit, 0.0)
+            loss = loss * live
+            aux = {k: v * live for k, v in aux.items()}
+            if vel is not None:
+                new_vel = torch.where(on, new_vel, vel)
+            if err is not None:
+                new_err = torch.where(on, new_err, err)
         return transmit, new_vel, new_err, loss, aux
 
     return per_client
@@ -155,11 +284,13 @@ def fused_grad_sum(grad_one, params_vec, batch: Dict[str, torch.Tensor]):
 
 
 def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
-                     lr: float):
+                     lr: float, noise_keys=None, live=None, corrupt=None):
     """The per-client loop: ``(transmit sum [D], loss sum, aux sums,
     new_vel_rows [w, D] | None, new_err_rows [w, D] | None)`` over the
     clients of ``batch`` ({k: [w, ...]}), in client order; a rows argument
-    is ``None`` where its bank is absent."""
+    is ``None`` where its bank is absent. ``noise_keys`` ([w] DP keys),
+    ``live`` and ``corrupt`` ([w] f32 masks, fedsim) go to each client
+    where given."""
     w = next(iter(batch.values())).shape[0]
     t_sum = loss_sum = aux_sum = None
     vels, errs = [], []
@@ -167,7 +298,10 @@ def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
         t, vel, err, loss, aux = per_client(
             params_vec, {k: v[i] for k, v in batch.items()},
             None if vel_rows is None else vel_rows[i],
-            None if err_rows is None else err_rows[i], lr)
+            None if err_rows is None else err_rows[i], lr,
+            None if noise_keys is None else noise_keys[i],
+            None if live is None else live[i],
+            None if corrupt is None else corrupt[i])
         t_sum, loss_sum = _add(t_sum, t), _add(loss_sum, loss)
         aux_sum = aux if aux_sum is None else {k: aux_sum[k] + v
                                                for k, v in aux.items()}
@@ -180,34 +314,57 @@ def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
             None if err_rows is None else torch.stack(errs))
 
 
-def aggregate(cfg, comp, group, local, loss_sum, aux):
-    """``(agg, loss_mean, aux_sum)``: the encoded transmit summed over the
-    group and divided by W, the mean client loss, the summed aux."""
+def aggregate(cfg, group, encoded, loss_sum, aux):
+    """``(agg, loss_mean, aux_sum)``: the device's encoded transmit summed
+    over the group and divided by W, the mean client loss, the summed
+    aux."""
     W = cfg.num_workers
-    agg = group.all_reduce_sum(comp.device_encode(local)) / W
+    agg = group.all_reduce_sum(encoded) / W
     keys = list(aux)
     sums = group.all_reduce_sum(torch.stack([loss_sum]
                                             + [aux[k] for k in keys]))
     return agg, sums[0] / W, dict(zip(keys, sums[1:]))
 
 
+def live_scale(W: int, count: float) -> float:
+    """``W / max(count, 1)`` in f32, the reference's live-count
+    renormalization (the f32 division, then the product in f32)."""
+    return float(np.float32(W) / max(np.float32(count), np.float32(1.0)))
+
+
 def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
-                 agg, lr: float):
+                 agg, lr: float, count: Optional[float] = None):
     """The server half of a round: the compressor's momentum/error algebra
     and extraction (dense or sharded decode), then, for the dense decode,
     the optional downlink top-k. Returns ``(update, new_momentum,
     new_error, new_comp)`` for ``apply_update``: ``("dense", delta)`` or
-    ``("sparse", (idx, val))``."""
+    ``("sparse", (idx, val))``.
+
+    ``count`` (fedsim: the live clients of the whole round, a host float)
+    scales ``agg`` by ``live_scale(W, count)`` first (``agg`` in f32, as
+    the reference's product promotes a bf16 table) — every encode is
+    linear, so a masked round equals the round over its live cohort — and
+    with ``count == 0`` zeroes the update and keeps momentum, error and
+    ``comp`` as they were."""
+    if count is not None:
+        agg = agg.to(torch.float32) * live_scale(cfg.num_workers, count)
     if plan.sharded_decode:
         g_idx, g_val, new_m, new_e, new_c = comp.server_update_sharded(
             state.momentum, state.error, state.comp, agg, lr, state.step,
             group=group, d=state.params_vec.numel())
-        return ("sparse", (g_idx, g_val)), new_m, new_e, new_c
-    delta, new_m, new_e, new_c = comp.server_update(
-        state.momentum, state.error, state.comp, agg, lr, state.step)
-    if cfg.do_topk_down and comp.dense_delta:
-        delta = comp.topk(delta, cfg.k)
-    return ("dense", delta), new_m, new_e, new_c
+        update = ("sparse", (g_idx, g_val))
+    else:
+        delta, new_m, new_e, new_c = comp.server_update(
+            state.momentum, state.error, state.comp, agg, lr, state.step)
+        if cfg.do_topk_down and comp.dense_delta:
+            delta = comp.topk(delta, cfg.k)
+        update = ("dense", delta)
+    if count is not None and count <= 0:  # nothing arrived: nothing moves
+        kind, u = update
+        update = ((kind, torch.zeros_like(u)) if kind == "dense"
+                  else (kind, (u[0], torch.zeros_like(u[1]))))
+        new_m, new_e, new_c = state.momentum, state.error, state.comp
+    return update, new_m, new_e, new_c
 
 
 def apply_update(params_vec: torch.Tensor, update) -> torch.Tensor:
@@ -233,24 +390,44 @@ def write_rows(group, bank, client_ids, rows) -> None:
 
 
 def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
-    """``round_fn(state, client_ids, batch, lr, mark=None) -> (new_state,
-    metrics)``. ``client_ids`` is the cohort's ``[W]`` int64 tensor on the
-    state's device (required with client state, else may be ``None``),
-    ``batch`` holds this rank's clients. ``mark(i)``, when given, is called
-    as phase ``i`` begins (0: the client gradients and transmits, 1: the
-    encode and aggregate, 2: the server, 3: the apply and the banks'
-    write-back) and at the end (4)."""
+    """``round_fn(state, client_ids, batch, lr, mark=None, env=None) ->
+    (new_state, metrics)``. ``client_ids`` is the cohort's ``[W]`` int64
+    tensor on the state's device (required with client state, else may be
+    ``None``), ``batch`` holds this rank's clients. ``env`` is the round's
+    ``fedsim.RoundEnv`` (required when ``cfg.fedsim_enabled``, else
+    unused): its ``[W]`` masks, of which each rank applies its slice, and the
+    round's global live count. ``mark(i)``, when given, is called as phase
+    ``i`` begins (0: the client gradients and transmits, 1: the encode and
+    aggregate, 2: the server, 3: the apply and the banks' write-back) and
+    at the end (4)."""
     comp.resolved_dampening()  # the mode's warnings, once, at build time
     grad_one = make_grad_one(cfg, loss_fn, unravel)
     per_client = make_per_client(cfg, comp, grad_one)
     plan = resolve_aggregation(cfg, comp, group.size)
     fused = fused_clients(cfg, comp)
-    w_loc = cfg.num_workers // group.size
+    sketch_fused = bool(cfg.sketch_fused_bwd)
+    if sketch_fused and not (fused and comp.supports_fused_backward):
+        raise ValueError(
+            "sketch_fused_bwd requires the fused flattened-batch path and "
+            f"a fused-backward-capable compressor (mode={cfg.mode!r}, "
+            f"fused={fused}) — Config validation should have caught this")
+    grad_table_one = (make_sketch_grad_one(cfg, loss_fn, unravel, comp.spec,
+                                           comp.d) if sketch_fused else None)
+    fedsim = bool(cfg.fedsim_enabled)
+    dp = cfg.dp_noise_multiplier > 0
+    W = cfg.num_workers
+    w_loc = W // group.size
     lo = group.rank * w_loc
 
     @torch.no_grad()
-    def round_fn(state: FedState, client_ids, batch, lr: float, mark=None):
+    def round_fn(state: FedState, client_ids, batch, lr: float, mark=None,
+                 env=None):
         mark = mark or (lambda i: None)
+        if fedsim and env is None:
+            raise ValueError(
+                "fedsim is enabled (cfg.fedsim_enabled) but no env was "
+                "passed: supply the round's fedsim.RoundEnv "
+                "(FederatedSession.train_round does this)")
         mark(0)
         banks = (state.client_vel, state.client_err)
         stateful = any(b is not None for b in banks)
@@ -259,19 +436,42 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
                 f"mode={cfg.mode!r} keeps per-client state (local_momentum"
                 f"={cfg.local_momentum}, error_type={cfg.error_type!r}): "
                 "train_round needs the cohort's client_ids")
-        if fused:
+        dev = state.params_vec.device
+        if sketch_fused:
+            w = next(iter(batch.values())).shape[0]
+            flat = {k: v.reshape((-1,) + v.shape[2:])
+                    for k, v in batch.items()}
+            table, loss, aux = grad_table_one(state.params_vec, flat)
+            encoded, loss_sum = comp.encode_grad_table(w * table), w * loss
+        elif fused:
             local, loss_sum, aux = fused_grad_sum(grad_one, state.params_vec,
                                                   batch)
         else:
             mine = client_ids[lo:lo + w_loc] if stateful else None
             rows = [None if b is None else b[mine] for b in banks]
+            keys = masks = None
+            if dp:  # keyed by client id (by slot when no ids are given)
+                ids = (range(W) if client_ids is None
+                       else client_ids.tolist())
+                keys = [(state.step, int(ids[lo + i]))
+                        for i in range(w_loc)]
+            if fedsim:
+                masks = [torch.from_numpy(np.asarray(
+                    m, np.float32)[lo:lo + w_loc]).to(dev)
+                    for m in (env.live, env.corrupt)]
             local, loss_sum, aux, new_vel, new_err = client_transmits(
-                per_client, state.params_vec, batch, *rows, lr)
+                per_client, state.params_vec, batch, *rows, lr, keys,
+                *(masks or (None, None)))
         mark(1)
-        agg, loss, aux = aggregate(cfg, comp, group, local, loss_sum, aux)
+        if not sketch_fused:
+            encoded = comp.device_encode(local)
+        agg, loss, aux = aggregate(cfg, group, encoded, loss_sum, aux)
+        count = float(env.live_count) if fedsim else None
+        if fedsim:  # the mean over the LIVE clients
+            loss = loss * live_scale(W, count)
         mark(2)
         update, new_m, new_e, new_c = server_phase(cfg, comp, plan, group,
-                                                   state, agg, lr)
+                                                   state, agg, lr, count)
         mark(3)
         new_state = replace(
             state, params_vec=apply_update(state.params_vec, update),

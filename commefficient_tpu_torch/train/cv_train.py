@@ -25,6 +25,14 @@ The paper's other modes take the same flags with their own:
       --error_type virtual
   --mode uncompressed --virtual_momentum 0.9 --fuse_clients true
 
+The sketch-fused backward (the fused flattened-batch gradient produced as a
+table, no flat [D] gradient): ``--fuse_clients true --sketch_fused_bwd
+true`` over the FetchSGD flags. Partial participation and chaos:
+``--availability bernoulli --dropout_prob 0.3 --chaos "straggler@0.1"``.
+Worker-side DP: ``--max_grad_norm 1.0 --dp_noise_multiplier 0.5``.
+Checkpoint/resume: ``--checkpoint_dir DIR --checkpoint_every N [--resume
+true]``.
+
 (fedavg's sampler draws ``num_local_iters * local_batch_size`` samples a
 client, split into that many local steps.)
 """
@@ -107,7 +115,8 @@ def main(argv=None, eval_batch_size: int = 512, **overrides):
     """Train and evaluate. Returns the final val metrics plus ``history``
     (per-round step/lr/loss/ms), ``grad_size``, ``bytes_per_round``,
     ``param_delta_norm`` (how far the run moved the params) and
-    ``sketch_decode`` (the server decode the session ran). Under
+    ``sketch_decode`` (the server decode the session ran), ``checkpoint``
+    (the runner's checkpoint facts) and ``final_step``. Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
     val metrics are empty."""
@@ -138,7 +147,7 @@ def _train(cfg: Config, eval_batch_size: int):
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     p0 = session.state.params_vec.clone()
-    val, history = run_train_loop(
+    val, history, ckpt = run_train_loop(
         cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
         on_round=lambda r: print(
             f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
@@ -149,7 +158,8 @@ def _train(cfg: Config, eval_batch_size: int):
     moved = torch.linalg.vector_norm(session.state.params_vec - p0)
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
-            "sketch_decode": session.sketch_decode_resolved}
+            "sketch_decode": session.sketch_decode_resolved,
+            "checkpoint": ckpt, "final_step": session.state.step}
 
 
 if __name__ == "__main__":

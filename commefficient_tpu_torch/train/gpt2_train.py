@@ -21,6 +21,8 @@ BASELINE config #4 (FetchSGD at GPT-2 scale, D = 124,444,417, a [5,
 
 ``--sketch_table_dtype bfloat16`` halves the table (the upload, 100 MB ->
 50 MB); ``--sketch_dtype bfloat16`` rounds the sketch's operands to bf16.
+The sketch-fused backward needs the fused path, which the clip excludes:
+``--max_grad_norm none --fuse_clients true --sketch_fused_bwd true``.
 On the CPU, at the tests' size:
 
   python -m commefficient_tpu_torch.train.gpt2_train --model gpt2_tiny \\
@@ -191,7 +193,8 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
     """Train and evaluate. Returns the final val metrics (``nll``,
     ``ppl``, ``mc_accuracy``, ``loss``) plus ``history`` (per-round
     step/lr/loss/ms), ``grad_size``, ``bytes_per_round``,
-    ``param_delta_norm``, ``sketch_decode``, ``samples`` (each epoch's
+    ``param_delta_norm``, ``sketch_decode``, ``checkpoint`` (the runner's
+    checkpoint facts), ``final_step``, ``samples`` (each epoch's
     ``(prompt, generated)`` token ids), ``hf_weights`` and ``real``. Under
     ``torchrun`` with ``--num_devices N`` each process is one rank; rank 0
     alone evaluates and prints."""
@@ -225,7 +228,7 @@ def _train(cfg: Config, eval_batch_size: int):
                          seed=cfg.seed)
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
     p0 = session.state.params_vec.clone()
-    val, history = run_train_loop(
+    val, history, ckpt = run_train_loop(
         cfg, session, sampler, hooks,
         on_round=lambda r: print(
             f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
@@ -237,7 +240,8 @@ def _train(cfg: Config, eval_batch_size: int):
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
-            "samples": hooks.samples, "hf_weights": hf_loaded, "real": real}
+            "samples": hooks.samples, "hf_weights": hf_loaded, "real": real,
+            "checkpoint": ckpt, "final_step": session.state.step}
 
 
 if __name__ == "__main__":

@@ -235,7 +235,7 @@ def _client_breakdown(session, grad_one, batch, ids, lr, grads_ms):
     if cfg.mode == "fedavg":
         name = "local_steps"
         ms = sum(_event_ms(lambda b=b: comp.client_grad(
-            grad_one, st.params_vec, b, lr)) for b in clients)
+            grad_one, st.params_vec, b, None, lr)) for b in clients)
     else:
         name = "client_transmit"
         ms = 0.0
@@ -322,7 +322,9 @@ def main(argv=None):
                          else _dense_breakdown)
         if breakdown is not None:
             flat = fused_grad_sum(grad_one, session.state.params_vec, batch)
-            agg = aggregate(cfg, session.compressor, session.group, *flat)[0]
+            agg = aggregate(cfg, session.group,
+                            session.compressor.device_encode(flat[0]),
+                            *flat[1:])[0]
             server_steps = breakdown(session, agg, lr)
             print("server phase by step (ms):", json.dumps(server_steps),
                   flush=True)

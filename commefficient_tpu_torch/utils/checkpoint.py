@@ -1,0 +1,262 @@
+"""Checkpoint / resume of the federated state, in torch's own format (the
+reference's ``utils/checkpoint.py`` policy without Orbax).
+
+``FedCheckpointer`` honours ``cfg.checkpoint_dir``, ``checkpoint_every``
+and ``resume``. A checkpoint is one file ``<dir>/step_<N>.pt`` holding
+every ``FedState`` leaf (params, server momentum and error — dense vectors
+or f32/bf16 tables —, both client banks, ``step`` and the compressor's
+``comp``, powersgd's ``Q``), the model's ``grad_size`` and, for sketch
+modes, the sketch-layout fingerprint. The sampler, the lr schedule and the
+fedsim environment need no state: each is a pure function of ``(seed,
+round)``, so restoring ``step`` restores the whole training clock, and a
+resumed run reproduces the unbroken one bit for bit on the same device.
+
+The policy is the reference's: a save every ``checkpoint_every`` rounds
+(and a forced one at the end of training), never twice for a step already
+on disk; at most ``MAX_TO_KEEP`` steps kept; a manifest sidecar
+(``<dir>/manifests/<N>.json``, the file's size and sha256) written with
+every save and verified by ``restore``, which walks back to the next
+older step when the newest fails (a named step is restored strictly);
+restore refuses a checkpoint of another model (``grad_size``) or of
+another sketch layout. Files are written to a temporary name and renamed,
+so a killed save leaves no partial step. In a worker group rank 0 writes
+and every rank restores.
+
+Not ported: the hosted client stores, the control/ blob and the
+resilience blacklist (ROADMAP A11; ``Config`` refuses their flags), and
+the reference's migration of checkpoints older than its ``comp`` leaf
+(the port has no older format).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import time
+import warnings
+from typing import List, Optional
+
+import torch
+
+from commefficient_tpu_torch.parallel.round import FedState
+
+MAX_TO_KEEP = 3
+FORMAT = 1
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+_LEAVES = ("params_vec", "momentum", "error", "client_vel", "client_err",
+           "step", "comp")
+
+
+def spec_fingerprint(spec) -> List[int]:
+    """The sketch-layout identity a checkpointed [r, c] table depends on
+    (the reference's fields and order): equal table shapes do not imply
+    equal layouts, and decoding a table under another layout silently
+    yields garbage."""
+    families = {"fmix32": 1, "poly4": 2}
+    return [int(x) for x in (
+        spec.d, spec.c, spec.r, spec.num_blocks, spec.seed, spec.chunk_m,
+        spec.sblock, spec.band, spec.d_eff, spec.c_actual,
+        families.get(spec.hash_family, 0))]
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _to_host(leaf):
+    return leaf.detach().to("cpu") if torch.is_tensor(leaf) else leaf
+
+
+class FedCheckpointer:
+    """Saves and restores a ``FederatedSession``'s state under
+    ``cfg.checkpoint_dir`` (disabled without one)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.root = (os.path.abspath(cfg.checkpoint_dir)
+                     if cfg.checkpoint_dir else None)
+        self.last_save_ms = self.last_restore_ms = None
+        self.last_bytes = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.root is not None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{int(step)}.pt")
+
+    def _manifest_path(self, step: int) -> str:
+        return os.path.join(self.root, "manifests", f"{int(step)}.json")
+
+    def all_steps(self) -> List[int]:
+        if not self.enabled or not os.path.isdir(self.root):
+            return []
+        return sorted(int(m.group(1)) for m in map(_STEP_FILE.match,
+                                                    os.listdir(self.root))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def will_save(self, round_idx: int, *, force: bool = False) -> bool:
+        """True iff ``maybe_save(round_idx)`` would write a checkpoint."""
+        if not self.enabled:
+            return False
+        every = self.cfg.checkpoint_every
+        return force or (every > 0 and round_idx > 0
+                         and round_idx % every == 0)
+
+    def maybe_save(self, session, round_idx: int, *,
+                   force: bool = False) -> bool:
+        """Save if ``checkpoint_every`` divides ``round_idx`` (or forced),
+        unless the step is already on disk (the end-of-training forced save
+        may land on a boundary the loop already wrote). Rank 0 writes, and
+        only it returns True."""
+        if not self.will_save(round_idx, force=force):
+            return False
+        if session.group.rank != 0 or round_idx in self.all_steps():
+            return False
+        t0 = time.perf_counter()
+        st = session.state
+        blob = {"format": FORMAT, "grad_size": int(session.grad_size),
+                "fed_state": {f: _to_host(getattr(st, f)) for f in _LEAVES}}
+        if session.spec is not None:
+            blob["sketch_layout"] = spec_fingerprint(session.spec)
+        os.makedirs(os.path.join(self.root, "manifests"), exist_ok=True)
+        path = self.path(round_idx)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+        self._write_manifest(round_idx)
+        self._rotate()
+        self.last_save_ms = 1e3 * (time.perf_counter() - t0)
+        self.last_bytes = os.path.getsize(path)
+        return True
+
+    def _write_manifest(self, step: int) -> None:
+        path = self.path(step)
+        manifest = {"step": int(step), "file": os.path.basename(path),
+                    "size": os.path.getsize(path),
+                    "sha256": _sha256_file(path)}
+        mpath = self._manifest_path(step)
+        tmp = mpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=2)
+        os.replace(tmp, mpath)
+
+    def _rotate(self) -> None:
+        for step in self.all_steps()[:-MAX_TO_KEEP]:
+            for p in (self.path(step), self._manifest_path(step)):
+                if os.path.exists(p):
+                    os.remove(p)
+
+    def verify_step(self, step: int) -> Optional[str]:
+        """None when the step's file matches its manifest, else the
+        reason it does not (a step without a manifest is rejected: every
+        save writes one)."""
+        path, mpath = self.path(step), self._manifest_path(step)
+        if not os.path.exists(path):
+            return f"missing file {os.path.basename(path)!r}"
+        try:
+            with open(mpath) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError) as e:
+            return f"unreadable manifest ({type(e).__name__}: {e})"
+        size = os.path.getsize(path)
+        if size != manifest["size"]:
+            return (f"size mismatch ({size} B on disk, manifest says "
+                    f"{manifest['size']} B)")
+        if _sha256_file(path) != manifest["sha256"]:
+            return "sha256 mismatch"
+        return None
+
+    def restore(self, session, step: Optional[int] = None) -> Optional[int]:
+        """Restore into ``session`` in place; returns the restored round
+        (``FedState.step``) or None when there is nothing to restore. With
+        ``step=None`` the newest retained step is tried first and each
+        failure (manifest or load) falls back to the next older one with a
+        warning naming the step and the reason; a named ``step`` is
+        restored strictly."""
+        if not self.enabled:
+            return None
+        if step is not None:
+            bad = self.verify_step(step)
+            if bad is not None:
+                raise ValueError(f"checkpoint at step {step} failed "
+                                 f"integrity verification: {bad}")
+            return self._restore_step(session, step)
+        steps = self.all_steps()[::-1]
+        failures = []
+        for n, s in enumerate(steps):
+            reason = self.verify_step(s)
+            if reason is None:
+                try:
+                    return self._restore_step(session, s)
+                except ValueError as e:
+                    if "grad_size" in str(e) or "sketch layout" in str(e):
+                        raise  # the wrong model or layout, not a bad file
+                    reason = f"{type(e).__name__}: {e}"
+            failures.append((s, reason))
+            older = len(steps) - n - 1
+            warnings.warn(
+                f"checkpoint at step {s} REJECTED ({reason})"
+                + (f"; falling back to the next of {older} older step(s)"
+                   if older else "; no older steps left"), stacklevel=2)
+        if not failures:
+            return None
+        raise ValueError(
+            "restore failed at every retained checkpoint step — "
+            + "; ".join(f"step {s}: {r}" for s, r in failures))
+
+    def _restore_step(self, session, step: int) -> int:
+        t0 = time.perf_counter()
+        try:
+            blob = torch.load(self.path(step), map_location="cpu",
+                              weights_only=True)
+        except Exception as e:  # noqa: BLE001 - any unreadable file
+            raise ValueError(f"unreadable checkpoint ({type(e).__name__}: "
+                             f"{e})") from e
+        if session.spec is not None and "sketch_layout" in blob:
+            want = spec_fingerprint(session.spec)
+            got = [int(x) for x in blob["sketch_layout"]]
+            if want != got:
+                raise ValueError(
+                    "checkpoint sketch layout != this session's: the [r, c] "
+                    "tables were written under another CountSketch layout "
+                    f"(stamp {got} vs {want}; fields: d, c, r, num_blocks, "
+                    "seed, chunk_m, sblock, band, d_eff, c_actual, "
+                    "hash_family) — decoding them here would corrupt "
+                    "training silently. Match the spec or re-train.")
+        if blob["grad_size"] != session.grad_size:
+            raise ValueError(
+                f"checkpoint grad_size {blob['grad_size']} != model "
+                f"{session.grad_size} — wrong model/config for this "
+                "checkpoint")
+        fs = blob["fed_state"]
+        leaves = {}
+        for f in _LEAVES:
+            have, saved = getattr(session.state, f), fs[f]
+            if (have is None) != (saved is None):
+                raise ValueError(
+                    f"checkpoint leaf {f!r} is "
+                    f"{'absent' if saved is None else 'present'} but this "
+                    "session's is not: restore with the mode and settings "
+                    "the run was saved under")
+            if torch.is_tensor(saved):
+                if saved.shape != have.shape or saved.dtype != have.dtype:
+                    raise ValueError(
+                        f"checkpoint leaf {f!r} is {tuple(saved.shape)} "
+                        f"{saved.dtype}, this session's {tuple(have.shape)} "
+                        f"{have.dtype}")
+                saved = saved.to(session.device)
+            leaves[f] = saved
+        session.state = FedState(**leaves)
+        self.last_restore_ms = 1e3 * (time.perf_counter() - t0)
+        return int(leaves["step"])

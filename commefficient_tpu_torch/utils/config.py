@@ -27,18 +27,15 @@ MODES = ("uncompressed", "sketch", "true_topk", "local_topk", "fedavg",
          "powersgd")
 ERROR_TYPES = ("none", "local", "virtual")
 CLIENT_STORES = ("device", "host", "mmap")
+# mirrors the fedsim/ availability registry (fedsim.available_models);
+# pinned equal by tests/test_torch_fedsim.py
+AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
 
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "dp_noise_multiplier": "worker-side DP noise (ROADMAP A8; hazard C.4)",
-    "sketch_fused_bwd": "the sketch-fused backward (ROADMAP A10b)",
     "telemetry_level": "telemetry/ diagnostics (ROADMAP A12)",
-    "availability": "fedsim participation masks (ROADMAP A8)",
-    "chaos": "fedsim chaos plans (ROADMAP A8)",
     "control_policy": "the control/ compression ladder (ROADMAP A11)",
     "ladder": "the control/ compression ladder (ROADMAP A11)",
-    "checkpoint_every": "checkpoint/resume (ROADMAP A8)",
-    "resume": "checkpoint/resume (ROADMAP A8)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
     "pipeline_depth": "the pipelined round engine (ROADMAP A11)",
     "label_noise": "the FEMNIST stand-in's label noise (ROADMAP A13)",
@@ -60,10 +57,6 @@ _UNPORTED = {
     "max_retraces": "the retrace sentinel (ROADMAP A12)",
     "perf_audit": "the compiled-round audit (ROADMAP A12)",
     "run_report": "the run report (ROADMAP A12)",
-    "dropout_prob": "fedsim participation masks (ROADMAP A8)",
-    "availability_period": "fedsim participation masks (ROADMAP A8)",
-    "num_cohorts": "fedsim participation masks (ROADMAP A8)",
-    "arrival_rate": "fedsim participation masks (ROADMAP A8)",
     "scan_rounds": "the scan round engine (ROADMAP A11)",
     "async_buffer": "asyncfed/ (ROADMAP A11)",
     "async_concurrency": "asyncfed/ (ROADMAP A11)",
@@ -82,7 +75,6 @@ _UNPORTED = {
     "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
     "max_recoveries": "resilience/ rollback (ROADMAP A11)",
     "preempt_signals": "resilience/ preemption (ROADMAP A11)",
-    "checkpoint_dir": "checkpoint/resume (ROADMAP A8)",
     "tensorboard": "utils/logging (ROADMAP A12)",
     "logdir": "utils/logging (ROADMAP A12)",
     "profile_dir": "the profiler capture (ROADMAP A12)",
@@ -193,16 +185,39 @@ class Config:
     sketch_backend: str = "einsum"
     sketch_decode: str = "auto"
 
-    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
-    dp_noise_multiplier: float = 0.0
+    # the sketch-fused backward: on the fused flattened-batch path of mode
+    # sketch, the gradient is produced as a table by per-leaf taps, and the
+    # flat [D] gradient never exists (parallel/round.py
+    # make_sketch_grad_one)
     sketch_fused_bwd: bool = False
-    telemetry_level: int = 0
+
+    # --- worker-side DP: after the clip, each client's gradient gets
+    # N(0, (dp_noise_multiplier * max_grad_norm)^2) per coordinate ---
+    dp_noise_multiplier: float = 0.0
+
+    # --- fedsim (fedsim/): who participates in a round ---
+    # always | bernoulli | sine | cohort | poisson; masked clients
+    # transmit nothing and the server renormalizes by the live count
     availability: str = "always"
+    # drop probability (bernoulli), peak drop probability (sine), outage
+    # probability a cohort (cohort), decline probability (poisson); [0, 1)
+    dropout_prob: float = 0.0
+    availability_period: int = 64  # sine period, rounds
+    num_cohorts: int = 4  # cohort model: slot i belongs to cohort i % n
+    arrival_rate: float = 1.0  # poisson model's arrival rate
+    # chaos plan "kind@value[:rounds=A-B],..." (fedsim/faults.py): kinds
+    # dropout, straggler, nan_client
     chaos: str = ""
+
+    # --- checkpoint/resume (utils/checkpoint.py) ---
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0  # rounds between checkpoints; 0 = off
+    resume: bool = False
+
+    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
+    telemetry_level: int = 0
     control_policy: str = "none"
     ladder: str = ""
-    checkpoint_every: int = 0
-    resume: bool = False
     recover_policy: str = "none"
     pipeline_depth: int = 0
     label_noise: float = 0.06
@@ -224,10 +239,6 @@ class Config:
     max_retraces: Optional[int] = None
     perf_audit: bool = True
     run_report: bool = True
-    dropout_prob: float = 0.0
-    availability_period: int = 64
-    num_cohorts: int = 4
-    arrival_rate: float = 1.0
     scan_rounds: int = 0
     async_buffer: int = 0
     async_concurrency: int = 1
@@ -246,7 +257,6 @@ class Config:
     snapshot_every: int = 16
     max_recoveries: int = 2
     preempt_signals: bool = False
-    checkpoint_dir: str = ""
     tensorboard: bool = False
     logdir: str = "runs"
     profile_dir: str = ""
@@ -403,11 +413,128 @@ class Config:
             raise ValueError(
                 "num_workers must be divisible by num_devices "
                 f"({self.num_workers} % {self.num_devices} != 0): each "
-                "device computes num_workers / num_devices clients")
+                "device computes num_workers / num_devices clients. To "
+                "model partial participation, keep the round shape and "
+                "mask clients out with the fedsim environment instead "
+                "(--availability bernoulli --dropout_prob p, or --chaos "
+                "'dropout@p')")
         if self.num_clients < self.num_workers:
             raise ValueError("num_clients must be >= num_workers")
         if self.max_rounds < 0:
             raise ValueError(f"max_rounds must be >= 0, got {self.max_rounds}")
+        self._validate_fedsim()
+        self._validate_sketch_fused_bwd()
+        self._validate_dp()
+        self._validate_checkpoint()
+
+    def _validate_fedsim(self) -> None:
+        """The reference's fedsim knob checks, plus the chaos kinds the
+        port does not run."""
+        if self.availability not in AVAILABILITY_MODELS:
+            raise ValueError(
+                f"availability must be one of {AVAILABILITY_MODELS}, got "
+                f"{self.availability!r}")
+        if not 0.0 <= self.dropout_prob < 1.0:
+            raise ValueError(
+                f"dropout_prob must be in [0, 1), got {self.dropout_prob} "
+                "(at 1.0 every client drops every round and nothing ever "
+                "trains)")
+        if self.dropout_prob > 0 and self.availability == "always":
+            raise ValueError(
+                "dropout_prob > 0 has no effect with availability="
+                "'always'; pick a model that uses it (bernoulli|sine|"
+                "cohort), or schedule it via --chaos 'dropout@p'")
+        if self.availability_period < 1:
+            raise ValueError(f"availability_period must be >= 1, got "
+                             f"{self.availability_period}")
+        if self.num_cohorts < 1:
+            raise ValueError(f"num_cohorts must be >= 1, got "
+                             f"{self.num_cohorts}")
+        if not self.arrival_rate > 0:  # rejects 0, negatives, and NaN
+            raise ValueError(
+                f"arrival_rate must be > 0 (rate=inf is the degenerate "
+                f"everyone-arrives-instantly case), got {self.arrival_rate}")
+        if self.chaos:
+            from commefficient_tpu_torch.fedsim.faults import (
+                PORTED_KINDS,
+                parse_chaos,
+            )
+
+            for ev in parse_chaos(self.chaos):
+                if ev.kind not in PORTED_KINDS:
+                    raise ValueError(
+                        f"chaos kind {ev.kind!r} is not ported yet: the "
+                        "elastic fleet and preemption need the width "
+                        "ladder and resilience/ (ROADMAP A11); the port "
+                        f"runs {PORTED_KINDS}")
+
+    def _validate_dp(self) -> None:
+        if self.dp_noise_multiplier < 0:
+            raise ValueError(f"dp_noise_multiplier must be >= 0, got "
+                             f"{self.dp_noise_multiplier}")
+        if self.dp_noise_multiplier > 0 and self.max_grad_norm is None:
+            raise ValueError(
+                "dp_noise_multiplier > 0 needs max_grad_norm: the noise's "
+                "std is dp_noise_multiplier * max_grad_norm, the clip "
+                "bound of each client's gradient, and the reference adds "
+                "no noise without a clip — set --max_grad_norm, or leave "
+                "dp_noise_multiplier at 0")
+
+    def _validate_sketch_fused_bwd(self) -> None:
+        """The sketch-fused backward produces the gradient directly as a
+        table, so it exists only on the fused flattened-batch path with
+        nothing per client configured (the reference's six refusals)."""
+        if not self.sketch_fused_bwd:
+            return
+        if self.mode != "sketch":
+            raise ValueError(
+                "sketch_fused_bwd sketches per-leaf cotangents into the "
+                f"CountSketch table; mode={self.mode!r} has no table — "
+                "drop the flag or use mode='sketch'")
+        if not self.fuse_clients:
+            raise ValueError(
+                "sketch_fused_bwd needs the fused flattened-batch path "
+                "(ONE gradient per device -> one table); with "
+                "fuse_clients=False each client's grad would pay its own "
+                "sketch — set fuse_clients=True")
+        if self.local_momentum > 0:
+            raise ValueError(
+                "sketch_fused_bwd is incompatible with local_momentum: "
+                "per-client velocity needs the dense per-client gradient "
+                "the fused backward never materializes")
+        if self.max_grad_norm is not None:
+            raise ValueError(
+                "sketch_fused_bwd is incompatible with max_grad_norm "
+                "(clipping also forces the per-client path; the "
+                "fused-batch gate already excludes it)")
+        if self.dp_noise_multiplier > 0:
+            raise ValueError(
+                "sketch_fused_bwd is incompatible with DP noise: the "
+                "noise is a [D]-vector draw, which is exactly the "
+                "transient the fused backward exists to avoid")
+        if self.fedsim_enabled:
+            raise ValueError(
+                "sketch_fused_bwd needs the fused flattened-batch path, "
+                "and fedsim masking is inherently per-client (it forces "
+                "the per-client path) — run one or the other")
+
+    def _validate_checkpoint(self) -> None:
+        if self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0 (0 = off), got "
+                             f"{self.checkpoint_every}")
+        if not self.checkpoint_dir and (self.checkpoint_every
+                                        or self.resume):
+            raise ValueError(
+                "checkpoint_every and resume need checkpoint_dir: without "
+                "a directory nothing is saved or restored, and the port "
+                "runs no setting that would be ignored")
+
+    @property
+    def fedsim_enabled(self) -> bool:
+        """True when any masking/chaos source is on (the reference's
+        gate): the round then masks its clients by the fedsim
+        environment."""
+        return self.availability != "always" or bool(self.chaos)
 
     @property
     def sampler_batch_size(self) -> int:

@@ -435,3 +435,67 @@ def test_bf16_forms_refuse_the_gather_kernel(dev):
     for operand, table_dtype in K1_FORMS.values():
         with pytest.raises(ValueError, match="gather kernel"):
             kern.sketch_rows(spec, v_s, operand, table_dtype)
+
+
+# -- K1's segment form ------------------------------------------------------------
+
+SEGMENT_GEOMETRIES = [
+    # (d, c, r, band, m): ResNet-9's and GPT-2's FetchSGD geometries (the
+    # fused backward's), and small ones with r of 1, 3 and 5
+    (6_573_130, 500_000, 5, 16, None),
+    (124_444_417, 5_000_000, 5, 16, None),
+    (20_011, 4_000, 3, 16, 512),
+    (3_001, 600, 1, 16, None),
+]
+
+
+def _segments(d, sb):
+    """Leaves of 1, 63, 64 and 65 values, offsets that straddle a scramble
+    block, the last leaf ending at d, and one leaf of a quarter of d."""
+    mid = (d // 2) // sb * sb
+    return [(0, 1), (sb - 1, 63), (mid, 64), (mid + sb // 2, 65),
+            (d - 65, 65), (d // 4, d // 4)]
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,band,m", SEGMENT_GEOMETRIES)
+def test_sketch_segment_matches_plain_and_is_deterministic(dev, d, c, r, band,
+                                                           m, family):
+    """Each segment added into a table that already holds values: the
+    plain version's table to ``1e-5 * max|table|`` (the order of the sums
+    differs), two launches bit-identical, and the segments' tables summed
+    equal to K1 of the whole vector to the same tolerance."""
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
+    base = kern.sketch_rows(spec, cs._scramble(spec, _vec(d, 5, dev)))
+    for offset, n in _segments(d, spec.sblock):
+        vals = _vec(n, offset + 1, dev)
+        got = kern.sketch_segment(spec, offset, vals, base.clone())
+        again = kern.sketch_segment(spec, offset, vals, base.clone())
+        want = kern.sketch_segment_torch(spec, offset, vals, base.clone())
+        assert torch.equal(got, again), (offset, n)
+        assert float((got - want).abs().max()) <= _table_tol(want), (offset,
+                                                                     n)
+    v = _vec(d, 9, dev)
+    cuts = [0, 1, 64, 129, d // 3, d]
+    table = torch.zeros(spec.table_shape, device=dev)
+    for a, b in zip(cuts, cuts[1:]):
+        kern.sketch_segment(spec, a, v[a:b].contiguous(), table)
+    whole = kern.sketch_rows(spec, cs._scramble(spec, v))
+    assert float((table - whole).abs().max()) <= _table_tol(whole)
+    kern._plain_maps.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def test_sketch_segment_refuses_what_it_does_not_take(dev):
+    spec = cs.CountSketch(d=20_011, c=4_000, r=3, m=512)
+    table = torch.zeros(spec.table_shape, device=dev)
+    with pytest.raises(ValueError, match="inside"):
+        kern.sketch_segment(spec, 20_000, torch.ones(12, device=dev), table)
+    with pytest.raises(TypeError):
+        kern.sketch_segment(spec, 0, torch.ones(4, device=dev,
+                                                dtype=torch.bfloat16), table)
+    with pytest.raises(TypeError):
+        kern.sketch_segment(spec, 0, torch.ones(4, device=dev),
+                            table.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="vals on"):
+        kern.sketch_segment(spec, 0, torch.ones(4), table)

@@ -307,6 +307,82 @@ def test_k1_replay_equals_gather_order_bit_for_bit(W):
                                atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
+# -- K1's segment form: the walk through the forward block permutation ------
+
+
+def _segment_replay(spec, offset, vals):
+    """A mirror of ``cs_sketch_segment_kernel``: per column, the chunks of
+    its window range whose bit is set in ``_segment_plan``'s mask, the CSR
+    offsets of its slot, the forward block permutation and the predicate
+    on the original coordinate, summed in float32 in the kernel's order.
+    Returns (the table, the set of (row, column) entries written)."""
+    n = vals.numel()
+    mask = kern._segment_plan(spec, offset, n, "cpu").numpy().view(np.uint32)
+    perm = kern._forward_perm(spec, "cpu")
+    ptr_all, off_all = (t.numpy() for t in spec.csr_tables("cpu"))
+    b = spec.sblock
+    table = np.zeros(spec.table_shape, np.float32)
+    written = set()
+    ptr_base = 0
+    for row in range(spec.r):
+        f, m, s = spec._factor(row), spec.chunk_m, spec.s_row(row)
+        G, V, nc = spec._L_row(row) // f, spec.V_row(row), spec._nc_row(row)
+        ptr = ptr_all[ptr_base:ptr_base + V + 1]
+        off = off_all[row * m:(row + 1) * m]
+        ptr_base += V + 1
+        rowlen = (nc + spec.u_row(row) - 1) * s
+        for j in range(min(rowlen, spec.c_actual)):
+            acc, hit = np.float32(0.0), False
+            q_lo = 0 if j + 1 <= V else (j - V + s) // s
+            for q in range(q_lo, min(nc - 1, j // s) + 1):
+                if not (int(mask[row, q >> 5]) >> (q & 31)) & 1:
+                    continue
+                for e in range(ptr[j - q * s], ptr[j - q * s + 1]):
+                    p = q * m + int(off[e])
+                    i = (p % f) * G + p // f
+                    if i >= spec.d_eff:
+                        continue
+                    x = int(perm[i // b]) * b + i % b if b else i
+                    if 0 <= x - offset < n:
+                        v = np.float32(vals[x - offset])
+                        neg = int(spec.sign_bits(row, torch.tensor([i]))[0])
+                        acc = np.float32(acc + (-v if neg else v))
+                        hit = True
+            if hit:
+                table[row, j] += acc
+                written.add((row, j))
+    return table, written
+
+
+SEGMENTS = {  # (d, c, r, family) -> segments (offset, n)
+    (212, 512, 4, "fmix32"): [(0, 1), (0, 212), (60, 63), (147, 65)],
+    (3_001, 600, 3, "poly4"): [(63, 1), (64, 64), (100, 65), (2_936, 65)],
+    (3_001, 600, 1, "fmix32"): [(1, 63), (2_999, 2)],
+}
+
+
+@pytest.mark.parametrize("geo", sorted(SEGMENTS), ids=str)
+def test_segment_replay_equals_plain_version(geo):
+    """Leaves of 1, 63, 64 and 65 values, offsets that straddle a scramble
+    block, the last leaf ending at d (inside d_eff's padding), r of 1, 3
+    and 4, both hash families: the kernel's walk reaches every value of
+    the segment once (the plain version's table, to its summation order)
+    and writes exactly the entries the segment touches."""
+    d, c, r, family = geo
+    spec = cs.CountSketch(d=d, c=c, r=r, hash_family=family, seed=5)
+    rng = np.random.default_rng(1)
+    for offset, n in SEGMENTS[geo]:
+        vals = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        got, written = _segment_replay(spec, offset, vals)
+        want = kern.sketch_segment_torch(
+            spec, offset, vals, torch.zeros(spec.table_shape)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        spos = spec.scrambled_pos(offset + torch.arange(n))
+        touched = {(row, int(col)) for row in range(r)
+                   for col in spec.scrambled_cols_signs(row, spos)[0]}
+        assert written == touched, (offset, n)
+
+
 # -- K4: the range form's block order and windows ---------------------------
 
 

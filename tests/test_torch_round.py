@@ -25,7 +25,7 @@ from commefficient_tpu_torch.data import FedDataset, FedSampler
 from commefficient_tpu_torch.data import cifar as port_cifar
 from commefficient_tpu_torch.models import classification_loss
 from commefficient_tpu_torch.parallel import FederatedSession
-from commefficient_tpu_torch.utils.config import Config, parse_args
+from commefficient_tpu_torch.utils.config import _UNPORTED, Config, parse_args
 from test_round import BASE, _setup
 from test_torch_model import to_numpy_tree, torch_tinymlp
 
@@ -119,14 +119,14 @@ def test_schedule_matches_reference():
 @pytest.mark.parametrize("flag,value,item", [
     ("client_store", "host", "A11"),
     ("topk_method", "approx", "A15"),
-    ("resume", "true", "A8"),
+    ("preempt_signals", "true", "A11"),
     ("fsdp", "true", "A9"),
     ("num_blocks", "2", "A15"),
     ("label_noise", "0.1", "A13"),
-    ("sketch_fused_bwd", "true", "A10"),
+    ("overlap_collectives", "layerwise", "A9"),
     ("model_axis", "2", "A17"),
     ("logdir", "elsewhere", "A12"),
-    ("availability", "bernoulli", "A8"),
+    ("chaos", "resize@2", "A11"),
     ("telemetry_level", "1", "A12"),
     ("ladder", "k=10,5", "A11"),
 ])
@@ -134,6 +134,44 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         parse_args([f"--{flag}", value, "--num_workers", "2",
                     "--num_clients", "4"])
+
+
+# the fields ROADMAP A10b and A8 lifted from the refusals
+LIFTED = {
+    "sketch_fused_bwd": ["--mode", "sketch", "--fuse_clients", "true",
+                         "--sketch_fused_bwd", "true"],
+    "availability": ["--availability", "bernoulli", "--dropout_prob", "0.3"],
+    "dropout_prob": ["--availability", "sine", "--dropout_prob", "0.5"],
+    "availability_period": ["--availability", "sine",
+                            "--availability_period", "8"],
+    "num_cohorts": ["--availability", "cohort", "--num_cohorts", "2"],
+    "arrival_rate": ["--availability", "poisson", "--arrival_rate", "2.0"],
+    "chaos": ["--chaos", "dropout@0.2,straggler@0.1,nan_client@3"],
+    "dp_noise_multiplier": ["--max_grad_norm", "1.0",
+                            "--dp_noise_multiplier", "0.5"],
+    "checkpoint_every": ["--checkpoint_dir", "ck", "--checkpoint_every", "2"],
+    "checkpoint_dir": ["--checkpoint_dir", "ck"],
+    "resume": ["--checkpoint_dir", "ck", "--resume", "true"],
+}
+
+
+@pytest.mark.parametrize("field", sorted(LIFTED))
+def test_config_accepts_the_lifted_fields(field):
+    from commefficient_tpu.utils.config import Config as Ref
+
+    cfg = parse_args(LIFTED[field] + ["--num_workers", "2", "--num_clients",
+                                      "4"])
+    assert getattr(cfg, field) != getattr(Config(), field)
+    assert field not in _UNPORTED
+    ref = Ref(**{k: getattr(cfg, k) for k in Ref.__dataclass_fields__})
+    assert getattr(ref, field) == getattr(cfg, field)
+    assert ref.fedsim_enabled == cfg.fedsim_enabled
+
+
+def test_every_remaining_refusal_names_its_roadmap_item():
+    assert len(_UNPORTED) == 46
+    for name, blocker in _UNPORTED.items():
+        assert "ROADMAP A" in blocker, name
 
 
 def test_config_flags_and_defaults_follow_reference():

@@ -82,6 +82,23 @@ CLIENT_STATE_CASES = {
                                  local_momentum=0.9, k=30),
     "fedavg_two_ranks": dict(mode="fedavg", num_local_iters=2),
 }
+# fedsim masking on two ranks: each rank masks its 4 of the 8 clients by
+# its slice of the session's own [W] masks, the live count stays global
+FEDSIM_CASES = {
+    "sketch_sharded_fedsim_two_ranks": dict(
+        **SHARDED, error_type="virtual", virtual_momentum=0.9,
+        availability="bernoulli", dropout_prob=0.5, chaos="straggler@0.2"),
+    "local_topk_fedsim_two_ranks": dict(
+        mode="local_topk", error_type="local", local_momentum=0.9, k=30,
+        availability="bernoulli", dropout_prob=0.5),
+}
+# the sketch-fused backward on two ranks (each rank's table of its
+# flattened batch, summed over the group), held to the one-process
+# dense-grad fused round: the reference's fused backward does not trace
+# inside shard_map under jax 0.9.0, so it is no anchor here
+FUSED_BWD_TWO_RANKS = dict(**SKETCH, error_type="virtual",
+                           virtual_momentum=0.9, fuse_clients=True,
+                           sketch_decode="dense", weight_decay=1e-4)
 TIES = dict(d=4096, c=32768, r=3,
             config=dict(mode="sketch", error_type="none", k=30, num_rows=3,
                         num_cols=32768, topk_method="threshold",
@@ -215,6 +232,10 @@ def gloo_ranks(rounds, tmp_path_factory):
                                         **GOLDEN_CONFIGS["sketch_threshold"]}
     cases.update({name: {**two, **case}
                   for name, case in CLIENT_STATE_CASES.items()})
+    cases.update({name: {**two, **case}
+                  for name, case in FEDSIM_CASES.items()})
+    cases["sketch_fused_bwd_two_ranks"] = {**two, **FUSED_BWD_TWO_RANKS,
+                                           "sketch_fused_bwd": True}
     job = {"lr": LR, "cases": cases,
            "topk": {name: k for name, (_, k) in TOPK_VECTORS.items()},
            "ties": TIES}
@@ -285,6 +306,28 @@ def test_client_state_modes_two_gloo_ranks(rounds, gloo_ranks, name):
                                     "client_err"))
     if name.startswith("local_topk"):
         assert np.abs(got["client_vel"]).max() > 0
+
+
+@pytest.mark.parametrize("name", sorted(FEDSIM_CASES))
+def test_fedsim_masking_two_gloo_ranks(rounds, gloo_ranks, name):
+    """The masked rounds on two ranks against the reference's masked run
+    on two devices: both draw the same masks from the seed."""
+    want = _ref_run(rounds, {**BASE, "num_devices": 2, **FEDSIM_CASES[name]})
+    got = _rank_case(gloo_ranks, name)
+    _assert_twin(got, want, leaves=("momentum", "error", "client_vel",
+                                    "client_err"))
+
+
+def test_sketch_fused_bwd_two_gloo_ranks(rounds, gloo_ranks):
+    """Two ranks of the fused backward against one process's dense-grad
+    fused round, at the reference's fused parity bound."""
+    got = _rank_case(gloo_ranks, "sketch_fused_bwd_two_ranks")
+    want = _port_run(rounds, {**BASE, "num_devices": 1,
+                              **FUSED_BWD_TWO_RANKS})
+    scale = max(np.abs(want["params"]).max(), 1.0)
+    np.testing.assert_allclose(got["params"], want["params"], rtol=0,
+                               atol=5e-5 * scale)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["sketch", "sketch_threshold"])
