@@ -88,12 +88,14 @@ phase prints one line (or a few) and raises on failure, so the script exits
 11. ``agreement_gpt2``: three FetchSGD rounds of ``gpt2_tiny`` in float32
     on the card against the CPU, under the agreement phase's tolerances;
 12. K1's segment form (``cs_sketch_segment``, the sketch-fused backward's
-    kernel) held against its plain version (K1's f32 tolerance) into a
-    table that already holds values, two launches bit-identical, at
-    ResNet-9's geometry (its largest and smallest leaves, and all 26
-    leaves of a round, whose sum must equal K1 of the whole vector) and
-    GPT-2's (``wte``, 38.6M values, and a 768-value bias), timed beside
-    its plain version, one ``index_add_`` per row and its bound;
+    kernels in ``ops/cuda/csrc/segment.cu``) held against its plain
+    version (K1's f32 tolerance) into a table that already holds values,
+    two launches bit-identical, at ResNet-9's geometry (its largest and
+    smallest leaves, and all 26 leaves of a round, whose sum must equal
+    K1 of the whole vector) and GPT-2's (``wte``, 38.6M values, a
+    768-value bias, and all 150 leaves of a round, held to K1 of the
+    whole vector too), timed beside its plain version, one ``index_add_``
+    per row and its bound, with the scratch each geometry allocates;
 13. ``fused_bwd``: ResNet-9 at full width with ``--fuse_clients true
     --sketch_fused_bwd true`` for 5 rounds (K1's segment form once a leaf
     a round), its params within ``5e-5 * max(|p|, 1)`` of the dense-grad
@@ -103,7 +105,8 @@ phase prints one line (or a few) and raises on failure, so the script exits
     bit-identical;
     ``gpt2_fused_bwd``: GPT-2 with ``--max_grad_norm none --fuse_clients
     true`` for 2 rounds with and without the fused backward, each run's
-    round ms and peak ``max_memory_allocated``;
+    round ms and peak ``max_memory_allocated``; both phases print each
+    round's segment time and peak memory on a line of its own;
 14. ``fedsim``: the ResNet-9 sketch path with bernoulli participation at
     0.3 and ``straggler@0.1`` for 5 rounds, its participation printed,
     and the width-8 card-against-CPU agreement with the same flags;
@@ -135,6 +138,7 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/countsketch.cu"
+SEGMENT_SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/segment.cu"
 PALLAS = "commefficient_tpu/ops/pallas/countsketch_kernels.py"
 DECODE_PALLAS = "commefficient_tpu/ops/pallas/decode_kernels.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -1028,58 +1032,33 @@ def dp_stats_ok(x) -> bool:
             and abs(float(x.std()) - 1.0) <= 5 / (2 * n) ** 0.5)
 
 
-def leaf_layout(shapes) -> list:
-    """(offset, size) of every leaf of a tree of shapes in the flat
-    layout (ravel order)."""
-    from commefficient_tpu_torch.ops.param_utils import tree_leaves
-
-    out, off = [], 0
-    for _, shape in tree_leaves(shapes):
-        out.append((off, math.prod(shape)))
-        off += math.prod(shape)
-    return out
-
-
 def segment_phase(torch, cs, kern, dev):
     """K1's segment form held against its plain version (atol ``1e-5 *
     max|table|``, K1's f32 tolerance: the order of the sums differs) into
     a table that already holds values, two launches bit-identical, at
     ResNet-9's geometry (its largest and smallest leaves, and every leaf
     of a round, whose tables summed must equal K1 of the whole vector)
-    and at GPT-2's (``wte``, 38.6M values, and a 768-value bias). Timed by
-    CUDA events beside the plain version, one ``index_add_`` per row of
+    and at GPT-2's (``wte``, 38.6M values, a 768-value bias, and every
+    leaf of a round, held to K1 of the whole vector too). Timed by CUDA
+    events beside the plain version, one ``index_add_`` per row of
     precomputed signed values (the library call), and the bound: the leaf
     read once plus the table entries it touches read and written once.
-    Returns the ``kernels`` entry without ``launches``."""
-    from commefficient_tpu_torch.data.personachat import SPECIAL_TOKENS
-    from commefficient_tpu_torch.models import init_resnet9
-    from commefficient_tpu_torch.models.gpt2 import gpt2_shapes
-    from commefficient_tpu_torch.ops.param_utils import tree_leaves
-    from commefficient_tpu_torch.train import gpt2_train
-    from commefficient_tpu_torch.utils.config import parse_args
+    Each line also gives the scratch the geometry allocates. Returns the
+    ``kernels`` entry without ``launches``."""
+    from commefficient_tpu_torch.ops.cuda import index_math
+    from commefficient_tpu_torch.ops.cuda.segment_attribution import cases
 
-    r9 = leaf_layout({p: tuple(t.shape) for p, t in tree_leaves(
-        init_resnet9(42))})
-    gcfg = gpt2_train.gpt2_config(
-        parse_args(GPT2_ARGS, defaults=gpt2_train.DEFAULTS),
-        50257 + len(SPECIAL_TOKENS))
-    g2 = leaf_layout(gpt2_shapes(gcfg))
-    check(sum(n for _, n in r9) == GEOMETRY["d"], "segment: ResNet-9 D")
-    check(sum(n for _, n in g2) == GPT2_GEOMETRY["d"], "segment: GPT-2 D")
-    wte = max(g2, key=lambda x: x[1])
-    bias = next(x for x in g2 if x[1] == 768)
-    cases = {"resnet9_largest_leaf": (GEOMETRY, max(r9, key=lambda x: x[1])),
-             "resnet9_smallest_leaf": (GEOMETRY, min(r9, key=lambda x: x[1])),
-             "resnet9_round": (GEOMETRY, None),
-             "gpt2_wte": (GPT2_GEOMETRY, wte),
-             "gpt2_bias_768": (GPT2_GEOMETRY, bias)}
+    geometries = cases(GEOMETRY, GPT2_GEOMETRY, GPT2_ARGS)
+    check(sum(n for _, n in geometries["resnet9_round"][1])
+          == GEOMETRY["d"], "segment: ResNet-9 D")
+    check(sum(n for _, n in geometries["gpt2_round"][1])
+          == GPT2_GEOMETRY["d"], "segment: GPT-2 D")
     rows, worst = {}, 0.0
-    for name, (geo, leaf) in cases.items():
+    for name, (geo, segs) in geometries.items():
         spec = cs.CountSketch(**geo)
         big = geo is GPT2_GEOMETRY
-        light = dict(samples=5, calls=2) if big or leaf is None else {}
+        light = dict(samples=5, calls=2) if big or len(segs) > 1 else {}
         gen = torch.Generator(device=dev).manual_seed(3)
-        segs = r9 if leaf is None else [leaf]
         v = torch.randn(spec.d, generator=gen, device=dev)
         base = torch.randn(spec.table_shape, generator=gen, device=dev)
 
@@ -1096,16 +1075,19 @@ def segment_phase(torch, cs, kern, dev):
         tol = 1e-5 * max(1.0, float(want.abs().max()))
         check(torch.equal(got, again), f"segment {name}: two launches differ")
         check(err <= tol, f"segment {name}: max err {err} > {tol}")
-        if leaf is None:
+        del again, want
+        if len(segs) > 1:
             whole = base + kern.sketch_rows(spec, cs._scramble(spec, v))
             e2 = float((got - whole).abs().max())
             check(e2 <= tol, f"segment {name}: the leaves' tables differ "
                   f"from K1 of the whole vector by {e2}")
+            del whole
         # the library call: one index_add_ per row, signed values and
         # columns precomputed; the bound counts the entries touched
         lo, hi = segs[0][0], segs[-1][0] + segs[-1][1]
         spos = spec.scrambled_pos(torch.arange(lo, hi, device=dev))
         maps = [spec.scrambled_cols_signs(row, spos) for row in range(spec.r)]
+        del spos
         src = [v[lo:hi] * sign for _, sign in maps]
         touched = sum(int(torch.unique(cols).numel()) for cols, _ in maps)
         table = base.clone()
@@ -1115,27 +1097,96 @@ def segment_phase(torch, cs, kern, dev):
                 table[row].index_add_(0, cols, src[row])
 
         b, by = bound(4 * (hi - lo) + 8 * touched, spec.r * (hi - lo))
+        scratch = kern._segment_scratch(spec, str(dev))
+        windows = sum(len(index_math.segment_windows(spec.r, n,
+                                                     scratch["capacity"]))
+                      for _, n in segs if not index_math.segment_small(n))
         rows[name] = dict(
             n=hi - lo, leaves=len(segs), max_abs_err=err, tol=tol,
             ms=cuda_ms(torch, lambda: run(kern.sketch_segment, table),
                        **light),
             plain_ms=cuda_ms(torch, lambda: run(kern.sketch_segment_torch,
                                                 table),
-                             **(dict(samples=3, calls=1) if big or leaf
-                                is None else {})),
+                             **(dict(samples=3, calls=1) if big or len(segs)
+                                > 1 else {})),
             bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, library,
                                                         **light),
-            touched_entries=touched)
+            touched_entries=touched, scratch_bytes=scratch["bytes"],
+            two_pass_windows=windows)
         phase("timing", kernel="cs_sketch_segment", geometry=name,
               **rows[name])
         worst = max(worst, err)
-        del v, base, got, again, want, maps, src, spos, table
+        del v, base, got, maps, src, table
         torch.cuda.empty_cache()
     main = rows["resnet9_round"]  # the fused backward's work of a round
-    return dict(replaces=SEGMENT_REPLACES, max_abs_err=worst,
+    return dict(source=SEGMENT_SOURCE, replaces=SEGMENT_REPLACES,
+                max_abs_err=worst,
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
                 main_geometry="resnet9_round", geometries=rows)
+
+
+class RoundProbe:
+    """Inside ``with RoundProbe(torch) as probe:``, every
+    ``FederatedSession.train_round`` and every call of the segment form
+    from ``ops/countsketch.py`` is wrapped: ``probe.rounds`` gets one
+    ``{"segment_ms", "segment_launches", "max_memory_allocated"}`` a
+    round, the first the summed CUDA-event times of the round's segment
+    calls (each from just before the call's first kernel is queued to
+    just after its last, so it includes any wait for the host to queue
+    them), the last the round's peak (reset just before it)."""
+
+    def __init__(self, torch):
+        self.torch, self.rounds, self._events = torch, [], None
+
+    def __enter__(self):
+        from commefficient_tpu_torch.ops import countsketch as cs_ops
+        from commefficient_tpu_torch.parallel import FederatedSession
+
+        torch, probe = self.torch, self
+        self._saved = (cs_ops, cs_ops.sketch_segment_kernel,
+                       FederatedSession, FederatedSession.train_round)
+        seg, train_round = self._saved[1], self._saved[3]
+
+        def timed_segment(*args, **kwargs):
+            if probe._events is None:
+                return seg(*args, **kwargs)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = seg(*args, **kwargs)
+            b.record()
+            probe._events.append((a, b))
+            return out
+
+        def probed_round(session, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            probe._events = []
+            try:
+                out = train_round(session, *args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                events, probe._events = probe._events, None
+            probe.rounds.append(dict(
+                segment_ms=sum(a.elapsed_time(b) for a, b in events),
+                segment_launches=len(events),
+                max_memory_allocated=torch.cuda.max_memory_allocated()))
+            return out
+
+        cs_ops.sketch_segment_kernel = timed_segment
+        FederatedSession.train_round = probed_round
+        return self
+
+    def __exit__(self, *exc):
+        cs_ops, seg, cls, train_round = self._saved
+        cs_ops.sketch_segment_kernel = seg
+        cls.train_round = train_round
+        return False
+
+    def print_rounds(self, name: str) -> None:
+        for k, r in enumerate(self.rounds):
+            phase(f"{name}_round", round=k, **r)
 
 
 def load_state(path):
@@ -1157,7 +1208,8 @@ def fused_bwd_phase(torch, kern, cv_train, dataset_dir, work):
     only the sketch's order of sums differs), their momentum tables
     within 1e-5 of max|table|; and the fused gradient table computed
     twice from one state on deterministic cuDNN, bit-identical. Prints
-    both runs' round ms."""
+    both runs' round ms, and each round's segment time and peak memory on
+    a line of its own (``RoundProbe``)."""
     from commefficient_tpu_torch.parallel import FederatedSession
     from commefficient_tpu_torch.parallel.round import (
         leaf_offsets,
@@ -1174,10 +1226,12 @@ def fused_bwd_phase(torch, kern, cv_train, dataset_dir, work):
                                 "--sketch_fused_bwd", "true"])):
             ck = os.path.join(work, f"fused_{name}")
             kern.reset_launch_counts()
-            out = cv_train.main(MAIN_ARGS + flags + [
-                "--seed", str(FUSED_BWD_SEED), "--max_rounds",
-                str(MAIN_ROUNDS), "--dataset_dir", dataset_dir,
-                "--checkpoint_dir", ck])
+            with RoundProbe(torch) as probe:
+                out = cv_train.main(MAIN_ARGS + flags + [
+                    "--seed", str(FUSED_BWD_SEED), "--max_rounds",
+                    str(MAIN_ROUNDS), "--dataset_dir", dataset_dir,
+                    "--checkpoint_dir", ck])
+            probe.print_rounds(f"fused_bwd_{name}")
             runs[name] = dict(out=out, forms=kern.form_counts(),
                               launches=kern.launch_counts(),
                               state=load_state(os.path.join(
@@ -1250,17 +1304,21 @@ def gpt2_fused_bwd_phase(torch, kern, gpt2_train, dataset_dir, rounds=2):
     """GPT-2 small at full width, ``--max_grad_norm none --fuse_clients
     true``, ``rounds`` rounds with and without ``--sketch_fused_bwd
     true``: each run's round ms and ``torch.cuda.max_memory_allocated``
-    (the peak reset just before it); the fused run launches K1's segment
-    form once a leaf a round. Printed, not held to a limit."""
+    (the peak reset just before it), and each round's segment time and
+    peak on a line of its own (``RoundProbe``); the fused run launches
+    K1's segment form once a leaf a round. Printed, not held to a
+    limit."""
     out, forms = {}, None
     for name, extra in (("dense_grad", []),
                         ("fused_bwd", ["--sketch_fused_bwd", "true"])):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kern.reset_launch_counts()
-        res = gpt2_train.main(GPT2_ARGS + ["--max_grad_norm", "none"]
-                              + FUSED_FLAGS + extra + [
-            "--max_rounds", str(rounds), "--dataset_dir", dataset_dir])
+        with RoundProbe(torch) as probe:
+            res = gpt2_train.main(GPT2_ARGS + ["--max_grad_norm", "none"]
+                                  + FUSED_FLAGS + extra + [
+                "--max_rounds", str(rounds), "--dataset_dir", dataset_dir])
+        probe.print_rounds(f"gpt2_fused_bwd_{name}")
         launches = kern.launch_counts()
         ms = [h["ms"] for h in res["history"]]
         out[name] = dict(
@@ -1428,7 +1486,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    build.load_library()  # one nvcc for the one source
+    build.load_library()  # one nvcc a source, all started together
     phase("environment", card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, gpu=repr(torch.cuda.get_device_name(0)),
           build_s=round(time.perf_counter() - t0, 3),
@@ -1518,7 +1576,7 @@ def main() -> int:
     def count(forms, name):
         return sum(forms[w].get(f, 0) for w, f in FORMS[name])
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    kernels = [dict(name=name, route="cuda", source=e.pop("source", SOURCE),
                     launches=sum(count(p, name) for p in paths.values()),
                     launches_by_path={path: count(p, name)
                                       for path, p in paths.items()},

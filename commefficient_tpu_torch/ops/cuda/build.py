@@ -4,6 +4,8 @@ At first use the sources under ``csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so a fresh
 checkout builds them with no step of its own and an edited source rebuilds.
+Each source is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one library.
 Nothing here runs when the module is imported: the CPU tests import it on a
 machine without ``nvcc``.
 """
@@ -21,11 +23,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("countsketch.cu",)
-HEADERS = ("common.cuh", "hash.cuh")
+SOURCES = ("countsketch.cu", "segment.cu")
+HEADERS = ("common.cuh", "hash.cuh", "layout.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -51,23 +53,43 @@ def library_path(sources=SOURCES, name: str = "cs") -> Path:
 
 def compile_library(sources=SOURCES, name: str = "cs") -> Path:
     """Build ``sources`` (under ``csrc/``) into a shared library unless a
-    build of the same sources and flags exists; returns its path. The
-    ptxas report (registers, shared memory, spills per kernel) is kept in
-    the ``.log`` beside it."""
+    build of the same sources and flags exists; returns its path. Each
+    source is compiled to an object by its own ``nvcc`` process, all
+    started together, then one ``nvcc -shared`` links them. The ptxas
+    report (registers, shared memory, spills per kernel) is kept in the
+    ``.log`` beside it."""
     out = library_path(sources, name)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in sources]]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{tag}.o")
+            for s in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                          str(CSRC / s)] for s, o in zip(sources, objs))]
+    log, failed = [], []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             check=False)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
     build_seconds[name] = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    out.with_suffix(".log").write_text("".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -82,7 +104,7 @@ def load_library() -> ctypes.CDLL:
             sigs = {
                 "cs_sketch_rows": [P, I64, P, P, P, I64, P, I32, I32, I32,
                                    I32, I32, P],
-                "cs_sketch_segment": [P, I64, I64, P, I64, P, P, P, I64, P,
+                "cs_sketch_segment": [P, I64, I64, P, P, I64, I64, P, P,
                                       I64, P, I32, I32, P],
                 "cs_estimate_median": [P, I64, P, I64, I64, P, I64, I64, I64,
                                        P, I64, I32, P, I64, P, I32, P, P,

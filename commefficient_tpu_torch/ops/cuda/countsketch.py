@@ -60,8 +60,14 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device=None) -> int:
+    """The current stream's handle on ``device`` (default: the current
+    device), as ``torch.cuda.current_stream(device).cuda_stream`` gives it
+    but without building a Stream object: a launch's host time counts
+    against the small leaves of K1's segment form."""
+    index = device.index if device is not None and device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_dtype(name: str, dtype: torch.dtype) -> None:
@@ -202,67 +208,45 @@ def sketch_segment_torch(spec, offset: int, vals: torch.Tensor,
     return table
 
 
-SEGMENT_PLAN_STEP = 1 << 22  # positions a step of the chunk-mask build
-
-
 @functools.lru_cache(maxsize=8)
-def _forward_perm(spec, device: str):
-    """The forward block permutation (scrambled block -> original block)
-    as int32 on ``device``, None when the spec does not scramble."""
-    inv = spec.inverse_block_perm()
-    if inv is None:
-        return None
-    fwd = np.empty_like(inv)
-    fwd[inv] = np.arange(inv.size, dtype=inv.dtype)
-    return torch.from_numpy(fwd).to(device)
-
-
-@functools.lru_cache(maxsize=1024)
-def _segment_plan(spec, offset: int, n: int, device: str):
-    """The chunk mask of one segment: ``[r, words]`` int32, bit q of a row
-    set where chunk q of that row holds a scrambled position of a scramble
-    block that meets ``[offset, offset + n)`` (whole blocks: a superset,
-    the kernel's predicate does the rest). Built on ``device`` in steps of
-    ``SEGMENT_PLAN_STEP`` positions, once per (spec, segment): the
-    sketch-fused backward asks for the same segments every round."""
-    b = spec.sblock
-    nc = max(spec._nc_row(row) for row in range(spec.r))
-    flags = torch.zeros(spec.r, -(-nc // 32) * 32, dtype=torch.bool,
-                        device=device)
-    if b:
-        inv = torch.from_numpy(spec.inverse_block_perm().astype(
-            np.int64)).to(device)
-        lo, hi = offset // b, (offset + n - 1) // b + 1
-    else:
-        lo, hi = offset, offset + n
-    step = max(1, SEGMENT_PLAN_STEP // (b or 1))
-    for u0 in range(lo, hi, step):
-        u = torch.arange(u0, min(hi, u0 + step), device=device)
-        spos = ((inv[u] * b)[:, None] + torch.arange(b, device=device)
-                ).reshape(-1) if b else u
-        for row in range(spec.r):
-            f, G = spec._factor(row), spec._L_row(row) // spec._factor(row)
-            flags[row, ((spos % G) * f + spos // G) // spec.chunk_m] = True
-    weight = torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
-        32, device=device)
-    words = (flags.view(spec.r, -1, 32).to(torch.int64) * weight).sum(2)
-    return torch.where(words >= 2**31, words - 2**32, words).to(
-        torch.int32).contiguous()
+def _segment_scratch(spec, device: str) -> dict:
+    """K1's segment form's fixed scratch on ``device``, allocated once per
+    (spec, device) and reused leaf after leaf: ``capacity`` piece-rows of
+    ``index_math.SEG_PIECE`` values (``bytes`` at most
+    ``index_math.SEG_SCRATCH_BUDGET``), with the tile shift of each row
+    group size (``shifts``), and the launch's fixed arguments."""
+    shifts = index_math.segment_shifts(spec.r, spec.c_actual)
+    ntiles = -(-spec.c_actual >> shifts[0])  # one row alone: the most tiles
+    capacity = index_math.segment_capacity(spec.r, spec.d, ntiles)
+    nbytes = index_math.segment_scratch_bytes(capacity, ntiles)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    inv = _inverse_perm(spec, device)
+    rows = _kernel_geometry(spec, device)[0]
+    shifts_c = (ctypes.c_int * spec.r)(*shifts)
+    # cs_sketch_segment's arguments between (vals, offset, n) and table, and
+    # after the table up to the stream
+    args = ((None if inv is None else inv.data_ptr(), buf.data_ptr(),
+             capacity, ntiles, shifts_c),
+            (spec.c_actual, rows, spec.r, _FAMILY[spec.hash_family]))
+    return dict(shifts=shifts, capacity=capacity, bytes=nbytes, buf=buf,
+                args=args)
 
 
 def prepare_segments(spec, segments, device) -> None:
-    """Build K1's segment-form plans (the chunk masks, the forward block
-    permutation, the kernel geometry) of every ``(offset, n)`` segment on
-    a CUDA ``device`` ahead of their first launch, so no backward pass
-    builds them between its own allocations; nothing on the CPU."""
+    """Allocate K1's segment form's scratch and build its kernel geometry
+    and inverse block permutation on a CUDA ``device`` ahead of the first
+    launch, so no backward pass allocates them between its own
+    allocations; nothing on the CPU. The scratch is sized by the spec, so
+    ``segments`` (``(offset, n)`` pairs) are only checked to lie in
+    ``[0, d)``."""
+    for offset, n in segments:
+        if offset < 0 or n < 0 or offset + n > spec.d:
+            raise ValueError(f"prepare_segments: [{offset}, {offset + n}) "
+                             f"is not inside [0, {spec.d})")
     device = torch.device(device)
     if device.type != "cuda":
         return
-    dev = str(device)
-    _kernel_geometry(spec, dev)
-    _forward_perm(spec, dev)
-    for offset, n in segments:
-        _segment_plan(spec, int(offset), int(n), dev)
+    _segment_scratch(spec, str(device))
 
 
 def sketch_segment(spec, offset: int, vals: torch.Tensor,
@@ -270,7 +254,11 @@ def sketch_segment(spec, offset: int, vals: torch.Tensor,
     """Add the ``n`` f32 ``vals`` of original coordinates ``[offset,
     offset + n)`` into the f32 ``[r, c_actual]`` ``table``, in place, and
     return it (K1's segment form: no ``[d]`` buffer, no float atomics, so
-    two launches on the same inputs give bit-identical tables)."""
+    two launches on the same inputs give bit-identical tables). On the
+    card each column's contributions are summed left to right in the
+    leaf's order, a scratch window (``_segment_scratch``) at a time, and
+    added into the table once a window; a leaf of at most
+    ``index_math.SEG_PIECE`` values is one launch with no scratch."""
     n = vals.numel()
     _check("sketch_segment vals", vals, (n,))
     _check("sketch_segment table", table, spec.table_shape)
@@ -287,16 +275,13 @@ def sketch_segment(spec, offset: int, vals: torch.Tensor,
     _check_rows(spec.r)
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
+    if table.data_ptr() % 16:
+        raise ValueError("sketch_segment: the kernel reads the table as "
+                         "float4; it must be 16-byte aligned")
     lib = load_library()
-    dev = str(vals.device)
-    rows, ptr, off, _ = _kernel_geometry(spec, dev)
-    perm = _forward_perm(spec, dev)
-    mask = _segment_plan(spec, offset, n, dev)
-    _launch(lib.cs_sketch_segment, vals.data_ptr(), offset, n,
-            None if perm is None else perm.data_ptr(), spec.d_eff,
-            ptr.data_ptr(), off.data_ptr(), mask.data_ptr(), mask.shape[1],
-            table.data_ptr(), spec.c_actual, rows, spec.r,
-            _FAMILY[spec.hash_family], _stream())
+    head, tail = _segment_scratch(spec, str(vals.device))["args"]
+    _launch(lib.cs_sketch_segment, vals.data_ptr(), offset, n, *head,
+            table.data_ptr(), *tail, _stream(vals.device))
     _count(sketch_segment, "f32")
     return table
 
@@ -449,7 +434,8 @@ estimate_median.forms = {}
 @functools.lru_cache(maxsize=8)
 def _inverse_perm(spec, device: str):
     """The inverse block permutation as int32 on ``device`` (None when the
-    spec does not scramble), kept alive here while K4 may read it."""
+    spec does not scramble), kept alive here while K4 or K1's segment form
+    may read it."""
     inv = spec.inverse_block_perm()
     return None if inv is None else torch.from_numpy(inv).to(device)
 

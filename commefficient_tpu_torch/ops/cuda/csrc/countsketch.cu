@@ -8,50 +8,20 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 //
 // The sketch layout is the reference's banded layout, which is semantics,
-// not an optimization (commefficient_tpu/ops/countsketch.py docstring). In
-// scrambled space i in [0, d_eff), row `row` with riffle factor f, padded
-// length L = f * G, chunk size m, stride s and window V = u * s:
-//   riffled index   p    = (i mod G) * f + i div G
-//   chunk, offset   q    = p div m,  o = p mod m
-//   column          col  = q * s + slot(o),  slot(o) = hash(o) mod V
-//   sign            sign = 1 - 2 * (hash'(i) & 1)
-// and the inverse map i = (p mod f) * G + p div f.
+// not an optimization (commefficient_tpu/ops/countsketch.py docstring);
+// layout.cuh gives a scrambled position's column and sign in a row.
 //
 // No kernel here uses float atomics: each output element is owned by one
 // thread and summed in a fixed order, so a table is bit-identical from run
 // to run (the reference pins bit-exact replay of resumed/rolled-back runs).
+// K1's segment form, which adds one parameter leaf into a table, is in
+// segment.cu.
 //
 // Runtime divisions in the redesigned kernels (K1's tiles, K2, K4) go through
 // cs_udiv (common.cuh): a multiplier and shift per divisor, computed on the host by
 // index_math.fast_divisor and exact for every dividend the kernel admits.
 
-#include "common.cuh"
-#include "hash.cuh"
-
-__device__ __forceinline__ uint32_t cs_slot(const long long* g, int family, uint32_t off) {
-  const uint32_t h = family ? cs_poly4(off, g + RP_CSLOT) : cs_mix32(off, (uint32_t)g[RP_KEY_SLOT]);
-  return h % (uint32_t)g[RP_V];
-}
-
-__device__ __forceinline__ uint32_t cs_sign_hash(const long long* g, int family, uint32_t spos) {
-  return family ? cs_poly4(spos, g + RP_CSIGN) : cs_mix32(spos, (uint32_t)g[RP_KEY_SIGN]);
-}
-
-__device__ __forceinline__ float cs_sign(const long long* g, int family, uint32_t spos) {
-  return (cs_sign_hash(g, family, spos) & 1u) ? -1.0f : 1.0f;
-}
-
-// The column of scrambled position i in row g, in 32-bit arithmetic
-// (col < c_actual < 2^32) with the divisions by G, m and V by multiplier.
-__device__ __forceinline__ uint32_t cs_col(const long long* g, int family, uint32_t i) {
-  const uint32_t f = (uint32_t)g[RP_F], G = (uint32_t)g[RP_G], m = (uint32_t)g[RP_M];
-  const uint32_t hi = cs_udiv(i, g, RP_DIV_G);
-  const uint32_t p = (i - hi * G) * f + hi;
-  const uint32_t q = cs_udiv(p, g, RP_DIV_M);
-  const uint32_t o = p - q * m;
-  const uint32_t h = family ? cs_poly4(o, g + RP_CSLOT) : cs_mix32(o, (uint32_t)g[RP_KEY_SLOT]);
-  return q * (uint32_t)g[RP_S] + (h - cs_udiv(h, g, RP_DIV_V) * (uint32_t)g[RP_V]);
-}
+#include "layout.cuh"
 
 // ---------------------------------------------------------------------------
 // K1 cs_sketch_rows
@@ -297,88 +267,6 @@ __global__ void cs_sketch_gather_kernel(const float* __restrict__ v_s, uint32_t 
     }
   }
   table[(long long)row * c_actual + j] = acc;
-}
-
-// ---------------------------------------------------------------------------
-// K1's segment form cs_sketch_segment
-//
-// Replaces: sketch_segment (commefficient_tpu/ops/countsketch.py:898), the
-// per-leaf building block of the sketch-fused backward, which the reference
-// runs as an XLA scatter through sketch_sparse (:878); it has no Pallas
-// kernel. Adds the n f32 values of one parameter leaf, at the original
-// coordinates [offset, offset + n), into an existing f32 [r, c_actual] table.
-//
-// Contract: no [d] or [d_eff] buffer is created (scattering the leaf into a
-// dense vector and running K1 is exactly what the fused backward exists to
-// avoid) and no float atomics are used, so two launches on the same inputs
-// give bit-identical tables (what checkpoint/resume holds a run to).
-//
-// Design: K1's gather kernel, read through the forward block permutation.
-// One thread owns column j of row `row` and walks, in a fixed order, the
-// chunks q whose window [q*s, q*s + V) covers j (q ascending) and, within a
-// chunk, the offsets o with slot(o) = j - q*s (the CSR order, ascending).
-// Each such riffled position p = q*m + o is a scrambled position
-// i = (p mod f) * G + p div f, whose original coordinate is
-// x = perm[i div b] * b + i mod b (perm: scrambled block -> original block);
-// a predicate offset <= x < offset + n reads the leaf at x - offset. The sum
-// is added to the table entry once, after the walk, and an entry no value of
-// the leaf reaches is not written.
-//
-// The chunk mask (ops/cuda/countsketch.py _segment_plan): per row, one bit
-// per chunk, set where the chunk holds a position of a scramble block that
-// meets the segment; built once per (spec, segment) on the card, from the
-// static offsets. A column skips the chunks whose bit is clear, so a small
-// leaf costs its columns' bit tests plus the chunks it touches. In a row
-// with a small riffle factor a scramble block lies in one or two chunks; in
-// a row whose factor exceeds m every position of a block is in another
-// chunk, and a leaf of n values touches up to n chunks there: a leaf that
-// spans most scramble blocks costs about one gather walk of every row.
-// ---------------------------------------------------------------------------
-__global__ void cs_sketch_segment_kernel(const float* __restrict__ vals, uint32_t offset,
-                                         uint32_t n, const int* __restrict__ perm,
-                                         uint32_t d_eff, const int* __restrict__ csr_ptr,
-                                         const int* __restrict__ csr_off,
-                                         const uint32_t* __restrict__ qmask, uint32_t mask_words,
-                                         float* __restrict__ table, uint32_t c_actual,
-                                         const __grid_constant__ CsRows P, int family) {
-  const int row = blockIdx.y;
-  const uint32_t j = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long* g = P.v[row];
-  if (j >= c_actual || j >= (uint32_t)g[RP_ROWLEN]) return;
-  const uint32_t s = (uint32_t)g[RP_S], V = (uint32_t)g[RP_V], nc = (uint32_t)g[RP_NC];
-  const uint32_t m = (uint32_t)g[RP_M], f = (uint32_t)g[RP_F], G = (uint32_t)g[RP_G];
-  const uint32_t b = (uint32_t)g[RP_SBLOCK];
-  const uint32_t q_hi = min(nc - 1, cs_udiv(j, g, RP_DIV_S));
-  // the first chunk whose window reaches j: ceil((j - V + 1) / s)
-  const uint32_t q_lo = j + 1 <= V ? 0 : cs_udiv(j - V + s, g, RP_DIV_S);
-  const uint32_t* mrow = qmask + (size_t)row * mask_words;
-  const int* ptr = csr_ptr + g[RP_PTR];
-  const int* offs = csr_off + g[RP_OFF];
-  float acc = 0.0f;
-  bool hit = false;
-  for (uint32_t q = q_lo; q <= q_hi; ++q) {
-    if (!((__ldg(mrow + (q >> 5)) >> (q & 31u)) & 1u)) continue;
-    const uint32_t t = j - q * s;
-    const int e_end = __ldg(ptr + t + 1);
-    for (int e = __ldg(ptr + t); e < e_end; ++e) {
-      const uint32_t p = q * m + (uint32_t)__ldg(offs + e);
-      const uint32_t hi = cs_udiv(p, g, RP_DIV_F);
-      const uint32_t i = (p - hi * f) * G + hi;
-      if (i >= d_eff) continue;
-      uint32_t x = i;
-      if (perm) {
-        const uint32_t sb = cs_udiv(i, g, RP_DIV_SBLOCK);
-        x = (uint32_t)__ldg(perm + sb) * b + (i - sb * b);
-      }
-      const uint32_t k = x - offset;  // wraps past n when x < offset
-      if (k < n) {
-        const float v = __ldg(vals + k);
-        acc += (cs_sign_hash(g, family, i) & 1u) ? -v : v;
-        hit = true;
-      }
-    }
-  }
-  if (hit) table[(size_t)row * c_actual + j] += acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -773,25 +661,6 @@ int cs_sketch_rows(const float* v_s, long long d_eff, const int* csr_ptr, const 
   else return (int)cudaErrorInvalidValue;
 #undef CS_K1F
 #undef CS_K1
-  return (int)cudaGetLastError();
-}
-
-// K1's segment form: the n values at original coordinates [offset,
-// offset + n) added into the f32 table in place. perm is the forward block
-// permutation (null: no scramble); qmask the [r, mask_words] chunk mask.
-int cs_sketch_segment(const float* vals, long long offset, long long n, const int* perm,
-                      long long d_eff, const int* csr_ptr, const int* csr_off,
-                      const unsigned* qmask, long long mask_words, float* table,
-                      long long c_actual, const long long* rows, int r, int family,
-                      void* stream) {
-  CsRows P;
-  const int rc = cs_load_rows(&P, rows, r);
-  if (rc) return rc;
-  if (n <= 0) return 0;
-  const dim3 grid((unsigned)((c_actual + kThreads - 1) / kThreads), (unsigned)r);
-  cs_sketch_segment_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      vals, (uint32_t)offset, (uint32_t)n, perm, (uint32_t)d_eff, csr_ptr, csr_off, qmask,
-      (uint32_t)mask_words, table, (uint32_t)c_actual, P, family);
   return (int)cudaGetLastError();
 }
 

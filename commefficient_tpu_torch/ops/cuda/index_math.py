@@ -15,7 +15,10 @@ mirrors of the kernels' own index loops, on the CPU):
   row and per CUDA block, the table window that the block reads;
 * K2, the walk over every coordinate: the range form's plan at
   ``(start, n) = (0, d)``, tiles of ``K2_COORDS`` positions, and whether
-  the slot tables go to shared memory (``k2_slots_in_smem``).
+  the slot tables go to shared memory (``k2_slots_in_smem``);
+* K1's segment form (``csrc/segment.cu``): which leaves take the one-block
+  path, the tile width, and the fixed scratch (pieces a window and its
+  bytes).
 """
 
 from __future__ import annotations
@@ -94,6 +97,85 @@ def sketch_tile_strides(rows) -> int:
             return w
         w //= 2
     return 0
+
+
+# -- K1's segment form: windows, row groups, pieces and tiles ---------------
+
+SEG_PIECE = 8192  # values a scatter block takes; the small path's limit
+SEG_BATCH = 2048  # pairs an owner block takes at a time (kSegBatch)
+SEG_OWNER_THREADS = 256  # an owner block's threads, each owning T / 256 columns
+SEG_MAX_TILES = 1024  # tiles a row (the scatter block's counters)
+SEG_MAX_PIECES = 2048  # piece-rows of the scratch (an owner's run table)
+SEG_TILE_SHIFTS = range(13, 7, -1)  # tiles of 8192 down to 256 columns
+SEG_MIN_BUCKETS = 4 * 132  # owner blocks wanted: four a multiprocessor
+SEG_SCRATCH_BUDGET = 64 * 2**20  # bytes of the scratch, at most
+
+
+def segment_small(n: int) -> bool:
+    """Whether a leaf of ``n`` values takes the one-launch path: its pairs
+    fit one block's radix sort (512 threads x 16 keys; the sort's ~40 KB
+    and the 64 KB of sorted pairs in shared memory)."""
+    return n <= SEG_PIECE
+
+
+def segment_tile_shift(g: int, c_actual: int) -> int:
+    """log2 of the tile width T when ``g`` rows go through the passes
+    together: the widest tile (up to 8192 columns, whose f32 sums take 32
+    KB of an owner block's shared memory, three blocks to a
+    multiprocessor) that still gives ``SEG_MIN_BUCKETS`` (row, tile)
+    buckets, else the narrowest; a row may not have more than
+    ``SEG_MAX_TILES`` tiles."""
+    def tiles(t):
+        return -(-c_actual >> t)
+
+    shift = next((t for t in SEG_TILE_SHIFTS
+                  if g * tiles(t) >= SEG_MIN_BUCKETS), SEG_TILE_SHIFTS[-1])
+    shift = max(shift, min(SEG_TILE_SHIFTS[0],
+                           (-(-c_actual // SEG_MAX_TILES) - 1).bit_length()))
+    if tiles(shift) > SEG_MAX_TILES:
+        raise ValueError(f"K1's segment form takes at most "
+                         f"{SEG_MAX_TILES << SEG_TILE_SHIFTS[0]} columns, "
+                         f"got {c_actual}")
+    return shift
+
+
+def segment_shifts(r: int, c_actual: int) -> list:
+    """The tile shift for each row-group size 1..r."""
+    return [segment_tile_shift(g, c_actual) for g in range(1, r + 1)]
+
+
+def segment_scratch_bytes(capacity: int, ntiles: int) -> int:
+    """Bytes of the segment form's scratch of ``capacity`` piece-rows (one
+    row's pairs of one piece): ``SEG_PIECE`` uint16 columns in the tile
+    each and as many f32 signed values (each array piece-row-major), then
+    ``ntiles + 1`` int32 tile starts each, tile-major (``ntiles``: the
+    most any row group's tiles take). Same layout as
+    ``cs_sketch_segment`` in ``csrc/segment.cu``."""
+    return capacity * (6 * SEG_PIECE + 4 * (ntiles + 1))
+
+
+def segment_capacity(r: int, d: int, ntiles: int) -> int:
+    """Piece-rows the scratch holds: as many as ``SEG_SCRATCH_BUDGET``
+    allows, and no more than a leaf of ``d`` values (the whole vector) in
+    every row needs."""
+    return max(1, min(SEG_MAX_PIECES, r * -(-d // SEG_PIECE),
+                      SEG_SCRATCH_BUDGET // segment_scratch_bytes(1, ntiles)))
+
+
+def segment_windows(r: int, n: int, capacity: int) -> list:
+    """The windows of a leaf of ``n`` values that does not take the small
+    path, in launch order, as ``(row0, rows, k0, values)``: the rows go in
+    as few groups as hold the whole leaf, of sizes as even as can be;
+    where not even one row's pairs fit, each row alone in windows of
+    ``capacity`` pieces."""
+    pieces = -(-n // SEG_PIECE)
+    most = min(r, capacity // pieces)
+    if most:
+        g = -(-r // -(-r // most))
+        return [(row0, min(g, r - row0), 0, n) for row0 in range(0, r, g)]
+    w = capacity * SEG_PIECE
+    return [(row, 1, k0, min(w, n - k0)) for row in range(r)
+            for k0 in range(0, n, w)]
 
 
 # -- K4: the range form --------------------------------------------------------

@@ -486,6 +486,54 @@ def test_sketch_segment_matches_plain_and_is_deterministic(dev, d, c, r, band,
     torch.cuda.empty_cache()
 
 
+SEGMENT_EDGES = {
+    # name: (d, c, r, offset, n) at the FetchSGD band 16 and default m
+    "small_path_limit": (6_573_130, 500_000, 5, 1_000, 8_192),
+    "one_past_the_limit": (6_573_130, 500_000, 5, 1_000, 8_193),
+    "row_groups": (6_573_130, 500_000, 5, 77, 4_400_000),
+    "value_windows": (124_444_417, 5_000_000, 5, 5, 2 * 1_300 * 8_192 + 5),
+    "ends_at_d": (6_573_130, 500_000, 5, 6_273_130, 300_000),
+    "buckets_over_a_sub_batch": (200_003, 3_000, 3, 3, 150_000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_EDGES))
+def test_sketch_segment_edges(dev, case):
+    """The segment form's boundaries: the small path at its limit (8192
+    values) and the two passes one past it, a leaf whose rows go in groups
+    of two, a leaf over three windows of one row each, a large leaf that
+    ends at d, and (row, tile) buckets of more pairs than the owner's
+    sub-batch: each the plain version's table to ``1e-5 * max|table|``,
+    two launches bit-identical."""
+    from commefficient_tpu_torch.ops.cuda import index_math
+
+    d, c, r, offset, n = SEGMENT_EDGES[case]
+    spec = cs.CountSketch(d=d, c=c, r=r)
+    scratch = kern._segment_scratch(spec, str(dev))
+    windows = index_math.segment_windows(r, n, scratch["capacity"])
+    spos = spec.scrambled_pos(offset + torch.arange(n, device=dev))
+    cols = spec.scrambled_cols_signs(0, spos)[0]
+    shift = scratch["shifts"][windows[0][1] - 1]
+    biggest = int(torch.bincount(cols >> shift).max())
+    del spos, cols
+    reach = {"small_path_limit": index_math.segment_small(n),
+             "one_past_the_limit": not index_math.segment_small(n),
+             "row_groups": [w[1] for w in windows] == [2, 2, 1],
+             "value_windows": len(windows) == 3 * r and windows[1][2] > 0,
+             "ends_at_d": offset + n == d and not index_math.segment_small(n),
+             "buckets_over_a_sub_batch": biggest > 3 * index_math.SEG_BATCH}
+    assert reach[case], windows
+    base = _vec(r * spec.c_actual, 4, dev).view(spec.table_shape)
+    vals = _vec(n, 8, dev)
+    got = kern.sketch_segment(spec, offset, vals, base.clone())
+    again = kern.sketch_segment(spec, offset, vals, base.clone())
+    want = kern.sketch_segment_torch(spec, offset, vals, base.clone())
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= _table_tol(want)
+    del got, again, want
+    torch.cuda.empty_cache()
+
+
 def test_sketch_segment_refuses_what_it_does_not_take(dev):
     spec = cs.CountSketch(d=20_011, c=4_000, r=3, m=512)
     table = torch.zeros(spec.table_shape, device=dev)
@@ -499,3 +547,7 @@ def test_sketch_segment_refuses_what_it_does_not_take(dev):
                             table.to(torch.bfloat16))
     with pytest.raises(ValueError, match="vals on"):
         kern.sketch_segment(spec, 0, torch.ones(4), table)
+    misaligned = torch.zeros(table.numel() + 1, device=dev)[1:].view(
+        spec.table_shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kern.sketch_segment(spec, 0, torch.ones(4, device=dev), misaligned)

@@ -13,6 +13,10 @@ planned on the host in ``ops/cuda/index_math.py``, or mirrored here:
   the gather kernel's summation order bit for bit;
 * K4's range form: the scramble blocks of a slice in scrambled order, and
   the table windows that each CUDA block reads;
+* a mirror of K1's segment form: the pairs' keys, the tile buckets of the
+  scatter pass over pieces and windows, the owner pass's partition and
+  the order of each column's sums, and the small path, held to the plain
+  version; its tile width and scratch at the main geometries;
 * a mirror of K2's walk over every coordinate: the staged windows hold
   every column a tile reads, the fused unscramble writes each coordinate
   below d exactly once and skips the padding, and a float32 replay equals
@@ -307,50 +311,97 @@ def test_k1_replay_equals_gather_order_bit_for_bit(W):
                                atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
-# -- K1's segment form: the walk through the forward block permutation ------
+# -- K1's segment form: keys, buckets, windows and the order of the sums --
 
 
-def _segment_replay(spec, offset, vals):
-    """A mirror of ``cs_sketch_segment_kernel``: per column, the chunks of
-    its window range whose bit is set in ``_segment_plan``'s mask, the CSR
-    offsets of its slot, the forward block permutation and the predicate
-    on the original coordinate, summed in float32 in the kernel's order.
-    Returns (the table, the set of (row, column) entries written)."""
-    n = vals.numel()
-    mask = kern._segment_plan(spec, offset, n, "cpu").numpy().view(np.uint32)
-    perm = kern._forward_perm(spec, "cpu")
-    ptr_all, off_all = (t.numpy() for t in spec.csr_tables("cpu"))
+def _segment_keys(spec, row, x):
+    """The kernel's pair of each original coordinate ``x`` (int64) in
+    ``row``: its scrambled position through the inverse block permutation,
+    then the riffle, chunk, slot and column (``cs_col``) and the sign bit
+    (``cs_sign_hash``)."""
     b = spec.sblock
+    i = spec.inverse_block_perm()[x // b].astype(np.int64) * b + x % b \
+        if b else x
+    f, m, s = spec._factor(row), spec.chunk_m, spec.s_row(row)
+    G = spec._L_row(row) // f
+    hi = i // G
+    p = (i - hi * G) * f + hi
+    q = p // m
+    slot = spec.slot_hash(row, torch.from_numpy(p - q * m)).numpy()
+    neg = spec.sign_bits(row, torch.from_numpy(i)).numpy().astype(bool)
+    return q * s + slot, neg
+
+
+def _segment_stream(col, shift, ntiles, t):
+    """The scatter pass (per piece of ``SEG_PIECE`` values, the pairs
+    stably bucketed by tile, with the piece's tile starts) and the owner
+    pass's gather for tile ``t`` (each piece's run, in piece order):
+    tile ``t``'s stream of window-local value indices."""
+    runs = []
+    for a in range(0, len(col), index_math.SEG_PIECE):
+        tile = col[a:a + index_math.SEG_PIECE] >> shift
+        order = np.argsort(tile, kind="stable")
+        starts = np.searchsorted(tile[order], np.arange(ntiles + 1))
+        runs.append(a + order[starts[t]:starts[t + 1]])
+    return np.concatenate(runs)
+
+
+def _segment_partition(stream, col, shift):
+    """The owner's sub-batches of ``SEG_BATCH`` pairs, each stably
+    partitioned by bin (``SEG_OWNER_THREADS`` bins of T / 256 columns, one
+    an owner thread): the order in which each thread adds its pairs."""
+    out = []
+    bits = index_math.SEG_OWNER_THREADS.bit_length() - 1
+    for a in range(0, len(stream), index_math.SEG_BATCH):
+        sub = stream[a:a + index_math.SEG_BATCH]
+        b = (col[sub] & ((1 << shift) - 1)) >> (shift - bits)
+        out.append(sub[np.argsort(b, kind="stable")])
+    return np.concatenate(out) if out else stream
+
+
+def _segment_replay(spec, offset, vals, capacity=None, small=None):
+    """A mirror of ``cs_sketch_segment`` (``csrc/segment.cu``): a leaf of at
+    most ``SEG_PIECE`` values takes the small path (per row, the pairs
+    sorted stably by column), a larger one ``index_math.segment_windows``
+    for a scratch of ``capacity`` piece-rows (default
+    ``index_math.segment_capacity``), each window through the scatter and
+    owner passes at its row group's tile width. Per window and row, each
+    column's pairs are summed in float32 in that order from -0.0, and the
+    sum is added to the table unless it is -0.0. Returns (the table, the
+    set of (row, column) entries written); asserts on the way that every
+    column's pairs come in the leaf's order."""
+    v = vals.numpy()
+    n = v.size
+    small = index_math.segment_small(n) if small is None else small
+    shifts = index_math.segment_shifts(spec.r, spec.c_actual)
+    capacity = capacity or index_math.segment_capacity(
+        spec.r, spec.d, -(-spec.c_actual >> shifts[0]))
+    windows = [(0, spec.r, 0, n)] if small else index_math.segment_windows(
+        spec.r, n, capacity)
     table = np.zeros(spec.table_shape, np.float32)
     written = set()
-    ptr_base = 0
-    for row in range(spec.r):
-        f, m, s = spec._factor(row), spec.chunk_m, spec.s_row(row)
-        G, V, nc = spec._L_row(row) // f, spec.V_row(row), spec._nc_row(row)
-        ptr = ptr_all[ptr_base:ptr_base + V + 1]
-        off = off_all[row * m:(row + 1) * m]
-        ptr_base += V + 1
-        rowlen = (nc + spec.u_row(row) - 1) * s
-        for j in range(min(rowlen, spec.c_actual)):
-            acc, hit = np.float32(0.0), False
-            q_lo = 0 if j + 1 <= V else (j - V + s) // s
-            for q in range(q_lo, min(nc - 1, j // s) + 1):
-                if not (int(mask[row, q >> 5]) >> (q & 31)) & 1:
-                    continue
-                for e in range(ptr[j - q * s], ptr[j - q * s + 1]):
-                    p = q * m + int(off[e])
-                    i = (p % f) * G + p // f
-                    if i >= spec.d_eff:
-                        continue
-                    x = int(perm[i // b]) * b + i % b if b else i
-                    if 0 <= x - offset < n:
-                        v = np.float32(vals[x - offset])
-                        neg = int(spec.sign_bits(row, torch.tensor([i]))[0])
-                        acc = np.float32(acc + (-v if neg else v))
-                        hit = True
-            if hit:
-                table[row, j] += acc
-                written.add((row, j))
+    for row0, g, k0, wn in windows:
+        shift = shifts[g - 1]
+        ntiles = -(-spec.c_actual >> shift)
+        k = np.arange(k0, k0 + wn)
+        for row in range(row0, row0 + g):
+            col, neg = _segment_keys(spec, row, offset + k)
+            sv = np.where(neg, -v[k], v[k]).astype(np.float32)
+            if small:
+                order = [np.argsort(col, kind="stable")]
+            else:
+                order = [_segment_partition(_segment_stream(col, shift, ntiles,
+                                                            t), col, shift)
+                         for t in range(ntiles)]
+            for o in order:
+                for c in np.unique(col[o]):  # the leaf's order per column
+                    assert np.all(np.diff(o[col[o] == c]) > 0)
+            o = np.concatenate(order)
+            acc = np.full(spec.c_actual, -0.0, np.float32)
+            np.add.at(acc, col[o], sv[o])  # in order, in float32
+            hit = acc.view(np.uint32) != np.float32(-0.0).view(np.uint32)
+            table[row, hit] += acc[hit]
+            written |= {(row, int(c)) for c in np.flatnonzero(hit)}
     return table, written
 
 
@@ -358,16 +409,24 @@ SEGMENTS = {  # (d, c, r, family) -> segments (offset, n)
     (212, 512, 4, "fmix32"): [(0, 1), (0, 212), (60, 63), (147, 65)],
     (3_001, 600, 3, "poly4"): [(63, 1), (64, 64), (100, 65), (2_936, 65)],
     (3_001, 600, 1, "fmix32"): [(1, 63), (2_999, 2)],
+    # the small path's limit and one past it, a leaf ending at d, the
+    # whole vector
+    (20_011, 4_000, 3, "fmix32"): [(0, 8_192), (5, 8_193),
+                                   (11_011, 9_000), (0, 20_011)],
+    (20_011, 4_000, 5, "poly4"): [(37, 8_192), (100, 8_193),
+                                  (2_011, 18_000)],
 }
 
 
 @pytest.mark.parametrize("geo", sorted(SEGMENTS), ids=str)
 def test_segment_replay_equals_plain_version(geo):
     """Leaves of 1, 63, 64 and 65 values, offsets that straddle a scramble
-    block, the last leaf ending at d (inside d_eff's padding), r of 1, 3
-    and 4, both hash families: the kernel's walk reaches every value of
-    the segment once (the plain version's table, to its summation order)
-    and writes exactly the entries the segment touches."""
+    block, leaves at the small path's limit (8192) and one past it, leaves
+    ending at d (inside d_eff's padding), r of 1, 3, 4 and 5, both hash
+    families: the kernel's passes reach every value of the segment once
+    (the plain version's table to 1e-6, the order of the sums aside; the
+    kernel's own bound is ``1e-5 * max|table|``) and write exactly the
+    entries the segment touches."""
     d, c, r, family = geo
     spec = cs.CountSketch(d=d, c=c, r=r, hash_family=family, seed=5)
     rng = np.random.default_rng(1)
@@ -381,6 +440,82 @@ def test_segment_replay_equals_plain_version(geo):
         touched = {(row, int(col)) for row in range(r)
                    for col in spec.scrambled_cols_signs(row, spos)[0]}
         assert written == touched, (offset, n)
+
+
+@pytest.mark.parametrize("capacity,windows", [
+    (1, [(0, 1, 0, 8_192), (0, 1, 8_192, 8_192), (0, 1, 16_384, 7)]),
+    (2, [(0, 1, 0, 16_384), (0, 1, 16_384, 7)]),
+    (6, [(0, 2, 0, 16_391), (2, 1, 0, 16_391)]),
+])
+def test_segment_replay_over_windows_and_row_groups(capacity, windows):
+    """A leaf of 2 * 8192 + 7 values (three pieces) through scratches of one,
+    two and six piece-rows: each row alone in three and in two windows of
+    values, then the rows in groups of two; each window adds its own sums
+    into the table, which is the plain version's."""
+    spec = cs.CountSketch(d=20_011, c=4_000, r=3, seed=5)
+    n = 2 * index_math.SEG_PIECE + 7
+    plan = index_math.segment_windows(spec.r, n, capacity)
+    assert plan[:len(windows)] == windows
+    assert len(plan) == (3 * len(windows) if windows[0][1] == 1 else 2)
+    vals = torch.from_numpy(np.random.default_rng(2).normal(
+        size=n).astype(np.float32))
+    got, written = _segment_replay(spec, 1_000, vals, capacity=capacity)
+    want = kern.sketch_segment_torch(
+        spec, 1_000, vals, torch.zeros(spec.table_shape)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert len(written) == np.count_nonzero(want)
+
+
+def test_segment_small_path_equals_the_two_passes_at_its_limit():
+    """At n = 8192 the small path and the two passes (one window) sum every
+    column in the same order: bit-equal tables."""
+    spec = cs.CountSketch(d=20_011, c=4_000, r=3, seed=5)
+    n = index_math.SEG_PIECE
+    assert index_math.segment_small(n)
+    assert not index_math.segment_small(n + 1)
+    vals = torch.from_numpy(np.random.default_rng(3).normal(
+        size=n).astype(np.float32))
+    small, w1 = _segment_replay(spec, 300, vals, small=True)
+    two, w2 = _segment_replay(spec, 300, vals, small=False)
+    np.testing.assert_array_equal(small, two)
+    assert w1 == w2
+
+
+@pytest.mark.parametrize("geo,shifts,capacity", [
+    # ResNet-9's and GPT-2's FetchSGD geometries
+    ((6_573_130, 500_000, 5), [9, 10, 11, 11, 12], 1_263),
+    ((124_444_417, 5_000_000, 5), [13, 13, 13, 13, 13], 1_300),
+    ((212, 512, 4), [8, 8, 8, 8], 4),
+])
+def test_segment_plan_at_the_main_geometries(geo, shifts, capacity):
+    """The tile width gives at least ``SEG_MIN_BUCKETS`` owner blocks a
+    launch where the table is wide enough, and the scratch stays within
+    64 MiB; GPT-2's ``wte`` goes a row at a time, ResNet-9's largest
+    leaves in row groups of three and two."""
+    d, c, r = geo
+    spec = cs.CountSketch(d=d, c=c, r=r)
+    got = index_math.segment_shifts(r, spec.c_actual)
+    ntiles = -(-spec.c_actual >> got[0])
+    assert got == shifts
+    assert index_math.segment_capacity(r, d, ntiles) == capacity
+    assert ntiles <= index_math.SEG_MAX_TILES
+    for g, shift in enumerate(shifts, 1):
+        if shift > 8:
+            assert g * -(-spec.c_actual >> shift) \
+                >= index_math.SEG_MIN_BUCKETS
+        if shift < 13:  # a wider tile would give too few
+            assert g * -(-spec.c_actual >> (shift + 1)) \
+                < index_math.SEG_MIN_BUCKETS
+    assert index_math.segment_scratch_bytes(capacity, ntiles) \
+        <= index_math.SEG_SCRATCH_BUDGET
+    if d == 124_444_417:
+        w = index_math.segment_windows(r, 38_601_216, capacity)
+        assert len(w) == 20 and {x[1] for x in w} == {1}
+    if d == 6_573_130:
+        assert index_math.segment_windows(r, 2_359_296, capacity) == [
+            (0, 3, 0, 2_359_296), (3, 2, 0, 2_359_296)]
+    with pytest.raises(ValueError, match="at most"):
+        index_math.segment_tile_shift(1, 1024 * 16384 + 1)
 
 
 # -- K4: the range form's block order and windows ---------------------------
