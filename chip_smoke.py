@@ -38,7 +38,8 @@ phase prints one line (or a few) and raises on failure, so the script exits
    same session on the CPU (the plain path that the CPU tests hold against
    the JAX package), for the dense decode and for the sharded decode with
    the threshold top-k, and the card's sharded decode against its dense
-   threshold decode (atol 1e-6);
+   threshold decode (atol 1e-6; both card sessions on deterministic
+   cuDNN);
 4. replay: two sharded server updates from one state at full width are
    bit-identical;
 5. main paths: ``cv_train.main`` with the FetchSGD flags, ResNet-9 at full
@@ -117,7 +118,19 @@ phase prints one line (or a few) and raises on failure, so the script exits
 16. ``resume``: on deterministic cuDNN, 8 ResNet-9 sketch rounds straight
     against 4, a checkpoint, a fresh session restored from it and 4 more,
     every FedState leaf bit-equal; the checkpoint's bytes and its save
-    and restore ms.
+    and restore ms;
+17. ``batched_clients``: the batched client step (one ``torch.func.vmap``
+    of the per-client function, which every per-client round above runs)
+    against its plain version, the per-client loop, on one session state
+    and batch: ResNet-9 at full width in sketch, sketch with local
+    momentum, local_topk with the exact and the threshold top-k, fedavg,
+    true_topk, powersgd, uncompressed, weight decay with the clip, the
+    clip with DP noise, and fedsim masks (a dropped, a corrupted live and
+    a corrupted dropped client), each held in f64 compute at the CPU
+    test's tolerance (rtol 1e-5, atol 1e-6 of max) and in mixed compute
+    by the norm hold against the f64 loop, and timed; GPT-2 BASELINE #4
+    (clip 1.0) in f32 and in bf16 by the norm hold against the loop in
+    f64, timed, with each call's peak memory.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
 kernel and every bf16 form (``launches`` summed over every path,
@@ -537,14 +550,24 @@ def sharded_agreement_phase(torch, dev):
     """The sharded decode (threshold top-k, one device) on the card against
     the same session on the CPU, under the agreement phase's tolerance;
     then against the card's dense threshold decode, which the reference
-    pins equal to its sharded decode at atol 1e-6."""
+    pins equal to its sharded decode at atol 1e-6. The card's sessions
+    run on deterministic cuDNN: the two card runs must compute the same
+    gradients, so that only their decodes differ (default cuDNN may sum
+    the batched clients' weight gradients with atomics, and a near-tie of
+    the threshold then goes one way in one run and the other way in the
+    next)."""
     from commefficient_tpu_torch.train.agreement_probe import width8_session
 
     sharded = dict(topk_method="threshold", sketch_decode="sharded")
-    l_dev, p0, p_dev, dec = width8_session(dev.type, **sharded)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        l_dev, p0, p_dev, dec = width8_session(dev.type, **sharded)
+        l_dense, _, p_dense, dec_dense = width8_session(
+            dev.type, topk_method="threshold", sketch_decode="dense")
+    finally:
+        torch.backends.cudnn.deterministic = prev
     l_cpu, _, p_cpu, _ = width8_session("cpu", **sharded)
-    l_dense, _, p_dense, dec_dense = width8_session(
-        dev.type, topk_method="threshold", sketch_decode="dense")
     moved = float(torch.linalg.vector_norm(p_cpu - p0))
     diff = float(torch.linalg.vector_norm(p_dev - p_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
@@ -676,12 +699,19 @@ def main_path_phase(kern, cv_train, dataset_dir):
     return kern.form_counts(), out["bytes_per_round"]
 
 
-def uncompressed_phase(kern, cv_train, dataset_dir):
+def uncompressed_args():
+    """MAIN_ARGS for ``uncompressed``: the mode swapped, the sketch's
+    flags dropped."""
     args = list(MAIN_ARGS)
     args[args.index("sketch")] = "uncompressed"
     for flag in ("--error_type", "--k", "--num_rows", "--num_cols"):
         i = args.index(flag)
         del args[i:i + 2]
+    return args
+
+
+def uncompressed_phase(kern, cv_train, dataset_dir):
+    args = uncompressed_args()
     kern.reset_launch_counts()
     out = cv_train.main(args + ["--max_rounds", "1", "--dataset_dir",
                                 dataset_dir])
@@ -758,11 +788,7 @@ def fused_timing_phase(cv_train, dataset_dir, rounds: int = 5):
     8 clients of 64 images) with the per-client loop and with
     ``--fuse_clients``, one run each: printed, not checked (the CPU tests
     hold the two equal)."""
-    args = list(MAIN_ARGS)
-    args[args.index("sketch")] = "uncompressed"
-    for flag in ("--error_type", "--k", "--num_rows", "--num_cols"):
-        i = args.index(flag)
-        del args[i:i + 2]
+    args = uncompressed_args()
     ms = {}
     for name, extra in (("per_client", []),
                         ("fused", ["--fuse_clients", "true"])):
@@ -1380,11 +1406,7 @@ def dp_phase(torch, cv_train, dataset_dir, rounds=3):
     from commefficient_tpu_torch.parallel.round import dp_noise, make_grad_one
     from commefficient_tpu_torch.utils.config import parse_args
 
-    args = list(MAIN_ARGS)
-    args[args.index("sketch")] = "uncompressed"
-    for flag in ("--error_type", "--k", "--num_rows", "--num_cols"):
-        i = args.index(flag)
-        del args[i:i + 2]
+    args = uncompressed_args()
     out = cv_train.main(args + DP_FLAGS + ["--max_rounds", str(rounds),
                                            "--dataset_dir", dataset_dir])
     hist = out["history"]
@@ -1468,6 +1490,308 @@ def resume_phase(torch, kern, cv_train, dataset_dir, work):
           f"run: {same}")
     return forms
 
+
+# -- the batched client step --------------------------------------------------
+
+
+# batched_clients' fedsim masks over the 8 clients: 1 dropped, 2
+# corrupted and live, 4 corrupted and dropped
+BATCHED_LIVE = [1, 0, 1, 1, 0, 1, 1, 1]
+BATCHED_CORRUPT = [0, 0, 1, 0, 1, 0, 0, 0]
+# batched_clients' exact hold: tests/test_torch_batched_clients.py's
+# (rtol, atol times max|.| of the loop's output), where the two differ only
+# in the order of sums. ResNet-9 is held so in f64 compute: in f32 its
+# per-client gradient itself moves by ~1e-3 of its max between two f32
+# evaluations (the batched step against the loop, the loop against the
+# CPU: near-ties of its max-pools; train/batched_probe.py measures it)
+BATCHED_TOL = (1e-5, 1e-6)
+# the norm hold, where the exact hold cannot apply (the paths' own bf16
+# compute, where near-ties flip far more often; GPT-2 in f32, whose long
+# sums in wte and mc_head move by a few 1e-6 of max|.| between two
+# summation orders; GPT-2 in f64 does not fit the batched step):
+# each vector output's L2 distance from the loop's at most NORM_FACTOR
+# times the loop's own distance from an exact loop (f64 compute) plus
+# BATCHED_TOL's rtol times the loop's norm; the loss sum likewise, with
+# the compute type's unit roundoff in place of the rtol
+NORM_FACTOR = 2.0
+
+
+def batched_cases():
+    """batched_clients' ResNet-9 configurations: name -> (flags, fedsim
+    masks or None), tests/test_torch_batched_clients.py's at full width
+    (every configuration has MAIN_ARGS's weight decay, 5e-4)."""
+    unc = uncompressed_args()
+    local_topk = MAIN_ARGS + MODE_PATHS["local_topk"][0]
+    return {
+        "sketch": (MAIN_ARGS, None),
+        "sketch_local_momentum": (MAIN_ARGS + ["--local_momentum", "0.9"],
+                                  None),
+        "local_topk_exact": (local_topk, None),
+        "local_topk_threshold": (local_topk + ["--topk_method",
+                                               "threshold"], None),
+        "fedavg": (MAIN_ARGS + MODE_PATHS["fedavg"][0], None),
+        "true_topk": (MAIN_ARGS + MODE_PATHS["true_topk"][0], None),
+        "powersgd": (MAIN_ARGS + MODE_PATHS["powersgd"][0], None),
+        "uncompressed": (unc, None),
+        "weight_decay_clip": (unc + ["--max_grad_norm", "1.0"], None),
+        "clip_dp": (unc + DP_FLAGS, None),
+        "fedsim": (local_topk, (BATCHED_LIVE, BATCHED_CORRUPT)),
+    }
+
+
+def _close(torch, a, b, rtol, atol):
+    """(``|a - b| <= atol * max|b| + rtol * |b|`` everywhere, max |a - b|
+    over max|b|)."""
+    scale = float(torch.max(torch.abs(b)))
+    diff = torch.abs(a - b)
+    ok = bool(torch.all(diff <= atol * scale + rtol * torch.abs(b)))
+    return ok, float(torch.max(diff)) / (scale or 1.0)
+
+
+def _step_err(torch, got, want, rtol, atol, nan_sum):
+    """(within the tolerance, the largest ``_close`` error) of two client
+    steps' outputs; with ``nan_sum`` (a corrupted live client) both
+    transmit sums must be NaN everywhere."""
+    pairs = ([("transmit", got[0], want[0]), ("loss", got[1], want[1])]
+             + [(k, got[2][k], want[2][k]) for k in want[2]]
+             + [("vel", got[3], want[3]), ("err", got[4], want[4])])
+    ok, worst = True, 0.0
+    for what, a, b in pairs:
+        if b is None:
+            ok &= a is None
+        elif what == "transmit" and nan_sum:
+            ok &= bool(torch.isnan(a).all() and torch.isnan(b).all())
+        else:
+            good, err = _close(torch, a, b, rtol, atol)
+            ok, worst = ok and good, max(worst, err)
+    return ok, worst
+
+
+def _norm_hold(torch, got, want, exact, nan_sum, eps):
+    """(within the norm hold, the largest ratio of the batched step's
+    distance from the loop to the loop's from ``exact``) over the
+    transmit sum, the new rows and the loss sum (a scalar: its room is
+    ``eps``, the compute type's, times the loop's loss, not BATCHED_TOL's
+    rtol); NaN sums (a corrupted live client): both NaN everywhere. The
+    aux are argmax counts and the loss's parts, not held here."""
+    ok, worst = True, 0.0
+    for i in (0, 3, 4, 1):
+        a, b, x = got[i], want[i], exact[i]
+        if b is None:
+            ok &= a is None
+        elif i == 0 and nan_sum:
+            ok &= bool(torch.isnan(a).all() and torch.isnan(b).all())
+        else:
+            d_bl = float(torch.linalg.vector_norm(a - b))
+            d_lx = float(torch.linalg.vector_norm(b - x))
+            room = (eps if i == 1 else BATCHED_TOL[0]) * float(
+                torch.linalg.vector_norm(b))
+            ok &= d_bl <= NORM_FACTOR * d_lx + room
+            if i != 1:
+                worst = max(worst, d_bl / max(d_lx, 1e-30))
+    return ok, worst
+
+
+def client_step(torch, sess, loss_fn, ids, batch, env, lr=0.1):
+    """``(grad_one, per_client, the client step's arguments)`` of the
+    session's state and ``batch`` under ``loss_fn``."""
+    from commefficient_tpu_torch.parallel.round import (
+        client_inputs,
+        make_grad_one,
+        make_per_client,
+    )
+
+    grad_one = make_grad_one(sess.cfg, loss_fn, sess.unravel)
+    return (grad_one, make_per_client(sess.cfg, sess.compressor, grad_one),
+            client_inputs(sess.cfg, sess.compressor, sess.state, ids, batch,
+                          lr, env))
+
+
+def hold_client_step(torch, sess, loss_fn, ids, batch, env, timed,
+                     exact=None, eps=None):
+    """The batched client step against the per-client loop on the
+    session's state and ``batch``, with each call's peak
+    ``max_memory_allocated``: without ``exact``, the outputs held at
+    BATCHED_TOL (where a top-k selects per client, local error feedback,
+    and the k-th gap of some client's pre-selection vector is inside the
+    tolerance, a flipped near-tie is the order of the sums, not a fault:
+    the per-client gradients are held instead); with ``exact`` (an exact
+    loop's outputs), the norm hold (``_norm_hold``, the loss's room
+    ``eps``, the compute type's unit roundoff). With ``timed``, both
+    timed by CUDA events (median of 3 after 3 warm-up calls). Returns
+    (the row, the loop's outputs)."""
+    from commefficient_tpu_torch.parallel.round import (
+        batched_client_transmits,
+        client_transmits,
+    )
+
+    cfg = sess.cfg
+    rtol, atol = BATCHED_TOL
+    grad_one, per_client, args = client_step(torch, sess, loss_fn, ids,
+                                             batch, env)
+    steps = (("loop", client_transmits),
+             ("batched", batched_client_transmits))
+    out, peaks = {}, {}
+    for name, fn in steps:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = fn(per_client, *args)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    nan_sum = env is not None and any(a and b for a, b in zip(env.live,
+                                                              env.corrupt))
+    params, b, vel, err_rows, lr_c = args[:5]
+    if exact is not None:
+        held = (f"norm: within {NORM_FACTOR} x the loop's distance from "
+                f"the exact loop")
+        ok, err = _norm_hold(torch, out["batched"], out["loop"], exact,
+                             nan_sum, eps)
+    else:
+        held = "outputs"
+        ok, err = _step_err(torch, out["batched"], out["loop"], rtol, atol,
+                            nan_sum)
+    if exact is None and err_rows is not None:  # a top-k per client
+        g = torch.func.vmap(grad_one, in_dims=(None, 0))(params, b)[0]
+        e = err_rows + lr_c * (cfg.local_momentum * vel + g)
+        top = torch.topk(torch.abs(e), cfg.k + 1, dim=-1).values
+        gap = float(torch.min(top[:, cfg.k - 1] - top[:, cfg.k]))
+        if gap <= (rtol + atol) * float(torch.max(torch.abs(e))):
+            g0 = torch.stack([grad_one(params, {k: v[i] for k, v in
+                                                b.items()})[0]
+                              for i in range(g.shape[0])])
+            held = "pre-selection gradients"
+            ok, err = _close(torch, g, g0, rtol, atol)
+            del g0
+        del g, e, top
+    if env is not None:  # masked clients' rows carry forward bit for bit
+        off = torch.tensor([m == 0 for m in env.live], device=params.device)
+        for new, old in ((out["batched"][3], vel),
+                         (out["batched"][4], err_rows)):
+            ok &= old is None or bool(torch.equal(new[off], old[off]))
+    loop = out.pop("loop")
+    del out
+    row = dict(held=held, ok=ok, error=err, loop_peak_bytes=peaks["loop"],
+               batched_peak_bytes=peaks["batched"])
+    if timed:
+        ms = {name: cuda_ms(torch, lambda fn=fn: fn(per_client, *args),
+                            samples=3, calls=1) for name, fn in steps}
+        row.update(loop_ms=ms["loop"], batched_ms=ms["batched"],
+                   speedup=ms["loop"] / ms["batched"])
+    return row, loop
+
+
+def batched_clients_phase(torch, cv_train, gpt2_train, dataset_dir):
+    """The batched client step (``batched_client_transmits``, one
+    ``torch.func.vmap`` over the per-client function) against its plain
+    version, the per-client loop (``client_transmits``), on the card, on
+    a session's state after one round and the next round's batch: each
+    of ``batched_cases()`` at ResNet-9's full width, held in f64 compute
+    at BATCHED_TOL and in the main path's mixed compute by the norm hold
+    against the f64 loop, timed in mixed; then GPT-2 BASELINE #4
+    (``GPT2_ARGS``, clip 1.0) in f32 and in its bf16 compute, each by the
+    norm hold against the loop in f64 compute, timed, with each call's
+    peak memory. The f64 runs are on deterministic cuDNN."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.fedsim import RoundEnv
+    from commefficient_tpu_torch.models.gpt2 import gpt2_apply
+    from commefficient_tpu_torch.models.losses import (
+        classification_loss,
+        gpt2_double_heads_loss,
+    )
+    from commefficient_tpu_torch.models.resnet9 import resnet9_apply
+    from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
+    from commefficient_tpu_torch.parallel.api import _to_device, microbatched
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    prev = torch.backends.cudnn.deterministic
+
+    def session_at_round_1(cfg, params, loss_fn, train, **kw):
+        sess = FederatedSession(cfg, params, loss_fn, **kw)
+        sampler = FedSampler(train, num_workers=cfg.num_workers,
+                             local_batch_size=cfg.sampler_batch_size,
+                             seed=cfg.seed)
+        ids, b = sampler.sample_round(0)
+        sess.train_round(ids, microbatched(cfg, b), 0.1)
+        ids, b = sampler.sample_round(1)
+        return sess, torch.as_tensor(ids.astype(np.int64),
+                                     device=sess.device), _to_device(
+            microbatched(cfg, b), sess.device)
+
+    def hold(name, compute, sess, loss_fn, ids, batch, env, timed,
+             exact=None):
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = compute == "float64" or prev
+        eps = torch.finfo(torch.bfloat16 if compute == "mixed"
+                          else getattr(torch, compute)).eps
+        try:
+            r, loop = hold_client_step(torch, sess, loss_fn, ids, batch, env,
+                                       timed, exact, eps)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        phase("batched_clients", case=name, compute=compute, **r)
+        check(r["ok"], f"batched_clients {name} ({compute}): the batched "
+              f"step differs from the loop ({r['held']}: {r['error']})")
+        rows[f"{name}/{compute}"] = r
+        return loop
+
+    rows = {}
+    base = parse_args(MAIN_ARGS + ["--dataset_dir", dataset_dir])
+    train, _, _, params, loss_mixed, _ = cv_train.build_model_and_data(base)
+    loss_f64 = classification_loss(
+        functools.partial(resnet9_apply, dtype=torch.float64),
+        prep=cv_train.normalizer(cv_train.CIFAR10_MEAN,
+                                 cv_train.CIFAR10_STD))
+    for name, (flags, masks) in batched_cases().items():
+        cfg = parse_args(flags + ["--dataset_dir", dataset_dir])
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*dampening=AUTO")
+            sess, ids, batch = session_at_round_1(cfg, params, loss_mixed,
+                                                  train)
+            env = None if masks is None else RoundEnv(
+                np.float32(masks[0]), np.float32(masks[1]),
+                np.float32(sum(masks[0])), {})
+            exact = hold(name, "float64", sess, loss_f64, ids, batch, env,
+                         False)
+            hold(name, "mixed", sess, loss_mixed, ids, batch, env, True,
+                 exact)
+        del sess, batch
+    del train, params
+    # GPT-2 BASELINE #4: clip 1.0, the per-client path
+    cfg = parse_args(GPT2_ARGS + ["--dataset_dir", dataset_dir],
+                     defaults=gpt2_train.DEFAULTS)
+    train, _, _, _, gcfg, params, loss_bf16 = (
+        gpt2_train.build_model_and_data(cfg))
+    def loss_in(dtype):
+        return gpt2_double_heads_loss(
+            functools.partial(gpt2_apply, cfg=dataclasses.replace(
+                gcfg, dtype=dtype)), cfg.lm_coef, cfg.mc_coef,
+            compute_dtype="float32")
+
+    sess, ids, batch = session_at_round_1(cfg, params, loss_bf16, train,
+                                          mask_batch=mask_gpt2)
+    del params
+    from commefficient_tpu_torch.parallel.round import client_transmits
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, per_client, args = client_step(torch, sess,
+                                          loss_in(torch.float64), ids,
+                                          batch, None)
+        exact = client_transmits(per_client, *args)
+        del per_client, args
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    hold("gpt2", "float32", sess, loss_in(torch.float32), ids, batch, None,
+         True, exact)
+    hold("gpt2", "bfloat16", sess, loss_bf16, ids, batch, None, True, exact)
+    del sess, batch
+    torch.cuda.empty_cache()
+    return rows
 
 def main() -> int:
     import torch
@@ -1560,6 +1884,7 @@ def main() -> int:
         dp_phase(torch, cv_train, dataset_dir)
         paths["resume"] = resume_phase(torch, kern, cv_train, dataset_dir,
                                        work)
+    batched_clients_phase(torch, cv_train, gpt2_train, dataset_dir)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

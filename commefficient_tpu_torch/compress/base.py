@@ -126,17 +126,30 @@ class Compressor:
     def init_extra_state(self, device):
         return None
 
-    def client_grad(self, grad_one, params_vec, batch, noise_key,
-                    lr: float):
+    def client_lr(self, lr: float, device):
+        """The lr the client rules take, made once before the clients run
+        (outside the batched step). Default: the round's lr; fedavg: its
+        local lr as an f32 tensor."""
+        return lr
+
+    def client_noise(self, draw, key, batch):
+        """The client's DP noise for ``client_grad``: ``draw(key)``, one
+        ``[D]`` draw. ``batch`` is the client's."""
+        return draw(key)
+
+    def client_grad(self, grad_one, params_vec, batch, noise, lr):
         """Per-client gradient rule: ``-> (g [D], loss, aux)``. Default:
-        one gradient pass; fedavg runs its local SGD steps. ``noise_key``
-        keys the client's DP draw (None without DP)."""
-        return grad_one(params_vec, batch, noise_key)
+        one gradient pass; fedavg runs its local SGD steps. ``noise`` is
+        the client's DP draw (``client_noise``; None without DP), ``lr``
+        ``client_lr``'s. Runs under ``torch.func.vmap`` (the batched
+        clients): no data-dependent shape, no random draw."""
+        return grad_one(params_vec, batch, noise=noise)
 
     def client_transmit(self, u, err_row, lr: float):
         """Per-client transmit rule after local momentum: ``-> (transmit
         [D], new_vel [D], new_err_row)``. Default: the dense update, the
-        client's error row untouched."""
+        client's error row untouched. Runs under ``torch.func.vmap``, as
+        ``client_grad``."""
         return u, u, err_row
 
     def device_encode(self, local_sum: torch.Tensor):

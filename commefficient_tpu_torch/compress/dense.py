@@ -59,29 +59,35 @@ class FedAvgCompressor(_DenseServerMixin, Compressor):
     supports_fused_clients = False  # local SGD is per client by nature
     dense_delta = True
 
-    def client_grad(self, grad_one, params_vec, batches, noise_key,
-                    lr: float):
-        """``num_local_iters`` SGD steps on the client's microbatches
-        (``{k: [L, B, ...]}``), in order; returns the weight delta in
-        gradient scale, the mean loss and the mean aux over the steps. The
-        local lr is an f32 scalar on the params' device (so the division is
-        a true division, as the reference's is); at ``lr == 0`` (the
-        schedule's last round) it is clamped to 1e-12, so the delta is 0,
-        not 0/0."""
+    def client_lr(self, lr: float, device):
+        """The local lr as an f32 scalar on ``device`` (so the delta's
+        division is a true division, as the reference's is); at ``lr ==
+        0`` (the schedule's last round) it is clamped to 1e-12, so the
+        delta is 0, not 0/0."""
         cfg = self.cfg
         llr = torch.tensor(cfg.local_lr if cfg.local_lr is not None else lr,
-                           dtype=torch.float32, device=params_vec.device)
-        if cfg.local_lr is None:
-            llr = torch.clamp(llr, min=1e-12)
+                           dtype=torch.float32, device=device)
+        return torch.clamp(llr, min=1e-12) if cfg.local_lr is None else llr
+
+    def client_noise(self, draw, key, batches):
+        """A draw a local step, keyed ``(*key, step)``: ``[L, D]``."""
+        L = next(iter(batches.values())).shape[0]
+        return torch.stack([draw((*key, it)) for it in range(L)])
+
+    def client_grad(self, grad_one, params_vec, batches, noise, lr):
+        """``num_local_iters`` SGD steps on the client's microbatches
+        (``{k: [L, B, ...]}``), in order, the step's DP draw ``noise[it]``;
+        returns the weight delta in gradient scale, the mean loss and the
+        mean aux over the steps. ``lr`` is ``client_lr``'s tensor."""
         L = next(iter(batches.values())).shape[0]
         p, losses, auxes = params_vec, [], []
         for it in range(L):
             g, loss, aux = grad_one(
                 p, {k: v[it] for k, v in batches.items()},
-                None if noise_key is None else (*noise_key, it))
-            p = p - llr * g
+                noise=None if noise is None else noise[it])
+            p = p - lr * g
             losses.append(loss)
             auxes.append(aux)
-        delta = (params_vec - p) / llr
+        delta = (params_vec - p) / lr
         return delta, torch.stack(losses).mean(), {
             k: torch.stack([a[k] for a in auxes]).mean(0) for k in auxes[0]}

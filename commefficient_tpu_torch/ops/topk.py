@@ -7,6 +7,9 @@ Two selections, as in the reference:
   descending magnitude, lower index first. ``torch.topk`` alone breaks ties
   in no stated order, which would let the two packages select different
   coordinates when magnitudes tie at the k-th place (ROADMAP C hazard 3).
+  ``topk_sparsify`` returns the (values, indices) pairs (the server's
+  sparse outputs); ``topk_dense`` the same set as a mask, whose shapes do
+  not depend on the data.
 * threshold: a bisection on a magnitude threshold that selects AT MOST k
   entries, with no sort and no scatter; its sharded form needs only two
   scalar collectives per step, so a vector split over the worker group is
@@ -36,12 +39,41 @@ def topk_sparsify(v: torch.Tensor, k: int):
     return v[idx], idx
 
 
+SCAN_BLOCK = 4096  # topk_dense's tie ranks: a scan within blocks of this
+
+
+def _inclusive_count(mask: torch.Tensor) -> torch.Tensor:
+    """The running count of ``mask`` along the last dimension (int32), as
+    a scan within blocks of SCAN_BLOCK plus the blocks' offsets: on the
+    card a scan along a few long rows (a ``[w, D]`` batch) runs one block
+    a row, several times slower than w scans of one row; short rows in
+    their thousands do not."""
+    n = mask.shape[-1]
+    blocks = torch.nn.functional.pad(mask.to(torch.int32),
+                                     (0, -n % SCAN_BLOCK))
+    within = torch.cumsum(blocks.unflatten(-1, (-1, SCAN_BLOCK)), dim=-1)
+    totals = within[..., -1]
+    offsets = torch.cumsum(totals, dim=-1) - totals
+    return (within + offsets.unsqueeze(-1)).flatten(-2)[..., :n]
+
+
 def topk_dense(v: torch.Tensor, k: int) -> torch.Tensor:
-    """Dense vector keeping only the top-k entries of v by magnitude."""
-    vals, idx = topk_sparsify(v, k)
-    out = torch.zeros_like(v)
-    out[idx] = vals
-    return out
+    """Dense vector keeping only the top-k entries of v by magnitude (over
+    the last dimension): the set ``topk_sparsify`` selects, as a mask.
+    ``t`` is the k-th largest |v| (NaN if a NaN is among the k, as
+    ``topk_sparsify``'s min; then nothing is kept); every entry above
+    ``t`` is kept, and of the entries equal to ``t`` the first ``k -
+    count(|v| > t)`` by index (a running count of the ties). No shape
+    depends on the data, so it runs under ``torch.func.vmap`` (local_topk's
+    batched clients)."""
+    mag = torch.abs(v)
+    t = torch.topk(mag, k, dim=-1, sorted=False).values.amin(-1, keepdim=True)
+    above = mag > t
+    ties = mag == t
+    room = k - torch.sum(above, dim=-1, keepdim=True)
+    keep = above | (ties & (_inclusive_count(ties) <= room))
+    return torch.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                            device=v.device))
 
 
 def _threshold_select(v: torch.Tensor, k: int, count, hi0: torch.Tensor,

@@ -42,10 +42,15 @@ a round where every client drops changes nothing but the step.
 Worker-side DP (``dp_noise_multiplier``): after the clip, each client's
 gradient gets Gaussian noise from a ``torch.Generator`` seeded by
 ``dp_seed(seed, step, client id)``, so a resumed round draws what the
-unbroken run drew.
+unbroken run drew. The draws are made before the clients run, in client
+order, and go in as an argument.
 
-The reference ``vmap``s the clients and sums the stack; here clients run
-one after another and are summed in client order.
+The clients of a rank run batched, as the reference's ``vmap`` runs them:
+``batched_client_transmits`` is one ``torch.func.vmap`` of the per-client
+function (gradient by ``torch.func.grad``, local momentum, the transmit
+rule, the fedsim masks) over the rank's clients, and the stack of
+transmits is summed. ``client_transmits``, the same clients one after
+another, is its plain version; the round does not call it.
 """
 
 from __future__ import annotations
@@ -145,41 +150,86 @@ def dp_noise(seed: int, key, d: int, device) -> torch.Tensor:
     return torch.randn(d, generator=gen, device=device, dtype=torch.float32)
 
 
-def make_grad_one(cfg, loss_fn: Callable, unravel: Callable):
-    """``(params_vec, batch, noise_key=None) -> (flat grad [D], loss,
-    aux)`` with weight decay, the global-norm clip and worker-side DP
-    noise (``dp_noise`` of ``noise_key`` times ``dp_noise_multiplier *
-    max_grad_norm``), in the reference's order. The loss
-    reads its parameters as views of the flat vector, each view a leaf of
-    the graph, and the leaves' gradients are concatenated in ravel order
-    (the transpose of ``ravel_pytree``): one [D] write. Differentiating
-    the flat vector through its views instead would give every view's
-    backward a zero-filled [D] buffer to add (150 leaves of 498 MB at
-    GPT-2 scale)."""
+def make_grad_one(cfg, loss_fn: Callable, unravel: Callable,
+                  batched: bool = True):
+    """``(params_vec, batch, noise_key=None, noise=None) -> (flat grad
+    [D], loss, aux)`` with weight decay, the global-norm clip and
+    worker-side DP noise (``noise``, a standard normal ``[D]`` draw, or
+    else ``dp_noise`` of ``noise_key``, times ``dp_noise_multiplier *
+    max_grad_norm``), in the reference's order. The loss reads its
+    parameters as views of the flat vector, and ``torch.func.grad``
+    differentiates it with respect to those views, each a leaf; the
+    leaves' gradients are concatenated in ravel order (the transpose of
+    ``ravel_pytree``): one [D] write. Differentiating the flat vector
+    through its views instead would give every view's backward a
+    zero-filled [D] buffer to add (150 leaves of 498 MB at GPT-2 scale).
+    Being a ``torch.func`` transform, it runs under ``torch.func.vmap``
+    (the batched clients), and under ``torch.no_grad`` as well.
+
+    ``batched=False`` differentiates the views as ``requires_grad``
+    leaves with ``torch.autograd.grad`` instead: the fused
+    flattened-batch gradient, one gradient under no transform. It must
+    give the sketch-fused backward's cotangents bit for bit, and
+    ``torch.func.grad`` cannot: it always records the backward's own
+    graph, which switches group norm's backward from the fused kernel
+    to a composite."""
 
     sigma = (cfg.dp_noise_multiplier * cfg.max_grad_norm
              if cfg.dp_noise_multiplier > 0 else 0.0)
 
-    def grad_one(params_vec, batch, noise_key=None):
-        tree = unravel(params_vec.detach())
-        leaves = [t.requires_grad_(True) for _, t in tree_leaves(tree)]
+    def loss_of_leaves(leaves, tree, batch):
+        loss, aux = loss_fn(tree_with_leaves(tree, leaves), batch)
+        return loss, (loss, aux)
+
+    grad_leaves = torch.func.grad(loss_of_leaves, has_aux=True)
+
+    def leaf_grads(tree, batch):
+        """(each leaf's gradient in ravel order, loss, aux)."""
+        leaves = [t for _, t in tree_leaves(tree)]
+        if batched:
+            grads, (loss, aux) = grad_leaves(leaves, tree, batch)
+            return grads, loss, aux
+        leaves = [t.requires_grad_(True) for t in leaves]
         with torch.enable_grad():
             loss, aux = loss_fn(tree, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = torch.cat([(torch.zeros_like(t) if gi is None else gi).reshape(-1)
-                       for t, gi in zip(leaves, grads)]).to(torch.float32)
+        return ([torch.zeros_like(t) if gi is None else gi
+                 for t, gi in zip(leaves, grads)], loss.detach(),
+                {k: v.detach() for k, v in aux.items()})
+
+    def grad_one(params_vec, batch, noise_key=None, noise=None):
+        grads, loss, aux = leaf_grads(unravel(params_vec.detach()), batch)
+        g = torch.cat([gi.reshape(-1) for gi in grads]).to(torch.float32)
         if cfg.weight_decay:
             g = g + cfg.weight_decay * params_vec
         g = clip_by_global_norm(g, cfg.max_grad_norm)
         if sigma:
-            if noise_key is None:
-                raise ValueError("DP noise needs the draw's key (step, "
-                                 "client id)")
-            g = g + sigma * dp_noise(cfg.seed, noise_key, g.numel(),
-                                     g.device)
-        return g, loss.detach(), {k: v.detach() for k, v in aux.items()}
+            if noise is None:
+                if noise_key is None:
+                    raise ValueError("DP noise needs the draw's key (step, "
+                                     "client id)")
+                noise = dp_noise(cfg.seed, noise_key, g.shape[-1], g.device)
+            g = g + sigma * noise
+        return g, loss, aux
 
     return grad_one
+
+
+def client_noise(cfg, comp, keys, batch, d: int, device):
+    """The DP draws of a rank's clients, made before they run and stacked
+    in client order: ``[w, D]`` (fedavg: ``[w, L, D]``, a draw a local
+    step), each ``dp_noise`` of the client's key (``keys``, ``[w]`` of
+    ``(step, client id)``) as ``make_grad_one`` draws it from the key.
+    ``None`` without keys (no DP)."""
+    if keys is None:
+        return None
+
+    def draw(key):
+        return dp_noise(cfg.seed, key, d, device)
+
+    return torch.stack([
+        comp.client_noise(draw, key, {k: v[i] for k, v in batch.items()})
+        for i, key in enumerate(keys)])
 
 
 def leaf_offsets(unravel: Callable, d: int):
@@ -237,10 +287,12 @@ def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
 
 
 def make_per_client(cfg, comp, grad_one):
-    """``per_client(params_vec, batch, vel_row, err_row, lr, noise_key=None,
+    """``per_client(params_vec, batch, vel_row, err_row, lr, noise=None,
     live=None, corrupt=None) -> (transmit, new_vel, new_err, loss, aux)``:
     the compressor's gradient rule, local momentum, then its transmit rule.
-    Rows are ``None`` where the bank is absent. ``live``/``corrupt``
+    Rows are ``None`` where the bank is absent (and so are the new rows).
+    ``lr`` is ``comp.client_lr``'s (fedavg: the local lr tensor), ``noise``
+    the client's DP draw (``client_noise``'s row). ``live``/``corrupt``
     (0-d f32 tensors, fedsim): corruption first, then the live mask, both
     by ``torch.where`` (a zero mask blocks even a corrupted NaN, where a
     product would let it through); the loss and aux are multiplied by the
@@ -248,12 +300,14 @@ def make_per_client(cfg, comp, grad_one):
     unchanged (the reference's order)."""
     lm = cfg.local_momentum
 
-    def per_client(params_vec, batch, vel, err, lr: float, noise_key=None,
-                   live=None, corrupt=None):
-        g, loss, aux = comp.client_grad(grad_one, params_vec, batch,
-                                        noise_key, lr)
+    def per_client(params_vec, batch, vel, err, lr, noise=None, live=None,
+                   corrupt=None):
+        g, loss, aux = comp.client_grad(grad_one, params_vec, batch, noise,
+                                        lr)
         u = lm * vel + g if lm > 0 else g
         transmit, new_vel, new_err = comp.client_transmit(u, err, lr)
+        if vel is None:
+            new_vel = None
         if live is not None:
             on = live > 0
             transmit = torch.where(corrupt > 0, float("nan"), transmit)
@@ -283,14 +337,13 @@ def fused_grad_sum(grad_one, params_vec, batch: Dict[str, torch.Tensor]):
     return w * g, w * loss, aux
 
 
-def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
-                     lr: float, noise_keys=None, live=None, corrupt=None):
-    """The per-client loop: ``(transmit sum [D], loss sum, aux sums,
-    new_vel_rows [w, D] | None, new_err_rows [w, D] | None)`` over the
-    clients of ``batch`` ({k: [w, ...]}), in client order; a rows argument
-    is ``None`` where its bank is absent. ``noise_keys`` ([w] DP keys),
-    ``live`` and ``corrupt`` ([w] f32 masks, fedsim) go to each client
-    where given."""
+def client_transmits(per_client, params_vec, batch, vel_rows, err_rows, lr,
+                     noise=None, live=None, corrupt=None):
+    """The per-client loop, the plain version of
+    ``batched_client_transmits`` (same arguments, same outputs): the
+    clients one after another, summed in client order. Tests and
+    ``chip_smoke.py`` hold the batched step against it; the round does
+    not call it."""
     w = next(iter(batch.values())).shape[0]
     t_sum = loss_sum = aux_sum = None
     vels, errs = [], []
@@ -299,7 +352,7 @@ def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
             params_vec, {k: v[i] for k, v in batch.items()},
             None if vel_rows is None else vel_rows[i],
             None if err_rows is None else err_rows[i], lr,
-            None if noise_keys is None else noise_keys[i],
+            None if noise is None else noise[i],
             None if live is None else live[i],
             None if corrupt is None else corrupt[i])
         t_sum, loss_sum = _add(t_sum, t), _add(loss_sum, loss)
@@ -312,6 +365,64 @@ def client_transmits(per_client, params_vec, batch, vel_rows, err_rows,
     return (t_sum, loss_sum, aux_sum,
             None if vel_rows is None else torch.stack(vels),
             None if err_rows is None else torch.stack(errs))
+
+
+def batched_client_transmits(per_client, params_vec, batch, vel_rows,
+                             err_rows, lr, noise=None, live=None,
+                             corrupt=None):
+    """The clients of ``batch`` ({k: [w, ...]}) as one batched step, the
+    reference's ``vmap``: ``(transmit sum [D], loss sum, aux sums,
+    new_vel_rows [w, D] | None, new_err_rows [w, D] | None)``, the
+    stacks summed over the clients. A rows argument is ``None`` where its
+    bank is absent; ``lr`` is ``comp.client_lr``'s; ``noise``
+    (``client_noise``'s ``[w, ...]`` draws), ``live`` and ``corrupt``
+    (``[w]`` f32 masks, fedsim) go to each client where given.
+    ``torch.func.vmap`` maps ``per_client`` over axis 0 of every per-client
+    argument; an op it cannot batch raises (there is no fallback to the
+    loop), and so does any random draw inside (the DP draws come in as
+    ``noise``)."""
+
+    def dim(x):
+        return None if x is None else 0
+
+    step = torch.func.vmap(
+        per_client,
+        in_dims=(None, 0, dim(vel_rows), dim(err_rows), None, dim(noise),
+                 dim(live), dim(corrupt)),
+        out_dims=(0, dim(vel_rows), dim(err_rows), 0, 0))
+    t, new_vel, new_err, loss, aux = step(params_vec, batch, vel_rows,
+                                          err_rows, lr, noise, live, corrupt)
+    return (torch.sum(t, 0), torch.sum(loss, 0),
+            {k: torch.sum(v, 0) for k, v in aux.items()}, new_vel, new_err)
+
+
+def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
+                  env=None, lo: int = 0):
+    """The client step's arguments after ``per_client``, for this rank's
+    clients ``[lo, lo + w)`` of ``batch`` ({k: [w, ...]}): ``(params_vec,
+    batch, vel_rows, err_rows, lr, noise, live, corrupt)``. The bank rows
+    are read at ``client_ids`` (the cohort's ``[W]`` ids); the DP draws
+    are keyed ``(step, client id)`` (by slot when no ids are given) and
+    made here (``client_noise``); ``live``/``corrupt`` are the rank's
+    slice of ``env``'s masks (fedsim); ``lr`` is ``comp.client_lr``'s.
+    Absent parts are ``None``."""
+    dev = state.params_vec.device
+    w = next(iter(batch.values())).shape[0]
+    banks = (state.client_vel, state.client_err)
+    mine = (client_ids[lo:lo + w] if any(b is not None for b in banks)
+            else None)
+    rows = [None if b is None else b[mine] for b in banks]
+    keys = None
+    if cfg.dp_noise_multiplier > 0:
+        ids = (range(cfg.num_workers) if client_ids is None
+               else client_ids.tolist())
+        keys = [(state.step, int(ids[lo + i])) for i in range(w)]
+    masks = (None, None)
+    if env is not None:
+        masks = [torch.from_numpy(np.asarray(m, np.float32)[lo:lo + w]).to(
+            dev) for m in (env.live, env.corrupt)]
+    return (state.params_vec, batch, *rows, comp.client_lr(lr, dev),
+            client_noise(cfg, comp, keys, batch, comp.d, dev), *masks)
 
 
 def aggregate(cfg, group, encoded, loss_sum, aux):
@@ -401,8 +512,9 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     aggregate, 2: the server, 3: the apply and the banks' write-back) and
     at the end (4)."""
     comp.resolved_dampening()  # the mode's warnings, once, at build time
-    grad_one = make_grad_one(cfg, loss_fn, unravel)
-    per_client = make_per_client(cfg, comp, grad_one)
+    per_client = make_per_client(cfg, comp,
+                                 make_grad_one(cfg, loss_fn, unravel))
+    grad_flat = make_grad_one(cfg, loss_fn, unravel, batched=False)
     plan = resolve_aggregation(cfg, comp, group.size)
     fused = fused_clients(cfg, comp)
     sketch_fused = bool(cfg.sketch_fused_bwd)
@@ -414,7 +526,6 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     grad_table_one = (make_sketch_grad_one(cfg, loss_fn, unravel, comp.spec,
                                            comp.d) if sketch_fused else None)
     fedsim = bool(cfg.fedsim_enabled)
-    dp = cfg.dp_noise_multiplier > 0
     W = cfg.num_workers
     w_loc = W // group.size
     lo = group.rank * w_loc
@@ -436,7 +547,6 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
                 f"mode={cfg.mode!r} keeps per-client state (local_momentum"
                 f"={cfg.local_momentum}, error_type={cfg.error_type!r}): "
                 "train_round needs the cohort's client_ids")
-        dev = state.params_vec.device
         if sketch_fused:
             w = next(iter(batch.values())).shape[0]
             flat = {k: v.reshape((-1,) + v.shape[2:])
@@ -444,24 +554,13 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             table, loss, aux = grad_table_one(state.params_vec, flat)
             encoded, loss_sum = comp.encode_grad_table(w * table), w * loss
         elif fused:
-            local, loss_sum, aux = fused_grad_sum(grad_one, state.params_vec,
+            local, loss_sum, aux = fused_grad_sum(grad_flat, state.params_vec,
                                                   batch)
         else:
-            mine = client_ids[lo:lo + w_loc] if stateful else None
-            rows = [None if b is None else b[mine] for b in banks]
-            keys = masks = None
-            if dp:  # keyed by client id (by slot when no ids are given)
-                ids = (range(W) if client_ids is None
-                       else client_ids.tolist())
-                keys = [(state.step, int(ids[lo + i]))
-                        for i in range(w_loc)]
-            if fedsim:
-                masks = [torch.from_numpy(np.asarray(
-                    m, np.float32)[lo:lo + w_loc]).to(dev)
-                    for m in (env.live, env.corrupt)]
-            local, loss_sum, aux, new_vel, new_err = client_transmits(
-                per_client, state.params_vec, batch, *rows, lr, keys,
-                *(masks or (None, None)))
+            local, loss_sum, aux, new_vel, new_err = batched_client_transmits(
+                per_client, *client_inputs(cfg, comp, state, client_ids,
+                                           batch, lr, env if fedsim else None,
+                                           lo))
         mark(1)
         if not sketch_fused:
             encoded = comp.device_encode(local)

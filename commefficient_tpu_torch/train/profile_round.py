@@ -38,9 +38,11 @@ count) on the state after the timed rounds:
   ``gram_schmidt`` and ``rest`` (the algebra, the padding and the rank-r
   reconstruction);
 * local_topk, inside the grads phase: ``client_transmit`` (the W clients'
-  error feedback, top-k and masking) and the rest of the phase;
+  error feedback, top-k and masking, batched as the round runs them) and
+  the rest of the phase;
 * fedavg, inside the grads phase: ``local_steps`` (the W clients' local
-  SGD steps and their deltas) and the rest of the phase.
+  SGD steps and their deltas, batched) and the rest of the phase;
+  each beside the same work client by client (``..._loop``).
 
 The server steps use the aggregate of one more batch (its clients'
 gradients as one flattened batch; only its kind and size matter here).
@@ -78,6 +80,7 @@ from commefficient_tpu_torch.parallel.api import _to_device, microbatched
 from commefficient_tpu_torch.parallel.round import (
     aggregate,
     apply_update,
+    client_inputs,
     fused_grad_sum,
     make_grad_one,
 )
@@ -223,31 +226,43 @@ def _powersgd_breakdown(session, agg, lr):
 
 def _client_breakdown(session, grad_one, batch, ids, lr, grads_ms):
     """The grads phase of the modes with their own per-client work, on
-    this rank's clients: local_topk's ``client_transmit`` (its error
-    feedback, top-k and momentum masking, on each client's gradient and
-    bank rows), fedavg's ``local_steps`` (each client's local SGD steps
-    and delta), each summed over the clients, and the rest of the
-    measured phase."""
+    this rank's clients, batched as the round runs it: local_topk's
+    ``client_transmit`` (its error feedback, top-k and momentum masking)
+    vmapped over the stacked gradients and bank rows, fedavg's
+    ``local_steps`` (``client_grad``: each client's local SGD steps and
+    delta) vmapped over the clients' microbatches; beside each, the same
+    work client by client (``..._loop``, the plain loop's sum over the
+    clients), and the rest of the measured phase."""
     cfg, comp, st = session.cfg, session.compressor, session.state
     w_loc = next(iter(batch.values())).shape[0]
-    lo = session.group.rank * w_loc
+    params, batch, vel, err, lr_c, noise, _, _ = client_inputs(
+        cfg, comp, st, ids, batch, lr, lo=session.group.rank * w_loc)
     clients = [{k: v[i] for k, v in batch.items()} for i in range(w_loc)]
     if cfg.mode == "fedavg":
         name = "local_steps"
-        ms = sum(_event_ms(lambda b=b: comp.client_grad(
-            grad_one, st.params_vec, b, None, lr)) for b in clients)
+        step = torch.func.vmap(
+            lambda b, n: comp.client_grad(grad_one, params, b, n, lr_c),
+            in_dims=(0, None if noise is None else 0))
+        ms = _event_ms(lambda: step(batch, noise))
+        loop_ms = sum(_event_ms(lambda i=i: comp.client_grad(
+            grad_one, params, clients[i],
+            None if noise is None else noise[i], lr_c))
+            for i in range(w_loc))
     else:
         name = "client_transmit"
-        ms = 0.0
-        for i, b in enumerate(clients):
-            g = grad_one(st.params_vec, b)[0]
-            cid = ids[lo + i]
-            vel = None if st.client_vel is None else st.client_vel[cid]
-            err = None if st.client_err is None else st.client_err[cid]
-            u = cfg.local_momentum * vel + g if vel is not None else g
-            ms += _event_ms(lambda u=u, err=err: comp.client_transmit(
-                u, err, lr))
-    return {name: ms, "rest_of_grads": grads_ms - ms}
+        g = torch.func.vmap(grad_one, in_dims=(None, 0, None, 0 if noise
+                                                is not None else None))(
+            params, batch, None, noise)[0]
+        u = cfg.local_momentum * vel + g if vel is not None else g
+        e_dim = None if err is None else 0
+        step = torch.func.vmap(
+            lambda u, e: comp.client_transmit(u, e, lr_c),
+            in_dims=(0, e_dim), out_dims=(0, 0, e_dim))
+        ms = _event_ms(lambda: step(u, err))
+        loop_ms = sum(_event_ms(lambda i=i: comp.client_transmit(
+            u[i], None if err is None else err[i], lr_c))
+            for i in range(w_loc))
+    return {name: ms, f"{name}_loop": loop_ms, "rest_of_grads": grads_ms - ms}
 
 
 SERVER_BREAKDOWNS = {"true_topk": _true_topk_breakdown,
@@ -259,7 +274,8 @@ def _kind(name: str) -> str:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(add_help=False)
+    # no abbreviations: "--mode" would be taken for "--model"
+    ap = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--model", default="resnet9")
     ns, rest = ap.parse_known_args(argv)
