@@ -130,7 +130,30 @@ phase prints one line (or a few) and raises on failure, so the script exits
     test's tolerance (rtol 1e-5, atol 1e-6 of max) and in mixed compute
     by the norm hold against the f64 loop, and timed; GPT-2 BASELINE #4
     (clip 1.0) in f32 and in bf16 by the norm hold against the loop in
-    f64, timed, with each call's peak memory.
+    f64, timed, with each call's peak memory;
+18. ``device_data``: the main path runs on the device-resident training
+    set (the default: CIFAR-10's 154 MB is under the 512 MB gate; the
+    main path checks ``data=device``); here DATA_ROUNDS
+    rounds of it against ``--device_data false`` on deterministic cuDNN,
+    losses and every FedState leaf bit-equal, with each path's round ms,
+    the sampler's host ms and the peak memory; ``rrc``: ImageNet's
+    random-resized-crop on the card against numpy on one plan (1 uint8
+    LSB, 1e-5 of max for float32);
+19. BASELINE #3 (``femnist_local_topk``): ResNet-9 on the FEMNIST
+    stand-in, local_topk with local error and momentum, 100 clients, D =
+    6,598,654, 400,000 B up and 26,394,616 B down, ``data=device``;
+    BASELINE #5 (``imagenet_fixup_fedavg``): FixupResNet-50 on the 64 px
+    ImageNet stand-in, fedavg with two local steps, D = 25,504,026 and
+    102,016,104 B each way, on the host path (the 983 MB stand-in is over
+    the gate) and on the device path (``--device_data_max_mb 1024``), each
+    with round ms, the sampler's host ms, peak memory and the busy share
+    (device ms of a profiled round over the unprofiled round wall, the
+    draw included);
+    ``imagenet_fixup_sketch``: FixupResNet-50 with the FetchSGD flags at
+    c = 1,071,171 (the envelope's suggestion; no warning), K1 twice and
+    K2 once a round; ``cifar100``: the main path's flags on ResNet-9 with
+    100 classes; and K1 and K2 at FixupResNet-50's geometry, held against
+    their plain versions and timed (``geometries.fixup_resnet50``).
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
 kernel and every bf16 form (``launches`` summed over every path,
@@ -675,7 +698,7 @@ def main_path_phase(kern, cv_train, dataset_dir):
     launches = kern.launch_counts()
     hist = out["history"]
     losses = [h["loss"] for h in hist]
-    phase("main_path", D=out["grad_size"],
+    phase("main_path", D=out["grad_size"], data=out["data_path"],
           upload_bytes_per_client=out["bytes_per_round"]["upload_bytes"],
           download_bytes_per_client=out["bytes_per_round"]["download_bytes"],
           rounds=len(hist), round_ms=[round(h["ms"], 3) for h in hist],
@@ -683,6 +706,8 @@ def main_path_phase(kern, cv_train, dataset_dir):
           val_acc=out.get("accuracy"), param_delta_norm=out[
               "param_delta_norm"], launches=launches)
     check(out["grad_size"] == GEOMETRY["d"], "main path: unexpected D")
+    check(out["data_path"] == "device", f"main path: data="
+          f"{out['data_path']}, expected the device-resident training set")
     check(len(hist) == MAIN_ROUNDS, "main path: wrong number of rounds")
     check(all(math.isfinite(x) for x in losses), "main path: loss not finite")
     check(math.isfinite(out["loss"]), "main path: eval loss not finite")
@@ -1491,6 +1516,361 @@ def resume_phase(torch, kern, cv_train, dataset_dir, work):
     return forms
 
 
+# -- the other datasets, FixupResNet-50, the device-resident training set ----
+
+# FixupResNet-50's FetchSGD geometry: c at the d/c warning's own suggestion
+# for D = 25,504,026 at error_decay 1 (parallel/api.py::envelope_warning)
+F50_COLS = 1_071_171
+F50_GEOMETRY = dict(d=25_504_026, c=F50_COLS, r=5, band=16, seed=42)
+F50_CACTUAL = 1_080_848
+DATA_ROUNDS = 5
+# BASELINE #3: ResNet-9 on FEMNIST (1 channel, 62 classes), local_topk
+FEMNIST_FLAGS = ["--dataset_name", "femnist"] + MODE_PATHS["local_topk"][0]
+FEMNIST_D = 6_598_654
+# BASELINE #5: FixupResNet-50 on ImageNet's 64 px stand-in, 8 clients of 32
+# images a local step
+IMAGENET_FLAGS = ["--dataset_name", "imagenet", "--model", "fixup_resnet50",
+                  "--local_batch_size", "32"]
+FEDAVG_FLAGS = ["--mode", "fedavg", "--error_type", "none",
+                "--num_local_iters", "2"]
+F50_SKETCH_FLAGS = ["--num_cols", str(F50_COLS)]
+F50_D = F50_GEOMETRY["d"]
+FIXUP_ROUNDS = 3
+CIFAR100_ROUNDS = 2
+CIFAR100_D = 6_619_300
+
+
+def f50_kernels_phase(torch, cs, kern, dev):
+    """K1 and K2 at FixupResNet-50's geometry: the planner's choices
+    (chunk m, riffle factors, realized c, K2's instantiation) printed; K1
+    within its f32 tolerance of the plain version and two launches
+    bit-identical, K2 exactly the plain version and K4's range form; each
+    timed beside its plain version, its bound and, for K1, one
+    ``index_add_``. Returns ``{entry: {"fixup_resnet50": numbers}}``."""
+    spec = cs.CountSketch(**F50_GEOMETRY)
+    r, c, d, d_eff = spec.r, spec.c_actual, spec.d, spec.d_eff
+    plan = kern._k2_plan(spec, str(dev))
+    inst = (f"<{r},{len(plan['staged'])},"
+            f"{str(bool(plan['slot_smem'])).lower()}>")
+    phase("f50_geometry", d=d, c=F50_COLS, c_actual=c, chunk_m=spec.chunk_m,
+          riffle_factors=[spec._factor(row) for row in range(r)],
+          V=[spec.V_row(row) for row in range(r)], k2_instantiation=inst,
+          k2_staged_rows=list(plan["staged"]),
+          k2_dynamic_smem_bytes=plan["smem_bytes"])
+    check(c == F50_CACTUAL, f"F50: c_actual {c}, expected {F50_CACTUAL}")
+    light = dict(samples=7, calls=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v_s = cs._scramble(spec, torch.randn(d, generator=gen, device=dev))
+    rows, ptr, off, tile = kern._kernel_geometry(spec, str(dev))[:4]
+    t_k = kern.sketch_rows(spec, v_s)
+    t_p = kern.sketch_rows_torch(spec, v_s)
+    torch.cuda.synchronize()
+    err1 = float((t_k - t_p).abs().max())
+    tol1 = 1e-5 * max(1.0, float(t_p.abs().max()))
+    check(err1 <= tol1, f"K1 at F50: max err {err1} > {tol1}")
+    check(torch.equal(t_k, kern.sketch_rows(spec, v_s)),
+          "K1 at F50: two launches differ")
+    del t_p
+    e_k = kern.estimate_median(spec, t_k)
+    check(torch.equal(e_k, kern.estimate_median_torch(spec, t_k)),
+          "K2 at F50: differs from the plain version")
+    check(torch.equal(e_k, kern.estimate_at_range(spec, t_k, 0, d)),
+          "K2 at F50: differs from K4's range form")
+    del e_k
+    maps = kern._plain_maps(spec, str(dev))
+    flat_cols = torch.cat([row * c + cols for row, (cols, _)
+                           in enumerate(maps)])
+    flat_src = torch.cat([v_s * sign for _, sign in maps])
+    flat_table = torch.zeros(r * c, device=dev)
+    lib1 = cuda_ms(torch, lambda: flat_table.index_add_(0, flat_cols,
+                                                        flat_src))
+    del flat_cols, flat_src, flat_table
+    csr = 4 * (ptr.numel() + off.numel())
+    b1, by1 = bound(4 * d_eff + 4 * r * c + csr, r * d_eff)
+    b2, by2 = bound(4 * r * c + 4 * plan["perm"].numel() + 4 * d,
+                    r * d + r * (r - 1) * d)
+    out = {
+        "cs_sketch_rows": dict(
+            max_abs_err=err1,
+            ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
+            plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
+                spec, v_s), **light),
+            bound_ms=b1, bound_by=by1, library_ms=lib1, tile_strides=tile),
+        "cs_estimate_median": dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t_k)),
+            plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
+                spec, t_k), **light),
+            bound_ms=b2, bound_by=by2, library_ms=None, instantiation=inst,
+            dynamic_smem_bytes=plan["smem_bytes"])}
+    for name, row in out.items():
+        phase("timing", kernel=name, geometry="fixup_resnet50", **row)
+    del v_s, t_k, maps
+    kern._plain_maps.cache_clear()
+    torch.cuda.empty_cache()
+    return {name: {"fixup_resnet50": row} for name, row in out.items()}
+
+
+def rrc_phase(torch, dev):
+    """``ImageNetAugment.device_apply`` on the card against its numpy
+    ``apply`` on one plan, at a BASELINE #5 round's shape (512 images of
+    64x64x3): within 1 LSB for uint8 input, within 1e-5 of max|x| for
+    float32 input (the stand-in's type). The lerp ``a + (b - a) * t`` is
+    f32 on both; the card may contract it into a fused multiply-add."""
+    import numpy as np
+
+    from commefficient_tpu_torch.data import ImageNetAugment
+
+    aug = ImageNetAugment()
+    rng = np.random.default_rng(0)
+    res = {}
+    for dtype in ("uint8", "float32"):
+        if dtype == "uint8":
+            x = rng.integers(0, 256, (512, 64, 64, 3)).astype(np.uint8)
+        else:
+            x = rng.normal(0, 0.5, (512, 64, 64, 3)).astype(np.float32)
+        p = aug.plan(rng, len(x), 64, 64)
+        want = aug.apply(x, p).astype(np.float64)
+        xd = torch.from_numpy(x).to(dev)
+        pd = [torch.from_numpy(np.asarray(a)).to(dev) for a in p]
+        got = aug.device_apply(xd, *pd).cpu().numpy().astype(np.float64)
+        err = float(np.abs(got - want).max())
+        tol = 1.0 if dtype == "uint8" else 1e-5 * float(np.abs(x).max())
+        res[dtype] = dict(max_abs_err=err, tol=tol,
+                          bit_equal=bool(err == 0.0),
+                          ms=cuda_ms(torch, lambda: aug.device_apply(xd, *pd),
+                                     samples=7, calls=3))
+        check(err <= tol, f"rrc {dtype}: max err {err} > {tol}")
+    phase("rrc", **{f"{k}_{f}": v for k, r in res.items()
+                    for f, v in r.items()})
+
+
+def _peak_run(torch, fn):
+    """(fn's result, peak ``max_memory_allocated`` during it, bytes
+    allocated before it)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    return out, torch.cuda.max_memory_allocated(), before
+
+
+def device_data_phase(torch, kern, cv_train, dataset_dir, work):
+    """The ResNet-9 main path, on the device-resident training set (the
+    default) and with ``--device_data false``, DATA_ROUNDS rounds each on
+    deterministic cuDNN: the losses and every FedState leaf of the
+    end-of-training checkpoints bit-equal (the gather and the CIFAR augment
+    are index and select ops, so the inputs are bit-equal). Prints each
+    path's round ms, the sampler's host ms before each round, and the peak
+    ``max_memory_allocated``."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res, states = {}, {}
+    try:
+        kern.reset_launch_counts()
+        for name, extra in (("device", []),
+                            ("host", ["--device_data", "false"])):
+            ck = os.path.join(work, f"data_{name}")
+            out, peak, before = _peak_run(torch, lambda: cv_train.main(
+                MAIN_ARGS + extra + ["--max_rounds", str(DATA_ROUNDS),
+                                     "--dataset_dir", dataset_dir,
+                                     "--checkpoint_dir", ck]))
+            hist = out["history"]
+            res[name] = dict(
+                data=out["data_path"], losses=[h["loss"] for h in hist],
+                round_ms=[round(h["ms"], 3) for h in hist],
+                data_ms=[round(h["data_ms"], 3) for h in hist],
+                median_round_ms_after_first=statistics.median(
+                    h["ms"] for h in hist[1:]),
+                median_data_ms_after_first=statistics.median(
+                    h["data_ms"] for h in hist[1:]),
+                max_memory_allocated=peak, allocated_before=before)
+            states[name] = load_state(os.path.join(ck,
+                                                   f"step_{DATA_ROUNDS}.pt"))
+            check(out["data_path"] == name,
+                  f"device_data: data={out['data_path']}, expected {name}")
+        forms = kern.form_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    sa, sb = states["device"], states["host"]
+    same = {k: (sa[k] is None and sb[k] is None) or bool(
+        torch.is_tensor(sa[k]) and torch.equal(sa[k], sb[k]))
+        or sa[k] == sb[k] for k in sa}
+    phase("device_data", **{f"{k}_{f}": v for k, r in res.items()
+                            for f, v in r.items()},
+          leaves_bit_equal=json.dumps(same))
+    check(res["device"]["losses"] == res["host"]["losses"],
+          "device_data: losses differ between the data paths")
+    check(all(same.values()), f"device_data: leaves differ: {same}")
+    return forms
+
+
+def femnist_phase(kern, cv_train, dataset_dir):
+    """BASELINE #3 through ``cv_train.main``: ResNet-9 on the FEMNIST
+    stand-in (100 clients, ~37 MB, so on the device), local_topk with local
+    error feedback and local momentum, 8 clients of 64, DATA_ROUNDS
+    rounds: D, the bytes a client and round, ``data=device``, finite
+    losses, moved params and no CountSketch kernel."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*dampening=AUTO")
+        out = cv_train.main(MAIN_ARGS + FEMNIST_FLAGS + [
+            "--max_rounds", str(DATA_ROUNDS), "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    bpr = out["bytes_per_round"]
+    phase("femnist_local_topk", D=out["grad_size"], data=out["data_path"],
+          rounds=len(hist), round_ms=[round(h["ms"], 3) for h in hist],
+          data_ms=[round(h["data_ms"], 3) for h in hist],
+          losses=[h["loss"] for h in hist], val_loss=out["loss"],
+          val_acc=out.get("accuracy"),
+          param_delta_norm=out["param_delta_norm"], bytes_per_round=bpr,
+          launches=launches)
+    check(out["grad_size"] == FEMNIST_D, "femnist: D")
+    check(out["data_path"] == "device", "femnist: expected data=device")
+    check(bpr["upload_bytes"] == 400_000
+          and bpr["download_bytes"] == 4 * FEMNIST_D, f"femnist: {bpr}")
+    check(len(hist) == DATA_ROUNDS, "femnist: rounds")
+    check(all(math.isfinite(h["loss"]) for h in hist)
+          and math.isfinite(out["loss"]), "femnist: loss not finite")
+    check(out["param_delta_norm"] > 0, "femnist: params did not move")
+    check(not any(launches.values()), f"femnist: launches {launches}")
+
+
+def busy_shares(torch, cv_train, args):
+    """The device's busy share of a round on each data path for the
+    cv_train flags ``args`` (``profile_round.round_busy_share``: rounds
+    through the session's own entry, the sampler's draw included; the
+    device kernel time of one profiled round over the median wall of
+    three unprofiled ones), the model, data and sampler built as
+    ``cv_train`` builds them, one load for both paths. ``{path: numbers}``."""
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.train.profile_round import round_busy_share
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    out = {}
+    for name, extra in (("host", ["--device_data", "false"]),
+                        ("device", ["--device_data_max_mb", "1024"])):
+        cfg = parse_args(args + extra)
+        if name == "host":
+            train, _, _, params, loss_fn, augment = (
+                cv_train.build_model_and_data(cfg))
+        session = FederatedSession(cfg, params, loss_fn)
+        sampler = FedSampler(train, num_workers=cfg.num_workers,
+                             local_batch_size=cfg.sampler_batch_size,
+                             seed=cfg.seed, augment=augment)
+        session.maybe_attach_data(train, sampler, augment)
+        check(session.data_path == name, f"busy share: data path "
+              f"{session.data_path}, expected {name}")
+        busy = round_busy_share(session, sampler, 0, 0.1)
+        busy.pop("device_ms_by_name")
+        out[name] = busy
+        del session
+    del train, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def imagenet_fedavg_phase(torch, cv_train, dataset_dir):
+    """BASELINE #5 through ``cv_train.main``: FixupResNet-50, 1000 classes,
+    the 64 px stand-in (983 MB of float32), fedavg with two local steps,
+    8 clients of 32 images a step, FIXUP_ROUNDS rounds, twice: at the
+    default ``device_data_max_mb`` (the stand-in is over the 512 MB gate:
+    the host path, numpy RRC) and at 1024 (the device path, RRC on the
+    card). D and the bytes each way; each run's round ms, sampler ms and
+    peak memory; then each path's busy share (``busy_shares``)."""
+    args = MAIN_ARGS + IMAGENET_FLAGS + FEDAVG_FLAGS
+    res = {}
+    for name, extra in (("host", []),
+                        ("device", ["--device_data_max_mb", "1024"])):
+        out, peak, before = _peak_run(torch, lambda: cv_train.main(
+            args + extra + ["--max_rounds", str(FIXUP_ROUNDS),
+                            "--dataset_dir", dataset_dir]))
+        hist = out["history"]
+        bpr = out["bytes_per_round"]
+        res[name] = dict(data=out["data_path"],
+                         losses=[h["loss"] for h in hist],
+                         round_ms=[round(h["ms"], 3) for h in hist],
+                         data_ms=[round(h["data_ms"], 3) for h in hist],
+                         max_memory_allocated=peak, allocated_before=before)
+        check(out["data_path"] == name, f"imagenet fedavg: data="
+              f"{out['data_path']}, expected {name}")
+        check(out["grad_size"] == F50_D, "imagenet fedavg: D")
+        check(bpr["upload_bytes"] == bpr["download_bytes"] == 4 * F50_D,
+              f"imagenet fedavg: bytes {bpr}")
+        check(len(hist) == FIXUP_ROUNDS, "imagenet fedavg: rounds")
+        check(all(math.isfinite(h["loss"]) for h in hist)
+              and math.isfinite(out["loss"]), "imagenet fedavg: loss")
+        check(out["param_delta_norm"] > 0, "imagenet fedavg: params")
+    for name, busy in busy_shares(torch, cv_train, args).items():
+        res[name].update(busy)
+    phase("imagenet_fixup_fedavg", D=F50_D, bytes_each_way=4 * F50_D,
+          **{f"{k}_{f}": v for k, r in res.items() for f, v in r.items()})
+
+
+def imagenet_sketch_phase(torch, kern, cv_train, dataset_dir):
+    """FixupResNet-50 with the FetchSGD flags at ``--num_cols`` F50_COLS,
+    FIXUP_ROUNDS rounds: no envelope warning, an upload of 5 c_actual
+    floats, K1 twice and K2 once a round and no other estimate kernel."""
+    kern.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out, peak, _ = _peak_run(torch, lambda: cv_train.main(
+            MAIN_ARGS + IMAGENET_FLAGS + F50_SKETCH_FLAGS + [
+                "--max_rounds", str(FIXUP_ROUNDS),
+                "--dataset_dir", dataset_dir]))
+    launches = kern.launch_counts()
+    envelope = [str(w.message) for w in rec if "envelope" in str(w.message)]
+    hist = out["history"]
+    bpr = out["bytes_per_round"]
+    phase("imagenet_fixup_sketch", D=out["grad_size"], data=out["data_path"],
+          rounds=len(hist), round_ms=[round(h["ms"], 3) for h in hist],
+          data_ms=[round(h["data_ms"], 3) for h in hist],
+          losses=[h["loss"] for h in hist], bytes_per_round=bpr,
+          max_memory_allocated=peak, envelope_warnings=len(envelope),
+          launches=launches)
+    check(not envelope, f"imagenet sketch: envelope warning {envelope}")
+    check(out["grad_size"] == F50_D, "imagenet sketch: D")
+    check(bpr["upload_bytes"] == 4 * 5 * F50_CACTUAL,
+          f"imagenet sketch: upload {bpr['upload_bytes']}")
+    check(len(hist) == FIXUP_ROUNDS
+          and all(math.isfinite(h["loss"]) for h in hist),
+          "imagenet sketch: rounds or loss")
+    check(out["param_delta_norm"] > 0, "imagenet sketch: params")
+    for name, want in (("sketch_rows", 2 * FIXUP_ROUNDS),
+                       ("estimate_median", FIXUP_ROUNDS), ("estimate_at", 0),
+                       ("estimate_at_range", 0), ("median_rows", 0)):
+        check(launches[name] == want, f"imagenet sketch: {name} launched "
+              f"{launches[name]} times, expected {want}")
+    return kern.form_counts()
+
+
+def cifar100_phase(kern, cv_train, dataset_dir):
+    """The main path's flags on CIFAR-100's stand-in (ResNet-9, 100
+    classes) for CIFAR100_ROUNDS rounds: D, data=device, K1 twice and K2
+    once a round."""
+    kern.reset_launch_counts()
+    out = cv_train.main(MAIN_ARGS + ["--dataset_name", "cifar100",
+                                     "--max_rounds", str(CIFAR100_ROUNDS),
+                                     "--dataset_dir", dataset_dir])
+    launches = kern.launch_counts()
+    hist = out["history"]
+    phase("cifar100", D=out["grad_size"], data=out["data_path"],
+          round_ms=[round(h["ms"], 3) for h in hist],
+          losses=[h["loss"] for h in hist], val_loss=out["loss"],
+          launches=launches)
+    check(out["grad_size"] == CIFAR100_D, "cifar100: D")
+    check(out["data_path"] == "device", "cifar100: expected data=device")
+    check(len(hist) == CIFAR100_ROUNDS
+          and all(math.isfinite(h["loss"]) for h in hist)
+          and out["param_delta_norm"] > 0, "cifar100: loss or params")
+    check(launches["sketch_rows"] == 2 * CIFAR100_ROUNDS
+          and launches["estimate_median"] == CIFAR100_ROUNDS,
+          f"cifar100: launches {launches}")
+    return kern.form_counts()
+
+
 # -- the batched client step --------------------------------------------------
 
 
@@ -1884,6 +2264,17 @@ def main() -> int:
         dp_phase(torch, cv_train, dataset_dir)
         paths["resume"] = resume_phase(torch, kern, cv_train, dataset_dir,
                                        work)
+        # the other datasets, FixupResNet-50, the device-resident data
+        paths["device_data"] = device_data_phase(torch, kern, cv_train,
+                                                 dataset_dir, work)
+    rrc_phase(torch, dev)
+    femnist_phase(kern, cv_train, dataset_dir)
+    imagenet_fedavg_phase(torch, cv_train, dataset_dir)
+    paths["imagenet_fixup_sketch"] = imagenet_sketch_phase(
+        torch, kern, cv_train, dataset_dir)
+    paths["cifar100"] = cifar100_phase(kern, cv_train, dataset_dir)
+    for name, geos in f50_kernels_phase(torch, cs, kern, dev).items():
+        by_geometry.setdefault(name, {}).update(geos)
     batched_clients_phase(torch, cv_train, gpt2_train, dataset_dir)
 
     for name, geos in by_geometry.items():

@@ -1,11 +1,13 @@
-"""FedCIFAR10 — the parts of ``commefficient_tpu/data/cifar.py`` the port's
-main path needs, as the port's own copy.
+"""FedCIFAR10 / FedCIFAR100 — the port's own copy of
+``commefficient_tpu/data/cifar.py``.
 
-* the ``cifar-10-batches-py`` pickle loader;
+* the ``cifar-10-batches-py`` and ``cifar-100-python`` pickle loaders;
 * the ``flat`` and ``concentrated`` synthetic stand-ins used when the real
   data is absent (same numpy draws from the same seed as the reference);
 * ``CifarAugment``'s numpy plan and apply: pad(4) + random crop + hflip +
-  cutout(8), on uint8 images;
+  cutout(8), on uint8 images, and ``device_apply``, the same plan as torch
+  index and select ops on the device-resident training set (bit-equal to
+  ``apply``);
 * the normalizer, here a torch op applied on the batch's device.
 """
 
@@ -151,6 +153,36 @@ def load_fed_cifar10(dataset_dir: str, *, num_clients: int, iid: bool = True,
     return tr, te, real
 
 
+def _load_cifar100(root: str):
+    """The ``cifar-100-python`` pickle layout (train/test files, fine
+    labels), read from the user's own dataset_dir."""
+    d = os.path.join(root, "cifar-100-python")
+
+    def read(fname):
+        with open(os.path.join(d, fname), "rb") as f:
+            raw = pickle.load(f, encoding="bytes")
+        x = raw[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        y = np.asarray(raw[b"fine_labels"], np.int32)
+        return {"x": x, "y": y}
+
+    return read("train"), read("test")
+
+
+def load_fed_cifar100(dataset_dir: str, *, num_clients: int,
+                      iid: bool = True, seed: int = 42,
+                      ) -> Tuple[FedDataset, FedDataset, bool]:
+    """FedCIFAR100: CIFAR-10's prep and augment, 100 fine labels; the
+    ``flat`` stand-in at 100 classes when the pickles are absent."""
+    real = os.path.isdir(os.path.join(dataset_dir, "cifar-100-python"))
+    if real:
+        train, test = _load_cifar100(dataset_dir)
+    else:
+        train, test = _synthetic_cifar(100)
+    tr = FedDataset(dict(train), num_clients, iid=iid, seed=seed)
+    te = FedDataset(dict(test), 1, iid=True, seed=seed)
+    return tr, te, real
+
+
 def normalizer(mean: np.ndarray, std: np.ndarray):
     """Input prep for ``classification_loss``: uint8 [B,H,W,C] ->
     normalized float32 on the batch's own device; float inputs pass
@@ -224,5 +256,51 @@ class CifarAugment:
         out[mask] = self._fill(out.dtype, c)
         return out
 
+    def device_apply(self, x: torch.Tensor, *plan) -> torch.Tensor:
+        """``apply`` as torch ops on ``x``'s device (the device-resident
+        data path); ``plan`` is the ``AugmentPlan``'s arrays as tensors on
+        that device."""
+        return device_augment(
+            x, *plan, pad=self.pad, cut_half=self.cut_half,
+            fill=self._fill(np.dtype(str(x.dtype).split(".")[-1]),
+                            x.shape[-1]))
+
 
 augment_batch = CifarAugment()
+
+
+def device_augment(x: torch.Tensor, ys, xs, flips, cys, cxs, *,
+                   pad: int = 4, cut_half: int = 4, fill=None):
+    """``CifarAugment.apply`` as torch ops: the crop of the reflect-padded
+    image as one index gather, flip, cutout. Pure index and select ops, so
+    the result is bit-equal to the numpy path on any dtype. ``x`` ``[n, h,
+    w, c]``; plan tensors ``[n]``; ``fill`` the ``[c]`` cutout fill (None =
+    0)."""
+    n, h, w, c = x.shape
+    dev = x.device
+    ar_h = torch.arange(h, device=dev)
+    ar_w = torch.arange(w, device=dev)
+
+    def reflect(i, size):  # a padded coordinate -> its source pixel
+        i = i - pad
+        i = torch.where(i < 0, -i, i)
+        return torch.where(i >= size, 2 * (size - 1) - i, i)
+
+    # the crop of the reflect-padded image as ONE gather of the source
+    iy = reflect(ys.to(torch.int64)[:, None] + ar_h, h)
+    ix = reflect(xs.to(torch.int64)[:, None] + ar_w, w)
+    out = x[torch.arange(n, device=dev)[:, None, None], iy[:, :, None],
+            ix[:, None, :]]
+    out = torch.where(flips.to(torch.bool)[:, None, None, None],
+                      out.flip(2), out)
+    cys = cys.to(torch.int64)[:, None]
+    cxs = cxs.to(torch.int64)[:, None]
+    ymask = (ar_h[None, :] >= cys - cut_half) & (ar_h[None, :] < cys
+                                                  + cut_half)
+    xmask = (ar_w[None, :] >= cxs - cut_half) & (ar_w[None, :] < cxs
+                                                  + cut_half)
+    mask = ymask[:, :, None] & xmask[:, None, :]
+    fill_v = (torch.zeros(c, dtype=x.dtype, device=dev) if fill is None
+              else torch.as_tensor(np.broadcast_to(fill, (c,)).copy(),
+                                   device=dev).to(x.dtype))
+    return torch.where(mask[..., None], fill_v, out)

@@ -26,12 +26,13 @@ import torch.nn.functional as F
 GN_EPS = 1e-6
 
 
-def _stages(width: int):
+def _stages(width: int, in_channels: int = 3):
     """(name, in, out, pool) of every conv block, in forward order; a
-    Residual holds two blocks of equal width."""
+    Residual holds two blocks of equal width. ``in_channels`` is the
+    images' (3; FEMNIST's grayscale 1)."""
     w = width
     return [
-        ("ConvBlock_0", 3, w, False),
+        ("ConvBlock_0", in_channels, w, False),
         ("ConvBlock_1", w, 2 * w, True),
         ("Residual_0", 2 * w, 2 * w, False),
         ("ConvBlock_2", 2 * w, 4 * w, True),
@@ -45,10 +46,11 @@ def _block_shapes(cin: int, cout: int) -> Dict[str, Dict[str, tuple]]:
             "GroupNorm_0": {"bias": (cout,), "scale": (cout,)}}
 
 
-def resnet9_shapes(num_classes: int = 10, width: int = 64) -> Dict:
+def resnet9_shapes(num_classes: int = 10, width: int = 64,
+                   in_channels: int = 3) -> Dict:
     """Nested dict of leaf shapes, keyed like flax's ``model.init``."""
     p: Dict = {}
-    for name, cin, cout, _ in _stages(width):
+    for name, cin, cout, _ in _stages(width, in_channels):
         if name.startswith("Residual"):
             p[name] = {"ConvBlock_0": _block_shapes(cin, cout),
                        "ConvBlock_1": _block_shapes(cout, cout)}
@@ -60,7 +62,7 @@ def resnet9_shapes(num_classes: int = 10, width: int = 64) -> Dict:
 
 
 def init_resnet9(seed: int, num_classes: int = 10, width: int = 64,
-                 device="cpu") -> Dict:
+                 device="cpu", in_channels: int = 3) -> Dict:
     """The port's own initializer, in flax's distributions: lecun-normal
     (truncated at 2 sigma, fan-in) kernels, zero biases, unit GroupNorm
     scales — drawn from a ``torch.Generator`` seeded with ``seed``. It does
@@ -86,7 +88,7 @@ def init_resnet9(seed: int, num_classes: int = 10, width: int = 64,
         return {k: walk(v, path + (k,)) if isinstance(v, dict)
                 else make(path + (k,), v) for k, v in sorted(node.items())}
 
-    return walk(resnet9_shapes(num_classes, width))
+    return walk(resnet9_shapes(num_classes, width, in_channels))
 
 
 def _conv_block(p, x: torch.Tensor, pool: bool, dtype) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """FederatedSession, FedModel, FedOptimizer — the reference's public API
 (``parallel/api.py``), the subset the port runs.
 
-``FederatedSession`` owns the worker group, the state and the round;
-``FedModel`` is the callable facade (``fed_model(client_ids, batch)`` runs
-one round at the optimizer's lr) and ``FedOptimizer`` the schedule clock
-(``step()``).
+``FederatedSession`` owns the worker group, the state and the round, and,
+when the training set fits ``device_data_max_mb``, the training set itself
+on the device (``maybe_attach_data``): a round then ships only sample
+indices and the augment plan, and the gather and augment run on the
+device before the same round runs; ``FedModel`` is the callable facade
+(``fed_model(client_ids, batch)`` runs one round at the optimizer's lr)
+and ``FedOptimizer`` the schedule clock (``step()``).
 """
 
 from __future__ import annotations
@@ -79,8 +82,10 @@ def microbatched(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
     L = cfg.round_microbatches
     if not L:
         return batch
-    arrays = {k: np.asarray(v) for k, v in batch.items()}
-    return {k: a.reshape((a.shape[0], L, a.shape[1] // L) + a.shape[2:])
+    arrays = {k: v if torch.is_tensor(v) else np.asarray(v)
+              for k, v in batch.items()}
+    return {k: a.reshape((a.shape[0], L, a.shape[1] // L)
+                         + tuple(a.shape[2:]))
             for k, a in arrays.items()}
 
 
@@ -140,6 +145,40 @@ class FederatedSession:
         self.round_fn = build_round_fn(cfg, loss_fn, unravel,
                                        self.compressor, self.group)
         self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
+        # the training set on the device (attach_data), else None; which
+        # data path the rounds take is ``data_path``
+        self.dev_data: Optional[Dict[str, torch.Tensor]] = None
+        self.dev_augment = None
+
+    @property
+    def data_path(self) -> str:
+        """``"device"`` when the training set is attached and rounds run
+        through ``train_round_indices``, else ``"host"``."""
+        return "host" if self.dev_data is None else "device"
+
+    def maybe_attach_data(self, dataset, sampler, augment=None) -> bool:
+        """Attach ``dataset``'s arrays on the device iff ``device_data`` is
+        on, the sampler can drive index-only rounds (``fusable``), every
+        array is numpy and they total at most ``device_data_max_mb`` MB
+        (1e6 bytes) — the reference's gate. True when the index path is
+        live."""
+        if not (self.cfg.device_data and sampler.fusable
+                and all(isinstance(v, np.ndarray)
+                        for v in dataset.data.values())
+                and sum(v.nbytes for v in dataset.data.values())
+                <= self.cfg.device_data_max_mb * 1_000_000):
+            return False
+        self.attach_data(dataset.data, augment)
+        return True
+
+    def attach_data(self, data: Dict[str, np.ndarray], augment=None) -> None:
+        """Put the whole training set on the device, each array in its own
+        dtype (uint8 images stay uint8). ``augment`` is the sampler's
+        plan-based augment or None; its ``device_apply`` realizes a plan
+        on the device."""
+        self.dev_data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device) for k, v in data.items()}
+        self.dev_augment = augment
 
     def local_clients(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's slice ``[p*w_loc, (p+1)*w_loc)`` of a round's
@@ -164,6 +203,43 @@ class FederatedSession:
         through it); by default a fedsim session realizes round
         ``state.step``'s environment. An ``env`` for a session built
         without fedsim raises."""
+        return self._round(client_ids, _to_device(
+            self.local_clients(batch), self.device), lr, env)
+
+    def train_round_indices(self, client_ids, idx, plan, lr: float,
+                            env=None):
+        """One round from the attached training set (``attach_data``):
+        ``idx`` ``[W, B]`` sample indices and ``plan`` the augment plan's
+        ``[W*B]`` arrays (``()`` without an augment), as
+        ``FedSampler.sample_round_indices`` gives them. This rank's
+        clients' rows are gathered on the device in one flat gather, the
+        augment's ``device_apply`` runs on them, and the batch, shaped
+        ``[w, B, ...]`` (fedavg: ``[w, L, B/L, ...]``), goes through the
+        round ``train_round`` runs. Returns what ``train_round`` does."""
+        if self.dev_data is None:
+            raise ValueError("train_round_indices needs the training set "
+                             "on the device: call attach_data first")
+        w_loc = self.cfg.num_workers // self.group.size
+        lo = self.group.rank * w_loc
+        idx = np.asarray(idx)[lo:lo + w_loc]
+        B = idx.shape[1]
+        flat = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(
+            self.device)
+        batch = {}
+        for k, v in self.dev_data.items():
+            g = v[flat]
+            if k == "x" and self.dev_augment is not None:
+                g = self.dev_augment.device_apply(g, *(
+                    torch.from_numpy(np.asarray(a)[lo * B:(lo + w_loc) * B])
+                    .to(self.device) for a in plan))
+            batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
+        return self._round(client_ids, microbatched(self.cfg, batch), lr,
+                           env)
+
+    def _round(self, client_ids, batch: Dict[str, torch.Tensor], lr: float,
+               env):
+        """The round of ``train_round`` and ``train_round_indices`` on this
+        rank's device batch."""
         if env is None and self.fedsim_env is not None:
             env = self.fedsim_env.round_env(self.state.step)
         elif env is not None and self.fedsim_env is None:
@@ -182,9 +258,8 @@ class FederatedSession:
                     f"[0, {self.cfg.num_clients}), got {host.tolist()}")
             ids = torch.from_numpy(host).to(self.device)
         lr = float(np.float32(lr))  # the reference's f32 lr
-        self.state, metrics = self.round_fn(
-            self.state, ids,
-            _to_device(self.local_clients(batch), self.device), lr, env=env)
+        self.state, metrics = self.round_fn(self.state, ids, batch, lr,
+                                            env=env)
         return {**metrics, **env.stats} if env is not None else metrics
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:

@@ -35,6 +35,22 @@ true]``.
 
 (fedavg's sampler draws ``num_local_iters * local_batch_size`` samples a
 client, split into that many local steps.)
+
+The other datasets and FixupResNet-50 (BASELINE #3 and #5):
+
+  --dataset_name femnist --mode local_topk --error_type local \
+      --local_momentum 0.9 --num_clients 100
+  --dataset_name imagenet --model fixup_resnet50 --mode fedavg \
+      --num_local_iters 2
+  --dataset_name cifar100 ...
+
+Real LEAF FEMNIST json shards, an ImageNet ``.npy`` cache or ImageFolder
+tree, and the CIFAR-100 pickles are read from ``--dataset_dir`` when
+present; otherwise the synthetic stand-ins (ImageNet at 64 px). When the
+training set fits ``--device_data_max_mb`` (512 MB by default) it lives on
+the device and each round ships only indices and the augment plan; the
+header line says which path runs (``data=device|host``), and
+``--device_data false`` keeps the host path.
 """
 
 from __future__ import annotations
@@ -46,13 +62,22 @@ import torch
 from commefficient_tpu_torch.data import (
     CIFAR10_MEAN,
     CIFAR10_STD,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
     FedSampler,
+    ImageNetAugment,
     augment_batch,
     load_fed_cifar10,
+    load_fed_cifar100,
+    load_fed_emnist,
+    load_fed_imagenet,
     normalizer,
 )
 from commefficient_tpu_torch.models import (
+    FIXUP_RESNET50_STAGES,
     classification_loss,
+    fixup_resnet_apply,
+    init_fixup_resnet,
     init_resnet9,
     model_dtype,
     resnet9_apply,
@@ -60,23 +85,62 @@ from commefficient_tpu_torch.models import (
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
-from commefficient_tpu_torch.utils.config import Config, parse_args
+from commefficient_tpu_torch.utils.config import CV_MODELS, Config, parse_args
 
 
-def build_model_and_data(cfg: Config, width: int = 64):
-    """(train, test, is_real, params, loss_fn, augment) for cifar10 +
-    ResNet-9. Images stay uint8 on the host; the loss normalizes them on
-    the device."""
-    train, test, real = load_fed_cifar10(
+def load_dataset(cfg: Config):
+    """(train, test, is_real, num_classes, in_channels, augment, prep) for
+    ``cfg.dataset_name``. Images stay as loaded on the host (uint8, or the
+    float32 stand-ins); ``prep`` normalizes uint8 on the device inside the
+    loss (None: no normalizer)."""
+    name = cfg.dataset_name
+    if name in ("cifar10", "cifar100"):
+        if name == "cifar10":
+            train, test, real = load_fed_cifar10(
+                cfg.dataset_dir, num_clients=cfg.num_clients, iid=cfg.iid,
+                seed=cfg.seed, synthetic_variant=cfg.synthetic_variant)
+        else:
+            train, test, real = load_fed_cifar100(
+                cfg.dataset_dir, num_clients=cfg.num_clients, iid=cfg.iid,
+                seed=cfg.seed)
+        return (train, test, real, cfg.resolved_num_classes, 3,
+                augment_batch, normalizer(CIFAR10_MEAN, CIFAR10_STD))
+    if name == "femnist":
+        train, test, real = load_fed_emnist(
+            cfg.dataset_dir, num_clients=cfg.num_clients, seed=cfg.seed,
+            label_noise=cfg.label_noise)
+        return train, test, real, 62, 1, None, None
+    # imagenet: num_classes reaches the loader, so the stand-in's labels
+    # stay below the head's size
+    train, test, real = load_fed_imagenet(
         cfg.dataset_dir, num_clients=cfg.num_clients, iid=cfg.iid,
-        seed=cfg.seed, synthetic_variant=cfg.synthetic_variant)
-    params = init_resnet9(cfg.seed, num_classes=10, width=width)
-    apply = functools.partial(resnet9_apply,
-                              dtype=model_dtype(cfg.compute_dtype))
-    loss_fn = classification_loss(
-        apply, prep=normalizer(CIFAR10_MEAN, CIFAR10_STD),
-        compute_dtype=cfg.compute_dtype)
-    return train, test, real, params, loss_fn, augment_batch
+        seed=cfg.seed, num_classes=cfg.resolved_num_classes)
+    return (train, test, real, cfg.resolved_num_classes,
+            train.data["x"].shape[-1], ImageNetAugment(),
+            normalizer(IMAGENET_MEAN, IMAGENET_STD))
+
+
+def build_model_and_data(cfg: Config, **model_kw):
+    """(train, test, is_real, params, loss_fn, augment) for
+    ``cfg.dataset_name`` and ``cfg.model``. ``model_kw`` narrows the model
+    (ResNet-9's ``width``; FixupResNet's ``stage_sizes`` and ``width``)."""
+    train, test, real, classes, channels, augment, prep = load_dataset(cfg)
+    mdt = model_dtype(cfg.compute_dtype)
+    if cfg.model == "resnet9":
+        params = init_resnet9(cfg.seed, num_classes=classes,
+                              in_channels=channels, **model_kw)
+        apply = functools.partial(resnet9_apply, dtype=mdt)
+    else:  # fixup_resnet50 and its alias resnet50
+        if channels != 3:
+            raise ValueError(f"{cfg.model} takes RGB images; "
+                             f"{cfg.dataset_name} has {channels} channel")
+        params = init_fixup_resnet(
+            cfg.seed, model_kw.pop("stage_sizes", FIXUP_RESNET50_STAGES),
+            num_classes=classes, **model_kw)
+        apply = functools.partial(fixup_resnet_apply, dtype=mdt)
+    loss_fn = classification_loss(apply, prep=prep,
+                                  compute_dtype=cfg.compute_dtype)
+    return train, test, real, params, loss_fn, augment
 
 
 class _CvHooks(WorkloadHooks):
@@ -111,38 +175,43 @@ class _CvHooks(WorkloadHooks):
         }
 
 
-def main(argv=None, eval_batch_size: int = 512, **overrides):
+def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     """Train and evaluate. Returns the final val metrics plus ``history``
-    (per-round step/lr/loss/ms), ``grad_size``, ``bytes_per_round``,
+    (per-round step/lr/loss/ms/data_ms), ``grad_size``, ``bytes_per_round``,
     ``param_delta_norm`` (how far the run moved the params) and
     ``sketch_decode`` (the server decode the session ran), ``checkpoint``
-    (the runner's checkpoint facts) and ``final_step``. Under
+    (the runner's checkpoint facts), ``final_step`` and ``data_path``
+    (``device`` or ``host``). ``model_kw`` narrows the model
+    (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
     val metrics are empty."""
     cfg = parse_args(argv, **overrides)
-    if cfg.model != "resnet9":
-        raise ValueError(f"cv_train trains resnet9, got model={cfg.model!r} "
-                         "(GPT-2: python -m commefficient_tpu_torch.train."
-                         "gpt2_train)")
+    if cfg.model not in CV_MODELS:
+        raise ValueError(f"cv_train trains {CV_MODELS}, got model="
+                         f"{cfg.model!r} (GPT-2: python -m "
+                         "commefficient_tpu_torch.train.gpt2_train)")
     with distributed_from_env(cfg):
-        return _train(cfg, eval_batch_size)
+        return _train(cfg, eval_batch_size, model_kw or {})
 
 
-def _train(cfg: Config, eval_batch_size: int):
-    train, test, real, params, loss_fn, augment = build_model_and_data(cfg)
+def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
+    train, test, real, params, loss_fn, augment = build_model_and_data(
+        cfg, **model_kw)
     session = FederatedSession(cfg, params, loss_fn)
+    sampler = FedSampler(train, num_workers=cfg.num_workers,
+                         local_batch_size=cfg.sampler_batch_size,
+                         seed=cfg.seed, augment=augment)
+    session.maybe_attach_data(train, sampler, augment)
     say = print if session.group.rank == 0 else (lambda *a, **k: None)
     say(f"dataset={cfg.dataset_name} (real={real}) model={cfg.model} "
         f"mode={cfg.mode} clients={train.num_clients} "
         f"workers={cfg.num_workers} devices={session.group.size} "
-        f"device={session.device} decode={session.sketch_decode_resolved}")
+        f"device={session.device} decode={session.sketch_decode_resolved} "
+        f"data={session.data_path}")
     if not real:
         say("WARNING: real dataset not found on disk — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
-    sampler = FedSampler(train, num_workers=cfg.num_workers,
-                         local_batch_size=cfg.sampler_batch_size,
-                         seed=cfg.seed, augment=augment)
     bpr = session.bytes_per_round()
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
@@ -159,7 +228,8 @@ def _train(cfg: Config, eval_batch_size: int):
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
-            "checkpoint": ckpt, "final_step": session.state.step}
+            "checkpoint": ckpt, "final_step": session.state.step,
+            "data_path": session.data_path}
 
 
 if __name__ == "__main__":

@@ -210,22 +210,25 @@ def _train(cfg: Config, eval_batch_size: int):
     train, test, real, hf_loaded, gcfg, params, loss_fn = (
         build_model_and_data(cfg))
     session = FederatedSession(cfg, params, loss_fn, mask_batch=mask_gpt2)
+    sampler = FedSampler(train, num_workers=cfg.num_workers,
+                         local_batch_size=cfg.sampler_batch_size,
+                         seed=cfg.seed)
+    # the token arrays live on the device when they fit; rounds ship only
+    # [W, B] indices
+    session.maybe_attach_data(train, sampler)
     say = print if session.group.rank == 0 else (lambda *a, **k: None)
     say(f"dataset=personachat (real={real}) model={cfg.model} "
         f"(V={gcfg.vocab_size}, L={gcfg.n_layer}, E={gcfg.n_embd}, "
         f"hf_weights={hf_loaded}) mode={cfg.mode} "
         f"clients={train.num_clients} workers={cfg.num_workers} "
         f"devices={session.group.size} device={session.device} "
-        f"decode={session.sketch_decode_resolved}")
+        f"decode={session.sketch_decode_resolved} data={session.data_path}")
     if not real:
         say("WARNING: personachat json not found — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
     bpr = session.bytes_per_round()
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
-    sampler = FedSampler(train, num_workers=cfg.num_workers,
-                         local_batch_size=cfg.sampler_batch_size,
-                         seed=cfg.seed)
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
     p0 = session.state.params_vec.clone()
     val, history, ckpt = run_train_loop(
@@ -241,7 +244,8 @@ def _train(cfg: Config, eval_batch_size: int):
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
             "samples": hooks.samples, "hf_weights": hf_loaded, "real": real,
-            "checkpoint": ckpt, "final_step": session.state.step}
+            "checkpoint": ckpt, "final_step": session.state.step,
+            "data_path": session.data_path}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,11 @@ main path's flags unless others are given (ResNet-9 at full width, r=5,
 c=500,000, k=50,000, 8 clients of 64 images), or, with ``--model gpt2``
 (or ``gpt2_tiny``), as ``gpt2_train`` does, with BASELINE #4's flags over
 its defaults (GPT-2 small, r=5, c=5,000,000, k=50,000, ``--compute_dtype
-bfloat16``, 8 clients of 4 dialogs of 2 candidates of 256 tokens); runs two
+bfloat16``, 8 clients of 4 dialogs of 2 candidates of 256 tokens). The cv
+flags take every ``cv_train`` model and dataset (``--model fixup_resnet50
+--dataset_name imagenet``, ``--dataset_name femnist|cifar100``), and the
+training set is attached on the device when ``cv_train`` would attach it.
+It runs two
 warm-up rounds, then times N rounds of the session's own round function
 phase by phase with CUDA events (``build_round_fn``'s ``mark``):
 
@@ -46,9 +50,14 @@ count) on the state after the timed rounds:
 
 The server steps use the aggregate of one more batch (its clients'
 gradients as one flattened batch; only its kind and size matter here).
-One more round runs under ``torch.profiler``; its device time is summed by
-kernel and by kind, and set against the round's wall time to give the
-device's busy share. The last line of the output is a JSON summary.
+Then rounds run through the session's own entry as the runner runs them,
+the sampler's draw included (``train_round_indices`` on the
+device-resident training set, ``train_round`` on the host batch): two
+warm-up, three on the host clock (``round_wall_ms``, the median), and
+one under ``torch.profiler``, whose device time is summed by kernel and
+by kind and set against ``round_wall_ms`` to give the device's busy share
+(``round_busy_share``; not against the profiled round's own wall, which
+the profiler lengthens by its host cost per op). The last line of the output is a JSON summary.
 """
 
 from __future__ import annotations
@@ -273,6 +282,52 @@ def _kind(name: str) -> str:
     return next(k for k, pat in KINDS if re.search(pat, name, re.I))
 
 
+def entry_round(session, sampler, step: int, lr: float) -> float:
+    """Host wall ms of round ``step`` as the runner runs it: the sampler's
+    draw, then the session's entry (``train_round_indices`` on the
+    device-resident training set, else ``train_round`` on the host batch),
+    up to a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if session.data_path == "device":
+        session.train_round_indices(*sampler.sample_round_indices(step), lr)
+    else:
+        ids, batch = sampler.sample_round(step)
+        session.train_round(ids, microbatched(session.cfg, batch), lr)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def round_busy_share(session, sampler, step: int, lr: float, warm: int = 2,
+                     timed: int = 3) -> dict:
+    """The device's busy share of a round through ``entry_round``: ``warm``
+    rounds, ``timed`` rounds on the host clock (``round_wall_ms``, their
+    median), then one under ``torch.profiler`` whose device kernel time is
+    summed. The share is the device time over the unprofiled wall: the
+    profiler's own host cost per op lengthens the profiled round
+    (``profiled_round_wall_ms``), most for models of many small ops. The
+    rounds start at ``step`` and advance the session's state."""
+    for i in range(warm):
+        entry_round(session, sampler, step + i, lr)
+    walls = [entry_round(session, sampler, step + warm + i, lr)
+             for i in range(timed)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled = entry_round(session, sampler, step + warm + timed, lr)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    wall = statistics.median(walls)
+    return {"round_wall_ms": wall, "profiled_round_wall_ms": profiled,
+            "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / wall,
+            "device_ms_by_name": by_name}
+
+
 def main(argv=None):
     # no abbreviations: "--mode" would be taken for "--model"
     ap = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -299,6 +354,9 @@ def main(argv=None):
     sampler = FedSampler(train, num_workers=cfg.num_workers,
                          local_batch_size=cfg.sampler_batch_size,
                          seed=cfg.seed, augment=augment)
+    session.maybe_attach_data(train, sampler, augment)
+    print(f"model={cfg.model} dataset={cfg.dataset_name} "
+          f"D={session.grad_size} data={session.data_path}", flush=True)
 
     def draw(step):
         ids, batch = sampler.sample_round(step)
@@ -345,38 +403,25 @@ def main(argv=None):
             print("server phase by step (ms):", json.dumps(server_steps),
                   flush=True)
 
-        ids, batch = sampler.sample_round(99)  # train_round copies them over
-        batch = microbatched(cfg, batch)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            session.train_round(ids, batch, lr)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    device_ms = sum(by_name.values())
+        torch.cuda.reset_peak_memory_stats()
+        busy = round_busy_share(session, sampler, 99, lr)
+        peak = torch.cuda.max_memory_allocated()
+    by_name = busy.pop("device_ms_by_name")
     by_kind = {}
     for name, ms in by_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {_kind(name):11s}  {name[:90]}")
     summary = {"model": cfg.model, "mode": cfg.mode,
+               "dataset": cfg.dataset_name, "data_path": session.data_path,
+               "peak_memory_bytes": peak,
                "decode": session.sketch_decode_resolved,
                "grad_size": session.grad_size,
                "fused_clients": cfg.fuse_clients,
                "phase_ms": phase_ms, "grads_steps_ms": grads_steps,
                "server_steps_ms": server_steps,
                "bytes_per_round": session.bytes_per_round(),
-               "profiled_round_wall_ms": wall_ms,
-               "device_kernel_ms": device_ms,
-               "device_busy_share": device_ms / wall_ms if wall_ms else None,
-               "device_ms_by_kind": by_kind,
+               **busy, "device_ms_by_kind": by_kind,
                "card": torch.cuda.get_device_name(0)}
     print(json.dumps(summary))
     return summary

@@ -10,7 +10,11 @@ the round, so the resumed run is the unbroken one); a save every
 rounds are checked against the run length at entry. The reference's
 resilience, pipelining and telemetry are not ported (``Config`` refuses
 their flags). ``cfg.max_rounds > 0`` stops the run once ``max_rounds``
-rounds are done and evaluates once.
+rounds are done and evaluates once. With the training set on the device
+(``session.data_path == "device"``) each round is drawn as indices and
+the augment plan (``sampler.sample_round_indices``) and run by
+``session.train_round_indices``; both forms are pure functions of the
+round, so a resume fast-forwards the same way on either path.
 """
 
 from __future__ import annotations
@@ -70,9 +74,11 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     "restore_ms", "bytes"}`` (the round the run resumed from, 0 for a
     fresh run; the last save's and the restore's wall ms and the last
     file's bytes, None where none happened). History rows are ``{"step",
-    "lr", "loss", "ms"}`` (and the ``fedsim/*`` scalars under fedsim),
-    ``ms`` the host wall time of the round up to its loss read-back (which
-    waits for the device). In a worker group every rank draws the same
+    "lr", "loss", "ms", "data_ms"}`` (and the ``fedsim/*`` scalars under
+    fedsim), ``ms`` the host wall time of the round up to its loss
+    read-back (which waits for the device), ``data_ms`` the host time of
+    the sampler's draw before it (on the host path the gather and augment
+    too). In a worker group every rank draws the same
     rounds (same sampler seed) and trains; rank 0 alone
     evaluates, prints and writes checkpoints, and the other ranks return
     empty val metrics. Epochs wholly before the resumed round are
@@ -97,6 +103,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             if main:
                 print(f"resumed from checkpoint at round {start}")
     last = min(num_rounds, cfg.max_rounds) if cfg.max_rounds else num_rounds
+    on_device = session.data_path == "device"
     table = table or TableLogger()
     history = []
     val = {}
@@ -111,14 +118,21 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
         lr = float(lr_fn(epoch * steps_per_epoch))
         for s in range(max(start, epoch * steps_per_epoch),
                        min(last, (epoch + 1) * steps_per_epoch)):
-            client_ids, batch = sampler.sample_round(s)
-            batch = microbatched(cfg, batch)
             lr = float(lr_fn(s))
+            t_draw = time.perf_counter()
+            if on_device:  # (client ids, [W, B] indices, the plan)
+                drawn = sampler.sample_round_indices(s)
+                run = session.train_round_indices
+            else:  # (client ids, the host batch)
+                client_ids, batch = sampler.sample_round(s)
+                drawn = (client_ids, microbatched(cfg, batch))
+                run = session.train_round
             t0 = time.perf_counter()
-            metrics = session.train_round(client_ids, batch, lr)
+            metrics = run(*drawn, lr)
             loss = float(metrics["loss"])
             row = {"step": s, "lr": lr, "loss": loss,
                    "ms": 1e3 * (time.perf_counter() - t0),
+                   "data_ms": 1e3 * (t0 - t_draw),
                    **{k: float(v) for k, v in metrics.items()
                       if k.startswith("fedsim/")}}
             history.append(row)

@@ -7,7 +7,7 @@ is REFUSED at construction, unless at its default, with a ``ValueError``
 naming the blocker and the ROADMAP item that lifts it (``_UNPORTED``) —
 nothing runs quietly with a setting ignored. The defaults of the refused
 knobs that switch something on in the reference (``perf_audit``,
-``run_report``, ``device_data``) are no-ops here.
+``run_report``) are no-ops here.
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -38,10 +38,6 @@ _UNPORTED = {
     "ladder": "the control/ compression ladder (ROADMAP A11)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
     "pipeline_depth": "the pipelined round engine (ROADMAP A11)",
-    "label_noise": "the FEMNIST stand-in's label noise (ROADMAP A13)",
-    "num_classes": "the other datasets' class counts (ROADMAP A13)",
-    "device_data": "the device-resident training set (ROADMAP A13)",
-    "device_data_max_mb": "the device-resident training set (ROADMAP A13)",
     "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
     "client_store_path": "the hosted client stores (ROADMAP A11)",
     "offload_client_state": "the hosted client stores (ROADMAP A11)",
@@ -80,10 +76,14 @@ _UNPORTED = {
     "profile_dir": "the profiler capture (ROADMAP A12)",
     "profile_rounds": "the profiler capture (ROADMAP A12)",
 }
-MODELS = ("resnet9", "gpt2", "gpt2_tiny")
-# the dataset each model trains on (cv_train: resnet9, gpt2_train: GPT-2)
-MODEL_DATASET = {"resnet9": "cifar10", "gpt2": "personachat",
-                 "gpt2_tiny": "personachat"}
+# cv_train's models (``resnet50`` is the reference's alias of
+# ``fixup_resnet50``) and gpt2_train's
+CV_MODELS = ("resnet9", "fixup_resnet50", "resnet50")
+MODELS = CV_MODELS + ("gpt2", "gpt2_tiny")
+CV_DATASETS = ("cifar10", "cifar100", "femnist", "imagenet")
+# the datasets each model trains on
+MODEL_DATASETS = {**{m: CV_DATASETS for m in CV_MODELS},
+                  "gpt2": ("personachat",), "gpt2_tiny": ("personachat",)}
 
 
 @dataclass(frozen=True)
@@ -214,16 +214,25 @@ class Config:
     checkpoint_every: int = 0  # rounds between checkpoints; 0 = off
     resume: bool = False
 
+    # --- the other datasets (data/emnist.py, data/imagenet.py) ---
+    # the synthetic FEMNIST stand-in's label-noise fraction (real LEAF data
+    # is never perturbed); 0 reproduces the noise-free stand-in
+    label_noise: float = 0.06
+    # None: derived from dataset_name (resolved_num_classes)
+    num_classes: Optional[int] = None
+    # keep the training set on the device when it fits device_data_max_mb
+    # (MB of 1e6 bytes): a round then ships [W, B] sample indices and the
+    # augment plan, and the gather and augment run on the device
+    # (FederatedSession.maybe_attach_data)
+    device_data: bool = True
+    device_data_max_mb: int = 512
+
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     telemetry_level: int = 0
     control_policy: str = "none"
     ladder: str = ""
     recover_policy: str = "none"
     pipeline_depth: int = 0
-    label_noise: float = 0.06
-    num_classes: Optional[int] = None
-    device_data: bool = True
-    device_data_max_mb: int = 512
     client_store_cache_rows: int = 0
     client_store_path: str = ""
     offload_client_state: bool = False
@@ -384,15 +393,22 @@ class Config:
                 " it would be a silent no-op"
             )
         if self.model not in MODELS:
-            raise ValueError(
-                f"model={self.model!r} is not ported yet: the port runs "
-                f"{MODELS} (ROADMAP A13 ports FixupResNet-50)")
-        if self.dataset_name != MODEL_DATASET[self.model]:
+            raise ValueError(f"model must be one of {MODELS}, got "
+                             f"{self.model!r}")
+        if self.dataset_name not in MODEL_DATASETS[self.model]:
             raise ValueError(
                 f"dataset_name={self.dataset_name!r} with model="
-                f"{self.model!r}: the port trains {self.model} on "
-                f"{MODEL_DATASET[self.model]} (ROADMAP A13 ports the other "
-                "datasets)")
+                f"{self.model!r}: {self.model} trains on one of "
+                f"{MODEL_DATASETS[self.model]}")
+        if self.label_noise < 0.0 or self.label_noise > 1.0:
+            raise ValueError(
+                f"label_noise must be in [0, 1], got {self.label_noise}")
+        if self.num_classes is not None and self.num_classes < 1:
+            raise ValueError(
+                f"num_classes must be >= 1 (or None), got {self.num_classes}")
+        if self.device_data_max_mb < 0:
+            raise ValueError(f"device_data_max_mb must be >= 0, got "
+                             f"{self.device_data_max_mb}")
         if self.num_candidates < 1 or self.max_history < 0:
             raise ValueError(
                 f"num_candidates must be >= 1 and max_history >= 0, got "
@@ -549,6 +565,14 @@ class Config:
         fedavg's ``[W, L, B, ...]`` batch convention, else 0 (flat
         ``[W, B, ...]`` batches)."""
         return self.num_local_iters if self.mode == "fedavg" else 0
+
+    @property
+    def resolved_num_classes(self) -> int:
+        """num_classes if set, else derived from dataset_name."""
+        if self.num_classes is not None:
+            return self.num_classes
+        return {"cifar10": 10, "cifar100": 100, "femnist": 62,
+                "imagenet": 1000}.get(self.dataset_name, 10)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -11,7 +11,8 @@ The checkpointer is off without a directory; restore refuses another
 model and another sketch layout; a corrupted file is rejected by its
 manifest and restore falls back to the next older step; at most
 ``MAX_TO_KEEP`` steps are kept and a step on disk is not saved again. The
-runner resumes by fast-forwarding to the restored round.
+runner resumes by fast-forwarding to the restored round, on the host path
+and with the training set attached (the index path).
 """
 
 import dataclasses
@@ -210,6 +211,37 @@ def test_runner_fast_forwards_and_saves(setup, tmp_path):
     resumed, hist2, facts2 = run(max_rounds=8, resume=True, **ck)
     assert facts2["resumed_from"] == 3 and facts2["restore_ms"] > 0
     assert [h["step"] for h in hist2] == list(range(3, 8))
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in hist[3:]]
+    _assert_states_equal(straight, resumed)
+
+
+@pytest.mark.parametrize("name", ["local_topk", "fedsim_bernoulli"])
+def test_runner_resume_is_bit_exact_with_data_attached(setup, tmp_path,
+                                                       name):
+    """The kill-and-resume through ``run_train_loop`` with the training set
+    attached (``data_path == "device"``): the resumed run draws its rounds
+    as indices from the restored round on and equals 8 rounds straight on
+    the index path, which equals 8 rounds on the host path."""
+    base = dict(ONE, **CASES[name], num_epochs=2, device="cpu")
+    ds = FedDataset(setup[0].data, BASE["num_clients"], iid=True, seed=0)
+
+    def run(attach=True, **kw):
+        cfg = Config(**{**base, **kw})
+        sess = _session(setup, cfg)
+        sampler = FedSampler(ds, num_workers=8, local_batch_size=4, seed=1)
+        assert sess.maybe_attach_data(ds, sampler) == attach
+        _, hist, facts = run_train_loop(cfg, sess, sampler, _Hooks())
+        assert sess.data_path == ("device" if attach else "host")
+        return sess, hist, facts
+
+    host, hist_host, _ = run(attach=False, max_rounds=8, device_data=False)
+    straight, hist, _ = run(max_rounds=8)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in hist_host]
+    _assert_states_equal(straight, host)
+    ck = dict(checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    run(max_rounds=3, **ck)
+    resumed, hist2, facts2 = run(max_rounds=8, resume=True, **ck)
+    assert facts2["resumed_from"] == 3
     assert [h["loss"] for h in hist2] == [h["loss"] for h in hist[3:]]
     _assert_states_equal(straight, resumed)
 

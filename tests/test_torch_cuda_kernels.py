@@ -427,6 +427,31 @@ def test_gpt2_geometry_k1_and_k2_all_forms(dev):
         kern._plain_maps.cache_clear()  # ~7.5 GB of columns and signs
 
 
+def test_fixup_resnet50_geometry_k1_and_k2(dev):
+    """FixupResNet-50's FetchSGD geometry (D = 25,504,026, r = 5, c at the
+    envelope's suggestion 1,071,171: realized 1,080,848, m = 8192): K1's
+    tile kernel, and K2 in the instantiation neither ResNet-9 nor GPT-2
+    runs, rows 0-1 staged and the slot tables read in place (``<5, 2,
+    false>``), each against its plain version, and K2 against K4's range
+    form at every coordinate."""
+    spec = cs.CountSketch(d=25_504_026, c=1_071_171, r=5)
+    assert (spec.c_actual, spec.chunk_m) == (1_080_848, 8192)
+    plan = kern._k2_plan(spec, str(dev))
+    assert plan["staged"] == (0, 1) and plan["slot_smem"] is False
+    try:
+        v_s = cs._scramble(spec, _vec(spec.d, 8, dev))
+        t = kern.sketch_rows(spec, v_s)
+        want = kern.sketch_rows_torch(spec, v_s)
+        torch.testing.assert_close(t, want, rtol=0, atol=_table_tol(want))
+        assert torch.equal(t, kern.sketch_rows(spec, v_s))
+        del want, v_s
+        est = kern.estimate_median(spec, t)
+        assert torch.equal(est, kern.estimate_median_torch(spec, t))
+        assert torch.equal(est, kern.estimate_at_range(spec, t, 0, spec.d))
+    finally:
+        kern._plain_maps.cache_clear()
+
+
 def test_bf16_forms_refuse_the_gather_kernel(dev):
     """K1's gather kernel (m = 32768, no tile kernel) is f32 only."""
     spec = cs.CountSketch(*K1_EDGE_GEOMETRIES[2][:3], band=16)

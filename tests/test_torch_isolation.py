@@ -54,6 +54,9 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/models/generate.py",
                  "commefficient_tpu_torch/models/hf_gpt2.py",
                  "commefficient_tpu_torch/data/personachat.py",
+                 "commefficient_tpu_torch/data/emnist.py",
+                 "commefficient_tpu_torch/data/imagenet.py",
+                 "commefficient_tpu_torch/models/fixup_resnet.py",
                  "commefficient_tpu_torch/parallel/envelope.py"):
         assert must in names
     assert _forbidden("commefficient_tpu.ops")

@@ -122,7 +122,7 @@ def test_schedule_matches_reference():
     ("preempt_signals", "true", "A11"),
     ("fsdp", "true", "A9"),
     ("num_blocks", "2", "A15"),
-    ("label_noise", "0.1", "A13"),
+    ("pipeline_depth", "2", "A11"),
     ("overlap_collectives", "layerwise", "A9"),
     ("model_axis", "2", "A17"),
     ("logdir", "elsewhere", "A12"),
@@ -136,8 +136,12 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
                     "--num_clients", "4"])
 
 
-# the fields ROADMAP A10b and A8 lifted from the refusals
+# the fields ROADMAP A10b, A8 and A13 lifted from the refusals
 LIFTED = {
+    "label_noise": ["--label_noise", "0.1"],
+    "num_classes": ["--num_classes", "5"],
+    "device_data": ["--device_data", "false"],
+    "device_data_max_mb": ["--device_data_max_mb", "1024"],
     "sketch_fused_bwd": ["--mode", "sketch", "--fuse_clients", "true",
                          "--sketch_fused_bwd", "true"],
     "availability": ["--availability", "bernoulli", "--dropout_prob", "0.3"],
@@ -169,9 +173,28 @@ def test_config_accepts_the_lifted_fields(field):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 46
+    assert len(_UNPORTED) == 42
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
+
+
+@pytest.mark.parametrize("model", ["resnet9", "fixup_resnet50", "resnet50"])
+@pytest.mark.parametrize("dataset", ["cifar10", "cifar100", "femnist",
+                                     "imagenet"])
+def test_cv_models_take_every_cv_dataset(model, dataset):
+    cfg = parse_args(["--model", model, "--dataset_name", dataset])
+    assert (cfg.model, cfg.dataset_name) == (model, dataset)
+
+
+def test_gpt2_keeps_personachat():
+    parse_args(["--model", "gpt2", "--dataset_name", "personachat"])
+    for model, dataset in (("gpt2", "femnist"), ("gpt2_tiny", "cifar10"),
+                           ("resnet9", "personachat"),
+                           ("fixup_resnet50", "mnist")):
+        with pytest.raises(ValueError, match="dataset_name"):
+            parse_args(["--model", model, "--dataset_name", dataset])
+    with pytest.raises(ValueError, match="model must be one of"):
+        parse_args(["--model", "resnet18"])
 
 
 def test_config_flags_and_defaults_follow_reference():
