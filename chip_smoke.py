@@ -153,7 +153,25 @@ phase prints one line (or a few) and raises on failure, so the script exits
     c = 1,071,171 (the envelope's suggestion; no warning), K1 twice and
     K2 once a round; ``cifar100``: the main path's flags on ResNet-9 with
     100 classes; and K1 and K2 at FixupResNet-50's geometry, held against
-    their plain versions and timed (``geometries.fixup_resnet50``).
+    their plain versions and timed (``geometries.fixup_resnet50``);
+20. the host round pipeline: ``native``, the C++ batch assembly built by
+    ``g++`` on the card's host (a failed build fails: no quiet numpy
+    fallback), its build seconds, the cores and OpenMP threads, and one
+    round's CIFAR prep and BASELINE #5's RRC, uint8 and float32, bit-equal
+    to numpy and timed beside it; ``host_pipeline``, the main path for 5
+    rounds on the host and the device path, each at ``--pipeline_depth``
+    0 (the sampler's prefetch thread) and 2 (the pipelined engine, every
+    round's copies staged on the card), on deterministic cuDNN: round and
+    wait ms, the engine's stats, K1 twice and K2 once a round, and every
+    FedState leaf after the last round bit-equal across the four runs;
+    ``baseline5_host``, BASELINE #5 at the default gate (the host path)
+    for 3 rounds at depth 0 and 2, round and wait ms and the busy share of
+    each, beside PR 10's 589.09 ms (host) and 179.81 ms (device).
+
+Since the deferred drain (port PR 11) a history row's ``ms`` is the
+round's share of the wall clock, dispatch to next dispatch (the last
+round's to the end of the drain), and ``data_ms`` the wait for its
+inputs; the phases above that print them print that.
 
 The last lines are the card (``nvidia-smi``), one JSON object listing every
 kernel and every bf16 form (``launches`` summed over every path,
@@ -1737,23 +1755,28 @@ def femnist_phase(kern, cv_train, dataset_dir):
     check(not any(launches.values()), f"femnist: launches {launches}")
 
 
-def busy_shares(torch, cv_train, args):
-    """The device's busy share of a round on each data path for the
-    cv_train flags ``args`` (``profile_round.round_busy_share``: rounds
-    through the session's own entry, the sampler's draw included; the
-    device kernel time of one profiled round over the median wall of
-    three unprofiled ones), the model, data and sampler built as
-    ``cv_train`` builds them, one load for both paths. ``{path: numbers}``."""
+BUSY_PATHS = (("host", ["--device_data", "false"], "host"),
+              ("device", ["--device_data_max_mb", "1024"], "device"))
+
+
+def busy_shares(torch, cv_train, args, runs=BUSY_PATHS):
+    """The device's busy share of a round for each ``(name, flags, data
+    path)`` of ``runs`` over the cv_train flags ``args``
+    (``profile_round.round_busy_share``: rounds through the runner's round
+    source at the flags' ``pipeline_depth``, the draw in its thread; the
+    device kernel time of one profiled round over the mean wall of five
+    unprofiled ones), the model, data and sampler built as ``cv_train``
+    builds them, one load for all. ``{name: numbers}``."""
     from commefficient_tpu_torch.data import FedSampler
     from commefficient_tpu_torch.parallel import FederatedSession
     from commefficient_tpu_torch.train.profile_round import round_busy_share
     from commefficient_tpu_torch.utils.config import parse_args
 
     out = {}
-    for name, extra in (("host", ["--device_data", "false"]),
-                        ("device", ["--device_data_max_mb", "1024"])):
+    train = params = None
+    for name, extra, path in runs:
         cfg = parse_args(args + extra)
-        if name == "host":
+        if train is None:
             train, _, _, params, loss_fn, augment = (
                 cv_train.build_model_and_data(cfg))
         session = FederatedSession(cfg, params, loss_fn)
@@ -1761,8 +1784,8 @@ def busy_shares(torch, cv_train, args):
                              local_batch_size=cfg.sampler_batch_size,
                              seed=cfg.seed, augment=augment)
         session.maybe_attach_data(train, sampler, augment)
-        check(session.data_path == name, f"busy share: data path "
-              f"{session.data_path}, expected {name}")
+        check(session.data_path == path, f"busy share: data path "
+              f"{session.data_path}, expected {path}")
         busy = round_busy_share(session, sampler, 0, 0.1)
         busy.pop("device_ms_by_name")
         out[name] = busy
@@ -1770,6 +1793,171 @@ def busy_shares(torch, cv_train, args):
     del train, params
     torch.cuda.empty_cache()
     return out
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn`` over ``reps`` calls (host work)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def native_phase():
+    """The native batch assembly on the card's host: the library built
+    (never the numpy fallback: a failed build fails the phase), its g++
+    seconds, the cores and OpenMP's threads; one round's assembly at the
+    main path's shape (CIFAR prep of 512 uint8 32x32 images; and in
+    float32) and at BASELINE #5's (RRC of 512 float32 64x64 images; and
+    in uint8), each bit-equal to numpy and timed beside it."""
+    import numpy as np
+
+    from commefficient_tpu_torch import native
+    from commefficient_tpu_torch.data import CifarAugment, ImageNetAugment
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    first_call_s = time.perf_counter() - t0
+    check(ok, f"native: the library did not build: {native.build_error()}")
+    rng = np.random.default_rng(0)
+    res = {}
+    for name, aug, size, n_data in (("cifar", CifarAugment(), 32, 50_000),
+                                    ("rrc", ImageNetAugment(), 64, 4_096)):
+        for dtype in ("uint8", "float32"):
+            shape = (n_data, size, size, 3)
+            x = (rng.integers(0, 256, shape).astype(np.uint8)
+                 if dtype == "uint8" else
+                 rng.normal(0, 60, shape).astype(np.float32))
+            idx = rng.integers(0, n_data, 512)
+            p = aug.plan(rng, 512, size, size)
+            want = aug.apply(np.ascontiguousarray(x[idx]), p)
+            got = aug.gather_apply(x, idx, p)
+            check(np.array_equal(got, want),
+                  f"native: {name} {dtype} differs from numpy")
+            res[f"{name}_{dtype}"] = dict(
+                bit_equal=True,
+                numpy_ms=_median_ms(lambda: aug.apply(
+                    np.ascontiguousarray(x[idx]), p)),
+                native_ms=_median_ms(lambda: aug.gather_apply(x, idx, p)))
+            del x
+    phase("native", available=ok, library=native.library_path().name,
+          build_s=native.build_seconds, first_call_s=round(first_call_s, 3),
+          cpu_count=os.cpu_count(), omp_threads=native.omp_threads(),
+          omp_num_threads_env=os.environ.get("OMP_NUM_THREADS"),
+          **{f"{k}_{f}": v for k, r in res.items() for f, v in r.items()})
+
+
+HOST_PIPELINE_ROUNDS = 5
+
+
+def host_pipeline_phase(torch, kern, cv_train, dataset_dir, work):
+    """The main path at full width (``MAIN_ARGS``, HOST_PIPELINE_ROUNDS
+    rounds) on the host path (``--device_data false``) and on the device
+    path, each at ``--pipeline_depth`` 0 (the sampler's prefetch thread)
+    and 2 (the pipelined engine, staged copies), on deterministic cuDNN:
+    each run's round ms and wait ms (median after the first), the
+    engine's ``stats()`` at depth 2 (every round staged on the card), K1
+    twice and K2 once a round, and the params and every FedState leaf
+    after the last round bit-equal across the four runs."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res, states = {}, {}
+    n = HOST_PIPELINE_ROUNDS
+    try:
+        kern.reset_launch_counts()
+        for data in ("host", "device"):
+            for depth in (0, 2):
+                name = f"{data}_depth{depth}"
+                ck = os.path.join(work, f"pipeline_{name}")
+                extra = (["--device_data", "false"] if data == "host"
+                         else []) + ["--pipeline_depth", str(depth)]
+                out = cv_train.main(MAIN_ARGS + extra + [
+                    "--max_rounds", str(n), "--dataset_dir", dataset_dir,
+                    "--checkpoint_dir", ck])
+                hist = out["history"]
+                check(out["data_path"] == data and len(hist) == n
+                      and all(math.isfinite(h["loss"]) for h in hist),
+                      f"host_pipeline {name}: data={out['data_path']}, "
+                      f"{len(hist)} rounds")
+                stats = out["pipeline_stats"]
+                if depth:
+                    check(stats["rounds"] == n
+                          and stats["staged_copies"] == n,
+                          f"host_pipeline {name}: staged {stats}")
+                res[name] = dict(
+                    round_ms=[round(h["ms"], 3) for h in hist],
+                    wait_ms=[round(h["data_ms"], 3) for h in hist],
+                    median_round_ms_after_first=statistics.median(
+                        h["ms"] for h in hist[1:]),
+                    median_wait_ms_after_first=statistics.median(
+                        h["data_ms"] for h in hist[1:]),
+                    losses=[h["loss"] for h in hist], stats=stats)
+                states[name] = load_state(os.path.join(ck, f"step_{n}.pt"))
+        launches = kern.launch_counts()
+        forms = kern.form_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    ref = states["host_depth0"]
+    same = {name: all((ref[k] is None and st[k] is None) or bool(
+        torch.is_tensor(ref[k]) and torch.equal(ref[k], st[k]))
+        or ref[k] == st[k] for k in ref) for name, st in states.items()}
+    phase("host_pipeline", **{f"{k}_{f}": (json.dumps(v) if f == "stats"
+                                           else v)
+                              for k, r in res.items() for f, v in r.items()},
+          leaves_bit_equal_to_host_depth0=json.dumps(same),
+          launches=launches)
+    for data in ("host", "device"):
+        check(same[f"{data}_depth0"] and same[f"{data}_depth2"],
+              f"host_pipeline: {data} path's depths differ: {same}")
+    check(all(same.values()), f"host_pipeline: leaves differ: {same}")
+    check(launches["sketch_rows"] == 2 * 4 * n
+          and launches["estimate_median"] == 4 * n,
+          f"host_pipeline: launches {launches}")
+    return forms
+
+
+def baseline5_host_phase(torch, cv_train, dataset_dir):
+    """BASELINE #5 at the default gate (the 983 MB stand-in over it: the
+    host path, the native RRC), FIXUP_ROUNDS rounds through
+    ``cv_train.main`` at ``--pipeline_depth`` 0 and 2: each run's round ms
+    and wait ms; then the busy share at both depths, measured in turns
+    (0, 2, 2, 0)."""
+    args = MAIN_ARGS + IMAGENET_FLAGS + FEDAVG_FLAGS
+    res = {}
+    for depth in (0, 2):
+        name = f"depth{depth}"
+        out = cv_train.main(args + ["--pipeline_depth", str(depth),
+                                    "--max_rounds", str(FIXUP_ROUNDS),
+                                    "--dataset_dir", dataset_dir])
+        hist = out["history"]
+        check(out["data_path"] == "host" and len(hist) == FIXUP_ROUNDS
+              and all(math.isfinite(h["loss"]) for h in hist),
+              f"baseline5_host {name}: data={out['data_path']}")
+        if depth:
+            st = out["pipeline_stats"]
+            check(st["staged_copies"] == FIXUP_ROUNDS,
+                  f"baseline5_host: staged {st}")
+        res[name] = dict(round_ms=[round(h["ms"], 3) for h in hist],
+                         wait_ms=[round(h["data_ms"], 3) for h in hist],
+                         losses=[h["loss"] for h in hist],
+                         stats=json.dumps(out["pipeline_stats"]))
+    check(res["depth0"]["losses"] == res["depth2"]["losses"],
+          "baseline5_host: the depths' losses differ")
+    # the depths in turns (0, 2, 2, 0) in one process: the spread between
+    # processes is wider than the difference between the depths
+    d2 = ["--pipeline_depth", "2"]
+    busy = busy_shares(torch, cv_train, args, runs=(
+        ("depth0", [], "host"), ("depth2", d2, "host"),
+        ("depth2_b", d2, "host"), ("depth0_b", [], "host")))
+    for name in ("depth0", "depth2"):
+        a, b = busy[name], busy[f"{name}_b"]
+        res[name].update({f"busy_{k}": [a[k], b[k]] for k in a
+                          if k != "pipeline_depth"})
+    phase("baseline5_host", pr10_host_round_ms=589.09,
+          pr10_device_round_ms=179.81,
+          **{f"{k}_{f}": v for k, r in res.items() for f, v in r.items()})
 
 
 def imagenet_fedavg_phase(torch, cv_train, dataset_dir):
@@ -2267,9 +2455,14 @@ def main() -> int:
         # the other datasets, FixupResNet-50, the device-resident data
         paths["device_data"] = device_data_phase(torch, kern, cv_train,
                                                  dataset_dir, work)
+        # the host round pipeline: native assembly, prefetch, staging
+        native_phase()
+        paths["host_pipeline"] = host_pipeline_phase(
+            torch, kern, cv_train, dataset_dir, work)
     rrc_phase(torch, dev)
     femnist_phase(kern, cv_train, dataset_dir)
     imagenet_fedavg_phase(torch, cv_train, dataset_dir)
+    baseline5_host_phase(torch, cv_train, dataset_dir)
     paths["imagenet_fixup_sketch"] = imagenet_sketch_phase(
         torch, kern, cv_train, dataset_dir)
     paths["cifar100"] = cifar100_phase(kern, cv_train, dataset_dir)

@@ -5,9 +5,10 @@
 * the ``flat`` and ``concentrated`` synthetic stand-ins used when the real
   data is absent (same numpy draws from the same seed as the reference);
 * ``CifarAugment``'s numpy plan and apply: pad(4) + random crop + hflip +
-  cutout(8), on uint8 images, and ``device_apply``, the same plan as torch
-  index and select ops on the device-resident training set (bit-equal to
-  ``apply``);
+  cutout(8), on uint8 images; ``gather_apply``, the gather and the apply
+  fused in the native library (``commefficient_tpu_torch/native``); and
+  ``device_apply``, the same plan as torch index and select ops on the
+  device-resident training set (each bit-equal to ``apply``);
 * the normalizer, here a torch op applied on the batch's device.
 """
 
@@ -255,6 +256,17 @@ class CifarAugment:
         mask = ymask[:, :, None] & xmask[:, None, :]
         out[mask] = self._fill(out.dtype, c)
         return out
+
+    def gather_apply(self, data: np.ndarray, idx: np.ndarray,
+                     p: AugmentPlan, out=None):
+        """``apply(data[idx], p)`` fused in the native library (bit-equal),
+        written into ``out`` when given; None without the library (the
+        sampler then gathers and applies in numpy)."""
+        from commefficient_tpu_torch import native
+
+        return native.gather_augment(
+            data, idx, p, pad=self.pad, cut_half=self.cut_half,
+            fill=self._fill(data.dtype, data.shape[-1]), out=out)
 
     def device_apply(self, x: torch.Tensor, *plan) -> torch.Tensor:
         """``apply`` as torch ops on ``x``'s device (the device-resident

@@ -11,10 +11,12 @@ resolution.
 
 ``ImageNetAugment`` is the train-time random-resized-crop + horizontal
 flip, split into a plan (the draws, torchvision's RRC sequence) and the
-pixel work, which runs in numpy on the host (``apply``) or as torch ops on
-the device-resident training set (``device_apply``). The bilinear lerp is
-written ``a + (b - a) * t`` in float32 on both, so the two agree to the
-last bit up to the order the device may fuse a product and a sum in.
+pixel work, which runs in numpy on the host (``apply``), fused with the
+gather in the native library (``gather_apply``, bit-equal to ``apply``), or
+as torch ops on the device-resident training set (``device_apply``). The
+bilinear lerp is written ``a + (b - a) * t`` in float32 in all three, so
+they agree to the last bit up to the order the device may fuse a product
+and a sum in (the native library is built not to fuse them).
 """
 
 from __future__ import annotations
@@ -167,6 +169,16 @@ class ImageNetAugment:
             out = val.astype(x.dtype)
         out[p.flips] = out[p.flips, :, ::-1]
         return out
+
+    def gather_apply(self, data: np.ndarray, idx: np.ndarray, p: RRCPlan,
+                     out=None):
+        """``apply(data[idx], p)`` fused in the native library (bit-equal:
+        the same float32 operations in the same order), written into
+        ``out`` when given; None without the library (the sampler then
+        gathers and applies in numpy)."""
+        from commefficient_tpu_torch import native
+
+        return native.gather_rrc(data, idx, p, out=out)
 
     def device_apply(self, x: torch.Tensor, *plan) -> torch.Tensor:
         """``apply`` as torch ops on ``x``'s device; ``plan`` is the

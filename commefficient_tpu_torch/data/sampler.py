@@ -1,25 +1,31 @@
 """FedSampler — per-round client participation and batch assembly.
 
-The port's own copy of the numpy path of
-``commefficient_tpu/data/sampler.py``: each round draws ``num_workers``
-distinct clients and one flat ``[W*B]`` gather (+ plan-based augmentation)
-from ``default_rng((seed, round))``, the same draw sequence as the
-reference, so the same seed gives the same batches in both packages. The
-reference's native C++ gather is not ported (its output is pinned equal to
-this numpy path in the reference's own tests).
+The port's own copy of ``commefficient_tpu/data/sampler.py``: each round
+draws ``num_workers`` distinct clients and one flat ``[W*B]`` gather (+
+plan-based augmentation) from ``default_rng((seed, round))``, the same draw
+sequence as the reference, so the same seed gives the same batches in both
+packages. The gather and augment run fused in the native C++ library
+(``commefficient_tpu_torch/native``, bit-equal to numpy) where it builds,
+and in numpy otherwise; ``native.available()`` says which.
 
 ``sample_round_indices`` is the index-only form for the device-resident
 training set: the same draws, returned as ``[W, B]`` sample indices and
 the augment plan, so gathering ``data[idx]`` and applying the plan on the
-device reproduces ``sample_round``'s batch.
+device reproduces ``sample_round``'s batch. ``epoch`` and
+``epoch_indices`` yield an epoch's rounds in order, and ``prefetch`` runs
+such an iterator in a background thread a few items ahead (the runner's
+round source at ``pipeline_depth 0``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from commefficient_tpu_torch import native
 from commefficient_tpu_torch.data.fed_dataset import FedDataset
 
 Batch = Dict[str, np.ndarray]
@@ -71,17 +77,30 @@ class FedSampler:
         ]).astype(np.int64)
         return rng, clients, flat
 
-    def sample_round(self, round_idx: int) -> Tuple[np.ndarray, Batch]:
-        """(client_ids [W] int32, batch {k: [W, B, ...]}) for one round."""
+    def sample_round(self, round_idx: int, alloc: Optional[Callable] = None
+                     ) -> Tuple[np.ndarray, Batch]:
+        """(client_ids [W] int32, batch {k: [W, B, ...]}) for one round.
+        ``alloc(key, shape, dtype)``, when given, returns the buffer the
+        native gather writes key's ``[W*B, ...]`` array into (the staging
+        ring's pinned memory); without the library the arrays are numpy's
+        own."""
         rng, clients, flat = self._draw(round_idx)
         W, B = self.num_workers, self.local_batch_size
+        fused = self._fusable and native.available()
         batch: Batch = {}
         for k, v in self.dataset.data.items():
+            buf = (alloc(k, (W * B,) + v.shape[1:], v.dtype)
+                   if fused and alloc is not None else None)
             if k == "x" and self.augment is not None:
                 p = self.augment.plan(rng, W * B, v.shape[1], v.shape[2])
-                out = self.augment.apply(np.ascontiguousarray(v[flat]), p)
+                out = (self.augment.gather_apply(v, flat, p, out=buf)
+                       if fused else None)
+                if out is None:
+                    out = self.augment.apply(np.ascontiguousarray(v[flat]), p)
             else:
-                out = v[flat]
+                out = native.gather_rows(v, flat, out=buf) if fused else None
+                if out is None:
+                    out = v[flat]
             batch[k] = out.reshape((W, B) + out.shape[1:])
         return clients.astype(np.int32), batch
 
@@ -104,3 +123,68 @@ class FedSampler:
                                            x.shape[2]))
         return (clients.astype(np.int32), flat.astype(np.int32).reshape(W, B),
                 plan)
+
+    def epoch(self, epoch_idx: int):
+        """``sample_round`` for each round of epoch ``epoch_idx``, in order."""
+        steps = self.steps_per_epoch()
+        for s in range(epoch_idx * steps, (epoch_idx + 1) * steps):
+            yield self.sample_round(s)
+
+    def epoch_indices(self, epoch_idx: int):
+        """``sample_round_indices`` for each round of epoch ``epoch_idx``."""
+        steps = self.steps_per_epoch()
+        for s in range(epoch_idx * steps, (epoch_idx + 1) * steps):
+            yield self.sample_round_indices(s)
+
+
+def prefetch(it: Iterable, depth: int = 2) -> Iterator:
+    """Run ``it`` in a background thread, ``depth`` items ahead.
+
+    The host batch assembly (the native gather, which releases the GIL, or
+    numpy, which releases it inside its vectorized loops) then overlaps the
+    round the consumer launches. An exception in the producer re-raises at
+    the consumer. When the consumer stops early (an exception mid-epoch, a
+    ``max_rounds`` cut, the generator closed), the queue is drained and the
+    stop flag set, so the producer exits after the item it is drawing
+    instead of blocking on the full queue; closing the generator joins
+    it."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            for item in it:
+                if not put(item) or stop.is_set():
+                    return
+            put(end)
+        except BaseException as e:  # noqa: BLE001 — re-raised at consumer
+            put(e)
+
+    t = threading.Thread(target=run, name="sampler-prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        try:  # wake a producer blocked on the full queue at once
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        t.join(timeout=10.0)  # at most the item it is drawing

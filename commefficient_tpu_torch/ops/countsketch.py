@@ -601,12 +601,18 @@ def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):
     return idx, vals
 
 
-def unsketch(spec: CountSketch, table: torch.Tensor, k: int) -> torch.Tensor:
-    """``unsketch_sparse`` as a dense [d] vector with k nonzeros."""
-    idx, vals = unsketch_sparse(spec, table, k)
-    out = torch.zeros(spec.d, dtype=vals.dtype, device=vals.device)
+def topk_scatter(v: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact decode's selection: ``topk_sparsify``'s k entries of flat
+    ``v`` scattered into a dense zero vector."""
+    vals, idx = topk_sparsify(v, k)
+    out = torch.zeros_like(v)
     out[idx] = vals
     return out
+
+
+def unsketch(spec: CountSketch, table: torch.Tensor, k: int) -> torch.Tensor:
+    """``unsketch_sparse`` as a dense [d] vector with k nonzeros."""
+    return topk_scatter(estimate_all(spec, table), k)
 
 
 def unsketch_dense(spec: CountSketch, table: torch.Tensor,

@@ -12,6 +12,7 @@ and ``FedOptimizer`` the schedule clock (``step()``).
 
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -38,9 +39,85 @@ from commefficient_tpu_torch.parallel.round import (
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _as_device(a, device) -> torch.Tensor:
+    """``a`` (a numpy array, or a tensor) on ``device``; a tensor already
+    there passes through as itself."""
+    if torch.is_tensor(a):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+    return {k: _as_device(v, device) for k, v in batch.items()}
+
+
+class RoundStager:
+    """Copies a round's host arrays to the card ahead of its dispatch, for
+    the pipelined engine's worker thread that owns it.
+
+    Each array goes through a ring of ``slots`` pinned host buffers per key
+    (``pin_memory()`` a round would pay ``cudaHostAlloc`` every time): the
+    native gather writes straight into the next buffer (``host_buffer``,
+    the sampler's ``alloc``), or the array is copied in; a buffer is reused
+    only once the event recorded after its last copy has completed, so a
+    copy in flight is never overwritten. The copies run with
+    ``non_blocking=True`` on this stager's own ``torch.cuda.Stream``, and
+    one event is recorded after a round's copies; the round's dispatch makes
+    the compute stream wait on it and ``record_stream``s each staged tensor
+    (``FederatedSession._consume``), so the caching allocator does not hand
+    the block to another stream while the round reads it."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.slots = max(2, int(slots))
+        torch.cuda.set_device(device)  # the current device is per thread
+        self.stream = torch.cuda.Stream(device)
+        self._rings: Dict[str, list] = {}  # key -> [[pinned, event], ...]
+        self._next: Dict[str, int] = {}
+        self._handed: Dict[str, torch.Tensor] = {}  # key -> last buffer
+
+    def host_buffer(self, key: str, shape, dtype) -> np.ndarray:
+        """The next pinned buffer of ``key``'s ring as a ``shape``/``dtype``
+        numpy array, once its last copy has completed."""
+        ring = self._rings.setdefault(key, [[None, None]
+                                            for _ in range(self.slots)])
+        i = self._next.get(key, 0)
+        self._next[key] = (i + 1) % self.slots
+        slot = ring[i]
+        if slot[1] is not None:
+            slot[1].synchronize()  # the copy that read it has finished
+            slot[1] = None
+        tdt = torch.from_numpy(np.empty(0, dtype)).dtype
+        if (slot[0] is None or slot[0].dtype != tdt
+                or tuple(slot[0].shape) != tuple(shape)):
+            slot[0] = torch.empty(tuple(shape), dtype=tdt, pin_memory=True)
+        self._handed[key] = slot
+        return slot[0].numpy()
+
+    def stage(self, arrays: Dict[str, Any]):
+        """``({key: device tensor}, ready event)``: each host array copied
+        into its pinned buffer (unless the native gather already wrote it
+        there) and from there to the card on this stager's stream."""
+        pinned = {}
+        for k, a in arrays.items():
+            a = np.asarray(a)
+            slot = self._handed.pop(k, None)
+            if slot is None or not (a.flags.c_contiguous
+                                    and a.ctypes.data == slot[0].data_ptr()
+                                    and a.nbytes == slot[0].nbytes):
+                self.host_buffer(k, a.shape, a.dtype)[...] = a
+                slot = self._handed.pop(k)
+            pinned[k] = (slot, a.shape)
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, (slot, shape) in pinned.items():
+                out[k] = slot[0].reshape(shape).to(self.device,
+                                                   non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        for slot, _ in pinned.values():
+            slot[1] = ready
+        return out, ready
 
 
 def envelope_warning(d: int, c_actual: int,
@@ -149,6 +226,11 @@ class FederatedSession:
         # data path the rounds take is ``data_path``
         self.dev_data: Optional[Dict[str, torch.Tensor]] = None
         self.dev_augment = None
+        self._staging = threading.local()  # a RoundStager per thread
+        # the device with its index: another thread starts on device 0
+        self._cuda_device = (torch.device("cuda", torch.cuda.current_device())
+                             if self.device.type == "cuda"
+                             and self.device.index is None else self.device)
 
     @property
     def data_path(self) -> str:
@@ -182,13 +264,86 @@ class FederatedSession:
 
     def local_clients(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's slice ``[p*w_loc, (p+1)*w_loc)`` of a round's
-        ``[W, ...]`` host batch."""
+        ``[W, ...]`` batch (host arrays, or staged device tensors)."""
         w_loc = self.cfg.num_workers // self.group.size
         lo = self.group.rank * w_loc
-        return {k: np.asarray(v)[lo:lo + w_loc] for k, v in batch.items()}
+        return {k: (v if torch.is_tensor(v) else np.asarray(v))[lo:lo + w_loc]
+                for k, v in batch.items()}
+
+    # -- early H2D copies (the pipelined engine's worker thread) ----------
+    def _stager(self) -> Optional[RoundStager]:
+        """This thread's ``RoundStager`` (its stream and pinned rings), made
+        on first use; None on the CPU, where staging is the identity."""
+        if self.device.type != "cuda":
+            return None
+        st = getattr(self._staging, "stager", None)
+        if st is None:
+            st = RoundStager(self._cuda_device, self.cfg.pipeline_depth + 1)
+            self._staging.stager = st
+        return st
+
+    @property
+    def staging_alloc(self):
+        """The sampler's ``alloc`` for this thread (the next pinned buffer
+        of the stager's ring), or None on the CPU."""
+        st = self._stager()
+        return None if st is None else st.host_buffer
+
+    def _host_ids(self, client_ids) -> np.ndarray:
+        host = np.asarray(client_ids, dtype=np.int64)
+        if (host.shape != (self.cfg.num_workers,) or host.min() < 0
+                or host.max() >= self.cfg.num_clients):
+            raise ValueError(
+                f"client_ids must be {self.cfg.num_workers} ids in "
+                f"[0, {self.cfg.num_clients}), got {host.tolist()}")
+        return host
+
+    def stage_round_payload(self, client_ids, batch: Dict[str, Any]):
+        """Start one round's H2D copy now, from the calling (staging)
+        thread: ``(client_ids, batch, ready)`` for ``train_round(...,
+        ready=ready)``. On the card the ids (checked here, on the host) and
+        the ``[W, ...]`` arrays are copied from pinned memory on the
+        thread's own stream and ``ready`` is the event after the copies;
+        on the CPU this is the identity (``ready`` None)."""
+        st = self._stager()
+        if st is None:
+            return client_ids, batch, None
+        arrays = dict(batch)
+        if client_ids is not None:
+            arrays["\0ids"] = self._host_ids(client_ids)
+        dev, ready = st.stage(arrays)
+        ids = dev.pop("\0ids", None)
+        return ids, dev, ready
+
+    def stage_round_indices(self, client_ids, idx, plan):
+        """``stage_round_payload`` for the index round: ``(client_ids, idx,
+        plan, ready)`` for ``train_round_indices(..., ready=ready)``, the
+        ``[W, B]`` indices and the plan's ``[W*B]`` arrays copied early
+        (the identity on the CPU)."""
+        st = self._stager()
+        if st is None:
+            return client_ids, idx, plan, None
+        arrays = {"\0idx": idx, **{f"\0plan{i}": a
+                                    for i, a in enumerate(plan)}}
+        if client_ids is not None:
+            arrays["\0ids"] = self._host_ids(client_ids)
+        dev, ready = st.stage(arrays)
+        return (dev.get("\0ids"), dev["\0idx"],
+                tuple(dev[f"\0plan{i}"] for i in range(len(plan))), ready)
+
+    def _consume(self, ready, tensors) -> None:
+        """Before a staged round's first use: the compute stream waits on
+        the staging event, and each staged tensor is recorded on it."""
+        if ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(ready)
+        for t in tensors:
+            if torch.is_tensor(t):
+                t.record_stream(cur)
 
     def train_round(self, client_ids, batch: Dict[str, Any], lr: float,
-                    env=None):
+                    env=None, ready=None):
         """One round on ``batch`` ({k: [W, B, ...]} host arrays, for fedavg
         ``[W, L, B, ...]`` (``microbatched``); the same on every rank, and
         each rank computes its own clients). ``client_ids`` ([W] ints) name
@@ -202,12 +357,17 @@ class FederatedSession:
         environment's draw for this round (tests drive explicit masks
         through it); by default a fedsim session realizes round
         ``state.step``'s environment. An ``env`` for a session built
-        without fedsim raises."""
+        without fedsim raises.
+
+        A staged round (``stage_round_payload``) passes its device tensors
+        and ``ready``: they go through as they are, after the compute
+        stream waits on ``ready``."""
+        self._consume(ready, [client_ids, *batch.values()])
         return self._round(client_ids, _to_device(
             self.local_clients(batch), self.device), lr, env)
 
     def train_round_indices(self, client_ids, idx, plan, lr: float,
-                            env=None):
+                            env=None, ready=None):
         """One round from the attached training set (``attach_data``):
         ``idx`` ``[W, B]`` sample indices and ``plan`` the augment plan's
         ``[W*B]`` arrays (``()`` without an augment), as
@@ -215,23 +375,25 @@ class FederatedSession:
         clients' rows are gathered on the device in one flat gather, the
         augment's ``device_apply`` runs on them, and the batch, shaped
         ``[w, B, ...]`` (fedavg: ``[w, L, B/L, ...]``), goes through the
-        round ``train_round`` runs. Returns what ``train_round`` does."""
+        round ``train_round`` runs. Returns what ``train_round`` does.
+        Staged ``idx`` and ``plan`` (``stage_round_indices``) go through as
+        they are, after the compute stream waits on ``ready``."""
         if self.dev_data is None:
             raise ValueError("train_round_indices needs the training set "
                              "on the device: call attach_data first")
+        self._consume(ready, [client_ids, idx, *plan])
         w_loc = self.cfg.num_workers // self.group.size
         lo = self.group.rank * w_loc
-        idx = np.asarray(idx)[lo:lo + w_loc]
+        idx = _as_device(idx, self.device)[lo:lo + w_loc]
         B = idx.shape[1]
-        flat = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(
-            self.device)
+        flat = idx.reshape(-1).to(torch.int64)
         batch = {}
         for k, v in self.dev_data.items():
             g = v[flat]
             if k == "x" and self.dev_augment is not None:
                 g = self.dev_augment.device_apply(g, *(
-                    torch.from_numpy(np.asarray(a)[lo * B:(lo + w_loc) * B])
-                    .to(self.device) for a in plan))
+                    _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
+                    for a in plan))
             batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
         return self._round(client_ids, microbatched(self.cfg, batch), lr,
                            env)
@@ -249,14 +411,11 @@ class FederatedSession:
                 "nothing); construct the Config with availability/chaos "
                 "set to drive masked rounds")
         ids = None
-        if client_ids is not None:
-            host = np.asarray(client_ids, dtype=np.int64)
-            if (host.shape != (self.cfg.num_workers,) or host.min() < 0
-                    or host.max() >= self.cfg.num_clients):
-                raise ValueError(
-                    f"client_ids must be {self.cfg.num_workers} ids in "
-                    f"[0, {self.cfg.num_clients}), got {host.tolist()}")
-            ids = torch.from_numpy(host).to(self.device)
+        if torch.is_tensor(client_ids) and client_ids.is_cuda:
+            ids = client_ids  # staged: checked on the host when staged
+        elif client_ids is not None:
+            ids = torch.from_numpy(self._host_ids(client_ids)).to(
+                self.device)
         lr = float(np.float32(lr))  # the reference's f32 lr
         self.state, metrics = self.round_fn(self.state, ids, batch, lr,
                                             env=env)

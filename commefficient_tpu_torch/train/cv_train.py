@@ -51,6 +51,13 @@ training set fits ``--device_data_max_mb`` (512 MB by default) it lives on
 the device and each round ships only indices and the augment plan; the
 header line says which path runs (``data=device|host``), and
 ``--device_data false`` keeps the host path.
+
+The host side of a round: the sampler assembles a batch in the native C++
+library (``native=yes`` in the header; numpy where it cannot be built) in
+a background thread two rounds ahead. ``--pipeline_depth N`` (N > 0) runs
+the pipelined engine instead: a worker realizes N rounds ahead and copies
+each round's arrays to the card early (pinned buffers, a side stream), and
+the values stay those of depth 0.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ from commefficient_tpu_torch.models import (
     model_dtype,
     resnet9_apply,
 )
+from commefficient_tpu_torch import native
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
@@ -180,8 +188,9 @@ def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     (per-round step/lr/loss/ms/data_ms), ``grad_size``, ``bytes_per_round``,
     ``param_delta_norm`` (how far the run moved the params) and
     ``sketch_decode`` (the server decode the session ran), ``checkpoint``
-    (the runner's checkpoint facts), ``final_step`` and ``data_path``
-    (``device`` or ``host``). ``model_kw`` narrows the model
+    (the runner's checkpoint facts), ``final_step``, ``data_path``
+    (``device`` or ``host``) and ``pipeline_stats`` (the pipelined
+    engine's ``stats()``, None at depth 0). ``model_kw`` narrows the model
     (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
@@ -208,7 +217,9 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
         f"mode={cfg.mode} clients={train.num_clients} "
         f"workers={cfg.num_workers} devices={session.group.size} "
         f"device={session.device} decode={session.sketch_decode_resolved} "
-        f"data={session.data_path}")
+        f"data={session.data_path} "
+        f"native={'yes' if native.available() else 'no'} "
+        f"pipeline_depth={cfg.pipeline_depth}")
     if not real:
         say("WARNING: real dataset not found on disk — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
@@ -216,11 +227,13 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     p0 = session.state.params_vec.clone()
+    pipeline_stats = {}
     val, history, ckpt = run_train_loop(
         cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
         on_round=lambda r: print(
             f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
-            f"ms={r['ms']:.2f}", flush=True))
+            f"ms={r['ms']:.2f}", flush=True),
+        engine_stats=pipeline_stats)
     if val:
         say(f"final: val_loss={val['loss']:.4f} "
             f"val_acc={val.get('accuracy', 0):.4f}")
@@ -229,7 +242,8 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
             "checkpoint": ckpt, "final_step": session.state.step,
-            "data_path": session.data_path}
+            "data_path": session.data_path,
+            "pipeline_stats": pipeline_stats or None}
 
 
 if __name__ == "__main__":

@@ -57,6 +57,7 @@ from commefficient_tpu_torch.models import (
 )
 from commefficient_tpu_torch.models.generate import generate
 from commefficient_tpu_torch.models.hf_gpt2 import load_hf_gpt2_params
+from commefficient_tpu_torch import native
 from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
@@ -195,7 +196,9 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
     step/lr/loss/ms), ``grad_size``, ``bytes_per_round``,
     ``param_delta_norm``, ``sketch_decode``, ``checkpoint`` (the runner's
     checkpoint facts), ``final_step``, ``samples`` (each epoch's
-    ``(prompt, generated)`` token ids), ``hf_weights`` and ``real``. Under
+    ``(prompt, generated)`` token ids), ``hf_weights``, ``real``,
+    ``data_path`` and ``pipeline_stats`` (the pipelined engine's
+    ``stats()`` at ``--pipeline_depth`` > 0, else None). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank; rank 0
     alone evaluates and prints."""
     cfg = parse_args(argv, defaults=DEFAULTS, **overrides)
@@ -222,7 +225,9 @@ def _train(cfg: Config, eval_batch_size: int):
         f"hf_weights={hf_loaded}) mode={cfg.mode} "
         f"clients={train.num_clients} workers={cfg.num_workers} "
         f"devices={session.group.size} device={session.device} "
-        f"decode={session.sketch_decode_resolved} data={session.data_path}")
+        f"decode={session.sketch_decode_resolved} data={session.data_path} "
+        f"native={'yes' if native.available() else 'no'} "
+        f"pipeline_depth={cfg.pipeline_depth}")
     if not real:
         say("WARNING: personachat json not found — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
@@ -231,11 +236,13 @@ def _train(cfg: Config, eval_batch_size: int):
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
     p0 = session.state.params_vec.clone()
+    pipeline_stats = {}
     val, history, ckpt = run_train_loop(
         cfg, session, sampler, hooks,
         on_round=lambda r: print(
             f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
-            f"ms={r['ms']:.2f}", flush=True))
+            f"ms={r['ms']:.2f}", flush=True),
+        engine_stats=pipeline_stats)
     if val:
         say(f"final: val_nll={val['nll']:.4f} ppl={val['ppl']:.2f} "
             f"mc_acc={val['mc_accuracy']:.4f}")
@@ -245,7 +252,8 @@ def _train(cfg: Config, eval_batch_size: int):
             "sketch_decode": session.sketch_decode_resolved,
             "samples": hooks.samples, "hf_weights": hf_loaded, "real": real,
             "checkpoint": ckpt, "final_step": session.state.step,
-            "data_path": session.data_path}
+            "data_path": session.data_path,
+            "pipeline_stats": pipeline_stats or None}
 
 
 if __name__ == "__main__":

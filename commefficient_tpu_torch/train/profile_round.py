@@ -35,7 +35,9 @@ timed alone (CUDA events around one call, median of 5; host launch gaps
 count) on the state after the timed rounds:
 
 * sketch with ``error_type virtual``, dense decode: ``estimate_all``,
-  ``topk``, ``ef_resketch``, ``rest``; sharded decode: ``k4_estimate``,
+  ``topk`` (the selection ``comp.unsketch`` runs: the exact top-k's
+  ``nonzero`` form with its scatter, or the threshold bisection),
+  ``ef_resketch``, ``rest``; sharded decode: ``k4_estimate``,
   ``bisection``, ``compaction``, ``ef_resketch``, ``exchange_apply``;
 * true_topk: ``topk`` and ``rest`` (the momentum and error algebra);
 * powersgd: ``products`` (``M @ Q`` and ``M^T @ P_hat``),
@@ -50,14 +52,19 @@ count) on the state after the timed rounds:
 
 The server steps use the aggregate of one more batch (its clients'
 gradients as one flattened batch; only its kind and size matter here).
-Then rounds run through the session's own entry as the runner runs them,
-the sampler's draw included (``train_round_indices`` on the
-device-resident training set, ``train_round`` on the host batch): two
-warm-up, three on the host clock (``round_wall_ms``, the median), and
-one under ``torch.profiler``, whose device time is summed by kernel and
-by kind and set against ``round_wall_ms`` to give the device's busy share
+Then rounds run through the runner's own round source at the flags'
+``--pipeline_depth`` (``runner.round_source``: at 0 the sampler's prefetch
+thread, at N > 0 the pipelined engine with its staged copies; no metric
+read back): two warm-up (``pipeline_depth + 2`` at depth > 0, which
+allocate the staging ring), five on the host clock (``round_wall_ms``,
+the mean of the runner's round ``ms``: the first timed dispatch to a
+device synchronize after the last, over five; ``round_wait_ms`` the mean
+wait for a round's inputs), and one through the session's entry under
+``torch.profiler``, whose device time is summed by kernel and by kind and
+set against ``round_wall_ms`` to give the device's busy share
 (``round_busy_share``; not against the profiled round's own wall, which
-the profiler lengthens by its host cost per op). The last line of the output is a JSON summary.
+the profiler lengthens by its host cost per op). The last line of the
+output is a JSON summary.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ import json
 import re
 import statistics
 import time
+from contextlib import closing
 
 import numpy as np
 import torch
@@ -79,9 +87,12 @@ from commefficient_tpu_torch.ops.countsketch import (
     estimate_at_range,
     sketch_sparse,
     sketch_vec,
+    topk_scatter,
+    unsketch_dense,
 )
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
+    topk_threshold_dense,
     topk_threshold_sharded,
 )
 from commefficient_tpu_torch.parallel import FederatedSession
@@ -95,6 +106,7 @@ from commefficient_tpu_torch.parallel.round import (
 )
 from commefficient_tpu_torch.parallel.round import mask_gpt2
 from commefficient_tpu_torch.train import cv_train, gpt2_train
+from commefficient_tpu_torch.train.runner import round_source
 from commefficient_tpu_torch.utils.config import parse_args
 
 MAIN_PATH = ["--mode", "sketch", "--k", "50000", "--num_rows", "5",
@@ -133,12 +145,16 @@ def _event_ms(fn, reps: int = 5) -> float:
 def _dense_breakdown(session, agg, lr):
     """The dense sketch decode's server phase step by step (error_type
     virtual, the main path's): the estimates of every coordinate (K2), the
-    top-k with its scatter into [D], the error feedback's re-sketch of the
+    selection ``comp.unsketch`` runs on them (the exact top-k: the
+    ``nonzero`` form ``topk_sparsify`` with its scatter into [D]; the
+    threshold top-k: the bisection), the error feedback's re-sketch of the
     extracted update (K1) with its subtraction, and the rest, the momentum
     and error table algebra."""
     cfg, comp, spec, st = (session.cfg, session.compressor, session.spec,
                            session.state)
     rho = cfg.virtual_momentum
+    select = (topk_threshold_dense if comp.unsketch is unsketch_dense
+              else topk_scatter)
 
     def algebra():
         m = rho * st.momentum + agg if rho > 0 else agg
@@ -146,10 +162,10 @@ def _dense_breakdown(session, agg, lr):
 
     e = algebra()
     est = estimate_all(spec, e)
-    upd = comp.topk(est, cfg.k)
+    upd = select(est, cfg.k)
     return {
         "estimate_all": _event_ms(lambda: estimate_all(spec, e)),
-        "topk": _event_ms(lambda: comp.topk(est, cfg.k)),
+        "topk": _event_ms(lambda: select(est, cfg.k)),
         "ef_resketch": _event_ms(lambda: e - sketch_vec(comp._spec_acc,
                                                         upd)),
         "rest": _event_ms(algebra),
@@ -299,18 +315,34 @@ def entry_round(session, sampler, step: int, lr: float) -> float:
 
 
 def round_busy_share(session, sampler, step: int, lr: float, warm: int = 2,
-                     timed: int = 3) -> dict:
-    """The device's busy share of a round through ``entry_round``: ``warm``
-    rounds, ``timed`` rounds on the host clock (``round_wall_ms``, their
-    median), then one under ``torch.profiler`` whose device kernel time is
-    summed. The share is the device time over the unprofiled wall: the
-    profiler's own host cost per op lengthens the profiled round
-    (``profiled_round_wall_ms``), most for models of many small ops. The
-    rounds start at ``step`` and advance the session's state."""
-    for i in range(warm):
-        entry_round(session, sampler, step + i, lr)
-    walls = [entry_round(session, sampler, step + warm + i, lr)
-             for i in range(timed)]
+                     timed: int = 5) -> dict:
+    """The device's busy share of a round as the runner runs it: ``warm``
+    rounds (at least ``pipeline_depth + 2``, so the staging ring's pinned
+    buffers are allocated before the timing), then ``timed`` rounds
+    through the runner's ``round_source`` (the draw in
+    the round source's thread, no read-back), whose wall a round
+    (``round_wall_ms``) is the mean of the runner's ``ms``: from the first
+    timed round's dispatch to a device synchronize after the last, over
+    ``timed``; ``round_wait_ms`` is the mean wait for a round's inputs.
+    Then one round through ``entry_round`` under ``torch.profiler``, whose
+    device kernel time is summed. The share is the device time over the
+    unprofiled wall: the profiler's own host cost per op lengthens the
+    profiled round (``profiled_round_wall_ms``), most for models of many
+    small ops. The rounds start at ``step`` and advance the session's
+    state."""
+    warm = max(warm, session.cfg.pipeline_depth + 2)
+    torch.cuda.synchronize()
+    t_first, waits = None, []
+    with closing(round_source(session.cfg, session, sampler,
+                              lambda s: lr, step,
+                              step + warm + timed)) as rounds:
+        for i, (_, _, _, wait_ms, t_disp) in enumerate(rounds):
+            if i == warm:
+                t_first = t_disp
+            if i >= warm:
+                waits.append(wait_ms)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t_first) / timed
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -321,8 +353,9 @@ def round_busy_share(session, sampler, step: int, lr: float, warm: int = 2,
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     device_ms = sum(by_name.values())
-    wall = statistics.median(walls)
-    return {"round_wall_ms": wall, "profiled_round_wall_ms": profiled,
+    return {"round_wall_ms": wall, "round_wait_ms": statistics.mean(waits),
+            "pipeline_depth": session.cfg.pipeline_depth,
+            "profiled_round_wall_ms": profiled,
             "device_kernel_ms": device_ms,
             "device_busy_share": device_ms / wall,
             "device_ms_by_name": by_name}

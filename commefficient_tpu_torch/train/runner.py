@@ -1,27 +1,41 @@
 """The train-loop runner (the reference's ``train/runner.py``, minimal).
 
-Epoch loop with the piecewise-linear lr, one round per step, the round's
-loss read back every round, an end-of-epoch eval and a console row.
-Checkpoint/resume (``utils/checkpoint.py``): with ``cfg.resume`` the
-newest checkpoint is restored and the loop fast-forwards to its round (the
+Epoch loop with the piecewise-linear lr, one round per step, an
+end-of-epoch eval and a console row. The round source is chosen here, the
+one place ``cfg.pipeline_depth`` is read:
+
+* depth 0 (``_sync_epoch_rounds``, the reference's): the sampler's epoch
+  (``sampler.epoch``, or ``epoch_indices`` with the training set on the
+  device) runs through ``data/sampler.py::prefetch``, a background thread
+  two rounds ahead, so the draw and the batch assembly (the native gather,
+  GIL released) overlap the rounds the main thread launches; each round's
+  arrays are copied to the device at dispatch;
+* depth > 0: ``pipeline.PipelinedRounds``, whose worker realizes and
+  stages rounds (pinned buffers, a side stream) ``pipeline_depth`` ahead.
+
+Both yield the same rounds in the same order, bit for bit. No metric is
+read back a round: each round's ``(step, lr, metrics)`` goes to a
+``pending`` list, drained (the losses read back and accumulated, in step
+order) at each epoch's end and before each checkpoint save (``will_save``,
+then the drain, then the save). Checkpoint/resume (``utils/checkpoint.py``):
+with ``cfg.resume`` the newest checkpoint is restored and the loop
+fast-forwards to its round, skipping ``s < start`` within the epoch (the
 sampler, the lr schedule and the fedsim environment are pure functions of
 the round, so the resumed run is the unbroken one); a save every
 ``checkpoint_every`` rounds and a forced one at the end. The chaos plan's
-rounds are checked against the run length at entry. The reference's
-resilience, pipelining and telemetry are not ported (``Config`` refuses
-their flags). ``cfg.max_rounds > 0`` stops the run once ``max_rounds``
-rounds are done and evaluates once. With the training set on the device
-(``session.data_path == "device"``) each round is drawn as indices and
-the augment plan (``sampler.sample_round_indices``) and run by
-``session.train_round_indices``; both forms are pure functions of the
-round, so a resume fast-forwards the same way on either path.
+rounds are checked against the run length at entry.
+``cfg.max_rounds > 0`` stops the run once ``max_rounds`` rounds are done
+and evaluates once. The reference's resilience, control plane and
+telemetry are not ported (``Config`` refuses their flags).
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import closing
 from functools import partial
 
+from commefficient_tpu_torch.data.sampler import prefetch
 from commefficient_tpu_torch.parallel.api import microbatched
 from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
 from commefficient_tpu_torch.utils.schedule import piecewise_linear_lr
@@ -67,22 +81,87 @@ class WorkloadHooks:
         generation)."""
 
 
+def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
+                       start: int, stop: int):
+    """The synchronous round source (``pipeline_depth 0``): epoch
+    ``epoch``'s rounds in ``[start, stop)`` through the sampler's prefetch
+    thread, each dispatched as it arrives. Yields ``(step, lr, metrics,
+    wait_ms, t_dispatch)``: ``wait_ms`` the wait on the prefetch queue,
+    ``t_dispatch`` the ``perf_counter`` time the round was dispatched."""
+    spe = sampler.steps_per_epoch()
+    on_device = session.data_path == "device"
+    rounds = prefetch(sampler.epoch_indices(epoch) if on_device
+                      else sampler.epoch(epoch))
+    try:
+        s = epoch * spe
+        while s < min(stop, (epoch + 1) * spe):
+            t0 = time.perf_counter()
+            item = next(rounds)
+            wait_ms = 1e3 * (time.perf_counter() - t0)
+            if s >= start:  # fast-forward within the resumed epoch
+                lr = float(lr_fn(s))
+                t_disp = time.perf_counter()
+                if on_device:  # (client ids, [W, B] indices, the plan)
+                    metrics = session.train_round_indices(*item, lr)
+                else:  # (client ids, the host batch)
+                    client_ids, batch = item
+                    metrics = session.train_round(
+                        client_ids, microbatched(cfg, batch), lr)
+                yield s, lr, metrics, wait_ms, t_disp
+            s += 1
+    finally:
+        rounds.close()  # stops and joins the producer
+
+
+def round_source(cfg, session, sampler, lr_fn, start: int, stop: int):
+    """Rounds ``[start, stop)`` as ``run_train_loop`` runs them at
+    ``cfg.pipeline_depth`` (depth 0: ``_sync_epoch_rounds``, epoch by
+    epoch; depth > 0: a ``PipelinedRounds`` engine over the range, closed
+    at the end), with no metric read back: what ``profile_round`` times.
+    Yields ``(step, lr, metrics, wait_ms, t_dispatch)``."""
+    spe = sampler.steps_per_epoch()
+    engine = None
+    if cfg.pipeline_enabled:
+        from commefficient_tpu_torch.pipeline import PipelinedRounds
+
+        engine = PipelinedRounds(cfg, session, sampler, lr_fn, stop,
+                                 steps_per_epoch=spe).start(start)
+    try:
+        for epoch in range(start // spe, (stop - 1) // spe + 1):
+            if engine is not None:
+                yield from engine.epoch_rounds(epoch, start, stop)
+            else:
+                yield from _sync_epoch_rounds(cfg, session, sampler, lr_fn,
+                                              epoch, start, stop)
+    finally:
+        if engine is not None:
+            engine.close()
+
+
 def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
-                   on_round=None):
+                   on_round=None, engine_stats=None):
     """Run the epochs; returns ``(final val metrics, per-round history,
     checkpoint facts)``, the facts ``{"resumed_from", "save_ms",
     "restore_ms", "bytes"}`` (the round the run resumed from, 0 for a
     fresh run; the last save's and the restore's wall ms and the last
-    file's bytes, None where none happened). History rows are ``{"step",
-    "lr", "loss", "ms", "data_ms"}`` (and the ``fedsim/*`` scalars under
-    fedsim), ``ms`` the host wall time of the round up to its loss
-    read-back (which waits for the device), ``data_ms`` the host time of
-    the sampler's draw before it (on the host path the gather and augment
-    too). In a worker group every rank draws the same
-    rounds (same sampler seed) and trains; rank 0 alone
-    evaluates, prints and writes checkpoints, and the other ranks return
-    empty val metrics. Epochs wholly before the resumed round are
-    skipped, evaluation included."""
+    file's bytes, None where none happened).
+
+    History rows are ``{"step", "lr", "loss", "ms", "data_ms"}`` (and the
+    ``fedsim/*`` scalars under fedsim), filled at the drains; ``on_round``
+    gets each row once it is complete, in step order. ``data_ms`` is the
+    round's wait for its inputs: on the prefetch queue at depth 0, for the
+    staged work at depth > 0 (the host time the thread did not hide).
+    ``ms`` is the round's share of the wall clock: from its dispatch to
+    the next round's dispatch, and for an epoch's last round to the end of
+    the epoch's drain, so an epoch's ``ms`` sum to its training wall time
+    from the first dispatch (a drain and a save before a checkpoint fall
+    in the round they follow). ``engine_stats``, a dict, receives the
+    pipelined engine's ``stats()`` at depth > 0.
+
+    In a worker group every rank draws the same rounds (same sampler
+    seed) and trains; rank 0 alone evaluates, prints and writes
+    checkpoints, and the other ranks return empty val metrics. Epochs
+    wholly before the resumed round are skipped, evaluation included."""
     main = session.group.rank == 0
     steps_per_epoch = sampler.steps_per_epoch()
     num_rounds = steps_per_epoch * cfg.num_epochs
@@ -103,55 +182,85 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             if main:
                 print(f"resumed from checkpoint at round {start}")
     last = min(num_rounds, cfg.max_rounds) if cfg.max_rounds else num_rounds
-    on_device = session.data_path == "device"
     table = table or TableLogger()
     history = []
     val = {}
-    for epoch in range(cfg.num_epochs):
-        if (epoch + 1) * steps_per_epoch <= start:
-            continue  # fast-forward over the epochs before the resume
-        if epoch * steps_per_epoch >= last:
-            break
-        t_epoch = time.perf_counter()
-        acc = hooks.new_accumulator()
-        rounds = 0
-        lr = float(lr_fn(epoch * steps_per_epoch))
-        for s in range(max(start, epoch * steps_per_epoch),
-                       min(last, (epoch + 1) * steps_per_epoch)):
-            lr = float(lr_fn(s))
-            t_draw = time.perf_counter()
-            if on_device:  # (client ids, [W, B] indices, the plan)
-                drawn = sampler.sample_round_indices(s)
-                run = session.train_round_indices
-            else:  # (client ids, the host batch)
-                client_ids, batch = sampler.sample_round(s)
-                drawn = (client_ids, microbatched(cfg, batch))
-                run = session.train_round
-            t0 = time.perf_counter()
-            metrics = run(*drawn, lr)
-            loss = float(metrics["loss"])
-            row = {"step": s, "lr": lr, "loss": loss,
-                   "ms": 1e3 * (time.perf_counter() - t0),
-                   "data_ms": 1e3 * (t0 - t_draw),
-                   **{k: float(v) for k, v in metrics.items()
-                      if k.startswith("fedsim/")}}
-            history.append(row)
-            if on_round is not None and main:
-                on_round(row)
-            hooks.accumulate(acc, loss, metrics)
-            rounds += 1
-            checkpointer.maybe_save(session, s + 1)
-        train_time = time.perf_counter() - t_epoch
-        if main:
-            t_val = time.perf_counter()
-            val = hooks.evaluate()
-            table.append(hooks.epoch_row(
-                epoch=epoch, lr=lr, acc=acc, val=val, train_time=train_time,
-                val_time=time.perf_counter() - t_val, rounds=max(rounds, 1)))
-            hooks.on_epoch_end(epoch, val)
-    # the end-of-training save: a run's last rounds past the final
-    # checkpoint_every boundary would otherwise be lost to a resume
-    checkpointer.maybe_save(session, session.state.step, force=True)
+    engine = None
+    if cfg.pipeline_enabled and start < last:
+        from commefficient_tpu_torch.pipeline import PipelinedRounds
+
+        # built after the restore: its window starts at the resumed round
+        engine = PipelinedRounds(cfg, session, sampler, lr_fn, last,
+                                 steps_per_epoch=steps_per_epoch).start(start)
+    try:
+        for epoch in range(cfg.num_epochs):
+            if (epoch + 1) * steps_per_epoch <= start:
+                continue  # fast-forward over the epochs before the resume
+            if epoch * steps_per_epoch >= last:
+                break
+            t_epoch = time.perf_counter()
+            acc = hooks.new_accumulator()
+            pending = []  # (row, metrics) dispatched, not read back
+            unreported = []  # rows not yet given to on_round
+
+            def drain(_acc=acc, _pending=pending):
+                for row, metrics in _pending:
+                    loss = float(metrics["loss"])
+                    row["loss"] = loss
+                    row.update({k: float(v) for k, v in metrics.items()
+                                if k.startswith("fedsim/")})
+                    hooks.accumulate(_acc, loss, metrics)
+                _pending.clear()
+
+            def report(_unreported=unreported):
+                while _unreported and "loss" in _unreported[0] and \
+                        "ms" in _unreported[0]:
+                    row = _unreported.pop(0)
+                    if on_round is not None and main:
+                        on_round(row)
+
+            rounds = (engine.epoch_rounds(epoch, start, last)
+                      if engine is not None else
+                      _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch,
+                                         start, last))
+            lr = float(lr_fn(max(start, epoch * steps_per_epoch)))
+            n = 0
+            prev = None  # (the last row, its dispatch time)
+            with closing(rounds):  # a crash stops the prefetch thread too
+                for s, lr, metrics, wait_ms, t_disp in rounds:
+                    if prev is not None:
+                        prev[0]["ms"] = 1e3 * (t_disp - prev[1])
+                    row = {"step": s, "lr": lr, "data_ms": wait_ms}
+                    prev = (row, t_disp)
+                    history.append(row)
+                    unreported.append(row)
+                    pending.append((row, metrics))
+                    n += 1
+                    if checkpointer.will_save(s + 1):
+                        drain()  # the losses first, then the save
+                        checkpointer.maybe_save(session, s + 1)
+                    report()
+            drain()
+            if prev is not None:
+                prev[0]["ms"] = 1e3 * (time.perf_counter() - prev[1])
+            report()
+            train_time = time.perf_counter() - t_epoch
+            if main:
+                t_val = time.perf_counter()
+                val = hooks.evaluate()
+                table.append(hooks.epoch_row(
+                    epoch=epoch, lr=lr, acc=acc, val=val,
+                    train_time=train_time,
+                    val_time=time.perf_counter() - t_val, rounds=max(n, 1)))
+                hooks.on_epoch_end(epoch, val)
+        # the end-of-training save: a run's last rounds past the final
+        # checkpoint_every boundary would otherwise be lost to a resume
+        checkpointer.maybe_save(session, session.state.step, force=True)
+    finally:
+        if engine is not None:
+            if engine_stats is not None:
+                engine_stats.update(engine.stats())
+            engine.close()  # joins the worker, crashes included
     return val, history, {"resumed_from": start,
                           "save_ms": checkpointer.last_save_ms,
                           "restore_ms": checkpointer.last_restore_ms,

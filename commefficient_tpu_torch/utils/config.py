@@ -37,7 +37,6 @@ _UNPORTED = {
     "control_policy": "the control/ compression ladder (ROADMAP A11)",
     "ladder": "the control/ compression ladder (ROADMAP A11)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
-    "pipeline_depth": "the pipelined round engine (ROADMAP A11)",
     "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
     "client_store_path": "the hosted client stores (ROADMAP A11)",
     "offload_client_state": "the hosted client stores (ROADMAP A11)",
@@ -227,12 +226,16 @@ class Config:
     device_data: bool = True
     device_data_max_mb: int = 512
 
+    # --- the pipelined round engine (pipeline/) ---
+    # rounds realized ahead on a worker thread, their arrays copied to the
+    # device early; 0 = the synchronous loop (the sampler still prefetches)
+    pipeline_depth: int = 0
+
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     telemetry_level: int = 0
     control_policy: str = "none"
     ladder: str = ""
     recover_policy: str = "none"
-    pipeline_depth: int = 0
     client_store_cache_rows: int = 0
     client_store_path: str = ""
     offload_client_state: bool = False
@@ -285,6 +288,7 @@ class Config:
                 f"error_type must be one of {ERROR_TYPES}, got "
                 f"{self.error_type!r}"
             )
+        self._validate_pipeline()
         for name, blocker in _UNPORTED.items():
             default = Config.__dataclass_fields__[name].default
             if getattr(self, name) != default:
@@ -484,6 +488,35 @@ class Config:
                         "ladder and resilience/ (ROADMAP A11); the port "
                         f"runs {PORTED_KINDS}")
 
+    def _validate_pipeline(self) -> None:
+        """The reference's pipeline_depth checks. They run before the
+        refusals of unported knobs, so depth with scan_rounds or fleet
+        events (both still refused, naming A11) gives the reference's
+        message."""
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0 (0 = synchronous), got "
+                f"{self.pipeline_depth}")
+        if self.pipeline_depth == 0:
+            return
+        if self.scan_rounds > 1:
+            raise ValueError(
+                "scan_rounds > 1 already stages the whole epoch's sampler "
+                "indices up front (a superset of the prefetcher's depth-K "
+                "window on the index path) — drop pipeline_depth")
+        if self.chaos:
+            from commefficient_tpu_torch.fedsim.faults import (
+                FLEET_KINDS,
+                parse_chaos,
+            )
+
+            if any(ev.kind in FLEET_KINDS for ev in parse_chaos(self.chaos)):
+                raise ValueError(
+                    "fleet events are incompatible with pipeline_depth > 0 "
+                    "for now: the prefetcher stages round payloads at the "
+                    "base width ahead of the resize decision point — run "
+                    "synchronous rounds with the fleet plan")
+
     def _validate_dp(self) -> None:
         if self.dp_noise_multiplier < 0:
             raise ValueError(f"dp_noise_multiplier must be >= 0, got "
@@ -551,6 +584,13 @@ class Config:
         gate): the round then masks its clients by the fedsim
         environment."""
         return self.availability != "always" or bool(self.chaos)
+
+    @property
+    def pipeline_enabled(self) -> bool:
+        """True when the runner builds the pipelined round engine
+        (``pipeline_depth > 0``); at 0 nothing of ``pipeline/`` is
+        built."""
+        return self.pipeline_depth > 0
 
     @property
     def sampler_batch_size(self) -> int:

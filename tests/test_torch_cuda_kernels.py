@@ -576,3 +576,75 @@ def test_sketch_segment_refuses_what_it_does_not_take(dev):
         spec.table_shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kern.sketch_segment(spec, 0, torch.ones(4, device=dev), misaligned)
+
+
+def test_staged_round_equals_unstaged_with_the_ring_reused(dev):
+    """The pipelined engine's early copies (``FederatedSession.
+    stage_round_payload``: pinned ring, a side stream, an event the round
+    waits on) train exactly what unstaged rounds train: a sketch session of
+    a linear model, 6 rounds staged by the engine's worker thread at depth
+    1 (a ring of 2 buffers, reused past its depth) against 6 rounds copied
+    at dispatch, every leaf bit-equal. Staging from this thread reuses the
+    same two pinned buffers round after round."""
+    import numpy as np
+
+    from commefficient_tpu_torch.data import FedDataset, FedSampler
+    from commefficient_tpu_torch.models.losses import softmax_cross_entropy
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.pipeline import PipelinedRounds
+    from commefficient_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    data = {"x": rng.normal(size=(512, 48)).astype(np.float32),
+            "y": rng.integers(0, 10, 512).astype(np.int32)}
+    ds = FedDataset(data, 16, iid=True, seed=0)
+
+    def loss_fn(params, batch):
+        logits = batch["x"] @ params["w"] + params["b"]
+        y = batch["y"]
+        return softmax_cross_entropy(logits, y), {
+            "count": torch.tensor(float(y.numel()), device=y.device)}
+
+    params = {"w": (0.01 * rng.normal(size=(48, 10))).astype(np.float32),
+              "b": np.zeros(10, np.float32)}
+    cfg = Config(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+                 k=64, num_rows=3, num_cols=256, num_clients=16,
+                 num_workers=4, local_batch_size=8, num_devices=1,
+                 device="cuda", device_data=False, pipeline_depth=1)
+
+    def run(staged):
+        sess = FederatedSession(cfg, params, loss_fn)
+        sampler = FedSampler(ds, num_workers=4, local_batch_size=8, seed=1)
+        if staged:
+            eng = PipelinedRounds(cfg, sess, sampler, lambda s: 0.1, 6,
+                                  steps_per_epoch=16).start(0)
+            try:
+                losses = [m["loss"] for _, _, m, _, _ in
+                          eng.epoch_rounds(0, 0, 6)]
+            finally:
+                eng.close()
+        else:
+            losses = []
+            for s in range(6):
+                ids, batch = sampler.sample_round(s)
+                losses.append(sess.train_round(ids, batch, 0.1)["loss"])
+        return sess, [float(x) for x in losses]
+
+    plain, l_plain = run(False)
+    piped, l_piped = run(True)
+    assert l_piped == l_plain
+    for leaf in ("params_vec", "momentum", "error"):
+        assert torch.equal(getattr(piped.state, leaf),
+                           getattr(plain.state, leaf)), leaf
+
+    sess = FederatedSession(cfg, params, loss_fn)
+    sampler = FedSampler(ds, num_workers=4, local_batch_size=8, seed=1)
+    ptrs = set()
+    for s in range(5):
+        ids, batch = sampler.sample_round(s, alloc=sess.staging_alloc)
+        ids_d, dev_batch, ready = sess.stage_round_payload(ids, batch)
+        assert ready is not None and dev_batch["x"].is_cuda
+        sess.train_round(ids_d, dev_batch, 0.1, ready=ready)
+        ptrs.add(sess._stager()._rings["x"][s % 2][0].data_ptr())
+    assert len(ptrs) == 2  # two pinned buffers served five rounds
+    torch.cuda.synchronize()
