@@ -166,7 +166,30 @@ phase prints one line (or a few) and raises on failure, so the script exits
     FedState leaf after the last round bit-equal across the four runs;
     ``baseline5_host``, BASELINE #5 at the default gate (the host path)
     for 3 rounds at depth 0 and 2, round and wait ms and the busy share of
-    each, beside PR 10's 589.09 ms (host) and 179.81 ms (device).
+    each, beside the rounds before the host pipeline: 589.09 ms (host)
+    and 179.81 ms (device);
+21. the decode options, sparse aggregation, overlap and FSDP, each run
+    ResNet-9 at full width for 3 rounds through ``cv_train.main`` on
+    deterministic cuDNN, the counters set to 0 just before each run and
+    read just after, its state read from its end-of-training checkpoint
+    (the CIFAR-10 stand-in drawn once for all of them): ``num_blocks``,
+    the main path with ``--num_blocks 4`` against ``--num_blocks 1``,
+    every leaf bit-equal, K4's range form 4 times a round and K2 never
+    (K2 once at 1), each run's round ms and peak memory, and
+    ``estimate_all`` at num_blocks 4 held exactly to K2 and to the range
+    form's plain version slice by slice, and timed beside K2;
+    ``approx``, ``--topk_method approx`` bit-equal to exact;
+    ``sparse_aggregate``, local_topk and true_topk (threshold) and sketch
+    (sharded decode) with ``--aggregate sparse`` against ``dense``, the
+    resolved aggregation and the one-device warning printed, every leaf
+    within the CPU twins' 1e-5 (bit-equality printed), and local_topk's
+    ``sparse_allreduce`` at its capacity timed alone; ``overlap``, the fused backward with
+    ``--overlap_collectives layerwise`` (the segment form once a leaf a
+    round) and its four group tables of one state, summed, within the
+    segment form's ``1e-5 * max|table|`` of the monolithic table;
+    ``fsdp``, sketch, true_topk and uncompressed with ``--fsdp true
+    --topk_method threshold`` against the replicated round, every leaf
+    within 2e-5.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -2360,6 +2383,318 @@ def batched_clients_phase(torch, cv_train, gpt2_train, dataset_dir):
     del sess, batch
     torch.cuda.empty_cache()
     return rows
+# -- the decode options, sparse aggregation, overlap, FSDP ---------------------
+
+NEW_ROUNDS = 3  # rounds of each run of the phases below
+SPARSE_PATHS = {  # path -> flags over MAIN_ARGS (the threshold top-k;
+    # local_topk with the default 16 clients: its two [16, D] banks, not
+    # the mode phase's [100, D], go into each run's checkpoint)
+    "local_topk": ["--mode", "local_topk", "--error_type", "local",
+                   "--local_momentum", "0.9", "--topk_method", "threshold"],
+    "true_topk": ["--mode", "true_topk", "--topk_method", "threshold"],
+    "sketch": SHARDED_FLAGS,
+}
+FSDP_FLAGS = ["--fsdp", "true", "--topk_method", "threshold"]
+
+
+class CachedCifar:
+    """Inside ``with CachedCifar(cv_train):`` ``cv_train``'s CIFAR-10
+    loader returns the dataset it built for the same arguments before (a
+    pure function of them: the synthetic stand-in is drawn from the seed),
+    so the short runs below do not each spend seconds drawing it."""
+
+    def __init__(self, cv_train):
+        self.cv_train, self.saved = cv_train, cv_train.load_fed_cifar10
+
+    def __enter__(self):
+        import functools
+
+        self.cv_train.load_fed_cifar10 = functools.lru_cache(maxsize=4)(
+            self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.cv_train.load_fed_cifar10 = self.saved
+
+
+def state_run(torch, kern, cv_train, dataset_dir, work, name, args,
+              rounds=NEW_ROUNDS):
+    """``cv_train.main(args)`` for ``rounds`` rounds on deterministic
+    cuDNN with the launch counters set to 0 just before and read just
+    after: the result, the end-of-training checkpoint's state, the
+    launches and forms, the peak ``max_memory_allocated``, each round's
+    ms, and the warnings given. Fails on a non-finite loss or eval loss."""
+    ck = os.path.join(work, name)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kern.reset_launch_counts()
+            out, peak, _ = _peak_run(torch, lambda: cv_train.main(
+                args + ["--max_rounds", str(rounds), "--dataset_dir",
+                        dataset_dir, "--checkpoint_dir", ck]))
+            launches, forms = kern.launch_counts(), kern.form_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    hist = out["history"]
+    check(len(hist) == rounds, f"{name}: {len(hist)} rounds")
+    check(all(math.isfinite(h["loss"]) for h in hist)
+          and math.isfinite(out["loss"]), f"{name}: loss not finite")
+    return dict(out=out, state=load_state(os.path.join(
+        ck, f"step_{rounds}.pt")), launches=launches, forms=forms,
+        peak=peak, round_ms=[round(h["ms"], 3) for h in hist],
+        warned=sorted({str(w.message)[:48] for w in caught
+                       if "degenerate" in str(w.message)}))
+
+
+def state_diff(torch, a, b, d):
+    """(bit-equal, max abs difference) over every FedState leaf of two
+    checkpoints, a padded sharded leaf cut to its first d entries."""
+    same, err = True, 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if not torch.is_tensor(x) or not torch.is_tensor(y):
+            same = same and x == y
+            continue
+        if x.dim() == 1 and x.numel() != y.numel():
+            x, y = x[:d], y[:d]
+        same = same and torch.equal(x, y)
+        err = max(err, float((x.float() - y.float()).abs().max())
+                  if x.numel() else 0.0)
+    return same, err
+
+
+def decode_options_phase(torch, cs, kern, cv_train, dataset_dir, work, dev):
+    """``num_blocks``: the main path's flags (dense decode, exact top-k)
+    with ``--num_blocks 4`` against ``--num_blocks 1``, NEW_ROUNDS rounds
+    each: every FedState leaf bit-equal, K2 once a round at 1 and K4's
+    range form 4 times a round (its four slices, the last padded by
+    repeating d - 1) and K2 never at 4, each run's round ms and peak
+    memory; and ``estimate_all`` at num_blocks 4 held exactly to K2 and to
+    the range form's plain version slice by slice on a random table, and
+    timed beside num_blocks 1 (K2).
+    ``approx``: ``--topk_method approx`` against the exact run, bit-equal
+    (off a TPU ``lax.approx_max_k`` is the exact selection). Returns the
+    runs' launch forms by path."""
+    spec1 = cs.CountSketch(**GEOMETRY)
+    spec4 = cs.CountSketch(num_blocks=4, **GEOMETRY)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    table = torch.randn(spec1.table_shape, generator=gen, device=dev)
+    kern.reset_launch_counts()
+    got = cs.estimate_all(spec4, table)
+    k2 = cs.estimate_all(spec1, table)
+    blk = -(-spec4.d // 4)
+    plain = torch.cat([kern.estimate_at_range_torch(spec4, table, s, blk)
+                       for s in range(0, spec4.d, blk)])[:spec4.d]
+    torch.cuda.synchronize()
+    check(kern.launch_counts()["estimate_at_range"] == 4,
+          "num_blocks: estimate_all(num_blocks=4) is not 4 range launches")
+    check(torch.equal(got, plain) and torch.equal(got, k2),
+          "num_blocks: K4's range form over the 4 slices differs from its "
+          "plain version or from K2")
+    est_ms = {f"estimate_all_ms_{n}": cuda_ms(torch, lambda sp=sp: (
+        cs.estimate_all(sp, table))) for n, sp in ((1, spec1), (4, spec4))}
+    del table, got, k2, plain
+    runs = {"num_blocks_1": state_run(torch, kern, cv_train, dataset_dir,
+                                      work, "nb1", MAIN_ARGS),
+            "num_blocks_4": state_run(torch, kern, cv_train, dataset_dir,
+                                      work, "nb4",
+                                      MAIN_ARGS + ["--num_blocks", "4"]),
+            "approx": state_run(torch, kern, cv_train, dataset_dir, work,
+                                "approx", MAIN_ARGS + ["--topk_method",
+                                                       "approx"])}
+    d = GEOMETRY["d"]
+    same4, err4 = state_diff(torch, runs["num_blocks_4"]["state"],
+                             runs["num_blocks_1"]["state"], d)
+    same_a, err_a = state_diff(torch, runs["approx"]["state"],
+                               runs["num_blocks_1"]["state"], d)
+    fields = {f"{k}_{f}": v for k, r in runs.items() for f, v in (
+        ("k2_launches", r["launches"]["estimate_median"]),
+        ("k4_launches", r["launches"]["estimate_at_range"]),
+        ("round_ms", r["round_ms"]), ("max_memory_allocated", r["peak"]))}
+    phase("num_blocks", rounds=NEW_ROUNDS, estimate_all_equals_k2=True,
+          **est_ms, leaves_bit_equal=same4, max_abs_err=err4,
+          **{k: v for k, v in fields.items() if k.startswith("num_b")})
+    phase("approx", rounds=NEW_ROUNDS, leaves_bit_equal=same_a,
+          max_abs_err=err_a, **{k: v for k, v in fields.items()
+                                if k.startswith("approx")})
+    check(same4, f"num_blocks 4 differs from 1 (max err {err4})")
+    check(same_a, f"approx differs from exact (max err {err_a})")
+    for name, k2, k4 in (("num_blocks_1", NEW_ROUNDS, 0),
+                         ("num_blocks_4", 0, 4 * NEW_ROUNDS),
+                         ("approx", NEW_ROUNDS, 0)):
+        ln = runs[name]["launches"]
+        check(ln["estimate_median"] == k2 and ln["estimate_at_range"] == k4
+              and ln["sketch_rows"] == 2 * NEW_ROUNDS,
+              f"{name}: launches {ln}")
+    return {k: r["forms"] for k, r in runs.items()}
+
+
+def pair_exchange_ms(torch, dev):
+    """The one-card cost of local_topk's sparse aggregation at the main
+    path's shape: ``sparse_allreduce`` (compaction at capacity 8 * 50,000,
+    the pairs' scatter) of a vector with 400,000 nonzeros, on a group of
+    one, where the dense sum it replaces is the identity; its result is
+    held bit-equal to the vector."""
+    from commefficient_tpu_torch.ops.collectives import sparse_allreduce
+    from commefficient_tpu_torch.parallel.mesh import SingleWorker
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    v = torch.zeros(D_FULL, device=dev)
+    hot = torch.randperm(D_FULL, generator=gen, device=dev)[:400_000]
+    v[hot] = torch.randn(hot.numel(), generator=gen, device=dev)
+    group = SingleWorker()
+    check(torch.equal(sparse_allreduce(v, 400_000, group), v),
+          "sparse_allreduce on one card differs from its input")
+    return cuda_ms(torch, lambda: sparse_allreduce(v, 400_000, group))
+
+
+def sparse_aggregate_phase(torch, kern, cv_train, dataset_dir, work):
+    """local_topk (threshold), true_topk (threshold) and sketch (sharded
+    decode, threshold) with ``--aggregate sparse`` against ``dense``,
+    NEW_ROUNDS rounds each on one card: ``aggregate_resolved`` and the
+    one-device warning printed; every FedState leaf bit-equal or within
+    the CPU twins' 1e-5; local_topk's ``sparse_allreduce`` alone timed at
+    its capacity (``pair_exchange_ms``); sketch's K4 range form once and K1 twice a round
+    either way (the error feedback riding the pair exchange: one
+    ``sketch_sparse`` of the gathered pairs). Returns the runs (the FSDP
+    phase holds its rounds against the dense ones)."""
+    runs, forms = {}, {}
+    for name, flags in SPARSE_PATHS.items():
+        for agg in ("dense", "sparse"):
+            runs[f"{name}_{agg}"] = r = state_run(
+                torch, kern, cv_train, dataset_dir, work, f"agg_{name}_{agg}",
+                MAIN_ARGS + flags + ["--aggregate", agg])
+            forms[f"aggregate_{name}_{agg}"] = r["forms"]
+        dense, sparse = runs[f"{name}_dense"], runs[f"{name}_sparse"]
+        same, err = state_diff(torch, sparse["state"], dense["state"],
+                               GEOMETRY["d"])
+        extra = ({"sparse_allreduce_ms": pair_exchange_ms(
+            torch, torch.device("cuda"))} if name == "local_topk" else {})
+        phase("sparse_aggregate", path=name, **extra,
+              aggregate_resolved=sparse["out"]["aggregate"],
+              dense_resolved=dense["out"]["aggregate"],
+              warning=json.dumps(sparse["warned"]), leaves_bit_equal=same,
+              max_abs_err=err, round_ms_dense=dense["round_ms"],
+              round_ms_sparse=sparse["round_ms"],
+              launches_sparse=json.dumps({k: v for k, v in
+                                          sparse["launches"].items() if v}))
+        check(sparse["out"]["aggregate"] == "sparse"
+              and dense["out"]["aggregate"] == "dense",
+              f"sparse_aggregate {name}: resolved aggregation")
+        check(any("aggregate='sparse'" in w for w in sparse["warned"]),
+              f"sparse_aggregate {name}: no one-device warning")
+        check(err <= 1e-5, f"sparse_aggregate {name}: max err {err}")
+        if name == "sketch":
+            for r in (dense, sparse):
+                check(r["launches"]["estimate_at_range"] == NEW_ROUNDS
+                      and r["launches"]["sketch_rows"] == 2 * NEW_ROUNDS,
+                      f"sparse_aggregate sketch: launches {r['launches']}")
+    return runs, forms
+
+
+def overlap_phase(torch, kern, cv_train, dataset_dir, work):
+    """``--fuse_clients true --sketch_fused_bwd true --overlap_collectives
+    layerwise``, NEW_ROUNDS rounds: K1's segment form once a leaf a round
+    (each leaf into its group's table), its params beside the fused
+    phase's; and the group tables of one state and batch, summed in group
+    order, within the segment form's ``1e-5 * max|table|`` of the
+    monolithic fused table (deterministic cuDNN: the same cotangents)."""
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.ops.collectives import OVERLAP_SEGMENTS
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.parallel.round import (
+        leaf_offsets,
+        make_sketch_grad_one,
+    )
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    flags = MAIN_ARGS + FUSED_FLAGS + [
+        "--sketch_fused_bwd", "true", "--seed", str(FUSED_BWD_SEED)]
+    run = state_run(torch, kern, cv_train, dataset_dir, work, "overlap",
+                    flags + ["--overlap_collectives", "layerwise"])
+    cfg = parse_args(flags + ["--overlap_collectives", "layerwise"])
+    train, _, _, params, loss_fn, _ = cv_train.build_model_and_data(cfg)
+    sess = FederatedSession(cfg, params, loss_fn)
+    n_leaves = len(leaf_offsets(sess.unravel, sess.grad_size))
+    groups = make_sketch_grad_one(cfg, loss_fn, sess.unravel, sess.spec,
+                                  sess.grad_size,
+                                  overlap_segments=OVERLAP_SEGMENTS)
+    mono = make_sketch_grad_one(cfg, loss_fn, sess.unravel, sess.spec,
+                                sess.grad_size)
+    _, batch = FedSampler(train, num_workers=8, local_batch_size=64,
+                          seed=cfg.seed).sample_round(0)
+    flat = {k: torch.from_numpy(v.reshape((-1,) + v.shape[2:])).to(
+        sess.device) for k, v in batch.items()}
+    order = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tables = groups(sess.state.params_vec, flat,
+                        on_group=lambda g, t: order.append(g))[0]
+        want = mono(sess.state.params_vec, flat)[0]
+        total = tables[0].clone()
+        for t in tables[1:]:
+            total += t
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    err = float((total - want).abs().max()) / max(float(want.abs().max()),
+                                                   1e-30)
+    seg = run["launches"]["sketch_segment"]
+    phase("overlap", groups=len(tables), leaves=n_leaves,
+          groups_reported_in_order=json.dumps(order),
+          group_sum_max_err_over_max=err, segment_launches=seg,
+          round_ms=run["round_ms"], max_memory_allocated=run["peak"],
+          param_delta_norm=run["out"]["param_delta_norm"])
+    check(sorted(order) == list(range(len(tables))) == list(range(
+        OVERLAP_SEGMENTS)), f"overlap: groups reported {order}")
+    check(err <= 1e-5, f"overlap: group-table sum off by {err} of max")
+    check(seg == n_leaves * NEW_ROUNDS,
+          f"overlap: segment form launched {seg} times, expected "
+          f"{n_leaves} a round")
+    return run["forms"]
+
+
+def fsdp_phase(torch, kern, cv_train, dataset_dir, work, agg_runs):
+    """sketch (threshold), true_topk (threshold) and uncompressed with
+    ``--fsdp true``, NEW_ROUNDS rounds each on one card, against the
+    replicated round with the same flags (the sparse phase's dense runs;
+    a replicated uncompressed run): every FedState leaf (the FSDP params
+    and dense leaves cut from their padded layout) within the CPU twins'
+    2e-5 (the reference's FSDP-vs-replicated bound), bit-equality printed;
+    FSDP sketch's K4 range form once and K1 twice a round."""
+    repl = {"sketch": agg_runs["sketch_dense"],
+            "true_topk": agg_runs["true_topk_dense"],
+            "uncompressed": state_run(
+                torch, kern, cv_train, dataset_dir, work, "uncompressed_repl",
+                uncompressed_args() + ["--topk_method", "threshold"])}
+    flags = {"sketch": SPARSE_PATHS["sketch"],
+             "true_topk": SPARSE_PATHS["true_topk"]}
+    forms = {}
+    for name, rep in repl.items():
+        args = (uncompressed_args() if name == "uncompressed"
+                else MAIN_ARGS + flags[name])
+        run = state_run(torch, kern, cv_train, dataset_dir, work,
+                        f"fsdp_{name}", args + FSDP_FLAGS)
+        forms[f"fsdp_{name}"] = run["forms"]
+        same, err = state_diff(torch, run["state"], rep["state"],
+                               GEOMETRY["d"])
+        phase("fsdp", path=name, leaves_bit_equal=same, max_abs_err=err,
+              data=run["out"]["data_path"], round_ms_fsdp=run["round_ms"],
+              round_ms_replicated=rep["round_ms"],
+              max_memory_allocated_fsdp=run["peak"],
+              launches=json.dumps({k: v for k, v in run["launches"].items()
+                                   if v}))
+        check(err <= 2e-5, f"fsdp {name}: max err {err}")
+        if name == "sketch":
+            ln = run["launches"]
+            check(ln["estimate_at_range"] == NEW_ROUNDS
+                  and ln["sketch_rows"] == 2 * NEW_ROUNDS
+                  and ln["estimate_median"] == 0, f"fsdp sketch: {ln}")
+    return forms
+
 
 def main() -> int:
     import torch
@@ -2459,6 +2794,21 @@ def main() -> int:
         native_phase()
         paths["host_pipeline"] = host_pipeline_phase(
             torch, kern, cv_train, dataset_dir, work)
+        # the decode options, sparse aggregation, overlap and FSDP
+        t_new = time.perf_counter()
+        with CachedCifar(cv_train):
+            paths.update(decode_options_phase(torch, cs, kern, cv_train,
+                                              dataset_dir, work, dev))
+            agg_runs, agg_forms = sparse_aggregate_phase(
+                torch, kern, cv_train, dataset_dir, work)
+            paths.update(agg_forms)
+            paths["overlap"] = overlap_phase(torch, kern, cv_train,
+                                             dataset_dir, work)
+            paths.update(fsdp_phase(torch, kern, cv_train, dataset_dir,
+                                    work, agg_runs))
+            del agg_runs
+        phase("decode_options_to_fsdp", wall_s=round(
+            time.perf_counter() - t_new, 3))
     rrc_phase(torch, dev)
     femnist_phase(kern, cv_train, dataset_dir)
     imagenet_fedavg_phase(torch, cv_train, dataset_dir)

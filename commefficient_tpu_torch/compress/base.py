@@ -11,7 +11,14 @@ A compressor owns one mode's algebra:
 * at the server: the momentum/error update that extracts the applied
   delta, ``server_update`` (every device decodes the whole vector) or, for
   modes with ``supports_sharded_decode``, ``server_update_sharded`` (each
-  device of the worker group decodes its slice).
+  device of the worker group decodes its slice), or, under sparse
+  aggregation with sharded state (true_topk), ``server_update_sparse``;
+* under FSDP (``supports_fsdp``): ``fsdp_update``, the server algebra on
+  this rank's ``[dp / W]`` slice of params and dense state.
+
+``cfg.aggregate`` resolves per mode and group (``use_sparse_aggregate``):
+modes with ``supports_sparse_aggregate`` may exchange (idx, val) pairs in
+place of the dense sum over the group (``ops/collectives``).
 
 Nonlinear steps (top-k, Gram-Schmidt, medians) sit per client before the
 device sum or at the server after the aggregate, never between
@@ -26,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from commefficient_tpu_torch.ops.collectives import OVERLAP_SEGMENTS
 from commefficient_tpu_torch.ops.countsketch import unsketch, unsketch_dense
 from commefficient_tpu_torch.ops.topk import topk_dense, topk_threshold_dense
 
@@ -49,6 +57,21 @@ class Compressor:
     # may produce its gradient directly as a sketch table
     # (cfg.sketch_fused_bwd; parallel/round.py make_sketch_grad_one)
     supports_fused_backward: bool = False
+    # True -> the class implements fsdp_update(); False -> the FSDP round
+    # refuses the mode (validate_fsdp)
+    supports_fsdp: bool = False
+    # True -> the aggregation may ride the sparse pair exchange
+    # (ops/collectives): the transmit (or the server's candidate set) is
+    # <= O(W*k)-sparse. Resolved by use_sparse_aggregate()
+    supports_sparse_aggregate: bool = False
+    # True -> aggregate='auto' may resolve to sparse on more than one
+    # device (only where sparse changes neither the state's shapes nor the
+    # server's algebra: local_topk)
+    sparse_aggregate_in_auto: bool = False
+    # True -> under sparse aggregation the dense server momentum/error are
+    # SHARDED over the group, each rank holding its [padded_dim / W] slice
+    # (true_topk: reduce-scatter aggregate, sharded selection)
+    sparse_aggregate_shards_state: bool = False
     # True -> the applied delta is dense, so do_topk_down's downlink top-k
     # is meaningful (a sketch delta already has <= k nonzeros)
     dense_delta: bool = True
@@ -60,7 +83,9 @@ class Compressor:
         self.d = d
         self.spec = spec
         # the top-k selection (cfg.topk_method): exact sorts, threshold
-        # bisects a magnitude threshold and keeps at most k
+        # bisects a magnitude threshold and keeps at most k; approx is the
+        # reference's lax.approx_max_k, which off a TPU is the exact
+        # selection (ops/topk.py), and so it runs the exact one here
         if cfg.topk_method == "threshold":
             self.topk = topk_threshold_dense
             self.unsketch = unsketch_dense
@@ -69,12 +94,32 @@ class Compressor:
             self.unsketch = unsketch
         self._dampen: Optional[bool] = None
 
+    @property
+    def overlap_segments(self) -> Optional[int]:
+        """``None`` (monolithic collectives) or the number of segments the
+        layerwise overlap's pair gathers split into
+        (``cfg.overlap_collectives='layerwise'``): pure data movement,
+        bit-equal to the monolithic gather."""
+        if self.cfg.overlap_collectives == "layerwise":
+            return OVERLAP_SEGMENTS
+        return None
+
     def validate(self) -> None:
         if self.cfg.error_type not in self.allowed_error_types:
             raise NotImplementedError(
                 f"(mode={self.name}, error_type={self.cfg.error_type}) is "
                 "not a reference-supported combination; allowed: "
                 f"{self.allowed_error_types}")
+
+    def validate_fsdp(self) -> None:
+        """FSDP's constraints for this mode; the base refusal names the
+        knob that addresses a client-state mode's memory wall instead."""
+        if not self.supports_fsdp:
+            raise NotImplementedError(
+                "fsdp supports server-state modes (uncompressed/true_topk/"
+                f"sketch); mode={self.name} keeps per-client "
+                "[num_clients, D] state — use offload_client_state for "
+                "that memory wall")
 
     def resolved_dampening(self) -> bool:
         """``cfg.momentum_dampening`` with AUTO (None) resolved for this
@@ -103,6 +148,23 @@ class Compressor:
         if decode == "sharded":
             return True
         return workers > 1 and self.cfg.topk_method == "threshold"
+
+    def use_sparse_aggregate(self, workers: int) -> bool:
+        """``cfg.aggregate`` resolved for a worker group of ``workers``
+        devices: ``dense`` (or no capability) -> False, ``sparse`` -> True
+        (Config validated the combination), ``auto`` -> sparse exactly
+        when the pair exchange can win and changes results only by f32
+        summation order: more than one device, the threshold top-k, and a
+        mode that opts into auto (``sparse_aggregate_in_auto``)."""
+        if not self.supports_sparse_aggregate:
+            return False
+        agg = self.cfg.aggregate
+        if agg == "dense":
+            return False
+        if agg == "sparse":
+            return True
+        return (self.sparse_aggregate_in_auto and workers > 1
+                and self.cfg.topk_method == "threshold")
 
     def server_state_kinds(self) -> Tuple[Optional[str], Optional[str]]:
         """(momentum_kind, error_kind)."""
@@ -178,6 +240,26 @@ class Compressor:
         val, new_momentum, new_error, new_extra)``, idx/val the replicated
         gathered candidate buffers (``val == 0`` on padding); the round
         applies ``params[idx] -= val``."""
+        raise NotImplementedError
+
+    def server_update_sparse(self, momentum, error, extra, agg_sh,
+                             lr: float, step: int, *, group, d: int):
+        """The server update under sparse aggregation with SHARDED state
+        (``sparse_aggregate_shards_state``): ``momentum``, ``error`` and
+        ``agg_sh`` are this rank's ``[padded_dim / W]`` slices (``agg_sh``
+        from the reduce-scattered transmit sum). Returns ``(idx, val,
+        new_momentum_sh, new_error_sh, new_extra)``, idx/val the gathered
+        candidate buffers (``val == 0`` on padding) that the round applies
+        as ``params[idx] -= val``."""
+        raise NotImplementedError
+
+    def fsdp_update(self, p_sh, m_in, e_in, local, lr: float, *, group,
+                    W: int, d: int, dp: int, S: int):
+        """The FSDP round's server step after the gradient: ``local`` is
+        this rank's dense transmit sum ``[d]``, ``p_sh`` and the dense
+        state ``[S] = [dp / size]`` slices. Returns ``(new_p_sh,
+        new_momentum, new_error)``. Only classes with ``supports_fsdp``
+        implement it."""
         raise NotImplementedError
 
     def upload_floats(self) -> int:

@@ -14,6 +14,7 @@ import torch
 
 from commefficient_tpu_torch.compress.base import Compressor
 from commefficient_tpu_torch.compress.registry import register
+from commefficient_tpu_torch.ops.topk import topk_threshold_sharded
 
 
 class _DenseServerMixin:
@@ -42,7 +43,26 @@ class DenseCompressor(_DenseServerMixin, Compressor):
 
     allowed_error_types = ("none",)
     supports_fused_clients = True
+    supports_fsdp = True
     dense_delta = True
+
+    def fsdp_update(self, p_sh, m_in, e_in, local, lr: float, *, group,
+                    W: int, d: int, dp: int, S: int):
+        # reduce-scatter straight into this rank's slice: the dense server
+        # momentum never exists at full size
+        agg_sh = group.reduce_scatter(
+            torch.nn.functional.pad(local, (0, dp - d))) / W
+        rho = self.cfg.virtual_momentum
+        if rho > 0:
+            m = rho * m_in + agg_sh
+            delta_sh = lr * m
+        else:
+            m = m_in
+            delta_sh = lr * agg_sh
+        if self.cfg.do_topk_down:
+            # the downlink top-k of the broadcast delta, over the group
+            delta_sh = topk_threshold_sharded(delta_sh, self.cfg.k, group)
+        return p_sh - delta_sh, m, e_in
 
 
 @register("fedavg")

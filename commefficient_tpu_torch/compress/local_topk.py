@@ -23,6 +23,12 @@ from commefficient_tpu_torch.compress.registry import register
 class LocalTopkCompressor(_DenseServerMixin, Compressor):
     allowed_error_types = ("none", "local")
     supports_fused_clients = False  # per-client error and selection
+    # the device's summed transmit has <= w_loc * k nonzeros (each client
+    # sends <= k), so the aggregate rebuilds exactly from one W*k-pair
+    # all_gather: every rank gets the dense sum, the server algebra is
+    # untouched, so aggregate='auto' may pick it on more than one device
+    supports_sparse_aggregate = True
+    sparse_aggregate_in_auto = True
     dense_delta = True
     # mask the local momentum at the transmitted coordinates (acts only
     # with local_momentum > 0)

@@ -20,6 +20,12 @@ compacts its <= k selected entries into a fixed buffer, and one ~size*k
 pair all_gather replaces the full-[D] decode. The zero-heavy-hitter error feedback sums
 the ranks' slice sketches (linearity), and the round applies the gathered
 pairs as a k-sparse scatter: no [D] estimate, delta or re-sketch exists.
+Under ``aggregate='sparse'`` (``_ride_pair_exchange``) that error
+feedback rides the pair exchange instead: the ranks' <= k selected pairs
+are all-gathered and ONE local ``sketch_sparse`` (K1) of all of them
+replaces the sum over the group of per-rank slice sketches (the same
+table up to f32 summation order). FSDP (``fsdp_update``) runs the same
+slice extraction after the sum of the tables, on sliced params.
 
 bf16 tables (``sketch_table_dtype``): the tables are STORED, summed over
 the group and carried in ``spec.table_dtype``, while every piece of server
@@ -60,6 +66,11 @@ class SketchCompressor(Compressor):
     supports_sharded_decode = True
     supports_fused_clients = True
     supports_fused_backward = True
+    supports_fsdp = True
+    # aggregate='sparse': the [r, c] table sum stays (it is O(r*c), not
+    # O(D)), but the error feedback's re-sketch rides the pair exchange.
+    # It changes the f32 summation order, so 'auto' never picks it
+    supports_sparse_aggregate = True
     dense_delta = False  # the unsketched delta already has <= k nonzeros
 
     # the f32 algebra on upcast tables; both casts are no-ops for the f32
@@ -78,6 +89,33 @@ class SketchCompressor(Compressor):
         sum's payload pay the bf16 rounding (equal to ``spec`` for the f32
         default)."""
         return replace(self.spec, table_dtype=torch.float32)
+
+    @property
+    def _ride_pair_exchange(self) -> bool:
+        """True when the sharded decode's re-sketches ride the pair
+        exchange (explicit ``aggregate='sparse'``; Config validated the
+        threshold top-k and the sharded decode, and refuses it under
+        FSDP)."""
+        return self.cfg.aggregate == "sparse"
+
+    def _resketch_sum(self, gidx, val, group):
+        """The sketch, in the storage type, of the pairs of every rank:
+        the sum over the group of the per-rank ``sketch_sparse`` tables,
+        or, riding the pair exchange, one ``sketch_sparse`` of all the
+        gathered pairs."""
+        spec = self.spec
+        if self._ride_pair_exchange:
+            g_i, g_v = all_gather_pairs(gidx, val, group,
+                                        segments=self.overlap_segments)
+            return sketch_sparse(spec, g_i, g_v, table_dtype=spec.table_dtype)
+        return group.all_reduce_sum(sketch_sparse(
+            spec, gidx, val, table_dtype=spec.table_dtype))
+
+    def validate_fsdp(self) -> None:
+        if self.cfg.momentum_dampening:
+            raise NotImplementedError(
+                "sketch momentum dampening is gated as unstable in the "
+                "replicated round already; not offered under fsdp")
 
     def _dampening_warnings(self, dampen: bool) -> None:
         if dampen:
@@ -153,14 +191,14 @@ class SketchCompressor(Compressor):
             hh_gidx = torch.clamp(start + loc_d, max=d - 1)
             m_at_hh = torch.where(upd_val != 0,
                                   estimate_at(spec, m, hh_gidx), 0.0)
-            m = m - group.all_reduce_sum(sketch_sparse(
-                spec, hh_gidx, m_at_hh, table_dtype=spec.table_dtype))
+            m = m - self._resketch_sum(hh_gidx, m_at_hh, group)
         new_m = m if rho > 0 else momentum
         # this rank's <= k selected entries, compacted; pads clip into
         # range with val 0.0, which the apply scatter adds as a no-op
         loc, val = compact_nonzero(sel, cfg.k)
         gidx = torch.clamp(start + loc, max=d - 1)
-        g_idx, g_val = all_gather_pairs(gidx, val, group)
+        g_idx, g_val = all_gather_pairs(gidx, val, group,
+                                        segments=self.overlap_segments)
         return g_idx, g_val, self._down(new_m), self._down(e), extra
 
     @staticmethod
@@ -190,14 +228,30 @@ class SketchCompressor(Compressor):
             gidx = torch.clamp(start + loc, max=d - 1)
             # the group sum's payload is in the storage type (the
             # reference's psum); the subtraction promotes back to f32
-            e = e - group.all_reduce_sum(sketch_sparse(
-                spec, gidx, val, table_dtype=spec.table_dtype))
+            e = e - self._resketch_sum(gidx, val, group)
             if cfg.error_decay != 1.0:
                 e = cfg.error_decay * e
             return upd, upd, e
         est = estimate_at_range(spec, m, start, S) * in_range
         upd = topk_threshold_sharded(est, cfg.k, group)
         return lr * upd, upd, error
+
+    def fsdp_update(self, p_sh, m_in, e_in, local, lr: float, *, group,
+                    W: int, d: int, dp: int, S: int):
+        """FSDP: the tables stay whole on every rank (the sum over the
+        group of this rank's table, over W); each rank extracts its own
+        coordinate slice (``_slice_extract``, K4's range form on the card)
+        and applies it to its params slice."""
+        rho = self.cfg.virtual_momentum
+        table = sketch_vec(self.spec, local)  # the storage type: the payload
+        agg = self._up(group.all_reduce_sum(table)) / W
+        start, in_range = self._slice_coords(group.rank, S, d, p_sh.device)
+        m_in, e_in = self._up(m_in), self._up(e_in)
+        m = rho * m_in + agg if rho > 0 else agg
+        delta_sh, _, e = self._slice_extract(m, e_in, lr, start, in_range,
+                                             group, d)
+        new_m = m if rho > 0 else m_in
+        return p_sh - delta_sh, self._down(new_m), self._down(e)
 
     def upload_floats(self) -> int:
         """The REALIZED table size ``r * c_actual``; warns when the blocked

@@ -5,6 +5,14 @@ reference model (and state drawn from its PRNG, such as powersgd's
 warm-start ``Q``), export it as numpy, and load it here. The flat order is
 ``ravel_pytree``'s (ops/param_utils.py), so the round trip is
 bit-identical. Nothing here imports JAX: the caller converts to numpy.
+
+A state carries the reference's full layout: a leaf the reference shards
+over its workers axis (true_topk's momentum and error under sparse
+aggregation, FSDP's params and dense state) is the whole padded
+``[padded_dim]`` vector, as ``np.asarray`` of the sharded array gives it.
+A session whose ranks hold slices of those leaves converts with
+``FederatedSession.full_state`` (before ``state_to_jax``) and
+``set_full_state`` (after ``state_from_jax``).
 """
 
 from __future__ import annotations

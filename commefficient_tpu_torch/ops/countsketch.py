@@ -257,8 +257,9 @@ class CountSketch:
             if getattr(self, name) not in SKETCH_DTYPES:
                 raise ValueError(f"{name} must be torch.float32 or "
                                  f"torch.bfloat16, got {getattr(self, name)}")
-        if self.num_blocks != 1:
-            raise ValueError("num_blocks > 1 is not ported (ROADMAP A7)")
+        if self.num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got "
+                             f"{self.num_blocks}")
 
     @functools.cached_property
     def sblock(self) -> int:
@@ -499,9 +500,27 @@ def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
     """Median-of-rows estimates for all d coordinates, in original order
     (the gather, the median and the unscramble in one kernel, K2), each
     table entry read as ``spec.dtype`` (a bf16 table widens; an f32 table
-    rounds to bf16 when the operand type is bf16)."""
+    rounds to bf16 when the operand type is bf16).
+
+    ``spec.num_blocks = B > 1`` is the reference's memory trade: the exact
+    gather estimate over B coordinate slices of ``blk = ceil(d / B)``, the
+    last padded by repeating coordinate ``d - 1`` (``estimate_at_range``'s
+    clip), each written into one preallocated ``[d]`` output, so only one
+    slice's estimate is live beside it (K4's range form on the card). The
+    gather estimate reads the table as ``estimate_at`` does (widened,
+    never rounded to ``spec.dtype``), as the reference's blockwise path
+    does; at an f32 operand every value equals the one-kernel path's."""
     _check_poly4_field(spec)
-    return estimate_median(spec, _table(table), operand=spec.dtype)
+    table = _table(table)
+    if spec.num_blocks == 1:
+        return estimate_median(spec, table, operand=spec.dtype)
+    blk = -(-spec.d // spec.num_blocks)
+    out = torch.empty(spec.d, dtype=torch.float32, device=table.device)
+    for start in range(0, spec.d, blk):
+        est = estimate_at_range_kernel(spec, table, start, blk)
+        out[start:start + blk] = est[:spec.d - start]
+        del est
+    return out
 
 
 def _row_cols_signs(spec: CountSketch, idx: torch.Tensor, row: int):
@@ -580,22 +599,29 @@ class SketchGradTap(torch.autograd.Function):
     taps add, in the fixed order of autograd's backward, the sketch of the
     whole flat gradient into the one table, while the parameters
     themselves are not differentiated, so the flat ``[D]`` gradient is
-    never formed and no table a leaf is allocated."""
+    never formed and no table a leaf is allocated. ``done``, when given,
+    is called with no argument after the backward has added the leaf's
+    sketch (the layerwise overlap counts a group's leaves with it)."""
 
     @staticmethod
-    def forward(ctx, leaf, table, spec, offset):
+    def forward(ctx, leaf, table, spec, offset, done=None):
         ctx.spec, ctx.offset, ctx.table = spec, int(offset), table
+        ctx.done = done
         return leaf.view_as(leaf)
 
     @staticmethod
     def backward(ctx, ct):
         sketch_segment(ctx.spec, ctx.offset, ct, ctx.table.detach())
-        return (ct if ctx.needs_input_grad[0] else None), None, None, None
+        if ctx.done is not None:
+            ctx.done()
+        return ((ct if ctx.needs_input_grad[0] else None), None, None, None,
+                None)
 
 
 def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):
     """Top-k heavy hitters by |estimate| as (indices [k], values [k]), in
-    ``lax.top_k`` order (ties go to the lower index)."""
+    ``lax.top_k`` order (ties go to the lower index; ``topk_method=
+    'approx'`` runs it too, see ``ops/topk.py``)."""
     est = estimate_all(spec, table)
     vals, idx = topk_sparsify(est, k)
     return idx, vals

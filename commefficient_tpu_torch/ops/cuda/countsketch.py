@@ -515,14 +515,16 @@ def estimate_at_range_torch(spec, table: torch.Tensor, start: int,
     return estimate_at_torch(spec, table, idx)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=64)
 def _range_plan(spec, start: int, n: int, device: str, itemsize: int = 4):
     """The range form's host plan for one (spec, slice): the slice's
     scramble blocks in scrambled order and, per CUDA block, the table
     windows it reads (``index_math``), with the rows whose windows go to
     shared memory. Built once per slice (the sharded decode asks for the
     same slice every round) and kept alive here while the kernel may read
-    it. Windows are staged in the table's type (``itemsize`` bytes)."""
+    it. Windows are staged in the table's type (``itemsize`` bytes). The
+    cache holds a plan for each of up to 64 slices: the sharded decode's
+    slice and every slice of ``estimate_all`` at ``num_blocks > 1``."""
     b = spec.sblock or 64  # no scramble: walk blocks of 64 in place
     inv = spec.inverse_block_perm()
     blocks = index_math.range_block_list(inv, b, start, n, spec.d)

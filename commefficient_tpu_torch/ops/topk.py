@@ -9,7 +9,10 @@ Two selections, as in the reference:
   coordinates when magnitudes tie at the k-th place (ROADMAP C hazard 3).
   ``topk_sparsify`` returns the (values, indices) pairs (the server's
   sparse outputs); ``topk_dense`` the same set as a mask, whose shapes do
-  not depend on the data.
+  not depend on the data. ``topk_method='approx'`` (the reference's
+  ``lax.approx_max_k``) runs these too: ``approx_max_k`` is approximate
+  only on a TPU, while XLA on the CPU and on a GPU lowers it to the exact
+  selection, so the exact selection IS it here, ties included.
 * threshold: a bisection on a magnitude threshold that selects AT MOST k
   entries, with no sort and no scatter; its sharded form needs only two
   scalar collectives per step, so a vector split over the worker group is

@@ -29,11 +29,15 @@ from commefficient_tpu_torch.parallel.envelope import (
     stable_dc_bound,
 )
 from commefficient_tpu_torch.parallel.mesh import local_rank, make_worker_group
+from commefficient_tpu_torch.compress.base import KIND_DENSE
 from commefficient_tpu_torch.parallel.round import (
+    FedState,
     build_eval_fn,
     build_round_fn,
     init_state,
     mask_classification,
+    padded_dim,
+    resolve_aggregation,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -172,9 +176,15 @@ class FederatedSession:
     of arrays/tensors keyed like the reference's flax params
     (``ravel_pytree`` order). With ``num_devices > 1`` the session is one
     rank of the group (``parallel/mesh.py``) on ``cuda:LOCAL_RANK``; every
-    rank holds the same state. ``mask_batch(batch, row_mask)`` masks an
-    eval batch's padded rows (``mask_classification``, or ``mask_gpt2``
-    for the GPT-2 batch)."""
+    rank holds the same state, but for the sharded leaves
+    (``sharded_leaves``: true_topk's momentum and error under sparse
+    aggregation, and under ``fsdp`` the params and every dense server
+    leaf), of which each rank holds its ``[padded_dim(D, W) / W]`` slice;
+    ``full_state`` gathers them and ``set_full_state`` slices them again
+    (checkpoints and the interop with the reference carry the full
+    layout). ``mask_batch(batch, row_mask)`` masks an eval batch's padded
+    rows (``mask_classification``, or ``mask_gpt2`` for the GPT-2
+    batch)."""
 
     def __init__(self, cfg, params: Any, loss_fn: Callable,
                  mask_batch: Callable = mask_classification):
@@ -206,7 +216,26 @@ class FederatedSession:
         self.sketch_decode_resolved = (
             "sharded" if self.compressor.use_sharded_decode(self.group.size)
             else "dense")
-        if cfg.sketch_decode == "sharded" and self.group.size == 1:
+        # which aggregation the round runs (cfg.aggregate resolved for this
+        # group; the round builder makes the same call). Under FSDP, whose
+        # round reduce-scatters anyway, it resolves dense: Config refuses
+        # an explicit 'sparse' there, and auto picks it for no FSDP mode
+        self.plan = resolve_aggregation(cfg, self.compressor,
+                                        self.group.size)
+        self.aggregate_resolved = ("sparse" if self.plan.use_sparse_agg
+                                   else "dense")
+        if cfg.fsdp:
+            self.sketch_decode_resolved = "dense"
+        if (cfg.aggregate == "sparse" and not cfg.fsdp
+                and self.group.size == 1):
+            warnings.warn(
+                "aggregate='sparse' on a 1-device worker group is the "
+                "degenerate case: there is no exchange to shrink, so the "
+                "pair compaction and scatter are pure overhead on top of a "
+                "sum over one device. 'auto' picks dense here for exactly "
+                "that reason.", stacklevel=2)
+        if (cfg.sketch_decode == "sharded" and not cfg.fsdp
+                and self.group.size == 1):
             warnings.warn(
                 "sketch_decode='sharded' on a 1-device worker group is the "
                 "degenerate case: the one 'shard' decodes the FULL "
@@ -214,13 +243,35 @@ class FederatedSession:
                 "exchange has no one to exchange with. The sharded decode "
                 "only pays when the worker group is real; 'auto' picks "
                 "dense here for exactly that reason.", stacklevel=2)
-        self.state = init_state(cfg, self.compressor, vec.to(self.device))
+        self._padded = padded_dim(self.grad_size, self.group.size)
+        self._gathered = None  # (the params slice, the gathered [D])
+        if cfg.fsdp:
+            from commefficient_tpu_torch.parallel.fsdp import (
+                build_fsdp_round_fn,
+                init_fsdp_state,
+                validate_fsdp,
+            )
+
+            validate_fsdp(cfg, self.compressor)
+            self.state = init_fsdp_state(cfg, self.compressor,
+                                         vec.to(self.device), self.group)
+        else:
+            self.state = init_state(cfg, self.compressor,
+                                    vec.to(self.device))
+            if self.sparse_state:  # this rank's slice, zeros as well
+                S = self._padded // self.group.size
+                for leaf in self.sharded_leaves:
+                    setattr(self.state, leaf, torch.zeros(
+                        S, dtype=torch.float32, device=self.device))
         # the fedsim environment (None unless cfg.fedsim_enabled): round
         # state.step's masks, a pure function of (seed, step), so a
         # restored step realizes what the unbroken run realized
         self.fedsim_env = build_environment(cfg)
-        self.round_fn = build_round_fn(cfg, loss_fn, unravel,
-                                       self.compressor, self.group)
+        self.round_fn = (
+            build_fsdp_round_fn(cfg, loss_fn, unravel, self.compressor,
+                                self.group) if cfg.fsdp
+            else build_round_fn(cfg, loss_fn, unravel, self.compressor,
+                                self.group))
         self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
         # the training set on the device (attach_data), else None; which
         # data path the rounds take is ``data_path``
@@ -232,6 +283,74 @@ class FederatedSession:
                              if self.device.type == "cuda"
                              and self.device.index is None else self.device)
 
+    # -- the sharded leaves -------------------------------------------------
+    @property
+    def sparse_state(self) -> bool:
+        """True when the server momentum and error live sharded over the
+        group (true_topk's sparse aggregation)."""
+        return self.plan.sparse_state
+
+    @property
+    def sharded_leaves(self) -> tuple:
+        """The ``FedState`` leaves of which each rank holds its ``[S] =
+        [padded_dim / W]`` slice: under ``fsdp`` the params and the dense
+        server leaves, under true_topk's sparse aggregation its dense
+        momentum and error; () otherwise."""
+        if not (self.cfg.fsdp or self.sparse_state):
+            return ()
+        kinds = self.compressor.server_state_kinds()
+        dense = tuple(leaf for leaf, kind in zip(("momentum", "error"),
+                                                 kinds) if kind == KIND_DENSE)
+        return ("params_vec",) + dense if self.cfg.fsdp else dense
+
+    def full_state(self) -> FedState:
+        """The state with every sharded leaf gathered over the group into
+        its padded ``[padded_dim]`` vector (every rank must call it: it is
+        a collective); the other leaves as they are."""
+        st = self.state
+        full = {leaf: self.group.all_gather(getattr(st, leaf))
+                for leaf in self.sharded_leaves}
+        return FedState(**{**vars(st), **full})
+
+    def set_full_state(self, state: FedState) -> None:
+        """Install ``state`` (the layout ``full_state`` gives; a sharded
+        leaf may also come as the unpadded ``[D]``): each sharded leaf
+        padded to ``padded_dim`` and sliced to this rank's ``[S]``."""
+        leaves = dict(vars(state))
+        S = self._padded // self.group.size
+        lo = self.group.rank * S
+        for leaf in self.sharded_leaves:
+            t = leaves[leaf].to(self.device, torch.float32)
+            if t.numel() == self.grad_size:
+                t = torch.nn.functional.pad(t, (0, self._padded - t.numel()))
+            if t.shape != (self._padded,):
+                raise ValueError(
+                    f"{leaf} is {tuple(t.shape)}; a sharded leaf is the "
+                    f"whole [{self._padded}] (or [{self.grad_size}]) vector")
+            leaves[leaf] = t[lo:lo + S].clone()
+        self.state = FedState(**leaves)
+
+    def full_shape(self, leaf: str):
+        """The shape of ``leaf`` in ``full_state``'s layout (None when
+        absent)."""
+        t = getattr(self.state, leaf)
+        if t is None or not torch.is_tensor(t):
+            return None
+        return ((self._padded,) if leaf in self.sharded_leaves
+                else tuple(t.shape))
+
+    def full_params_vec(self) -> torch.Tensor:
+        """The whole ``[D]`` params vector. Under ``fsdp`` it is gathered
+        over the group (a collective: every rank calls it) and kept until
+        the state's params change, so a rank that evaluates alone (the
+        runner's rank 0) reads the gather every rank made just before."""
+        pv = self.state.params_vec
+        if not self.cfg.fsdp:
+            return pv
+        if self._gathered is None or self._gathered[0] is not pv:
+            self._gathered = (pv, self.group.all_gather(pv)[:self.grad_size])
+        return self._gathered[1]
+
     @property
     def data_path(self) -> str:
         """``"device"`` when the training set is attached and rounds run
@@ -242,9 +361,10 @@ class FederatedSession:
         """Attach ``dataset``'s arrays on the device iff ``device_data`` is
         on, the sampler can drive index-only rounds (``fusable``), every
         array is numpy and they total at most ``device_data_max_mb`` MB
-        (1e6 bytes) — the reference's gate. True when the index path is
-        live."""
-        if not (self.cfg.device_data and sampler.fusable
+        (1e6 bytes) — the reference's gate (FSDP rounds take the host
+        batch). True when the index path is live."""
+        if not (self.cfg.device_data and not self.cfg.fsdp
+                and sampler.fusable
                 and all(isinstance(v, np.ndarray)
                         for v in dataset.data.values())
                 and sum(v.nbytes for v in dataset.data.values())
@@ -429,7 +549,7 @@ class FederatedSession:
         row-weighted mean of any other key (the reference's rule)."""
         totals: Dict[str, float] = {}
         n = 0.0
-        pv = self.state.params_vec
+        pv = self.full_params_vec()
         for b in batches:
             valid = float(np.asarray(b["_valid"]))
             out = self.eval_fn(pv, _to_device(b, self.device))
@@ -449,7 +569,7 @@ class FederatedSession:
 
     @property
     def params(self):
-        return self.unravel(self.state.params_vec)
+        return self.unravel(self.full_params_vec())
 
     def bytes_per_round(self) -> Dict[str, int]:
         """Upload/download bytes per participating client."""

@@ -9,7 +9,17 @@ what the round needs, with collectives that both backends implement:
 * ``rank`` and ``size`` (the axis index and the axis size);
 * ``all_reduce_sum`` / ``all_reduce_max`` (``psum`` / ``pmax``), in place;
 * ``all_gather``: every rank's tensor concatenated along dim 0 in rank
-  order (``all_gather(...).reshape(-1)``).
+  order (``all_gather(...).reshape(-1)``);
+* ``reduce_scatter``: the sum over ranks of a ``[size * S]`` tensor, of
+  which each rank keeps its ``[S]`` slice (``psum_scatter(...,
+  tiled=True)``), the sparse aggregation's and FSDP's gradient exchange;
+* ``exchange(t, partner)``: send ``t`` to rank ``partner`` and receive
+  its tensor of the same shape (``ppermute`` with a hypercube pairing),
+  the butterfly of ``sparse_allreduce_sharded``;
+* ``all_reduce_sum_async`` / ``all_gather_async``: the collective started
+  now, with a handle whose ``wait()`` completes it and returns the result
+  (one collective a leaf group or a segment, issued while other work
+  runs: the layerwise overlap).
 
 ``SingleWorker`` is the one-device group: its collectives are identities
 and it needs no ``torch.distributed`` at all.
@@ -39,6 +49,37 @@ class SingleWorker:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return t
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def all_reduce_sum_async(self, t: torch.Tensor):
+        return _Done(t)
+
+    def all_gather_async(self, t: torch.Tensor):
+        return _Done(t)
+
+
+class _Done:
+    """The handle of a collective that has already completed."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def wait(self) -> torch.Tensor:
+        return self.t
+
+
+class _Pending:
+    """The handle of an asynchronous collective: ``wait()`` completes it
+    and returns ``finish()``."""
+
+    def __init__(self, work, finish):
+        self.work, self.finish = work, finish
+
+    def wait(self) -> torch.Tensor:
+        self.work.wait()
+        return self.finish()
+
 
 class DistributedWorkers:
     """The workers of an initialized ``torch.distributed`` process group,
@@ -63,6 +104,38 @@ class DistributedWorkers:
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        if t.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter: {t.shape[0]} rows do not "
+                             f"split over {self.size} ranks")
+        out = torch.empty((t.shape[0] // self.size,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
+                                   group=self.group)
+        return out
+
+    def exchange(self, t: torch.Tensor, partner: int) -> torch.Tensor:
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        peer = dist.get_global_rank(self.group, partner) \
+            if self.group is not None else partner
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, t, peer, self.group),
+                dist.P2POp(dist.irecv, out, peer, self.group)]):
+            req.wait()
+        return out
+
+    def all_reduce_sum_async(self, t: torch.Tensor):
+        work = dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group,
+                               async_op=True)
+        return _Pending(work, lambda: t)
+
+    def all_gather_async(self, t: torch.Tensor):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        work = dist.all_gather(parts, t, group=self.group, async_op=True)
+        return _Pending(work, lambda: torch.cat(parts))
 
 
 def make_worker_group(cfg):

@@ -14,6 +14,15 @@ server phase, replicated on every rank: the dense decode
 (``server_update`` -> ``w -= delta``) or the sharded decode
 (``server_update_sharded`` -> ``w[idx] -= val``).
 
+How the sum over the group runs is the ``AggregationPlan``
+(``resolve_aggregation``, from ``cfg.aggregate`` and the compressor):
+dense, one ``all_reduce``; ``sparse_gather`` (local_topk), one W*k pair
+all_gather and a scatter-add (``sparse_allreduce``) rebuilding the same
+dense sum; ``sparse_state`` (true_topk), a reduce-scatter of the padded
+transmit sum, after which each rank keeps its ``[padded_dim / W]`` slice
+of momentum and error and the server phase runs
+``server_update_sparse``.
+
 Per-client state (``client_vel`` with local momentum, ``client_err`` with
 local error feedback) lives in ``[num_clients, D]`` banks on the device,
 the same on every rank: a round reads the cohort's rows by client id, and
@@ -30,7 +39,12 @@ With ``sketch_fused_bwd`` (mode sketch, fused clients) that one gradient
 is produced directly as a table (``make_sketch_grad_one``): every
 parameter leaf goes through a ``SketchGradTap`` and the loss is
 differentiated with respect to a zero table, so the flat ``[D]`` gradient
-never exists.
+never exists. With ``overlap_collectives='layerwise'`` the leaves form
+``OVERLAP_SEGMENTS`` contiguous groups (``leaf_groups``), each with its
+own table, and each group's table is summed over the group by its own
+asynchronous ``all_reduce``, started as soon as the backward has written
+the group's last leaf; the round waits on them in group order and adds
+the group sums.
 
 fedsim (``cfg.fedsim_enabled``): the round takes the cohort's ``RoundEnv``
 (live and corruption masks over the W slots, the live count); each rank
@@ -62,6 +76,10 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch.models.losses import IGNORE_INDEX
+from commefficient_tpu_torch.ops.collectives import (
+    OVERLAP_SEGMENTS,
+    sparse_allreduce,
+)
 from commefficient_tpu_torch.ops.countsketch import SketchGradTap, sketch_vec
 from commefficient_tpu_torch.ops.cuda.countsketch import prepare_segments
 from commefficient_tpu_torch.ops.param_utils import (
@@ -73,12 +91,17 @@ from commefficient_tpu_torch.ops.param_utils import (
 
 @dataclass
 class FedState:
-    """Server and client state, replicated on every rank. Absent leaves
-    are ``None``."""
+    """Server and client state. Absent leaves are ``None``. Every leaf is
+    replicated on every rank except the SHARDED ones, of which each rank
+    holds its ``[padded_dim(D, W) / W]`` slice (``padded_dim`` rounds D up
+    to a multiple of the group's size W, the tail zeros): the dense
+    momentum and error of true_topk under sparse aggregation, and under
+    FSDP the params and every dense server leaf (``FederatedSession.
+    sharded_leaves`` names them; ``full_state`` gathers them)."""
 
-    params_vec: torch.Tensor  # [D]
-    momentum: Optional[torch.Tensor] = None  # [D] | [r, c] | None
-    error: Optional[torch.Tensor] = None  # [D] | [r, c] | None
+    params_vec: torch.Tensor  # [D] | [S] slice (FSDP)
+    momentum: Optional[torch.Tensor] = None  # [D] | [S] | [r, c] | None
+    error: Optional[torch.Tensor] = None  # [D] | [S] | [r, c] | None
     client_vel: Optional[torch.Tensor] = None  # [num_clients, D] | None
     client_err: Optional[torch.Tensor] = None  # [num_clients, D] | None
     step: int = 0
@@ -86,15 +109,33 @@ class FedState:
 
 
 class AggregationPlan(NamedTuple):
-    """How the server phase decodes: the reference's plan reduced to the
-    one choice the port runs (the sparse aggregation fields wait for
-    ROADMAP A9)."""
+    """How a round aggregates over the group and decodes at the server
+    (``cfg.aggregate`` and ``cfg.sketch_decode`` resolved for the
+    compressor and the group)."""
 
-    sharded_decode: bool
+    use_sparse_agg: bool
+    sparse_state: bool  # true_topk sparse: server state sharded by rank
+    sparse_gather: bool  # local_topk: the W*k-pair all_gather rebuild
+    sharded_decode: bool  # sketch: each rank decodes its slice
+    sparse_apply: bool  # either sparse decode: (idx, val) candidate apply
 
 
 def resolve_aggregation(cfg, comp, Wd: int) -> AggregationPlan:
-    return AggregationPlan(sharded_decode=comp.use_sharded_decode(Wd))
+    use_sparse_agg = comp.use_sparse_aggregate(Wd)
+    sparse_state = use_sparse_agg and comp.sparse_aggregate_shards_state
+    sparse_gather = (use_sparse_agg and not sparse_state
+                     and not comp.needs_sketch_spec)
+    sharded_decode = comp.use_sharded_decode(Wd)
+    return AggregationPlan(
+        use_sparse_agg=use_sparse_agg, sparse_state=sparse_state,
+        sparse_gather=sparse_gather, sharded_decode=sharded_decode,
+        sparse_apply=sharded_decode or sparse_state)
+
+
+def padded_dim(d: int, n_shards: int) -> int:
+    """``d`` rounded up to a multiple of ``n_shards``: the length of a
+    sharded leaf before it is split."""
+    return -(-d // n_shards) * n_shards
 
 
 def fused_clients(cfg, comp) -> bool:
@@ -242,8 +283,32 @@ def leaf_offsets(unravel: Callable, d: int):
     return out
 
 
+def leaf_groups(sizes, segments):
+    """Leaf indices ``[0, len(sizes))`` in up to ``segments`` CONTIGUOUS
+    non-empty groups of near-equal total size (the layerwise overlap's
+    buckets): ``(start, stop)`` bounds covering every leaf once (the
+    reference's rule)."""
+    n = len(sizes)
+    g = max(1, min(int(segments), n))
+    cum, total = [], 0
+    for sz in sizes:
+        total += sz
+        cum.append(total)
+    bounds, start = [], 0
+    for k in range(1, g + 1):
+        target = total * k / g
+        stop = start + 1
+        while stop < n and cum[stop - 1] < target:
+            stop += 1
+        stop = min(stop, n - (g - k))  # leave >= 1 leaf per later group
+        bounds.append((start, stop))
+        start = stop
+    bounds[-1] = (bounds[-1][0], n)
+    return bounds
+
+
 def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
-                         d: int):
+                         d: int, overlap_segments: Optional[int] = None):
     """The sketch-fused twin of ``make_grad_one`` for the fused
     flattened-batch path: ``(params_vec, batch) -> (gradient table [r,
     c_actual] f32, loss, aux)``.
@@ -261,27 +326,74 @@ def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
     vector, which exists anyway), ``spec_f32`` the spec with f32 table
     storage (the reference's ``spec._replace(table_dtype=float32)``).
     Config refuses every per-client setting (clip, DP, local momentum,
-    fedsim) with it."""
+    fedsim) with it.
+
+    ``overlap_segments`` (the layerwise overlap): the leaves form up to
+    that many contiguous groups (``leaf_groups``), each tap writes into
+    its group's own zero table, and the function is ``(params_vec, batch,
+    on_group=None) -> (tuple of group tables, loss, aux)``. The sum of the
+    group tables is the monolithic table up to f32 summation order (the
+    fused backward's own tolerance). ``on_group(g, table)`` is called once
+    a group, as soon as the backward has written every leaf of group
+    ``g`` (each tap counts itself), so the caller can start the group's
+    sum over the worker group while the backward goes on; groups whose
+    count never completes (a leaf with no gradient), and group 0 when
+    there is weight decay, are reported after the backward, group 0 with
+    the weight-decay term added (``weight_decay * sketch_vec(spec_f32,
+    params_vec)`` rides the first group's table, as in the reference)."""
     segments = leaf_offsets(unravel, d)
     offsets = [off for off, _ in segments]
     spec_f32 = replace(spec, table_dtype=torch.float32)
+    # the monolithic table is the one group of every leaf
+    groups = (leaf_groups([n for _, n in segments], overlap_segments)
+              if overlap_segments else [(0, len(segments))])
 
-    def grad_one_table(params_vec, batch):
+    def grad_group_tables(params_vec, batch, on_group=None):
         prepare_segments(spec, segments, params_vec.device)
         tree = unravel(params_vec.detach())
         leaves = [t for _, t in tree_leaves(tree)]
-        acc = torch.zeros(spec.table_shape, dtype=torch.float32,
-                          device=params_vec.device, requires_grad=True)
+        accs = [torch.zeros(spec.table_shape, dtype=torch.float32,
+                            device=params_vec.device, requires_grad=True)
+                for _ in groups]
+        left = [b - a for a, b in groups]
+        reported = [False] * len(groups)
+
+        def report(g, table):
+            reported[g] = True
+            if on_group is not None:
+                on_group(g, table)
+
+        def done(g):
+            def tick():
+                left[g] -= 1
+                if left[g] == 0 and not (g == 0 and cfg.weight_decay):
+                    report(g, accs[g].detach())
+            return tick
+
         with torch.enable_grad():
-            tapped = [SketchGradTap.apply(t, acc, spec, off)
-                      for t, off in zip(leaves, offsets)]
+            tapped = list(leaves)
+            for g, (a, b) in enumerate(groups):
+                for i in range(a, b):
+                    tapped[i] = SketchGradTap.apply(leaves[i], accs[g], spec,
+                                                    offsets[i], done(g))
             loss, aux = loss_fn(tree_with_leaves(tree, tapped), batch)
-            torch.autograd.grad(loss, [acc], allow_unused=True)
-        table = acc.detach()
+            torch.autograd.grad(loss, accs, allow_unused=True)
+        tables = [a.detach() for a in accs]
         if cfg.weight_decay:
-            table = table + cfg.weight_decay * sketch_vec(spec_f32,
-                                                          params_vec)
-        return table, loss.detach(), {k: v.detach() for k, v in aux.items()}
+            tables[0] = tables[0] + cfg.weight_decay * sketch_vec(
+                spec_f32, params_vec)
+        for g, t in enumerate(tables):
+            if not reported[g]:
+                report(g, t)
+        return (tuple(tables), loss.detach(),
+                {k: v.detach() for k, v in aux.items()})
+
+    if overlap_segments:
+        return grad_group_tables
+
+    def grad_one_table(params_vec, batch):
+        tables, loss, aux = grad_group_tables(params_vec, batch)
+        return tables[0], loss, aux
 
     return grad_one_table
 
@@ -425,16 +537,46 @@ def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
             client_noise(cfg, comp, keys, batch, comp.d, dev), *masks)
 
 
-def aggregate(cfg, group, encoded, loss_sum, aux):
-    """``(agg, loss_mean, aux_sum)``: the device's encoded transmit summed
-    over the group and divided by W, the mean client loss, the summed
-    aux."""
-    W = cfg.num_workers
-    agg = group.all_reduce_sum(encoded) / W
-    keys = list(aux)
-    sums = group.all_reduce_sum(torch.stack([loss_sum]
-                                            + [aux[k] for k in keys]))
-    return agg, sums[0] / W, dict(zip(keys, sums[1:]))
+def make_aggregate_tail(cfg, comp, plan: AggregationPlan, group, d: int):
+    """``aggregate_tail(local, loss_sum, aux, w_loc) -> (agg, loss_mean,
+    aux_sum)``: the device's encoded transmit summed over the group and
+    divided by W, the mean client loss, the summed aux, by the plan's
+    branch (the reference's ``make_aggregate_tail``):
+
+    * a tuple ``local`` (the layerwise fused backward): one pending sum a
+      leaf-group table (started during the backward), waited on in group
+      order and added in f32;
+    * ``sparse_state``: a reduce-scatter of the transmit sum padded to
+      ``padded_dim(d, Wd)``: this rank's ``[padded_dim / Wd]`` slice;
+    * ``sparse_gather``: ``sparse_allreduce`` of the rank's at most
+      ``w_loc * k`` nonzeros (segmented under the layerwise overlap),
+      the dense sum rebuilt on every rank;
+    * dense: one ``all_reduce``."""
+    W, Wd = cfg.num_workers, group.size
+    segs = comp.overlap_segments
+
+    def aggregate_tail(local, loss_sum, aux, w_loc: int):
+        if isinstance(local, tuple):
+            summed = [p.wait() for p in local]
+            agg = summed[0].to(torch.float32)
+            for t in summed[1:]:
+                agg = agg + t.to(torch.float32)
+            agg = agg / W
+        elif plan.sparse_state:
+            dp = padded_dim(d, Wd)
+            agg = group.reduce_scatter(
+                torch.nn.functional.pad(local, (0, dp - d))) / W
+        elif plan.sparse_gather:
+            agg = sparse_allreduce(local, w_loc * cfg.k, group,
+                                   segments=segs) / W
+        else:
+            agg = group.all_reduce_sum(local) / W
+        keys = list(aux)
+        sums = group.all_reduce_sum(torch.stack([loss_sum]
+                                                + [aux[k] for k in keys]))
+        return agg, sums[0] / W, dict(zip(keys, sums[1:]))
+
+    return aggregate_tail
 
 
 def live_scale(W: int, count: float) -> float:
@@ -446,8 +588,9 @@ def live_scale(W: int, count: float) -> float:
 def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
                  agg, lr: float, count: Optional[float] = None):
     """The server half of a round: the compressor's momentum/error algebra
-    and extraction (dense or sharded decode), then, for the dense decode,
-    the optional downlink top-k. Returns ``(update, new_momentum,
+    and extraction (the dense decode, the sharded decode, or under
+    ``sparse_state`` the sliced ``server_update_sparse``), then, for the
+    dense decode, the optional downlink top-k. Returns ``(update, new_momentum,
     new_error, new_comp)`` for ``apply_update``: ``("dense", delta)`` or
     ``("sparse", (idx, val))``.
 
@@ -459,8 +602,10 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
     ``comp`` as they were."""
     if count is not None:
         agg = agg.to(torch.float32) * live_scale(cfg.num_workers, count)
-    if plan.sharded_decode:
-        g_idx, g_val, new_m, new_e, new_c = comp.server_update_sharded(
+    if plan.sparse_apply:
+        decode = (comp.server_update_sparse if plan.sparse_state
+                  else comp.server_update_sharded)
+        g_idx, g_val, new_m, new_e, new_c = decode(
             state.momentum, state.error, state.comp, agg, lr, state.step,
             group=group, d=state.params_vec.numel())
         update = ("sparse", (g_idx, g_val))
@@ -523,12 +668,16 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             "sketch_fused_bwd requires the fused flattened-batch path and "
             f"a fused-backward-capable compressor (mode={cfg.mode!r}, "
             f"fused={fused}) — Config validation should have caught this")
-    grad_table_one = (make_sketch_grad_one(cfg, loss_fn, unravel, comp.spec,
-                                           comp.d) if sketch_fused else None)
+    layerwise = cfg.overlap_collectives == "layerwise"
+    grad_table_one = (make_sketch_grad_one(
+        cfg, loss_fn, unravel, comp.spec, comp.d,
+        overlap_segments=OVERLAP_SEGMENTS if layerwise else None)
+        if sketch_fused else None)
     fedsim = bool(cfg.fedsim_enabled)
     W = cfg.num_workers
     w_loc = W // group.size
     lo = group.rank * w_loc
+    aggregate_tail = make_aggregate_tail(cfg, comp, plan, group, comp.d)
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float, mark=None,
@@ -547,7 +696,23 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
                 f"mode={cfg.mode!r} keeps per-client state (local_momentum"
                 f"={cfg.local_momentum}, error_type={cfg.error_type!r}): "
                 "train_round needs the cohort's client_ids")
-        if sketch_fused:
+        if sketch_fused and layerwise:
+            # each group's table, encoded, starts its sum over the group
+            # as soon as the backward has finished the group
+            w = next(iter(batch.values())).shape[0]
+            flat = {k: v.reshape((-1,) + v.shape[2:])
+                    for k, v in batch.items()}
+            pending = {}
+
+            def start_sum(g, table):
+                pending[g] = group.all_reduce_sum_async(
+                    comp.encode_grad_table(w * table))
+
+            _, loss, aux = grad_table_one(state.params_vec, flat,
+                                          on_group=start_sum)
+            encoded = tuple(pending[g] for g in sorted(pending))
+            loss_sum = w * loss
+        elif sketch_fused:
             w = next(iter(batch.values())).shape[0]
             flat = {k: v.reshape((-1,) + v.shape[2:])
                     for k, v in batch.items()}
@@ -564,7 +729,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
         mark(1)
         if not sketch_fused:
             encoded = comp.device_encode(local)
-        agg, loss, aux = aggregate(cfg, group, encoded, loss_sum, aux)
+        agg, loss, aux = aggregate_tail(encoded, loss_sum, aux, w_loc)
         count = float(env.live_count) if fedsim else None
         if fedsim:  # the mean over the LIVE clients
             loss = loss * live_scale(W, count)

@@ -217,6 +217,7 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
         f"mode={cfg.mode} clients={train.num_clients} "
         f"workers={cfg.num_workers} devices={session.group.size} "
         f"device={session.device} decode={session.sketch_decode_resolved} "
+        f"aggregate={session.aggregate_resolved} "
         f"data={session.data_path} "
         f"native={'yes' if native.available() else 'no'} "
         f"pipeline_depth={cfg.pipeline_depth}")
@@ -226,7 +227,7 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
     bpr = session.bytes_per_round()
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
-    p0 = session.state.params_vec.clone()
+    p0 = session.full_params_vec().clone()
     pipeline_stats = {}
     val, history, ckpt = run_train_loop(
         cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
@@ -237,10 +238,11 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
     if val:
         say(f"final: val_loss={val['loss']:.4f} "
             f"val_acc={val.get('accuracy', 0):.4f}")
-    moved = torch.linalg.vector_norm(session.state.params_vec - p0)
+    moved = torch.linalg.vector_norm(session.full_params_vec() - p0)
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
+            "aggregate": session.aggregate_resolved,
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,
             "pipeline_stats": pipeline_stats or None}

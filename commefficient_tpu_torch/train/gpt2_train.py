@@ -225,7 +225,8 @@ def _train(cfg: Config, eval_batch_size: int):
         f"hf_weights={hf_loaded}) mode={cfg.mode} "
         f"clients={train.num_clients} workers={cfg.num_workers} "
         f"devices={session.group.size} device={session.device} "
-        f"decode={session.sketch_decode_resolved} data={session.data_path} "
+        f"decode={session.sketch_decode_resolved} "
+        f"aggregate={session.aggregate_resolved} data={session.data_path} "
         f"native={'yes' if native.available() else 'no'} "
         f"pipeline_depth={cfg.pipeline_depth}")
     if not real:
@@ -235,7 +236,7 @@ def _train(cfg: Config, eval_batch_size: int):
     say(f"grad_size D={session.grad_size}  upload/client/round="
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
-    p0 = session.state.params_vec.clone()
+    p0 = session.full_params_vec().clone()
     pipeline_stats = {}
     val, history, ckpt = run_train_loop(
         cfg, session, sampler, hooks,
@@ -246,10 +247,11 @@ def _train(cfg: Config, eval_batch_size: int):
     if val:
         say(f"final: val_nll={val['nll']:.4f} ppl={val['ppl']:.2f} "
             f"mc_acc={val['mc_accuracy']:.4f}")
-    moved = torch.linalg.vector_norm(session.state.params_vec - p0)
+    moved = torch.linalg.vector_norm(session.full_params_vec() - p0)
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),
             "sketch_decode": session.sketch_decode_resolved,
+            "aggregate": session.aggregate_resolved,
             "samples": hooks.samples, "hf_weights": hf_loaded, "real": real,
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,

@@ -98,10 +98,10 @@ from commefficient_tpu_torch.ops.topk import (
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.api import _to_device, microbatched
 from commefficient_tpu_torch.parallel.round import (
-    aggregate,
     apply_update,
     client_inputs,
     fused_grad_sum,
+    make_aggregate_tail,
     make_grad_one,
 )
 from commefficient_tpu_torch.parallel.round import mask_gpt2
@@ -429,9 +429,11 @@ def main(argv=None):
                          else _dense_breakdown)
         if breakdown is not None:
             flat = fused_grad_sum(grad_one, session.state.params_vec, batch)
-            agg = aggregate(cfg, session.group,
-                            session.compressor.device_encode(flat[0]),
-                            *flat[1:])[0]
+            tail = make_aggregate_tail(cfg, session.compressor,
+                                       session.plan, session.group,
+                                       session.grad_size)
+            agg = tail(session.compressor.device_encode(flat[0]), *flat[1:],
+                       cfg.num_workers // session.group.size)[0]
             server_steps = breakdown(session, agg, lr)
             print("server phase by step (ms):", json.dumps(server_steps),
                   flush=True)

@@ -160,7 +160,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
 
     In a worker group every rank draws the same rounds (same sampler
     seed) and trains; rank 0 alone evaluates, prints and writes
-    checkpoints, and the other ranks return empty val metrics. Epochs
+    checkpoints (under FSDP every rank first takes part in the params'
+    gather), and the other ranks return empty val metrics. Epochs
     wholly before the resumed round are skipped, evaluation included."""
     main = session.group.rank == 0
     steps_per_epoch = sampler.steps_per_epoch()
@@ -245,6 +246,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 prev[0]["ms"] = 1e3 * (time.perf_counter() - prev[1])
             report()
             train_time = time.perf_counter() - t_epoch
+            if cfg.fsdp:  # every rank gathers the params rank 0 evaluates
+                session.full_params_vec()
             if main:
                 t_val = time.perf_counter()
                 val = hooks.evaluate()

@@ -20,7 +20,13 @@ older step when the newest fails (a named step is restored strictly);
 restore refuses a checkpoint of another model (``grad_size``) or of
 another sketch layout. Files are written to a temporary name and renamed,
 so a killed save leaves no partial step. In a worker group rank 0 writes
-and every rank restores.
+and every rank restores. A sharded leaf (``FederatedSession.
+sharded_leaves``: true_topk's state under sparse aggregation, FSDP's
+params and dense state) is saved whole, as the padded ``[padded_dim]``
+vector every rank's slice is gathered into (``full_state``: every rank
+takes part in a save then), and each rank restores its own slice of it
+(``set_full_state``), so resume stays bit-exact and the file does not
+depend on the group's layout beyond the padding.
 
 Not ported: the hosted client stores, the control/ blob and the
 resilience blacklist (ROADMAP A11; ``Config`` refuses their flags), and
@@ -121,10 +127,13 @@ class FedCheckpointer:
         only it returns True."""
         if not self.will_save(round_idx, force=force):
             return False
+        t0 = time.perf_counter()
+        # every rank gathers the sharded leaves (a collective) before rank
+        # 0 decides whether to write
+        st = session.full_state() if session.sharded_leaves else \
+            session.state
         if session.group.rank != 0 or round_idx in self.all_steps():
             return False
-        t0 = time.perf_counter()
-        st = session.state
         blob = {"format": FORMAT, "grad_size": int(session.grad_size),
                 "fed_state": {f: _to_host(getattr(st, f)) for f in _LEAVES}}
         if session.spec is not None:
@@ -250,13 +259,14 @@ class FedCheckpointer:
                     "session's is not: restore with the mode and settings "
                     "the run was saved under")
             if torch.is_tensor(saved):
-                if saved.shape != have.shape or saved.dtype != have.dtype:
+                shape = session.full_shape(f)
+                if tuple(saved.shape) != shape or saved.dtype != have.dtype:
                     raise ValueError(
                         f"checkpoint leaf {f!r} is {tuple(saved.shape)} "
-                        f"{saved.dtype}, this session's {tuple(have.shape)} "
+                        f"{saved.dtype}, this session's {shape} "
                         f"{have.dtype}")
                 saved = saved.to(session.device)
             leaves[f] = saved
-        session.state = FedState(**leaves)
+        session.set_full_state(FedState(**leaves))
         self.last_restore_ms = 1e3 * (time.perf_counter() - t0)
         return int(leaves["step"])

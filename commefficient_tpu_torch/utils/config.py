@@ -40,9 +40,6 @@ _UNPORTED = {
     "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
     "client_store_path": "the hosted client stores (ROADMAP A11)",
     "offload_client_state": "the hosted client stores (ROADMAP A11)",
-    "fsdp": "FSDP (ROADMAP A9)",
-    "aggregate": "sparse aggregation (ROADMAP A9)",
-    "overlap_collectives": "collective overlap (ROADMAP A9)",
     "model_axis": "tensor parallelism (ROADMAP A17)",
     "seq_axis": "sequence parallelism (ROADMAP A17)",
     "num_hosts": "multihost/ (ROADMAP A11)",
@@ -231,6 +228,20 @@ class Config:
     # device early; 0 = the synchronous loop (the sampler still prefetches)
     pipeline_depth: int = 0
 
+    # --- the worker group's collectives (parallel/, ops/collectives) ---
+    # shard params and dense server state [padded_dim / W] over the group
+    # (parallel/fsdp.py): uncompressed, true_topk, sketch; threshold top-k
+    fsdp: bool = False
+    # how the round sums over the group: auto (sparse only for local_topk
+    # with the threshold top-k on more than one device), dense (one
+    # all_reduce), sparse ((idx, val) pair exchange; true_topk shards its
+    # server state, sketch's error feedback rides the pair gather)
+    aggregate: str = "auto"
+    # none | layerwise: the fused backward's per-leaf-group table sums,
+    # started as the backward finishes each group, and the segmented pair
+    # gathers
+    overlap_collectives: str = "none"
+
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     telemetry_level: int = 0
     control_policy: str = "none"
@@ -239,9 +250,6 @@ class Config:
     client_store_cache_rows: int = 0
     client_store_path: str = ""
     offload_client_state: bool = False
-    fsdp: bool = False
-    aggregate: str = "auto"
-    overlap_collectives: str = "none"
     model_axis: int = 1
     seq_axis: int = 1
     num_hosts: int = 1
@@ -304,12 +312,6 @@ class Config:
                 "topk_method must be exact|threshold|approx, got "
                 f"{self.topk_method!r}"
             )
-        if self.topk_method == "approx":
-            raise ValueError(
-                "topk_method='approx' is not ported yet: 'exact' "
-                "(torch.topk with lax.top_k's tie rule) and 'threshold' "
-                "run (ROADMAP A15 lists the approximate selection)"
-            )
         if self.sketch_decode not in ("auto", "dense", "sharded"):
             raise ValueError(
                 "sketch_decode must be auto|dense|sharded, got "
@@ -330,11 +332,11 @@ class Config:
                     "sketch_decode='auto' to keep "
                     f"topk_method={self.topk_method!r} on the dense decode"
                 )
-        if self.num_blocks != 1:
-            raise ValueError(
-                f"num_blocks={self.num_blocks} is not ported yet: the "
-                "blockwise gather estimate is listed under ROADMAP A15"
-            )
+        if self.num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got "
+                             f"{self.num_blocks}")
+        self._validate_aggregate()
+        self._validate_overlap_collectives()
         for name in ("sketch_dtype", "sketch_table_dtype"):
             v = getattr(self, name)
             if v not in ("float32", "bfloat16"):
@@ -487,6 +489,58 @@ class Config:
                         "elastic fleet and preemption need the width "
                         "ladder and resilience/ (ROADMAP A11); the port "
                         f"runs {PORTED_KINDS}")
+
+    def _validate_aggregate(self) -> None:
+        """The reference's checks of ``aggregate`` (sparse aggregation,
+        ``ops/collectives``; resolved per mode by
+        ``Compressor.use_sparse_aggregate``)."""
+        if self.aggregate not in ("auto", "dense", "sparse"):
+            raise ValueError(
+                "aggregate must be auto|dense|sparse, got "
+                f"{self.aggregate!r}")
+        if self.aggregate != "sparse":
+            return
+        if self.mode not in ("local_topk", "true_topk", "sketch"):
+            raise ValueError(
+                "aggregate='sparse' exchanges <=k-sparse (idx, val) pairs "
+                f"over the worker group; mode={self.mode!r} has no sparse "
+                "transmit. Leave aggregate='auto' (a no-op there).")
+        if self.fsdp:
+            raise ValueError(
+                "aggregate='sparse' targets the replicated round; the FSDP "
+                "round already reduce-scatters O(D/W) per device and "
+                "exchanges only W*k candidate pairs. Leave "
+                "aggregate='auto' under fsdp=True.")
+        if self.mode == "true_topk" and self.topk_method != "threshold":
+            raise ValueError(
+                "aggregate='sparse' with mode='true_topk' selects the "
+                "global top-<=k with the sharded threshold selection; set "
+                "topk_method='threshold', or leave aggregate='auto' to "
+                f"keep the dense sum with topk_method={self.topk_method!r}")
+        if self.mode == "sketch":
+            if self.topk_method != "threshold":
+                raise ValueError(
+                    "aggregate='sparse' with mode='sketch' rides the "
+                    "sharded decode's pair exchange for the error-feedback "
+                    "re-sketch; set topk_method='threshold' (the sharded "
+                    "decode's requirement), or leave aggregate='auto'")
+            if self.sketch_decode == "dense":
+                raise ValueError(
+                    "aggregate='sparse' with mode='sketch' requires the "
+                    "sharded server decode (its pair exchange is what the "
+                    "error-feedback re-sketch rides); remove "
+                    "sketch_decode='dense' or leave aggregate='auto'")
+
+    def _validate_overlap_collectives(self) -> None:
+        """Only the value set, as in the reference: the layerwise overlap
+        is a scheduling choice that composes with every mode (a path
+        without a segmentable collective runs as with 'none')."""
+        if self.overlap_collectives not in ("none", "layerwise"):
+            raise ValueError(
+                "overlap_collectives must be 'none' (monolithic "
+                "aggregation collectives) or 'layerwise' (segmented "
+                "collectives issued as the backward produces them), got "
+                f"{self.overlap_collectives!r}")
 
     def _validate_pipeline(self) -> None:
         """The reference's pipeline_depth checks. They run before the

@@ -648,3 +648,56 @@ def test_staged_round_equals_unstaged_with_the_ring_reused(dev):
         ptrs.add(sess._stager()._rings["x"][s % 2][0].data_ptr())
     assert len(ptrs) == 2  # two pinned buffers served five rounds
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("num_blocks", [4, 7])
+@pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES[:2])
+def test_estimate_all_num_blocks_is_k4_range_slices_equal_k2(
+        dev, d, c, r, band, m, num_blocks):
+    """``estimate_all`` at ``num_blocks > 1``: K4's range form over the
+    slices, the last padded by repeating d - 1 (its clip), exactly its
+    plain version slice by slice and exactly K2 (num_blocks 1)."""
+    geo = dict(d=d, c=c, r=r, band=band, m=m)
+    spec = cs.CountSketch(num_blocks=num_blocks, **geo)
+    g = torch.Generator(device=dev).manual_seed(num_blocks)
+    table = torch.randn(spec.table_shape, generator=g, device=dev)
+    kern.reset_launch_counts()
+    got = cs.estimate_all(spec, table)
+    blk = -(-d // num_blocks)
+    starts = range(0, d, blk)
+    assert kern.launch_counts()["estimate_at_range"] == len(starts)
+    assert kern.launch_counts()["estimate_median"] == 0
+    tail = kern.estimate_at_range(spec, table, starts[-1], blk)
+    plain = torch.cat([kern.estimate_at_range_torch(spec, table, s, blk)
+                       for s in starts])
+    assert torch.equal(tail, plain[starts[-1]:starts[-1] + blk])
+    assert torch.equal(got, plain[:d])
+    assert torch.equal(got, cs.estimate_all(cs.CountSketch(**geo), table))
+
+
+@pytest.mark.parametrize("buffers,kb", [(2, 50_000), (8, 6_250), (1, 17)])
+def test_rank_by_rank_pair_scatter_bit_equal_plain(dev, buffers, kb):
+    """``scatter_add_pairs`` of gathered rank buffers (local_topk's W*k
+    pairs: coordinates that collide across ranks, (0, 0.0) pads inside a
+    buffer) on the card, bit-equal to its plain version on the CPU (which
+    adds in order, as the reference's scatter does)."""
+    from commefficient_tpu_torch.ops.collectives import (
+        compact_pairs,
+        scatter_add_pairs,
+    )
+
+    d = 6_573_130
+    g = torch.Generator().manual_seed(buffers)
+    idx, val = [], []
+    for _ in range(buffers):
+        v = torch.zeros(d)
+        hot = torch.randint(0, d // 50, (kb - 3,), generator=g)  # collide
+        v[hot] = torch.randn(hot.numel(), generator=g)
+        i, x = compact_pairs(v, kb)
+        idx.append(i)
+        val.append(x)
+    idx, val = torch.cat(idx), torch.cat(val)
+    want = scatter_add_pairs(d, idx, val, buffers=buffers)
+    got = scatter_add_pairs(d, idx.to(dev), val.to(dev), buffers=buffers)
+    assert torch.equal(got.cpu(), want)
+    assert int((want != 0).sum()) > 0

@@ -1,19 +1,27 @@
-"""One rank of a two-process gloo worker group, for the port's CPU tests.
+"""One rank of a gloo worker group, for the port's CPU tests.
 
 Not a test module of its own (it collects nothing): the tests in
-tests/test_torch_sharded_decode.py start it twice,
+tests/test_torch_sharded_decode.py start it twice, and ``spawn`` (used by
+tests/test_torch_sparse_aggregate.py and tests/test_torch_fsdp.py) starts
+it on 2 or 4 ranks,
 
     python tests/test_torch_gloo_worker.py RANK WORLD INIT_FILE JOB_JSON \\
         INPUT_NPZ OUTPUT_NPZ
 
-and compare what the ranks write with the JAX package. It imports only the
-port (no JAX), so a rank starts in about as long as torch takes to import.
+and the tests compare what the ranks write with the JAX package. It
+imports only the port (no JAX), so a rank starts in about as long as
+torch takes to import.
 
-The job file names the work: ``cases``, each a set of ``Config`` keywords
-for a four-round TinyMLP session fed the client ids, batches and initial
-params of the input file (fedavg's batches split into its local steps); ``topk``, vectors whose ``topk_threshold_sharded`` selection
-the ranks compute half each; ``ties``, a sharded server update on a table
-whose estimates tie at the max for more than k coordinates.
+The job file names the work, each part optional: ``cases``, each a set of
+``Config`` keywords for a four-round TinyMLP session fed the client ids,
+batches and initial params of the input file (fedavg's batches split into
+its local steps), written in the full layout (sharded leaves gathered);
+``resume``, cases run two rounds, checkpointed, restored into a fresh
+session and run two more (written as ``resume:<name>``); ``topk``, vectors whose
+``topk_threshold_sharded`` selection the ranks compute half each;
+``ties``, a sharded server update on a table whose estimates tie at the
+max for more than k coordinates; ``collectives``, the pair exchanges of
+``ops/collectives`` on each rank's row of the input's ``coll/v``.
 """
 
 import json
@@ -40,34 +48,119 @@ def _params(npz):
                        for layer in ("Dense_0", "Dense_1")}}
 
 
-def run_cases(job, npz, out):
+def _session(kw, npz):
     from commefficient_tpu_torch.models import classification_loss
     from commefficient_tpu_torch.parallel import FederatedSession
-    from commefficient_tpu_torch.parallel.api import microbatched
     from commefficient_tpu_torch.utils.config import Config
 
-    for name, kw in job["cases"].items():
-        sess = FederatedSession(Config(**kw, device="cpu"), _params(npz),
-                                classification_loss(tinymlp))
-        losses = []
-        for r in range(npz["x"].shape[0]):
-            batch = microbatched(sess.cfg, {"x": npz["x"][r],
-                                            "y": npz["y"][r]})
-            losses.append(float(sess.train_round(npz["ids"][r], batch,
-                                                 job["lr"])["loss"]))
-        out[f"{name}/losses"] = np.asarray(losses)
-        out[f"{name}/params"] = sess.state.params_vec.numpy()
-        out[f"{name}/decode"] = np.asarray(sess.sketch_decode_resolved)
-        for leaf in ("momentum", "error", "client_vel", "client_err"):
-            t = getattr(sess.state, leaf)
-            if t is not None:
-                out[f"{name}/{leaf}"] = t.numpy()
+    return FederatedSession(Config(**kw, device="cpu"), _params(npz),
+                            classification_loss(tinymlp))
+
+
+def _rounds(sess, npz, lr, rounds):
+    from commefficient_tpu_torch.parallel.api import microbatched
+
+    losses = []
+    for r in rounds:
+        batch = microbatched(sess.cfg, {"x": npz["x"][r], "y": npz["y"][r]})
+        losses.append(float(sess.train_round(npz["ids"][r], batch,
+                                             lr)["loss"]))
+    return losses
+
+
+def _write_state(out, name, sess, losses):
+    """The session's state in the full layout (sharded leaves gathered),
+    and whether that layout crosses ``interop`` and back into this rank's
+    slices unchanged."""
+    from commefficient_tpu_torch.interop import state_from_jax, state_to_jax
+
+    st = sess.full_state()
+    mine = sess.state
+    sess.set_full_state(state_from_jax(state_to_jax(st)))
+    out[f"{name}/interop_roundtrip"] = np.asarray(all(
+        (a is None and b is None) or a == b if not torch.is_tensor(a)
+        else torch.equal(a, b) for a, b in zip(vars(mine).values(),
+                                               vars(sess.state).values())))
+    out[f"{name}/losses"] = np.asarray(losses)
+    out[f"{name}/params"] = sess.full_params_vec().numpy()
+    out[f"{name}/decode"] = np.asarray(sess.sketch_decode_resolved)
+    out[f"{name}/aggregate"] = np.asarray(sess.aggregate_resolved)
+    out[f"{name}/rank_numel"] = np.asarray([  # what this rank holds
+        0 if t is None else t.numel() for t in (
+            sess.state.params_vec, sess.state.momentum, sess.state.error)])
+    for leaf in ("momentum", "error", "client_vel", "client_err"):
+        t = getattr(st, leaf)
+        if t is not None:
+            out[f"{name}/{leaf}"] = t.numpy()
+
+
+def run_cases(job, npz, out):
+    for name, kw in job.get("cases", {}).items():
+        sess = _session(kw, npz)
+        losses = _rounds(sess, npz, job["lr"], range(npz["x"].shape[0]))
+        _write_state(out, name, sess, losses)
+
+
+def run_resume(job, npz, out, tmp):
+    """Two rounds, a checkpoint, a fresh session restored from it, two
+    more rounds: the state written as ``run_cases`` writes it."""
+    from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
+
+    for name, kw in job.get("resume", {}).items():
+        kw = {**kw, "checkpoint_dir": os.path.join(tmp, f"ck_{name}")}
+        first = _session(kw, npz)
+        losses = _rounds(first, npz, job["lr"], range(2))
+        ck = FedCheckpointer(first.cfg)
+        ck.maybe_save(first, 2, force=True)
+        dist.barrier()  # rank 0's file is on disk before any rank reads
+        second = _session(kw, npz)
+        assert FedCheckpointer(second.cfg).restore(second) == 2
+        losses += _rounds(second, npz, job["lr"], range(2, 4))
+        _write_state(out, f"resume:{name}", second, losses)
+
+
+def run_collectives(job, npz, out, group):
+    """``ops/collectives`` on this rank's row of ``coll/v``: each
+    exchange's result (every rank's, the tests compare them all)."""
+    from commefficient_tpu_torch.ops.collectives import (
+        all_gather_pairs,
+        compact_pairs,
+        psum_segments,
+        psum_segments_fused,
+        sparse_allreduce,
+        sparse_allreduce_sharded,
+    )
+
+    c = job.get("collectives")
+    if not c:
+        return
+    v = torch.from_numpy(npz["coll/v"][group.rank])
+    cap = c["capacity"]
+    out["coll/sparse"] = sparse_allreduce(v, cap, group).numpy()
+    out["coll/sparse_seg"] = sparse_allreduce(v, cap, group,
+                                              segments=4).numpy()
+    out["coll/sharded"] = sparse_allreduce_sharded(v, c["k"], group).numpy()
+    if c.get("two_level"):
+        out["coll/two_level"] = sparse_allreduce_sharded(
+            v, c["k"], group, axis_sizes=c["two_level"]).numpy()
+    idx, val = compact_pairs(v, cap)
+    for segs in (None, 4):
+        g_i, g_v = all_gather_pairs(idx, val, group, segments=segs)
+        out[f"coll/gather_idx_{segs}"] = g_i.numpy()
+        out[f"coll/gather_val_{segs}"] = g_v.numpy()
+    parts = [v[:5].clone(), v[5:].reshape(-1, 1).clone()]
+    seg = psum_segments([p.clone() for p in parts], group)
+    fused = psum_segments_fused([p.clone() for p in parts], group)
+    out["coll/psum_segments_equal"] = np.asarray(
+        all(torch.equal(a, b) for a, b in zip(seg, fused)))
+    out["coll/psum_segments"] = torch.cat([t.reshape(-1)
+                                           for t in seg]).numpy()
 
 
 def run_topk(job, npz, out, group):
     from commefficient_tpu_torch.ops.topk import topk_threshold_sharded
 
-    for name, k in job["topk"].items():
+    for name, k in job.get("topk", {}).items():
         v = torch.from_numpy(npz[f"topk/{name}"])
         S = -(-v.numel() // group.size)
         mine = v[group.rank * S:(group.rank + 1) * S]
@@ -80,7 +173,9 @@ def run_ties(job, npz, out, group):
     from commefficient_tpu_torch.ops.countsketch import CountSketch
     from commefficient_tpu_torch.utils.config import Config
 
-    t = job["ties"]
+    t = job.get("ties")
+    if not t:
+        return
     spec = CountSketch(d=t["d"], c=t["c"], r=t["r"], seed=0)
     cfg = Config(**t["config"], device="cpu")
     comp = get_compressor(cfg, d=t["d"], spec=spec)
@@ -104,11 +199,58 @@ def main(argv):
         out = {}
         group = DistributedWorkers()
         run_cases(job, npz, out)
+        run_resume(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)
         run_ties(job, npz, out, group)
+        run_collectives(job, npz, out, group)
         np.savez(out_file, **out)
     finally:
         dist.destroy_process_group()
+
+
+def spawn(job, arrays, world: int, tmp_path_factory, timeout: int = 300):
+    """Run ``job`` on ``world`` gloo ranks of this script and return each
+    rank's outputs. The result is cached by the job's contents in a
+    directory every xdist worker of the session shares (under a file
+    lock), so test modules that ask for the same job share one spawn."""
+    import fcntl
+    import hashlib
+    import subprocess
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # shared by the session's workers
+    key = hashlib.sha256(json.dumps([job, world], sort_keys=True).encode()
+                         + b"".join(np.ascontiguousarray(arrays[k]).tobytes()
+                                    for k in sorted(arrays))).hexdigest()[:16]
+    tmp = base / f"gloo_{key}"
+    tmp.mkdir(exist_ok=True)
+    outs = [tmp / f"out{rank}.npz" for rank in range(world)]
+    with open(tmp / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not all(p.exists() for p in outs):
+            (tmp / "job.json").write_text(json.dumps(job))
+            np.savez(tmp / "in.npz", **arrays)
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), str(rank),
+                 str(world), str(tmp / "init"), str(tmp / "job.json"),
+                 str(tmp / "in.npz"), str(tmp / f"part{rank}.npz")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for rank in range(world)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=timeout)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            for p, log in zip(procs, logs):
+                assert p.returncode == 0, log
+            for rank in range(world):
+                os.replace(tmp / f"part{rank}.npz", outs[rank])
+    return [dict(np.load(p)) for p in outs]
 
 
 if __name__ == "__main__":

@@ -57,7 +57,10 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/data/emnist.py",
                  "commefficient_tpu_torch/data/imagenet.py",
                  "commefficient_tpu_torch/models/fixup_resnet.py",
-                 "commefficient_tpu_torch/parallel/envelope.py"):
+                 "commefficient_tpu_torch/parallel/envelope.py",
+                 "commefficient_tpu_torch/parallel/fsdp.py",
+                 "commefficient_tpu_torch/ops/collectives/"
+                 "sparse_allreduce.py"):
         assert must in names
     assert _forbidden("commefficient_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("flax")

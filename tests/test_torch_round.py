@@ -118,12 +118,8 @@ def test_schedule_matches_reference():
 
 @pytest.mark.parametrize("flag,value,item", [
     ("client_store", "host", "A11"),
-    ("topk_method", "approx", "A15"),
     ("preempt_signals", "true", "A11"),
-    ("fsdp", "true", "A9"),
-    ("num_blocks", "2", "A15"),
     ("scan_rounds", "2", "A11"),
-    ("overlap_collectives", "layerwise", "A9"),
     ("model_axis", "2", "A17"),
     ("logdir", "elsewhere", "A12"),
     ("chaos", "resize@2", "A11"),
@@ -136,8 +132,14 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
                     "--num_clients", "4"])
 
 
-# the fields ROADMAP A10b, A8, A13 and A11a lifted from the refusals
+# the fields ROADMAP A10b, A8, A13, A11a, A15 and A9 lifted from the
+# refusals
 LIFTED = {
+    "topk_method": ["--topk_method", "approx"],
+    "num_blocks": ["--num_blocks", "2"],
+    "aggregate": ["--mode", "local_topk", "--aggregate", "sparse"],
+    "overlap_collectives": ["--overlap_collectives", "layerwise"],
+    "fsdp": ["--fsdp", "true"],
     "pipeline_depth": ["--pipeline_depth", "2"],
     "label_noise": ["--label_noise", "0.1"],
     "num_classes": ["--num_classes", "5"],
@@ -173,8 +175,46 @@ def test_config_accepts_the_lifted_fields(field):
     assert ref.fedsim_enabled == cfg.fedsim_enabled
 
 
+# each of the reference's refusals of aggregate (its utils/config.py):
+# (flags over local_topk's, the port's message, the reference's)
+AGGREGATE_REFUSALS = {
+    "value": (["--aggregate", "bogus"], "auto|dense|sparse"),
+    "dense_mode": (["--mode", "uncompressed", "--aggregate", "sparse"],
+                   "no sparse transmit"),
+    "fsdp": (["--mode", "true_topk", "--topk_method", "threshold",
+              "--aggregate", "sparse", "--fsdp", "true"], "FSDP round"),
+    "true_topk_exact": (["--mode", "true_topk", "--aggregate", "sparse"],
+                        "topk_method='threshold'"),
+    "sketch_exact": (["--mode", "sketch", "--aggregate", "sparse"],
+                     "topk_method='threshold'"),
+    "sketch_dense_decode": (["--mode", "sketch", "--topk_method",
+                             "threshold", "--sketch_decode", "dense",
+                             "--aggregate", "sparse"], "sharded server decode"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AGGREGATE_REFUSALS))
+def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
+    from commefficient_tpu.utils.config import Config as Ref
+
+    flags, match = AGGREGATE_REFUSALS[name]
+    argv = ["--mode", "local_topk", "--num_workers", "2", "--num_clients",
+            "4"] + flags
+    with pytest.raises(ValueError, match=match) as port:
+        parse_args(argv)
+    kw = {}
+    for flag, value in zip(argv[::2], argv[1::2]):
+        field = flag[2:]
+        default = Ref.__dataclass_fields__[field].default
+        kw[field] = (value.lower() == "true" if isinstance(default, bool)
+                     else type(default)(value))
+    with pytest.raises(ValueError) as ref:
+        Ref(**kw)
+    assert "aggregate" in str(port.value) and "aggregate" in str(ref.value)
+
+
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 41
+    assert len(_UNPORTED) == 38
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 
