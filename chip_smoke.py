@@ -189,7 +189,21 @@ phase prints one line (or a few) and raises on failure, so the script exits
     segment form's ``1e-5 * max|table|`` of the monolithic table;
     ``fsdp``, sketch, true_topk and uncompressed with ``--fsdp true
     --topk_method threshold`` against the replicated round, every leaf
-    within 2e-5.
+    within 2e-5;
+22. ``telemetry`` (``--telemetry_level``): the main path's flags at levels
+    0, 1 and 2 for 3 rounds each on deterministic cuDNN, every leaf of the
+    final state bit-equal across the levels, each level's launches exactly
+    (level 0: the main path's K1 2 and K2 1 a round; level 1 adds K3
+    twice a round, the AMS estimates of the aggregate and the error
+    table; level 2 adds K1 once and K4's index form once, the fidelity's
+    round trip), round ms and peak memory; ``diag/*`` finite, the
+    sentinel 0, the last ``diag/update_norm`` equal to the saved params'
+    move (rtol 1e-3), K3 exactly its plain network on the run's tables,
+    the fidelity's K1 + K4 route exactly its plain route, the ledger's
+    exactness by the phase's own arithmetic, strict JSON; ``--chaos
+    nan_client@2`` raising ``DivergenceError`` at round 2 with
+    ``flight_2.json``; GPT-2 BASELINE #4 at levels 0 and 1 for 2 rounds;
+    the device ms of one call of the diagnostics at both geometries.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -204,6 +218,7 @@ numbers), and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2696,6 +2711,349 @@ def fsdp_phase(torch, kern, cv_train, dataset_dir, work, agg_runs):
     return forms
 
 
+TEL_ROUNDS = 3  # rounds of each telemetry run
+TEL_GPT2_ROUNDS = 2
+# each level's launches over TEL_ROUNDS rounds of the main path: K1 twice a
+# round (+1 at level 2: the fidelity's sketch_sparse), K2 once, K3 twice at
+# level >= 1 (the AMS estimates of the aggregate and the error table), K4's
+# index form once at level 2 (the fidelity's re-estimate)
+TEL_LAUNCHES = {
+    0: dict(sketch_rows=2, estimate_median=1, median_rows=0, estimate_at=0),
+    1: dict(sketch_rows=2, estimate_median=1, median_rows=2, estimate_at=0),
+    2: dict(sketch_rows=3, estimate_median=1, median_rows=2, estimate_at=1),
+}
+
+
+def _no_bare_constant(tok):
+    raise AssertionError(f"bare {tok} token: not strict JSON")
+
+
+def read_metrics(logdir):
+    """``{name: {step: value}}`` of a run dir's ``metrics.jsonl``, every
+    line parsed as strict JSON and every scalar record carrying ``t``."""
+    out, headers = {}, 0
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line, parse_constant=_no_bare_constant)
+            if rec.get("type") == "header":
+                headers += 1
+                continue
+            check("t" in rec, f"{logdir}: a record without t")
+            out.setdefault(rec["name"], {})[rec["step"]] = rec["value"]
+    check(headers == 1, f"{logdir}: {headers} headers")
+    return out
+
+
+def add_forms(*forms):
+    """The sum of ``form_counts()`` dicts."""
+    out = {}
+    for f in forms:
+        for w, by in f.items():
+            acc = out.setdefault(w, {})
+            for k, n in by.items():
+                acc[k] = acc.get(k, 0) + n
+    return out
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device ms of one call of ``fn``: the summed time of the CUDA
+    kernels ``torch.profiler`` records over ``calls`` calls, over
+    ``calls`` (the host's launch time left out)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages())
+    return us / 1e3 / calls
+
+
+def diag_cost_ms(torch, cs, geometry, k, level, dev):
+    """Ms of one call of the round's diagnostics (``round_diagnostics`` of
+    a sketch round with virtual error and momentum) at ``geometry`` on
+    random tensors of the round's shapes (the aggregate and error tables,
+    a k-sparse ``[D]`` update, ``[D]`` params), and of its pieces: by CUDA
+    events over back-to-back calls (bound by whichever of the host's
+    launches and the device's work is slower) and the device's own time
+    (``device_ms``)."""
+    from types import SimpleNamespace
+
+    from commefficient_tpu_torch.compress import get_compressor
+    from commefficient_tpu_torch.compress.base import sqnorm
+    from commefficient_tpu_torch.telemetry import round_diagnostics
+    from commefficient_tpu_torch.telemetry.diagnostics import all_finite
+    from commefficient_tpu_torch.utils.config import Config
+
+    spec = cs.CountSketch(**geometry)
+    d = geometry["d"]
+    k = min(k, d)
+    comp = get_compressor(Config(mode="sketch", k=k, num_rows=geometry["r"],
+                                 num_cols=geometry["c"],
+                                 virtual_momentum=0.9, error_type="virtual"),
+                          d=d, spec=spec)
+    g = torch.Generator(device=dev).manual_seed(0)
+    agg, err = (torch.randn(spec.table_shape, generator=g, device=dev)
+                for _ in range(2))
+    delta = torch.zeros(d, device=dev)
+    delta[torch.randperm(d, generator=g, device=dev)[:k]] = torch.randn(
+        k, generator=g, device=dev)
+    params = torch.randn(d, generator=g, device=dev)
+    cfg = SimpleNamespace(telemetry_level=level, error_type="virtual")
+
+    def call():
+        return round_diagnostics(
+            cfg, comp, agg=agg, delta=delta, new_params=params,
+            loss=torch.ones((), device=dev), lr=0.1, momentum=agg,
+            error=err, extra=None, new_momentum=agg, new_error=err)
+
+    diag = call()
+    check(all(math.isfinite(float(v)) for v in diag.values()),
+          f"diag cost: non-finite {diag}")
+    # the call and its pieces: the update's squared norm, the params'
+    # finiteness (the sentinel's one-read form and isfinite().all()), one
+    # AMS estimate (a row-norm pass and K3), level 2's fidelity
+    pieces = {"call": call,
+              "update_sqnorm": lambda: sqnorm(delta),
+              "all_finite_params": lambda: all_finite(params),
+              "isfinite_all_params": lambda: torch.isfinite(params).all(),
+              "ams_table": lambda: cs.table_sqnorm_estimate(agg)}
+    if level >= 2:
+        pieces["fidelity"] = lambda: comp.fidelity(
+            agg=agg, delta=delta, momentum=agg, error=err, extra=None,
+            new_momentum=agg, lr=0.1)
+    out = {name: {"events_ms": cuda_ms(torch, fn, samples=11, calls=5),
+                  "device_ms": device_ms(torch, fn)}
+           for name, fn in pieces.items()}
+    del agg, err, delta, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_phase(torch, cs, kern, cv_train, gpt2_train, dataset_dir,
+                    work, dev):
+    """The round telemetry on the card. The main path's flags at
+    ``--telemetry_level`` 0, 1 and 2 for TEL_ROUNDS rounds each (runner,
+    deterministic cuDNN, the counters set to 0 just before each run and
+    read just after): every leaf of the final state bit-equal across the
+    levels, each level's launches exactly TEL_LAUNCHES a round (level 0:
+    the main path's), round ms and peak memory; the ``diag/*`` values
+    finite with ``diag/nonfinite`` 0; ``diag/update_norm`` of the last
+    round equal to ``||p_2 - p_3||`` (p_2 from a 2-round level-2 run's
+    checkpoint, bit-equal to the 3-round run's state there; rtol 1e-3, the
+    f32 rounding of ``p - delta``); ``table_sqnorm_estimate`` of the
+    level-1 run's tables through K3 exactly its plain network on the same
+    row sums; the fidelity's route through K1 and K4's index form at
+    ``(idx, val)`` of that update exactly the plain ``estimate_at_torch``
+    route; the ledger's exactness by this phase's arithmetic; strict JSON
+    in ``metrics.jsonl``. Then ``--chaos nan_client@2 --telemetry_level
+    1``: ``DivergenceError`` at round 2 with ``flight_2.json``. Then
+    GPT-2 BASELINE #4 at levels 0 and 1 for TEL_GPT2_ROUNDS rounds, and the
+    device ms of one call of the diagnostics at both geometries. Every
+    run on deterministic cuDNN. Returns the summed launch forms of the
+    three ResNet-9 level runs."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _telemetry_phase(torch, cs, kern, cv_train, gpt2_train,
+                                dataset_dir, work, dev)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _telemetry_phase(torch, cs, kern, cv_train, gpt2_train, dataset_dir,
+                     work, dev):
+    from commefficient_tpu_torch.ops.topk import compact_nonzero
+    from commefficient_tpu_torch.telemetry import DivergenceError
+
+    runs = {}
+    for level in (0, 1, 2):
+        gc.collect()  # the previous run's session, before the peak reset
+        runs[level] = state_run(
+            torch, kern, cv_train, dataset_dir, work, f"telemetry_l{level}",
+            MAIN_ARGS + ["--telemetry_level", str(level), "--logdir",
+                         os.path.join(work, f"tel_runs_l{level}")],
+            rounds=TEL_ROUNDS)
+    two = state_run(torch, kern, cv_train, dataset_dir, work,
+                    "telemetry_l2_two",
+                    MAIN_ARGS + ["--telemetry_level", "2", "--logdir",
+                                 os.path.join(work, "tel_runs_two")],
+                    rounds=2)
+    bpr = runs[0]["out"]["bytes_per_round"]
+    for level, run in runs.items():
+        same, err = state_diff(torch, run["state"], runs[0]["state"],
+                               GEOMETRY["d"])
+        ln = run["launches"]
+        metrics = read_metrics(run["out"]["logdir"])
+        diag = {k: v for k, v in metrics.items() if k.startswith("diag/")}
+        last = {k: v[TEL_ROUNDS - 1] for k, v in diag.items()}
+        phase("telemetry", level=level, leaves_bit_equal_level0=same,
+              round_ms=run["round_ms"], max_memory_allocated=run["peak"],
+              launches=json.dumps({k: v for k, v in ln.items() if v}),
+              last_round_diag=json.dumps(last))
+        check(same, f"telemetry level {level}: state differs from level 0 "
+                    f"by {err}")
+        want = {w: n * TEL_ROUNDS for w, n in TEL_LAUNCHES[level].items()}
+        got = {w: ln[w] for w in want}
+        check(got == want and ln["estimate_at_range"] == 0
+              and ln["sketch_segment"] == 0,
+              f"telemetry level {level}: launches {ln}, expected {want}")
+        check(all(set(v) == set(range(TEL_ROUNDS)) for v in diag.values()),
+              f"telemetry level {level}: diag steps")
+        want_keys = set() if level == 0 else {
+            "diag/grad_norm", "diag/update_norm", "diag/ef_residual_norm",
+            "diag/ef_residual_max", "diag/nonfinite"} | (
+            {"diag/sketch_est_rel_err"} if level == 2 else set())
+        check(set(diag) == want_keys, f"telemetry level {level}: {diag}")
+        check(all(isinstance(x, float) and math.isfinite(x)
+                  for v in diag.values() for x in v.values()),
+              f"telemetry level {level}: a diag value is not finite")
+        check(all(x == 0.0 for x in diag.get("diag/nonfinite", {}).values()),
+              f"telemetry level {level}: the sentinel fired")
+        if level == 0:
+            check(not os.path.exists(os.path.join(
+                run["out"]["logdir"], "comm_ledger.json")),
+                "telemetry level 0 wrote a ledger")
+            continue
+        with open(os.path.join(run["out"]["logdir"],
+                               "comm_ledger.json")) as f:
+            led = json.load(f)
+        check(led["bytes_per_round"] == bpr and led["rounds"] == TEL_ROUNDS
+              and led["cum_up_bytes"] == TEL_ROUNDS * bpr["upload_bytes"]
+              and led["cum_down_bytes"] == TEL_ROUNDS * bpr["download_bytes"]
+              and led["cum_bytes"] == led["cum_up_bytes"]
+              + led["cum_down_bytes"], f"telemetry ledger: {led}")
+        check(metrics["comm/cum_bytes"][TEL_ROUNDS - 1] == led["cum_bytes"],
+              "telemetry: comm/cum_bytes disagrees with the ledger")
+
+    # the last round's update norm against the saved params
+    p3 = runs[2]["state"]["params_vec"].to(dev)
+    p2 = two["state"]["params_vec"].to(dev)
+    # the 2-round run is the 3-round run's first two rounds: its drained
+    # scalars are equal, bit for bit
+    two_diag = read_metrics(two["out"]["logdir"])
+    three_diag = read_metrics(runs[2]["out"]["logdir"])
+    check(all(two_diag[k] == {s: v for s, v in three_diag[k].items()
+                              if s < 2}
+              for k in two_diag if k.startswith("diag/")),
+          "telemetry: the 2-round run's diag differs from the 3-round's")
+    delta = p2 - p3
+    moved = float(torch.linalg.vector_norm(delta.double()))
+    upd = {lv: read_metrics(runs[lv]["out"]["logdir"])["diag/update_norm"][
+        TEL_ROUNDS - 1] for lv in (1, 2)}
+    check(all(math.isclose(u, moved, rel_tol=1e-3) for u in upd.values()),
+          f"telemetry: update_norm {upd} against ||p_2 - p_3|| {moved}")
+    # K3 on the level-1 run's tables against its plain network
+    spec = cs.CountSketch(**GEOMETRY)
+    k3 = {}
+    for leaf in ("momentum", "error"):
+        table = runs[1]["state"][leaf].to(dev)
+        rowsq = torch.linalg.vector_norm(table, dim=1,
+                                         dtype=torch.float32).square()
+        x = rowsq[:, None].contiguous()
+        got, want = kern.median_rows(x), kern.median_rows_torch(x)
+        check(torch.equal(got, want), f"telemetry: K3 on the {leaf} table")
+        est = cs.table_sqnorm_estimate(table)
+        ref = float(torch.median(rowsq.cpu()))  # odd r: the middle value
+        check(float(est) == float(want[0]) and math.isclose(
+            float(est), ref, rel_tol=1e-6), f"telemetry: AMS of {leaf}")
+        k3[leaf] = float(est)
+    # the level-2 fidelity's route through K1 and K4's index form
+    idx, val = compact_nonzero(delta, 50_000)
+    table = cs.sketch_sparse(spec, idx, val)
+    est_k = kern.estimate_at(spec, table, idx)
+    est_p = kern.estimate_at_torch(spec, table, idx)
+    live = val != 0
+
+    def rel(est):
+        num = torch.linalg.vector_norm(torch.where(live, est - val, 0.0))
+        return float(num / torch.clamp(torch.linalg.vector_norm(val),
+                                       min=1e-30))
+
+    rel_k, rel_p = rel(est_k), rel(est_p)
+    fid = read_metrics(runs[2]["out"]["logdir"])["diag/sketch_est_rel_err"]
+    phase("telemetry_values", update_norm_last=json.dumps(upd),
+          params_moved_last=moved, table_sqnorm_estimate=json.dumps(k3),
+          fidelity_nnz=int(live.sum()), fidelity_kernel=rel_k,
+          fidelity_plain=rel_p, fidelity_metrics=json.dumps(fid))
+    check(torch.equal(est_k, est_p) and rel_k == rel_p,
+          "telemetry: K4's index form differs from its plain route")
+
+    # the sentinel's one-read finiteness on the card: one bad element of a
+    # [D] vector at a random place, against isfinite().all()
+    from commefficient_tpu_torch.telemetry.diagnostics import all_finite
+
+    v = torch.randn(GEOMETRY["d"], device=dev)
+    flags = [bool(all_finite(v))]
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        w = v.clone()
+        w[int(torch.randint(GEOMETRY["d"], ()))] = bad
+        flags.append(bool(all_finite(w)) == bool(torch.isfinite(w).all()))
+    check(flags == [True] * 4, f"telemetry: all_finite on the card {flags}")
+    del v, w
+
+    # divergence on the card
+    div = os.path.join(work, "tel_runs_div")
+    kern.reset_launch_counts()
+    caught = None
+    try:
+        cv_train.main(MAIN_ARGS + ["--chaos", "nan_client@2",
+                                   "--telemetry_level", "1", "--logdir", div,
+                                   "--max_rounds", str(TEL_ROUNDS),
+                                   "--dataset_dir", dataset_dir])
+    except DivergenceError as e:
+        caught = e
+    (run_dir,) = os.listdir(div)
+    run_dir = os.path.join(div, run_dir)
+    have = sorted(os.listdir(run_dir))
+    phase("telemetry_divergence", step=getattr(caught, "step", None),
+          path=os.path.basename(getattr(caught, "path", "") or ""),
+          files=json.dumps(have))
+    check(caught is not None and caught.step == 2,
+          f"telemetry divergence: {caught!r}")
+    check(caught.path == os.path.join(run_dir, "flight_2.json")
+          and "comm_ledger.json" in have, f"telemetry divergence: {have}")
+    with open(caught.path) as f:
+        flight = json.load(f, parse_constant=_no_bare_constant)
+    check([r["step"] for r in flight["records"]] == [0, 1, 2]
+          and flight["records"][2]["scalars"]["diag/nonfinite"] == 1.0,
+          "telemetry divergence: flight records")
+
+    # GPT-2 BASELINE #4 at levels 0 and 1, and the diagnostics' cost
+    gpt2 = {}
+    for level in (0, 1):
+        gc.collect()  # the previous run's session, before the peak reset
+        kern.reset_launch_counts()
+        out, peak, before = _peak_run(torch, lambda: gpt2_train.main(
+            GPT2_ARGS + ["--max_rounds", str(TEL_GPT2_ROUNDS),
+                         "--telemetry_level", str(level), "--logdir",
+                         os.path.join(work, f"tel_gpt2_l{level}"),
+                         "--dataset_dir", dataset_dir]))
+        ln = kern.launch_counts()
+        diag = {k: v for k, v in read_metrics(out["logdir"]).items()
+                if k.startswith("diag/")}
+        gpt2[level] = [round(h["ms"], 3) for h in out["history"]]
+        phase("telemetry_gpt2", level=level, round_ms=gpt2[level],
+              max_memory_allocated=peak, allocated_before=before,
+              launches=json.dumps({k: v for k, v in ln.items() if v}),
+              diag_last=json.dumps({k: v[TEL_GPT2_ROUNDS - 1]
+                                    for k, v in diag.items()}))
+        check(all(math.isfinite(h["loss"]) for h in out["history"]),
+              "telemetry gpt2: loss not finite")
+        check(ln["median_rows"] == (2 * TEL_GPT2_ROUNDS if level else 0)
+              and ln["estimate_at"] == 0, f"telemetry gpt2: launches {ln}")
+        check(all(math.isfinite(x) for v in diag.values()
+                  for x in v.values()), "telemetry gpt2: diag not finite")
+    cost = {"resnet9_l1": diag_cost_ms(torch, cs, GEOMETRY, 50_000, 1, dev),
+            "resnet9_l2": diag_cost_ms(torch, cs, GEOMETRY, 50_000, 2, dev),
+            "gpt2_l1": diag_cost_ms(torch, cs, GPT2_GEOMETRY, 50_000, 1,
+                                    dev)}
+    phase("telemetry_cost", **{k: json.dumps(v) for k, v in cost.items()})
+    return add_forms(*(run["forms"] for run in runs.values()))
+
+
 def main() -> int:
     import torch
 
@@ -2819,6 +3177,13 @@ def main() -> int:
     for name, geos in f50_kernels_phase(torch, cs, kern, dev).items():
         by_geometry.setdefault(name, {}).update(geos)
     batched_clients_phase(torch, cv_train, gpt2_train, dataset_dir)
+    # the round telemetry: diag/*, the ledger, the flight recorder
+    t_tel = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["telemetry"] = telemetry_phase(
+                torch, cs, kern, cv_train, gpt2_train, dataset_dir, work, dev)
+    phase("telemetry_wall", wall_s=round(time.perf_counter() - t_tel, 3))
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

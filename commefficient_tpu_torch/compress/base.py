@@ -20,6 +20,12 @@ A compressor owns one mode's algebra:
 modes with ``supports_sparse_aggregate`` may exchange (idx, val) pairs in
 place of the dense sum over the group (``ops/collectives``).
 
+At ``telemetry_level >= 1`` the round asks the compressor for its
+``diag/*`` scalars (``diagnostics`` / ``diagnostics_sparse``; subclasses
+override the ``_agg_sqnorm`` / ``_error_sqnorm`` primitives and, for
+level 2, ``fidelity`` / ``fidelity_sparse``), and the ledger prices a
+fedsim round through ``masked_upload_floats``.
+
 Nonlinear steps (top-k, Gram-Schmidt, medians) sit per client before the
 device sum or at the server after the aggregate, never between
 ``device_encode`` and the sum. State leaves are dense ``[D]`` vectors,
@@ -39,6 +45,13 @@ from commefficient_tpu_torch.ops.topk import topk_dense, topk_threshold_dense
 
 KIND_DENSE = "dense"
 KIND_TABLE = "table"
+
+
+def sqnorm(x: torch.Tensor) -> torch.Tensor:
+    """``sum(x * x)`` of an f32 tensor as a 0-d tensor, in one pass and
+    with no temporary of x's size."""
+    flat = x.reshape(-1)
+    return torch.dot(flat, flat)
 
 
 class Compressor:
@@ -258,9 +271,83 @@ class Compressor:
         """The FSDP round's server step after the gradient: ``local`` is
         this rank's dense transmit sum ``[d]``, ``p_sh`` and the dense
         state ``[S] = [dp / size]`` slices. Returns ``(new_p_sh,
-        new_momentum, new_error)``. Only classes with ``supports_fsdp``
-        implement it."""
+        new_momentum, new_error, agg)``, ``agg`` the averaged aggregate
+        the step built (this rank's reduce-scattered ``[S]`` slice, or the
+        summed ``[r, c]`` table), which the diagnostics read. Only classes
+        with ``supports_fsdp`` implement it."""
         raise NotImplementedError
+
+    # -- telemetry (telemetry/diagnostics.py) -------------------------------
+    def diagnostics(self, level: int, *, agg, delta, momentum, error, extra,
+                    new_momentum, new_error, lr, group=None) -> dict:
+        """The round's diagnostic scalars, keyed without the ``diag/``
+        prefix, for the dense decode: ``agg`` the averaged aggregate in
+        this mode's encoded domain (``[D]``, or the ``[r, c]`` table),
+        ``delta`` the applied update, ``momentum``/``error``/``extra`` the
+        pre-update leaves, ``new_momentum``/``new_error`` what the server
+        update returned. ``group`` is given when ``agg`` and the error
+        bank are this rank's slices: their squared norms are then summed
+        over it in one collective."""
+        return self._norm_diagnostics(
+            level, agg=agg, new_error=new_error, update_sqnorm=sqnorm(delta),
+            group=group, fidelity_fn=lambda: self.fidelity(
+                agg=agg, delta=delta, momentum=momentum, error=error,
+                extra=extra, new_momentum=new_momentum, lr=lr))
+
+    def _norm_diagnostics(self, level, *, agg, new_error, update_sqnorm,
+                          fidelity_fn, group=None) -> dict:
+        """The scaffold both decodes share: only how the update's squared
+        norm and the fidelity come about differs between them."""
+        agg_sq = self._agg_sqnorm(agg)
+        ef_sq = self._error_sqnorm(new_error)
+        if group is not None:  # sharded slices: one sum over the group
+            summed = group.all_reduce_sum(torch.stack(
+                [agg_sq] + ([] if ef_sq is None else [ef_sq])))
+            agg_sq = summed[0]
+            ef_sq = None if ef_sq is None else summed[1]
+        d = {"grad_norm": torch.sqrt(agg_sq),
+             "update_norm": torch.sqrt(update_sqnorm)}
+        if ef_sq is not None:
+            # the one server bank: mean == max (local error reports its
+            # participant rows in round_diagnostics instead)
+            d["ef_residual_norm"] = torch.sqrt(ef_sq)
+            d["ef_residual_max"] = d["ef_residual_norm"]
+        if level >= 2:
+            d.update(fidelity_fn())
+        return d
+
+    def diagnostics_sparse(self, level: int, *, agg, idx, val, momentum,
+                           error, extra, new_momentum, new_error, lr,
+                           group=None) -> dict:
+        """``diagnostics`` for a round whose update is the gathered
+        ``(idx, val)`` candidates (``val == 0`` on padding): the update's
+        squared norm sums the candidate values, and level 2 goes through
+        ``fidelity_sparse``."""
+        return self._norm_diagnostics(
+            level, agg=agg, new_error=new_error, update_sqnorm=sqnorm(val),
+            group=group,
+            fidelity_fn=lambda: self.fidelity_sparse(idx=idx, val=val,
+                                                     lr=lr))
+
+    def _agg_sqnorm(self, agg):
+        """Squared L2 norm of the averaged aggregate (dense here)."""
+        return sqnorm(agg)
+
+    def _error_sqnorm(self, error):
+        """Squared L2 norm of the server error bank, or None when the mode
+        keeps none."""
+        return None if error is None else sqnorm(error)
+
+    def fidelity(self, *, agg, delta, momentum, error, extra, new_momentum,
+                 lr) -> dict:
+        """Level-2 fidelity scalars of the dense decode; the exact modes
+        report none."""
+        return {}
+
+    def fidelity_sparse(self, *, idx, val, lr) -> dict:
+        """Level-2 fidelity scalars from the ``(idx, val)`` update; the
+        exact modes report none."""
+        return {}
 
     def upload_floats(self) -> int:
         """Per-client uplink floats per round."""
@@ -271,3 +358,11 @@ class Compressor:
 
     def download_floats(self) -> int:
         return self.d
+
+    def masked_upload_floats(self, live_clients: int) -> int:
+        """Uplink floats of a fedsim round in which ``live_clients``
+        transmitted: every mode's payload is the same whoever takes part,
+        so it is linear in the live count (the ledger's masked invariant
+        rests on this hook; a mode whose payload depends on the cohort
+        overrides it)."""
+        return int(live_clients) * self.upload_floats()

@@ -62,7 +62,7 @@ class DenseCompressor(_DenseServerMixin, Compressor):
         if self.cfg.do_topk_down:
             # the downlink top-k of the broadcast delta, over the group
             delta_sh = topk_threshold_sharded(delta_sh, self.cfg.k, group)
-        return p_sh - delta_sh, m, e_in
+        return p_sh - delta_sh, m, e_in, agg_sh
 
 
 @register("fedavg")

@@ -28,7 +28,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from commefficient_tpu_torch.compress.base import KIND_DENSE, Compressor
+from commefficient_tpu_torch.compress.base import (
+    KIND_DENSE,
+    Compressor,
+    sqnorm,
+)
 from commefficient_tpu_torch.compress.registry import register
 
 # the reference's stream tag for the Q draws (a copy: the port imports
@@ -135,6 +139,24 @@ class PowerSGDCompressor(Compressor):
             update, q_new = self._approx(m, Q)
             delta = lr * update
         return delta, m, e, (q_new if warm else extra)
+
+    def fidelity(self, *, agg, delta, momentum, error, extra, new_momentum,
+                 lr) -> dict:
+        """The power iteration's reconstruction residual ``||M - P_hat
+        Q_new^T|| / ||M||`` on the real coordinates, M the matricized
+        compression input: ``e + lr * m`` with virtual error (applied
+        unscaled), else ``lr * m`` against the applied ``lr * approx(m)``
+        (the ratio is scale-free). ``m`` is the round's own momentum,
+        ``new_momentum``; ``delta`` is the reconstruction. Vector ops
+        only."""
+        m = new_momentum
+        if self.cfg.error_type == "virtual":
+            compressed_input = error + lr * m
+        else:
+            compressed_input = lr * m
+        num = torch.sqrt(sqnorm(compressed_input - delta))
+        den = torch.sqrt(sqnorm(compressed_input))
+        return {"powersgd_recon_rel_err": num / torch.clamp(den, min=1e-30)}
 
     def download_floats(self) -> int:
         # the applied delta is exactly the pair (P_hat, Q_new)

@@ -44,7 +44,11 @@ from dataclasses import replace
 
 import torch
 
-from commefficient_tpu_torch.compress.base import KIND_TABLE, Compressor
+from commefficient_tpu_torch.compress.base import (
+    KIND_TABLE,
+    Compressor,
+    sqnorm,
+)
 from commefficient_tpu_torch.compress.registry import register
 from commefficient_tpu_torch.ops.collectives import all_gather_pairs
 from commefficient_tpu_torch.ops.countsketch import (
@@ -52,6 +56,7 @@ from commefficient_tpu_torch.ops.countsketch import (
     estimate_at_range,
     sketch_sparse,
     sketch_vec,
+    table_sqnorm_estimate,
 )
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
@@ -251,7 +256,40 @@ class SketchCompressor(Compressor):
         delta_sh, _, e = self._slice_extract(m, e_in, lr, start, in_range,
                                              group, d)
         new_m = m if rho > 0 else m_in
-        return p_sh - delta_sh, self._down(new_m), self._down(e)
+        return p_sh - delta_sh, self._down(new_m), self._down(e), agg
+
+    # -- telemetry -------------------------------------------------------------
+    # the dense aggregate never exists here (device_encode runs before the
+    # sum over the group), so the norms are AMS estimates of the tables:
+    # K3 on the card, no unsketch, no [D] transient
+    def _agg_sqnorm(self, agg):
+        return table_sqnorm_estimate(agg)
+
+    def _error_sqnorm(self, error):
+        return None if error is None else table_sqnorm_estimate(error)
+
+    def fidelity(self, *, agg, delta, momentum, error, extra, new_momentum,
+                 lr) -> dict:
+        """The round trip's relative estimation error at the applied
+        update's own support: ``delta`` (at most k nonzeros) compacted,
+        sketched into a fresh f32 table (``sketch_sparse``, K1) and
+        re-estimated there (``estimate_at``, K4's index form), reported as
+        ``||est - delta|| / ||delta||`` over the support: the table's
+        collision noise at this round's k/c occupancy."""
+        idx, val = compact_nonzero(delta, self.cfg.k)
+        return self._fidelity_at(idx, val)
+
+    def fidelity_sparse(self, *, idx, val, lr) -> dict:
+        """``fidelity`` of the sharded decode, whose update already is the
+        gathered ``(idx, val)`` candidates (``val == 0`` padding)."""
+        return self._fidelity_at(idx, val)
+
+    def _fidelity_at(self, idx, val) -> dict:
+        spec = self.spec
+        rt = estimate_at(spec, sketch_sparse(spec, idx, val), idx)
+        num = torch.sqrt(sqnorm(torch.where(val != 0, rt - val, 0.0)))
+        den = torch.sqrt(sqnorm(val))
+        return {"sketch_est_rel_err": num / torch.clamp(den, min=1e-30)}
 
     def upload_floats(self) -> int:
         """The REALIZED table size ``r * c_actual``; warns when the blocked

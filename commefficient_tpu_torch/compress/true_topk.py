@@ -114,7 +114,7 @@ class TrueTopkCompressor(Compressor):
             torch.nn.functional.pad(local, (0, dp - d))) / W
         delta_sh, m, e = self._sharded_algebra(m_in, e_in, agg_sh, lr,
                                                group=group)
-        return p_sh - delta_sh, m, e
+        return p_sh - delta_sh, m, e, agg_sh
 
     def server_update_sparse(self, momentum, error, extra, agg_sh,
                              lr: float, step: int, *, group, d: int):

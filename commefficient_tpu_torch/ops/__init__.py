@@ -6,9 +6,11 @@ from commefficient_tpu_torch.ops.countsketch import (
     estimate_all,
     estimate_at,
     estimate_at_range,
+    l2_estimate,
     sketch_segment,
     sketch_sparse,
     sketch_vec,
+    table_sqnorm_estimate,
     unsketch,
     unsketch_dense,
     unsketch_sparse,
@@ -19,6 +21,7 @@ from commefficient_tpu_torch.ops.param_utils import (
 )
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
+    mask_out_indices,
     topk_dense,
     topk_sparsify,
     topk_threshold_dense,
@@ -27,7 +30,8 @@ from commefficient_tpu_torch.ops.topk import (
 
 __all__ = ["CountSketch", "SketchGradTap", "clip_by_global_norm",
            "compact_nonzero", "estimate_all", "estimate_at",
-           "estimate_at_range", "ravel_params", "sketch_segment",
-           "sketch_sparse", "sketch_vec", "topk_dense", "topk_sparsify",
+           "estimate_at_range", "l2_estimate", "mask_out_indices",
+           "ravel_params", "sketch_segment", "sketch_sparse", "sketch_vec",
+           "table_sqnorm_estimate", "topk_dense", "topk_sparsify",
            "topk_threshold_dense", "topk_threshold_sharded", "unsketch",
            "unsketch_dense", "unsketch_sparse"]

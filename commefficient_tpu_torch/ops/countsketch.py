@@ -48,6 +48,7 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
 )
 from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_median,
+    median_rows,
     sketch_rows,
 )
 from commefficient_tpu_torch.ops.cuda.countsketch import (
@@ -616,6 +617,32 @@ class SketchGradTap(torch.autograd.Function):
             ctx.done()
         return ((ct if ctx.needs_input_grad[0] else None), None, None, None,
                 None)
+
+
+def _median_over_rows(per_row: torch.Tensor) -> torch.Tensor:
+    """The median of an ``[r]`` f32 vector as a 0-d tensor: K3 on a
+    ``[r, 1]`` stack (its plain network on the CPU), exact for odd r and
+    the mean of the middle two for even r, as ``jnp.median``; a NaN
+    anywhere makes it NaN (the compare-exchanges propagate it)."""
+    return median_rows(per_row[:, None].contiguous())[0]
+
+
+def table_sqnorm_estimate(table: torch.Tensor) -> torch.Tensor:
+    """AMS estimate of ``||v||^2`` from v's ``[r, c]`` table: each row's
+    sum of squares is an unbiased estimate (the signs are 4-universal) and
+    the median over rows tames collisions. The rows are reduced in f32, so
+    a bf16 table's sum does not lose the estimate to rounding. One read of
+    the table, no estimate pass and no ``[d]`` transient: the sketch
+    mode's norm diagnostics."""
+    return _median_over_rows(torch.linalg.vector_norm(
+        table, dim=1, dtype=torch.float32).square())
+
+
+def l2_estimate(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
+    """Estimate of the sketched vector's L2 norm: the median over rows of
+    the row norms (``CSVec.l2estimate``), by the same route."""
+    return _median_over_rows(torch.linalg.vector_norm(
+        table, dim=1, dtype=torch.float32))
 
 
 def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):

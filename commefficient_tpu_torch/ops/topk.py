@@ -139,3 +139,9 @@ def compact_nonzero(v: torch.Tensor, k: int):
     return (torch.where(valid, idx, 0),
             torch.where(valid, v[idx], torch.zeros((), dtype=v.dtype,
                                                    device=v.device)))
+
+
+def mask_out_indices(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v`` with the coordinates ``idx`` set to 0 (a new tensor): the
+    error feedback's "forget what was sent" step."""
+    return v.index_fill(0, idx.to(torch.int64), 0.0)

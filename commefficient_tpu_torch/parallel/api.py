@@ -471,7 +471,10 @@ class FederatedSession:
         error feedback) need them and raise without, the others may pass
         ``None``. Returns the round's metrics as 0-d device tensors
         (``loss`` = mean client loss over all W, over the live clients
-        under fedsim), plus the ``fedsim/*`` host scalars under fedsim.
+        under fedsim), the ``diag/*`` 0-d device tensors at
+        ``cfg.telemetry_level >= 1`` (``telemetry/diagnostics.py``), plus
+        the ``fedsim/*`` host scalars under fedsim (the same keys every
+        round of a run).
 
         ``env`` (a ``fedsim.RoundEnv``) overrides the session
         environment's draw for this round (tests drive explicit masks

@@ -23,8 +23,10 @@ The per-mode algebra lives on the compressors (``fsdp_update``,
 sums, the fedsim masks and renormalization) and the generic constraints
 (``validate_fsdp``): modes uncompressed / true_topk / sketch with server
 state only, and the threshold top-k. It equals the replicated round up to
-f32 summation order (the reduce-scatter sums in another order). The
-FSDP round has no sketch-fused backward and no device-resident data
+f32 summation order (the reduce-scatter sums in another order). At
+``telemetry_level >= 1`` the round adds the reference's sharded
+diagnostics (``fsdp_diagnostics``), without the level-2 fidelity, as
+there. The FSDP round has no sketch-fused backward and no device-resident data
 path, as in the reference: its gradient is the dense one of
 ``make_grad_one``, and its rounds take the host batch.
 """
@@ -35,7 +37,16 @@ from typing import Callable, Optional
 
 import torch
 
-from commefficient_tpu_torch.compress.base import KIND_DENSE, KIND_TABLE
+from commefficient_tpu_torch.compress.base import (
+    KIND_DENSE,
+    KIND_TABLE,
+    sqnorm,
+)
+from commefficient_tpu_torch.telemetry.diagnostics import (
+    all_finite,
+    nonfinite_sentinel,
+    table_sqnorm_estimate,
+)
 from commefficient_tpu_torch.parallel.round import (
     FedState,
     batched_client_transmits,
@@ -110,13 +121,48 @@ def per_chip_state_floats(cfg, comp, d: int, n_shards: int) -> dict:
     return out
 
 
+def fsdp_diagnostics(comp, group, *, agg, p_sh, new_p, new_e, loss) -> dict:
+    """The FSDP round's ``diag/*`` scalars from the slices it holds:
+    ``grad_norm`` the AMS estimate of the summed table ``fsdp_update``
+    built (sketch) or the norm of the reduce-scattered aggregate slices;
+    ``update_norm`` and a dense error bank's norm from the slices'
+    squared norms; a table bank AMS-estimated; and the ranks' count of
+    non-finite param slices ORed into the sentinel. Every sum over the
+    group rides ONE all-reduce of a few floats; the tables are whole on
+    every rank. No fidelity, as in the reference."""
+    _, e_kind = comp.server_state_kinds()
+    sliced = {"update": sqnorm(p_sh - new_p),
+              "bad": 1.0 - all_finite(new_p).to(torch.float32)}
+    if not comp.needs_sketch_spec:
+        sliced["grad"] = sqnorm(agg)
+    if e_kind == KIND_DENSE:
+        sliced["ef"] = sqnorm(new_e)
+    summed = dict(zip(sliced, group.all_reduce_sum(
+        torch.stack(list(sliced.values())))))
+    grad_sq = (table_sqnorm_estimate(agg) if comp.needs_sketch_spec
+               else summed["grad"])
+    diag = {"diag/grad_norm": torch.sqrt(grad_sq),
+            "diag/update_norm": torch.sqrt(summed["update"])}
+    ef = (torch.sqrt(summed["ef"]) if e_kind == KIND_DENSE
+          else torch.sqrt(table_sqnorm_estimate(new_e))
+          if e_kind == KIND_TABLE else None)
+    if ef is not None:
+        diag["diag/ef_residual_norm"] = ef
+        diag["diag/ef_residual_max"] = ef
+    s = nonfinite_sentinel([loss] + list(diag.values()))
+    diag["diag/nonfinite"] = torch.maximum(s, (summed["bad"] > 0).to(
+        torch.float32))
+    return diag
+
+
 def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
                         group):
     """``round_fn(state, client_ids, batch, lr, mark=None, env=None) ->
     (new_state, metrics)``, the same contract as ``build_round_fn``'s,
     with ``state.params_vec`` and the dense server leaves this rank's
     ``[S]`` slices. ``mark(i)`` as there (0: gather and gradients, 1: the
-    loss sums, 2: the server step with its exchanges, 3-4: the end)."""
+    loss sums, 2: the server step with its exchanges, 3: the diagnostics
+    at ``telemetry_level >= 1``, 4: the end)."""
     validate_fsdp(cfg, comp)
     comp.resolved_dampening()
     W, d = cfg.num_workers, comp.d
@@ -132,6 +178,7 @@ def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
     per_client = make_per_client(cfg, comp,
                                  make_grad_one(cfg, loss_fn, unravel))
     grad_flat = make_grad_one(cfg, loss_fn, unravel, batched=False)
+    telemetry = cfg.telemetry_level >= 1
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float,
@@ -165,16 +212,21 @@ def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
             scale = live_scale(W, count)
             local, loss = local * scale, loss * scale
         mark(2)
-        new_p, new_m, new_e = comp.fsdp_update(
+        new_p, new_m, new_e, agg = comp.fsdp_update(
             state.params_vec, state.momentum, state.error, local, lr,
             group=group, W=W, d=d, dp=dp, S=S)
         if fedsim and count <= 0:  # nothing arrived: nothing moves
             new_p, new_m, new_e = state.params_vec, state.momentum, \
                 state.error
         mark(3)
+        metrics = {"loss": loss, **aux}
+        if telemetry:
+            metrics.update(fsdp_diagnostics(
+                comp, group, agg=agg, p_sh=state.params_vec, new_p=new_p,
+                new_e=new_e, loss=loss))
         new_state = FedState(new_p, new_m, new_e, None, None,
                              state.step + 1, None)
         mark(4)
-        return new_state, {"loss": loss, **aux}
+        return new_state, metrics
 
     return round_fn

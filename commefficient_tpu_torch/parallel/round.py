@@ -46,6 +46,12 @@ asynchronous ``all_reduce``, started as soon as the backward has written
 the group's last leaf; the round waits on them in group order and adds
 the group sums.
 
+Telemetry (``cfg.telemetry_level >= 1``): after the update is applied
+the round adds the ``diag/*`` scalars (``telemetry/diagnostics.py``) to
+its metrics, 0-d tensors on the device, from tensors the round already
+holds (the aggregate, the update, the new error, the cohort's error rows
+the write-back gathered); at level 0 none of it runs.
+
 fedsim (``cfg.fedsim_enabled``): the round takes the cohort's ``RoundEnv``
 (live and corruption masks over the W slots, the live count); each rank
 applies its slice of the masks per client (corruption, then the live mask,
@@ -86,6 +92,10 @@ from commefficient_tpu_torch.ops.param_utils import (
     clip_by_global_norm,
     tree_leaves,
     tree_with_leaves,
+)
+from commefficient_tpu_torch.telemetry.diagnostics import (
+    round_diagnostics,
+    round_diagnostics_sparse,
 )
 
 
@@ -591,8 +601,10 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
     and extraction (the dense decode, the sharded decode, or under
     ``sparse_state`` the sliced ``server_update_sparse``), then, for the
     dense decode, the optional downlink top-k. Returns ``(update, new_momentum,
-    new_error, new_comp)`` for ``apply_update``: ``("dense", delta)`` or
-    ``("sparse", (idx, val))``.
+    new_error, new_comp, agg)``: ``update`` for ``apply_update``,
+    ``("dense", delta)`` or ``("sparse", (idx, val))``, and ``agg`` the
+    aggregate the server step consumed (scaled under fedsim), which the
+    diagnostics read.
 
     ``count`` (fedsim: the live clients of the whole round, a host float)
     scales ``agg`` by ``live_scale(W, count)`` first (``agg`` in f32, as
@@ -620,7 +632,7 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
         update = ((kind, torch.zeros_like(u)) if kind == "dense"
                   else (kind, (u[0], torch.zeros_like(u[1]))))
         new_m, new_e, new_c = state.momentum, state.error, state.comp
-    return update, new_m, new_e, new_c
+    return update, new_m, new_e, new_c, agg
 
 
 def apply_update(params_vec: torch.Tensor, update) -> torch.Tensor:
@@ -636,13 +648,38 @@ def apply_update(params_vec: torch.Tensor, update) -> torch.Tensor:
     return params_vec.index_add(0, g_idx, -g_val)
 
 
-def write_rows(group, bank, client_ids, rows) -> None:
+def write_rows(group, bank, client_ids, rows):
     """Write every rank's new rows (this rank's ``rows [w_loc, D]``,
     all-gathered in rank order to the cohort's ``[W, D]``) into ``bank`` at
     ``client_ids``, in place: no round copies a ``[num_clients, D]``
-    bank. Nothing when the bank is absent."""
-    if bank is not None:
-        bank.index_copy_(0, client_ids, group.all_gather(rows))
+    bank. Returns the gathered ``[W, D]`` rows, None when the bank is
+    absent."""
+    if bank is None:
+        return None
+    rows = group.all_gather(rows)
+    bank.index_copy_(0, client_ids, rows)
+    return rows
+
+
+def round_diag(cfg, comp, plan: AggregationPlan, group, state: FedState,
+               new_state: FedState, update, agg, loss, lr: float,
+               err_rows=None) -> dict:
+    """The round's ``diag/*`` scalars (``telemetry/diagnostics.py``) from
+    what it holds: the pre-update ``state``, the applied ``update``, the
+    ``new_state``, the aggregate and, under local error (the only
+    configuration with a client error bank), the cohort's ``[W, D]`` new
+    error rows (``write_rows``' gather)."""
+    kind, u = update
+    common = dict(agg=agg, new_params=new_state.params_vec, loss=loss, lr=lr,
+                  momentum=state.momentum, error=state.error,
+                  extra=state.comp, new_momentum=new_state.momentum,
+                  new_error=new_state.error,
+                  group=group if plan.sparse_state else None)
+    if kind == "sparse":
+        return round_diagnostics_sparse(cfg, comp, idx=u[0], val=u[1],
+                                        **common)
+    return round_diagnostics(cfg, comp, delta=u, client_err_rows=err_rows,
+                             **common)
 
 
 def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
@@ -654,8 +691,9 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     unused): its ``[W]`` masks, of which each rank applies its slice, and the
     round's global live count. ``mark(i)``, when given, is called as phase
     ``i`` begins (0: the client gradients and transmits, 1: the encode and
-    aggregate, 2: the server, 3: the apply and the banks' write-back) and
-    at the end (4)."""
+    aggregate, 2: the server, 3: the apply, the banks' write-back and, at
+    ``telemetry_level >= 1``, the ``diag/*`` scalars) and at the end
+    (4)."""
     comp.resolved_dampening()  # the mode's warnings, once, at build time
     per_client = make_per_client(cfg, comp,
                                  make_grad_one(cfg, loss_fn, unravel))
@@ -678,6 +716,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     w_loc = W // group.size
     lo = group.rank * w_loc
     aggregate_tail = make_aggregate_tail(cfg, comp, plan, group, comp.d)
+    telemetry = cfg.telemetry_level >= 1
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float, mark=None,
@@ -734,17 +773,24 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
         if fedsim:  # the mean over the LIVE clients
             loss = loss * live_scale(W, count)
         mark(2)
-        update, new_m, new_e, new_c = server_phase(cfg, comp, plan, group,
-                                                   state, agg, lr, count)
+        update, new_m, new_e, new_c, agg = server_phase(
+            cfg, comp, plan, group, state, agg, lr, count)
         mark(3)
         new_state = replace(
             state, params_vec=apply_update(state.params_vec, update),
             momentum=new_m, error=new_e, comp=new_c, step=state.step + 1)
+        err_rows = None
         if stateful:  # the banks carry over, updated in place
             write_rows(group, state.client_vel, client_ids, new_vel)
-            write_rows(group, state.client_err, client_ids, new_err)
+            err_rows = write_rows(group, state.client_err, client_ids,
+                                  new_err)
+        metrics = {"loss": loss, **aux}
+        if telemetry:
+            metrics.update(round_diag(cfg, comp, plan, group, state,
+                                      new_state, update, agg, loss, lr,
+                                      err_rows))
         mark(4)
-        return new_state, {"loss": loss, **aux}
+        return new_state, metrics
 
     return round_fn
 

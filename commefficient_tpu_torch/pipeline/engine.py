@@ -20,7 +20,7 @@ consumer's wait for staged work: the host time the depth did not hide),
 ``prefetch_host_ms`` (the worker's time a round), and the count
 ``staged_copies`` of rounds whose arrays came staged on the card (every
 round on the card, none on the CPU). Not ported (ROADMAP
-A11, A12): the compression controller's barrier and rung-switch
+A11, A12b): the compression controller's barrier and rung-switch
 listener, the resilience restart, the spans and the ``pipeline/*`` metric
 scalars.
 """
@@ -77,13 +77,14 @@ class PipelinedRounds:
         if self._prefetcher is not None:
             self._prefetcher.close()
 
-    def epoch_rounds(self, epoch: int, start_step: int, stop_step: int):
+    def epoch_rounds(self, epoch: int, start_step: int, stop_step: int,
+                     before_dispatch=None):
         """Yield ``(step, lr, metrics, wait_ms, t_dispatch)`` for epoch
         ``epoch``'s rounds in ``[max(start_step, epoch start),
         min(stop_step, epoch end))``, each dispatched through the session
-        as the synchronous loop dispatches it; ``wait_ms`` is the wait for
-        its staged work, ``t_dispatch`` the ``perf_counter`` time of the
-        dispatch."""
+        as the synchronous loop dispatches it (``before_dispatch(step)``
+        just before, when given); ``wait_ms`` is the wait for its staged
+        work, ``t_dispatch`` the ``perf_counter`` time of the dispatch."""
         if self._prefetcher is None:
             raise RuntimeError("PipelinedRounds.epoch_rounds before start()")
         spe = self.steps_per_epoch
@@ -94,6 +95,8 @@ class PipelinedRounds:
             work = self._prefetcher.get(step)  # re-raises worker faults
             t_disp = time.perf_counter()
             stall_ms = (t_disp - t0) * 1e3
+            if before_dispatch is not None:
+                before_dispatch(step)
             metrics = self._dispatch(work)
             self._rounds += 1
             self._stall_ms_sum += stall_ms

@@ -58,6 +58,14 @@ a background thread two rounds ahead. ``--pipeline_depth N`` (N > 0) runs
 the pipelined engine instead: a worker realizes N rounds ahead and copies
 each round's arrays to the card early (pinned buffers, a side stream), and
 the values stay those of depth 0.
+
+Telemetry: rank 0 writes ``metrics.jsonl`` into a run dir under
+``--logdir`` (``runs`` by default; ``--tensorboard true`` adds
+TensorBoard); ``--telemetry_level 1`` adds the ``diag/*`` and ``comm/*``
+scalars, ``comm_ledger.json`` and the flight recorder (a non-finite round
+raises ``DivergenceError`` and dumps ``flight_<step>.json``), level 2 the
+compressors' fidelity; ``--profile_dir DIR`` traces rounds 5-7 with
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import CV_MODELS, Config, parse_args
+from commefficient_tpu_torch.utils.logging import MetricsWriter, make_logdir
 
 
 def load_dataset(cfg: Config):
@@ -169,6 +178,10 @@ class _CvHooks(WorkloadHooks):
         return self.session.evaluate(
             self.test_ds.eval_batches(self.eval_batch_size))
 
+    def write_val(self, writer, val, step):
+        writer.scalar("val/loss", val["loss"], step)
+        writer.scalar("val/acc", val.get("accuracy", 0.0), step)
+
     def epoch_row(self, *, epoch, lr, acc, val, train_time, val_time,
                   rounds):
         return {
@@ -189,8 +202,9 @@ def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     ``param_delta_norm`` (how far the run moved the params) and
     ``sketch_decode`` (the server decode the session ran), ``checkpoint``
     (the runner's checkpoint facts), ``final_step``, ``data_path``
-    (``device`` or ``host``) and ``pipeline_stats`` (the pipelined
-    engine's ``stats()``, None at depth 0). ``model_kw`` narrows the model
+    (``device`` or ``host``), ``pipeline_stats`` (the pipelined engine's
+    ``stats()``, None at depth 0) and ``logdir`` (rank 0's run dir, None
+    on the other ranks). ``model_kw`` narrows the model
     (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
@@ -229,12 +243,18 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     p0 = session.full_params_vec().clone()
     pipeline_stats = {}
-    val, history, ckpt = run_train_loop(
-        cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
-        on_round=lambda r: print(
-            f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
-            f"ms={r['ms']:.2f}", flush=True),
-        engine_stats=pipeline_stats)
+    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg)
+              if session.group.rank == 0 else None)
+    try:
+        val, history, ckpt = run_train_loop(
+            cfg, session, sampler, _CvHooks(session, test, eval_batch_size),
+            on_round=lambda r: print(
+                f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
+                f"ms={r['ms']:.2f}", flush=True),
+            engine_stats=pipeline_stats, writer=writer)
+    finally:
+        if writer is not None:
+            writer.close()
     if val:
         say(f"final: val_loss={val['loss']:.4f} "
             f"val_acc={val.get('accuracy', 0):.4f}")
@@ -245,7 +265,8 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
             "aggregate": session.aggregate_resolved,
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,
-            "pipeline_stats": pipeline_stats or None}
+            "pipeline_stats": pipeline_stats or None,
+            "logdir": writer.logdir if writer is not None else None}
 
 
 if __name__ == "__main__":

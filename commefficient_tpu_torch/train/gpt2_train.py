@@ -62,6 +62,7 @@ from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import Config, parse_args
+from commefficient_tpu_torch.utils.logging import MetricsWriter, make_logdir
 
 # the reference entry point's defaults over Config's
 DEFAULTS = dict(model="gpt2", dataset_name="personachat", local_batch_size=4,
@@ -172,6 +173,11 @@ class _Gpt2Hooks(WorkloadHooks):
     def evaluate(self):
         return evaluate_ppl(self.session, self.test_ds, self.eval_batch_size)
 
+    def write_val(self, writer, val, step):
+        writer.scalar("val/nll", val["nll"], step)
+        writer.scalar("val/ppl", val["ppl"], step)
+        writer.scalar("val/mc_acc", val["mc_accuracy"], step)
+
     def epoch_row(self, *, epoch, lr, acc, val, train_time, val_time,
                   rounds):
         return {"epoch": epoch + 1, "lr": lr,
@@ -197,8 +203,10 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
     ``param_delta_norm``, ``sketch_decode``, ``checkpoint`` (the runner's
     checkpoint facts), ``final_step``, ``samples`` (each epoch's
     ``(prompt, generated)`` token ids), ``hf_weights``, ``real``,
-    ``data_path`` and ``pipeline_stats`` (the pipelined engine's
-    ``stats()`` at ``--pipeline_depth`` > 0, else None). Under
+    ``data_path``, ``pipeline_stats`` (the pipelined engine's ``stats()``
+    at ``--pipeline_depth`` > 0, else None) and ``logdir`` (rank 0's run
+    dir: ``metrics.jsonl``, and the telemetry artifacts of
+    ``--telemetry_level``, as cv_train). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank; rank 0
     alone evaluates and prints."""
     cfg = parse_args(argv, defaults=DEFAULTS, **overrides)
@@ -238,12 +246,18 @@ def _train(cfg: Config, eval_batch_size: int):
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
     p0 = session.full_params_vec().clone()
     pipeline_stats = {}
-    val, history, ckpt = run_train_loop(
-        cfg, session, sampler, hooks,
-        on_round=lambda r: print(
-            f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
-            f"ms={r['ms']:.2f}", flush=True),
-        engine_stats=pipeline_stats)
+    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg)
+              if session.group.rank == 0 else None)
+    try:
+        val, history, ckpt = run_train_loop(
+            cfg, session, sampler, hooks,
+            on_round=lambda r: print(
+                f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
+                f"ms={r['ms']:.2f}", flush=True),
+            engine_stats=pipeline_stats, writer=writer)
+    finally:
+        if writer is not None:
+            writer.close()
     if val:
         say(f"final: val_nll={val['nll']:.4f} ppl={val['ppl']:.2f} "
             f"mc_acc={val['mc_accuracy']:.4f}")
@@ -255,7 +269,8 @@ def _train(cfg: Config, eval_batch_size: int):
             "samples": hooks.samples, "hf_weights": hf_loaded, "real": real,
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,
-            "pipeline_stats": pipeline_stats or None}
+            "pipeline_stats": pipeline_stats or None,
+            "logdir": writer.logdir if writer is not None else None}
 
 
 if __name__ == "__main__":

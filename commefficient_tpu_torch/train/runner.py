@@ -25,8 +25,21 @@ the round, so the resumed run is the unbroken one); a save every
 ``checkpoint_every`` rounds and a forced one at the end. The chaos plan's
 rounds are checked against the run length at entry.
 ``cfg.max_rounds > 0`` stops the run once ``max_rounds`` rounds are done
-and evaluates once. The reference's resilience, control plane and
-telemetry are not ported (``Config`` refuses their flags).
+and evaluates once.
+
+Telemetry (the reference's riders): rank 0's ``MetricsWriter`` (the entry
+points make it) gets, at each drain (``utils/logging.drain_round_metrics``:
+one packed copy to the host), ``train/loss``, ``lr``, every namespaced key
+of the round (``diag/*``, ``fedsim/*``) and, at ``telemetry_level >= 1``,
+the ``CommLedger``'s ``comm/*``; each epoch's evaluation goes in as
+``val/*``. At level >= 1 every rank keeps a ``FlightRecorder`` (only rank
+0's writes) that raises ``DivergenceError`` at the first drained round
+whose loss or ``diag/nonfinite`` is non-finite; the error is not caught.
+Any other crash first drains the rounds dispatched so far, then dumps
+the ring; ``comm_ledger.json`` is written on every exit. ``cfg.profile_dir``
+arms a ``StepProfiler`` window, stepped as each round is dispatched and
+moved past a resume. The reference's resilience and control plane are
+not ported (``Config`` refuses their flags).
 """
 
 from __future__ import annotations
@@ -37,27 +50,20 @@ from functools import partial
 
 from commefficient_tpu_torch.data.sampler import prefetch
 from commefficient_tpu_torch.parallel.api import microbatched
+from commefficient_tpu_torch.telemetry import (
+    DivergenceError,
+    FlightRecorder,
+    build_telemetry_riders,
+    record_crash,
+)
 from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
+from commefficient_tpu_torch.utils.logging import (
+    TableLogger,
+    Timer,
+    drain_round_metrics,
+)
+from commefficient_tpu_torch.utils.profiling import StepProfiler
 from commefficient_tpu_torch.utils.schedule import piecewise_linear_lr
-
-
-class TableLogger:
-    """Aligned console table, one row per epoch."""
-
-    def __init__(self, width: int = 12):
-        self.width = width
-        self._keys = None
-
-    def append(self, row: dict) -> None:
-        if self._keys is None:
-            self._keys = list(row)
-            print(" | ".join(f"{k:>{self.width}s}" for k in self._keys))
-        cells = []
-        for k in self._keys:
-            v = row.get(k, "")
-            cells.append(f"{v:>{self.width}.4f}" if isinstance(v, float)
-                         else f"{str(v):>{self.width}s}")
-        print(" | ".join(cells), flush=True)
 
 
 class WorkloadHooks:
@@ -72,6 +78,10 @@ class WorkloadHooks:
     def evaluate(self) -> dict:
         raise NotImplementedError
 
+    def write_val(self, writer, val: dict, step: int) -> None:
+        """Write the epoch's ``val/*`` scalars."""
+        raise NotImplementedError
+
     def epoch_row(self, *, epoch, lr, acc, val, train_time, val_time,
                   rounds) -> dict:
         raise NotImplementedError
@@ -82,11 +92,12 @@ class WorkloadHooks:
 
 
 def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
-                       start: int, stop: int):
+                       start: int, stop: int, before_dispatch=None):
     """The synchronous round source (``pipeline_depth 0``): epoch
     ``epoch``'s rounds in ``[start, stop)`` through the sampler's prefetch
-    thread, each dispatched as it arrives. Yields ``(step, lr, metrics,
-    wait_ms, t_dispatch)``: ``wait_ms`` the wait on the prefetch queue,
+    thread, each dispatched as it arrives (``before_dispatch(step)`` just
+    before, when given). Yields ``(step, lr, metrics, wait_ms,
+    t_dispatch)``: ``wait_ms`` the wait on the prefetch queue,
     ``t_dispatch`` the ``perf_counter`` time the round was dispatched."""
     spe = sampler.steps_per_epoch()
     on_device = session.data_path == "device"
@@ -100,6 +111,8 @@ def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
             wait_ms = 1e3 * (time.perf_counter() - t0)
             if s >= start:  # fast-forward within the resumed epoch
                 lr = float(lr_fn(s))
+                if before_dispatch is not None:
+                    before_dispatch(s)
                 t_disp = time.perf_counter()
                 if on_device:  # (client ids, [W, B] indices, the plan)
                     metrics = session.train_round_indices(*item, lr)
@@ -139,7 +152,7 @@ def round_source(cfg, session, sampler, lr_fn, start: int, stop: int):
 
 
 def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
-                   on_round=None, engine_stats=None):
+                   on_round=None, engine_stats=None, writer=None):
     """Run the epochs; returns ``(final val metrics, per-round history,
     checkpoint facts)``, the facts ``{"resumed_from", "save_ms",
     "restore_ms", "bytes"}`` (the round the run resumed from, 0 for a
@@ -156,13 +169,15 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     the epoch's drain, so an epoch's ``ms`` sum to its training wall time
     from the first dispatch (a drain and a save before a checkpoint fall
     in the round they follow). ``engine_stats``, a dict, receives the
-    pipelined engine's ``stats()`` at depth > 0.
+    pipelined engine's ``stats()`` at depth > 0. ``writer`` is rank 0's
+    ``MetricsWriter`` (None on the other ranks, and for no metrics file).
 
     In a worker group every rank draws the same rounds (same sampler
     seed) and trains; rank 0 alone evaluates, prints and writes
-    checkpoints (under FSDP every rank first takes part in the params'
-    gather), and the other ranks return empty val metrics. Epochs
-    wholly before the resumed round are skipped, evaluation included."""
+    checkpoints and telemetry (under FSDP every rank first takes part in
+    the params' gather), and the other ranks return empty val metrics.
+    Epochs wholly before the resumed round are skipped, evaluation
+    included."""
     main = session.group.rank == 0
     steps_per_epoch = sampler.steps_per_epoch()
     num_rounds = steps_per_epoch * cfg.num_epochs
@@ -174,12 +189,19 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     lr_fn = partial(piecewise_linear_lr, steps_per_epoch=steps_per_epoch,
                     pivot_epoch=cfg.pivot_epoch, num_epochs=cfg.num_epochs,
                     lr_scale=cfg.lr_scale)
+    ledger, flight = build_telemetry_riders(cfg, session, writer)
+    if flight is None and cfg.telemetry_level >= 1:
+        # every rank drains the same scalars, so every rank stops at the
+        # same divergence; only rank 0's recorder writes
+        flight = FlightRecorder(cfg)
+    profiler = StepProfiler(cfg.profile_dir if main else "")
     checkpointer = FedCheckpointer(cfg)
     start = 0
     if cfg.resume:
         restored = checkpointer.restore(session)
         if restored is not None:
             start = restored
+            profiler.resume_at(start)
             if main:
                 print(f"resumed from checkpoint at round {start}")
     last = min(num_rounds, cfg.max_rounds) if cfg.max_rounds else num_rounds
@@ -187,6 +209,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     history = []
     val = {}
     engine = None
+    live_drain = None  # the current epoch's drain (the crash flush)
     if cfg.pipeline_enabled and start < last:
         from commefficient_tpu_torch.pipeline import PipelinedRounds
 
@@ -199,19 +222,27 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 continue  # fast-forward over the epochs before the resume
             if epoch * steps_per_epoch >= last:
                 break
-            t_epoch = time.perf_counter()
+            timer = Timer()
             acc = hooks.new_accumulator()
-            pending = []  # (row, metrics) dispatched, not read back
+            pending = []  # (step, lr, metrics) dispatched, not read back
+            rows = []  # their history rows, in the same order
             unreported = []  # rows not yet given to on_round
 
-            def drain(_acc=acc, _pending=pending):
-                for row, metrics in _pending:
-                    loss = float(metrics["loss"])
+            def drain(_acc=acc, _pending=pending, _rows=rows):
+                filling = iter(list(_rows))
+                _rows.clear()
+
+                def accumulate(loss, metrics):
+                    row = next(filling)
                     row["loss"] = loss
-                    row.update({k: float(v) for k, v in metrics.items()
+                    row.update({k: v for k, v in metrics.items()
                                 if k.startswith("fedsim/")})
                     hooks.accumulate(_acc, loss, metrics)
-                _pending.clear()
+
+                drain_round_metrics(_pending, writer, accumulate,
+                                    ledger=ledger, flight=flight)
+
+            live_drain = drain
 
             def report(_unreported=unreported):
                 while _unreported and "loss" in _unreported[0] and \
@@ -220,10 +251,12 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     if on_round is not None and main:
                         on_round(row)
 
-            rounds = (engine.epoch_rounds(epoch, start, last)
+            rounds = (engine.epoch_rounds(epoch, start, last,
+                                          before_dispatch=profiler.step)
                       if engine is not None else
                       _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch,
-                                         start, last))
+                                         start, last,
+                                         before_dispatch=profiler.step))
             lr = float(lr_fn(max(start, epoch * steps_per_epoch)))
             n = 0
             prev = None  # (the last row, its dispatch time)
@@ -235,7 +268,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     prev = (row, t_disp)
                     history.append(row)
                     unreported.append(row)
-                    pending.append((row, metrics))
+                    pending.append((s, lr, metrics))
+                    rows.append(row)
                     n += 1
                     if checkpointer.will_save(s + 1):
                         drain()  # the losses first, then the save
@@ -245,25 +279,45 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             if prev is not None:
                 prev[0]["ms"] = 1e3 * (time.perf_counter() - prev[1])
             report()
-            train_time = time.perf_counter() - t_epoch
+            train_time = timer()
             if cfg.fsdp:  # every rank gathers the params rank 0 evaluates
                 session.full_params_vec()
             if main:
-                t_val = time.perf_counter()
+                timer()
                 val = hooks.evaluate()
                 table.append(hooks.epoch_row(
                     epoch=epoch, lr=lr, acc=acc, val=val,
-                    train_time=train_time,
-                    val_time=time.perf_counter() - t_val, rounds=max(n, 1)))
+                    train_time=train_time, val_time=timer(),
+                    rounds=max(n, 1)))
+                if writer:
+                    hooks.write_val(writer, val, session.state.step)
+                    writer.flush()
                 hooks.on_epoch_end(epoch, val)
         # the end-of-training save: a run's last rounds past the final
         # checkpoint_every boundary would otherwise be lost to a resume
         checkpointer.maybe_save(session, session.state.step, force=True)
+    except Exception as e:
+        # the rounds dispatched before a crash still reach the metrics, the
+        # ledger and the ring (a DivergenceError from this flush names the
+        # true first bad round and wins; any other flush error must not
+        # hide the original one)
+        if live_drain is not None and not isinstance(e, DivergenceError):
+            try:
+                live_drain()
+            except DivergenceError:
+                raise
+            except Exception:  # noqa: BLE001 — the original error wins
+                pass
+        record_crash(flight, e)  # a divergence dumped its own record
+        raise
     finally:
         if engine is not None:
             if engine_stats is not None:
                 engine_stats.update(engine.stats())
             engine.close()  # joins the worker, crashes included
+        profiler.close()
+        if ledger is not None:  # a partial ledger is evidence too
+            ledger.write(writer.logdir)
     return val, history, {"resumed_from": start,
                           "save_ms": checkpointer.last_save_ms,
                           "restore_ms": checkpointer.last_restore_ms,

@@ -33,7 +33,6 @@ AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
 
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "telemetry_level": "telemetry/ diagnostics (ROADMAP A12)",
     "control_policy": "the control/ compression ladder (ROADMAP A11)",
     "ladder": "the control/ compression ladder (ROADMAP A11)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
@@ -45,10 +44,9 @@ _UNPORTED = {
     "num_hosts": "multihost/ (ROADMAP A11)",
     "distributed": "multihost/ (ROADMAP A11)",
     "distributed_connect_retries": "multihost/ (ROADMAP A11)",
-    "flight_window": "the flight recorder (ROADMAP A12)",
-    "max_retraces": "the retrace sentinel (ROADMAP A12)",
-    "perf_audit": "the compiled-round audit (ROADMAP A12)",
-    "run_report": "the run report (ROADMAP A12)",
+    "max_retraces": "the retrace sentinel (ROADMAP A12b)",
+    "perf_audit": "the compiled-round audit (ROADMAP A12b)",
+    "run_report": "the run report (ROADMAP A12b)",
     "scan_rounds": "the scan round engine (ROADMAP A11)",
     "async_buffer": "asyncfed/ (ROADMAP A11)",
     "async_concurrency": "asyncfed/ (ROADMAP A11)",
@@ -67,10 +65,7 @@ _UNPORTED = {
     "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
     "max_recoveries": "resilience/ rollback (ROADMAP A11)",
     "preempt_signals": "resilience/ preemption (ROADMAP A11)",
-    "tensorboard": "utils/logging (ROADMAP A12)",
-    "logdir": "utils/logging (ROADMAP A12)",
-    "profile_dir": "the profiler capture (ROADMAP A12)",
-    "profile_rounds": "the profiler capture (ROADMAP A12)",
+    "profile_rounds": "the profiler window (ROADMAP A12b)",
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -242,8 +237,18 @@ class Config:
     # gathers
     overlap_collectives: str = "none"
 
-    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
+    # --- telemetry (telemetry/, utils/logging.py, utils/profiling.py) ---
+    # 0 off; 1 the diag/* norms and sentinel, comm/* bytes, the flight
+    # recorder; 2 + compressor fidelity (telemetry/__init__.py)
     telemetry_level: int = 0
+    # drained rounds the flight recorder keeps for its dump
+    flight_window: int = 16
+    tensorboard: bool = False  # TensorBoard beside metrics.jsonl
+    logdir: str = "runs"  # the run dirs' parent (utils/logging.make_logdir)
+    # a torch.profiler trace of a few steady-state rounds (StepProfiler)
+    profile_dir: str = ""
+
+    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     control_policy: str = "none"
     ladder: str = ""
     recover_policy: str = "none"
@@ -255,7 +260,6 @@ class Config:
     num_hosts: int = 1
     distributed: bool = False
     distributed_connect_retries: int = 3
-    flight_window: int = 16
     max_retraces: Optional[int] = None
     perf_audit: bool = True
     run_report: bool = True
@@ -277,9 +281,6 @@ class Config:
     snapshot_every: int = 16
     max_recoveries: int = 2
     preempt_signals: bool = False
-    tensorboard: bool = False
-    logdir: str = "runs"
-    profile_dir: str = ""
     profile_rounds: str = ""
 
     seed: int = 42
@@ -304,6 +305,15 @@ class Config:
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"{blocker}; leave it at {default!r}"
                 )
+        from commefficient_tpu_torch.telemetry import TELEMETRY_LEVELS
+
+        if self.telemetry_level not in TELEMETRY_LEVELS:
+            raise ValueError(
+                f"telemetry_level must be 0 (off), 1 (health) or 2 "
+                f"(+fidelity), got {self.telemetry_level!r}")
+        if self.flight_window < 1:
+            raise ValueError(
+                f"flight_window must be >= 1, got {self.flight_window}")
         if self.num_devices < 1:
             raise ValueError(f"num_devices must be >= 1, got "
                              f"{self.num_devices}")

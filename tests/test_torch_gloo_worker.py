@@ -21,7 +21,9 @@ session and run two more (written as ``resume:<name>``); ``topk``, vectors whose
 ``topk_threshold_sharded`` selection the ranks compute half each;
 ``ties``, a sharded server update on a table whose estimates tie at the
 max for more than k coordinates; ``collectives``, the pair exchanges of
-``ops/collectives`` on each rank's row of the input's ``coll/v``.
+``ops/collectives`` on each rank's row of the input's ``coll/v``;
+``telemetry``, cases run as ``cases`` whose every ``diag/*`` scalar is
+written a round (``tel:<name>/<key>``, ``[rounds]``).
 """
 
 import json
@@ -99,6 +101,22 @@ def run_cases(job, npz, out):
         sess = _session(kw, npz)
         losses = _rounds(sess, npz, job["lr"], range(npz["x"].shape[0]))
         _write_state(out, name, sess, losses)
+
+
+def run_telemetry(job, npz, out):
+    from commefficient_tpu_torch.parallel.api import microbatched
+
+    for name, kw in job.get("telemetry", {}).items():
+        sess = _session(kw, npz)
+        rows = []
+        for r in range(npz["x"].shape[0]):
+            batch = microbatched(sess.cfg, {"x": npz["x"][r],
+                                            "y": npz["y"][r]})
+            m = sess.train_round(npz["ids"][r], batch, job["lr"])
+            rows.append({k: float(v) for k, v in m.items()
+                         if k.startswith("diag/")})
+        for k in rows[0]:
+            out[f"tel:{name}/{k}"] = np.asarray([row[k] for row in rows])
 
 
 def run_resume(job, npz, out, tmp):
@@ -199,6 +217,7 @@ def main(argv):
         out = {}
         group = DistributedWorkers()
         run_cases(job, npz, out)
+        run_telemetry(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)
         run_ties(job, npz, out, group)

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``commefficient_tpu_torch/``, nor
-``chip_smoke.py``, imports ``jax``, ``flax`` or the JAX package.
+``chip_smoke.py``, imports ``jax``, ``flax``, the JAX package or the
+reference's ``scripts/``.
 
 The GPU machine that runs the port has no JAX, so an import that slipped in
 would break it there while every CPU test here still passed. Two checks: a
@@ -18,7 +19,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "commefficient_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "commefficient_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "commefficient_tpu",
+             "scripts")
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -60,10 +62,17 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/parallel/envelope.py",
                  "commefficient_tpu_torch/parallel/fsdp.py",
                  "commefficient_tpu_torch/ops/collectives/"
-                 "sparse_allreduce.py"):
+                 "sparse_allreduce.py",
+                 "commefficient_tpu_torch/telemetry/__init__.py",
+                 "commefficient_tpu_torch/telemetry/diagnostics.py",
+                 "commefficient_tpu_torch/telemetry/flight.py",
+                 "commefficient_tpu_torch/telemetry/ledger.py",
+                 "commefficient_tpu_torch/utils/logging.py",
+                 "commefficient_tpu_torch/utils/profiling.py"):
         assert must in names
     assert _forbidden("commefficient_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert _forbidden("scripts.check_telemetry_schema")
     assert not _forbidden("commefficient_tpu_torch.ops")
     assert not _forbidden("jaxtyping_lookalike")
 

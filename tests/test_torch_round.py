@@ -121,9 +121,9 @@ def test_schedule_matches_reference():
     ("preempt_signals", "true", "A11"),
     ("scan_rounds", "2", "A11"),
     ("model_axis", "2", "A17"),
-    ("logdir", "elsewhere", "A12"),
+    ("max_retraces", "2", "A12b"),
     ("chaos", "resize@2", "A11"),
-    ("telemetry_level", "1", "A12"),
+    ("profile_rounds", "3-4", "A12b"),
     ("ladder", "k=10,5", "A11"),
 ])
 def test_config_refuses_what_the_port_does_not_run(flag, value, item):
@@ -132,8 +132,8 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
                     "--num_clients", "4"])
 
 
-# the fields ROADMAP A10b, A8, A13, A11a, A15 and A9 lifted from the
-# refusals
+# the fields ROADMAP A10b, A8, A13, A11a, A15, A9 and A12a lifted from
+# the refusals
 LIFTED = {
     "topk_method": ["--topk_method", "approx"],
     "num_blocks": ["--num_blocks", "2"],
@@ -159,6 +159,11 @@ LIFTED = {
     "checkpoint_every": ["--checkpoint_dir", "ck", "--checkpoint_every", "2"],
     "checkpoint_dir": ["--checkpoint_dir", "ck"],
     "resume": ["--checkpoint_dir", "ck", "--resume", "true"],
+    "telemetry_level": ["--telemetry_level", "2"],
+    "flight_window": ["--telemetry_level", "1", "--flight_window", "4"],
+    "logdir": ["--logdir", "elsewhere"],
+    "tensorboard": ["--tensorboard", "true"],
+    "profile_dir": ["--profile_dir", "prof"],
 }
 
 
@@ -214,7 +219,7 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 38
+    assert len(_UNPORTED) == 33
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 
