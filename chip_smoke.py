@@ -203,7 +203,20 @@ phase prints one line (or a few) and raises on failure, so the script exits
     exactness by the phase's own arithmetic, strict JSON; ``--chaos
     nan_client@2`` raising ``DivergenceError`` at round 2 with
     ``flight_2.json``; GPT-2 BASELINE #4 at levels 0 and 1 for 2 rounds;
-    the device ms of one call of the diagnostics at both geometries.
+    the device ms of one call of the diagnostics at both geometries;
+23. ``spans`` (the host spans, the critical path, the reports and the
+    ``--profile_rounds`` window): the main path at level 1 for 8 rounds at
+    ``--pipeline_depth`` 0 and 2 with ``--profile_rounds 4-5``, and with
+    ``--perf_audit false --run_report false``: every leaf bit-equal
+    across the runs of one depth, one ``round_dispatch`` span a round,
+    the prefetch spans on the ``round-prefetch`` lane at depth 2, each
+    round's stage times summing to its wall, ``run_report.json`` over
+    every round with fractions summing to 1, ``perf_report.json``'s FLOPs
+    and peak memory with no collective, ``xla/exposed_collective_ms`` 0
+    every round, the window's trace holding K1 twice a window round, and
+    K1, K2, K3 at 2, 1, 2 a round; GPT-2 BASELINE #4 at level 1 for 3
+    rounds; the stage p50s, the critical stage, round 0's FLOPs and peak;
+    the host µs of one span and of one round's ``trace/*`` scalars.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -3054,6 +3067,227 @@ def _telemetry_phase(torch, cs, kern, cv_train, gpt2_train, dataset_dir,
     return add_forms(*(run["forms"] for run in runs.values()))
 
 
+SPAN_ROUNDS = 8  # rounds of each spans-phase run of the main path
+SPAN_GPT2_ROUNDS = 3
+SPAN_WINDOW = (4, 5)  # --profile_rounds, inclusive
+# K1, K2 and K3 a round at level 1 (TEL_LAUNCHES[1]): the spans, the
+# window and the audit launch nothing of their own
+SPAN_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+K1_SYMBOL = "cs_sketch_tiles_kernel"
+
+
+def _run_dir_files(logdir):
+    """The run dir's reports, spans dump and window traces."""
+    def load(name):
+        path = os.path.join(logdir, name)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f, parse_constant=_no_bare_constant)
+
+    spans = sorted(f for f in os.listdir(logdir) if f.startswith("spans_"))
+    check(len(spans) == 1, f"{logdir}: spans dumps {spans}")
+    window = os.path.join(logdir, "profile_rounds")
+    traces = (sorted(os.path.join(window, f) for f in os.listdir(window)
+                     if f.endswith(".pt.trace.json"))
+              if os.path.isdir(window) else [])
+    return dict(spans=load(spans[0]), run=load("run_report.json"),
+                perf=load("perf_report.json"), traces=traces,
+                metrics=read_metrics(logdir))
+
+
+def check_spans_dump(name, dump, rounds, depth):
+    """One ``round_dispatch`` a round, untagged at one card; at depth 2
+    the prefetch spans (two a round) on the lane labelled
+    ``round-prefetch``, none at depth 0."""
+    evs = dump["traceEvents"]
+    disp = [e["args"]["step"] for e in evs if e["name"] == "round_dispatch"]
+    check(disp == list(range(rounds)), f"{name}: dispatch spans {disp}")
+    check(not any(e["args"].get("collective") for e in evs
+                  if e.get("ph") == "X"), f"{name}: a collective tag")
+    lanes = {e["tid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    pre = [e for e in evs if e["name"].startswith("prefetch_")]
+    if depth:
+        check(list(lanes.values()) == ["round-prefetch"]
+              and {e["tid"] for e in pre} == set(lanes)
+              and len(pre) == 2 * rounds, f"{name}: prefetch lane {lanes}")
+    else:
+        check(not lanes and not pre, f"{name}: prefetch spans at depth 0")
+
+
+def check_reports(name, files, rounds):
+    """``run_report.json``: every round analyzed, fractions summing to 1
+    within 1e-9, each round's stages summing to its wall within 1e-6 ms;
+    ``perf_report.json``: FLOPs and peak memory measured, no collective
+    at one card; ``xla/exposed_collective_ms`` 0.0 every round."""
+    run, perf = files["run"], files["perf"]
+    check(run["rounds_analyzed"] == rounds,
+          f"{name}: {run['rounds_analyzed']} rounds analyzed")
+    frac = sum(b["fraction"] for b in run["stages"].values())
+    check(abs(frac - 1.0) <= 1e-9, f"{name}: fractions sum to {frac}")
+    for r in run["rounds"]:
+        check(abs(sum(r["stages_ms"].values()) - r["wall_ms"]) <= 1e-6,
+              f"{name}: round {r['step']} stages != wall")
+    check(perf["cost"]["flops"] > 0
+          and (perf["memory"]["peak_hbm_bytes"] or 0) > 0,
+          f"{name}: {perf['cost']} {perf['memory']}")
+    check(perf["collectives"]["ops"] == {}
+          and perf["collectives"]["total_bytes"] == 0,
+          f"{name}: collectives {perf['collectives']}")
+    exposed = files["metrics"]["xla/exposed_collective_ms"]
+    check(sorted(exposed) == list(range(rounds))
+          and set(exposed.values()) == {0.0}, f"{name}: exposure {exposed}")
+
+
+def window_k1_events(path):
+    """K1's kernel events in one ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    return sum(1 for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and K1_SYMBOL in e.get("name", ""))
+
+
+def span_cost_us(n: int = 20000) -> dict:
+    """Host µs of one span (``span`` as the session records one, and
+    ``span_at``), and of one round's ``trace/*`` scalars on a recorder
+    holding 8 rounds of 6 spans each: medians of 5 timings of ``n`` calls
+    (``trace_round_scalars``: ``n // 20``)."""
+    import tempfile
+
+    from commefficient_tpu_torch.telemetry import (
+        PhaseSpans,
+        trace_round_scalars,
+    )
+
+    with tempfile.TemporaryDirectory() as d:
+        def timed(fn, calls):
+            out = []
+            for _ in range(5):
+                sp = PhaseSpans(d)
+                for s in range(8):
+                    sp.step(s)
+                    for name in ("data_load", "device_put", "fedsim_env",
+                                 "round_dispatch", "prefetch_realize",
+                                 "prefetch_stage"):
+                        with sp.span(name, trace_id=f"r{s}"):
+                            pass
+                t = time.perf_counter()
+                for i in range(calls):
+                    fn(sp, i)
+                out.append((time.perf_counter() - t) / calls * 1e6)
+            return statistics.median(out)
+
+        def one_span(sp, i):
+            with sp.span("round_dispatch", trace_id="r7"):
+                pass
+
+        return {"span": timed(one_span, n),
+                "span_at": timed(lambda sp, i: sp.span_at(
+                    "data_load", 1.0, 2.0), n),
+                "trace_round_scalars": timed(
+                    lambda sp, i: trace_round_scalars(sp, 5), n // 20)}
+
+
+def spans_phase(torch, kern, cv_train, gpt2_train, dataset_dir, work):
+    """The host spans, the critical path, the run and perf reports and
+    the ``--profile_rounds`` window on the card. The main path at
+    ``--telemetry_level 1`` for SPAN_ROUNDS rounds at ``--pipeline_depth``
+    0 and 2 with ``--profile_rounds 4-5``, and the same flags with
+    ``--perf_audit false --run_report false`` (level 1 still records
+    spans), each run on deterministic cuDNN with the counters set to 0
+    just before and read just after: every leaf bit-equal across the runs
+    of one depth; the spans dump, the reports and the exposure
+    (``check_spans_dump``, ``check_reports``); the window's trace holding
+    K1 exactly twice a window round; K1, K2 and K3 at SPAN_LAUNCHES a
+    round. Then GPT-2 BASELINE #4 at level 1 for SPAN_GPT2_ROUNDS rounds
+    (the same report checks, its launches). Prints the round ms with the
+    reports on and off, each stage's p50, the critical stage, round 0's
+    FLOPs and peak memory. Returns the summed launch forms."""
+    t0 = time.perf_counter()
+    win = f"{SPAN_WINDOW[0]}-{SPAN_WINDOW[1]}"
+    n_win = SPAN_WINDOW[1] - SPAN_WINDOW[0] + 1
+    forms, states = [], {}
+    for depth in (0, 2):
+        for mode, extra in (("on", []), ("off", ["--perf_audit", "false",
+                                                 "--run_report", "false"])):
+            name = f"spans_d{depth}_{mode}"
+            gc.collect()
+            run = state_run(
+                torch, kern, cv_train, dataset_dir, work, name,
+                MAIN_ARGS + ["--telemetry_level", "1", "--pipeline_depth",
+                             str(depth), "--profile_rounds", win,
+                             "--logdir", os.path.join(work, name)] + extra,
+                rounds=SPAN_ROUNDS)
+            forms.append(run["forms"])
+            states[depth, mode] = run["state"]
+            ln = run["launches"]
+            want = {k: n * SPAN_ROUNDS for k, n in SPAN_LAUNCHES.items()}
+            check({k: ln[k] for k in want} == want
+                  and ln["estimate_at"] == ln["estimate_at_range"] == 0,
+                  f"{name}: launches {ln}")
+            files = _run_dir_files(run["out"]["logdir"])
+            check_spans_dump(name, files["spans"], SPAN_ROUNDS, depth)
+            k1 = [window_k1_events(p) for p in files["traces"]]
+            check(k1 == [2 * n_win], f"{name}: window K1 events {k1}")
+            fields = dict(depth=depth, reports=mode,
+                          round_ms=run["round_ms"],
+                          window_k1_events=k1[0])
+            if mode == "on":
+                check_reports(name, files, SPAN_ROUNDS)
+                rep, perf = files["run"], files["perf"]
+                fields.update(
+                    critical_stage=rep["critical_stage"],
+                    stage_p50_ms=json.dumps({
+                        k: round(b["p50_ms"], 4)
+                        for k, b in rep["stages"].items()}),
+                    stage_fraction=json.dumps({
+                        k: round(b["fraction"], 4)
+                        for k, b in rep["stages"].items()}),
+                    round0_flops=perf["cost"]["flops"],
+                    round0_peak_bytes=perf["memory"]["peak_hbm_bytes"],
+                    peak_flops=perf["predicted"]["peak_flops"],
+                    device_kind=repr(perf["predicted"]["device_kind"]))
+            else:
+                check(files["run"] is None and files["perf"] is None,
+                      f"{name}: a report written with it off")
+            phase("spans", **fields)
+        same, err = state_diff(torch, states[depth, "on"],
+                               states[depth, "off"], GEOMETRY["d"])
+        check(same, f"spans depth {depth}: leaves differ by {err}")
+    across, _ = state_diff(torch, states[0, "on"], states[2, "on"],
+                           GEOMETRY["d"])
+    # GPT-2 BASELINE #4 at level 1
+    gc.collect()
+    kern.reset_launch_counts()
+    out, peak, _ = _peak_run(torch, lambda: gpt2_train.main(
+        GPT2_ARGS + ["--max_rounds", str(SPAN_GPT2_ROUNDS),
+                     "--telemetry_level", "1", "--logdir",
+                     os.path.join(work, "spans_gpt2"),
+                     "--dataset_dir", dataset_dir]))
+    ln, gforms = kern.launch_counts(), kern.form_counts()
+    forms.append(gforms)
+    want = {k: n * SPAN_GPT2_ROUNDS for k, n in SPAN_LAUNCHES.items()}
+    check({k: ln[k] for k in want} == want, f"spans gpt2: launches {ln}")
+    check(all(math.isfinite(h["loss"]) for h in out["history"]),
+          "spans gpt2: loss not finite")
+    files = _run_dir_files(out["logdir"])
+    check_spans_dump("spans_gpt2", files["spans"], SPAN_GPT2_ROUNDS, 0)
+    check_reports("spans_gpt2", files, SPAN_GPT2_ROUNDS)
+    rep, perf = files["run"], files["perf"]
+    phase("spans_gpt2", round_ms=[round(h["ms"], 3) for h in out["history"]],
+          critical_stage=rep["critical_stage"],
+          stage_p50_ms=json.dumps({k: round(b["p50_ms"], 4)
+                                   for k, b in rep["stages"].items()}),
+          round0_flops=perf["cost"]["flops"],
+          round0_peak_bytes=perf["memory"]["peak_hbm_bytes"],
+          max_memory_allocated=peak,
+          launches=json.dumps({k: v for k, v in ln.items() if v}))
+    phase("spans_cost", **{k: round(v, 3) for k, v in span_cost_us().items()})
+    phase("spans_wall", leaves_bit_equal_depth0_depth2=across,
+          wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -3184,6 +3418,11 @@ def main() -> int:
             paths["telemetry"] = telemetry_phase(
                 torch, cs, kern, cv_train, gpt2_train, dataset_dir, work, dev)
     phase("telemetry_wall", wall_s=round(time.perf_counter() - t_tel, 3))
+    # the host spans, the critical path, the reports, the profiler window
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["spans"] = spans_phase(torch, kern, cv_train, gpt2_train,
+                                         dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

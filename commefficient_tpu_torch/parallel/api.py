@@ -12,6 +12,7 @@ and ``FedOptimizer`` the schedule clock (``step()``).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import warnings
 from typing import Any, Callable, Dict, Iterable, Optional
@@ -38,6 +39,14 @@ from commefficient_tpu_torch.parallel.round import (
     mask_classification,
     padded_dim,
     resolve_aggregation,
+)
+from commefficient_tpu_torch.telemetry.round_audit import (
+    exposed_collective_ms,
+    ledger_tolerance,
+)
+from commefficient_tpu_torch.telemetry.trace import (
+    round_trace_id,
+    trace_round_scalars,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -282,6 +291,12 @@ class FederatedSession:
         self._cuda_device = (torch.device("cuda", torch.cuda.current_device())
                              if self.device.type == "cuda"
                              and self.device.index is None else self.device)
+        # host observability, attached by a train loop at level >= 1
+        # (telemetry.build_perf_observability): the span recorder, the
+        # audit of the first dispatched round, and that audit once made
+        self.spans = None
+        self.audit_arm = None
+        self.last_audit = None
 
     # -- the sharded leaves -------------------------------------------------
     @property
@@ -484,10 +499,19 @@ class FederatedSession:
 
         A staged round (``stage_round_payload``) passes its device tensors
         and ``ready``: they go through as they are, after the compute
-        stream waits on ``ready``."""
-        self._consume(ready, [client_ids, *batch.values()])
-        return self._round(client_ids, _to_device(
-            self.local_clients(batch), self.device), lr, env)
+        stream waits on ``ready``.
+
+        With a span recorder attached (``spans``), the round records
+        ``device_put`` (the copy of its inputs), ``fedsim_env`` and
+        ``round_dispatch`` under its trace id, and its metrics gain the
+        host scalars ``xla/exposed_collective_ms`` and the lagged
+        ``trace/*`` of round ``step - 2``."""
+        with self._span("device_put", trace_id=round_trace_id(
+                self.state.step)):
+            self._consume(ready, [client_ids, *batch.values()])
+            ids = self._device_ids(client_ids)
+            dev_batch = _to_device(self.local_clients(batch), self.device)
+        return self._round(ids, dev_batch, lr, env)
 
     def train_round_indices(self, client_ids, idx, plan, lr: float,
                             env=None, ready=None):
@@ -500,49 +524,140 @@ class FederatedSession:
         ``[w, B, ...]`` (fedavg: ``[w, L, B/L, ...]``), goes through the
         round ``train_round`` runs. Returns what ``train_round`` does.
         Staged ``idx`` and ``plan`` (``stage_round_indices``) go through as
-        they are, after the compute stream waits on ``ready``."""
+        they are, after the compute stream waits on ``ready``. The gather
+        and augment are the round's ``device_put`` span."""
         if self.dev_data is None:
             raise ValueError("train_round_indices needs the training set "
                              "on the device: call attach_data first")
-        self._consume(ready, [client_ids, idx, *plan])
-        w_loc = self.cfg.num_workers // self.group.size
-        lo = self.group.rank * w_loc
-        idx = _as_device(idx, self.device)[lo:lo + w_loc]
-        B = idx.shape[1]
-        flat = idx.reshape(-1).to(torch.int64)
-        batch = {}
-        for k, v in self.dev_data.items():
-            g = v[flat]
-            if k == "x" and self.dev_augment is not None:
-                g = self.dev_augment.device_apply(g, *(
-                    _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
-                    for a in plan))
-            batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
-        return self._round(client_ids, microbatched(self.cfg, batch), lr,
-                           env)
+        with self._span("device_put", trace_id=round_trace_id(
+                self.state.step)):
+            self._consume(ready, [client_ids, idx, *plan])
+            ids = self._device_ids(client_ids)
+            w_loc = self.cfg.num_workers // self.group.size
+            lo = self.group.rank * w_loc
+            idx = _as_device(idx, self.device)[lo:lo + w_loc]
+            B = idx.shape[1]
+            flat = idx.reshape(-1).to(torch.int64)
+            batch = {}
+            for k, v in self.dev_data.items():
+                g = v[flat]
+                if k == "x" and self.dev_augment is not None:
+                    g = self.dev_augment.device_apply(g, *(
+                        _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
+                        for a in plan))
+                batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
+        return self._round(ids, microbatched(self.cfg, batch), lr, env)
 
-    def _round(self, client_ids, batch: Dict[str, torch.Tensor], lr: float,
-               env):
-        """The round of ``train_round`` and ``train_round_indices`` on this
-        rank's device batch."""
-        if env is None and self.fedsim_env is not None:
-            env = self.fedsim_env.round_env(self.state.step)
-        elif env is not None and self.fedsim_env is None:
-            raise ValueError(
-                "env= passed but this session was built without fedsim "
-                "(cfg.fedsim_enabled is False, so the round masks "
-                "nothing); construct the Config with availability/chaos "
-                "set to drive masked rounds")
-        ids = None
+    def _device_ids(self, client_ids):
+        """The round's ``[W]`` client ids on the device (None without)."""
         if torch.is_tensor(client_ids) and client_ids.is_cuda:
-            ids = client_ids  # staged: checked on the host when staged
-        elif client_ids is not None:
-            ids = torch.from_numpy(self._host_ids(client_ids)).to(
+            return client_ids  # staged: checked on the host when staged
+        if client_ids is not None:
+            return torch.from_numpy(self._host_ids(client_ids)).to(
                 self.device)
+        return None
+
+    def _span(self, name: str, fence=None, collective: bool = False,
+              trace_id=None):
+        """A phase span of the attached recorder (``telemetry/spans.py``),
+        or a context that records nothing without one. ``collective=True``
+        tags a dispatch whose fence waits on the group's collectives."""
+        if self.spans is None:
+            return contextlib.nullcontext()
+        return self.spans.span(name, fence=fence, collective=collective,
+                               trace_id=trace_id)
+
+    def _round(self, ids, batch: Dict[str, torch.Tensor], lr: float, env):
+        """The round of ``train_round`` and ``train_round_indices`` on this
+        rank's device batch and device ids."""
+        step = self.state.step
+        tid = round_trace_id(step)
+        with self._span("fedsim_env", trace_id=tid):
+            if env is None and self.fedsim_env is not None:
+                env = self.fedsim_env.round_env(step)
+            elif env is not None and self.fedsim_env is None:
+                raise ValueError(
+                    "env= passed but this session was built without "
+                    "fedsim (cfg.fedsim_enabled is False, so the round "
+                    "masks nothing); construct the Config with "
+                    "availability/chaos set to drive masked rounds")
         lr = float(np.float32(lr))  # the reference's f32 lr
-        self.state, metrics = self.round_fn(self.state, ids, batch, lr,
-                                            env=env)
-        return {**metrics, **env.stats} if env is not None else metrics
+        arm = self.audit_arm if self.audit_arm is not None \
+            and self.audit_arm.armed else None
+        # the dispatch waits on the group's collectives; one device has
+        # none, and a tagged span would charge its compute to the
+        # critical path's "collective" stage
+        with self._span("round_dispatch", collective=self.group.size > 1,
+                        trace_id=tid) as sp:
+            with arm.measure(step) if arm else contextlib.nullcontext():
+                self.state, metrics = self.round_fn(self.state, ids, batch,
+                                                    lr, env=env)
+            if sp is not None:
+                sp.fence(metrics["loss"])
+        if arm:
+            arm.finish()  # the report, outside the round's spans
+        if env is not None:
+            metrics = {**metrics, **env.stats}
+        if self.spans is not None and self.cfg.telemetry_level >= 1:
+            # host scalars, the same keys every round: the exposure (0.0
+            # when the audited round held no collective) and the trace/*
+            # of round step - 2, the newest whose spans are complete now
+            # (round step - 1's drain has not run)
+            metrics = {**metrics, "xla/exposed_collective_ms":
+                       exposed_collective_ms(self.spans, self.last_audit),
+                       **trace_round_scalars(self.spans, self.state.step - 2)}
+        return metrics
+
+    def audit_bounds(self) -> Dict[str, Any]:
+        """The ledger and collective bounds the round audit checks its
+        counts against (the reference's ``_audit_bounds``): ``wk_bound`` on
+        the sharded sketch decode, ``sparse_agg_bound`` (and the
+        device-resident client rows' exemption) under sparse aggregation,
+        the ``overlap`` block under layerwise overlap."""
+        cfg = self.cfg
+        W = self.group.size
+        is_sketch = not cfg.fsdp and self.compressor.supports_sharded_decode
+        sharded = is_sketch and self.sketch_decode_resolved == "sharded"
+        up = self.bytes_per_round()["upload_bytes"]
+        has_sparse_agg = (not cfg.fsdp
+                          and self.compressor.supports_sparse_aggregate)
+        aggregate = self.aggregate_resolved if has_sparse_agg else None
+        sparse_agg_bound = None
+        sparse_agg_exemption = None
+        if aggregate == "sparse":
+            # the largest legal all-reduce / all-gather: the pair exchange
+            # (sketch keeps its table all-reduce, its design payload)
+            sparse_agg_bound = W * cfg.k
+            if self.compressor.needs_sketch_spec:
+                r, c = self.spec.table_shape
+                sparse_agg_bound = max(sparse_agg_bound, int(r) * int(c))
+            elif not self.compressor.sparse_aggregate_shards_state:
+                w_loc = max(1, cfg.num_workers // W)
+                sparse_agg_bound = W * w_loc * cfg.k
+            if cfg.local_momentum > 0 or cfg.error_type == "local":
+                # the device-resident client rows' write-back gathers the
+                # round's w rows of D: state residency, not aggregation
+                sparse_agg_bound = max(sparse_agg_bound,
+                                       cfg.num_workers * self.grad_size)
+                sparse_agg_exemption = "client_state_writeback"
+        overlap_info = None
+        if cfg.overlap_collectives != "none":
+            overlap_info = {"collectives": cfg.overlap_collectives,
+                            "double_buffer": False}
+        return dict(
+            mode=cfg.mode,
+            sketch_decode=self.sketch_decode_resolved if is_sketch else None,
+            aggregate=aggregate,
+            grad_size=self.grad_size,
+            workers_mesh=W,
+            ledger_up_bytes=up,
+            wk_bound=W * cfg.k if sharded else None,
+            sparse_agg_bound=sparse_agg_bound,
+            sparse_agg_exemption=sparse_agg_exemption,
+            tolerance_bytes=ledger_tolerance(up, sharded=sharded, workers=W,
+                                             k=cfg.k),
+            overlap_info=overlap_info,
+        )
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:
         """Metrics over eval batches (padded rows masked): ``loss`` (the

@@ -23,6 +23,15 @@ what the round needs, with collectives that both backends implement:
 
 ``SingleWorker`` is the one-device group: its collectives are identities
 and it needs no ``torch.distributed`` at all.
+
+``DistributedWorkers`` counts its own calls in ``counter``, a
+``CollectiveCounter``: per op (the reference's HLO names: ``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``collective-permute``) the calls and
+the per-rank RESULT bytes, the convention of the reference's collective
+walk, and the largest all-gather and all-reduce in elements. The counts
+are host arithmetic on shapes, with no sync and no copy;
+``telemetry/round_audit.py`` reads round 0's. ``SingleWorker`` moves no
+bytes between devices and counts nothing.
 """
 
 from __future__ import annotations
@@ -33,12 +42,60 @@ import os
 import torch
 import torch.distributed as dist
 
+from commefficient_tpu_torch.telemetry.round_audit import COLLECTIVE_OPS
+
+
+class CollectiveCounter:
+    """The worker group's collectives since the last ``reset()``: per op
+    ``{"count", "bytes"}`` (bytes of each call's per-rank result), and
+    ``max_all_gather_elems`` / ``max_all_reduce_elems`` (None until one
+    is counted)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.ops = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
+        self.max_all_gather_elems = None
+        self.max_all_reduce_elems = None
+
+    def add(self, op: str, elems: int, nbytes: int) -> None:
+        self.ops[op]["count"] += 1
+        self.ops[op]["bytes"] += int(nbytes)
+        if op == "all-gather":
+            self.max_all_gather_elems = max(self.max_all_gather_elems or 0,
+                                            int(elems))
+        elif op == "all-reduce":
+            self.max_all_reduce_elems = max(self.max_all_reduce_elems or 0,
+                                            int(elems))
+
+    def snapshot(self) -> dict:
+        """The reference's ``collective_audit`` layout: ``{"ops": {op:
+        {"count", "bytes"}} (ops with calls only), "total_bytes",
+        "max_all_gather_elems", "max_all_reduce_elems"}``."""
+        return {
+            "ops": {k: dict(v) for k, v in self.ops.items() if v["count"]},
+            "total_bytes": sum(v["bytes"] for v in self.ops.values()),
+            "max_all_gather_elems": self.max_all_gather_elems,
+            "max_all_reduce_elems": self.max_all_reduce_elems,
+        }
+
+
+def _count(counter, op: str, t: torch.Tensor, mul: int = 1,
+           div: int = 1) -> None:
+    """Count one call whose per-rank result is ``t``'s size times ``mul``
+    over ``div``."""
+    elems = t.numel() * mul // div
+    counter.add(op, elems, elems * t.element_size())
+
 
 class SingleWorker:
-    """The group of one device: identity collectives."""
+    """The group of one device: identity collectives (counted nowhere:
+    nothing moves between devices)."""
 
     rank = 0
     size = 1
+    counter = None
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         return t
@@ -90,16 +147,20 @@ class DistributedWorkers:
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.counter = CollectiveCounter()
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        _count(self.counter, "all-reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        _count(self.counter, "all-reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        _count(self.counter, "all-gather", t, self.size)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
@@ -109,6 +170,7 @@ class DistributedWorkers:
         if t.shape[0] % self.size:
             raise ValueError(f"reduce_scatter: {t.shape[0]} rows do not "
                              f"split over {self.size} ranks")
+        _count(self.counter, "reduce-scatter", t, div=self.size)
         out = torch.empty((t.shape[0] // self.size,) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
         dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
@@ -116,6 +178,7 @@ class DistributedWorkers:
         return out
 
     def exchange(self, t: torch.Tensor, partner: int) -> torch.Tensor:
+        _count(self.counter, "collective-permute", t)
         t = t.contiguous()
         out = torch.empty_like(t)
         peer = dist.get_global_rank(self.group, partner) \
@@ -127,11 +190,13 @@ class DistributedWorkers:
         return out
 
     def all_reduce_sum_async(self, t: torch.Tensor):
+        _count(self.counter, "all-reduce", t)
         work = dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group,
                                async_op=True)
         return _Pending(work, lambda: t)
 
     def all_gather_async(self, t: torch.Tensor):
+        _count(self.counter, "all-gather", t, self.size)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
         work = dist.all_gather(parts, t, group=self.group, async_op=True)

@@ -16,8 +16,9 @@ At ``pipeline_depth 0`` nothing here is built: the runner's synchronous
 loop reads ``data/sampler.py::prefetch`` instead. Not ported here (ROADMAP
 A11 and A12): the compression controller's barrier and rung-switch
 listener (``control/``), the hosted client rows' staging
-(``clientstore/``), ``cohorts.py`` and ``scan_engine.py``, the spans lane
-and the ``pipeline/*`` metric scalars (telemetry level >= 1).
+(``clientstore/``), ``cohorts.py`` and ``scan_engine.py``. At telemetry
+level >= 1 the worker records its spans on its own lane and each round's
+metrics carry the ``pipeline/*`` scalars.
 """
 
 from commefficient_tpu_torch.pipeline.engine import PipelinedRounds

@@ -19,10 +19,13 @@ staged ahead at each fetch over the depth), ``host_stall_ms`` (the
 consumer's wait for staged work: the host time the depth did not hide),
 ``prefetch_host_ms`` (the worker's time a round), and the count
 ``staged_copies`` of rounds whose arrays came staged on the card (every
-round on the card, none on the CPU). Not ported (ROADMAP
-A11, A12b): the compression controller's barrier and rung-switch
-listener, the resilience restart, the spans and the ``pipeline/*`` metric
-scalars.
+round on the card, none on the CPU). With the session's span recorder
+attached (telemetry level >= 1) the round clock ``spans.step`` moves
+before each dispatch, the worker records its lane, and each round's
+metrics carry ``pipeline/occupancy``, ``pipeline/host_stall_ms`` and
+``pipeline/staged_rounds`` (host floats; ``run_report.json``'s stall
+anomaly reads them). Not ported (ROADMAP A11): the compression
+controller's barrier and rung-switch listener and the resilience restart.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ class PipelinedRounds:
                 session=self.session, sampler=self._sampler,
                 lr_fn=self._lr_fn, depth=self.depth,
                 start_step=int(resume_step), stop_step=self.num_rounds,
-                use_indices=self._use_idx).start()
+                use_indices=self._use_idx,
+                spans=self.session.spans).start()
         return self
 
     def close(self) -> None:
@@ -97,12 +101,22 @@ class PipelinedRounds:
             stall_ms = (t_disp - t0) * 1e3
             if before_dispatch is not None:
                 before_dispatch(step)
+            spans = self.session.spans
+            if spans is not None:
+                spans.step(step)
             metrics = self._dispatch(work)
+            occupancy = staged / self.depth
             self._rounds += 1
             self._stall_ms_sum += stall_ms
-            self._occupancy_sum += staged / self.depth
+            self._occupancy_sum += occupancy
             self._host_ms_sum += work.host_ms
             self._staged_copies += work.ready is not None
+            if self.cfg.telemetry_level >= 1:
+                # the same keys every round, as pack_metric_dicts requires
+                metrics = {**metrics,
+                           "pipeline/occupancy": float(occupancy),
+                           "pipeline/host_stall_ms": float(stall_ms),
+                           "pipeline/staged_rounds": float(staged)}
             yield step, work.lr, metrics, stall_ms, t_disp
 
     def _dispatch(self, work):

@@ -25,18 +25,25 @@ Faults never hang: a worker exception is kept with its traceback and
 re-raised by ``get`` at the consuming round; ``get`` polls, and raises
 ``PrefetchWorkerDied`` if the worker exited without delivering; ``close``
 drains the queue, sets the stop flag (the worker's puts poll it) and joins
-the worker, even with a full queue. Not ported (ROADMAP A11, A12): the
-hosted client rows' staging and the prefetch lane's spans.
+the worker, even with a full queue.
+
+With a span recorder (``spans``, telemetry level >= 1) the worker labels
+its lane ``round-prefetch`` and records each round's ``prefetch_realize``
+(the draw, the fedsim environment, the lr) and ``prefetch_stage`` (the
+copy to the card), stamped with the round they realize and its trace id.
+Not ported (ROADMAP A11): the hosted client rows' staging.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
 from typing import Any, NamedTuple, Optional
 
 from commefficient_tpu_torch.parallel.api import microbatched
+from commefficient_tpu_torch.telemetry.trace import round_trace_id
 
 
 class RoundWork(NamedTuple):
@@ -71,11 +78,12 @@ class PrefetchWorkerDied(RuntimeError):
 class RoundPrefetcher:
     """Realizes ``RoundWork`` for rounds ``[start_step, stop_step)`` on a
     worker thread, at most ``depth`` ahead of the consumer. ``use_indices``
-    selects the index form (the device-resident training set)."""
+    selects the index form (the device-resident training set); ``spans``
+    a ``PhaseSpans`` for the worker's lane, or None."""
 
     def __init__(self, *, session, sampler, lr_fn, depth: int,
                  start_step: int = 0, stop_step: int = 0,
-                 use_indices: bool = False):
+                 use_indices: bool = False, spans=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.session = session
@@ -85,6 +93,7 @@ class RoundPrefetcher:
         self.start_step = int(start_step)
         self.stop_step = int(stop_step)
         self.use_indices = bool(use_indices)
+        self.spans = spans
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         # rounds of work staged ahead (the occupancy numerator): qsize would
         # also count the end marker and a queued exception
@@ -96,22 +105,33 @@ class RoundPrefetcher:
         self._started = False
 
     # -- worker side -------------------------------------------------------
+    def _span(self, name: str, step: int):
+        if self.spans is None:
+            return contextlib.nullcontext()
+        return self.spans.span(name, step=step, trace_id=round_trace_id(step))
+
     def _realize(self, step: int) -> RoundWork:
         t0 = time.perf_counter()
         sess = self.session
-        if self.use_indices:
-            cids, idx, plan = self.sampler.sample_round_indices(step)
-            cids, idx, plan, ready = sess.stage_round_indices(cids, idx, plan)
-            batch = None
-        else:
-            cids, batch = self.sampler.sample_round(
-                step, alloc=sess.staging_alloc)
-            cids, batch, ready = sess.stage_round_payload(
-                cids, microbatched(sess.cfg, batch))
-            idx = plan = None
-        env = (sess.fedsim_env.round_env(step)
-               if sess.fedsim_env is not None else None)
-        return RoundWork(step=step, lr=float(self.lr_fn(step)),
+        with self._span("prefetch_realize", step):
+            if self.use_indices:
+                cids, idx, plan = self.sampler.sample_round_indices(step)
+                batch = None
+            else:
+                cids, batch = self.sampler.sample_round(
+                    step, alloc=sess.staging_alloc)
+                batch = microbatched(sess.cfg, batch)
+                idx = plan = None
+            env = (sess.fedsim_env.round_env(step)
+                   if sess.fedsim_env is not None else None)
+            lr = float(self.lr_fn(step))
+        with self._span("prefetch_stage", step):
+            if self.use_indices:
+                cids, idx, plan, ready = sess.stage_round_indices(cids, idx,
+                                                                  plan)
+            else:
+                cids, batch, ready = sess.stage_round_payload(cids, batch)
+        return RoundWork(step=step, lr=lr,
                          client_ids=cids, batch=batch, idx=idx, plan=plan,
                          env=env, ready=ready,
                          host_ms=(time.perf_counter() - t0) * 1e3)
@@ -127,6 +147,8 @@ class RoundPrefetcher:
 
     def _run(self):
         try:
+            if self.spans is not None:
+                self.spans.register_lane("round-prefetch")
             for step in range(self.start_step, self.stop_step):
                 if self._stop.is_set():
                     return

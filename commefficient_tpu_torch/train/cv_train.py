@@ -63,9 +63,13 @@ Telemetry: rank 0 writes ``metrics.jsonl`` into a run dir under
 ``--logdir`` (``runs`` by default; ``--tensorboard true`` adds
 TensorBoard); ``--telemetry_level 1`` adds the ``diag/*`` and ``comm/*``
 scalars, ``comm_ledger.json`` and the flight recorder (a non-finite round
-raises ``DivergenceError`` and dumps ``flight_<step>.json``), level 2 the
+raises ``DivergenceError`` and dumps ``flight_<step>.json``), the host
+spans (``spans_<step>.json``, the ``trace/*`` and
+``xla/exposed_collective_ms`` scalars), ``perf_report.json`` (round 0's
+FLOPs, peak memory and collectives; ``--perf_audit false`` drops it) and
+``run_report.json`` (``--run_report false`` drops it), level 2 the
 compressors' fidelity; ``--profile_dir DIR`` traces rounds 5-7 with
-``torch.profiler``.
+``torch.profiler``, ``--profile_rounds A-B`` the rounds A to B.
 """
 
 from __future__ import annotations
@@ -251,7 +255,8 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
             on_round=lambda r: print(
                 f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
                 f"ms={r['ms']:.2f}", flush=True),
-            engine_stats=pipeline_stats, writer=writer)
+            engine_stats=pipeline_stats, writer=writer,
+            generated_by="commefficient_tpu_torch.train.cv_train")
     finally:
         if writer is not None:
             writer.close()

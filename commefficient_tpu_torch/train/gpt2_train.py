@@ -254,7 +254,8 @@ def _train(cfg: Config, eval_batch_size: int):
             on_round=lambda r: print(
                 f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
                 f"ms={r['ms']:.2f}", flush=True),
-            engine_stats=pipeline_stats, writer=writer)
+            engine_stats=pipeline_stats, writer=writer,
+            generated_by="commefficient_tpu_torch.train.gpt2_train")
     finally:
         if writer is not None:
             writer.close()

@@ -38,14 +38,27 @@ whose loss or ``diag/nonfinite`` is non-finite; the error is not caught.
 Any other crash first drains the rounds dispatched so far, then dumps
 the ring; ``comm_ledger.json`` is written on every exit. ``cfg.profile_dir``
 arms a ``StepProfiler`` window, stepped as each round is dispatched and
-moved past a resume. The reference's resilience and control plane are
-not ported (``Config`` refuses their flags).
+moved past a resume; ``cfg.profile_rounds`` stacks a ``ProfilerWindow``
+beside it (``telemetry/trace.py``), its traces in ``profile_dir`` or
+``<run dir>/profile_rounds``.
+
+Host observability (rank 0, level >= 1 with a writer;
+``telemetry.build_perf_observability``): a ``PhaseSpans`` on the session
+records the session's round spans, the prefetch lane at depth > 0, and
+here the wait on the prefetch queue (``data_load``, depth 0), the drains
+(``metric_drain``, under the newest pending round's trace id) and the
+saves (``checkpoint``); the first dispatched round is audited into
+``perf_report.json``. On every exit, crashes included, the spans are
+detached and dumped (``spans_<step>.json``), then ``run_report.json`` is
+written (``cfg.run_report``), then the ledger. The reference's resilience
+and control plane are not ported (``Config`` refuses their flags).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from contextlib import closing
+from contextlib import closing, nullcontext
 from functools import partial
 
 from commefficient_tpu_torch.data.sampler import prefetch
@@ -53,8 +66,13 @@ from commefficient_tpu_torch.parallel.api import microbatched
 from commefficient_tpu_torch.telemetry import (
     DivergenceError,
     FlightRecorder,
+    ProfilerStack,
+    ProfilerWindow,
+    build_perf_observability,
     build_telemetry_riders,
     record_crash,
+    round_trace_id,
+    write_run_report,
 )
 from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
 from commefficient_tpu_torch.utils.logging import (
@@ -62,7 +80,7 @@ from commefficient_tpu_torch.utils.logging import (
     Timer,
     drain_round_metrics,
 )
-from commefficient_tpu_torch.utils.profiling import StepProfiler
+from commefficient_tpu_torch.utils.profiling import StepProfiler, fence
 from commefficient_tpu_torch.utils.schedule import piecewise_linear_lr
 
 
@@ -98,8 +116,12 @@ def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
     thread, each dispatched as it arrives (``before_dispatch(step)`` just
     before, when given). Yields ``(step, lr, metrics, wait_ms,
     t_dispatch)``: ``wait_ms`` the wait on the prefetch queue,
-    ``t_dispatch`` the ``perf_counter`` time the round was dispatched."""
+    ``t_dispatch`` the ``perf_counter`` time the round was dispatched.
+    With the session's span recorder attached, each wait is a
+    ``data_load`` span on the round clock as it stands (the previous
+    round's, as the reference's ``wrap_iter`` stamps it)."""
     spe = sampler.steps_per_epoch()
+    spans = session.spans
     on_device = session.data_path == "device"
     rounds = prefetch(sampler.epoch_indices(epoch) if on_device
                       else sampler.epoch(epoch))
@@ -108,7 +130,10 @@ def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
         while s < min(stop, (epoch + 1) * spe):
             t0 = time.perf_counter()
             item = next(rounds)
-            wait_ms = 1e3 * (time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            wait_ms = 1e3 * (t1 - t0)
+            if spans is not None:
+                spans.span_at("data_load", t0, t1)
             if s >= start:  # fast-forward within the resumed epoch
                 lr = float(lr_fn(s))
                 if before_dispatch is not None:
@@ -152,7 +177,8 @@ def round_source(cfg, session, sampler, lr_fn, start: int, stop: int):
 
 
 def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
-                   on_round=None, engine_stats=None, writer=None):
+                   on_round=None, engine_stats=None, writer=None,
+                   generated_by: str = "commefficient_tpu_torch.train"):
     """Run the epochs; returns ``(final val metrics, per-round history,
     checkpoint facts)``, the facts ``{"resumed_from", "save_ms",
     "restore_ms", "bytes"}`` (the round the run resumed from, 0 for a
@@ -170,7 +196,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     from the first dispatch (a drain and a save before a checkpoint fall
     in the round they follow). ``engine_stats``, a dict, receives the
     pipelined engine's ``stats()`` at depth > 0. ``writer`` is rank 0's
-    ``MetricsWriter`` (None on the other ranks, and for no metrics file).
+    ``MetricsWriter`` (None on the other ranks, and for no metrics file);
+    ``generated_by`` names the entry point in the run's reports.
 
     In a worker group every rank draws the same rounds (same sampler
     seed) and trains; rank 0 alone evaluates, prints and writes
@@ -195,6 +222,26 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
         # same divergence; only rank 0's recorder writes
         flight = FlightRecorder(cfg)
     profiler = StepProfiler(cfg.profile_dir if main else "")
+    if cfg.profile_rounds and main:
+        window_dir = cfg.profile_dir or os.path.join(
+            writer.logdir if writer is not None else cfg.logdir,
+            "profile_rounds")
+        # fenced on the params: the rounds queued before the window finish
+        # before its trace starts, and its own rounds before it stops
+        profiler = ProfilerStack(profiler, ProfilerWindow(
+            cfg.profile_rounds, window_dir,
+            fence_fn=lambda: fence(session.state.params_vec)))
+    spans, _ = build_perf_observability(cfg, session, writer, generated_by)
+
+    def before_dispatch(s):
+        profiler.step(s)
+        if spans is not None:
+            spans.step(s)
+
+    def span(name, trace_id=None):
+        return (spans.span(name, trace_id=trace_id) if spans is not None
+                else nullcontext())
+
     checkpointer = FedCheckpointer(cfg)
     start = 0
     if cfg.resume:
@@ -202,6 +249,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
         if restored is not None:
             start = restored
             profiler.resume_at(start)
+            if spans is not None:
+                spans.resume_at(start)
             if main:
                 print(f"resumed from checkpoint at round {start}")
     last = min(num_rounds, cfg.max_rounds) if cfg.max_rounds else num_rounds
@@ -239,8 +288,12 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                                 if k.startswith("fedsim/")})
                     hooks.accumulate(_acc, loss, metrics)
 
-                drain_round_metrics(_pending, writer, accumulate,
-                                    ledger=ledger, flight=flight)
+                # under the newest pending round's id: the read-back waits
+                # for its device work
+                tid = round_trace_id(_pending[-1][0]) if _pending else None
+                with span("metric_drain", trace_id=tid):
+                    drain_round_metrics(_pending, writer, accumulate,
+                                        ledger=ledger, flight=flight)
 
             live_drain = drain
 
@@ -256,7 +309,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                       if engine is not None else
                       _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch,
                                          start, last,
-                                         before_dispatch=profiler.step))
+                                         before_dispatch=before_dispatch))
             lr = float(lr_fn(max(start, epoch * steps_per_epoch)))
             n = 0
             prev = None  # (the last row, its dispatch time)
@@ -273,7 +326,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     n += 1
                     if checkpointer.will_save(s + 1):
                         drain()  # the losses first, then the save
-                        checkpointer.maybe_save(session, s + 1)
+                        with span("checkpoint"):
+                            checkpointer.maybe_save(session, s + 1)
                     report()
             drain()
             if prev is not None:
@@ -295,7 +349,10 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 hooks.on_epoch_end(epoch, val)
         # the end-of-training save: a run's last rounds past the final
         # checkpoint_every boundary would otherwise be lost to a resume
-        checkpointer.maybe_save(session, session.state.step, force=True)
+        if checkpointer.will_save(session.state.step, force=True):
+            with span("checkpoint"):
+                checkpointer.maybe_save(session, session.state.step,
+                                        force=True)
     except Exception as e:
         # the rounds dispatched before a crash still reach the metrics, the
         # ledger and the ring (a DivergenceError from this flush names the
@@ -316,6 +373,14 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 engine_stats.update(engine.stats())
             engine.close()  # joins the worker, crashes included
         profiler.close()
+        if spans is not None:  # dumped on a crash too: evidence as well
+            session.spans = session.audit_arm = None
+            spans.close()
+            if cfg.run_report:
+                path = write_run_report(writer.logdir,
+                                        generated_by=generated_by)
+                if path:
+                    print(f"run report: {path}")
         if ledger is not None:  # a partial ledger is evidence too
             ledger.write(writer.logdir)
     return val, history, {"resumed_from": start,

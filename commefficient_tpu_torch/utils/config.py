@@ -5,9 +5,10 @@ config.py``) is here, with its name, type, default and CLI flag, so a
 reference command line parses unchanged. A knob the port does not run yet
 is REFUSED at construction, unless at its default, with a ``ValueError``
 naming the blocker and the ROADMAP item that lifts it (``_UNPORTED``) —
-nothing runs quietly with a setting ignored. The defaults of the refused
-knobs that switch something on in the reference (``perf_audit``,
-``run_report``) are no-ops here.
+nothing runs quietly with a setting ignored. ``perf_audit`` and
+``run_report`` (on by default, as in the reference) write
+``perf_report.json`` and ``run_report.json`` at ``telemetry_level >= 1``;
+``profile_rounds`` ("A-B") traces those rounds with ``torch.profiler``.
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -44,9 +45,9 @@ _UNPORTED = {
     "num_hosts": "multihost/ (ROADMAP A11)",
     "distributed": "multihost/ (ROADMAP A11)",
     "distributed_connect_retries": "multihost/ (ROADMAP A11)",
-    "max_retraces": "the retrace sentinel (ROADMAP A12b)",
-    "perf_audit": "the compiled-round audit (ROADMAP A12b)",
-    "run_report": "the run report (ROADMAP A12b)",
+    "max_retraces": "the round's CUDA-graph capture (ROADMAP A11, "
+                    "scan_engine): the port compiles no round, so nothing "
+                    "retraces",
     "scan_rounds": "the scan round engine (ROADMAP A11)",
     "async_buffer": "asyncfed/ (ROADMAP A11)",
     "async_concurrency": "asyncfed/ (ROADMAP A11)",
@@ -65,7 +66,6 @@ _UNPORTED = {
     "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
     "max_recoveries": "resilience/ rollback (ROADMAP A11)",
     "preempt_signals": "resilience/ preemption (ROADMAP A11)",
-    "profile_rounds": "the profiler window (ROADMAP A12b)",
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -247,6 +247,14 @@ class Config:
     logdir: str = "runs"  # the run dirs' parent (utils/logging.make_logdir)
     # a torch.profiler trace of a few steady-state rounds (StepProfiler)
     profile_dir: str = ""
+    # level >= 1: measure the first dispatched round into perf_report.json
+    # (telemetry/round_audit.py), and write run_report.json at close
+    # (telemetry/trace.py)
+    perf_audit: bool = True
+    run_report: bool = True
+    # "A-B": trace rounds A..B (inclusive, clamped past the warm-up) with
+    # torch.profiler into profile_dir or <run dir>/profile_rounds
+    profile_rounds: str = ""
 
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     control_policy: str = "none"
@@ -261,8 +269,6 @@ class Config:
     distributed: bool = False
     distributed_connect_retries: int = 3
     max_retraces: Optional[int] = None
-    perf_audit: bool = True
-    run_report: bool = True
     scan_rounds: int = 0
     async_buffer: int = 0
     async_concurrency: int = 1
@@ -281,7 +287,6 @@ class Config:
     snapshot_every: int = 16
     max_recoveries: int = 2
     preempt_signals: bool = False
-    profile_rounds: str = ""
 
     seed: int = 42
 
@@ -311,6 +316,12 @@ class Config:
             raise ValueError(
                 f"telemetry_level must be 0 (off), 1 (health) or 2 "
                 f"(+fidelity), got {self.telemetry_level!r}")
+        if self.profile_rounds:
+            from commefficient_tpu_torch.telemetry.trace import (
+                parse_profile_rounds,
+            )
+
+            parse_profile_rounds(self.profile_rounds)  # names a bad spec
         if self.flight_window < 1:
             raise ValueError(
                 f"flight_window must be >= 1, got {self.flight_window}")

@@ -47,6 +47,25 @@ def timeit(name, fn, *args, reps: int = 10, warmup: int = MIN_WARMUP_STEPS):
     return dt
 
 
+def start_profiler(logdir: str):
+    """A started ``torch.profiler.profile`` (CPU and, with a card, CUDA
+    activities) writing its Chrome trace into ``logdir`` at ``stop()``.
+    Raises ``RuntimeError`` when a profiler session is already running:
+    torch keeps one a process, and a second start would end the first
+    without a word (and its ``stop()`` then crash the process)."""
+    if torch._C._autograd._profiler_enabled():
+        raise RuntimeError("a torch.profiler session is already running "
+                           "in this process (one at a time)")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+    prof.start()
+    return prof
+
+
 class StepProfiler:
     """Trace rounds ``[start_step, start_step + num_steps)`` into
     ``logdir``.
@@ -58,7 +77,9 @@ class StepProfiler:
     The trace starts at the first ``step()`` that lands INSIDE the window
     (a resume that fast-forwards into its middle still traces the rest)
     and stops at the first step at or past its end; ``start_step`` is
-    clamped to at least ``MIN_WARMUP_STEPS``."""
+    clamped to at least ``MIN_WARMUP_STEPS``. A start while another
+    ``torch.profiler`` session runs (an overlapping ``--profile_rounds``
+    window) disarms this profiler with a named message."""
 
     def __init__(self, logdir: str, start_step: int = 5, num_steps: int = 3):
         self.logdir = logdir
@@ -87,14 +108,13 @@ class StepProfiler:
         if self.active and step_idx >= self.stop_at:
             self._stop()
         elif not self.active and self.start <= step_idx < self.stop_at:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(
-                activities=acts,
-                on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                    self.logdir))
-            self._prof.start()
+            try:
+                self._prof = start_profiler(self.logdir)
+            except RuntimeError as e:  # another session holds the profiler
+                print(f"[profile_dir] start_trace unavailable "
+                      f"({type(e).__name__}: {e}); window disarmed",
+                      flush=True)
+                self.logdir = ""
 
     def _stop(self) -> None:
         prof, self._prof = self._prof, None

@@ -23,7 +23,12 @@ session and run two more (written as ``resume:<name>``); ``topk``, vectors whose
 max for more than k coordinates; ``collectives``, the pair exchanges of
 ``ops/collectives`` on each rank's row of the input's ``coll/v``;
 ``telemetry``, cases run as ``cases`` whose every ``diag/*`` scalar is
-written a round (``tel:<name>/<key>``, ``[rounds]``).
+written a round (``tel:<name>/<key>``, ``[rounds]``); ``trace``, cases run
+through ``run_train_loop`` at telemetry level 1 on the input's
+``trace/x`` / ``trace/y`` dataset, rank 0 writing the run dir
+(``trace:<name>/run_dir``) and each round's ``xla/exposed_collective_ms``
+as the round returned it (``trace:<name>/exposed``), every rank its params
+(``trace:<name>/params``).
 """
 
 import json
@@ -117,6 +122,61 @@ def run_telemetry(job, npz, out):
                          if k.startswith("diag/")})
         for k in rows[0]:
             out[f"tel:{name}/{k}"] = np.asarray([row[k] for row in rows])
+
+
+def run_trace(job, npz, out, tmp):
+    from commefficient_tpu_torch.data import FedDataset, FedSampler
+    from commefficient_tpu_torch.train.runner import (
+        WorkloadHooks,
+        run_train_loop,
+    )
+    from commefficient_tpu_torch.utils.logging import MetricsWriter
+
+    class Hooks(WorkloadHooks):
+        def new_accumulator(self):
+            return {}
+
+        def accumulate(self, acc, loss, metrics):
+            pass
+
+        def evaluate(self):
+            return {"loss": 0.0}
+
+        def write_val(self, writer, val, step):
+            writer.scalar("val/loss", val["loss"], step)
+
+        def epoch_row(self, **kw):
+            return {"epoch": kw["epoch"]}
+
+    for name, kw in job.get("trace", {}).items():
+        sess = _session(kw, npz)
+        ds = FedDataset({"x": npz["trace/x"], "y": npz["trace/y"]},
+                        sess.cfg.num_clients, iid=True, seed=0)
+        sampler = FedSampler(ds, num_workers=sess.cfg.num_workers,
+                             local_batch_size=sess.cfg.sampler_batch_size,
+                             seed=1)
+        exposed = []
+        round_fn = sess._round
+
+        def traced(*a, _round=round_fn, **k):
+            m = _round(*a, **k)
+            if "xla/exposed_collective_ms" in m:
+                exposed.append(m["xla/exposed_collective_ms"])
+            return m
+
+        sess._round = traced
+        run_dir = os.path.join(tmp, f"trace_{name}")
+        writer = MetricsWriter(run_dir, cfg=sess.cfg) if sess.group.rank \
+            == 0 else None
+        try:
+            run_train_loop(sess.cfg, sess, sampler, Hooks(), writer=writer)
+        finally:
+            if writer is not None:
+                writer.close()
+        out[f"trace:{name}/params"] = sess.full_params_vec().numpy()
+        if writer is not None:
+            out[f"trace:{name}/run_dir"] = np.asarray(run_dir)
+            out[f"trace:{name}/exposed"] = np.asarray(exposed)
 
 
 def run_resume(job, npz, out, tmp):
@@ -219,6 +279,7 @@ def main(argv):
         run_cases(job, npz, out)
         run_telemetry(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))
+        run_trace(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)
         run_ties(job, npz, out, group)
         run_collectives(job, npz, out, group)

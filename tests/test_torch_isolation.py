@@ -67,6 +67,9 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/telemetry/diagnostics.py",
                  "commefficient_tpu_torch/telemetry/flight.py",
                  "commefficient_tpu_torch/telemetry/ledger.py",
+                 "commefficient_tpu_torch/telemetry/round_audit.py",
+                 "commefficient_tpu_torch/telemetry/spans.py",
+                 "commefficient_tpu_torch/telemetry/trace.py",
                  "commefficient_tpu_torch/utils/logging.py",
                  "commefficient_tpu_torch/utils/profiling.py"):
         assert must in names
