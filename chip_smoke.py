@@ -216,7 +216,23 @@ phase prints one line (or a few) and raises on failure, so the script exits
     every round, the window's trace holding K1 twice a window round, and
     K1, K2, K3 at 2, 1, 2 a round; GPT-2 BASELINE #4 at level 1 for 3
     rounds; the stage p50s, the critical stage, round 0's FLOPs and peak;
-    the host µs of one span and of one round's ``trace/*`` scalars.
+    the host µs of one span and of one round's ``trace/*`` scalars;
+24. ``control`` (the control plane, ``control/``): the main path at level
+    1 for 8 rounds on deterministic cuDNN with ``--control_policy fixed
+    --ladder "k=50000,25000;num_cols=500000,250000" --control_schedule
+    "0-2=0,3-5=1,6-=0"`` against its control-free twin: the rung
+    sequence, 2 switches, the ledger's per-rung rounds (5 and 3) and
+    exact bytes, K1 and K2 each 4 launches more than the twin (a
+    ``num_cols`` switch decodes each of the two tables through K2 and
+    re-sketches it through K1), each migration on the switch's tensors
+    held against its plain version (K2 exactly, K1 to ``1e-5 *
+    max|table|``), its ms, and the host µs of ``on_round_start``; the
+    same at ``--pipeline_depth 2`` (bit-equal, a quiesce a switch) and
+    checkpointed at round 4 and resumed (the rungs, the controller's blob
+    and every leaf bit-equal); ``budget_pacing`` stopping with
+    ``BudgetExhaustedError`` at round 5 (the ledger, the flight dump's
+    controller block); ``ef_feedback`` (finite, launches by its
+    switches).
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -3288,6 +3304,328 @@ def spans_phase(torch, kern, cv_train, gpt2_train, dataset_dir, work):
     return add_forms(*forms)
 
 
+CTL_ROUNDS = 8  # rounds of each control-phase run
+CTL_LADDER = "k=50000,25000;num_cols=500000,250000"
+CTL_SCHEDULE = "0-2=0,3-5=1,6-=0"
+CTL_SEQUENCE = [0, 0, 0, 1, 1, 1, 0, 0]  # the schedule's rung a round
+CTL_FIXED = ["--telemetry_level", "1", "--control_policy", "fixed",
+             "--ladder", CTL_LADDER, "--control_schedule", CTL_SCHEDULE]
+CTL_RESUME_AT = 4
+CTL_BUDGET_ROUNDS = 5  # the rounds the budget run can pay for
+RUNG0_UPLOAD = 10_108_800  # the [5, 505,440] f32 table
+CTL_COLS1 = 250_000  # rung 1's requested num_cols
+
+
+class ControlProbe:
+    """Inside ``with ControlProbe(torch):`` each sketch ``migrate_state``
+    records its compressors, copies of its input tables, its output tables
+    and CUDA events around the call, and each
+    ``BudgetController.on_round_start`` its step, whether it switched, and
+    its host microseconds. The probe adds no kernel launch."""
+
+    def __init__(self, torch):
+        from commefficient_tpu_torch.compress.sketch import SketchCompressor
+        from commefficient_tpu_torch.control.controller import (
+            BudgetController,
+        )
+
+        self.torch = torch
+        self.classes = (SketchCompressor, BudgetController)
+        self.migrations, self.starts = [], []
+
+    def __enter__(self):
+        torch, probe = self.torch, self
+        comp_cls, ctrl_cls = self.classes
+        self.saved = migrate, start = (comp_cls.migrate_state,
+                                       ctrl_cls.on_round_start)
+
+        def migrate_state(comp, new, momentum, error, extra):
+            ins = [None if t is None else t.clone()
+                   for t in (momentum, error)]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = migrate(comp, new, momentum, error, extra)
+            b.record()
+            probe.migrations.append(dict(old=comp, new=new, ins=ins,
+                                         outs=list(out[:2]), events=(a, b)))
+            return out
+
+        def on_round_start(ctrl, step, fs_stats=None):
+            n = ctrl.switches
+            t0 = time.perf_counter()
+            rung = start(ctrl, step, fs_stats)
+            probe.starts.append((step, ctrl.switches != n,
+                                 (time.perf_counter() - t0) * 1e6))
+            return rung
+
+        comp_cls.migrate_state = migrate_state
+        ctrl_cls.on_round_start = on_round_start
+        return self
+
+    def __exit__(self, *exc):
+        comp_cls, ctrl_cls = self.classes
+        comp_cls.migrate_state, ctrl_cls.on_round_start = self.saved
+
+    def quiet_us(self):
+        """The host us of each ``on_round_start`` that did not switch."""
+        return [us for _, switched, us in self.starts if not switched]
+
+
+def hold_migration(torch, cs, kern, rec):
+    """One recorded ``num_cols`` migration against its plain version on
+    the same card tensors: K2's estimate of each input table exactly
+    ``estimate_median_torch``'s, and the output table within K1's
+    ``1e-5 * max|table|`` of the plain route (the same top-k and
+    compaction, ``sketch_rows_torch`` at the new spec). Returns (the
+    largest K1 error over the tables, the event ms, the steady ms of the
+    whole migration)."""
+    from commefficient_tpu_torch.ops.topk import (
+        compact_nonzero,
+        topk_threshold_dense,
+    )
+
+    old, new = rec["old"], rec["new"]
+    k = old.cfg.k
+    select = (topk_threshold_dense if old.cfg.topk_method == "threshold"
+              else cs.topk_scatter)
+    err = 0.0
+    for t_in, t_out in zip(rec["ins"], rec["outs"]):
+        if t_in is None:
+            continue
+        e_k = kern.estimate_median(old.spec, t_in, old.spec.dtype)
+        e_p = kern.estimate_median_torch(old.spec, t_in, old.spec.dtype)
+        check(torch.equal(e_k, e_p), "control: the migration's K2 differs "
+              "from its plain version")
+        idx, val = compact_nonzero(select(e_p, k), k)
+        v = torch.zeros(old.spec.d, dtype=torch.float32, device=t_in.device)
+        v.index_add_(0, idx, val)
+        t_p = kern.sketch_rows_torch(new.spec, cs._scramble(new.spec, v),
+                                     torch.float32, new.spec.table_dtype)
+        check(t_out.shape == t_p.shape == new.spec.table_shape,
+              f"control: migrated table {tuple(t_out.shape)}")
+        e = float((t_out.float() - t_p.float()).abs().max())
+        tol = 1e-5 * max(1.0, float(t_p.float().abs().max()))
+        check(e <= tol, f"control: the migration's K1 table is {e} from "
+              f"its plain version (> {tol})")
+        err = max(err, e)
+    a, b = rec["events"]
+    b.synchronize()
+    m, e = rec["ins"]
+    steady = cuda_ms(torch, lambda: old.migrate_state(new, m, e, None),
+                     samples=5, calls=2)
+    return err, a.elapsed_time(b), steady
+
+
+def rung_trail(logdir):
+    """``control/rung`` of each round of a run dir, in step order."""
+    rungs = read_metrics(logdir).get("control/rung", {})
+    return [int(rungs[s]) for s in sorted(rungs)]
+
+
+def control_phase(torch, cs, kern, cv_train, dataset_dir, work):
+    """The control plane on the card (``control/``). The main path's flags
+    at ``--telemetry_level 1`` for CTL_ROUNDS rounds on deterministic
+    cuDNN, each run through ``cv_train.main`` with the counters set to 0
+    just before it and read just after:
+
+    1. the control-free twin, then ``--control_policy fixed --ladder
+       CTL_LADDER --control_schedule CTL_SCHEDULE``: 2 switches, the rung
+       sequence CTL_SEQUENCE, the ledger's per-rung rounds (5 and 3) and
+       exact per-rung bytes (rung 0 uploads RUNG0_UPLOAD B a client, rung
+       1 ``4 * 5 * c_actual(250,000)``), K1 and K2 each 4 more launches
+       than the twin (a ``num_cols`` switch decodes each of the 2 tables
+       through K2 and re-sketches it through K1) and K3 as many; each
+       migration held against its plain version on the tensors of the
+       switch (``hold_migration``), its ms by CUDA events in the run and
+       steady, and the host us of ``on_round_start`` on the rounds without
+       a switch;
+    2. the same at ``--pipeline_depth 2``: every leaf bit-equal to run 1,
+       a quiesce a switch;
+    3. the same checkpointed at round CTL_RESUME_AT and resumed: the same
+       rung sequence, the same controller blob and every leaf bit-equal;
+    4. ``--control_policy budget_pacing`` with the budget of 5.5 rounds at
+       rung 1: the pacing picks rung 1 from round 0, and round
+       CTL_BUDGET_ROUNDS raises ``BudgetExhaustedError`` before it runs;
+       the ledger bills CTL_BUDGET_ROUNDS rounds, and the flight dump's
+       ``controller.policy`` is ``budget_pacing``;
+    5. ``--control_policy ef_feedback`` on the ladder: starts at rung 1,
+       finite losses, and K1 and K2 at the twin's launches plus 2 a
+       switch.
+
+    Returns the summed launch forms of the phase's runs."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _control_phase(torch, cs, kern, cv_train, dataset_dir, work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _control_phase(torch, cs, kern, cv_train, dataset_dir, work):
+    from commefficient_tpu_torch.control import BudgetExhaustedError
+
+    t0 = time.perf_counter()
+    base = MAIN_ARGS + ["--telemetry_level", "1"]
+    c1 = cs.CountSketch(**{**GEOMETRY, "c": CTL_COLS1}).c_actual
+    up1 = 4 * 5 * c1
+    down = 4 * GEOMETRY["d"]
+    forms = []
+
+    def run(name, args, rounds=CTL_ROUNDS):
+        gc.collect()
+        with ControlProbe(torch) as probe:
+            r = state_run(torch, kern, cv_train, dataset_dir, work, name,
+                          args + ["--logdir", os.path.join(work, name)],
+                          rounds=rounds)
+        forms.append(r["forms"])
+        return r, probe
+
+    twin, _ = run("control_twin", base)
+    fixed, probe = run("control_fixed", base + CTL_FIXED)
+    ln, ln0 = fixed["launches"], twin["launches"]
+    seq = rung_trail(fixed["out"]["logdir"])
+    with open(os.path.join(fixed["out"]["logdir"], "comm_ledger.json")) as f:
+        led = json.load(f)
+    holds = [hold_migration(torch, cs, kern, rec)
+             for rec in probe.migrations]
+    quiet = probe.quiet_us()
+    phase("control", run="fixed", c_actual_rung1=c1,
+          rung_sequence=json.dumps(seq),
+          switches=fixed["out"]["control"]["switches"],
+          rung_rounds=json.dumps([r["rounds"] for r in led["rungs"]]),
+          rung_upload_bytes=json.dumps([r["bytes_per_round"]["upload_bytes"]
+                                        for r in led["rungs"]]),
+          cum_bytes=led["cum_bytes"],
+          launches=json.dumps({k: v for k, v in ln.items() if v}),
+          twin_launches=json.dumps({k: v for k, v in ln0.items() if v}),
+          migration_k1_max_abs_err=json.dumps([h[0] for h in holds]),
+          migration_ms_in_run=json.dumps([round(h[1], 4) for h in holds]),
+          migration_ms_steady=json.dumps([round(h[2], 4) for h in holds]),
+          on_round_start_us_no_switch=json.dumps([round(u, 2)
+                                                  for u in quiet]),
+          on_round_start_us_no_switch_median=round(
+              statistics.median(quiet), 2),
+          round_ms=fixed["round_ms"], twin_round_ms=twin["round_ms"])
+    check(seq == CTL_SEQUENCE, f"control fixed: rung sequence {seq}")
+    check(fixed["out"]["control"]["switches"] == 2 == len(holds),
+          f"control fixed: {fixed['out']['control']} {len(holds)} migrations")
+    want_rungs = [{"bytes_per_round": {
+        "upload_floats": up // 4, "download_floats": GEOMETRY["d"],
+        "upload_bytes": up, "download_bytes": down}, "rounds": n}
+        for up, n in ((RUNG0_UPLOAD, 5), (up1, 3))]
+    check(led["rungs"] == want_rungs and led["rounds"] == CTL_ROUNDS
+          and led["cum_up_bytes"] == 5 * RUNG0_UPLOAD + 3 * up1
+          and led["cum_down_bytes"] == CTL_ROUNDS * down,
+          f"control fixed: ledger {led}")
+    check(ln["sketch_rows"] == ln0["sketch_rows"] + 4
+          and ln["estimate_median"] == ln0["estimate_median"] + 4
+          and ln["median_rows"] == ln0["median_rows"]
+          and ln["estimate_at"] == ln["estimate_at_range"] == 0,
+          f"control fixed: launches {ln} against the twin's {ln0}")
+
+    deep, deep_probe = run("control_depth2",
+                           base + CTL_FIXED + ["--pipeline_depth", "2"])
+    same, err = state_diff(torch, deep["state"], fixed["state"],
+                           GEOMETRY["d"])
+    quiesces = deep["out"]["pipeline_stats"]["quiesces"]
+    phase("control", run="depth2", leaves_bit_equal=same, quiesces=quiesces,
+          rung_sequence=json.dumps(rung_trail(deep["out"]["logdir"])),
+          round_ms=deep["round_ms"])
+    check(same, f"control depth 2: leaves differ from depth 0 by {err}")
+    check(quiesces == deep["out"]["control"]["switches"] == 2,
+          f"control depth 2: {quiesces} quiesces")
+
+    # checkpointed at CTL_RESUME_AT and resumed into a fresh session
+    ck = os.path.join(work, "control_resume")
+    flags = base + CTL_FIXED + ["--dataset_dir", dataset_dir,
+                                "--checkpoint_dir", ck, "--checkpoint_every",
+                                str(CTL_RESUME_AT)]
+    gc.collect()
+    kern.reset_launch_counts()
+    first = cv_train.main(flags + ["--max_rounds", str(CTL_RESUME_AT),
+                                   "--logdir", ck + "_a"])
+    second = cv_train.main(flags + ["--max_rounds", str(CTL_ROUNDS),
+                                    "--resume", "true", "--logdir",
+                                    ck + "_b"])
+    forms.append(kern.form_counts())
+    blobs = [torch.load(os.path.join(d, f"step_{CTL_ROUNDS}.pt"),
+                        weights_only=True)["control"]
+             for d in (os.path.join(work, "control_fixed"), ck)]
+    resumed = load_state(os.path.join(ck, f"step_{CTL_ROUNDS}.pt"))
+    same, err = state_diff(torch, resumed, fixed["state"], GEOMETRY["d"])
+    seq_r = rung_trail(first["logdir"]) + rung_trail(second["logdir"])
+    phase("control", run="resume", resumed_from=second["checkpoint"][
+        "resumed_from"], rung_sequence=json.dumps(seq_r),
+        blob=json.dumps(blobs[1].tolist()), blob_equal=torch.equal(*blobs),
+        leaves_bit_equal=same)
+    check(second["checkpoint"]["resumed_from"] == CTL_RESUME_AT
+          and seq_r == CTL_SEQUENCE, f"control resume: sequence {seq_r}")
+    check(torch.equal(*blobs), f"control resume: blobs {blobs}")
+    check(same, f"control resume: leaves differ by {err}")
+
+    # the budget of 5.5 rounds at rung 1
+    cost1 = up1 + down
+    budget_mb = (CTL_BUDGET_ROUNDS + 0.5) * cost1 / 1e6
+    logdir = os.path.join(work, "control_budget")
+    gc.collect()
+    kern.reset_launch_counts()
+    caught = None
+    try:
+        cv_train.main(base + ["--control_policy", "budget_pacing", "--ladder",
+                              CTL_LADDER, "--budget_mb", repr(budget_mb),
+                              "--max_rounds", str(CTL_ROUNDS),
+                              "--dataset_dir", dataset_dir, "--logdir",
+                              logdir])
+    except BudgetExhaustedError as e:
+        caught = e
+    bl = kern.launch_counts()
+    forms.append(kern.form_counts())
+    (run_dir,) = os.listdir(logdir)
+    run_dir = os.path.join(logdir, run_dir)
+    with open(os.path.join(run_dir, "comm_ledger.json")) as f:
+        bled = json.load(f)
+    dumps = sorted(f for f in os.listdir(run_dir) if f.startswith("flight_"))
+    with open(os.path.join(run_dir, dumps[-1])) as f:
+        dump = json.load(f, parse_constant=_no_bare_constant)
+    phase("control", run="budget_pacing", budget_mb=budget_mb,
+          raised_at=getattr(caught, "step", None),
+          spent_bytes=getattr(caught, "spent_bytes", None),
+          ledger_rounds=bled["rounds"], ledger_cum_bytes=bled["cum_bytes"],
+          rung_rounds=json.dumps([r["rounds"] for r in bled["rungs"]]),
+          flight=dumps[-1], flight_controller=json.dumps(dump["controller"]),
+          launches=json.dumps({k: v for k, v in bl.items() if v}))
+    check(caught is not None and caught.step == CTL_BUDGET_ROUNDS
+          and caught.spent_bytes == CTL_BUDGET_ROUNDS * cost1,
+          f"control budget: {caught!r}")
+    check(bled["rounds"] == CTL_BUDGET_ROUNDS
+          and bled["cum_bytes"] == CTL_BUDGET_ROUNDS * cost1
+          and [r["rounds"] for r in bled["rungs"]] == [0, CTL_BUDGET_ROUNDS],
+          f"control budget: ledger {bled}")
+    check(dump["controller"]["policy"] == "budget_pacing"
+          and dump["controller"]["switches"] == 1,
+          f"control budget: flight {dump['controller']}")
+    # one switch (rung 0 -> 1 at round 0, zero tables) and the rounds run
+    check(bl["sketch_rows"] == 2 * CTL_BUDGET_ROUNDS + 2
+          and bl["estimate_median"] == CTL_BUDGET_ROUNDS + 2,
+          f"control budget: launches {bl}")
+
+    ef, _ = run("control_ef", base + ["--control_policy", "ef_feedback",
+                                      "--ladder", CTL_LADDER])
+    eln, n_sw = ef["launches"], ef["out"]["control"]["switches"]
+    seq_e = rung_trail(ef["out"]["logdir"])
+    phase("control", run="ef_feedback", rung_sequence=json.dumps(seq_e),
+          switches=n_sw, losses=[round(h["loss"], 5)
+                                 for h in ef["out"]["history"]],
+          launches=json.dumps({k: v for k, v in eln.items() if v}))
+    check(seq_e[0] == 1, f"control ef_feedback: starts at rung {seq_e[0]}")
+    check(eln["sketch_rows"] == ln0["sketch_rows"] + 2 * n_sw
+          and eln["estimate_median"] == ln0["estimate_median"] + 2 * n_sw,
+          f"control ef_feedback: launches {eln}, {n_sw} switches")
+    phase("control_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -3423,6 +3761,11 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["spans"] = spans_phase(torch, kern, cv_train, gpt2_train,
                                          dataset_dir, work)
+    # the control plane: ladder, policies, switches, budget, resume
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["control"] = control_phase(torch, cs, kern, cv_train,
+                                             dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

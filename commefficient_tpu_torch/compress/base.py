@@ -30,7 +30,8 @@ Nonlinear steps (top-k, Gram-Schmidt, medians) sit per client before the
 device sum or at the server after the aggregate, never between
 ``device_encode`` and the sum. State leaves are dense ``[D]`` vectors,
 ``[r, c]`` sketch tables or the compressor's private ``extra`` (powersgd's
-warm-start ``Q``), ``None`` where absent.
+warm-start ``Q``), ``None`` where absent; ``migrate_state`` carries them
+across a switch of the control plane's compression ladder.
 """
 
 from __future__ import annotations
@@ -348,6 +349,24 @@ class Compressor:
         """Level-2 fidelity scalars from the ``(idx, val)`` update; the
         exact modes report none."""
         return {}
+
+    # -- rung migration (the control/ compression ladder) ---------------------
+    def migrate_state(self, new: "Compressor", momentum, error, extra):
+        """Carry the compressor's ``FedState`` leaves across a ladder-rung
+        switch: ``self`` is the OLD rung's compressor, ``new`` the one the
+        next round dispatches (the same mode; a rung differs only in
+        ``k``, ``num_cols`` or ``powersgd_rank``). Returns ``(momentum,
+        error, extra)`` shaped for ``new``; runs eagerly at the host's
+        round boundary.
+
+        The base is the identity: for every dense-state mode a ``k``
+        change alters only the extraction's sparsity, and the ``[D]``
+        momentum and error (and absent ``None`` leaves) do not depend on
+        the rung, so the switch passes the same tensors through. Modes
+        whose state layout depends on a ladder field override it (sketch
+        re-sketches its tables across column geometries; powersgd pads or
+        truncates its warm ``Q`` across ranks)."""
+        return momentum, error, extra
 
     def upload_floats(self) -> int:
         """Per-client uplink floats per round."""

@@ -158,6 +158,26 @@ class PowerSGDCompressor(Compressor):
         den = torch.sqrt(sqnorm(compressed_input))
         return {"powersgd_recon_rel_err": num / torch.clamp(den, min=1e-30)}
 
+    def migrate_state(self, new, momentum, error, extra):
+        """Rank-rung migration: the dense ``[D]`` momentum and error do
+        not depend on the rank (they pass through), and the warm-start
+        ``Q [m, r]`` migrates by its columns: a lower rank keeps the first
+        ``r_new`` columns (the power iteration re-orthonormalizes P each
+        round, so the kept columns go on tracking the top subspace), a
+        higher rank appends the new compressor's seed-derived Gaussian
+        columns ``r_old..r_new`` (the paper's start for directions not yet
+        tracked). Without warm start nothing is carried (``None`` passes
+        through)."""
+        if not self.cfg.powersgd_warm_start or extra is None:
+            return momentum, error, extra
+        r_old, r_new = self.rank, new.rank
+        if r_new == r_old:
+            return momentum, error, extra
+        if r_new < r_old:
+            return momentum, error, extra[:, :r_new].contiguous()
+        fresh = new.init_extra_state(extra.device)  # [m, r_new]
+        return momentum, error, torch.cat([extra, fresh[:, r_old:]], dim=1)
+
     def download_floats(self) -> int:
         # the applied delta is exactly the pair (P_hat, Q_new)
         return self.rank * (self.n + self.m)

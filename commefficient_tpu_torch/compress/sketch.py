@@ -291,6 +291,40 @@ class SketchCompressor(Compressor):
         den = torch.sqrt(sqnorm(val))
         return {"sketch_est_rel_err": num / torch.clamp(den, min=1e-30)}
 
+    # -- rung migration (the control/ compression ladder) ---------------------
+    def migrate_state(self, new, momentum, error, extra):
+        """Sketch-mode rung migration. A ``k``-only switch is free: the
+        tables depend on the spec's geometry, not on k (k only selects
+        how many heavy hitters the decode extracts), so an identical
+        geometry (``table_shape``, ``c``, ``num_blocks``) passes the SAME
+        tensors through. A ``num_cols`` switch changes the layout, and a
+        table sketched under one layout means nothing under another: each
+        ``[r, c_old]`` table is decoded to its top-k support by this
+        rung's decode (``self.unsketch`` at ``cfg.k``: K2 and the rung's
+        top-k), compacted (``compact_nonzero``) and RE-SKETCHED into the
+        new layout (``sketch_sparse`` at the new spec, K1), stored in the
+        new spec's table type: ``new_table = S_new(U_old(table, k))``. By
+        the linearity of both maps this carries exactly the decodable
+        signal; the sub-threshold residual the old table held is dropped
+        (a controlled leak, like ``error_decay``): there is no lossless
+        map between CountSketch geometries."""
+        old_spec, new_spec = self.spec, new.spec
+        if (new_spec.table_shape == old_spec.table_shape
+                and new_spec.c == old_spec.c
+                and new_spec.num_blocks == old_spec.num_blocks):
+            return momentum, error, extra
+        k = self.cfg.k
+
+        def move(table):
+            if table is None:
+                return None
+            dense = self.unsketch(old_spec, table, k)
+            idx, val = compact_nonzero(dense, k)
+            return sketch_sparse(new_spec, idx, val,
+                                 table_dtype=new_spec.table_dtype)
+
+        return move(momentum), move(error), extra
+
     def upload_floats(self) -> int:
         """The REALIZED table size ``r * c_actual``; warns when the blocked
         layout inflates the request by more than 25%."""

@@ -428,6 +428,21 @@ estimate_median.launches = 0
 estimate_median.forms = {}
 
 
+def prepare_plans(spec, device) -> None:
+    """Build, without a launch, the host plans of ``spec`` on ``device``
+    that K1 and K2 read (the per-spec caches their first launch would
+    fill): K1's row geometry and, for the one-kernel decode
+    (``num_blocks == 1``), K2's plan for an f32 table and, with bf16
+    storage, for a bf16 one. The control plane builds them for every
+    ladder rung before the first round, so a rung switch builds none."""
+    dev = str(device)
+    _kernel_geometry(spec, dev)
+    if spec.num_blocks == 1:
+        _k2_plan(spec, dev, 4)
+        if spec.table_dtype == torch.bfloat16:
+            _k2_plan(spec, dev, 2)
+
+
 # -- K4: point estimates at a coordinate subset -----------------------------------
 
 

@@ -133,14 +133,15 @@ class RoundStager:
         return out, ready
 
 
-def envelope_warning(d: int, c_actual: int,
-                     error_decay: float) -> Optional[str]:
+def envelope_warning(d: int, c_actual: int, error_decay: float,
+                     label: str = "") -> Optional[str]:
     """The reference session's d/c warning, or None: a realized ``d /
     c_actual`` above ``stable_dc_bound(error_decay)`` is outside the
     fitted stable envelope of the error feedback (``parallel/
     envelope.py``). The suggested ``num_cols`` pads the realized target by
     5%, enough that following it clears the check (the realized width
-    deviates a few percent from the request)."""
+    deviates a few percent from the request). ``label`` names the ladder
+    rung the spec is of ("" without a ladder)."""
     bound = stable_dc_bound(error_decay)
     if d <= bound * c_actual:
         return None
@@ -148,8 +149,9 @@ def envelope_warning(d: int, c_actual: int,
     decay_note = "" if error_decay < 0.95 else (
         " or lower error_decay (gamma=0.9 moves the fitted cliff to d/c "
         f"~{predicted_dc_max(0.9):.0f})")
+    rung = f" (ladder {label})" if label else ""
     return (
-        f"sketch mode at realized d/c = {d / c_actual:.1f} (c_actual="
+        f"sketch mode{rung} at realized d/c = {d / c_actual:.1f} (c_actual="
         f"{c_actual:,}) is OUTSIDE the stable envelope for error_decay="
         f"{error_decay:g}: the fitted error-bank model (parallel/"
         f"envelope.py) puts the cliff at d/c ~"
@@ -179,6 +181,28 @@ def microbatched(cfg, batch: Dict[str, Any]) -> Dict[str, Any]:
             for k, a in arrays.items()}
 
 
+class _Rung:
+    """One compression-ladder rung's resolved runtime: its Config, its
+    CountSketch spec and compressor, the decode and aggregation resolved
+    for the group, and its round closure. A session without the control
+    plane is exactly one rung over the base config (label ""), built as
+    the session always built itself."""
+
+    __slots__ = ("cfg", "label", "spec", "compressor", "plan", "round_fn",
+                 "sketch_decode_resolved", "aggregate_resolved")
+
+    def __init__(self, cfg, label, spec, compressor, plan, round_fn,
+                 sketch_decode_resolved, aggregate_resolved):
+        self.cfg = cfg
+        self.label = label  # "" (one rung) | "rung0", "rung1", ...
+        self.spec = spec
+        self.compressor = compressor
+        self.plan = plan
+        self.round_fn = round_fn
+        self.sketch_decode_resolved = sketch_decode_resolved
+        self.aggregate_resolved = aggregate_resolved  # "sparse" | "dense"
+
+
 class FederatedSession:
     """Owns the worker group, the device, the CountSketch spec, the
     compressor, the round and the ``FedState``. ``params`` is a nested dict
@@ -193,7 +217,15 @@ class FederatedSession:
     (checkpoints and the interop with the reference carry the full
     layout). ``mask_batch(batch, row_mask)`` masks an eval batch's padded
     rows (``mask_classification``, or ``mask_gpt2`` for the GPT-2
-    batch)."""
+    batch).
+
+    ``rungs`` holds one ``_Rung`` per rung of the control plane's
+    compression ladder (one rung over ``cfg`` without it), each with its
+    own spec, compressor and round; ``spec``, ``compressor``, ``plan``
+    and ``round_fn`` are the ACTIVE rung's (``active_rung``), and the
+    state is in its layout. The controller (``controller``, attached by
+    ``control.build_controller``) decides each round's rung in ``_round``
+    before the dispatch, switching through ``set_active_rung``."""
 
     def __init__(self, cfg, params: Any, loss_fn: Callable,
                  mask_batch: Callable = mask_classification):
@@ -206,66 +238,45 @@ class FederatedSession:
         vec, unravel = ravel_params(params)
         self.unravel = unravel
         self.grad_size = int(vec.numel())
-        self.spec = None
-        if compressor_class(cfg.mode).needs_sketch_spec:
-            self.spec = CountSketch(
-                d=self.grad_size, c=cfg.num_cols, r=cfg.num_rows,
-                num_blocks=cfg.num_blocks, seed=cfg.seed, m=cfg.sketch_m,
-                band=cfg.sketch_band, hash_family=cfg.hash_family,
-                dtype=_DTYPES[cfg.sketch_dtype],
-                table_dtype=_DTYPES[cfg.sketch_table_dtype])
-            msg = envelope_warning(self.grad_size, self.spec.c_actual,
-                                   cfg.error_decay)
-            if msg:
-                warnings.warn(msg, stacklevel=2)
-        self.compressor = get_compressor(cfg, d=self.grad_size,
-                                         spec=self.spec)
-        # which server decode the round runs (cfg.sketch_decode resolved
-        # for this group; build_round_fn makes the same call)
-        self.sketch_decode_resolved = (
-            "sharded" if self.compressor.use_sharded_decode(self.group.size)
-            else "dense")
-        # which aggregation the round runs (cfg.aggregate resolved for this
-        # group; the round builder makes the same call). Under FSDP, whose
-        # round reduce-scatters anyway, it resolves dense: Config refuses
-        # an explicit 'sparse' there, and auto picks it for no FSDP mode
-        self.plan = resolve_aggregation(cfg, self.compressor,
-                                        self.group.size)
-        self.aggregate_resolved = ("sparse" if self.plan.use_sparse_agg
-                                   else "dense")
-        if cfg.fsdp:
-            self.sketch_decode_resolved = "dense"
-        if (cfg.aggregate == "sparse" and not cfg.fsdp
-                and self.group.size == 1):
-            warnings.warn(
-                "aggregate='sparse' on a 1-device worker group is the "
-                "degenerate case: there is no exchange to shrink, so the "
-                "pair compaction and scatter are pure overhead on top of a "
-                "sum over one device. 'auto' picks dense here for exactly "
-                "that reason.", stacklevel=2)
-        if (cfg.sketch_decode == "sharded" and not cfg.fsdp
-                and self.group.size == 1):
-            warnings.warn(
-                "sketch_decode='sharded' on a 1-device worker group is the "
-                "degenerate case: the one 'shard' decodes the FULL "
-                "coordinate range through estimate_at, and the candidate "
-                "exchange has no one to exchange with. The sharded decode "
-                "only pays when the worker group is real; 'auto' picks "
-                "dense here for exactly that reason.", stacklevel=2)
+        self._loss_fn = loss_fn
         self._padded = padded_dim(self.grad_size, self.group.size)
         self._gathered = None  # (the params slice, the gathered [D])
-        if cfg.fsdp:
-            from commefficient_tpu_torch.parallel.fsdp import (
-                build_fsdp_round_fn,
-                init_fsdp_state,
-                validate_fsdp,
+        # the control plane's controller (control/), attached by
+        # build_controller once the train loop knows the run length; None
+        # keeps every round on the path it ran before
+        self.controller = None
+        # the compression ladder's rungs: without the control plane ONE
+        # rung over cfg itself (label ""), which builds exactly the
+        # session it built before. With it, every rung's spec, compressor,
+        # resolutions and round closure are built here, so a switch is a
+        # lookup and the state's migration, never a build
+        if cfg.control_enabled:
+            from commefficient_tpu_torch.control import (
+                initial_rung_index,
+                ladder_configs,
+                validate_rung_costs,
             )
 
-            validate_fsdp(cfg, self.compressor)
-            self.state = init_fsdp_state(cfg, self.compressor,
+            self.rungs = [self._build_rung(rc, f"rung{i}")
+                          for i, rc in enumerate(ladder_configs(cfg))]
+            if len(self.rungs) > 1:
+                validate_rung_costs([self.rung_bytes_per_round(i)
+                                     for i in range(len(self.rungs))])
+            self.active_rung = initial_rung_index(cfg, len(self.rungs))
+        else:
+            self.rungs = [self._build_rung(cfg, "")]
+            self.active_rung = 0
+        rung = self.rungs[self.active_rung]
+        self._use_rung(rung)
+        # the state in the INITIAL rung's layout (under ef_feedback the
+        # cheapest rung's)
+        if cfg.fsdp:
+            from commefficient_tpu_torch.parallel.fsdp import init_fsdp_state
+
+            self.state = init_fsdp_state(rung.cfg, rung.compressor,
                                          vec.to(self.device), self.group)
         else:
-            self.state = init_state(cfg, self.compressor,
+            self.state = init_state(rung.cfg, rung.compressor,
                                     vec.to(self.device))
             if self.sparse_state:  # this rank's slice, zeros as well
                 S = self._padded // self.group.size
@@ -276,11 +287,6 @@ class FederatedSession:
         # state.step's masks, a pure function of (seed, step), so a
         # restored step realizes what the unbroken run realized
         self.fedsim_env = build_environment(cfg)
-        self.round_fn = (
-            build_fsdp_round_fn(cfg, loss_fn, unravel, self.compressor,
-                                self.group) if cfg.fsdp
-            else build_round_fn(cfg, loss_fn, unravel, self.compressor,
-                                self.group))
         self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
         # the training set on the device (attach_data), else None; which
         # data path the rounds take is ``data_path``
@@ -298,6 +304,168 @@ class FederatedSession:
         self.audit_arm = None
         self.last_audit = None
 
+    # -- the compression ladder's rungs (control/) ----------------------------
+    def _build_rung(self, rcfg, label: str) -> _Rung:
+        """Resolve one rung: its CountSketch spec (and the envelope
+        warning, a ``num_cols`` property, per rung), compressor, decode and
+        aggregation resolutions and round closure. The degenerate-group
+        warnings are given once a session, by the first rung built."""
+        first = label in ("", "rung0")
+        spec = None
+        if compressor_class(rcfg.mode).needs_sketch_spec:
+            spec = CountSketch(
+                d=self.grad_size, c=rcfg.num_cols, r=rcfg.num_rows,
+                num_blocks=rcfg.num_blocks, seed=rcfg.seed, m=rcfg.sketch_m,
+                band=rcfg.sketch_band, hash_family=rcfg.hash_family,
+                dtype=_DTYPES[rcfg.sketch_dtype],
+                table_dtype=_DTYPES[rcfg.sketch_table_dtype])
+            msg = envelope_warning(self.grad_size, spec.c_actual,
+                                   rcfg.error_decay, label)
+            if msg:
+                warnings.warn(msg, stacklevel=4)
+        compressor = get_compressor(rcfg, d=self.grad_size, spec=spec)
+        W = self.group.size
+        # which server decode and which aggregation the round runs (the
+        # round builder makes the same calls); under FSDP, whose round
+        # reduce-scatters anyway, both resolve dense (Config refuses an
+        # explicit 'sparse' there, and auto picks it for no FSDP mode)
+        plan = resolve_aggregation(rcfg, compressor, W)
+        decode = ("sharded" if not rcfg.fsdp
+                  and compressor.use_sharded_decode(W) else "dense")
+        aggregate = "sparse" if plan.use_sparse_agg else "dense"
+        if (first and rcfg.aggregate == "sparse" and not rcfg.fsdp
+                and W == 1):
+            warnings.warn(
+                "aggregate='sparse' on a 1-device worker group is the "
+                "degenerate case: there is no exchange to shrink, so the "
+                "pair compaction and scatter are pure overhead on top of a "
+                "sum over one device. 'auto' picks dense here for exactly "
+                "that reason.", stacklevel=4)
+        if (first and rcfg.sketch_decode == "sharded" and not rcfg.fsdp
+                and W == 1):
+            warnings.warn(
+                "sketch_decode='sharded' on a 1-device worker group is the "
+                "degenerate case: the one 'shard' decodes the FULL "
+                "coordinate range through estimate_at, and the candidate "
+                "exchange has no one to exchange with. The sharded decode "
+                "only pays when the worker group is real; 'auto' picks "
+                "dense here for exactly that reason.", stacklevel=4)
+        if rcfg.fsdp:
+            from commefficient_tpu_torch.parallel.fsdp import (
+                build_fsdp_round_fn,
+                validate_fsdp,
+            )
+
+            validate_fsdp(rcfg, compressor)
+            round_fn = build_fsdp_round_fn(rcfg, self._loss_fn, self.unravel,
+                                           compressor, self.group)
+        else:
+            round_fn = build_round_fn(rcfg, self._loss_fn, self.unravel,
+                                      compressor, self.group)
+        return _Rung(rcfg, label, spec, compressor, plan, round_fn, decode,
+                     aggregate)
+
+    def _use_rung(self, rung: _Rung) -> None:
+        """Point the session's dispatch and accounting at ``rung``."""
+        self.spec = rung.spec
+        self.compressor = rung.compressor
+        self.plan = rung.plan
+        self.round_fn = rung.round_fn
+        self.sketch_decode_resolved = rung.sketch_decode_resolved
+        self.aggregate_resolved = rung.aggregate_resolved
+
+    def set_active_rung(self, i: int, *, migrate: bool = True) -> None:
+        """Switch the dispatch to rung ``i``: the session's spec,
+        compressor and round closure become the rung's (a lookup: they
+        were built with the session), and with ``migrate`` the
+        compressor's ``FedState`` leaves are carried across by
+        ``Compressor.migrate_state`` (a ``num_cols`` switch runs K2 and K1
+        on the card). ``migrate=False`` is the checkpoint restore's: the
+        restored leaves are ALREADY in rung ``i``'s layout."""
+        i = int(i)
+        if not 0 <= i < len(self.rungs):
+            raise ValueError(f"rung {i} out of range (the ladder has "
+                             f"{len(self.rungs)})")
+        if i == self.active_rung:
+            return
+        old, new = self.rungs[self.active_rung], self.rungs[i]
+        if migrate:
+            st = self.state
+            m, e, x = old.compressor.migrate_state(
+                new.compressor, st.momentum, st.error, st.comp)
+            m, e, x = self._commit_rung_leaves(new, m, e, x)
+            self.state = FedState(**{**vars(st), "momentum": m, "error": e,
+                                     "comp": x})
+        self.active_rung = i
+        self._use_rung(new)
+
+    def _commit_rung_leaves(self, rung: _Rung, m, e, x):
+        """Migrated leaves on this session's device in ``rung``'s layout:
+        a leaf the migration passed through (the SAME tensor) is left
+        alone; a whole ``[D]`` (or padded) vector arriving for a leaf
+        ``rung`` shards is padded and cut to this rank's slice."""
+        st = self.state
+        sharded = self._sharded_leaves_of(rung)
+        S = self._padded // self.group.size
+        lo = self.group.rank * S
+
+        def commit(name, leaf, old_leaf):
+            if leaf is None or leaf is old_leaf:
+                return leaf
+            leaf = leaf.to(self.device)
+            if (name in sharded and leaf.dim() == 1
+                    and leaf.numel() in (self.grad_size, self._padded)):
+                leaf = torch.nn.functional.pad(
+                    leaf, (0, self._padded - leaf.numel()))[lo:lo + S].clone()
+            return leaf
+
+        return tuple(commit(n, leaf, o) for n, leaf, o in zip(
+            ("momentum", "error", "comp"), (m, e, x),
+            (st.momentum, st.error, st.comp)))
+
+    def rung_state_template(self, i: int) -> Dict[str, Any]:
+        """``{leaf: (shape, dtype) or None}`` of the compressor's leaves
+        (``momentum``, ``error``, ``comp``) in ``full_state``'s layout at
+        rung ``i``: what a checkpoint saved at that rung holds. Built on
+        the ``meta`` device, so nothing is allocated."""
+        rung = self.rungs[i]
+        sharded = self._sharded_leaves_of(rung)
+        out = {}
+        for name, t in zip(("momentum", "error", "comp"),
+                           rung.compressor.init_server_state("meta")):
+            out[name] = None if t is None else (
+                (self._padded,) if name in sharded else tuple(t.shape),
+                t.dtype)
+        return out
+
+    def rung_bytes_per_round(self, i: int) -> Dict[str, int]:
+        """Upload/download bytes per participating client at rung ``i``
+        (the controller's and the per-rung ledger's source)."""
+        rung = self.rungs[i]
+        comp = rung.compressor
+        up = comp.upload_floats()
+        down = (2 * rung.cfg.k if rung.cfg.do_topk_down
+                else comp.download_floats())
+        return {"upload_floats": up, "download_floats": down,
+                "upload_bytes": comp.upload_bytes_per_float() * up,
+                "download_bytes": 4 * down}
+
+    def prewarm_rungs(self) -> int:
+        """On the card, build the host plans K1 and K2 read for every
+        rung's spec (the per-spec caches a first launch would fill), so a
+        switch to any rung builds nothing; nothing to do on the CPU.
+        Launches nothing and changes no state; returns the number of
+        rungs."""
+        if self.device.type == "cuda":
+            from commefficient_tpu_torch.ops.cuda.countsketch import (
+                prepare_plans,
+            )
+
+            for rung in self.rungs:
+                if rung.spec is not None:
+                    prepare_plans(rung.spec, self._cuda_device)
+        return len(self.rungs)
+
     # -- the sharded leaves -------------------------------------------------
     @property
     def sparse_state(self) -> bool:
@@ -311,12 +479,16 @@ class FederatedSession:
         [padded_dim / W]`` slice: under ``fsdp`` the params and the dense
         server leaves, under true_topk's sparse aggregation its dense
         momentum and error; () otherwise."""
-        if not (self.cfg.fsdp or self.sparse_state):
+        return self._sharded_leaves_of(self.rungs[self.active_rung])
+
+    @staticmethod
+    def _sharded_leaves_of(rung: _Rung) -> tuple:
+        if not (rung.cfg.fsdp or rung.plan.sparse_state):
             return ()
-        kinds = self.compressor.server_state_kinds()
+        kinds = rung.compressor.server_state_kinds()
         dense = tuple(leaf for leaf, kind in zip(("momentum", "error"),
                                                  kinds) if kind == KIND_DENSE)
-        return ("params_vec",) + dense if self.cfg.fsdp else dense
+        return ("params_vec",) + dense if rung.cfg.fsdp else dense
 
     def full_state(self) -> FedState:
         """The state with every sharded leaf gathered over the group into
@@ -581,6 +753,12 @@ class FederatedSession:
                     "fedsim (cfg.fedsim_enabled is False, so the round "
                     "masks nothing); construct the Config with "
                     "availability/chaos set to drive masked rounds")
+        if self.controller is not None:
+            # the control plane's decision point, on the host before the
+            # dispatch: it may switch the rung (and migrate the state) or
+            # raise BudgetExhaustedError, so the round never runs
+            self.controller.on_round_start(
+                step, env.stats if env is not None else None)
         lr = float(np.float32(lr))  # the reference's f32 lr
         arm = self.audit_arm if self.audit_arm is not None \
             and self.audit_arm.armed else None
@@ -598,6 +776,8 @@ class FederatedSession:
             arm.finish()  # the report, outside the round's spans
         if env is not None:
             metrics = {**metrics, **env.stats}
+        if self.controller is not None:
+            metrics = {**metrics, **self.controller.scalars()}
         if self.spans is not None and self.cfg.telemetry_level >= 1:
             # host scalars, the same keys every round: the exposure (0.0
             # when the audited round held no collective) and the trace/*
@@ -614,7 +794,7 @@ class FederatedSession:
         the sharded sketch decode, ``sparse_agg_bound`` (and the
         device-resident client rows' exemption) under sparse aggregation,
         the ``overlap`` block under layerwise overlap."""
-        cfg = self.cfg
+        cfg = self.rungs[self.active_rung].cfg
         W = self.group.size
         is_sketch = not cfg.fsdp and self.compressor.supports_sharded_decode
         sharded = is_sketch and self.sketch_decode_resolved == "sharded"
@@ -690,14 +870,9 @@ class FederatedSession:
         return self.unravel(self.full_params_vec())
 
     def bytes_per_round(self) -> Dict[str, int]:
-        """Upload/download bytes per participating client."""
-        comp = self.compressor
-        up = comp.upload_floats()
-        down = 2 * self.cfg.k if self.cfg.do_topk_down else \
-            comp.download_floats()
-        return {"upload_floats": up, "download_floats": down,
-                "upload_bytes": comp.upload_bytes_per_float() * up,
-                "download_bytes": 4 * down}
+        """Upload/download bytes per participating client at the active
+        rung."""
+        return self.rung_bytes_per_round(self.active_rung)
 
 
 class FedModel:

@@ -13,10 +13,11 @@ t+1..t+depth can be realized ahead, bit-exactly:
   dispatching each staged round in order through the session.
 
 At ``pipeline_depth 0`` nothing here is built: the runner's synchronous
-loop reads ``data/sampler.py::prefetch`` instead. Not ported here (ROADMAP
-A11 and A12): the compression controller's barrier and rung-switch
-listener (``control/``), the hosted client rows' staging
-(``clientstore/``), ``cohorts.py`` and ``scan_engine.py``. At telemetry
+loop reads ``data/sampler.py::prefetch`` instead. The control plane's
+rung switches reach the engine through its switch listener (a counted
+quiesce; the staged inputs do not depend on the rung). Not ported here
+(ROADMAP A11 and A12): the hosted client rows' staging (``clientstore/``),
+``cohorts.py`` and ``scan_engine.py``. At telemetry
 level >= 1 the worker records its spans on its own lane and each round's
 metrics carry the ``pipeline/*`` scalars.
 """

@@ -24,8 +24,16 @@ attached (telemetry level >= 1) the round clock ``spans.step`` moves
 before each dispatch, the worker records its lane, and each round's
 metrics carry ``pipeline/occupancy``, ``pipeline/host_stall_ms`` and
 ``pipeline/staged_rounds`` (host floats; ``run_report.json``'s stall
-anomaly reads them). Not ported (ROADMAP A11): the compression
-controller's barrier and rung-switch listener and the resilience restart.
+anomaly reads them).
+
+The control plane's decision point needs no barrier here: the session's
+``_round`` runs ``on_round_start`` before each dispatch, and the staged
+inputs (batch, fedsim masks, lr) do not depend on the rung, so a switch
+invalidates nothing in the window. The engine registers a rung-switch
+listener (``_on_rung_switch``) that counts each switch as a quiesce
+(``stats()["quiesces"]``) and records a ``pipeline_quiesce:rungA->rungB``
+span; nothing is restaged. Not ported (ROADMAP A11): the resilience
+restart.
 """
 
 from __future__ import annotations
@@ -62,6 +70,9 @@ class PipelinedRounds:
         self._occupancy_sum = 0.0
         self._host_ms_sum = 0.0
         self._staged_copies = 0
+        self.quiesces = 0
+        if session.controller is not None:
+            session.controller.add_switch_listener(self._on_rung_switch)
 
     def start(self, resume_step: int = 0) -> "PipelinedRounds":
         """Start the run-long prefetcher at ``resume_step``, the round the
@@ -128,10 +139,22 @@ class PipelinedRounds:
         return sess.train_round(work.client_ids, work.batch, work.lr,
                                 env=work.env, ready=work.ready)
 
+    def _on_rung_switch(self, step: int, old: int, new: int) -> None:
+        """The controller's switch listener: the staged window needs no
+        restaging (its inputs do not depend on the rung), so the quiesce
+        is a count and a span marker, not a flush."""
+        self.quiesces += 1
+        spans = self.session.spans
+        if spans is not None:
+            with spans.span(f"pipeline_quiesce:rung{old}->rung{new}",
+                            step=step):
+                pass
+
     def stats(self) -> dict:
         n = max(self._rounds, 1)
         return {"rounds": self._rounds,
                 "occupancy": self._occupancy_sum / n,
                 "host_stall_ms": self._stall_ms_sum / n,
                 "prefetch_host_ms": self._host_ms_sum / n,
-                "staged_copies": self._staged_copies}
+                "staged_copies": self._staged_copies,
+                "quiesces": self.quiesces}

@@ -114,18 +114,30 @@ def build_telemetry_riders(cfg, session, writer):
     """``(ledger, flight)`` for a train loop, or ``(None, None)`` below
     level 1 or without a writer: the one construction both entry points
     share. ``session`` is duck-typed (``bytes_per_round()``,
-    ``grad_size``, ``group.size``, ``compressor``)."""
+    ``grad_size``, ``group.size``, ``compressor``, and on a compression
+    ladder ``rungs``, ``rung_bytes_per_round(i)`` and ``controller``)."""
     if getattr(cfg, "telemetry_level", 0) < 1 or writer is None:
         return None, None
+    # a compression ladder's run bills each drained round at the rung its
+    # control/rung scalar names; one rung keeps the flat accounting
+    rungs = None
+    session_rungs = getattr(session, "rungs", None)
+    if session_rungs is not None and len(session_rungs) > 1:
+        rungs = [(session.rung_bytes_per_round(i), r.compressor)
+                 for i, r in enumerate(session_rungs)]
     ledger = CommLedger(session.bytes_per_round(), mode=cfg.mode,
                         num_workers=cfg.num_workers,
                         masked=bool(getattr(cfg, "fedsim_enabled", False)),
-                        compressor=getattr(session, "compressor", None))
+                        compressor=getattr(session, "compressor", None),
+                        rungs=rungs)
     flight = FlightRecorder(
         cfg, logdir=writer.logdir,
         extra_meta={"grad_size": session.grad_size,
                     "mesh": {"workers": session.group.size},
-                    "artifacts": run_artifacts(cfg, writer.logdir)})
+                    "artifacts": run_artifacts(cfg, writer.logdir)},
+        # the dump's controller block: the controller is attached to the
+        # session before the riders are built
+        controller=getattr(session, "controller", None))
     return ledger, flight
 
 

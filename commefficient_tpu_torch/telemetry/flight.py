@@ -13,10 +13,12 @@ before it. Any other crash of the train loop dumps the ring too
 
 Every artifact is strict JSON: a non-finite float anywhere becomes the
 marker ``"nan"``, ``"inf"`` or ``"-inf"`` (``jsonable_scalar``), which the
-reference's ``scripts/check_telemetry_schema.py`` accepts. The
-reference's ``FleetShrinkError`` and the dump's controller and recovery
-blocks belong to ROADMAP A11: their hooks (``controller``,
-``resilience``) stay ``None`` here, and a dump leaves the blocks out.
+reference's ``scripts/check_telemetry_schema.py`` accepts. A run of the
+control plane attaches its ``BudgetController`` (``controller``), and
+every dump then carries its ``controller`` block (policy, rung, switches,
+the budget left). The reference's ``FleetShrinkError`` and the dump's
+recovery block belong to resilience/ (ROADMAP A11): its hook
+(``resilience``) stays ``None`` here, and a dump leaves the block out.
 """
 
 from __future__ import annotations
@@ -96,8 +98,8 @@ class FlightRecorder:
         self.meta = run_metadata(cfg, extra_meta)
         self.records: deque = deque(maxlen=self.window)
         self.last_step: Optional[int] = None
-        # the control plane and the resilience layer (ROADMAP A11) attach
-        # here; while they are absent the dump carries neither block
+        # the control plane's controller (None without it) and the
+        # resilience layer (ROADMAP A11; always None here)
         self.controller = controller
         self.resilience = None
 

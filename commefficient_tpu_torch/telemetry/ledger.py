@@ -14,9 +14,14 @@ available client downloads: the round's uplink is the compressor's
 ``masked_upload_floats(live)`` times its ``upload_bytes_per_float()``,
 its downlink ``avail * download_bytes``, the live and available counts
 recovered from the round's own ``fedsim/*`` scalars; the invariant
-becomes ``cum_up_bytes == live_client_rounds * upload_bytes``. The
-reference's per-rung accounting waits for the control plane (ROADMAP
-A11): ``rungs`` stays ``None``.
+becomes ``cum_up_bytes == live_client_rounds * upload_bytes``.
+
+A run of the control plane's compression ladder (``rungs``: each rung's
+``bytes_per_round`` and compressor) bills each drained round at the rung
+its own ``control/rung`` scalar names, and keeps per rung its rounds and,
+masked, its live and available client-rounds: the invariant becomes the
+sum over rungs of each rung's rounds (or live client-rounds) times its
+bytes.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ def run_metadata(cfg=None, extra: Optional[dict] = None) -> dict:
     return meta
 
 
+# the per-rung counters of a ladder run
+_RUNG_COUNTS = ("rounds", "live_client_rounds", "avail_client_rounds")
+
+
 class CommLedger:
     """Exact uplink and downlink byte counts over the drained rounds.
 
@@ -64,16 +73,20 @@ class CommLedger:
     def __init__(self, bytes_per_round: Dict[str, int], *, mode: str,
                  num_workers: int, masked: bool = False, compressor=None,
                  rungs=None):
-        if rungs is not None:
-            raise NotImplementedError(
-                "per-rung accounting needs the control/ compression ladder "
-                "(ROADMAP A11)")
         self.bytes_per_round = {k: int(v) for k, v in bytes_per_round.items()}
         self.mode = mode
         self.num_workers = int(num_workers)
         self.masked = bool(masked)
         self._comp = compressor
+        # the ladder's [(bytes_per_round, compressor), ...] in rung order,
+        # or None for one rung
         self.rungs = None
+        if rungs is not None:
+            self.rungs = [
+                {"bytes_per_round": {k: int(v) for k, v in bpr.items()},
+                 "compressor": comp, "rounds": 0,
+                 "live_client_rounds": 0, "avail_client_rounds": 0}
+                for bpr, comp in rungs]
         self.rounds = 0
         self.cum_up_bytes = 0
         self.cum_down_bytes = 0
@@ -95,18 +108,33 @@ class CommLedger:
                  scalars: Optional[Dict[str, float]] = None
                  ) -> Dict[str, float]:
         """Bill one drained round (``scalars``: its drained metrics, where
-        the ``fedsim/*`` counts ride); returns its ``comm/*`` scalars."""
-        up = self.bytes_per_round["upload_bytes"]
-        down = self.bytes_per_round["download_bytes"]
+        the ``fedsim/*`` counts and, on a ladder, ``control/rung`` ride);
+        returns its ``comm/*`` scalars."""
+        rung_rec = None
+        bpr, comp = self.bytes_per_round, self._comp
+        if self.rungs is not None:
+            r = int(round(float((scalars or {}).get("control/rung", 0.0))))
+            if not 0 <= r < len(self.rungs):
+                raise ValueError(
+                    f"drained round {step} names rung {r}, but the ledger "
+                    f"was built for {len(self.rungs)} rung(s)")
+            rung_rec = self.rungs[r]
+            bpr, comp = rung_rec["bytes_per_round"], rung_rec["compressor"]
+        up = bpr["upload_bytes"]
+        down = bpr["download_bytes"]
         if self.masked:
             live, avail = self._counts(scalars)
-            comp = self._comp
             up = (comp.upload_bytes_per_float()
                   * comp.masked_upload_floats(live)
                   if comp is not None else live * up)
             down = avail * down
             self.live_client_rounds += live
             self.avail_client_rounds += avail
+            if rung_rec is not None:
+                rung_rec["live_client_rounds"] += live
+                rung_rec["avail_client_rounds"] += avail
+        if rung_rec is not None:
+            rung_rec["rounds"] += 1
         self.rounds += 1
         self.cum_up_bytes += up
         self.cum_down_bytes += down
@@ -121,11 +149,15 @@ class CommLedger:
     def snapshot_state(self) -> dict:
         """The mutable counters, host ints: what a rollback rewinds so
         replayed rounds bill once."""
-        return {"rounds": self.rounds,
-                "cum_up_bytes": self.cum_up_bytes,
-                "cum_down_bytes": self.cum_down_bytes,
-                "live_client_rounds": self.live_client_rounds,
-                "avail_client_rounds": self.avail_client_rounds}
+        out = {"rounds": self.rounds,
+               "cum_up_bytes": self.cum_up_bytes,
+               "cum_down_bytes": self.cum_down_bytes,
+               "live_client_rounds": self.live_client_rounds,
+               "avail_client_rounds": self.avail_client_rounds}
+        if self.rungs is not None:
+            out["rungs"] = [{k: r[k] for k in _RUNG_COUNTS}
+                            for r in self.rungs]
+        return out
 
     def load_snapshot_state(self, state: dict) -> None:
         """Rewind to a ``snapshot_state`` capture."""
@@ -134,6 +166,16 @@ class CommLedger:
         self.cum_down_bytes = int(state["cum_down_bytes"])
         self.live_client_rounds = int(state["live_client_rounds"])
         self.avail_client_rounds = int(state["avail_client_rounds"])
+        if self.rungs is not None:
+            saved = state.get("rungs")
+            if saved is None or len(saved) != len(self.rungs):
+                raise ValueError(
+                    "ledger snapshot rung count does not match this "
+                    "ledger's ladder — the snapshot was captured under a "
+                    "different control config")
+            for rec, snap in zip(self.rungs, saved):
+                for k in _RUNG_COUNTS:
+                    rec[k] = int(snap[k])
 
     def summary(self) -> dict:
         from commefficient_tpu_torch.telemetry import SCHEMA_VERSION
@@ -153,6 +195,13 @@ class CommLedger:
             # cum_down_bytes == avail_client_rounds * download_bytes
             out["live_client_rounds"] = self.live_client_rounds
             out["avail_client_rounds"] = self.avail_client_rounds
+        if self.rungs is not None:
+            # cum_up_bytes == sum over rungs of rounds * upload_bytes (or,
+            # masked, live_client_rounds * upload_bytes); the downlink alike
+            out["rungs"] = [
+                {k: v for k, v in r.items() if k != "compressor"
+                 and (self.masked or not k.endswith("_client_rounds"))}
+                for r in self.rungs]
         return out
 
     def write(self, logdir: str) -> str:

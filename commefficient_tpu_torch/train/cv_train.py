@@ -102,6 +102,7 @@ from commefficient_tpu_torch.models import (
     resnet9_apply,
 )
 from commefficient_tpu_torch import native
+from commefficient_tpu_torch.control import controller_header
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
@@ -207,8 +208,9 @@ def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     ``sketch_decode`` (the server decode the session ran), ``checkpoint``
     (the runner's checkpoint facts), ``final_step``, ``data_path``
     (``device`` or ``host``), ``pipeline_stats`` (the pipelined engine's
-    ``stats()``, None at depth 0) and ``logdir`` (rank 0's run dir, None
-    on the other ranks). ``model_kw`` narrows the model
+    ``stats()``, None at depth 0), ``logdir`` (rank 0's run dir, None
+    on the other ranks) and ``control`` (the control plane's controller
+    ``snapshot()`` at the end, None without it). ``model_kw`` narrows the model
     (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
@@ -247,7 +249,8 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
         f"{bpr['upload_bytes']:,} B  download={bpr['download_bytes']:,} B")
     p0 = session.full_params_vec().clone()
     pipeline_stats = {}
-    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg)
+    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg,
+                            extra_header=controller_header(session))
               if session.group.rank == 0 else None)
     try:
         val, history, ckpt = run_train_loop(
@@ -271,7 +274,9 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,
             "pipeline_stats": pipeline_stats or None,
-            "logdir": writer.logdir if writer is not None else None}
+            "logdir": writer.logdir if writer is not None else None,
+            "control": (session.controller.snapshot()
+                        if session.controller is not None else None)}
 
 
 if __name__ == "__main__":

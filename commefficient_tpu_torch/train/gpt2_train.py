@@ -58,6 +58,7 @@ from commefficient_tpu_torch.models import (
 from commefficient_tpu_torch.models.generate import generate
 from commefficient_tpu_torch.models.hf_gpt2 import load_hf_gpt2_params
 from commefficient_tpu_torch import native
+from commefficient_tpu_torch.control import controller_header
 from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
@@ -206,7 +207,8 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
     ``data_path``, ``pipeline_stats`` (the pipelined engine's ``stats()``
     at ``--pipeline_depth`` > 0, else None) and ``logdir`` (rank 0's run
     dir: ``metrics.jsonl``, and the telemetry artifacts of
-    ``--telemetry_level``, as cv_train). Under
+    ``--telemetry_level``, as cv_train) and ``control`` (the control
+    plane's controller ``snapshot()``, None without it). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank; rank 0
     alone evaluates and prints."""
     cfg = parse_args(argv, defaults=DEFAULTS, **overrides)
@@ -246,7 +248,8 @@ def _train(cfg: Config, eval_batch_size: int):
     hooks = _Gpt2Hooks(cfg, session, test, eval_batch_size, gcfg)
     p0 = session.full_params_vec().clone()
     pipeline_stats = {}
-    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg)
+    writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg,
+                            extra_header=controller_header(session))
               if session.group.rank == 0 else None)
     try:
         val, history, ckpt = run_train_loop(
@@ -271,7 +274,9 @@ def _train(cfg: Config, eval_batch_size: int):
             "checkpoint": ckpt, "final_step": session.state.step,
             "data_path": session.data_path,
             "pipeline_stats": pipeline_stats or None,
-            "logdir": writer.logdir if writer is not None else None}
+            "logdir": writer.logdir if writer is not None else None,
+            "control": (session.controller.snapshot()
+                        if session.controller is not None else None)}
 
 
 if __name__ == "__main__":

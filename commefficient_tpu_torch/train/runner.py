@@ -50,8 +50,18 @@ here the wait on the prefetch queue (``data_load``, depth 0), the drains
 saves (``checkpoint``); the first dispatched round is audited into
 ``perf_report.json``. On every exit, crashes included, the spans are
 detached and dumped (``spans_<step>.json``), then ``run_report.json`` is
-written (``cfg.run_report``), then the ledger. The reference's resilience
-and control plane are not ported (``Config`` refuses their flags).
+written (``cfg.run_report``), then the ledger.
+
+The control plane (``control/``, ``cfg.control_enabled``): the
+``BudgetController`` is built before the telemetry riders (the ledger
+bills per rung, the flight recorder carries its block) and before any
+restore (the checkpoint's blob restores into it), prewarmed (every rung's
+kernel plans built) and described; every drain feeds it the drained
+rounds. A ``BudgetExhaustedError`` raised before a round's dispatch takes
+the crash path: the epoch's rounds dispatched so far are drained first
+(the ledger and the ring see them), the ring is dumped, and the error is
+raised. The reference's resilience layer is not ported (``Config``
+refuses its flags).
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ import time
 from contextlib import closing, nullcontext
 from functools import partial
 
+from commefficient_tpu_torch.control import build_controller
 from commefficient_tpu_torch.data.sampler import prefetch
 from commefficient_tpu_torch.parallel.api import microbatched
 from commefficient_tpu_torch.telemetry import (
@@ -216,6 +227,15 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     lr_fn = partial(piecewise_linear_lr, steps_per_epoch=steps_per_epoch,
                     pivot_epoch=cfg.pivot_epoch, num_epochs=cfg.num_epochs,
                     lr_scale=cfg.lr_scale)
+    # the control plane's controller (None without it), over the run's
+    # length (max_rounds stops a run early; it does not shorten the
+    # schedule a resumed run goes on with): before the riders and any
+    # restore
+    controller = build_controller(cfg, session, num_rounds=num_rounds)
+    if controller is not None:
+        controller.prewarm()
+        if main:
+            print(controller.describe())
     ledger, flight = build_telemetry_riders(cfg, session, writer)
     if flight is None and cfg.telemetry_level >= 1:
         # every rank drains the same scalars, so every rank stops at the
@@ -293,7 +313,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 tid = round_trace_id(_pending[-1][0]) if _pending else None
                 with span("metric_drain", trace_id=tid):
                     drain_round_metrics(_pending, writer, accumulate,
-                                        ledger=ledger, flight=flight)
+                                        ledger=ledger, flight=flight,
+                                        controller=controller)
 
             live_drain = drain
 

@@ -28,10 +28,20 @@ takes part in a save then), and each rank restores its own slice of it
 (``set_full_state``), so resume stays bit-exact and the file does not
 depend on the group's layout beyond the padding.
 
-Not ported: the hosted client stores, the control/ blob and the
-resilience blacklist (ROADMAP A11; ``Config`` refuses their flags), and
-the reference's migration of checkpoints older than its ``comp`` leaf
-(the port has no older format).
+A session of the control plane saves its controller's ``state_blob()``
+(``control``, the reference's float64 layout) beside the state, in the
+ACTIVE rung's layout: restore reads the saved rung from that blob, checks
+the leaves and the sketch layout against THAT rung's spec, installs them,
+switches the dispatch to the rung without a migration and loads the blob,
+so the resumed run goes on with the unbroken run's rung sequence. A
+checkpoint with a blob is refused by a session without a controller; one
+without a blob restores into a controlled session with a warning (the
+controller starts fresh), as the reference does.
+
+Not ported: the hosted client stores and the resilience blacklist
+(ROADMAP A11; ``Config`` refuses their flags), and the reference's
+migration of checkpoints older than its ``comp`` leaf (the port has no
+older format).
 """
 
 from __future__ import annotations
@@ -138,6 +148,11 @@ class FedCheckpointer:
                 "fed_state": {f: _to_host(getattr(st, f)) for f in _LEAVES}}
         if session.spec is not None:
             blob["sketch_layout"] = spec_fingerprint(session.spec)
+        if session.controller is not None:
+            # drains happen before saves, so the blob reflects every
+            # drained round up to this step
+            blob["control"] = torch.from_numpy(
+                session.controller.state_blob())
         os.makedirs(os.path.join(self.root, "manifests"), exist_ok=True)
         path = self.path(round_idx)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -232,8 +247,27 @@ class FedCheckpointer:
         except Exception as e:  # noqa: BLE001 - any unreadable file
             raise ValueError(f"unreadable checkpoint ({type(e).__name__}: "
                              f"{e})") from e
-        if session.spec is not None and "sketch_layout" in blob:
-            want = spec_fingerprint(session.spec)
+        controller = session.controller
+        if "control" in blob and controller is None:
+            raise ValueError(
+                "checkpoint carries adaptive-control state ('control' "
+                "blob) but this session was built without a controller — "
+                "restore with the same control_policy/ladder the run was "
+                "saved under")
+        # the template is the SAVED rung's layout: its spec and leaves
+        spec, rung, template = session.spec, None, {}
+        if "control" in blob:
+            rung = int(blob["control"][1])
+            if not 0 <= rung < len(session.rungs):
+                raise ValueError(
+                    f"controller checkpoint names rung {rung}, but this "
+                    f"session's ladder has {len(session.rungs)} rung(s) — "
+                    "restore with the ladder the checkpoint was written "
+                    "under")
+            spec = session.rungs[rung].spec
+            template = session.rung_state_template(rung)
+        if spec is not None and "sketch_layout" in blob:
+            want = spec_fingerprint(spec)
             got = [int(x) for x in blob["sketch_layout"]]
             if want != got:
                 raise ValueError(
@@ -251,7 +285,13 @@ class FedCheckpointer:
         fs = blob["fed_state"]
         leaves = {}
         for f in _LEAVES:
-            have, saved = getattr(session.state, f), fs[f]
+            saved = fs[f]
+            if f in template:  # (full shape, dtype) at the saved rung
+                have = template[f]
+            else:
+                have = getattr(session.state, f)
+                if torch.is_tensor(have):
+                    have = (session.full_shape(f), have.dtype)
             if (have is None) != (saved is None):
                 raise ValueError(
                     f"checkpoint leaf {f!r} is "
@@ -259,14 +299,29 @@ class FedCheckpointer:
                     "session's is not: restore with the mode and settings "
                     "the run was saved under")
             if torch.is_tensor(saved):
-                shape = session.full_shape(f)
-                if tuple(saved.shape) != shape or saved.dtype != have.dtype:
+                shape, dtype = have
+                if tuple(saved.shape) != shape or saved.dtype != dtype:
                     raise ValueError(
                         f"checkpoint leaf {f!r} is {tuple(saved.shape)} "
-                        f"{saved.dtype}, this session's {shape} "
-                        f"{have.dtype}")
+                        f"{saved.dtype}, this session's {shape} {dtype}")
                 saved = saved.to(session.device)
             leaves[f] = saved
+        if rung is not None:
+            # the dispatch on the saved rung: the leaves are in its
+            # layout, so nothing migrates
+            session.set_active_rung(rung, migrate=False)
         session.set_full_state(FedState(**leaves))
+        if controller is not None:
+            if "control" in blob:
+                # the saved rung again (a no-op) and the policy's state:
+                # the resumed rung sequence is the unbroken run's
+                controller.load_state_blob(blob["control"].numpy())
+            else:
+                warnings.warn(
+                    f"checkpoint at step {step} predates the adaptive-"
+                    "communication controller; restored everything else — "
+                    "the controller starts fresh (initial rung, zero byte "
+                    "spend), so the resumed rung sequence is NOT the "
+                    "uninterrupted run's", stacklevel=3)
         self.last_restore_ms = 1e3 * (time.perf_counter() - t0)
         return int(leaves["step"])

@@ -9,6 +9,13 @@ nothing runs quietly with a setting ignored. ``perf_audit`` and
 ``run_report`` (on by default, as in the reference) write
 ``perf_report.json`` and ``run_report.json`` at ``telemetry_level >= 1``;
 ``profile_rounds`` ("A-B") traces those rounds with ``torch.profiler``.
+The control plane's flags (``control_policy`` none|fixed|budget_pacing|
+ef_feedback, ``ladder``, ``budget_mb``, ``control_schedule``,
+``control_ef_up``, ``control_ef_down``, ``control_fidelity_max``,
+``control_hysteresis``) are checked as the reference checks them
+(``_validate_control``; ``control_enabled`` gates the build); the
+``staleness_aware`` policy and its ``control_staleness_*`` /
+``control_fill_*`` knobs are refused, naming asyncfed/.
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -32,10 +39,13 @@ CLIENT_STORES = ("device", "host", "mmap")
 # pinned equal by tests/test_torch_fedsim.py
 AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
 
+# the staleness_aware policy's knobs wait for the engine whose scalars it
+# reads (control/policy.py refuses the policy itself with the same words)
+_ASYNC_CONTROL = ("the staleness_aware control policy, which reads the "
+                  "async/* scalars of asyncfed/, the buffered-async engine "
+                  "(ROADMAP A11)")
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "control_policy": "the control/ compression ladder (ROADMAP A11)",
-    "ladder": "the control/ compression ladder (ROADMAP A11)",
     "recover_policy": "resilience/ rollback (ROADMAP A11)",
     "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
     "client_store_path": "the hosted client stores (ROADMAP A11)",
@@ -53,16 +63,10 @@ _UNPORTED = {
     "async_concurrency": "asyncfed/ (ROADMAP A11)",
     "staleness_exponent": "asyncfed/ (ROADMAP A11)",
     "async_double_buffer": "asyncfed/ (ROADMAP A11)",
-    "budget_mb": "the control/ compression ladder (ROADMAP A11)",
-    "control_schedule": "the control/ compression ladder (ROADMAP A11)",
-    "control_ef_up": "the control/ compression ladder (ROADMAP A11)",
-    "control_ef_down": "the control/ compression ladder (ROADMAP A11)",
-    "control_fidelity_max": "the control/ compression ladder (ROADMAP A11)",
-    "control_hysteresis": "the control/ compression ladder (ROADMAP A11)",
-    "control_staleness_hi": "the control/ compression ladder (ROADMAP A11)",
-    "control_staleness_lo": "the control/ compression ladder (ROADMAP A11)",
-    "control_fill_hi": "the control/ compression ladder (ROADMAP A11)",
-    "control_fill_lo": "the control/ compression ladder (ROADMAP A11)",
+    "control_staleness_hi": _ASYNC_CONTROL,
+    "control_staleness_lo": _ASYNC_CONTROL,
+    "control_fill_hi": _ASYNC_CONTROL,
+    "control_fill_lo": _ASYNC_CONTROL,
     "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
     "max_recoveries": "resilience/ rollback (ROADMAP A11)",
     "preempt_signals": "resilience/ preemption (ROADMAP A11)",
@@ -256,9 +260,30 @@ class Config:
     # torch.profiler into profile_dir or <run dir>/profile_rounds
     profile_rounds: str = ""
 
-    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
+    # --- the control plane (control/): a compression ladder and the
+    # policy that walks it ---
+    # none | fixed (control_schedule) | budget_pacing (spend budget_mb
+    # evenly over the remaining rounds) | ef_feedback (the EF residual's
+    # slope and the level-2 fidelity, with hysteresis); staleness_aware
+    # is the reference's too and is refused (asyncfed/)
     control_policy: str = "none"
+    # ";"-separated "field=v1,v2,..." (control/ladder.py): k, num_cols,
+    # powersgd_rank, one value per rung, most expensive first
     ladder: str = ""
+    # a hard cap on the ledger's cumulative bytes, in MB of 1e6 B (0: none)
+    budget_mb: float = 0.0
+    # fixed: "A-B=rung" round ranges, e.g. "0-99=2,100-=0"
+    control_schedule: str = ""
+    # ef_feedback: slope > control_ef_up climbs one rung toward more bytes,
+    # slope < control_ef_down steps one rung cheaper; a level-2
+    # *_rel_err above control_fidelity_max (> 0) climbs too
+    control_ef_up: float = 0.15
+    control_ef_down: float = 0.0
+    control_fidelity_max: float = 0.0
+    # rounds between two ef_feedback switches
+    control_hysteresis: int = 8
+
+    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     recover_policy: str = "none"
     client_store_cache_rows: int = 0
     client_store_path: str = ""
@@ -274,12 +299,6 @@ class Config:
     async_concurrency: int = 1
     staleness_exponent: float = 0.0
     async_double_buffer: bool = False
-    budget_mb: float = 0.0
-    control_schedule: str = ""
-    control_ef_up: float = 0.15
-    control_ef_down: float = 0.0
-    control_fidelity_max: float = 0.0
-    control_hysteresis: int = 8
     control_staleness_hi: float = 2.0
     control_staleness_lo: float = 0.5
     control_fill_hi: float = 1.0
@@ -310,6 +329,7 @@ class Config:
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"{blocker}; leave it at {default!r}"
                 )
+        self._validate_control()
         from commefficient_tpu_torch.telemetry import TELEMETRY_LEVELS
 
         if self.telemetry_level not in TELEMETRY_LEVELS:
@@ -564,10 +584,17 @@ class Config:
                 f"{self.overlap_collectives!r}")
 
     def _validate_pipeline(self) -> None:
-        """The reference's pipeline_depth checks. They run before the
-        refusals of unported knobs, so depth with scan_rounds or fleet
-        events (both still refused, naming A11) gives the reference's
-        message."""
+        """The reference's pipeline_depth checks and its exclusion of
+        scan_rounds with the control plane. They run before the refusals
+        of unported knobs, so depth or the control plane with scan_rounds,
+        or depth with fleet events (both still refused, naming A11), gives
+        the reference's message."""
+        if self.scan_rounds > 1 and self.control_enabled:
+            raise ValueError(
+                "scan_rounds > 1 is mutually exclusive with the control "
+                "plane: the controller decides immediately-pre-dispatch "
+                "per ROUND, and a scanned block admits no host decision "
+                "between its rounds — run one or the other")
         if self.pipeline_depth < 0:
             raise ValueError(
                 f"pipeline_depth must be >= 0 (0 = synchronous), got "
@@ -642,6 +669,110 @@ class Config:
                 "and fedsim masking is inherently per-client (it forces "
                 "the per-client path) — run one or the other")
 
+    def _validate_control(self) -> None:
+        """The reference's checks of the control plane's flags. The rungs'
+        cost order needs the realized compressor geometry and is checked
+        at session build, the schedule's rounds against the run length by
+        the controller."""
+        from commefficient_tpu_torch.control.policy import (
+            ASYNC_BLOCKER,
+            ASYNC_ONLY,
+            CONTROL_POLICIES,
+            parse_schedule,
+        )
+
+        if self.control_policy not in CONTROL_POLICIES:
+            raise ValueError(
+                f"control_policy must be one of {CONTROL_POLICIES}, got "
+                f"{self.control_policy!r}")
+        if self.control_policy == ASYNC_ONLY:
+            raise ValueError(f"control_policy={ASYNC_ONLY!r} is not ported "
+                             f"yet: {ASYNC_BLOCKER}")
+        rungs = ()
+        if self.ladder:
+            from commefficient_tpu_torch.control.ladder import (
+                LADDER_FIELDS,
+                parse_ladder,
+            )
+
+            rungs = parse_ladder(self.ladder)  # the grammar on a bad one
+            if self.control_policy == "none":
+                raise ValueError(
+                    "a ladder without a controller would silently never "
+                    "switch — set control_policy (fixed | budget_pacing | "
+                    "ef_feedback), or drop --ladder")
+            if self.mode != "powersgd" and any("powersgd_rank" in r
+                                               for r in rungs):
+                raise ValueError(
+                    f"ladder field powersgd_rank has no effect with "
+                    f"mode={self.mode!r} — the rung switch would be a "
+                    "silent no-op; ladder fields must act on the active "
+                    f"mode ({LADDER_FIELDS} minus the inert ones)")
+            if self.mode != "sketch" and any("num_cols" in r for r in rungs):
+                raise ValueError(
+                    f"ladder field num_cols has no effect with "
+                    f"mode={self.mode!r} (no sketch table) — the rung "
+                    "switch would be a silent no-op")
+            if (self.mode in ("uncompressed", "fedavg")
+                    and not self.do_topk_down
+                    and any("k" in r for r in rungs)):
+                # with do_topk_down, k sizes the downlink's top-k: a k
+                # ladder is then a real downlink-budget ladder
+                raise ValueError(
+                    f"ladder field k has no effect with mode={self.mode!r} "
+                    "(dense transmit, no top-k extraction) — the rung "
+                    "switch would be a silent no-op")
+        if self.control_policy == "ef_feedback":
+            if len(rungs) < 2:
+                raise ValueError(
+                    "control_policy='ef_feedback' needs a ladder with >= 2 "
+                    "rungs to move between — pass --ladder (e.g. "
+                    '"k=60000,30000,10000")')
+            if self.telemetry_level < 1:
+                raise ValueError(
+                    "control_policy='ef_feedback' consumes the drained "
+                    "diag/ef_residual_norm telemetry — set "
+                    "--telemetry_level >= 1 (>= 2 if control_fidelity_max "
+                    "is used)")
+            if not self.control_ef_up > self.control_ef_down:
+                raise ValueError(
+                    f"control_ef_up ({self.control_ef_up}) must exceed "
+                    f"control_ef_down ({self.control_ef_down}): the dead "
+                    "band between them is what stops threshold flapping")
+        if self.control_policy == "fixed":
+            sched = parse_schedule(self.control_schedule)
+            if not sched:
+                raise ValueError(
+                    "control_policy='fixed' needs --control_schedule "
+                    '(e.g. "0-99=2,100-=0")')
+            n_rungs = max(len(rungs), 1)
+            for start, end, rung in sched:
+                if rung >= n_rungs:
+                    raise ValueError(
+                        f"control_schedule names rung {rung}, but the "
+                        f"ladder has {n_rungs} rung(s) (indices 0.."
+                        f"{n_rungs - 1})")
+        elif self.control_schedule:
+            raise ValueError(
+                "control_schedule only drives control_policy='fixed'; "
+                f"with {self.control_policy!r} it would be silently ignored")
+        if self.budget_mb < 0:
+            raise ValueError(f"budget_mb must be >= 0, got {self.budget_mb}")
+        if self.control_policy == "budget_pacing" and not self.budget_mb > 0:
+            raise ValueError(
+                "control_policy='budget_pacing' paces against --budget_mb; "
+                "set it > 0")
+        if self.budget_mb > 0 and self.control_policy == "none":
+            raise ValueError(
+                "budget_mb is enforced by the control plane; with "
+                "control_policy='none' nothing would watch it — use "
+                "control_policy='budget_pacing' (a ladder is optional: "
+                "without one the budget is a pure hard cap)")
+        if self.control_hysteresis < 1:
+            raise ValueError(
+                f"control_hysteresis must be >= 1 round, got "
+                f"{self.control_hysteresis}")
+
     def _validate_checkpoint(self) -> None:
         if self.checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0 (0 = off), got "
@@ -659,6 +790,13 @@ class Config:
         gate): the round then masks its clients by the fedsim
         environment."""
         return self.availability != "always" or bool(self.chaos)
+
+    @property
+    def control_enabled(self) -> bool:
+        """True when the control plane is built (a session of the ladder's
+        rungs and a controller); False keeps the session one rung over
+        this config, building what it built before."""
+        return self.control_policy != "none"
 
     @property
     def pipeline_enabled(self) -> bool:

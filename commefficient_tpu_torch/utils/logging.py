@@ -178,14 +178,16 @@ def pack_metric_dicts(dicts):
 
 
 def drain_round_metrics(pending, writer, accumulate, ledger=None,
-                        flight=None) -> None:
+                        flight=None, controller=None) -> None:
     """Read back the buffered rounds ``pending`` (a list of ``(step, lr,
     metrics)`` in step order) in one packed copy and clear it.
 
     For each round, in step order: the writer gets ``train/loss``, ``lr``
     and every namespaced key (a key holding ``/``: ``diag/*``,
     ``fedsim/*``), then the ledger's ``comm/*``; ``accumulate(loss,
-    metrics)`` gets the host values; the flight recorder records the round
+    metrics)`` gets the host values; the control plane's ``controller``
+    (``observe_drained(step, metrics)``) feeds the round to its policy, the
+    ``ef_feedback`` loop's input; the flight recorder records the round
     and checks it, raising ``DivergenceError`` at the first bad round. The
     buffer is cleared and the writer flushed even then, so the bad rounds'
     scalars are on disk for the post-mortem."""
@@ -207,6 +209,8 @@ def drain_round_metrics(pending, writer, accumulate, ledger=None,
                 for k, v in comm.items():
                     writer.scalar(k, v, s)
             accumulate(loss, metrics)
+            if controller is not None:
+                controller.observe_drained(s, metrics)
             if flight is not None:
                 flight.record(s, s_lr, {**metrics, **comm})
                 flight.check(s, loss, metrics)  # may raise DivergenceError

@@ -28,7 +28,10 @@ through ``run_train_loop`` at telemetry level 1 on the input's
 ``trace/x`` / ``trace/y`` dataset, rank 0 writing the run dir
 (``trace:<name>/run_dir``) and each round's ``xla/exposed_collective_ms``
 as the round returned it (``trace:<name>/exposed``), every rank its params
-(``trace:<name>/params``).
+(``trace:<name>/params``); ``control``, cases of the control plane run as
+``cases`` with a controller over the input's rounds, written as
+``ctl:<name>`` with each round's ``control/rung`` (``ctl:<name>/rungs``)
+and the controller's checkpoint blob (``ctl:<name>/blob``).
 """
 
 import json
@@ -106,6 +109,27 @@ def run_cases(job, npz, out):
         sess = _session(kw, npz)
         losses = _rounds(sess, npz, job["lr"], range(npz["x"].shape[0]))
         _write_state(out, name, sess, losses)
+
+
+def run_control(job, npz, out):
+    from commefficient_tpu_torch.control import build_controller
+    from commefficient_tpu_torch.parallel.api import microbatched
+
+    for name, kw in job.get("control", {}).items():
+        sess = _session(kw, npz)
+        n = npz["x"].shape[0]
+        ctrl = build_controller(sess.cfg, sess, n)
+        assert ctrl.prewarm() == len(sess.rungs)
+        losses, rungs = [], []
+        for r in range(n):
+            batch = microbatched(sess.cfg, {"x": npz["x"][r],
+                                            "y": npz["y"][r]})
+            m = sess.train_round(npz["ids"][r], batch, job["lr"])
+            losses.append(float(m["loss"]))
+            rungs.append(float(m["control/rung"]))
+        _write_state(out, f"ctl:{name}", sess, losses)
+        out[f"ctl:{name}/rungs"] = np.asarray(rungs)
+        out[f"ctl:{name}/blob"] = ctrl.state_blob()
 
 
 def run_telemetry(job, npz, out):
@@ -278,6 +302,7 @@ def main(argv):
         group = DistributedWorkers()
         run_cases(job, npz, out)
         run_telemetry(job, npz, out)
+        run_control(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))
         run_trace(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)

@@ -49,6 +49,10 @@ def _imported_modules(tree: ast.AST):
 def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for must in ("chip_smoke.py", "commefficient_tpu_torch/__init__.py",
+                 "commefficient_tpu_torch/control/__init__.py",
+                 "commefficient_tpu_torch/control/controller.py",
+                 "commefficient_tpu_torch/control/ladder.py",
+                 "commefficient_tpu_torch/control/policy.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
                  "commefficient_tpu_torch/train/cv_train.py",
                  "commefficient_tpu_torch/train/gpt2_train.py",

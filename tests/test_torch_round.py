@@ -124,7 +124,7 @@ def test_schedule_matches_reference():
     ("max_retraces", "2", "A11"),
     ("chaos", "resize@2", "A11"),
     ("async_buffer", "2", "A11"),
-    ("ladder", "k=10,5", "A11"),
+    ("control_staleness_hi", "3.0", "A11"),
 ])
 def test_config_refuses_what_the_port_does_not_run(flag, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
@@ -132,8 +132,10 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
                     "--num_clients", "4"])
 
 
-# the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a and A12b lifted
-# from the refusals
+# the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a, A12b and A11's
+# control/ lifted from the refusals
+_EF = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
+       "ef_feedback", "--ladder", "k=10,5"]
 LIFTED = {
     "topk_method": ["--topk_method", "approx"],
     "num_blocks": ["--num_blocks", "2"],
@@ -167,6 +169,18 @@ LIFTED = {
     "perf_audit": ["--perf_audit", "false"],
     "run_report": ["--run_report", "false"],
     "profile_rounds": ["--profile_rounds", "3-4"],
+    "control_policy": ["--mode", "true_topk", "--control_policy",
+                       "budget_pacing", "--budget_mb", "1.0"],
+    "budget_mb": ["--mode", "true_topk", "--control_policy", "fixed",
+                  "--control_schedule", "0-=0", "--budget_mb", "2.5"],
+    "ladder": ["--mode", "true_topk", "--control_policy", "fixed",
+               "--control_schedule", "0-=1", "--ladder", "k=10,5"],
+    "control_schedule": ["--mode", "true_topk", "--control_policy", "fixed",
+                         "--control_schedule", "0-=0"],
+    "control_ef_up": _EF + ["--control_ef_up", "0.3"],
+    "control_ef_down": _EF + ["--control_ef_down", "-0.1"],
+    "control_fidelity_max": _EF + ["--control_fidelity_max", "0.5"],
+    "control_hysteresis": _EF + ["--control_hysteresis", "4"],
 }
 
 
@@ -222,7 +236,7 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 30
+    assert len(_UNPORTED) == 22
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 

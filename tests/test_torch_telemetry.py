@@ -527,5 +527,18 @@ def test_comm_ledger_snapshot_round_trip():
     assert led.snapshot_state() == snap == {
         "rounds": 1, "cum_up_bytes": 60, "cum_down_bytes": 360,
         "live_client_rounds": 3, "avail_client_rounds": 3}
-    with pytest.raises(NotImplementedError, match="A11"):
-        CommLedger({}, mode="sketch", num_workers=1, rungs=[])
+    # a ladder's ledger: per-rung counters ride the snapshot, and a
+    # snapshot of another ladder is refused, as the reference's is
+    bpr1 = {"upload_floats": 5, "download_floats": 30, "upload_bytes": 10,
+            "download_bytes": 120}
+    led = CommLedger(bpr1, mode="sketch", num_workers=4,
+                     rungs=[(bpr1, Comp()), ({**bpr1, "upload_bytes": 4},
+                                             Comp())])
+    led.on_round(0, {"control/rung": 1.0})
+    snap = led.snapshot_state()
+    led.on_round(1, {"control/rung": 0.0})
+    led.load_snapshot_state(snap)
+    assert led.snapshot_state() == snap and snap["cum_up_bytes"] == 4
+    assert [r["rounds"] for r in snap["rungs"]] == [0, 1]
+    with pytest.raises(ValueError, match="rung count"):
+        led.load_snapshot_state({**snap, "rungs": snap["rungs"][:1]})
