@@ -232,7 +232,24 @@ phase prints one line (or a few) and raises on failure, so the script exits
     and every leaf bit-equal); ``budget_pacing`` stopping with
     ``BudgetExhaustedError`` at round 5 (the ledger, the flight dump's
     controller block); ``ef_feedback`` (finite, launches by its
-    switches).
+    switches);
+25. ``resilience`` (self-healing, ``resilience/``): the main path at level
+    1 with bernoulli participation at 0.25 for 8 rounds on deterministic
+    cuDNN: a ``nan_client@1:rounds=5-5`` run under ``--recover_policy
+    retry --snapshot_every 4`` bit-equal to its chaos-free twin (every
+    leaf and every deduped ``train/loss``, ``diag/*``, ``fedsim/*`` and
+    ``comm/*`` scalar), one rollback to round 4, the flight dumps, and K1,
+    K2 and K3 at the twin's launches plus the 4 replayed rounds'; the same
+    at ``--pipeline_depth 2`` (one restart); ``demote`` on the control
+    phase's ladder, ending on rung 1 with its migration held against its
+    plain version and no plan built from the recovery on;
+    ``skip_clients`` with the ledger's live-byte invariant; ``preempt@4``
+    exiting 75 with a forced checkpoint, resumed bit-equal, and a
+    ``cv_train`` subprocess exiting 75; C.1: a 10-rung ``num_cols``
+    ladder prewarmed (no launch), a switch to each rung with no plan
+    built, and a fresh process's first switch (``chip_smoke.py
+    --fresh-switch``) within 2x of its steady switches; the snapshot's
+    capture ms and bytes, the restore's and the recovery's ms.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -3626,6 +3643,439 @@ def _control_phase(torch, cs, kern, cv_train, dataset_dir, work):
     return add_forms(*forms)
 
 
+RES_ROUNDS = 8  # rounds of each resilience-phase run
+RES_BASE = ["--telemetry_level", "1", "--availability", "bernoulli",
+            "--dropout_prob", "0.25"]
+RES_NAN = ["--chaos", "nan_client@1:rounds=5-5", "--snapshot_every", "4"]
+RES_ROLLBACK = 4  # the round-8 drain finds round 5; the round-4 snapshot
+RES_REPLAYED = RES_ROUNDS - RES_ROLLBACK  # rounds 4-7 run twice
+RES_LADDER = CTL_LADDER
+RES_PREEMPT_AT = 4  # preempt@4: rounds 0-4 run, a checkpoint at 5
+# C.1's ladder: ten num_cols rungs from 500,000 down to 250,000
+C1_COLS = [500_000 - i * 250_000 // 9 for i in range(10)]
+RES_COMPARED = ("train/loss", "diag/", "fedsim/", "comm/")
+
+
+class ResilienceProbe:
+    """Inside ``with ResilienceProbe(torch, kern):`` each vault capture
+    records its ms and bytes, each restore its ms (the device drained
+    after it), and each recovery the plan builds and the time at its
+    start, at its return and at the next round's dispatch (re-entry). The
+    probe adds no kernel launch."""
+
+    def __init__(self, torch, kern):
+        from commefficient_tpu_torch.parallel import FederatedSession
+        from commefficient_tpu_torch.resilience import (
+            RecoveryManager,
+            RollbackVault,
+        )
+
+        self.torch, self.kern = torch, kern
+        self.targets = ((RollbackVault, "snapshot"),
+                        (RollbackVault, "restore"),
+                        (RecoveryManager, "on_divergence"),
+                        (FederatedSession, "_round"))
+        self.snapshots, self.restores, self.recoveries = [], [], []
+
+    def __enter__(self):
+        torch, kern, probe = self.torch, self.kern, self
+        self.saved = [getattr(c, n) for c, n in self.targets]
+        snapshot, restore, on_divergence, round_ = self.saved
+
+        def snap(vault, *a, **k):
+            t0 = time.perf_counter()
+            out = snapshot(vault, *a, **k)
+            probe.snapshots.append(((time.perf_counter() - t0) * 1e3,
+                                    out.nbytes))
+            return out
+
+        def rest(vault, *a, **k):
+            t0 = time.perf_counter()
+            out = restore(vault, *a, **k)
+            torch.cuda.synchronize()
+            probe.restores.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def recover(manager, exc):
+            rec = dict(t0=time.perf_counter(), builds0=kern.plan_builds(),
+                       first_bad=exc.step)
+            probe.recoveries.append(rec)
+            out = on_divergence(manager, exc)
+            torch.cuda.synchronize()
+            rec.update(t1=time.perf_counter(), builds1=kern.plan_builds(),
+                       rollback=out)
+            return out
+
+        def dispatch(sess, *a, **k):
+            rec = probe.recoveries[-1] if probe.recoveries else None
+            if rec is not None and "t1" in rec and "reentry" not in rec:
+                rec["reentry"] = time.perf_counter()
+            return round_(sess, *a, **k)
+
+        for (cls, name), fn in zip(self.targets,
+                                   (snap, rest, recover, dispatch)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+    def recovery_ms(self):
+        """Each recovery's ms from the caught error to the dispatch of
+        the first replayed round."""
+        return [(r["reentry"] - r["t0"]) * 1e3 for r in self.recoveries
+                if "reentry" in r]
+
+
+def deduped(logdir, prefixes=RES_COMPARED):
+    """``{(name, step): value}`` of a run dir's scalars under ``prefixes``,
+    the last record of a (name, step) kept: a replayed round is logged
+    twice, and the healed value is the one that stands."""
+    return {(name, step): v for name, steps in read_metrics(logdir).items()
+            if name.startswith(prefixes) for step, v in steps.items()}
+
+
+def last_scalar(logdir, name):
+    steps = read_metrics(logdir).get(name, {})
+    return steps[max(steps)] if steps else None
+
+
+def switch_probe(torch, kern, cv_train, dataset_dir, cols, order,
+                 rounds=2):
+    """A full-width main-path session on a ``num_cols`` ladder of
+    ``cols``, prewarmed by its controller, trained ``rounds`` rounds at
+    rung 0, then switched through ``order`` (``set_active_rung``, each
+    table decoded by K2 and re-sketched by K1): the prewarm's ms and
+    launches, each switch's host ms (the device drained before and
+    after), and the plan builds over the switches."""
+    from commefficient_tpu_torch.control import build_controller
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(MAIN_ARGS + [
+        "--telemetry_level", "1", "--control_policy", "fixed",
+        "--control_schedule", "0-=0", "--dataset_dir", dataset_dir,
+        "--ladder", "num_cols=" + ",".join(str(c) for c in cols)])
+    train, _, _, params, loss_fn, augment = cv_train.build_model_and_data(cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the envelope, rung by rung
+        sess = FederatedSession(cfg, params, loss_fn)
+    ctrl = build_controller(cfg, sess, num_rounds=rounds)
+    kern.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctrl.prewarm()
+    torch.cuda.synchronize()
+    prewarm_ms = (time.perf_counter() - t0) * 1e3
+    prewarm_launches = sum(kern.launch_counts().values())
+    sampler = FedSampler(train, num_workers=cfg.num_workers,
+                         local_batch_size=cfg.sampler_batch_size,
+                         seed=cfg.seed, augment=augment)
+    for s in range(rounds):
+        ids, batch = sampler.sample_round(s)
+        sess.train_round(ids, batch, 0.1)
+    torch.cuda.synchronize()
+    builds = kern.plan_builds()
+    kern.reset_launch_counts()
+    ms = []
+    for i in order:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.set_active_rung(i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(prewarm_ms=prewarm_ms, prewarm_launches=prewarm_launches,
+                switch_ms=ms, plan_builds=kern.plan_builds() - builds,
+                launches=kern.launch_counts(), rung=sess.active_rung)
+
+
+# the fresh process's switches: 0 -> 1, then three times 1 -> 0 -> 1
+FRESH_ORDER = [1, 0, 1, 0, 1, 0, 1]
+FRESH_COLS = [500_000, 250_000]
+
+
+def fresh_switch_main() -> int:
+    """``chip_smoke.py --fresh-switch``: ``switch_probe`` in this fresh
+    process over FRESH_COLS and FRESH_ORDER; prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch.ops.cuda import build
+    from commefficient_tpu_torch.ops.cuda import countsketch as kern
+    from commefficient_tpu_torch.train import cv_train
+
+    from commefficient_tpu_torch.data import FedDataset
+    from commefficient_tpu_torch.data.cifar import _synthetic_cifar
+
+    def small_cifar(dataset_dir, *, num_clients, iid=True, seed=42,
+                    synthetic_variant="flat"):
+        # the switches do not read the data: 2,048 stand-in images spare
+        # the process the draw of 50,000
+        train, test = _synthetic_cifar(10, n_train=2048, n_test=64)
+        return (FedDataset(train, num_clients, iid=iid, seed=seed),
+                FedDataset(test, 1, iid=True, seed=seed), False)
+
+    build.load_library()
+    cv_train.load_fed_cifar10 = small_cifar
+    out = switch_probe(torch, kern, cv_train, "", FRESH_COLS, FRESH_ORDER)
+    print(json.dumps(out))
+    return 0
+
+
+def resilience_phase(torch, cs, kern, cv_train, dataset_dir, work):
+    """Self-healing training (``resilience/``) on the card: the main path
+    at level 1 with ``--availability bernoulli --dropout_prob 0.25`` for
+    RES_ROUNDS rounds on deterministic cuDNN, each run through
+    ``cv_train.main`` with the counters set to 0 just before it and read
+    just after:
+
+    (a) the twin; (b) ``--chaos nan_client@1:rounds=5-5 --recover_policy
+    retry --snapshot_every 4``: every leaf and every deduped ``train/loss``,
+    ``diag/*``, ``fedsim/*`` and ``comm/*`` scalar bit-equal to (a), one
+    recovery rolled back to round 4, ``flight_5.json`` and
+    ``flight_5_recovery.json``, K1, K2 and K3 at (a)'s launches plus the
+    RES_REPLAYED replayed rounds'; (c) (b) at ``--pipeline_depth 2``: the
+    leaves bit-equal to (a), one restart; (d) ``demote`` on the ladder
+    RES_LADDER held on rung 0: the run ends on rung 1 with one demotion,
+    the demotion's migration held against its plain version, no plan
+    built from the recovery on; (e) ``skip_clients``: the suspect
+    blacklisted, the ledger's live-byte invariant; (f) ``preempt@4`` with
+    checkpoints every 2 rounds: ``SystemExit(75)`` from a saved
+    ``PreemptShutdown`` at round 5, the resumed run's leaves bit-equal to
+    (a), and one ``cv_train`` subprocess exiting 75; (g) C.1: a 10-rung
+    ``num_cols`` ladder prewarmed, a switch to every rung with no plan
+    built, and in a fresh process the first switch within 2x of a steady
+    one. Prints the snapshot's capture ms and bytes, the restore's ms and
+    the recovery's ms (medians). Returns the summed launch forms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _resilience_phase(torch, cs, kern, cv_train, dataset_dir,
+                                 work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _resilience_phase(torch, cs, kern, cv_train, dataset_dir, work):
+    from commefficient_tpu_torch.resilience import (
+        EXIT_PREEMPTED,
+        PreemptShutdown,
+    )
+
+    t0 = time.perf_counter()
+    base = MAIN_ARGS + RES_BASE
+    forms = []
+    probe = ResilienceProbe(torch, kern)
+
+    def run(name, args, depth_probe=False):
+        gc.collect()
+        t = time.perf_counter()
+        with ControlProbe(torch) as ctl, probe:
+            r = state_run(torch, kern, cv_train, dataset_dir, work, name,
+                          args + ["--logdir", os.path.join(work, name)],
+                          rounds=RES_ROUNDS)
+        forms.append(r["forms"])
+        r["wall_s"] = round(time.perf_counter() - t, 3)
+        r["migrations"] = ctl.migrations
+        return r
+
+    def launches(r):
+        return json.dumps({k: v for k, v in r["launches"].items() if v})
+
+    twin = run("res_twin", base)
+    a_log = twin["out"]["logdir"]
+    retry = run("res_retry", base + RES_NAN + ["--recover_policy", "retry"])
+    b_log = retry["out"]["logdir"]
+    same, err = state_diff(torch, retry["state"], twin["state"],
+                           GEOMETRY["d"])
+    sa, sb = deduped(a_log), deduped(b_log)
+    ln, ln0 = retry["launches"], twin["launches"]
+    files = sorted(f for f in os.listdir(b_log) if f.startswith("flight_"))
+    phase("resilience", run="retry", leaves_bit_equal=same,
+          scalars_bit_equal=sa == sb, scalars_compared=len(sa),
+          recoveries=last_scalar(b_log, "resilience/recoveries"),
+          rollback_round=last_scalar(b_log, "resilience/rollback_round"),
+          flight=json.dumps(files), launches=launches(retry),
+          twin_launches=launches(twin), wall_s=retry["wall_s"],
+          twin_wall_s=twin["wall_s"])
+    check(same, f"resilience retry: leaves differ from the twin by {err}")
+    check(sa == sb, "resilience retry: scalars differ from the twin at "
+          f"{sorted(k for k in sa if sa[k] != sb.get(k))[:5]}")
+    check(last_scalar(b_log, "resilience/recoveries") == 1.0
+          and last_scalar(b_log, "resilience/rollback_round")
+          == RES_ROLLBACK, "resilience retry: recoveries/rollback")
+    check({"flight_5.json", "flight_5_recovery.json"} <= set(files),
+          f"resilience retry: flight dumps {files}")
+    check(ln["sketch_rows"] == ln0["sketch_rows"] + 2 * RES_REPLAYED
+          and ln["estimate_median"] == ln0["estimate_median"] + RES_REPLAYED
+          and ln["median_rows"] == ln0["median_rows"] + 2 * RES_REPLAYED,
+          f"resilience retry: launches {ln} against the twin's {ln0}")
+
+    deep = run("res_retry_depth2", base + RES_NAN + [
+        "--recover_policy", "retry", "--pipeline_depth", "2"])
+    same, err = state_diff(torch, deep["state"], twin["state"],
+                           GEOMETRY["d"])
+    restarts = deep["out"]["pipeline_stats"]["restarts"]
+    phase("resilience", run="retry_depth2", leaves_bit_equal=same,
+          restarts=restarts, launches=launches(deep),
+          wall_s=deep["wall_s"])
+    check(same, f"resilience depth 2: leaves differ from the twin by {err}")
+    check(restarts == 1, f"resilience depth 2: {restarts} restarts")
+
+    n_rec = len(probe.recoveries)
+    demote = run("res_demote", base + RES_NAN + [
+        "--control_policy", "fixed", "--ladder", RES_LADDER,
+        "--control_schedule", "0-=0", "--recover_policy", "demote"])
+    d_log = demote["out"]["logdir"]
+    rungs = read_metrics(d_log)["control/rung"]
+    trail = [int(rungs[s]) for s in sorted(rungs)]
+    rec = probe.recoveries[n_rec]
+    builds_after = kern.plan_builds() - rec["builds0"]
+    holds = [hold_migration(torch, cs, kern, m)
+             for m in demote["migrations"]]
+    phase("resilience", run="demote", rung_trail=json.dumps(trail),
+          end_rung=demote["out"]["control"]["rung"],
+          rung_demotions=last_scalar(d_log, "resilience/rung_demotions"),
+          plan_builds_in_recovery=rec["builds1"] - rec["builds0"],
+          plan_builds_from_recovery_to_end=builds_after,
+          migration_k1_max_abs_err=json.dumps([h[0] for h in holds]),
+          migration_ms_in_run=json.dumps([round(h[1], 4) for h in holds]),
+          launches=launches(demote), wall_s=demote["wall_s"])
+    check(trail == [0] * RES_ROLLBACK + [1] * RES_REPLAYED
+          and demote["out"]["control"]["rung"] == 1,
+          f"resilience demote: rung trail {trail}")
+    check(last_scalar(d_log, "resilience/rung_demotions") == 1.0
+          and len(holds) == 1, "resilience demote: one demotion")
+    check(rec["builds1"] == rec["builds0"] and builds_after == 0,
+          f"resilience demote: {builds_after} plans built from the "
+          "recovery on")
+
+    skip = run("res_skip", base + RES_NAN + [
+        "--recover_policy", "skip_clients"])
+    e_log = skip["out"]["logdir"]
+    with open(os.path.join(e_log, "comm_ledger.json")) as f:
+        led = json.load(f)
+    rates = read_metrics(e_log)["fedsim/participation_rate"]
+    live = round(sum(rates.values()) * 8)
+    blacklisted = last_scalar(e_log, "resilience/blacklisted_clients")
+    phase("resilience", run="skip_clients", blacklisted=blacklisted,
+          live_client_rounds=led["live_client_rounds"], live_logged=live,
+          cum_up_bytes=led["cum_up_bytes"], launches=launches(skip),
+          wall_s=skip["wall_s"])
+    check(blacklisted >= 1 and last_scalar(
+        e_log, "resilience/recoveries") == 1.0,
+        f"resilience skip_clients: {blacklisted} blacklisted")
+    check(led["live_client_rounds"] == live and led["cum_up_bytes"]
+          == live * led["bytes_per_round"]["upload_bytes"],
+          f"resilience skip_clients: ledger {led}")
+
+    # (f) preemption: a forced save at round 5, then resumed to round 8;
+    # the cv_train process that must exit 75 runs beside (f) and (g)'s
+    # in-process runs, whose times no check reads
+    ck = os.path.join(work, "res_preempt")
+    t_sub = time.perf_counter()
+    sub_err = open(ck + "_sub.stderr", "w+")
+    sub = subprocess.Popen(
+        [sys.executable, "-m", "commefficient_tpu_torch.train.cv_train",
+         *MAIN_ARGS, "--chaos", "preempt@0", "--max_rounds", "2",
+         "--dataset_dir", dataset_dir, "--logdir", ck + "_sub",
+         "--checkpoint_dir", ck + "_sub_ck"],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=sub_err)
+    flags = base + ["--chaos", f"preempt@{RES_PREEMPT_AT}",
+                    "--dataset_dir", dataset_dir, "--checkpoint_dir", ck,
+                    "--checkpoint_every", "2", "--max_rounds",
+                    str(RES_ROUNDS)]
+    gc.collect()
+    kern.reset_launch_counts()
+    caught = None
+    try:
+        cv_train.main(flags + ["--logdir", ck + "_a"])
+    except SystemExit as e:
+        caught = e
+    cause = getattr(caught, "__cause__", None)
+    second = cv_train.main(flags + ["--resume", "true", "--logdir",
+                                    ck + "_b"])
+    forms.append(kern.form_counts())
+    same, err = state_diff(torch, load_state(os.path.join(
+        ck, f"step_{RES_ROUNDS}.pt")), twin["state"], GEOMETRY["d"])
+    phase("resilience", run="preempt",
+          exit_code=getattr(caught, "code", None),
+          saved=getattr(cause, "saved", None),
+          shutdown_step=getattr(cause, "step", None),
+          resumed_from=second["checkpoint"]["resumed_from"],
+          leaves_bit_equal=same)
+    check(caught is not None and caught.code == EXIT_PREEMPTED
+          and isinstance(cause, PreemptShutdown) and cause.saved
+          and cause.step == RES_PREEMPT_AT + 1,
+          f"resilience preempt: {caught!r} from {cause!r}")
+    check(second["checkpoint"]["resumed_from"] == RES_PREEMPT_AT + 1,
+          f"resilience preempt: resumed from {second['checkpoint']}")
+    check(same, f"resilience preempt: resumed leaves differ by {err}")
+
+    # (g) C.1: ten rungs prewarmed, a switch to each builds no plan
+    gc.collect()
+    ten = switch_probe(torch, kern, cv_train, dataset_dir, C1_COLS,
+                       [*range(1, 10), 0])
+    with sub_err:
+        try:
+            sub.wait(timeout=600)
+        finally:
+            sub.kill()  # a no-op once it has exited
+        sub_err.seek(0)
+        err_text = sub_err.read()
+    phase("resilience", run="preempt_subprocess", exit_code=sub.returncode,
+          wall_s=round(time.perf_counter() - t_sub, 3))
+    check(sub.returncode == EXIT_PREEMPTED,
+          f"resilience preempt: cv_train exited {sub.returncode}: "
+          f"{err_text[-2000:]}")
+    phase("resilience", run="c1_ten_rungs", cols=json.dumps(C1_COLS),
+          prewarm_ms=round(ten["prewarm_ms"], 3),
+          prewarm_launches=ten["prewarm_launches"],
+          plan_builds=ten["plan_builds"],
+          switch_ms=json.dumps([round(m, 3) for m in ten["switch_ms"]]),
+          launches=json.dumps({k: v for k, v in ten["launches"].items()
+                               if v}))
+    check(ten["prewarm_launches"] == 0 and ten["plan_builds"] == 0
+          and ten["rung"] == 0, f"resilience C.1: {ten}")
+    check(ten["launches"]["sketch_rows"] == ten["launches"][
+        "estimate_median"] == 2 * 10, f"resilience C.1: {ten['launches']}")
+    t_sub = time.perf_counter()
+    sub = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--fresh-switch"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    check(sub.returncode == 0, f"resilience fresh switch: exit "
+          f"{sub.returncode}: {sub.stderr[-2000:]}")
+    fresh = json.loads(sub.stdout.strip().splitlines()[-1])
+    first = fresh["switch_ms"][0]
+    steady = statistics.median(fresh["switch_ms"][2::2])
+    phase("resilience", run="c1_fresh_process",
+          switch_ms=json.dumps([round(m, 3) for m in fresh["switch_ms"]]),
+          first_ms=round(first, 3), steady_ms=round(steady, 3),
+          ratio=round(first / steady, 3), plan_builds=fresh["plan_builds"],
+          prewarm_ms=round(fresh["prewarm_ms"], 3),
+          subprocess_s=round(time.perf_counter() - t_sub, 3))
+    check(fresh["plan_builds"] == 0 and fresh["prewarm_launches"] == 0,
+          f"resilience fresh switch: {fresh}")
+    check(first <= 2 * steady, f"resilience fresh switch: the first "
+          f"switch {first:.3f} ms against {steady:.3f} ms steady")
+
+    snaps = probe.snapshots
+    phase("resilience_cost", card=repr(card_line()),
+          snapshot_ms_median=round(statistics.median(
+              m for m, _ in snaps), 3),
+          snapshot_bytes=json.dumps(sorted({b for _, b in snaps})),
+          snapshots=len(snaps),
+          restore_ms_median=round(statistics.median(probe.restores), 3),
+          restores=len(probe.restores),
+          recovery_ms=json.dumps([round(m, 3)
+                                  for m in probe.recovery_ms()]),
+          recovery_ms_median=round(statistics.median(
+              probe.recovery_ms()), 3))
+    phase("resilience_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -3766,6 +4216,11 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["control"] = control_phase(torch, cs, kern, cv_train,
                                              dataset_dir, work)
+    # self-healing: rollback and recovery, the policies, preemption, C.1
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["resilience"] = resilience_phase(torch, cs, kern, cv_train,
+                                                   dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers
@@ -3797,4 +4252,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fresh_switch_main() if sys.argv[1:] == ["--fresh-switch"]
+             else main())

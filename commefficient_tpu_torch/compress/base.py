@@ -368,6 +368,12 @@ class Compressor:
         truncates its warm ``Q`` across ranks)."""
         return momentum, error, extra
 
+    def warm_migration(self, device) -> None:
+        """Run, once, the torch ops a ``migrate_state`` out of this rung
+        launches besides the CountSketch kernels, on scratch tensors on
+        ``device``, so a first switch does not pay torch's loading of
+        their kernels. The base's migration runs none."""
+
     def upload_floats(self) -> int:
         """Per-client uplink floats per round."""
         return self.d

@@ -54,12 +54,15 @@ from commefficient_tpu_torch.ops.collectives import all_gather_pairs
 from commefficient_tpu_torch.ops.countsketch import (
     estimate_at,
     estimate_at_range,
+    scrambled_sparse,
     sketch_sparse,
     sketch_vec,
     table_sqnorm_estimate,
+    topk_scatter,
 )
 from commefficient_tpu_torch.ops.topk import (
     compact_nonzero,
+    topk_threshold_dense,
     topk_threshold_sharded,
 )
 
@@ -324,6 +327,20 @@ class SketchCompressor(Compressor):
                                  table_dtype=new_spec.table_dtype)
 
         return move(momentum), move(error), extra
+
+    def warm_migration(self, device) -> None:
+        """A ``num_cols`` migration's ops between K2 and K1, once, on a
+        scratch ``[d]`` vector at this rung's ``k``: the decode's selection
+        (``self.unsketch`` after its K2), ``compact_nonzero`` and
+        ``sketch_sparse``'s scatter and scramble. No K1 or K2 launch, no
+        state touched."""
+        d, k = self.spec.d, self.cfg.k
+        est = torch.zeros(d, dtype=torch.float32, device=device)
+        est[::max(1, d // k)] = 1.0
+        select = (topk_threshold_dense if self.cfg.topk_method == "threshold"
+                  else topk_scatter)
+        idx, val = compact_nonzero(select(est, k), k)
+        scrambled_sparse(self.spec, idx, val)
 
     def upload_floats(self) -> int:
         """The REALIZED table size ``r * c_actual``; warns when the blocked

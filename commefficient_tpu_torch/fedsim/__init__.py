@@ -20,9 +20,13 @@ renormalizes by the live count, and a round where every client drops
 freezes the params and the server state. A masked round with live cohort
 S equals the round over exactly S.
 
-The reference's elastic-fleet kinds (``resize``, ``leave``, ``join``,
-``shrink``) and ``preempt`` are parsed here and refused by ``Config``
-(ROADMAP A11).
+``preempt@R`` requests a preemption-safe shutdown at round R through the
+round's ``fedsim/preempt`` scalar (``resilience/guard.py``); a round
+re-executed after a rollback realizes its environment with ``replay=True``,
+which suppresses the ``nan_client`` injection and leaves every other draw
+as it was. The reference's elastic-fleet kinds (``resize``, ``leave``,
+``join``, ``shrink``) are parsed here and refused by ``Config`` (ROADMAP
+A11, item A.1.4).
 """
 
 from commefficient_tpu_torch.fedsim.availability import (
@@ -40,11 +44,13 @@ from commefficient_tpu_torch.fedsim.faults import (
     PORTED_KINDS,
     ChaosEvent,
     apply_chaos,
+    has_preempt,
     parse_chaos,
+    preempt_requested,
     validate_chaos_rounds,
 )
 
 __all__ = ["CHAOS_KINDS", "PORTED_KINDS", "ChaosEvent", "FedEnvironment",
            "RoundEnv", "apply_chaos", "available_models", "build_environment",
-           "parse_chaos", "round_rng", "sample_availability",
-           "validate_chaos_rounds"]
+           "has_preempt", "parse_chaos", "preempt_requested", "round_rng",
+           "sample_availability", "validate_chaos_rounds"]

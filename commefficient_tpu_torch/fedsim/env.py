@@ -28,6 +28,7 @@ from commefficient_tpu_torch.fedsim.faults import (
     ChaosEvent,
     apply_chaos,
     parse_chaos,
+    preempt_requested,
     validate_chaos_rounds,
 )
 
@@ -95,6 +96,9 @@ class FedEnvironment:
             "fedsim/dropped": float(W - int(avail.sum())),
             "fedsim/straggler_excluded": float(int((avail & straggler).sum())),
             "fedsim/all_dropped": float(n_live == 0),
+            # the scheduled preemption request (resilience/guard.py reads
+            # it from the round's metrics): a host scalar, never a mask
+            "fedsim/preempt": float(preempt_requested(self.plan, round_idx)),
         }
         return RoundEnv(
             live=live.astype(np.float32),

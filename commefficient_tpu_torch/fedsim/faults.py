@@ -24,9 +24,15 @@ Plan grammar (the ``--chaos`` flag): comma-separated events,
                                    live slots during rounds A..B
                                    inclusive.
 
-The reference's ``preempt@R`` and its elastic-fleet kinds (``resize``,
-``leave``, ``join``, ``shrink``) parse here with their reference syntax;
-``Config`` refuses them (ROADMAP A11: resilience/ and the width ladder).
+  * ``preempt@R``                — at round R, request a preemption-safe
+                                   shutdown (``resilience/guard.py`` reads
+                                   the round's ``fedsim/preempt`` scalar):
+                                   drain, force-save, exit 75. It never
+                                   touches the masks.
+
+The reference's elastic-fleet kinds (``resize``, ``leave``, ``join``,
+``shrink``) parse here with their reference syntax; ``Config`` refuses
+them (ROADMAP A11, item A.1.4: the elastic fleet's width ladder).
 
 Parsing is syntax-and-range validated here (``utils.config`` calls
 ``parse_chaos`` at construction); round indices against the RUN LENGTH are
@@ -49,8 +55,8 @@ CHAOS_KINDS = ("dropout", "straggler", "nan_client", "preempt",
                "resize", "leave", "join", "shrink")
 # the elastic-fleet subset: events that change the per-round fleet width
 FLEET_KINDS = ("resize", "leave", "join", "shrink")
-# the kinds the port runs; Config refuses the others (ROADMAP A11)
-PORTED_KINDS = ("dropout", "straggler", "nan_client")
+# the kinds the port runs; Config refuses the others (ROADMAP A11, A.1.4)
+PORTED_KINDS = ("dropout", "straggler", "nan_client", "preempt")
 
 _GRAMMAR = (
     'comma-separated "kind@value[:rounds=A-B]" (B empty = open-ended) '
@@ -205,3 +211,15 @@ def apply_chaos(
         if live.size:  # a fully-dropped round has no payload to corrupt
             corrupt[live[:want_nan]] = True
     return avail, straggler, corrupt
+
+
+def preempt_requested(plan: Tuple[ChaosEvent, ...], round_idx: int) -> bool:
+    """True iff a ``preempt`` event is active at ``round_idx``: the round's
+    ``fedsim/preempt`` scalar, which ``resilience.PreemptGuard`` reads."""
+    return any(ev.kind == "preempt" and ev.active(round_idx) for ev in plan)
+
+
+def has_preempt(plan: Tuple[ChaosEvent, ...]) -> bool:
+    """True iff the plan schedules any preemption: one of the gates of
+    ``resilience.build_resilience``."""
+    return any(ev.kind == "preempt" for ev in plan)

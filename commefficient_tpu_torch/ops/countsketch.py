@@ -563,10 +563,17 @@ def sketch_sparse(spec: CountSketch, idx: torch.Tensor, vals: torch.Tensor,
     coordinates plus ``(i, 0.0)`` pads, and adding 0.0 is exact in any
     order."""
     _check_poly4_field(spec)
+    return sketch_rows(spec, scrambled_sparse(spec, idx, vals),
+                       operand=torch.float32, table_dtype=table_dtype)
+
+
+def scrambled_sparse(spec: CountSketch, idx: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """The (indices, values) pairs added into a zero f32 [d] vector and
+    scrambled to [d_eff]: what ``sketch_sparse`` hands K1."""
     dense = torch.zeros(spec.d, dtype=torch.float32, device=vals.device)
     dense.index_add_(0, idx.to(torch.int64), vals.to(torch.float32))
-    return sketch_rows(spec, _scramble(spec, dense), operand=torch.float32,
-                       table_dtype=table_dtype)
+    return _scramble(spec, dense)
 
 
 def sketch_segment(spec: CountSketch, offset: int, vals: torch.Tensor,

@@ -87,7 +87,12 @@ def _count(wrapper, form: str) -> None:
     wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
 
 
-@functools.lru_cache(maxsize=8)
+# The per-spec plan caches (``_kernel_geometry``, ``_k2_plan``,
+# ``_inverse_perm``) are unbounded: a session holds a fixed set of specs
+# (one per ladder rung), each entry is a few bytes per coordinate, and an
+# eviction would rebuild a plan on the critical path of a rung switch.
+# ``plan_builds`` counts their builds.
+@functools.lru_cache(maxsize=None)
 def _kernel_geometry(spec, device: str):
     """(row params as a ctypes int64 array, CSR ptr, CSR offsets, K1's tile
     width in strides) for the kernels: built once per (spec, device) from
@@ -356,7 +361,7 @@ def _row_geo(spec) -> list:
             for r in range(spec.r)]
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _k2_plan(spec, device: str, itemsize: int = 4):
     """K2's host plan, built once per spec and kept alive here while the
     kernel may read it: tiles of ``index_math.K2_COORDS`` scrambled
@@ -430,23 +435,32 @@ estimate_median.forms = {}
 
 def prepare_plans(spec, device) -> None:
     """Build, without a launch, the host plans of ``spec`` on ``device``
-    that K1 and K2 read (the per-spec caches their first launch would
-    fill): K1's row geometry and, for the one-kernel decode
-    (``num_blocks == 1``), K2's plan for an f32 table and, with bf16
-    storage, for a bf16 one. The control plane builds them for every
-    ladder rung before the first round, so a rung switch builds none."""
+    that K1, K2 and K4 read (the per-spec caches their first launch would
+    fill): K1's row geometry, the inverse block permutation and, for the
+    one-kernel decode (``num_blocks == 1``), K2's plan for an f32 table
+    and, with bf16 storage, for a bf16 one. The control plane builds them
+    for every ladder rung before the first round; the caches keep every
+    entry, so a rung switch builds none (``plan_builds``)."""
     dev = str(device)
     _kernel_geometry(spec, dev)
+    _inverse_perm(spec, dev)
     if spec.num_blocks == 1:
         _k2_plan(spec, dev, 4)
         if spec.table_dtype == torch.bfloat16:
             _k2_plan(spec, dev, 2)
 
 
+def plan_builds() -> int:
+    """Host plans built so far in this process: the misses of the
+    per-spec caches K1, K2 and K4 read (``prepare_plans`` fills them)."""
+    return sum(f.cache_info().misses
+               for f in (_kernel_geometry, _k2_plan, _inverse_perm))
+
+
 # -- K4: point estimates at a coordinate subset -----------------------------------
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _inverse_perm(spec, device: str):
     """The inverse block permutation as int32 on ``device`` (None when the
     spec does not scramble), kept alive here while K4 or K1's segment form

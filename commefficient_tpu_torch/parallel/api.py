@@ -287,6 +287,18 @@ class FederatedSession:
         # state.step's masks, a pure function of (seed, step), so a
         # restored step realizes what the unbroken run realized
         self.fedsim_env = build_environment(cfg)
+        # resilience/: the rounds below the replay horizon have run in this
+        # process; a rollback rewinds the state, never the horizon, so a
+        # re-executed round realizes its environment with replay=True (the
+        # nan_client injection fires on a first execution only). A fresh
+        # process, a resumed one too, starts at 0
+        self._replay_horizon = 0
+        # resilience/'s skip_clients blacklist: sorted unique client ids
+        # masked out of every later round's live mask (None until
+        # blacklist_clients), and the rider (build_resilience) whose
+        # resilience/* scalars ride each round's metrics
+        self._client_blacklist: Optional[np.ndarray] = None
+        self.resilience = None
         self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
         # the training set on the device (attach_data), else None; which
         # data path the rounds take is ``data_path``
@@ -451,11 +463,13 @@ class FederatedSession:
                 "download_bytes": 4 * down}
 
     def prewarm_rungs(self) -> int:
-        """On the card, build the host plans K1 and K2 read for every
-        rung's spec (the per-spec caches a first launch would fill), so a
-        switch to any rung builds nothing; nothing to do on the CPU.
-        Launches nothing and changes no state; returns the number of
-        rungs."""
+        """On the card, build the host plans K1, K2 and K4 read for every
+        rung's spec (the per-spec caches a first launch would fill) and,
+        on a ladder, run each rung's migration ops once on scratch tensors
+        (``Compressor.warm_migration``: torch loads a kernel at its first
+        launch), so a switch to any rung builds and loads nothing; nothing
+        to do on the CPU. Launches no CountSketch kernel and changes no
+        state; returns the number of rungs."""
         if self.device.type == "cuda":
             from commefficient_tpu_torch.ops.cuda.countsketch import (
                 prepare_plans,
@@ -464,6 +478,8 @@ class FederatedSession:
             for rung in self.rungs:
                 if rung.spec is not None:
                     prepare_plans(rung.spec, self._cuda_device)
+                if len(self.rungs) > 1:
+                    rung.compressor.warm_migration(self._cuda_device)
         return len(self.rungs)
 
     # -- the sharded leaves -------------------------------------------------
@@ -638,6 +654,72 @@ class FederatedSession:
         return (dev.get("\0ids"), dev["\0idx"],
                 tuple(dev[f"\0plan{i}"] for i in range(len(plan))), ready)
 
+    # -- fedsim and resilience/ ----------------------------------------------
+    def sync_round_clock(self) -> None:
+        """Align the fedsim round clock with ``FedState.step`` after the
+        state was replaced (a checkpoint restore, a rollback). The port's
+        rounds realize their environment from ``state.step`` itself, so
+        there is no separate clock to move: the reference's call is kept
+        as a no-op."""
+
+    def fedsim_round_env(self, step: int, client_ids=None, *,
+                         replay: Optional[bool] = None):
+        """Round ``step``'s ``RoundEnv`` as a round realizes it (None
+        without fedsim): with ``replay`` (by default: ``step`` lies below
+        the replay horizon, a round this process already ran) the
+        nan_client injection is suppressed, and with the host
+        ``client_ids`` the blacklist is composed in."""
+        if self.fedsim_env is None:
+            return None
+        if replay is None:
+            replay = step < self._replay_horizon
+        env = self.fedsim_env.round_env(step, replay=replay)
+        if client_ids is not None and self._client_blacklist is not None:
+            env = self._blacklist_env(env, client_ids)
+        return env
+
+    def blacklist_clients(self, client_ids) -> np.ndarray:
+        """Add ``client_ids`` to the blacklist (resilience/'s
+        ``skip_clients``): a blacklisted client is masked out of every
+        later round's live mask by the same ``torch.where`` the fedsim mask
+        rides, before ``device_encode``, and the server renormalizes by
+        the reduced live count. Returns the whole blacklist. Needs a
+        fedsim session: without one the round masks nothing and the
+        blacklist would be silently inert."""
+        if self.fedsim_env is None:
+            raise ValueError(
+                "blacklist_clients needs a fedsim session (the round must "
+                "mask clients — cfg.fedsim_enabled); this session was "
+                "built without it")
+        ids = np.unique(np.asarray(client_ids, np.int64))
+        if self._client_blacklist is not None:
+            ids = np.union1d(self._client_blacklist, ids)
+        self._client_blacklist = ids
+        return ids
+
+    def _blacklist_env(self, env, client_ids):
+        """``env`` with the blacklist composed in, on the host: a
+        blacklisted LIVE slot drops out (dropped: the server neither takes
+        its upload nor sends it the download), and the live count and the
+        ``fedsim/*`` scalars the ledger bills from follow the reduced
+        mask. A slot already out stays as it was."""
+        bl = np.isin(np.asarray(client_ids, np.int64),
+                     self._client_blacklist)
+        hit = bl & (env.live > 0)
+        n_hit = int(hit.sum())
+        if n_hit == 0:
+            return env
+        live = env.live.copy()
+        live[hit] = 0.0
+        n_live = float(live.sum())
+        stats = dict(env.stats)
+        stats["fedsim/participation_rate"] = n_live / live.shape[0]
+        stats["fedsim/dropped"] = float(stats.get("fedsim/dropped", 0.0)
+                                        + n_hit)
+        stats["fedsim/all_dropped"] = float(n_live == 0)
+        return env._replace(live=live.astype(np.float32),
+                            live_count=np.float32(n_live), stats=stats)
+
     def _consume(self, ready, tensors) -> None:
         """Before a staged round's first use: the compute stream waits on
         the staging event, and each staged tensor is recorded on it."""
@@ -678,12 +760,13 @@ class FederatedSession:
         ``round_dispatch`` under its trace id, and its metrics gain the
         host scalars ``xla/exposed_collective_ms`` and the lagged
         ``trace/*`` of round ``step - 2``."""
+        host_ids = self._host_client_ids(client_ids)
         with self._span("device_put", trace_id=round_trace_id(
                 self.state.step)):
             self._consume(ready, [client_ids, *batch.values()])
             ids = self._device_ids(client_ids)
             dev_batch = _to_device(self.local_clients(batch), self.device)
-        return self._round(ids, dev_batch, lr, env)
+        return self._round(ids, dev_batch, lr, env, host_ids)
 
     def train_round_indices(self, client_ids, idx, plan, lr: float,
                             env=None, ready=None):
@@ -701,6 +784,7 @@ class FederatedSession:
         if self.dev_data is None:
             raise ValueError("train_round_indices needs the training set "
                              "on the device: call attach_data first")
+        host_ids = self._host_client_ids(client_ids)
         with self._span("device_put", trace_id=round_trace_id(
                 self.state.step)):
             self._consume(ready, [client_ids, idx, *plan])
@@ -718,7 +802,18 @@ class FederatedSession:
                         _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
                         for a in plan))
                 batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
-        return self._round(ids, microbatched(self.cfg, batch), lr, env)
+        return self._round(ids, microbatched(self.cfg, batch), lr, env,
+                           host_ids)
+
+    @staticmethod
+    def _host_client_ids(client_ids):
+        """The round's client ids as the host holds them, for the
+        blacklist; None for staged ids on the card (the prefetcher
+        composed the blacklist into their round's environment)."""
+        if client_ids is None or (torch.is_tensor(client_ids)
+                                  and client_ids.is_cuda):
+            return None
+        return np.asarray(client_ids)
 
     def _device_ids(self, client_ids):
         """The round's ``[W]`` client ids on the device (None without)."""
@@ -739,20 +834,26 @@ class FederatedSession:
         return self.spans.span(name, fence=fence, collective=collective,
                                trace_id=trace_id)
 
-    def _round(self, ids, batch: Dict[str, torch.Tensor], lr: float, env):
+    def _round(self, ids, batch: Dict[str, torch.Tensor], lr: float, env,
+               host_ids=None):
         """The round of ``train_round`` and ``train_round_indices`` on this
-        rank's device batch and device ids."""
+        rank's device batch and device ids; ``host_ids`` (the host's
+        client ids, or None) compose the blacklist into the environment
+        before anything of it goes to the card."""
         step = self.state.step
         tid = round_trace_id(step)
         with self._span("fedsim_env", trace_id=tid):
             if env is None and self.fedsim_env is not None:
-                env = self.fedsim_env.round_env(step)
+                env = self.fedsim_round_env(step)
             elif env is not None and self.fedsim_env is None:
                 raise ValueError(
                     "env= passed but this session was built without "
                     "fedsim (cfg.fedsim_enabled is False, so the round "
                     "masks nothing); construct the Config with "
                     "availability/chaos set to drive masked rounds")
+            if (env is not None and host_ids is not None
+                    and self._client_blacklist is not None):
+                env = self._blacklist_env(env, host_ids)
         if self.controller is not None:
             # the control plane's decision point, on the host before the
             # dispatch: it may switch the rung (and migrate the state) or
@@ -772,12 +873,15 @@ class FederatedSession:
                                                     lr, env=env)
             if sp is not None:
                 sp.fence(metrics["loss"])
+        self._replay_horizon = max(self._replay_horizon, step + 1)
         if arm:
             arm.finish()  # the report, outside the round's spans
         if env is not None:
             metrics = {**metrics, **env.stats}
         if self.controller is not None:
             metrics = {**metrics, **self.controller.scalars()}
+        if self.resilience is not None:
+            metrics = {**metrics, **self.resilience.scalars()}
         if self.spans is not None and self.cfg.telemetry_level >= 1:
             # host scalars, the same keys every round: the exposure (0.0
             # when the audited round held no collective) and the trace/*

@@ -32,8 +32,13 @@ inputs (batch, fedsim masks, lr) do not depend on the rung, so a switch
 invalidates nothing in the window. The engine registers a rung-switch
 listener (``_on_rung_switch``) that counts each switch as a quiesce
 (``stats()["quiesces"]``) and records a ``pipeline_quiesce:rungA->rungB``
-span; nothing is restaged. Not ported (ROADMAP A11): the resilience
-restart.
+span; nothing is restaged.
+
+A resilience/ recovery rewinds the state to a snapshot: ``restart(step)``
+then stops and joins the worker, drops the staged window (future rounds
+of the rolled-back trajectory) and starts a new one at the rollback round,
+whose rounds below the session's replay horizon realize their environment
+with ``replay=True``; ``stats()["restarts"]`` counts them.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ class PipelinedRounds:
         self._host_ms_sum = 0.0
         self._staged_copies = 0
         self.quiesces = 0
+        self.restarts = 0
         if session.controller is not None:
             session.controller.add_switch_listener(self._on_rung_switch)
 
@@ -78,13 +84,33 @@ class PipelinedRounds:
         """Start the run-long prefetcher at ``resume_step``, the round the
         loop dispatches next (a resumed run's restored round)."""
         if self._prefetcher is None:
-            self._prefetcher = RoundPrefetcher(
-                session=self.session, sampler=self._sampler,
-                lr_fn=self._lr_fn, depth=self.depth,
-                start_step=int(resume_step), stop_step=self.num_rounds,
-                use_indices=self._use_idx,
-                spans=self.session.spans).start()
+            self._prefetcher = self._build_prefetcher(resume_step)
         return self
+
+    def _build_prefetcher(self, step: int) -> RoundPrefetcher:
+        return RoundPrefetcher(
+            session=self.session, sampler=self._sampler, lr_fn=self._lr_fn,
+            depth=self.depth, start_step=int(step),
+            stop_step=self.num_rounds, use_indices=self._use_idx,
+            spans=self.session.spans,
+            # the rounds the session has run realize as replays
+            replay_until=self.session._replay_horizon).start()
+
+    def restart(self, step: int) -> None:
+        """A recovery's fence: the staged window holds rounds of the
+        trajectory a rollback just rewound, so stop and join the worker,
+        drop its work and stage again from ``step``, the rollback round,
+        with the session's replay horizon."""
+        if self._prefetcher is None:
+            raise RuntimeError("PipelinedRounds.restart before start()")
+        self._prefetcher.close()
+        self._prefetcher = self._build_prefetcher(step)
+        self.restarts += 1
+        spans = self.session.spans
+        if spans is not None:
+            with spans.span(f"pipeline_recovery_restart:round{int(step)}",
+                            step=int(step)):
+                pass
 
     def close(self) -> None:
         """Stop and join the prefetch worker (the runner calls this on
@@ -157,4 +183,5 @@ class PipelinedRounds:
                 "host_stall_ms": self._stall_ms_sum / n,
                 "prefetch_host_ms": self._host_ms_sum / n,
                 "staged_copies": self._staged_copies,
-                "quiesces": self.quiesces}
+                "quiesces": self.quiesces,
+                "restarts": self.restarts}

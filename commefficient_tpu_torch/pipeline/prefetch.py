@@ -10,7 +10,9 @@ bookkeeping), realizing one ``RoundWork`` a round:
   into the staging ring's pinned buffers), or the index form on the
   device-resident training set;
 * fedavg's ``[W, L, B, ...]`` reshape;
-* the round's fedsim ``RoundEnv``;
+* the round's fedsim ``RoundEnv`` (with ``replay=True`` below
+  ``replay_until``: a round re-executed after a rollback), with the
+  session's blacklist composed in on the host client ids;
 * the schedule's lr;
 * the early copy to the card (``FederatedSession.stage_round_payload`` /
   ``stage_round_indices``): the worker owns its ``RoundStager``, its side
@@ -83,7 +85,8 @@ class RoundPrefetcher:
 
     def __init__(self, *, session, sampler, lr_fn, depth: int,
                  start_step: int = 0, stop_step: int = 0,
-                 use_indices: bool = False, spans=None):
+                 use_indices: bool = False, spans=None,
+                 replay_until: int = 0):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.session = session
@@ -94,6 +97,10 @@ class RoundPrefetcher:
         self.stop_step = int(stop_step)
         self.use_indices = bool(use_indices)
         self.spans = spans
+        # resilience/'s replay fence: the rounds below it run again after a
+        # rollback and realize their environment with replay=True (the
+        # engine passes the session's horizon when it restarts the window)
+        self.replay_until = int(replay_until)
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         # rounds of work staged ahead (the occupancy numerator): qsize would
         # also count the end marker and a queued exception
@@ -122,8 +129,8 @@ class RoundPrefetcher:
                     step, alloc=sess.staging_alloc)
                 batch = microbatched(sess.cfg, batch)
                 idx = plan = None
-            env = (sess.fedsim_env.round_env(step)
-                   if sess.fedsim_env is not None else None)
+            env = sess.fedsim_round_env(step, cids,
+                                        replay=step < self.replay_until)
             lr = float(self.lr_fn(step))
         with self._span("prefetch_stage", step):
             if self.use_indices:

@@ -16,9 +16,12 @@ marker ``"nan"``, ``"inf"`` or ``"-inf"`` (``jsonable_scalar``), which the
 reference's ``scripts/check_telemetry_schema.py`` accepts. A run of the
 control plane attaches its ``BudgetController`` (``controller``), and
 every dump then carries its ``controller`` block (policy, rung, switches,
-the budget left). The reference's ``FleetShrinkError`` and the dump's
-recovery block belong to resilience/ (ROADMAP A11): its hook
-(``resilience``) stays ``None`` here, and a dump leaves the block out.
+the budget left). A run with resilience/'s recovery attaches its
+``ResilienceRider`` (``resilience``, set by ``build_resilience``): every
+dump after a recovery carries its ``recovery_history`` block, and a
+rollback drops the rolled-back rounds from the ring (``rewind``). The
+reference's ``FleetShrinkError`` comes with the elastic fleet (ROADMAP A11,
+item A.1.4).
 """
 
 from __future__ import annotations
@@ -98,8 +101,8 @@ class FlightRecorder:
         self.meta = run_metadata(cfg, extra_meta)
         self.records: deque = deque(maxlen=self.window)
         self.last_step: Optional[int] = None
-        # the control plane's controller (None without it) and the
-        # resilience layer (ROADMAP A11; always None here)
+        # the control plane's controller and resilience/'s rider (None
+        # without them; build_resilience attaches the rider)
         self.controller = controller
         self.resilience = None
 

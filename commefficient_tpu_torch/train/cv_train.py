@@ -31,7 +31,12 @@ true`` over the FetchSGD flags. Partial participation and chaos:
 ``--availability bernoulli --dropout_prob 0.3 --chaos "straggler@0.1"``.
 Worker-side DP: ``--max_grad_norm 1.0 --dp_noise_multiplier 0.5``.
 Checkpoint/resume: ``--checkpoint_dir DIR --checkpoint_every N [--resume
-true]``.
+true]``. Failure handling (``--telemetry_level 1``): ``--recover_policy
+retry|demote|skip_clients --snapshot_every N [--max_recoveries M]`` rolls
+a diverged run back to its last snapshot and goes on (the runner prints
+the rider's ``resilience:`` line); ``--preempt_signals true`` (or chaos
+``preempt@R``) turns SIGTERM/SIGINT into a drained, force-saved exit with
+code 75.
 
 (fedavg's sampler draws ``num_local_iters * local_batch_size`` samples a
 client, split into that many local steps.)
@@ -105,6 +110,7 @@ from commefficient_tpu_torch import native
 from commefficient_tpu_torch.control import controller_header
 from commefficient_tpu_torch.parallel import FederatedSession
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
+from commefficient_tpu_torch.resilience import EXIT_PREEMPTED, PreemptShutdown
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import CV_MODELS, Config, parse_args
 from commefficient_tpu_torch.utils.logging import MetricsWriter, make_logdir
@@ -260,6 +266,11 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
                 f"ms={r['ms']:.2f}", flush=True),
             engine_stats=pipeline_stats, writer=writer,
             generated_by="commefficient_tpu_torch.train.cv_train")
+    except PreemptShutdown as e:
+        # drained and force-saved by the runner: the distinct exit code
+        # tells an orchestrator to rerun with --resume
+        say(str(e))
+        raise SystemExit(EXIT_PREEMPTED) from e
     finally:
         if writer is not None:
             writer.close()

@@ -32,6 +32,9 @@ On the CPU, at the tests' size:
 Real GPT-2 weights are mapped in from ``--model_checkpoint`` (a directory
 holding ``pytorch_model.bin``) when it exists; otherwise the model starts
 from its seeded random init (``hf_weights=False`` in the first line).
+The failure-handling flags are cv_train's (``--recover_policy``,
+``--snapshot_every``, ``--max_recoveries``, ``--preempt_signals``); a
+preemption exits with code 75.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from commefficient_tpu_torch import native
 from commefficient_tpu_torch.control import controller_header
 from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.mesh import distributed_from_env
+from commefficient_tpu_torch.resilience import EXIT_PREEMPTED, PreemptShutdown
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import Config, parse_args
 from commefficient_tpu_torch.utils.logging import MetricsWriter, make_logdir
@@ -259,6 +263,11 @@ def _train(cfg: Config, eval_batch_size: int):
                 f"ms={r['ms']:.2f}", flush=True),
             engine_stats=pipeline_stats, writer=writer,
             generated_by="commefficient_tpu_torch.train.gpt2_train")
+    except PreemptShutdown as e:
+        # drained and force-saved by the runner: the distinct exit code
+        # tells an orchestrator to rerun with --resume
+        say(str(e))
+        raise SystemExit(EXIT_PREEMPTED) from e
     finally:
         if writer is not None:
             writer.close()

@@ -60,12 +60,30 @@ kernel plans built) and described; every drain feeds it the drained
 rounds. A ``BudgetExhaustedError`` raised before a round's dispatch takes
 the crash path: the epoch's rounds dispatched so far are drained first
 (the ledger and the ring see them), the ring is dumped, and the error is
-raised. The reference's resilience layer is not ported (``Config``
-refuses its flags).
+raised.
+
+The resilience layer (``resilience/``, built after the riders and before
+the restore; None unless ``--recover_policy`` or a preemption source is
+set): the vault's baseline snapshot is taken at the start round, and at
+each ``snapshot_every`` boundary the loop drains, then snapshots (the
+epoch's accumulator and round count ride along). A ``DivergenceError``
+from any drain goes to the rider first: a recovery restores the newest
+snapshot at or before the first bad round, drops the history rows of the
+rolled-back rounds (the healed run's history has one row a round, as the
+unbroken run's), re-seeds a mid-epoch accumulator, drops the checkpoints
+above the rollback round (and, after a forking policy, saves it again),
+restarts the round source there and re-enters the epoch loop; an epoch
+whose end block already ran runs it again only after a forking policy.
+Only a divergence it cannot recover from takes the crash path. A
+preemption request (``--preempt_signals`` or chaos ``preempt@R``) is
+honored at the round boundary: drain, force-save, write
+``resilience/preempt_requested``, raise ``PreemptShutdown``; the entry
+points turn it into exit code 75.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from contextlib import closing, nullcontext
@@ -74,6 +92,10 @@ from functools import partial
 from commefficient_tpu_torch.control import build_controller
 from commefficient_tpu_torch.data.sampler import prefetch
 from commefficient_tpu_torch.parallel.api import microbatched
+from commefficient_tpu_torch.resilience import (
+    PreemptShutdown,
+    build_resilience,
+)
 from commefficient_tpu_torch.telemetry import (
     DivergenceError,
     FlightRecorder,
@@ -252,6 +274,14 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             cfg.profile_rounds, window_dir,
             fence_fn=lambda: fence(session.state.params_vec)))
     spans, _ = build_perf_observability(cfg, session, writer, generated_by)
+    # the self-healing layer (None unless a recovery policy or a preemption
+    # source is set): after the riders (a recovery rewinds the ledger and
+    # the flight ring), before the restore (the baseline snapshot holds
+    # the restored state)
+    resil = build_resilience(cfg, session, sampler, ledger=ledger,
+                             flight=flight)
+    if resil is not None and main:
+        print(resil.describe())
 
     def before_dispatch(s):
         profiler.step(s)
@@ -264,110 +294,205 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
 
     checkpointer = FedCheckpointer(cfg)
     start = 0
-    if cfg.resume:
-        restored = checkpointer.restore(session)
-        if restored is not None:
-            start = restored
-            profiler.resume_at(start)
-            if spans is not None:
-                spans.resume_at(start)
-            if main:
-                print(f"resumed from checkpoint at round {start}")
-    last = min(num_rounds, cfg.max_rounds) if cfg.max_rounds else num_rounds
+    engine = None
+    try:
+        if cfg.resume:
+            restored = checkpointer.restore(session)
+            if restored is not None:
+                start = restored
+                profiler.resume_at(start)
+                if spans is not None:
+                    spans.resume_at(start)
+                if main:
+                    print(f"resumed from checkpoint at round {start}")
+        last = (min(num_rounds, cfg.max_rounds) if cfg.max_rounds
+                else num_rounds)
+        if cfg.pipeline_enabled and start < last:
+            from commefficient_tpu_torch.pipeline import PipelinedRounds
+
+            # built after the restore: its window starts at the resumed
+            # round
+            engine = PipelinedRounds(cfg, session, sampler, lr_fn, last,
+                                     steps_per_epoch=steps_per_epoch
+                                     ).start(start)
+        if resil is not None:
+            # a divergence before the first snapshot_every boundary rolls
+            # back to the start round
+            resil.baseline(start)
+    except BaseException:
+        # the finally below is not reached: join the worker and restore
+        # the signal dispositions here
+        if engine is not None:
+            engine.close()
+        if resil is not None:
+            resil.close()
+        raise
     table = table or TableLogger()
     history = []
+    unreported = []  # history rows not yet given to on_round
     val = {}
-    engine = None
     live_drain = None  # the current epoch's drain (the crash flush)
-    if cfg.pipeline_enabled and start < last:
-        from commefficient_tpu_torch.pipeline import PipelinedRounds
+    step = start  # the round the loop dispatches next
+    # the last epoch whose end block (evaluation, table row, val scalars,
+    # on_epoch_end) ran: a rollback may land inside it, and a retry's
+    # replay, bit-equal, must not run it twice
+    completed_epoch = start // steps_per_epoch - 1
+    reseed = None  # {"acc", "rounds"} a mid-epoch rollback restored
 
-        # built after the restore: its window starts at the resumed round
-        engine = PipelinedRounds(cfg, session, sampler, lr_fn, last,
-                                 steps_per_epoch=steps_per_epoch).start(start)
+    def report():
+        while unreported and "loss" in unreported[0] and \
+                "ms" in unreported[0]:
+            row = unreported.pop(0)
+            if on_round is not None and main:
+                on_round(row)
+
     try:
-        for epoch in range(cfg.num_epochs):
-            if (epoch + 1) * steps_per_epoch <= start:
-                continue  # fast-forward over the epochs before the resume
-            if epoch * steps_per_epoch >= last:
-                break
-            timer = Timer()
-            acc = hooks.new_accumulator()
-            pending = []  # (step, lr, metrics) dispatched, not read back
-            rows = []  # their history rows, in the same order
-            unreported = []  # rows not yet given to on_round
+        while True:  # one pass an entry: the first, and after a recovery
+            try:
+                for epoch in range(step // steps_per_epoch, cfg.num_epochs):
+                    if epoch * steps_per_epoch >= last:
+                        break
+                    timer = Timer()
+                    acc = hooks.new_accumulator()
+                    n = 0
+                    if reseed is not None:
+                        # the replay starts at the snapshot: its
+                        # accumulator and count stand for the rounds before
+                        acc = copy.deepcopy(reseed["acc"])
+                        n = reseed["rounds"]
+                        reseed = None
+                    pending = []  # (step, lr, metrics) not read back
+                    rows = []  # their history rows, in the same order
 
-            def drain(_acc=acc, _pending=pending, _rows=rows):
-                filling = iter(list(_rows))
-                _rows.clear()
+                    def drain(_acc=acc, _pending=pending, _rows=rows):
+                        filling = iter(list(_rows))
+                        _rows.clear()
 
-                def accumulate(loss, metrics):
-                    row = next(filling)
-                    row["loss"] = loss
-                    row.update({k: v for k, v in metrics.items()
-                                if k.startswith("fedsim/")})
-                    hooks.accumulate(_acc, loss, metrics)
+                        def accumulate(loss, metrics):
+                            row = next(filling)
+                            row["loss"] = loss
+                            row.update({k: v for k, v in metrics.items()
+                                        if k.startswith("fedsim/")})
+                            hooks.accumulate(_acc, loss, metrics)
 
-                # under the newest pending round's id: the read-back waits
-                # for its device work
-                tid = round_trace_id(_pending[-1][0]) if _pending else None
-                with span("metric_drain", trace_id=tid):
-                    drain_round_metrics(_pending, writer, accumulate,
-                                        ledger=ledger, flight=flight,
-                                        controller=controller)
+                        # under the newest pending round's id: the
+                        # read-back waits for its device work
+                        tid = (round_trace_id(_pending[-1][0]) if _pending
+                               else None)
+                        with span("metric_drain", trace_id=tid):
+                            drain_round_metrics(_pending, writer, accumulate,
+                                                ledger=ledger, flight=flight,
+                                                controller=controller)
 
-            live_drain = drain
-
-            def report(_unreported=unreported):
-                while _unreported and "loss" in _unreported[0] and \
-                        "ms" in _unreported[0]:
-                    row = _unreported.pop(0)
-                    if on_round is not None and main:
-                        on_round(row)
-
-            rounds = (engine.epoch_rounds(epoch, start, last,
-                                          before_dispatch=profiler.step)
-                      if engine is not None else
-                      _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch,
-                                         start, last,
-                                         before_dispatch=before_dispatch))
-            lr = float(lr_fn(max(start, epoch * steps_per_epoch)))
-            n = 0
-            prev = None  # (the last row, its dispatch time)
-            with closing(rounds):  # a crash stops the prefetch thread too
-                for s, lr, metrics, wait_ms, t_disp in rounds:
+                    live_drain = drain
+                    rounds = (engine.epoch_rounds(
+                        epoch, step, last, before_dispatch=profiler.step)
+                        if engine is not None else
+                        _sync_epoch_rounds(cfg, session, sampler, lr_fn,
+                                           epoch, step, last,
+                                           before_dispatch=before_dispatch))
+                    lr = float(lr_fn(max(step, epoch * steps_per_epoch)))
+                    prev = None  # (the last row, its dispatch time)
+                    with closing(rounds):  # a crash stops the producer too
+                        for s, lr, metrics, wait_ms, t_disp in rounds:
+                            if prev is not None:
+                                prev[0]["ms"] = 1e3 * (t_disp - prev[1])
+                            row = {"step": s, "lr": lr, "data_ms": wait_ms}
+                            prev = (row, t_disp)
+                            history.append(row)
+                            unreported.append(row)
+                            pending.append((s, lr, metrics))
+                            rows.append(row)
+                            n += 1
+                            step = s + 1
+                            if checkpointer.will_save(step):
+                                drain()  # the losses first, then the save
+                                with span("checkpoint"):
+                                    checkpointer.maybe_save(session, step)
+                            if resil is not None and \
+                                    resil.will_snapshot(step):
+                                # the drain certifies the rounds below
+                                # step finite before the vault admits it
+                                drain()
+                                with span("snapshot"):
+                                    resil.snapshot(step, extras={
+                                        "acc": copy.deepcopy(acc),
+                                        "rounds": n})
+                            if resil is not None and \
+                                    resil.preempt_requested(metrics):
+                                drain()
+                                with span("checkpoint"):
+                                    saved = checkpointer.enabled and (
+                                        checkpointer.maybe_save(
+                                            session, step, force=True)
+                                        or checkpointer.latest_step()
+                                        == step)
+                                if writer:
+                                    writer.scalar(
+                                        "resilience/preempt_requested",
+                                        1.0, s)
+                                    writer.flush()
+                                raise PreemptShutdown(
+                                    step, resil.preempt_source, saved=saved)
+                            report()
+                    drain()
                     if prev is not None:
-                        prev[0]["ms"] = 1e3 * (t_disp - prev[1])
-                    row = {"step": s, "lr": lr, "data_ms": wait_ms}
-                    prev = (row, t_disp)
-                    history.append(row)
-                    unreported.append(row)
-                    pending.append((s, lr, metrics))
-                    rows.append(row)
-                    n += 1
-                    if checkpointer.will_save(s + 1):
-                        drain()  # the losses first, then the save
-                        with span("checkpoint"):
-                            checkpointer.maybe_save(session, s + 1)
+                        prev[0]["ms"] = 1e3 * (time.perf_counter() - prev[1])
                     report()
-            drain()
-            if prev is not None:
-                prev[0]["ms"] = 1e3 * (time.perf_counter() - prev[1])
-            report()
-            train_time = timer()
-            if cfg.fsdp:  # every rank gathers the params rank 0 evaluates
-                session.full_params_vec()
-            if main:
-                timer()
-                val = hooks.evaluate()
-                table.append(hooks.epoch_row(
-                    epoch=epoch, lr=lr, acc=acc, val=val,
-                    train_time=train_time, val_time=timer(),
-                    rounds=max(n, 1)))
-                if writer:
-                    hooks.write_val(writer, val, session.state.step)
-                    writer.flush()
-                hooks.on_epoch_end(epoch, val)
+                    train_time = timer()
+                    if epoch > completed_epoch:
+                        if cfg.fsdp:  # every rank gathers what rank 0 reads
+                            session.full_params_vec()
+                        if main:
+                            timer()
+                            val = hooks.evaluate()
+                            table.append(hooks.epoch_row(
+                                epoch=epoch, lr=lr, acc=acc, val=val,
+                                train_time=train_time, val_time=timer(),
+                                rounds=max(n, 1)))
+                            if writer:
+                                hooks.write_val(writer, val,
+                                                session.state.step)
+                                writer.flush()
+                            hooks.on_epoch_end(epoch, val)
+                    completed_epoch = max(completed_epoch, epoch)
+                break
+            except DivergenceError as e:
+                # roll back to the newest snapshot at or before the first
+                # bad round and re-enter there; None: not recoverable, the
+                # crash path below (with e.recovery_history)
+                rollback = (resil.on_divergence(e) if resil is not None
+                            else None)
+                if rollback is None:
+                    raise
+                step = rollback
+                live_drain = None  # its pending rounds were rolled back
+                extras = resil.last_restored_extras or {}
+                # a snapshot at an epoch's start re-seeds nothing
+                reseed = (extras if step % steps_per_epoch and "acc" in extras
+                          else None)
+                for kept in (history, unreported):
+                    kept[:] = [r for r in kept if r["step"] < step]
+                forks = resil.manager.policy.forks
+                if forks:
+                    # a fork changes the replayed epochs: their end blocks
+                    # run again, reporting what the healed run did
+                    completed_epoch = min(completed_epoch,
+                                          step // steps_per_epoch - 1)
+                # the checkpoints above the rollback hold the rolled-back
+                # trajectory; after a fork the rollback round's must hold
+                # the fork (the demotion floor, the blacklist)
+                checkpointer.discard_steps_after(step)
+                if forks:
+                    checkpointer.resave(session, step)
+                if engine is not None:
+                    engine.restart(step)  # drop the staged window
+                if main:
+                    m = resil.manager
+                    print(f"resilience: recovered from divergence at round "
+                          f"{e.step} — rolled back to round {step} under "
+                          f"policy {cfg.recover_policy!r} (recovery "
+                          f"{m.recoveries}/{m.max_recoveries})", flush=True)
         # the end-of-training save: a run's last rounds past the final
         # checkpoint_every boundary would otherwise be lost to a resume
         if checkpointer.will_save(session.state.step, force=True):
@@ -404,6 +529,8 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     print(f"run report: {path}")
         if ledger is not None:  # a partial ledger is evidence too
             ledger.write(writer.logdir)
+        if resil is not None:
+            resil.close()  # the signal dispositions, crashes included
     return val, history, {"resumed_from": start,
                           "save_ms": checkpointer.last_save_ms,
                           "restore_ms": checkpointer.last_restore_ms,

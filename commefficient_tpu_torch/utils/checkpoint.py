@@ -38,10 +38,17 @@ checkpoint with a blob is refused by a session without a controller; one
 without a blob restores into a controlled session with a warning (the
 controller starts fresh), as the reference does.
 
-Not ported: the hosted client stores and the resilience blacklist
-(ROADMAP A11; ``Config`` refuses their flags), and the reference's
-migration of checkpoints older than its ``comp`` leaf (the port has no
-older format).
+A session with a resilience blacklist (``recover_policy='skip_clients'``)
+saves it (``blacklist``, int64 client ids), and restore blacklists those
+clients again, so a resume does not re-admit them. The leaves go back into
+a session through ``commit_fed_state``, which the resilience vault's
+rollback shares. A recovery drops the checkpoints above its rollback round
+(``discard_steps_after``) and, after a policy that forks the run, saves
+the rollback round again (``resave``).
+
+Not ported: the hosted client stores (ROADMAP A11, item A.1.2; ``Config``
+refuses their flags), and the reference's migration of checkpoints older
+than its ``comp`` leaf (the port has no older format).
 """
 
 from __future__ import annotations
@@ -87,6 +94,19 @@ def _sha256_file(path: str) -> str:
 
 def _to_host(leaf):
     return leaf.detach().to("cpu") if torch.is_tensor(leaf) else leaf
+
+
+def commit_fed_state(session, leaves: dict) -> None:
+    """Install ``leaves`` (every ``FedState`` leaf in ``full_state``'s
+    layout: host or device tensors, None, the int ``step``) into
+    ``session``: each tensor copied onto the session's device, a sharded
+    leaf cut to this rank's slice (``set_full_state``). The checkpoint
+    restore and the resilience vault's rollback both commit through here,
+    so the two cannot drift; the copy keeps the caller's tensors apart
+    from the state the rounds update in place."""
+    session.set_full_state(FedState(**{
+        f: (v.to(session.device, copy=True) if torch.is_tensor(v) else v)
+        for f, v in leaves.items()}))
 
 
 class FedCheckpointer:
@@ -153,6 +173,11 @@ class FedCheckpointer:
             # drained round up to this step
             blob["control"] = torch.from_numpy(
                 session.controller.state_blob())
+        if session._client_blacklist is not None:
+            # the skip_clients blacklist only grows: a resumed run keeps
+            # masking the clients a recovery condemned
+            blob["blacklist"] = torch.from_numpy(
+                session._client_blacklist.astype("int64"))
         os.makedirs(os.path.join(self.root, "manifests"), exist_ok=True)
         path = self.path(round_idx)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -177,9 +202,39 @@ class FedCheckpointer:
 
     def _rotate(self) -> None:
         for step in self.all_steps()[:-MAX_TO_KEEP]:
-            for p in (self.path(step), self._manifest_path(step)):
-                if os.path.exists(p):
-                    os.remove(p)
+            self._delete(step)
+
+    def _delete(self, step: int) -> None:
+        for p in (self.path(step), self._manifest_path(step)):
+            try:
+                os.remove(p)
+            except FileNotFoundError:  # absent, or another rank's delete
+                pass
+
+    def discard_steps_after(self, step: int) -> None:
+        """Delete the retained checkpoints above round ``step`` and their
+        manifests (rank 0): after a rollback to ``step`` they hold the
+        rolled-back trajectory. A ``retry`` replay would write them again
+        bit for bit, but a forking recovery would not, and ``maybe_save``
+        never overwrites a step on disk, so a later ``--resume`` would
+        restore a state from before the recovery."""
+        if not self.enabled:
+            return
+        for s in self.all_steps():
+            if s > int(step):
+                self._delete(s)
+
+    def resave(self, session, step: int) -> bool:
+        """Save the session's CURRENT state at ``step``, replacing a
+        retained checkpoint there: after a forking recovery the rollback
+        round's state is restored but the policy changed what the old file
+        predates (the demotion floor, the blacklist), and a crash before
+        the next boundary must resume with the fork. No-op without a
+        checkpoint_dir."""
+        if not self.enabled:
+            return False
+        self._delete(step)
+        return self.maybe_save(session, int(step), force=True)
 
     def verify_step(self, step: int) -> Optional[str]:
         """None when the step's file matches its manifest, else the
@@ -304,13 +359,12 @@ class FedCheckpointer:
                     raise ValueError(
                         f"checkpoint leaf {f!r} is {tuple(saved.shape)} "
                         f"{saved.dtype}, this session's {shape} {dtype}")
-                saved = saved.to(session.device)
             leaves[f] = saved
         if rung is not None:
             # the dispatch on the saved rung: the leaves are in its
             # layout, so nothing migrates
             session.set_active_rung(rung, migrate=False)
-        session.set_full_state(FedState(**leaves))
+        commit_fed_state(session, leaves)
         if controller is not None:
             if "control" in blob:
                 # the saved rung again (a no-op) and the policy's state:
@@ -323,5 +377,10 @@ class FedCheckpointer:
                     "the controller starts fresh (initial rung, zero byte "
                     "spend), so the resumed rung sequence is NOT the "
                     "uninterrupted run's", stacklevel=3)
+        if "blacklist" in blob and blob["blacklist"].numel():
+            # condemned again: blacklist_clients refuses a session that
+            # cannot mask them (no fedsim) rather than re-admit them
+            session.blacklist_clients(blob["blacklist"].numpy())
+        session.sync_round_clock()
         self.last_restore_ms = 1e3 * (time.perf_counter() - t0)
         return int(leaves["step"])

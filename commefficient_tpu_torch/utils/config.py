@@ -15,7 +15,11 @@ ef_feedback, ``ladder``, ``budget_mb``, ``control_schedule``,
 ``control_hysteresis``) are checked as the reference checks them
 (``_validate_control``; ``control_enabled`` gates the build); the
 ``staleness_aware`` policy and its ``control_staleness_*`` /
-``control_fill_*`` knobs are refused, naming asyncfed/.
+``control_fill_*`` knobs are refused, naming asyncfed/. The self-healing
+flags (``recover_policy`` none|retry|demote|skip_clients,
+``snapshot_every``, ``max_recoveries``, ``preempt_signals``) are checked
+as the reference checks them (``_validate_resilience``;
+``recovery_enabled`` gates the build).
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -38,6 +42,9 @@ CLIENT_STORES = ("device", "host", "mmap")
 # mirrors the fedsim/ availability registry (fedsim.available_models);
 # pinned equal by tests/test_torch_fedsim.py
 AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
+# mirrors the resilience/ policy registry (available_recover_policies);
+# pinned equal by tests/test_torch_resilience.py
+RECOVER_POLICIES = ("none", "retry", "demote", "skip_clients")
 
 # the staleness_aware policy's knobs wait for the engine whose scalars it
 # reads (control/policy.py refuses the policy itself with the same words)
@@ -46,7 +53,6 @@ _ASYNC_CONTROL = ("the staleness_aware control policy, which reads the "
                   "(ROADMAP A11)")
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "recover_policy": "resilience/ rollback (ROADMAP A11)",
     "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
     "client_store_path": "the hosted client stores (ROADMAP A11)",
     "offload_client_state": "the hosted client stores (ROADMAP A11)",
@@ -67,9 +73,6 @@ _UNPORTED = {
     "control_staleness_lo": _ASYNC_CONTROL,
     "control_fill_hi": _ASYNC_CONTROL,
     "control_fill_lo": _ASYNC_CONTROL,
-    "snapshot_every": "resilience/ snapshots (ROADMAP A11)",
-    "max_recoveries": "resilience/ rollback (ROADMAP A11)",
-    "preempt_signals": "resilience/ preemption (ROADMAP A11)",
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -283,8 +286,23 @@ class Config:
     # rounds between two ef_feedback switches
     control_hysteresis: int = 8
 
-    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
+    # --- self-healing (resilience/) ---
+    # what a caught DivergenceError does: none (the run dies) | retry
+    # (roll back to the last snapshot and replay; the nan_client injection
+    # is transient, so the healed run is the unbroken one) | demote (also
+    # floor the control/ ladder one rung cheaper) | skip_clients (also
+    # mask the suspect clients out of every later round). Needs
+    # --telemetry_level >= 1, whose drains detect the divergence
     recover_policy: str = "none"
+    # rounds between two drain-certified state snapshots (host memory)
+    snapshot_every: int = 16
+    # recoveries a run may take before the DivergenceError is re-raised
+    max_recoveries: int = 2
+    # SIGTERM/SIGINT request a preemption-safe shutdown (drain, force-save,
+    # exit 75) at the next round boundary; chaos "preempt@R" is its twin
+    preempt_signals: bool = False
+
+    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     client_store_cache_rows: int = 0
     client_store_path: str = ""
     offload_client_state: bool = False
@@ -303,9 +321,6 @@ class Config:
     control_staleness_lo: float = 0.5
     control_fill_hi: float = 1.0
     control_fill_lo: float = 0.25
-    snapshot_every: int = 16
-    max_recoveries: int = 2
-    preempt_signals: bool = False
 
     seed: int = 42
 
@@ -330,6 +345,7 @@ class Config:
                     f"{blocker}; leave it at {default!r}"
                 )
         self._validate_control()
+        self._validate_resilience()
         from commefficient_tpu_torch.telemetry import TELEMETRY_LEVELS
 
         if self.telemetry_level not in TELEMETRY_LEVELS:
@@ -527,9 +543,55 @@ class Config:
                 if ev.kind not in PORTED_KINDS:
                     raise ValueError(
                         f"chaos kind {ev.kind!r} is not ported yet: the "
-                        "elastic fleet and preemption need the width "
-                        "ladder and resilience/ (ROADMAP A11); the port "
-                        f"runs {PORTED_KINDS}")
+                        "elastic fleet needs the per-width round programs "
+                        "(ROADMAP A11, item A.1.4); the port runs "
+                        f"{PORTED_KINDS}")
+
+    def _validate_resilience(self) -> None:
+        """The reference's checks of the self-healing flags (resilience/):
+        the values here; what needs the run length or the session at the
+        train entry and the session build."""
+        if self.recover_policy not in RECOVER_POLICIES:
+            raise ValueError(
+                f"recover_policy must be one of {RECOVER_POLICIES}, got "
+                f"{self.recover_policy!r}")
+        if self.snapshot_every < 1:
+            raise ValueError(
+                f"snapshot_every must be >= 1 round, got "
+                f"{self.snapshot_every}")
+        if self.max_recoveries < 1:
+            raise ValueError(
+                f"max_recoveries must be >= 1, got {self.max_recoveries} "
+                "(use recover_policy='none' to disable recovery entirely)")
+        if self.recover_policy == "none":
+            return
+        if self.telemetry_level < 1:
+            raise ValueError(
+                f"recover_policy={self.recover_policy!r} recovers from the "
+                "flight recorder's DivergenceError, which only fires at "
+                "--telemetry_level >= 1 (the round's non-finite sentinel "
+                "and the drain-time check) — at level 0 a divergence is "
+                "never detected, so the policy would silently never act")
+        if self.recover_policy == "demote":
+            if not self.control_enabled or not self.ladder:
+                raise ValueError(
+                    "recover_policy='demote' descends the control/ "
+                    "compression ladder — configure a controller with a "
+                    'ladder (e.g. --control_policy fixed --ladder '
+                    '"k=60000,30000")')
+            from commefficient_tpu_torch.control.ladder import parse_ladder
+
+            if len(parse_ladder(self.ladder)) < 2:
+                raise ValueError(
+                    "recover_policy='demote' needs a ladder with >= 2 "
+                    "rungs to demote between")
+        if self.recover_policy == "skip_clients" and not self.fedsim_enabled:
+            raise ValueError(
+                "recover_policy='skip_clients' masks blacklisted clients "
+                "through the fedsim participation mask, but this config "
+                "masks nothing (availability='always', no chaos) — enable "
+                "fedsim (e.g. --availability bernoulli) or pick another "
+                "policy")
 
     def _validate_aggregate(self) -> None:
         """The reference's checks of ``aggregate`` (sparse aggregation,
@@ -797,6 +859,14 @@ class Config:
         rungs and a controller); False keeps the session one rung over
         this config, building what it built before."""
         return self.control_policy != "none"
+
+    @property
+    def recovery_enabled(self) -> bool:
+        """True when the divergence rollback-and-recover machinery is built
+        (resilience/'s vault and manager); False builds nothing of it. The
+        preemption guard has its own gates: ``preempt_signals`` or a
+        ``preempt@R`` chaos event."""
+        return self.recover_policy != "none"
 
     @property
     def pipeline_enabled(self) -> bool:

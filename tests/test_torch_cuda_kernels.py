@@ -701,3 +701,60 @@ def test_rank_by_rank_pair_scatter_bit_equal_plain(dev, buffers, kb):
     got = scatter_add_pairs(d, idx.to(dev), val.to(dev), buffers=buffers)
     assert torch.equal(got.cpu(), want)
     assert int((want != 0).sum()) > 0
+
+
+def test_prewarmed_ten_rung_ladder_switches_build_no_plan(dev):
+    """A 10-rung ``num_cols`` ladder (a linear model's sketch session):
+    the controller's prewarm builds every rung's K1, K2 and K4 plans and
+    runs the migration's torch ops on scratch tensors, launching no
+    CountSketch kernel; then a switch to every rung (each table decoded by
+    K2 and re-sketched by K1) builds no plan."""
+    import warnings
+
+    import numpy as np
+
+    from commefficient_tpu_torch.control import build_controller
+    from commefficient_tpu_torch.data import FedDataset, FedSampler
+    from commefficient_tpu_torch.models.losses import softmax_cross_entropy
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    data = {"x": rng.normal(size=(256, 48)).astype(np.float32),
+            "y": rng.integers(0, 10, 256).astype(np.int32)}
+
+    def loss_fn(params, batch):
+        logits = batch["x"] @ params["w"] + params["b"]
+        y = batch["y"]
+        return softmax_cross_entropy(logits, y), {
+            "count": torch.tensor(float(y.numel()), device=y.device)}
+
+    params = {"w": (0.01 * rng.normal(size=(48, 10))).astype(np.float32),
+              "b": np.zeros(10, np.float32)}
+    cols = ",".join(str(c) for c in range(256, 16, -24))
+    cfg = Config(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+                 k=64, num_rows=3, num_cols=256, num_clients=16,
+                 num_workers=4, local_batch_size=8, num_devices=1,
+                 device="cuda", device_data=False, control_policy="fixed",
+                 control_schedule="0-=0", ladder=f"num_cols={cols}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sess = FederatedSession(cfg, params, loss_fn)
+    ctrl = build_controller(cfg, sess, num_rounds=8)
+    kern.reset_launch_counts()
+    assert ctrl.prewarm() == 10
+    assert sum(kern.launch_counts().values()) == 0
+    sampler = FedSampler(FedDataset(data, 16, iid=True, seed=0),
+                         num_workers=4, local_batch_size=8, seed=1)
+    for s in range(2):
+        ids, batch = sampler.sample_round(s)
+        sess.train_round(ids, batch, 0.1)
+    built = kern.plan_builds()
+    kern.reset_launch_counts()
+    for i in [*range(1, 10), 0]:
+        sess.set_active_rung(i)
+        assert sess.state.error.shape == sess.rungs[i].spec.table_shape
+    torch.cuda.synchronize()
+    assert kern.plan_builds() == built
+    n = kern.launch_counts()
+    assert n["estimate_median"] == n["sketch_rows"] == 2 * 10

@@ -10,8 +10,8 @@ tests/test_fedsim.py's ``test_masked_round_unbiased_per_mode``) and the
 reference's masked run (the twins' bounds of test_torch_compressors.py);
 a dropped client's bank rows carry forward, a corrupt flag on a dead
 client cannot poison the aggregate, a round where every client drops
-freezes params and server state; bad knobs, and the fleet and preempt
-kinds (ROADMAP A11), are refused. Masking on two gloo ranks is held in
+freezes params and server state; bad knobs, and the fleet kinds
+(ROADMAP A11, item A.1.4), are refused, and ``preempt@R`` is admitted. Masking on two gloo ranks is held in
 tests/test_torch_sharded_decode.py (its fixture).
 
 DP: the port's gradient minus its own recorded draw equals the
@@ -154,7 +154,11 @@ def test_config_rejects_bad_fedsim_knobs(kw, match):
                                   "shrink@4:rounds=2-", "preempt@3"])
 def test_fleet_and_preempt_kinds_refused_naming_a11(plan):
     assert parse_chaos(plan)  # the reference's grammar parses them
-    with pytest.raises(ValueError, match="ROADMAP A11"):
+    if plan.startswith("preempt"):
+        # resilience/ runs preemption: Config admits it since then
+        assert Config(chaos=plan).chaos == plan
+        return
+    with pytest.raises(ValueError, match="ROADMAP A11, item A.1.4"):
         Config(chaos=plan)
 
 

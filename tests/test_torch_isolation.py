@@ -53,6 +53,11 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/control/controller.py",
                  "commefficient_tpu_torch/control/ladder.py",
                  "commefficient_tpu_torch/control/policy.py",
+                 "commefficient_tpu_torch/resilience/__init__.py",
+                 "commefficient_tpu_torch/resilience/guard.py",
+                 "commefficient_tpu_torch/resilience/manager.py",
+                 "commefficient_tpu_torch/resilience/policy.py",
+                 "commefficient_tpu_torch/resilience/vault.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
                  "commefficient_tpu_torch/train/cv_train.py",
                  "commefficient_tpu_torch/train/gpt2_train.py",

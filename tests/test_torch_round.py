@@ -118,7 +118,7 @@ def test_schedule_matches_reference():
 
 @pytest.mark.parametrize("flag,value,item", [
     ("client_store", "host", "A11"),
-    ("preempt_signals", "true", "A11"),
+    ("offload_client_state", "true", "A11"),
     ("scan_rounds", "2", "A11"),
     ("model_axis", "2", "A17"),
     ("max_retraces", "2", "A11"),
@@ -133,7 +133,7 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
 
 
 # the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a, A12b and A11's
-# control/ lifted from the refusals
+# control/ and resilience/ lifted from the refusals
 _EF = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
        "ef_feedback", "--ladder", "k=10,5"]
 LIFTED = {
@@ -181,6 +181,11 @@ LIFTED = {
     "control_ef_down": _EF + ["--control_ef_down", "-0.1"],
     "control_fidelity_max": _EF + ["--control_fidelity_max", "0.5"],
     "control_hysteresis": _EF + ["--control_hysteresis", "4"],
+    "recover_policy": ["--telemetry_level", "1", "--recover_policy",
+                       "retry"],
+    "snapshot_every": ["--snapshot_every", "4"],
+    "max_recoveries": ["--max_recoveries", "3"],
+    "preempt_signals": ["--preempt_signals", "true"],
 }
 
 
@@ -236,7 +241,7 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 22
+    assert len(_UNPORTED) == 18
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 
