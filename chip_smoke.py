@@ -249,7 +249,23 @@ phase prints one line (or a few) and raises on failure, so the script exits
     ladder prewarmed (no launch), a switch to each rung with no plan
     built, and a fresh process's first switch (``chip_smoke.py
     --fresh-switch``) within 2x of its steady switches; the snapshot's
-    capture ms and bytes, the restore's and the recovery's ms.
+    capture ms and bytes, the restore's and the recovery's ms;
+26. ``clientstore`` (host-resident client state, ``clientstore/``): the
+    main path with ``--local_momentum 0.9`` (a velocity bank) at level 1
+    for 8 rounds on deterministic cuDNN on the host data path: at 16
+    clients the ``device``, ``host``, ``mmap`` and cached (4 rows) stores
+    and ``host``, ``mmap`` and ``device`` at ``--pipeline_depth 2``, every
+    FedState leaf, the bank and every loss bit-equal to the device bank's
+    run, K1 16, K2 8 and K3 16 launches a run, the bytes per round of
+    ``sketch_local_momentum``, the stale cohorts gathered again at depth
+    2; a ``host`` run checkpointed at round 4 and resumed, bit-equal; at
+    10,000 clients (a 262.9 GB bank) the device bank's allocation raising
+    ``torch.OutOfMemoryError`` and ``mmap`` training 8 rounds, its file's
+    allocated bytes (``st_blocks``, or the free disk's drop where the file
+    system reports no holes) within the rows written; the round ms of each
+    store at both depths; C.4: under the sharded decode and at
+    ``--num_blocks 4`` a 4-rung ``num_cols`` ladder prewarmed and every
+    rung visited with no plan built after the prewarm.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -4076,6 +4092,367 @@ def _resilience_phase(torch, cs, kern, cv_train, dataset_dir, work):
     return add_forms(*forms)
 
 
+# -- clientstore/: host and mmap client banks, the LRU cache, the streamer --
+
+CS_ROUNDS = 8  # rounds of each clientstore-phase run
+CS_CLIENTS = 16
+CS_POPULATION = 10_000  # a bank of 262.9 GB: more than the card holds
+CS_ARGS = MAIN_ARGS + ["--local_momentum", "0.9", "--telemetry_level", "1",
+                       "--device_data", "false"]
+CS_BYTES = {"upload_bytes": 10_108_800, "download_bytes": 26_292_520}
+CS_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+CS_SCALARS = ("clientstore/cache_hit_rate", "clientstore/evictions",
+              "clientstore/h2d_stage_ms", "clientstore/writeback_ms")
+CS_ROW_BYTES = 4 * D_FULL  # one bank row, 26,292,520 B
+# C.4's ladders: four num_cols rungs, each visited once a run
+C4_COLS = [500_000, 400_000, 300_000, 250_000]
+C4_SCHEDULE = "0-0=0,1-1=1,2-2=2,3-3=3,4-=0"
+C4_DECODES = {"sharded": SHARDED_FLAGS, "num_blocks_4": ["--num_blocks", "4"]}
+
+
+class StoreProbe:
+    """Inside ``with StoreProbe():`` each session's hosted-store counters
+    (``client_store_stats``: the stale cohorts gathered again, the pinned
+    bytes) are recorded as the runner closes its store."""
+
+    def __init__(self):
+        from commefficient_tpu_torch.parallel import FederatedSession
+
+        self.cls, self.stats = FederatedSession, []
+
+    def __enter__(self):
+        self.saved = close = self.cls.close_client_store
+        probe = self
+
+        def closing(sess):
+            if sess._streamer is not None and not sess._streamer._closed:
+                probe.stats.append(dict(sess.client_store_stats))
+            return close(sess)
+
+        self.cls.close_client_store = closing
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.close_client_store = self.saved
+
+
+def load_blob(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def blob_equal(torch, a, b):
+    """(bit-equal, max abs difference) of two checkpoints' FedState leaves
+    but the client banks, and of their velocity banks, wherever each
+    keeps it (``client_vel`` on the device, ``host_vel`` hosted)."""
+    fa, fb = a["fed_state"], b["fed_state"]
+    keys = [k for k in fa if k not in ("client_vel", "client_err")]
+    same, err = state_diff(torch, {k: fa[k] for k in keys},
+                           {k: fb[k] for k in keys}, GEOMETRY["d"])
+    va = fa["client_vel"] if fa["client_vel"] is not None else a["host_vel"]
+    vb = fb["client_vel"] if fb["client_vel"] is not None else b["host_vel"]
+    bank = torch.equal(va, vb)
+    return same and bank, max(err, float((va - vb).abs().max()))
+
+
+def rss_bytes():
+    """(resident bytes now, the process's peak resident bytes): VmRSS and
+    ``ru_maxrss`` (gVisor's kernel does not report VmHWM)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) * 1024 for line in f
+                   if line.startswith("VmRSS:"))
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def c4_probe(torch, kern, cv_train, dataset_dir, flags):
+    """C.4 on the card: a full-width main-path session on a ``num_cols``
+    ladder of C4_COLS under ``flags`` (the sharded decode, or
+    ``--num_blocks 4``), prewarmed by its controller, then C4_SCHEDULE's
+    5 rounds (every rung once, 4 switches, each migrating the tables):
+    the plan builds from the prewarm's end to the last round's, the
+    prewarm's launches, the switches and the rounds' launches."""
+    from commefficient_tpu_torch.control import build_controller
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(MAIN_ARGS + flags + [
+        "--telemetry_level", "1", "--control_policy", "fixed",
+        "--control_schedule", C4_SCHEDULE, "--dataset_dir", dataset_dir,
+        "--ladder", "num_cols=" + ",".join(str(c) for c in C4_COLS)])
+    train, _, _, params, loss_fn, augment = cv_train.build_model_and_data(cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the envelope, the 1-device decode
+        sess = FederatedSession(cfg, params, loss_fn)
+    ctrl = build_controller(cfg, sess, num_rounds=5)
+    kern.reset_launch_counts()
+    ctrl.prewarm()
+    torch.cuda.synchronize()
+    prewarm_launches = sum(kern.launch_counts().values())
+    builds = kern.plan_builds()
+    sampler = FedSampler(train, num_workers=cfg.num_workers,
+                         local_batch_size=cfg.sampler_batch_size,
+                         seed=cfg.seed, augment=augment)
+    for s in range(5):
+        ids, batch = sampler.sample_round(s)
+        sess.train_round(ids, batch, 0.1)
+    torch.cuda.synchronize()
+    return dict(plan_builds=kern.plan_builds() - builds,
+                prewarm_launches=prewarm_launches, switches=ctrl.switches,
+                rung=sess.active_rung, launches=kern.launch_counts(),
+                forms=kern.form_counts())
+
+
+def clientstore_phase(torch, kern, cv_train, dataset_dir, work):
+    """Host-resident client state (``clientstore/``) on the card: the main
+    path with local momentum (CS_ARGS: one [num_clients, D] velocity
+    bank) at level 1 for CS_ROUNDS rounds on deterministic cuDNN, on the
+    host data path, each run through ``cv_train.main`` with the counters
+    set to 0 just before it and read just after:
+
+    (a) at CS_CLIENTS clients, ``device`` (the bank on the card),
+    ``host``, ``mmap`` (a named file in the phase's directory) and
+    ``host`` with ``--client_store_cache_rows 4``: every FedState leaf,
+    the velocity bank and every loss bit-equal to the device run, K1 16,
+    K2 8 and K3 16 launches a run, the bytes per round of
+    ``sketch_local_momentum``, no bank in the hosted checkpoints' state;
+    (b) ``host`` at ``--pipeline_depth 2``, bit-equal, its stale cohorts
+    gathered again counted; (c) CS_POPULATION clients: the device bank's
+    allocation raises ``torch.OutOfMemoryError``, and ``mmap`` trains
+    CS_ROUNDS rounds with finite losses, its file's allocated bytes
+    (``st_blocks``, or the free disk's drop where the file system reports
+    no holes) at most the rows written plus slack (host RSS, the round ms
+    median, the ``clientstore/*`` scalars and the pinned bytes printed);
+    (d) a ``host`` run checkpointed at round 4 and resumed to CS_ROUNDS,
+    bit-equal to (a), its checkpoint carrying ``host_vel``; (e) the round
+    ms of ``device``, ``host`` and ``mmap`` at depths 0 and 2 side by
+    side; (f) C.4: under the sharded decode and at ``--num_blocks 4``, a
+    4-rung ``num_cols`` ladder prewarmed and every rung visited with no
+    plan built after the prewarm. Returns the summed launch forms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _clientstore_phase(torch, kern, cv_train, dataset_dir, work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _clientstore_phase(torch, kern, cv_train, dataset_dir, work):
+    t0 = time.perf_counter()
+    forms = []
+    probe = StoreProbe()
+    base = CS_ARGS + ["--num_clients", str(CS_CLIENTS)]
+    runs = {}
+
+    def run(name, args):
+        gc.collect()
+        t = time.perf_counter()
+        n = len(probe.stats)
+        with probe:
+            r = state_run(torch, kern, cv_train, dataset_dir, work, name,
+                          base + args + ["--logdir",
+                                         os.path.join(work, name)],
+                          rounds=CS_ROUNDS)
+        forms.append(r["forms"])
+        r["wall_s"] = round(time.perf_counter() - t, 3)
+        r["store"] = probe.stats[n] if len(probe.stats) > n else {}
+        r["blob"] = load_blob(os.path.join(work, name,
+                                           f"step_{CS_ROUNDS}.pt"))
+        r["scalars"] = {k: v for k, v in read_metrics(
+            r["out"]["logdir"]).items() if k.startswith("clientstore/")}
+        r["ms"] = statistics.median(r["round_ms"][1:])
+        runs[name] = r
+        return r
+
+    def launches_ok(name, ln, rounds=CS_ROUNDS):
+        for k, per in CS_LAUNCHES.items():
+            check(ln[k] == per * rounds, f"clientstore {name}: {k} "
+                  f"launched {ln[k]} times, expected {per * rounds}")
+        check(ln["estimate_at"] == ln["estimate_at_range"] == 0,
+              f"clientstore {name}: K4 launched: {ln}")
+
+    def hold(name, r, hosted=True):
+        same, err = blob_equal(torch, r["blob"], dev["blob"])
+        losses = [h["loss"] for h in r["out"]["history"]]
+        bpr = r["out"]["bytes_per_round"]
+        stats = r["scalars"]
+        phase("clientstore", run=name, leaves_bit_equal=same,
+              max_abs_err=err, losses_bit_equal=losses == dev_losses,
+              launches=json.dumps({k: v for k, v in r["launches"].items()
+                                   if v}), data=r["out"]["data_path"],
+              round_ms_median=round(r["ms"], 3),
+              stage_ms_median=round(statistics.median(stats.get(
+                  "clientstore/h2d_stage_ms", {0: 0.0}).values()), 3),
+              writeback_ms_median=round(statistics.median(stats.get(
+                  "clientstore/writeback_ms", {0: 0.0}).values()), 3),
+              hit_rate=json.dumps([round(v, 4) for _, v in sorted(stats.get(
+                  "clientstore/cache_hit_rate", {}).items())]),
+              store=json.dumps(r["store"]), peak=r["peak"],
+              wall_s=r["wall_s"])
+        check(same, f"clientstore {name}: the state differs from the "
+              f"device bank's by {err}")
+        check(losses == dev_losses, f"clientstore {name}: losses differ")
+        launches_ok(name, r["launches"])
+        check(all(bpr[k] == v for k, v in CS_BYTES.items()),
+              f"clientstore {name}: bytes per round {bpr}")
+        fs = r["blob"]["fed_state"]
+        if hosted:
+            check(fs["client_vel"] is None and "host_vel" in r["blob"]
+                  and set(stats) == set(CS_SCALARS) and r["store"],
+                  f"clientstore {name}: not hosted ({sorted(stats)})")
+        else:
+            check(fs["client_vel"] is not None and not stats,
+                  f"clientstore {name}: the device bank's run hosted")
+
+    # (a) the four stores at CS_CLIENTS clients
+    dev = run("cs_device", [])
+    dev_losses = [h["loss"] for h in dev["out"]["history"]]
+    hold("device", dev, hosted=False)
+    hold("host", run("cs_host", ["--client_store", "host"]))
+    hold("mmap", run("cs_mmap", [
+        "--client_store", "mmap", "--client_store_path",
+        os.path.join(work, "cs_bank")]))
+    cached = run("cs_cached", ["--client_store", "host",
+                               "--client_store_cache_rows", "4"])
+    hold("cached", cached)
+    check(sum(cached["scalars"]["clientstore/evictions"].values()) > 0,
+          "clientstore cached: no eviction")
+
+    # (b) + (e) depth 2 for every store
+    deep = run("cs_host_depth2", ["--client_store", "host",
+                                  "--pipeline_depth", "2"])
+    hold("host_depth2", deep)
+    check(deep["store"]["regathers"] > 0, "clientstore depth 2: no cohort "
+          "was gathered again (16 clients, 8 a round: they collide)")
+    hold("mmap_depth2", run("cs_mmap_depth2", [
+        "--client_store", "mmap", "--client_store_path",
+        os.path.join(work, "cs_bank2"), "--pipeline_depth", "2"]))
+    hold("device_depth2", run("cs_device_depth2", ["--pipeline_depth", "2"]),
+         hosted=False)
+    phase("clientstore_round_ms", card=repr(card_line()), **{
+        name: round(runs[f"cs_{name}"]["ms"], 3) for name in (
+            "device", "host", "mmap", "cached", "device_depth2",
+            "host_depth2", "mmap_depth2")})
+
+    # (d) checkpointed at round 4, resumed to CS_ROUNDS
+    ck = os.path.join(work, "cs_resume")
+    half = CS_ROUNDS // 2
+    gc.collect()
+    kern.reset_launch_counts()
+    flags = base + ["--client_store", "host", "--dataset_dir", dataset_dir,
+                    "--checkpoint_dir", ck, "--checkpoint_every", str(half)]
+    cv_train.main(flags + ["--max_rounds", str(half), "--logdir",
+                           ck + "_a"])
+    at_half = load_blob(os.path.join(ck, f"step_{half}.pt"))
+    second = cv_train.main(flags + ["--max_rounds", str(CS_ROUNDS),
+                                    "--resume", "true", "--logdir",
+                                    ck + "_b"])
+    forms.append(kern.form_counts())
+    launches_ok("resume", kern.launch_counts())
+    same, err = blob_equal(torch, load_blob(os.path.join(
+        ck, f"step_{CS_ROUNDS}.pt")), dev["blob"])
+    phase("clientstore", run="resume",
+          resumed_from=second["checkpoint"]["resumed_from"],
+          carries_host_vel="host_vel" in at_half,
+          host_vel_shape=json.dumps(list(at_half["host_vel"].shape)),
+          checkpoint_bytes=second["checkpoint"]["bytes"],
+          restore_ms=second["checkpoint"]["restore_ms"],
+          leaves_bit_equal=same, max_abs_err=err)
+    check(second["checkpoint"]["resumed_from"] == half
+          and "host_vel" in at_half, "clientstore resume: no hosted resume")
+    check(same, f"clientstore resume: differs from the straight run by "
+          f"{err}")
+    del at_half
+    for r in runs.values():
+        r.pop("blob", None)
+
+    # (c) a population whose bank the card cannot hold
+    import shutil
+
+    oom = getattr(torch, "OutOfMemoryError", torch.cuda.OutOfMemoryError)
+    pop = CS_ARGS + ["--num_clients", str(CS_POPULATION), "--dataset_dir",
+                     dataset_dir, "--max_rounds", str(CS_ROUNDS)]
+    gc.collect()
+    caught = None
+    try:
+        cv_train.main(pop + ["--logdir", os.path.join(work, "cs_oom")])
+    except oom as e:
+        caught = e
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(caught is not None, "clientstore population: the device bank of "
+          f"{CS_POPULATION} clients was allocated")
+    bank = os.path.join(work, "cs_population")
+    free = shutil.disk_usage(work).free
+    kern.reset_launch_counts()
+    n = len(probe.stats)
+    with probe:
+        big = cv_train.main(pop + ["--client_store", "mmap",
+                                   "--client_store_path", bank, "--logdir",
+                                   os.path.join(work, "cs_pop")])
+    forms.append(kern.form_counts())
+    launches_ok("population", kern.launch_counts())
+    rss, hwm = rss_bytes()
+    st = os.stat(bank + ".vel")
+    blocks = st.st_blocks * 512
+    drop = free - shutil.disk_usage(work).free  # the runner's close synced
+    # a file system that reports no holes gives the whole size in
+    # st_blocks (gVisor's 9p mounts do); the free space's drop is then
+    # what the file took
+    allocated, measure = ((blocks, "st_blocks") if blocks < st.st_size
+                          else (drop, "free_disk_drop"))
+    losses = [h["loss"] for h in big["history"]]
+    stats = {k: v for k, v in read_metrics(big["logdir"]).items()
+             if k.startswith("clientstore/")}
+    limit = CS_ROUNDS * 8 * CS_ROW_BYTES + (64 << 20)
+    phase("clientstore", run="population", clients=CS_POPULATION,
+          bank_bytes_logical=st.st_size, bank_bytes_allocated=allocated,
+          allocated_by=measure, st_blocks_bytes=blocks,
+          free_disk_drop=drop, allocated_limit=limit, free_disk_before=free,
+          device_oom=repr(str(caught).splitlines()[0][:120]),
+          rounds=len(losses), losses=json.dumps(losses),
+          round_ms_median=round(statistics.median(
+              h["ms"] for h in big["history"][1:]), 3),
+          host_rss=rss, host_rss_peak=hwm,
+          scalars=json.dumps({k: [round(x, 4) for _, x in sorted(v.items())]
+                              for k, v in stats.items()}),
+          store=json.dumps(probe.stats[n] if len(probe.stats) > n else {}),
+          card=repr(card_line()))
+    check(st.st_size == CS_POPULATION * CS_ROW_BYTES,
+          f"clientstore population: the bank file is {st.st_size} B")
+    check(len(losses) == CS_ROUNDS and all(math.isfinite(x)
+                                           for x in losses),
+          f"clientstore population: losses {losses}")
+    check(allocated <= limit, f"clientstore population: {allocated} B "
+          f"allocated for at most {CS_ROUNDS * 8} rows")
+    check(set(stats) == set(CS_SCALARS), "clientstore population: scalars")
+    os.unlink(bank + ".vel")
+
+    # (f) C.4
+    for name, flags in C4_DECODES.items():
+        gc.collect()
+        r = c4_probe(torch, kern, cv_train, dataset_dir, flags)
+        forms.append(r["forms"])
+        phase("clientstore", run=f"c4_{name}", plan_builds=r["plan_builds"],
+              prewarm_launches=r["prewarm_launches"],
+              switches=r["switches"], end_rung=r["rung"],
+              launches=json.dumps({k: v for k, v in r["launches"].items()
+                                   if v}))
+        check(r["plan_builds"] == 0 and r["prewarm_launches"] == 0,
+              f"clientstore C.4 {name}: {r['plan_builds']} plans built "
+              "after the prewarm")
+        check(r["switches"] == 4 and r["rung"] == 0,
+              f"clientstore C.4 {name}: {r['switches']} switches")
+        check(r["launches"]["estimate_at_range"] > 0,
+              f"clientstore C.4 {name}: no range-form launch")
+    phase("clientstore_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
+
 def main() -> int:
     import torch
 
@@ -4221,6 +4598,11 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["resilience"] = resilience_phase(torch, cs, kern, cv_train,
                                                    dataset_dir, work)
+    # host-resident client state: the stores, the cache, the streamer, C.4
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["clientstore"] = clientstore_phase(torch, kern, cv_train,
+                                                     dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

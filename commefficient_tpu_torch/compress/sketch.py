@@ -185,7 +185,7 @@ class SketchCompressor(Compressor):
         cfg, spec = self.cfg, self.spec
         dampen = self.resolved_dampening()
         rho = cfg.virtual_momentum
-        S = -(-d // group.size)
+        _, S = self.shard_slice(group.rank, group.size, d)
         start, in_range = self._slice_coords(group.rank, S, d, agg.device)
         agg, momentum, error = map(self._up, (agg, momentum, error))
         m = rho * momentum + agg if rho > 0 else agg
@@ -208,6 +208,15 @@ class SketchCompressor(Compressor):
         g_idx, g_val = all_gather_pairs(gidx, val, group,
                                         segments=self.overlap_segments)
         return g_idx, g_val, self._down(new_m), self._down(e), extra
+
+    @staticmethod
+    def shard_slice(rank: int, size: int, d: int):
+        """``(start, S)``: the slice of coordinates that rank ``rank`` of
+        ``size`` decodes (the sharded decode, FSDP's extraction), ``S =
+        ceil(d / size)`` from ``start = rank * S``; K4's range form
+        estimates it each round, so the prewarm builds its plan."""
+        S = -(-d // size)
+        return rank * S, S
 
     @staticmethod
     def _slice_coords(rank: int, S: int, d: int, device):

@@ -47,6 +47,7 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
     estimate_at_range as estimate_at_range_kernel,
 )
 from commefficient_tpu_torch.ops.cuda.countsketch import (
+    estimate_all_slices,
     estimate_median,
     median_rows,
     sketch_rows,
@@ -515,9 +516,8 @@ def estimate_all(spec: CountSketch, table: torch.Tensor) -> torch.Tensor:
     table = _table(table)
     if spec.num_blocks == 1:
         return estimate_median(spec, table, operand=spec.dtype)
-    blk = -(-spec.d // spec.num_blocks)
     out = torch.empty(spec.d, dtype=torch.float32, device=table.device)
-    for start in range(0, spec.d, blk):
+    for start, blk in estimate_all_slices(spec):
         est = estimate_at_range_kernel(spec, table, start, blk)
         out[start:start + blk] = est[:spec.d - start]
         del est

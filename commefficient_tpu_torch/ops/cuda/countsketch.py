@@ -433,28 +433,44 @@ estimate_median.launches = 0
 estimate_median.forms = {}
 
 
-def prepare_plans(spec, device) -> None:
+def estimate_all_slices(spec):
+    """The ``(start, n)`` coordinate slices ``estimate_all`` walks at
+    ``num_blocks > 1`` (K4's range form a slice); () at one block."""
+    if spec.num_blocks == 1:
+        return ()
+    blk = -(-spec.d // spec.num_blocks)
+    return tuple((start, blk) for start in range(0, spec.d, blk))
+
+
+def prepare_plans(spec, device, slices=()) -> None:
     """Build, without a launch, the host plans of ``spec`` on ``device``
     that K1, K2 and K4 read (the per-spec caches their first launch would
-    fill): K1's row geometry, the inverse block permutation and, for the
-    one-kernel decode (``num_blocks == 1``), K2's plan for an f32 table
-    and, with bf16 storage, for a bf16 one. The control plane builds them
-    for every ladder rung before the first round; the caches keep every
-    entry, so a rung switch builds none (``plan_builds``)."""
+    fill): K1's row geometry, the inverse block permutation, for the
+    one-kernel decode (``num_blocks == 1``) K2's plan, and K4's range
+    plan of every slice ``estimate_all`` walks at ``num_blocks > 1`` and
+    of each ``(start, n)`` of ``slices`` (the sharded decode's slice of
+    this rank); each for an f32 table and, with bf16 storage, for a bf16
+    one. The control plane builds them for every ladder rung before the
+    first round; the caches keep every entry, so a rung switch builds
+    none (``plan_builds``)."""
     dev = str(device)
     _kernel_geometry(spec, dev)
     _inverse_perm(spec, dev)
-    if spec.num_blocks == 1:
-        _k2_plan(spec, dev, 4)
-        if spec.table_dtype == torch.bfloat16:
-            _k2_plan(spec, dev, 2)
+    sizes = (4, 2) if spec.table_dtype == torch.bfloat16 else (4,)
+    for itemsize in sizes:
+        if spec.num_blocks == 1:
+            _k2_plan(spec, dev, itemsize)
+        for start, n in (*estimate_all_slices(spec), *slices):
+            # positional, as estimate_at_range asks: the cache keys on
+            # the argument form
+            _range_plan(spec, int(start), int(n), dev, itemsize)
 
 
 def plan_builds() -> int:
     """Host plans built so far in this process: the misses of the
     per-spec caches K1, K2 and K4 read (``prepare_plans`` fills them)."""
-    return sum(f.cache_info().misses
-               for f in (_kernel_geometry, _k2_plan, _inverse_perm))
+    return sum(f.cache_info().misses for f in (
+        _kernel_geometry, _k2_plan, _inverse_perm, _range_plan))
 
 
 # -- K4: point estimates at a coordinate subset -----------------------------------
@@ -544,7 +560,7 @@ def estimate_at_range_torch(spec, table: torch.Tensor, start: int,
     return estimate_at_torch(spec, table, idx)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _range_plan(spec, start: int, n: int, device: str, itemsize: int = 4):
     """The range form's host plan for one (spec, slice): the slice's
     scramble blocks in scrambled order and, per CUDA block, the table
@@ -552,8 +568,9 @@ def _range_plan(spec, start: int, n: int, device: str, itemsize: int = 4):
     shared memory. Built once per slice (the sharded decode asks for the
     same slice every round) and kept alive here while the kernel may read
     it. Windows are staged in the table's type (``itemsize`` bytes). The
-    cache holds a plan for each of up to 64 slices: the sharded decode's
-    slice and every slice of ``estimate_all`` at ``num_blocks > 1``."""
+    cache keeps every plan (a session's specs and slices are fixed): the
+    sharded decode's slice and every slice of ``estimate_all`` at
+    ``num_blocks > 1``, of each ladder rung (``prepare_plans``)."""
     b = spec.sblock or 64  # no scramble: walk blocks of 64 in place
     inv = spec.inverse_block_perm()
     blocks = index_math.range_block_list(inv, b, start, n, spec.d)

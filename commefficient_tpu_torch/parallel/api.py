@@ -8,6 +8,13 @@ indices and the augment plan, and the gather and augment run on the
 device before the same round runs; ``FedModel`` is the callable facade
 (``fed_model(client_ids, batch)`` runs one round at the optimizer's lr)
 and ``FedOptimizer`` the schedule clock (``step()``).
+
+With a hosted client store (``--client_store host|mmap``) the session
+builds the ``clientstore/`` streamer: the cohort's rows are gathered from
+the host bank (ahead of the round by the pipeline's prefetch thread, or at
+the dispatch), copied to the card on a stager's stream, handed to the
+round as arguments, and the round's new rows written back asynchronously
+(``train_round``'s ``cohort``, ``host_vel``/``host_err``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from commefficient_tpu_torch import resolve_device
+from commefficient_tpu_torch.clientstore import build_streamer
 from commefficient_tpu_torch.compress import compressor_class, get_compressor
 from commefficient_tpu_torch.fedsim import build_environment
 from commefficient_tpu_torch.ops.countsketch import CountSketch
@@ -106,6 +114,13 @@ class RoundStager:
             slot[0] = torch.empty(tuple(shape), dtype=tdt, pin_memory=True)
         self._handed[key] = slot
         return slot[0].numpy()
+
+    def pinned_bytes(self, prefix: str = "") -> int:
+        """Bytes of pinned host memory the rings of keys starting with
+        ``prefix`` hold."""
+        return sum(slot[0].nbytes for key, ring in self._rings.items()
+                   if key.startswith(prefix) for slot in ring
+                   if slot[0] is not None)
 
     def stage(self, arrays: Dict[str, Any]):
         """``({key: device tensor}, ready event)``: each host array copied
@@ -225,7 +240,16 @@ class FederatedSession:
     and ``round_fn`` are the ACTIVE rung's (``active_rung``), and the
     state is in its layout. The controller (``controller``, attached by
     ``control.build_controller``) decides each round's rung in ``_round``
-    before the dispatch, switching through ``set_active_rung``."""
+    before the dispatch, switching through ``set_active_rung``.
+
+    With a hosted client store the banks are the streamer's
+    (``clientstore.CohortStreamer``), not ``FedState`` leaves: ``host_vel``
+    and ``host_err`` read them whole after the streamer's fence and load
+    them (a restore, a rollback), ``stage_cohort_rows`` gathers a cohort's
+    rows ahead, and ``close_client_store`` ends the streamer. In a worker
+    group every rank's streamer holds the whole bank, gathers its own
+    clients' rows and writes back the whole cohort's, so the banks stay
+    identical, as the device banks do."""
 
     def __init__(self, cfg, params: Any, loss_fn: Callable,
                  mask_batch: Callable = mask_classification):
@@ -305,16 +329,96 @@ class FederatedSession:
         self.dev_data: Optional[Dict[str, torch.Tensor]] = None
         self.dev_augment = None
         self._staging = threading.local()  # a RoundStager per thread
+        self._stagers = []  # every thread's, for their pinned bytes
         # the device with its index: another thread starts on device 0
         self._cuda_device = (torch.device("cuda", torch.cuda.current_device())
                              if self.device.type == "cuda"
                              and self.device.index is None else self.device)
+        # clientstore/'s streamer: None unless the store is hosted and the
+        # mode keeps a client bank (build_streamer's gate); it stages
+        # through the calling thread's RoundStager
+        self._streamer = None
+        if not cfg.fsdp:
+            self._streamer = build_streamer(
+                cfg, self.grad_size, needs_vel=cfg.local_momentum > 0,
+                needs_err=cfg.error_type == "local",
+                stager_fn=self._stager, device=self._cuda_device,
+                rank=self.group.rank, group_size=self.group.size)
         # host observability, attached by a train loop at level >= 1
         # (telemetry.build_perf_observability): the span recorder, the
         # audit of the first dispatched round, and that audit once made
         self.spans = None
         self.audit_arm = None
         self.last_audit = None
+
+    # -- clientstore/'s banks (the checkpoint's and the vault's access) ------
+    @property
+    def host_vel(self):
+        """The whole ``[num_clients, D]`` hosted velocity bank after the
+        streamer's fence (every dispatched round's rows landed; a live
+        view, which a caller that keeps it copies), or None without
+        one. Assigning loads the bank and makes every staged or cached row
+        stale (a restore, a rollback)."""
+        if self._streamer is None or not self._streamer.has_vel:
+            return None
+        self._streamer.flush()
+        return self._streamer.vel_array()
+
+    @host_vel.setter
+    def host_vel(self, arr):
+        if self._streamer is None:
+            raise ValueError(
+                "cannot load host_vel: this session has no hosted client "
+                "store (--client_store device, or no client-state mode)")
+        self._streamer.load_vel(arr)
+
+    @property
+    def host_err(self):
+        """``host_vel``'s twin for the local error bank."""
+        if self._streamer is None or not self._streamer.has_err:
+            return None
+        self._streamer.flush()
+        return self._streamer.err_array()
+
+    @host_err.setter
+    def host_err(self, arr):
+        if self._streamer is None:
+            raise ValueError(
+                "cannot load host_err: this session has no hosted client "
+                "store (--client_store device, or no client-state mode)")
+        self._streamer.load_err(arr)
+
+    def close_client_store(self) -> None:
+        """Drain and release the streamer (writeback worker joined, an
+        anonymous mmap file unlinked). Idempotent; nothing without a
+        hosted store. The runner calls it on every exit."""
+        if self._streamer is not None:
+            self._streamer.close()
+
+    @property
+    def client_store_stats(self) -> Dict[str, int]:
+        """The hosted store's counters: the stale cohorts gathered again,
+        and the pinned host bytes its rows hold (the stagers' rings and
+        the writeback's buffers); empty without a hosted store."""
+        st = self._streamer
+        if st is None:
+            return {}
+        return {"regathers": st.regathers,
+                "pinned_bytes": st.pinned_bytes() + sum(
+                    s.pinned_bytes("\0clientstore_") for s in self._stagers)}
+
+    @property
+    def spans(self):
+        """The attached span recorder (None below level 1). Attaching it
+        also reaches the streamer, whose writeback records on its own
+        lane."""
+        return self._spans
+
+    @spans.setter
+    def spans(self, value) -> None:
+        self._spans = value
+        if self._streamer is not None:
+            self._streamer.spans = value
 
     # -- the compression ladder's rungs (control/) ----------------------------
     def _build_rung(self, rcfg, label: str) -> _Rung:
@@ -464,8 +568,10 @@ class FederatedSession:
 
     def prewarm_rungs(self) -> int:
         """On the card, build the host plans K1, K2 and K4 read for every
-        rung's spec (the per-spec caches a first launch would fill) and,
-        on a ladder, run each rung's migration ops once on scratch tensors
+        rung's spec (the per-spec caches a first launch would fill; with
+        the sharded decode, or FSDP's slice extraction, K4's range plan of
+        this rank's slice as well) and, on a ladder, run each rung's
+        migration ops once on scratch tensors
         (``Compressor.warm_migration``: torch loads a kernel at its first
         launch), so a switch to any rung builds and loads nothing; nothing
         to do on the CPU. Launches no CountSketch kernel and changes no
@@ -477,10 +583,24 @@ class FederatedSession:
 
             for rung in self.rungs:
                 if rung.spec is not None:
-                    prepare_plans(rung.spec, self._cuda_device)
+                    prepare_plans(rung.spec, self._cuda_device,
+                                  slices=self.rung_range_slices(rung))
                 if len(self.rungs) > 1:
                     rung.compressor.warm_migration(self._cuda_device)
         return len(self.rungs)
+
+    def rung_range_slices(self, rung: _Rung):
+        """The ``(start, n)`` slice of this rank that ``rung``'s server
+        decode estimates through K4's range form each round: the sharded
+        decode's and FSDP's extraction's (the compressor's
+        ``shard_slice``); () otherwise (the slices ``estimate_all`` walks
+        at ``num_blocks > 1`` are the spec's own: ``prepare_plans`` adds
+        them)."""
+        if rung.spec is None or not (rung.cfg.fsdp or
+                                     rung.sketch_decode_resolved == "sharded"):
+            return ()
+        return (rung.compressor.shard_slice(self.group.rank, self.group.size,
+                                            self.grad_size),)
 
     # -- the sharded leaves -------------------------------------------------
     @property
@@ -564,9 +684,11 @@ class FederatedSession:
         """Attach ``dataset``'s arrays on the device iff ``device_data`` is
         on, the sampler can drive index-only rounds (``fusable``), every
         array is numpy and they total at most ``device_data_max_mb`` MB
-        (1e6 bytes) — the reference's gate (FSDP rounds take the host
-        batch). True when the index path is live."""
+        (1e6 bytes) — the reference's gate (FSDP rounds and a hosted
+        client store take the host batch). True when the index path is
+        live."""
         if not (self.cfg.device_data and not self.cfg.fsdp
+                and not self.cfg.client_state_hosted
                 and sampler.fusable
                 and all(isinstance(v, np.ndarray)
                         for v in dataset.data.values())
@@ -580,7 +702,12 @@ class FederatedSession:
         """Put the whole training set on the device, each array in its own
         dtype (uint8 images stay uint8). ``augment`` is the sampler's
         plan-based augment or None; its ``device_apply`` realizes a plan
-        on the device."""
+        on the device. Refused with a hosted client store (the reference's
+        refusal)."""
+        if self.cfg.client_state_hosted:
+            raise NotImplementedError(
+                "device-resident data + host-resident client state "
+                "(--client_store host|mmap) is contradictory; pick one")
         self.dev_data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in data.items()}
         self.dev_augment = augment
@@ -603,6 +730,7 @@ class FederatedSession:
         if st is None:
             st = RoundStager(self._cuda_device, self.cfg.pipeline_depth + 1)
             self._staging.stager = st
+            self._stagers.append(st)
         return st
 
     @property
@@ -653,6 +781,40 @@ class FederatedSession:
         dev, ready = st.stage(arrays)
         return (dev.get("\0ids"), dev["\0idx"],
                 tuple(dev[f"\0plan{i}"] for i in range(len(plan))), ready)
+
+    def _local_ids(self, client_ids) -> np.ndarray:
+        """This rank's ``w_loc`` of a round's ``[W]`` host client ids."""
+        w_loc = self.cfg.num_workers // self.group.size
+        lo = self.group.rank * w_loc
+        return np.asarray(client_ids, np.int64).reshape(-1)[lo:lo + w_loc]
+
+    def stage_cohort_rows(self, client_ids, trace_id=None):
+        """Gather this rank's hosted rows of the cohort (``client_ids``,
+        the round's ``[W]`` host ids) now, from the calling thread, and
+        start their copy to the card on its stager's stream: the
+        ``StagedCohort`` for ``train_round(..., cohort=)``, which uses it
+        unless a row was written since (then it gathers again). None
+        without a hosted store. ``trace_id`` names the round in the
+        ``clientstore_gather`` span."""
+        if self._streamer is None:
+            return None
+        return self._streamer.gather(self._local_ids(client_ids),
+                                     trace_id=trace_id)
+
+    def _cohort_rows(self, cids: np.ndarray, cohort, trace_id):
+        """This rank's ``(vel_rows, err_rows)`` of the round's cohort
+        (``cids``, the ``[W]`` host ids), on the device and ready for the
+        compute stream: ``cohort`` as staged unless it is None or stale,
+        else gathered now; the compute stream waits on its copy, then
+        the cached rows are spliced in. An absent bank's rows are
+        None."""
+        st = self._streamer
+        mine = self._local_ids(cids)
+        if cohort is None or st.is_stale(mine, cohort.version):
+            cohort = st.gather(mine, trace_id=trace_id)
+        self._consume(cohort.ready, [cohort.vel, cohort.err])
+        return tuple(t if torch.is_tensor(t) else None
+                     for t in st.splice(cohort))
 
     # -- fedsim and resilience/ ----------------------------------------------
     def sync_round_clock(self) -> None:
@@ -732,7 +894,7 @@ class FederatedSession:
                 t.record_stream(cur)
 
     def train_round(self, client_ids, batch: Dict[str, Any], lr: float,
-                    env=None, ready=None):
+                    env=None, ready=None, cohort=None, host_ids=None):
         """One round on ``batch`` ({k: [W, B, ...]} host arrays, for fedavg
         ``[W, L, B, ...]`` (``microbatched``); the same on every rank, and
         each rank computes its own clients). ``client_ids`` ([W] ints) name
@@ -755,18 +917,36 @@ class FederatedSession:
         and ``ready``: they go through as they are, after the compute
         stream waits on ``ready``.
 
+        With a hosted client store the round needs the cohort's HOST ids:
+        ``client_ids`` as given, or ``host_ids`` when ``client_ids`` were
+        staged on the card. ``cohort`` is the ``StagedCohort`` of
+        ``stage_cohort_rows`` (the prefetcher's); it is used unless None or
+        stale, else the rows are gathered at the dispatch. The round's new
+        rows go back through the streamer (``scatter``: asynchronous, its
+        fence is ``host_vel``/``host_err`` or ``close_client_store``), and
+        at level >= 1 its metrics carry the ``clientstore/*`` scalars.
+
         With a span recorder attached (``spans``), the round records
         ``device_put`` (the copy of its inputs), ``fedsim_env`` and
         ``round_dispatch`` under its trace id, and its metrics gain the
         host scalars ``xla/exposed_collective_ms`` and the lagged
         ``trace/*`` of round ``step - 2``."""
-        host_ids = self._host_client_ids(client_ids)
+        blacklist_ids = self._host_client_ids(client_ids)
+        cohort_ids = None
+        if self._streamer is not None:
+            cohort_ids = (blacklist_ids if host_ids is None
+                          else np.asarray(host_ids))
+            if cohort_ids is None:
+                raise ValueError(
+                    "a hosted client store needs the round's host client "
+                    "ids: pass host_ids= with ids staged on the card")
         with self._span("device_put", trace_id=round_trace_id(
                 self.state.step)):
             self._consume(ready, [client_ids, *batch.values()])
             ids = self._device_ids(client_ids)
             dev_batch = _to_device(self.local_clients(batch), self.device)
-        return self._round(ids, dev_batch, lr, env, host_ids)
+        return self._round(ids, dev_batch, lr, env, blacklist_ids,
+                           cohort_ids, cohort)
 
     def train_round_indices(self, client_ids, idx, plan, lr: float,
                             env=None, ready=None):
@@ -835,11 +1015,14 @@ class FederatedSession:
                                trace_id=trace_id)
 
     def _round(self, ids, batch: Dict[str, torch.Tensor], lr: float, env,
-               host_ids=None):
+               host_ids=None, cohort_ids=None, cohort=None):
         """The round of ``train_round`` and ``train_round_indices`` on this
         rank's device batch and device ids; ``host_ids`` (the host's
         client ids, or None) compose the blacklist into the environment
-        before anything of it goes to the card."""
+        before anything of it goes to the card. With a hosted store,
+        ``cohort_ids`` are the round's ``[W]`` host ids and ``cohort`` the
+        staged rows (``_cohort_rows``); the new rows are scattered back
+        right after the dispatch."""
         step = self.state.step
         tid = round_trace_id(step)
         with self._span("fedsim_env", trace_id=tid):
@@ -861,6 +1044,11 @@ class FederatedSession:
             self.controller.on_round_start(
                 step, env.stats if env is not None else None)
         lr = float(np.float32(lr))  # the reference's f32 lr
+        rows = ()
+        if self._streamer is not None:
+            # the cohort's rows are arguments of the round: no bank of
+            # [num_clients, D] is read on the card
+            rows = self._cohort_rows(cohort_ids, cohort, tid)
         arm = self.audit_arm if self.audit_arm is not None \
             and self.audit_arm.armed else None
         # the dispatch waits on the group's collectives; one device has
@@ -869,8 +1057,13 @@ class FederatedSession:
         with self._span("round_dispatch", collective=self.group.size > 1,
                         trace_id=tid) as sp:
             with arm.measure(step) if arm else contextlib.nullcontext():
-                self.state, metrics = self.round_fn(self.state, ids, batch,
-                                                    lr, env=env)
+                out = self.round_fn(self.state, ids, batch, lr, *rows,
+                                    env=env)
+            self.state, metrics = out[:2]
+            if rows:
+                # asynchronous: the writeback waits on an event recorded
+                # on this stream now, after the round's kernels
+                self._streamer.scatter(cohort_ids, *out[2:], trace_id=tid)
             if sp is not None:
                 sp.fence(metrics["loss"])
         self._replay_horizon = max(self._replay_horizon, step + 1)
@@ -882,6 +1075,10 @@ class FederatedSession:
             metrics = {**metrics, **self.controller.scalars()}
         if self.resilience is not None:
             metrics = {**metrics, **self.resilience.scalars()}
+        if self._streamer is not None and self.cfg.telemetry_level >= 1:
+            # the same four keys every round: cache hit rate, evictions,
+            # stage and writeback ms since the last round
+            metrics = {**metrics, **self._streamer.pop_round_stats()}
         if self.spans is not None and self.cfg.telemetry_level >= 1:
             # host scalars, the same keys every round: the exposure (0.0
             # when the audited round held no collective) and the trace/*
@@ -918,9 +1115,13 @@ class FederatedSession:
             elif not self.compressor.sparse_aggregate_shards_state:
                 w_loc = max(1, cfg.num_workers // W)
                 sparse_agg_bound = W * w_loc * cfg.k
-            if cfg.local_momentum > 0 or cfg.error_type == "local":
-                # the device-resident client rows' write-back gathers the
-                # round's w rows of D: state residency, not aggregation
+            if ((cfg.local_momentum > 0 or cfg.error_type == "local")
+                    and not (cfg.client_state_hosted and W == 1)):
+                # the client rows' write-back gathers the round's w rows
+                # of D: state residency, not aggregation. A hosted store
+                # at one rank gathers nothing (the rows are the round's
+                # arguments and results); in a group each rank's bank
+                # still needs every rank's rows
                 sparse_agg_bound = max(sparse_agg_bound,
                                        cfg.num_workers * self.grad_size)
                 sparse_agg_exemption = "client_state_writeback"

@@ -28,7 +28,11 @@ local error feedback) lives in ``[num_clients, D]`` banks on the device,
 the same on every rank: a round reads the cohort's rows by client id, and
 the new rows of every rank are all-gathered and written back in place, so
 the banks stay identical across the group (the reference's replicated
-banks).
+banks). With a hosted store (``--client_store host|mmap``,
+``cfg.client_state_hosted``) the banks live in ``clientstore/`` instead:
+``FedState`` holds none, the round takes this rank's cohort rows as
+arguments and returns the cohort's all-gathered ``[W, D]`` new rows, and
+the session's streamer writes them back (``build_round_fn``).
 
 When nothing per client is configured (``fused_clients``), one gradient of
 the device's flattened batch, times ``w_loc``, replaces the per-client
@@ -164,13 +168,15 @@ def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
     """Allocate exactly the state the (mode, error_type, momenta)
     combination needs: server leaves from the compressor, the client banks
     from the config (velocity with local momentum, error with local error
-    feedback), all on ``params_vec``'s device."""
+    feedback), all on ``params_vec``'s device. A hosted store's banks are
+    clientstore/'s, not the state's: none is allocated here."""
     dev = params_vec.device
     momentum, error, extra = comp.init_server_state(dev)
 
     def bank(needed: bool):
         return (torch.zeros(cfg.num_clients, comp.d, dtype=torch.float32,
-                            device=dev) if needed else None)
+                            device=dev)
+                if needed and not cfg.client_state_hosted else None)
 
     return FedState(params_vec.to(torch.float32), momentum, error,
                     bank(cfg.local_momentum > 0),
@@ -519,21 +525,24 @@ def batched_client_transmits(per_client, params_vec, batch, vel_rows,
 
 
 def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
-                  env=None, lo: int = 0):
+                  env=None, lo: int = 0, rows=None):
     """The client step's arguments after ``per_client``, for this rank's
     clients ``[lo, lo + w)`` of ``batch`` ({k: [w, ...]}): ``(params_vec,
-    batch, vel_rows, err_rows, lr, noise, live, corrupt)``. The bank rows
-    are read at ``client_ids`` (the cohort's ``[W]`` ids); the DP draws
-    are keyed ``(step, client id)`` (by slot when no ids are given) and
-    made here (``client_noise``); ``live``/``corrupt`` are the rank's
-    slice of ``env``'s masks (fedsim); ``lr`` is ``comp.client_lr``'s.
-    Absent parts are ``None``."""
+    batch, vel_rows, err_rows, lr, noise, live, corrupt)``. ``rows`` is
+    the pair ``(vel_rows, err_rows)`` of this rank's ``[w, D]`` rows (a
+    hosted store's, gathered before the round); without it the rows are
+    read from the state's banks at ``client_ids`` (the cohort's ``[W]``
+    ids). The DP draws are keyed ``(step, client id)`` (by slot when no
+    ids are given) and made here (``client_noise``); ``live``/``corrupt``
+    are the rank's slice of ``env``'s masks (fedsim); ``lr`` is
+    ``comp.client_lr``'s. Absent parts are ``None``."""
     dev = state.params_vec.device
     w = next(iter(batch.values())).shape[0]
-    banks = (state.client_vel, state.client_err)
-    mine = (client_ids[lo:lo + w] if any(b is not None for b in banks)
-            else None)
-    rows = [None if b is None else b[mine] for b in banks]
+    if rows is None:
+        banks = (state.client_vel, state.client_err)
+        mine = (client_ids[lo:lo + w] if any(b is not None for b in banks)
+                else None)
+        rows = [None if b is None else b[mine] for b in banks]
     keys = None
     if cfg.dp_noise_multiplier > 0:
         ids = (range(cfg.num_workers) if client_ids is None
@@ -682,11 +691,26 @@ def round_diag(cfg, comp, plan: AggregationPlan, group, state: FedState,
                              **common)
 
 
+def hosts_client_rows(cfg) -> bool:
+    """True when the round's client rows come from a clientstore/ bank: a
+    hosted store (``cfg.client_state_hosted``) and a bank to host (local
+    momentum or local error feedback)."""
+    return bool(cfg.client_state_hosted and (cfg.local_momentum > 0
+                                             or cfg.error_type == "local"))
+
+
 def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     """``round_fn(state, client_ids, batch, lr, mark=None, env=None) ->
-    (new_state, metrics)``. ``client_ids`` is the cohort's ``[W]`` int64
-    tensor on the state's device (required with client state, else may be
-    ``None``), ``batch`` holds this rank's clients. ``env`` is the round's
+    (new_state, metrics)``; with hosted client rows
+    (``hosts_client_rows(cfg)``) ``round_fn(state, client_ids, batch, lr,
+    vel_rows, err_rows, mark=None, env=None) -> (new_state, metrics,
+    new_vel, new_err)``: ``vel_rows``/``err_rows`` are this rank's ``[w,
+    D]`` rows of the cohort (None for an absent bank), and ``new_vel``/
+    ``new_err`` the whole cohort's ``[W, D]`` new rows (every rank's,
+    all-gathered in rank order) for the session's streamer to write back;
+    no bank is read or written here. ``client_ids`` is the cohort's ``[W]``
+    int64 tensor on the state's device (required with client state, else
+    may be ``None``), ``batch`` holds this rank's clients. ``env`` is the round's
     ``fedsim.RoundEnv`` (required when ``cfg.fedsim_enabled``, else
     unused): its ``[W]`` masks, of which each rank applies its slice, and the
     round's global live count. ``mark(i)``, when given, is called as phase
@@ -717,19 +741,25 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     lo = group.rank * w_loc
     aggregate_tail = make_aggregate_tail(cfg, comp, plan, group, comp.d)
     telemetry = cfg.telemetry_level >= 1
+    hosted = hosts_client_rows(cfg)
 
     @torch.no_grad()
-    def round_fn(state: FedState, client_ids, batch, lr: float, mark=None,
-                 env=None):
+    def round_fn(state: FedState, client_ids, batch, lr: float, *rows,
+                 mark=None, env=None):
         mark = mark or (lambda i: None)
         if fedsim and env is None:
             raise ValueError(
                 "fedsim is enabled (cfg.fedsim_enabled) but no env was "
                 "passed: supply the round's fedsim.RoundEnv "
                 "(FederatedSession.train_round does this)")
+        if len(rows) != (2 if hosted else 0):
+            want = "(vel_rows, err_rows)" if hosted else "no client rows"
+            raise ValueError(
+                f"round_fn takes {want} after lr (client_store="
+                f"{cfg.client_store!r}), got {len(rows)} positional extras")
         mark(0)
         banks = (state.client_vel, state.client_err)
-        stateful = any(b is not None for b in banks)
+        stateful = hosted or any(b is not None for b in banks)
         if stateful and client_ids is None:
             raise ValueError(
                 f"mode={cfg.mode!r} keeps per-client state (local_momentum"
@@ -764,7 +794,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             local, loss_sum, aux, new_vel, new_err = batched_client_transmits(
                 per_client, *client_inputs(cfg, comp, state, client_ids,
                                            batch, lr, env if fedsim else None,
-                                           lo))
+                                           lo, rows=rows or None))
         mark(1)
         if not sketch_fused:
             encoded = comp.device_encode(local)
@@ -780,7 +810,11 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             state, params_vec=apply_update(state.params_vec, update),
             momentum=new_m, error=new_e, comp=new_c, step=state.step + 1)
         err_rows = None
-        if stateful:  # the banks carry over, updated in place
+        if hosted:  # the cohort's rows, for the streamer to write back
+            new_vel, new_err = (None if t is None else group.all_gather(t)
+                                for t in (new_vel, new_err))
+            err_rows = new_err
+        elif stateful:  # the banks carry over, updated in place
             write_rows(group, state.client_vel, client_ids, new_vel)
             err_rows = write_rows(group, state.client_err, client_ids,
                                   new_err)
@@ -790,6 +824,8 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
                                       new_state, update, agg, loss, lr,
                                       err_rows))
         mark(4)
+        if hosted:
+            return new_state, metrics, new_vel, new_err
         return new_state, metrics
 
     return round_fn

@@ -15,9 +15,10 @@ t+1..t+depth can be realized ahead, bit-exactly:
 At ``pipeline_depth 0`` nothing here is built: the runner's synchronous
 loop reads ``data/sampler.py::prefetch`` instead. The control plane's
 rung switches reach the engine through its switch listener (a counted
-quiesce; the staged inputs do not depend on the rung). Not ported here
-(ROADMAP A11 and A12): the hosted client rows' staging (``clientstore/``),
-``cohorts.py`` and ``scan_engine.py``. At telemetry
+quiesce; the staged inputs do not depend on the rung). A hosted client
+store's cohort rows are staged by the prefetch worker too
+(``clientstore/``). Not ported here (ROADMAP A11 and A12): ``cohorts.py``
+and ``scan_engine.py``. At telemetry
 level >= 1 the worker records its spans on its own lane and each round's
 metrics carry the ``pipeline/*`` scalars.
 """

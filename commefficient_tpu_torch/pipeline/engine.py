@@ -9,7 +9,9 @@ the ``RoundPrefetcher``'s worker, ``pipeline_depth`` rounds ahead, and
 keeps the dispatch order, and with it the values, those of the synchronous
 loop: the rounds dispatch in step order through the session's own entries
 (``train_round`` / ``train_round_indices`` with the staged tensors and
-their event), the runner's deferred drain reads the metrics at the same
+their event; with a hosted client store, the staged cohort rows, which the
+session gathers again if a round in the window wrote one of them since),
+the runner's deferred drain reads the metrics at the same
 points (epoch end, before a save), and a checkpoint holds only the state
 of dispatched rounds: the window holds pure inputs of future rounds, so a
 resume restarts it at the restored round.
@@ -163,7 +165,8 @@ class PipelinedRounds:
                                             work.plan, work.lr, env=work.env,
                                             ready=work.ready)
         return sess.train_round(work.client_ids, work.batch, work.lr,
-                                env=work.env, ready=work.ready)
+                                env=work.env, ready=work.ready,
+                                cohort=work.cohort, host_ids=work.host_ids)
 
     def _on_rung_switch(self, step: int, old: int, new: int) -> None:
         """The controller's switch listener: the staged window needs no

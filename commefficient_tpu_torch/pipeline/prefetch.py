@@ -17,7 +17,12 @@ bookkeeping), realizing one ``RoundWork`` a round:
 * the early copy to the card (``FederatedSession.stage_round_payload`` /
   ``stage_round_indices``): the worker owns its ``RoundStager``, its side
   stream and pinned rings, and each ``RoundWork`` carries the event the
-  dispatch waits on.
+  dispatch waits on;
+* with a hosted client store, after the payload, the cohort's rows
+  (``FederatedSession.stage_cohort_rows``: the bank gather into the
+  worker's pinned ring and the copy on its stream), carried as
+  ``RoundWork.cohort`` with the round's host ids; the dispatch gathers
+  them again if a row was written after this gather.
 
 Realizing ahead commutes with running the rounds, so the stream of
 ``RoundWork`` equals what the synchronous loop realizes, in order. The
@@ -32,8 +37,9 @@ the worker, even with a full queue.
 With a span recorder (``spans``, telemetry level >= 1) the worker labels
 its lane ``round-prefetch`` and records each round's ``prefetch_realize``
 (the draw, the fedsim environment, the lr) and ``prefetch_stage`` (the
-copy to the card), stamped with the round they realize and its trace id.
-Not ported (ROADMAP A11): the hosted client rows' staging.
+copy to the card, the cohort's rows included, whose gather is its own
+``clientstore_gather`` span), stamped with the round they realize and its
+trace id.
 """
 
 from __future__ import annotations
@@ -56,7 +62,9 @@ class RoundWork(NamedTuple):
     their copies (None on the CPU). ``env`` is the round's fedsim
     ``RoundEnv`` (None without fedsim); ``host_ms`` the worker's wall time
     realizing and staging the round, the host time moved off the critical
-    path."""
+    path. ``cohort`` is the hosted client store's ``StagedCohort`` (None
+    without one) and ``host_ids`` the round's client ids on the host
+    (``client_ids`` may be staged on the card)."""
 
     step: int
     lr: float
@@ -67,6 +75,8 @@ class RoundWork(NamedTuple):
     env: Any
     ready: Any
     host_ms: float
+    cohort: Any = None
+    host_ids: Any = None
 
 
 _END = object()
@@ -132,16 +142,22 @@ class RoundPrefetcher:
             env = sess.fedsim_round_env(step, cids,
                                         replay=step < self.replay_until)
             lr = float(self.lr_fn(step))
+        host_ids, cohort = cids, None
         with self._span("prefetch_stage", step):
             if self.use_indices:
                 cids, idx, plan, ready = sess.stage_round_indices(cids, idx,
                                                                   plan)
             else:
                 cids, batch, ready = sess.stage_round_payload(cids, batch)
+                # the hosted rows' gather and copy leave the critical
+                # path too (None without a hosted store)
+                cohort = sess.stage_cohort_rows(
+                    host_ids, trace_id=round_trace_id(step))
         return RoundWork(step=step, lr=lr,
                          client_ids=cids, batch=batch, idx=idx, plan=plan,
                          env=env, ready=ready,
-                         host_ms=(time.perf_counter() - t0) * 1e3)
+                         host_ms=(time.perf_counter() - t0) * 1e3,
+                         cohort=cohort, host_ids=host_ids)
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():

@@ -6,8 +6,9 @@ a drain interval after the first bad round, so a recovery needs a state
 image from before that round, without a disk round trip a boundary. The
 vault keeps the last few snapshots in host memory, each a COPY of every
 ``FedState`` leaf in ``full_state``'s layout (the checkpoint's: params,
-momentum, error, both client banks, ``step``, ``comp``), the controller's
-blob and the ``CommLedger``'s counters, and restores them through
+momentum, error, both client banks, ``step``, ``comp``), a hosted client
+store's banks (``host_vel``, ``host_err``), the controller's blob and the
+``CommLedger``'s counters, and restores them through
 ``utils.checkpoint.commit_fed_state``, the leaf commit the checkpoint
 restore uses: a sharded leaf back to each rank's slice, every other leaf
 onto the session's device.
@@ -41,6 +42,8 @@ class Snapshot:
 
     step: int
     fed_state: Dict[str, Any]  # leaf -> host tensor | None | the int step
+    host_vel: Optional[np.ndarray]  # a hosted store's banks (copies)
+    host_err: Optional[np.ndarray]
     control: Optional[np.ndarray]  # the controller's blob (float64)
     ledger: Optional[dict]  # CommLedger.snapshot_state()
     captured_at: float  # wall clock, for the post-mortem only
@@ -52,6 +55,9 @@ class Snapshot:
     def nbytes(self) -> int:
         out = sum(t.numel() * t.element_size()
                   for t in self.fed_state.values() if torch.is_tensor(t))
+        for bank in (self.host_vel, self.host_err):
+            if bank is not None:
+                out += bank.nbytes
         if self.control is not None:
             out += self.control.nbytes
         return out
@@ -95,6 +101,11 @@ class RollbackVault:
         controller = session.controller
         snap = Snapshot(
             step=int(step), fed_state=fs,
+            # copies as well: the streamer writes the banks in place
+            host_vel=(None if session.host_vel is None
+                      else np.array(session.host_vel, copy=True)),
+            host_err=(None if session.host_err is None
+                      else np.array(session.host_err, copy=True)),
             control=(None if controller is None
                      else np.array(controller.state_blob(), copy=True)),
             ledger=(ledger.snapshot_state() if ledger is not None else None),
@@ -129,6 +140,11 @@ class RollbackVault:
             if 0 <= saved_rung < len(session.rungs):
                 session.set_active_rung(saved_rung, migrate=False)
         commit_fed_state(session, snap.fed_state)
+        # copies: the snapshot stays as it was for a later rollback
+        if snap.host_vel is not None:
+            session.host_vel = np.array(snap.host_vel, copy=True)
+        if snap.host_err is not None:
+            session.host_err = np.array(snap.host_err, copy=True)
         if controller is not None and snap.control is not None:
             controller.load_state_blob(snap.control)
         if ledger is not None and snap.ledger is not None:

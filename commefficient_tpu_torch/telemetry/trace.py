@@ -15,8 +15,10 @@ round's wall clock into EXCLUSIVE stage times (``STAGES``): ``data``
 (sampler draw, fedsim environment, the data wait), ``h2d`` (device_put,
 prefetch stage), ``dispatch`` (the round's dispatch), ``collective`` (the
 part of collective-tagged spans no other span covers), ``drain`` (metric
-drain, checkpoint), ``writeback`` (the reference's hosted client rows;
-0 here) and ``idle`` (wall clock no span covers). Each stage's union is
+drain, checkpoint), ``writeback`` (a hosted client store's writeback
+worker and fence: ``clientstore_writeback``, ``clientstore_flush``) and
+``idle`` (wall clock no span covers); a hosted store's row gather,
+``clientstore_gather``, is ``h2d``. Each stage's union is
 clipped to the round's window minus what higher-priority stages took
 (collective, drain, writeback, dispatch, h2d, data), so the stage times
 are disjoint and sum to the round's wall clock; the critical stage is the

@@ -378,6 +378,12 @@ def main(argv=None):
         train, _, _, params, loss_fn, augment = (
             cv_train.build_model_and_data(cfg))
         mask = None
+    if cfg.client_state_hosted:
+        raise ValueError(
+            "profile_round splits the round with its client banks on the "
+            "card; a hosted store's stage and writeback times are its "
+            "clientstore/* scalars (cv_train --telemetry_level 1) — run "
+            "profile_round with --client_store device")
     session = FederatedSession(cfg, params, loss_fn,
                                **({"mask_batch": mask} if mask else {}))
     if session.device.type != "cuda":

@@ -78,7 +78,8 @@ Only a divergence it cannot recover from takes the crash path. A
 preemption request (``--preempt_signals`` or chaos ``preempt@R``) is
 honored at the round boundary: drain, force-save, write
 ``resilience/preempt_requested``, raise ``PreemptShutdown``; the entry
-points turn it into exit code 75.
+points turn it into exit code 75. A hosted client store's streamer is
+closed on every exit (its fence, then its writeback worker joined).
 """
 
 from __future__ import annotations
@@ -326,6 +327,7 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             engine.close()
         if resil is not None:
             resil.close()
+        session.close_client_store()
         raise
     table = table or TableLogger()
     history = []
@@ -531,6 +533,9 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             ledger.write(writer.logdir)
         if resil is not None:
             resil.close()  # the signal dispositions, crashes included
+        # the hosted client store's fence and its writeback worker's join
+        # (an anonymous mmap file is unlinked): nothing without one
+        session.close_client_store()
     return val, history, {"resumed_from": start,
                           "save_ms": checkpointer.last_save_ms,
                           "restore_ms": checkpointer.last_restore_ms,

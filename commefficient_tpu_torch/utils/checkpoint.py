@@ -46,9 +46,12 @@ rollback shares. A recovery drops the checkpoints above its rollback round
 (``discard_steps_after``) and, after a policy that forks the run, saves
 the rollback round again (``resave``).
 
-Not ported: the hosted client stores (ROADMAP A11, item A.1.2; ``Config``
-refuses their flags), and the reference's migration of checkpoints older
-than its ``comp`` leaf (the port has no older format).
+A hosted client store's banks (``--client_store host|mmap``) are not
+``FedState`` leaves: the file carries them as ``host_vel`` and
+``host_err`` (the session's properties, read after the streamer's fence),
+and restore loads them through the same properties, which invalidate
+every staged and cached row. Not ported: the reference's migration of
+checkpoints older than its ``comp`` leaf (the port has no older format).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ import time
 import warnings
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from commefficient_tpu_torch.parallel.round import FedState
@@ -178,6 +182,10 @@ class FedCheckpointer:
             # masking the clients a recovery condemned
             blob["blacklist"] = torch.from_numpy(
                 session._client_blacklist.astype("int64"))
+        for name in ("host_vel", "host_err"):
+            bank = getattr(session, name)  # after the streamer's fence
+            if bank is not None:
+                blob[name] = torch.from_numpy(np.asarray(bank))
         os.makedirs(os.path.join(self.root, "manifests"), exist_ok=True)
         path = self.path(round_idx)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -365,6 +373,9 @@ class FedCheckpointer:
             # layout, so nothing migrates
             session.set_active_rung(rung, migrate=False)
         commit_fed_state(session, leaves)
+        for name in ("host_vel", "host_err"):
+            if name in blob:  # loads the bank, stales every staged row
+                setattr(session, name, blob[name].numpy())
         if controller is not None:
             if "control" in blob:
                 # the saved rung again (a no-op) and the policy's state:

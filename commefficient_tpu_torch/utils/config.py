@@ -19,7 +19,11 @@ ef_feedback, ``ladder``, ``budget_mb``, ``control_schedule``,
 flags (``recover_policy`` none|retry|demote|skip_clients,
 ``snapshot_every``, ``max_recoveries``, ``preempt_signals``) are checked
 as the reference checks them (``_validate_resilience``;
-``recovery_enabled`` gates the build).
+``recovery_enabled`` gates the build). So are the client-state placement
+flags (``client_store`` device|host|mmap, ``client_store_cache_rows``,
+``client_store_path`` and the reference's deprecated alias
+``offload_client_state``, which warns and becomes ``client_store='host'``;
+``_validate_client_store``; ``client_state_hosted`` gates clientstore/).
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -53,9 +57,6 @@ _ASYNC_CONTROL = ("the staleness_aware control policy, which reads the "
                   "(ROADMAP A11)")
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
-    "client_store_cache_rows": "the hosted client stores (ROADMAP A11)",
-    "client_store_path": "the hosted client stores (ROADMAP A11)",
-    "offload_client_state": "the hosted client stores (ROADMAP A11)",
     "model_axis": "tensor parallelism (ROADMAP A17)",
     "seq_axis": "sequence parallelism (ROADMAP A17)",
     "num_hosts": "multihost/ (ROADMAP A11)",
@@ -159,9 +160,18 @@ class Config:
     # loop: the same math when nothing per-client is configured (the
     # round's gate, parallel/round.py ``fused_clients``)
     fuse_clients: bool = False
-    # where the [num_clients, D] client banks live; "device" only (the
-    # hosted stores are ROADMAP A11)
+    # where the [num_clients, D] client banks live: "device" (FedState
+    # tensors), "host" (a numpy bank in host RAM) or "mmap" (a
+    # memory-mapped file): the hosted stores stream each cohort's rows
+    # through clientstore/ (client_state_hosted)
     client_store: str = "device"
+    # rows of the hosted stores' LRU cache of device rows (0: no cache)
+    client_store_cache_rows: int = 0
+    # the mmap store's file ("" = a temporary file unlinked at the end);
+    # a named path is reopened with its rows
+    client_store_path: str = ""
+    # the reference's deprecated alias of client_store="host" (warns)
+    offload_client_state: bool = False
 
     # --- CountSketch ---
     # the sketch's OPERAND type: bfloat16 rounds each signed value to bf16
@@ -303,9 +313,6 @@ class Config:
     preempt_signals: bool = False
 
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
-    client_store_cache_rows: int = 0
-    client_store_path: str = ""
-    offload_client_state: bool = False
     model_axis: int = 1
     seq_axis: int = 1
     num_hosts: int = 1
@@ -392,6 +399,7 @@ class Config:
         if self.num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got "
                              f"{self.num_blocks}")
+        self._validate_client_store()
         self._validate_aggregate()
         self._validate_overlap_collectives()
         for name in ("sketch_dtype", "sketch_table_dtype"):
@@ -412,14 +420,6 @@ class Config:
                 "compute_dtype must be mixed|float32|bfloat16, got "
                 f"{self.compute_dtype!r}"
             )
-        if self.client_store not in CLIENT_STORES:
-            raise ValueError(f"client_store must be one of {CLIENT_STORES},"
-                             f" got {self.client_store!r}")
-        if self.client_store != "device":
-            raise ValueError(
-                f"client_store={self.client_store!r} is not ported yet: the "
-                "[num_clients, D] client banks live on the device; the "
-                "host and mmap stores are clientstore/ (ROADMAP A11)")
         if self.mode == "powersgd":
             if self.powersgd_rank < 1:
                 raise ValueError(
@@ -505,6 +505,54 @@ class Config:
         self._validate_sketch_fused_bwd()
         self._validate_dp()
         self._validate_checkpoint()
+
+    def _validate_client_store(self) -> None:
+        """The client-state placement flags (clientstore/), as the
+        reference checks them. The deprecated ``offload_client_state``
+        becomes ``client_store='host'`` here, before any later check reads
+        ``client_state_hosted``."""
+        if self.client_store not in CLIENT_STORES:
+            raise ValueError(f"client_store must be one of {CLIENT_STORES},"
+                             f" got {self.client_store!r}")
+        if self.offload_client_state:
+            import warnings
+
+            warnings.warn(
+                "offload_client_state is deprecated: the whole-store "
+                "offload became the per-cohort client-state store — use "
+                "--client_store host (identical semantics at whole-store "
+                "granularity; adds mmap backing and the LRU device cache)",
+                DeprecationWarning, stacklevel=4)
+            if self.client_store == "device":
+                object.__setattr__(self, "client_store", "host")
+        if self.client_store_cache_rows < 0:
+            raise ValueError(
+                f"client_store_cache_rows must be >= 0 (0 = no cache), got "
+                f"{self.client_store_cache_rows}")
+        if self.client_store == "device":
+            if self.client_store_cache_rows:
+                raise ValueError(
+                    "client_store_cache_rows caches host-store cohort rows "
+                    "on device; with client_store='device' the whole bank "
+                    "already lives in device memory — drop the cache flag "
+                    "or pick --client_store host|mmap")
+            if self.client_store_path:
+                raise ValueError(
+                    "client_store_path backs the mmap store; with "
+                    f"client_store={self.client_store!r} it would be "
+                    "silently ignored — use --client_store mmap")
+        if self.client_store == "host" and self.client_store_path:
+            raise ValueError(
+                "client_store_path backs the mmap store; the host store is "
+                "a RAM bank — use --client_store mmap to persist to "
+                f"{self.client_store_path!r}")
+        if self.client_state_hosted and self.fsdp:
+            raise ValueError(
+                "client_store='host'/'mmap' streams per-cohort rows through "
+                "the replicated round function; the FSDP round shards server "
+                "state instead (local modes host their memory wall via "
+                "--client_store, server modes via --fsdp) — run one or the "
+                "other")
 
     def _validate_fedsim(self) -> None:
         """The reference's fedsim knob checks, plus the chaos kinds the
@@ -867,6 +915,14 @@ class Config:
         preemption guard has its own gates: ``preempt_signals`` or a
         ``preempt@R`` chaos event."""
         return self.recover_policy != "none"
+
+    @property
+    def client_state_hosted(self) -> bool:
+        """True when the per-client rows live outside ``FedState`` (a
+        clientstore/ host or mmap bank): the round takes the cohort's rows
+        as arguments and returns its new rows. False keeps the banks on
+        the device and builds nothing of clientstore/."""
+        return self.client_store in ("host", "mmap")
 
     @property
     def pipeline_enabled(self) -> bool:

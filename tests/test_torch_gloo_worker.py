@@ -23,7 +23,10 @@ session and run two more (written as ``resume:<name>``); ``topk``, vectors whose
 max for more than k coordinates; ``collectives``, the pair exchanges of
 ``ops/collectives`` on each rank's row of the input's ``coll/v``;
 ``telemetry``, cases run as ``cases`` whose every ``diag/*`` scalar is
-written a round (``tel:<name>/<key>``, ``[rounds]``); ``trace``, cases run
+written a round (``tel:<name>/<key>``, ``[rounds]``; a case with a hosted
+client store also writes its banks, ``<name>/host_vel`` and
+``<name>/host_err``, and a relative ``client_store_path`` lies in the
+job's directory); ``trace``, cases run
 through ``run_train_loop`` at telemetry level 1 on the input's
 ``trace/x`` / ``trace/y`` dataset, rank 0 writing the run dir
 (``trace:<name>/run_dir``) and each round's ``xla/exposed_collective_ms``
@@ -102,13 +105,24 @@ def _write_state(out, name, sess, losses):
         t = getattr(st, leaf)
         if t is not None:
             out[f"{name}/{leaf}"] = t.numpy()
+    for bank in ("host_vel", "host_err"):
+        if getattr(sess, bank) is not None:
+            out[f"{name}/{bank}"] = np.array(getattr(sess, bank))
 
 
-def run_cases(job, npz, out):
+def run_cases(job, npz, out, tmp):
     for name, kw in job.get("cases", {}).items():
+        if kw.get("client_store_path"):
+            kw = {**kw, "client_store_path": os.path.join(
+                tmp, kw["client_store_path"])}
         sess = _session(kw, npz)
         losses = _rounds(sess, npz, job["lr"], range(npz["x"].shape[0]))
         _write_state(out, name, sess, losses)
+        if kw.get("client_store_path"):  # this rank's own bank files
+            out[f"{name}/bank_files"] = np.asarray(sorted(
+                f for f in os.listdir(tmp) if f.startswith(
+                    os.path.basename(kw["client_store_path"]))))
+        sess.close_client_store()
 
 
 def run_control(job, npz, out):
@@ -300,7 +314,7 @@ def main(argv):
         npz = dict(np.load(in_file))
         out = {}
         group = DistributedWorkers()
-        run_cases(job, npz, out)
+        run_cases(job, npz, out, os.path.dirname(out_file))
         run_telemetry(job, npz, out)
         run_control(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))

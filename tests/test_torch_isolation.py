@@ -58,6 +58,10 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/resilience/manager.py",
                  "commefficient_tpu_torch/resilience/policy.py",
                  "commefficient_tpu_torch/resilience/vault.py",
+                 "commefficient_tpu_torch/clientstore/__init__.py",
+                 "commefficient_tpu_torch/clientstore/cache.py",
+                 "commefficient_tpu_torch/clientstore/store.py",
+                 "commefficient_tpu_torch/clientstore/streamer.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
                  "commefficient_tpu_torch/train/cv_train.py",
                  "commefficient_tpu_torch/train/gpt2_train.py",

@@ -117,8 +117,6 @@ def test_schedule_matches_reference():
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("client_store", "host", "A11"),
-    ("offload_client_state", "true", "A11"),
     ("scan_rounds", "2", "A11"),
     ("model_axis", "2", "A17"),
     ("max_retraces", "2", "A11"),
@@ -133,7 +131,7 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
 
 
 # the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a, A12b and A11's
-# control/ and resilience/ lifted from the refusals
+# control/, resilience/ and clientstore/ lifted from the refusals
 _EF = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
        "ef_feedback", "--ladder", "k=10,5"]
 LIFTED = {
@@ -186,6 +184,13 @@ LIFTED = {
     "snapshot_every": ["--snapshot_every", "4"],
     "max_recoveries": ["--max_recoveries", "3"],
     "preempt_signals": ["--preempt_signals", "true"],
+    "client_store": ["--mode", "local_topk", "--error_type", "local",
+                     "--client_store", "host"],
+    "client_store_cache_rows": ["--client_store", "host",
+                                "--client_store_cache_rows", "4"],
+    "client_store_path": ["--client_store", "mmap", "--client_store_path",
+                          "bank"],
+    "offload_client_state": ["--offload_client_state", "true"],
 }
 
 
@@ -241,7 +246,7 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 18
+    assert len(_UNPORTED) == 15
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 
