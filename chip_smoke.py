@@ -265,7 +265,27 @@ phase prints one line (or a few) and raises on failure, so the script exits
     system reports no holes) within the rows written; the round ms of each
     store at both depths; C.4: under the sharded decode and at
     ``--num_blocks 4`` a 4-rung ``num_cols`` ladder prewarmed and every
-    rung visited with no plan built after the prewarm.
+    rung visited with no plan built after the prewarm;
+27. ``asyncfed`` (buffered-asynchronous federation, ``asyncfed/``): the
+    main path at level 1 for 8 updates on deterministic cuDNN and the
+    host data path: the anchor (``--async_buffer 8 --async_concurrency 1
+    --staleness_exponent 0``) bit-equal to the synchronous run (every
+    leaf and loss), K1 16, K2 8 and K3 16 in both, the ledger's bytes
+    equal and ``perf_report.json``'s ``engine: "async"`` with its block;
+    overlap (K 4, C 2, exponent 0.5, poisson 0.9): ``async/staleness_mean``
+    and ``async/buffer_fill`` as ``AsyncSchedule`` scripts them, K1 2, K2
+    1 and K3 2 an update whatever the cohorts launched, the window's
+    largest bytes exactly the schedule's cohorts times a cohort's rows,
+    and under the sharded decode K4's range form once an update and K2
+    never; both with ``--async_double_buffer`` bit-equal to their twins;
+    the overlap run with every live slot of cohort 3 corrupted under
+    ``--recover_policy retry --snapshot_every 4`` bit-equal to it (the
+    window rides the vault), and two resumes from its round-4 checkpoint
+    bit-equal to each other; ``--control_policy staleness_aware`` on a
+    4-rung ``num_cols`` ladder at C 3 switching rungs and retuning (K, C)
+    with no plan built after the prewarm; the median ms an update of each
+    run, the prefetch and stall ms, the window, the peak memory and the
+    snapshot's ms printed.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -4452,6 +4472,334 @@ def _clientstore_phase(torch, kern, cv_train, dataset_dir, work):
     return add_forms(*forms)
 
 
+AF_ROUNDS = 8  # updates of each asyncfed-phase run
+AF_BASE = MAIN_ARGS + ["--telemetry_level", "1", "--device_data", "false"]
+AF_ANCHOR = ["--async_buffer", "8", "--async_concurrency", "1",
+             "--staleness_exponent", "0"]
+AF_OVERLAP = ["--async_buffer", "4", "--async_concurrency", "2",
+              "--staleness_exponent", "0.5", "--availability", "poisson",
+              "--arrival_rate", "0.9"]
+AF_DOUBLE = ["--async_double_buffer", "true"]
+# every live slot of cohort 3 corrupted: at seed 42 it launches at update
+# 5, after the round-4 snapshot, and is consumed by updates 5-8, so the
+# round-8 drain finds the divergence and the replay realizes it clean
+AF_NAN = ["--chaos", "nan_client@8:rounds=3-3", "--recover_policy", "retry",
+          "--snapshot_every", "4"]
+AF_ROLLBACK = 4
+AF_CONTROL = ["--async_buffer", "4", "--async_concurrency", "3",
+              "--staleness_exponent", "0.5", "--availability", "poisson",
+              "--arrival_rate", "0.9", "--control_policy", "staleness_aware",
+              "--ladder", "num_cols=" + ",".join(str(c) for c in C4_COLS),
+              "--control_hysteresis", "1", "--control_staleness_hi", "0.6",
+              "--control_staleness_lo", "0.2"]
+AF_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+
+
+class PrewarmProbe:
+    """Inside ``with PrewarmProbe(kern):`` each session's
+    ``prewarm_rungs`` records ``kern.plan_builds()`` as it returns."""
+
+    def __init__(self, kern):
+        from commefficient_tpu_torch.parallel import FederatedSession
+
+        self.cls, self.kern, self.builds = FederatedSession, kern, []
+
+    def __enter__(self):
+        self.saved = prewarm = self.cls.prewarm_rungs
+        probe = self
+
+        def prewarm_rungs(sess):
+            out = prewarm(sess)
+            probe.builds.append(probe.kern.plan_builds())
+            return out
+
+        self.cls.prewarm_rungs = prewarm_rungs
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.prewarm_rungs = self.saved
+
+
+def af_window_cohorts(k, c, rounds=AF_ROUNDS, workers=8, seed=42,
+                      rate=0.9):
+    """The most cohorts the window holds after an update's launches, by
+    ``AsyncSchedule``: the launched cohorts with slots left."""
+    from commefficient_tpu_torch.asyncfed import AsyncSchedule
+
+    sch = AsyncSchedule(seed=seed, num_workers=workers, buffer_k=k,
+                        concurrency=c, arrival_rate=rate,
+                        num_updates=10 * rounds)
+    consumed, most = {}, 0
+    for u in range(rounds):
+        launched = sch.launched_before(u + 1)
+        most = max(most, sum(consumed.get(cc, 0) < workers
+                             for cc in range(launched)))
+        for cc, _s in sch.updates[u].slots:
+            consumed[cc] = consumed.get(cc, 0) + 1
+    return most, sch
+
+
+def asyncfed_phase(torch, kern, cv_train, dataset_dir, work):
+    """Buffered-asynchronous federation (``asyncfed/``) on the card: the
+    main path at level 1 for AF_ROUNDS updates on deterministic cuDNN and
+    the host data path, each run through ``cv_train.main`` with the
+    counters set to 0 just before it and read just after:
+
+    (a) the anchor (K 8, C 1, exponent 0) against the synchronous run:
+    every FedState leaf and every loss bit-equal, K1 16, K2 8 and K3 16 in
+    both, the ledger's bytes equal (10,108,800 B up and 26,292,520 B
+    down a client a round), ``perf_report.json`` with ``engine: "async"``
+    and its block; (b) overlap (K 4, C 2, exponent 0.5, poisson 0.9): 8
+    finite updates, ``async/staleness_mean`` and ``async/buffer_fill``
+    as ``AsyncSchedule`` scripts them, K1 2, K2 1 and K3 2 an update, and
+    under the sharded decode K4's range form once an update and K2 never;
+    the window's bytes exact by the schedule; (c) (a) and (b) with
+    ``--async_double_buffer`` bit-equal to their twins; (d) (b) with
+    every live slot of cohort 3 corrupted under ``--recover_policy retry
+    --snapshot_every 4``: one rollback to update 4 and bit-equal to (b),
+    K1, K2 and K3 at (b)'s plus the 4 replayed updates'; two resumes
+    from (b)'s round-4 checkpoint bit-equal to each other; (e)
+    ``staleness_aware`` on a 4-rung ``num_cols`` ladder at C 3: a rung
+    switch and a (K, C) retune, no plan built after the prewarm; (f)
+    printed: each run's ms an update, the median of updates 1-7 and
+    their mean (the last runs to the end of the drain, so the mean is
+    what the card took), the prefetch and stall ms, the largest window,
+    the peak memory and the snapshot's ms. Returns the summed launch
+    forms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _asyncfed_phase(torch, kern, cv_train, dataset_dir, work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _asyncfed_phase(torch, kern, cv_train, dataset_dir, work):
+    import shutil
+
+    t0 = time.perf_counter()
+    forms = []
+    runs = {}
+    W, d = 8, D_FULL
+    cohort_bytes = W * 4 * (d + 3)  # rows, loss, aux correct and count
+
+    def run(name, args, rounds=AF_ROUNDS):
+        gc.collect()
+        t = time.perf_counter()
+        r = state_run(torch, kern, cv_train, dataset_dir, work, name,
+                      AF_BASE + args + ["--logdir", os.path.join(work, name)],
+                      rounds=rounds)
+        forms.append(r["forms"])
+        r["wall_s"] = round(time.perf_counter() - t, 3)
+        r["losses"] = [h["loss"] for h in r["out"]["history"]]
+        r["ms"] = statistics.median(r["round_ms"][1:])
+        # updates 1-7 from the first's dispatch to the end of the drain:
+        # what an update costs the card (the host may dispatch ahead)
+        r["mean_ms"] = statistics.mean(r["round_ms"][1:])
+        r["stats"] = r["out"]["pipeline_stats"] or {}
+        r["metrics"] = read_metrics(r["out"]["logdir"])
+        runs[name] = r
+        return r
+
+    def launches_ok(name, ln, extra=0, per=AF_LAUNCHES):
+        for k, n in per.items():
+            want = n * (AF_ROUNDS + extra)
+            check(ln[k] == want, f"asyncfed {name}: {k} launched {ln[k]} "
+                  f"times, expected {want}")
+
+    def held(name, r, twin):
+        same, err = state_diff(torch, r["state"], twin["state"], d)
+        check(same, f"asyncfed {name}: the state differs from "
+              f"{twin['name']} by {err}")
+        check(r["losses"] == twin["losses"],
+              f"asyncfed {name}: losses differ from {twin['name']}")
+        return same
+
+    def short(r):
+        return json.dumps({k: v for k, v in r["launches"].items() if v})
+
+    # (a) the anchor against the synchronous round
+    sync = run("af_sync", [])
+    sync["name"] = "af_sync"
+    anchor = run("af_anchor", AF_ANCHOR)
+    files = _run_dir_files(anchor["out"]["logdir"])
+    ledgers = {}
+    for r in (sync, anchor):
+        with open(os.path.join(r["out"]["logdir"], "comm_ledger.json")) as f:
+            ledgers[r is anchor] = json.load(f)
+    bpr = anchor["out"]["bytes_per_round"]
+    phase("asyncfed", run="anchor", leaves_bit_equal=held("anchor", anchor,
+                                                          sync),
+          losses=json.dumps(anchor["losses"]), launches=short(anchor),
+          sync_launches=short(sync), upload_bytes=bpr["upload_bytes"],
+          download_bytes=bpr["download_bytes"],
+          ledger_bytes=ledgers[True]["cum_bytes"],
+          sync_ledger_bytes=ledgers[False]["cum_bytes"],
+          engine=files["perf"]["engine"],
+          async_block=json.dumps(files["perf"].get("async")),
+          stats=json.dumps(anchor["stats"]), wall_s=anchor["wall_s"])
+    launches_ok("sync", sync["launches"])
+    launches_ok("anchor", anchor["launches"])
+    check(all(bpr[k] == v for k, v in CS_BYTES.items())
+          and sync["out"]["bytes_per_round"] == bpr,
+          f"asyncfed anchor: bytes per round {bpr}")
+    for key in ("rounds", "cum_up_bytes", "cum_down_bytes", "cum_bytes"):
+        check(ledgers[True][key] == ledgers[False][key],
+              f"asyncfed anchor: ledger {key} {ledgers[True][key]} against "
+              f"the synchronous {ledgers[False][key]}")
+    check(ledgers[True]["cum_up_bytes"] == AF_ROUNDS
+          * CS_BYTES["upload_bytes"], "asyncfed anchor: ledger upload bytes")
+    check(files["perf"]["engine"] == "async" and files["perf"]["async"]
+          == {"buffer": 8, "concurrency": 1, "staleness_exponent": 0.0},
+          f"asyncfed anchor: perf report {files['perf'].get('engine')}")
+    check(anchor["stats"]["window_bytes_max"] == cohort_bytes,
+          f"asyncfed anchor: window {anchor['stats']['window_bytes_max']} B")
+
+    # (b) overlap: the schedule's scalars, the launches, the window
+    over = run("af_overlap", AF_OVERLAP + ["--checkpoint_every", "4"])
+    over["name"] = "af_overlap"
+    most, sch = af_window_cohorts(4, 2)
+    m = over["metrics"]
+    stale = [m["async/staleness_mean"][u] for u in range(AF_ROUNDS)]
+    fill = [m["async/buffer_fill"][u] for u in range(AF_ROUNDS)]
+    want_stale = [sum(sch.updates[u].staleness) / 4 for u in range(AF_ROUNDS)]
+    want_fill = [float(sch.updates[u].buffer_fill_after)
+                 for u in range(AF_ROUNDS)]
+    st = over["stats"]
+    phase("asyncfed", run="overlap", losses=json.dumps(over["losses"]),
+          staleness_mean=json.dumps(stale), buffer_fill=json.dumps(fill),
+          cohorts_launched=st["cohorts_launched"], launches=short(over),
+          window_bytes_max=st["window_bytes_max"],
+          window_cohorts_max=st["window_cohorts_max"],
+          window_bytes_expected=most * cohort_bytes, wall_s=over["wall_s"])
+    check(len(over["losses"]) == AF_ROUNDS
+          and all(math.isfinite(x) for x in over["losses"]),
+          f"asyncfed overlap: losses {over['losses']}")
+    check(stale == want_stale and fill == want_fill,
+          f"asyncfed overlap: staleness {stale} / fill {fill} against the "
+          f"schedule's {want_stale} / {want_fill}")
+    check(max(stale) > 0, "asyncfed overlap: no stale contribution")
+    launches_ok("overlap", over["launches"])
+    check(st["window_bytes_max"] == most * cohort_bytes
+          and st["window_cohorts_max"] == most,
+          f"asyncfed overlap: window {st['window_bytes_max']} B, "
+          f"{st['window_cohorts_max']} cohorts; the schedule's {most}")
+    sharded = run("af_overlap_sharded", AF_OVERLAP + SHARDED_FLAGS)
+    ln = sharded["launches"]
+    phase("asyncfed", run="overlap_sharded", launches=short(sharded),
+          losses=json.dumps(sharded["losses"]), wall_s=sharded["wall_s"])
+    check(ln["estimate_at_range"] == AF_ROUNDS and ln["estimate_median"] == 0
+          and ln["sketch_rows"] == 2 * AF_ROUNDS,
+          f"asyncfed overlap sharded: launches {ln}")
+    check(all(math.isfinite(x) for x in sharded["losses"]),
+          "asyncfed overlap sharded: losses not finite")
+
+    # (c) double buffering: bit-equal to the twins
+    anchor["name"] = "af_anchor"
+    a_db = run("af_anchor_db", AF_ANCHOR + AF_DOUBLE)
+    o_db = run("af_overlap_db", AF_OVERLAP + AF_DOUBLE)
+    phase("asyncfed", run="double_buffer",
+          anchor_bit_equal=held("anchor_db", a_db, anchor),
+          overlap_bit_equal=held("overlap_db", o_db, over),
+          launches=short(o_db))
+    launches_ok("anchor_db", a_db["launches"])
+    launches_ok("overlap_db", o_db["launches"])
+
+    # (d) the retry recovery and the resumes
+    rec = run("af_retry", AF_OVERLAP + AF_NAN)
+    r_log = rec["out"]["logdir"]
+    rs = rec["stats"]
+    phase("asyncfed", run="retry", leaves_bit_equal=held("retry", rec, over),
+          recoveries=last_scalar(r_log, "resilience/recoveries"),
+          rollback_round=last_scalar(r_log, "resilience/rollback_round"),
+          restarts=rs["restarts"], launches=short(rec),
+          snapshot_ms=rs["snapshot_ms"], snapshot_bytes=rs["snapshot_bytes"],
+          wall_s=rec["wall_s"])
+    check(last_scalar(r_log, "resilience/recoveries") == 1.0
+          and last_scalar(r_log, "resilience/rollback_round") == AF_ROLLBACK
+          and rs["restarts"] == 1, "asyncfed retry: recoveries/rollback")
+    launches_ok("retry", rec["launches"], extra=AF_ROUNDS - AF_ROLLBACK)
+    resumed = []
+    for tag in ("a", "b"):
+        ck = os.path.join(work, f"af_resume_{tag}")
+        src = os.path.join(work, "af_overlap")
+        os.makedirs(os.path.join(ck, "manifests"))
+        shutil.copy(os.path.join(src, "step_4.pt"), ck)
+        shutil.copy(os.path.join(src, "manifests", "4.json"),
+                    os.path.join(ck, "manifests"))
+        gc.collect()
+        kern.reset_launch_counts()
+        out = cv_train.main(AF_BASE + AF_OVERLAP + [
+            "--dataset_dir", dataset_dir, "--checkpoint_dir", ck,
+            "--resume", "true", "--max_rounds", str(AF_ROUNDS), "--logdir",
+            ck + "_log"])
+        forms.append(kern.form_counts())
+        resumed.append((out, load_state(os.path.join(
+            ck, f"step_{AF_ROUNDS}.pt"))))
+    same, err = state_diff(torch, resumed[0][1], resumed[1][1], d)
+    la = [h["loss"] for h in resumed[0][0]["history"]]
+    lb = [h["loss"] for h in resumed[1][0]["history"]]
+    to_straight, err_straight = state_diff(torch, resumed[0][1],
+                                           over["state"], d)
+    phase("asyncfed", run="resume", resumed_from=json.dumps(
+        [o["checkpoint"]["resumed_from"] for o, _ in resumed]),
+          bit_equal=same and la == lb, max_abs_err=err,
+          bit_equal_to_straight=to_straight,
+          max_abs_err_to_straight=err_straight)
+    check(all(o["checkpoint"]["resumed_from"] == 4 for o, _ in resumed),
+          "asyncfed resume: not resumed from round 4")
+    check(same and la == lb, f"asyncfed resume: two resumed runs differ by "
+          f"{err}")
+
+    # (e) staleness_aware: a switch and a retune, no plan built
+    with PrewarmProbe(kern) as pw:
+        ctl = run("af_control", AF_CONTROL)
+    cm = ctl["metrics"]
+    builds = kern.plan_builds() - pw.builds[-1]
+    rungs = [cm["control/rung"][u] for u in range(AF_ROUNDS)]
+    ks = [cm["control/async_k"][u] for u in range(AF_ROUNDS)]
+    cs_ = [cm["control/async_c"][u] for u in range(AF_ROUNDS)]
+    cst = ctl["stats"]
+    phase("asyncfed", run="control", rungs=json.dumps(rungs),
+          async_k=json.dumps(ks), async_c=json.dumps(cs_),
+          switches=ctl["out"]["control"]["switches"],
+          retunes=cm["control/retunes"][AF_ROUNDS - 1],
+          retunes_applied=cst["retunes_applied"],
+          plan_builds_after_prewarm=builds, launches=short(ctl),
+          losses=json.dumps(ctl["losses"]), wall_s=ctl["wall_s"])
+    check(ctl["out"]["control"]["switches"] >= 1
+          and cm["control/retunes"][AF_ROUNDS - 1] >= 1
+          and cst["retunes_applied"] >= 1,
+          f"asyncfed control: rungs {rungs}, K {ks}, C {cs_}")
+    check(builds == 0, f"asyncfed control: {builds} plans built after the "
+          "prewarm")
+    check(all(math.isfinite(x) for x in ctl["losses"]),
+          "asyncfed control: losses not finite")
+
+    # (f) timing, printed
+    timed = ("af_sync", "af_anchor", "af_anchor_db", "af_overlap",
+             "af_overlap_db", "af_overlap_sharded", "af_control")
+    phase("asyncfed_timing", card=repr(card_line()),
+          update_ms_median=json.dumps({
+              name[3:]: round(runs[name]["ms"], 3) for name in timed}),
+          update_ms_mean=json.dumps({
+              name[3:]: round(runs[name]["mean_ms"], 3) for name in timed}),
+          prefetch_host_ms=json.dumps({
+              name[3:]: round(runs[name]["stats"]["prefetch_host_ms"], 3)
+              for name in ("af_anchor", "af_overlap")}),
+          host_stall_ms=json.dumps({
+              name[3:]: round(runs[name]["stats"]["host_stall_ms"], 3)
+              for name in ("af_anchor", "af_overlap")}),
+          window_bytes_max=json.dumps({
+              name[3:]: runs[name]["stats"]["window_bytes_max"]
+              for name in ("af_anchor", "af_overlap", "af_control")}),
+          peak=json.dumps({name[3:]: runs[name]["peak"] for name in (
+              "af_sync", "af_anchor", "af_overlap", "af_control")}),
+          snapshot_ms=rs["snapshot_ms"], snapshot_bytes=rs["snapshot_bytes"])
+    phase("asyncfed_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 
 def main() -> int:
     import torch
@@ -4603,6 +4951,12 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["clientstore"] = clientstore_phase(torch, kern, cv_train,
                                                      dataset_dir, work)
+    # buffered-asynchronous federation: anchor, overlap, double buffering,
+    # recovery, resume, staleness_aware
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["asyncfed"] = asyncfed_phase(torch, kern, cv_train,
+                                               dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

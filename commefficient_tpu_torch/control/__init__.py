@@ -20,7 +20,9 @@ participation, the ledger's bytes); this package closes the loop:
                      ``BudgetExhaustedError`` when even the cheapest rung
                      would overshoot), ``ef_feedback`` (closed loop on the
                      EF residual's slope and the fidelity, with
-                     hysteresis).
+                     hysteresis), ``staleness_aware`` (asyncfed only: the
+                     ``async/*`` staleness walks the ladder and the buffer
+                     backlog retunes the engine's (K, C)).
   * ``controller`` — the loop: reads the drained telemetry, picks the next
                      round's rung, migrates the compressor's state across
                      rungs (``Compressor.migrate_state``: a ``num_cols``
@@ -35,9 +37,8 @@ participation, the ledger's bytes); this package closes the loop:
 one rung over the config, no controller exists, and the round runs what
 it ran before, launch for launch. ``parallel/api.py`` and the train loop
 import this package; ``utils/config.py`` imports ``ladder`` and ``policy``
-lazily for its flag checks. Not ported (ROADMAP A11): the
-``staleness_aware`` policy and the buffered-async retunes (they need
-asyncfed/), and the elastic fleet's per-width programs.
+lazily for its flag checks. Not ported (ROADMAP A11, item A.1.4): the
+elastic fleet's per-width programs.
 """
 
 from commefficient_tpu_torch.control.controller import (

@@ -30,9 +30,16 @@ slots) is a small float64 blob carried in checkpoints
 drained telemetry), and drains happen before saves, so a resumed run
 reproduces the unbroken run's rung sequence bit for bit. The blob keeps
 the reference's layout (version 3: 13 fixed fields, then the policy's
-slots); the fields of the elastic fleet and the buffered-async retunes,
-which the port does not run, hold their inert values (fleet width -1, the
-config's ``async_buffer`` / ``async_concurrency``, no retune).
+slots); the elastic fleet's field, which the port does not run, holds its
+inert value (fleet width -1).
+
+Under the buffered-async engine (asyncfed/) the decision point is the
+engine's, once an update before its apply, and ``fs_stats`` carries the
+update's ``async/*`` scalars: a policy with ``ADAPTS_ASYNC``
+(``staleness_aware``) also moves the engine's (K, C) pair
+(``_maybe_retune``), which the engine's retune listener picks up, and
+``scalars()`` then adds ``control/async_k``, ``control/async_c`` and
+``control/retunes``.
 """
 
 from __future__ import annotations
@@ -89,8 +96,9 @@ class BudgetController:
         # the rung (batch, fedsim masks, lr), so a switch invalidates
         # nothing in flight
         self._switch_listeners = []
-        # the buffered-async (K, C) pair of the reference's blob: held at
-        # the config's values, since no policy the port runs moves it
+        # the buffered-async (K, C) pair: the controller owns the live
+        # one (the engine's retune listener follows it); only an
+        # ADAPTS_ASYNC policy moves it
         self.async_k = int(cfg.async_buffer)
         self.async_c = int(cfg.async_concurrency)
         self.retunes = 0
@@ -105,9 +113,10 @@ class BudgetController:
         self._switch_listeners.append(fn)
 
     def add_retune_listener(self, fn) -> None:
-        """Register ``fn(step, k, c)`` for a move of the buffered-async
-        (K, C) pair. Kept for the reference's interface; no policy the
-        port runs moves the pair, so it never fires."""
+        """Register ``fn(step, k, c)``, called when an ADAPTS_ASYNC policy
+        moves the buffered-async (K, C) pair (the engine rebuilds its
+        schedule), and again by ``load_state_blob`` with the restored
+        pair. A listener only observes."""
         self._retune_listeners.append(fn)
 
     # -- byte accounting (telemetry.CommLedger's arithmetic) ---------------
@@ -146,13 +155,23 @@ class BudgetController:
         rung would overshoot the budget, BEFORE the round runs."""
         live, avail = self._live_avail(fs_stats)
         rung = self.session.active_rung
+        s = fs_stats or {}
+        # the buffered-async engine's signals (None on synchronous rounds)
+
+        def opt(key):
+            return None if s.get(key) is None else float(s[key])
+
         ctx = DecisionContext(
             step=step, num_rounds=self.num_rounds, rung=rung,
             num_rungs=self.num_rungs,
             round_bytes=lambda r: self.round_bytes(r, live, avail),
             spent_bytes=self.spent_bytes, budget_bytes=self.budget_bytes,
             last_switch_round=self.last_switch_round,
-            hysteresis=self.cfg.control_hysteresis)
+            hysteresis=self.cfg.control_hysteresis,
+            staleness_mean=opt("async/staleness_mean"),
+            effective_participation=opt("async/effective_participation"),
+            buffer_fill=opt("async/buffer_fill"),
+            num_workers=self.cfg.num_workers)
         target = self.policy.decide(ctx)
         target = min(max(int(target), 0), self.num_rungs - 1)
         # the demotion floor (a higher index is a cheaper rung)
@@ -179,11 +198,34 @@ class BudgetController:
             self.last_switch_round = step
             for fn in self._switch_listeners:
                 fn(step, rung, target)
+        if self.policy.ADAPTS_ASYNC:
+            self._maybe_retune(step, ctx)
         up, down = self._up_down(target, live, avail)
         self.spent_up += int(up)
         self.spent_down += int(down)
         self.rounds_seen += 1
         return target
+
+    def _maybe_retune(self, step: int, ctx: DecisionContext) -> None:
+        """Ask the ADAPTS_ASYNC policy for the next (K, C) pair, clamp it
+        to the engine's range (1 <= K <= W, C >= 1) and notify the retune
+        listeners of a change. No retune within ``control_hysteresis``
+        rounds of the last one, so the schedule's rebuild cannot
+        thrash."""
+        if (self.last_retune_round >= 0
+                and step - self.last_retune_round
+                < self.cfg.control_hysteresis):
+            return
+        k, c = self.policy.decide_async(ctx, self.async_k, self.async_c)
+        k = min(max(int(k), 1), int(self.cfg.num_workers))
+        c = max(int(c), 1)
+        if (k, c) == (self.async_k, self.async_c):
+            return
+        self.async_k, self.async_c = k, c
+        self.retunes += 1
+        self.last_retune_round = step
+        for fn in self._retune_listeners:
+            fn(step, k, c)
 
     def demote(self, step: int) -> int:
         """A recovery's demotion (the reference's resilience ``demote``
@@ -215,12 +257,18 @@ class BudgetController:
         (``pack_metric_dicts`` requires it): ``control/rung`` is the rung
         the round ran at, the per-rung ledger's source;
         ``control/budget_remaining_bytes`` is what is left after this
-        round's spend, present only with a budget."""
+        round's spend, present only with a budget; ``control/async_k``,
+        ``control/async_c`` and ``control/retunes`` only under an
+        ADAPTS_ASYNC policy."""
         out = {"control/rung": float(self.session.active_rung),
                "control/switches": float(self.switches)}
         if self.budget_bytes is not None:
             out["control/budget_remaining_bytes"] = float(
                 self.budget_bytes - self.spent_bytes)
+        if self.policy.ADAPTS_ASYNC:
+            out["control/async_k"] = float(self.async_k)
+            out["control/async_c"] = float(self.async_c)
+            out["control/retunes"] = float(self.retunes)
         return out
 
     def observe_drained(self, step: int, scalars: Dict[str, float]) -> None:
@@ -306,6 +354,10 @@ class BudgetController:
         self.async_c = int(blob[10])
         self.retunes = int(blob[11])
         self.last_retune_round = int(blob[12])
+        # the engine follows the restored pair (its listener ignores the
+        # pair it already runs)
+        for fn in self._retune_listeners:
+            fn(self.last_retune_round, self.async_k, self.async_c)
         self.policy.load_state(tuple(blob[_BLOB_FIXED:]))
 
 

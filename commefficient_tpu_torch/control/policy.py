@@ -3,7 +3,7 @@ port's copy of the reference's ``control/policy.py``).
 
 A policy is pure host logic deciding WHICH ladder rung the next round
 dispatches; it never touches device state (the controller owns the
-migration and the dispatch). Three are registered; the policy-string
+migration and the dispatch). Four are registered; the policy-string
 branching lives here and in ``utils/config.py``'s validation:
 
   * ``fixed``         — a round-range schedule (``--control_schedule
@@ -26,10 +26,13 @@ branching lives here and in ``utils/config.py``'s validation:
                         ``control_ef_down``. ``control_hysteresis`` rounds
                         pass between switches and the thresholds are
                         distinct, so the loop cannot flap every round.
-
-``staleness_aware`` is a name of the reference's registry (it reads the
-``async/*`` scalars only the buffered-async engine emits): ``get_policy``
-refuses it, naming asyncfed/.
+  * ``staleness_aware`` — closed loop on the buffered-async engine's
+                        ``async/staleness_mean`` and ``async/buffer_fill``
+                        (asyncfed only): a cheaper rung while cohorts
+                        arrive stale, back toward fidelity when they are
+                        fresh, and the engine's (K, C) pair moved toward
+                        the backlog band through the controller's retune
+                        listeners.
 
 Every decision is a pure function of (policy state, round index, drained
 telemetry): the controller checkpoints that state, so a resumed run
@@ -43,11 +46,6 @@ from typing import Dict, Optional, Tuple
 
 CONTROL_POLICIES = ("none", "fixed", "budget_pacing", "ef_feedback",
                     "staleness_aware")
-# the policy that waits for the buffered-async engine (ROADMAP A11)
-ASYNC_ONLY = "staleness_aware"
-ASYNC_BLOCKER = ("it reads the async/* scalars only the buffered-async "
-                 "engine emits, and asyncfed/ is not ported yet (ROADMAP "
-                 "A11)")
 
 _SCHEDULE_GRAMMAR = (
     'comma-separated "A-B=rung" round ranges (B empty = open-ended, '
@@ -123,7 +121,10 @@ class DecisionContext:
     def __init__(self, *, step: int, num_rounds: int, rung: int,
                  num_rungs: int, round_bytes, spent_bytes: int,
                  budget_bytes: Optional[int], last_switch_round: int,
-                 hysteresis: int):
+                 hysteresis: int, staleness_mean: Optional[float] = None,
+                 effective_participation: Optional[float] = None,
+                 buffer_fill: Optional[float] = None,
+                 num_workers: Optional[int] = None):
         self.step = step
         self.num_rounds = num_rounds
         self.rung = rung
@@ -135,6 +136,13 @@ class DecisionContext:
         self.budget_bytes = budget_bytes
         self.last_switch_round = last_switch_round
         self.hysteresis = hysteresis
+        # the buffered-async engine's signals of the update (None on a
+        # synchronous round); buffer_fill is the RAW delivered-unconsumed
+        # count after the fire, which a policy normalizes by K itself
+        self.staleness_mean = staleness_mean
+        self.effective_participation = effective_participation
+        self.buffer_fill = buffer_fill
+        self.num_workers = num_workers
 
 
 class ControlPolicy:
@@ -144,6 +152,9 @@ class ControlPolicy:
     # float64 slots this policy keeps in the controller's checkpoint blob
     # (beyond the controller's own), loaded back as they are
     STATE_SLOTS = 0
+    # True: the policy also moves the buffered-async (K, C) pair
+    # (``decide_async``)
+    ADAPTS_ASYNC = False
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -290,16 +301,72 @@ class EfFeedbackPolicy(ControlPolicy):
         self.prev_ef, self.last_slope, self.last_fidelity = map(opt, slots)
 
 
+class StalenessAwarePolicy(ControlPolicy):
+    """Closed loop on the buffered-async staleness telemetry.
+
+    ``decide`` (the rung walk): ``async/staleness_mean`` above
+    ``control_staleness_hi`` means cohorts arrive so late that their
+    gradients mostly fight the server's newer params, so one rung cheaper
+    a decision; below ``control_staleness_lo`` the fleet keeps up and the
+    loop climbs back toward fidelity. ``hi > lo`` (Config checks it) and
+    ``control_hysteresis`` hold a signal inside the band.
+
+    ``decide_async`` (the (K, C) retune): a normalized backlog
+    ``buffer_fill / K`` above ``control_fill_hi`` grows K (each fire
+    absorbs more of the queue); staleness above its band sheds concurrency
+    toward 1, then, once the backlog is at or below ``control_fill_lo``,
+    shrinks K; a fresh fleet restores concurrency up to the configured
+    ``async_concurrency``. One move a decision; the controller clamps the
+    pair and applies the retune hysteresis.
+
+    Stateless (``STATE_SLOTS = 0``): each decision is a function of the
+    update's ``DecisionContext``, so a resume needs only the controller's
+    own (K, C, retunes) slots."""
+
+    name = "staleness_aware"
+    ADAPTS_ASYNC = True
+
+    def decide(self, ctx: DecisionContext) -> int:
+        if (ctx.last_switch_round >= 0
+                and ctx.step - ctx.last_switch_round < ctx.hysteresis):
+            return ctx.rung
+        stale = ctx.staleness_mean
+        if stale is None:
+            return ctx.rung  # a synchronous round
+        cfg = self.cfg
+        if stale > cfg.control_staleness_hi:
+            return min(ctx.rung + 1, ctx.num_rungs - 1)  # cheaper
+        if stale < cfg.control_staleness_lo:
+            return max(ctx.rung - 1, 0)  # back toward fidelity
+        return ctx.rung
+
+    def decide_async(self, ctx: DecisionContext, k: int, c: int):
+        stale, fill = ctx.staleness_mean, ctx.buffer_fill
+        if stale is None or fill is None:
+            return k, c
+        cfg = self.cfg
+        norm = float(fill) / max(k, 1)
+        if (norm > cfg.control_fill_hi and ctx.num_workers is not None
+                and k < ctx.num_workers):
+            return k + 1, c  # backlog over the band: absorb more a fire
+        if stale > cfg.control_staleness_hi:
+            if c > 1:
+                return k, c - 1  # fewer cohorts in flight age less
+            if norm <= cfg.control_fill_lo and k > 1:
+                return k - 1, c  # starved and stale: smaller buffers
+            return k, c
+        if stale < cfg.control_staleness_lo and c < cfg.async_concurrency:
+            return k, c + 1  # a fresh fleet: the configured concurrency
+        return k, c
+
+
 POLICIES = {p.name: p for p in (FixedPolicy, BudgetPacingPolicy,
-                                EfFeedbackPolicy)}
+                                EfFeedbackPolicy, StalenessAwarePolicy)}
 
 
 def get_policy(cfg) -> ControlPolicy:
     """The policy of ``cfg.control_policy`` (never "none": the controller's
     construction gate stops that before here)."""
-    if cfg.control_policy == ASYNC_ONLY:
-        raise ValueError(f"control_policy={ASYNC_ONLY!r} is not ported yet: "
-                         f"{ASYNC_BLOCKER}")
     try:
         cls = POLICIES[cfg.control_policy]
     except KeyError:

@@ -15,6 +15,12 @@ the host bank (ahead of the round by the pipeline's prefetch thread, or at
 the dispatch), copied to the card on a stager's stream, handed to the
 round as arguments, and the round's new rows written back asynchronously
 (``train_round``'s ``cohort``, ``host_vel``/``host_err``).
+
+Under the buffered-asynchronous engine (``--async_buffer K``, asyncfed/)
+the rounds do not go through ``train_round``: the engine dispatches each
+rung's ``async_round_fns`` pair itself and calls the session's host
+entries around them (``blacklist_env``, ``control_round_start``,
+``mark_dispatched``, ``host_round_stats``).
 """
 
 from __future__ import annotations
@@ -350,6 +356,9 @@ class FederatedSession:
         self.spans = None
         self.audit_arm = None
         self.last_audit = None
+        # asyncfed/'s (launch_fn, apply_fn) a rung, built on first use
+        # (async_round_fns) or by prewarm_rungs
+        self._async_fns: Dict[int, tuple] = {}
 
     # -- clientstore/'s banks (the checkpoint's and the vault's access) ------
     @property
@@ -574,8 +583,13 @@ class FederatedSession:
         migration ops once on scratch tensors
         (``Compressor.warm_migration``: torch loads a kernel at its first
         launch), so a switch to any rung builds and loads nothing; nothing
-        to do on the CPU. Launches no CountSketch kernel and changes no
-        state; returns the number of rungs."""
+        to do on the CPU. Under asyncfed every rung's ``async_round_fns``
+        pair is built too, so a switch or a retune builds nothing. Launches
+        no CountSketch kernel and changes no state; returns the number of
+        rungs."""
+        if self.cfg.asyncfed_enabled:
+            for i in range(len(self.rungs)):
+                self.async_round_fns(i)
         if self.device.type == "cuda":
             from commefficient_tpu_torch.ops.cuda.countsketch import (
                 prepare_plans,
@@ -588,6 +602,24 @@ class FederatedSession:
                 if len(self.rungs) > 1:
                     rung.compressor.warm_migration(self._cuda_device)
         return len(self.rungs)
+
+    def async_round_fns(self, rung: Optional[int] = None):
+        """Rung ``rung``'s (the active one's by default) asyncfed
+        ``(launch_fn, apply_fn)`` (``asyncfed/round.py``), built once and
+        kept, so the engine and a switch back to the rung use the same
+        pair."""
+        i = self.active_rung if rung is None else int(rung)
+        pair = self._async_fns.get(i)
+        if pair is None:
+            from commefficient_tpu_torch.asyncfed.round import (
+                build_async_round_fns,
+            )
+
+            r = self.rungs[i]
+            pair = build_async_round_fns(r.cfg, self._loss_fn, self.unravel,
+                                         r.compressor, self.group)
+            self._async_fns[i] = pair
+        return pair
 
     def rung_range_slices(self, rung: _Rung):
         """The ``(start, n)`` slice of this rank that ``rung``'s server
@@ -684,11 +716,12 @@ class FederatedSession:
         """Attach ``dataset``'s arrays on the device iff ``device_data`` is
         on, the sampler can drive index-only rounds (``fusable``), every
         array is numpy and they total at most ``device_data_max_mb`` MB
-        (1e6 bytes) — the reference's gate (FSDP rounds and a hosted
-        client store take the host batch). True when the index path is
-        live."""
+        (1e6 bytes) — the reference's gate (FSDP rounds, a hosted client
+        store and the asyncfed engine, whose launch takes the staged host
+        batch, take the host batch). True when the index path is live."""
         if not (self.cfg.device_data and not self.cfg.fsdp
                 and not self.cfg.client_state_hosted
+                and not self.cfg.asyncfed_enabled
                 and sampler.fusable
                 and all(isinstance(v, np.ndarray)
                         for v in dataset.data.values())
@@ -836,8 +869,8 @@ class FederatedSession:
         if replay is None:
             replay = step < self._replay_horizon
         env = self.fedsim_env.round_env(step, replay=replay)
-        if client_ids is not None and self._client_blacklist is not None:
-            env = self._blacklist_env(env, client_ids)
+        if client_ids is not None:
+            env = self.blacklist_env(env, client_ids)
         return env
 
     def blacklist_clients(self, client_ids) -> np.ndarray:
@@ -858,6 +891,28 @@ class FederatedSession:
             ids = np.union1d(self._client_blacklist, ids)
         self._client_blacklist = ids
         return ids
+
+    def blacklist_env(self, env, client_ids):
+        """``env`` with the blacklist composed in for the host
+        ``client_ids`` (``_blacklist_env``); ``env`` itself without a
+        blacklist or an env."""
+        if env is None or self._client_blacklist is None:
+            return env
+        return self._blacklist_env(env, client_ids)
+
+    def control_round_start(self, step: int, fs_stats=None) -> None:
+        """The control plane's decision point for round ``step``, on the
+        host before its dispatch (nothing without a controller): the
+        asyncfed engine calls it once an update, with the update's
+        ``fedsim/*`` and ``async/*`` scalars, as ``_round`` calls it with
+        the environment's."""
+        if self.controller is not None:
+            self.controller.on_round_start(step, fs_stats)
+
+    def mark_dispatched(self, step: int) -> None:
+        """Round ``step`` has run in this process: the replay horizon moves
+        past it (a rollback's replay realizes it with ``replay=True``)."""
+        self._replay_horizon = max(self._replay_horizon, int(step) + 1)
 
     def _blacklist_env(self, env, client_ids):
         """``env`` with the blacklist composed in, on the host: a
@@ -942,11 +997,17 @@ class FederatedSession:
                     "ids: pass host_ids= with ids staged on the card")
         with self._span("device_put", trace_id=round_trace_id(
                 self.state.step)):
-            self._consume(ready, [client_ids, *batch.values()])
-            ids = self._device_ids(client_ids)
-            dev_batch = _to_device(self.local_clients(batch), self.device)
+            ids, dev_batch = self.device_inputs(client_ids, batch, ready)
         return self._round(ids, dev_batch, lr, env, blacklist_ids,
                            cohort_ids, cohort)
+
+    def device_inputs(self, client_ids, batch: Dict[str, Any], ready=None):
+        """``(device client ids, this rank's device batch)`` of a round's
+        ``[W]`` ids and ``[W, ...]`` host (or staged) batch, after the
+        compute stream waits on a staged copy's ``ready``."""
+        self._consume(ready, [client_ids, *batch.values()])
+        return (self._device_ids(client_ids),
+                _to_device(self.local_clients(batch), self.device))
 
     def train_round_indices(self, client_ids, idx, plan, lr: float,
                             env=None, ready=None):
@@ -1034,15 +1095,13 @@ class FederatedSession:
                     "fedsim (cfg.fedsim_enabled is False, so the round "
                     "masks nothing); construct the Config with "
                     "availability/chaos set to drive masked rounds")
-            if (env is not None and host_ids is not None
-                    and self._client_blacklist is not None):
-                env = self._blacklist_env(env, host_ids)
-        if self.controller is not None:
-            # the control plane's decision point, on the host before the
-            # dispatch: it may switch the rung (and migrate the state) or
-            # raise BudgetExhaustedError, so the round never runs
-            self.controller.on_round_start(
-                step, env.stats if env is not None else None)
+            if host_ids is not None:
+                env = self.blacklist_env(env, host_ids)
+        # the control plane's decision point, on the host before the
+        # dispatch: it may switch the rung (and migrate the state) or raise
+        # BudgetExhaustedError, so the round never runs
+        self.control_round_start(step,
+                                 env.stats if env is not None else None)
         lr = float(np.float32(lr))  # the reference's f32 lr
         rows = ()
         if self._streamer is not None:
@@ -1066,11 +1125,21 @@ class FederatedSession:
                 self._streamer.scatter(cohort_ids, *out[2:], trace_id=tid)
             if sp is not None:
                 sp.fence(metrics["loss"])
-        self._replay_horizon = max(self._replay_horizon, step + 1)
+        self.mark_dispatched(step)
         if arm:
             arm.finish()  # the report, outside the round's spans
-        if env is not None:
-            metrics = {**metrics, **env.stats}
+        return self.host_round_stats(
+            metrics, env.stats if env is not None else None)
+
+    def host_round_stats(self, metrics: dict, fs_stats=None) -> dict:
+        """A dispatched round's metrics with the host scalars added, the
+        same keys every round: ``fs_stats`` (the environment's
+        ``fedsim/*``; under asyncfed also the update's ``async/*``), the
+        controller's ``control/*``, the resilience rider's, a hosted
+        store's ``clientstore/*`` and, with spans at level >= 1,
+        ``xla/exposed_collective_ms`` and the lagged ``trace/*``."""
+        if fs_stats:
+            metrics = {**metrics, **fs_stats}
         if self.controller is not None:
             metrics = {**metrics, **self.controller.scalars()}
         if self.resilience is not None:
@@ -1126,9 +1195,9 @@ class FederatedSession:
                                        cfg.num_workers * self.grad_size)
                 sparse_agg_exemption = "client_state_writeback"
         overlap_info = None
-        if cfg.overlap_collectives != "none":
+        if cfg.overlap_collectives != "none" or cfg.async_double_buffer:
             overlap_info = {"collectives": cfg.overlap_collectives,
-                            "double_buffer": False}
+                            "double_buffer": bool(cfg.async_double_buffer)}
         return dict(
             mode=cfg.mode,
             sketch_decode=self.sketch_decode_resolved if is_sketch else None,

@@ -495,20 +495,19 @@ def client_transmits(per_client, params_vec, batch, vel_rows, err_rows, lr,
             None if err_rows is None else torch.stack(errs))
 
 
-def batched_client_transmits(per_client, params_vec, batch, vel_rows,
-                             err_rows, lr, noise=None, live=None,
-                             corrupt=None):
+def batched_client_rows(per_client, params_vec, batch, vel_rows, err_rows,
+                        lr, noise=None, live=None, corrupt=None):
     """The clients of ``batch`` ({k: [w, ...]}) as one batched step, the
-    reference's ``vmap``: ``(transmit sum [D], loss sum, aux sums,
-    new_vel_rows [w, D] | None, new_err_rows [w, D] | None)``, the
-    stacks summed over the clients. A rows argument is ``None`` where its
-    bank is absent; ``lr`` is ``comp.client_lr``'s; ``noise``
-    (``client_noise``'s ``[w, ...]`` draws), ``live`` and ``corrupt``
-    (``[w]`` f32 masks, fedsim) go to each client where given.
-    ``torch.func.vmap`` maps ``per_client`` over axis 0 of every per-client
-    argument; an op it cannot batch raises (there is no fallback to the
-    loop), and so does any random draw inside (the DP draws come in as
-    ``noise``)."""
+    reference's ``vmap``: ``(transmits [w, D], new_vel_rows [w, D] | None,
+    new_err_rows [w, D] | None, losses [w], aux {k: [w]})``, one row a
+    client. A rows argument is ``None`` where its bank is absent; ``lr`` is
+    ``comp.client_lr``'s; ``noise`` (``client_noise``'s ``[w, ...]``
+    draws), ``live`` and ``corrupt`` (``[w]`` f32 masks, fedsim) go to
+    each client where given. ``torch.func.vmap`` maps ``per_client`` over
+    axis 0 of every per-client argument; an op it cannot batch raises
+    (there is no fallback to the loop), and so does any random draw inside
+    (the DP draws come in as ``noise``). The buffered-async launch keeps
+    these rows; the round sums them (``batched_client_transmits``)."""
 
     def dim(x):
         return None if x is None else 0
@@ -518,24 +517,38 @@ def batched_client_transmits(per_client, params_vec, batch, vel_rows,
         in_dims=(None, 0, dim(vel_rows), dim(err_rows), None, dim(noise),
                  dim(live), dim(corrupt)),
         out_dims=(0, dim(vel_rows), dim(err_rows), 0, 0))
-    t, new_vel, new_err, loss, aux = step(params_vec, batch, vel_rows,
-                                          err_rows, lr, noise, live, corrupt)
+    return step(params_vec, batch, vel_rows, err_rows, lr, noise, live,
+                corrupt)
+
+
+def batched_client_transmits(per_client, params_vec, batch, vel_rows,
+                             err_rows, lr, noise=None, live=None,
+                             corrupt=None):
+    """``batched_client_rows`` with its stacks summed over the clients:
+    ``(transmit sum [D], loss sum, aux sums, new_vel_rows [w, D] | None,
+    new_err_rows [w, D] | None)``."""
+    t, new_vel, new_err, loss, aux = batched_client_rows(
+        per_client, params_vec, batch, vel_rows, err_rows, lr, noise, live,
+        corrupt)
     return (torch.sum(t, 0), torch.sum(loss, 0),
             {k: torch.sum(v, 0) for k, v in aux.items()}, new_vel, new_err)
 
 
 def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
-                  env=None, lo: int = 0, rows=None):
+                  env=None, lo: int = 0, rows=None,
+                  key_step: Optional[int] = None):
     """The client step's arguments after ``per_client``, for this rank's
     clients ``[lo, lo + w)`` of ``batch`` ({k: [w, ...]}): ``(params_vec,
     batch, vel_rows, err_rows, lr, noise, live, corrupt)``. ``rows`` is
     the pair ``(vel_rows, err_rows)`` of this rank's ``[w, D]`` rows (a
     hosted store's, gathered before the round); without it the rows are
     read from the state's banks at ``client_ids`` (the cohort's ``[W]``
-    ids). The DP draws are keyed ``(step, client id)`` (by slot when no
-    ids are given) and made here (``client_noise``); ``live``/``corrupt``
-    are the rank's slice of ``env``'s masks (fedsim); ``lr`` is
-    ``comp.client_lr``'s. Absent parts are ``None``."""
+    ids). The DP draws are keyed ``(key_step, client id)`` (by slot when
+    no ids are given; ``key_step`` is ``state.step`` unless given: a
+    buffered-async launch passes its launch version) and made here
+    (``client_noise``); ``live``/``corrupt`` are the rank's slice of
+    ``env``'s masks (fedsim); ``lr`` is ``comp.client_lr``'s. Absent parts
+    are ``None``."""
     dev = state.params_vec.device
     w = next(iter(batch.values())).shape[0]
     if rows is None:
@@ -547,7 +560,8 @@ def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
     if cfg.dp_noise_multiplier > 0:
         ids = (range(cfg.num_workers) if client_ids is None
                else client_ids.tolist())
-        keys = [(state.step, int(ids[lo + i])) for i in range(w)]
+        step = state.step if key_step is None else int(key_step)
+        keys = [(step, int(ids[lo + i])) for i in range(w)]
     masks = (None, None)
     if env is not None:
         masks = [torch.from_numpy(np.asarray(m, np.float32)[lo:lo + w]).to(

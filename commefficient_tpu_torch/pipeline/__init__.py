@@ -17,12 +17,14 @@ loop reads ``data/sampler.py::prefetch`` instead. The control plane's
 rung switches reach the engine through its switch listener (a counted
 quiesce; the staged inputs do not depend on the rung). A hosted client
 store's cohort rows are staged by the prefetch worker too
-(``clientstore/``). Not ported here (ROADMAP A11 and A12): ``cohorts.py``
-and ``scan_engine.py``. At telemetry
+(``clientstore/``). ``cohorts``: ``CohortScheduler``, the prefetcher
+realizing cohorts for the buffered-async engine (asyncfed/). Not ported
+here (ROADMAP A11 and A12): ``scan_engine.py``. At telemetry
 level >= 1 the worker records its spans on its own lane and each round's
 metrics carry the ``pipeline/*`` scalars.
 """
 
+from commefficient_tpu_torch.pipeline.cohorts import CohortScheduler
 from commefficient_tpu_torch.pipeline.engine import PipelinedRounds
 from commefficient_tpu_torch.pipeline.prefetch import (
     PrefetchWorkerDied,
@@ -30,5 +32,5 @@ from commefficient_tpu_torch.pipeline.prefetch import (
     RoundWork,
 )
 
-__all__ = ["PipelinedRounds", "PrefetchWorkerDied", "RoundPrefetcher",
+__all__ = ["CohortScheduler", "PipelinedRounds", "PrefetchWorkerDied", "RoundPrefetcher",
            "RoundWork"]

@@ -6,7 +6,10 @@ The reference reads these figures off the compiled XLA round: its cost and
 memory analyses and a walk of its HLO for collectives. The port runs eager
 PyTorch, with no compiled round to read, so it measures the first round
 this process dispatches (round 0, or the resumed round), as it runs, with
-no extra round and no copy of the state:
+no extra round and no copy of the state (under the buffered-async engine
+the first update: its cohort launches and its apply, ``engine: "async"``
+with the ``async`` block of ``buffer``, ``concurrency`` and
+``staleness_exponent``):
 
 * ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode`` around the
   round's dispatch. It counts matmul and convolution FLOPs only (the
@@ -141,8 +144,8 @@ class RoundAudit:
     """One measured round; ``report()`` is the ``perf_report.json``
     payload, ``write()`` persists it, ``scalars()`` are the ``xla/*``
     scalars of the audited round. The constructor takes what
-    ``CompiledRoundAudit``'s does (no async or multihost block: the port
-    runs neither)."""
+    ``CompiledRoundAudit``'s does (no multihost block: the port runs no
+    multihost mesh)."""
 
     def __init__(self, *, cost: dict, memory: dict, collectives: dict,
                  engine: str = "replicated", mode: str = "",
@@ -155,8 +158,10 @@ class RoundAudit:
                  sparse_agg_exemption: Optional[str] = None,
                  tolerance_bytes: Optional[int] = None,
                  overlap_info: Optional[dict] = None,
+                 async_info: Optional[dict] = None,
                  peak=(None, None, None), step: int = 0):
         self.cost = cost
+        self.async_info = dict(async_info) if async_info else None
         self.memory = memory
         self.engine = engine
         self.mode = mode
@@ -238,6 +243,8 @@ class RoundAudit:
         }
         if self.overlap_info is not None:
             rec["overlap"] = dict(self.overlap_info)
+        if self.async_info is not None:
+            rec["async"] = dict(self.async_info)
         return jsonable_tree(rec)
 
     def write(self, logdir: str, *, generated_by: str, cfg=None) -> str:
@@ -328,13 +335,20 @@ class RoundAuditArm:
         if m is None:
             return None
         sess = self.session
+        cfg = self.cfg
         try:
+            engine, async_info = (
+                "fsdp" if cfg.fsdp else "replicated"), None
+            if cfg.asyncfed_enabled:
+                engine, async_info = "async", {
+                    "buffer": int(cfg.async_buffer),
+                    "concurrency": int(cfg.async_concurrency),
+                    "staleness_exponent": float(cfg.staleness_exponent)}
             audit = RoundAudit(
                 cost=m["cost"], memory=m["memory"],
-                collectives=m["collectives"],
-                engine="fsdp" if self.cfg.fsdp else "replicated",
-                peak=chip_peak_flops(sess.device), step=m["step"],
-                **sess.audit_bounds())
+                collectives=m["collectives"], engine=engine,
+                async_info=async_info, peak=chip_peak_flops(sess.device),
+                step=m["step"], **sess.audit_bounds())
             sess.last_audit = audit
             path = audit.write(self.writer.logdir,
                                generated_by=self.generated_by, cfg=self.cfg)

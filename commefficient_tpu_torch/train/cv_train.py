@@ -62,7 +62,10 @@ library (``native=yes`` in the header; numpy where it cannot be built) in
 a background thread two rounds ahead. ``--pipeline_depth N`` (N > 0) runs
 the pipelined engine instead: a worker realizes N rounds ahead and copies
 each round's arrays to the card early (pinned buffers, a side stream), and
-the values stay those of depth 0.
+the values stay those of depth 0. ``--async_buffer K`` runs the
+buffered-asynchronous engine instead (``asyncfed/``: C cohorts in flight,
+an update each K arrivals, staleness-discounted; K = W, C = 1, exponent 0
+is the synchronous round bit for bit).
 
 Telemetry: rank 0 writes ``metrics.jsonl`` into a run dir under
 ``--logdir`` (``runs`` by default; ``--tensorboard true`` adds
@@ -214,9 +217,10 @@ def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     ``sketch_decode`` (the server decode the session ran), ``checkpoint``
     (the runner's checkpoint facts), ``final_step``, ``data_path``
     (``device`` or ``host``), ``pipeline_stats`` (the pipelined engine's
-    ``stats()``, None at depth 0), ``logdir`` (rank 0's run dir, None
-    on the other ranks) and ``control`` (the control plane's controller
-    ``snapshot()`` at the end, None without it). ``model_kw`` narrows the model
+    or the buffered-async engine's ``stats()``, None on the synchronous
+    loop), ``logdir`` (rank 0's run dir, None on the other ranks) and
+    ``control`` (the control plane's controller ``snapshot()`` at the
+    end, None without it). ``model_kw`` narrows the model
     (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'

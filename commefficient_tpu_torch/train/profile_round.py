@@ -384,6 +384,14 @@ def main(argv=None):
             "card; a hosted store's stage and writeback times are its "
             "clientstore/* scalars (cv_train --telemetry_level 1) — run "
             "profile_round with --client_store device")
+    if cfg.asyncfed_enabled:
+        raise ValueError(
+            "profile_round splits the synchronous round's phases; the "
+            "buffered-async engine's launch and apply phases are not "
+            "profiled yet (ROADMAP A11, item A.1.7) — time it with "
+            "cv_train --async_buffer K --telemetry_level 1 (its "
+            "async_launch/async_apply spans), or run profile_round "
+            "without --async_buffer")
     session = FederatedSession(cfg, params, loss_fn,
                                **({"mask_batch": mask} if mask else {}))
     if session.device.type != "cuda":

@@ -11,9 +11,14 @@ one place ``cfg.pipeline_depth`` is read:
   GIL released) overlap the rounds the main thread launches; each round's
   arrays are copied to the device at dispatch;
 * depth > 0: ``pipeline.PipelinedRounds``, whose worker realizes and
-  stages rounds (pinned buffers, a side stream) ``pipeline_depth`` ahead.
+  stages rounds (pinned buffers, a side stream) ``pipeline_depth`` ahead;
+* ``async_buffer > 0``: ``asyncfed.AsyncFederation``, each step one server
+  update consuming K of the C in-flight cohorts' contributions (built
+  after the restore, as the pipelined engine is; its window rides the
+  vault's snapshots under ``extras["asyncfed"]``).
 
-Both yield the same rounds in the same order, bit for bit. No metric is
+The first two yield the same rounds in the same order, bit for bit; the
+third is the synchronous round bit for bit at K = W, C = 1, exponent 0. No metric is
 read back a round: each round's ``(step, lr, metrics)`` goes to a
 ``pending`` list, drained (the losses read back and accumulated, in step
 order) at each epoch's end and before each checkpoint save (``will_save``,
@@ -189,8 +194,9 @@ def round_source(cfg, session, sampler, lr_fn, start: int, stop: int):
     """Rounds ``[start, stop)`` as ``run_train_loop`` runs them at
     ``cfg.pipeline_depth`` (depth 0: ``_sync_epoch_rounds``, epoch by
     epoch; depth > 0: a ``PipelinedRounds`` engine over the range, closed
-    at the end), with no metric read back: what ``profile_round`` times.
-    Yields ``(step, lr, metrics, wait_ms, t_dispatch)``."""
+    at the end), with no metric read back: what ``profile_round`` times
+    (which refuses the buffered-async engine). Yields ``(step, lr,
+    metrics, wait_ms, t_dispatch)``."""
     spe = sampler.steps_per_epoch()
     engine = None
     if cfg.pipeline_enabled:
@@ -316,6 +322,21 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
             engine = PipelinedRounds(cfg, session, sampler, lr_fn, last,
                                      steps_per_epoch=steps_per_epoch
                                      ).start(start)
+        elif cfg.asyncfed_enabled and start < last:
+            from commefficient_tpu_torch.asyncfed import AsyncFederation
+
+            # after the restore too (its window rebuilds at the resumed
+            # update); its schedule spans the whole run, so a resumed run
+            # with a larger max_rounds follows the same script
+            engine = AsyncFederation(cfg, session, sampler, lr_fn,
+                                     num_rounds,
+                                     steps_per_epoch=steps_per_epoch
+                                     ).start(start)
+            if main:
+                print(f"asyncfed: buffer K={cfg.async_buffer} concurrency "
+                      f"C={cfg.async_concurrency} staleness_exponent="
+                      f"{cfg.staleness_exponent:g} (K=W, C=1, exponent 0 "
+                      "== the synchronous round, bit-exact)")
         if resil is not None:
             # a divergence before the first snapshot_every boundary rolls
             # back to the start round
@@ -417,9 +438,14 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                                 # step finite before the vault admits it
                                 drain()
                                 with span("snapshot"):
-                                    resil.snapshot(step, extras={
-                                        "acc": copy.deepcopy(acc),
-                                        "rounds": n})
+                                    extras = {"acc": copy.deepcopy(acc),
+                                              "rounds": n}
+                                    if hasattr(engine, "snapshot_extra"):
+                                        # the in-flight window: the
+                                        # replay reuses its launched rows
+                                        extras["asyncfed"] = (
+                                            engine.snapshot_extra())
+                                    resil.snapshot(step, extras=extras)
                             if resil is not None and \
                                     resil.preempt_requested(metrics):
                                 drain()
@@ -488,6 +514,10 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 if forks:
                     checkpointer.resave(session, step)
                 if engine is not None:
+                    if hasattr(engine, "restore_extra"):
+                        # the snapshot's window, restored by the restart
+                        # (none: a deterministic cold rebuild)
+                        engine.restore_extra(extras.get("asyncfed"))
                     engine.restart(step)  # drop the staged window
                 if main:
                     m = resil.manager

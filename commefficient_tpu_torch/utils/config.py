@@ -12,10 +12,13 @@ nothing runs quietly with a setting ignored. ``perf_audit`` and
 The control plane's flags (``control_policy`` none|fixed|budget_pacing|
 ef_feedback, ``ladder``, ``budget_mb``, ``control_schedule``,
 ``control_ef_up``, ``control_ef_down``, ``control_fidelity_max``,
-``control_hysteresis``) are checked as the reference checks them
-(``_validate_control``; ``control_enabled`` gates the build); the
-``staleness_aware`` policy and its ``control_staleness_*`` /
-``control_fill_*`` knobs are refused, naming asyncfed/. The self-healing
+``control_hysteresis``, and the ``staleness_aware`` policy's
+``control_staleness_*`` / ``control_fill_*``) are checked as the reference
+checks them (``_validate_control``; ``control_enabled`` gates the build).
+The buffered-asynchronous engine's flags (``async_buffer``,
+``async_concurrency``, ``staleness_exponent``, ``async_double_buffer``)
+are checked as the reference checks them (``_validate_asyncfed``;
+``asyncfed_enabled`` gates asyncfed/). The self-healing
 flags (``recover_policy`` none|retry|demote|skip_clients,
 ``snapshot_every``, ``max_recoveries``, ``preempt_signals``) are checked
 as the reference checks them (``_validate_resilience``;
@@ -50,11 +53,6 @@ AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
 # pinned equal by tests/test_torch_resilience.py
 RECOVER_POLICIES = ("none", "retry", "demote", "skip_clients")
 
-# the staleness_aware policy's knobs wait for the engine whose scalars it
-# reads (control/policy.py refuses the policy itself with the same words)
-_ASYNC_CONTROL = ("the staleness_aware control policy, which reads the "
-                  "async/* scalars of asyncfed/, the buffered-async engine "
-                  "(ROADMAP A11)")
 # field -> ROADMAP item that ports it; any value but the default is refused
 _UNPORTED = {
     "model_axis": "tensor parallelism (ROADMAP A17)",
@@ -66,14 +64,6 @@ _UNPORTED = {
                     "scan_engine): the port compiles no round, so nothing "
                     "retraces",
     "scan_rounds": "the scan round engine (ROADMAP A11)",
-    "async_buffer": "asyncfed/ (ROADMAP A11)",
-    "async_concurrency": "asyncfed/ (ROADMAP A11)",
-    "staleness_exponent": "asyncfed/ (ROADMAP A11)",
-    "async_double_buffer": "asyncfed/ (ROADMAP A11)",
-    "control_staleness_hi": _ASYNC_CONTROL,
-    "control_staleness_lo": _ASYNC_CONTROL,
-    "control_fill_hi": _ASYNC_CONTROL,
-    "control_fill_lo": _ASYNC_CONTROL,
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -277,8 +267,9 @@ class Config:
     # policy that walks it ---
     # none | fixed (control_schedule) | budget_pacing (spend budget_mb
     # evenly over the remaining rounds) | ef_feedback (the EF residual's
-    # slope and the level-2 fidelity, with hysteresis); staleness_aware
-    # is the reference's too and is refused (asyncfed/)
+    # slope and the level-2 fidelity, with hysteresis) | staleness_aware
+    # (asyncfed only: async/staleness_mean walks the ladder, and the
+    # buffer backlog retunes the engine's (K, C))
     control_policy: str = "none"
     # ";"-separated "field=v1,v2,..." (control/ladder.py): k, num_cols,
     # powersgd_rank, one value per rung, most expensive first
@@ -293,8 +284,28 @@ class Config:
     control_ef_up: float = 0.15
     control_ef_down: float = 0.0
     control_fidelity_max: float = 0.0
-    # rounds between two ef_feedback switches
+    # rounds between two ef_feedback switches (staleness_aware: between
+    # two switches, and between two (K, C) retunes)
     control_hysteresis: int = 8
+    # staleness_aware: async/staleness_mean above hi steps one rung
+    # cheaper, below lo climbs one; the backlog buffer_fill / K above
+    # fill_hi grows K, and at or below fill_lo (with stale cohorts) K
+    # shrinks
+    control_staleness_hi: float = 2.0
+    control_staleness_lo: float = 0.5
+    control_fill_hi: float = 1.0
+    control_fill_lo: float = 0.25
+
+    # --- buffered-asynchronous federation (asyncfed/) ---
+    # K > 0: a server update fires once K client contributions have
+    # arrived (FedBuff); 0 = synchronous rounds
+    async_buffer: int = 0
+    # cohorts in flight at once
+    async_concurrency: int = 1
+    # alpha of the staleness discount (1 + s)^-alpha
+    staleness_exponent: float = 0.0
+    # fence an update's apply only after the next update's launches
+    async_double_buffer: bool = False
 
     # --- self-healing (resilience/) ---
     # what a caught DivergenceError does: none (the run dies) | retry
@@ -320,14 +331,6 @@ class Config:
     distributed_connect_retries: int = 3
     max_retraces: Optional[int] = None
     scan_rounds: int = 0
-    async_buffer: int = 0
-    async_concurrency: int = 1
-    staleness_exponent: float = 0.0
-    async_double_buffer: bool = False
-    control_staleness_hi: float = 2.0
-    control_staleness_lo: float = 0.5
-    control_fill_hi: float = 1.0
-    control_fill_lo: float = 0.25
 
     seed: int = 42
 
@@ -344,6 +347,7 @@ class Config:
                 f"{self.error_type!r}"
             )
         self._validate_pipeline()
+        self._validate_asyncfed()
         for name, blocker in _UNPORTED.items():
             default = Config.__dataclass_fields__[name].default
             if getattr(self, name) != default:
@@ -729,6 +733,84 @@ class Config:
                     "base width ahead of the resize decision point — run "
                     "synchronous rounds with the fleet plan")
 
+    def _validate_asyncfed(self) -> None:
+        """The reference's checks of the buffered-asynchronous flags
+        (asyncfed/, its messages): the engine launches overlapping cohorts
+        of per-client transmit rows and applies a staleness-weighted
+        update once K of them have arrived, so a setting that assumes one
+        cohort a server version, or that never forms the per-client rows,
+        is refused here. They run before the refusals of unported knobs,
+        so ``scan_rounds`` with it gives the reference's message."""
+        if self.async_buffer < 0:
+            raise ValueError(
+                f"async_buffer must be >= 0 (0 = synchronous barrier "
+                f"rounds), got {self.async_buffer}")
+        if self.async_concurrency < 1:
+            raise ValueError(
+                f"async_concurrency must be >= 1, got "
+                f"{self.async_concurrency}")
+        if self.staleness_exponent < 0:
+            raise ValueError(
+                f"staleness_exponent must be >= 0 ((1+s)^-alpha is a "
+                f"DISCOUNT; a negative alpha would amplify stale "
+                f"contributions), got {self.staleness_exponent}")
+        if self.async_buffer == 0:
+            if self.async_concurrency != 1:
+                raise ValueError(
+                    "async_concurrency > 1 has no effect without "
+                    "--async_buffer K; set async_buffer > 0 to enable the "
+                    "asyncfed engine")
+            if self.staleness_exponent != 0.0:
+                raise ValueError(
+                    "staleness_exponent has no effect without "
+                    "--async_buffer K: synchronous rounds have staleness 0 "
+                    "by construction")
+            if self.async_double_buffer:
+                raise ValueError(
+                    "async_double_buffer defers the asyncfed apply fence "
+                    "behind the next cohort launches, which only exist "
+                    "with --async_buffer K; set async_buffer > 0 to "
+                    "enable the asyncfed engine")
+            return
+        if self.async_buffer > self.num_workers:
+            raise ValueError(
+                f"async_buffer must be <= num_workers ("
+                f"{self.num_workers}): an update consumes at most one full "
+                f"cohort's W slots per in-flight cohort, and K > W would "
+                f"just wait for the next cohort anyway — raise "
+                f"async_concurrency instead, got {self.async_buffer}")
+        if self.fuse_clients or self.sketch_fused_bwd:
+            raise ValueError(
+                "async_buffer > 0 needs PER-CLIENT transmit rows (each "
+                "arrival is weighted by its own staleness/live factor); "
+                "the fused flattened-batch paths produce one device-level "
+                "gradient — drop fuse_clients/sketch_fused_bwd")
+        # the deprecated alias becomes client_store='host' only later, in
+        # _validate_client_store
+        if (self.client_state_hosted or self.offload_client_state
+                or self.fsdp):
+            raise ValueError(
+                "async_buffer > 0 currently requires HBM-resident client "
+                "state on the replicated engine (--client_store host|mmap "
+                "and fsdp run their own round builders)")
+        if self.scan_rounds > 1:
+            raise ValueError(
+                "async_buffer > 0 is mutually exclusive with "
+                "scan_rounds > 1: a scanned block admits no host-side "
+                "arrival buffering between its rounds")
+        if self.pipeline_depth > 0:
+            raise ValueError(
+                "async_buffer > 0 supersedes pipeline_depth: the asyncfed "
+                "engine owns its own cohort prefetch window "
+                "(async_concurrency cohorts in flight) — drop "
+                "pipeline_depth")
+        if self.preempt_signals or "preempt@" in self.chaos:
+            raise ValueError(
+                "async_buffer > 0 cannot yet honor round-granular "
+                "preemption: in-flight cohorts would be abandoned "
+                "mid-arrival — disable preempt_signals / the preempt@ "
+                "chaos event")
+
     def _validate_dp(self) -> None:
         if self.dp_noise_multiplier < 0:
             raise ValueError(f"dp_noise_multiplier must be >= 0, got "
@@ -785,8 +867,6 @@ class Config:
         at session build, the schedule's rounds against the run length by
         the controller."""
         from commefficient_tpu_torch.control.policy import (
-            ASYNC_BLOCKER,
-            ASYNC_ONLY,
             CONTROL_POLICIES,
             parse_schedule,
         )
@@ -795,9 +875,6 @@ class Config:
             raise ValueError(
                 f"control_policy must be one of {CONTROL_POLICIES}, got "
                 f"{self.control_policy!r}")
-        if self.control_policy == ASYNC_ONLY:
-            raise ValueError(f"control_policy={ASYNC_ONLY!r} is not ported "
-                             f"yet: {ASYNC_BLOCKER}")
         rungs = ()
         if self.ladder:
             from commefficient_tpu_torch.control.ladder import (
@@ -849,6 +926,34 @@ class Config:
                     f"control_ef_up ({self.control_ef_up}) must exceed "
                     f"control_ef_down ({self.control_ef_down}): the dead "
                     "band between them is what stops threshold flapping")
+        if self.control_policy == "staleness_aware":
+            if not self.asyncfed_enabled:
+                raise ValueError(
+                    "control_policy='staleness_aware' acts on the drained "
+                    "async/staleness_mean and async/buffer_fill scalars, "
+                    "which only the asyncfed engine emits — set "
+                    "--async_buffer K (synchronous rounds have staleness 0 "
+                    "by construction, so the policy would never act)")
+            if len(rungs) < 2:
+                raise ValueError(
+                    "control_policy='staleness_aware' walks the "
+                    "compression ladder by observed staleness — pass "
+                    '--ladder with >= 2 rungs (e.g. "k=60000,30000")')
+            if self.telemetry_level < 1:
+                raise ValueError(
+                    "control_policy='staleness_aware' consumes drained "
+                    "telemetry scalars — set --telemetry_level >= 1")
+            if not self.control_staleness_hi > self.control_staleness_lo:
+                raise ValueError(
+                    f"control_staleness_hi ({self.control_staleness_hi}) "
+                    f"must exceed control_staleness_lo "
+                    f"({self.control_staleness_lo}): the dead band between "
+                    "them is what stops threshold flapping")
+            if not self.control_fill_hi > self.control_fill_lo >= 0:
+                raise ValueError(
+                    f"control_fill_hi ({self.control_fill_hi}) must exceed "
+                    f"control_fill_lo ({self.control_fill_lo}) >= 0 — the "
+                    "normalized backlog band the K/C re-tune targets")
         if self.control_policy == "fixed":
             sched = parse_schedule(self.control_schedule)
             if not sched:
@@ -930,6 +1035,12 @@ class Config:
         (``pipeline_depth > 0``); at 0 nothing of ``pipeline/`` is
         built."""
         return self.pipeline_depth > 0
+
+    @property
+    def asyncfed_enabled(self) -> bool:
+        """True when the runner builds the buffered-asynchronous engine
+        (asyncfed/, ``async_buffer > 0``); False builds nothing of it."""
+        return self.async_buffer > 0
 
     @property
     def sampler_batch_size(self) -> int:

@@ -5,8 +5,8 @@ TinyMLP size.
 
 * the ladder and schedule grammars and the ``Config`` checks, on the
   reference's own cases (tests/test_control.py): the same values, the
-  same refusals with the same messages; ``staleness_aware`` and its knobs
-  refused naming asyncfed/;
+  same refusals with the same messages, ``staleness_aware``'s among them
+  (its engine twins are ``tests/test_torch_asyncfed.py``'s);
 * the ``fixed``, ``budget_pacing`` and ``ef_feedback`` policies of both
   packages fed one and the same scalar stream: the same decisions and the
   same state slots, round by round; ``ef_feedback``'s hysteresis holds
@@ -221,18 +221,31 @@ def test_scan_rounds_excludes_the_control_plane_as_the_reference():
         Config(**kw)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(control_policy="staleness_aware"),
-    dict(control_staleness_hi=3.0), dict(control_staleness_lo=0.1),
-    dict(control_fill_hi=2.0), dict(control_fill_lo=0.1)])
-def test_staleness_aware_stays_refused_naming_asyncfed(kw):
-    with pytest.raises(ValueError, match=r"asyncfed/.*ROADMAP A11"):
+# the reference's staleness_aware consistency refusals
+# (tests/test_control.py::test_config_rejects_inconsistent_staleness_aware)
+_SA_KW = dict(mode="true_topk", error_type="virtual", telemetry_level=1,
+              control_policy="staleness_aware", ladder="k=30,20,10",
+              async_buffer=4, async_concurrency=2)
+
+
+@pytest.mark.parametrize("kw,msg", [
+    ({**_SA_KW, "async_buffer": 0, "async_concurrency": 1},
+     "async_buffer"),
+    ({**_SA_KW, "ladder": "k=30"}, ">= 2"),
+    ({**_SA_KW, "telemetry_level": 0}, "telemetry_level"),
+    ({**_SA_KW, "control_staleness_hi": 0.4,
+      "control_staleness_lo": 0.5}, "must exceed control_staleness_lo"),
+    ({**_SA_KW, "control_fill_hi": 0.2, "control_fill_lo": 0.25},
+     "control_fill"),
+])
+def test_staleness_aware_refusals_as_the_reference(kw, msg):
+    with pytest.raises(ValueError, match=msg) as port:
         Config(**kw)
-    cfg = Config(mode="true_topk", error_type="virtual",
-                 control_policy="budget_pacing", budget_mb=1.0)
-    object.__setattr__(cfg, "control_policy", "staleness_aware")
-    with pytest.raises(ValueError, match="asyncfed/"):
-        port_policy.get_policy(cfg)
+    with pytest.raises(ValueError, match=msg) as ref:
+        RefConfig(**kw)
+    assert str(port.value) == str(ref.value)
+    assert isinstance(port_policy.get_policy(Config(**_SA_KW)),
+                      port_policy.StalenessAwarePolicy)
 
 
 # -- the policies on one scalar stream ----------------------------------------

@@ -62,6 +62,11 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/clientstore/cache.py",
                  "commefficient_tpu_torch/clientstore/store.py",
                  "commefficient_tpu_torch/clientstore/streamer.py",
+                 "commefficient_tpu_torch/asyncfed/__init__.py",
+                 "commefficient_tpu_torch/asyncfed/schedule.py",
+                 "commefficient_tpu_torch/asyncfed/round.py",
+                 "commefficient_tpu_torch/asyncfed/engine.py",
+                 "commefficient_tpu_torch/pipeline/cohorts.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
                  "commefficient_tpu_torch/train/cv_train.py",
                  "commefficient_tpu_torch/train/gpt2_train.py",

@@ -121,8 +121,6 @@ def test_schedule_matches_reference():
     ("model_axis", "2", "A17"),
     ("max_retraces", "2", "A11"),
     ("chaos", "resize@2", "A11"),
-    ("async_buffer", "2", "A11"),
-    ("control_staleness_hi", "3.0", "A11"),
 ])
 def test_config_refuses_what_the_port_does_not_run(flag, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
@@ -131,9 +129,12 @@ def test_config_refuses_what_the_port_does_not_run(flag, value, item):
 
 
 # the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a, A12b and A11's
-# control/, resilience/ and clientstore/ lifted from the refusals
+# control/, resilience/, clientstore/ and asyncfed/ lifted from the
+# refusals
 _EF = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
        "ef_feedback", "--ladder", "k=10,5"]
+_SA = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
+       "staleness_aware", "--ladder", "k=10,5", "--async_buffer", "2"]
 LIFTED = {
     "topk_method": ["--topk_method", "approx"],
     "num_blocks": ["--num_blocks", "2"],
@@ -191,6 +192,16 @@ LIFTED = {
     "client_store_path": ["--client_store", "mmap", "--client_store_path",
                           "bank"],
     "offload_client_state": ["--offload_client_state", "true"],
+    "async_buffer": ["--async_buffer", "2"],
+    "async_concurrency": ["--async_buffer", "2", "--async_concurrency", "3"],
+    "staleness_exponent": ["--async_buffer", "2", "--staleness_exponent",
+                           "0.5"],
+    "async_double_buffer": ["--async_buffer", "2", "--async_double_buffer",
+                            "true"],
+    "control_staleness_hi": _SA + ["--control_staleness_hi", "3.0"],
+    "control_staleness_lo": _SA + ["--control_staleness_lo", "0.1"],
+    "control_fill_hi": _SA + ["--control_fill_hi", "2.0"],
+    "control_fill_lo": _SA + ["--control_fill_lo", "0.1"],
 }
 
 
@@ -246,7 +257,7 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 15
+    assert len(_UNPORTED) == 7
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 
