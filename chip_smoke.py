@@ -285,7 +285,22 @@ phase prints one line (or a few) and raises on failure, so the script exits
     4-rung ``num_cols`` ladder at C 3 switching rungs and retuning (K, C)
     with no plan built after the prewarm; the median ms an update of each
     run, the prefetch and stall ms, the window, the peak memory and the
-    snapshot's ms printed.
+    snapshot's ms printed;
+28. ``fleet`` (the elastic fleet, chaos ``resize``/``leave``/``join``/
+    ``shrink``): the main path at level 1 for 8 rounds on deterministic
+    cuDNN: ``resize@4:rounds=3-5`` with ``fleet/width`` 8,8,8,4,4,4,8,8,
+    K1, K2 and K3 at 16, 8 and 16 as its fleet-less twin, no plan built
+    after the prewarm, each round through its width's closure and the
+    ledger's 52 live client-rounds and bytes; a width-4 round through the
+    fleet bit-equal to a session provisioned at 4; ``shrink@4:rounds=5-``
+    healed under ``retry`` bit-equal to ``resize@4:rounds=5-`` (leaves,
+    deduped scalars, ledger), its history naming width 4; leave and join
+    (widths 8, 4, 6); a ``fixed`` ladder's switch inside the resize window
+    dispatching rung 1's width-4 closure with no plan built; ``preempt@4``
+    in the window exiting 75 and resumed at width 4, then 8, bit-equal; a
+    hosted store under the resize bit-equal to the device bank; the width
+    switches' host ms, each round's ms (the first at a new width beside
+    the steady ones) and the recovery's ms printed.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -4801,6 +4816,379 @@ def _asyncfed_phase(torch, kern, cv_train, dataset_dir, work):
 
 
 
+FL_ROUNDS = 8  # rounds of each fleet-phase run
+FL_BASE = MAIN_ARGS + ["--telemetry_level", "1"]
+FL_RESIZE = ["--chaos", "resize@4:rounds=3-5"]
+FL_WIDTHS = [8, 8, 8, 4, 4, 4, 8, 8]  # resize@4:rounds=3-5's round widths
+FL_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+FL_SNAPSHOT = ["--recover_policy", "retry", "--snapshot_every", "4"]
+FL_ROLLBACK = 4  # shrink@4:rounds=5- raises at round 5; the round-4 snapshot
+FL_LEAVE_JOIN = "leave@4:rounds=2-,join@2:rounds=6-"
+FL_LEAVE_JOIN_WIDTHS = [8, 8, 4, 4, 4, 4, 6, 6]
+FL_LADDER = ["--control_policy", "fixed", "--ladder", CTL_LADDER,
+             "--control_schedule", "0-3=0,4-=1"]  # a switch at round 4
+FL_PREEMPT_AT = 4  # preempt@4 inside the resize window: a save at round 5
+FL_STORE = ["--local_momentum", "0.9", "--num_clients", str(CS_CLIENTS),
+            "--device_data", "false"]
+FL_COMPARED = ("train/loss", "diag/", "fedsim/", "comm/", "fleet/width",
+               "fleet/resizes", "fleet/last_resize_round", "val/", "lr")
+
+
+class FleetProbe:
+    """Inside ``with FleetProbe():`` each round records, at its dispatch
+    (just after the controller's decision), its step, the active rung, the
+    session's fleet width and whether ``round_fn`` is that rung's closure
+    for that width. The probe adds no kernel launch."""
+
+    def __init__(self):
+        from commefficient_tpu_torch.parallel import FederatedSession
+
+        self.cls, self.rounds = FederatedSession, []
+
+    def __enter__(self):
+        self.saved = decide = self.cls.control_round_start
+        probe = self
+
+        def control_round_start(sess, step, fs_stats=None):
+            out = decide(sess, step, fs_stats)
+            rung = sess.rungs[sess.active_rung]
+            w = sess._fleet_width
+            want = (rung.round_fn if w == sess.cfg.num_workers
+                    else rung.width_fns.get(w))
+            probe.rounds.append(dict(step=int(step), rung=sess.active_rung,
+                                     width=w, closure=sess.round_fn is want))
+            return out
+
+        self.cls.control_round_start = control_round_start
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.control_round_start = self.saved
+
+
+def fleet_parity(torch, cv_train, dataset_dir):
+    """(b): one round of the main path's session dispatched at width 4
+    through the fleet (``resize@4:rounds=0-``) and one of a session
+    provisioned at ``num_workers 4`` (fedsim on through ``dropout@0.0``),
+    on the same params and the first 4 clients of one draw at W = 8:
+    (losses equal, every leaf equal, max abs difference)."""
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    args = MAIN_ARGS + ["--dataset_dir", dataset_dir]
+    c8 = parse_args(args + ["--chaos", "resize@4:rounds=0-"])
+    c4 = parse_args(args + ["--num_workers", "4", "--chaos",
+                            "dropout@0.0:rounds=0-0"])
+    train, _, _, params, loss_fn, augment = cv_train.build_model_and_data(c8)
+    sampler = FedSampler(train, num_workers=8,
+                         local_batch_size=c8.sampler_batch_size,
+                         seed=c8.seed, augment=augment)
+    ids, batch = sampler.sample_round(0)
+    out = []
+    for cfg, n in ((c8, 8), (c4, 4)):
+        sess = FederatedSession(cfg, params, loss_fn)
+        m = sess.train_round(ids[:n], {k: v[:n] for k, v in batch.items()},
+                             0.1)
+        out.append((float(m["loss"]), {
+            k: getattr(sess.state, k) for k in ("params_vec", "momentum",
+                                                "error")}))
+        del sess
+    same, err = True, 0.0
+    for k, a in out[0][1].items():
+        b = out[1][1][k]
+        same = same and torch.equal(a, b)
+        err = max(err, float((a - b).abs().max()))
+    return out[0][0] == out[1][0], same, err, (out[0][0], out[1][0])
+
+
+def fleet_phase(torch, kern, cv_train, dataset_dir, work):
+    """The elastic fleet (chaos ``resize``/``leave``/``join``/``shrink``)
+    on the card: the main path at level 1 for FL_ROUNDS rounds on
+    deterministic cuDNN, each run through ``cv_train.main`` with the
+    counters set to 0 just before it and read just after:
+
+    (a) ``resize@4:rounds=3-5``: ``fleet/width`` 8,8,8,4,4,4,8,8,
+    ``fleet/resizes`` 2 and ``fleet/last_resize_round`` 6 at the end; K1,
+    K2 and K3 at 16, 8 and 16, as in its fleet-less twin; no kernel plan
+    built after the prewarm; each round through its width's closure; the
+    ledger's 52 live client-rounds and its bytes by the phase's own
+    arithmetic; (b) a round at width 4 through the fleet bit-equal to a
+    round of a session provisioned at 4 (``fleet_parity``); (c)
+    ``shrink@4:rounds=5-`` under ``--recover_policy retry
+    --snapshot_every 4`` bit-equal to ``resize@4:rounds=5-`` in every
+    leaf, every deduped scalar but ``resilience/*``, ``trace/*`` and
+    ``fleet/shrink_recoveries``, and ``comm_ledger.json``; one recovery,
+    whose history names width 4, and K1, K2 and K3 at the twin's plus the
+    replayed round's; (d) ``leave@4:rounds=2-,join@2:rounds=6-``: widths
+    8, 4, then 6, finite; (e) a 2-rung ``fixed`` ladder switching at round
+    4, inside the resize window: the switch dispatches rung 1's width-4
+    closure, and no plan is built after the prewarm; (f) ``preempt@4``
+    inside the resize window: exit 75, and ``--resume`` comes back at
+    width 4, then 8, bit-equal to (a); (g) ``--client_store host`` with
+    local momentum under the resize, bit-equal (leaves and bank) to the
+    device bank's twin. Printed: the width switches' host ms
+    (``_fleet_resize_ms``), each round's ms with the first round at a new
+    width beside the steady rounds at that width, and the recovery's ms.
+    Returns the summed launch forms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _fleet_phase(torch, kern, cv_train, dataset_dir, work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _fleet_phase(torch, kern, cv_train, dataset_dir, work):
+    from commefficient_tpu_torch.resilience import (
+        EXIT_PREEMPTED,
+        PreemptShutdown,
+    )
+
+    t0 = time.perf_counter()
+    forms = []
+    runs = {}
+    res_probe = ResilienceProbe(torch, kern)
+
+    def run(name, args, base=FL_BASE):
+        gc.collect()
+        t = time.perf_counter()
+        with PrewarmProbe(kern) as pw, FleetProbe() as fp, res_probe:
+            r = state_run(torch, kern, cv_train, dataset_dir, work, name,
+                          base + args + ["--logdir", os.path.join(work, name)],
+                          rounds=FL_ROUNDS)
+            r["builds_after_prewarm"] = (kern.plan_builds() - pw.builds[-1]
+                                         if pw.builds else None)
+        forms.append(r["forms"])
+        r["wall_s"] = round(time.perf_counter() - t, 3)
+        r["dispatch"] = fp.rounds
+        r["metrics"] = read_metrics(r["out"]["logdir"])
+        r["losses"] = [h["loss"] for h in r["out"]["history"]]
+        with open(os.path.join(r["out"]["logdir"], "comm_ledger.json")) as f:
+            r["ledger"] = json.load(f)
+        runs[name] = r
+        return r
+
+    def series(r, name):
+        steps = r["metrics"].get(name, {})
+        return [steps[s] for s in sorted(steps)]
+
+    def launches_ok(name, ln, rounds=FL_ROUNDS):
+        for k, per in FL_LAUNCHES.items():
+            check(ln[k] == per * rounds, f"fleet {name}: {k} launched "
+                  f"{ln[k]} times, expected {per * rounds}")
+
+    def short(r):
+        return json.dumps({k: v for k, v in r["launches"].items() if v})
+
+    def closures_ok(name, r):
+        check(len(r["dispatch"]) >= FL_ROUNDS
+              and all(d["closure"] for d in r["dispatch"]),
+              f"fleet {name}: a round left its width's closure: "
+              f"{r['dispatch']}")
+
+    # (a) the resize against its fleet-less twin
+    twin = run("fl_twin", [])
+    rz = run("fl_resize", FL_RESIZE)
+    widths = series(rz, "fleet/width")
+    led, bpr = rz["ledger"], rz["out"]["bytes_per_round"]
+    live = sum(FL_WIDTHS)
+    ms = rz["round_ms"]
+    phase("fleet", run="resize", widths=json.dumps(widths),
+          resizes=series(rz, "fleet/resizes")[-1],
+          last_resize_round=series(rz, "fleet/last_resize_round")[-1],
+          launches=short(rz), twin_launches=short(twin),
+          plan_builds_after_prewarm=rz["builds_after_prewarm"],
+          live_client_rounds=led["live_client_rounds"],
+          cum_up_bytes=led["cum_up_bytes"],
+          cum_down_bytes=led["cum_down_bytes"],
+          expected_up_bytes=live * bpr["upload_bytes"],
+          expected_down_bytes=live * bpr["download_bytes"],
+          resize_ms=rz["out"]["fleet"]["resize_ms"],
+          round_ms=json.dumps(ms), twin_round_ms=json.dumps(twin["round_ms"]),
+          losses=json.dumps(rz["losses"]), wall_s=rz["wall_s"])
+    check(widths == FL_WIDTHS, f"fleet resize: widths {widths}")
+    check(series(rz, "fleet/resizes")[-1] == 2.0
+          and series(rz, "fleet/last_resize_round")[-1] == 6.0,
+          "fleet resize: fleet/resizes or fleet/last_resize_round")
+    check(set(series(rz, "fleet/shrink_recoveries")) == {0.0},
+          "fleet resize: a shrink recovery")
+    launches_ok("twin", twin["launches"])
+    launches_ok("resize", rz["launches"])
+    check(rz["builds_after_prewarm"] == 0,
+          f"fleet resize: {rz['builds_after_prewarm']} plans built after "
+          "the prewarm")
+    closures_ok("resize", rz)
+    check([d["width"] for d in rz["dispatch"]] == FL_WIDTHS,
+          f"fleet resize: dispatch widths {rz['dispatch']}")
+    check(led["live_client_rounds"] == live
+          and led["avail_client_rounds"] == live
+          and led["cum_up_bytes"] == live * bpr["upload_bytes"]
+          and led["cum_down_bytes"] == live * bpr["download_bytes"],
+          f"fleet resize: ledger {led}")
+    check(rz["out"]["fleet"]["resize_ms"] > 0, "fleet resize: no switch")
+
+    # (b) a width-4 round through the fleet against a session at 4
+    loss_eq, same, err, losses = fleet_parity(torch, cv_train, dataset_dir)
+    phase("fleet", run="width_parity", loss_equal=loss_eq,
+          leaves_bit_equal=same, max_abs_err=err, losses=json.dumps(losses))
+    check(loss_eq and same, f"fleet width parity: losses {losses}, leaves "
+          f"differ by {err}")
+
+    # (c) the shrink heal against the scheduled resize
+    sched = run("fl_resize5", ["--chaos", "resize@4:rounds=5-"])
+    n_rec = len(res_probe.recoveries)
+    heal = run("fl_shrink", ["--chaos", "shrink@4:rounds=5-"] + FL_SNAPSHOT)
+    same, err = state_diff(torch, heal["state"], sched["state"],
+                           GEOMETRY["d"])
+    sa = deduped(sched["out"]["logdir"], FL_COMPARED)
+    sb = deduped(heal["out"]["logdir"], FL_COMPARED)
+    h_log = heal["out"]["logdir"]
+    with open(os.path.join(h_log, "flight_5_recovery.json")) as f:
+        hist = json.load(f)["recovery_history"]
+    rec_ms = res_probe.recovery_ms()[n_rec:]
+    ln, ln0 = heal["launches"], sched["launches"]
+    replayed = 5 - FL_ROLLBACK  # round 4 runs twice; 5 raised before it ran
+    phase("fleet", run="shrink_heal", leaves_bit_equal=same, max_abs_err=err,
+          scalars_bit_equal=sa == sb, scalars_compared=len(sa),
+          ledger_equal=heal["ledger"] == sched["ledger"],
+          live_client_rounds=heal["ledger"]["live_client_rounds"],
+          recoveries=last_scalar(h_log, "resilience/recoveries"),
+          shrink_recoveries=last_scalar(h_log, "fleet/shrink_recoveries"),
+          history=json.dumps(hist), recovery_ms=json.dumps(
+              [round(x, 3) for x in rec_ms]),
+          launches=short(heal), twin_launches=short(sched),
+          wall_s=heal["wall_s"])
+    check(same, f"fleet shrink: leaves differ from the resize twin by {err}")
+    check(sa == sb, "fleet shrink: scalars differ from the resize twin at "
+          f"{sorted(k for k in sa if sa[k] != sb.get(k))[:5]}")
+    check(heal["ledger"] == sched["ledger"]
+          and heal["ledger"]["live_client_rounds"] == 5 * 8 + 3 * 4,
+          f"fleet shrink: ledger {heal['ledger']}")
+    check(last_scalar(h_log, "resilience/recoveries") == 1.0
+          and last_scalar(h_log, "fleet/shrink_recoveries") == 1.0
+          and heal["out"]["fleet"]["shrink_recoveries"] == 1,
+          "fleet shrink: recoveries")
+    check(len(hist) == 1 and hist[0]["outcome"] == "recovered"
+          and hist[0]["fleet_width"] == 4
+          and hist[0]["rollback_to"] == FL_ROLLBACK,
+          f"fleet shrink: history {hist}")
+    check(all(ln[k] == ln0[k] + per * replayed
+              for k, per in FL_LAUNCHES.items()),
+          f"fleet shrink: launches {ln} against the twin's {ln0}")
+    check(len(rec_ms) == 1, f"fleet shrink: {len(rec_ms)} recoveries timed")
+
+    # (d) leave and join
+    lj = run("fl_leave_join", ["--chaos", FL_LEAVE_JOIN])
+    lj_widths = series(lj, "fleet/width")
+    phase("fleet", run="leave_join", widths=json.dumps(lj_widths),
+          losses=json.dumps(lj["losses"]), launches=short(lj),
+          round_ms=json.dumps(lj["round_ms"]), wall_s=lj["wall_s"])
+    check(lj_widths == FL_LEAVE_JOIN_WIDTHS,
+          f"fleet leave/join: widths {lj_widths}")
+    check(all(math.isfinite(x) for x in lj["losses"]),
+          "fleet leave/join: losses not finite")
+    launches_ok("leave_join", lj["launches"])
+    closures_ok("leave_join", lj)
+
+    # (e) a rung switch inside the resize window
+    ctl = run("fl_control", FL_RESIZE + FL_LADDER)
+    rungs = series(ctl, "control/rung")
+    at4 = [d for d in ctl["dispatch"] if d["step"] == 4]
+    phase("fleet", run="control", rungs=json.dumps(rungs),
+          widths=json.dumps(series(ctl, "fleet/width")),
+          switches=ctl["out"]["control"]["switches"],
+          switch_round=json.dumps(at4),
+          plan_builds_after_prewarm=ctl["builds_after_prewarm"],
+          launches=short(ctl), losses=json.dumps(ctl["losses"]),
+          wall_s=ctl["wall_s"])
+    check(rungs == [0.0] * 4 + [1.0] * 4, f"fleet control: rungs {rungs}")
+    check(series(ctl, "fleet/width") == FL_WIDTHS,
+          "fleet control: widths")
+    check(ctl["out"]["control"]["switches"] == 1
+          and ctl["out"]["control"]["fleet_width"] == 8,
+          f"fleet control: {ctl['out']['control']}")
+    check(len(at4) == 1 and at4[0]["rung"] == 1 and at4[0]["width"] == 4
+          and at4[0]["closure"], f"fleet control: round 4 dispatched {at4}")
+    closures_ok("control", ctl)
+    check(ctl["builds_after_prewarm"] == 0,
+          f"fleet control: {ctl['builds_after_prewarm']} plans built after "
+          "the prewarm")
+    check(all(math.isfinite(x) for x in ctl["losses"]),
+          "fleet control: losses not finite")
+
+    # (f) preemption inside the resize window, then the resume
+    ck = os.path.join(work, "fl_preempt")
+    flags = FL_BASE + ["--chaos", f"resize@4:rounds=3-5,preempt@"
+                       f"{FL_PREEMPT_AT}", "--dataset_dir", dataset_dir,
+                       "--checkpoint_dir", ck, "--checkpoint_every", "2",
+                       "--max_rounds", str(FL_ROUNDS)]
+    gc.collect()
+    kern.reset_launch_counts()
+    caught = None
+    try:
+        cv_train.main(flags + ["--logdir", ck + "_a"])
+    except SystemExit as e:
+        caught = e
+    cause = getattr(caught, "__cause__", None)
+    second = cv_train.main(flags + ["--resume", "true", "--logdir",
+                                    ck + "_b"])
+    forms.append(kern.form_counts())
+    resumed = read_metrics(second["logdir"]).get("fleet/width", {})
+    same, err = state_diff(torch, load_state(os.path.join(
+        ck, f"step_{FL_ROUNDS}.pt")), rz["state"], GEOMETRY["d"])
+    phase("fleet", run="preempt", exit_code=getattr(caught, "code", None),
+          shutdown_step=getattr(cause, "step", None),
+          resumed_from=second["checkpoint"]["resumed_from"],
+          resumed_widths=json.dumps([resumed[s] for s in sorted(resumed)]),
+          leaves_bit_equal=same, max_abs_err=err)
+    check(caught is not None and caught.code == EXIT_PREEMPTED
+          and isinstance(cause, PreemptShutdown) and cause.saved
+          and cause.step == FL_PREEMPT_AT + 1,
+          f"fleet preempt: {caught!r} from {cause!r}")
+    check(second["checkpoint"]["resumed_from"] == FL_PREEMPT_AT + 1
+          and [resumed[s] for s in sorted(resumed)] == FL_WIDTHS[5:],
+          f"fleet preempt: resumed {second['checkpoint']} at widths "
+          f"{resumed}")
+    check(same, f"fleet preempt: resumed leaves differ from (a) by {err}")
+
+    # (g) a hosted client store under the resize
+    dev_bank = run("fl_store_device", FL_RESIZE + FL_STORE)
+    host = run("fl_store_host", FL_RESIZE + FL_STORE + ["--client_store",
+                                                        "host"])
+    blobs = [load_blob(os.path.join(work, name, f"step_{FL_ROUNDS}.pt"))
+             for name in ("fl_store_host", "fl_store_device")]
+    same, err = blob_equal(torch, *blobs)
+    phase("fleet", run="hosted_store", leaves_and_bank_bit_equal=same,
+          max_abs_err=err, losses_equal=host["losses"] == dev_bank["losses"],
+          data=host["out"]["data_path"], launches=short(host),
+          round_ms=json.dumps(host["round_ms"]),
+          device_round_ms=json.dumps(dev_bank["round_ms"]),
+          wall_s=host["wall_s"])
+    check(same and host["losses"] == dev_bank["losses"],
+          f"fleet hosted store: differs from the device bank by {err}")
+    check(blobs[0]["fed_state"]["client_vel"] is None
+          and "host_vel" in blobs[0], "fleet hosted store: not hosted")
+    launches_ok("hosted_store", host["launches"])
+    closures_ok("hosted_store", host)
+
+    # timing, printed: the first round at a new width beside the steady
+    # rounds at that width (torch loads some kernels at their first launch)
+    phase("fleet_timing", card=repr(card_line()),
+          resize_ms=json.dumps({name[3:]: round(
+              runs[name]["out"]["fleet"]["resize_ms"], 4) for name in (
+                  "fl_resize", "fl_resize5", "fl_shrink", "fl_leave_join",
+                  "fl_control", "fl_store_host")}),
+          steady_w8_ms=json.dumps(ms[1:3]), first_w4_ms=ms[3],
+          steady_w4_ms=json.dumps(ms[4:6]), first_w8_again_ms=ms[6],
+          steady_w8_again_ms=ms[7], twin_ms=json.dumps(twin["round_ms"]),
+          recovery_ms=json.dumps([round(x, 3) for x in rec_ms]),
+          peak=json.dumps({name[3:]: runs[name]["peak"] for name in (
+              "fl_twin", "fl_resize", "fl_shrink")}))
+    phase("fleet_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -4957,6 +5345,12 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["asyncfed"] = asyncfed_phase(torch, kern, cv_train,
                                                dataset_dir, work)
+    # the elastic fleet: resize, width parity, the shrink heal, leave and
+    # join, a rung switch in a resize window, preemption, a hosted store
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["fleet"] = fleet_phase(torch, kern, cv_train, dataset_dir,
+                                         work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

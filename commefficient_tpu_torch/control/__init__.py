@@ -37,8 +37,10 @@ participation, the ledger's bytes); this package closes the loop:
 one rung over the config, no controller exists, and the round runs what
 it ran before, launch for launch. ``parallel/api.py`` and the train loop
 import this package; ``utils/config.py`` imports ``ladder`` and ``policy``
-lazily for its flag checks. Not ported (ROADMAP A11, item A.1.4): the
-elastic fleet's per-width programs.
+lazily for its flag checks. Under the elastic fleet every rung holds a
+round closure per realized width, and the session's dispatch composes the
+active rung with the round's width (``FederatedSession._select_programs``),
+so a switch inside a resize window runs the new rung at that width.
 """
 
 from commefficient_tpu_torch.control.controller import (

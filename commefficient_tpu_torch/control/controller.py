@@ -30,8 +30,12 @@ slots) is a small float64 blob carried in checkpoints
 drained telemetry), and drains happen before saves, so a resumed run
 reproduces the unbroken run's rung sequence bit for bit. The blob keeps
 the reference's layout (version 3: 13 fixed fields, then the policy's
-slots); the elastic fleet's field, which the port does not run, holds its
-inert value (fleet width -1).
+slots); its field 8 is the elastic fleet's width at the capture (-1 for a
+run with no fleet event), advisory: a restore re-derives the width from
+the schedule (``FederatedSession.sync_round_clock``). Under the fleet a
+round is accounted at its realized width (``fleet/width``), as the ledger
+bills it, and a rung switch inside a resize window dispatches the new
+rung's closure for that width.
 
 Under the buffered-async engine (asyncfed/) the decision point is the
 engine's, once an update before its apply, and ``fs_stats`` carries the
@@ -122,7 +126,9 @@ class BudgetController:
     # -- byte accounting (telemetry.CommLedger's arithmetic) ---------------
     def _live_avail(self, fs_stats: Optional[Dict[str, float]]):
         s = fs_stats or {}
-        W = int(self.cfg.num_workers)
+        # an elastic fleet's round at its realized width (the fedsim rates
+        # are relative to it): CommLedger._counts' arithmetic
+        W = int(round(float(s.get("fleet/width", self.cfg.num_workers))))
         rate = s.get("fedsim/participation_rate")
         live = W if rate is None else int(round(float(rate) * W))
         avail = W - int(round(float(s.get("fedsim/dropped", 0.0))))
@@ -290,6 +296,8 @@ class BudgetController:
             out["budget_bytes"] = int(self.budget_bytes)
             out["budget_remaining_bytes"] = int(self.budget_bytes
                                                 - self.spent_bytes)
+        if self.cfg.fleet_enabled:
+            out["fleet_width"] = int(self.session._fleet_width)
         return out
 
     def describe(self) -> str:
@@ -312,10 +320,14 @@ class BudgetController:
 
     # -- checkpoint state -----------------------------------------------------
     def state_blob(self) -> np.ndarray:
+        # the fleet width at the capture (advisory, see load_state_blob);
+        # -1 tells "no fleet" from "the fleet at its base width"
+        fleet_w = (int(self.session._fleet_width) if self.cfg.fleet_enabled
+                   else -1)
         return np.asarray(
             [_BLOB_VERSION, self.session.active_rung, self.switches,
              self.rounds_seen, self.spent_up, self.spent_down,
-             self.last_switch_round, self.min_rung, -1,
+             self.last_switch_round, self.min_rung, fleet_w,
              self.async_k, self.async_c, self.retunes,
              self.last_retune_round, *self.policy.state()], np.float64)
 
@@ -349,7 +361,9 @@ class BudgetController:
         self.last_switch_round = int(blob[6])
         # monotone: a rollback to an older blob keeps a floor raised since
         self.min_rung = max(self.min_rung, int(blob[7]))
-        # blob[8], the fleet width at the capture, is advisory
+        # blob[8], the fleet width at the capture, is advisory: every
+        # restore path re-derives the width from the schedule
+        # (sync_round_clock), and a stale width must not override it
         self.async_k = int(blob[9])
         self.async_c = int(blob[10])
         self.retunes = int(blob[11])

@@ -24,9 +24,12 @@ S equals the round over exactly S.
 round's ``fedsim/preempt`` scalar (``resilience/guard.py``); a round
 re-executed after a rollback realizes its environment with ``replay=True``,
 which suppresses the ``nan_client`` injection and leaves every other draw
-as it was. The reference's elastic-fleet kinds (``resize``, ``leave``,
-``join``, ``shrink``) are parsed here and refused by ``Config`` (ROADMAP
-A11, item A.1.4).
+as it was. The elastic fleet's kinds (``resize``, ``leave``, ``join``,
+``shrink``) set each round's realized width (``faults.fleet_width_at``):
+the environment's masks have that many slots, its stats carry the
+``fleet/*`` scalars, and the session dispatches the round closure it built
+for that width; a ``shrink`` window's first round raises
+``FleetShrinkError`` for resilience/ to heal.
 """
 
 from commefficient_tpu_torch.fedsim.availability import (
@@ -44,6 +47,11 @@ from commefficient_tpu_torch.fedsim.faults import (
     PORTED_KINDS,
     ChaosEvent,
     apply_chaos,
+    fleet_shrink_at,
+    fleet_transitions,
+    fleet_width_at,
+    fleet_widths,
+    has_fleet,
     has_preempt,
     parse_chaos,
     preempt_requested,
@@ -52,5 +60,7 @@ from commefficient_tpu_torch.fedsim.faults import (
 
 __all__ = ["CHAOS_KINDS", "PORTED_KINDS", "ChaosEvent", "FedEnvironment",
            "RoundEnv", "apply_chaos", "available_models", "build_environment",
-           "has_preempt", "parse_chaos", "preempt_requested", "round_rng",
-           "sample_availability", "validate_chaos_rounds"]
+           "fleet_shrink_at", "fleet_transitions", "fleet_width_at",
+           "fleet_widths", "has_fleet", "has_preempt", "parse_chaos",
+           "preempt_requested", "round_rng", "sample_availability",
+           "validate_chaos_rounds"]

@@ -1,6 +1,7 @@
 """FedEnvironment — availability + chaos composed into per-round masks (the
-reference's ``fedsim/env.py`` without the elastic-fleet width schedule,
-which is ROADMAP A11).
+reference's ``fedsim/env.py``), with the elastic fleet's width schedule:
+a round's masks have ``width_at(round_idx)`` slots, and the ``fleet/*``
+scalars ride its stats when the plan schedules a fleet event.
 
 One ``RoundEnv`` per round: what the masked round consumes (live mask,
 corruption mask, live count) plus the host-side ``fedsim/*`` scalars that
@@ -27,6 +28,11 @@ from commefficient_tpu_torch.fedsim.availability import (
 from commefficient_tpu_torch.fedsim.faults import (
     ChaosEvent,
     apply_chaos,
+    fleet_shrink_at,
+    fleet_transitions,
+    fleet_width_at,
+    fleet_widths,
+    has_fleet,
     parse_chaos,
     preempt_requested,
     validate_chaos_rounds,
@@ -36,7 +42,8 @@ from commefficient_tpu_torch.fedsim.faults import (
 class RoundEnv(NamedTuple):
     """One round's realized environment.
 
-    ``live``/``corrupt`` are float32 ``[num_workers]`` 0/1 masks;
+    ``live``/``corrupt`` are float32 0/1 masks of the round's width
+    (``num_workers``, or the fleet's realized width);
     ``live_count`` the scalar the server renormalizes by; ``stats`` the
     host-side ``fedsim/*`` scalars (a constant key set)."""
 
@@ -59,6 +66,13 @@ class FedEnvironment:
         self.num_cohorts = int(cfg.num_cohorts)
         self.arrival_rate = float(cfg.arrival_rate)
         self.plan: Tuple[ChaosEvent, ...] = parse_chaos(cfg.chaos)
+        # the elastic fleet: the width schedule is a pure function of
+        # (plan, num_workers); its change points once, so fleet_stats
+        # walks the transitions only
+        self.has_fleet = has_fleet(self.plan)
+        self.transitions: Tuple[Tuple[int, int], ...] = (
+            fleet_transitions(self.plan, self.num_workers)
+            if self.has_fleet else ())
 
     def describe(self) -> str:
         bits = [f"availability={self.availability}"]
@@ -73,12 +87,52 @@ class FedEnvironment:
         callable only where the run length is known (the train entries)."""
         validate_chaos_rounds(self.plan, num_rounds)
 
-    def round_env(self, round_idx: int, replay: bool = False) -> RoundEnv:
+    # -- the elastic fleet (pure in round_idx; host numpy) -------------------
+    def width_at(self, round_idx: int) -> int:
+        """The realized fleet width at ``round_idx``: ``num_workers`` when
+        no fleet event is scheduled."""
+        if not self.has_fleet:
+            return self.num_workers
+        return fleet_width_at(self.plan, self.num_workers, round_idx)
+
+    def widths(self) -> Tuple[int, ...]:
+        """Every width the run realizes, the base first: the widths the
+        session builds round closures for."""
+        return fleet_widths(self.plan, self.num_workers)
+
+    def shrink_at(self, round_idx: int) -> Optional[int]:
+        """W' of a shrink event opening at ``round_idx``, else None."""
+        if not self.has_fleet:
+            return None
+        return fleet_shrink_at(self.plan, round_idx)
+
+    def fleet_stats(self, round_idx: int) -> dict:
+        """The ``fleet/*`` scalars of one round (empty without a fleet
+        event): derived from the schedule, never from runtime state, so a
+        replayed round gives the same values."""
+        if not self.has_fleet:
+            return {}
+        resizes = 0
+        last = -1
+        for r, _w in self.transitions:
+            if r <= round_idx:
+                resizes += 1
+                last = r
+        return {
+            "fleet/width": float(self.width_at(round_idx)),
+            "fleet/resizes": float(resizes),
+            "fleet/last_resize_round": float(last),
+        }
+
+    def round_env(self, round_idx: int, replay: bool = False,
+                  width: Optional[int] = None) -> RoundEnv:
         """Realize round ``round_idx``'s masks and ``fedsim/*`` scalars —
         deterministic from ``(seed, round_idx)``, pure (a fresh rng per
         call). ``replay=True`` suppresses the nan_client injection and
-        leaves every other draw as it was (``faults.apply_chaos``)."""
-        W = self.num_workers
+        leaves every other draw as it was (``faults.apply_chaos``). The
+        masks have ``width_at(round_idx)`` slots unless ``width`` says
+        otherwise; the ``fedsim/*`` rates are relative to that width."""
+        W = self.width_at(round_idx) if width is None else int(width)
         rng = round_rng(self.seed, round_idx)
         avail = sample_availability(
             self.availability, rng, round_idx,
@@ -100,6 +154,9 @@ class FedEnvironment:
             # it from the round's metrics): a host scalar, never a mask
             "fedsim/preempt": float(preempt_requested(self.plan, round_idx)),
         }
+        # three more keys for the whole run iff a fleet event is scheduled:
+        # the ledger and the controller bill at fleet/width
+        stats.update(self.fleet_stats(round_idx))
         return RoundEnv(
             live=live.astype(np.float32),
             corrupt=corrupt.astype(np.float32),

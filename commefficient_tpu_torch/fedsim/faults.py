@@ -30,9 +30,28 @@ Plan grammar (the ``--chaos`` flag): comma-separated events,
                                    drain, force-save, exit 75. It never
                                    touches the masks.
 
-The reference's elastic-fleet kinds (``resize``, ``leave``, ``join``,
-``shrink``) parse here with their reference syntax; ``Config`` refuses
-them (ROADMAP A11, item A.1.4: the elastic fleet's width ladder).
+Fleet events (the elastic fleet, README "The port's elastic fleet"):
+
+  * ``resize@W'[:rounds=A-B]``   — the fleet runs at width W' during
+                                   rounds A..B (from A onward when the
+                                   range is open or omitted): a scheduled
+                                   transition, the session dispatches its
+                                   width-W' round closure, no recovery.
+  * ``leave@n`` / ``join@n``     — n workers leave (width -= n) or join
+                                   (width += n) for the event's window.
+  * ``shrink@W'[:rounds=A-B]``   — an unscheduled loss: round A's FIRST
+                                   execution raises ``FleetShrinkError``
+                                   (a ``DivergenceError``: resilience/
+                                   rolls back to the newest snapshot and
+                                   re-enters), and the replay runs the
+                                   window at W' without raising.
+
+  Fleet events compose in start order: the width at round r folds every
+  active event over the base ``--num_workers`` (resize/shrink set,
+  leave/join add), so ``leave@4:rounds=2-,join@2:rounds=6-`` runs W, W-4,
+  W-2 across its three segments. ``validate_fleet`` checks the realized
+  width at every boundary (positive, ``% num_devices == 0``, at most
+  ``num_workers``, the width the sampler draws at).
 
 Parsing is syntax-and-range validated here (``utils.config`` calls
 ``parse_chaos`` at construction); round indices against the RUN LENGTH are
@@ -55,8 +74,8 @@ CHAOS_KINDS = ("dropout", "straggler", "nan_client", "preempt",
                "resize", "leave", "join", "shrink")
 # the elastic-fleet subset: events that change the per-round fleet width
 FLEET_KINDS = ("resize", "leave", "join", "shrink")
-# the kinds the port runs; Config refuses the others (ROADMAP A11, A.1.4)
-PORTED_KINDS = ("dropout", "straggler", "nan_client", "preempt")
+# the kinds the port runs: every kind of the reference's grammar
+PORTED_KINDS = CHAOS_KINDS
 
 _GRAMMAR = (
     'comma-separated "kind@value[:rounds=A-B]" (B empty = open-ended) '
@@ -223,3 +242,136 @@ def has_preempt(plan: Tuple[ChaosEvent, ...]) -> bool:
     """True iff the plan schedules any preemption: one of the gates of
     ``resilience.build_resilience``."""
     return any(ev.kind == "preempt" for ev in plan)
+
+
+# --------------------------------------------------------------------------
+# The elastic fleet: deterministic per-round widths.
+#
+# The width at round r is a pure function of (plan, num_workers, r), with
+# no runtime state, so a vault rollback and a checkpoint resume land on
+# the right width by evaluating the schedule at the restored step. The
+# session realizes a transition by dispatching the round closure it built
+# for that width (parallel/api.py); everything here is host numpy.
+# --------------------------------------------------------------------------
+
+
+def fleet_plan(plan: Tuple[ChaosEvent, ...]) -> Tuple[ChaosEvent, ...]:
+    """The fleet events of a chaos plan, in start order (ties keep plan
+    order: the fold below depends on it)."""
+    evs = [ev for ev in plan if ev.kind in FLEET_KINDS]
+    return tuple(sorted(evs, key=lambda ev: ev.start))
+
+
+def has_fleet(plan: Tuple[ChaosEvent, ...]) -> bool:
+    """True iff the plan schedules any fleet event: the gate of the
+    session's per-width round closures (``Config.fleet_enabled``)."""
+    return any(ev.kind in FLEET_KINDS for ev in plan)
+
+
+def fleet_width_at(plan: Tuple[ChaosEvent, ...], num_workers: int,
+                   round_idx: int) -> int:
+    """The realized fleet width at ``round_idx``: every ACTIVE fleet event
+    folded over the base ``num_workers`` in start order — resize/shrink
+    SET the width, leave/join ADD a delta."""
+    w = int(num_workers)
+    for ev in fleet_plan(plan):
+        if not ev.active(round_idx):
+            continue
+        n = int(ev.value)
+        if ev.kind in ("resize", "shrink"):
+            w = n
+        elif ev.kind == "leave":
+            w -= n
+        else:  # join
+            w += n
+    return w
+
+
+def fleet_boundaries(plan: Tuple[ChaosEvent, ...]) -> Tuple[int, ...]:
+    """Sorted rounds where the width MAY change: round 0 and every fleet
+    event's window edges (its start, and end + 1 for a closed window). The
+    width is constant between consecutive boundaries."""
+    marks = {0}
+    for ev in fleet_plan(plan):
+        marks.add(ev.start)
+        if ev.end is not None:
+            marks.add(ev.end + 1)
+    return tuple(sorted(marks))
+
+
+def fleet_transitions(plan: Tuple[ChaosEvent, ...],
+                      num_workers: int) -> Tuple[Tuple[int, int], ...]:
+    """The rounds where the width actually CHANGES, as sorted ``(round,
+    new_width)`` pairs: the schedule behind the ``fleet/resizes`` and
+    ``fleet/last_resize_round`` scalars."""
+    out = []
+    for r in fleet_boundaries(plan):
+        if r < 1:
+            continue
+        w = fleet_width_at(plan, num_workers, r)
+        if w != fleet_width_at(plan, num_workers, r - 1):
+            out.append((r, w))
+    return tuple(out)
+
+
+def fleet_widths(plan: Tuple[ChaosEvent, ...],
+                 num_workers: int) -> Tuple[int, ...]:
+    """Every width the run realizes, the base first, then ascending: the
+    widths the session builds a round closure for."""
+    ws = {fleet_width_at(plan, num_workers, r) for r in
+          fleet_boundaries(plan)}
+    base = int(num_workers)
+    ws.add(base)
+    return (base,) + tuple(sorted(ws - {base}))
+
+
+def fleet_shrink_at(plan: Tuple[ChaosEvent, ...],
+                    round_idx: int) -> Optional[int]:
+    """The width W' of a ``shrink`` event whose window OPENS at
+    ``round_idx`` (else None): the session raises ``FleetShrinkError`` on
+    that round's first execution; a replay runs at W' quietly."""
+    for ev in fleet_plan(plan):
+        if ev.kind == "shrink" and ev.start == round_idx:
+            return int(ev.value)
+    return None
+
+
+def validate_fleet(plan: Tuple[ChaosEvent, ...], *, num_workers: int,
+                   num_devices: int) -> None:
+    """Reject a fleet plan whose REALIZED width breaks a session invariant
+    at any boundary round, with a ``ValueError`` naming the blocker (the
+    reference's words). ``Config`` calls it at construction, where the
+    worker and device counts live."""
+    for r in fleet_boundaries(plan):
+        w = fleet_width_at(plan, num_workers, r)
+        if w < 1:
+            raise ValueError(
+                f"fleet plan realizes width {w} at round {r} — every "
+                "composed width must stay >= 1 (too many leave@n deltas?)"
+            )
+        if w % num_devices != 0:
+            raise ValueError(
+                f"fleet plan realizes width {w} at round {r}, which is "
+                f"not a multiple of num_devices={num_devices} — every "
+                "width must shard evenly over the fixed device mesh "
+                "(the mesh never resizes; only the per-round worker "
+                "multiplexing does)"
+            )
+        if w > num_workers:
+            raise ValueError(
+                f"fleet plan realizes width {w} at round {r}, above the "
+                f"provisioned maximum --num_workers={num_workers} — the "
+                "sampler draws cohorts at the base width, so joins can "
+                "only return capacity that earlier events removed"
+            )
+    for ev in fleet_plan(plan):
+        if ev.kind != "shrink":
+            continue
+        before = fleet_width_at(plan, num_workers, max(ev.start - 1, 0))
+        if ev.start == 0 or int(ev.value) >= before:
+            raise ValueError(
+                f"shrink@{int(ev.value)}:rounds={ev.start}- must model a "
+                f"LOSS: it needs a round >= 1 to roll back over and a "
+                f"width strictly below the {before} in effect before it "
+                "(use resize@W' for scheduled, non-faulting changes)"
+            )

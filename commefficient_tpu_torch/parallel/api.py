@@ -21,12 +21,25 @@ the rounds do not go through ``train_round``: the engine dispatches each
 rung's ``async_round_fns`` pair itself and calls the session's host
 entries around them (``blacklist_env``, ``control_round_start``,
 ``mark_dispatched``, ``host_round_stats``).
+
+Under the elastic fleet (chaos ``resize``/``leave``/``join``/``shrink``,
+``cfg.fleet_enabled``) each rung holds a round closure per realized width
+(``_Rung.width_fns``, built with the session from the rung's config
+narrowed to ``num_workers = w``), and each round starts with
+``_fleet_round_begin``: the schedule's width at ``state.step`` picks the
+closure (``_select_programs``, where the rung and the width compose), the
+session takes the first ``w`` clients of the sampler's base-width cohort,
+and a ``shrink`` window's first execution raises ``FleetShrinkError`` for
+resilience/ to heal. The kernels' shapes depend on the sketch, not on the
+width, so a transition builds no plan.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
+import time
 import warnings
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -210,7 +223,7 @@ class _Rung:
     the session always built itself."""
 
     __slots__ = ("cfg", "label", "spec", "compressor", "plan", "round_fn",
-                 "sketch_decode_resolved", "aggregate_resolved")
+                 "sketch_decode_resolved", "aggregate_resolved", "width_fns")
 
     def __init__(self, cfg, label, spec, compressor, plan, round_fn,
                  sketch_decode_resolved, aggregate_resolved):
@@ -222,6 +235,10 @@ class _Rung:
         self.round_fn = round_fn
         self.sketch_decode_resolved = sketch_decode_resolved
         self.aggregate_resolved = aggregate_resolved  # "sparse" | "dense"
+        # the elastic fleet: width -> this rung's round closure at that
+        # width, for every realized width but the base (round_fn's);
+        # empty without a fleet event
+        self.width_fns = {}
 
 
 class FederatedSession:
@@ -275,6 +292,16 @@ class FederatedSession:
         # build_controller once the train loop knows the run length; None
         # keeps every round on the path it ran before
         self.controller = None
+        # the fedsim environment (None unless cfg.fedsim_enabled): round
+        # state.step's masks, a pure function of (seed, step), so a
+        # restored step realizes what the unbroken run realized
+        self.fedsim_env = build_environment(cfg)
+        # the elastic fleet: the width of the round dispatched last (the
+        # base until a fleet event moves it), the shrink recoveries
+        # resilience/ made, and the host ms of the width switches
+        self._fleet_width = cfg.num_workers
+        self._fleet_shrink_recoveries = 0
+        self._fleet_resize_ms = 0.0
         # the compression ladder's rungs: without the control plane ONE
         # rung over cfg itself (label ""), which builds exactly the
         # session it built before. With it, every rung's spec, compressor,
@@ -296,6 +323,12 @@ class FederatedSession:
         else:
             self.rungs = [self._build_rung(cfg, "")]
             self.active_rung = 0
+        if cfg.fleet_enabled:
+            # every (rung x width) closure now, so a transition is a
+            # lookup; nothing of it without a fleet event
+            for r in self.rungs:
+                for w in self.fedsim_env.widths()[1:]:
+                    r.width_fns[w] = self._build_width_fn(r, w)
         rung = self.rungs[self.active_rung]
         self._use_rung(rung)
         # the state in the INITIAL rung's layout (under ef_feedback the
@@ -313,10 +346,6 @@ class FederatedSession:
                 for leaf in self.sharded_leaves:
                     setattr(self.state, leaf, torch.zeros(
                         S, dtype=torch.float32, device=self.device))
-        # the fedsim environment (None unless cfg.fedsim_enabled): round
-        # state.step's masks, a pure function of (seed, step), so a
-        # restored step realizes what the unbroken run realized
-        self.fedsim_env = build_environment(cfg)
         # resilience/: the rounds below the replay horizon have run in this
         # process; a rollback rewinds the state, never the horizon, so a
         # re-executed round realizes its environment with replay=True (the
@@ -491,13 +520,79 @@ class FederatedSession:
                      aggregate)
 
     def _use_rung(self, rung: _Rung) -> None:
-        """Point the session's dispatch and accounting at ``rung``."""
+        """Point the session's dispatch and accounting at ``rung`` (the
+        active one)."""
         self.spec = rung.spec
         self.compressor = rung.compressor
         self.plan = rung.plan
-        self.round_fn = rung.round_fn
         self.sketch_decode_resolved = rung.sketch_decode_resolved
         self.aggregate_resolved = rung.aggregate_resolved
+        self._select_programs()
+
+    # -- the elastic fleet (per-width round closures) -------------------------
+    @staticmethod
+    def _width_cfg(rcfg, w: int):
+        """``rcfg`` with ``num_workers = w``: the config of one non-base
+        width's round closure, so the round's W, the per-rank rows, the
+        live-count scale, DP's keys and the diagnostics all follow the
+        width. A copy that skips validation: the base config passed it,
+        ``validate_fleet`` proved ``w`` fits the group, and the unchanged
+        plan validated against the narrowed width would be refused (its
+        widths are relative to the base)."""
+        wcfg = copy.copy(rcfg)
+        object.__setattr__(wcfg, "num_workers", int(w))
+        return wcfg
+
+    def _build_width_fn(self, rung: _Rung, w: int):
+        """``rung``'s round closure at fleet width ``w`` (its compressor
+        and spec: the kernels' shapes do not depend on the width)."""
+        return build_round_fn(self._width_cfg(rung.cfg, w), self._loss_fn,
+                              self.unravel, rung.compressor, self.group)
+
+    def _select_programs(self) -> None:
+        """Point ``round_fn`` at the active rung's closure for the current
+        fleet width: the one place the rung and the width compose, so a
+        rung switch inside a resize window and a width transition cannot
+        disagree about the closure that runs next."""
+        rung = self.rungs[self.active_rung]
+        self.round_fn = (rung.round_fn
+                         if self._fleet_width == self.cfg.num_workers
+                         else rung.width_fns[self._fleet_width])
+
+    def _set_fleet_width(self, w: int) -> None:
+        """Commit fleet width ``w``: a lookup (no closure is built), its
+        host time added to ``_fleet_resize_ms``."""
+        w = int(w)
+        if w == self._fleet_width:
+            return
+        t0 = time.perf_counter()
+        self._fleet_width = w
+        self._select_programs()
+        self._fleet_resize_ms += (time.perf_counter() - t0) * 1e3
+
+    def _fleet_round_begin(self) -> int:
+        """The fleet's part of a round, before anything of it is copied or
+        realized: raise ``FleetShrinkError`` the FIRST time a shrink window
+        opens (resilience/ rolls back and re-enters), then switch to the
+        schedule's width at ``state.step``. Returns the round's width,
+        ``num_workers`` without a fleet event."""
+        env = self.fedsim_env
+        if env is None or not env.has_fleet:
+            return self.cfg.num_workers
+        r = int(self.state.step)
+        shrink = env.shrink_at(r)
+        if shrink is not None and r >= self._replay_horizon:
+            from commefficient_tpu_torch.telemetry.flight import (
+                FleetShrinkError,
+            )
+
+            # the horizon moves past the round at the raise: the rollback
+            # rewinds the state but never the horizon, so the replay runs
+            # the round at the shrunk width instead of losing it again
+            self._replay_horizon = r + 1
+            raise FleetShrinkError(r, shrink, self._fleet_width)
+        self._set_fleet_width(env.width_at(r))
+        return self._fleet_width
 
     def set_active_rung(self, i: int, *, migrate: bool = True) -> None:
         """Switch the dispatch to rung ``i``: the session's spec,
@@ -584,9 +679,11 @@ class FederatedSession:
         (``Compressor.warm_migration``: torch loads a kernel at its first
         launch), so a switch to any rung builds and loads nothing; nothing
         to do on the CPU. Under asyncfed every rung's ``async_round_fns``
-        pair is built too, so a switch or a retune builds nothing. Launches
-        no CountSketch kernel and changes no state; returns the number of
-        rungs."""
+        pair is built too, so a switch or a retune builds nothing. Under
+        the elastic fleet every (rung x width) closure exists since the
+        session's build, and the plans are per spec, not per width, so a
+        transition builds nothing either. Launches no CountSketch kernel
+        and changes no state; returns the number of rungs."""
         if self.cfg.asyncfed_enabled:
             for i in range(len(self.rungs)):
                 self.async_round_fns(i)
@@ -747,8 +844,9 @@ class FederatedSession:
 
     def local_clients(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's slice ``[p*w_loc, (p+1)*w_loc)`` of a round's
-        ``[W, ...]`` batch (host arrays, or staged device tensors)."""
-        w_loc = self.cfg.num_workers // self.group.size
+        ``[W, ...]`` batch (host arrays, or staged device tensors); W is
+        the round's width (the fleet's realized one)."""
+        w_loc = self._fleet_width // self.group.size
         lo = self.group.rank * w_loc
         return {k: (v if torch.is_tensor(v) else np.asarray(v))[lo:lo + w_loc]
                 for k, v in batch.items()}
@@ -775,10 +873,10 @@ class FederatedSession:
 
     def _host_ids(self, client_ids) -> np.ndarray:
         host = np.asarray(client_ids, dtype=np.int64)
-        if (host.shape != (self.cfg.num_workers,) or host.min() < 0
+        if (host.shape != (self._fleet_width,) or host.min() < 0
                 or host.max() >= self.cfg.num_clients):
             raise ValueError(
-                f"client_ids must be {self.cfg.num_workers} ids in "
+                f"client_ids must be {self._fleet_width} ids in "
                 f"[0, {self.cfg.num_clients}), got {host.tolist()}")
         return host
 
@@ -817,7 +915,7 @@ class FederatedSession:
 
     def _local_ids(self, client_ids) -> np.ndarray:
         """This rank's ``w_loc`` of a round's ``[W]`` host client ids."""
-        w_loc = self.cfg.num_workers // self.group.size
+        w_loc = self._fleet_width // self.group.size
         lo = self.group.rank * w_loc
         return np.asarray(client_ids, np.int64).reshape(-1)[lo:lo + w_loc]
 
@@ -851,11 +949,15 @@ class FederatedSession:
 
     # -- fedsim and resilience/ ----------------------------------------------
     def sync_round_clock(self) -> None:
-        """Align the fedsim round clock with ``FedState.step`` after the
-        state was replaced (a checkpoint restore, a rollback). The port's
-        rounds realize their environment from ``state.step`` itself, so
-        there is no separate clock to move: the reference's call is kept
-        as a no-op."""
+        """Align the round clock with ``FedState.step`` after the state
+        was replaced (a checkpoint restore, a rollback). The port's rounds
+        realize their environment from ``state.step`` itself, so there is
+        no separate clock to move; under the elastic fleet the schedule's
+        width at the restored step is applied again, so a rollback or a
+        resume lands at the right width."""
+        if self.fedsim_env is not None and self.fedsim_env.has_fleet:
+            self._set_fleet_width(self.fedsim_env.width_at(
+                int(self.state.step)))
 
     def fedsim_round_env(self, step: int, client_ids=None, *,
                          replay: Optional[bool] = None):
@@ -981,11 +1083,24 @@ class FederatedSession:
         fence is ``host_vel``/``host_err`` or ``close_client_store``), and
         at level >= 1 its metrics carry the ``clientstore/*`` scalars.
 
+        Under the elastic fleet the round runs at the schedule's width w
+        at ``state.step`` (``_fleet_round_begin``, which may raise
+        ``FleetShrinkError`` first): the sampler keeps drawing base-width
+        cohorts, so the round takes ``client_ids[:w]``, ``host_ids[:w]``
+        and the batch rows ``[:w]``, and a cohort staged at the base width
+        is dropped (its w rows are gathered again).
+
         With a span recorder attached (``spans``), the round records
         ``device_put`` (the copy of its inputs), ``fedsim_env`` and
         ``round_dispatch`` under its trace id, and its metrics gain the
         host scalars ``xla/exposed_collective_ms`` and the lagged
         ``trace/*`` of round ``step - 2``."""
+        w = self._fleet_round_begin()
+        if w != self.cfg.num_workers:
+            client_ids = self._fleet_slice(client_ids, w)
+            host_ids = self._fleet_slice(host_ids, w)
+            batch = {k: v[:w] for k, v in batch.items()}
+            cohort = None
         blacklist_ids = self._host_client_ids(client_ids)
         cohort_ids = None
         if self._streamer is not None:
@@ -1025,12 +1140,19 @@ class FederatedSession:
         if self.dev_data is None:
             raise ValueError("train_round_indices needs the training set "
                              "on the device: call attach_data first")
+        w = self._fleet_round_begin()
+        if w != self.cfg.num_workers:
+            # plan rows are per sample: the first w clients' w*B
+            B = idx.shape[1]
+            client_ids = self._fleet_slice(client_ids, w)
+            idx = idx[:w]
+            plan = tuple(a[:w * B] for a in plan)
         host_ids = self._host_client_ids(client_ids)
         with self._span("device_put", trace_id=round_trace_id(
                 self.state.step)):
             self._consume(ready, [client_ids, idx, *plan])
             ids = self._device_ids(client_ids)
-            w_loc = self.cfg.num_workers // self.group.size
+            w_loc = w // self.group.size
             lo = self.group.rank * w_loc
             idx = _as_device(idx, self.device)[lo:lo + w_loc]
             B = idx.shape[1]
@@ -1045,6 +1167,16 @@ class FederatedSession:
                 batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
         return self._round(ids, microbatched(self.cfg, batch), lr, env,
                            host_ids)
+
+    @staticmethod
+    def _fleet_slice(client_ids, w: int):
+        """The first ``w`` of a round's base-width client ids (None stays
+        None)."""
+        if client_ids is None:
+            return None
+        if not torch.is_tensor(client_ids):
+            client_ids = np.asarray(client_ids)
+        return client_ids[:w]
 
     @staticmethod
     def _host_client_ids(client_ids):
@@ -1137,9 +1269,16 @@ class FederatedSession:
         ``fedsim/*``; under asyncfed also the update's ``async/*``), the
         controller's ``control/*``, the resilience rider's, a hosted
         store's ``clientstore/*`` and, with spans at level >= 1,
-        ``xla/exposed_collective_ms`` and the lagged ``trace/*``."""
+        ``xla/exposed_collective_ms`` and the lagged ``trace/*``. Beside an
+        elastic fleet's ``fleet/width`` goes ``fleet/shrink_recoveries``."""
         if fs_stats:
             metrics = {**metrics, **fs_stats}
+            if "fleet/width" in fs_stats:
+                # the one fleet scalar of runtime state (resilience/
+                # counts the shrink recoveries); the other fleet/* come
+                # from the schedule, so a replay gives them again
+                metrics["fleet/shrink_recoveries"] = float(
+                    self._fleet_shrink_recoveries)
         if self.controller is not None:
             metrics = {**metrics, **self.controller.scalars()}
         if self.resilience is not None:
@@ -1163,7 +1302,9 @@ class FederatedSession:
         counts against (the reference's ``_audit_bounds``): ``wk_bound`` on
         the sharded sketch decode, ``sparse_agg_bound`` (and the
         device-resident client rows' exemption) under sparse aggregation,
-        the ``overlap`` block under layerwise overlap."""
+        the ``overlap`` block under layerwise overlap. The bounds are the
+        base width's (the elastic fleet's narrower rounds stay within
+        them), as the reference audits round 0 at the base width."""
         cfg = self.rungs[self.active_rung].cfg
         W = self.group.size
         is_sketch = not cfg.fsdp and self.compressor.supports_sharded_decode

@@ -121,9 +121,14 @@ class RecoveryManager:
         self.last_restored_extras = snap.extras
         entry["outcome"] = "recovered"
         entry["rollback_to"] = int(snap.step)
-        # the reference also counts an elastic-fleet shrink recovery here
-        # (its FleetShrinkError's fleet_width); the fleet is ROADMAP A11,
-        # item A.1.4, and comes with it
+        # an elastic-fleet shrink recovery (duck-typed on the error, so
+        # FleetShrinkError needs no import here): the session's counter
+        # feeds the fleet/shrink_recoveries scalar, and the entry names
+        # the width the replay re-enters at
+        fleet_w = getattr(exc, "fleet_width", None)
+        if fleet_w is not None:
+            self.session._fleet_shrink_recoveries += 1
+            entry["fleet_width"] = int(fleet_w)
         entry.update(details)
         self.history.append(entry)
         if self.flight is not None:
@@ -153,7 +158,10 @@ class RecoveryManager:
         if self._suspects is not None and self._suspects[0] == step:
             return self._suspects[1]
         env = self.session.fedsim_env.round_env(step)
-        ids = np.asarray(self.sampler.sample_round_indices(step)[0])
+        # the sampler draws at the base width; a fleet round ran its first
+        # width-many clients (the session's slice)
+        ids = np.asarray(self.sampler.sample_round_indices(step)[0])[
+            :env.live.shape[0]]
         slots = env.corrupt > 0
         if not slots.any():
             slots = env.live > 0

@@ -11,7 +11,9 @@ The round's own riders (ROADMAP A12a):
   ``comm_ledger.json``;
 * ``flight``: a ring of the last drained rounds; a non-finite round dumps
   ``flight_<step>.json`` and raises ``DivergenceError`` naming the first
-  bad round, and any other crash of the train loop dumps the ring.
+  bad round, and any other crash of the train loop dumps the ring;
+  ``FleetShrinkError``, a ``DivergenceError``, is the elastic fleet's
+  unscheduled loss (chaos ``shrink@W'``), raised by the session.
 
 And the host's view of the round (ROADMAP A12b):
 
@@ -56,6 +58,7 @@ from commefficient_tpu_torch.telemetry.diagnostics import (
 )
 from commefficient_tpu_torch.telemetry.flight import (
     DivergenceError,
+    FleetShrinkError,
     FlightRecorder,
     jsonable_scalar,
     jsonable_tree,
@@ -174,6 +177,7 @@ __all__ = [
     "CommLedger",
     "CriticalPath",
     "DivergenceError",
+    "FleetShrinkError",
     "FlightRecorder",
     "PhaseSpans",
     "ProfilerStack",

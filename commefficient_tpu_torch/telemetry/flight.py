@@ -19,9 +19,10 @@ every dump then carries its ``controller`` block (policy, rung, switches,
 the budget left). A run with resilience/'s recovery attaches its
 ``ResilienceRider`` (``resilience``, set by ``build_resilience``): every
 dump after a recovery carries its ``recovery_history`` block, and a
-rollback drops the rolled-back rounds from the ring (``rewind``). The
-reference's ``FleetShrinkError`` comes with the elastic fleet (ROADMAP A11,
-item A.1.4).
+rollback drops the rolled-back rounds from the ring (``rewind``).
+``FleetShrinkError``, a ``DivergenceError``, is the elastic fleet's
+unscheduled loss (chaos ``shrink@W'``): the session raises it before the
+round's dispatch, and resilience/ heals it as it heals a divergence.
 """
 
 from __future__ import annotations
@@ -52,6 +53,33 @@ class DivergenceError(RuntimeError):
             "norms: a blowing-up diag/ef_residual_norm implicates the "
             "error-feedback loop; a clean trajectory ending in one bad "
             "round implicates the data/batch at that step.")
+
+
+class FleetShrinkError(DivergenceError):
+    """An unscheduled worker loss (the chaos ``shrink@W'`` fleet event):
+    the fleet goes on at ``fleet_width`` < ``prev_width`` workers, and the
+    round's cohort is lost before it ran.
+
+    A ``DivergenceError``, so the resilience manager's recovery takes it
+    as it is (a rollback to the newest vault snapshot, then the replay,
+    which runs at the shrunk width without raising). Its message is its
+    own (a shrink is no numerical blow-up), so the base constructor is
+    bypassed."""
+
+    def __init__(self, step: int, fleet_width: int, prev_width: int):
+        self.step = int(step)
+        self.fleet_width = int(fleet_width)
+        self.prev_width = int(prev_width)
+        self.reason = (f"fleet shrank {prev_width} -> {fleet_width} "
+                       f"workers at round {step}")
+        self.path = None
+        RuntimeError.__init__(
+            self,
+            f"{self.reason}: the in-flight cohort is lost. With a "
+            "resilience policy configured (--recover_policy retry|demote) "
+            "the run rolls back to the newest vault snapshot and "
+            f"re-enters at width {fleet_width}; replayed rounds bill "
+            "exactly once (the ledger rewinds with the rollback).")
 
 
 def jsonable_scalar(v):

@@ -14,7 +14,9 @@ available client downloads: the round's uplink is the compressor's
 ``masked_upload_floats(live)`` times its ``upload_bytes_per_float()``,
 its downlink ``avail * download_bytes``, the live and available counts
 recovered from the round's own ``fedsim/*`` scalars; the invariant
-becomes ``cum_up_bytes == live_client_rounds * upload_bytes``.
+becomes ``cum_up_bytes == live_client_rounds * upload_bytes``. An elastic
+fleet's round counts its clients at the round's realized width (its
+``fleet/width`` scalar), not at ``num_workers``.
 
 A run of the control plane's compression ladder (``rungs``: each rung's
 ``bytes_per_round`` and compressor) bills each drained round at the rung
@@ -96,9 +98,11 @@ class CommLedger:
     def _counts(self, scalars: Optional[Dict[str, float]]):
         """(live, available) clients of one drained round from its
         ``fedsim/*`` scalars (``live/W`` round-trips f32 exactly enough to
-        re-round); missing scalars mean full participation."""
+        re-round); missing scalars mean full participation. An elastic
+        fleet's round bills at its realized width (``fleet/width``, beside
+        them: the fedsim rates are relative to it)."""
         scalars = scalars or {}
-        W = self.num_workers
+        W = int(round(float(scalars.get("fleet/width", self.num_workers))))
         rate = scalars.get("fedsim/participation_rate")
         live = W if rate is None else int(round(float(rate) * W))
         avail = W - int(round(float(scalars.get("fedsim/dropped", 0.0))))

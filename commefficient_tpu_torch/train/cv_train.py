@@ -220,7 +220,9 @@ def main(argv=None, eval_batch_size: int = 512, model_kw=None, **overrides):
     or the buffered-async engine's ``stats()``, None on the synchronous
     loop), ``logdir`` (rank 0's run dir, None on the other ranks) and
     ``control`` (the control plane's controller ``snapshot()`` at the
-    end, None without it). ``model_kw`` narrows the model
+    end, None without it) and ``fleet`` (the elastic fleet's ``width``
+    at the end, ``resize_ms`` its width switches' host ms and
+    ``shrink_recoveries``; None without a fleet event). ``model_kw`` narrows the model
     (``build_model_and_data``). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank of the
     worker group; rank 0 alone evaluates and prints, and the other ranks'
@@ -291,7 +293,11 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
             "pipeline_stats": pipeline_stats or None,
             "logdir": writer.logdir if writer is not None else None,
             "control": (session.controller.snapshot()
-                        if session.controller is not None else None)}
+                        if session.controller is not None else None),
+            "fleet": ({"width": session._fleet_width,
+                       "resize_ms": session._fleet_resize_ms,
+                       "shrink_recoveries": session._fleet_shrink_recoveries}
+                      if cfg.fleet_enabled else None)}
 
 
 if __name__ == "__main__":

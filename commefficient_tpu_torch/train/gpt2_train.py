@@ -169,7 +169,8 @@ class _Gpt2Hooks(WorkloadHooks):
         return {"loss": 0.0, "lm": 0.0, "mc": 0.0}
 
     def accumulate(self, acc, loss, metrics):
-        W = self.cfg.num_workers
+        # the round's width: an elastic fleet's realized one
+        W = float(metrics.get("fleet/width", self.cfg.num_workers))
         acc["loss"] += loss
         # the lm/mc aux are sums over the W clients of their means
         acc["lm"] += float(metrics.get("lm_loss", 0.0)) / W

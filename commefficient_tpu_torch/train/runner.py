@@ -62,7 +62,8 @@ The control plane (``control/``, ``cfg.control_enabled``): the
 bills per rung, the flight recorder carries its block) and before any
 restore (the checkpoint's blob restores into it), prewarmed (every rung's
 kernel plans built) and described; every drain feeds it the drained
-rounds. A ``BudgetExhaustedError`` raised before a round's dispatch takes
+rounds. A run with elastic-fleet events and no controller calls the
+session's prewarm all the same, before round 0. A ``BudgetExhaustedError`` raised before a round's dispatch takes
 the crash path: the epoch's rounds dispatched so far are drained first
 (the ledger and the ring see them), the ring is dumped, and the error is
 raised.
@@ -265,6 +266,10 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
         controller.prewarm()
         if main:
             print(controller.describe())
+    elif cfg.fleet_enabled:
+        # the elastic fleet without a ladder: the plans are built before
+        # round 0 all the same, so no transition builds one
+        session.prewarm_rungs()
     ledger, flight = build_telemetry_riders(cfg, session, writer)
     if flight is None and cfg.telemetry_level >= 1:
         # every rank drains the same scalars, so every rank stops at the

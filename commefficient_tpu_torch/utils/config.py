@@ -509,6 +509,7 @@ class Config:
         self._validate_sketch_fused_bwd()
         self._validate_dp()
         self._validate_checkpoint()
+        self._validate_fleet()
 
     def _validate_client_store(self) -> None:
         """The client-state placement flags (clientstore/), as the
@@ -559,8 +560,8 @@ class Config:
                 "other")
 
     def _validate_fedsim(self) -> None:
-        """The reference's fedsim knob checks, plus the chaos kinds the
-        port does not run."""
+        """The reference's fedsim knob checks (the fleet events' own are
+        ``_validate_fleet``'s)."""
         if self.availability not in AVAILABILITY_MODELS:
             raise ValueError(
                 f"availability must be one of {AVAILABILITY_MODELS}, got "
@@ -586,18 +587,54 @@ class Config:
                 f"arrival_rate must be > 0 (rate=inf is the degenerate "
                 f"everyone-arrives-instantly case), got {self.arrival_rate}")
         if self.chaos:
-            from commefficient_tpu_torch.fedsim.faults import (
-                PORTED_KINDS,
-                parse_chaos,
-            )
+            from commefficient_tpu_torch.fedsim.faults import parse_chaos
 
-            for ev in parse_chaos(self.chaos):
-                if ev.kind not in PORTED_KINDS:
-                    raise ValueError(
-                        f"chaos kind {ev.kind!r} is not ported yet: the "
-                        "elastic fleet needs the per-width round programs "
-                        "(ROADMAP A11, item A.1.4); the port runs "
-                        f"{PORTED_KINDS}")
+            parse_chaos(self.chaos)  # names a bad plan
+
+    def _validate_fleet(self) -> None:
+        """The reference's checks of the elastic fleet's events (its
+        messages): the realized widths must shard the fixed worker group
+        and stay within the provisioned ``num_workers``
+        (``faults.validate_fleet``), and an engine that cannot change a
+        round's width mid-run is refused. Runs last: it reads the gates
+        the other checks resolve."""
+        if not self.fleet_enabled:
+            return
+        from commefficient_tpu_torch.fedsim.faults import (
+            parse_chaos,
+            validate_fleet,
+        )
+
+        plan = parse_chaos(self.chaos)
+        validate_fleet(plan, num_workers=self.num_workers,
+                       num_devices=self.num_devices)
+        if self.asyncfed_enabled:
+            raise ValueError(
+                "fleet events are incompatible with async_buffer > 0: the "
+                "asyncfed schedule pre-simulates every cohort at the fixed "
+                "width W, so a mid-run resize would orphan in-flight "
+                "slots — model elastic participation there with "
+                "availability='poisson' instead")
+        if self.pipeline_depth > 0:
+            raise ValueError(
+                "fleet events are incompatible with pipeline_depth > 0 "
+                "for now: the prefetcher stages round payloads at the "
+                "base width ahead of the resize decision point — run "
+                "synchronous rounds with the fleet plan")
+        if self.fsdp:
+            raise ValueError(
+                "fleet events are incompatible with fsdp: the FSDP round "
+                "shards server state [D/W] over the workers axis, so a "
+                "width change would re-partition persistent state, not "
+                "just the round program — use the replicated round")
+        if any(ev.kind == "shrink" for ev in plan) and \
+                not self.recovery_enabled:
+            raise ValueError(
+                "shrink@W' models an unscheduled worker loss: it raises "
+                "FleetShrinkError for the resilience manager to roll back "
+                "and re-enter at W' — set --recover_policy retry|demote "
+                "(and its --telemetry_level >= 1 requirement), or use "
+                "resize@W' for a scheduled, non-faulting change")
 
     def _validate_resilience(self) -> None:
         """The reference's checks of the self-healing flags (resilience/):
@@ -700,9 +737,9 @@ class Config:
     def _validate_pipeline(self) -> None:
         """The reference's pipeline_depth checks and its exclusion of
         scan_rounds with the control plane. They run before the refusals
-        of unported knobs, so depth or the control plane with scan_rounds,
-        or depth with fleet events (both still refused, naming A11), gives
-        the reference's message."""
+        of unported knobs, so depth or the control plane with scan_rounds
+        (still refused, naming A11) gives the reference's message. Depth
+        with fleet events is ``_validate_fleet``'s."""
         if self.scan_rounds > 1 and self.control_enabled:
             raise ValueError(
                 "scan_rounds > 1 is mutually exclusive with the control "
@@ -720,18 +757,6 @@ class Config:
                 "scan_rounds > 1 already stages the whole epoch's sampler "
                 "indices up front (a superset of the prefetcher's depth-K "
                 "window on the index path) — drop pipeline_depth")
-        if self.chaos:
-            from commefficient_tpu_torch.fedsim.faults import (
-                FLEET_KINDS,
-                parse_chaos,
-            )
-
-            if any(ev.kind in FLEET_KINDS for ev in parse_chaos(self.chaos)):
-                raise ValueError(
-                    "fleet events are incompatible with pipeline_depth > 0 "
-                    "for now: the prefetcher stages round payloads at the "
-                    "base width ahead of the resize decision point — run "
-                    "synchronous rounds with the fleet plan")
 
     def _validate_asyncfed(self) -> None:
         """The reference's checks of the buffered-asynchronous flags
@@ -1005,6 +1030,21 @@ class Config:
         gate): the round then masks its clients by the fedsim
         environment."""
         return self.availability != "always" or bool(self.chaos)
+
+    @property
+    def fleet_enabled(self) -> bool:
+        """True when the chaos plan schedules an elastic-fleet event
+        (resize/leave/join/shrink): the session then builds a round
+        closure per realized width and dispatches each round's. False
+        builds nothing of the fleet. Implies ``fedsim_enabled``."""
+        if not self.chaos:
+            return False
+        from commefficient_tpu_torch.fedsim.faults import (
+            has_fleet,
+            parse_chaos,
+        )
+
+        return has_fleet(parse_chaos(self.chaos))
 
     @property
     def control_enabled(self) -> bool:

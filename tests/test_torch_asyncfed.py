@@ -266,8 +266,16 @@ def test_config_refuses_what_the_reference_refuses(kw):
 def test_config_accepts_the_flags_and_keeps_the_fleet_refused():
     cfg = Config(**BASE, **ANCHOR, async_double_buffer=True)
     assert cfg.asyncfed_enabled and not Config(**BASE).asyncfed_enabled
-    with pytest.raises(ValueError, match="A.1.4"):
-        Config(**BASE, async_buffer=4, chaos="resize@4:rounds=1-1")
+    # the elastic fleet is ported; with asyncfed it stays refused, in the
+    # reference's words
+    with pytest.raises(ValueError, match="fleet events are incompatible "
+                       "with async_buffer > 0") as port:
+        Config(**{**BASE, "num_devices": 1}, async_buffer=4,
+               chaos="resize@4:rounds=1-1")
+    with pytest.raises(ValueError) as ref:
+        RefConfig(**{**BASE, "num_devices": 1}, async_buffer=4,
+                  chaos="resize@4:rounds=1-1")
+    assert str(port.value) == str(ref.value)
 
 
 # -- (3) the anchor ------------------------------------------------------------------

@@ -153,13 +153,22 @@ def test_config_rejects_bad_fedsim_knobs(kw, match):
 @pytest.mark.parametrize("plan", ["resize@4", "leave@2", "join@2:rounds=3-",
                                   "shrink@4:rounds=2-", "preempt@3"])
 def test_fleet_and_preempt_kinds_refused_naming_a11(plan):
+    """Every kind of the reference's grammar parses, and ``Config`` takes
+    it as the reference does: the fleet kinds since the elastic fleet is
+    ported, refused only where the reference refuses them (``join@2``
+    above the provisioned width, a ``shrink`` without a recovery policy),
+    in its words; no kind is refused naming ROADMAP A11 any more."""
     assert parse_chaos(plan)  # the reference's grammar parses them
-    if plan.startswith("preempt"):
-        # resilience/ runs preemption: Config admits it since then
-        assert Config(chaos=plan).chaos == plan
+    try:
+        got = Config(chaos=plan)
+    except ValueError as e:
+        with pytest.raises(ValueError) as ref:
+            RefConfig(chaos=plan)
+        assert str(e) == str(ref.value) and "A11" not in str(e)
         return
-    with pytest.raises(ValueError, match="ROADMAP A11, item A.1.4"):
-        Config(chaos=plan)
+    assert got.chaos == plan
+    assert got.fleet_enabled == RefConfig(chaos=plan).fleet_enabled
+    assert got.fleet_enabled == (not plan.startswith("preempt"))
 
 
 def test_fedsim_enabled_gate_is_the_references():

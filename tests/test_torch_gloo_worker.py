@@ -14,7 +14,8 @@ torch takes to import.
 
 The job file names the work, each part optional: ``cases``, each a set of
 ``Config`` keywords for a four-round TinyMLP session fed the client ids,
-batches and initial params of the input file (fedavg's batches split into
+batches (the first ``num_workers`` of each round) and initial params of
+the input file (fedavg's batches split into
 its local steps), written in the full layout (sharded leaves gathered);
 ``resume``, cases run two rounds, checkpointed, restored into a fresh
 session and run two more (written as ``resume:<name>``); ``topk``, vectors whose
@@ -71,12 +72,16 @@ def _session(kw, npz):
 
 
 def _rounds(sess, npz, lr, rounds):
+    """The input's rounds, each cut to the session's first ``num_workers``
+    clients (a session provisioned narrower than the input's cohorts)."""
     from commefficient_tpu_torch.parallel.api import microbatched
 
+    W = sess.cfg.num_workers
     losses = []
     for r in rounds:
-        batch = microbatched(sess.cfg, {"x": npz["x"][r], "y": npz["y"][r]})
-        losses.append(float(sess.train_round(npz["ids"][r], batch,
+        batch = microbatched(sess.cfg, {"x": npz["x"][r][:W],
+                                        "y": npz["y"][r][:W]})
+        losses.append(float(sess.train_round(npz["ids"][r][:W], batch,
                                              lr)["loss"]))
     return losses
 

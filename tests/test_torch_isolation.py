@@ -125,3 +125,37 @@ def test_importing_the_port_loads_no_jax_module():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_elastic_fleet_imports_no_jax():
+    """The elastic fleet's symbols (the schedule, the environment's width
+    methods, ``FleetShrinkError``, the session's per-width dispatch)
+    resolve from the port alone, in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from commefficient_tpu_torch.fedsim import (FedEnvironment,\n"
+        "    fleet_shrink_at, fleet_transitions, fleet_width_at,\n"
+        "    fleet_widths, has_fleet)\n"
+        "from commefficient_tpu_torch.fedsim.faults import (\n"
+        "    fleet_boundaries, fleet_plan, validate_fleet)\n"
+        "from commefficient_tpu_torch.telemetry import (DivergenceError,\n"
+        "    FleetShrinkError)\n"
+        "from commefficient_tpu_torch.parallel import FederatedSession\n"
+        "from commefficient_tpu_torch.utils.config import Config\n"
+        "assert issubclass(FleetShrinkError, DivergenceError)\n"
+        "for name in ('width_at', 'widths', 'shrink_at', 'fleet_stats'):\n"
+        "    assert callable(getattr(FedEnvironment, name))\n"
+        "for name in ('_select_programs', '_set_fleet_width',\n"
+        "             '_fleet_round_begin', '_build_width_fn'):\n"
+        "    assert callable(getattr(FederatedSession, name))\n"
+        "assert Config(chaos='resize@4:rounds=1-2').fleet_enabled\n"
+        f"forbidden = {FORBIDDEN!r}\n"
+        "new = [m for m in set(sys.modules) - before\n"
+        "       if any(m == f or m.startswith(f + '.') for f in forbidden)]\n"
+        "print(sorted(new))\n"
+        "sys.exit(1 if new else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -120,12 +120,29 @@ def test_schedule_matches_reference():
     ("scan_rounds", "2", "A11"),
     ("model_axis", "2", "A17"),
     ("max_retraces", "2", "A11"),
-    ("chaos", "resize@2", "A11"),
 ])
 def test_config_refuses_what_the_port_does_not_run(flag, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         parse_args([f"--{flag}", value, "--num_workers", "2",
                     "--num_clients", "4"])
+
+
+# the elastic fleet's chaos kinds, lifted from the refusals (ROADMAP
+# A.1.4): each plan through the CLI, as the reference takes it
+@pytest.mark.parametrize("flags", [
+    ["--chaos", "resize@1"],
+    ["--chaos", "leave@1:rounds=2-"],
+    ["--chaos", "leave@1:rounds=1-,join@1:rounds=3-"],
+    ["--chaos", "shrink@1:rounds=2-", "--recover_policy", "retry",
+     "--telemetry_level", "1"],
+], ids=["resize", "leave", "join", "shrink"])
+def test_config_accepts_the_fleet_kinds_through_the_flags(flags):
+    from commefficient_tpu.utils.config import Config as Ref
+
+    cfg = parse_args(flags + ["--num_workers", "2", "--num_clients", "4"])
+    ref = Ref(**{k: getattr(cfg, k) for k in Ref.__dataclass_fields__})
+    assert cfg.fleet_enabled and ref.fleet_enabled
+    assert cfg.fedsim_enabled == ref.fedsim_enabled
 
 
 # the fields ROADMAP A10b, A8, A13, A11a, A15, A9, A12a, A12b and A11's
