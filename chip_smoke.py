@@ -5,6 +5,9 @@ Run from the repository root on a machine with one card and ``nvcc``:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --round-ms N [flags]`` instead times N rounds of
+the main path with ``flags``, dispatched one by one: ``round_ms_main``.)
+
 It drives only ``commefficient_tpu_torch`` and imports nothing of JAX. Each
 phase prints one line (or a few) and raises on failure, so the script exits
 0 only if every phase passed:
@@ -300,7 +303,25 @@ phase prints one line (or a few) and raises on failure, so the script exits
     in the window exiting 75 and resumed at width 4, then 8, bit-equal; a
     hosted store under the resize bit-equal to the device bank; the width
     switches' host ms, each round's ms (the first at a new width beside
-    the steady ones) and the recovery's ms printed.
+    the steady ones) and the recovery's ms printed;
+29. ``scan`` (the scan engine, ``--scan_rounds``: each block of up to K
+    rounds one replay of a CUDA graph captured from the index round): the
+    main path at level 1 on deterministic cuDNN with ``--checkpoint_every
+    5 --max_retraces 0`` at ``--scan_rounds 4`` against ``--scan_rounds
+    0``: 10 rounds (blocks 4, 1, 4, 1), every leaf and every drained
+    scalar but the host-measured ones bit-equal, each run under one
+    ``torch.profiler`` session whose kernel events, split by the host call
+    they correlate with, give the launches: K1, K2 and K3 launched by the
+    graph replays equal to the per-round run's (whose events equal its
+    counters), the eager ones to the engine's one warm-up round,
+    ``xla/retraces`` 0, two captures; the same for
+    5 rounds under the sharded decode (K4's range form), fedsim's masks,
+    DP noise and local_topk's device banks; a ``retry`` recovery and a
+    resume from round 5 bit-equal with no capture after the first of each
+    length, their replays' kernel events measured the same way; round ms,
+    device ms (the union of the trace's device intervals) and busy share
+    at K 1, 4, 8 and widths 8 and 4, each run's peak memory,
+    FixupResNet-50 sketch at K 4 and 1.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -3874,6 +3895,34 @@ def fresh_switch_main() -> int:
     return 0
 
 
+def round_ms_main(argv) -> int:
+    """``chip_smoke.py --round-ms N [flags]``: the main path (MAIN_ARGS at
+    level 1) with ``flags`` through ``cv_train.main`` for N rounds on the
+    card, dispatched one by one; prints one JSON line: each round's ms
+    (the runner's history) and the median and mean of rounds 3 onward.
+    A copy of this script beside another checkout times that checkout,
+    so a change and its parent compare in one call."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch.ops.cuda import build
+    from commefficient_tpu_torch.train import cv_train
+
+    n, flags = int(argv[0]), list(argv[1:])
+    build.load_library()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        out = cv_train.main(MAIN_ARGS + ["--telemetry_level", "1"] + flags + [
+            "--max_rounds", str(n), "--logdir", work, "--dataset_dir",
+            os.path.join(ROOT, "build", "no_dataset")])
+    ms = [round(h["ms"], 3) for h in out["history"]]
+    print(json.dumps({"root": ROOT, "flags": flags, "round_ms": ms,
+                      "median_ms": statistics.median(ms[3:]),
+                      "mean_ms": round(statistics.mean(ms[3:]), 3),
+                      "card": card_line()}))
+    return 0
+
+
 def resilience_phase(torch, cs, kern, cv_train, dataset_dir, work):
     """Self-healing training (``resilience/``) on the card: the main path
     at level 1 with ``--availability bernoulli --dropout_prob 0.25`` for
@@ -5189,6 +5238,458 @@ def _fleet_phase(torch, kern, cv_train, dataset_dir, work):
     return add_forms(*forms)
 
 
+SC_ROUNDS = 10  # rounds of the scan phase's main runs: blocks 4, 1, 4, 1
+SC_SHORT = 5  # rounds of its option runs: blocks 4, 1
+SC_BASE = MAIN_ARGS + ["--telemetry_level", "1", "--checkpoint_every", "5",
+                       "--max_retraces", "0"]
+SC_K = ["--scan_rounds", "4"]
+# host-measured or block-shaped scalars, left out of the bit-equality
+SC_DROP = ("pipeline/", "trace/", "xla/exposed_collective_ms",
+           "xla/peak_hbm_bytes")
+# wrapper -> the kernel symbols whose trace events it launches
+KERNEL_SYMBOLS = {
+    "sketch_rows": ("cs_sketch_tiles_kernel", "cs_sketch_gather_kernel"),
+    "estimate_median": ("cs_estimate_median_kernel",),
+    "median_rows": ("cs_median_rows_kernel",),
+    "estimate_at": ("cs_estimate_at_kernel",),
+    "estimate_at_range": ("cs_estimate_range_kernel",),
+}
+SC_TIMING_K = (1, 4, 8)
+SC_TIMING_WIDTHS = (8, 4)
+SC_TIMING_ROUNDS = 16
+
+
+# the runtime and driver calls that launch a CUDA graph
+GRAPH_LAUNCH = ("cudaGraphLaunch", "cuGraphLaunch")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(path):
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def trace_launches(path):
+    """The kernels of one ``torch.profiler`` Chrome trace, split by the
+    host call each kernel event correlates with: ``{"graph": {wrapper:
+    n}, "eager": {wrapper: n}, "graph_launches": the graph-launch calls,
+    "graph_kernels": every kernel those ran, "uncorrelated": kernel events
+    with no correlation id}`` (``KERNEL_SYMBOLS``)."""
+    events = trace_events(path)
+    launch = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and e.get("name", "").startswith(GRAPH_LAUNCH)
+              and "correlation" in e.get("args", {})}
+    out = {"graph": dict.fromkeys(KERNEL_SYMBOLS, 0),
+           "eager": dict.fromkeys(KERNEL_SYMBOLS, 0),
+           "graph_launches": len(launch), "graph_kernels": 0,
+           "uncorrelated": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        corr = e.get("args", {}).get("correlation")
+        out["uncorrelated"] += corr is None
+        side = "graph" if corr in launch else "eager"
+        out["graph_kernels"] += side == "graph"
+        name = e.get("name", "")
+        for w, syms in KERNEL_SYMBOLS.items():
+            if any(s in name for s in syms):
+                out[side][w] += 1
+    return out
+
+
+def trace_device_ms(path):
+    """The device time of a Chrome trace, in ms: ``busy``, the union of
+    its kernel, memcpy and memset intervals (the time the card was busy,
+    whatever ran concurrently); ``kernel_sum``, its kernels' summed
+    durations; ``same_stream_overlap``, the time each kernel started
+    before the one before it on its stream ended (a launch that overlaps
+    its predecessor's tail on one stream); ``streams``, the streams that
+    ran kernels."""
+    spans, kernel_us, by_stream = [], 0.0, {}
+    for e in trace_events(path):
+        if e.get("cat") in DEVICE_CATS and "dur" in e:
+            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+            spans.append((a, b))
+            if e["cat"] == "kernel":
+                kernel_us += b - a
+                by_stream.setdefault(e.get("args", {}).get("stream"),
+                                     []).append((a, b))
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    same_us = 0.0
+    for ks in by_stream.values():
+        ks.sort()
+        same_us += sum(max(0.0, min(p[1], q[1]) - q[0])
+                       for p, q in zip(ks, ks[1:]))
+    return dict(busy=busy_us / 1e3, kernel_sum=kernel_us / 1e3,
+                same_stream_overlap=same_us / 1e3, streams=len(by_stream))
+
+
+def on_path(counts):
+    """``{wrapper: n}`` over ``KERNEL_SYMBOLS``' wrappers, the scan path's
+    (checked: no other wrapper has a count)."""
+    check(not any(n for w, n in counts.items() if w not in KERNEL_SYMBOLS),
+          f"scan: a launch off the scan path's kernels: {counts}")
+    return {w: counts.get(w, 0) for w in KERNEL_SYMBOLS}
+
+
+def totals(forms):
+    """``{wrapper: {form: n}}`` -> ``on_path``'s ``{wrapper: n}``."""
+    return on_path({w: sum(f.values()) for w, f in forms.items()})
+
+
+def measured_forms(events, *recorded):
+    """``{wrapper: {form: n}}`` of measured kernel events, each wrapper's
+    given the one type variant its recorded launches and captures name."""
+    out = {}
+    for w, n in events.items():
+        if not n:
+            continue
+        fs = set().union(*(set(r.get(w, {})) for r in recorded))
+        check(len(fs) == 1, f"scan: {n} {w} events and forms {fs}")
+        out[w] = {fs.pop(): n}
+    return out
+
+
+def profiled(torch, work, name, fn):
+    """``fn()`` under one ``torch.profiler`` session of the card's
+    activity (a process runs one at a time): (its result,
+    ``trace_launches`` of the trace)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    path = os.path.join(work, f"{name}.trace.json")
+    prof.export_chrome_trace(path)
+    ev = trace_launches(path)
+    os.remove(path)
+    return out, ev
+
+
+def scan_timing(torch, cv_train, dataset_dir, work, args, K,
+                rounds=SC_TIMING_ROUNDS):
+    """One session of ``args`` at ``--scan_rounds K`` (K 1: per-round
+    dispatch through ``train_round_indices``, its index draws made before
+    the window), ``rounds`` rounds to warm it (and at K > 1 capture its
+    programs), then ``rounds`` more timed between two fences under
+    ``torch.profiler``: (round ms = wall / rounds, device ms a round =
+    the union of the trace's kernel, copy and set intervals, the kernels'
+    summed ms a round, busy share = device / wall, peak
+    ``max_memory_allocated``, the engine's stats)."""
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.pipeline import ScanRounds
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(args + ["--dataset_dir", dataset_dir, "--scan_rounds",
+                             str(K), "--perf_audit", "false"])
+    train, _, _, params, loss_fn, augment = cv_train.build_model_and_data(
+        cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sess = FederatedSession(cfg, params, loss_fn)
+    sampler = FedSampler(train, num_workers=cfg.num_workers,
+                         local_batch_size=cfg.sampler_batch_size,
+                         seed=cfg.seed, augment=augment)
+    check(sess.maybe_attach_data(train, sampler, augment),
+          f"scan timing: {args} did not attach the training set")
+    eng = (ScanRounds(cfg, sess, sampler, lambda s: 0.1, 2 * rounds,
+                      steps_per_epoch=rounds) if K > 1 else None)
+
+    def epoch(e):
+        if eng is not None:
+            for _ in eng.epoch_rounds(e, e * rounds, (e + 1) * rounds):
+                pass
+            return
+        draws = [sampler.sample_round_indices(r)
+                 for r in range(e * rounds, (e + 1) * rounds)]
+        for ids, idx, plan in draws:
+            sess.train_round_indices(ids, idx, plan, 0.1)
+
+    epoch(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = os.path.join(work, f"timing_{K}_{time.monotonic_ns()}.json")
+    prof.export_chrome_trace(path)
+    dev = trace_device_ms(path)
+    os.remove(path)
+    out = dict(round_ms=round(wall * 1e3 / rounds, 3),
+               device_ms=round(dev["busy"] / rounds, 3),
+               kernel_sum_ms=round(dev["kernel_sum"] / rounds, 3),
+               same_stream_overlap_ms=round(
+                   dev["same_stream_overlap"] / rounds, 3),
+               streams=dev["streams"],
+               busy=round(dev["busy"] / (wall * 1e3), 3),
+               peak=torch.cuda.max_memory_allocated(),
+               stats=eng.stats() if eng is not None else None)
+    del sess, eng
+    return out
+
+
+def scan_phase(torch, kern, cv_train, dataset_dir, work):
+    """The scan engine (``pipeline/scan_engine.py``, ``--scan_rounds``)
+    on the card: each block of up to K rounds one replay of a CUDA graph
+    captured from the session's index round. Every run goes through
+    ``cv_train.main`` at full width, level 1, deterministic cuDNN,
+    ``--checkpoint_every 5 --max_retraces 0``, with the counters set to 0
+    just before it and read just after, under one ``torch.profiler``
+    session, against its per-round twin (the same flags at
+    ``--scan_rounds 0``). A graph replay runs no Python, so a scan run's
+    launches are its trace's kernel events: those that correlate with a
+    graph launch are the replays', the others eager; the wrappers count
+    the eager ones only (the warm-up round's) and record what a capture
+    took apart. Each per-round run's events equal its counters; each scan
+    run's replay events equal its captures' launches times their replays
+    and its eager events its warm-up's.
+
+    (a) the main path at ``--scan_rounds 4`` for SC_ROUNDS rounds (blocks
+    4, 1, 4, 1): every FedState leaf and every drained scalar but
+    ``SC_DROP`` bit-equal; K1, K2 and K3 launched by the replays as
+    often as the twin launched them, twice, once and twice a round;
+    ``xla/retraces`` 0, two captures (L 4 and 1), four replays; (b) the same under the sharded decode (K4's range form);
+    (c) with fedsim's bernoulli masks and with DP noise; (d) local_topk
+    with its device client banks (16 clients); (b)-(d) for SC_SHORT
+    rounds (blocks 4, 1); (e) a ``retry`` recovery (a NaN client at round
+    5, snapshots every 4) bit-equal to its per-round twin with one
+    rollback and no capture after the first of each length, and a resume
+    from (a)'s round-5 checkpoint bit-equal to (a)'s per-round run with
+    no re-capture, its replays launching the twin's five rounds' kernels;
+    (f) printed: round ms (wall / rounds), device ms a round (the union
+    of the device intervals), the kernels' summed ms, the overlap of
+    kernels on one stream and busy share at K 1, 4 and 8 at widths 8 and
+    4, each run's peak memory, FixupResNet-50 sketch and local_topk with
+    its 100 clients' banks at K 4 beside K 1. Returns the summed launch
+    forms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _scan_phase(torch, kern, cv_train, dataset_dir, work)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _scan_phase(torch, kern, cv_train, dataset_dir, work):
+    t0 = time.perf_counter()
+    forms = []
+
+    def run(name, args, rounds):
+        """One profiled run: its kernel events beside its counts."""
+        gc.collect()
+        t = time.perf_counter()
+        r, ev = profiled(torch, work, name, lambda: state_run(
+            torch, kern, cv_train, dataset_dir, work, name,
+            SC_BASE + args + ["--logdir", os.path.join(work, name)],
+            rounds=rounds))
+        r["events"] = ev
+        r["wall_s"] = round(time.perf_counter() - t, 3)
+        r["metrics"] = read_metrics(r["out"]["logdir"])
+        r["stats"] = r["out"]["pipeline_stats"] or {}
+        return r
+
+    def scalars(r):
+        return {(n, s): v for n, steps in r["metrics"].items()
+                if not n.startswith(SC_DROP) for s, v in steps.items()}
+
+    def twin_held(label, twin):
+        """A per-round run: its kernel events all eager and equal to the
+        wrappers' counts."""
+        ev = twin["events"]
+        check(ev["eager"] == totals(twin["forms"])
+              and not any(ev["graph"].values()),
+              f"scan {label} twin: events {ev} against its launches "
+              f"{twin['launches']}")
+        forms.append(twin["forms"])
+
+    def scan_held(label, r, want=None):
+        """A scan run's launches, measured: its graph-launched kernel
+        events (every replay), equal to ``want`` when given and to what its
+        captures recorded times their replays; its eager events equal to
+        the warm-up round's launches, which are all the wrappers counted.
+        """
+        ev, st = r["events"], r["stats"]
+        warm = st.get("warmup_launches", {})
+        check(ev["uncorrelated"] == 0 and ev["graph_launches"]
+              == st.get("replays"), f"scan {label}: {ev['graph_launches']} "
+              f"graph launches for {st.get('replays')} replays, "
+              f"{ev['uncorrelated']} kernel events uncorrelated")
+        check(ev["graph"] == totals(st.get("replayed_launches", {})),
+              f"scan {label}: the replays' kernel events {ev['graph']} "
+              f"against their captures' {st.get('replayed_launches')}")
+        check(ev["eager"] == totals(warm) == totals(r["forms"]),
+              f"scan {label}: eager events {ev['eager']} against the "
+              f"warm-up's {warm} and the counts {r['forms']}")
+        if want is not None:
+            check(ev["graph"] == on_path(want), f"scan {label}: the "
+                  f"replays' kernel events {ev['graph']} against the "
+                  f"per-round run's {want}")
+        forms.append(measured_forms(
+            {w: ev["graph"][w] + ev["eager"][w] for w in KERNEL_SYMBOLS},
+            warm, *st.get("captured_launches", {}).values()))
+
+    def nonzero(d):
+        return json.dumps({k: v for k, v in d.items() if v})
+
+    def pair(label, args, rounds):
+        """The per-round twin and the scan run of ``args``, held."""
+        twin = run(f"sc_{label}_twin", args, rounds)
+        scan = run(f"sc_{label}", args + SC_K, rounds)
+        same, err = state_diff(torch, scan["state"], twin["state"],
+                               GEOMETRY["d"])
+        sa, sb = scalars(twin), scalars(scan)
+        st = scan["stats"]
+        retr = set(scan["metrics"].get("xla/retraces", {}).values())
+        phase("scan", run=label, leaves_bit_equal=same, max_abs_err=err,
+              scalars_bit_equal=sa == sb, scalars_compared=len(sa),
+              replay_kernel_events=nonzero(scan["events"]["graph"]),
+              eager_kernel_events=nonzero(scan["events"]["eager"]),
+              graph_launches=scan["events"]["graph_launches"],
+              graph_kernels=scan["events"]["graph_kernels"],
+              twin_kernel_events=nonzero(twin["events"]["eager"]),
+              warmup_launches=json.dumps(st.get("warmup_launches")),
+              captures=st.get("captures"), replays=st.get("replays"),
+              block_lengths=json.dumps(st.get("block_lengths")),
+              stage_ms=round(st.get("stage_ms", 0.0), 3),
+              retraces=json.dumps(sorted(retr)),
+              round_ms=json.dumps(scan["round_ms"]),
+              twin_round_ms=json.dumps(twin["round_ms"]),
+              peak=scan["peak"], twin_peak=twin["peak"],
+              wall_s=scan["wall_s"])
+        twin_held(label, twin)
+        scan_held(label, scan, want=twin["launches"])
+        check(same, f"scan {label}: leaves differ from the per-round run "
+              f"by {err}")
+        check(sa == sb, f"scan {label}: scalars differ at "
+              f"{sorted(k for k in sa if sa[k] != sb.get(k))[:5]}")
+        check(retr == {0.0}, f"scan {label}: xla/retraces {retr}")
+        check(st.get("block_lengths") == [1, 4]
+              and st.get("captures") == 2
+              and st.get("replays") == st.get("dispatches"),
+              f"scan {label}: engine stats {st}")
+        return twin, scan
+
+    # (a) the main path
+    twin, scan = pair("main", [], SC_ROUNDS)
+    per = {k: v // SC_ROUNDS for k, v in twin["launches"].items()}
+    phase("scan", run="main_launches", launches_a_round=nonzero(per))
+    check(per["sketch_rows"] == 2 and per["estimate_median"] == 1
+          and per["median_rows"] == 2,
+          f"scan main: the per-round path's launches a round {per}")
+
+    # (b) the sharded decode: K4's range form instead of K2
+    _, sh = pair("sharded", SHARDED_FLAGS, SC_SHORT)
+    check(sh["events"]["graph"]["estimate_at_range"] > 0
+          and sh["events"]["graph"]["estimate_median"] == 0,
+          f"scan sharded: kernel events {sh['events']}")
+
+    # (c) fedsim's masks; DP noise drawn before each block
+    pair("fedsim", FEDSIM_FLAGS, SC_SHORT)
+    pair("dp", DP_FLAGS, SC_SHORT)
+
+    # (d) local_topk with its device client banks (16 clients: the run's
+    # end-of-training checkpoint writes both banks)
+    pair("local_topk", MODE_PATHS["local_topk"][0] + ["--num_clients",
+                                                       "16"], SC_SHORT)
+
+    # (e) a retry recovery; a resume from (a)'s round-5 checkpoint
+    rt_twin = run("sc_retry_twin", RES_BASE + RES_NAN + [
+        "--recover_policy", "retry"], RES_ROUNDS)
+    rt = run("sc_retry", RES_BASE + RES_NAN + ["--recover_policy", "retry"]
+             + SC_K, RES_ROUNDS)
+    same, err = state_diff(torch, rt["state"], rt_twin["state"],
+                           GEOMETRY["d"])
+    da = deduped(rt_twin["out"]["logdir"])
+    db = deduped(rt["out"]["logdir"])
+    st = rt["stats"]
+    phase("scan", run="retry", leaves_bit_equal=same, max_abs_err=err,
+          scalars_bit_equal=da == db, scalars_compared=len(da),
+          recoveries=last_scalar(rt["out"]["logdir"],
+                                 "resilience/recoveries"),
+          restarts=st.get("restarts"), captures=st.get("captures"),
+          block_lengths=json.dumps(st.get("block_lengths")),
+          replays=st.get("replays"),
+          replay_kernel_events=nonzero(rt["events"]["graph"]),
+          eager_kernel_events=nonzero(rt["events"]["eager"]),
+          twin_kernel_events=nonzero(rt_twin["events"]["eager"]),
+          wall_s=rt["wall_s"])
+    twin_held("retry", rt_twin)
+    scan_held("retry", rt)
+    check(same and da == db, f"scan retry: differs from the per-round "
+          f"run's recovery by {err}")
+    check(last_scalar(rt["out"]["logdir"], "resilience/recoveries") == 1.0
+          and st.get("restarts") == 1, f"scan retry: {st}")
+    check(st.get("captures") == len(st.get("block_lengths", [])),
+          f"scan retry: captured after the first: {st}")
+    from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    ck = os.path.join(work, "sc_main")
+    FedCheckpointer(parse_args(MAIN_ARGS + ["--checkpoint_dir", ck])
+                    ).discard_steps_after(5)
+    gc.collect()
+    kern.reset_launch_counts()
+    res, ev = profiled(torch, work, "sc_resume", lambda: cv_train.main(
+        SC_BASE + SC_K + [
+            "--dataset_dir", dataset_dir, "--checkpoint_dir", ck, "--resume",
+            "true", "--max_rounds", str(SC_ROUNDS), "--logdir",
+            os.path.join(work, "sc_resume")]))
+    resumed = dict(events=ev, forms=kern.form_counts(),
+                   stats=res["pipeline_stats"] or {})
+    same, err = state_diff(torch, load_state(os.path.join(
+        ck, f"step_{SC_ROUNDS}.pt")), twin["state"], GEOMETRY["d"])
+    st = resumed["stats"]
+    phase("scan", run="resume", resumed_from=res["checkpoint"]["resumed_from"],
+          leaves_bit_equal=same, max_abs_err=err, captures=st.get("captures"),
+          block_lengths=json.dumps(st.get("block_lengths")),
+          replay_kernel_events=nonzero(ev["graph"]),
+          eager_kernel_events=nonzero(ev["eager"]),
+          retraces=last_scalar(res["logdir"], "xla/retraces"))
+    scan_held("resume", resumed, want={
+        k: v * (SC_ROUNDS - 5) for k, v in per.items()})
+    check(res["checkpoint"]["resumed_from"] == 5 and same,
+          f"scan resume: from {res['checkpoint']}, leaves differ by {err}")
+    check(st.get("captures") == len(st.get("block_lengths", []))
+          and last_scalar(res["logdir"], "xla/retraces") == 0.0,
+          f"scan resume: re-captured: {st}")
+
+    # (f) timing, printed: K 1, 4, 8 at widths 8 and 4; FixupResNet-50
+    timing = {}
+    for w in SC_TIMING_WIDTHS:
+        for K in SC_TIMING_K:
+            timing[f"w{w}_k{K}"] = scan_timing(
+                torch, cv_train, dataset_dir, work,
+                MAIN_ARGS + ["--num_workers", str(w)], K)
+    f50 = MAIN_ARGS + IMAGENET_FLAGS + F50_SKETCH_FLAGS + [
+        "--device_data_max_mb", "2000"]
+    for K in (1, 4):
+        timing[f"f50_k{K}"] = scan_timing(torch, cv_train, dataset_dir,
+                                          work, f50, K, rounds=8)
+    # local_topk with its 100 clients' two [100, D] banks (2.63 GB each):
+    # the peak beside the per-round run's (the warm-up clones no bank)
+    ltk = MAIN_ARGS + MODE_PATHS["local_topk"][0]
+    for K in (1, 4):
+        timing[f"ltk100_k{K}"] = scan_timing(torch, cv_train, dataset_dir,
+                                             work, ltk, K, rounds=8)
+    phase("scan_timing", card=repr(card_line()), **{
+        k: json.dumps({f: v[f] for f in (
+            "round_ms", "device_ms", "kernel_sum_ms", "same_stream_overlap_ms",
+            "streams", "busy", "peak")})
+        for k, v in timing.items()})
+    phase("scan_timing", stage_ms=json.dumps({
+        k: round(v["stats"]["stage_ms"], 3) for k, v in timing.items()
+        if v["stats"]}), main_peak=scan["peak"], twin_peak=twin["peak"])
+    phase("scan_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -5351,6 +5852,11 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["fleet"] = fleet_phase(torch, kern, cv_train, dataset_dir,
                                          work)
+    # the scan engine: K rounds a CUDA-graph replay, against per-round
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            paths["scan"] = scan_phase(torch, kern, cv_train, dataset_dir,
+                                       work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers
@@ -5382,5 +5888,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(fresh_switch_main() if sys.argv[1:] == ["--fresh-switch"]
-             else main())
+    if sys.argv[1:] == ["--fresh-switch"]:
+        sys.exit(fresh_switch_main())
+    if sys.argv[1:2] == ["--round-ms"]:
+        sys.exit(round_ms_main(sys.argv[2:]))
+    sys.exit(main())

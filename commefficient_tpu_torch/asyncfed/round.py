@@ -140,8 +140,10 @@ def build_async_round_fns(cfg, loss_fn: Callable, unravel: Callable, comp,
     @torch.no_grad()
     def apply_fn(state: FedState, rows, vel_rows, err_rows, loss_rows,
                  aux_rows, client_ids, weights, wsum: float, lr: float):
-        wt = to_device(np.asarray(weights, np.float32),
-                       state.params_vec.device)[lo:lo + w_loc]
+        # the weights and their sum in one copy; the sum stays on the card
+        wts = to_device(np.append(np.asarray(weights, np.float32),
+                                  np.float32(wsum)), state.params_vec.device)
+        wt, wsum = wts[lo:lo + w_loc], wts[-1]
         on = wt > 0
         # where, not a product alone: a zero-weight slot (a dead client,
         # or the padding's repeat of a consumed slot) adds exactly 0.0

@@ -83,10 +83,15 @@ class FedAvgCompressor(_DenseServerMixin, Compressor):
         """The local lr as an f32 scalar on ``device`` (so the delta's
         division is a true division, as the reference's is); at ``lr ==
         0`` (the schedule's last round) it is clamped to 1e-12, so the
-        delta is 0, not 0/0."""
+        delta is 0, not 0/0. A 0-d tensor ``lr`` (a captured round's)
+        stays on the device: no host value is copied in."""
         cfg = self.cfg
-        llr = torch.tensor(cfg.local_lr if cfg.local_lr is not None else lr,
-                           dtype=torch.float32, device=device)
+        if torch.is_tensor(lr):
+            llr = (lr.to(torch.float32) if cfg.local_lr is None else
+                   torch.full_like(lr, cfg.local_lr, dtype=torch.float32))
+        else:
+            llr = torch.tensor(cfg.local_lr if cfg.local_lr is not None
+                               else lr, dtype=torch.float32, device=device)
         return torch.clamp(llr, min=1e-12) if cfg.local_lr is None else llr
 
     def client_noise(self, draw, key, batches):

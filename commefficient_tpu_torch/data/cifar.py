@@ -187,13 +187,19 @@ def load_fed_cifar100(dataset_dir: str, *, num_clients: int,
 def normalizer(mean: np.ndarray, std: np.ndarray):
     """Input prep for ``classification_loss``: uint8 [B,H,W,C] ->
     normalized float32 on the batch's own device; float inputs pass
-    through (the reference's ``device_normalizer``)."""
+    through (the reference's ``device_normalizer``). The mean and std
+    are copied to a device once and kept: a copy from host memory inside
+    the round would be frozen into a captured CUDA graph (the scan
+    engine's)."""
+    on_device = {}
 
     def prep(x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.uint8:
             return x
-        m = torch.as_tensor(mean, device=x.device)
-        s = torch.as_tensor(std, device=x.device)
+        if x.device not in on_device:
+            on_device[x.device] = (torch.as_tensor(mean, device=x.device),
+                                   torch.as_tensor(std, device=x.device))
+        m, s = on_device[x.device]
         return (x.to(torch.float32) / 255.0 - m) / s
 
     return prep
@@ -221,6 +227,7 @@ class CifarAugment:
         if fill_uint8 is None:
             fill_uint8 = np.round(255.0 * CIFAR10_MEAN).astype(np.uint8)
         self.fill_uint8 = np.asarray(fill_uint8, np.uint8)
+        self._device_fills = {}  # (device, dtype, c) -> the fill tensor
 
     def _fill(self, dtype, c: int) -> np.ndarray:
         if dtype == np.uint8:
@@ -271,11 +278,17 @@ class CifarAugment:
     def device_apply(self, x: torch.Tensor, *plan) -> torch.Tensor:
         """``apply`` as torch ops on ``x``'s device (the device-resident
         data path); ``plan`` is the ``AugmentPlan``'s arrays as tensors on
-        that device."""
-        return device_augment(
-            x, *plan, pad=self.pad, cut_half=self.cut_half,
-            fill=self._fill(np.dtype(str(x.dtype).split(".")[-1]),
-                            x.shape[-1]))
+        that device. The fill is copied to the device once and kept: a
+        copy from host memory inside the round would be frozen into a
+        captured CUDA graph (the scan engine's)."""
+        key = (x.device, x.dtype, x.shape[-1])
+        if key not in self._device_fills:
+            self._device_fills[key] = torch.as_tensor(self._fill(
+                np.dtype(str(x.dtype).split(".")[-1]), x.shape[-1]),
+                device=x.device).to(x.dtype)
+        return device_augment(x, *plan, pad=self.pad,
+                              cut_half=self.cut_half,
+                              fill=self._device_fills[key])
 
 
 augment_batch = CifarAugment()
@@ -287,7 +300,7 @@ def device_augment(x: torch.Tensor, ys, xs, flips, cys, cxs, *,
     image as one index gather, flip, cutout. Pure index and select ops, so
     the result is bit-equal to the numpy path on any dtype. ``x`` ``[n, h,
     w, c]``; plan tensors ``[n]``; ``fill`` the ``[c]`` cutout fill (None =
-    0)."""
+    0; an array, or a tensor on ``x``'s device)."""
     n, h, w, c = x.shape
     dev = x.device
     ar_h = torch.arange(h, device=dev)
@@ -312,7 +325,11 @@ def device_augment(x: torch.Tensor, ys, xs, flips, cys, cxs, *,
     xmask = (ar_w[None, :] >= cxs - cut_half) & (ar_w[None, :] < cxs
                                                   + cut_half)
     mask = ymask[:, :, None] & xmask[:, None, :]
-    fill_v = (torch.zeros(c, dtype=x.dtype, device=dev) if fill is None
-              else torch.as_tensor(np.broadcast_to(fill, (c,)).copy(),
-                                   device=dev).to(x.dtype))
+    if fill is None:
+        fill_v = torch.zeros(c, dtype=x.dtype, device=dev)
+    elif torch.is_tensor(fill):
+        fill_v = fill
+    else:
+        fill_v = torch.as_tensor(np.broadcast_to(fill, (c,)).copy(),
+                                 device=dev).to(x.dtype)
     return torch.where(mask[..., None], fill_v, out)

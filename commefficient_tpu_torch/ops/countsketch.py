@@ -56,7 +56,9 @@ from commefficient_tpu_torch.ops.cuda.countsketch import (
     sketch_segment as sketch_segment_kernel,
 )
 from commefficient_tpu_torch.ops.cuda.index_math import fast_divisor
+from commefficient_tpu_torch.ops import topk as _topk
 from commefficient_tpu_torch.ops.topk import (
+    topk_dense,
     topk_sparsify,
     topk_threshold_dense,
 )
@@ -663,7 +665,13 @@ def unsketch_sparse(spec: CountSketch, table: torch.Tensor, k: int):
 
 def topk_scatter(v: torch.Tensor, k: int) -> torch.Tensor:
     """The exact decode's selection: ``topk_sparsify``'s k entries of flat
-    ``v`` scattered into a dense zero vector."""
+    ``v`` scattered into a dense zero vector. While a CUDA graph is being
+    captured (the scan engine's rounds) it is ``topk_dense``, the same set
+    with shapes that do not depend on the data: ``topk_sparsify``'s
+    ``nonzero`` reads a count back to the host, which a graph cannot hold.
+    Both give the same dense vector bit for bit."""
+    if _topk.graph_capturing(v):
+        return topk_dense(v, k)
     vals, idx = topk_sparsify(v, k)
     out = torch.zeros_like(v)
     out[idx] = vals

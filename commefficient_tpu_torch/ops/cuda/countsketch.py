@@ -9,6 +9,10 @@ output with ``torch.empty``, and then:
 
 ``launches`` on each wrapper counts kernel launches (never plain-version
 calls), so a run can show that its main path went through the kernels.
+A launch made while the current stream is captured into a CUDA graph (the
+scan engine) launches nothing then: it is counted apart
+(``capture_counts``), and the graph's replays, which run no Python, are
+counted from a profiler's kernel events, never by these counters.
 
 The wrappers read the spec through its methods (``kernel_row_params``,
 ``csr_tables``, ``scrambled_cols_signs``, ``scrambled_pos``,
@@ -80,9 +84,17 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+# {wrapper: {form: n}}: the launches recorded into CUDA graphs
+_CAPTURED: dict = {}
+
+
 def _count(wrapper, form: str) -> None:
-    """One launch of ``wrapper``'s kernel in ``form`` (its type
-    variant)."""
+    """One launch of ``wrapper``'s kernel in ``form`` (its type variant);
+    under a graph capture, one kernel recorded into the graph."""
+    if torch._C._cuda_isCurrentStreamCapturing():
+        c = _CAPTURED.setdefault(wrapper.__name__, {})
+        c[form] = c.get(form, 0) + 1
+        return
     wrapper.launches += 1
     wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
 
@@ -694,10 +706,32 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.forms = {}
+    _CAPTURED.clear()
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def launches_since(before: dict, counts=None) -> dict:
+    """``{wrapper: {form: n}}`` counted since ``before`` (``form_counts()``
+    taken earlier; with ``counts=capture_counts`` the kernels captured
+    since a ``capture_counts()``), nonzero entries only."""
+    now = (counts or form_counts)()
+    out = {}
+    for name, forms in now.items():
+        was = before.get(name, {})
+        d = {f: n - was.get(f, 0) for f, n in forms.items()
+             if n != was.get(f, 0)}
+        if d:
+            out[name] = d
+    return out
+
+
+def capture_counts() -> dict:
+    """``{wrapper: {form: n}}`` of the kernels recorded into CUDA graphs
+    since the last reset (each runs once a replay of its graph)."""
+    return {name: dict(forms) for name, forms in _CAPTURED.items()}
 
 
 def form_counts() -> dict:

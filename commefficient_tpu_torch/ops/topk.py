@@ -29,8 +29,20 @@ import torch
 THRESHOLD_ITERS = 32  # the reference's bisection steps
 
 
+def graph_capturing(t: torch.Tensor) -> bool:
+    """True while a CUDA graph is being captured on ``t``'s stream (the
+    scan engine's rounds): the selections then take their forms whose
+    shapes do not depend on the data."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def topk_sparsify(v: torch.Tensor, k: int):
-    """(values [k], indices [k]) of the k largest-|.| entries of flat v."""
+    """(values [k], indices [k]) of the k largest-|.| entries of flat v.
+    While a CUDA graph is being captured it is ``topk_static``: the
+    ``nonzero`` here reads a count back to the host, which a graph cannot
+    hold."""
+    if graph_capturing(v):
+        return topk_static(v, k)
     mag = torch.abs(v)
     t = torch.topk(mag, k, sorted=False).values.min()
     above = torch.nonzero(mag > t).squeeze(1)
@@ -69,14 +81,45 @@ def topk_dense(v: torch.Tensor, k: int) -> torch.Tensor:
     count(|v| > t)`` by index (a running count of the ties). No shape
     depends on the data, so it runs under ``torch.func.vmap`` (local_topk's
     batched clients)."""
-    mag = torch.abs(v)
+    keep = _topk_keep(torch.abs(v), k)
+    return torch.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                            device=v.device))
+
+
+def _topk_keep(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """``topk_dense``'s mask over the last dimension of ``mag = |v|``."""
     t = torch.topk(mag, k, dim=-1, sorted=False).values.amin(-1, keepdim=True)
     above = mag > t
     ties = mag == t
     room = k - torch.sum(above, dim=-1, keepdim=True)
-    keep = above | (ties & (_inclusive_count(ties) <= room))
-    return torch.where(keep, v, torch.zeros((), dtype=v.dtype,
-                                            device=v.device))
+    return above | (ties & (_inclusive_count(ties) <= room))
+
+
+def topk_static(v: torch.Tensor, k: int):
+    """``topk_sparsify`` of flat ``v`` with shapes that do not depend on
+    the data (what a captured CUDA graph can hold): ``topk_dense``'s set,
+    compacted in position order by a cumsum and ``searchsorted`` (as
+    ``compact_nonzero``), then ordered by descending magnitude, lower
+    index first (a stable sort of positions that ascend), which is
+    ``topk_sparsify``'s order: its entries above the k-th magnitude come
+    before its ties, and each group ascends. With a NaN among the k
+    ``topk_sparsify`` keeps nothing and this gives k pads ``(0, 0.0)``;
+    scattered into a zero vector both are the zero vector."""
+    n = v.shape[0]
+    mag = torch.abs(v)
+    keep = _topk_keep(mag, k)
+    csum = torch.cumsum(keep.to(torch.int64), 0)
+    slots = torch.arange(1, k + 1, dtype=torch.int64, device=v.device)
+    idx = torch.clamp(torch.searchsorted(csum, slots, side="left"),
+                      max=n - 1)
+    valid = slots <= csum[-1]
+    idx = torch.where(valid, idx, 0)
+    order = torch.sort(torch.where(valid, mag[idx], -1.0), descending=True,
+                       stable=True).indices
+    idx = idx[order]
+    vals = torch.where(valid[order], v[idx],
+                       torch.zeros((), dtype=v.dtype, device=v.device))
+    return vals, idx
 
 
 def _threshold_select(v: torch.Tensor, k: int, count, hi0: torch.Tensor,

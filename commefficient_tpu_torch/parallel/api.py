@@ -67,6 +67,7 @@ from commefficient_tpu_torch.parallel.round import (
     padded_dim,
     resolve_aggregation,
 )
+from commefficient_tpu_torch.telemetry.capture import RetraceSentinel
 from commefficient_tpu_torch.telemetry.round_audit import (
     exposed_collective_ms,
     ledger_tolerance,
@@ -388,6 +389,12 @@ class FederatedSession:
         # asyncfed/'s (launch_fn, apply_fn) a rung, built on first use
         # (async_round_fns) or by prewarm_rungs
         self._async_fns: Dict[int, tuple] = {}
+        # the retrace sentinel (telemetry/capture.py): the scan engine
+        # notes each CUDA-graph capture of a block program in it, a second
+        # capture of one program is a retrace, and cfg.max_retraces makes
+        # going over the budget a RetraceError; xla/retraces rides every
+        # round's metrics at level >= 1 (0.0 on the per-round path)
+        self.retrace_sentinel = RetraceSentinel(cfg.max_retraces)
 
     # -- clientstore/'s banks (the checkpoint's and the vault's access) ------
     @property
@@ -1152,21 +1159,55 @@ class FederatedSession:
                 self.state.step)):
             self._consume(ready, [client_ids, idx, *plan])
             ids = self._device_ids(client_ids)
-            w_loc = w // self.group.size
-            lo = self.group.rank * w_loc
-            idx = _as_device(idx, self.device)[lo:lo + w_loc]
-            B = idx.shape[1]
-            flat = idx.reshape(-1).to(torch.int64)
-            batch = {}
-            for k, v in self.dev_data.items():
-                g = v[flat]
-                if k == "x" and self.dev_augment is not None:
-                    g = self.dev_augment.device_apply(g, *(
-                        _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
-                        for a in plan))
-                batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
-        return self._round(ids, microbatched(self.cfg, batch), lr, env,
-                           host_ids)
+            batch = self._index_batch(idx, plan, w)
+        return self._round(ids, batch, lr, env, host_ids)
+
+    def _index_batch(self, idx, plan, w: int) -> Dict[str, torch.Tensor]:
+        """This rank's device batch of an index round at width ``w``: its
+        clients' rows of the attached training set gathered in one flat
+        gather, the augment plan's rows applied (``device_apply``), shaped
+        ``[w_loc, B, ...]`` (fedavg: ``[w_loc, L, B/L, ...]``). ``idx``
+        and ``plan`` are host arrays or device tensors."""
+        w_loc = w // self.group.size
+        lo = self.group.rank * w_loc
+        idx = _as_device(idx, self.device)[lo:lo + w_loc]
+        B = idx.shape[1]
+        flat = idx.reshape(-1).to(torch.int64)
+        batch = {}
+        for k, v in self.dev_data.items():
+            g = v[flat]
+            if k == "x" and self.dev_augment is not None:
+                g = self.dev_augment.device_apply(g, *(
+                    _as_device(a, self.device)[lo * B:(lo + w_loc) * B]
+                    for a in plan))
+            batch[k] = g.reshape((w_loc, B) + tuple(g.shape[1:]))
+        return microbatched(self.cfg, batch)
+
+    def raw_round_idx_fn(self):
+        """The index round as a closure whose every input is a device
+        tensor (the reference's ``raw_round_idx_fn``): ``raw(state, cids,
+        idx, plan, lr, env=None, noise=None) -> (new_state, metrics)``,
+        ``cids`` the ``[W]`` int64 ids, ``idx`` the ``[W, B]`` indices,
+        ``plan`` the augment plan's ``[W*B]`` arrays, ``lr`` a 0-d f32
+        tensor, ``env`` a ``parallel.round.DeviceEnv`` under fedsim and
+        ``noise`` this
+        rank's DP draws (``client_noise``'s, made before the round). It
+        reads nothing from the host and no shape depends on the data, so
+        the scan engine captures blocks of it into a CUDA graph; it runs
+        the active rung's round at the base width (the scan engine refuses
+        a ladder and the elastic fleet) and moves no host counter: the
+        caller advances ``state.step`` and the replay horizon."""
+        if self.dev_data is None:
+            raise ValueError("raw_round_idx_fn needs the training set on "
+                             "the device: call attach_data first")
+        round_fn = self.round_fn
+        W = self.cfg.num_workers
+
+        def raw(state, cids, idx, plan, lr, env=None, noise=None):
+            return round_fn(state, cids, self._index_batch(idx, plan, W), lr,
+                            env=env, noise=noise)
+
+        return raw
 
     @staticmethod
     def _fleet_slice(client_ids, w: int):
@@ -1268,7 +1309,8 @@ class FederatedSession:
         same keys every round: ``fs_stats`` (the environment's
         ``fedsim/*``; under asyncfed also the update's ``async/*``), the
         controller's ``control/*``, the resilience rider's, a hosted
-        store's ``clientstore/*`` and, with spans at level >= 1,
+        store's ``clientstore/*``, at level >= 1 the retrace sentinel's
+        ``xla/retraces`` and, with spans at level >= 1,
         ``xla/exposed_collective_ms`` and the lagged ``trace/*``. Beside an
         elastic fleet's ``fleet/width`` goes ``fleet/shrink_recoveries``."""
         if fs_stats:
@@ -1279,6 +1321,9 @@ class FederatedSession:
                 # from the schedule, so a replay gives them again
                 metrics["fleet/shrink_recoveries"] = float(
                     self._fleet_shrink_recoveries)
+        if self.cfg.telemetry_level >= 1:
+            metrics = {**metrics, "xla/retraces":
+                       float(self.retrace_sentinel.retraces)}
         if self.controller is not None:
             metrics = {**metrics, **self.controller.scalars()}
         if self.resilience is not None:

@@ -51,6 +51,7 @@ from commefficient_tpu_torch.parallel.round import (
     FedState,
     batched_client_transmits,
     client_inputs,
+    device_env,
     fused_grad_sum,
     live_scale,
     make_grad_one,
@@ -190,6 +191,7 @@ def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
                 "passed: supply the round's fedsim.RoundEnv "
                 "(FederatedSession.train_round does this)")
         mark(0)
+        env = device_env(env, state.params_vec.device) if fedsim else None
         full = group.all_gather(state.params_vec)[:d]
         if fused:
             local, loss_sum, aux = fused_grad_sum(grad_flat, full, batch)
@@ -205,19 +207,22 @@ def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
         sums = group.all_reduce_sum(torch.stack([loss_sum]
                                                 + [aux[k] for k in keys]))
         loss, aux = sums[0] / W, dict(zip(keys, sums[1:]))
-        count = float(env.live_count) if fedsim else None
         if fedsim:
             # the live-count renormalization before the sums over W inside
             # fsdp_update: every encode is linear, so it commutes
-            scale = live_scale(W, count)
+            scale = live_scale(W, env.count)
             local, loss = local * scale, loss * scale
         mark(2)
         new_p, new_m, new_e, agg = comp.fsdp_update(
             state.params_vec, state.momentum, state.error, local, lr,
             group=group, W=W, d=d, dp=dp, S=S)
-        if fedsim and count <= 0:  # nothing arrived: nothing moves
-            new_p, new_m, new_e = state.params_vec, state.momentum, \
-                state.error
+        if fedsim:  # nothing arrived: nothing moves
+            alive = env.count > 0
+            new_p, new_m, new_e = (
+                torch.where(alive, new, old) if torch.is_tensor(new) else new
+                for new, old in ((new_p, state.params_vec),
+                                 (new_m, state.momentum),
+                                 (new_e, state.error)))
         mark(3)
         metrics = {"loss": loss, **aux}
         if telemetry:

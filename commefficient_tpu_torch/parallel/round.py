@@ -184,6 +184,36 @@ def init_state(cfg, comp, params_vec: torch.Tensor) -> FedState:
                     0, extra)
 
 
+class DeviceEnv(NamedTuple):
+    """A round's fedsim environment as device tensors, the one form the
+    round computes with: ``live`` and ``corrupt`` the ``[W]`` f32 masks,
+    ``count`` the 0-d f32 live count. A host ``fedsim.RoundEnv`` becomes
+    one where it enters the round (``device_env``); the scan engine's
+    captured rounds (``pipeline/scan_engine.py``) slice theirs from the
+    epoch's staged arrays, so no host value is frozen into a graph."""
+
+    live: torch.Tensor
+    corrupt: torch.Tensor
+    count: torch.Tensor
+
+
+def device_env(env, device) -> Optional[DeviceEnv]:
+    """``env`` as a ``DeviceEnv`` on ``device``: a host ``RoundEnv``'s
+    masks and live count in one copy; a ``DeviceEnv`` or None as given."""
+    if env is None or isinstance(env, DeviceEnv):
+        return env
+    W = len(env.live)
+    buf = torch.from_numpy(np.concatenate([
+        np.asarray(env.live, np.float32), np.asarray(env.corrupt, np.float32),
+        np.asarray([env.live_count], np.float32)]))
+    if torch.device(device).type == "cuda":
+        # pinned, so the copy does not wait for the stream's queued work
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    else:
+        buf = buf.to(device)
+    return DeviceEnv(buf[:W], buf[W:2 * W], buf[2 * W])
+
+
 DP_STREAM = 0xD9  # the DP draws' stream tag in dp_seed
 
 
@@ -536,7 +566,7 @@ def batched_client_transmits(per_client, params_vec, batch, vel_rows,
 
 def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
                   env=None, lo: int = 0, rows=None,
-                  key_step: Optional[int] = None):
+                  key_step: Optional[int] = None, noise=None):
     """The client step's arguments after ``per_client``, for this rank's
     clients ``[lo, lo + w)`` of ``batch`` ({k: [w, ...]}): ``(params_vec,
     batch, vel_rows, err_rows, lr, noise, live, corrupt)``. ``rows`` is
@@ -546,9 +576,11 @@ def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
     ids). The DP draws are keyed ``(key_step, client id)`` (by slot when
     no ids are given; ``key_step`` is ``state.step`` unless given: a
     buffered-async launch passes its launch version) and made here
-    (``client_noise``); ``live``/``corrupt`` are the rank's slice of
-    ``env``'s masks (fedsim); ``lr`` is ``comp.client_lr``'s. Absent parts
-    are ``None``."""
+    (``client_noise``) unless ``noise``, the draws made before the round
+    (the scan engine's), is given; ``live``/``corrupt`` are the rank's
+    slice of ``env``'s masks (fedsim: a ``DeviceEnv``, or a ``RoundEnv``
+    made one by ``device_env``); ``lr`` is ``comp.client_lr``'s. Absent
+    parts are ``None``."""
     dev = state.params_vec.device
     w = next(iter(batch.values())).shape[0]
     if rows is None:
@@ -556,18 +588,24 @@ def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
         mine = (client_ids[lo:lo + w] if any(b is not None for b in banks)
                 else None)
         rows = [None if b is None else b[mine] for b in banks]
-    keys = None
-    if cfg.dp_noise_multiplier > 0:
+    if noise is None and cfg.dp_noise_multiplier > 0:
         ids = (range(cfg.num_workers) if client_ids is None
                else client_ids.tolist())
         step = state.step if key_step is None else int(key_step)
-        keys = [(step, int(ids[lo + i])) for i in range(w)]
+        noise = client_noise(cfg, comp,
+                             dp_keys(step, ids, lo, w), batch, comp.d, dev)
     masks = (None, None)
     if env is not None:
-        masks = [torch.from_numpy(np.asarray(m, np.float32)[lo:lo + w]).to(
-            dev) for m in (env.live, env.corrupt)]
-    return (state.params_vec, batch, *rows, comp.client_lr(lr, dev),
-            client_noise(cfg, comp, keys, batch, comp.d, dev), *masks)
+        env = device_env(env, dev)
+        masks = (env.live[lo:lo + w], env.corrupt[lo:lo + w])
+    return (state.params_vec, batch, *rows, comp.client_lr(lr, dev), noise,
+            *masks)
+
+
+def dp_keys(step: int, ids, lo: int, w: int):
+    """The DP keys ``(step, client id)`` of a rank's clients ``[lo, lo +
+    w)`` of a round's ``[W]`` ids (host ints)."""
+    return [(int(step), int(ids[lo + i])) for i in range(w)]
 
 
 def make_aggregate_tail(cfg, comp, plan: AggregationPlan, group, d: int):
@@ -612,14 +650,40 @@ def make_aggregate_tail(cfg, comp, plan: AggregationPlan, group, d: int):
     return aggregate_tail
 
 
-def live_scale(W: int, count: float) -> float:
-    """``W / max(count, 1)`` in f32, the reference's live-count
-    renormalization (the f32 division, then the product in f32)."""
-    return float(np.float32(W) / max(np.float32(count), np.float32(1.0)))
+def live_scale(W: int, count: torch.Tensor) -> torch.Tensor:
+    """``W / max(count, 1)`` in f32 for a 0-d f32 ``count``, the
+    reference's live-count renormalization (the f32 division, then the
+    product in f32), as a 0-d tensor: a tensor divided by a tensor, never
+    by a Python scalar, which on the card is a product with its
+    reciprocal and not the same bits."""
+    return (torch.full((), W, dtype=torch.float32, device=count.device)
+            / torch.clamp(count.to(torch.float32), min=1.0))
+
+
+def hold_if_empty(alive: torch.Tensor, update, state: FedState, new_m,
+                  new_e, new_c):
+    """The empty-round rule: where ``alive`` (a 0-d bool tensor) is False
+    the update is zeroed and the server leaves keep their values, by
+    ``torch.where`` (no branch on the host, so a captured round holds
+    it); where True every value passes through bit for bit."""
+
+    def hold(new, old):
+        if not torch.is_tensor(new):
+            return new
+        return torch.where(alive, new, old)
+
+    kind, u = update
+    if kind == "dense":
+        update = (kind, torch.where(alive, u, torch.zeros_like(u)))
+    else:
+        update = (kind, (u[0], torch.where(alive, u[1],
+                                           torch.zeros_like(u[1]))))
+    return (update, hold(new_m, state.momentum), hold(new_e, state.error),
+            hold(new_c, state.comp))
 
 
 def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
-                 agg, lr: float, count: Optional[float] = None):
+                 agg, lr: float, count: Optional[torch.Tensor] = None):
     """The server half of a round: the compressor's momentum/error algebra
     and extraction (the dense decode, the sharded decode, or under
     ``sparse_state`` the sliced ``server_update_sparse``), then, for the
@@ -629,12 +693,13 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
     aggregate the server step consumed (scaled under fedsim), which the
     diagnostics read.
 
-    ``count`` (fedsim: the live clients of the whole round, a host float)
-    scales ``agg`` by ``live_scale(W, count)`` first (``agg`` in f32, as
-    the reference's product promotes a bf16 table) — every encode is
-    linear, so a masked round equals the round over its live cohort — and
-    with ``count == 0`` zeroes the update and keeps momentum, error and
-    ``comp`` as they were."""
+    ``count`` (fedsim: the live clients of the whole round, a
+    ``DeviceEnv``'s 0-d f32 tensor) scales ``agg`` by ``live_scale(W,
+    count)`` first (``agg`` in f32, as the reference's product promotes a
+    bf16 table) — every encode is linear, so a masked round equals the
+    round over its live cohort — and with ``count == 0`` zeroes the update
+    and keeps momentum, error and ``comp`` as they were
+    (``hold_if_empty``)."""
     if count is not None:
         agg = agg.to(torch.float32) * live_scale(cfg.num_workers, count)
     if plan.sparse_apply:
@@ -650,11 +715,9 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
         if cfg.do_topk_down and comp.dense_delta:
             delta = comp.topk(delta, cfg.k)
         update = ("dense", delta)
-    if count is not None and count <= 0:  # nothing arrived: nothing moves
-        kind, u = update
-        update = ((kind, torch.zeros_like(u)) if kind == "dense"
-                  else (kind, (u[0], torch.zeros_like(u[1]))))
-        new_m, new_e, new_c = state.momentum, state.error, state.comp
+    if count is not None:  # nothing arrived: nothing moves
+        update, new_m, new_e, new_c = hold_if_empty(
+            count > 0, update, state, new_m, new_e, new_c)
     return update, new_m, new_e, new_c, agg
 
 
@@ -727,7 +790,11 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     may be ``None``), ``batch`` holds this rank's clients. ``env`` is the round's
     ``fedsim.RoundEnv`` (required when ``cfg.fedsim_enabled``, else
     unused): its ``[W]`` masks, of which each rank applies its slice, and the
-    round's global live count. ``mark(i)``, when given, is called as phase
+    round's global live count; a ``DeviceEnv`` holds the same as device
+    tensors. ``lr`` is a float or a 0-d f32 tensor, and ``noise`` the
+    rank's DP draws made before the round (``client_noise``'s; None draws
+    them here): the scan engine's captured rounds pass tensors, so no
+    host value is frozen into a graph. ``mark(i)``, when given, is called as phase
     ``i`` begins (0: the client gradients and transmits, 1: the encode and
     aggregate, 2: the server, 3: the apply, the banks' write-back and, at
     ``telemetry_level >= 1``, the ``diag/*`` scalars) and at the end
@@ -759,7 +826,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float, *rows,
-                 mark=None, env=None):
+                 mark=None, env=None, noise=None):
         mark = mark or (lambda i: None)
         if fedsim and env is None:
             raise ValueError(
@@ -772,6 +839,8 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
                 f"round_fn takes {want} after lr (client_store="
                 f"{cfg.client_store!r}), got {len(rows)} positional extras")
         mark(0)
+        # a host RoundEnv's masks and count go to the card in one copy
+        env = device_env(env, state.params_vec.device) if fedsim else None
         banks = (state.client_vel, state.client_err)
         stateful = hosted or any(b is not None for b in banks)
         if stateful and client_ids is None:
@@ -808,12 +877,13 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             local, loss_sum, aux, new_vel, new_err = batched_client_transmits(
                 per_client, *client_inputs(cfg, comp, state, client_ids,
                                            batch, lr, env if fedsim else None,
-                                           lo, rows=rows or None))
+                                           lo, rows=rows or None,
+                                           noise=noise))
         mark(1)
         if not sketch_fused:
             encoded = comp.device_encode(local)
         agg, loss, aux = aggregate_tail(encoded, loss_sum, aux, w_loc)
-        count = float(env.live_count) if fedsim else None
+        count = env.count if fedsim else None
         if fedsim:  # the mean over the LIVE clients
             loss = loss * live_scale(W, count)
         mark(2)

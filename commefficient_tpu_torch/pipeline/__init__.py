@@ -18,8 +18,10 @@ rung switches reach the engine through its switch listener (a counted
 quiesce; the staged inputs do not depend on the rung). A hosted client
 store's cohort rows are staged by the prefetch worker too
 (``clientstore/``). ``cohorts``: ``CohortScheduler``, the prefetcher
-realizing cohorts for the buffered-async engine (asyncfed/). Not ported
-here (ROADMAP A11 and A12): ``scan_engine.py``. At telemetry
+realizing cohorts for the buffered-async engine (asyncfed/).
+``scan_engine``: ``ScanRounds``, the runner's round source at
+``scan_rounds > 1``: blocks of up to K rounds, each one replay of a CUDA
+graph captured from the session's index round. At telemetry
 level >= 1 the worker records its spans on its own lane and each round's
 metrics carry the ``pipeline/*`` scalars.
 """
@@ -31,6 +33,7 @@ from commefficient_tpu_torch.pipeline.prefetch import (
     RoundPrefetcher,
     RoundWork,
 )
+from commefficient_tpu_torch.pipeline.scan_engine import ScanRounds
 
-__all__ = ["CohortScheduler", "PipelinedRounds", "PrefetchWorkerDied", "RoundPrefetcher",
-           "RoundWork"]
+__all__ = ["CohortScheduler", "PipelinedRounds", "PrefetchWorkerDied",
+           "RoundPrefetcher", "RoundWork", "ScanRounds"]

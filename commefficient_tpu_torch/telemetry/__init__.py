@@ -43,13 +43,21 @@ Levels (``--telemetry_level``):
      update, ``sketch_sparse`` through K1, ``estimate_at`` through K4's
      index form) and powersgd's reconstruction residual.
 
-Not ported: the retrace sentinel (``max_retraces``): the port compiles no
-round, so there is nothing to retrace; its counterpart is a re-capture of
-a CUDA-graph round (ROADMAP A11).
+And the retrace sentinel (``capture``): the port's counterpart of a
+retrace is a re-capture of a CUDA-graph block of rounds under the scan
+engine (``--scan_rounds K > 1``); ``RetraceSentinel`` counts them a
+program name, ``--max_retraces`` makes going over a budget a
+``RetraceError`` naming the signature diff, and ``xla/retraces`` rides
+every round's metrics at level >= 1 (0.0 on the per-round path, which
+captures nothing).
 """
 
 import os
 
+from commefficient_tpu_torch.telemetry.capture import (
+    RetraceError,
+    RetraceSentinel,
+)
 from commefficient_tpu_torch.telemetry.diagnostics import (
     nonfinite_sentinel,
     round_diagnostics,
@@ -181,6 +189,8 @@ __all__ = [
     "FlightRecorder",
     "PhaseSpans",
     "ProfilerStack",
+    "RetraceError",
+    "RetraceSentinel",
     "ProfilerWindow",
     "RoundAudit",
     "RoundAuditArm",

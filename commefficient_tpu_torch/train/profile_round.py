@@ -30,6 +30,12 @@ phase by phase with CUDA events (``build_round_fn``'s ``mark``):
 * ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter,
   and the client banks' write-back.
 
+On the device-resident training set the ``[scan x10]`` line times ten
+rounds dispatched one by one against ten as one replay of the scan
+engine's CUDA graph (``scan_line``): the dispatch overhead a replay
+amortizes, in ms a round. A session the engine does not take is named
+and skipped (``scan_skip_reason``); a capture that fails raises.
+
 The phase of a mode's own work is also broken down by step, each step
 timed alone (CUDA events around one call, median of 5; host launch gaps
 count) on the state after the timed rounds:
@@ -361,6 +367,70 @@ def round_busy_share(session, sampler, step: int, lr: float, warm: int = 2,
             "device_ms_by_name": by_name}
 
 
+SCAN_N = 10  # the [scan xN] line's block length
+
+
+def scan_skip_reason(session):
+    """Why the scan engine does not take ``session`` (the ``[scan xN]``
+    line is skipped, naming it), or None: the line then runs, and a
+    capture that fails raises."""
+    cfg = session.cfg
+    if session.data_path != "device":
+        return (f"the training set is not on the device (data path "
+                f"{session.data_path!r}): the scan engine runs the index "
+                f"round")
+    if session.controller is not None:
+        return "a control plane acts between rounds, which a block cannot"
+    if cfg.mode == "powersgd" and not cfg.powersgd_warm_start:
+        return "powersgd without the warm start draws Q on the host a round"
+    return None
+
+
+def scan_line(session, sampler, n: int, lr: float) -> dict:
+    """The reference's ``[scan xN]`` line for the port: ``n`` rounds
+    dispatched one by one through ``train_round_indices`` (their index
+    draws made before the timing), then ``n`` rounds as ONE replay of the
+    scan engine's ``n``-round CUDA graph (``pipeline/scan_engine.py``; its
+    epoch's staging inside the timing, the graph captured in an earlier
+    replay), each between two device synchronizes: ``{"loop_ms",
+    "scan_ms"}`` a round; their difference is the dispatch overhead the
+    replay amortizes. Needs the device-resident training set; advances the
+    session's state."""
+    from commefficient_tpu_torch.pipeline import ScanRounds
+
+    if session.data_path != "device":
+        raise ValueError("the scan engine needs the device-resident "
+                         "training set (--device_data true within "
+                         "--device_data_max_mb)")
+    cfg = session.cfg.replace(scan_rounds=n, pipeline_depth=0)
+    s0 = int(session.state.step)
+    draws = [sampler.sample_round_indices(s0 + i) for i in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, idx, plan in draws:
+        session.train_round_indices(ids, idx, plan, lr)
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / n
+    e = -(-(s0 + n) // n)  # the first epoch of n rounds after the loop
+    eng = ScanRounds(cfg, session, sampler, lambda s: lr, (e + 2) * n,
+                     steps_per_epoch=n)
+
+    def epoch(i, start):
+        for _ in eng.epoch_rounds(i, start, (i + 1) * n):
+            pass
+
+    if s0 + n < e * n:  # up to the epoch edge, then a capture
+        epoch(e - 1, s0 + n)
+    epoch(e, e * n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch(e + 1, (e + 1) * n)
+    torch.cuda.synchronize()
+    return {"loop_ms": loop_ms,
+            "scan_ms": 1e3 * (time.perf_counter() - t0) / n,
+            "engine": eng.stats()}
+
+
 def main(argv=None):
     # no abbreviations: "--mode" would be taken for "--model"
     ap = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -455,6 +525,19 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats()
         busy = round_busy_share(session, sampler, 99, lr)
         peak = torch.cuda.max_memory_allocated()
+        scan = None
+        skip = scan_skip_reason(session)
+        if skip is not None:
+            print(f"[scan x{SCAN_N}] skipped: {skip}", flush=True)
+        else:
+            scan = scan_line(session, sampler, SCAN_N, lr)
+            tag = cfg.mode + (f"+telemetry_l{cfg.telemetry_level}"
+                              if cfg.telemetry_level else "")
+            print(f"[scan x{SCAN_N}] full round [{tag}]: "
+                  f"{scan['scan_ms']:.2f} ms (per-round dispatch "
+                  f"{scan['loop_ms']:.2f} ms; dispatch overhead amortized: "
+                  f"{scan['loop_ms'] - scan['scan_ms']:+.2f} ms/round)",
+                  flush=True)
     by_name = busy.pop("device_ms_by_name")
     by_kind = {}
     for name, ms in by_name.items():
@@ -470,7 +553,7 @@ def main(argv=None):
                "phase_ms": phase_ms, "grads_steps_ms": grads_steps,
                "server_steps_ms": server_steps,
                "bytes_per_round": session.bytes_per_round(),
-               **busy, "device_ms_by_kind": by_kind,
+               **busy, "device_ms_by_kind": by_kind, "scan": scan,
                "card": torch.cuda.get_device_name(0)}
     print(json.dumps(summary))
     return summary

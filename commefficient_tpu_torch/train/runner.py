@@ -195,12 +195,18 @@ def round_source(cfg, session, sampler, lr_fn, start: int, stop: int):
     """Rounds ``[start, stop)`` as ``run_train_loop`` runs them at
     ``cfg.pipeline_depth`` (depth 0: ``_sync_epoch_rounds``, epoch by
     epoch; depth > 0: a ``PipelinedRounds`` engine over the range, closed
-    at the end), with no metric read back: what ``profile_round`` times
+    at the end; ``scan_rounds > 1``: a ``ScanRounds`` engine), with no
+    metric read back: what ``profile_round`` times
     (which refuses the buffered-async engine). Yields ``(step, lr,
     metrics, wait_ms, t_dispatch)``."""
     spe = sampler.steps_per_epoch()
     engine = None
-    if cfg.pipeline_enabled:
+    if cfg.scan_rounds > 1:
+        from commefficient_tpu_torch.pipeline import ScanRounds
+
+        engine = ScanRounds(cfg, session, sampler, lr_fn, stop,
+                            steps_per_epoch=spe).start(start)
+    elif cfg.pipeline_enabled:
         from commefficient_tpu_torch.pipeline import PipelinedRounds
 
         engine = PipelinedRounds(cfg, session, sampler, lr_fn, stop,
@@ -319,7 +325,21 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     print(f"resumed from checkpoint at round {start}")
         last = (min(num_rounds, cfg.max_rounds) if cfg.max_rounds
                 else num_rounds)
-        if cfg.pipeline_enabled and start < last:
+        if cfg.scan_rounds > 1 and start < last:
+            from commefficient_tpu_torch.pipeline import ScanRounds
+
+            # K rounds a CUDA-graph replay on the index path (Config
+            # refused what a block cannot honour); built after the restore
+            # too: its staging is a pure function of the round index
+            engine = ScanRounds(cfg, session, sampler, lr_fn, last,
+                                steps_per_epoch=steps_per_epoch,
+                                spans=spans).start(start)
+            if main:
+                print(f"scan engine: up to {cfg.scan_rounds} rounds/"
+                      "dispatch (one CUDA-graph replay a block on the "
+                      "card; pinned equal to per-round dispatch on params "
+                      "and drained scalars)")
+        elif cfg.pipeline_enabled and start < last:
             from commefficient_tpu_torch.pipeline import PipelinedRounds
 
             # built after the restore: its window starts at the resumed

@@ -57,13 +57,9 @@ RECOVER_POLICIES = ("none", "retry", "demote", "skip_clients")
 _UNPORTED = {
     "model_axis": "tensor parallelism (ROADMAP A17)",
     "seq_axis": "sequence parallelism (ROADMAP A17)",
-    "num_hosts": "multihost/ (ROADMAP A11)",
-    "distributed": "multihost/ (ROADMAP A11)",
-    "distributed_connect_retries": "multihost/ (ROADMAP A11)",
-    "max_retraces": "the round's CUDA-graph capture (ROADMAP A11, "
-                    "scan_engine): the port compiles no round, so nothing "
-                    "retraces",
-    "scan_rounds": "the scan round engine (ROADMAP A11)",
+    "num_hosts": "multihost/ (ROADMAP A11, item A.1.5)",
+    "distributed": "multihost/ (ROADMAP A11, item A.1.5)",
+    "distributed_connect_retries": "multihost/ (ROADMAP A11, item A.1.5)",
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -323,14 +319,18 @@ class Config:
     # exit 75) at the next round boundary; chaos "preempt@R" is its twin
     preempt_signals: bool = False
 
+    # --- the scan engine (pipeline/scan_engine.py): K > 1 rounds a CUDA
+    # graph replay on the device-resident index path (0/1 = per-round
+    # dispatch); max_retraces caps the re-captures (None: count only) ---
+    max_retraces: Optional[int] = None
+    scan_rounds: int = 0
+
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     model_axis: int = 1
     seq_axis: int = 1
     num_hosts: int = 1
     distributed: bool = False
     distributed_connect_retries: int = 3
-    max_retraces: Optional[int] = None
-    scan_rounds: int = 0
 
     seed: int = 42
 
@@ -369,6 +369,11 @@ class Config:
             )
 
             parse_profile_rounds(self.profile_rounds)  # names a bad spec
+        if self.max_retraces is not None and self.max_retraces < 0:
+            raise ValueError(
+                f"max_retraces must be >= 0 (0 = fail on ANY retrace "
+                f"beyond the first compile) or None (count only), got "
+                f"{self.max_retraces}")
         if self.flight_window < 1:
             raise ValueError(
                 f"flight_window must be >= 1, got {self.flight_window}")
@@ -406,6 +411,7 @@ class Config:
         self._validate_client_store()
         self._validate_aggregate()
         self._validate_overlap_collectives()
+        self._validate_scan_rounds()
         for name in ("sketch_dtype", "sketch_table_dtype"):
             v = getattr(self, name)
             if v not in ("float32", "bfloat16"):
@@ -615,6 +621,12 @@ class Config:
                 "width W, so a mid-run resize would orphan in-flight "
                 "slots — model elastic participation there with "
                 "availability='poisson' instead")
+        if self.scan_rounds > 1:
+            raise ValueError(
+                "fleet events are incompatible with scan_rounds > 1: a "
+                "scanned block compiles ONE width for K rounds, and a "
+                "resize inside the block could not swap programs — drop "
+                "scan_rounds or the fleet events")
         if self.pipeline_depth > 0:
             raise ValueError(
                 "fleet events are incompatible with pipeline_depth > 0 "
@@ -735,11 +747,11 @@ class Config:
                 f"{self.overlap_collectives!r}")
 
     def _validate_pipeline(self) -> None:
-        """The reference's pipeline_depth checks and its exclusion of
-        scan_rounds with the control plane. They run before the refusals
-        of unported knobs, so depth or the control plane with scan_rounds
-        (still refused, naming A11) gives the reference's message. Depth
-        with fleet events is ``_validate_fleet``'s."""
+        """The reference's pipeline_depth checks and its exclusions of
+        scan_rounds with the control plane and with a depth, first, as
+        the reference checks scan_rounds before the control plane's and
+        the asyncfed flags. Depth with fleet events is
+        ``_validate_fleet``'s."""
         if self.scan_rounds > 1 and self.control_enabled:
             raise ValueError(
                 "scan_rounds > 1 is mutually exclusive with the control "
@@ -757,6 +769,37 @@ class Config:
                 "scan_rounds > 1 already stages the whole epoch's sampler "
                 "indices up front (a superset of the prefetcher's depth-K "
                 "window on the index path) — drop pipeline_depth")
+
+    def _validate_scan_rounds(self) -> None:
+        """The reference's checks of ``scan_rounds`` (its messages). The
+        scan engine replays K rounds a CUDA graph, so anything that must
+        act on the host BETWEEN two arbitrary rounds is refused here;
+        boundaries the engine honours by chopping blocks (checkpoints,
+        snapshots, epoch ends) need no check. Its refusals of the control
+        plane and of ``pipeline_depth`` are ``_validate_pipeline``'s."""
+        if self.scan_rounds < 0:
+            raise ValueError(
+                f"scan_rounds must be >= 0 (0/1 = per-round dispatch), "
+                f"got {self.scan_rounds}")
+        if self.scan_rounds <= 1:
+            return
+        if not self.device_data:
+            raise ValueError(
+                "scan_rounds > 1 runs the device-resident index round "
+                "inside lax.scan — the epoch's batches must already be "
+                "in HBM; set device_data=True (host-batch rounds would "
+                "serialize on H2D anyway)")
+        if self.client_state_hosted or self.fsdp:
+            raise ValueError(
+                "scan_rounds > 1 needs the device-resident index path, "
+                "which excludes --client_store host|mmap and fsdp "
+                "(host-resident rows cross PCIe between rounds)")
+        if self.preempt_signals or "preempt@" in self.chaos:
+            raise ValueError(
+                "scan_rounds > 1 cannot honor round-granular preemption: "
+                "the device state only exists at block boundaries, so a "
+                "mid-block preempt would checkpoint the wrong round — "
+                "disable preempt_signals / the preempt@ chaos event")
 
     def _validate_asyncfed(self) -> None:
         """The reference's checks of the buffered-asynchronous flags

@@ -25,6 +25,8 @@ rounding boundary; floor 1e-6 * max for sums that cancel); K2's and
 K4's are exact against their plain versions, as the f32 forms are.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -758,3 +760,91 @@ def test_prewarmed_ten_rung_ladder_switches_build_no_plan(dev):
     assert kern.plan_builds() == built
     n = kern.launch_counts()
     assert n["estimate_median"] == n["sketch_rows"] == 2 * 10
+
+
+def test_captured_scan_block_equals_eager_rounds_and_counts_launches(
+        dev, tmp_path):
+    """The scan engine's CUDA graph (``pipeline/scan_engine.py``): a sketch
+    session of a linear model on the device-resident index path with the
+    exact top-k at ``--scan_rounds 3``, 7 rounds (blocks 3, 3, 1: two
+    programs captured, three replays), every leaf and loss bit-equal to
+    the same 7 rounds dispatched one by one. Launches: the kernel events
+    of a ``torch.profiler`` trace that correlate with the three graph
+    launches equal the per-round path's counts (K1 twice and K2 once a
+    round); the wrappers counted only the warm-up round's eager launches
+    and recorded the captures' kernels apart; no re-capture."""
+    from commefficient_tpu_torch.data import FedDataset, FedSampler
+    from commefficient_tpu_torch.models.losses import softmax_cross_entropy
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.pipeline import ScanRounds
+    from commefficient_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    data = {"x": rng.normal(size=(512, 48)).astype(np.float32),
+            "y": rng.integers(0, 10, 512).astype(np.int32)}
+    ds = FedDataset(data, 16, iid=True, seed=0)
+
+    def loss_fn(params, batch):
+        logits = batch["x"] @ params["w"] + params["b"]
+        y = batch["y"]
+        return softmax_cross_entropy(logits, y), {
+            "count": torch.sum(y >= 0).to(torch.float32)}
+
+    params = {"w": (0.01 * rng.normal(size=(48, 10))).astype(np.float32),
+              "b": np.zeros(10, np.float32)}
+    cfg = Config(mode="sketch", error_type="virtual", virtual_momentum=0.9,
+                 k=64, num_rows=3, num_cols=256, num_clients=16,
+                 num_workers=4, local_batch_size=8, num_devices=1,
+                 device="cuda", scan_rounds=3, max_retraces=0)
+
+    def lr_fn(s):
+        return 0.1 - 0.005 * s
+
+    def session():
+        sess = FederatedSession(cfg, params, loss_fn)
+        sampler = FedSampler(ds, num_workers=4, local_batch_size=8, seed=1)
+        assert sess.maybe_attach_data(ds, sampler)
+        return sess, sampler
+
+    eager, sampler = session()
+    kern.reset_launch_counts()
+    l_eager = [float(eager.train_round_indices(
+        *sampler.sample_round_indices(r), lr_fn(r))["loss"])
+        for r in range(7)]
+    want = kern.launch_counts()
+    sess, sampler = session()
+    eng = ScanRounds(cfg, sess, sampler, lr_fn, 7, steps_per_epoch=7)
+    kern.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        l_scan = [float(m["loss"]) for _, _, m, _, _ in eng.epoch_rounds(
+            0, 0, 7)]
+        torch.cuda.synchronize()
+    got = kern.launch_counts()
+    captured = {k: sum(v.values()) for k, v in kern.capture_counts().items()}
+    st = eng.stats()
+    prof.export_chrome_trace(str(tmp_path / "scan.json"))
+    events = json.loads((tmp_path / "scan.json").read_text())["traceEvents"]
+    graph = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e.get("name", "").startswith(("cudaGraphLaunch",
+                                                "cuGraphLaunch"))}
+    replayed = {w: sum(1 for e in events if e.get("cat") == "kernel"
+                       and e["args"].get("correlation") in graph
+                       and sym in e.get("name", ""))
+                for w, sym in (("sketch_rows", "cs_sketch_"),
+                               ("estimate_median", "cs_estimate_median"))}
+    assert l_scan == l_eager
+    for leaf in ("params_vec", "momentum", "error"):
+        assert torch.equal(getattr(sess.state, leaf),
+                           getattr(eager.state, leaf)), leaf
+    assert (st["captures"], st["replays"], st["block_lengths"]) == (2, 3,
+                                                                    [1, 3])
+    warm = {k: sum(v.values()) for k, v in st["warmup_launches"].items()}
+    assert want["sketch_rows"] == 14 and want["estimate_median"] == 7
+    assert len(graph) == 3
+    assert replayed == {k: want[k] for k in replayed}
+    assert {k: n for k, n in got.items() if n} == warm
+    assert captured == {"sketch_rows": 8, "estimate_median": 4}
+    assert sess.retrace_sentinel.retraces == 0
+    torch.cuda.synchronize()

@@ -264,8 +264,8 @@ def test_config_refuses_bad_fleet_plans_as_the_reference(kw):
 
 
 def test_config_keeps_scan_rounds_refused_with_the_fleet():
-    """The reference refuses ``scan_rounds`` with fleet events; the port
-    refuses ``scan_rounds`` itself (the scan engine is not ported)."""
+    """The reference refuses ``scan_rounds`` with fleet events, and so
+    does the port (a captured block holds one width)."""
     with pytest.raises(ValueError, match="scan_rounds"):
         Config(**_FLEET_KW, chaos="resize@4:rounds=3-", scan_rounds=2)
     with pytest.raises(ValueError, match="scan_rounds"):

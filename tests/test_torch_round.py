@@ -117,9 +117,9 @@ def test_schedule_matches_reference():
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("scan_rounds", "2", "A11"),
+    ("num_hosts", "2", "A11"),
     ("model_axis", "2", "A17"),
-    ("max_retraces", "2", "A11"),
+    ("distributed_connect_retries", "5", "A11"),
 ])
 def test_config_refuses_what_the_port_does_not_run(flag, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
@@ -153,6 +153,8 @@ _EF = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
 _SA = ["--mode", "true_topk", "--telemetry_level", "1", "--control_policy",
        "staleness_aware", "--ladder", "k=10,5", "--async_buffer", "2"]
 LIFTED = {
+    "scan_rounds": ["--scan_rounds", "4"],
+    "max_retraces": ["--max_retraces", "0"],
     "topk_method": ["--topk_method", "approx"],
     "num_blocks": ["--num_blocks", "2"],
     "aggregate": ["--mode", "local_topk", "--aggregate", "sparse"],
@@ -274,7 +276,8 @@ def test_config_refuses_what_the_reference_refuses_of_aggregate(name):
 
 
 def test_every_remaining_refusal_names_its_roadmap_item():
-    assert len(_UNPORTED) == 7
+    assert sorted(_UNPORTED) == ["distributed", "distributed_connect_retries",
+                                 "model_axis", "num_hosts", "seq_axis"]
     for name, blocker in _UNPORTED.items():
         assert "ROADMAP A" in blocker, name
 

@@ -239,8 +239,11 @@ def test_level0_keys_unchanged_and_params_equal_at_every_level(rounds, case):
         if level == 0:
             assert sorted(metrics[0]) == ["correct", "count", "loss"]
         else:
+            # and the retrace sentinel's count, the reference's key at
+            # level >= 1 (0.0: the per-round path captures nothing)
             assert {k for k in metrics[0] if not k.startswith("diag/")} == {
-                "correct", "count", "loss"}
+                "correct", "count", "loss", "xla/retraces"}
+            assert metrics[0]["xla/retraces"] == 0.0
         params[level] = sess.state.params_vec.clone()
     assert torch.equal(params[0], params[1])
     assert torch.equal(params[0], params[2])

@@ -119,6 +119,9 @@ def _loop_run(rounds_, tmp_path, kw=None, name="run", rounds_n=12,
                                                 sess.state.step - 2)
             ref["xla/exposed_collective_ms"] = ref_exposed(sess.spans,
                                                            sess.last_audit)
+            # the reference's sentinel count at level >= 1: the per-round
+            # path captures nothing
+            ref["xla/retraces"] = 0.0
             captured.append(({k: v for k, v in m.items()
                               if k.startswith(("trace/", "xla/"))}, ref))
             return m
@@ -532,8 +535,9 @@ def test_config_lifts_the_reports_and_the_window_and_refuses_retraces():
                       "--profile_rounds", "3-4"])
     assert (cfg.perf_audit, cfg.run_report, cfg.profile_rounds) == (
         False, False, "3-4")
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        Config(max_retraces=2)
+    assert Config(max_retraces=2).max_retraces == 2  # the scan engine's
+    with pytest.raises(ValueError, match="max_retraces must be >= 0"):
+        Config(max_retraces=-1)
     for bad in ("3", "a-b", "4-3", "-1-2"):
         with pytest.raises(ValueError, match="profile_rounds") as port:
             Config(profile_rounds=bad)
