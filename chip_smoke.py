@@ -6,7 +6,9 @@ Run from the repository root on a machine with one card and ``nvcc``:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --round-ms N [flags]`` instead times N rounds of
-the main path with ``flags``, dispatched one by one: ``round_ms_main``.)
+the main path with ``flags``, dispatched one by one: ``round_ms_main``;
+``--multihost-rank`` is one rank of the ``multihost`` phase, which starts
+it.)
 
 It drives only ``commefficient_tpu_torch`` and imports nothing of JAX. Each
 phase prints one line (or a few) and raises on failure, so the script exits
@@ -316,12 +318,28 @@ phase prints one line (or a few) and raises on failure, so the script exits
     counters), the eager ones to the engine's one warm-up round,
     ``xla/retraces`` 0, two captures; the same for
     5 rounds under the sharded decode (K4's range form), fedsim's masks,
-    DP noise and local_topk's device banks; a ``retry`` recovery and a
+    DP noise and local_topk's device banks, and for 10 rounds of powersgd
+    rank 4 without the warm start (its fresh Qs drawn on the host and
+    staged before each replay); a ``retry`` recovery and a
     resume from round 5 bit-equal with no capture after the first of each
     length, their replays' kernel events measured the same way; round ms,
     device ms (the union of the trace's device intervals) and busy share
     at K 1, 4, 8 and widths 8 and 4, each run's peak memory,
-    FixupResNet-50 sketch at K 4 and 1.
+    FixupResNet-50 sketch at K 4 and 1;
+30. ``multihost`` (the host axis, ``multihost/``): two ranks of one gloo
+    group, two processes on the one card (``chip_smoke.py
+    --multihost-rank``, which load the library this script built), run
+    the replicated dense-decode round at full width through
+    ``cv_train.main`` with ``--num_devices 2 --telemetry_level 1`` for 5
+    rounds at ``--num_hosts 2`` and at ``--num_hosts 1``: identical losses
+    on both ranks and across the twins, every FedState leaf of the 2-host
+    run equal to the 1-host run's on each rank, K1, K2 and K3 launched
+    2, 1 and 2 times a round on each rank (counted by the wrappers), round
+    0's collective counts equal between the twins with the table's
+    10,108,800 B all-reduce the largest, the ``multihost/*`` scalars and
+    ``perf_report.json``'s ``multihost`` block with two hosts only; each
+    twin's round ms, each rank's peak memory and the phase's seconds
+    printed.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -5458,7 +5476,9 @@ def scan_phase(torch, kern, cv_train, dataset_dir, work):
     ``xla/retraces`` 0, two captures (L 4 and 1), four replays; (b) the same under the sharded decode (K4's range form);
     (c) with fedsim's bernoulli masks and with DP noise; (d) local_topk
     with its device client banks (16 clients); (b)-(d) for SC_SHORT
-    rounds (blocks 4, 1); (e) a ``retry`` recovery (a NaN client at round
+    rounds (blocks 4, 1); (d') powersgd rank 4 without the warm start for
+    SC_ROUNDS rounds, its fresh Qs staged before each replay; (e) a
+    ``retry`` recovery (a NaN client at round
     5, snapshots every 4) bit-equal to its per-round twin with one
     rollback and no capture after the first of each length, and a resume
     from (a)'s round-5 checkpoint bit-equal to (a)'s per-round run with
@@ -5599,6 +5619,12 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
     pair("local_topk", MODE_PATHS["local_topk"][0] + ["--num_clients",
                                                        "16"], SC_SHORT)
 
+    # (d') powersgd without the warm start (ROADMAP C.8): each round's
+    # fresh Q drawn on the host from the round and staged before the
+    # replay, blocks 4, 1, 4, 1
+    pair("powersgd_cold", MODE_PATHS["powersgd"][0] + [
+        "--powersgd_warm_start", "false"], SC_ROUNDS)
+
     # (e) a retry recovery; a resume from (a)'s round-5 checkpoint
     rt_twin = run("sc_retry_twin", RES_BASE + RES_NAN + [
         "--recover_policy", "retry"], RES_ROUNDS)
@@ -5687,6 +5713,252 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
         k: round(v["stats"]["stage_ms"], 3) for k, v in timing.items()
         if v["stats"]}), main_peak=scan["peak"], twin_peak=twin["peak"])
     phase("scan_wall", wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
+MH_ROUNDS = 5  # rounds of each multihost-phase run
+MH_ARGS = MAIN_ARGS + ["--device", "cuda", "--num_devices", "2",
+                       "--num_workers", "8", "--sketch_decode", "dense",
+                       "--aggregate", "dense", "--telemetry_level", "1"]
+MH_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+MH_TABLE_BYTES = 10_108_800  # the [5, 505,440] f32 table
+MH_KEYS = ["multihost/cross_host_bytes", "multihost/dcn_exposed_ms",
+           "multihost/host_id", "multihost/num_processes"]
+# the model_kw of the children's cv_train.main ({}: full width)
+MH_MODEL_KW: dict = {}
+
+
+def multihost_rank_main(argv) -> int:
+    """``chip_smoke.py --multihost-rank RANK INIT_FILE OUT_JSON WORK``: one
+    of the multihost phase's two ranks. It joins the other through a gloo
+    group (``file://INIT_FILE``) on ``cuda:0``, loads the kernels' library
+    the parent built, and runs ``cv_train.main`` with MH_ARGS for
+    MH_ROUNDS rounds at ``--num_hosts 2`` and then ``--num_hosts 1``, on
+    deterministic cuDNN, the counters set to 0 just before each run and
+    read just after. Writes one JSON object: each twin's losses, round ms,
+    launches and forms, round 0's collective counts, its ``multihost/*``
+    keys, peak memory and (rank 0) run dir facts, and whether every
+    FedState leaf of the 2-host run equals the 1-host run's."""
+    import torch
+    import torch.distributed as dist
+
+    rank, init, out_path, work = (int(argv[0]), argv[1], argv[2], argv[3])
+    with open(os.path.join(work, "mh_job.json")) as f:
+        job = json.load(f)
+    if "--device" in job["args"] and job["args"][
+            job["args"].index("--device") + 1] == "cuda":
+        if not torch.cuda.is_available():
+            print("multihost rank: no card", file=sys.stderr)
+            return 1
+        torch.cuda.set_device(0)
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch.ops.cuda import build
+    from commefficient_tpu_torch.ops.cuda import countsketch as kern
+    from commefficient_tpu_torch.train import cv_train
+
+    on_card = torch.cuda.is_available()
+    if on_card:
+        build.load_library()  # the parent's build: no nvcc here
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=2)
+    sessions = []
+
+    class Recorded(cv_train.FederatedSession):
+        """The session ``cv_train`` builds, kept, with round 0's
+        collective counts (the counter reset just before its dispatch)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.round0 = None
+            sessions.append(self)
+
+        def _round(self, *a, **k):
+            first = self.round0 is None
+            if first:
+                self.group.counter.reset()
+            out = super()._round(*a, **k)
+            if first:
+                self.round0 = self.group.counter.snapshot()
+            return out
+
+    cv_train.FederatedSession = Recorded
+    torch.backends.cudnn.deterministic = True
+    res = {"rank": rank, "nvcc_s": dict(build.build_seconds), "runs": {}}
+    states = {}
+    try:
+        with CachedCifar(cv_train):
+            for hosts in (2, 1):
+                logdir = os.path.join(work, f"mh_h{hosts}_r{rank}")
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                kern.reset_launch_counts()
+                t = time.perf_counter()
+                out = cv_train.main(
+                    job["args"] + ["--num_hosts", str(hosts), "--max_rounds",
+                                   str(MH_ROUNDS), "--dataset_dir",
+                                   job["dataset_dir"], "--logdir", logdir],
+                    model_kw=dict(job["model_kw"]))
+                wall = time.perf_counter() - t
+                launches, forms = kern.launch_counts(), kern.form_counts()
+                sess = sessions[-1]
+                st = sess.state
+                states[hosts] = {k: getattr(st, k) for k in (
+                    "params_vec", "momentum", "error", "client_vel",
+                    "client_err", "comp")}
+                run = dict(
+                    losses=[h["loss"] for h in out["history"]],
+                    round_ms=[round(h["ms"], 3) for h in out["history"]],
+                    launches=launches, forms=forms, round0=sess.round0,
+                    host_keys=sorted(k for k in sess.host_round_stats({})
+                                     if k.startswith("multihost/")),
+                    group=[sess.group.hosts, sess.group.host_id,
+                           sess.group.workers_per_host],
+                    peak=(torch.cuda.max_memory_allocated() if on_card
+                          else None),
+                    wall_s=round(wall, 3), device=str(sess.device),
+                    backend=dist.get_backend())
+                if out["logdir"] is not None:  # rank 0 writes the run dir
+                    metrics = read_metrics(out["logdir"])
+                    run["metric_keys"] = sorted(
+                        k for k in metrics if k.startswith("multihost/"))
+                    run["host_id_values"] = sorted(set(metrics.get(
+                        "multihost/host_id", {}).values()))
+                    with open(os.path.join(out["logdir"],
+                                           "perf_report.json")) as f:
+                        rep = json.load(f)
+                    run["perf_multihost"] = rep.get("multihost")
+                    run["perf_collectives"] = rep["collectives"]["ops"]
+                res["runs"][str(hosts)] = run
+        a, b = states[2], states[1]
+        res["leaves_bit_equal"] = {
+            k: (a[k] is None and b[k] is None) or (
+                torch.is_tensor(a[k]) and torch.is_tensor(b[k])
+                and torch.equal(a[k], b[k])) for k in a}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def multihost_phase(torch, kern, dataset_dir, work):
+    """The host axis (``multihost/``) on the card: two ranks of one gloo
+    group, each its own process on ``cuda:0`` (NCCL puts no two ranks on
+    one card; gloo stages CUDA tensors' all-reduce and all-gather through
+    host memory), run the replicated dense-decode FetchSGD round at full
+    ResNet-9 width through ``cv_train.main`` (MH_ARGS), MH_ROUNDS rounds
+    at ``--num_hosts 2`` and then at ``--num_hosts 1``
+    (``multihost_rank_main``). Holds: both ranks exit 0; their losses are
+    identical and the two twins' are; every FedState leaf of the 2-host
+    run equals the 1-host run's on each rank; each rank launches K1
+    twice, K2 once and K3 twice a round (the wrappers' counts: no graph
+    here), as the one-card main path does; round 0's collective counts are
+    equal between the twins and the table's all-reduce is the largest
+    (MH_TABLE_BYTES); the ``multihost/*`` scalars and the
+    ``perf_report.json`` block come with two hosts and not with one.
+    Prints each twin's median round ms, each rank's peak memory and the
+    phase's seconds. Returns the summed launch forms of both ranks."""
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "mh_job.json"), "w") as f:
+        json.dump({"args": MH_ARGS, "dataset_dir": dataset_dir,
+                   "model_kw": MH_MODEL_KW}, f)
+    init = os.path.join(work, "mh_init")
+    outs = [os.path.join(work, f"mh_rank{r}.json") for r in range(2)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+         str(r), init, outs[r], work], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+        check(p.returncode == 0, f"multihost: rank {r} exited "
+              f"{p.returncode}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    forms = []
+    for rk in ranks:
+        two, one = rk["runs"]["2"], rk["runs"]["1"]
+        r = rk["rank"]
+        check(not rk["nvcc_s"], f"multihost rank {r}: built the library "
+              f"again ({rk['nvcc_s']})")
+        check(two["device"] == one["device"] == "cuda:0"
+              and two["backend"] == "gloo",
+              f"multihost rank {r}: {two['device']} over {two['backend']}")
+        check(two["losses"] == one["losses"] == ranks[0]["runs"]["2"][
+            "losses"], f"multihost rank {r}: losses {two['losses']} "
+              f"against {one['losses']}")
+        check(all(math.isfinite(x) for x in two["losses"]),
+              f"multihost rank {r}: a loss is not finite")
+        check(all(rk["leaves_bit_equal"].values()),
+              f"multihost rank {r}: leaves differ {rk['leaves_bit_equal']}")
+        for run, hosts in ((two, 2), (one, 1)):
+            per = {w: n for w, n in run["launches"].items() if n}
+            check(per == {w: n * MH_ROUNDS for w, n in MH_LAUNCHES.items()},
+                  f"multihost rank {r} h{hosts}: launches {per}")
+            forms.append(run["forms"])
+        check(two["round0"] == one["round0"], f"multihost rank {r}: round "
+              f"0's collectives {two['round0']} against {one['round0']}")
+        check(4 * two["round0"]["max_all_reduce_elems"] == MH_TABLE_BYTES
+              and two["round0"]["ops"]["all-reduce"]["bytes"]
+              >= MH_TABLE_BYTES,
+              f"multihost rank {r}: round 0's all-reduce {two['round0']}")
+        check(two["host_keys"] == MH_KEYS and one["host_keys"] == [],
+              f"multihost rank {r}: scalars {two['host_keys']} / "
+              f"{one['host_keys']}")
+        check(two["group"] == [2, r, 1] and one["group"] == [1, 0, 2],
+              f"multihost rank {r}: groups {two['group']} {one['group']}")
+    two0, one0 = ranks[0]["runs"]["2"], ranks[0]["runs"]["1"]
+    check(two0["metric_keys"] == MH_KEYS and one0["metric_keys"] == []
+          and two0["host_id_values"] == [0.0],
+          f"multihost: metrics.jsonl keys {two0['metric_keys']} / "
+          f"{one0['metric_keys']}")
+    check(two0["perf_multihost"] == {"num_hosts": 2, "num_processes": 1,
+                                     "host_id": 0}
+          and one0["perf_multihost"] is None,
+          f"multihost: perf_report blocks {two0['perf_multihost']} / "
+          f"{one0['perf_multihost']}")
+    check(two0["perf_collectives"] == one0["perf_collectives"],
+          "multihost: the audited collectives differ between the twins")
+
+    def med(ms):
+        return statistics.median(ms[1:])
+
+    phase("multihost", card=repr(card_line()), ranks=2, backend="gloo",
+          rounds=MH_ROUNDS, losses=json.dumps(two0["losses"]),
+          leaves_bit_equal=True,
+          round0_collectives=json.dumps(two0["round0"]["ops"]),
+          launches_a_round_each_rank=json.dumps(MH_LAUNCHES),
+          round_ms_h2=json.dumps([rk["runs"]["2"]["round_ms"]
+                                  for rk in ranks]),
+          round_ms_h1=json.dumps([rk["runs"]["1"]["round_ms"]
+                                  for rk in ranks]),
+          median_round_ms_h2=json.dumps([med(rk["runs"]["2"]["round_ms"])
+                                         for rk in ranks]),
+          median_round_ms_h1=json.dumps([med(rk["runs"]["1"]["round_ms"])
+                                         for rk in ranks]),
+          peak=json.dumps([[rk["runs"][h]["peak"] for h in ("2", "1")]
+                           for rk in ranks]),
+          run_wall_s=json.dumps([[rk["runs"][h]["wall_s"] for h in ("2", "1")]
+                                 for rk in ranks]),
+          scalars=json.dumps(two0["metric_keys"]),
+          perf_report_block=json.dumps(two0["perf_multihost"]))
+    phase("multihost_wall", wall_s=round(time.perf_counter() - t0, 3))
     return add_forms(*forms)
 
 
@@ -5857,6 +6129,9 @@ def main() -> int:
         with CachedCifar(cv_train):
             paths["scan"] = scan_phase(torch, kern, cv_train, dataset_dir,
                                        work)
+    # the host axis: two gloo ranks on the card, 2 hosts against 1
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        paths["multihost"] = multihost_phase(torch, kern, dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers
@@ -5892,4 +6167,6 @@ if __name__ == "__main__":
         sys.exit(fresh_switch_main())
     if sys.argv[1:2] == ["--round-ms"]:
         sys.exit(round_ms_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        sys.exit(multihost_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -445,7 +445,8 @@ class AsyncFederation:
                         trace_id=round_trace_id(step)) as sp:
             sess.state, metrics = apply_fn(
                 sess.state, stack(0), stack(1), stack(2), stack(3), aux_rows,
-                cids, w, wsum, float(np.float32(lr)))
+                cids, w, wsum, float(np.float32(lr)),
+                draw=sess.server_draw(sess.state.step))
             if sp is not None:
                 if self._double_buffer:
                     self._deferred = (metrics["loss"], step)

@@ -102,10 +102,11 @@ def build_async_round_fns(cfg, loss_fn: Callable, unravel: Callable, comp,
     (required under fedsim). Reads the state, changes nothing.
 
     ``apply_fn(state, rows, vel_rows, err_rows, loss_rows, aux_rows,
-    client_ids, weights, wsum, lr) -> (new_state, metrics)``: the
-    ``[W, ...]`` assembly, ``client_ids`` and ``weights`` ([W] host
+    client_ids, weights, wsum, lr, draw=None) -> (new_state, metrics)``:
+    the ``[W, ...]`` assembly, ``client_ids`` and ``weights`` ([W] host
     arrays: the staleness discount times the live mask, 0 on padding),
-    ``wsum`` their f32 sum. The client banks are written in place
+    ``wsum`` their f32 sum, ``draw`` the server step's
+    (``session.server_draw(state.step)``). The client banks are written in place
     (``write_back``), as the synchronous round writes them."""
     comp.resolved_dampening()  # the mode's warnings, once, at build time
     per_client = make_per_client(cfg, comp,
@@ -139,7 +140,8 @@ def build_async_round_fns(cfg, loss_fn: Callable, unravel: Callable, comp,
 
     @torch.no_grad()
     def apply_fn(state: FedState, rows, vel_rows, err_rows, loss_rows,
-                 aux_rows, client_ids, weights, wsum: float, lr: float):
+                 aux_rows, client_ids, weights, wsum: float, lr: float,
+                 draw=None):
         # the weights and their sum in one copy; the sum stays on the card
         wts = to_device(np.append(np.asarray(weights, np.float32),
                                   np.float32(wsum)), state.params_vec.device)
@@ -159,7 +161,7 @@ def build_async_round_fns(cfg, loss_fn: Callable, unravel: Callable, comp,
                                         aux, w_loc)
         loss = loss * live_scale(W, wsum)  # the mean over the live weight
         update, new_m, new_e, new_c, agg = server_phase(
-            cfg, comp, plan, group, state, agg, lr, count=wsum)
+            cfg, comp, plan, group, state, agg, lr, count=wsum, draw=draw)
         new_state = replace(
             state, params_vec=apply_update(state.params_vec, update),
             momentum=new_m, error=new_e, comp=new_c, step=state.step + 1)

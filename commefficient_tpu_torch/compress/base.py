@@ -239,12 +239,22 @@ class Compressor:
         raise NotImplementedError
 
     def server_update(self, momentum, error, extra, agg, lr: float,
-                      step: int):
+                      step: int, draw: Optional[torch.Tensor] = None):
         """``-> (delta, new_momentum, new_error, new_extra)``; ``delta`` is
         the APPLIED update (``w -= delta``), ``agg`` the averaged encoded
-        aggregate, ``step`` the round counter (powersgd's fresh ``Q``
-        without warm start derives from it)."""
+        aggregate, ``step`` the round counter, ``draw`` the round's
+        ``round_draw(step)`` on the device (None for a mode that draws
+        nothing)."""
         raise NotImplementedError
+
+    def round_draw(self, step: int) -> Optional[torch.Tensor]:
+        """Round ``step``'s host draw for the server step (a CPU tensor),
+        or None when the mode draws nothing (powersgd's fresh ``Q``
+        without the warm start is the one draw). The caller makes it
+        before the round and passes it as ``server_update(..., draw=)``:
+        the per-round path a round at a time, the scan engine a block's
+        at once before the replay, so no graph freezes a draw."""
+        return None
 
     def server_update_sharded(self, momentum, error, extra, agg, lr: float,
                               step: int, *, group, d: int):

@@ -28,7 +28,7 @@ class _DenseServerMixin:
         return False
 
     def server_update(self, momentum, error, extra, agg, lr: float,
-                      step: int):
+                      step: int, draw=None):
         rho = self.cfg.virtual_momentum
         applies_lr = not self._transmit_is_scaled
         if rho > 0:

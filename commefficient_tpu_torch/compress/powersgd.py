@@ -112,6 +112,13 @@ class PowerSGDCompressor(Compressor):
         return _gaussian_q((self.m, self.rank), self.cfg.seed,
                            POWERSGD_Q_STREAM, step).to(device)
 
+    def round_draw(self, step: int) -> Optional[torch.Tensor]:
+        """Without the warm start, round ``step``'s fresh ``Q [m, r]`` on
+        the CPU (the scan engine stages a block's before the replay)."""
+        if self.cfg.powersgd_warm_start:
+            return None
+        return self._fresh_q(step, "cpu")
+
     def _approx(self, vec, Q):
         """One power iteration: the rank-r approximation of ``vec``'s
         matricization, ``(approx [d], Q_new [m, r])``."""
@@ -122,10 +129,12 @@ class PowerSGDCompressor(Compressor):
         return (P_hat @ Q_new.T).reshape(-1)[: self.d], Q_new
 
     def server_update(self, momentum, error, extra, agg, lr: float,
-                      step: int):
+                      step: int, draw: Optional[torch.Tensor] = None):
+        """``draw`` is the round's fresh ``Q`` without the warm start,
+        made before the round (``round_draw(step)``, on the device)."""
         cfg = self.cfg
         warm = cfg.powersgd_warm_start
-        Q = extra if warm else self._fresh_q(step, agg.device)
+        Q = extra if warm else draw
         m = cfg.virtual_momentum * momentum + agg
         if cfg.error_type == "virtual":
             e = error + lr * m

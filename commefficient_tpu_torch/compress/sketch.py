@@ -152,7 +152,7 @@ class SketchCompressor(Compressor):
         return self._down(table)
 
     def server_update(self, momentum, error, extra, agg, lr: float,
-                      step: int):
+                      step: int, draw=None):
         cfg, spec = self.cfg, self.spec
         dampen = self.resolved_dampening()
         rho = cfg.virtual_momentum

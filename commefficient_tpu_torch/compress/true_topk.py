@@ -64,7 +64,7 @@ class TrueTopkCompressor(Compressor):
         return (KIND_DENSE, KIND_DENSE if virtual else None)
 
     def server_update(self, momentum, error, extra, agg, lr: float,
-                      step: int):
+                      step: int, draw=None):
         cfg = self.cfg
         dampen = self.resolved_dampening()
         m = cfg.virtual_momentum * momentum + agg

@@ -1186,12 +1186,13 @@ class FederatedSession:
     def raw_round_idx_fn(self):
         """The index round as a closure whose every input is a device
         tensor (the reference's ``raw_round_idx_fn``): ``raw(state, cids,
-        idx, plan, lr, env=None, noise=None) -> (new_state, metrics)``,
-        ``cids`` the ``[W]`` int64 ids, ``idx`` the ``[W, B]`` indices,
-        ``plan`` the augment plan's ``[W*B]`` arrays, ``lr`` a 0-d f32
-        tensor, ``env`` a ``parallel.round.DeviceEnv`` under fedsim and
-        ``noise`` this
-        rank's DP draws (``client_noise``'s, made before the round). It
+        idx, plan, lr, env=None, noise=None, draw=None) -> (new_state,
+        metrics)``, ``cids`` the ``[W]`` int64 ids, ``idx`` the ``[W, B]``
+        indices, ``plan`` the augment plan's ``[W*B]`` arrays, ``lr`` a
+        0-d f32 tensor, ``env`` a ``parallel.round.DeviceEnv`` under
+        fedsim, ``noise`` this rank's DP draws (``client_noise``'s, made
+        before the round) and ``draw`` the server step's
+        (``compressor.round_draw``'s, on the device). It
         reads nothing from the host and no shape depends on the data, so
         the scan engine captures blocks of it into a CUDA graph; it runs
         the active rung's round at the base width (the scan engine refuses
@@ -1203,9 +1204,10 @@ class FederatedSession:
         round_fn = self.round_fn
         W = self.cfg.num_workers
 
-        def raw(state, cids, idx, plan, lr, env=None, noise=None):
+        def raw(state, cids, idx, plan, lr, env=None, noise=None,
+                draw=None):
             return round_fn(state, cids, self._index_batch(idx, plan, W), lr,
-                            env=env, noise=noise)
+                            env=env, noise=noise, draw=draw)
 
         return raw
 
@@ -1247,6 +1249,13 @@ class FederatedSession:
             return contextlib.nullcontext()
         return self.spans.span(name, fence=fence, collective=collective,
                                trace_id=trace_id)
+
+    def server_draw(self, step: int) -> Optional[torch.Tensor]:
+        """Round ``step``'s server-step draw on the device
+        (``compressor.round_draw``: powersgd's fresh ``Q`` without the
+        warm start), None for a mode that draws nothing."""
+        draw = self.compressor.round_draw(step)
+        return None if draw is None else draw.to(self.device)
 
     def _round(self, ids, batch: Dict[str, torch.Tensor], lr: float, env,
                host_ids=None, cohort_ids=None, cohort=None):
@@ -1290,7 +1299,7 @@ class FederatedSession:
                         trace_id=tid) as sp:
             with arm.measure(step) if arm else contextlib.nullcontext():
                 out = self.round_fn(self.state, ids, batch, lr, *rows,
-                                    env=env)
+                                    env=env, draw=self.server_draw(step))
             self.state, metrics = out[:2]
             if rows:
                 # asynchronous: the writeback waits on an event recorded
@@ -1311,8 +1320,10 @@ class FederatedSession:
         controller's ``control/*``, the resilience rider's, a hosted
         store's ``clientstore/*``, at level >= 1 the retrace sentinel's
         ``xla/retraces`` and, with spans at level >= 1,
-        ``xla/exposed_collective_ms`` and the lagged ``trace/*``. Beside an
-        elastic fleet's ``fleet/width`` goes ``fleet/shrink_recoveries``."""
+        ``xla/exposed_collective_ms`` and the lagged ``trace/*``, and with
+        a host axis (``num_hosts > 1``) at level >= 1 the four
+        ``multihost/*``. Beside an elastic fleet's ``fleet/width`` goes
+        ``fleet/shrink_recoveries``."""
         if fs_stats:
             metrics = {**metrics, **fs_stats}
             if "fleet/width" in fs_stats:
@@ -1340,6 +1351,21 @@ class FederatedSession:
             metrics = {**metrics, "xla/exposed_collective_ms":
                        exposed_collective_ms(self.spans, self.last_audit),
                        **trace_round_scalars(self.spans, self.state.step - 2)}
+        if self.cfg.num_hosts > 1 and self.cfg.telemetry_level >= 1:
+            # the multihost/* scalars (schema v12), on every round of a
+            # run with a host axis: the nodes the bring-up joined (1
+            # without --distributed), this rank's host, the round's upload
+            # (every collective spans the hosts, so the whole payload
+            # crosses a host boundary once) and the exposed collective
+            # wait, all of it cross-host (0.0 without spans)
+            metrics = {**metrics,
+                       "multihost/num_processes": float(
+                           self.cfg.num_processes),
+                       "multihost/host_id": float(self.group.host_id),
+                       "multihost/cross_host_bytes": float(
+                           self.bytes_per_round()["upload_bytes"]),
+                       "multihost/dcn_exposed_ms": float(metrics.get(
+                           "xla/exposed_collective_ms", 0.0))}
         return metrics
 
     def audit_bounds(self) -> Dict[str, Any]:
@@ -1384,6 +1410,13 @@ class FederatedSession:
         if cfg.overlap_collectives != "none" or cfg.async_double_buffer:
             overlap_info = {"collectives": cfg.overlap_collectives,
                             "double_buffer": bool(cfg.async_double_buffer)}
+        # the host axis (schema v12): present exactly when the group
+        # declares hosts, so every collective figure states its topology
+        multihost_info = None
+        if cfg.num_hosts > 1:
+            multihost_info = {"num_hosts": int(cfg.num_hosts),
+                              "num_processes": cfg.num_processes,
+                              "host_id": int(self.group.host_id)}
         return dict(
             mode=cfg.mode,
             sketch_decode=self.sketch_decode_resolved if is_sketch else None,
@@ -1397,6 +1430,7 @@ class FederatedSession:
             tolerance_bytes=ledger_tolerance(up, sharded=sharded, workers=W,
                                              k=cfg.k),
             overlap_info=overlap_info,
+            multihost_info=multihost_info,
         )
 
     def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:

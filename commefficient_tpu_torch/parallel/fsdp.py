@@ -158,8 +158,9 @@ def fsdp_diagnostics(comp, group, *, agg, p_sh, new_p, new_e, loss) -> dict:
 
 def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
                         group):
-    """``round_fn(state, client_ids, batch, lr, mark=None, env=None) ->
-    (new_state, metrics)``, the same contract as ``build_round_fn``'s,
+    """``round_fn(state, client_ids, batch, lr, mark=None, env=None,
+    draw=None) -> (new_state, metrics)``, the same contract as
+    ``build_round_fn``'s (no FSDP mode draws: ``draw`` is None),
     with ``state.params_vec`` and the dense server leaves this rank's
     ``[S]`` slices. ``mark(i)`` as there (0: gather and gradients, 1: the
     loss sums, 2: the server step with its exchanges, 3: the diagnostics
@@ -183,7 +184,7 @@ def build_fsdp_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp,
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float,
-                 mark: Optional[Callable] = None, env=None):
+                 mark: Optional[Callable] = None, env=None, draw=None):
         mark = mark or (lambda i: None)
         if fedsim and env is None:
             raise ValueError(

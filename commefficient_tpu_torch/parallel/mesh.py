@@ -24,6 +24,17 @@ what the round needs, with collectives that both backends implement:
 ``SingleWorker`` is the one-device group: its collectives are identities
 and it needs no ``torch.distributed`` at all.
 
+The host axis (``cfg.num_hosts``, multihost/): a group of ``size`` ranks
+over ``hosts`` hosts is host-major, as ``torchrun`` numbers its ranks
+(``RANK = GROUP_RANK * LOCAL_WORLD_SIZE + LOCAL_RANK``): host ``h`` holds
+ranks ``[h * P, (h + 1) * P)``, ``P = workers_per_host = size / hosts``.
+A group carries ``hosts``, ``host_id`` (this rank's host) and
+``workers_per_host`` (the reference's ``worker_axes(mesh)``). Every
+collective stays ONE call over the whole group, the reference's one
+reduction over the ``(hosts, workers)`` tuple axis: declaring hosts
+changes no sum. As in the reference, no round path runs the sparse
+butterfly's two-level schedule (``axis_sizes=``).
+
 ``DistributedWorkers`` counts its own calls in ``counter``, a
 ``CollectiveCounter``: per op (the reference's HLO names: ``all-reduce``,
 ``all-gather``, ``reduce-scatter``, ``collective-permute``) the calls and
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -96,6 +108,9 @@ class SingleWorker:
     rank = 0
     size = 1
     counter = None
+    hosts = 1
+    host_id = 0
+    workers_per_host = 1
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         return t
@@ -143,11 +158,18 @@ class DistributedWorkers:
     one process per device. The reductions work in place on the tensor
     given (which they return)."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, hosts: int = 1):
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.counter = CollectiveCounter()
+        if hosts < 1 or self.size % hosts:
+            raise ValueError(
+                f"a group of {self.size} rank(s) does not split into "
+                f"{hosts} host(s): every host holds size / num_hosts ranks")
+        self.hosts = int(hosts)
+        self.workers_per_host = self.size // self.hosts
+        self.host_id = self.rank // self.workers_per_host
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         _count(self.counter, "all-reduce", t)
@@ -204,10 +226,11 @@ class DistributedWorkers:
 
 
 def make_worker_group(cfg):
-    """The group for ``cfg.num_devices`` devices. One device needs no
-    process group; more need an initialized default group of exactly that
-    size (one process per device), which ``torchrun`` and
-    ``distributed_from_env`` provide."""
+    """The group for ``cfg.num_devices`` devices over ``cfg.num_hosts``
+    hosts. One device needs no process group; more need an initialized
+    default group of exactly that size (one process per device), which
+    ``torchrun`` and ``join_from_env`` provide, and which must split into
+    the hosts."""
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     if world != cfg.num_devices:
@@ -219,7 +242,9 @@ def make_worker_group(cfg):
             f"--nproc_per_node {cfg.num_devices} -m "
             "commefficient_tpu_torch.train.cv_train ... --num_devices "
             f"{cfg.num_devices}`")
-    return DistributedWorkers() if initialized else SingleWorker()
+    if not initialized:
+        return SingleWorker()
+    return DistributedWorkers(hosts=int(cfg.num_hosts))
 
 
 def local_rank() -> int:
@@ -228,22 +253,114 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
+# the coordinator environment env:// reads
+COORDINATOR_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def _coordinator_address() -> str:
+    """The coordinator this process dials, for the bring-up's error."""
+    addr, port = os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT")
+    if addr and port:
+        return f"{addr}:{port}"
+    return "<unset>"
+
+
+def _connect_with_retry(cfg) -> None:
+    """``init_process_group(init_method="env://")``, NCCL for
+    ``device='cuda'`` (each process on ``cuda:LOCAL_RANK``) and gloo for
+    the CPU, under a bounded retry-with-backoff.
+
+    Nodes rarely start in lockstep, and one that dials before the
+    coordinator listens gets a connect error. Under ``--distributed``,
+    ``cfg.distributed_connect_retries`` is the TOTAL attempt budget
+    (default 3, floored at 1); without it one attempt. The backoff
+    doubles from 1 s. The final failure names the coordinator address and
+    the attempts spent, chained to the last error."""
+    attempts = (max(1, int(getattr(cfg, "distributed_connect_retries", 3)))
+                if getattr(cfg, "distributed", False) else 1)
+    cuda = getattr(cfg, "device", "cpu") == "cuda"
+    if cuda:
+        torch.cuda.set_device(local_rank())
+    delay = 1.0
+    last = None
+    for attempt in range(1, attempts + 1):
+        try:
+            dist.init_process_group(backend="nccl" if cuda else "gloo",
+                                    init_method="env://")
+            return
+        # a refused or timed-out rendezvous surfaces as RuntimeError or
+        # ValueError from init_process_group; re-raised with context
+        # after the attempt budget is spent
+        except Exception as e:
+            last = e
+            if attempt < attempts:
+                time.sleep(delay)
+                delay *= 2.0
+    raise RuntimeError(
+        f"could not join the multi-host coordinator at "
+        f"{_coordinator_address()} after {attempts} attempt(s) "
+        f"(--distributed_connect_retries): {last}"
+    ) from last
+
+
+def _check_cluster(cfg) -> None:
+    """A ``--distributed`` run's joined group against its config: the node
+    count (``WORLD_SIZE / LOCAL_WORLD_SIZE``) must be ``num_hosts`` and
+    the world ``num_devices``."""
+    world = dist.get_world_size()
+    per_node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    nodes = world // max(per_node, 1)
+    if nodes != cfg.num_hosts:
+        raise ValueError(
+            f"joined a {nodes}-node cluster (WORLD_SIZE {world} / "
+            f"LOCAL_WORLD_SIZE {per_node}) but --num_hosts is "
+            f"{cfg.num_hosts}: the host axis must coincide with node "
+            f"boundaries (one host per node) — set --num_hosts {nodes}"
+        )
+    if world != cfg.num_devices:
+        raise ValueError(
+            f"joined a cluster of {world} process(es) but --num_devices is "
+            f"{cfg.num_devices}: the worker group runs one process per "
+            f"device — set --num_devices {world}"
+        )
+
+
+def join_from_env(cfg) -> bool:
+    """The one env:// bring-up; returns whether it initialized the default
+    process group (a group that exists already is used as is).
+
+    * ``cfg.distributed``: the coordinator environment (``MASTER_ADDR``,
+      ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``) is required (the
+      alternative is a one-process run silently pretending to be a
+      cluster), the connect retries with backoff, and the joined group
+      must have ``num_hosts`` nodes of ``num_devices`` ranks in all.
+    * otherwise: one attempt when ``cfg.num_devices > 1`` and
+      ``torchrun``'s ``WORLD_SIZE`` is set; without it nothing is
+      initialized, and ``make_worker_group`` names what is missing."""
+    start = not dist.is_initialized() and (
+        cfg.distributed or (cfg.num_devices > 1
+                            and "WORLD_SIZE" in os.environ))
+    if start:
+        if cfg.distributed and any(not os.environ.get(k)
+                               for k in COORDINATOR_ENV):
+            raise RuntimeError(
+                "--distributed was set but no multi-host coordinator is "
+                "configured: export MASTER_ADDR + MASTER_PORT + WORLD_SIZE "
+                "+ RANK (torchrun --nnodes N sets them), or drop "
+                "--distributed to run the host axis over the ranks of one "
+                "node")
+        _connect_with_retry(cfg)
+    if cfg.distributed:
+        _check_cluster(cfg)
+    return start
+
+
 @contextlib.contextmanager
 def distributed_from_env(cfg):
-    """Initialize the default process group from ``torchrun``'s environment
-    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) when
-    ``cfg.num_devices > 1`` and no group exists yet, and destroy it on
-    exit. NCCL for ``device='cuda'`` (each process on ``cuda:LOCAL_RANK``),
-    gloo for ``device='cpu'``. Without that environment nothing is
-    initialized, and ``make_worker_group`` names what is missing."""
-    start = (cfg.num_devices > 1 and "WORLD_SIZE" in os.environ
-             and not dist.is_initialized())
-    if start:
-        if cfg.device == "cuda":
-            torch.cuda.set_device(local_rank())
-        dist.init_process_group(
-            backend="nccl" if cfg.device == "cuda" else "gloo",
-            init_method="env://")
+    """``join_from_env(cfg)`` for the body of the ``with``: a group it
+    initialized is destroyed on exit, one the caller initialized (two
+    ranks on one card joined by gloo) is used as is."""
+    start = join_from_env(cfg)
     try:
         yield
     finally:

@@ -683,7 +683,8 @@ def hold_if_empty(alive: torch.Tensor, update, state: FedState, new_m,
 
 
 def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
-                 agg, lr: float, count: Optional[torch.Tensor] = None):
+                 agg, lr: float, count: Optional[torch.Tensor] = None,
+                 draw: Optional[torch.Tensor] = None):
     """The server half of a round: the compressor's momentum/error algebra
     and extraction (the dense decode, the sharded decode, or under
     ``sparse_state`` the sliced ``server_update_sparse``), then, for the
@@ -699,7 +700,11 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
     bf16 table) — every encode is linear, so a masked round equals the
     round over its live cohort — and with ``count == 0`` zeroes the update
     and keeps momentum, error and ``comp`` as they were
-    (``hold_if_empty``)."""
+    (``hold_if_empty``).
+
+    ``draw`` is the server step's host draw, ``comp.round_draw(state.
+    step)`` made before the round and passed in on the device (None for a
+    mode that draws nothing)."""
     if count is not None:
         agg = agg.to(torch.float32) * live_scale(cfg.num_workers, count)
     if plan.sparse_apply:
@@ -711,7 +716,8 @@ def server_phase(cfg, comp, plan: AggregationPlan, group, state: FedState,
         update = ("sparse", (g_idx, g_val))
     else:
         delta, new_m, new_e, new_c = comp.server_update(
-            state.momentum, state.error, state.comp, agg, lr, state.step)
+            state.momentum, state.error, state.comp, agg, lr, state.step,
+            draw=draw)
         if cfg.do_topk_down and comp.dense_delta:
             delta = comp.topk(delta, cfg.k)
         update = ("dense", delta)
@@ -793,8 +799,10 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     round's global live count; a ``DeviceEnv`` holds the same as device
     tensors. ``lr`` is a float or a 0-d f32 tensor, and ``noise`` the
     rank's DP draws made before the round (``client_noise``'s; None draws
-    them here): the scan engine's captured rounds pass tensors, so no
-    host value is frozen into a graph. ``mark(i)``, when given, is called as phase
+    them here), ``draw`` the server step's host draw made before the
+    round (``comp.round_draw(state.step)`` on the device; None for a mode
+    that draws nothing): the scan engine's captured rounds pass tensors,
+    so no host value is frozen into a graph. ``mark(i)``, when given, is called as phase
     ``i`` begins (0: the client gradients and transmits, 1: the encode and
     aggregate, 2: the server, 3: the apply, the banks' write-back and, at
     ``telemetry_level >= 1``, the ``diag/*`` scalars) and at the end
@@ -826,7 +834,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
 
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float, *rows,
-                 mark=None, env=None, noise=None):
+                 mark=None, env=None, noise=None, draw=None):
         mark = mark or (lambda i: None)
         if fedsim and env is None:
             raise ValueError(
@@ -888,7 +896,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             loss = loss * live_scale(W, count)
         mark(2)
         update, new_m, new_e, new_c, agg = server_phase(
-            cfg, comp, plan, group, state, agg, lr, count)
+            cfg, comp, plan, group, state, agg, lr, count, draw)
         mark(3)
         new_state = replace(
             state, params_vec=apply_update(state.params_vec, update),

@@ -17,7 +17,11 @@ of the graph:
   array. A block's slices are copied into its graph's static input
   buffers before the replay; DP noise is drawn before the replay, with
   the per-round path's generator calls, into the block's static ``[L, w,
-  D]`` buffer (a graph cannot replay a seeded ``torch.Generator``).
+  D]`` buffer (a graph cannot replay a seeded ``torch.Generator``), and
+  so is the server step's host draw a round (``compressor.round_draw``:
+  powersgd's fresh ``Q [m, r]`` without the warm start), staged with the
+  epoch's other inputs as ``[n, m, r]`` and read by round i of a block
+  from its ``[L, m, r]`` slice.
 * **One graph a block length.** ``round_scan_fn[xL]`` is captured once
   for each distinct length L (K, the remainders before a boundary, the
   epoch's tail) over static buffers: the state's leaves are copied into
@@ -173,13 +177,6 @@ class ScanRounds:
                 "refused at Config validation (per-round pre-dispatch "
                 "decisions cannot run inside a scanned block)")
         self.on_card = session.device.type == "cuda"
-        if (self.on_card and cfg.mode == "powersgd"
-                and not cfg.powersgd_warm_start):
-            raise NotImplementedError(
-                "scan_rounds > 1 with powersgd_warm_start=False on the "
-                "card: each round draws a fresh Q on the host from its "
-                "step, which a captured graph would freeze — keep the "
-                "warm start or run per-round dispatch")
         self.cfg = cfg
         self.session = session
         self.spans = spans
@@ -255,11 +252,12 @@ class ScanRounds:
     def _stage_range(self, start: int, stop: int):
         """Realize rounds ``[start, stop)``'s inputs on the host (the
         sampler's draws, the plans, the f32 lrs, the fedsim environments
-        with the blacklist composed in, replay-aware) and copy each
-        stacked array to the device once. Returns ``(staged, host ids
-        [n, W], fedsim stats a round)``."""
+        with the blacklist composed in, replay-aware, and the server
+        step's draws: ``compressor.round_draw(r)``, the per-round path's
+        own calls) and copy each stacked array to the device once.
+        Returns ``(staged, host ids [n, W], fedsim stats a round)``."""
         sess = self.session
-        cids, idxs, plans, lrs = [], [], [], []
+        cids, idxs, plans, lrs, draws = [], [], [], [], []
         live, corrupt, count, stats = [], [], [], []
         for r in range(start, stop):
             c, i, p = self._sampler.sample_round_indices(r)
@@ -268,6 +266,9 @@ class ScanRounds:
             plans.append(tuple(np.asarray(a) for a in p))
             # the per-round path's f32 lr (_round: float(np.float32(lr)))
             lrs.append(np.float32(float(self._lr_fn(r))))
+            draw = sess.compressor.round_draw(r)
+            if draw is not None:
+                draws.append(draw)
             if self._fedsim:
                 env = sess.fedsim_round_env(r, c)
                 live.append(np.asarray(env.live, np.float32))
@@ -288,6 +289,8 @@ class ScanRounds:
             staged.update(live=put(np.stack(live)),
                           corrupt=put(np.stack(corrupt)),
                           count=put(np.asarray(count, np.float32)))
+        if draws:  # [n, m, r] f32 (powersgd's Qs), one copy
+            staged["draw"] = torch.stack(draws).to(sess.device)
         return staged, np.stack(cids), stats
 
     def _noise(self, bstart: int, host_cids: np.ndarray) -> torch.Tensor:
@@ -322,7 +325,8 @@ class ScanRounds:
                 state, m = raw(state, inp["cids"][i], inp["idx"][i],
                                tuple(a[i] for a in inp["plan"]),
                                inp["lr"][i], env=env,
-                               noise=inp["noise"][i] if dp else None)
+                               noise=inp["noise"][i] if dp else None,
+                               draw=inp["draw"][i] if "draw" in inp else None)
                 ms.append(m)
             return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 

@@ -97,7 +97,16 @@ def __getattr__(name):
 
 # the reference's artifact schema version (metrics.jsonl headers,
 # flight_*.json, comm_ledger.json), so its scripts/check_telemetry_schema.py
-# validates the port's run dirs as they are
+# validates the port's run dirs as they are. Its v12 namespace is the
+# multihost/* scalars, emitted at level >= 1 exactly when the run declares
+# a host axis (cfg.num_hosts > 1, fixed for a run, so the key set stays
+# constant): multihost/num_processes an integer >= 1 (the nodes the
+# --distributed bring-up joined, 1 without it), multihost/host_id this
+# rank's host, multihost/cross_host_bytes >= 0 (the round's upload: every
+# collective spans the hosts) and multihost/dcn_exposed_ms >= 0 (the
+# exposed collective wait; 0.0 without spans); perf_report.json carries a
+# "multihost" block {num_hosts >= 2, num_processes >= 1, host_id} exactly
+# then
 SCHEMA_VERSION = 13
 
 TELEMETRY_LEVELS = (0, 1, 2)

@@ -144,8 +144,9 @@ class RoundAudit:
     """One measured round; ``report()`` is the ``perf_report.json``
     payload, ``write()`` persists it, ``scalars()`` are the ``xla/*``
     scalars of the audited round. The constructor takes what
-    ``CompiledRoundAudit``'s does (no multihost block: the port runs no
-    multihost mesh)."""
+    ``CompiledRoundAudit``'s does; ``multihost_info`` ``{num_hosts,
+    num_processes, host_id}`` is the report's ``multihost`` block, given
+    exactly when the group declares a host axis."""
 
     def __init__(self, *, cost: dict, memory: dict, collectives: dict,
                  engine: str = "replicated", mode: str = "",
@@ -158,6 +159,7 @@ class RoundAudit:
                  sparse_agg_exemption: Optional[str] = None,
                  tolerance_bytes: Optional[int] = None,
                  overlap_info: Optional[dict] = None,
+                 multihost_info: Optional[dict] = None,
                  async_info: Optional[dict] = None,
                  peak=(None, None, None), step: int = 0):
         self.cost = cost
@@ -170,6 +172,8 @@ class RoundAudit:
         self.grad_size = int(grad_size)
         self.workers_mesh = int(workers_mesh)
         self.overlap_info = dict(overlap_info) if overlap_info else None
+        self.multihost_info = (dict(multihost_info) if multihost_info
+                               else None)
         self.peak = peak
         self.step = int(step)
         coll = dict(collectives)
@@ -245,6 +249,8 @@ class RoundAudit:
             rec["overlap"] = dict(self.overlap_info)
         if self.async_info is not None:
             rec["async"] = dict(self.async_info)
+        if self.multihost_info is not None:
+            rec["multihost"] = dict(self.multihost_info)
         return jsonable_tree(rec)
 
     def write(self, logdir: str, *, generated_by: str, cfg=None) -> str:

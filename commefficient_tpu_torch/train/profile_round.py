@@ -381,8 +381,6 @@ def scan_skip_reason(session):
                 f"round")
     if session.controller is not None:
         return "a control plane acts between rounds, which a block cannot"
-    if cfg.mode == "powersgd" and not cfg.powersgd_warm_start:
-        return "powersgd without the warm start draws Q on the host a round"
     return None
 
 
@@ -488,7 +486,8 @@ def main(argv=None):
             ids, batch = draw(step)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             session.state, metrics = session.round_fn(
-                session.state, ids, batch, lr, mark=lambda i: ev[i].record())
+                session.state, ids, batch, lr, mark=lambda i: ev[i].record(),
+                draw=session.server_draw(session.state.step))
             float(metrics["loss"])
             if step >= 2:
                 for i, p in enumerate(PHASES):

@@ -27,6 +27,9 @@ flags (``client_store`` device|host|mmap, ``client_store_cache_rows``,
 ``client_store_path`` and the reference's deprecated alias
 ``offload_client_state``, which warns and becomes ``client_store='host'``;
 ``_validate_client_store``; ``client_state_hosted`` gates clientstore/).
+The multi-host flags (``num_hosts``, ``distributed``,
+``distributed_connect_retries``) are checked as the reference checks them
+(``_validate_multihost``; multihost/ holds the topology and bring-up).
 
 Two fields are the port's own: ``device`` (``cuda`` by default, ``cpu`` for
 the plain PyTorch path the tests run) and ``max_rounds`` (stop after that
@@ -57,9 +60,6 @@ RECOVER_POLICIES = ("none", "retry", "demote", "skip_clients")
 _UNPORTED = {
     "model_axis": "tensor parallelism (ROADMAP A17)",
     "seq_axis": "sequence parallelism (ROADMAP A17)",
-    "num_hosts": "multihost/ (ROADMAP A11, item A.1.5)",
-    "distributed": "multihost/ (ROADMAP A11, item A.1.5)",
-    "distributed_connect_retries": "multihost/ (ROADMAP A11, item A.1.5)",
 }
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
@@ -328,8 +328,19 @@ class Config:
     # --- refused until their ROADMAP item lands (see _UNPORTED) ---
     model_axis: int = 1
     seq_axis: int = 1
+
+    # --- multi-host topology (multihost/) ---
+    # the host axis: > 1 splits the worker group host-major into num_hosts
+    # hosts of num_devices / num_hosts ranks (parallel/mesh.py), the
+    # cohort's slots and the client population by host (multihost/
+    # topology.py); every collective stays one call over the whole group
     num_hosts: int = 1
+    # join the nodes through torch.distributed's env:// bring-up at train
+    # entry (parallel/mesh.py join_from_env: MASTER_ADDR, MASTER_PORT,
+    # WORLD_SIZE, RANK); needs num_hosts >= 2. Without it a host axis
+    # still works over the ranks of one node
     distributed: bool = False
+    # the connect's TOTAL attempt budget, with backoff doubling from 1 s
     distributed_connect_retries: int = 3
 
     seed: int = 42
@@ -348,6 +359,7 @@ class Config:
             )
         self._validate_pipeline()
         self._validate_asyncfed()
+        self._validate_multihost()
         for name, blocker in _UNPORTED.items():
             default = Config.__dataclass_fields__[name].default
             if getattr(self, name) != default:
@@ -516,6 +528,62 @@ class Config:
         self._validate_dp()
         self._validate_checkpoint()
         self._validate_fleet()
+
+    def _validate_multihost(self) -> None:
+        """Multi-host topology flags (multihost/), the reference's
+        refusals. The FSDP round and the tensor-parallel layouts are
+        refused beside a host axis, as the reference refuses them."""
+        if self.num_hosts < 1:
+            raise ValueError(
+                f"num_hosts must be >= 1, got {self.num_hosts}"
+            )
+        if self.distributed_connect_retries < 1:
+            raise ValueError(
+                f"distributed_connect_retries must be >= 1 (total connect "
+                f"attempts, not extra retries), got "
+                f"{self.distributed_connect_retries}"
+            )
+        if self.distributed and self.num_hosts < 2:
+            raise ValueError(
+                "distributed=True runs the torch.distributed bring-up to "
+                "declare a host axis, which needs --num_hosts >= 2 (a "
+                "single-host run has nothing to connect; a host axis over "
+                "the ranks of one node sets num_hosts > 1 WITHOUT "
+                "--distributed)"
+            )
+        if self.num_hosts == 1:
+            return
+        if self.num_hosts & (self.num_hosts - 1):
+            raise ValueError(
+                f"num_hosts must be a power of two, got {self.num_hosts}: "
+                "the two-level butterfly aggregation schedules cross-host "
+                "hops over a hypercube of hosts (ops/collectives/"
+                "sparse_allreduce.py), which only exists at 2^n"
+            )
+        if self.num_devices % self.num_hosts != 0:
+            raise ValueError(
+                "num_devices must be divisible by num_hosts "
+                f"({self.num_devices} % {self.num_hosts} != 0): the worker "
+                "group is (hosts, workers) with workers = num_devices / "
+                "num_hosts ranks per host"
+            )
+        if self.fsdp:
+            raise ValueError(
+                "num_hosts > 1 is incompatible with fsdp: the reference's "
+                "FSDP round names the plain workers axis in every shard "
+                "spec and collective, so it refuses a declared host "
+                "axis (the workers axis would silently exclude cross-host "
+                "devices from its reduce-scatters) — run the replicated "
+                "round (the multihost path) or fsdp, not both"
+            )
+        if self.model_axis > 1 or self.seq_axis > 1:
+            raise ValueError(
+                "num_hosts > 1 is incompatible with model_axis/seq_axis "
+                "> 1: the tensor-parallel loss shards batch rows with the "
+                "plain workers axis spec, which on a (hosts, workers, ...) "
+                "layout would replicate the batch across hosts instead of "
+                "sharding it"
+            )
 
     def _validate_client_store(self) -> None:
         """The client-state placement flags (clientstore/), as the
@@ -1066,6 +1134,14 @@ class Config:
                 "checkpoint_every and resume need checkpoint_dir: without "
                 "a directory nothing is saved or restored, and the port "
                 "runs no setting that would be ignored")
+
+    @property
+    def num_processes(self) -> int:
+        """The nodes a run's bring-up joins (the ``multihost/
+        num_processes`` scalar): ``num_hosts`` under ``--distributed``
+        (the bring-up refuses any other count), 1 without it (the
+        reference's ``jax.process_count()`` on its mesh-faked twin)."""
+        return self.num_hosts if self.distributed else 1
 
     @property
     def fedsim_enabled(self) -> bool:

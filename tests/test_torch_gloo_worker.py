@@ -2,8 +2,8 @@
 
 Not a test module of its own (it collects nothing): the tests in
 tests/test_torch_sharded_decode.py start it twice, and ``spawn`` (used by
-tests/test_torch_sparse_aggregate.py and tests/test_torch_fsdp.py) starts
-it on 2 or 4 ranks,
+tests/test_torch_sparse_aggregate.py, tests/test_torch_fsdp.py,
+tests/test_torch_multihost.py and others) starts it on 2 or 4 ranks,
 
     python tests/test_torch_gloo_worker.py RANK WORLD INIT_FILE JOB_JSON \\
         INPUT_NPZ OUTPUT_NPZ
@@ -35,7 +35,26 @@ as the round returned it (``trace:<name>/exposed``), every rank its params
 (``trace:<name>/params``); ``control``, cases of the control plane run as
 ``cases`` with a controller over the input's rounds, written as
 ``ctl:<name>`` with each round's ``control/rung`` (``ctl:<name>/rungs``)
-and the controller's checkpoint blob (``ctl:<name>/blob``).
+and the controller's checkpoint blob (``ctl:<name>/blob``); ``multihost``,
+cases run as ``cases`` (at telemetry level 1) that also write the worker
+group's host axis (``mh:<name>/group``: hosts, host_id,
+workers_per_host), round 0's collective counts
+(``mh:<name>/collectives``, the ``CollectiveCounter`` snapshot as JSON)
+and every round's ``multihost/*`` scalars (``mh:<name>/<key>``,
+``[rounds]``; ``mh:<name>/keys`` lists the round's keys);
+``foreign_nan``, names of ``cases`` run again on batches laid out by
+``multihost.assemble_rows`` from the rank's own host's rows, every row
+the rank does not compute NaN (``nan:<name>``, written as ``cases``).
+
+Started as ``python tests/test_torch_gloo_worker.py node INPUT_NPZ
+OUTPUT_NPZ FLAGS...`` with the env:// variables of one node of a
+two-node cluster (``WORLD_SIZE``, ``RANK``, ``LOCAL_WORLD_SIZE 1``,
+``MASTER_ADDR``, ``MASTER_PORT``), a rank is one host of a
+``--distributed`` run instead: it joins through the train entries'
+bring-up (``parallel.mesh.distributed_from_env``), realizes only its own
+host's rows (``HostDataPlane`` and ``assemble_rows``) and writes each
+round's client ids and loss and its final params (``node/ids``,
+``node/losses``, ``node/params``, ``node/host_id``).
 """
 
 import json
@@ -222,6 +241,65 @@ def run_trace(job, npz, out, tmp):
             out[f"trace:{name}/exposed"] = np.asarray(exposed)
 
 
+def run_multihost(job, npz, out):
+    """``multihost``: the host axis of each case's group, round 0's
+    collective counts and every round's ``multihost/*`` scalars."""
+    from commefficient_tpu_torch.parallel.api import microbatched
+
+    for name, kw in job.get("multihost", {}).items():
+        sess = _session(kw, npz)
+        g = sess.group
+        out[f"mh:{name}/group"] = np.asarray([g.hosts, g.host_id,
+                                              g.workers_per_host])
+        rows = []
+        for r in range(npz["x"].shape[0]):
+            batch = microbatched(sess.cfg, {"x": npz["x"][r],
+                                            "y": npz["y"][r]})
+            if r == 0:
+                g.counter.reset()
+            m = sess.train_round(npz["ids"][r], batch, job["lr"])
+            if r == 0:
+                out[f"mh:{name}/collectives"] = np.asarray(json.dumps(
+                    g.counter.snapshot(), sort_keys=True))
+            rows.append({k: float(v) for k, v in m.items()
+                         if k.startswith("multihost/")})
+        out[f"mh:{name}/keys"] = np.asarray(sorted(rows[0]), dtype=str)
+        for k in rows[0]:
+            out[f"mh:{name}/{k}"] = np.asarray([row[k] for row in rows])
+
+
+def run_foreign_nan(job, npz, out):
+    """``foreign_nan``: cases of ``cases`` run again on batches that
+    ``multihost.assemble_rows`` lays out from this rank's host's rows
+    alone, every row this rank does not compute set to NaN (labels to
+    their dtype's max), written as ``nan:<name>``."""
+    from commefficient_tpu_torch.multihost import (
+        assemble_rows,
+        build_topology,
+    )
+
+    for name in job.get("foreign_nan", ()):
+        sess = _session(job["cases"][name], npz)
+        topo = build_topology(sess.cfg)  # this rank's host
+        lo, hi = topo.slot_range
+        g = sess.group
+        losses = []
+        for r in range(npz["x"].shape[0]):
+            batch = {}
+            for k in ("x", "y"):
+                a = assemble_rows(g, {topo.host_id: npz[k][r][lo:hi]},
+                                  num_hosts=topo.num_hosts)
+                per = len(a) // g.size
+                foreign = np.ones(len(a), bool)
+                foreign[g.rank * per:(g.rank + 1) * per] = False
+                a[foreign] = (np.nan if a.dtype.kind == "f"
+                              else np.iinfo(a.dtype).max)
+                batch[k] = a
+            losses.append(float(sess.train_round(npz["ids"][r], batch,
+                                                 job["lr"])["loss"]))
+        _write_state(out, f"nan:{name}", sess, losses)
+
+
 def run_resume(job, npz, out, tmp):
     """Two rounds, a checkpoint, a fresh session restored from it, two
     more rounds: the state written as ``run_cases`` writes it."""
@@ -306,7 +384,65 @@ def run_ties(job, npz, out, group):
     out["ties/idx"], out["ties/val"] = g_idx.numpy(), g_val.numpy()
 
 
+def node_main(argv):
+    """One node of a two-node ``--distributed`` run (module docstring)."""
+    in_file, out_file, *flags = argv
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch.data import FedDataset
+    from commefficient_tpu_torch.models import classification_loss
+    from commefficient_tpu_torch.multihost import (
+        HostDataPlane,
+        assemble_rows,
+        build_topology,
+        global_client_ids,
+        make_global_mesh,
+        validate_mesh_topology,
+    )
+    from commefficient_tpu_torch.parallel import FederatedSession
+    from commefficient_tpu_torch.parallel.mesh import distributed_from_env
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(flags)
+    npz = dict(np.load(in_file))
+    with distributed_from_env(cfg):
+        assert dist.is_initialized()
+        group = make_global_mesh(cfg)
+        topology = build_topology(cfg)  # this rank's host
+        validate_mesh_topology(group, topology)
+        sess = FederatedSession(cfg, _params(npz),
+                                classification_loss(tinymlp))
+        ds = FedDataset({"x": npz["node/x"], "y": npz["node/y"]},
+                        cfg.num_clients, iid=True, seed=0)
+        # every node draws every host's ids (cheap ints); only its own
+        # plane realizes batch rows
+        planes = [HostDataPlane(ds, build_topology(cfg, host_id=h),
+                                local_batch_size=cfg.local_batch_size,
+                                seed=cfg.seed)
+                  for h in range(cfg.num_hosts)]
+        mine = planes[topology.host_id]
+        ids_all, losses = [], []
+        for r in range(int(npz["node/rounds"])):
+            ids = global_client_ids(planes, r)
+            local_ids, local_batch = mine.sample_round(r)
+            lo, hi = topology.slot_range
+            assert np.array_equal(ids[lo:hi], local_ids)
+            batch = {k: assemble_rows(group, {topology.host_id: v},
+                                      num_hosts=cfg.num_hosts)
+                     for k, v in local_batch.items()}
+            m = sess.train_round(ids, batch, float(npz["node/lr"]))
+            ids_all.append(ids)
+            losses.append(float(m["loss"]))
+        np.savez(out_file, **{
+            "node/ids": np.stack(ids_all), "node/losses": np.asarray(losses),
+            "node/params": sess.full_params_vec().numpy(),
+            "node/host_id": np.asarray(topology.host_id),
+            "node/world": np.asarray(dist.get_world_size())})
+    assert not dist.is_initialized()  # the bring-up's group is destroyed
+
+
 def main(argv):
+    if argv[0] == "node":
+        return node_main(argv[1:])
     rank, world, init_file, job_file, in_file, out_file = argv
     sys.path.insert(0, ROOT)
     from commefficient_tpu_torch.parallel.mesh import DistributedWorkers
@@ -322,6 +458,8 @@ def main(argv):
         run_cases(job, npz, out, os.path.dirname(out_file))
         run_telemetry(job, npz, out)
         run_control(job, npz, out)
+        run_multihost(job, npz, out)
+        run_foreign_nan(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))
         run_trace(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)

@@ -66,6 +66,10 @@ def test_the_scan_sees_the_whole_port():
                  "commefficient_tpu_torch/asyncfed/schedule.py",
                  "commefficient_tpu_torch/asyncfed/round.py",
                  "commefficient_tpu_torch/asyncfed/engine.py",
+                 "commefficient_tpu_torch/multihost/__init__.py",
+                 "commefficient_tpu_torch/multihost/topology.py",
+                 "commefficient_tpu_torch/multihost/dataplane.py",
+                 "commefficient_tpu_torch/multihost/bringup.py",
                  "commefficient_tpu_torch/pipeline/cohorts.py",
                  "commefficient_tpu_torch/ops/cuda/countsketch.py",
                  "commefficient_tpu_torch/train/cv_train.py",

@@ -11,11 +11,13 @@ copied once), packs, signatures and sentinel. What is held here:
   per-round dispatch in every state leaf and the drained scalar
   sequence (the exact decode, the threshold decode, the sharded decode,
   fedsim masks, DP noise drawn before the block, local_topk's device
-  banks), and through ``run_train_loop`` across a checkpoint resume and a
-  ``retry`` recovery;
+  banks, powersgd without the warm start, its fresh Qs staged before
+  the block), and through ``run_train_loop`` across a checkpoint resume
+  and a ``retry`` recovery;
 * the port against the reference's ``ScanRounds`` on the same config and
   seed (params ``rtol 1e-4 / atol 1e-5``, tables ``1e-5 * max|table|``,
-  losses ``rtol 1e-4``);
+  losses ``rtol 1e-4``), powersgd without the warm start fed the
+  reference's Qs (the two PRNGs differ);
 * the block plan equal to the reference's over a grid of ranges, K and
   gates; the ``Config`` refusals in the reference's words;
 * the retrace sentinel: a changed signature is a counted re-capture and
@@ -87,6 +89,11 @@ CASES = {
     "dp": {**EXACT, "max_grad_norm": 1.0, "dp_noise_multiplier": 0.5},
     "local_topk": dict(mode="local_topk", error_type="local",
                        local_momentum=0.9, k=30),
+    # powersgd without the warm start: a fresh Q a round, drawn on the
+    # host from the round and staged with the epoch's inputs
+    "powersgd_cold": dict(mode="powersgd", error_type="virtual",
+                          virtual_momentum=0.9, powersgd_rank=2,
+                          powersgd_warm_start=False),
 }
 LEAVES = ("params_vec", "momentum", "error", "client_vel", "client_err",
           "comp")
@@ -306,6 +313,97 @@ def test_scan_engine_matches_the_reference_scan_engine(data):
     assert ([m["pipeline/scan_rounds_per_dispatch"] for _, _, m, _, _ in out]
             == [float(m["pipeline/scan_rounds_per_dispatch"])
                 for _, _, m in ref_out])
+    assert eng.stats()["dispatches"] == ref_eng.stats()["dispatches"]
+
+
+# -- powersgd without the warm start (ROADMAP C.8) ---------------------------------
+
+COLD = CASES["powersgd_cold"]
+N_COLD = 10  # K = 4: blocks 4, 4, 2
+
+
+def test_scan_powersgd_cold_start_bit_exact_vs_per_round_dispatch(data):
+    """``--scan_rounds 4`` over 10 rounds of powersgd without the warm
+    start: every leaf and every drained scalar equal to the per-round
+    path's, the Qs staged with the epoch's inputs."""
+    kw = {**COLD, "telemetry_level": 1}
+    sess_a, sampler_a = _build(data, **kw)
+    want = [_host(m) for m in _per_round(sess_a, sampler_a, N_COLD)]
+    sess_b, eng, out = _scan(data, 4, n=N_COLD, **kw)
+    _leaves_equal(sess_a, sess_b)
+    assert sess_b.state.comp is None  # nothing carried across rounds
+    assert [_host(m) for _, _, m, _, _ in out] == want
+    st = eng.stats()
+    assert (st["dispatches"], st["block_lengths"]) == (3, [2, 4])
+    assert sess_b.retrace_sentinel.retraces == 0
+
+
+def test_scan_powersgd_cold_start_block_rounds_use_their_own_q(data,
+                                                                monkeypatch):
+    """Inside one block each round's server step reads its own staged Q,
+    the per-round path's ``_fresh_q(step)``: two rounds of a block use
+    different Qs, and no Q is drawn inside the block."""
+    from commefficient_tpu_torch.compress.powersgd import PowerSGDCompressor
+
+    seen, drawn = [], []
+    server_update = PowerSGDCompressor.server_update
+    fresh_q = PowerSGDCompressor._fresh_q
+
+    def spy(self, *a, draw=None, **k):
+        seen.append((a[-1], draw))
+        return server_update(self, *a, draw=draw, **k)
+
+    def spy_fresh(self, step, device):
+        drawn.append(step)
+        return fresh_q(self, step, device)
+
+    monkeypatch.setattr(PowerSGDCompressor, "server_update", spy)
+    monkeypatch.setattr(PowerSGDCompressor, "_fresh_q", spy_fresh)
+    sess, eng, _ = _scan(data, 4, n=4, **COLD)
+    assert eng.stats()["dispatches"] == 1  # one block of 4
+    assert drawn == [0, 1, 2, 3]  # all staged before the block
+    assert [step for step, _ in seen] == [0, 1, 2, 3]
+    qs = [q for _, q in seen]
+    assert all(q is not None for q in qs)
+    for step, q in enumerate(qs):
+        assert torch.equal(q, fresh_q(sess.compressor, step, "cpu"))
+    assert not torch.equal(qs[0], qs[1])
+
+
+def test_scan_powersgd_cold_start_matches_the_reference_scan_engine(
+        data, monkeypatch):
+    """The reference's ``ScanRounds`` and the port's on powersgd without
+    the warm start (K = 4, 10 rounds, level 1), the port's ``_fresh_q``
+    returning the reference's Q of each step (JAX's PRNG draws other
+    numbers: ROADMAP C.7.4)."""
+    from commefficient_tpu_torch.compress.powersgd import PowerSGDCompressor
+
+    kw = {**COLD, "scan_rounds": 4, "telemetry_level": 1}
+    ref_cfg = RefConfig(**{**ONE, **kw})
+    ds, params, loss_fn = _setup(ref_cfg.num_clients)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref_sess = RefSession(ref_cfg, params, loss_fn)
+    ref_sampler = RefSampler(ds, num_workers=ref_cfg.num_workers,
+                             local_batch_size=ref_cfg.local_batch_size, seed=1)
+    assert ref_sess.maybe_attach_data(ds, ref_sampler)
+    ref_eng = RefScan(ref_cfg, ref_sess, ref_sampler, _lr_fn,
+                      num_rounds=N_COLD, steps_per_epoch=N_COLD).start(0)
+    ref_out = list(ref_eng.epoch_rounds(0, 0))
+    ref_q = {s: np.array(ref_sess.compressor._fresh_q(s))
+             for s in range(N_COLD)}
+    monkeypatch.setattr(
+        PowerSGDCompressor, "_fresh_q",
+        lambda self, step, device: torch.from_numpy(ref_q[int(step)]).to(
+            device))
+    sess, eng, out = _scan(data, 4, n=N_COLD, **{
+        k: v for k, v in kw.items() if k != "scan_rounds"})
+    np.testing.assert_allclose(sess.state.params_vec.numpy(),
+                               np.asarray(ref_sess.state.params_vec),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        [float(m["loss"]) for _, _, m, _, _ in out],
+        [float(np.asarray(m["loss"])) for _, _, m in ref_out], rtol=1e-4)
     assert eng.stats()["dispatches"] == ref_eng.stats()["dispatches"]
 
 
