@@ -8,7 +8,7 @@ Run from the repository root on a machine with one card and ``nvcc``:
 (``python3 chip_smoke.py --round-ms N [flags]`` instead times N rounds of
 the main path with ``flags``, dispatched one by one: ``round_ms_main``;
 ``--multihost-rank`` is one rank of the ``multihost`` phase, which starts
-it.)
+it, and ``--tp-rank`` one of the ``tensor_parallel`` phase.)
 
 It drives only ``commefficient_tpu_torch`` and imports nothing of JAX. Each
 phase prints one line (or a few) and raises on failure, so the script exits
@@ -339,7 +339,19 @@ phase prints one line (or a few) and raises on failure, so the script exits
     10,108,800 B all-reduce the largest, the ``multihost/*`` scalars and
     ``perf_report.json``'s ``multihost`` block with two hosts only; each
     twin's round ms, each rank's peak memory and the phase's seconds
-    printed.
+    printed;
+31. ``tensor_parallel`` (``parallel/tensor.py``, ``sequence.py``,
+    ``ring_attention.py``): GPT-2 small at full width through
+    ``gpt2_train.main``, f32 compute, 2 clients, 3 rounds at level 1,
+    first in this process at axes 1 (the twin), then ``--model_axis 2``
+    and ``--seq_axis 2`` on two ranks of one gloo group, two processes on
+    the one card (``chip_smoke.py --tp-rank``): each rank's losses
+    within 2e-4 of the twin's, its ``params_vec`` bit-equal to rank 0's,
+    at most 1,500 params off the twin's (counted and their largest
+    printed), K1, K2 and K3 2, 1 and 2 a round as the twin, round 0's
+    collectives on the leg's group equal to the count and bytes the
+    shapes give (the seq leg's K/V shifts staged through pinned host
+    memory), each rank's peak memory and median round ms printed.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -5962,6 +5974,324 @@ def multihost_phase(torch, kern, dataset_dir, work):
     return add_forms(*forms)
 
 
+TP_ROUNDS = 3  # rounds of each tensor_parallel run
+# GPT-2 small at full width (D = 124,444,417, r 5, c 5,000,000, k 50,000),
+# two clients batched a rank, at level 1 (K3 in diag/*), in f32 compute:
+# the reference's anchor holds its TP round to these tolerances on an f32
+# model, and under bf16 compute the sharded sums' other rounding moves
+# round 0's loss by 2.6e-4 of itself (PERF.md, PR 22)
+TP_ARGS = GPT2_ARGS + ["--compute_dtype", "float32", "--num_workers", "2",
+                       "--telemetry_level", "1"]
+TP_LEGS = {"model": ["--model_axis", "2"], "seq": ["--seq_axis", "2"]}
+TP_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
+TP_LOSS_TOL = (2e-4, 2e-4)  # rtol, atol against the one-process twin
+TP_PARAM_TOL = (2e-4, 2e-3)  # a param flips past atol + rtol * |twin|
+TP_FLIP_CAP = 1_500  # 1% of k x rounds: top-k boundary flips
+
+
+def tp_round_collectives(cfg, gcfg, leg: str, d: int) -> dict:
+    """The collectives one round of the TP/SP loss makes on the leg's group
+    (``{op: {"count", "bytes"}}``, the ``CollectiveCounter`` layout), from
+    the shapes: a rank's ``w`` clients batched, ``R = B * N`` rows of T
+    tokens. The model group: two activation sums a block forward
+    (``ReduceFromGroup``) and two backward (``CopyToGroup``), and the
+    gradient's total; the seq group: one K/V shift a block forward and one
+    backward, the token sums (``lm_sum``, ``lm_cnt``, the MC pick) and the
+    gradient's total."""
+    w = cfg.num_workers // cfg.num_devices
+    R = cfg.local_batch_size * cfg.num_candidates
+    T, E, L, H = cfg.max_seq_len, gcfg.n_embd, gcfg.n_layer, gcfg.n_head
+    act = gcfg.dtype.itemsize  # the activations' compute type
+    grad = w * d * 4  # the [w, D] f32 gradient's total
+    if leg == "model":
+        return {"all-reduce": {"count": 4 * L + 1,
+                               "bytes": 4 * L * w * R * T * E * act + grad}}
+    S = 2
+    kv = 2 * w * R * H * (T // S) * (E // H) * act
+    return {"all-reduce": {"count": 4,
+                           "bytes": 4 * w + 4 * w + w * R * E * act + grad},
+            "collective-permute": {"count": 2 * L * (S - 1),
+                                   "bytes": 2 * L * (S - 1) * kv}}
+
+
+def tp_rank_main(argv) -> int:
+    """``chip_smoke.py --tp-rank RANK INIT_FILE OUT_JSON WORK``: one of
+    the tensor_parallel phase's two ranks. It joins the other through a
+    gloo group (``file://INIT_FILE``) on ``cuda:0``, loads the kernels'
+    library the parent built, and runs ``gpt2_train.main`` with TP_ARGS
+    and each leg's flags (TP_LEGS, in order: one process, so the K2 plan
+    is built once) for TP_ROUNDS rounds, the counters set to 0 just
+    before and read just after. Writes one JSON object with a record a
+    leg: the losses, round ms, launches and forms, round 0's collectives
+    on each group of the grid and the expected ones, the staged
+    point-to-point calls, the peak memory, whether ``params_vec`` equals
+    rank 0's bit for bit, and the flips against the twin's params
+    (``tp_twin.pt`` in WORK)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, init, out_path, work = int(argv[0]), argv[1], argv[2], argv[3]
+    with open(os.path.join(work, "tp_job.json")) as f:
+        job = json.load(f)
+    on_card = "--device" not in job["args"] or job["args"][
+        job["args"].index("--device") + 1] == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            print("tensor_parallel rank: no card", file=sys.stderr)
+            return 1
+        torch.cuda.set_device(0)
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch.ops.cuda import build
+    from commefficient_tpu_torch.ops.cuda import countsketch as kern
+    from commefficient_tpu_torch.train import gpt2_train
+
+    if on_card:
+        build.load_library()  # the parent's build: no nvcc here
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=2)
+    sessions = []
+
+    class Recorded(gpt2_train.FederatedSession):
+        """The session ``gpt2_train`` builds, kept, with round 0's
+        collectives on each group of its grid."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.round0 = None
+            sessions.append(self)
+
+        def _round(self, *a, **k):
+            first = self.round0 is None
+            groups = {n: getattr(self.grid, n) for n in ("workers", "model",
+                                                         "seq")}
+            if first:
+                for g in groups.values():
+                    if g.counter is not None:
+                        g.counter.reset()
+            out = super()._round(*a, **k)
+            if first:
+                self.round0 = {
+                    n: (None if g.counter is None else dict(
+                        g.counter.snapshot()["ops"],
+                        staged=dict(g.counter.staged)))
+                    for n, g in groups.items()}
+            return out
+
+    gpt2_train.FederatedSession = Recorded
+    res = {"rank": rank, "nvcc_s": dict(build.build_seconds), "legs": {}}
+    try:
+        for leg in TP_LEGS:
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            kern.reset_launch_counts()
+            t = time.perf_counter()
+            out = gpt2_train.main(job["args"] + TP_LEGS[leg] + [
+                "--max_rounds", str(TP_ROUNDS), "--dataset_dir",
+                job["dataset_dir"], "--logdir",
+                os.path.join(work, f"tp_{leg}")])
+            wall = time.perf_counter() - t
+            sess = sessions.pop()
+            pv = sess.state.params_vec
+            ref = pv.clone()
+            dist.broadcast(ref, src=0)
+            twin = torch.load(os.path.join(work, "tp_twin.pt"),
+                              map_location=pv.device)
+            diff = (pv - twin).abs()
+            flipped = diff > TP_PARAM_TOL[0] + TP_PARAM_TOL[1] * twin.abs()
+            res["legs"][leg] = dict(
+                losses=[h["loss"] for h in out["history"]],
+                round_ms=[round(h["ms"], 3) for h in out["history"]],
+                launches=kern.launch_counts(), forms=kern.form_counts(),
+                round0=sess.round0,
+                grid=[sess.grid.workers.size, sess.grid.model.size,
+                      sess.grid.seq.size, sess.grid.rank],
+                params_equal_rank0=bool(torch.equal(pv, ref)),
+                flips=int(flipped.sum()),
+                flip_max=float(diff[flipped].max()) if bool(flipped.any())
+                else 0.0,
+                max_diff=float(diff.max()),
+                peak=(torch.cuda.max_memory_allocated() if on_card
+                      else None),
+                wall_s=round(wall, 3), device=str(sess.device),
+                backend=dist.get_backend(), val_nll=out.get("nll"),
+                expected=tp_round_collectives(
+                    sess.cfg, gpt2_train.gpt2_config(sess.cfg, 0), leg,
+                    sess.grad_size))
+            del sess, pv, ref, twin, diff, flipped, out
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tensor_parallel_phase(torch, kern, dataset_dir, work):
+    """Tensor and sequence parallelism (``parallel/tensor.py``,
+    ``sequence.py``, ``ring_attention.py``) on the card: GPT-2 small at
+    full width through ``gpt2_train.main`` with TP_ARGS for TP_ROUNDS
+    rounds, first in this process at axes 1 (the twin, whose final params
+    go to ``tp_twin.pt``), then each leg of TP_LEGS on two ranks of one
+    gloo group, two processes on ``cuda:0`` that run both legs
+    (``tp_rank_main``): the
+    model leg shards each client's heads and MLP hidden units over the
+    two, the seq leg its tokens (ring attention, the K/V shift staged
+    through pinned host buffers). Holds, on each rank: exit 0; losses
+    within TP_LOSS_TOL of the twin's; ``params_vec`` bit-equal to rank
+    0's; at most TP_FLIP_CAP params outside TP_PARAM_TOL of the twin's
+    (top-k boundary flips, counted and their largest printed); K1, K2 and
+    K3 launched 2, 1 and 2 times a round, as the twin; round 0's
+    collectives on the leg's group equal to ``tp_round_collectives`` (op,
+    count and bytes), none on the other groups, and the staged shifts one
+    a permute on the seq leg only; the peak memory recorded. Prints the
+    median round ms of each (the ranks time-share the card and every
+    collective goes through the host: not compared). Returns the summed
+    launch forms of the legs' ranks."""
+    from commefficient_tpu_torch.train import gpt2_train
+
+    t0 = time.perf_counter()
+    kept = []
+    base = gpt2_train.FederatedSession
+
+    class Kept(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            kept.append(self)
+
+    gpt2_train.FederatedSession = Kept
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset_launch_counts()
+        t = time.perf_counter()
+        out = gpt2_train.main(TP_ARGS + [
+            "--max_rounds", str(TP_ROUNDS), "--dataset_dir", dataset_dir,
+            "--logdir", os.path.join(work, "tp_twin")])
+        twin = dict(losses=[h["loss"] for h in out["history"]],
+                    round_ms=[round(h["ms"], 3) for h in out["history"]],
+                    launches=kern.launch_counts(),
+                    peak=torch.cuda.max_memory_allocated(),
+                    wall_s=round(time.perf_counter() - t, 3))
+        torch.save(kept[-1].state.params_vec.cpu(),
+                   os.path.join(work, "tp_twin.pt"))
+    finally:
+        gpt2_train.FederatedSession = base
+        del kept[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin_per = {w: n for w, n in twin["launches"].items() if n}
+    check(twin_per == {w: n * TP_ROUNDS for w, n in TP_LAUNCHES.items()},
+          f"tensor_parallel twin: launches {twin_per}")
+    with open(os.path.join(work, "tp_job.json"), "w") as f:
+        json.dump({"args": TP_ARGS, "dataset_dir": dataset_dir}, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    forms = []
+
+    def med(ms):
+        return statistics.median(ms[1:])
+
+    init = os.path.join(work, "tp_init")
+    outs = [os.path.join(work, f"tp_rank{r}.json") for r in range(2)]
+    t_legs = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         init, outs[r], work], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+        check(p.returncode == 0, f"tensor_parallel: rank {r} exited "
+              f"{p.returncode}")
+    per_rank = []
+    for path in outs:
+        with open(path) as f:
+            per_rank.append(json.load(f))
+    for rk in per_rank:
+        check(not rk["nvcc_s"], f"tensor_parallel rank {rk['rank']}: built "
+              f"the library again ({rk['nvcc_s']})")
+    for leg in TP_LEGS:
+        ranks = [dict(rk["legs"][leg], rank=rk["rank"]) for rk in per_rank]
+        other = "seq" if leg == "model" else "model"
+        r0 = ranks[0]
+        phase("tensor_parallel", card=repr(card_line()), leg=leg, ranks=2,
+              backend="gloo", rounds=TP_ROUNDS,
+              losses=json.dumps(r0["losses"]),
+              twin_losses=json.dumps(twin["losses"]),
+              loss_max_abs_diff=max(abs(a - b) for a, b in zip(
+                  r0["losses"], twin["losses"])),
+              params_bit_equal_to_rank0=json.dumps(
+                  [rk["params_equal_rank0"] for rk in ranks]),
+              flips=json.dumps([rk["flips"] for rk in ranks]),
+              flip_max=json.dumps([rk["flip_max"] for rk in ranks]),
+              param_max_abs_diff=json.dumps([rk["max_diff"]
+                                             for rk in ranks]),
+              launches_a_round_each_rank=json.dumps(TP_LAUNCHES),
+              round0_collectives=json.dumps(r0["round0"][leg]),
+              expected_collectives=json.dumps(r0["expected"]),
+              peak=json.dumps([rk["peak"] for rk in ranks]),
+              twin_peak=twin["peak"],
+              round_ms=json.dumps([rk["round_ms"] for rk in ranks]),
+              median_round_ms=json.dumps([med(rk["round_ms"])
+                                          for rk in ranks]),
+              twin_round_ms=json.dumps(twin["round_ms"]),
+              twin_median_round_ms=med(twin["round_ms"]),
+              val_nll=json.dumps([rk["val_nll"] for rk in ranks]),
+              run_wall_s=json.dumps([rk["wall_s"] for rk in ranks]))
+        for rk in ranks:
+            r = rk["rank"]
+            what = f"tensor_parallel {leg} rank {r}"
+            check(rk["device"] == "cuda:0" and rk["backend"] == "gloo",
+                  f"{what}: {rk['device']} over {rk['backend']}")
+            check(rk["grid"] == ([1, 2, 1, r] if leg == "model"
+                                 else [1, 1, 2, r]),
+                  f"{what}: grid {rk['grid']}")
+            check(len(rk["losses"]) == TP_ROUNDS
+                  and all(math.isfinite(x) for x in rk["losses"]),
+                  f"{what}: losses {rk['losses']}")
+            check(all(abs(a - b) <= TP_LOSS_TOL[1] + TP_LOSS_TOL[0] * abs(b)
+                      for a, b in zip(rk["losses"], twin["losses"])),
+                  f"{what}: losses {rk['losses']} against the twin's "
+                  f"{twin['losses']}")
+            check(rk["params_equal_rank0"], f"{what}: params_vec differs "
+                  "from rank 0's")
+            check(rk["flips"] <= TP_FLIP_CAP, f"{what}: {rk['flips']} "
+                  f"params off the twin's (max {rk['flip_max']:.3e})")
+            per = {w: n for w, n in rk["launches"].items() if n}
+            check(per == twin_per, f"{what}: launches {per} against the "
+                  f"twin's {twin_per}")
+            got = {k: v for k, v in rk["round0"][leg].items()
+                   if k != "staged"}
+            check(got == rk["expected"], f"{what}: round 0's collectives "
+                  f"{got}, expected {rk['expected']}")
+            permutes = rk["expected"].get("collective-permute",
+                                          {"count": 0, "bytes": 0})
+            check(rk["round0"][leg]["staged"] == permutes,
+                  f"{what}: staged {rk['round0'][leg]['staged']}")
+            check(rk["round0"][other] is None
+                  and rk["round0"]["workers"] is None,
+                  f"{what}: collectives off the leg's group "
+                  f"{rk['round0']}")
+            check(rk["peak"] and rk["peak"] > 0, f"{what}: peak memory")
+            forms.append(rk["forms"])
+    phase("tensor_parallel_wall", twin_wall_s=twin["wall_s"],
+          legs_wall_s=round(time.perf_counter() - t_legs, 3),
+          wall_s=round(time.perf_counter() - t0, 3))
+    return add_forms(*forms)
+
+
 def main() -> int:
     import torch
 
@@ -6132,6 +6462,11 @@ def main() -> int:
     # the host axis: two gloo ranks on the card, 2 hosts against 1
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         paths["multihost"] = multihost_phase(torch, kern, dataset_dir, work)
+    # tensor and sequence parallelism: GPT-2 at model 2 and at seq 2 on two
+    # gloo ranks, against the one-process twin
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        paths["tensor_parallel"] = tensor_parallel_phase(torch, kern,
+                                                         dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers
@@ -6169,4 +6504,6 @@ if __name__ == "__main__":
         sys.exit(round_ms_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost-rank"]:
         sys.exit(multihost_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -172,13 +172,14 @@ def mlp(blk, x: torch.Tensor, dtype) -> torch.Tensor:
     return dense(blk["mlp"]["c_proj"], h, dtype)
 
 
-def _block(blk, x: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+def _block(blk, x: torch.Tensor, cfg: GPT2Config,
+           attn_fn=dense_causal_attention) -> torch.Tensor:
     dt, eps, H = cfg.dtype, cfg.layer_norm_epsilon, cfg.n_head
     B, T, E = x.shape
     qkv = dense(blk["attn"]["c_attn"], layer_norm(x, blk["ln_1"], eps, dt),
                 dt)
     q, k, v = (split_heads(u, H) for u in qkv.split(E, dim=-1))
-    out = dense_causal_attention(q, k, v).transpose(1, 2).reshape(B, T, E)
+    out = attn_fn(q, k, v).transpose(1, 2).reshape(B, T, E)
     x = x + dense(blk["attn"]["c_proj"], out, dt)
     return x + mlp(blk, layer_norm(x, blk["ln_2"], eps, dt), dt)
 
@@ -195,13 +196,20 @@ def embed(t, ids: torch.Tensor, positions: torch.Tensor,
 
 def gpt2_backbone(params, input_ids: torch.Tensor,
                   token_type_ids: Optional[torch.Tensor],
-                  cfg: GPT2Config) -> torch.Tensor:
-    """``[B, T]`` ids -> ``[B, T, E]`` hidden states after ``ln_f``."""
+                  cfg: GPT2Config, attn_fn=dense_causal_attention,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[B, T]`` ids -> ``[B, T, E]`` hidden states after ``ln_f``.
+    ``attn_fn`` (``[B, H, T, hd]`` q/k/v -> out) and ``positions`` (the
+    tokens' global positions, ``arange(T)`` when None) are the reference's
+    hooks: the sequence-parallel forward passes ring attention and its
+    block's positions (``parallel/sequence.py``)."""
     t = params["params"]["transformer"]
-    positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
+    if positions is None:
+        positions = torch.arange(input_ids.shape[-1],
+                                 device=input_ids.device)
     h = embed(t, input_ids, positions, token_type_ids, cfg.dtype)
     for i in range(cfg.n_layer):
-        h = _block(t[f"h_{i}"], h, cfg)
+        h = _block(t[f"h_{i}"], h, cfg, attn_fn)
     return layer_norm(h, t["ln_f"], cfg.layer_norm_epsilon, cfg.dtype)
 
 

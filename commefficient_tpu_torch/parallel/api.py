@@ -56,7 +56,7 @@ from commefficient_tpu_torch.parallel.envelope import (
     predicted_dc_max,
     stable_dc_bound,
 )
-from commefficient_tpu_torch.parallel.mesh import local_rank, make_worker_group
+from commefficient_tpu_torch.parallel.mesh import local_rank, make_grid
 from commefficient_tpu_torch.compress.base import KIND_DENSE
 from commefficient_tpu_torch.parallel.round import (
     FedState,
@@ -273,14 +273,33 @@ class FederatedSession:
     rows ahead, and ``close_client_store`` ends the streamer. In a worker
     group every rank's streamer holds the whole bank, gathers its own
     clients' rows and writes back the whole cohort's, so the banks stay
-    identical, as the device banks do."""
+    identical, as the device banks do.
+
+    The process grid (``grid``, ``parallel/mesh.py make_grid`` unless the
+    caller passes one): ``group`` is its workers group, which every round
+    path uses; ``cfg.model_axis``/``cfg.seq_axis`` add its model and seq
+    groups, over which a loss may shard its compute (``parallel/
+    tensor.py``'s ``build_tp_flat_loss``, whose ``grad_total`` the round
+    applies). Every rank of a model/seq group holds the same state; rank 0
+    of the grid (``is_lead``) alone prints and writes. ``eval_fn``
+    replaces the eval step built from ``loss_fn`` (``round.build_eval_fn``),
+    as the reference's session takes it; one marked ``every_rank`` (the
+    TP/SP eval) has collectives, and every rank runs it
+    (``eval_on_every_rank``)."""
 
     def __init__(self, cfg, params: Any, loss_fn: Callable,
-                 mask_batch: Callable = mask_classification):
+                 mask_batch: Callable = mask_classification, *,
+                 grid=None, eval_fn: Optional[Callable] = None):
         self.cfg = cfg
-        self.group = make_worker_group(cfg)
+        self.grid = grid if grid is not None else make_grid(cfg)
+        self.group = self.grid.workers
+        if cfg.sketch_fused_bwd and hasattr(loss_fn, "grad_total"):
+            raise ValueError(
+                "sketch_fused_bwd with a model/seq-sharded loss is not "
+                "ported yet: the fused backward sketches each rank's "
+                "partial gradient before the grid's totals (ROADMAP A17b)")
         self.device = resolve_device(cfg.device)
-        if self.device.type == "cuda" and self.group.size > 1:
+        if self.device.type == "cuda" and self.grid.size > 1:
             self.device = torch.device("cuda", local_rank())
             torch.cuda.set_device(self.device)
         vec, unravel = ravel_params(params)
@@ -359,7 +378,8 @@ class FederatedSession:
         # resilience/* scalars ride each round's metrics
         self._client_blacklist: Optional[np.ndarray] = None
         self.resilience = None
-        self.eval_fn = build_eval_fn(loss_fn, unravel, mask_batch)
+        self.eval_fn = (eval_fn if eval_fn is not None
+                        else build_eval_fn(loss_fn, unravel, mask_batch))
         # the training set on the device (attach_data), else None; which
         # data path the rounds take is ``data_path``
         self.dev_data: Optional[Dict[str, torch.Tensor]] = None
@@ -1462,6 +1482,18 @@ class FederatedSession:
     @property
     def params(self):
         return self.unravel(self.full_params_vec())
+
+    @property
+    def is_lead(self) -> bool:
+        """Rank 0 of the whole grid: the rank that prints, evaluates for
+        the record and writes the run's files and checkpoints."""
+        return self.grid.lead
+
+    @property
+    def eval_on_every_rank(self) -> bool:
+        """Whether the eval step has collectives, so every rank of the
+        grid must run it (the TP/SP eval)."""
+        return bool(getattr(self.eval_fn, "every_rank", False))
 
     def bytes_per_round(self) -> Dict[str, int]:
         """Upload/download bytes per participating client at the active

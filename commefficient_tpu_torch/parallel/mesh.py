@@ -21,8 +21,27 @@ what the round needs, with collectives that both backends implement:
   (one collective a leaf group or a segment, issued while other work
   runs: the layerwise overlap).
 
+* ``shift(t, step)``: send ``t`` to rank ``rank + step`` and receive
+  the tensor of rank ``rank - step`` (modulo ``size``): ``ppermute`` with
+  the ring permutation, the K/V rotation of ring attention.
+
 ``SingleWorker`` is the one-device group: its collectives are identities
 and it needs no ``torch.distributed`` at all.
+
+Point-to-point (``exchange``, ``shift``) on a gloo group with a CUDA
+tensor is staged through pinned host buffers: gloo's ``isend``/``irecv``
+cannot carry a CUDA pointer (its collectives stage CUDA tensors
+themselves). The staging is transport only: the tensor goes to the host,
+across, and back to its device; NCCL groups and CPU tensors never take
+it, and ``CollectiveCounter.staged`` counts each staged call.
+
+The process grid (``make_grid``): the reference's mesh is ``(workers,
+model, seq)``; the port runs one process per mesh position, rank ``w * M
+* S + m * S + s`` (the mesh's device order), and builds three groups: the
+workers group (the ranks sharing ``(m, s)``: the round's data partition
+and every round collective), the model group (sharing ``(w, s)``) and
+the seq group (sharing ``(w, m)``). A group of one rank is a
+``SingleWorker``; each group counts its own collectives.
 
 The host axis (``cfg.num_hosts``, multihost/): a group of ``size`` ranks
 over ``hosts`` hosts is host-major, as ``torchrun`` numbers its ranks
@@ -70,6 +89,9 @@ class CollectiveCounter:
         self.ops = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
         self.max_all_gather_elems = None
         self.max_all_reduce_elems = None
+        # point-to-point calls staged through pinned host memory (gloo
+        # with a CUDA tensor): {"count", "bytes"} of the tensors sent
+        self.staged = {"count": 0, "bytes": 0}
 
     def add(self, op: str, elems: int, nbytes: int) -> None:
         self.ops[op]["count"] += 1
@@ -122,6 +144,9 @@ class SingleWorker:
         return t
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
         return t
 
     def all_reduce_sum_async(self, t: torch.Tensor):
@@ -201,15 +226,37 @@ class DistributedWorkers:
 
     def exchange(self, t: torch.Tensor, partner: int) -> torch.Tensor:
         _count(self.counter, "collective-permute", t)
+        return self._p2p(t, partner, partner)
+
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Send ``t`` to rank ``rank + step`` and receive rank ``rank -
+        step``'s tensor of the same shape (modulo ``size``)."""
+        _count(self.counter, "collective-permute", t)
+        return self._p2p(t, (self.rank + step) % self.size,
+                         (self.rank - step) % self.size)
+
+    def _peer(self, r: int) -> int:
+        return dist.get_global_rank(self.group, r) \
+            if self.group is not None else r
+
+    def _p2p(self, t: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+        """``t`` sent to group rank ``to``, a tensor like it received from
+        ``frm``; through pinned host buffers on gloo with a CUDA tensor."""
         t = t.contiguous()
-        out = torch.empty_like(t)
-        peer = dist.get_global_rank(self.group, partner) \
-            if self.group is not None else partner
+        staged = t.is_cuda and dist.get_backend(self.group) == "gloo"
+        if staged:
+            self.counter.staged["count"] += 1
+            self.counter.staged["bytes"] += t.numel() * t.element_size()
+            send = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            send.copy_(t)
+        else:
+            send = t
+        out = torch.empty_like(send)
         for req in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, t, peer, self.group),
-                dist.P2POp(dist.irecv, out, peer, self.group)]):
+                dist.P2POp(dist.isend, send, self._peer(to), self.group),
+                dist.P2POp(dist.irecv, out, self._peer(frm), self.group)]):
             req.wait()
-        return out
+        return out.to(t.device) if staged else out
 
     def all_reduce_sum_async(self, t: torch.Tensor):
         _count(self.counter, "all-reduce", t)
@@ -225,26 +272,102 @@ class DistributedWorkers:
         return _Pending(work, lambda: torch.cat(parts))
 
 
-def make_worker_group(cfg):
-    """The group for ``cfg.num_devices`` devices over ``cfg.num_hosts``
-    hosts. One device needs no process group; more need an initialized
-    default group of exactly that size (one process per device), which
-    ``torchrun`` and ``join_from_env`` provide, and which must split into
-    the hosts."""
+# the grid's axes, as the reference's mesh names them (a Grid's attributes)
+WORKERS, MODEL, SEQ = "workers", "model", "seq"
+
+
+class Grid:
+    """The process grid of ``make_grid``: the ``workers``, ``model`` and
+    ``seq`` groups of this rank, its ``rank`` in the whole grid and the
+    grid's ``size`` (``workers.size * model.size * seq.size``)."""
+
+    def __init__(self, workers, model, seq, rank: int = 0):
+        self.workers, self.model, self.seq = workers, model, seq
+        self.rank = int(rank)
+        self.size = workers.size * model.size * seq.size
+
+    @property
+    def lead(self) -> bool:
+        """Rank 0 of the whole grid: the one rank that prints and
+        writes."""
+        return self.rank == 0
+
+
+def _subgroup(ranks, rank: int):
+    """``dist.new_group(ranks)`` (every rank of the world calls it, in the
+    same order), as this rank's group when it is a member."""
+    g = dist.new_group(ranks)
+    return DistributedWorkers(g) if rank in ranks else None
+
+
+def build_grid(workers: int, model: int = 1, seq: int = 1,
+               hosts: int = 1) -> Grid:
+    """The ``workers x model x seq`` grid over the initialized default
+    group (whose size must be the product; one process needs none).
+    Every rank creates every subgroup in the same order: the workers
+    groups by ``(m, s)``, the model groups by ``(w, s)``, the seq groups
+    by ``(w, m)``."""
+    W, M, S = int(workers), int(model), int(seq)
+    if not (dist.is_available() and dist.is_initialized()):
+        return Grid(SingleWorker(), SingleWorker(), SingleWorker())
+    rank = dist.get_rank()
+    if M * S == 1:  # the default group is the workers group
+        return Grid(DistributedWorkers(hosts=hosts), SingleWorker(),
+                    SingleWorker(), rank)
+    w, m, s = rank // (M * S), rank // S % M, rank % S
+
+    def at(w_, m_, s_):
+        return w_ * M * S + m_ * S + s_
+
+    layouts = {
+        "workers": [[at(x, a, b) for x in range(W)]
+                    for a in range(M) for b in range(S)],
+        "model": [[at(a, x, b) for x in range(M)]
+                  for a in range(W) for b in range(S)],
+        "seq": [[at(a, b, x) for x in range(S)]
+                for a in range(W) for b in range(M)],
+    }
+    mine = {}
+    for name, groups in layouts.items():
+        if len(groups[0]) == 1:
+            mine[name] = SingleWorker()
+            continue
+        for ranks in groups:
+            g = _subgroup(ranks, rank)
+            if g is not None:
+                mine[name] = g
+    assert (mine["workers"].rank, mine["model"].rank,
+            mine["seq"].rank) == (w, m, s)
+    return Grid(mine["workers"], mine["model"], mine["seq"], rank)
+
+
+def make_grid(cfg) -> Grid:
+    """The grid of ``cfg.num_devices`` workers x ``cfg.model_axis`` x
+    ``cfg.seq_axis``, one process per position. One position needs no
+    process group; more need an initialized default group of exactly
+    that size, which ``torchrun`` and ``join_from_env`` provide (the
+    workers group must split into ``cfg.num_hosts`` hosts)."""
+    W = int(cfg.num_devices)
+    M, S = int(cfg.model_axis), int(cfg.seq_axis)
+    need = W * M * S
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
-    if world != cfg.num_devices:
+    if world != need:
         raise RuntimeError(
-            f"num_devices={cfg.num_devices} but the torch.distributed group "
-            f"has {world} process(es)"
+            f"num_devices={W} x model_axis={M} x seq_axis={S} needs {need} "
+            f"process(es) but the torch.distributed group has {world}"
             + ("" if initialized else " (none is initialized)")
-            + ": run one process per device, e.g. `torchrun "
-            f"--nproc_per_node {cfg.num_devices} -m "
+            + ": run one process per grid position, e.g. `torchrun "
+            f"--nproc_per_node {need} -m "
             "commefficient_tpu_torch.train.cv_train ... --num_devices "
-            f"{cfg.num_devices}`")
-    if not initialized:
-        return SingleWorker()
-    return DistributedWorkers(hosts=int(cfg.num_hosts))
+            f"{W} --model_axis {M} --seq_axis {S}`")
+    return build_grid(W, M, S, hosts=int(cfg.num_hosts))
+
+
+def make_worker_group(cfg):
+    """The workers group of ``make_grid(cfg)``: ``cfg.num_devices``
+    devices over ``cfg.num_hosts`` hosts."""
+    return make_grid(cfg).workers
 
 
 def local_rank() -> int:
@@ -334,12 +457,13 @@ def join_from_env(cfg) -> bool:
       alternative is a one-process run silently pretending to be a
       cluster), the connect retries with backoff, and the joined group
       must have ``num_hosts`` nodes of ``num_devices`` ranks in all.
-    * otherwise: one attempt when ``cfg.num_devices > 1`` and
-      ``torchrun``'s ``WORLD_SIZE`` is set; without it nothing is
-      initialized, and ``make_worker_group`` names what is missing."""
+    * otherwise: one attempt when the grid has more than one position
+      (``num_devices x model_axis x seq_axis``) and ``torchrun``'s
+      ``WORLD_SIZE`` is set; without it nothing is initialized, and
+      ``make_grid`` names what is missing."""
+    grid = cfg.num_devices * cfg.model_axis * cfg.seq_axis
     start = not dist.is_initialized() and (
-        cfg.distributed or (cfg.num_devices > 1
-                            and "WORLD_SIZE" in os.environ))
+        cfg.distributed or (grid > 1 and "WORLD_SIZE" in os.environ))
     if start:
         if cfg.distributed and any(not os.environ.get(k)
                                for k in COORDINATOR_ENV):

@@ -259,7 +259,11 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable,
     give the sketch-fused backward's cotangents bit for bit, and
     ``torch.func.grad`` cannot: it always records the backward's own
     graph, which switches group norm's backward from the fused kernel
-    to a composite."""
+    to a composite.
+
+    A loss with a ``grad_total`` attribute (``parallel/tensor.py``'s
+    TP/SP loss) has it applied to the raw flat gradient, before weight
+    decay, the clip and the noise."""
 
     sigma = (cfg.dp_noise_multiplier * cfg.max_grad_norm
              if cfg.dp_noise_multiplier > 0 else 0.0)
@@ -269,6 +273,7 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable,
         return loss, (loss, aux)
 
     grad_leaves = torch.func.grad(loss_of_leaves, has_aux=True)
+    grad_total = getattr(loss_fn, "grad_total", None)
 
     def leaf_grads(tree, batch):
         """(each leaf's gradient in ravel order, loss, aux)."""
@@ -287,6 +292,8 @@ def make_grad_one(cfg, loss_fn: Callable, unravel: Callable,
     def grad_one(params_vec, batch, noise_key=None, noise=None):
         grads, loss, aux = leaf_grads(unravel(params_vec.detach()), batch)
         g = torch.cat([gi.reshape(-1) for gi in grads]).to(torch.float32)
+        if grad_total is not None:
+            g = grad_total(g)
         if cfg.weight_decay:
             g = g + cfg.weight_decay * params_vec
         g = clip_by_global_norm(g, cfg.max_grad_norm)

@@ -153,7 +153,9 @@ def build_telemetry_riders(cfg, session, writer):
     flight = FlightRecorder(
         cfg, logdir=writer.logdir,
         extra_meta={"grad_size": session.grad_size,
-                    "mesh": {"workers": session.group.size},
+                    "mesh": {"workers": session.group.size,
+                             "model": session.grid.model.size,
+                             "seq": session.grid.seq.size},
                     "artifacts": run_artifacts(cfg, writer.logdir)},
         # the dump's controller block: the controller is attached to the
         # session before the riders are built

@@ -244,7 +244,7 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
                          local_batch_size=cfg.sampler_batch_size,
                          seed=cfg.seed, augment=augment)
     session.maybe_attach_data(train, sampler, augment)
-    say = print if session.group.rank == 0 else (lambda *a, **k: None)
+    say = print if session.is_lead else (lambda *a, **k: None)
     say(f"dataset={cfg.dataset_name} (real={real}) model={cfg.model} "
         f"mode={cfg.mode} clients={train.num_clients} "
         f"workers={cfg.num_workers} devices={session.group.size} "
@@ -263,7 +263,7 @@ def _train(cfg: Config, eval_batch_size: int, model_kw: dict):
     pipeline_stats = {}
     writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg,
                             extra_header=controller_header(session))
-              if session.group.rank == 0 else None)
+              if session.is_lead else None)
     try:
         val, history, ckpt = run_train_loop(
             cfg, session, sampler, _CvHooks(session, test, eval_batch_size),

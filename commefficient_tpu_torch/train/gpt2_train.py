@@ -29,6 +29,15 @@ On the CPU, at the tests' size:
       --num_clients 4 --num_workers 2 --local_batch_size 2 \\
       --max_seq_len 64 --num_epochs 1 --device cpu
 
+Tensor and sequence parallelism (``--model_axis M --seq_axis S``, the
+reference's flags) shard each client's loss over a grid of ``num_devices
+x M x S`` processes, on the CPU:
+
+  torchrun --nproc_per_node 8 -m commefficient_tpu_torch.train.gpt2_train \\
+      --model gpt2_tiny --num_clients 4 --num_workers 2 \\
+      --local_batch_size 2 --max_seq_len 64 --num_epochs 1 --device cpu \\
+      --num_devices 2 --model_axis 2 --seq_axis 2
+
 Real GPT-2 weights are mapped in from ``--model_checkpoint`` (a directory
 holding ``pytorch_model.bin``) when it exists; otherwise the model starts
 from its seeded random init (``hf_weights=False`` in the first line).
@@ -62,8 +71,16 @@ from commefficient_tpu_torch.models.generate import generate
 from commefficient_tpu_torch.models.hf_gpt2 import load_hf_gpt2_params
 from commefficient_tpu_torch import native
 from commefficient_tpu_torch.control import controller_header
+from commefficient_tpu_torch.ops.param_utils import make_unravel, tree_leaves
 from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
-from commefficient_tpu_torch.parallel.mesh import distributed_from_env
+from commefficient_tpu_torch.parallel.mesh import (
+    distributed_from_env,
+    make_grid,
+)
+from commefficient_tpu_torch.parallel.tensor import (
+    build_tp_eval_fn,
+    build_tp_flat_loss,
+)
 from commefficient_tpu_torch.resilience import EXIT_PREEMPTED, PreemptShutdown
 from commefficient_tpu_torch.train.runner import WorkloadHooks, run_train_loop
 from commefficient_tpu_torch.utils.config import Config, parse_args
@@ -215,7 +232,8 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
     ``--telemetry_level``, as cv_train) and ``control`` (the control
     plane's controller ``snapshot()``, None without it). Under
     ``torchrun`` with ``--num_devices N`` each process is one rank; rank 0
-    alone evaluates and prints."""
+    alone evaluates and prints. With ``--model_axis M --seq_axis S`` the
+    grid runs ``N * M * S`` processes (``build_session``)."""
     cfg = parse_args(argv, defaults=DEFAULTS, **overrides)
     if cfg.model not in ("gpt2", "gpt2_tiny"):
         raise ValueError(f"gpt2_train trains gpt2 | gpt2_tiny, got model="
@@ -224,17 +242,38 @@ def main(argv=None, eval_batch_size: int = 8, **overrides):
         return _train(cfg, eval_batch_size)
 
 
+def build_session(cfg: Config, gcfg: GPT2Config, params, loss_fn):
+    """The run's session: with ``model_axis`` or ``seq_axis`` > 1 the
+    loss and the eval are sharded over the grid's model group (heads, MLP
+    hidden) and seq group (tokens, ring attention), the reference's
+    branch (``parallel/tensor.py``); the params and the compression stay
+    the replicated flat vector. Otherwise ``loss_fn``, the dense loss."""
+    if cfg.model_axis == 1 and cfg.seq_axis == 1:
+        return FederatedSession(cfg, params, loss_fn, mask_batch=mask_gpt2)
+    grid = make_grid(cfg)
+    unravel = make_unravel([(path, tuple(t.shape))
+                            for path, t in tree_leaves(params)])
+    return FederatedSession(
+        cfg, params,
+        build_tp_flat_loss(gcfg, grid, cfg.lm_coef, cfg.mc_coef,
+                           compute_dtype=cfg.compute_dtype),
+        mask_batch=mask_gpt2, grid=grid,
+        eval_fn=build_tp_eval_fn(gcfg, grid, unravel, cfg.lm_coef,
+                                 cfg.mc_coef,
+                                 compute_dtype=cfg.compute_dtype))
+
+
 def _train(cfg: Config, eval_batch_size: int):
     train, test, real, hf_loaded, gcfg, params, loss_fn = (
         build_model_and_data(cfg))
-    session = FederatedSession(cfg, params, loss_fn, mask_batch=mask_gpt2)
+    session = build_session(cfg, gcfg, params, loss_fn)
     sampler = FedSampler(train, num_workers=cfg.num_workers,
                          local_batch_size=cfg.sampler_batch_size,
                          seed=cfg.seed)
     # the token arrays live on the device when they fit; rounds ship only
     # [W, B] indices
     session.maybe_attach_data(train, sampler)
-    say = print if session.group.rank == 0 else (lambda *a, **k: None)
+    say = print if session.is_lead else (lambda *a, **k: None)
     say(f"dataset=personachat (real={real}) model={cfg.model} "
         f"(V={gcfg.vocab_size}, L={gcfg.n_layer}, E={gcfg.n_embd}, "
         f"hf_weights={hf_loaded}) mode={cfg.mode} "
@@ -244,6 +283,9 @@ def _train(cfg: Config, eval_batch_size: int):
         f"aggregate={session.aggregate_resolved} data={session.data_path} "
         f"native={'yes' if native.available() else 'no'} "
         f"pipeline_depth={cfg.pipeline_depth}")
+    if cfg.model_axis > 1 or cfg.seq_axis > 1:
+        say(f"mesh: workers={cfg.num_devices} x model={cfg.model_axis} "
+            f"x seq={cfg.seq_axis}")
     if not real:
         say("WARNING: personachat json not found — synthetic stand-in "
             "(pipeline-correct; metrics are not paper numbers)")
@@ -255,7 +297,7 @@ def _train(cfg: Config, eval_batch_size: int):
     pipeline_stats = {}
     writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg,
                             extra_header=controller_header(session))
-              if session.group.rank == 0 else None)
+              if session.is_lead else None)
     try:
         val, history, ckpt = run_train_loop(
             cfg, session, sampler, hooks,

@@ -247,12 +247,13 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
     ``generated_by`` names the entry point in the run's reports.
 
     In a worker group every rank draws the same rounds (same sampler
-    seed) and trains; rank 0 alone evaluates, prints and writes
-    checkpoints and telemetry (under FSDP every rank first takes part in
-    the params' gather), and the other ranks return empty val metrics.
+    seed) and trains; rank 0 of the grid alone evaluates, prints and
+    writes checkpoints and telemetry (under FSDP every rank first takes
+    part in the params' gather, and a model/seq-sharded eval runs on
+    every rank), and the other ranks return empty val metrics.
     Epochs wholly before the resumed round are skipped, evaluation
     included."""
-    main = session.group.rank == 0
+    main = session.is_lead
     steps_per_epoch = sampler.steps_per_epoch()
     num_rounds = steps_per_epoch * cfg.num_epochs
     if session.fedsim_env is not None:
@@ -496,6 +497,10 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                     if epoch > completed_epoch:
                         if cfg.fsdp:  # every rank gathers what rank 0 reads
                             session.full_params_vec()
+                        if session.eval_on_every_rank and not main:
+                            # a model/seq-sharded eval: every rank takes
+                            # part in its collectives, rank 0 reports
+                            hooks.evaluate()
                         if main:
                             timer()
                             val = hooks.evaluate()

@@ -19,8 +19,8 @@ every save and verified by ``restore``, which walks back to the next
 older step when the newest fails (a named step is restored strictly);
 restore refuses a checkpoint of another model (``grad_size``) or of
 another sketch layout. Files are written to a temporary name and renamed,
-so a killed save leaves no partial step. In a worker group rank 0 writes
-and every rank restores. A sharded leaf (``FederatedSession.
+so a killed save leaves no partial step. In a worker group rank 0 of the
+grid writes and every rank restores. A sharded leaf (``FederatedSession.
 sharded_leaves``: true_topk's state under sparse aggregation, FSDP's
 params and dense state) is saved whole, as the padded ``[padded_dim]``
 vector every rank's slice is gathered into (``full_state``: every rank
@@ -166,7 +166,7 @@ class FedCheckpointer:
         # 0 decides whether to write
         st = session.full_state() if session.sharded_leaves else \
             session.state
-        if session.group.rank != 0 or round_idx in self.all_steps():
+        if not session.is_lead or round_idx in self.all_steps():
             return False
         blob = {"format": FORMAT, "grad_size": int(session.grad_size),
                 "fed_state": {f: _to_host(getattr(st, f)) for f in _LEAVES}}

@@ -4,8 +4,9 @@ Every field of the reference's ``Config`` (``commefficient_tpu/utils/
 config.py``) is here, with its name, type, default and CLI flag, so a
 reference command line parses unchanged. A knob the port does not run yet
 is REFUSED at construction, unless at its default, with a ``ValueError``
-naming the blocker and the ROADMAP item that lifts it (``_UNPORTED``) —
-nothing runs quietly with a setting ignored. ``perf_audit`` and
+naming the blocker and the ROADMAP item that lifts it (``_UNPORTED``,
+empty since ROADMAP A17 lifted ``model_axis`` and ``seq_axis``) — nothing
+runs quietly with a setting ignored. ``perf_audit`` and
 ``run_report`` (on by default, as in the reference) write
 ``perf_report.json`` and ``run_report.json`` at ``telemetry_level >= 1``;
 ``profile_rounds`` ("A-B") traces those rounds with ``torch.profiler``.
@@ -57,10 +58,9 @@ AVAILABILITY_MODELS = ("always", "bernoulli", "cohort", "poisson", "sine")
 RECOVER_POLICIES = ("none", "retry", "demote", "skip_clients")
 
 # field -> ROADMAP item that ports it; any value but the default is refused
-_UNPORTED = {
-    "model_axis": "tensor parallelism (ROADMAP A17)",
-    "seq_axis": "sequence parallelism (ROADMAP A17)",
-}
+# (empty since the tensor and sequence parallelism of ROADMAP A17; the
+# check stays for later items)
+_UNPORTED: dict = {}
 # cv_train's models (``resnet50`` is the reference's alias of
 # ``fixup_resnet50``) and gpt2_train's
 CV_MODELS = ("resnet9", "fixup_resnet50", "resnet50")
@@ -325,7 +325,13 @@ class Config:
     max_retraces: Optional[int] = None
     scan_rounds: int = 0
 
-    # --- refused until their ROADMAP item lands (see _UNPORTED) ---
+    # --- the grid beyond the workers (parallel/mesh.py make_grid): the
+    # model (heads and MLP hidden, Megatron-style) and seq (tokens, ring
+    # attention) axes of each client's loss compute; the grid runs
+    # num_devices x model_axis x seq_axis processes, and the params and
+    # the compression stay the replicated flat vector. gpt2_train shards
+    # its loss over them (parallel/tensor.py); cv_train's loss is not
+    # sharded, and every rank of a model/seq group runs the same round ---
     model_axis: int = 1
     seq_axis: int = 1
 
@@ -367,6 +373,11 @@ class Config:
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"{blocker}; leave it at {default!r}"
                 )
+        if self.model_axis < 1 or self.seq_axis < 1:
+            raise ValueError(
+                f"model_axis/seq_axis must be >= 1, got "
+                f"{self.model_axis}/{self.seq_axis}"
+            )
         self._validate_control()
         self._validate_resilience()
         from commefficient_tpu_torch.telemetry import TELEMETRY_LEVELS

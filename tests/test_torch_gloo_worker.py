@@ -44,7 +44,10 @@ and every round's ``multihost/*`` scalars (``mh:<name>/<key>``,
 ``[rounds]``; ``mh:<name>/keys`` lists the round's keys);
 ``foreign_nan``, names of ``cases`` run again on batches laid out by
 ``multihost.assemble_rows`` from the rank's own host's rows, every row
-the rank does not compute NaN (``nan:<name>``, written as ``cases``).
+the rank does not compute NaN (``nan:<name>``, written as ``cases``);
+``tp``, the tensor and sequence parallelism of ``parallel/tensor.py``,
+``sequence.py`` and ``ring_attention.py`` on grids of the world's ranks
+(``run_tp``).
 
 Started as ``python tests/test_torch_gloo_worker.py node INPUT_NPZ
 OUTPUT_NPZ FLAGS...`` with the env:// variables of one node of a
@@ -300,6 +303,158 @@ def run_foreign_nan(job, npz, out):
         _write_state(out, f"nan:{name}", sess, losses)
 
 
+def _grid_key(grid) -> str:
+    return "x".join(map(str, grid))
+
+
+def run_tp(job, npz, out):
+    """``tp``: on each ``workers x model x seq`` grid of the world's ranks
+    (``parallel.mesh.build_grid``), every rank writes what it computes,
+    whole (the token blocks gathered over the seq group):
+
+    * ``ring``: ``[W, M, S, causal]`` cases of ``ring_attention`` on the
+      input's ``ring/q|k|v`` and the gradient of ``sum(out * ring/w)``
+      (``ring:<grid>:<causal>/out|dq|dk|dv``);
+    * ``apply``: grids of ``tp_gpt2_apply`` (``apply:<grid>/lm|mc``) and,
+      with a seq group, ``sp_gpt2_apply`` (``sp:<grid>/lm|mc``) on the
+      ``apply_params`` and ``apply/ids|tt|mc``;
+    * ``loss``: grids of ``build_tp_flat_loss`` through
+      ``make_grad_one`` on the ``fed_params``: vmapped over the clients of
+      ``loss/<key>`` (``[w, B, N, T]``: ``loss:<grid>/grad``, ``/loss``,
+      ``/<aux>``) and on client 0 alone with ``batched=False``
+      (``loss:<grid>/grad1``, ``/loss1``);
+    * ``round``: a ``Config`` of the TP/SP loss's session run over the
+      input's ``round/ids`` and ``round/<key>`` rounds (``round/losses``,
+      ``round/params``);
+    * ``eval``: ``build_tp_eval_fn``'s session metrics over the input's
+      ``eval/<i>/<key>`` batches (``eval/<metric>``)."""
+    tp = job.get("tp")
+    if not tp:
+        return
+    # eight ranks share the CPU: one thread each (a tiny product on many
+    # threads is many times slower)
+    torch.set_num_threads(1)
+    from commefficient_tpu_torch.models import (
+        GPT2Config,
+        gpt2_shapes,
+    )
+    from commefficient_tpu_torch.ops.param_utils import (
+        make_unravel,
+        tree_leaves,
+    )
+    from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
+    from commefficient_tpu_torch.parallel.mesh import build_grid
+    from commefficient_tpu_torch.parallel.ring_attention import (
+        gather_tokens,
+        ring_attention,
+    )
+    from commefficient_tpu_torch.parallel.round import make_grad_one
+    from commefficient_tpu_torch.parallel.sequence import sp_gpt2_apply
+    from commefficient_tpu_torch.parallel.tensor import (
+        build_tp_eval_fn,
+        build_tp_flat_loss,
+        tp_gpt2_apply,
+        tp_shard_params,
+    )
+    from commefficient_tpu_torch.utils.config import Config
+
+    def model(name):
+        gcfg = GPT2Config(**tp[name], dtype=torch.float32)
+        unravel = make_unravel(list(tree_leaves(gpt2_shapes(gcfg))))
+        vec = torch.from_numpy(npz[f"tp/{name}/params"])
+        return gcfg, vec, unravel
+
+    def t(key):
+        return torch.from_numpy(npz[key])
+
+    for W, M, S, causal in tp.get("ring", ()):
+        grid = build_grid(W, M, S)
+        seq = grid.seq
+        t_loc = npz["ring/q"].shape[-2] // S
+        sl = slice(seq.rank * t_loc, (seq.rank + 1) * t_loc)
+        q, k, v = (t(f"ring/{n}")[..., sl, :].clone().requires_grad_(True)
+                   for n in "qkv")
+        o = ring_attention(q, k, v, seq, causal=bool(causal))
+        (o * t("ring/w")[..., sl, :]).sum().backward()
+        key = f"ring:{_grid_key((W, M, S))}:{int(causal)}"
+        for name, x in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                        ("dv", v.grad)):
+            out[f"{key}/{name}"] = gather_tokens(seq, x.detach(),
+                                                 dim=-2).numpy()
+
+    if tp.get("apply"):
+        gcfg, vec, unravel = model("apply_cfg")
+        ids, tt, mc = t("apply/ids"), t("apply/tt"), t("apply/mc")
+        for W, M, S in tp["apply"]:
+            grid = build_grid(W, M, S)
+            key = _grid_key((W, M, S))
+            with torch.no_grad():
+                lm, mcl = tp_gpt2_apply(
+                    grid, gcfg, tp_shard_params(grid, unravel(vec), gcfg),
+                    ids, tt, mc)
+                out[f"apply:{key}/lm"], out[f"apply:{key}/mc"] = (
+                    lm.numpy(), mcl.numpy())
+                if S > 1:
+                    lm, mcl = sp_gpt2_apply(grid.seq, gcfg, unravel(vec), ids,
+                                            tt, mc)
+                    out[f"sp:{key}/lm"], out[f"sp:{key}/mc"] = (
+                        lm.numpy(), mcl.numpy())
+
+    if tp.get("loss"):
+        gcfg, vec, unravel = model("fed_cfg")
+        batch = {k[len("loss/"):]: t(k) for k in npz if k.startswith("loss/")}
+        cfg = Config(device="cpu", max_grad_norm=None, weight_decay=0.0)
+        for W, M, S in tp["loss"]:
+            grid = build_grid(W, M, S)
+            key = _grid_key((W, M, S))
+            loss_fn = build_tp_flat_loss(gcfg, grid)
+            g, loss, aux = torch.func.vmap(
+                make_grad_one(cfg, loss_fn, unravel),
+                in_dims=(None, 0))(vec, batch)
+            out[f"loss:{key}/grad"] = g.numpy()
+            out[f"loss:{key}/loss"] = loss.detach().numpy()
+            for a, x in aux.items():
+                out[f"loss:{key}/{a}"] = x.detach().numpy()
+            g1, loss1, _ = make_grad_one(cfg, loss_fn, unravel,
+                                         batched=False)(
+                vec, {k: v[0] for k, v in batch.items()})
+            out[f"loss:{key}/grad1"] = g1.numpy()
+            out[f"loss:{key}/loss1"] = loss1.numpy()
+
+    if tp.get("round"):
+        r = tp["round"]
+        gcfg, vec, unravel = model("fed_cfg")
+        cfg = Config(**r["config"], device="cpu")
+        grid = build_grid(cfg.num_devices, cfg.model_axis, cfg.seq_axis)
+        sess = FederatedSession(
+            cfg, unravel(vec.clone()),
+            build_tp_flat_loss(gcfg, grid, compute_dtype=r["compute_dtype"]),
+            mask_batch=mask_gpt2, grid=grid)
+        losses = []
+        for i in range(npz["round/ids"].shape[0]):
+            b = {k[len("round/"):]: npz[k][i] for k in npz
+                 if k.startswith("round/") and k != "round/ids"}
+            losses.append(float(sess.train_round(npz["round/ids"][i], b,
+                                                 r["lr"])["loss"]))
+        out["round/losses"] = np.asarray(losses)
+        out["round/params"] = sess.full_params_vec().numpy()
+
+    if tp.get("eval"):
+        e = tp["eval"]
+        gcfg, vec, unravel = model("fed_cfg")
+        cfg = Config(**e["config"], device="cpu")
+        grid = build_grid(cfg.num_devices, cfg.model_axis, cfg.seq_axis)
+        sess = FederatedSession(
+            cfg, unravel(vec.clone()), build_tp_flat_loss(gcfg, grid),
+            mask_batch=mask_gpt2, grid=grid,
+            eval_fn=build_tp_eval_fn(gcfg, grid, unravel))
+        batches = [{k.split("/", 2)[2]: npz[k] for k in npz
+                    if k.startswith(f"eval/{i}/")}
+                   for i in range(e["batches"])]
+        for k, v in sess.evaluate(batches).items():
+            out[f"eval/{k}"] = np.asarray(v)
+
+
 def run_resume(job, npz, out, tmp):
     """Two rounds, a checkpoint, a fresh session restored from it, two
     more rounds: the state written as ``run_cases`` writes it."""
@@ -460,6 +615,7 @@ def main(argv):
         run_control(job, npz, out)
         run_multihost(job, npz, out)
         run_foreign_nan(job, npz, out)
+        run_tp(job, npz, out)
         run_resume(job, npz, out, os.path.dirname(out_file))
         run_trace(job, npz, out, os.path.dirname(out_file))
         run_topk(job, npz, out, group)
