@@ -325,8 +325,22 @@ phase prints one line (or a few) and raises on failure, so the script exits
     length, their replays' kernel events measured the same way; round ms,
     device ms (the union of the trace's device intervals) and busy share
     at K 1, 4, 8 and widths 8 and 4, each run's peak memory,
-    FixupResNet-50 sketch at K 4 and 1;
-30. ``multihost`` (the host axis, ``multihost/``): two ranks of one gloo
+    FixupResNet-50 sketch at K 4 and 1; and, each held as the main path
+    for 5 rounds (blocks 4, 1), the rest of the round family:
+    uncompressed, fedavg with 2 local iterations, true_topk with and
+    without ``--do_topk_down``, the sketch-fused backward alone and with
+    ``--overlap_collectives layerwise`` (K1's segment form in the
+    replays, its kernel events held to the per-round run's), ``--num_blocks
+    2`` under the dense and the sharded decode (K4's range form), a
+    ``skip_clients`` recovery with its blacklist, and GPT-2 small at
+    BASELINE #4's full width (5 rounds at K 4: two captures in the
+    engine's one memory pool; peak allocated and reserved bytes printed);
+    each row's launches are ``launches_by_path``'s ``scan_<row>``;
+30. ``profile_round``: ``python -m commefficient_tpu_torch.train.
+    profile_round``'s main path (2 timed rounds) with its five asyncfed
+    lines (``[async arrival|launch|apply|sequential|double-buffer]``),
+    each printed once with finite, positive ms;
+31. ``multihost`` (the host axis, ``multihost/``): two ranks of one gloo
     group, two processes on the one card (``chip_smoke.py
     --multihost-rank``, which load the library this script built), run
     the replicated dense-decode round at full width through
@@ -340,7 +354,7 @@ phase prints one line (or a few) and raises on failure, so the script exits
     ``perf_report.json``'s ``multihost`` block with two hosts only; each
     twin's round ms, each rank's peak memory and the phase's seconds
     printed;
-31. ``tensor_parallel`` (``parallel/tensor.py``, ``sequence.py``,
+32. ``tensor_parallel`` (``parallel/tensor.py``, ``sequence.py``,
     ``ring_attention.py``): GPT-2 small at full width through
     ``gpt2_train.main``, f32 compute, 2 clients, 3 rounds at level 1,
     first in this process at axes 1 (the twin), then ``--model_axis 2``
@@ -351,7 +365,13 @@ phase prints one line (or a few) and raises on failure, so the script exits
     printed), K1, K2 and K3 2, 1 and 2 a round as the twin, round 0's
     collectives on the leg's group equal to the count and bytes the
     shapes give (the seq leg's K/V shifts staged through pinned host
-    memory), each rank's peak memory and median round ms printed.
+    memory), each rank's peak memory and median round ms printed; then
+    both legs with ``--sketch_fused_bwd`` against a one-process fused twin
+    (each group's total the ``[r, c]`` table's; K1's segment form the
+    twin's launches less, on rank 1, the leaves rank 0 sketches), and
+    ``build_tp3d_train_step`` at (workers, model, seq) = (2,1,1), (1,2,1)
+    and (1,1,2), one step each, its loss within 2e-4 and every leaf of
+    each rank's shard within 5e-4 of the one-process dense SGD step.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -377,6 +397,7 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()  # every phase line's t_s: seconds since the start
 SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/countsketch.cu"
 SEGMENT_SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/segment.cu"
 PALLAS = "commefficient_tpu/ops/pallas/countsketch_kernels.py"
@@ -453,6 +474,7 @@ FORM_MAIN_GEOMETRY = {
 
 
 def phase(name: str, **fields) -> None:
+    fields["t_s"] = round(time.perf_counter() - T0, 1)
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -5273,6 +5295,26 @@ SC_SHORT = 5  # rounds of its option runs: blocks 4, 1
 SC_BASE = MAIN_ARGS + ["--telemetry_level", "1", "--checkpoint_every", "5",
                        "--max_retraces", "0"]
 SC_K = ["--scan_rounds", "4"]
+# the rest of the round family (ROADMAP A.1.8): row -> flags over SC_BASE,
+# SC_SHORT rounds each (blocks 4, 1)
+SC_FAMILY = {
+    "uncompressed": ["--mode", "uncompressed", "--error_type", "none"],
+    "fedavg": MODE_PATHS["fedavg"][0],
+    "true_topk": MODE_PATHS["true_topk"][0],
+    "true_topk_down": MODE_PATHS["true_topk"][0] + ["--do_topk_down",
+                                                    "true"],
+    "fused": FUSED_FLAGS + ["--sketch_fused_bwd", "true"],
+    "fused_layerwise": FUSED_FLAGS + ["--sketch_fused_bwd", "true",
+                                      "--overlap_collectives", "layerwise"],
+    "blocks2": ["--num_blocks", "2"],
+    "blocks2_sharded": SHARDED_FLAGS + ["--num_blocks", "2"],
+}
+SC_GPT2_BASE = GPT2_ARGS + ["--telemetry_level", "1", "--checkpoint_every",
+                            "5", "--max_retraces", "0"]
+SC_GPT2_K = SC_K
+# blocks 4, 1: two captures in the engine's one memory pool (a pool each
+# did not fit GPT-2's two block lengths on the card)
+SC_GPT2_ROUNDS = 5
 # host-measured or block-shaped scalars, left out of the bit-equality
 SC_DROP = ("pipeline/", "trace/", "xla/exposed_collective_ms",
            "xla/peak_hbm_bytes")
@@ -5284,6 +5326,11 @@ KERNEL_SYMBOLS = {
     "estimate_at": ("cs_estimate_at_kernel",),
     "estimate_at_range": ("cs_estimate_range_kernel",),
 }
+# K1's segment form: one wrapper call is one small kernel, or a scatter and
+# an owner kernel a window, so its events are held run against run, not
+# against the wrapper's count
+SEGMENT_SYMBOLS = ("cs_segment_small_kernel", "cs_segment_scatter_kernel",
+                   "cs_segment_owner_kernel")
 SC_TIMING_K = (1, 4, 8)
 SC_TIMING_WIDTHS = (8, 4)
 SC_TIMING_ROUNDS = 16
@@ -5313,7 +5360,7 @@ def trace_launches(path):
     out = {"graph": dict.fromkeys(KERNEL_SYMBOLS, 0),
            "eager": dict.fromkeys(KERNEL_SYMBOLS, 0),
            "graph_launches": len(launch), "graph_kernels": 0,
-           "uncorrelated": 0}
+           "uncorrelated": 0, "segment": {"graph": 0, "eager": 0}}
     for e in events:
         if e.get("cat") != "kernel":
             continue
@@ -5325,6 +5372,7 @@ def trace_launches(path):
         for w, syms in KERNEL_SYMBOLS.items():
             if any(s in name for s in syms):
                 out[side][w] += 1
+        out["segment"][side] += any(s in name for s in SEGMENT_SYMBOLS)
     return out
 
 
@@ -5361,8 +5409,10 @@ def trace_device_ms(path):
 
 def on_path(counts):
     """``{wrapper: n}`` over ``KERNEL_SYMBOLS``' wrappers, the scan path's
-    (checked: no other wrapper has a count)."""
-    check(not any(n for w, n in counts.items() if w not in KERNEL_SYMBOLS),
+    (checked: no other wrapper has a count but K1's segment form, whose
+    events ``trace_launches`` keeps apart)."""
+    check(not any(n for w, n in counts.items()
+                  if w not in KERNEL_SYMBOLS and w != "sketch_segment"),
           f"scan: a launch off the scan path's kernels: {counts}")
     return {w: counts.get(w, 0) for w in KERNEL_SYMBOLS}
 
@@ -5499,8 +5549,20 @@ def scan_phase(torch, kern, cv_train, dataset_dir, work):
     of the device intervals), the kernels' summed ms, the overlap of
     kernels on one stream and busy share at K 1, 4 and 8 at widths 8 and
     4, each run's peak memory, FixupResNet-50 sketch and local_topk with
-    its 100 clients' banks at K 4 beside K 1. Returns the summed launch
-    forms."""
+    its 100 clients' banks at K 4 beside K 1; (g) the rest of the round
+    family, each held as (a) is: uncompressed, fedavg with 2 local
+    iterations, true_topk with and without ``--do_topk_down``, the
+    sketch-fused backward alone and with ``--overlap_collectives
+    layerwise`` (K1's segment form in the replays: its kernel events,
+    which are not one a wrapper call, held to the twin's), ``--num_blocks
+    2`` under the dense and the sharded decode (K4's range form), and a
+    ``skip_clients`` recovery (the blacklist composed into the staged
+    environments) as (e)'s retry, for SC_SHORT rounds; GPT-2 small at
+    BASELINE #4's full width at K 4 for SC_GPT2_ROUNDS rounds (blocks 4,
+    1: two captures in one pool), with each run's peak allocated and
+    reserved bytes. Returns
+    the summed launch forms by path: (a)-(e) under ``scan``, each row of
+    (g) under ``scan_<row>``."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -5510,17 +5572,24 @@ def scan_phase(torch, kern, cv_train, dataset_dir, work):
 
 
 def _scan_phase(torch, kern, cv_train, dataset_dir, work):
-    t0 = time.perf_counter()
-    forms = []
+    from commefficient_tpu_torch.train import gpt2_train
 
-    def run(name, args, rounds):
-        """One profiled run: its kernel events beside its counts."""
+    t0 = time.perf_counter()
+    # launches by path: rows (a)-(e) under "scan", each row of the rest of
+    # the round family under "scan_<row>"
+    forms = {"scan": []}
+
+    def run(name, args, rounds, entry=cv_train, base=SC_BASE):
+        """One profiled run: its kernel events beside its counts, its
+        peak allocated and reserved bytes."""
         gc.collect()
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         r, ev = profiled(torch, work, name, lambda: state_run(
-            torch, kern, cv_train, dataset_dir, work, name,
-            SC_BASE + args + ["--logdir", os.path.join(work, name)],
+            torch, kern, entry, dataset_dir, work, name,
+            base + args + ["--logdir", os.path.join(work, name)],
             rounds=rounds))
+        r["reserved"] = torch.cuda.max_memory_reserved()
         r["events"] = ev
         r["wall_s"] = round(time.perf_counter() - t, 3)
         r["metrics"] = read_metrics(r["out"]["logdir"])
@@ -5531,22 +5600,28 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
         return {(n, s): v for n, steps in r["metrics"].items()
                 if not n.startswith(SC_DROP) for s, v in steps.items()}
 
-    def twin_held(label, twin):
+    def twin_held(label, twin, path="scan"):
         """A per-round run: its kernel events all eager and equal to the
-        wrappers' counts."""
+        wrappers' counts (K1's segment form: events eager, and some when
+        the wrapper counted launches)."""
         ev = twin["events"]
         check(ev["eager"] == totals(twin["forms"])
-              and not any(ev["graph"].values()),
+              and not any(ev["graph"].values())
+              and not ev["segment"]["graph"]
+              and bool(ev["segment"]["eager"])
+              == bool(twin["launches"].get("sketch_segment")),
               f"scan {label} twin: events {ev} against its launches "
               f"{twin['launches']}")
-        forms.append(twin["forms"])
+        forms.setdefault(path, []).append(twin["forms"])
 
-    def scan_held(label, r, want=None):
+    def scan_held(label, r, want=None, twin=None, path="scan"):
         """A scan run's launches, measured: its graph-launched kernel
         events (every replay), equal to ``want`` when given and to what its
         captures recorded times their replays; its eager events equal to
         the warm-up round's launches, which are all the wrappers counted.
-        """
+        K1's segment form, with ``twin`` (the per-round run of the same
+        rounds): its replays' events equal the twin's events, and its
+        eager events one round's of them (the warm-up's)."""
         ev, st = r["events"], r["stats"]
         warm = st.get("warmup_launches", {})
         check(ev["uncorrelated"] == 0 and ev["graph_launches"]
@@ -5563,19 +5638,37 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
             check(ev["graph"] == on_path(want), f"scan {label}: the "
                   f"replays' kernel events {ev['graph']} against the "
                   f"per-round run's {want}")
-        forms.append(measured_forms(
+        got = measured_forms(
             {w: ev["graph"][w] + ev["eager"][w] for w in KERNEL_SYMBOLS},
-            warm, *st.get("captured_launches", {}).values()))
+            warm, *st.get("captured_launches", {}).values())
+        seg = st.get("replayed_launches", {}).get("sketch_segment")
+        if twin is not None and (seg or twin["launches"].get(
+                "sketch_segment")):
+            tev, rounds = twin["events"]["segment"]["eager"], len(
+                twin["round_ms"])
+            check(ev["segment"]["graph"] == tev and tev > 0
+                  and ev["segment"]["eager"] * rounds == tev
+                  and seg == twin["forms"].get("sketch_segment"),
+                  f"scan {label}: K1's segment form: replay events "
+                  f"{ev['segment']}, the twin's {tev} over {rounds} rounds, "
+                  f"captured {seg} against the twin's "
+                  f"{twin['forms'].get('sketch_segment')}")
+            got["sketch_segment"] = add_forms(
+                {"s": seg}, {"s": warm.get("sketch_segment", {})})["s"]
+        forms.setdefault(path, []).append(got)
 
     def nonzero(d):
         return json.dumps({k: v for k, v in d.items() if v})
 
-    def pair(label, args, rounds):
-        """The per-round twin and the scan run of ``args``, held."""
-        twin = run(f"sc_{label}_twin", args, rounds)
-        scan = run(f"sc_{label}", args + SC_K, rounds)
-        same, err = state_diff(torch, scan["state"], twin["state"],
-                               GEOMETRY["d"])
+    def pair(label, args, rounds, path="scan", entry=cv_train, base=SC_BASE,
+             k_flags=SC_K, d=GEOMETRY["d"], blocks=(1, 4)):
+        """The per-round twin and the scan run of ``args``, held: every
+        FedState leaf and scalar bit-equal, retraces 0, one capture a block
+        length (``blocks``), a replay a dispatch, the launches measured,
+        the training set on the device."""
+        twin = run(f"sc_{label}_twin", args, rounds, entry, base)
+        scan = run(f"sc_{label}", args + k_flags, rounds, entry, base)
+        same, err = state_diff(torch, scan["state"], twin["state"], d)
         sa, sb = scalars(twin), scalars(scan)
         st = scan["stats"]
         retr = set(scan["metrics"].get("xla/retraces", {}).values())
@@ -5583,30 +5676,80 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
               scalars_bit_equal=sa == sb, scalars_compared=len(sa),
               replay_kernel_events=nonzero(scan["events"]["graph"]),
               eager_kernel_events=nonzero(scan["events"]["eager"]),
+              segment_kernel_events=json.dumps(scan["events"]["segment"]),
               graph_launches=scan["events"]["graph_launches"],
               graph_kernels=scan["events"]["graph_kernels"],
               twin_kernel_events=nonzero(twin["events"]["eager"]),
+              twin_segment_kernel_events=twin["events"]["segment"]["eager"],
               warmup_launches=json.dumps(st.get("warmup_launches")),
               captures=st.get("captures"), replays=st.get("replays"),
               block_lengths=json.dumps(st.get("block_lengths")),
               stage_ms=round(st.get("stage_ms", 0.0), 3),
               retraces=json.dumps(sorted(retr)),
+              data=scan["out"].get("data_path"),
               round_ms=json.dumps(scan["round_ms"]),
               twin_round_ms=json.dumps(twin["round_ms"]),
               peak=scan["peak"], twin_peak=twin["peak"],
+              reserved=scan["reserved"], twin_reserved=twin["reserved"],
               wall_s=scan["wall_s"])
-        twin_held(label, twin)
-        scan_held(label, scan, want=twin["launches"])
+        twin_held(label, twin, path)
+        scan_held(label, scan, want=twin["launches"], twin=twin, path=path)
         check(same, f"scan {label}: leaves differ from the per-round run "
               f"by {err}")
         check(sa == sb, f"scan {label}: scalars differ at "
               f"{sorted(k for k in sa if sa[k] != sb.get(k))[:5]}")
         check(retr == {0.0}, f"scan {label}: xla/retraces {retr}")
-        check(st.get("block_lengths") == [1, 4]
-              and st.get("captures") == 2
+        check(st.get("block_lengths") == list(blocks)
+              and st.get("captures") == len(blocks)
               and st.get("replays") == st.get("dispatches"),
               f"scan {label}: engine stats {st}")
+        check(scan["out"].get("data_path", "device") == "device",
+              f"scan {label}: data={scan['out'].get('data_path')}")
         return twin, scan
+
+    def recovery(label, policy, path="scan"):
+        """A ``policy`` recovery of RES_NAN's NaN client at round 5 at K 4
+        against its per-round twin: leaves and the healed scalars
+        bit-equal, one recovery and one restart, no capture after the
+        first of each block length."""
+        flags = RES_BASE + RES_NAN + ["--recover_policy", policy]
+        tw = run(f"sc_{label}_twin", flags, RES_ROUNDS)
+        r = run(f"sc_{label}", flags + SC_K, RES_ROUNDS)
+        same, err = state_diff(torch, r["state"], tw["state"],
+                               GEOMETRY["d"])
+        da = deduped(tw["out"]["logdir"])
+        db = deduped(r["out"]["logdir"])
+        st = r["stats"]
+        phase("scan", run=label, leaves_bit_equal=same, max_abs_err=err,
+              scalars_bit_equal=da == db, scalars_compared=len(da),
+              recoveries=last_scalar(r["out"]["logdir"],
+                                     "resilience/recoveries"),
+              blacklisted=last_scalar(r["out"]["logdir"],
+                                      "resilience/blacklisted_clients"),
+              twin_blacklisted=last_scalar(tw["out"]["logdir"],
+                                           "resilience/blacklisted_clients"),
+              restarts=st.get("restarts"), captures=st.get("captures"),
+              block_lengths=json.dumps(st.get("block_lengths")),
+              replays=st.get("replays"),
+              replay_kernel_events=nonzero(r["events"]["graph"]),
+              eager_kernel_events=nonzero(r["events"]["eager"]),
+              twin_kernel_events=nonzero(tw["events"]["eager"]),
+              wall_s=r["wall_s"])
+        twin_held(label, tw, path)
+        scan_held(label, r, path=path)
+        check(same and da == db, f"scan {label}: differs from the "
+              f"per-round run's recovery by {err}")
+        check(last_scalar(r["out"]["logdir"], "resilience/recoveries") == 1.0
+              and st.get("restarts") == 1, f"scan {label}: {st}")
+        check(st.get("captures") == len(st.get("block_lengths", [])),
+              f"scan {label}: captured after the first: {st}")
+        if policy == "skip_clients":  # the suspect blacklisted, as its twin
+            bl = last_scalar(r["out"]["logdir"],
+                             "resilience/blacklisted_clients")
+            check(bl is not None and bl >= 1 and bl == last_scalar(
+                tw["out"]["logdir"], "resilience/blacklisted_clients"),
+                f"scan {label}: {bl} clients blacklisted")
+        return tw, r
 
     # (a) the main path
     twin, scan = pair("main", [], SC_ROUNDS)
@@ -5638,34 +5781,7 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
         "--powersgd_warm_start", "false"], SC_ROUNDS)
 
     # (e) a retry recovery; a resume from (a)'s round-5 checkpoint
-    rt_twin = run("sc_retry_twin", RES_BASE + RES_NAN + [
-        "--recover_policy", "retry"], RES_ROUNDS)
-    rt = run("sc_retry", RES_BASE + RES_NAN + ["--recover_policy", "retry"]
-             + SC_K, RES_ROUNDS)
-    same, err = state_diff(torch, rt["state"], rt_twin["state"],
-                           GEOMETRY["d"])
-    da = deduped(rt_twin["out"]["logdir"])
-    db = deduped(rt["out"]["logdir"])
-    st = rt["stats"]
-    phase("scan", run="retry", leaves_bit_equal=same, max_abs_err=err,
-          scalars_bit_equal=da == db, scalars_compared=len(da),
-          recoveries=last_scalar(rt["out"]["logdir"],
-                                 "resilience/recoveries"),
-          restarts=st.get("restarts"), captures=st.get("captures"),
-          block_lengths=json.dumps(st.get("block_lengths")),
-          replays=st.get("replays"),
-          replay_kernel_events=nonzero(rt["events"]["graph"]),
-          eager_kernel_events=nonzero(rt["events"]["eager"]),
-          twin_kernel_events=nonzero(rt_twin["events"]["eager"]),
-          wall_s=rt["wall_s"])
-    twin_held("retry", rt_twin)
-    scan_held("retry", rt)
-    check(same and da == db, f"scan retry: differs from the per-round "
-          f"run's recovery by {err}")
-    check(last_scalar(rt["out"]["logdir"], "resilience/recoveries") == 1.0
-          and st.get("restarts") == 1, f"scan retry: {st}")
-    check(st.get("captures") == len(st.get("block_lengths", [])),
-          f"scan retry: captured after the first: {st}")
+    recovery("retry", "retry")
     from commefficient_tpu_torch.utils.checkpoint import FedCheckpointer
     from commefficient_tpu_torch.utils.config import parse_args
 
@@ -5698,6 +5814,34 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
           and last_scalar(res["logdir"], "xla/retraces") == 0.0,
           f"scan resume: re-captured: {st}")
 
+    # (g) the rest of the round family, each row its own path
+    # ("scan_<row>"): the modes, the sketch-fused backward (K1's segment
+    # form inside the graph), num_blocks 2 (K4's range form a slice),
+    # skip_clients' blacklist composed into the staged environments
+    for label, flags in SC_FAMILY.items():
+        _, r = pair(label, flags, SC_SHORT, path=f"scan_{label}")
+        ev = r["events"]
+        if label.startswith("fused"):
+            check(ev["segment"]["graph"] > 0, f"scan {label}: no segment "
+                  f"kernel in the replays: {ev['segment']}")
+        if label == "blocks2":  # two slices a round
+            check(ev["graph"]["estimate_at_range"] == 2 * SC_SHORT
+                  and ev["graph"]["estimate_median"] == 0,
+                  f"scan {label}: kernel events {ev['graph']}")
+        if label == "blocks2_sharded":
+            check(ev["graph"]["estimate_at_range"] > 0
+                  and ev["graph"]["estimate_median"] == 0,
+                  f"scan {label}: kernel events {ev['graph']}")
+    recovery("skip_clients", "skip_clients", path="scan_skip_clients")
+    # GPT-2 small at BASELINE #4's full width and compute dtype: K 4 over
+    # SC_GPT2_ROUNDS rounds (two captures sharing the engine's pool; the
+    # twin's cached blocks released before the run)
+    _, g2 = pair("gpt2", [], SC_GPT2_ROUNDS, path="scan_gpt2",
+                 entry=gpt2_train, base=SC_GPT2_BASE, k_flags=SC_GPT2_K,
+                 d=GPT2_GEOMETRY["d"])
+    check(g2["out"]["grad_size"] == GPT2_GEOMETRY["d"],
+          f"scan gpt2: D {g2['out']['grad_size']}")
+
     # (f) timing, printed: K 1, 4, 8 at widths 8 and 4; FixupResNet-50
     timing = {}
     for w in SC_TIMING_WIDTHS:
@@ -5725,7 +5869,53 @@ def _scan_phase(torch, kern, cv_train, dataset_dir, work):
         k: round(v["stats"]["stage_ms"], 3) for k, v in timing.items()
         if v["stats"]}), main_peak=scan["peak"], twin_peak=twin["peak"])
     phase("scan_wall", wall_s=round(time.perf_counter() - t0, 3))
-    return add_forms(*forms)
+    return {path: add_forms(*fs) for path, fs in forms.items()}
+
+
+PR_ASYNC_LINES = ("[async arrival]", "[async launch]", "[async apply]",
+                  "[async sequential]", "[async double-buffer]")
+PR_ROUNDS = 2  # profile_round's timed rounds in the profile_round phase
+
+
+def profile_round_phase(torch, kern):
+    """``profile_round``'s main path (``python -m commefficient_tpu_torch.
+    train.profile_round``, the FetchSGD main path's flags, PR_ROUNDS
+    timed rounds), its output echoed, the counters set to 0 just before
+    and read just after: its five asyncfed lines (PR_ASYNC_LINES, the
+    buffered-async pair's launch and apply on their own session) each
+    printed once, and every ms they time finite and positive (the
+    summary's ``async_ms``). Returns the run's launch forms."""
+    import contextlib
+    import io
+
+    from commefficient_tpu_torch.train import profile_round
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern.reset_launch_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = profile_round.main(["--rounds", str(PR_ROUNDS)])
+    wall = time.perf_counter() - t
+    forms = kern.form_counts()
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("[async ")]
+    ams = summary.get("async_ms") or {}
+    phase("profile_round", card=repr(card_line()),
+          async_lines=json.dumps(lines), async_ms=json.dumps(ams),
+          phase_ms=json.dumps(summary.get("phase_ms")),
+          device_busy_share=summary.get("device_busy_share"),
+          launches=json.dumps({w: f for w, f in forms.items() if f}),
+          wall_s=round(wall, 3))
+    check([ln.split("]")[0] + "]" for ln in lines] == list(PR_ASYNC_LINES),
+          f"profile_round: the async lines {lines}")
+    check(len(ams) == 6 and all(math.isfinite(v) and v > 0
+                                for v in ams.values()),
+          f"profile_round: async ms {ams}")
+    check(any(n for f in forms.values() for n in f.values()),
+          "profile_round: no kernel launched")
+    return forms
 
 
 MH_ROUNDS = 5  # rounds of each multihost-phase run
@@ -5983,13 +6173,27 @@ TP_ROUNDS = 3  # rounds of each tensor_parallel run
 TP_ARGS = GPT2_ARGS + ["--compute_dtype", "float32", "--num_workers", "2",
                        "--telemetry_level", "1"]
 TP_LEGS = {"model": ["--model_axis", "2"], "seq": ["--seq_axis", "2"]}
+# the sketch-fused backward under the TP/SP loss (GPT-2 takes it without
+# the clip): each rank's table summed over the leg's group
+TP_FUSED = ["--fuse_clients", "true", "--sketch_fused_bwd", "true",
+            "--max_grad_norm", "none"]
+TP_ALL_LEGS = {**TP_LEGS, **{f"{leg}_fused": flags + TP_FUSED
+                             for leg, flags in TP_LEGS.items()}}
+# the 3-axis SGD step (build_tp3d_train_step): (workers, model, seq) grids
+# over the two ranks, one step each on one client's batch of the twin's
+# data, against the one-process dense SGD step at the reference anchor's
+# tolerances (tests/test_tensor_parallel.py)
+TP3D_GRIDS = ((2, 1, 1), (1, 2, 1), (1, 1, 2))
+TP3D_LR = 0.1
+TP3D_TOL = dict(loss=2e-4, leaf=5e-4)
 TP_LAUNCHES = dict(sketch_rows=2, estimate_median=1, median_rows=2)
 TP_LOSS_TOL = (2e-4, 2e-4)  # rtol, atol against the one-process twin
 TP_PARAM_TOL = (2e-4, 2e-3)  # a param flips past atol + rtol * |twin|
 TP_FLIP_CAP = 1_500  # 1% of k x rounds: top-k boundary flips
 
 
-def tp_round_collectives(cfg, gcfg, leg: str, d: int) -> dict:
+def tp_round_collectives(cfg, gcfg, leg: str, d: int,
+                         table=None) -> dict:
     """The collectives one round of the TP/SP loss makes on the leg's group
     (``{op: {"count", "bytes"}}``, the ``CollectiveCounter`` layout), from
     the shapes: a rank's ``w`` clients batched, ``R = B * N`` rows of T
@@ -5997,21 +6201,73 @@ def tp_round_collectives(cfg, gcfg, leg: str, d: int) -> dict:
     (``ReduceFromGroup``) and two backward (``CopyToGroup``), and the
     gradient's total; the seq group: one K/V shift a block forward and one
     backward, the token sums (``lm_sum``, ``lm_cnt``, the MC pick) and the
-    gradient's total."""
+    gradient's total. With the sketch-fused backward (``table``, the
+    ``[r, c]`` shape) the clients are one flattened batch (the token sums
+    are scalars) and the total is the f32 table's, not the ``[w, D]``
+    gradient's."""
     w = cfg.num_workers // cfg.num_devices
     R = cfg.local_batch_size * cfg.num_candidates
     T, E, L, H = cfg.max_seq_len, gcfg.n_embd, gcfg.n_layer, gcfg.n_head
     act = gcfg.dtype.itemsize  # the activations' compute type
-    grad = w * d * 4  # the [w, D] f32 gradient's total
+    # the [w, D] f32 gradient's total, or the [r, c] f32 table's
+    grad = w * d * 4 if table is None else math.prod(table) * 4
+    sums = 4 * w if table is None else 4
     if leg == "model":
         return {"all-reduce": {"count": 4 * L + 1,
                                "bytes": 4 * L * w * R * T * E * act + grad}}
     S = 2
     kv = 2 * w * R * H * (T // S) * (E // H) * act
     return {"all-reduce": {"count": 4,
-                           "bytes": 4 * w + 4 * w + w * R * E * act + grad},
+                           "bytes": 2 * sums + w * R * E * act + grad},
             "collective-permute": {"count": 2 * L * (S - 1),
                                    "bytes": 2 * L * (S - 1) * kv}}
+
+
+def tp3d_rank(torch, job, work, dev) -> dict:
+    """``build_tp3d_train_step`` on this rank at each grid of TP3D_GRIDS,
+    one step each from the twin's initial params (``tp3d_init.pt``) on
+    its client's batch (``tp3d_batch.pt``): the step's loss and the
+    largest difference of each leaf of this rank's shard from the same
+    shard of the one-process dense SGD step's params
+    (``tp3d_dense.pt``)."""
+    from commefficient_tpu_torch.models import GPT2Config, gpt2_shapes
+    from commefficient_tpu_torch.ops.param_utils import (
+        make_unravel,
+        tree_leaves,
+    )
+    from commefficient_tpu_torch.parallel import build_tp3d_train_step
+    from commefficient_tpu_torch.parallel.mesh import build_grid
+    from commefficient_tpu_torch.parallel.tensor import (
+        _local_blocks,
+        tp_shard_params,
+        tp_transform_params,
+    )
+
+    gcfg = GPT2Config(**job["tp3d"]["gpt2"], dtype=torch.float32)
+    unravel = make_unravel(list(tree_leaves(gpt2_shapes(gcfg))))
+    init = torch.load(os.path.join(work, "tp3d_init.pt"), map_location=dev)
+    dense = torch.load(os.path.join(work, "tp3d_dense.pt"), map_location=dev)
+    batch = torch.load(os.path.join(work, "tp3d_batch.pt"), map_location=dev)
+    out = {}
+    for W, M, S in TP3D_GRIDS:
+        grid = build_grid(W, M, S)
+        tp = tp_shard_params(grid, unravel(init.clone()), gcfg)
+        t = time.perf_counter()
+        tp, metrics = build_tp3d_train_step(grid, gcfg)(tp, batch, TP3D_LR)
+        loss = float(metrics["loss"])  # waits for the step
+        ms = (time.perf_counter() - t) * 1e3
+        want = tp_transform_params(unravel(dense), gcfg)
+        want = {**want, "blocks": _local_blocks(want["blocks"], gcfg,
+                                                grid.model)}
+        diffs = [float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            tree_leaves(tp), tree_leaves(want))]
+        out["x".join(map(str, (W, M, S)))] = dict(
+            loss=loss, lm_loss=float(metrics["lm_loss"]),
+            leaf_max_abs_diff=max(diffs), leaves=len(diffs),
+            grid=[grid.workers.size, grid.model.size, grid.seq.size],
+            step_ms=round(ms, 3))
+        del tp, want
+    return out
 
 
 def tp_rank_main(argv) -> int:
@@ -6029,6 +6285,8 @@ def tp_rank_main(argv) -> int:
     (``tp_twin.pt`` in WORK)."""
     import torch
     import torch.distributed as dist
+
+    from commefficient_tpu_torch.parallel.round import leaf_offsets
 
     rank, init, out_path, work = int(argv[0]), argv[1], argv[2], argv[3]
     with open(os.path.join(work, "tp_job.json")) as f:
@@ -6080,14 +6338,15 @@ def tp_rank_main(argv) -> int:
     gpt2_train.FederatedSession = Recorded
     res = {"rank": rank, "nvcc_s": dict(build.build_seconds), "legs": {}}
     try:
-        for leg in TP_LEGS:
+        for leg, flags in TP_ALL_LEGS.items():
+            fused = leg.endswith("_fused")
             gc.collect()
             if on_card:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             kern.reset_launch_counts()
             t = time.perf_counter()
-            out = gpt2_train.main(job["args"] + TP_LEGS[leg] + [
+            out = gpt2_train.main(job["args"] + flags + [
                 "--max_rounds", str(TP_ROUNDS), "--dataset_dir",
                 job["dataset_dir"], "--logdir",
                 os.path.join(work, f"tp_{leg}")])
@@ -6096,8 +6355,15 @@ def tp_rank_main(argv) -> int:
             pv = sess.state.params_vec
             ref = pv.clone()
             dist.broadcast(ref, src=0)
-            twin = torch.load(os.path.join(work, "tp_twin.pt"),
-                              map_location=pv.device)
+            twin = torch.load(os.path.join(
+                work, "tp_fused_twin.pt" if fused else "tp_twin.pt"),
+                map_location=pv.device)
+            # the leaves whose sketch this rank leaves to rank 0 of its
+            # group (the fused backward's dropped ranges)
+            dropped = getattr(sess._loss_fn.grad_total, "dropped", ())
+            n_dropped = sum(
+                any(a <= off and off + n <= b for a, b in dropped)
+                for off, n in leaf_offsets(sess.unravel, sess.grad_size))
             diff = (pv - twin).abs()
             flipped = diff > TP_PARAM_TOL[0] + TP_PARAM_TOL[1] * twin.abs()
             res["legs"][leg] = dict(
@@ -6116,15 +6382,77 @@ def tp_rank_main(argv) -> int:
                       else None),
                 wall_s=round(wall, 3), device=str(sess.device),
                 backend=dist.get_backend(), val_nll=out.get("nll"),
+                dropped_leaves=n_dropped,
                 expected=tp_round_collectives(
-                    sess.cfg, gpt2_train.gpt2_config(sess.cfg, 0), leg,
-                    sess.grad_size))
+                    sess.cfg, gpt2_train.gpt2_config(sess.cfg, 0),
+                    leg.split("_")[0], sess.grad_size,
+                    table=(tuple(sess.compressor.spec.table_shape)
+                           if fused else None)))
             del sess, pv, ref, twin, diff, flipped, out
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        res["tp3d"] = tp3d_rank(torch, job, work, torch.device(
+            "cuda", 0) if on_card else "cpu")
     finally:
         dist.destroy_process_group()
     with open(out_path, "w") as f:
         json.dump(res, f)
     return 0
+
+
+def tp3d_dense_step(torch, gpt2_train, dataset_dir, work) -> dict:
+    """The 3-axis step's inputs and oracle, in this process: the twin's
+    model and data at TP_ARGS (f32), client 0's batch of round 0, and one
+    dense SGD step of the GPT-2 double-heads loss at TP3D_LR: the initial
+    params (``tp3d_init.pt``), the batch (``tp3d_batch.pt``) and the new
+    params (``tp3d_dense.pt``) written to WORK; returns the model's shape,
+    the loss, the lm loss and the step's ms."""
+    import functools
+
+    from commefficient_tpu_torch.data import FedSampler
+    from commefficient_tpu_torch.models import (
+        gpt2_apply,
+        gpt2_double_heads_loss,
+    )
+    from commefficient_tpu_torch.ops.param_utils import (
+        ravel_params,
+        tree_leaves,
+        tree_with_leaves,
+    )
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    cfg = parse_args(TP_ARGS + ["--dataset_dir", dataset_dir],
+                     defaults=gpt2_train.DEFAULTS)
+    train, _, _, _, gcfg, params, _ = gpt2_train.build_model_and_data(cfg)
+    dev = torch.device("cuda", 0) if cfg.device == "cuda" else cfg.device
+    vec, unravel = ravel_params(params)
+    vec = vec.to(dev)
+    _, raw = FedSampler(train, num_workers=cfg.num_workers,
+                        local_batch_size=cfg.sampler_batch_size,
+                        seed=cfg.seed).sample_round(0)
+    batch = {k: torch.as_tensor(v[0]).contiguous().to(dev)
+             for k, v in raw.items()}
+    tree = unravel(vec)
+    leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves(tree)]
+    loss_fn = gpt2_double_heads_loss(functools.partial(gpt2_apply, cfg=gcfg))
+    t = time.perf_counter()
+    loss, aux = loss_fn(tree_with_leaves(tree, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    new = vec - TP3D_LR * torch.cat([g.reshape(-1) for g in grads])
+    out = dict(loss=float(loss), lm_loss=float(aux["lm_loss"]),
+               step_ms=round((time.perf_counter() - t) * 1e3, 3),
+               gpt2={k: getattr(gcfg, k) for k in (
+                   "vocab_size", "n_positions", "n_embd", "n_layer",
+                   "n_head")})
+    torch.save(vec.cpu(), os.path.join(work, "tp3d_init.pt"))
+    torch.save({k: v.cpu() for k, v in batch.items()},
+               os.path.join(work, "tp3d_batch.pt"))
+    torch.save(new.detach().cpu(), os.path.join(work, "tp3d_dense.pt"))
+    del vec, tree, leaves, grads, new, loss, params, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def tensor_parallel_phase(torch, kern, dataset_dir, work):
@@ -6146,8 +6474,24 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
     count and bytes), none on the other groups, and the staged shifts one
     a permute on the seq leg only; the peak memory recorded. Prints the
     median round ms of each (the ranks time-share the card and every
-    collective goes through the host: not compared). Returns the summed
-    launch forms of the legs' ranks."""
+    collective goes through the host: not compared).
+
+    The sketch-fused backward (TP_FUSED, ``model_fused`` and
+    ``seq_fused``): a second twin in this process (``tp_fused_twin.pt``)
+    and the same two legs with it, held as above against that twin, but
+    that K1's segment form launches the twin's count less, on rank 1 of
+    the leg's group, its dropped leaves (the leaves whose sketch rank 0
+    adds) a round, and that each group's total is the ``[r, c]`` f32
+    table's all-reduce in place of the ``[w, D]`` gradient's.
+
+    The 3-axis SGD step (``build_tp3d_train_step``): this process makes
+    one dense SGD step on client 0's round-0 batch of the twin's data
+    (``tp3d_dense_step``), and each rank, after its legs, one step at
+    each (workers, model, seq) grid of TP3D_GRIDS (``tp3d_rank``): the
+    loss and lm loss within TP3D_TOL["loss"] and every leaf of the rank's
+    shard within TP3D_TOL["leaf"] of the dense step's. Returns the summed
+    launch forms of the legs' ranks: ``tensor_parallel`` (the dense legs)
+    and ``tensor_parallel_fused``."""
     from commefficient_tpu_torch.train import gpt2_train
 
     t0 = time.perf_counter()
@@ -6159,37 +6503,53 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
             super().__init__(*a, **k)
             kept.append(self)
 
-    gpt2_train.FederatedSession = Kept
-    try:
+    def one_process(name, flags, path):
+        """The one-process twin of ``flags``: its record, its final
+        params saved to ``path``."""
+        gpt2_train.FederatedSession = Kept
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kern.reset_launch_counts()
+            t = time.perf_counter()
+            out = gpt2_train.main(TP_ARGS + flags + [
+                "--max_rounds", str(TP_ROUNDS), "--dataset_dir", dataset_dir,
+                "--logdir", os.path.join(work, name)])
+            rec = dict(losses=[h["loss"] for h in out["history"]],
+                       round_ms=[round(h["ms"], 3) for h in out["history"]],
+                       launches=kern.launch_counts(),
+                       forms=kern.form_counts(),
+                       peak=torch.cuda.max_memory_allocated(),
+                       wall_s=round(time.perf_counter() - t, 3))
+            torch.save(kept[-1].state.params_vec.cpu(),
+                       os.path.join(work, path))
+        finally:
+            gpt2_train.FederatedSession = base
+            del kept[:]
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kern.reset_launch_counts()
-        t = time.perf_counter()
-        out = gpt2_train.main(TP_ARGS + [
-            "--max_rounds", str(TP_ROUNDS), "--dataset_dir", dataset_dir,
-            "--logdir", os.path.join(work, "tp_twin")])
-        twin = dict(losses=[h["loss"] for h in out["history"]],
-                    round_ms=[round(h["ms"], 3) for h in out["history"]],
-                    launches=kern.launch_counts(),
-                    peak=torch.cuda.max_memory_allocated(),
-                    wall_s=round(time.perf_counter() - t, 3))
-        torch.save(kept[-1].state.params_vec.cpu(),
-                   os.path.join(work, "tp_twin.pt"))
-    finally:
-        gpt2_train.FederatedSession = base
-        del kept[:]
-    gc.collect()
-    torch.cuda.empty_cache()
+        return rec
+
+    twin = one_process("tp_twin", [], "tp_twin.pt")
     twin_per = {w: n for w, n in twin["launches"].items() if n}
     check(twin_per == {w: n * TP_ROUNDS for w, n in TP_LAUNCHES.items()},
           f"tensor_parallel twin: launches {twin_per}")
+    fused_twin = one_process("tp_fused_twin", TP_FUSED, "tp_fused_twin.pt")
+    fused_per = {w: n for w, n in fused_twin["launches"].items() if n}
+    check(fused_per.get("sketch_segment", 0) > 0
+          and fused_per.get("estimate_median") == TP_ROUNDS
+          and fused_per.get("median_rows", 0) > 0,
+          f"tensor_parallel fused twin: launches {fused_per}")
+    twins = {"dense": (twin, twin_per), "fused": (fused_twin, fused_per)}
+    tp3d = tp3d_dense_step(torch, gpt2_train, dataset_dir, work)
     with open(os.path.join(work, "tp_job.json"), "w") as f:
-        json.dump({"args": TP_ARGS, "dataset_dir": dataset_dir}, f)
+        json.dump({"args": TP_ARGS, "dataset_dir": dataset_dir,
+                   "tp3d": {"gpt2": tp3d["gpt2"]}}, f)
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                         "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    forms = []
+    forms = {}
 
     def med(ms):
         return statistics.median(ms[1:])
@@ -6222,11 +6582,14 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
     for rk in per_rank:
         check(not rk["nvcc_s"], f"tensor_parallel rank {rk['rank']}: built "
               f"the library again ({rk['nvcc_s']})")
-    for leg in TP_LEGS:
+    for leg in TP_ALL_LEGS:
         ranks = [dict(rk["legs"][leg], rank=rk["rank"]) for rk in per_rank]
+        fused = leg.endswith("_fused")
+        twin, twin_per = twins["fused" if fused else "dense"]
+        leg, name = leg.split("_")[0], leg
         other = "seq" if leg == "model" else "model"
         r0 = ranks[0]
-        phase("tensor_parallel", card=repr(card_line()), leg=leg, ranks=2,
+        phase("tensor_parallel", card=repr(card_line()), leg=name, ranks=2,
               backend="gloo", rounds=TP_ROUNDS,
               losses=json.dumps(r0["losses"]),
               twin_losses=json.dumps(twin["losses"]),
@@ -6238,7 +6601,11 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
               flip_max=json.dumps([rk["flip_max"] for rk in ranks]),
               param_max_abs_diff=json.dumps([rk["max_diff"]
                                              for rk in ranks]),
-              launches_a_round_each_rank=json.dumps(TP_LAUNCHES),
+              launches=json.dumps([{w: n for w, n in rk["launches"].items()
+                                    if n} for rk in ranks]),
+              twin_launches=json.dumps(twin_per),
+              dropped_leaves=json.dumps([rk["dropped_leaves"]
+                                         for rk in ranks]),
               round0_collectives=json.dumps(r0["round0"][leg]),
               expected_collectives=json.dumps(r0["expected"]),
               peak=json.dumps([rk["peak"] for rk in ranks]),
@@ -6252,7 +6619,7 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
               run_wall_s=json.dumps([rk["wall_s"] for rk in ranks]))
         for rk in ranks:
             r = rk["rank"]
-            what = f"tensor_parallel {leg} rank {r}"
+            what = f"tensor_parallel {name} rank {r}"
             check(rk["device"] == "cuda:0" and rk["backend"] == "gloo",
                   f"{what}: {rk['device']} over {rk['backend']}")
             check(rk["grid"] == ([1, 2, 1, r] if leg == "model"
@@ -6270,8 +6637,16 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
             check(rk["flips"] <= TP_FLIP_CAP, f"{what}: {rk['flips']} "
                   f"params off the twin's (max {rk['flip_max']:.3e})")
             per = {w: n for w, n in rk["launches"].items() if n}
-            check(per == twin_per, f"{what}: launches {per} against the "
-                  f"twin's {twin_per}")
+            # the fused backward's rank 1 of the group leaves the sketch of
+            # the leaves it holds whole (replicated, or mc_head) to rank 0
+            want = dict(twin_per)
+            if fused:
+                want["sketch_segment"] = (want.get("sketch_segment", 0)
+                                          - rk["dropped_leaves"] * TP_ROUNDS)
+                check((rk["dropped_leaves"] > 0) == (r == 1),
+                      f"{what}: {rk['dropped_leaves']} leaves dropped")
+            check(per == want, f"{what}: launches {per} against {want} "
+                  f"(the twin's {twin_per})")
             got = {k: v for k, v in rk["round0"][leg].items()
                    if k != "staged"}
             check(got == rk["expected"], f"{what}: round 0's collectives "
@@ -6285,11 +6660,34 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
                   f"{what}: collectives off the leg's group "
                   f"{rk['round0']}")
             check(rk["peak"] and rk["peak"] > 0, f"{what}: peak memory")
-            forms.append(rk["forms"])
-    phase("tensor_parallel_wall", twin_wall_s=twin["wall_s"],
+            forms.setdefault("tensor_parallel_fused" if fused
+                             else "tensor_parallel", []).append(rk["forms"])
+    for key, want_grid in zip(("2x1x1", "1x2x1", "1x1x2"), TP3D_GRIDS):
+        rows = [rk["tp3d"][key] for rk in per_rank]
+        phase("tensor_parallel", card=repr(card_line()), leg="tp3d",
+              grid=key, ranks=2, loss=json.dumps([x["loss"] for x in rows]),
+              dense_loss=tp3d["loss"],
+              loss_max_abs_diff=max(abs(x["loss"] - tp3d["loss"])
+                                    for x in rows),
+              leaf_max_abs_diff=json.dumps([x["leaf_max_abs_diff"]
+                                            for x in rows]),
+              leaves=json.dumps([x["leaves"] for x in rows]),
+              step_ms=json.dumps([x["step_ms"] for x in rows]),
+              dense_step_ms=tp3d["step_ms"])
+        for r, x in enumerate(rows):
+            what = f"tensor_parallel tp3d {key} rank {r}"
+            check(x["grid"] == list(want_grid), f"{what}: grid {x['grid']}")
+            check(abs(x["loss"] - tp3d["loss"]) <= TP3D_TOL["loss"]
+                  and abs(x["lm_loss"] - tp3d["lm_loss"]) <= TP3D_TOL["loss"],
+                  f"{what}: loss {x['loss']} against {tp3d['loss']}")
+            check(x["leaf_max_abs_diff"] <= TP3D_TOL["leaf"],
+                  f"{what}: a leaf {x['leaf_max_abs_diff']} off the dense "
+                  "SGD step's")
+    phase("tensor_parallel_wall", twin_wall_s=twins["dense"][0]["wall_s"],
+          fused_twin_wall_s=twins["fused"][0]["wall_s"],
           legs_wall_s=round(time.perf_counter() - t_legs, 3),
           wall_s=round(time.perf_counter() - t0, 3))
-    return add_forms(*forms)
+    return {path: add_forms(*fs) for path, fs in forms.items()}
 
 
 def main() -> int:
@@ -6457,16 +6855,18 @@ def main() -> int:
     # the scan engine: K rounds a CUDA-graph replay, against per-round
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         with CachedCifar(cv_train):
-            paths["scan"] = scan_phase(torch, kern, cv_train, dataset_dir,
-                                       work)
+            paths.update(scan_phase(torch, kern, cv_train, dataset_dir,
+                                    work))
+    # profile_round's main path with its asyncfed lines
+    paths["profile_round"] = profile_round_phase(torch, kern)
     # the host axis: two gloo ranks on the card, 2 hosts against 1
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         paths["multihost"] = multihost_phase(torch, kern, dataset_dir, work)
     # tensor and sequence parallelism: GPT-2 at model 2 and at seq 2 on two
     # gloo ranks, against the one-process twin
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        paths["tensor_parallel"] = tensor_parallel_phase(torch, kern,
-                                                         dataset_dir, work)
+        paths.update(tensor_parallel_phase(torch, kern, dataset_dir,
+                                           work))
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

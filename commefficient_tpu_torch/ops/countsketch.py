@@ -611,7 +611,9 @@ class SketchGradTap(torch.autograd.Function):
     themselves are not differentiated, so the flat ``[D]`` gradient is
     never formed and no table a leaf is allocated. ``done``, when given,
     is called with no argument after the backward has added the leaf's
-    sketch (the layerwise overlap counts a group's leaves with it)."""
+    sketch (the layerwise overlap counts a group's leaves with it). A tap
+    with ``spec=None`` adds nothing and still calls ``done`` (a leaf whose
+    gradient another rank of a model or seq group contributes)."""
 
     @staticmethod
     def forward(ctx, leaf, table, spec, offset, done=None):
@@ -621,7 +623,8 @@ class SketchGradTap(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        sketch_segment(ctx.spec, ctx.offset, ct, ctx.table.detach())
+        if ctx.spec is not None:
+            sketch_segment(ctx.spec, ctx.offset, ct, ctx.table.detach())
         if ctx.done is not None:
             ctx.done()
         return ((ct if ctx.needs_input_grad[0] else None), None, None, None,

@@ -23,12 +23,14 @@ Tree = Dict[str, Any]
 
 def tree_leaves(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs of a nested dict in ravel order (keys sorted at
-    every level, as JAX flattens dicts)."""
+    every level, a list's items in order, as JAX flattens them)."""
     out = []
-    for key in sorted(tree):
+    items = (((str(i), v) for i, v in enumerate(tree))
+             if isinstance(tree, list)
+             else ((key, tree[key]) for key in sorted(tree)))
+    for key, v in items:
         path = f"{prefix}/{key}" if prefix else key
-        v = tree[key]
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out.extend(tree_leaves(v, path))
         else:
             out.append((path, v))
@@ -36,13 +38,16 @@ def tree_leaves(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
 
 
 def tree_with_leaves(tree: Tree, leaves) -> Tree:
-    """``tree``'s nested dict structure holding ``leaves`` (in
+    """``tree``'s nested dict (and list) structure holding ``leaves`` (in
     ``tree_leaves`` order) in place of its own."""
     it = iter(leaves)
 
     def build(node):
-        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
-                for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
 
     return build(tree)
 

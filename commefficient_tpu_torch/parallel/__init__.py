@@ -1,7 +1,8 @@
 """The round engine, the session and the process grid of the port: the
-reference's ``parallel`` names, but ``build_tp3d_train_step`` (ROADMAP
-A17b). ``make_mesh`` is ``mesh.build_grid``: one process a mesh position,
-the ``WORKERS``/``MODEL``/``SEQ`` groups a ``Grid``'s attributes."""
+reference's ``parallel`` names. ``make_mesh`` is ``mesh.build_grid``: one
+process a mesh position, the ``WORKERS``/``MODEL``/``SEQ`` groups a
+``Grid``'s attributes; ``build_tp3d_train_step`` takes the grid and the
+``GPT2Config`` where the reference takes the mesh and the model."""
 
 from commefficient_tpu_torch.parallel.api import (
     FederatedSession,
@@ -29,6 +30,7 @@ from commefficient_tpu_torch.parallel.round import (
 )
 from commefficient_tpu_torch.parallel.sequence import sp_gpt2_apply
 from commefficient_tpu_torch.parallel.tensor import (
+    build_tp3d_train_step,
     tp_gpt2_apply,
     tp_shard_params,
     tp_untransform_params,
@@ -38,5 +40,5 @@ __all__ = ["make_mesh", "WORKERS", "MODEL", "SEQ", "FedState", "init_state",
            "build_round_fn", "build_eval_fn", "mask_classification",
            "mask_gpt2", "FederatedSession", "FedModel", "FedOptimizer",
            "make_fed_pair", "ring_attention", "ring_attention_sharded",
-           "sp_gpt2_apply", "tp_gpt2_apply", "tp_shard_params",
-           "tp_untransform_params"]
+           "sp_gpt2_apply", "build_tp3d_train_step", "tp_gpt2_apply",
+           "tp_shard_params", "tp_untransform_params"]

@@ -293,11 +293,6 @@ class FederatedSession:
         self.cfg = cfg
         self.grid = grid if grid is not None else make_grid(cfg)
         self.group = self.grid.workers
-        if cfg.sketch_fused_bwd and hasattr(loss_fn, "grad_total"):
-            raise ValueError(
-                "sketch_fused_bwd with a model/seq-sharded loss is not "
-                "ported yet: the fused backward sketches each rank's "
-                "partial gradient before the grid's totals (ROADMAP A17b)")
         self.device = resolve_device(cfg.device)
         if self.device.type == "cuda" and self.grid.size > 1:
             self.device = torch.device("cuda", local_rank())

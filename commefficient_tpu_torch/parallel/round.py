@@ -393,13 +393,26 @@ def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
     count never completes (a leaf with no gradient), and group 0 when
     there is weight decay, are reported after the backward, group 0 with
     the weight-decay term added (``weight_decay * sketch_vec(spec_f32,
-    params_vec)`` rides the first group's table, as in the reference)."""
+    params_vec)`` rides the first group's table, as in the reference).
+
+    A loss with a ``grad_total`` attribute (``parallel/tensor.py``'s
+    TP/SP loss) is the model/seq-sharded one: the taps of its ``dropped``
+    ranges (the leaves whose gradient rank 0 of a model or seq group
+    contributes) add nothing, and each group table is summed over the
+    model and seq groups by its ``table_total`` before it is reported,
+    the weight-decay term after that sum (once, not once a rank). Every
+    leaf keeps its tap, so each rank of a group completes its groups at
+    the same point of the backward and the sums pair up."""
     segments = leaf_offsets(unravel, d)
     offsets = [off for off, _ in segments]
     spec_f32 = replace(spec, table_dtype=torch.float32)
     # the monolithic table is the one group of every leaf
     groups = (leaf_groups([n for _, n in segments], overlap_segments)
               if overlap_segments else [(0, len(segments))])
+    grad_total = getattr(loss_fn, "grad_total", None)
+    dropped = grad_total.dropped if grad_total is not None else ()
+    leaf_spec = [None if any(a <= off and off + n <= b for a, b in dropped)
+                 else spec for off, n in segments]
 
     def grad_group_tables(params_vec, batch, on_group=None):
         prepare_segments(spec, segments, params_vec.device)
@@ -409,10 +422,16 @@ def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
                             device=params_vec.device, requires_grad=True)
                 for _ in groups]
         left = [b - a for a, b in groups]
-        reported = [False] * len(groups)
+        tables = [None] * len(groups)
 
-        def report(g, table):
-            reported[g] = True
+        def finish(g):
+            table = accs[g].detach()
+            if grad_total is not None:
+                table = grad_total.table_total(table)
+            if g == 0 and cfg.weight_decay:
+                table = table + cfg.weight_decay * sketch_vec(spec_f32,
+                                                              params_vec)
+            tables[g] = table
             if on_group is not None:
                 on_group(g, table)
 
@@ -420,24 +439,21 @@ def make_sketch_grad_one(cfg, loss_fn: Callable, unravel: Callable, spec,
             def tick():
                 left[g] -= 1
                 if left[g] == 0 and not (g == 0 and cfg.weight_decay):
-                    report(g, accs[g].detach())
+                    finish(g)
             return tick
 
         with torch.enable_grad():
             tapped = list(leaves)
             for g, (a, b) in enumerate(groups):
                 for i in range(a, b):
-                    tapped[i] = SketchGradTap.apply(leaves[i], accs[g], spec,
-                                                    offsets[i], done(g))
+                    tapped[i] = SketchGradTap.apply(
+                        leaves[i], accs[g], leaf_spec[i], offsets[i],
+                        done(g))
             loss, aux = loss_fn(tree_with_leaves(tree, tapped), batch)
             torch.autograd.grad(loss, accs, allow_unused=True)
-        tables = [a.detach() for a in accs]
-        if cfg.weight_decay:
-            tables[0] = tables[0] + cfg.weight_decay * sketch_vec(
-                spec_f32, params_vec)
         for g, t in enumerate(tables):
-            if not reported[g]:
-                report(g, t)
+            if t is None:
+                finish(g)
         return (tuple(tables), loss.detach(),
                 {k: v.detach() for k, v in aux.items()})
 

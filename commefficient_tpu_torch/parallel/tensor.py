@@ -67,7 +67,10 @@ from commefficient_tpu_torch.models.losses import (
     _resolve_compute_dtype,
     softmax_cross_entropy_sum,
 )
-from commefficient_tpu_torch.ops.param_utils import tree_leaves
+from commefficient_tpu_torch.ops.param_utils import (
+    tree_leaves,
+    tree_with_leaves,
+)
 from commefficient_tpu_torch.parallel.ring_attention import (
     gather_tokens,
     ring_attention,
@@ -326,7 +329,9 @@ def _flat_ranges(cfg: GPT2Config):
 def make_grad_total(cfg: GPT2Config, grid):
     """``grad_total(g)``: this rank's raw flat ``[..., D]`` gradient ->
     the whole gradient (module docstring), the same on every rank of the
-    model and seq groups."""
+    model and seq groups. Its ``dropped`` attribute lists the flat ranges
+    this rank zeroes before the sums, and ``table_total`` sums a gradient
+    table over the same groups (``round.make_sketch_grad_one``)."""
     model, seq = grid.model, grid.seq
     repl, mc_head = _flat_ranges(cfg)
 
@@ -344,6 +349,22 @@ def make_grad_total(cfg: GPT2Config, grid):
             g = keep_from_rank0(g, seq, [mc_head])
         return g
 
+    def table_total(table):
+        """The sketch-fused backward's counterpart: this rank's ``[r, c]``
+        table, sketched without the ``dropped`` ranges, summed over the
+        model group and then the seq group (the sketch is linear, so this
+        is the table of ``grad_total``'s gradient)."""
+        for group in (model, seq):
+            if group.size > 1:
+                table = ReduceFromGroup.apply(table, group)
+        return table
+
+    # the flat ranges whose gradient this rank leaves to rank 0 of a group
+    # (grad_total zeroes them here): whole leaves, so the fused backward
+    # skips their sketch instead
+    grad_total.dropped = ((repl if model.rank else [])
+                          + ([mc_head] if seq.rank else []))
+    grad_total.table_total = table_total
     return grad_total
 
 
@@ -455,3 +476,113 @@ def build_tp_eval_fn(cfg: GPT2Config, grid, unravel, lm_coef: float = 1.0,
     eval_step.every_rank = True
     return eval_step
 
+
+
+# --------------------------------------------------------------------------
+# The 3-axis training step: workers (data) x model (tensor) x seq (tokens)
+# --------------------------------------------------------------------------
+
+
+def build_tp3d_train_step(grid, cfg: GPT2Config, lm_coef: float = 1.0,
+                          mc_coef: float = 1.0):
+    """The reference's ``build_tp3d_train_step``: a plain SGD step for
+    GPT-2 sharded over all three groups of ``grid``. Returns
+    ``step(tp_params, batch, lr) -> (tp_params, metrics)``:
+
+    * ``tp_params`` is this rank's ``tp_shard_params`` tree; the step
+      updates its leaves in place (the reference donates them) and
+      returns it;
+    * ``batch`` is the whole batch on every rank of the grid
+      (``input_ids``/``token_type_ids``/``lm_labels`` ``[B, N, T]``,
+      ``mc_token_ids [B, N]``, ``mc_labels [B]``): the rows are split
+      over the workers group (B divisible by its size), the tokens over
+      the seq group (T divisible by its size), heads and MLP hidden units
+      over the model group;
+    * the next-token labels shift by one token across the seq shards:
+      each shard's first label column goes to its left neighbour (the seq
+      group's ``shift``), and the last shard's final position, which has
+      no next token, is ``IGNORE_INDEX``;
+    * the LM sums (NLL and count) are totaled over the workers and seq
+      groups, the MC sums over the workers group (the MC pick is already
+      summed over the seq group inside the forward, so every seq rank
+      holds the whole MC logits), each by ``ReduceFromGroup``: every rank
+      differentiates its own share against the global counts;
+    * each leaf's gradient is then totaled over the groups whose ranks
+      hold other shares of it: the workers group for every leaf, the seq
+      group for every leaf but ``mc_head`` (whose gradient is whole on
+      every seq rank). No leaf is summed over the model group: the
+      conjugate pair leaves every replicated leaf's gradient whole on
+      every model rank, and a sharded leaf's slice is its rank's own.
+
+    ``metrics``: ``loss``, ``lm_loss``, ``mc_loss`` (0-d tensors, the
+    same on every rank)."""
+    _check_heads(cfg, grid.model)
+    workers, seq = grid.workers, grid.seq
+
+    def shifted_labels(labels):
+        """This seq rank's ``[..., T_local]`` labels, each position's the
+        next global token's."""
+        if seq.size == 1:
+            return labels[..., 1:]
+        nxt = seq.shift(labels[..., :1].contiguous(), -1)
+        if seq.rank == seq.size - 1:
+            nxt = torch.full_like(nxt, IGNORE_INDEX)
+        return torch.cat([labels[..., 1:], nxt], -1)
+
+    def step(tp_params, batch, lr):
+        B, _, T = batch["input_ids"].shape
+        if T % seq.size:
+            raise ValueError(f"T={T} must divide by seq axis {seq.size}")
+        if B % workers.size:
+            raise ValueError(f"B={B} must divide by workers axis "
+                             f"{workers.size}")
+        b = B // workers.size
+        rows = slice(workers.rank * b, (workers.rank + 1) * b)
+
+        def local(u):
+            return _seq_slice(u[rows], seq).reshape(-1, T // seq.size)
+
+        ids, tt = local(batch["input_ids"]), local(batch["token_type_ids"])
+        labels = shifted_labels(local(batch["lm_labels"]))
+        mc = batch["mc_token_ids"][rows].reshape(-1)
+        mc_labels = batch["mc_labels"][rows]
+        named = tree_leaves(tp_params)
+        leaves = [t.detach().requires_grad_(True) for _, t in named]
+        with torch.enable_grad():
+            _, lm, mc_logits = _forward_local(
+                tree_with_leaves(tp_params, leaves), ids, tt, mc, cfg, grid)
+            if seq.size == 1:
+                lm = lm[:, :-1]
+            lm_sums = torch.stack(softmax_cross_entropy_sum(lm, labels))
+            lm_sums = reduce_from(reduce_from(lm_sums, workers), seq)
+            mc_sums = torch.stack(softmax_cross_entropy_sum(
+                mc_logits.reshape(b, -1), mc_labels))
+            mc_sums = reduce_from(mc_sums, workers)
+            lm_loss = lm_sums[0] / torch.clamp(lm_sums[1], min=1.0)
+            mc_loss = mc_sums[0] / torch.clamp(mc_sums[1], min=1.0)
+            loss = lm_coef * lm_loss + mc_coef * mc_loss
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            flat = torch.cat([(torch.zeros_like(t) if g is None else g)
+                              .reshape(-1).to(torch.float32)
+                              for t, g in zip(leaves, grads)])
+            if workers.size > 1:
+                flat = workers.all_reduce_sum(flat)
+            if seq.size > 1:
+                if seq.rank:  # mc_head's gradient counts from seq rank 0
+                    off = 0
+                    for (name, t) in named:
+                        if name.startswith("mc_head/"):
+                            flat[off:off + t.numel()] = 0.0
+                        off += t.numel()
+                flat = seq.all_reduce_sum(flat)
+            off = 0
+            for _, t in named:
+                n = t.numel()
+                t.sub_(lr * flat[off:off + n].view_as(t).to(t.dtype))
+                off += n
+        return tp_params, {"loss": loss.detach(),
+                           "lm_loss": lm_loss.detach(),
+                           "mc_loss": mc_loss.detach()}
+
+    return step

@@ -34,7 +34,12 @@ of the graph:
   packs in the graph and copied out after each replay (the next replay
   overwrites them before the runner's deferred drain reads them); each
   yielded round's metrics are views of those copies, so the drained
-  sequence is the per-round path's.
+  sequence is the per-round path's. The programs share ONE memory pool
+  (the first capture's): they never run at once, their static inputs
+  are allocated outside it, each one's outputs stay allocated while its
+  graph lives and are copied out right after its replay, before another
+  program reuses its temporaries' memory. A pool a program put GPT-2's
+  two block lengths (~44 GB each) past the card's 80 GB.
 * **Blocks end at every observation boundary.** The runner reads the
   state at checkpoint saves, vault snapshots and epoch ends, so a block
   ends there: the state it sees is the per-round path's bit for bit.
@@ -191,6 +196,8 @@ class ScanRounds:
         # ONE raw round closure shared by every block length
         self._raw = session.raw_round_idx_fn()
         self._programs: Dict[int, _Program] = {}
+        # the one memory pool every program's capture allocates from
+        self._pool = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
         self._warmed = False
         self._rounds = 0
@@ -384,7 +391,8 @@ class ScanRounds:
         torch.backends.cudnn.benchmark = False
         try:
             torch.cuda.synchronize(dev)
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 prog.state_out, prog.packs = self._block_fn(prog.L)(
                     state, prog.inputs)
         except Exception as e:
@@ -396,6 +404,8 @@ class ScanRounds:
         # what each replay launches (a capture itself launches nothing)
         prog.launches = kern.launches_since(before, kern.capture_counts)
         prog.graph = graph
+        if self._pool is None:
+            self._pool = graph.pool()
         self._captures += 1
 
     def _warm_up(self, bstart: int, inputs: dict) -> None:

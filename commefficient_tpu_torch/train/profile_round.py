@@ -30,6 +30,17 @@ phase by phase with CUDA events (``build_round_fn``'s ``mark``):
 * ``apply``: ``w -= delta``, or the sharded decode's k-sparse scatter,
   and the client banks' write-back.
 
+In sketch mode the reference's five asyncfed lines follow
+(``async_lines``): a second session of the flags with per-client rows, K
+= W // 2, C = 2 and staleness exponent 0.5 (``async_session``) times the
+arrival schedule's host ms (``[async arrival]``), one cohort's launch
+(``[async launch]``), one W-row staleness-weighted update (``[async
+apply]``, with the launch amortized over the updates a cohort feeds), and
+the apply chain fenced after every update (``[async sequential]``) and
+with the fence deferred one update (``[async double-buffer]``), through
+the pair ``AsyncFederation`` dispatches (``async_round_fns``). A failure
+there raises.
+
 On the device-resident training set the ``[scan x10]`` line times ten
 rounds dispatched one by one against ten as one replay of the scan
 engine's CUDA graph (``scan_line``): the dispatch overhead a replay
@@ -429,6 +440,125 @@ def scan_line(session, sampler, n: int, lr: float) -> dict:
             "engine": eng.stats()}
 
 
+ASYNC_UPDATES = 50  # the [async arrival] line's schedule length
+
+
+def async_session(cfg, params, loss_fn, mask=None):
+    """The async lines' session: ``cfg`` with per-client rows
+    (``fuse_clients`` off), K = W // 2, C = 2 and staleness exponent 0.5,
+    the reference's settings, whatever ``cfg``'s own async flags."""
+    acfg = cfg.replace(fuse_clients=False,
+                       async_buffer=max(1, cfg.num_workers // 2),
+                       async_concurrency=2, staleness_exponent=0.5)
+    return FederatedSession(acfg, params, loss_fn,
+                            **({"mask_batch": mask} if mask else {}))
+
+
+def async_launch(session, ids, batch, lr):
+    """One cohort's launch through the session's async pair, as
+    ``AsyncFederation`` dispatches a cohort launched at version 0: every
+    client's transmit row, the velocity and error rows, the losses and
+    the aux rows, ``[W, ...]`` on every rank."""
+    launch_fn, _ = session.async_round_fns()
+    return launch_fn(session.state, ids, batch, 0, float(np.float32(lr)))
+
+
+def async_apply(session, out, host_ids, lr):
+    """One staleness-weighted server update of the W rows of ``out``
+    (``async_launch``'s), every weight 1 (the reference's lines), through
+    the session's async pair: sets ``session.state`` and returns the
+    update's metrics."""
+    _, apply_fn = session.async_round_fns()
+    W = session.cfg.num_workers
+    session.state, metrics = apply_fn(
+        session.state, *out, np.asarray(host_ids, np.int64),
+        np.ones(W, np.float32), float(W), float(np.float32(lr)),
+        draw=session.server_draw(session.state.step))
+    return metrics
+
+
+def _fence(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def async_lines(session, ids, batch, host_ids, lr: float, reps: int) -> dict:
+    """The reference's five asyncfed lines (``scripts/profile_round.py``)
+    on the async session ``async_session`` built: ``[async arrival]``,
+    the host ms of an ``ASYNC_UPDATES``-update ``AsyncSchedule``;
+    ``[async launch]``, one cohort's launch; ``[async apply]``, one
+    W-row server update, and the launch amortized over the ``ceil(W /
+    K)`` updates a cohort feeds; ``[async sequential]``, the apply chain
+    with a fence after every update (the sequential engine), and
+    ``[async double-buffer]``, the same chain with each fence deferred
+    past the next update's dispatch (``--async_double_buffer``), and their
+    difference. Each time is the mean over ``reps`` calls between two
+    device synchronizes, after one call to warm it. Nothing is caught: a
+    failure raises. Advances ``session.state``; returns the ms by line."""
+    from commefficient_tpu_torch.asyncfed import AsyncSchedule
+
+    cfg = session.cfg
+    W, K, C = cfg.num_workers, cfg.async_buffer, cfg.async_concurrency
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        AsyncSchedule(seed=cfg.seed, num_workers=W, buffer_k=K,
+                      concurrency=C, arrival_rate=1.0,
+                      num_updates=ASYNC_UPDATES)
+    arrival = (time.perf_counter() - t0) / reps * 1e3
+    print(f"[async arrival] {ASYNC_UPDATES}-update host schedule (K={K}, "
+          f"C={C}): {arrival:.2f} ms ({arrival / ASYNC_UPDATES * 1e3:.0f} "
+          f"us/update)", flush=True)
+
+    def timed(fn):
+        out = fn()
+        _fence(out)
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        _fence(out)
+        return (time.perf_counter() - t) / reps * 1e3
+
+    out = async_launch(session, ids, batch, lr)
+    launch = timed(lambda: async_launch(session, ids, batch, lr)[3])
+    print(f"[async launch] cohort W={W} grads+encode: {launch:.2f} ms",
+          flush=True)
+    apply = timed(lambda: async_apply(session, out, host_ids, lr)["loss"])
+    per = -(-W // K)
+    print(f"[async apply] staleness-weighted {W}-row server update: "
+          f"{apply:.2f} ms (launch amortized over ~{per} updates -> "
+          f"{launch / per + apply:.2f} ms/update)", flush=True)
+
+    def sequential():
+        for _ in range(reps):
+            _fence(async_apply(session, out, host_ids, lr)["loss"])
+
+    def double_buffered():
+        prev = None
+        for _ in range(reps):
+            loss = async_apply(session, out, host_ids, lr)["loss"]
+            if prev is not None:
+                _fence(prev)  # drained after the next apply dispatches
+            prev = loss
+        _fence(prev)
+
+    chains = {}
+    for name, chain in (("sequential", sequential),
+                        ("double_buffer", double_buffered)):
+        t = time.perf_counter()
+        chain()
+        chains[name] = (time.perf_counter() - t) / reps * 1e3
+    print(f"[async sequential] apply + per-update fence: "
+          f"{chains['sequential']:.2f} ms/update", flush=True)
+    print(f"[async double-buffer] apply + deferred fence: "
+          f"{chains['double_buffer']:.2f} ms/update (overlap delta "
+          f"{chains['sequential'] - chains['double_buffer']:+.2f} "
+          f"ms/update)", flush=True)
+    return {"arrival_ms": arrival, "launch_ms": launch, "apply_ms": apply,
+            "amortized_ms": launch / per + apply,
+            "sequential_ms": chains["sequential"],
+            "double_buffer_ms": chains["double_buffer"]}
+
+
 def main(argv=None):
     # no abbreviations: "--mode" would be taken for "--model"
     ap = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -452,14 +582,6 @@ def main(argv=None):
             "card; a hosted store's stage and writeback times are its "
             "clientstore/* scalars (cv_train --telemetry_level 1) — run "
             "profile_round with --client_store device")
-    if cfg.asyncfed_enabled:
-        raise ValueError(
-            "profile_round splits the synchronous round's phases; the "
-            "buffered-async engine's launch and apply phases are not "
-            "profiled yet (ROADMAP A11, item A.1.7) — time it with "
-            "cv_train --async_buffer K --telemetry_level 1 (its "
-            "async_launch/async_apply spans), or run profile_round "
-            "without --async_buffer")
     session = FederatedSession(cfg, params, loss_fn,
                                **({"mask_batch": mask} if mask else {}))
     if session.device.type != "cuda":
@@ -520,6 +642,18 @@ def main(argv=None):
             server_steps = breakdown(session, agg, lr)
             print("server phase by step (ms):", json.dumps(server_steps),
                   flush=True)
+        asynced = None
+        if cfg.mode == "sketch":
+            # the buffered-async engine's pieces on their own session
+            asess = async_session(cfg, params, loss_fn, mask)
+            host_ids, raw = sampler.sample_round(3 + ns.rounds)
+            asynced = async_lines(
+                asess, torch.as_tensor(host_ids.astype(np.int64),
+                                       device=dev),
+                _to_device(asess.local_clients(microbatched(cfg, raw)), dev),
+                host_ids, lr, ns.rounds)
+            del asess
+            torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats()
         busy = round_busy_share(session, sampler, 99, lr)
@@ -550,7 +684,7 @@ def main(argv=None):
                "grad_size": session.grad_size,
                "fused_clients": cfg.fuse_clients,
                "phase_ms": phase_ms, "grads_steps_ms": grads_steps,
-               "server_steps_ms": server_steps,
+               "server_steps_ms": server_steps, "async_ms": asynced,
                "bytes_per_round": session.bytes_per_round(),
                **busy, "device_ms_by_kind": by_kind, "scan": scan,
                "card": torch.cuda.get_device_name(0)}

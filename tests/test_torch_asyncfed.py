@@ -611,3 +611,99 @@ def test_write_back_last_live_slot_wins():
     want[2], want[4] = rows[2], rows[1]
     assert torch.equal(bank, want)
     write_back(None, ids, w, rows)  # an absent bank: nothing
+
+
+# -- profile_round's async phase lines ------------------------------------------------
+
+ASYNC_LINES = ("[async arrival]", "[async launch]", "[async apply]",
+               "[async sequential]", "[async double-buffer]")
+
+
+def _lines_inputs(sess, data, step=0):
+    """Round ``step``'s cohort as profile_round hands it to the lines:
+    device ids, this rank's microbatched clients, the host ids."""
+    from commefficient_tpu_torch.parallel.api import _to_device, microbatched
+
+    host_ids, raw = _sampler(data, sess.cfg).sample_round(step)
+    batch = _to_device(sess.local_clients(microbatched(sess.cfg, raw)),
+                       sess.device)
+    return torch.as_tensor(host_ids.astype(np.int64)), batch, host_ids
+
+
+def test_profile_round_takes_async_buffer(monkeypatch):
+    """``--async_buffer`` is no longer refused: the flags reach the
+    session (here a stand-in that stops the run)."""
+    from commefficient_tpu_torch.train import profile_round
+
+    class Reached(Exception):
+        pass
+
+    def stop(cfg, *a, **k):
+        raise Reached(cfg)
+
+    monkeypatch.setattr(profile_round.cv_train, "build_model_and_data",
+                        lambda cfg: (None,) * 6)
+    monkeypatch.setattr(profile_round, "FederatedSession", stop)
+    with pytest.raises(Reached) as got:
+        profile_round.main(["--async_buffer", "4", "--async_concurrency",
+                            "2", "--device", "cpu"])
+    cfg = got.value.args[0]
+    assert (cfg.async_buffer, cfg.async_concurrency) == (4, 2)
+
+
+def test_async_lines_pair_equals_one_async_federation_update(data):
+    """The lines' launch and apply (K = W / 2, C = 2, alpha 0.5, every
+    weight 1), called as ``async_lines`` calls them, leave the state of
+    one ``AsyncFederation`` update at the anchor (K = W, C = 1, alpha 0,
+    whose weights are all 1) on the same cohort, bit for bit."""
+    from commefficient_tpu_torch.train.profile_round import (
+        async_apply,
+        async_launch,
+        async_session,
+    )
+
+    kw = MODES["sketch"]
+    want, recs, _ = _async(data, {**kw, **ANCHOR}, n=1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sess = async_session(Config(**{**ONE, **kw, "device": "cpu"}),
+                             data[1], classification_loss(torch_tinymlp))
+    assert (sess.cfg.async_buffer, sess.cfg.async_concurrency,
+            sess.cfg.staleness_exponent, sess.cfg.fuse_clients) == (
+                4, 2, 0.5, False)
+    ids, batch, host_ids = _lines_inputs(sess, data)
+    out = async_launch(sess, ids, batch, LR)
+    metrics = async_apply(sess, out, host_ids, LR)
+    assert float(metrics["loss"]) == _losses(recs)[0]
+    _assert_leaves_equal(sess, want)
+
+
+def test_async_lines_print_five_lines_and_raise_on_failure(data, capsys):
+    """``async_lines`` prints the reference's five lines under their
+    names with finite positive ms (host ms here: the card's are
+    ``chip_smoke.py``'s), and a failure inside raises instead of an
+    "unavailable" line."""
+    from commefficient_tpu_torch.train.profile_round import (
+        async_lines,
+        async_session,
+    )
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sess = async_session(Config(**{**ONE, **MODES["sketch"],
+                                       "device": "cpu"}),
+                             data[1], classification_loss(torch_tinymlp))
+    ids, batch, host_ids = _lines_inputs(sess, data)
+    ms = async_lines(sess, ids, batch, host_ids, LR, reps=2)
+    printed = capsys.readouterr().out.splitlines()
+    assert [ln.split("]")[0] + "]" for ln in printed] == list(ASYNC_LINES)
+    assert all(math.isfinite(v) and v > 0 for v in ms.values()), ms
+    assert sess.state.step == 2 + 2 * 2 + 1  # warm + timed + two chains
+
+    def broken(*a, **k):
+        raise RuntimeError("launch failed")
+
+    sess.async_round_fns = lambda rung=None: (broken, broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        async_lines(sess, ids, batch, host_ids, LR, reps=2)
+    assert "unavailable" not in capsys.readouterr().out

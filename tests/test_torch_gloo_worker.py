@@ -327,7 +327,19 @@ def run_tp(job, npz, out):
       input's ``round/ids`` and ``round/<key>`` rounds (``round/losses``,
       ``round/params``);
     * ``eval``: ``build_tp_eval_fn``'s session metrics over the input's
-      ``eval/<i>/<key>`` batches (``eval/<metric>``)."""
+      ``eval/<i>/<key>`` batches (``eval/<metric>``);
+    * ``tp3d``: one ``build_tp3d_train_step`` step a grid on the
+      ``apply_params`` and the input's ``tp3d/<key>`` batch: the metrics
+      (``tp3d:<grid>/loss|lm_loss|mc_loss``) and each leaf of the rank's
+      updated shard tree (``tp3d:<grid>/leaf/<name>``);
+    * ``fused_round``: sessions of the sketch-fused backward under the
+      TP/SP loss (``fused``, with ``layerwise`` overlap, and the
+      dense-grad ``dense`` twin) run over the ``round`` inputs
+      (``fused_round:<run>/losses|params``), and round 0's gradient
+      table of this rank's clients with weight decay, fused
+      (``fused_table/fused``), layerwise (``fused_table/layerwise``, the
+      group tables' sum) and the dense gradient's sketch
+      (``fused_table/dense``)."""
     tp = job.get("tp")
     if not tp:
         return
@@ -453,6 +465,75 @@ def run_tp(job, npz, out):
                    for i in range(e["batches"])]
         for k, v in sess.evaluate(batches).items():
             out[f"eval/{k}"] = np.asarray(v)
+
+    if tp.get("tp3d"):
+        from commefficient_tpu_torch.parallel import build_tp3d_train_step
+
+        gcfg, vec, unravel = model("apply_cfg")
+        batch = {k[len("tp3d/"):]: t(k) for k in npz
+                 if k.startswith("tp3d/")}
+        for W, M, S in tp["tp3d"]["grids"]:
+            grid = build_grid(W, M, S)
+            key = _grid_key((W, M, S))
+            tp_params = tp_shard_params(grid, unravel(vec.clone()), gcfg)
+            step = build_tp3d_train_step(grid, gcfg)
+            new, metrics = step(tp_params, batch, tp["tp3d"]["lr"])
+            assert new is tp_params
+            for k, v in metrics.items():
+                out[f"tp3d:{key}/{k}"] = v.numpy()
+            for name, leaf in tree_leaves(new):
+                out[f"tp3d:{key}/leaf/{name}"] = leaf.numpy()
+
+    if tp.get("fused_round"):
+        from dataclasses import replace as dc_replace
+
+        from commefficient_tpu_torch.ops.countsketch import sketch_vec
+        from commefficient_tpu_torch.parallel.round import (
+            OVERLAP_SEGMENTS,
+            make_sketch_grad_one,
+        )
+
+        r = tp["fused_round"]
+        gcfg, vec, unravel = model("fed_cfg")
+        base = Config(**r["config"], device="cpu")
+        grid = build_grid(base.num_devices, base.model_axis, base.seq_axis)
+        loss_fn = build_tp_flat_loss(gcfg, grid)
+        runs = {"fused": base,
+                "layerwise": base.replace(overlap_collectives="layerwise"),
+                "dense": base.replace(sketch_fused_bwd=False)}
+        for name in r["runs"]:
+            sess = FederatedSession(runs[name], unravel(vec.clone()),
+                                    loss_fn, mask_batch=mask_gpt2, grid=grid)
+            losses = []
+            for i in range(npz["round/ids"].shape[0]):
+                b = {k[len("round/"):]: npz[k][i] for k in npz
+                     if k.startswith("round/") and k != "round/ids"}
+                losses.append(float(sess.train_round(npz["round/ids"][i], b,
+                                                     r["lr"])["loss"]))
+            out[f"fused_round:{name}/losses"] = np.asarray(losses)
+            out[f"fused_round:{name}/params"] = (
+                sess.full_params_vec().numpy())
+        # round 0's table of this worker rank's clients, weight decay on
+        wd = base.replace(weight_decay=r["weight_decay"])
+        spec = sess.compressor.spec
+        w = grid.workers
+        per = base.num_workers // w.size
+        flat = {k[len("round/"):]: torch.from_numpy(
+            npz[k][0][w.rank * per:(w.rank + 1) * per]) for k in npz
+            if k.startswith("round/") and k != "round/ids"}
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in flat.items()}
+        d = vec.numel()
+        table, _, _ = make_sketch_grad_one(wd, loss_fn, unravel, spec, d)(
+            vec, flat)
+        groups, _, _ = make_sketch_grad_one(
+            wd, loss_fn, unravel, spec, d,
+            overlap_segments=OVERLAP_SEGMENTS)(vec, flat)
+        g, _, _ = make_grad_one(wd, loss_fn, unravel, batched=False)(vec,
+                                                                      flat)
+        out["fused_table/fused"] = table.numpy()
+        out["fused_table/layerwise"] = torch.stack(groups).sum(0).numpy()
+        out["fused_table/dense"] = sketch_vec(
+            dc_replace(spec, table_dtype=torch.float32), g).numpy()
 
 
 def run_resume(job, npz, out, tmp):

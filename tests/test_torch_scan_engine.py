@@ -94,6 +94,26 @@ CASES = {
     "powersgd_cold": dict(mode="powersgd", error_type="virtual",
                           virtual_momentum=0.9, powersgd_rank=2,
                           powersgd_warm_start=False),
+    # the rest of the round family
+    "uncompressed": dict(mode="uncompressed"),
+    "fedavg": dict(mode="fedavg", error_type="none", num_local_iters=2),
+    "true_topk": dict(mode="true_topk", error_type="virtual",
+                      virtual_momentum=0.9, k=40),
+    "true_topk_down": dict(mode="true_topk", error_type="virtual",
+                           virtual_momentum=0.9, k=40, do_topk_down=True),
+    # the sketch-fused backward: K1's segment form inside the block
+    "fused": {**EXACT, "fuse_clients": True, "sketch_fused_bwd": True},
+    "fused_layerwise": {**EXACT, "fuse_clients": True,
+                        "sketch_fused_bwd": True,
+                        "overlap_collectives": "layerwise"},
+    # the decode in two slices of the coordinates (K4's range form)
+    "blocks2": {**EXACT, "num_blocks": 2},
+    "blocks2_sharded": {**SKETCH, "sketch_decode": "sharded",
+                        "num_blocks": 2},
+    # resilience/'s skip_clients blacklist composed into the staged envs
+    "skip_clients": {**EXACT, "availability": "bernoulli",
+                     "dropout_prob": 0.3, "recover_policy": "skip_clients",
+                     "blacklist": (1, 6)},
 }
 LEAVES = ("params_vec", "momentum", "error", "client_vel", "client_err",
           "comp")
@@ -110,12 +130,14 @@ def data():
     return ds, to_numpy_tree(jax.tree.map(np.asarray, params))
 
 
-def _build(data, **kw):
+def _build(data, blacklist=None, **kw):
     cfg = Config(**{**ONE, **kw, "device": "cpu"})
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         sess = FederatedSession(cfg, data[1],
                                 classification_loss(torch_tinymlp))
+    if blacklist is not None:
+        sess.blacklist_clients(np.asarray(blacklist))
     ds = FedDataset(data[0].data, cfg.num_clients, iid=True, seed=0)
     sampler = FedSampler(ds, num_workers=cfg.num_workers,
                          local_batch_size=cfg.sampler_batch_size, seed=1)

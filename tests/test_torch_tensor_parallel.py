@@ -28,7 +28,20 @@ throughout:
    reference's TP round and the port's dense oracle, every rank's
    ``params_vec`` bit-equal;
 6. ``build_tp_eval_fn`` at (2, 2, 2), eval batch 4, against the
-   reference's case of ``test_tp_eval_matches_dense_eval``.
+   reference's case of ``test_tp_eval_matches_dense_eval``;
+7. ``build_tp3d_train_step``: one SGD step at (2, 2, 2), (4, 2, 1) and
+   (2, 1, 4) against the dense SGD step of the reference's anchor
+   ``test_tp3d_train_step_matches_single_device_sgd`` and, at (2, 2, 2),
+   against the reference's own 3-axis step (loss atol 1e-5 and every
+   leaf of every rank's shard atol 1e-6, tighter than the anchor's 2e-4
+   and 5e-4);
+8. the sketch-fused backward under the TP/SP loss at workers 2 x model 2
+   x seq 2: round 0's gradient table, with weight decay, within ``1e-5 *
+   max|table|`` of the dense gradient's sketch (monolithic and as the
+   layerwise groups' sum), and four rounds, alone and with the layerwise
+   overlap, every rank's ``params_vec`` bit-equal, held to the
+   dense-grad TP round and to the one-process fused round as the anchor
+   round is held.
 """
 
 import functools
@@ -57,6 +70,9 @@ from commefficient_tpu.parallel.ring_attention import (
 from commefficient_tpu.parallel.sequence import sp_gpt2_apply as ref_sp_apply
 from commefficient_tpu.parallel.tensor import build_tp_eval_fn as ref_tp_eval
 from commefficient_tpu.parallel.tensor import build_tp_flat_loss as ref_tp_loss
+from commefficient_tpu.parallel.tensor import (
+    build_tp3d_train_step as ref_tp3d_step,
+)
 from commefficient_tpu.parallel.tensor import tp_gpt2_apply as ref_tp_apply
 from commefficient_tpu.parallel.tensor import tp_shard_params as ref_tp_shard
 from commefficient_tpu.parallel.tensor import (
@@ -79,7 +95,9 @@ from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
 from commefficient_tpu_torch.parallel.mesh import SingleWorker
 from commefficient_tpu_torch.parallel.round import make_grad_one
 from commefficient_tpu_torch.parallel.sequence import sp_gpt2_apply
+from commefficient_tpu_torch.parallel import build_tp3d_train_step
 from commefficient_tpu_torch.parallel.tensor import (
+    _local_blocks,
     build_tp_flat_loss,
     tp_gpt2_apply,
     tp_transform_params,
@@ -103,6 +121,14 @@ EVAL_KW = dict(mode="uncompressed", num_epochs=1, num_clients=4,
                num_workers=2, num_devices=2, local_batch_size=2,
                max_seq_len=T, model_axis=2, seq_axis=2, device_data=False)
 EVAL_BS = 4
+TP3D_GRIDS = [(2, 2, 2), (4, 2, 1), (2, 1, 4)]
+TP3D_LR = 0.1
+# the fused rounds: the anchor's sketch rounds at f32 compute, fused
+# clients, the fused backward
+FUSED_KW = dict(ROUND_KW, model_axis=2, seq_axis=2, fuse_clients=True,
+                sketch_fused_bwd=True)
+FUSED_RUNS = ("fused", "layerwise", "dense")
+FUSED_WD = 1e-2  # the table check's weight decay (joins once, after sums)
 
 
 def _gkey(grid):
@@ -149,6 +175,20 @@ def fed():
 
 
 @functools.lru_cache(maxsize=None)
+def tp3d_batch():
+    """The reference anchor's batch (B 4, half of each row's labels
+    masked, seed 7 MC labels) and its params."""
+    _, params, ids, tt, mc = _setup(B=4)
+    rng = np.random.default_rng(7)
+    lm_labels = np.asarray(ids).copy()
+    lm_labels[..., : T // 2] = -100
+    batch = {"input_ids": np.asarray(ids), "token_type_ids": np.asarray(tt),
+             "lm_labels": lm_labels, "mc_token_ids": np.asarray(mc),
+             "mc_labels": rng.integers(0, 2, size=(4,)).astype(np.int32)}
+    return params, batch
+
+
+@functools.lru_cache(maxsize=None)
 def ring_inputs():
     rng = np.random.default_rng(7)
     return tuple(rng.normal(size=RING_SHAPE).astype(np.float32)
@@ -177,6 +217,8 @@ def job_and_arrays():
     for i, b in enumerate(evals):
         for k, v in b.items():
             arrays[f"eval/{i}/{k}"] = v
+    for k, v in tp3d_batch()[1].items():
+        arrays[f"tp3d/{k}"] = v
     job = {"tp": {
         "apply_cfg": _port_cfg(CFG), "fed_cfg": _port_cfg(gcfg),
         "ring": [list(g) + [c] for g in RING_CASES for c in (1, 0)],
@@ -185,6 +227,9 @@ def job_and_arrays():
         "round": {"config": {**ROUND_KW, "model_axis": 2, "seq_axis": 2},
                   "compute_dtype": "mixed", "lr": LR},
         "eval": {"config": EVAL_KW, "batches": len(evals)},
+        "tp3d": {"grids": [list(g) for g in TP3D_GRIDS], "lr": TP3D_LR},
+        "fused_round": {"config": FUSED_KW, "lr": LR,
+                        "runs": list(FUSED_RUNS), "weight_decay": FUSED_WD},
     }}
     return job, arrays
 
@@ -288,11 +333,11 @@ def test_tp_and_sp_forward_match_reference(grid, tmp_path_factory):
 
 
 class _Rank:
-    """A stand-in group of ``size`` ranks (the refusals come before any
-    collective)."""
+    """A stand-in group of ``size`` ranks, this one ``rank`` (the refusals
+    come before any collective; the shard cut reads the two)."""
 
-    def __init__(self, size):
-        self.rank, self.size = 0, size
+    def __init__(self, size, rank=0):
+        self.rank, self.size = rank, size
 
 
 def test_tp_and_sp_refuse_an_indivisible_sequence():
@@ -422,17 +467,10 @@ def test_federated_tp_sp_round_matches_reference_and_dense_oracle(
         assert np.array_equal(got["round/params"], ranks[0]["round/params"])
         assert np.array_equal(got["round/losses"], ranks[0]["round/losses"])
     losses, tp_params = ranks[0]["round/losses"], ranks[0]["round/params"]
-    for want_losses, want_params in ((ref_losses, ref_params),
-                                     (oracle_losses, oracle_params)):
-        np.testing.assert_allclose(losses, want_losses, rtol=2e-4, atol=2e-4)
-        # a few top-k boundary flips are summation-order noise; a
-        # systematic gradient error flips thousands and moves the losses
-        diff = np.abs(tp_params - want_params)
-        flipped = diff > 2e-4 + 2e-3 * np.abs(want_params)
-        assert int(flipped.sum()) <= 8, (
-            f"{int(flipped.sum())} of {diff.size} params outside tolerance "
-            f"(max abs diff {diff.max():.2e})")
-        assert float(diff[flipped].max(initial=0.0)) < 1e-2
+    _held_like_the_anchor(losses, tp_params, ref_losses, ref_params,
+                          "against the reference's TP round")
+    _held_like_the_anchor(losses, tp_params, oracle_losses, oracle_params,
+                          "against the dense oracle")
 
 
 # -- 6. the TP eval ---------------------------------------------------------
@@ -459,3 +497,145 @@ def test_tp_eval_matches_reference(tmp_path_factory):
             np.testing.assert_allclose(float(got[f"eval/{k}"]),
                                        want_dense[k], rtol=2e-4, atol=2e-4,
                                        err_msg=k)
+
+
+# -- 7. the 3-axis SGD step -------------------------------------------------
+
+
+def _rank_coords(rank, grid):
+    _, M, S = grid
+    return rank // (M * S), (rank // S) % M, rank % S
+
+
+def _rank_shard(full, pcfg, m, M):
+    """A transformed tree (numpy leaves) cut to model rank ``m``'s slices,
+    as ``(path, leaf)`` pairs."""
+    tree = jax.tree.map(lambda a: torch.from_numpy(np.asarray(a)), full)
+    tree = {**tree, "blocks": _local_blocks(tree["blocks"], pcfg,
+                                            _Rank(M, m))}
+    return tree_leaves(tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _tp3d_oracles():
+    """The anchor's dense SGD step (its loss, lm loss and new params in
+    the transformed layout) and the reference's 3-axis step at (2, 2, 2)
+    (its metrics and new params)."""
+    params, batch = tp3d_batch()
+    model = _setup()[0]
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss, aux), grads = jax.value_and_grad(
+        ref_gpt2_loss(model.apply), has_aux=True)(params, jb)
+    dense = jax.tree.map(lambda p, g: p - TP3D_LR * g, params, grads)
+    mesh = make_mesh(2, 2, 2)
+    new_tp, metrics = ref_tp3d_step(mesh, model)(
+        ref_tp_shard(mesh, params, CFG), jb, jnp.float32(TP3D_LR))
+    return ({"loss": float(loss), "lm_loss": float(aux["lm_loss"])},
+            ref_transform(dense, CFG),
+            {k: float(v) for k, v in metrics.items()},
+            jax.tree.map(np.asarray, new_tp))
+
+
+@pytest.mark.parametrize("grid", TP3D_GRIDS,
+                         ids=["w2_m2_s2", "w4_m2", "w2_s4"])
+def test_tp3d_train_step_matches_dense_sgd_and_reference(
+        grid, tmp_path_factory):
+    dense_m, dense_tp, ref_m, ref_tp = _tp3d_oracles()
+    pcfg = _port_gcfg(CFG)
+    key = f"tp3d:{_gkey(grid)}"
+    for rank, got in enumerate(eight_ranks(tmp_path_factory)):
+        _, m, _ = _rank_coords(rank, grid)
+        wants = [(dense_m, dense_tp, "dense SGD")]
+        if grid == (2, 2, 2):
+            wants.append((ref_m, ref_tp, "the reference's step"))
+        for want_m, want_tp, what in wants:
+            for k in ("loss", "lm_loss"):
+                np.testing.assert_allclose(
+                    float(got[f"{key}/{k}"]), want_m[k], atol=1e-5,
+                    err_msg=f"rank {rank} {k} against {what}")
+            leaves = _rank_shard(want_tp, pcfg, m, grid[1])
+            assert {f"{key}/leaf/{p}" for p, _ in leaves} == {
+                k for k in got if k.startswith(f"{key}/leaf/")}
+            for path, leaf in leaves:
+                np.testing.assert_allclose(
+                    got[f"{key}/leaf/{path}"], leaf.numpy(), rtol=0,
+                    atol=1e-6, err_msg=f"rank {rank} {path} against {what}")
+        if grid == (2, 2, 2):
+            np.testing.assert_allclose(float(got[f"{key}/mc_loss"]),
+                                       ref_m["mc_loss"], atol=1e-5)
+
+
+def test_tp3d_train_step_refuses_indivisible_batches():
+    pcfg = _port_gcfg(CFG)
+    grid = type("G", (), {"workers": _Rank(3), "model": SingleWorker(),
+                          "seq": SingleWorker()})()
+    step = build_tp3d_train_step(grid, pcfg)
+    _, batch = tp3d_batch()
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with pytest.raises(ValueError, match="B=4 must divide by workers "
+                       "axis 3"):
+        step({}, batch, 0.1)
+    grid.workers, grid.seq = SingleWorker(), _Rank(3)
+    with pytest.raises(ValueError, match=f"T={T} must divide by seq "
+                       "axis 3"):
+        build_tp3d_train_step(grid, pcfg)({}, batch, 0.1)
+
+
+# -- 8. the sketch-fused backward under the TP/SP loss ----------------------
+
+
+def test_fused_tp_sp_table_matches_dense_gradient_sketch(tmp_path_factory):
+    for rank, got in enumerate(eight_ranks(tmp_path_factory)):
+        want = got["fused_table/dense"]
+        tol = 1e-5 * np.abs(want).max()
+        for name in ("fused", "layerwise"):
+            np.testing.assert_allclose(got[f"fused_table/{name}"], want,
+                                       rtol=0, atol=tol,
+                                       err_msg=f"rank {rank} {name}")
+
+
+def _held_like_the_anchor(losses, params, want_losses, want_params, what):
+    """The anchor round's tolerances: losses rtol/atol 2e-4, at most 8
+    params past ``2e-4 + 2e-3 * |want|`` and none past 1e-2 (a few top-k
+    boundary flips are summation-order noise; a systematic gradient error
+    flips thousands and moves the losses)."""
+    np.testing.assert_allclose(losses, want_losses, rtol=2e-4, atol=2e-4,
+                               err_msg=what)
+    diff = np.abs(params - want_params)
+    flipped = diff > 2e-4 + 2e-3 * np.abs(want_params)
+    assert int(flipped.sum()) <= 8, (
+        f"{what}: {int(flipped.sum())} of {diff.size} params outside "
+        f"tolerance (max abs diff {diff.max():.2e})")
+    assert float(diff[flipped].max(initial=0.0)) < 1e-2, what
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_fused():
+    gcfg, _, params, rounds, _, _ = fed()
+    pcfg = _port_gcfg(gcfg)
+    kw = {**FUSED_KW, "num_devices": 1, "model_axis": 1, "seq_axis": 1}
+    sess = FederatedSession(
+        Config(**kw, device="cpu"),
+        _unravel(pcfg)(params_from_jax(jax.tree.map(np.asarray, params))),
+        gpt2_double_heads_loss(functools.partial(gpt2_apply, cfg=pcfg)),
+        mask_batch=mask_gpt2)
+    losses = [float(sess.train_round(i, b, LR)["loss"]) for i, b in rounds]
+    return np.asarray(losses), sess.full_params_vec().numpy()
+
+
+@pytest.mark.parametrize("run", ["fused", "layerwise"])
+def test_fused_tp_sp_round_matches_dense_tp_round_and_one_process(
+        run, tmp_path_factory):
+    one_losses, one_params = _one_process_fused()
+    ranks = eight_ranks(tmp_path_factory)
+    key = f"fused_round:{run}"
+    for rank, got in enumerate(ranks):
+        # every rank of every model/seq group holds the same params_vec
+        assert np.array_equal(got[f"{key}/params"], ranks[0][f"{key}/params"])
+        assert np.array_equal(got[f"{key}/losses"], ranks[0][f"{key}/losses"])
+    losses, params = ranks[0][f"{key}/losses"], ranks[0][f"{key}/params"]
+    _held_like_the_anchor(losses, params, ranks[0]["fused_round:dense/losses"],
+                          ranks[0]["fused_round:dense/params"],
+                          "against the dense-grad TP round")
+    _held_like_the_anchor(losses, params, one_losses, one_params,
+                          "against the one-process fused round")
