@@ -371,7 +371,20 @@ phase prints one line (or a few) and raises on failure, so the script exits
     twin's launches less, on rank 1, the leaves rank 0 sketches), and
     ``build_tp3d_train_step`` at (workers, model, seq) = (2,1,1), (1,2,1)
     and (1,1,2), one step each, its loss within 2e-4 and every leaf of
-    each rank's shard within 5e-4 of the one-process dense SGD step.
+    each rank's shard within 5e-4 of the one-process dense SGD step;
+33. ``lint`` (the invariant linter, ``commefficient_tpu_torch/analysis/``):
+    (a) ``python -m commefficient_tpu_torch.analysis --json`` on this
+    tree in a subprocess, exit 0 and ``clean: true``, its files, rules
+    and seconds printed; (b) a ``sys.setprofile`` hook on while the scan
+    engine captures one main-path program (the main path at level 1, 2
+    rounds at ``--scan_rounds 2``: one capture, one replay): every
+    ``commefficient_tpu_torch`` function the capture enters is in
+    ``traced-purity``'s reachable set (both counts printed), and the
+    replay's state is bit-equal to its per-round twin's; (c) a planted
+    two-function module written to a temporary directory: the rule flags
+    the captured function's ``.item()`` and not its clean twin, and on the
+    card ``torch.cuda.graph`` refuses to capture the first while the
+    second captures and its replay is bit-equal to the eager call.
 
 Since the deferred drain (port PR 11) a history row's ``ms`` is the
 round's share of the wall clock, dispatch to next dispatch (the last
@@ -6690,6 +6703,154 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
     return {path: add_forms(*fs) for path, fs in forms.items()}
 
 
+LINT_ARGS = MAIN_ARGS + ["--telemetry_level", "1", "--max_retraces", "0"]
+LINT_ROUNDS = 2  # one block of 2 rounds at --scan_rounds 2: one capture
+# the planted module of the lint phase's (c): a captured function reading a
+# CUDA tensor back to the host, and its clean twin
+LINT_PLANTED = """import torch
+
+
+def captured_read(x):
+    return x * x.max().item()
+
+
+def captured_clean(x):
+    return x * x.sum()
+
+
+def capture_read(graph, x):
+    with torch.cuda.graph(graph):
+        out = captured_read(x)
+    return out
+
+
+def capture_clean(graph, x):
+    with torch.cuda.graph(graph):
+        out = captured_clean(x)
+    return out
+"""
+LINT_PLANTED_LINE = 5  # the .item() line of LINT_PLANTED
+
+
+def lint_phase(torch, kern, cv_train, dataset_dir, work):
+    """The invariant linter on the card's tree, its capture rule against a
+    real capture, and a planted read (the module docstring's 33)."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    from commefficient_tpu_torch.analysis import purity, run_analyzers
+
+    t0 = time.perf_counter()
+    # (a) the shipped tree lints clean
+    r = subprocess.run([sys.executable, "-m",
+                        "commefficient_tpu_torch.analysis", "--json"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    lint_s = round(time.perf_counter() - t0, 3)
+    phase("lint", part="tree", rc=r.returncode, clean=summary["clean"],
+          files=summary["files"], rules=json.dumps(summary["rules"]),
+          counts=json.dumps(summary["counts"]), seconds=lint_s)
+    check(r.returncode == 0 and summary["clean"] is True
+          and len(summary["rules"]) == 5,
+          f"lint: the tree is not clean: {summary['findings'][:5]} "
+          f"{r.stderr[-2000:]}")
+
+    # (b) every function a real capture enters is reachable
+    t1 = time.perf_counter()
+    pkg = os.path.join(ROOT, "commefficient_tpu_torch") + os.sep
+    entered = set()
+
+    def hook(frame, event, arg):
+        if event == "call":
+            code = frame.f_code
+            if code.co_filename.startswith(pkg):
+                entered.add((code.co_filename[len(pkg):],
+                             code.co_firstlineno, code.co_name))
+
+    graph_cm = torch.cuda.graph
+
+    class hooked_graph(graph_cm):
+        """``torch.cuda.graph`` with the hook on inside the block only."""
+
+        def __enter__(self):
+            out = super().__enter__()
+            sys.setprofile(hook)
+            return out
+
+        def __exit__(self, *exc):
+            sys.setprofile(None)
+            return super().__exit__(*exc)
+
+    twin = state_run(torch, kern, cv_train, dataset_dir, work, "lint_twin",
+                     LINT_ARGS, rounds=LINT_ROUNDS)
+    torch.cuda.graph = hooked_graph
+    try:
+        scan = state_run(torch, kern, cv_train, dataset_dir, work,
+                         "lint_scan", LINT_ARGS + ["--scan_rounds", "2"],
+                         rounds=LINT_ROUNDS)
+    finally:
+        torch.cuda.graph = graph_cm
+        sys.setprofile(None)
+    st = scan["out"]["pipeline_stats"] or {}
+    same, err = state_diff(torch, scan["state"], twin["state"],
+                           GEOMETRY["d"])
+    reach = purity.reachable_index()
+    missing, n_entered = purity.unreached_entries(entered, reach)
+    phase("lint", part="capture", entered=n_entered, reachable=len(reach[0]),
+          unreached=json.dumps(missing[:10]), captures=st.get("captures"),
+          replays=st.get("replays"), leaves_bit_equal=same, max_abs_err=err,
+          seconds=round(time.perf_counter() - t1, 3))
+    check(n_entered > 0 and not missing,
+          f"lint: the capture entered functions traced-purity does not "
+          f"reach: {missing}")
+    check(st.get("captures") == 1 and st.get("replays") == 1,
+          f"lint: engine stats {st}")
+    check(same, f"lint: the replay differs from its per-round twin by {err}")
+
+    # (c) a planted read: flagged by the rule, refused by the capture
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        root = os.path.join(tmp, "planted")
+        os.makedirs(root)
+        path = os.path.join(root, "planted.py")
+        with open(path, "w") as f:
+            f.write(LINT_PLANTED)
+        findings, _ = run_analyzers(root=Path(root), rules=["traced-purity"])
+        spec = importlib.util.spec_from_file_location("lint_planted", path)
+        planted = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(planted)
+    flagged = [(f.path, f.lineno) for f in findings]
+    check(flagged == [("planted.py", LINT_PLANTED_LINE)],
+          f"lint: the planted module's findings {flagged}")
+    x = torch.arange(1.0, 9.0, device="cuda")
+    eager = planted.captured_clean(x)
+    torch.cuda.synchronize()
+    g_clean = torch.cuda.CUDAGraph()
+    out = planted.capture_clean(g_clean, x)
+    g_clean.replay()
+    torch.cuda.synchronize()
+    clean_equal = torch.equal(out, eager)
+    eager_read = planted.captured_read(x)  # the read itself is legal eagerly
+    torch.cuda.synchronize()
+    refused = None
+    try:
+        planted.capture_read(torch.cuda.CUDAGraph(), x)
+    except Exception as e:  # the refusal this part checks for
+        refused = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    torch.cuda.synchronize()
+    phase("lint", part="planted", flagged=json.dumps(flagged),
+          clean_flagged=False, read_refused=refused is not None,
+          refusal=repr(refused), clean_replay_bit_equal=clean_equal,
+          seconds=round(time.perf_counter() - t2, 3),
+          wall_s=round(time.perf_counter() - t0, 3))
+    check(refused is not None and "captur" in refused
+          and bool(torch.isfinite(eager_read).all()),
+          f"lint: torch.cuda.graph did not refuse the .item() for being "
+          f"captured: {refused}")
+    check(clean_equal, "lint: the clean twin's replay differs from eager")
+
+
 def main() -> int:
     import torch
 
@@ -6867,6 +7028,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         paths.update(tensor_parallel_phase(torch, kern, dataset_dir,
                                            work))
+    # the invariant linter: the tree, a real capture, a planted read
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        with CachedCifar(cv_train):
+            lint_phase(torch, kern, cv_train, dataset_dir, work)
 
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers

@@ -18,14 +18,16 @@ Rules this package keeps (tests/test_torch_isolation.py pins the first):
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(name: str = "cuda") -> torch.device:
+def resolve_device(name: str = "cuda") -> "torch.device":
     """The device an entry point runs on. ``"cuda"`` (the default) raises
     when no card is visible; ``"cpu"`` must be asked for explicitly. On the
     card both TF32 switches are turned off: the reference computes in full
     float32, and cuDNN convolutions default to TF32 on Hopper."""
+    # imported here so that the package's stdlib-only parts (``analysis/``)
+    # load without torch
+    import torch
+
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

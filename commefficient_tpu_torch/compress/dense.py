@@ -90,8 +90,8 @@ class FedAvgCompressor(_DenseServerMixin, Compressor):
             llr = (lr.to(torch.float32) if cfg.local_lr is None else
                    torch.full_like(lr, cfg.local_lr, dtype=torch.float32))
         else:
-            llr = torch.tensor(cfg.local_lr if cfg.local_lr is not None
-                               else lr, dtype=torch.float32, device=device)
+            llr = torch.full((), cfg.local_lr if cfg.local_lr is not None
+                             else lr, dtype=torch.float32, device=device)
         return torch.clamp(llr, min=1e-12) if cfg.local_lr is None else llr
 
     def client_noise(self, draw, key, batches):

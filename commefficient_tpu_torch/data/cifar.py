@@ -197,6 +197,9 @@ def normalizer(mean: np.ndarray, std: np.ndarray):
         if x.dtype != torch.uint8:
             return x
         if x.device not in on_device:
+            # made once a device by the first eager round (the scan
+            # engine's warm-up runs before any capture)
+            # lint: allow[traced-purity] cached before any capture reads it
             on_device[x.device] = (torch.as_tensor(mean, device=x.device),
                                    torch.as_tensor(std, device=x.device))
         m, s = on_device[x.device]
@@ -283,6 +286,9 @@ class CifarAugment:
         captured CUDA graph (the scan engine's)."""
         key = (x.device, x.dtype, x.shape[-1])
         if key not in self._device_fills:
+            # made once a (device, dtype, width) by the first eager round
+            # (the scan engine's warm-up runs before any capture)
+            # lint: allow[traced-purity] cached before any capture reads it
             self._device_fills[key] = torch.as_tensor(self._fill(
                 np.dtype(str(x.dtype).split(".")[-1]), x.shape[-1]),
                 device=x.device).to(x.dtype)
@@ -330,6 +336,8 @@ def device_augment(x: torch.Tensor, ys, xs, flips, cys, cxs, *,
     elif torch.is_tensor(fill):
         fill_v = fill
     else:
+        # device_apply, the round's caller, passes its cached device fill
+        # lint: allow[traced-purity] a host fill comes from eager callers
         fill_v = torch.as_tensor(np.broadcast_to(fill, (c,)).copy(),
                                  device=dev).to(x.dtype)
     return torch.where(mask[..., None], fill_v, out)

@@ -335,6 +335,9 @@ class CountSketch:
 
     def _poly4_coeffs(self, row: int, purpose: int) -> np.ndarray:
         """[4] uint64 in [1, p): purpose 0 = bucket slots, 1 = signs."""
+        # a pure function of (seed, row, purpose): the same at capture and
+        # at every replay, and no device value is read
+        # lint: allow[traced-purity] seed-derived host hash coefficients
         rng = np.random.default_rng(
             np.random.SeedSequence([int(self.seed) & 0x7FFFFFFF, row, purpose]))
         return rng.integers(1, _MERSENNE_P, size=4).astype(np.uint64)
@@ -616,7 +619,7 @@ class SketchGradTap(torch.autograd.Function):
     gradient another rank of a model or seq group contributes)."""
 
     @staticmethod
-    def forward(ctx, leaf, table, spec, offset, done=None):
+    def forward(ctx, leaf, table, spec, offset: int, done=None):
         ctx.spec, ctx.offset, ctx.table = spec, int(offset), table
         ctx.done = done
         return leaf.view_as(leaf)

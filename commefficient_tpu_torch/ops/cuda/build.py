@@ -65,6 +65,9 @@ def compile_library(sources=SOURCES, name: str = "cs") -> Path:
     tag = f"{os.getpid()}.tmp"
     objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{tag}.o")
             for s in sources]
+    # the one nvcc build a process runs before any capture (the eager
+    # warm-up round loads the library); the timing touches no stream
+    # lint: allow[traced-purity] host timing of the build, before capture
     t0 = time.perf_counter()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
@@ -84,6 +87,7 @@ def compile_library(sources=SOURCES, name: str = "cs") -> Path:
         log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
         if res.returncode != 0:
             failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    # lint: allow[traced-purity] host timing of the build, before capture
     build_seconds[name] = time.perf_counter() - t0
     out.with_suffix(".log").write_text("".join(log))
     for o in objs:

@@ -114,6 +114,9 @@ def _kernel_geometry(spec, device: str):
         raise ValueError("the CUDA kernels index the padded layout in "
                          "uint32; this spec's layout exceeds 2^32")
     params = spec.kernel_row_params()
+    # built once a (spec, device) by the eager warm-up round, before any
+    # capture
+    # lint: allow[traced-purity] params is a host numpy array, not a tensor
     rows = (ctypes.c_longlong * params.size)(*params.reshape(-1).tolist())
     ptr, off = spec.csr_tables(device)
     tile = index_math.sketch_tile_strides(

@@ -47,6 +47,7 @@ from commefficient_tpu_torch.ops.cuda import build, index_math
 from commefficient_tpu_torch.ops.cuda import countsketch as kern
 
 GEOMETRY = dict(d=6_573_130, c=500_000, r=5, band=16, seed=42)
+PROBE_STREAM = 5  # the seed of the probe's random tables on the card
 MUL, SLOTS, SIGNS, FUSED, FIXED, PER_TILE, POLY4 = 1, 2, 4, 8, 16, 32, 64
 DESIGN = MUL | SLOTS | SIGNS | FUSED
 W01, W012 = 48 * 1024, 96 * 1024  # window budgets: rows 0-1, rows 0-2
@@ -151,7 +152,7 @@ def main() -> dict:
     specs, tables, wants = {}, {}, {}
     for family in ("fmix32", "poly4"):
         spec = specs[family] = cs.CountSketch(hash_family=family, **GEOMETRY)
-        gen = torch.Generator(device=dev).manual_seed(5)
+        gen = torch.Generator(device=dev).manual_seed(PROBE_STREAM)
         table = tables[family] = torch.randn(spec.table_shape, generator=gen,
                                              device=dev)
         wants[family] = (kern.estimate_median_torch(spec, table),
@@ -161,10 +162,10 @@ def main() -> dict:
     out_s = torch.empty(specs["fmix32"].d_eff, device=dev)
     out = torch.empty(specs["fmix32"].d, device=dev)
 
-    def runner(mode, coords, budget, unscramble, family):
+    def runner(walk, coords, budget, unscramble, family):
         spec, table = specs[family], tables[family]
         rows = kern._kernel_geometry(spec, str(dev))[0]
-        if mode is None:
+        if walk is None:
             def launch():
                 old_k2(lib, spec, table, out_s)
                 return 0
@@ -178,11 +179,11 @@ def main() -> dict:
                 used += wlen[row]
             woff = (ctypes.c_int * spec.r)(*woff)
             wlen = (ctypes.c_int * spec.r)(*wlen)
-            dst = out if mode & FUSED else out_s
+            dst = out if walk & FUSED else out_s
 
             def launch():
                 return lib.k2_probe_walk(
-                    mode, table.data_ptr(), spec.c_actual, dst.data_ptr(),
+                    walk, table.data_ptr(), spec.c_actual, dst.data_ptr(),
                     spec.d, spec.d_eff, plan["perm"].data_ptr(), plan["b"],
                     plan["slots"].data_ptr(), spec.chunk_m,
                     plan["signs"].data_ptr(), plan["signs"].shape[1],
@@ -192,10 +193,10 @@ def main() -> dict:
         def run():
             rc = launch()
             if rc:
-                raise RuntimeError(f"k2 probe mode {mode}: CUDA error {rc}")
+                raise RuntimeError(f"k2 probe walk {walk}: CUDA error {rc}")
             if unscramble:
                 return cs._unscramble(spec, out_s)
-            return out if mode is not None and mode & FUSED else out_s
+            return out if walk is not None and walk & FUSED else out_s
         return run
 
     runs = {name: runner(*v) for name, v in VARIANTS.items()}

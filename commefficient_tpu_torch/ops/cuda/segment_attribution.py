@@ -35,6 +35,7 @@ from commefficient_tpu_torch.ops.cuda import countsketch as kern
 
 KERNELS = ("cs_segment_small_kernel", "cs_segment_scatter_kernel",
            "cs_segment_owner_kernel")
+PROBE_STREAM = 3  # the seed of the probe's random vector on the card
 
 
 def _ms(fn, samples: int = 5, calls: int = 2) -> float:
@@ -145,7 +146,7 @@ def main() -> dict:
     print("host_us_a_call", result["host_us_a_call"], flush=True)
     for name, (geo, segs) in geometries.items():
         spec = cs.CountSketch(**geo)
-        gen = torch.Generator(device=dev).manual_seed(3)
+        gen = torch.Generator(device=dev).manual_seed(PROBE_STREAM)
         v = torch.randn(spec.d, generator=gen, device=dev)
         table = torch.zeros(spec.table_shape, device=dev)
 

@@ -253,8 +253,10 @@ class DistributedWorkers:
             send = t
         out = torch.empty_like(send)
         for req in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, send, self._peer(to), self.group),
-                dist.P2POp(dist.irecv, out, self._peer(frm), self.group)]):
+                dist.P2POp(dist.isend, send, self._peer(to),
+                           group=self.group),
+                dist.P2POp(dist.irecv, out, self._peer(frm),
+                           group=self.group)]):
             req.wait()
         return out.to(t.device) if staged else out
 

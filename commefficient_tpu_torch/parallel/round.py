@@ -223,6 +223,9 @@ def dp_seed(seed: int, *key: int) -> int:
     ``(step, client id)`` (fedavg appends the local step). A pure function
     of the run's seed and the round, so a resumed round draws what the
     unbroken run drew."""
+    # a captured round never draws: the scan engine passes the noise it
+    # drew before the replay
+    # lint: allow[traced-purity] a pure function of (seed, key), no state
     ss = np.random.SeedSequence([int(seed) & 0x7FFFFFFF, DP_STREAM,
                                  *map(int, key)])
     return int(ss.generate_state(1, np.uint64)[0])
@@ -612,6 +615,10 @@ def client_inputs(cfg, comp, state: FedState, client_ids, batch, lr: float,
                 else None)
         rows = [None if b is None else b[mine] for b in banks]
     if noise is None and cfg.dp_noise_multiplier > 0:
+        # under capture the scan engine always passes the noise it drew
+        # before the replay (the dp case of the block-program check in
+        # tests/test_torch_scan_engine.py)
+        # lint: allow[traced-purity] the per-round path's draw only
         ids = (range(cfg.num_workers) if client_ids is None
                else client_ids.tolist())
         step = state.step if key_step is None else int(key_step)

@@ -51,6 +51,10 @@ def all_finite(v: torch.Tensor) -> torch.Tensor:
 def nonfinite_sentinel(scalars, vecs=()) -> torch.Tensor:
     """1.0 iff any scalar or any element of a vector is NaN or Inf, else
     0.0, as a 0-d f32 tensor on the inputs' device."""
+    # on the round's path every scalar is a 0-d device tensor, for which
+    # as_tensor is the identity (the block-program check in
+    # tests/test_torch_scan_engine.py holds it)
+    # lint: allow[traced-purity] identity on the round's 0-d tensors
     flags = [torch.isfinite(torch.as_tensor(s)).reshape(()) for s in scalars]
     flags += [all_finite(v) for v in vecs]
     dev = flags[0].device

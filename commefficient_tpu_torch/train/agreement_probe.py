@@ -132,11 +132,12 @@ def gpt2_tiny_session(where: str, seed: int = 3, lr: float = 0.2,
     return losses, p0, sess.state.params_vec.cpu(), sess.sketch_decode_resolved
 
 
-def _session(mode: str):
-    """The session function of a probe mode, with the mode's settings."""
-    if mode == "gpt2_tiny":
+def _session(case: str):
+    """The session function of a probe case (a mode of ``MODES`` or
+    ``gpt2_tiny``), with its settings."""
+    if case == "gpt2_tiny":
         return gpt2_tiny_session
-    return functools.partial(width8_session, **MODES[mode])
+    return functools.partial(width8_session, **MODES[case])
 
 
 def _ratio(p, ref, p0) -> float:
@@ -175,16 +176,16 @@ def main(argv=None):
     lo, _, hi = ns.seeds.partition("-")
     seeds = range(int(lo), int(hi or lo) + 1)
     results = {}
-    for mode in ns.modes.split(","):
+    for case in ns.modes.split(","):
         for lr in (float(x) for x in ns.lrs.split(",")):
-            rows = [_probe(_session(mode), seed, lr, card)
+            rows = [_probe(_session(case), seed, lr, card)
                     for seed in seeds]
-            results[f"{mode}@{lr}"] = rows
+            results[f"{case}@{lr}"] = rows
             for key in rows[0]:
                 vals = [r[key] for r in rows]
                 shown = " ".join(f"{v:.1e}" if isinstance(v, float)
                                  else str(v) for v in vals)
-                print(f"{mode:22s} lr={lr:<5} {key:20s} seeds "
+                print(f"{case:22s} lr={lr:<5} {key:20s} seeds "
                       f"{seeds.start}..{seeds.stop - 1}: {shown}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0) if card
                       else "cpu", "seeds": list(seeds), "results": results}))

@@ -280,7 +280,7 @@ def _client_breakdown(session, grad_one, batch, ids, lr, grads_ms):
     params, batch, vel, err, lr_c, noise, _, _ = client_inputs(
         cfg, comp, st, ids, batch, lr, lo=session.group.rank * w_loc)
     clients = [{k: v[i] for k, v in batch.items()} for i in range(w_loc)]
-    if cfg.mode == "fedavg":
+    if cfg.round_microbatches:  # fedavg's local steps
         name = "local_steps"
         step = torch.func.vmap(
             lambda b, n: comp.client_grad(grad_one, params, b, n, lr_c),
@@ -621,14 +621,16 @@ def main(argv=None):
         ids, batch = draw(2 + ns.rounds)
         grad_one = make_grad_one(cfg, loss_fn, session.unravel)
         grads_steps = None
-        if cfg.mode in ("local_topk", "fedavg"):
+        # local_topk and fedavg: the modes with per-client work
+        if not session.compressor.supports_fused_clients:
             grads_steps = _client_breakdown(session, grad_one, batch, ids, lr,
                                             phase_ms["grads"])
             print("grads phase by step (ms):", json.dumps(grads_steps),
                   flush=True)
         server_steps = None
         breakdown = SERVER_BREAKDOWNS.get(cfg.mode)
-        if cfg.mode == "sketch" and cfg.error_type == "virtual":
+        if session.compressor.needs_sketch_spec \
+                and cfg.error_type == "virtual":
             breakdown = (_sharded_breakdown
                          if session.sketch_decode_resolved == "sharded"
                          else _dense_breakdown)
@@ -643,7 +645,7 @@ def main(argv=None):
             print("server phase by step (ms):", json.dumps(server_steps),
                   flush=True)
         asynced = None
-        if cfg.mode == "sketch":
+        if session.compressor.needs_sketch_spec:
             # the buffered-async engine's pieces on their own session
             asess = async_session(cfg, params, loss_fn, mask)
             host_ids, raw = sampler.sample_round(3 + ns.rounds)

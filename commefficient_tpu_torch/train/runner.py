@@ -571,7 +571,9 @@ def run_train_loop(cfg, session, sampler, hooks: WorkloadHooks, table=None,
                 live_drain()
             except DivergenceError:
                 raise
-            except Exception:  # noqa: BLE001 — the original error wins
+            # the original error is re-raised just below
+            # lint: allow[exception-hygiene] a flush error must not hide it
+            except Exception:  # noqa: BLE001
                 pass
         record_crash(flight, e)  # a divergence dumped its own record
         raise
