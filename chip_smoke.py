@@ -75,14 +75,20 @@ phase prints one line (or a few) and raises on failure, so the script exits
    rounded, and within one bf16 ulp of each entry of its plain version;
    K2 on an f32 table read as bf16 and on a bf16 table, and K4 (both
    forms) on a bf16 table, exactly their plain versions; at GPT-2's
-   geometry also the f32 K1 and K2, K2 in its ``<5, 0, false>``
-   instantiation (no staged window, the slot tables read in place),
-   which no ResNet-9 path runs. Each is timed beside its plain version,
-   its bound and, for K1, one ``index_add_``;
+   geometry also the f32 K1 and K2. There every form of K1 runs its chunk
+   design and every form of K2 its row design (``ops/cuda/csrc/
+   riffle.cu``: the vector and the table outgrow the L2), each also held
+   bit-equal to the tile kernel and the walk (the designs ResNet-9
+   takes) and timed beside them (``tile_kernel_ms``, ``walk_ms``). Each is timed beside its plain version, its bound and,
+   for K1, one ``index_add_``; the ``kernels`` line lists the chunk and
+   row designs as ``cs_sketch_chunks`` and ``cs_estimate_rows`` (GPT-2's
+   numbers; launches: the GPT-2 and FixupResNet-50 main paths' through
+   each design);
 9. the GPT-2 main path (``gpt2_main_path``): ``gpt2_train.main`` with
    BASELINE #4's flags for 5 rounds at full GPT-2-small width, with the
    counters set to 0 just before and read just after: D, exact bytes (a
-   100,013,760 B table up, 497,777,668 B down), K1 10 and K2 5 launches,
+   100,013,760 B table up, 497,777,668 B down), K1 10 and K2 5 launches
+   (every one through the chunk and row designs: ``kern.design_counts``),
    finite loss, nll and ppl, an MC accuracy in [0, 1], a sample decode,
    moved params, no envelope warning, and the round time (median of
    rounds 2-5);
@@ -371,7 +377,9 @@ phase prints one line (or a few) and raises on failure, so the script exits
     twin's launches less, on rank 1, the leaves rank 0 sketches), and
     ``build_tp3d_train_step`` at (workers, model, seq) = (2,1,1), (1,2,1)
     and (1,1,2), one step each, its loss within 2e-4 and every leaf of
-    each rank's shard within 5e-4 of the one-process dense SGD step;
+    each rank's shard within 5e-4 of the one-process dense SGD step.
+    Phases 31 and 33 run in this process while the two ranks run their
+    legs (none of their checks reads a time);
 33. ``lint`` (the invariant linter, ``commefficient_tpu_torch/analysis/``):
     (a) ``python -m commefficient_tpu_torch.analysis --json`` on this
     tree in a subprocess, exit 0 and ``clean: true``, its files, rules
@@ -399,6 +407,7 @@ numbers), and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -412,6 +421,8 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()  # every phase line's t_s: seconds since the start
 SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/countsketch.cu"
+WALK_SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/walk.cu"
+RIFFLE_SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/riffle.cu"
 SEGMENT_SOURCE = "commefficient_tpu_torch/ops/cuda/csrc/segment.cu"
 PALLAS = "commefficient_tpu/ops/pallas/countsketch_kernels.py"
 DECODE_PALLAS = "commefficient_tpu/ops/pallas/decode_kernels.py"
@@ -474,6 +485,10 @@ FORMS = {
     "cs_estimate_at[bf16_table]": [("estimate_at", "bf16_table"),
                                    ("estimate_at_range", "bf16_table")],
     "cs_sketch_segment": [("sketch_segment", "f32")],
+    # the launches through K1's chunk design and K2's row design (every
+    # form), which the GPT-2 and FixupResNet-50 main paths record
+    "cs_sketch_chunks": [("sketch_rows@chunks", "all")],
+    "cs_estimate_rows": [("estimate_median@rows", "all")],
 }
 # the geometry of each bf16 form's main path (its top-level numbers)
 FORM_MAIN_GEOMETRY = {
@@ -634,6 +649,23 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
         smem1 = max(index_math.sketch_smem_bytes(
             spec.chunk_m, spec.V_row(row), tile * spec.s_row(row))
             for row in range(r))
+        # the designs this geometry does not take (its vector and table
+        # fit the L2), held to the ones it does and timed beside them
+        cw = index_math.chunk_tile_strides(
+            [(spec.chunk_m, spec.s_row(row), spec.V_row(row))
+             for row in range(r)])
+        F32 = torch.float32
+
+        def k1_chunks():
+            return kern.launch_sketch_rows(spec, v_s, F32, F32, "chunks", cw)
+
+        def k2_rows():
+            return kern.launch_estimate_median(spec, t_k, F32, "rows", 1)
+
+        check(torch.equal(k1_chunks(), t_k), "K1's chunk design differs from "
+              "the tile kernel at ResNet-9's geometry")
+        check(torch.equal(k2_rows(), e_k), "K2's row design differs from the "
+              "walk at ResNet-9's geometry")
         entries["cs_sketch_rows"] = dict(
             replaces=f"{PALLAS}:221", max_abs_err=err1,
             ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
@@ -641,15 +673,17 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
                                                                    v_s)),
             bound_ms=b1, bound_by=by1, library_ms=lib1,
             gather_kernel_ms=cuda_ms(torch, k1_gather),
+            chunk_design_ms=cuda_ms(torch, k1_chunks),
             tile_strides=tile, dynamic_smem_bytes=smem1)
         entries["cs_estimate_median"] = dict(
-            replaces=f"{PALLAS}:306", max_abs_err=err2,
+            source=WALK_SOURCE, replaces=f"{PALLAS}:306", max_abs_err=err2,
             ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t_k)),
             plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
                 spec, t_k)),
             bound_ms=b2, bound_by=by2, library_ms=None,
             k4_range_form_ms=cuda_ms(torch, lambda: kern.estimate_at_range(
                 spec, t_k, 0, d)),
+            row_design_ms=cuda_ms(torch, k2_rows),
             staged_rows=list(plan2["staged"]),
             slot_tables_in_smem=plan2["slot_smem"],
             dynamic_smem_bytes=plan2["smem_bytes"],
@@ -665,8 +699,8 @@ def kernels_phase(torch, cs, kern, build, index_math, dev):
             phase("timing", kernel=name, ms=e["ms"], plain_ms=e["plain_ms"],
                   library_ms=e["library_ms"], bound_ms=e["bound_ms"],
                   bound_by=e["bound_by"], **{k: e[k] for k in (
-                      "gather_kernel_ms", "tile_strides",
-                      "k4_range_form_ms") if k in e})
+                      "gather_kernel_ms", "tile_strides", "chunk_design_ms",
+                      "k4_range_form_ms", "row_design_ms") if k in e})
         del flat_cols, flat_src, flat_table, stack
     return entries
 
@@ -1072,10 +1106,12 @@ def fused_timing_phase(cv_train, dataset_dir, rounds: int = 5):
 
 def bf16_kernels_phase(torch, cs, kern, dev):
     """The bf16 forms of K1, K2 and K4, and the f32 K1 and K2 at GPT-2's
-    geometry (K2 there in ``<5, 0, false>``): each held against its plain
-    version and timed (CUDA events; the plain versions at GPT-2's
-    geometry with 5 samples of 2 calls). Returns ``{entry: {geometry:
-    numbers}}`` for the ``kernels`` line."""
+    geometry (there K1's chunk design and K2's row design, each also held
+    bit-equal to the tile kernel and the walk and timed beside them): each
+    held against its plain version and timed (CUDA events; the plain
+    versions and the tile kernel and walk at GPT-2's geometry with 5 of 2
+    calls). Returns ``{entry: {geometry: numbers}}`` for the ``kernels``
+    line."""
     BF, F32 = torch.bfloat16, torch.float32
     k1_forms = {"bf16_operand": (BF, F32), "bf16_table": (F32, BF),
                 "bf16_operand_bf16_table": (BF, BF)}
@@ -1107,6 +1143,24 @@ def bf16_kernels_phase(torch, cs, kern, dev):
         plan = kern._k2_plan(spec, str(dev))
         perm = 4 * plan["perm"].numel()
         t32 = kern.sketch_rows(spec, v_s)
+        # at GPT-2's geometry every form runs K1's chunk design and K2's row
+        # design; each is also held bit-equal to the tile kernel and the
+        # walk and timed beside them (5 samples of 2 calls)
+        tile_w, k1_design = kern._kernel_geometry(spec, str(dev))[3:5]
+        if big:
+            check(k1_design[0] == "chunks" and (plan["design"], plan["nt"])
+                  == ("rows", 1), f"GPT-2's geometry: K1 {k1_design}, K2 "
+                  f"{plan['design']} nt {plan['nt']}: expected the chunk "
+                  "design and the row design with row 0 in the final walk")
+
+        def tiles_k1(operand=F32, tdt=F32):
+            return kern.launch_sketch_rows(spec, v_s, operand, tdt, "tiles",
+                                           tile_w)
+
+        def walk_k2(t, operand=F32):
+            return kern.launch_estimate_median(spec, t, operand, "walk")
+
+        new_src = dict(source=RIFFLE_SOURCE) if big else {}
         if big:  # the f32 forms at GPT-2's geometry
             want = kern.sketch_rows_torch(spec, v_s)
             torch.cuda.synchronize()
@@ -1114,29 +1168,35 @@ def bf16_kernels_phase(torch, cs, kern, dev):
             tol = 1e-5 * max(1.0, float(want.abs().max()))
             check(err <= tol, f"K1 at GPT-2: max err {err} > {tol}")
             del want
+            check(torch.equal(t32, tiles_k1()), "K1's chunk design at GPT-2 "
+                  "differs from the tile kernel")
             b, by = bound(4 * d_eff + 4 * r * c + csr, r * d_eff)
-            put("cs_sketch_rows", "gpt2", max_abs_err=err,
+            put("cs_sketch_chunks", "gpt2", max_abs_err=err,
                 ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
                 plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
                     spec, v_s), **light),
-                bound_ms=b, bound_by=by, library_ms=lib1, tile_strides=tile)
-            check(plan["staged"] == () and not plan["slot_smem"],
-                  "K2 at GPT-2's geometry: expected no staged window and "
-                  "the slot tables in place (<5, 0, false>)")
+                bound_ms=b, bound_by=by, library_ms=lib1,
+                tile_kernel_ms=cuda_ms(torch, tiles_k1, **light),
+                bit_equal_to_tile_kernel=True, design=list(k1_design))
             e_k = kern.estimate_median(spec, t32)
             e_p = kern.estimate_median_torch(spec, t32)
             torch.cuda.synchronize()
-            check(torch.equal(e_k, e_p), "K2 <5, 0, false> at GPT-2: "
+            check(torch.equal(e_k, e_p), "K2's row design at GPT-2: "
                   f"max err {float((e_k - e_p).abs().max())}")
+            check(torch.equal(e_k, walk_k2(t32)), "K2's row design at GPT-2 "
+                  "differs from the walk")
             del e_k, e_p
             b, by = bound(4 * r * c + perm + 4 * d, r * d + r * (r - 1) * d)
-            put("cs_estimate_median", "gpt2", max_abs_err=0.0,
+            put("cs_estimate_rows", "gpt2", max_abs_err=0.0,
                 ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t32)),
                 plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
                     spec, t32), **light),
                 bound_ms=b, bound_by=by, library_ms=None,
-                instantiation="<5,0,false>",
-                dynamic_smem_bytes=plan["smem_bytes"])
+                walk_ms=cuda_ms(torch, lambda: walk_k2(t32), **light),
+                bit_equal_to_walk=True,
+                instantiation="cs_estimate_rows_kernel<0,true> + "
+                              "cs_estimate_final_kernel<5,1,0>",
+                scratch_bytes=4 * (r - plan["nt"]) * plan["pitch"])
         for form, (operand, tdt) in k1_forms.items():
             got = kern.sketch_rows(spec, v_s, operand, tdt)
             x = v_s.to(BF).float() if operand == BF else v_s
@@ -1153,6 +1213,13 @@ def bf16_kernels_phase(torch, cs, kern, dev):
                 ok = err <= 1e-5 * max(1.0, float(want.abs().max()))
             check(ok, f"K1 {form} {geo_name}: max err {err} against the "
                   "plain version")
+            beside = {}
+            if big:
+                check(torch.equal(got, tiles_k1(operand, tdt)), f"K1 {form} "
+                      "at GPT-2: the chunk design differs from the tile "
+                      "kernel")
+                beside = dict(tile_kernel_ms=cuda_ms(torch, lambda: tiles_k1(
+                    operand, tdt), **light), bit_equal_to_tile_kernel=True)
             del got, want, diff, x
             b, by = bound(4 * d_eff + tdt.itemsize * r * c + csr, r * d_eff)
             put(f"cs_sketch_rows[{form}]", geo_name, max_abs_err=err,
@@ -1161,7 +1228,8 @@ def bf16_kernels_phase(torch, cs, kern, dev):
                 plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
                     spec, v_s, operand, tdt), **light),
                 bound_ms=b, bound_by=by, library_ms=lib1,
-                bit_equal_to_f32_kernel=True)
+                bit_equal_to_f32_kernel=True, design=list(k1_design),
+                **beside, **new_src)
         for form, (tdt, operand) in k2_forms.items():
             t = t32.to(tdt)
             got = kern.estimate_median(spec, t, operand)
@@ -1172,6 +1240,14 @@ def bf16_kernels_phase(torch, cs, kern, dev):
             check(torch.equal(got, kern.estimate_median(
                 spec, t32.to(BF).float())), f"K2 {form} {geo_name}: "
                 "differs from the f32 form on the rounded table")
+            k2_plan = kern._k2_plan(spec, str(dev), tdt.itemsize)
+            beside = {}
+            if k2_plan["design"] == "rows":
+                check(torch.equal(got, walk_k2(t, operand)), f"K2 {form} at "
+                      f"{geo_name}: the row design differs from the walk")
+                beside = dict(walk_ms=cuda_ms(torch, lambda: walk_k2(
+                    t, operand), **light), bit_equal_to_walk=True,
+                    source=RIFFLE_SOURCE)
             del got, want
             b, by = bound(tdt.itemsize * r * c + perm + 4 * d,
                           r * d + r * (r - 1) * d)
@@ -1181,8 +1257,8 @@ def bf16_kernels_phase(torch, cs, kern, dev):
                 plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
                     spec, t, operand), **light),
                 bound_ms=b, bound_by=by, library_ms=None,
-                staged_rows=list(kern._k2_plan(spec, str(dev),
-                                               tdt.itemsize)["staged"]))
+                design=k2_plan["design"], staged_rows=list(k2_plan["staged"]),
+                **beside)
         if not big:  # K4 on a bf16 table, both forms, every coordinate
             t = t32.to(BF)
             idx = torch.arange(d, device=dev)
@@ -1256,7 +1332,26 @@ def gpt2_path_phase(kern, gpt2_train, dataset_dir, name, flags, rounds,
     check(not envelope, f"{name}: envelope warning {envelope}")
     got = {w: f for w, f in forms.items() if f}
     check(got == want_forms, f"{name}: launches {got}, expected {want_forms}")
-    return forms
+    return with_designs(kern, forms, name, {"sketch_rows": "chunks",
+                                            "estimate_median": "rows"})
+
+
+def with_designs(kern, forms, name, want):
+    """``forms`` and, under ``wrapper@design`` keys, the launches since the
+    counters' reset through each design (``kern.design_counts()``):
+    every launch of a wrapper of ``want`` must have gone through the
+    design named there (GPT-2's and FixupResNet-50's chunk and row
+    designs)."""
+    designs = kern.design_counts()
+    phase("designs", path=name, launches=json.dumps(designs))
+    out = dict(forms)
+    for wrapper, design in want.items():
+        n = sum(forms.get(wrapper, {}).values())
+        check(designs.get(wrapper, {}) == ({design: n} if n else {}),
+              f"{name}: {wrapper} launched {designs.get(wrapper)}, "
+              f"expected all {n} through the {design} design")
+        out[f"{wrapper}@{design}"] = {"all": n}
+    return out
 
 
 def sharded_bf16_phase(kern, cv_train, dataset_dir):
@@ -1784,13 +1879,19 @@ def f50_kernels_phase(torch, cs, kern, dev):
     (chunk m, riffle factors, realized c, K2's instantiation) printed; K1
     within its f32 tolerance of the plain version and two launches
     bit-identical, K2 exactly the plain version and K4's range form; each
-    timed beside its plain version, its bound and, for K1, one
-    ``index_add_``. Returns ``{entry: {"fixup_resnet50": numbers}}``."""
+    timed beside its plain version, its bound, the tile kernel or the
+    walk (``tile_kernel_ms``, ``walk_ms``, held bit-equal) and, for K1,
+    one ``index_add_``.
+    Returns ``{entry: {"fixup_resnet50": numbers}}``, under the entry of
+    the design the geometry takes (K1's chunk design, K2's row design)."""
     spec = cs.CountSketch(**F50_GEOMETRY)
     r, c, d, d_eff = spec.r, spec.c_actual, spec.d, spec.d_eff
     plan = kern._k2_plan(spec, str(dev))
     inst = (f"<{r},{len(plan['staged'])},"
-            f"{str(bool(plan['slot_smem'])).lower()}>")
+            f"{str(bool(plan['slot_smem'])).lower()}>"
+            if plan["design"] == "walk" else
+            f"cs_estimate_rows_kernel<0,true> + cs_estimate_final_kernel<{r},"
+            f"{plan['nt']},0>")
     phase("f50_geometry", d=d, c=F50_COLS, c_actual=c, chunk_m=spec.chunk_m,
           riffle_factors=[spec._factor(row) for row in range(r)],
           V=[spec.V_row(row) for row in range(r)], k2_instantiation=inst,
@@ -1800,7 +1901,8 @@ def f50_kernels_phase(torch, cs, kern, dev):
     light = dict(samples=7, calls=3)
     gen = torch.Generator(device=dev).manual_seed(0)
     v_s = cs._scramble(spec, torch.randn(d, generator=gen, device=dev))
-    rows, ptr, off, tile = kern._kernel_geometry(spec, str(dev))[:4]
+    rows, ptr, off, tile, k1_design = kern._kernel_geometry(spec,
+                                                            str(dev))[:5]
     t_k = kern.sketch_rows(spec, v_s)
     t_p = kern.sketch_rows_torch(spec, v_s)
     torch.cuda.synchronize()
@@ -1815,6 +1917,19 @@ def f50_kernels_phase(torch, cs, kern, dev):
           "K2 at F50: differs from the plain version")
     check(torch.equal(e_k, kern.estimate_at_range(spec, t_k, 0, d)),
           "K2 at F50: differs from K4's range form")
+    # the tile kernel and the walk beside the designs this geometry takes:
+    # bit-equal, timed
+    F32 = torch.float32
+
+    def tiles_k1():
+        return kern.launch_sketch_rows(spec, v_s, F32, F32, "tiles", tile)
+
+    def walk_k2():
+        return kern.launch_estimate_median(spec, t_k, F32, "walk")
+
+    check(torch.equal(tiles_k1(), t_k), "K1 at F50: differs from the tile "
+          "kernel")
+    check(torch.equal(walk_k2(), e_k), "K2 at F50: differs from the walk")
     del e_k
     maps = kern._plain_maps(spec, str(dev))
     flat_cols = torch.cat([row * c + cols for row, (cols, _)
@@ -1828,20 +1943,27 @@ def f50_kernels_phase(torch, cs, kern, dev):
     b1, by1 = bound(4 * d_eff + 4 * r * c + csr, r * d_eff)
     b2, by2 = bound(4 * r * c + 4 * plan["perm"].numel() + 4 * d,
                     r * d + r * (r - 1) * d)
+    # the entries of the designs this geometry takes
+    k1_name = ("cs_sketch_chunks" if k1_design[0] == "chunks"
+               else "cs_sketch_rows")
+    k2_name = ("cs_estimate_rows" if plan["design"] == "rows"
+               else "cs_estimate_median")
     out = {
-        "cs_sketch_rows": dict(
+        k1_name: dict(
             max_abs_err=err1,
             ms=cuda_ms(torch, lambda: kern.sketch_rows(spec, v_s)),
             plain_ms=cuda_ms(torch, lambda: kern.sketch_rows_torch(
                 spec, v_s), **light),
-            bound_ms=b1, bound_by=by1, library_ms=lib1, tile_strides=tile),
-        "cs_estimate_median": dict(
+            bound_ms=b1, bound_by=by1, library_ms=lib1, tile_strides=tile,
+            design=list(k1_design), tile_kernel_ms=cuda_ms(torch, tiles_k1)),
+        k2_name: dict(
             max_abs_err=0.0,
             ms=cuda_ms(torch, lambda: kern.estimate_median(spec, t_k)),
             plain_ms=cuda_ms(torch, lambda: kern.estimate_median_torch(
                 spec, t_k), **light),
             bound_ms=b2, bound_by=by2, library_ms=None, instantiation=inst,
-            dynamic_smem_bytes=plan["smem_bytes"])}
+            dynamic_smem_bytes=plan["smem_bytes"], design=plan["design"],
+            walk_ms=cuda_ms(torch, walk_k2))}
     for name, row in out.items():
         phase("timing", kernel=name, geometry="fixup_resnet50", **row)
     del v_s, t_k, maps
@@ -2218,7 +2340,7 @@ def imagenet_fedavg_phase(torch, cv_train, dataset_dir):
           **{f"{k}_{f}": v for k, r in res.items() for f, v in r.items()})
 
 
-def imagenet_sketch_phase(torch, kern, cv_train, dataset_dir):
+def imagenet_sketch_phase(torch, cs, kern, cv_train, dataset_dir):
     """FixupResNet-50 with the FetchSGD flags at ``--num_cols`` F50_COLS,
     FIXUP_ROUNDS rounds: no envelope warning, an upload of 5 c_actual
     floats, K1 twice and K2 once a round and no other estimate kernel."""
@@ -2252,7 +2374,12 @@ def imagenet_sketch_phase(torch, kern, cv_train, dataset_dir):
                        ("estimate_at_range", 0), ("median_rows", 0)):
         check(launches[name] == want, f"imagenet sketch: {name} launched "
               f"{launches[name]} times, expected {want}")
-    return kern.form_counts()
+    # the designs of the run's spec (its plans, cached by the run)
+    spec = cs.CountSketch(**F50_GEOMETRY)
+    dev = f"cuda:{torch.cuda.current_device()}"
+    return with_designs(kern, kern.form_counts(), "imagenet_fixup_sketch", {
+        "sketch_rows": kern._kernel_geometry(spec, dev)[4][0],
+        "estimate_median": kern._k2_plan(spec, dev, 4)["design"]})
 
 
 def cifar100_phase(kern, cv_train, dataset_dir):
@@ -2596,23 +2723,28 @@ FSDP_FLAGS = ["--fsdp", "true", "--topk_method", "threshold"]
 
 
 class CachedCifar:
-    """Inside ``with CachedCifar(cv_train):`` ``cv_train``'s CIFAR-10
-    loader returns the dataset it built for the same arguments before (a
-    pure function of them: the synthetic stand-in is drawn from the seed),
-    so the short runs below do not each spend seconds drawing it."""
+    """Inside ``with CachedCifar(cv_train):`` ``cv_train``'s CIFAR-10 and
+    ImageNet loaders return the dataset they built for the same arguments
+    before (a pure function of them: the synthetic stand-ins are drawn
+    from the seed), so the short runs below do not each spend seconds
+    drawing them (the 983 MB ImageNet stand-in ~10 s a draw)."""
+
+    LOADERS = ("load_fed_cifar10", "load_fed_imagenet")
 
     def __init__(self, cv_train):
-        self.cv_train, self.saved = cv_train, cv_train.load_fed_cifar10
+        self.cv_train = cv_train
+        self.saved = {n: getattr(cv_train, n) for n in self.LOADERS}
 
     def __enter__(self):
         import functools
 
-        self.cv_train.load_fed_cifar10 = functools.lru_cache(maxsize=4)(
-            self.saved)
+        for name, fn in self.saved.items():
+            setattr(self.cv_train, name, functools.lru_cache(maxsize=4)(fn))
         return self
 
     def __exit__(self, *exc):
-        self.cv_train.load_fed_cifar10 = self.saved
+        for name, fn in self.saved.items():
+            setattr(self.cv_train, name, fn)
 
 
 def state_run(torch, kern, cv_train, dataset_dir, work, name, args,
@@ -2639,6 +2771,11 @@ def state_run(torch, kern, cv_train, dataset_dir, work, name, args,
     check(len(hist) == rounds, f"{name}: {len(hist)} rounds")
     check(all(math.isfinite(h["loss"]) for h in hist)
           and math.isfinite(out["loss"]), f"{name}: loss not finite")
+    if cv_train.__name__.endswith("gpt2_train"):
+        # GPT-2's full state under <dir>/state, its HF export at the top
+        check(os.path.isfile(os.path.join(ck, "config.json")),
+              f"{name}: no HF-format export at the checkpoint dir")
+        ck = os.path.join(ck, "state")
     return dict(out=out, state=load_state(os.path.join(
         ck, f"step_{rounds}.pt")), launches=launches, forms=forms,
         peak=peak, round_ms=[round(h["ms"], 3) for h in hist],
@@ -5332,9 +5469,13 @@ SC_GPT2_ROUNDS = 5
 SC_DROP = ("pipeline/", "trace/", "xla/exposed_collective_ms",
            "xla/peak_hbm_bytes")
 # wrapper -> the kernel symbols whose trace events it launches
+# (a wrapper call of K1's chunk design or K2's row design runs its
+# riffled copies or row passes before the kernel counted here, one a call)
 KERNEL_SYMBOLS = {
-    "sketch_rows": ("cs_sketch_tiles_kernel", "cs_sketch_gather_kernel"),
-    "estimate_median": ("cs_estimate_median_kernel",),
+    "sketch_rows": ("cs_sketch_tiles_kernel", "cs_sketch_gather_kernel",
+                    "cs_sketch_chunks_kernel"),
+    "estimate_median": ("cs_estimate_median_kernel",
+                        "cs_estimate_final_kernel"),
     "median_rows": ("cs_median_rows_kernel",),
     "estimate_at": ("cs_estimate_at_kernel",),
     "estimate_at_range": ("cs_estimate_range_kernel",),
@@ -6468,7 +6609,7 @@ def tp3d_dense_step(torch, gpt2_train, dataset_dir, work) -> dict:
     return out
 
 
-def tensor_parallel_phase(torch, kern, dataset_dir, work):
+def tensor_parallel_phase(torch, kern, dataset_dir, work, beside=None):
     """Tensor and sequence parallelism (``parallel/tensor.py``,
     ``sequence.py``, ``ring_attention.py``) on the card: GPT-2 small at
     full width through ``gpt2_train.main`` with TP_ARGS for TP_ROUNDS
@@ -6504,7 +6645,11 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
     loss and lm loss within TP3D_TOL["loss"] and every leaf of the rank's
     shard within TP3D_TOL["leaf"] of the dense step's. Returns the summed
     launch forms of the legs' ranks: ``tensor_parallel`` (the dense legs)
-    and ``tensor_parallel_fused``."""
+    and ``tensor_parallel_fused``.
+
+    ``beside()``, when given, runs in this process while the two ranks
+    run their legs (phases whose checks read no time: ``multihost``,
+    ``lint``); its result is returned beside the forms."""
     from commefficient_tpu_torch.train import gpt2_train
 
     t0 = time.perf_counter()
@@ -6574,8 +6719,10 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
         [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
          init, outs[r], work], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    logs = []
+    logs, besides = [], None
     try:
+        if beside is not None:
+            besides = beside()
         for p in procs:
             logs.append(p.communicate(timeout=900)[0])
     finally:
@@ -6700,7 +6847,7 @@ def tensor_parallel_phase(torch, kern, dataset_dir, work):
           fused_twin_wall_s=twins["fused"][0]["wall_s"],
           legs_wall_s=round(time.perf_counter() - t_legs, 3),
           wall_s=round(time.perf_counter() - t0, 3))
-    return {path: add_forms(*fs) for path, fs in forms.items()}
+    return {path: add_forms(*fs) for path, fs in forms.items()}, besides
 
 
 LINT_ARGS = MAIN_ARGS + ["--telemetry_level", "1", "--max_retraces", "0"]
@@ -6966,10 +7113,11 @@ def main() -> int:
             time.perf_counter() - t_new, 3))
     rrc_phase(torch, dev)
     femnist_phase(kern, cv_train, dataset_dir)
-    imagenet_fedavg_phase(torch, cv_train, dataset_dir)
-    baseline5_host_phase(torch, cv_train, dataset_dir)
-    paths["imagenet_fixup_sketch"] = imagenet_sketch_phase(
-        torch, kern, cv_train, dataset_dir)
+    with CachedCifar(cv_train):  # one draw of the ImageNet stand-in
+        imagenet_fedavg_phase(torch, cv_train, dataset_dir)
+        baseline5_host_phase(torch, cv_train, dataset_dir)
+        paths["imagenet_fixup_sketch"] = imagenet_sketch_phase(
+            torch, cs, kern, cv_train, dataset_dir)
     paths["cifar100"] = cifar100_phase(kern, cv_train, dataset_dir)
     for name, geos in f50_kernels_phase(torch, cs, kern, dev).items():
         by_geometry.setdefault(name, {}).update(geos)
@@ -7020,19 +7168,36 @@ def main() -> int:
                                     work))
     # profile_round's main path with its asyncfed lines
     paths["profile_round"] = profile_round_phase(torch, kern)
-    # the host axis: two gloo ranks on the card, 2 hosts against 1
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        paths["multihost"] = multihost_phase(torch, kern, dataset_dir, work)
     # tensor and sequence parallelism: GPT-2 at model 2 and at seq 2 on two
-    # gloo ranks, against the one-process twin
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        paths.update(tensor_parallel_phase(torch, kern, dataset_dir,
-                                           work))
-    # the invariant linter: the tree, a real capture, a planted read
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        with CachedCifar(cv_train):
-            lint_phase(torch, kern, cv_train, dataset_dir, work)
+    # gloo ranks, against the one-process twin; while its ranks run their
+    # legs, this process runs the host axis (two gloo ranks on the card, 2
+    # hosts against 1) and the invariant linter (the tree, a real capture,
+    # a planted read): no check of those reads a time
+    with contextlib.ExitStack() as stack:
+        mh_work, tp_work, lint_work = (
+            stack.enter_context(tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build"))) for _ in range(3))
 
+        def beside():
+            mh = multihost_phase(torch, kern, dataset_dir, mh_work)
+            with CachedCifar(cv_train):
+                lint_phase(torch, kern, cv_train, dataset_dir, lint_work)
+            return mh
+
+        tp_forms, paths["multihost"] = tensor_parallel_phase(
+            torch, kern, dataset_dir, tp_work, beside=beside)
+        paths.update(tp_forms)
+
+    # K1's chunk design and K2's row design: GPT-2's numbers on top
+    for name, base in (("cs_sketch_chunks", "cs_sketch_rows"),
+                       ("cs_estimate_rows", "cs_estimate_median")):
+        geos = by_geometry.pop(name)
+        main = geos["gpt2"]
+        entries[name] = dict(
+            source=RIFFLE_SOURCE, replaces=entries[base]["replaces"],
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            main_geometry="gpt2", geometries=geos)
     for name, geos in by_geometry.items():
         if name in entries:  # an f32 kernel's GPT-2 numbers
             entries[name]["geometries"] = dict(
@@ -7040,13 +7205,15 @@ def main() -> int:
             continue
         main = geos[FORM_MAIN_GEOMETRY[name]]
         entries[name] = dict(
+            source=main.get("source", WALK_SOURCE if name.startswith(
+                "cs_estimate_median") else SOURCE),
             replaces=entries[name.split("[")[0]]["replaces"],
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
             main_geometry=FORM_MAIN_GEOMETRY[name], geometries=geos)
 
     def count(forms, name):
-        return sum(forms[w].get(f, 0) for w, f in FORMS[name])
+        return sum(forms.get(w, {}).get(f, 0) for w, f in FORMS[name])
 
     kernels = [dict(name=name, route="cuda", source=e.pop("source", SOURCE),
                     launches=sum(count(p, name) for p in paths.values()),
@@ -7054,6 +7221,9 @@ def main() -> int:
                                       for path, p in paths.items()},
                     **e)
                for name, e in entries.items()]
+    for k in kernels:
+        if k["name"] in ("cs_sketch_chunks", "cs_estimate_rows"):
+            check(k["launches"] > 0, f"{k['name']}: no launch on a path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

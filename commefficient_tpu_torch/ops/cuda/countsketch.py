@@ -19,7 +19,12 @@ The wrappers read the spec through its methods (``kernel_row_params``,
 ``inverse_block_perm``), so this module needs nothing from
 ``ops/countsketch.py``, which imports it. The host-side plans of the
 kernels' index arithmetic (K1's tile width, K4's range-form block order
-and table windows) come from ``index_math``.
+and table windows) come from ``index_math``, and so does the design a
+geometry takes for K1 (the tile kernel, or the chunk design where the
+vector outgrows the L2) and for K2 (the walk, or the row design where
+the table outgrows the L2 or its slot tables shared memory); the
+wrappers launch it (``launch_sketch_rows``, ``launch_estimate_median``)
+and count launches by design (``design_counts``).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from commefficient_tpu_torch.ops.cuda import index_math
 
 _FAMILY = {"fmix32": 0, "poly4": 1}
-MAX_ROWS = 8  # CS_MAX_ROWS in csrc/countsketch.cu
+MAX_ROWS = 8  # CS_MAX_ROWS in csrc/common.cuh
 
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -88,8 +93,9 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
 _CAPTURED: dict = {}
 
 
-def _count(wrapper, form: str) -> None:
-    """One launch of ``wrapper``'s kernel in ``form`` (its type variant);
+def _count(wrapper, form: str, design: str | None = None) -> None:
+    """One launch of ``wrapper``'s kernel in ``form`` (its type variant)
+    and, for K1 and K2, ``design`` (which kernels the geometry takes);
     under a graph capture, one kernel recorded into the graph."""
     if torch._C._cuda_isCurrentStreamCapturing():
         c = _CAPTURED.setdefault(wrapper.__name__, {})
@@ -97,6 +103,8 @@ def _count(wrapper, form: str) -> None:
         return
     wrapper.launches += 1
     wrapper.forms[form] = wrapper.forms.get(form, 0) + 1
+    if design is not None:
+        wrapper.designs[design] = wrapper.designs.get(design, 0) + 1
 
 
 # The per-spec plan caches (``_kernel_geometry``, ``_k2_plan``,
@@ -106,10 +114,11 @@ def _count(wrapper, form: str) -> None:
 # ``plan_builds`` counts their builds.
 @functools.lru_cache(maxsize=None)
 def _kernel_geometry(spec, device: str):
-    """(row params as a ctypes int64 array, CSR ptr, CSR offsets, K1's tile
-    width in strides) for the kernels: built once per (spec, device) from
-    the same hash functions as the plain versions, and kept alive here
-    while the kernels may read them."""
+    """(row params as a ctypes int64 array, CSR ptr, CSR offsets, the tile
+    kernel's width in strides, K1's ``(design, width)``) for the kernels:
+    built once per (spec, device) from the same hash functions as the
+    plain versions, and kept alive here while the kernels may read
+    them."""
     if max(spec._L_row(r) for r in range(spec.r)) >= 2**32:
         raise ValueError("the CUDA kernels index the padded layout in "
                          "uint32; this spec's layout exceeds 2^32")
@@ -119,9 +128,18 @@ def _kernel_geometry(spec, device: str):
     # lint: allow[traced-purity] params is a host numpy array, not a tensor
     rows = (ctypes.c_longlong * params.size)(*params.reshape(-1).tolist())
     ptr, off = spec.csr_tables(device)
-    tile = index_math.sketch_tile_strides(
-        [(spec.chunk_m, spec.s_row(r), spec.V_row(r)) for r in range(spec.r)])
-    return rows, ptr, off, tile
+    shapes = [(spec.chunk_m, spec.s_row(r), spec.V_row(r))
+              for r in range(spec.r)]
+    tile = index_math.sketch_tile_strides(shapes)
+    return rows, ptr, off, tile, index_math.sketch_design(shapes, spec.d_eff)
+
+
+@functools.lru_cache(maxsize=None)
+def _row0_sign_bits(spec, device: str):
+    """Row 0's packed sign bits on ``device``, which K1's chunk design
+    reads (``packed_sign_bits``), kept alive here while it may read
+    them."""
+    return packed_sign_bits(spec, device, rows=(0,))
 
 
 @functools.lru_cache(maxsize=2)
@@ -187,29 +205,59 @@ def sketch_rows(spec, v_s: torch.Tensor, operand=torch.float32,
     if v_s.device.type == "cpu":
         return sketch_rows_torch(spec, v_s, operand, table_dtype)
     _check_rows(spec.r)
-    from commefficient_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    rows, ptr, off, tile = _kernel_geometry(spec, str(v_s.device))
+    design, width = _kernel_geometry(spec, str(v_s.device))[4]
     form = k1_form(operand, table_dtype)
-    if tile == 0 and form != "f32":
+    if design == "gather" and form != "f32":
         raise ValueError(
             f"sketch_rows: K1's gather kernel (chunk size m = "
             f"{spec.chunk_m} has no tile kernel) takes f32 only, not the "
             f"{form} form")
+    table = launch_sketch_rows(spec, v_s, operand, table_dtype, design,
+                               width)
+    _count(sketch_rows, form, design)
+    return table
+
+
+def launch_sketch_rows(spec, v_s: torch.Tensor, operand, table_dtype,
+                       design: str, width: int) -> torch.Tensor:
+    """One launch of K1's ``design`` (``"tiles"``, ``"gather"`` at width
+    0, ``"chunks"``) at tile width ``width`` on a CUDA ``v_s``: what
+    ``sketch_rows`` runs with its geometry's design
+    (``index_math.sketch_design``), uncounted; the tests and
+    ``chip_smoke.py`` hold the designs against each other through it. The
+    chunk design allocates its riffled scratch, ``[r - 1, pitch]`` f32,
+    copies v_s 16 bytes at a time and reads row 0's signs from its packed
+    sign bits (``_row0_sign_bits``)."""
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    rows, ptr, off = _kernel_geometry(spec, str(v_s.device))[:3]
     table = torch.empty(spec.table_shape, dtype=table_dtype,
                         device=v_s.device)
-    _launch(lib.cs_sketch_rows, v_s.data_ptr(), spec.d_eff, ptr.data_ptr(),
+    flags = (_FAMILY[spec.hash_family], width,
+             int(operand == torch.bfloat16),
+             int(table_dtype == torch.bfloat16))
+    if design != "chunks":
+        _launch(lib.cs_sketch_rows, v_s.data_ptr(), spec.d_eff,
+                ptr.data_ptr(), off.data_ptr(), table.data_ptr(),
+                spec.c_actual, rows, spec.r, *flags, _stream())
+        return table
+    if v_s.data_ptr() % 16:
+        raise ValueError("sketch_rows: K1's chunk design copies v_s 16 "
+                         "bytes at a time; it must be 16-byte aligned")
+    pitch = index_math.riffle_pitch([spec._L_row(r) for r in range(spec.r)])
+    riffled = torch.empty((spec.r - 1) * pitch, dtype=torch.float32,
+                          device=v_s.device)
+    signs0 = _row0_sign_bits(spec, str(v_s.device))
+    _launch(lib.cs_sketch_chunks, v_s.data_ptr(), spec.d_eff, ptr.data_ptr(),
             off.data_ptr(), table.data_ptr(), spec.c_actual, rows, spec.r,
-            _FAMILY[spec.hash_family], tile,
-            int(operand == torch.bfloat16),
-            int(table_dtype == torch.bfloat16), _stream())
-    _count(sketch_rows, form)
+            *flags, riffled.data_ptr(), pitch, signs0.data_ptr(), _stream())
     return table
 
 
 sketch_rows.launches = 0
 sketch_rows.forms = {}
+sketch_rows.designs = {}
 
 
 # -- K1's segment form: one leaf's values into an existing table -------------
@@ -350,22 +398,24 @@ K2_TABLE_KIND = {"f32": 0, "f32_table_bf16_operand": 1, "bf16_table": 2}
 SIGN_WORDS_PER_STEP = 1 << 20  # words packed per step (bounds the temporaries)
 
 
-def packed_sign_bits(spec, device) -> torch.Tensor:
-    """[r, ceil(d_eff / 32)] int32: bit t of word w of a row is the sign bit
-    (1 = negative) of scrambled position 32 w + t (``spec.sign_bits``); the
-    bits past d_eff are 0. Built on ``device`` in plain torch."""
+def packed_sign_bits(spec, device, rows=None) -> torch.Tensor:
+    """[len(rows), ceil(d_eff / 32)] int32 (rows: every row by default):
+    bit t of word w of a row is the sign bit (1 = negative) of scrambled
+    position 32 w + t (``spec.sign_bits``); the bits past d_eff are 0.
+    Built on ``device`` in plain torch."""
+    rows = range(spec.r) if rows is None else rows
     nw = -(-spec.d_eff // 32)
-    out = torch.empty(spec.r, nw, dtype=torch.int32, device=device)
+    out = torch.empty(len(rows), nw, dtype=torch.int32, device=device)
     weight = torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
         32, device=device)
-    for row in range(spec.r):
+    for k, row in enumerate(rows):
         for w0 in range(0, nw, SIGN_WORDS_PER_STEP):
             w1 = min(nw, w0 + SIGN_WORDS_PER_STEP)
             pos = torch.arange(32 * w0, 32 * w1, device=device)
             bits = spec.sign_bits(row, pos) * (pos < spec.d_eff)
             words = (bits.view(-1, 32) * weight).sum(1)  # < 2^32
-            out[row, w0:w1] = torch.where(words >= 2**31, words - 2**32,
-                                          words).to(torch.int32)
+            out[k, w0:w1] = torch.where(words >= 2**31, words - 2**32,
+                                        words).to(torch.int32)
     return out
 
 
@@ -384,7 +434,11 @@ def _k2_plan(spec, device: str, itemsize: int = 4):
     plan at every coordinate) and staged rows, the forward block
     permutation, the slot tables [r, m] and the packed sign bits. The
     windows are staged in the table's type (``itemsize`` bytes an
-    entry), and the budget counts their bytes."""
+    entry), and the budget counts their bytes. Beside the walk's plan,
+    the row design's (``csrc/riffle.cu``): each row's pass tile width
+    (``row_lg``, ``lg``), row 0's window in the final walk's tiles, the
+    scratch's ``pitch``; and which design the geometry takes
+    (``design``, ``nt``: ``index_math.k2_design``)."""
     b = spec.sblock or 64  # no scramble: tiles of blocks of 64 in place
     inv = spec.inverse_block_perm()
     # every block, sorted by scrambled position: the forward permutation
@@ -400,17 +454,32 @@ def _k2_plan(spec, device: str, itemsize: int = 4):
     m = spec.chunk_m
     slots = torch.stack([spec.slot_hash(row, torch.arange(m))
                          for row in range(spec.r)]).to(torch.int32)
-    slot_smem = index_math.k2_slots_in_smem(
-        spec.r, m, max(spec.V_row(r) for r in range(spec.r)))
+    v_max = max(spec.V_row(r) for r in range(spec.r))
+    slot_smem = index_math.k2_slots_in_smem(spec.r, m, v_max)
+    # the row design (csrc/riffle.cu): each row's row-pass tile width, and
+    # row 0's window in the final walk's tiles
+    geo = _row_geo(spec)
+    lgs = [index_math.k2_rows_lg(f, G, m, s, V, itemsize)
+           for f, G, m, s, V in geo]
+    rows_slot_smem = index_math.k2_slots_in_smem(1, m, v_max)
+    per_tile = per_block * b
+    row0_window = (-(-per_tile // m) + 1) * geo[0][3] + geo[0][4]
+    design, nt = index_math.k2_design(
+        spec.r, itemsize * spec.r * spec.c_actual, slot_smem, lgs,
+        rows_slot_smem, row0_window, itemsize)
     return dict(
-        b=b, per_tile=per_block * b, ntiles=int(wstart.shape[0]),
+        b=b, per_tile=per_tile, ntiles=int(wstart.shape[0]),
         perm=torch.from_numpy(blocks).to(device) if spec.sblock else None,
         wstart=torch.from_numpy(wstart.astype(np.int32)).to(device),
         wlen_all=wlen, staged=staged, woff=(ctypes.c_int * spec.r)(*woff),
         wlen=(ctypes.c_int * spec.r)(*wl), slots=slots.to(device),
         slot_smem=slot_smem, signs=packed_sign_bits(spec, device),
         smem_bytes=index_math.k2_smem_bytes(spec.r, m, slot_smem, per_block,
-                                            sum(wl), itemsize))
+                                            sum(wl), itemsize),
+        design=design, nt=nt, row_lg=lgs,
+        lg=(ctypes.c_int * spec.r)(*[lg or 0 for lg in lgs]),
+        rows_slot_smem=rows_slot_smem, row0_window=row0_window,
+        pitch=-(-spec.d_eff // 4) * 4)
 
 
 def estimate_median(spec, table: torch.Tensor,
@@ -424,28 +493,51 @@ def estimate_median(spec, table: torch.Tensor,
     if table.device.type == "cpu":
         return estimate_median_torch(spec, table, operand)
     _check_rows(spec.r)
+    plan = _k2_plan(spec, str(table.device), table.element_size())
+    out = launch_estimate_median(spec, table, operand, plan["design"],
+                                 plan["nt"])
+    _count(estimate_median, k2_form(table.dtype, operand), plan["design"])
+    return out
+
+
+def launch_estimate_median(spec, table: torch.Tensor, operand, design: str,
+                           nt: int = 1) -> torch.Tensor:
+    """One launch of K2's ``design`` (``"walk"``, or ``"rows"`` with row 0
+    in the final walk when ``nt`` is 1) on a CUDA ``table``: what
+    ``estimate_median`` runs with its geometry's design
+    (``index_math.k2_design``), uncounted; the tests and
+    ``chip_smoke.py`` hold the designs against each other through it. The
+    row design allocates its scratch of per-row estimates, ``[r - nt,
+    pitch]`` f32."""
     from commefficient_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
     dev = str(table.device)
     rows = _kernel_geometry(spec, dev)[0]
     plan = _k2_plan(spec, dev, table.element_size())
-    form = k2_form(table.dtype, operand)
+    kind = K2_TABLE_KIND[k2_form(table.dtype, operand)]
     out = torch.empty(spec.d, dtype=torch.float32, device=table.device)
-    _launch(lib.cs_estimate_median, table.data_ptr(), spec.c_actual,
-            out.data_ptr(), spec.d, spec.d_eff,
-            None if plan["perm"] is None else plan["perm"].data_ptr(),
-            plan["b"], plan["per_tile"], plan["ntiles"],
-            plan["slots"].data_ptr(), spec.chunk_m, int(plan["slot_smem"]),
-            plan["signs"].data_ptr(), plan["signs"].shape[1],
-            plan["wstart"].data_ptr(), len(plan["staged"]), plan["woff"],
-            plan["wlen"], rows, spec.r, K2_TABLE_KIND[form], _stream())
-    _count(estimate_median, form)
+    perm = None if plan["perm"] is None else plan["perm"].data_ptr()
+    head = (table.data_ptr(), spec.c_actual, out.data_ptr(), spec.d,
+            spec.d_eff, perm, plan["b"], plan["per_tile"], plan["ntiles"],
+            plan["slots"].data_ptr(), spec.chunk_m)
+    signs = (plan["signs"].data_ptr(), plan["signs"].shape[1])
+    if design == "walk":
+        _launch(lib.cs_estimate_median, *head, int(plan["slot_smem"]),
+                *signs, plan["wstart"].data_ptr(), len(plan["staged"]),
+                plan["woff"], plan["wlen"], rows, spec.r, kind, _stream())
+        return out
+    est = torch.empty((spec.r - nt) * plan["pitch"], dtype=torch.float32,
+                      device=table.device)
+    _launch(lib.cs_estimate_rows, *head, int(plan["rows_slot_smem"]),
+            *signs, nt, plan["lg"], est.data_ptr(), plan["pitch"], rows,
+            spec.r, kind, _stream())
     return out
 
 
 estimate_median.launches = 0
 estimate_median.forms = {}
+estimate_median.designs = {}
 
 
 def estimate_all_slices(spec):
@@ -460,7 +552,8 @@ def estimate_all_slices(spec):
 def prepare_plans(spec, device, slices=()) -> None:
     """Build, without a launch, the host plans of ``spec`` on ``device``
     that K1, K2 and K4 read (the per-spec caches their first launch would
-    fill): K1's row geometry, the inverse block permutation, for the
+    fill): K1's row geometry (and row 0's sign bits where K1 takes its
+    chunk design), the inverse block permutation, for the
     one-kernel decode (``num_blocks == 1``) K2's plan, and K4's range
     plan of every slice ``estimate_all`` walks at ``num_blocks > 1`` and
     of each ``(start, n)`` of ``slices`` (the sharded decode's slice of
@@ -469,7 +562,8 @@ def prepare_plans(spec, device, slices=()) -> None:
     first round; the caches keep every entry, so a rung switch builds
     none (``plan_builds``)."""
     dev = str(device)
-    _kernel_geometry(spec, dev)
+    if _kernel_geometry(spec, dev)[4][0] == "chunks":
+        _row0_sign_bits(spec, dev)
     _inverse_perm(spec, dev)
     sizes = (4, 2) if spec.table_dtype == torch.bfloat16 else (4,)
     for itemsize in sizes:
@@ -485,7 +579,8 @@ def plan_builds() -> int:
     """Host plans built so far in this process: the misses of the
     per-spec caches K1, K2 and K4 read (``prepare_plans`` fills them)."""
     return sum(f.cache_info().misses for f in (
-        _kernel_geometry, _k2_plan, _inverse_perm, _range_plan))
+        _kernel_geometry, _row0_sign_bits, _k2_plan, _inverse_perm,
+        _range_plan))
 
 
 # -- K4: point estimates at a coordinate subset -----------------------------------
@@ -709,7 +804,16 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.forms = {}
+        if hasattr(k, "designs"):
+            k.designs = {}
     _CAPTURED.clear()
+
+
+def design_counts() -> dict:
+    """``{wrapper: {design: launches}}`` since the last reset, for K1
+    (``tiles``, ``gather``, ``chunks``) and K2 (``walk``, ``rows``)."""
+    return {k.__name__: dict(k.designs) for k in (sketch_rows,
+                                                  estimate_median)}
 
 
 def launch_counts() -> dict:

@@ -70,6 +70,13 @@ __device__ __forceinline__ uint32_t cs_udiv(uint32_t n, const long long* g, int 
   return (uint32_t)(((unsigned long long)n * (uint32_t)g[which]) >> sh);
 }
 
+// n div d for a divisor d that is 2^shift (shift >= 0), else by d's
+// multiplier pair at g[which].
+__device__ __forceinline__ uint32_t cs_div_pow2_or(uint32_t n, int shift, const long long* g,
+                                                   int which) {
+  return shift >= 0 ? n >> shift : cs_udiv(n, g, which);
+}
+
 // min/max that propagate NaN like torch.minimum / jnp.minimum (fminf would
 // hide a diverged estimate).
 __device__ __forceinline__ float cs_min(float a, float b) { return (a < b || a != a) ? a : b; }
@@ -120,6 +127,11 @@ __device__ __forceinline__ T cs_zero() {
 __device__ __forceinline__ float cs_round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// The stored type of K2's table kind TK (0: f32, 1: f32 read rounded to
+// bf16, 2: bf16).
+template <int TK>
+using CsTable = typename std::conditional<TK == 2, __nv_bfloat16, float>::type;
 
 // The persistent grid of kernel fn at `threads` threads and `smem` bytes of
 // dynamic shared memory on the current device: as many blocks as fit the

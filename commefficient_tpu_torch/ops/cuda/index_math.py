@@ -1,6 +1,7 @@
 """The CountSketch kernels' index arithmetic, planned on the host.
 
-What the CUDA kernels of ``csrc/countsketch.cu`` need planned on the host,
+What the CUDA kernels of ``csrc/`` (``countsketch.cu``, ``walk.cu``,
+``riffle.cu``, ``segment.cu``) need planned on the host,
 in numpy and Python integers (the kernels themselves run only on the
 card; ``tests/test_torch_kernel_index_math.py`` holds these plans, and
 mirrors of the kernels' own index loops, on the CPU):
@@ -9,13 +10,19 @@ mirrors of the kernels' own index loops, on the CPU):
   ``n / d`` in the kernels, exact for every dividend up to a stated bound;
   ``udiv`` emulates the device formula with Python ints.
 * K1's tile width (``sketch_tile_strides``, from the shared memory a
-  tile block needs);
+  tile block needs), and which of K1's designs a geometry takes
+  (``sketch_design``: the tile kernel where the vector fits the L2, else
+  the chunk design of ``csrc/riffle.cu``, with its own tile width);
 * K4's range form: ``range_block_list`` orders a coordinate slice's
   scramble blocks by scrambled position, and ``range_windows`` finds, per
   row and per CUDA block, the table window that the block reads;
 * K2, the walk over every coordinate: the range form's plan at
   ``(start, n) = (0, d)``, tiles of ``K2_COORDS`` positions, and whether
-  the slot tables go to shared memory (``k2_slots_in_smem``);
+  the slot tables go to shared memory (``k2_slots_in_smem``); and which
+  of K2's designs a geometry takes (``k2_design``: the walk where the
+  table fits the L2 and its slot tables shared memory, else the row
+  design of ``csrc/riffle.cu``, with each row's tile width
+  ``k2_rows_lg``);
 * K1's segment form (``csrc/segment.cu``): which leaves take the one-block
   path, the tile width, and the fixed scratch (pieces a window and its
   bytes).
@@ -97,6 +104,63 @@ def sketch_tile_strides(rows) -> int:
             return w
         w //= 2
     return 0
+
+
+# -- K1's chunk design (csrc/riffle.cu) ---------------------------------------
+
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
+K1C_SMEM_LIMIT = 113 * 1024  # two chunk blocks a multiprocessor (228 KB)
+
+
+K1C_THREADS = 512  # threads of a K1 chunk block (kThreadsK1c in riffle.cu)
+K1C_GROUPS = 6  # float4 sums a thread holds at most (kChunkGroups)
+
+
+def chunk_smem_bytes(m: int, V: int) -> int:
+    """Dynamic shared memory of one K1 chunk block: the CSR pointers (V+1
+    uint16, padded), the CSR offsets (m uint16) and two chunk buffers (m
+    f32 each); the tile's sums are in registers. Same layout as
+    ``cs_chunk_smem`` in ``csrc/riffle.cu``."""
+    return _align16(2 * (V + 4)) + _align16(2 * m) + 2 * _align16(4 * m)
+
+
+def chunk_tile_strides(rows) -> int:
+    """Tile width W in strides for K1's chunk design at rows ``(m, s, V)``:
+    the widest power of two up to ``K1_MAX_STRIDES`` whose W * s columns a
+    block's threads hold in registers (``K1C_GROUPS`` groups of 4 a
+    thread) at every row; 0 where the block's shared memory does not fit
+    ``K1C_SMEM_LIMIT``, or a chunk is no whole number of 16-byte copies
+    (m mod 4), or its CSR positions leave uint16 (m >= 2^16)."""
+    if any(m % 4 or m >= 1 << 16 or chunk_smem_bytes(m, V) > K1C_SMEM_LIMIT
+           for m, _, V in rows):
+        return 0
+    w = K1_MAX_STRIDES
+    while w > 1 and any(w * s > 4 * K1C_GROUPS * K1C_THREADS
+                        for _, s, _ in rows):
+        w //= 2
+    return w if all(w * s <= 4 * K1C_GROUPS * K1C_THREADS
+                    for _, s, _ in rows) else 0
+
+
+def sketch_design(rows, d_eff: int) -> tuple:
+    """``(design, W)``: which K1 kernel a geometry takes, and its tile
+    width in strides. Where the ``[d_eff]`` f32 vector fits the L2, the
+    tile kernel (``"tiles"``, every row's strided reads hit L2) or, where
+    its tile does not fit, the gather kernel (``"gather"``, W = 0);
+    where it does not, the chunk design (``"chunks"``), whose rows past
+    the first read a riffled copy in order, if its block fits."""
+    if 4 * d_eff > L2_BYTES:
+        w = chunk_tile_strides(rows)
+        if w:
+            return "chunks", w
+    w = sketch_tile_strides(rows)
+    return ("tiles", w) if w else ("gather", 0)
+
+
+def riffle_pitch(row_lengths) -> int:
+    """Floats a row of K1's riffled scratch: the longest padded length L of
+    the rows past the first, rounded up to 4 (16-byte rows)."""
+    return -(-max(row_lengths[1:], default=0) // 4) * 4
 
 
 # -- K1's segment form: windows, row groups, pieces and tiles ---------------
@@ -273,12 +337,60 @@ def k2_staged_rows(wlen, budget: int, itemsize: int = 4) -> tuple:
     return ()
 
 
+K2R_WINDOW_BUDGET = 64 * 1024  # bytes of a row-pass block's table window
+
+
+def k2_rows_window(lg: int, f: int, m: int, s: int, V: int) -> int:
+    """Table entries that a row-pass block of ``kc = 32 << lg`` consecutive
+    c of a row's [f, G] view reads at most: its riffled positions span
+    ``kc * f``, so at most ``ceil(kc * f / m) + 1`` chunks. The same bound
+    as ``cs_estimate_rows`` in ``csrc/riffle.cu``."""
+    kc = 32 << lg
+    return (-(-kc * f // m) + 1) * s + V
+
+
+def k2_rows_lg(f: int, G: int, m: int, s: int, V: int, itemsize: int,
+               budget: int = K2R_WINDOW_BUDGET):
+    """``lg`` of a row's row-pass tiles (``kc = 32 << lg`` c values): the
+    largest whose window, ``itemsize`` bytes an entry, fits ``budget``, and
+    no wider than the row's G needs; None where not even 32 fit."""
+    if itemsize * k2_rows_window(0, f, m, s, V) > budget:
+        return None
+    lg = 0
+    while (32 << lg) < G and itemsize * k2_rows_window(lg + 1, f, m, s, V) \
+            <= budget:
+        lg += 1
+    return lg
+
+
+def k2_design(r: int, table_bytes: int, walk_slot_smem: bool, row_lgs,
+              slot_smem: bool, row0_window: int, itemsize: int) -> tuple:
+    """``(design, nt)``: which K2 kernels a geometry takes. Where the
+    table fits the L2 and the walk keeps every row's slot table in shared
+    memory (``walk_slot_smem``), the walk (``"walk"``: its scattered reads
+    hit L2 and its slots cost no load); else the row design (``"rows"``)
+    if every row has a row-pass tile (``row_lgs``, None where none fits),
+    with row 0 read by the final walk from its staged window (nt = 1: its
+    slot table fits uint16, ``slot_smem``, and ``row0_window`` entries
+    fit ``K2_WINDOW_BUDGET``) or through the pass like the others (nt =
+    0). ResNet-9 takes the walk; FixupResNet-50 (m = 8192: the five slot
+    tables take 80 KB) and GPT-2 (a 100 MB table) the row design."""
+    if r < 2 or (table_bytes <= L2_BYTES and walk_slot_smem) \
+            or any(lg is None for lg in row_lgs[1:]):
+        return "walk", r
+    if slot_smem and itemsize * row0_window <= K2_WINDOW_BUDGET:
+        return "rows", 1
+    if row_lgs[0] is None:
+        return "walk", r
+    return "rows", 0
+
+
 def k2_smem_bytes(r: int, m: int, slot_smem: bool, blocks_per_tile: int,
                   window_entries: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of one K2 block: the uint16 slot tables when
     they are staged, the tile's scramble-block offsets (uint32), then the
     windows in the table's type (``itemsize`` bytes an entry), each part
     padded to 16 bytes. Same layout as ``cs_estimate_median`` in
-    ``csrc/countsketch.cu``."""
+    ``csrc/walk.cu``."""
     return ((_align16(2 * r * m) if slot_smem else 0)
             + _align16(4 * blocks_per_tile) + itemsize * window_entries)

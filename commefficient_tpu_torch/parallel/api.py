@@ -1514,6 +1514,17 @@ class FedModel:
     def evaluate(self, batches):
         return self.session.evaluate(batches)
 
+    def save_pretrained(self, out_dir: str, gcfg) -> None:
+        """The GPT-2 workload's HF-format export of the params
+        (``models/hf_gpt2.save_pretrained``: ``config.json`` and
+        ``pytorch_model.bin``), written by the lead rank. Every rank calls
+        it: under FSDP reading the params is a collective."""
+        from commefficient_tpu_torch.models.hf_gpt2 import save_pretrained
+
+        params = self.session.params
+        if self.session.is_lead:
+            save_pretrained(out_dir, gcfg, params)
+
     @property
     def params(self):
         return self.session.params

@@ -49,6 +49,7 @@ preemption exits with code 75.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -72,7 +73,11 @@ from commefficient_tpu_torch.models.hf_gpt2 import load_hf_gpt2_params
 from commefficient_tpu_torch import native
 from commefficient_tpu_torch.control import controller_header
 from commefficient_tpu_torch.ops.param_utils import make_unravel, tree_leaves
-from commefficient_tpu_torch.parallel import FederatedSession, mask_gpt2
+from commefficient_tpu_torch.parallel import (
+    FederatedSession,
+    FedModel,
+    mask_gpt2,
+)
 from commefficient_tpu_torch.parallel.mesh import (
     distributed_from_env,
     make_grid,
@@ -298,9 +303,15 @@ def _train(cfg: Config, eval_batch_size: int):
     writer = (MetricsWriter(make_logdir(cfg), cfg.tensorboard, cfg=cfg,
                             extra_header=controller_header(session))
               if session.is_lead else None)
+    # full-state checkpoints go under <checkpoint_dir>/state (resume reads
+    # them there); the HF-format export of a finished run (below) stays at
+    # the top level, as in the reference
+    run_cfg = (cfg.replace(checkpoint_dir=os.path.join(cfg.checkpoint_dir,
+                                                       "state"))
+               if cfg.checkpoint_dir else cfg)
     try:
         val, history, ckpt = run_train_loop(
-            cfg, session, sampler, hooks,
+            run_cfg, session, sampler, hooks,
             on_round=lambda r: print(
                 f"round {r['step']}: lr={r['lr']:.6f} loss={r['loss']:.6f} "
                 f"ms={r['ms']:.2f}", flush=True),
@@ -308,7 +319,8 @@ def _train(cfg: Config, eval_batch_size: int):
             generated_by="commefficient_tpu_torch.train.gpt2_train")
     except PreemptShutdown as e:
         # drained and force-saved by the runner: the distinct exit code
-        # tells an orchestrator to rerun with --resume
+        # tells an orchestrator to rerun with --resume (the run is not
+        # finished, so there is no HF-format export)
         say(str(e))
         raise SystemExit(EXIT_PREEMPTED) from e
     finally:
@@ -317,6 +329,9 @@ def _train(cfg: Config, eval_batch_size: int):
     if val:
         say(f"final: val_nll={val['nll']:.4f} ppl={val['ppl']:.2f} "
             f"mc_acc={val['mc_accuracy']:.4f}")
+    if cfg.checkpoint_dir:
+        FedModel(session).save_pretrained(cfg.checkpoint_dir, gcfg)
+        say(f"saved HF-format checkpoint to {cfg.checkpoint_dir}")
     moved = torch.linalg.vector_norm(session.full_params_vec() - p0)
     return {**val, "history": history, "grad_size": session.grad_size,
             "bytes_per_round": bpr, "param_delta_norm": float(moved),

@@ -23,6 +23,12 @@ table), and within one bf16 ulp of each entry of the plain version (the
 f32 sums differ in order, which can put a sum on either side of a bf16
 rounding boundary; floor 1e-6 * max for sums that cancel); K2's and
 K4's are exact against their plain versions, as the f32 forms are.
+
+K1's chunk design and K2's row design (``csrc/riffle.cu``, the geometries
+whose vector or table outgrows the L2) sum and pick in the same order as
+the tile kernel and the walk: bit-equal to them in every form, at every
+geometry here, through ``launch_sketch_rows`` / ``launch_estimate_median``
+(the design each geometry takes is ``index_math``'s choice).
 """
 
 import json
@@ -33,6 +39,7 @@ import torch
 
 from commefficient_tpu_torch.ops import countsketch as cs
 from commefficient_tpu_torch.ops.cuda import countsketch as kern
+from commefficient_tpu_torch.ops.cuda import index_math
 
 pytestmark = pytest.mark.cuda
 
@@ -403,15 +410,17 @@ def test_estimate_at_bf16_table_matches_plain_exactly(dev, d, c, r, band, m):
 
 def test_gpt2_geometry_k1_and_k2_all_forms(dev):
     """The GPT-2 path's geometry (D = 124,444,417, r = 5, c = 5,000,000:
-    m = 8192, V = 5248): K1's tile kernel at 16 values a thread in every
-    form, and K2 in the instantiation no ResNet-9 path runs, no staged
-    window and the slot tables read in place (``<5, 0, false>``), in every
-    form, each against its plain version."""
+    m = 8192, V = 5248): K1 in its chunk design (32 strides a tile) in
+    every form, and K2 in its row design with row 0 in the final walk, in
+    every form, each against its plain version."""
     spec = cs.CountSketch(d=124_444_417, c=5_000_000, r=5)
     plan = kern._k2_plan(spec, str(dev))
+    # the walk's plan stages no window and reads the slot tables in place
     assert spec.chunk_m == 8192 and plan["staged"] == ()
     assert plan["slot_smem"] is False
     assert kern._k2_plan(spec, str(dev), 2)["staged"] == ()  # bf16 windows
+    assert (plan["design"], plan["nt"]) == ("rows", 1)
+    assert kern._kernel_geometry(spec, str(dev))[4] == ("chunks", 32)
     try:
         v_s = cs._scramble(spec, _vec(spec.d, 6, dev))
         t = kern.sketch_rows(spec, v_s)
@@ -429,17 +438,136 @@ def test_gpt2_geometry_k1_and_k2_all_forms(dev):
         kern._plain_maps.cache_clear()  # ~7.5 GB of columns and signs
 
 
+G2_FORMS = sorted({("k1", f) for f in ("f32", *K1_FORMS)}
+                  | {("k2", f) for f in ("f32", *K2_FORMS)})
+
+
+@pytest.mark.parametrize("kernel,form", G2_FORMS)
+def test_gpt2_geometry_new_designs_bit_equal_old_kernels(dev, kernel, form):
+    """At GPT-2's geometry each form of K1's chunk design is bit-equal to
+    the tile kernel and each form of K2's row design,
+    with row 0 in the final walk and through the pass, to the walk and to
+    the plain version."""
+    spec = cs.CountSketch(d=124_444_417, c=5_000_000, r=5)
+    if kernel == "k1":
+        operand, table_dtype = K1_FORMS.get(form, (torch.float32,
+                                                   torch.float32))
+        v_s = cs._scramble(spec, _vec(spec.d, 9, dev))
+        tile = kern._kernel_geometry(spec, str(dev))[3]
+        got = kern.launch_sketch_rows(spec, v_s, operand, table_dtype,
+                                      "chunks", 32)
+        old = kern.launch_sketch_rows(spec, v_s, operand, table_dtype,
+                                      "tiles", tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old)
+        return
+    table_dtype, operand = K2_FORMS.get(form, (torch.float32, torch.float32))
+    t = _vec(spec.r * spec.c_actual, 10, dev).reshape(
+        spec.table_shape).to(table_dtype)
+    walk = kern.launch_estimate_median(spec, t, operand, "walk")
+    try:
+        assert torch.equal(walk, kern.estimate_median_torch(spec, t,
+                                                            operand))
+    finally:
+        kern._plain_maps.cache_clear()
+    for nt in (1, 0):
+        got = kern.launch_estimate_median(spec, t, operand, "rows", nt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, walk), nt
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,band,m", GEOMETRIES + K1_EDGE_GEOMETRIES)
+def test_sketch_chunk_design_equals_tile_kernel(dev, d, c, r, band, m,
+                                                family):
+    """K1's chunk design, wherever its block fits (not at m = 32768), in
+    every form and at two tile widths, bit-equal to the tile kernel."""
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
+    shapes = [(spec.chunk_m, spec.s_row(k), spec.V_row(k))
+              for k in range(r)]
+    width = index_math.chunk_tile_strides(shapes)
+    if spec.chunk_m > 8192:
+        assert width == 0  # two 32768-float chunk buffers do not fit
+        return
+    tile = kern._kernel_geometry(spec, str(dev))[3]
+    v_s = cs._scramble(spec, _vec(d, 11, dev))
+    for operand, table_dtype in [(torch.float32, torch.float32),
+                                 *K1_FORMS.values()]:
+        old = kern.launch_sketch_rows(spec, v_s, operand, table_dtype,
+                                      "tiles", tile)
+        for w in sorted({width, 1}):
+            got = kern.launch_sketch_rows(spec, v_s, operand, table_dtype,
+                                          "chunks", w)
+            torch.cuda.synchronize()
+            assert torch.equal(got, old), (operand, table_dtype, w)
+
+
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("d,c,r,band,m,sb", K2_EDGE_GEOMETRIES + [
+    g + (None,) for g in GEOMETRIES])
+def test_estimate_rows_design_equals_walk_and_plain(dev, d, c, r, band, m, sb,
+                                                    family):
+    """K2's row design, row 0 in the final walk (where the slot tables fit
+    uint16) and through the pass, in every table kind, bit-equal to the
+    walk and to the plain version: no scramble, scramble blocks of 8 and
+    15, m = 1000 and m = 32768."""
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, scramble_block=sb,
+                          hash_family=family)
+    table = _vec(r * spec.c_actual, 12, dev).reshape(spec.table_shape)
+    plan = kern._k2_plan(spec, str(dev))
+    nts = (0, 1) if plan["rows_slot_smem"] else (0,)
+    for table_dtype, operand in [(torch.float32, torch.float32),
+                                 *K2_FORMS.values()]:
+        t = table.to(table_dtype)
+        want = kern.estimate_median_torch(spec, t, operand)
+        assert torch.equal(kern.launch_estimate_median(spec, t, operand,
+                                                       "walk"), want)
+        for nt in nts:
+            got = kern.launch_estimate_median(spec, t, operand, "rows", nt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (table_dtype, operand, nt)
+
+
+def test_new_designs_refuse_what_they_do_not_take(dev):
+    """No fallback: K1's chunk design refuses a v_s that is not 16-byte
+    aligned, and a launch that the C entry refuses (a riffled scratch
+    narrower than a row; K2's row design at r = 1) raises."""
+    from commefficient_tpu_torch.ops.cuda.build import load_library
+
+    spec = cs.CountSketch(d=50_011, c=8_000, r=5)
+    buf = torch.zeros(spec.d_eff + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kern.launch_sketch_rows(spec, buf[1:], torch.float32, torch.float32,
+                                "chunks", 8)
+    rows, ptr, off = kern._kernel_geometry(spec, str(dev))[:3]
+    table = torch.empty(spec.table_shape, device=dev)
+    signs0 = kern.packed_sign_bits(spec, dev, rows=(0,))
+    with pytest.raises(RuntimeError, match="cs_sketch_chunks"):
+        kern._launch(load_library().cs_sketch_chunks, buf.data_ptr(),
+                     spec.d_eff, ptr.data_ptr(), off.data_ptr(),
+                     table.data_ptr(), spec.c_actual, rows, spec.r, 0, 8, 0,
+                     0, buf.data_ptr(), 4, signs0.data_ptr(),
+                     kern._stream())
+    one = cs.CountSketch(d=50_011, c=8_000, r=1)
+    with pytest.raises(RuntimeError, match="cs_estimate_rows"):
+        kern.launch_estimate_median(one, torch.zeros(one.table_shape,
+                                                     device=dev),
+                                    torch.float32, "rows", 0)
+
+
 def test_fixup_resnet50_geometry_k1_and_k2(dev):
     """FixupResNet-50's FetchSGD geometry (D = 25,504,026, r = 5, c at the
     envelope's suggestion 1,071,171: realized 1,080,848, m = 8192): K1's
-    tile kernel, and K2 in the instantiation neither ResNet-9 nor GPT-2
-    runs, rows 0-1 staged and the slot tables read in place (``<5, 2,
-    false>``), each against its plain version, and K2 against K4's range
+    chunk design (its 102 MB vector outgrows the L2), and K2 in its row
+    design (the walk's five slot tables do not fit shared memory at m =
+    8192), each against its plain version, and K2 against K4's range
     form at every coordinate."""
     spec = cs.CountSketch(d=25_504_026, c=1_071_171, r=5)
     assert (spec.c_actual, spec.chunk_m) == (1_080_848, 8192)
     plan = kern._k2_plan(spec, str(dev))
     assert plan["staged"] == (0, 1) and plan["slot_smem"] is False
+    assert (plan["design"], plan["nt"]) == ("rows", 1)
+    assert kern._kernel_geometry(spec, str(dev))[4] == ("chunks", 32)
     try:
         v_s = cs._scramble(spec, _vec(spec.d, 8, dev))
         t = kern.sketch_rows(spec, v_s)

@@ -436,3 +436,63 @@ def test_gpt2_train_main_smoke_on_cpu(tmp_path):
     assert len(prompt) > 0 and len(gen) == 24
     # the [3, 19,952] f32 table
     assert out["bytes_per_round"]["upload_bytes"] == 4 * 3 * 19_952
+
+
+_EXPORT_ARGS = [
+    "--model", "gpt2_tiny", "--mode", "sketch", "--k", "500",
+    "--num_rows", "3", "--num_cols", "20000", "--virtual_momentum", "0.9",
+    "--error_type", "virtual", "--num_clients", "4", "--num_workers", "2",
+    "--local_batch_size", "2", "--max_seq_len", "32", "--max_rounds", "2",
+    "--device", "cpu"]
+
+
+def test_gpt2_train_exports_hf_format_and_keeps_state_under_state(tmp_path):
+    """As the reference's gpt2_train (its tests/test_gpt2_train.py pins
+    ``config.json``): a finished run writes the HF-format export at the top
+    of ``--checkpoint_dir`` (``config.json`` with the base vocabulary plus
+    the 5 special tokens, ``pytorch_model.bin``) and its full-state
+    checkpoints under ``state/``; the export reads back through
+    ``load_hf_gpt2_params`` (and its MC head from the file) bit-equal to
+    the run's final params. A
+    preempted run exits 75 with its state saved and writes no export."""
+    import json
+
+    from commefficient_tpu_torch.resilience import EXIT_PREEMPTED
+    from commefficient_tpu_torch.train import gpt2_train
+    from commefficient_tpu_torch.utils.config import parse_args
+
+    ck = tmp_path / "ck"
+    args = _EXPORT_ARGS + ["--dataset_dir", str(tmp_path)]
+    out = gpt2_train.main(args + ["--checkpoint_dir", str(ck)])
+    assert out["final_step"] == 2
+    assert (ck / "config.json").is_file()
+    assert (ck / "pytorch_model.bin").is_file()
+    assert json.loads((ck / "config.json").read_text())["vocab_size"] == \
+        512 + 5
+    assert sorted(p.name for p in (ck / "state").glob("step_*.pt")) == \
+        ["step_2.pt"]
+    assert not list(ck.glob("step_*.pt"))
+    state = torch.load(ck / "state" / "step_2.pt", map_location="cpu",
+                       weights_only=True)["fed_state"]
+    cfg = parse_args(args, defaults=gpt2_train.DEFAULTS)
+    _, _, _, _, gcfg, template, _ = gpt2_train.build_model_and_data(cfg)
+    loaded, ok = hf_gpt2.load_hf_gpt2_params(str(ck), gcfg, template)
+    assert ok
+    # the mapper reads the transformer (a pretrained checkpoint's part) and
+    # keeps the caller's MC head; the export holds the run's head too
+    sd = torch.load(ck / "pytorch_model.bin", weights_only=True)
+    mc = loaded["params"]["mc_head"]
+    mc["kernel"] = sd["multiple_choice_head.summary.weight"].T
+    mc["bias"] = sd["multiple_choice_head.summary.bias"]
+    vec = ravel_params(loaded)[0]
+    assert torch.equal(vec, state["params_vec"][:vec.numel()])
+    assert not torch.equal(vec, ravel_params(template)[0])  # it trained
+
+    pre = tmp_path / "pre"
+    with pytest.raises(SystemExit) as ei:
+        gpt2_train.main(args + ["--checkpoint_dir", str(pre), "--chaos",
+                                "preempt@1"])
+    assert ei.value.code == EXIT_PREEMPTED
+    assert list((pre / "state").glob("step_*.pt"))
+    assert not (pre / "config.json").exists()
+    assert not (pre / "pytorch_model.bin").exists()

@@ -22,7 +22,14 @@ planned on the host in ``ops/cuda/index_math.py``, or mirrored here:
   below d exactly once and skips the padding, and a float32 replay equals
   the plain version bit for bit; K2's slot tables and packed sign bits
   against the spec's hashes (and the sign bits against the JAX
-  reference's in-kernel sign hash).
+  reference's in-kernel sign hash);
+* mirrors of ``csrc/riffle.cu``'s designs: K1's chunk design (each row's
+  riffled copy a bijection, the chunk copies, row 0 signed from its
+  packed sign bits, the sums in the gather's order, bit-equal to an
+  independent gather-order sum) and K2's row design (each pass tile's
+  columns inside its window, every position written once a row, the
+  final walk's row-0 windows, a float32 replay bit-equal to the plain
+  version), and the designs and shared memory the main geometries take.
 
 No card: exact integer comparisons, and the plain versions as the float
 reference. Only the sign-bit test imports the JAX reference.
@@ -736,6 +743,311 @@ def test_packed_sign_bits_equal_the_sign_hash_and_the_reference(family):
         sign = np.asarray(_row_hashes(ref_spec, row)[1](
             jnp.asarray(p.astype(np.uint32))))
         np.testing.assert_array_equal(sign, 1.0 - 2.0 * bits[at])
+
+
+# -- K1's chunk design and K2's row design (csrc/riffle.cu) -------------------
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        torch.bfloat16).float().numpy()
+
+
+def riffle_copy(spec, v, row, rnd=False):
+    """Mirror of ``cs_riffle_kernel`` for one row past the first: its 32 x
+    32 tiles cover every (a, c) of the row's [f, G] view once, each read at
+    i = a * G + c and written at p = c * f + a, signed (rounded to bf16
+    first with a bf16 operand), +0 past d_eff. Returns ``(w [L], writes of
+    each p)``."""
+    g = _row_geo(spec, row)
+    f, G = g["f"], g["G"]
+    a, c = (x.ravel() for x in np.meshgrid(np.arange(f, dtype=np.int64),
+                                           np.arange(G, dtype=np.int64),
+                                           indexing="ij"))
+    i, p = a * G + c, c * f + a
+    x = np.zeros(i.size, np.float32)
+    ok = i < spec.d_eff
+    val = v[i[ok]]
+    if rnd:
+        val = _bf16(val)
+    neg = spec.sign_bits(row, torch.from_numpy(i[ok])).numpy() == 1
+    x[ok] = np.where(neg, -val, val)
+    w = np.zeros(f * G, np.float32)
+    w[p] = x
+    return w, np.bincount(p, minlength=f * G)
+
+
+def chunk_values(spec, v, w, row, q, rnd=False, words=None):
+    """Mirror of ``cs_chunk_async`` (chunk q: m floats of the row's riffled
+    values, zero-filled at or past what exists) and, in row 0, of
+    ``cs_chunk_sign``: each 16-byte piece below d_eff rounded and signed
+    from the word ``p >> 5`` of row 0's packed sign bits, bits ``(p & 31)
+    + j``."""
+    g = _row_geo(spec, row)
+    m = g["m"]
+    p = q * m + np.arange(m, dtype=np.int64)
+    src, avail = (v, spec.d_eff) if row == 0 else (w, g["nc"] * m)
+    ok = p < avail
+    cur = np.zeros(m, np.float32)
+    cur[ok] = src[p[ok]]
+    if row == 0:  # words: row 0's packed sign bits as int64
+        piece = p - p % 4  # each thread's 16-byte piece
+        live = piece < spec.d_eff
+        if rnd:
+            cur = np.where(live, _bf16(cur), cur)
+        bits = np.zeros(m, np.int64)
+        bits[live] = (words[piece[live] >> 5] >> (piece[live] & 31)
+                      >> (p[live] - piece[live])) & 1
+        cur = np.where(bits == 1, -cur, cur)
+    return cur
+
+
+def _k1_chunk_replay(spec, v_s, W=None, rnd=False):
+    """float32 replay of ``cs_sketch_chunks``: each row's riffled copy
+    (row 0 reads v_s itself); per tile of W strides (or, with W None, per
+    row at once: the tile walk adds nothing to a column's order), the
+    chunks in ascending q, each column summing its slot's CSR run of the
+    chunk, read through the offsets, entry by entry."""
+    ptr_all, off_all = (t.numpy().astype(np.int64)
+                        for t in spec.csr_tables("cpu"))
+    v = v_s.numpy()
+    words = kern.packed_sign_bits(spec, "cpu", rows=(0,))[0].numpy().view(
+        np.uint32).astype(np.int64)
+    table = np.zeros(spec.table_shape, np.float32)
+    ptr_base = 0
+    for row in range(spec.r):
+        g = _row_geo(spec, row)
+        m, s, V, nc = g["m"], g["s"], g["V"], g["nc"]
+        assert (g["f"] == 1) == (row == 0)
+        ptr = ptr_all[ptr_base:ptr_base + V + 1]
+        off = off_all[row * m:(row + 1) * m]
+        ptr_base += V + 1
+        w = None
+        if row:
+            w, writes = riffle_copy(spec, v, row, rnd)
+            assert (writes == 1).all()
+        counts = np.diff(ptr)
+        step = (W or spec.c_actual) * s if W else spec.c_actual
+        for j0 in range(0, spec.c_actual, step):
+            ncols = min(step, spec.c_actual - j0)
+            acc = np.zeros(ncols, np.float32)
+            q_lo, q_hi = tile_chunks(j0, ncols, s, V, nc)
+            for q in range(q_lo, q_hi + 1):
+                stage = chunk_values(spec, v, w, row, q, rnd, words)[off]
+                t = np.arange(V)
+                col = q * s + t - j0
+                keep = (col >= 0) & (col < ncols)
+                for k in range(int(counts.max(initial=0))):
+                    sel = keep & (counts > k)
+                    acc[col[sel]] = acc[col[sel]] + stage[ptr[:-1][sel] + k]
+            table[row, j0:j0 + ncols] = acc
+    return table
+
+
+def _k1_gather_order(spec, v_s, rnd=False):
+    """The gather kernel's order, formulated apart from any kernel: every
+    position's signed value (rounded with a bf16 operand) summed into its
+    column in ascending riffled position p, in float32."""
+    v = v_s.numpy()
+    table = np.zeros(spec.table_shape, np.float32)
+    for row in range(spec.r):
+        g = _row_geo(spec, row)
+        p = np.arange(g["f"] * g["G"], dtype=np.int64)
+        i = (p % g["f"]) * g["G"] + p // g["f"]
+        p, i = p[i < spec.d_eff], i[i < spec.d_eff]
+        cols, sign = spec.scrambled_cols_signs(row, torch.from_numpy(i))
+        cols = cols.numpy()
+        val = v[i] * sign.numpy()
+        if rnd:
+            val = _bf16(val)
+        order = np.lexsort((p, cols))
+        cols, val = cols[order], val[order]
+        starts = np.r_[0, np.flatnonzero(np.diff(cols)) + 1]
+        depth = np.arange(cols.size) - np.repeat(starts, np.diff(
+            np.r_[starts, cols.size]))
+        acc = table[row]
+        for k in range(int(depth.max(initial=-1)) + 1):
+            sel = depth == k
+            acc[cols[sel]] = acc[cols[sel]] + val[sel]
+    return table
+
+
+K1_CHUNK_SPECS = [
+    # (d, c, r, band, m): u < band and padding past d_eff, a ResNet-9-like
+    # row set, m = 1000 (not a power of two), m = 8192 (GPT-2's chunk)
+    (212, 512, 4, 16, None),
+    (50_011, 8_000, 5, 16, None),
+    (20_011, 4_000, 3, 16, 1000),
+    (100_003, 20_000, 5, 16, 8192),
+]
+
+
+@pytest.mark.parametrize("rnd", [False, True], ids=["f32", "bf16_operand"])
+@pytest.mark.parametrize("family", ["fmix32", "poly4"])
+@pytest.mark.parametrize("geo", K1_CHUNK_SPECS, ids=lambda g: f"d{g[0]}")
+def test_k1_chunk_replay_equals_gather_order_bit_for_bit(geo, family, rnd):
+    d, c, r, band, m = geo
+    spec = cs.CountSketch(d=d, c=c, r=r, band=band, m=m, hash_family=family)
+    v = torch.from_numpy(np.random.default_rng(d).normal(
+        size=spec.d).astype(np.float32))
+    v_s = cs._scramble(spec, v)
+    got = _k1_chunk_replay(spec, v_s, rnd=rnd)
+    np.testing.assert_array_equal(got, _k1_gather_order(spec, v_s, rnd))
+    if d == 212:  # the tile walk itself, at two widths, and the old kernel
+        for W in (2, 32):
+            np.testing.assert_array_equal(
+                _k1_chunk_replay(spec, v_s, W, rnd), got)
+        if not rnd:
+            np.testing.assert_array_equal(_k1_replay(spec, v_s, 32), got)
+    operand = torch.bfloat16 if rnd else torch.float32
+    want = kern.sketch_rows_torch(spec, v_s, operand).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def test_chunk_design_plan_at_the_main_geometries():
+    """ResNet-9 (a 26 MB vector, in L2) keeps the tile kernel; FixupResNet-
+    50 and GPT-2 (102 and 498 MB) take the chunk design, two 90 KB blocks
+    a multiprocessor at 32 strides, whose riffled scratch holds every row
+    past the first; a chunk that is no whole number of 16-byte copies
+    takes none."""
+    for (d, c), want in (((6_573_130, 500_000), ("tiles", 32)),
+                         ((25_504_026, 1_071_171), ("chunks", 32)),
+                         ((124_444_417, 5_000_000), ("chunks", 32))):
+        spec = cs.CountSketch(d=d, c=c, r=5)
+        shapes = [(spec.chunk_m, spec.s_row(r), spec.V_row(r))
+                  for r in range(spec.r)]
+        assert index_math.sketch_design(shapes, spec.d_eff) == want
+        assert kern._kernel_geometry(spec, "cpu")[4] == want \
+            if d < 10**7 else True
+        smem = max(index_math.chunk_smem_bytes(m, V) for m, s, V in shapes)
+        assert 2 * smem <= 2 * index_math.K1C_SMEM_LIMIT \
+            <= index_math.K1_SMEM_LIMIT
+        assert all(32 * s <= 4 * index_math.K1C_GROUPS
+                   * index_math.K1C_THREADS for m, s, V in shapes)
+        lengths = [spec._L_row(r) for r in range(spec.r)]
+        pitch = index_math.riffle_pitch(lengths)
+        assert pitch % 4 == 0 and pitch >= max(lengths[1:])
+        assert all(-(-spec._factor(r) // 32) <= 65535 for r in range(5))
+    assert index_math.chunk_tile_strides([(1002, 304, 4864)]) == 0
+    assert index_math.sketch_design([(1002, 304, 4864)], 10**8) == \
+        ("tiles", 32)
+
+
+def k2_rows_replay(spec, plan, table, operand, nt):
+    """float32 replay of ``cs_estimate_rows`` with row 0 in the final walk
+    (nt = 1) or through the pass (nt = 0): the per-row pass over tiles of
+    ``32 << lg`` c values of each row's [f, G] view, each tile's columns
+    inside its window (within ``index_math.k2_rows_window``), every
+    position below d_eff written once a row; then the final walk over the
+    K2 tiles (``k2_walk``), row 0's columns inside its tile window, the
+    median network in row order, written at x."""
+    P = spec.kernel_row_params()
+    t = kern._read_table(table, operand).numpy()
+    words = plan["signs"].numpy().view(np.uint32).astype(np.int64)
+    slots = plan["slots"].numpy().astype(np.int64)
+    est = np.zeros((spec.r - nt, spec.d_eff), np.float32)
+    writes = np.zeros((spec.r - nt, spec.d_eff), np.int64)
+
+    def signed(row, i, col):
+        neg = (words[row, i >> 5] >> (i & 31)) & 1
+        return t[row, col] * (1.0 - 2.0 * neg).astype(np.float32)
+
+    for k, row in enumerate(range(nt, spec.r)):
+        f, G, s, V = (int(P[row, x]) for x in (cs.RP_F, cs.RP_G, cs.RP_S,
+                                               cs.RP_V))
+        m, lg = spec.chunk_m, plan["row_lg"][row]
+        kc, bound = 32 << lg, index_math.k2_rows_window(lg, f, m, s, V)
+        # every (a, c) of the row's [f, G] view, c-tile by c-tile
+        a, c = (x.ravel() for x in np.meshgrid(
+            np.arange(f, dtype=np.int64), np.arange(G, dtype=np.int64),
+            indexing="ij"))
+        tix = c // kc
+        c0 = np.arange(-(-G // kc), dtype=np.int64) * kc
+        c1 = np.minimum(c0 + kc, G)
+        q_lo, q_hi = (c0 * f) // m, (c1 * f - 1) // m
+        w0, wlen = q_lo * s, (q_hi - q_lo) * s + V
+        assert wlen.max() <= bound
+        i = a * G + c
+        keep = i < spec.d_eff
+        i, tix, p = i[keep], tix[keep], c[keep] * f + a[keep]
+        q = p // m
+        col = q * s + slots[row, p - q * m]
+        assert (col >= w0[tix]).all() and (col < w0[tix] + wlen[tix]).all()
+        est[k, i] = signed(row, i, col)
+        writes[k] += np.bincount(i, minlength=spec.d_eff)
+    assert (writes == 1).all()
+    tile, i, x, cols = k2_walk(spec, plan)
+    keep = x < spec.d
+    rows = [torch.from_numpy(est[k, i]) for k in range(spec.r - nt)]
+    if nt:
+        s0, V0, m = int(P[0, cs.RP_S]), int(P[0, cs.RP_V]), spec.chunk_m
+        i0 = tile * plan["per_tile"]
+        i_end = np.minimum(i0 + plan["per_tile"], spec.d_eff)
+        w0 = (i0 // m) * s0
+        wlen = ((i_end - 1) // m - i0 // m) * s0 + V0
+        assert (wlen <= plan["row0_window"]).all()
+        assert ((cols[0] >= w0) & (cols[0] < w0 + wlen)).all()
+        rows.insert(0, torch.from_numpy(signed(0, i, cols[0])))
+    med = kern._median_network(rows)
+    out = torch.full((spec.d,), float("nan"))
+    out[torch.from_numpy(x[keep])] = med[torch.from_numpy(keep)]
+    return out
+
+
+@pytest.mark.parametrize("geo,family", [
+    (g, fam) for g in K2_SPECS[1:] for fam in ("fmix32", "poly4")
+    if g[2] < 8 or fam == "fmix32"],  # r = 8 (1.2M positions): fmix32
+    ids=lambda x: f"d{x[0]}_sb{x[5]}" if isinstance(x, tuple) else x)
+def test_k2_rows_replay_equals_plain_version_bit_for_bit(geo, family):
+    """Both row splits (row 0 in the final walk, and through the pass), the
+    f32 table and the f32 table read as bf16, at the small geometries,
+    without the scramble and with m and b not powers of two."""
+    spec = _k2_spec(*geo, family=family)
+    plan = kern._k2_plan(spec, "cpu")
+    assert all(lg is not None for lg in plan["row_lg"])
+    table = torch.from_numpy(np.random.default_rng(geo[0] + 1).normal(
+        size=spec.table_shape).astype(np.float32))
+    for operand in (torch.float32, torch.bfloat16):
+        want = kern.estimate_median_torch(spec, table, operand)
+        for nt in (0, 1):
+            got = k2_rows_replay(spec, plan, table, operand, nt)
+            assert torch.equal(got, want), (nt, operand)
+
+
+def test_k2_design_plan_at_the_main_geometries():
+    """ResNet-9's table (10 MB) fits the L2 and its five slot tables
+    shared memory: the walk. FixupResNet-50's (20 MB, but m = 8192: 80 KB
+    of slot tables) and GPT-2's (100 MB) take the row design with row 0 in
+    the final walk. Its blocks fit two a multiprocessor: each row's window
+    and its uint16 slot table (the pass), row 0's window, slot table and
+    the tile's block offsets (the final walk)."""
+    for (d, c), want in (((6_573_130, 500_000), ("walk", 5)),
+                         ((25_504_026, 1_071_171), ("rows", 1)),
+                         ((124_444_417, 5_000_000), ("rows", 1))):
+        spec = cs.CountSketch(d=d, c=c, r=5)
+        geo = kern._row_geo(spec)
+        lgs = [index_math.k2_rows_lg(*g, 4) for g in geo]
+        m, s0, V0 = spec.chunk_m, geo[0][3], geo[0][4]
+        v_max = max(g[4] for g in geo)
+        walk16 = index_math.k2_slots_in_smem(5, m, v_max)
+        slot16 = index_math.k2_slots_in_smem(1, m, v_max)
+        row0 = (-(-index_math.K2_COORDS // m) + 1) * s0 + V0
+        assert index_math.k2_design(5, 4 * 5 * spec.c_actual, walk16, lgs,
+                                    slot16, row0, 4) == want
+        if want[0] != "rows":
+            continue
+        assert slot16 and None not in lgs
+        rows_smem = 2 * m + 4 * max(index_math.k2_rows_window(lg, *g[:1],
+                                                              *g[2:])
+                                    for lg, g in zip(lgs, geo))
+        final_smem = 2 * m + 4 * index_math.K2_COORDS // 64 + 4 * row0
+        assert max(rows_smem, final_smem) <= index_math.K1C_SMEM_LIMIT
+        if d > 10**8:  # the pass's tiles: powers of two times 32 c
+            assert [32 << lg for lg in lgs[1:]] == [2048, 32, 32, 64]
+    # a table that fits the L2 with slot tables that fit shared memory
+    assert index_math.k2_design(5, 2 * 5 * 5_000_688, True, [0] * 5, True,
+                                0, 2) == ("walk", 5)
 
 
 # -- the build report ---------------------------------------------------------
