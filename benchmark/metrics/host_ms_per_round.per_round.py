@@ -1,0 +1,8 @@
+"""``host_ms_per_round.per_round``: ``host_ms_per_round`` (``host_ms_per_round.py``) in the cells
+dispatched round by round, where it moves ``round_ms.per_round``."""
+
+from benchmark.harness.spec import reader
+
+
+def read(ctx):
+    return reader("host_ms_per_round").read(ctx)
