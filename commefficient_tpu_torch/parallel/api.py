@@ -72,6 +72,7 @@ from commefficient_tpu_torch.telemetry.round_audit import (
     exposed_collective_ms,
     ledger_tolerance,
 )
+from commefficient_tpu_torch.telemetry.spans import ROUND_PHASES
 from commefficient_tpu_torch.telemetry.trace import (
     round_trace_id,
     trace_round_scalars,
@@ -580,6 +581,9 @@ class FederatedSession:
         self.round_fn = (rung.round_fn
                          if self._fleet_width == self.cfg.num_workers
                          else rung.width_fns[self._fleet_width])
+        # the closure itself, whose phase_mark a detailed span recorder
+        # sets for a round (round_fn may be a caller's wrapper around it)
+        self._round_closure = self.round_fn
 
     def _set_fleet_width(self, w: int) -> None:
         """Commit fleet width ``w``: a lookup (no closure is built), its
@@ -1116,7 +1120,9 @@ class FederatedSession:
         ``device_put`` (the copy of its inputs), ``fedsim_env`` and
         ``round_dispatch`` under its trace id, and its metrics gain the
         host scalars ``xla/exposed_collective_ms`` and the lagged
-        ``trace/*`` of round ``step - 2``."""
+        ``trace/*`` of round ``step - 2``. A detailed recorder (``detail``)
+        also gets the round function's phases inside ``round_dispatch``
+        and, on the card, the allocator's counters over it (``_round``)."""
         w = self._fleet_round_begin()
         if w != self.cfg.num_workers:
             client_ids = self._fleet_slice(client_ids, w)
@@ -1256,14 +1262,32 @@ class FederatedSession:
         return None
 
     def _span(self, name: str, fence=None, collective: bool = False,
-              trace_id=None):
+              trace_id=None, allocator=None):
         """A phase span of the attached recorder (``telemetry/spans.py``),
         or a context that records nothing without one. ``collective=True``
-        tags a dispatch whose fence waits on the group's collectives."""
+        tags a dispatch whose fence waits on the group's collectives;
+        ``allocator`` is the device whose allocator counters a detailed
+        recorder reads over the span."""
         if self.spans is None:
             return contextlib.nullcontext()
         return self.spans.span(name, fence=fence, collective=collective,
-                               trace_id=trace_id)
+                               trace_id=trace_id, allocator=allocator)
+
+    @staticmethod
+    def _phase_spans(spans, trace_id: str):
+        """A round function's ``mark`` that records each of
+        ``ROUND_PHASES`` as it ends: host time between two marks, a child
+        of the round's ``round_dispatch``."""
+        t = [0.0] * (len(ROUND_PHASES) + 1)
+
+        def mark(i: int) -> None:
+            # lint: allow[traced-purity] the session sets phase_mark only around its own per-round dispatch; a captured round runs with None
+            t[i] = time.perf_counter()
+            if i:
+                spans.span_at(ROUND_PHASES[i - 1], t[i - 1], t[i],
+                              trace_id=trace_id, parent="round_dispatch")
+
+        return mark
 
     def server_draw(self, step: int) -> Optional[torch.Tensor]:
         """Round ``step``'s server-step draw on the device
@@ -1307,14 +1331,26 @@ class FederatedSession:
             rows = self._cohort_rows(cohort_ids, cohort, tid)
         arm = self.audit_arm if self.audit_arm is not None \
             and self.audit_arm.armed else None
+        # a detailed recorder records the round function's phases (an
+        # FSDP closure has none to chain)
+        closure = (self._round_closure if self.spans is not None
+                   and self.spans.detail
+                   and hasattr(self._round_closure, "phase_mark") else None)
         # the dispatch waits on the group's collectives; one device has
         # none, and a tagged span would charge its compute to the
         # critical path's "collective" stage
         with self._span("round_dispatch", collective=self.group.size > 1,
-                        trace_id=tid) as sp:
-            with arm.measure(step) if arm else contextlib.nullcontext():
-                out = self.round_fn(self.state, ids, batch, lr, *rows,
-                                    env=env, draw=self.server_draw(step))
+                        trace_id=tid, allocator=self.device) as sp:
+            if closure is not None:
+                closure.phase_mark = self._phase_spans(self.spans, tid)
+            try:
+                with arm.measure(step) if arm else contextlib.nullcontext():
+                    out = self.round_fn(self.state, ids, batch, lr, *rows,
+                                        env=env,
+                                        draw=self.server_draw(step))
+            finally:
+                if closure is not None:
+                    closure.phase_mark = None
             self.state, metrics = out[:2]
             if rows:
                 # asynchronous: the writeback waits on an event recorded

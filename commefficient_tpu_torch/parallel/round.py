@@ -836,7 +836,9 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     ``i`` begins (0: the client gradients and transmits, 1: the encode and
     aggregate, 2: the server, 3: the apply, the banks' write-back and, at
     ``telemetry_level >= 1``, the ``diag/*`` scalars) and at the end
-    (4)."""
+    (4). The closure's ``phase_mark`` attribute (None unless the session's
+    span recorder sets it for a round) is a second such callback, called
+    after the caller's: a wrapper that passes its own ``mark`` keeps it."""
     comp.resolved_dampening()  # the mode's warnings, once, at build time
     per_client = make_per_client(cfg, comp,
                                  make_grad_one(cfg, loss_fn, unravel))
@@ -865,7 +867,7 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
     @torch.no_grad()
     def round_fn(state: FedState, client_ids, batch, lr: float, *rows,
                  mark=None, env=None, noise=None, draw=None):
-        mark = mark or (lambda i: None)
+        mark = chain_marks(mark, round_fn.phase_mark)
         if fedsim and env is None:
             raise ValueError(
                 "fedsim is enabled (cfg.fedsim_enabled) but no env was "
@@ -950,7 +952,24 @@ def build_round_fn(cfg, loss_fn: Callable, unravel: Callable, comp, group):
             return new_state, metrics, new_vel, new_err
         return new_state, metrics
 
+    round_fn.phase_mark = None
     return round_fn
+
+
+def chain_marks(mark, phase_mark):
+    """A round function's phase callback: the caller's ``mark``, then the
+    closure's ``phase_mark`` (the session's phase spans), either of them
+    None; a no-op without both."""
+    if phase_mark is None:
+        return mark or (lambda i: None)
+    if mark is None:
+        return phase_mark
+
+    def both(i):
+        mark(i)
+        phase_mark(i)
+
+    return both
 
 
 def _ignore_where(keep, labels):

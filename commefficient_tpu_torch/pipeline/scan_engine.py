@@ -184,7 +184,7 @@ class ScanRounds:
         self.on_card = session.device.type == "cuda"
         self.cfg = cfg
         self.session = session
-        self.spans = spans
+        self._spans = spans
         self.K = int(cfg.scan_rounds)
         self.num_rounds = int(num_rounds)
         self.steps_per_epoch = int(steps_per_epoch if steps_per_epoch
@@ -517,7 +517,8 @@ class ScanRounds:
                 self.spans.step(bstart)
             t_disp = time.perf_counter()
             with self._span("round_dispatch", bstart,
-                            trace_id=round_trace_id(bstart)) as sp:
+                            trace_id=round_trace_id(bstart),
+                            allocator=sess.device, rounds=L) as sp:
                 packs = self._run_block(bstart, L, inputs)
                 if sp is not None:
                     sp.fence(packs["loss"])
@@ -533,10 +534,17 @@ class ScanRounds:
                 yield s, float(self._lr_fn(s)), metrics, wait_ms, t_disp
                 wait_ms = 0.0
 
-    def _span(self, name: str, step: int, trace_id=None):
-        if self.spans is None:
+    @property
+    def spans(self):
+        """The span recorder given at construction, else the session's
+        as it stands (one attached after the engine was built)."""
+        return self._spans if self._spans is not None else self.session.spans
+
+    def _span(self, name: str, step: int, trace_id=None, **detail):
+        spans = self.spans
+        if spans is None:
             return contextlib.nullcontext()
-        return self.spans.span(name, step=int(step), trace_id=trace_id)
+        return spans.span(name, step=int(step), trace_id=trace_id, **detail)
 
     # -- stats ----------------------------------------------------------------------------
     def stats(self) -> dict:

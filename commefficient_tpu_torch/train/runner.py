@@ -157,11 +157,11 @@ def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
     before, when given). Yields ``(step, lr, metrics, wait_ms,
     t_dispatch)``: ``wait_ms`` the wait on the prefetch queue,
     ``t_dispatch`` the ``perf_counter`` time the round was dispatched.
-    With the session's span recorder attached, each wait is a
-    ``data_load`` span on the round clock as it stands (the previous
-    round's, as the reference's ``wrap_iter`` stamps it)."""
+    With the session's span recorder attached (read each round, so one
+    attached mid-epoch records), each wait is a ``data_load`` span on the
+    round clock as it stands (the previous round's, as the reference's
+    ``wrap_iter`` stamps it)."""
     spe = sampler.steps_per_epoch()
-    spans = session.spans
     on_device = session.data_path == "device"
     rounds = prefetch(sampler.epoch_indices(epoch) if on_device
                       else sampler.epoch(epoch))
@@ -172,8 +172,8 @@ def _sync_epoch_rounds(cfg, session, sampler, lr_fn, epoch: int,
             item = next(rounds)
             t1 = time.perf_counter()
             wait_ms = 1e3 * (t1 - t0)
-            if spans is not None:
-                spans.span_at("data_load", t0, t1)
+            if session.spans is not None:
+                session.spans.span_at("data_load", t0, t1)
             if s >= start:  # fast-forward within the resumed epoch
                 lr = float(lr_fn(s))
                 if before_dispatch is not None:
